@@ -1,0 +1,59 @@
+"""Carry the JAX package's arrays over into the port's tensors.
+
+The renderer's counterpart of carrying weights: the scene dict of
+plainrenderer_tpu's scene_to_device (frame.py:1156), its FrameState and
+its bake_static_luts dict (frame.py:1257) arrive here as numpy arrays (or
+anything np.asarray accepts) and leave as tensors on `device`, so both
+sides of a comparison start from the same scene, state and LUTs. This
+module imports nothing of the JAX package: the caller converts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import device as device_mod
+from .render.state import FrameState
+
+# scene keys the port reads; anything else in the dict belongs to slices
+# the port has not reached and is refused rather than dropped
+SCENE_KEYS = ("corners", "corner_uvs", "corner_normals", "corner_tangents",
+              "corner_bitangents", "tri_material", "tri_object",
+              "material_table", "object_bb_min", "object_bb_max",
+              "tri_starts", "object_build_inv")
+LUT_KEYS = ("transmission", "multiscatter", "blue_noise")
+
+
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a), device=dev)  # a writable copy
+
+
+def scene_from_arrays(scene: dict, device="cuda") -> dict:
+    """JAX scene dict (arrays) -> the port's scene tensor dict."""
+    dev = device_mod.resolve(device)
+    extra = sorted(set(scene) - set(SCENE_KEYS))
+    if extra:
+        raise NotImplementedError(
+            f"scene keys of later slices: {extra} (textures, alpha masks, "
+            "SDF volumes, dynamic objects)")
+    return {k: _tensor(scene[k], dev) for k in SCENE_KEYS}
+
+
+def state_from_arrays(state, device="cuda") -> FrameState:
+    """JAX FrameState (a NamedTuple of arrays) -> the port's FrameState."""
+    dev = device_mod.resolve(device)
+    fields = state._asdict() if hasattr(state, "_asdict") else dict(state)
+    names = [f.name for f in dataclasses.fields(FrameState)]
+    if sorted(fields) != sorted(names):
+        raise ValueError(f"FrameState fields differ: {sorted(fields)} vs "
+                         f"{sorted(names)}")
+    return FrameState(**{k: _tensor(fields[k], dev) for k in names})
+
+
+def luts_from_arrays(luts: dict, device="cuda") -> dict:
+    """JAX bake_static_luts dict -> the port's LUT tensor dict."""
+    dev = device_mod.resolve(device)
+    return {k: _tensor(luts[k], dev) for k in LUT_KEYS}

@@ -1,0 +1,147 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+The sources under csrc/ expose a plain C interface (no PyTorch headers),
+so each compiles with nvcc in seconds. At first use every source is
+compiled to an object file for sm_90a, all nvcc processes started
+together, and the objects are linked into one shared library under
+_build/<hash of sources and flags>/. The library is loaded with ctypes:
+every pointer and the stream are passed as c_void_p, every C entry point
+returns cudaGetLastError() after its launch, and launch() raises when that
+is not cudaSuccess.
+
+launch() is the only place that bumps a kernel's launch count, and the
+wrappers in ops/ call it only on the branch that runs the kernel, so a
+count read after a run says how many times the run went through that
+kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+SOURCES = ("expand_keys.cu", "gbuffer.cu", "material.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> (launch-count key, argtypes); every entry returns int
+_ENTRIES = {
+    # cum, cum_ex, geom, keys, owners, t_count, budget, n_tiles_x,
+    # bin_rows, order_rows, tpv, sentinel, stream
+    "expand_keys_launch": ("expand_keys", [_P] * 5 + [_I] * 7 + [_P]),
+    # edges, attrs, tile_start, tile_count, depth, vis, gbuf, n_pairs,
+    # n_tiles_y, n_tiles_x, sub, row_skip, stream
+    "gbuffer_launch": ("gbuffer", [_P] * 7 + [_I] * 5 + [_P]),
+    # table, ids, valid, out, n_pix, channels, stream
+    "material_launch": ("material", [_P] * 4 + [_I] * 2 + [_P]),
+}
+
+_launches = {key: 0 for key, _ in _ENTRIES.values()}
+_lib = None
+_lock = threading.Lock()
+
+
+def launch_counts() -> dict:
+    """Kernel name -> launches since the last reset_launch_counts()."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for key in _launches:
+        _launches[key] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH)")
+    return found
+
+
+def _build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + ("common.cuh",):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/ into one shared library (cached by content hash);
+    returns its path. Raises with nvcc's output when a compile fails."""
+    out_dir = _build_dir()
+    lib_path = out_dir / "libplain_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name in SOURCES:
+        # per-process names: concurrent first uses must not share files
+        obj = out_dir / f"{Path(name).stem}.{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC / name),
+               "-o", str(obj)]
+        procs.append((name, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs = []
+    for name, _, proc in procs:
+        text, _ = proc.communicate()
+        logs.append(f"== {name}\n{text}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{text}")
+    tmp = out_dir / f"libplain_kernels.{os.getpid()}.so"
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", *[str(o) for _, o, _ in procs],
+         "-o", str(tmp)], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    (out_dir / "ptxas.log").write_text("\n".join(logs))
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (_, argtypes) in _ENTRIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.plain_kernels_error_string.argtypes = [ctypes.c_int]
+            lib.plain_kernels_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch(entry: str, *args) -> None:
+    """Call one C entry point with args (tensors pass their data_ptr(),
+    ints pass as they are) on the current CUDA stream, raise on a launch
+    error, and count the launch."""
+    import torch
+
+    lib = library()
+    stream = torch.cuda.current_stream().cuda_stream
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    err = getattr(lib, entry)(*c_args, stream)
+    if err != 0:
+        msg = lib.plain_kernels_error_string(err).decode()
+        raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")
+    _launches[_ENTRIES[entry][0]] += 1

@@ -1,0 +1,669 @@
+"""Triangle rasterization for the main view: setup, binning, G-buffer.
+
+Port of plainrenderer_tpu/ops/raster.py for the opaque main view. The
+three stages keep the reference's contracts (the (3, 4, T) edge table,
+the (16, P) / (32, P) pair-row tables, the packed int32 sort key, the
+packed depth | slot winner rule, the 13-channel G-buffer layout):
+
+  1. geometry_setup (plain PyTorch): per-triangle 2D-homogeneous edge
+     planes, reverse-Z depth plane, perspective-correct attribute planes
+     and tile bboxes, as (T,) lane vectors in the JAX package's op order;
+  2. build_pairs: spans + int32 prefix sum, then kernel A (expand_keys,
+     csrc/expand_keys.cu) maps every pair-stream slot to its sort key, one
+     torch.sort orders the stream, torch.searchsorted finds each bin's
+     segment; gather_pair_setups duplicates setup rows into pair order;
+  3. rasterize_gbuffer: kernel B (csrc/gbuffer.cu), one thread block per
+     (sub * 16) x 128 bin, resolves visibility and evaluates the winner's
+     attribute planes.
+
+Each kernel wrapper runs its plain PyTorch version (*_plain, in this
+module) only when its inputs lie on the CPU; for CUDA tensors it launches
+the kernel or raises. chip_smoke.py holds every kernel to its plain version
+on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import native
+
+TILE_H = 16
+TILE_W = 128
+PX_PER_TILE = TILE_H * TILE_W  # 2048
+GROUP = 128  # segment alignment unit: vis slots count from start // GROUP
+SLOT_BITS = 11  # pair-slot bits packed into the depth mantissa
+SLOT_MASK = (1 << SLOT_BITS) - 1
+MAX_PAIRS_PER_TILE = 1 << SLOT_BITS
+NATTR = 30  # attribute-plane rows per triangle (10 planes x 3 coeffs)
+NATTR_PREV = NATTR + 9  # + previous-frame clip planes (dynamic scenes)
+
+# G-buffer channels: uv 0-1, uv screen derivatives 2-5, normal 6-8,
+# tangent 9-11, packed material * 2 + (handedness < 0) 12
+GBUF_CHANNELS = 13
+_CH_N = 6  # 6-8 normal
+_CH_T = 9  # 9-11 tangent
+_CH_MAT = 12  # packed material * 2 + (handedness < 0)
+
+
+def pad_resolution(width: int, height: int) -> tuple[int, int]:
+    """Framebuffer padded so tiles divide it exactly."""
+    w = (width + TILE_W - 1) // TILE_W * TILE_W
+    h = (height + TILE_H - 1) // TILE_H * TILE_H
+    return w, h
+
+
+@dataclasses.dataclass
+class TriangleSetup:
+    """Per-triangle raster state (all dense, (T,)-leading)."""
+
+    edges: torch.Tensor  # (3, 4, T) f32: [coeff a/b/c][plane e0 e1 e2 z][tri]
+    attrs: torch.Tensor  # (NATTR, T) f32 attr-plane rows
+    tile_bbox: torch.Tensor  # (T, 4) i32: ty0, tx0, ty1, tx1 (inclusive)
+    valid: torch.Tensor  # (T,) bool
+    fine_y: torch.Tensor  # (T, 2) i32 fine (16px) row bbox; (1, 0) invalid
+
+
+@dataclasses.dataclass
+class PairLists:
+    """Sorted (bin, triangle) pair stream + per-bin ranges."""
+
+    pair_tri: torch.Tensor  # (P,) i32 triangle per pair (T == dummy)
+    tile_start: torch.Tensor  # (n_tiles,) i32 raw offset into the stream
+    tile_count: torch.Tensor  # (n_tiles,) i32 pairs per bin (capped)
+    overflow: torch.Tensor  # () i32 dropped pairs
+
+
+def _kernel_device(t: torch.Tensor) -> bool:
+    """True when a wrapper must launch its kernel (CUDA tensor), False for
+    the plain version (CPU tensor); raises on any other device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def _require(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
+    if t.dtype != dtype or t.dim() != ndim or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want contiguous {dtype} with {ndim} dims on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+# --------------------------------------------------------------------------
+# geometry stage
+# --------------------------------------------------------------------------
+
+def geometry_setup(corners, corner_uvs, corner_normals, corner_tangents,
+                   corner_bitangents, tri_material, tri_visible, view_proj,
+                   width: int, height: int, cull: str = "back",
+                   near_w: float = 0.0, bin_rows: int = 1) -> TriangleSetup:
+    """Dense per-triangle setup (raster.py:104 geometry_setup).
+
+    Edge and attribute planes are built in 2D homogeneous viewport space
+    (cross products of (X, Y, W) vertex rows, never dividing by w), so
+    near-plane-crossing triangles rasterize their visible region exactly;
+    the bbox covers the vertices in front of the near plane plus the
+    edge/near-plane intersections. Every expression keeps the JAX
+    package's operand order. The previous-frame planes of dynamic objects,
+    the alpha-test plane table and the attribute-free shadow setup arrive
+    with their slices."""
+    cx = [corners[:, v, 0] for v in range(3)]
+    cy = [corners[:, v, 1] for v in range(3)]
+    cz = [corners[:, v, 2] for v in range(3)]
+    m = view_proj
+
+    def project(v):
+        xc = m[0, 0] * cx[v] + m[0, 1] * cy[v] + m[0, 2] * cz[v] + m[0, 3]
+        yc = m[1, 0] * cx[v] + m[1, 1] * cy[v] + m[1, 2] * cz[v] + m[1, 3]
+        zc = m[2, 0] * cx[v] + m[2, 1] * cy[v] + m[2, 2] * cz[v] + m[2, 3]
+        wc = m[3, 0] * cx[v] + m[3, 1] * cy[v] + m[3, 2] * cz[v] + m[3, 3]
+        return ((xc * 0.5 + 0.5 * wc) * width,  # Vulkan y-down == screen
+                (yc * 0.5 + 0.5 * wc) * height, zc, wc)
+
+    proj = [project(v) for v in range(3)]
+    sx_h = [p[0] for p in proj]
+    sy_h = [p[1] for p in proj]
+    z_h = [p[2] for p in proj]
+    w = [p[3] for p in proj]
+
+    def cross3(i, j):
+        a = sy_h[i] * w[j] - sy_h[j] * w[i]
+        b = w[i] * sx_h[j] - sx_h[i] * w[j]
+        c = sx_h[i] * sy_h[j] - sy_h[i] * sx_h[j]
+        return a, b, c
+
+    e0 = cross3(1, 2)
+    e1 = cross3(2, 0)
+    e2 = cross3(0, 1)
+    # det = 2 * signed screen area * w0*w1*w2: the clip-space facing test
+    det = e0[0] * sx_h[0] + e0[1] * sy_h[0] + e0[2] * w[0]
+
+    if cull == "back":
+        face_ok = det > 0
+    elif cull == "front":
+        face_ok = det < 0
+    else:
+        face_ok = torch.abs(det) > 0
+
+    near_lim = max(near_w, 1e-9)
+    any_front = ((w[0] >= near_lim) | (w[1] >= near_lim)
+                 | (w[2] >= near_lim))
+    valid = face_ok & tri_visible & any_front & (torch.abs(det) > 1e-12)
+
+    # orient edges so inside == all(E >= 0) for either winding
+    flip = torch.where(det < 0, -1.0, 1.0)
+    inv_absdet = 1.0 / torch.where(valid, torch.abs(det), 1.0)
+    e0 = tuple(c * flip for c in e0)
+    e1 = tuple(c * flip for c in e1)
+    e2 = tuple(c * flip for c in e2)
+
+    def plane(q0, q1, q2):
+        """Screen-affine plane of q/w from raw per-vertex q."""
+        qa = (q0 * e0[0] + q1 * e1[0] + q2 * e2[0]) * inv_absdet
+        qb = (q0 * e0[1] + q1 * e1[1] + q2 * e2[1]) * inv_absdet
+        qc = (q0 * e0[2] + q1 * e1[2] + q2 * e2[2]) * inv_absdet
+        return qa, qb, qc
+
+    zp = plane(z_h[0], z_h[1], z_h[2])
+    never = (0.0, 0.0, -1.0)
+    e0 = tuple(torch.where(valid, c, n) for c, n in zip(e0, never))
+    e1 = tuple(torch.where(valid, c, n) for c, n in zip(e1, never))
+    e2 = tuple(torch.where(valid, c, n) for c, n in zip(e2, never))
+    zp = tuple(torch.where(valid, c, 0.0) for c in zp)
+    plane_sets = [e0, e1, e2, zp]
+    edges = torch.stack(
+        [torch.stack([p[coeff] for p in plane_sets], dim=0)
+         for coeff in range(3)], dim=0).to(torch.float32)
+
+    bin_h = TILE_H * bin_rows
+    ntx = width // TILE_W
+    nty = height // bin_h
+    if near_w <= 0.0:
+        wd = [torch.clamp_min(wv, 1e-9) for wv in w]
+        xs = [sx_h[v] / wd[v] for v in range(3)]
+        ys = [sy_h[v] / wd[v] for v in range(3)]
+        xmin = torch.minimum(torch.minimum(xs[0], xs[1]), xs[2])
+        xmax = torch.maximum(torch.maximum(xs[0], xs[1]), xs[2])
+        ymin = torch.minimum(torch.minimum(ys[0], ys[1]), ys[2])
+        ymax = torch.maximum(torch.maximum(ys[0], ys[1]), ys[2])
+    else:
+        big = 1e9
+        xmin = torch.full_like(det, big)
+        xmax = torch.full_like(det, -big)
+        ymin = torch.full_like(det, big)
+        ymax = torch.full_like(det, -big)
+
+        def fold(ok, px, py):
+            nonlocal xmin, xmax, ymin, ymax
+            xmin = torch.minimum(xmin, torch.where(ok, px, big))
+            xmax = torch.maximum(xmax, torch.where(ok, px, -big))
+            ymin = torch.minimum(ymin, torch.where(ok, py, big))
+            ymax = torch.maximum(ymax, torch.where(ok, py, -big))
+
+        for v in range(3):
+            wd = torch.clamp_min(w[v], near_lim)
+            fold(w[v] >= near_lim, sx_h[v] / wd, sy_h[v] / wd)
+        inv_near = 1.0 / near_lim
+        for i, j in ((0, 1), (1, 2), (2, 0)):
+            denom = w[j] - w[i]
+            t = (near_lim - w[i]) / torch.where(
+                torch.abs(denom) > 1e-12, denom, 1.0)
+            crossing = (((w[i] - near_lim) * (w[j] - near_lim) < 0.0)
+                        & (torch.abs(denom) > 1e-12))
+            fold(crossing,
+                 (sx_h[i] + t * (sx_h[j] - sx_h[i])) * inv_near,
+                 (sy_h[i] + t * (sy_h[j] - sy_h[i])) * inv_near)
+
+    def to_cell(v, size, n):
+        return torch.clamp(torch.floor(v / size), 0, n - 1).to(torch.int32)
+
+    tx0, tx1 = to_cell(xmin, TILE_W, ntx), to_cell(xmax, TILE_W, ntx)
+    ty0, ty1 = to_cell(ymin, bin_h, nty), to_cell(ymax, bin_h, nty)
+    offscreen = (xmax < 0) | (xmin >= width) | (ymax < 0) | (ymin >= height)
+    valid = valid & ~offscreen
+    tile_bbox = torch.stack([
+        torch.where(valid, ty0, 1), torch.where(valid, tx0, 1),
+        torch.where(valid, ty1, 0), torch.where(valid, tx1, 0)], dim=1)
+    n_fy = height // TILE_H
+    fy0, fy1 = to_cell(ymin, TILE_H, n_fy), to_cell(ymax, TILE_H, n_fy)
+    fine_y = torch.stack([torch.where(valid, fy0, 1),
+                          torch.where(valid, fy1, 0)], dim=1)
+
+    rows = []
+
+    def add_plane(q0, q1, q2):
+        rows.extend(plane(q0, q1, q2))
+
+    ones = torch.ones_like(det)
+    add_plane(ones, ones, ones)  # rows 0-2: 1/w
+    add_plane(corner_uvs[:, 0, 0], corner_uvs[:, 1, 0],
+              corner_uvs[:, 2, 0])  # 3-5: u/w
+    add_plane(corner_uvs[:, 0, 1], corner_uvs[:, 1, 1],
+              corner_uvs[:, 2, 1])  # 6-8: v/w
+    for comp in range(3):  # 9-17: normal/w
+        add_plane(corner_normals[:, 0, comp], corner_normals[:, 1, comp],
+                  corner_normals[:, 2, comp])
+    for comp in range(3):  # 18-26: tangent/w
+        add_plane(corner_tangents[:, 0, comp], corner_tangents[:, 1, comp],
+                  corner_tangents[:, 2, comp])
+    # 27-29: material id + tangent-frame handedness as a constant plane
+    n0 = [corner_normals[:, 0, c] for c in range(3)]
+    t0 = [corner_tangents[:, 0, c] for c in range(3)]
+    b0 = [corner_bitangents[:, 0, c] for c in range(3)]
+    hand_neg = (
+        (n0[1] * t0[2] - n0[2] * t0[1]) * b0[0]
+        + (n0[2] * t0[0] - n0[0] * t0[2]) * b0[1]
+        + (n0[0] * t0[1] - n0[1] * t0[0]) * b0[2]) < 0.0
+    rows.append(torch.zeros_like(det))
+    rows.append(torch.zeros_like(det))
+    rows.append(tri_material.to(torch.float32) * 2.0
+                + hand_neg.to(torch.float32))
+    attrs = torch.stack(rows, dim=0).to(torch.float32)
+    return TriangleSetup(edges=edges, attrs=attrs, tile_bbox=tile_bbox,
+                         valid=valid, fine_y=fine_y)
+
+
+# --------------------------------------------------------------------------
+# binning
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KeyInputs:
+    """What kernel A reads: the per-triangle run tables and the key
+    packing constants (static ints)."""
+
+    cum: torch.Tensor  # (T,) i32 inclusive prefix sum of spans
+    cum_ex: torch.Tensor  # (T,) i32 run start per triangle
+    geom_packed: torch.Tensor  # (T,) i32 ty0 | tx0 | span_x | rel_fy0
+    budget: int  # pair-stream slots
+    n_tiles_x: int
+    bin_rows: int
+    order_rows: bool
+    tpv: int  # triangles per view (= T: one view)
+    key_rows: int  # sub-row factor in the key
+    sentinel: int  # key of dead slots
+
+
+def pair_key_inputs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
+                    pair_budget: int | None = None, bin_rows: int = 1,
+                    order_rows: bool = False) -> KeyInputs:
+    """Spans, their int32 prefix sum and the packed per-triangle geometry
+    word (raster.py:829-867) for one view."""
+    t_count = setup.valid.shape[0]
+    n_tiles = n_tiles_y * n_tiles_x
+    tpv = t_count
+    key_rows = bin_rows if order_rows else 1
+    if (n_tiles * key_rows + 1) * (tpv + 1) >= 2 ** 31:
+        raise ValueError("packed key overflow")
+    if n_tiles_y > 512 or n_tiles_x > 128:
+        raise ValueError("bbox packing overflow")
+    if order_rows and bin_rows > 8:
+        raise ValueError("rel_fy0 packs in 3 bits")
+    ty0, tx0, ty1, tx1 = (setup.tile_bbox[:, i] for i in range(4))
+    span_y = torch.where(setup.valid, ty1 - ty0 + 1, 0)
+    span_x = torch.where(setup.valid, tx1 - tx0 + 1, 0)
+    span = span_y * span_x
+    if pair_budget is None:
+        pair_budget = t_count + 8 * n_tiles * bin_rows
+    budget = max(GROUP, (pair_budget + GROUP - 1) // GROUP * GROUP)
+    # exclusive run starts: triangle t owns slots [cum_ex[t], cum[t]);
+    # int32 like the JAX package (torch.cumsum widens unless told)
+    cum = torch.cumsum(span, 0, dtype=torch.int32)
+    cum_ex = cum - span
+    if order_rows:
+        rel_fy0 = torch.clamp(setup.fine_y[:, 0] - ty0 * bin_rows,
+                              0, bin_rows - 1)
+    else:
+        rel_fy0 = 0
+    geom_packed = ((ty0 * 128 + tx0) * 128 + span_x) * 8 + rel_fy0
+    return KeyInputs(
+        cum=cum.contiguous(), cum_ex=cum_ex.contiguous(),
+        geom_packed=geom_packed.to(torch.int32).contiguous(), budget=budget,
+        n_tiles_x=n_tiles_x, bin_rows=bin_rows, order_rows=order_rows,
+        tpv=tpv, key_rows=key_rows,
+        sentinel=n_tiles * key_rows * (tpv + 1))
+
+
+def expand_keys_plain(ki: KeyInputs):
+    """Plain version of kernel A: ((budget,) i32 keys, (budget,) i32
+    owners), owner(j) = the first t with cum[t] > j; dead slots
+    (j >= total) get the sentinel key and owner 0."""
+    t_count = ki.cum.shape[0]
+    j = torch.arange(ki.budget, dtype=torch.int32, device=ki.cum.device)
+    live = j < ki.cum[-1]
+    owner = torch.searchsorted(ki.cum, j, right=True).to(torch.int32)
+    owner = torch.clamp(owner, max=t_count - 1)
+    k = j - ki.cum_ex[owner.long()]
+    g = ki.geom_packed[owner.long()]
+    rel0 = g & 7
+    sx = torch.clamp((g >> 3) & 127, min=1)
+    x0 = (g >> 10) & 127
+    y0 = g >> 17
+    kc = torch.clamp(k, 0, (1 << 23) - 1)
+    dy = torch.div(kc, sx, rounding_mode="trunc")
+    dx = kc - dy * sx
+    tile = (y0 + dy) * ki.n_tiles_x + x0 + dx
+    if ki.order_rows:
+        kymin = torch.clamp(rel0 - dy * ki.bin_rows, min=0)
+        key = (tile * ki.bin_rows + kymin) * (ki.tpv + 1) + owner
+    else:
+        key = tile * (ki.tpv + 1) + owner
+    keys = torch.where(live, key, ki.sentinel).to(torch.int32)
+    owners = torch.where(live, owner, 0).to(torch.int32)
+    return keys, owners
+
+
+def expand_keys(ki: KeyInputs):
+    """Kernel A (csrc/expand_keys.cu, replaces raster.py:406
+    _expand_keys_kernel): slot -> (sort key, owning triangle)."""
+    dev = ki.cum.device
+    for name in ("cum", "cum_ex", "geom_packed"):
+        _require(getattr(ki, name), name, torch.int32, 1, dev)
+    t_count = ki.cum.shape[0]
+    if t_count < 1 or ki.cum_ex.shape[0] != t_count \
+            or ki.geom_packed.shape[0] != t_count:
+        raise ValueError("cum, cum_ex and geom_packed need one equal, "
+                         "non-zero length")
+    if not _kernel_device(ki.cum):
+        return expand_keys_plain(ki)
+    keys = torch.empty((ki.budget,), dtype=torch.int32, device=dev)
+    owners = torch.empty((ki.budget,), dtype=torch.int32, device=dev)
+    native.launch("expand_keys_launch", ki.cum, ki.cum_ex, ki.geom_packed,
+                  keys, owners, t_count, ki.budget, ki.n_tiles_x,
+                  ki.bin_rows, int(ki.order_rows), ki.tpv, ki.sentinel)
+    return keys, owners
+
+
+def build_pairs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
+                pair_budget: int | None = None, bin_rows: int = 1,
+                order_rows: bool = False) -> PairLists:
+    """Expand triangles into sorted per-bin pair lists (raster.py:737).
+
+    Exact prefix-sum emission into one `pair_budget`-slot stream; pairs
+    past the budget are dropped from the end of the triangle array and
+    counted in `overflow`, as are pairs past a bin's cap of
+    MAX_PAIRS_PER_TILE - GROUP (the slot must fit SLOT_BITS with the
+    group-aligned lead-in). order_rows packs each pair's first covered
+    16px sub-row into the key, so a bin's segment comes out y-sorted. One
+    view only: the shadow atlas's multi-view keys arrive with shadows."""
+    ki = pair_key_inputs(setup, n_tiles_y, n_tiles_x, pair_budget,
+                         bin_rows, order_rows)
+    t_count = ki.tpv
+    n_tiles = n_tiles_y * n_tiles_x
+    keys, _ = expand_keys(ki)
+    keys_sorted = torch.sort(keys).values
+    key_span = ki.key_rows * (ki.tpv + 1)
+    # sentinel keys decode to tile == n_tiles -> view 1 -> index t_count,
+    # the degenerate padding row
+    view = (keys_sorted // key_span) // n_tiles
+    tri_glob = view * ki.tpv + keys_sorted % (ki.tpv + 1)
+    pair_tri = torch.cat([
+        torch.clamp(tri_glob, max=t_count).to(torch.int32),
+        torch.full((GROUP,), t_count, dtype=torch.int32,
+                   device=keys.device)])
+    tile_ids = torch.arange(n_tiles, dtype=torch.int32, device=keys.device)
+    raw_start = torch.searchsorted(keys_sorted, tile_ids * key_span)
+    raw_end = torch.searchsorted(keys_sorted, (tile_ids + 1) * key_span)
+    n_real = (raw_end - raw_start).to(torch.int32)
+    capped = torch.clamp(n_real, max=MAX_PAIRS_PER_TILE - GROUP)
+    overflow = (torch.clamp(ki.cum[-1] - ki.budget, min=0)
+                + torch.sum(n_real - capped, dtype=torch.int32))
+    return PairLists(pair_tri=pair_tri,
+                     tile_start=raw_start.to(torch.int32),
+                     tile_count=capped, overflow=overflow.to(torch.int32))
+
+
+def setup_row_table(setup: TriangleSetup, row_extents: bool = False):
+    """The (rows, T+1) per-triangle row table (raster.py:1053): 16 edge
+    rows, plane-major [a, b, c, pad] x 4 planes (rows 3 and 7 carry the
+    fine-row bbox [fy0, fy1] with row_extents), then the attribute rows
+    padded to a multiple of 8. Column T is a degenerate never-covering
+    triangle. Returns (table, n_edge_rows)."""
+    t_count = setup.valid.shape[0]
+    n_planes = setup.edges.shape[1]
+    n_rows = 4 * n_planes
+    dev = setup.edges.device
+    never = torch.zeros((3, n_planes, 1), dtype=torch.float32, device=dev)
+    never[2, :, 0] = -1.0
+    e = torch.cat([setup.edges, never], dim=2)  # (3, p, T+1)
+    pad_rows = torch.zeros((1, n_planes, t_count + 1), dtype=torch.float32,
+                           device=dev)
+    if row_extents:
+        pad_rows[0, 0, :t_count] = setup.fine_y[:, 0]
+        pad_rows[0, 1, :t_count] = setup.fine_y[:, 1]
+        pad_rows[0, 0, t_count] = 1.0  # empty range for the padding row
+    edges_rows = torch.cat([e, pad_rows], dim=0).permute(1, 0, 2).reshape(
+        n_rows, t_count + 1)
+    n_attr = setup.attrs.shape[0]
+    attrs_pad = torch.zeros((n_attr + (-n_attr) % 8, t_count + 1),
+                            dtype=torch.float32, device=dev)
+    attrs_pad[:n_attr, :t_count] = setup.attrs
+    return torch.cat([edges_rows, attrs_pad], dim=0), n_rows
+
+
+def gather_pair_setups(setup: TriangleSetup, pairs: PairLists,
+                       row_extents: bool = False):
+    """Duplicate per-triangle setups into pair order (raster.py:1021):
+    (pair_edges (16, P) f32, pair_attrs (32, P) f32)."""
+    rows, n_rows = setup_row_table(setup, row_extents)
+    pair_rows = rows.index_select(1, pairs.pair_tri.long())
+    return pair_rows[:n_rows].contiguous(), pair_rows[n_rows:].contiguous()
+
+
+# --------------------------------------------------------------------------
+# G-buffer raster (kernel B) and its plain version
+# --------------------------------------------------------------------------
+
+def _split_round(a: torch.Tensor) -> torch.Tensor:
+    """The TPU's two-pass bf16 one-hot product (raster.py:1650-1670):
+    hi = bf16(a), lo = bf16(a - hi), coeff = hi + lo."""
+    hi = a.to(torch.bfloat16).to(torch.float32)
+    lo = (a - hi).to(torch.bfloat16).to(torch.float32)
+    return hi + lo
+
+
+def _kernel_recip(x: torch.Tensor) -> torch.Tensor:
+    """raster.py:1148 — 1/x for x > 0 as rsqrt(x)^2 + one Newton step."""
+    r = torch.rsqrt(x)
+    r = r * r
+    return r * (2.0 - x * r)
+
+
+def _gbuffer_channels(coeff: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """Evaluate the winner's 30 attribute rows (zeros where invalid) at
+    pixel centres x, y (raster.py:1680-1726): (13, ...) channels."""
+
+    def ev(b):
+        return coeff[b] * x + coeff[b + 1] * y + coeff[b + 2]
+
+    w = torch.where(valid, _kernel_recip(torch.clamp_min(ev(0), 1e-12)),
+                    0.0)
+    u = ev(3) * w
+    v = ev(6) * w
+    ua, ub = coeff[3], coeff[4]
+    va, vb = coeff[6], coeff[7]
+    wa, wb = coeff[0], coeff[1]
+    out = [u, v, (ua - u * wa) * w, (va - v * wa) * w,
+           (ub - u * wb) * w, (vb - v * wb) * w]
+    for base_row in (9, 18):  # normal, tangent: normalised, masked
+        cx = ev(base_row) * w
+        cy = ev(base_row + 3) * w
+        cz = ev(base_row + 6) * w
+        inv_len = torch.rsqrt(torch.clamp_min(cx * cx + cy * cy + cz * cz,
+                                              1e-20))
+        out += [torch.where(valid, c * inv_len, 0.0) for c in (cx, cy, cz)]
+    out.append(coeff[29])
+    return torch.stack(out)
+
+
+# largest (bins x pairs x pixels) block the plain G-buffer evaluates at
+# once: 64 MB per float32 intermediate, so 1080p fits on the card
+_PLAIN_CHUNK_ELEMS = 1 << 24
+
+
+def gbuffer_plain(pair_edges, pair_attrs, tile_start, tile_count,
+                  n_tiles_y: int, n_tiles_x: int, sub: int,
+                  row_skip: bool):
+    """Plain version of kernel B: (depth (H, W) f32, vis (H, W) i32,
+    gbuf (13, H, W) f32), same arithmetic as csrc/gbuffer.cu.
+
+    Visibility loops over chunks of bins and of each chunk's pairs, at most
+    _PLAIN_CHUNK_ELEMS (bin, pair, pixel) evaluations at a time."""
+    dev = pair_edges.device
+    n_pairs = pair_edges.shape[1]
+    rows_px = sub * TILE_H
+    n_bins = n_tiles_y * n_tiles_x
+    h, w = n_tiles_y * rows_px, n_tiles_x * TILE_W
+    bins = torch.arange(n_bins, device=dev)
+    bin_y, bin_x = bins // n_tiles_x, bins % n_tiles_x
+    ly = torch.arange(rows_px, device=dev)
+    lx = torch.arange(TILE_W, device=dev)
+    xs = (bin_x[:, None] * TILE_W + lx[None]).to(torch.float32) + 0.5
+    ys = (bin_y[:, None] * rows_px + ly[None]).to(torch.float32) + 0.5
+    fine_row = (bin_y[:, None] * sub + ly[None] // TILE_H).to(torch.float32)
+    starts = tile_start.long()
+    counts = tile_count.long()
+    lead = starts - starts // GROUP * GROUP
+    acc = torch.zeros((n_bins, rows_px, TILE_W), dtype=torch.int32,
+                      device=dev)
+    bin_chunk = max(1, _PLAIN_CHUNK_ELEMS // (64 * rows_px * TILE_W))
+    for b0 in range(0, n_bins, bin_chunk):
+        b1 = min(b0 + bin_chunk, n_bins)
+        nb = b1 - b0
+        maxc = int(counts[b0:b1].max()) if nb else 0
+        pc = max(1, min(maxc,
+                        _PLAIN_CHUNK_ELEMS // (nb * rows_px * TILE_W)))
+        for c0 in range(0, maxc, pc):
+            i = torch.arange(c0, min(c0 + pc, maxc), device=dev)
+            live = i[None] < counts[b0:b1, None]  # (nb, pc)
+            idx = torch.clamp(starts[b0:b1, None] + i[None], max=n_pairs - 1)
+            cf = pair_edges[:, idx]  # (16, nb, pc)
+            x = xs[b0:b1, None, None, :]
+            y = ys[b0:b1, None, :, None]
+
+            def plane(p):
+                a, b, c = (cf[4 * p + k][..., None, None] for k in range(3))
+                return a * x + (b * y + c)
+
+            e0, e1, e2, z = plane(0), plane(1), plane(2), plane(3)
+            cov = ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (z > 0.0)
+                   & (z <= 1.0) & live[..., None, None])
+            if row_skip:
+                fr = fine_row[b0:b1, None, :, None]
+                cov = cov & ((cf[3][..., None, None] <= fr)
+                             & (fr <= cf[7][..., None, None]))
+            slot = (lead[b0:b1, None] + i[None]).to(torch.int32)
+            cand = torch.where(
+                cov, (z.view(torch.int32) & ~SLOT_MASK) | slot[..., None, None],
+                0)
+            acc[b0:b1] = torch.maximum(acc[b0:b1], cand.amax(dim=1))
+
+    acc2d = acc.reshape(n_tiles_y, n_tiles_x, rows_px, TILE_W).permute(
+        0, 2, 1, 3).reshape(h, w)
+    depth = (acc2d & ~SLOT_MASK).view(torch.float32)
+    valid = acc2d != 0
+    slot = acc2d & SLOT_MASK
+    vis = torch.where(valid, slot, -1)
+    base = (starts // GROUP * GROUP).reshape(n_tiles_y, 1, n_tiles_x, 1)
+    base = base.expand(n_tiles_y, rows_px, n_tiles_x, TILE_W).reshape(h, w)
+    idx = torch.where(valid, base + slot, 0).clamp(max=n_pairs - 1)
+    coeff = _split_round(pair_attrs[:NATTR, idx.reshape(-1)]).reshape(
+        NATTR, h, w)
+    coeff = torch.where(valid, coeff, 0.0)
+    px = torch.arange(w, device=dev).to(torch.float32) + 0.5
+    py = torch.arange(h, device=dev).to(torch.float32) + 0.5
+    gbuf = _gbuffer_channels(coeff, px[None, :], py[:, None], valid)
+    return depth, vis.to(torch.int32), gbuf
+
+
+def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
+                      n_tiles_y: int, n_tiles_x: int, sub: int = 1,
+                      row_skip: bool = False):
+    """Main-view rasterization producing depth + visibility + G-buffer
+    (raster.py:1857, opaque branch; kernel B, csrc/gbuffer.cu).
+
+    Channels: uv (0-1), uv screen derivatives (2-5), normal (6-8), tangent
+    (9-11), packed material*2+handedness (12). vis holds each covered
+    pixel's slot relative to start // GROUP * GROUP of its bin's segment,
+    -1 where uncovered; depth keeps the slot bits cleared. row_skip needs
+    pair_edges rows 3/7 from gather_pair_setups(row_extents=True). The
+    alpha-tested split raster arrives with the alpha-test slice."""
+    dev = pair_edges.device
+    _require(pair_edges, "pair_edges", torch.float32, 2, dev)
+    _require(pair_attrs, "pair_attrs", torch.float32, 2, dev)
+    _require(pairs.tile_start, "tile_start", torch.int32, 1, dev)
+    _require(pairs.tile_count, "tile_count", torch.int32, 1, dev)
+    n_pairs = pair_edges.shape[1]
+    if pair_edges.shape[0] != 16:
+        raise ValueError(f"pair_edges needs 16 rows, got {pair_edges.shape}")
+    if pair_attrs.shape[0] >= NATTR_PREV:
+        raise NotImplementedError(
+            "dynamic-scene motion channels: arrive with dynamic objects")
+    if pair_attrs.shape != (32, n_pairs):
+        raise ValueError(f"pair_attrs needs (32, {n_pairs}), got "
+                         f"{tuple(pair_attrs.shape)}")
+    n_bins = n_tiles_y * n_tiles_x
+    if pairs.tile_start.shape[0] != n_bins \
+            or pairs.tile_count.shape[0] != n_bins:
+        raise ValueError("tile_start/tile_count need one entry per bin")
+    if not 1 <= sub <= 4:  # kernel B's block is 128 * sub threads, <= 512
+        raise ValueError(f"sub must be in [1, 4], got {sub}")
+    if not _kernel_device(pair_edges):
+        return gbuffer_plain(pair_edges, pair_attrs, pairs.tile_start,
+                             pairs.tile_count, n_tiles_y, n_tiles_x, sub,
+                             row_skip)
+    h, w = n_tiles_y * sub * TILE_H, n_tiles_x * TILE_W
+    depth = torch.empty((h, w), dtype=torch.float32, device=dev)
+    vis = torch.empty((h, w), dtype=torch.int32, device=dev)
+    gbuf = torch.empty((GBUF_CHANNELS, h, w), dtype=torch.float32,
+                       device=dev)
+    native.launch("gbuffer_launch", pair_edges, pair_attrs,
+                  pairs.tile_start, pairs.tile_count, depth, vis, gbuf,
+                  n_pairs, n_tiles_y, n_tiles_x, sub, int(row_skip))
+    return depth, vis, gbuf
+
+
+def winner_triangle_ids(vis: torch.Tensor, pairs: PairLists, n_tiles_x: int,
+                        sub: int = 1) -> torch.Tensor:
+    """Map per-pixel slots back to global triangle ids (-1 uncovered)."""
+    h, w = vis.shape
+    dev = vis.device
+    ty = torch.arange(h, device=dev) // (TILE_H * sub)
+    tx = torch.arange(w, device=dev) // TILE_W
+    tile = ty[:, None] * n_tiles_x + tx[None, :]
+    # vis slots are relative to the group-aligned floor of the segment start
+    base = pairs.tile_start[tile] // GROUP * GROUP
+    idx = torch.clamp(base + torch.clamp_min(vis, 0), 0,
+                      pairs.pair_tri.shape[0] - 1)
+    return torch.where(vis >= 0, pairs.pair_tri[idx.long()], -1)
+
+
+def reference_rasterize(setup_edges: np.ndarray, valid: np.ndarray,
+                        width: int, height: int):
+    """Brute-force numpy rasterizer with the same rules (reverse-Z max,
+    inside = all edges >= 0 at pixel centres; later triangles win ties)."""
+    xs = np.arange(width) + 0.5
+    ys = np.arange(height) + 0.5
+    depth = np.zeros((height, width), np.float32)
+    winner = np.full((height, width), -1, np.int32)
+    a, b, c = setup_edges[0], setup_edges[1], setup_edges[2]
+    for t in range(setup_edges.shape[2]):
+        if not valid[t]:
+            continue
+        ex = a[:, t][:, None, None] * xs[None, None, :] + \
+            b[:, t][:, None, None] * ys[None, :, None] + c[:, t][:, None, None]
+        cov = (ex[0] >= 0) & (ex[1] >= 0) & (ex[2] >= 0)
+        cov = cov & (ex[3] > 0) & (ex[3] <= 1.0)
+        z = np.clip(ex[3], 0.0, 1.0)
+        upd = cov & (z >= depth)
+        depth[upd] = z[upd]
+        winner[upd] = t
+    return depth, winner
