@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
 Run from the repository root with one CUDA device visible:
 
@@ -9,24 +9,34 @@ What it does, in order; any failed check raises and the script exits
 non-zero without printing its final line:
 
  1. prints the card's name and power limit (nvidia-smi) and builds the
-    CUDA kernels of plainrenderer_tpu_torch/csrc (nvcc, sm_90a);
- 2. renders the bench's procedural atrium (292,672 triangles, untextured)
-    at 1920x1080 on the bench camera path with the slice's settings
-    (shadows, SDF GI, TAA and bloom off);
- 3. holds each kernel against its plain PyTorch version on the card, at
-    the shapes of a real frame's intermediates: kernels A (pair keys) and
-    C (material lookup) exactly, kernel B (G-buffer) by the CPU tests'
-    rule (>= 99.9% equal winners and depth, channels within 1e-4); and the
-    whole slice against the CPU plain path on a small scene (3 frames at
-    256x128, > 99.9% of pixels within 2 LSB);
- 4. times each kernel, its plain version and (kernel C) one PyTorch
-    indexing call with CUDA events;
- 5. resets the launch counts, renders 3 warm-up and 8 timed frames through
-    render_frame with per-pass CUDA events, reads the counts (every kernel
-    must have launched at least once per frame) and checks the frames:
-    debug_counters [0, 0], image mean in (2, 253) and std > 5, exposure
-    finite and > 0;
- 6. prints the per-pass times, the kernels line and, last,
+    CUDA kernels of plainrenderer_tpu_torch/csrc (nvcc, sm_90a, one
+    process per source, all started together);
+ 2. slice 1: the bench's untextured atrium (292,672 triangles) at
+    1920x1080 on the bench camera path with shadows, SDF GI, TAA and
+    bloom off. Kernels A (pair keys) and C (material lookup) must equal
+    their plain PyTorch versions exactly at a real frame's shapes, kernel
+    B (G-buffer) by the CPU tests' rule; a small scene (3 frames at
+    256x128) on the card must match the CPU plain path (> 99.9% of pixels
+    within 2 LSB); then 1 warm-up + 3 timed frames with the launch counts
+    reset just before and read just after;
+ 3. slice 2: the textured atrium without banners (292,416 triangles, 41
+    textures) with the default sun shadows (3 cascades of 2048^2, 12 PCF
+    taps), fog, GI, TAA and bloom off. pair_budget_scale is the smallest
+    power of two that drops no pair over the whole camera path (printed).
+    At frame 0's shapes kernel D (texture sampling) must match its plain
+    version (ok equal, values within 1e-5), kernel E (shadow-atlas depth)
+    and kernel A's multi-view keys exactly, kernel F (PCF resolve) on
+    >= 99.9% of pixels with the rest within 1/taps; the small textured,
+    shadowed scene card vs CPU by the golden rule; then 3 warm-up + 8
+    timed frames with per-pass CUDA events, counts reset just before and
+    read just after: A twice per frame, B-F at least once;
+ 4. times every kernel, its plain version and, where one exists, one
+    PyTorch call computing the same function (CUDA events), and computes
+    each kernel's bound from this run's inputs;
+ 5. checks the frames (debug_counters [0, 0], no host synchronisation in
+    a timed frame, image mean in (2, 253) and std > 5, finite HDR,
+    exposure > 0) and profiles 2 more slice-2 frames;
+ 6. prints the per-pass times, the card line, the kernels line and, last,
     {"ok": true, "device": {...}}.
 
 Everything also goes to chiprun_out/chip_smoke/ as JSON.
@@ -39,6 +49,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -52,7 +63,8 @@ FP32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 
 WIDTH, HEIGHT = 1920, 1080
-WARMUP, TIMED = 3, 8
+S1_WARMUP, S1_TIMED = 1, 3
+S2_WARMUP, S2_TIMED = 3, 8
 KERNEL_SOURCES = {
     "expand_keys": ("plainrenderer_tpu_torch/csrc/expand_keys.cu",
                     "plainrenderer_tpu/ops/raster.py:406"),
@@ -60,7 +72,16 @@ KERNEL_SOURCES = {
                 "plainrenderer_tpu/ops/raster.py:1564"),
     "material": ("plainrenderer_tpu_torch/csrc/material.cu",
                  "plainrenderer_tpu/ops/post.py:69"),
+    "texture": ("plainrenderer_tpu_torch/csrc/texture.cu",
+                "plainrenderer_tpu/ops/texture.py:47"),
+    "depth": ("plainrenderer_tpu_torch/csrc/depth.cu",
+              "plainrenderer_tpu/ops/raster.py:1465"),
+    "shadow": ("plainrenderer_tpu_torch/csrc/shadow.cu",
+               "plainrenderer_tpu/ops/shadow.py:167"),
 }
+SLICE1_KERNELS = ("expand_keys", "gbuffer", "material")
+SMALL_ATRIUM = dict(columns_per_row=2, floor_subdiv=2, box_count=3,
+                    box_subdiv=1, column_segments=8)
 
 
 def check(cond: bool, what: str) -> None:
@@ -84,13 +105,22 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def slice_settings(cfg, width, height):
+def slice1_settings(cfg, width, height):
     return cfg.RenderSettings(
         width=width, height=height,
         shadows=cfg.ShadowSettings(cascade_count=0),
         sdf_trace=cfg.SDFTraceSettings(enabled=False),
         taa=cfg.TAASettings(enabled=False),
         bloom=cfg.BloomSettings(enabled=False))
+
+
+def slice2_settings(cfg, width, height, **shadows):
+    """The default ShadowSettings (3 cascades, 2048^2, 12 taps); fog runs
+    only with shadows and is a later slice, so it is off."""
+    return dataclasses.replace(
+        slice1_settings(cfg, width, height),
+        shadows=cfg.ShadowSettings(**shadows),
+        volumetrics=cfg.VolumetricsSettings(enabled=False))
 
 
 def bench_camera(frame, cam_mod, t: int, device):
@@ -104,6 +134,138 @@ def bench_camera(frame, cam_mod, t: int, device):
                                device=device)
 
 
+def evaluated_pair_pixels(pair_edges, pairs, n_tiles_x: int, sub: int):
+    """(pair, pixel) plane evaluations a row-skipping raster kernel does on
+    these pair lists: each pair meets the 16-px sub-rows of its bin inside
+    its [fy0, fy1] (pair_edges rows 3 and 7), 2048 pixels each."""
+    import torch
+
+    dev = pair_edges.device
+    counts = pairs.tile_count.long()
+    seg = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
+                                  counts)
+    first = torch.repeat_interleave(pairs.tile_start.long(), counts)
+    rank = torch.arange(seg.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(counts, 0) - counts, counts)
+    stream = first + rank
+    fy0, fy1 = pair_edges[3, stream], pair_edges[7, stream]
+    row0 = (seg // n_tiles_x * sub).float()
+    sub_rows = (torch.minimum(fy1, row0 + sub - 1)
+                - torch.maximum(fy0, row0) + 1).clamp(min=0)
+    return float(sub_rows.sum()) * 2048
+
+
+def drive(mods, scene, cams, luts, settings, dev, warmup: int, timed: int):
+    """One main-path run: launch counts reset just before, read just after;
+    per-pass CUDA events on the timed frames, which also run under
+    torch.cuda's sync debug mode to count the host synchronisations the
+    frame makes (none expected)."""
+    import numpy as np
+    import torch
+
+    frame, native, initial_state, PassTimer = (
+        mods["frame"], mods["native"], mods["initial_state"],
+        mods["PassTimer"])
+    state = initial_state(settings.width, settings.height, device=dev)
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    timers, counters, image = [], [], None
+    t_wall = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(warmup + timed):
+            if i == warmup:
+                torch.cuda.synchronize()
+                t_wall = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("warn")
+            timer = PassTimer() if i >= warmup else None
+            image, state = frame.render_frame(state, scene, cams[i], luts,
+                                              1.0 / 60.0, settings,
+                                              device=dev, timer=timer)
+            counters.append(state.debug_counters)
+            if timer is not None:
+                timers.append(timer)
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t_wall) * 1e3 / max(timed, 1)
+    launches = native.launch_counts()
+    pass_ms = {}
+    if timers:
+        passes = [t.intervals() for t in timers]
+        pass_ms = {n: {"mean": float(np.mean([p[n] for p in passes])),
+                       "min": float(np.min([p[n] for p in passes]))}
+                   for n in sorted(passes[0])}
+        pass_ms["host_wall_per_frame"] = {"mean": wall_ms}
+    return {"launches": launches, "pass_ms": pass_ms, "state": state,
+            "host_syncs_per_frame": syncs / max(timed, 1),
+            "counters": torch.stack(counters).cpu().numpy(), "image": image,
+            "frames": warmup + timed}
+
+
+def check_frames(run: dict, width: int, height: int, what: str) -> dict:
+    import numpy as np
+    import torch
+
+    counters = run["counters"]
+    check((counters == 0).all(), f"{what}: debug_counters all zero: "
+          f"{counters.tolist()}")
+    image, state = run["image"], run["state"]
+    last = image.float()
+    mean, std = float(last.mean()), float(last.std())
+    exposure = float(state.exposure)
+    print(f"{what}: image {tuple(image.shape)} mean {mean:.2f} std "
+          f"{std:.2f}; exposure {exposure:.4e}; debug_counters "
+          f"{counters[-1].tolist()}", flush=True)
+    check(tuple(image.shape) == (height, width, 3), f"{what}: image shape")
+    check(2.0 < mean < 253.0 and std > 5.0,
+          f"{what}: image not empty or saturated")
+    check(np.isfinite(exposure) and exposure > 0.0, f"{what}: exposure")
+    check(bool(torch.isfinite(state.prev_color).all()), f"{what}: finite HDR")
+    return {"image_mean": mean, "image_std": std, "exposure": exposure}
+
+
+def check_launches(run: dict, per_frame: dict, what: str) -> None:
+    n = run["frames"]
+    print(f"{what}: launches over {n} frames: {run['launches']}; host "
+          f"syncs per timed frame {run['host_syncs_per_frame']}", flush=True)
+    check(run["host_syncs_per_frame"] == 0,
+          f"{what}: the frame never waits for the device")
+    for name, k in per_frame.items():
+        check(run["launches"][name] >= k * n,
+              f"{what}: kernel {name} launched {k}x per frame")
+
+
+def small_card_vs_cpu(mods, settings, textured: bool, luts) -> float:
+    """3 frames of the small atrium at 256x128 on the card (kernels) and on
+    the CPU (plain versions): the share of u8 pixels within 2 LSB."""
+    import numpy as np
+
+    frame, scenebuild, procedural, cam_mod = (
+        mods["frame"], mods["scenebuild"], mods["procedural"],
+        mods["cam_mod"])
+    rs = scenebuild.build_render_scene(procedural.build_atrium_scene(
+        procedural.AtriumConfig(**SMALL_ATRIUM), textured=textured))
+    images = []
+    for d in ("cuda", "cpu"):
+        sc = frame.scene_to_device(rs, device=d)
+        lt = {k: v.to(d) for k, v in luts.items()}
+        st = mods["initial_state"](256, 128, device=d)
+        ext = cam_mod.extrinsic_from_angles([0.0, -1.7, 0.0], pitch_deg=5.0,
+                                            yaw_deg=20.0)
+        cm = frame.camera_arrays(ext.position, ext.forward, ext.right,
+                                 ext.up, device=d)
+        for _ in range(3):
+            img, st = frame.render_frame(st, sc, cm, lt, 0.016, settings,
+                                         device=d)
+        images.append(img.cpu().numpy().astype(np.int32))
+        if textured:
+            check((st.debug_counters.cpu().numpy() == 0).all(),
+                  f"small scene debug_counters on {d}")
+    return float((np.abs(images[0] - images[1]) <= 2).mean())
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -114,12 +276,17 @@ def main() -> int:
         return 2
     from plainrenderer_tpu_torch import config, native
     from plainrenderer_tpu_torch.assets import procedural
-    from plainrenderer_tpu_torch.ops import post, raster
+    from plainrenderer_tpu_torch.assets.textures import MAX_MIPS
+    from plainrenderer_tpu_torch.ops import post, raster, shade, shadow
+    from plainrenderer_tpu_torch.ops import texture
     from plainrenderer_tpu_torch.render import frame, scenebuild
     from plainrenderer_tpu_torch.render.state import initial_state
     from plainrenderer_tpu_torch.scene import camera as cam_mod
     from plainrenderer_tpu_torch.utils.timing import PassTimer
 
+    mods = dict(frame=frame, native=native, initial_state=initial_state,
+                PassTimer=PassTimer, scenebuild=scenebuild,
+                procedural=procedural, cam_mod=cam_mod)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     OUT.mkdir(parents=True, exist_ok=True)
@@ -132,6 +299,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     dev = torch.device("cuda")
     report = {"card": smi}
+    t_start = time.time()
 
     t0 = time.time()
     lib_path = native.build()
@@ -142,7 +310,9 @@ def main() -> int:
         (lib_path.parent / "ptxas.log").read_text()
         if (lib_path.parent / "ptxas.log").exists() else "cached build\n")
 
-    # --- the bench's scene at full size ---
+    ms, plain_ms, library_ms, bounds, errors = {}, {}, {}, {}, {}
+
+    # ================= slice 1: the untextured atrium =================
     t0 = time.time()
     cfg = procedural.AtriumConfig(columns_per_row=6, column_segments=64,
                                   floor_subdiv=64, box_count=12,
@@ -151,17 +321,15 @@ def main() -> int:
         procedural.build_atrium_scene(cfg, textured=False))
     check(rs.triangle_count == 292_672, f"triangles {rs.triangle_count}")
     check(rs.material_table.shape[0] == 45, "45 materials")
-    settings = slice_settings(config, WIDTH, HEIGHT)
+    settings = slice1_settings(config, WIDTH, HEIGHT)
     scene = frame.scene_to_device(rs, device=dev)
     luts = frame.bake_static_luts(settings, device=dev)
     cams = [bench_camera(frame, cam_mod, t, dev)
-            for t in range(WARMUP + TIMED)]
+            for t in range(S2_WARMUP + S2_TIMED)]
     torch.cuda.synchronize()
-    report["setup_s"] = time.time() - t0
-    print(f"scene: {rs.triangle_count} triangles, {rs.object_count} "
-          f"objects; setup {report['setup_s']:.1f} s", flush=True)
+    print(f"slice 1 scene: {rs.triangle_count} triangles, {rs.object_count}"
+          f" objects; setup {time.time() - t0:.1f} s", flush=True)
 
-    # --- kernels against their plain versions at a real frame's shapes ---
     mv = frame.main_view_setup(scene, cams[0], settings)
     ki = raster.pair_key_inputs(mv.setup, mv.n_tiles_y, mv.n_tiles_x,
                                 mv.pair_budget, mv.sub, order_rows=True)
@@ -181,8 +349,8 @@ def main() -> int:
         mv.n_tiles_x, mv.sub, True)
     ids_k = raster.winner_triangle_ids(vis_k, pairs, mv.n_tiles_x, mv.sub)
     ids_p = raster.winner_triangle_ids(vis_p, pairs, mv.n_tiles_x, mv.sub)
-    differ = (ids_k != ids_p) | (depth_k != depth_p)
-    frac_differ = float(differ.float().mean())
+    frac_differ = float(((ids_k != ids_p) | (depth_k != depth_p))
+                        .float().mean())
     both = (ids_k >= 0) & (ids_k == ids_p)
     err_b = float((gbuf_k - gbuf_p).abs()[:, both].max())
     covered = float((vis_k >= 0).float().mean())
@@ -202,50 +370,29 @@ def main() -> int:
     err_c = float((mat_k - mat_p).abs().max())
     print("kernel C: equal", flush=True)
 
-    # whole slice, small scene: card (kernels) vs CPU (plain versions)
-    small = dataclasses.replace(slice_settings(config, 256, 128),
-                                exposure_adaption_speed=1000.0)
-    rs_s = scenebuild.build_render_scene(procedural.build_atrium_scene(
-        procedural.AtriumConfig(columns_per_row=2, floor_subdiv=2,
-                                box_count=3, box_subdiv=1,
-                                column_segments=8), textured=False))
-    images = []
-    for d in ("cuda", "cpu"):
-        sc = frame.scene_to_device(rs_s, device=d)
-        lt = {k: v.to(d) for k, v in luts.items()}
-        st = initial_state(256, 128, device=d)
-        ext = cam_mod.extrinsic_from_angles([0.0, -1.7, 0.0], pitch_deg=5.0,
-                                            yaw_deg=20.0)
-        cm = frame.camera_arrays(ext.position, ext.forward, ext.right,
-                                 ext.up, device=d)
-        for _ in range(3):
-            img, st = frame.render_frame(st, sc, cm, lt, 0.016, small,
-                                         device=d)
-        images.append(img.cpu().numpy().astype(np.int32))
-    close = float((np.abs(images[0] - images[1]) <= 2).mean())
-    print(f"small slice card vs CPU plain: {close:.5f} of pixels within "
-          "2 LSB (limit > 0.999)", flush=True)
-    check(close > 0.999, "small-scene image card vs CPU")
+    small1 = dataclasses.replace(slice1_settings(config, 256, 128),
+                                 exposure_adaption_speed=1000.0)
+    close1 = small_card_vs_cpu(mods, small1, False, luts)
+    print(f"small slice-1 scene card vs CPU plain: {close1:.5f} of pixels "
+          "within 2 LSB (limit > 0.999)", flush=True)
+    check(close1 > 0.999, "small slice-1 image card vs CPU")
 
-    # --- kernel timings (outside the main-path count window) ---
     n_pix = mv.n_tiles_y * mv.sub * raster.TILE_H * mv.n_tiles_x * \
         raster.TILE_W
-    ms = {
+    ms.update({
         "expand_keys": cuda_ms(lambda: raster.expand_keys(ki), 50),
         "gbuffer": cuda_ms(lambda: raster.rasterize_gbuffer(
             pe, pa, pairs, mv.n_tiles_y, mv.n_tiles_x, sub=mv.sub,
             row_skip=True), 20),
         "material": cuda_ms(
-            lambda: post.material_kernel(table, mat_id, valid), 50),
-    }
-    plain_ms = {
+            lambda: post.material_kernel(table, mat_id, valid), 50)})
+    plain_ms.update({
         "expand_keys": cuda_ms(lambda: raster.expand_keys_plain(ki), 10),
         "gbuffer": cuda_ms(lambda: raster.gbuffer_plain(
             pe, pa, pairs.tile_start, pairs.tile_count, mv.n_tiles_y,
             mv.n_tiles_x, mv.sub, True), 2),
         "material": cuda_ms(
-            lambda: post.material_plain(table, mat_id, valid), 20),
-    }
+            lambda: post.material_plain(table, mat_id, valid), 20)})
     # yardstick for kernel C: one PyTorch gather of the same table rows
     # (pixel-major output; the id clip and valid select are folded into a
     # precomputed index into a table with a zero row 128)
@@ -253,101 +400,246 @@ def main() -> int:
                                                  device=dev)])
     gather_idx = torch.where(valid, mat_id.long().clamp(0, 127),
                              128).reshape(-1)
-    library_ms = {"expand_keys": None, "gbuffer": None,
-                  "material": cuda_ms(
-                      lambda: table_rows.index_select(0, gather_idx), 50)}
-
-    # bounds: bytes each input read once and each output written once;
-    # operations counted on this frame's data
+    library_ms.update({
+        "expand_keys": None, "gbuffer": None,
+        "material": cuda_ms(
+            lambda: table_rows.index_select(0, gather_idx), 50)})
     t_count, budget = ki.tpv, ki.budget
     a_bytes = 4 * (3 * t_count + 2 * budget)
     a_ops = live_pairs * (3 * max(1, int(np.ceil(np.log2(t_count)))) + 20)
     n_pairs = pe.shape[1]
     b_bytes = 4 * (pe.shape[0] + pa.shape[0]) * n_pairs \
         + 8 * pairs.tile_start.shape[0] + n_pix * 4 * (2 + 13)
-    counts = pairs.tile_count.long()
-    seg = torch.repeat_interleave(
-        torch.arange(counts.numel(), device=dev), counts)
-    first = torch.repeat_interleave(pairs.tile_start.long(), counts)
-    rank = torch.arange(seg.numel(), device=dev) - torch.repeat_interleave(
-        torch.cumsum(counts, 0) - counts, counts)
-    stream = first + rank
-    fy0, fy1 = pe[3, stream], pe[7, stream]
-    row0 = (seg // mv.n_tiles_x * mv.sub).float()
-    sub_rows = (torch.minimum(fy1, row0 + mv.sub - 1)
-                - torch.maximum(fy0, row0) + 1).clamp(min=0)
-    evaluated = float(sub_rows.sum()) * raster.PX_PER_TILE
+    evaluated = evaluated_pair_pixels(pe, pairs, mv.n_tiles_x, mv.sub)
     # 4 planes x (mul + add + add) per evaluated (pair, pixel) + about 80
     # flops of attribute evaluation per covered pixel
     b_ops = 12 * evaluated + 80 * float((vis_k >= 0).sum())
     c_bytes = n_pix * (4 + 1 + 4 * table.shape[0]) + table.numel() * 4
-    bounds = {
-        "expand_keys": (a_bytes / HBM_BYTES_PER_S,
-                        a_ops / INT32_OPS_PER_S),
+    bounds.update({
+        "expand_keys": (a_bytes / HBM_BYTES_PER_S, a_ops / INT32_OPS_PER_S),
         "gbuffer": (b_bytes / HBM_BYTES_PER_S, b_ops / FP32_OPS_PER_S),
-        "material": (c_bytes / HBM_BYTES_PER_S, 0.0),
-    }
-    errors = {"expand_keys": err_a, "gbuffer": err_b, "material": err_c}
+        "material": (c_bytes / HBM_BYTES_PER_S, 0.0)})
+    errors.update({"expand_keys": err_a, "gbuffer": err_b,
+                   "material": err_c})
 
-    # --- the main path: counts reset, 3 warm-up + 8 timed frames ---
-    native.reset_launch_counts()
-    state = initial_state(WIDTH, HEIGHT, device=dev)
-    dt = 1.0 / 60.0
-    timers, counters, images = [], [], []
+    run1 = drive(mods, scene, cams, luts, settings, dev, S1_WARMUP, S1_TIMED)
+    check_launches(run1, {k: 1 for k in SLICE1_KERNELS}, "slice 1")
+    for k in ("texture", "depth", "shadow"):
+        check(run1["launches"][k] == 0, f"slice 1 runs no {k} kernel")
+    print("slice 1 passes_ms " + json.dumps(run1["pass_ms"]), flush=True)
+    frames1 = check_frames(run1, WIDTH, HEIGHT, "slice 1")
+    report["slice1"] = dict(
+        passes_ms=run1["pass_ms"], launches=run1["launches"],
+        host_syncs_per_frame=run1["host_syncs_per_frame"],
+        frames=run1["frames"], gbuffer_pixels_differ=frac_differ,
+        small_close=close1, live_pairs=live_pairs, pair_budget=budget,
+        evaluated_pair_pixels=evaluated, **frames1)
+    del scene, pairs, pe, pa, gbuf_k, gbuf_p, mat_k, mat_p, run1
+
+    # ====== slice 2: the textured atrium with cascaded sun shadows ======
+    t0 = time.time()
+    cfg2 = dataclasses.replace(cfg, banner_count=0)
+    rs2 = scenebuild.build_render_scene(
+        procedural.build_atrium_scene(cfg2, textured=True))
+    check(rs2.triangle_count == 292_416, f"triangles {rs2.triangle_count}")
+    n_tex = rs2.tex_info.shape[0] // MAX_MIPS
+    check(rs2.material_table.shape[0] == 41 and n_tex == 41,
+          "41 materials, 41 textures")
+    check(rs2.alpha_masks is None, "no alpha-tested geometry")
+    scene2 = frame.scene_to_device(rs2, device=dev)
     torch.cuda.synchronize()
-    t_wall = None
-    for i in range(WARMUP + TIMED):
-        if i == WARMUP:
-            torch.cuda.synchronize()
-            t_wall = time.perf_counter()
-        timer = PassTimer() if i >= WARMUP else None
-        image, state = frame.render_frame(state, scene, cams[i], luts, dt,
-                                          settings, device=dev, timer=timer)
-        counters.append(state.debug_counters)
-        if timer is not None:
-            timers.append(timer)
-            images.append(image)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t_wall) * 1e3 / TIMED
-    launches = native.launch_counts()
-    n_frames = WARMUP + TIMED
-    print(f"launches over {n_frames} frames: {launches}", flush=True)
-    for name in KERNEL_SOURCES:
-        check(launches[name] >= n_frames,
-              f"kernel {name} launched every frame")
+    print(f"slice 2 scene: {rs2.triangle_count} triangles, {n_tex} "
+          f"textures, {rs2.tex_word0.shape[0]} bricks; setup "
+          f"{time.time() - t0:.1f} s", flush=True)
 
-    passes = [t.intervals() for t in timers]
-    names = sorted(passes[0])
-    pass_ms = {n: {"mean": float(np.mean([p[n] for p in passes])),
-                   "min": float(np.min([p[n] for p in passes]))}
-               for n in names}
-    pass_ms["host_wall_per_frame"] = {"mean": wall_ms}
-    print("passes_ms " + json.dumps(pass_ms), flush=True)
+    # smallest power-of-two pair budget scale that drops nothing over the
+    # camera path (the JAX app escalates the same way, runtime/app.py:197)
+    scale = 1.0
+    while True:
+        settings2 = slice2_settings(config, WIDTH, HEIGHT)
+        settings2 = dataclasses.replace(settings2, pair_budget_scale=scale)
+        probe = drive(mods, scene2, cams, luts, settings2, dev,
+                      len(cams), 0)
+        dropped = probe["counters"].max(axis=0).tolist()
+        print(f"pair_budget_scale {scale}: most dropped per frame "
+              f"(main, atlas) {dropped}", flush=True)
+        if max(dropped) == 0:
+            break
+        scale *= 2.0
+        check(scale <= 64.0, "pair budget scale bounded")
+    del probe
+    n_cas = settings2.shadows.cascade_count
+    sres = settings2.shadows.resolution
+    taps = settings2.shadows.pcf_taps
 
-    counters = torch.stack(counters).cpu().numpy()
-    check((counters == 0).all(), f"debug_counters all zero: {counters}")
-    last = images[-1].float()
-    mean, std = float(last.mean()), float(last.std())
-    exposure = float(state.exposure)
-    print(f"image {tuple(images[-1].shape)} mean {mean:.2f} std {std:.2f}; "
-          f"exposure {exposure:.4e}; debug_counters {counters[-1].tolist()}",
-          flush=True)
-    check(tuple(images[-1].shape) == (HEIGHT, WIDTH, 3), "image shape")
-    check(2.0 < mean < 253.0 and std > 5.0, "image not empty or saturated")
-    check(np.isfinite(exposure) and exposure > 0.0, "exposure")
-    check(bool(torch.isfinite(state.prev_color).all()), "finite HDR")
+    mv2 = frame.main_view_setup(scene2, cams[0], settings2)
+    pairs2, pe2, pa2, depth2, vis2, gbuf2 = frame.raster_main_view(mv2)
+    valid2 = vis2 >= 0
+    mat_id2 = torch.floor(gbuf2[raster._CH_MAT] * 0.5)
+    pw, ph = raster.pad_resolution(WIDTH, HEIGHT)
+    n_pix2 = pw * ph
 
-    # device busy share and time by kernel name over 2 more frames under
-    # torch.profiler (CUDA activity); the profiler's own host cost is in
-    # the window, so the share is a lower bound
+    # kernel D at the frame's shapes
+    targs = (gbuf2[raster._CH_U:raster._CH_U + 2],
+             gbuf2[raster._CH_DUDX:raster._CH_DUDX + 4], mat_id2, valid2,
+             scene2["mat_tex"], scene2["tex_info"], scene2["tex_word0"],
+             scene2["tex_word1"])
+    tex_k = texture.sample_materials(*targs, n_mips=MAX_MIPS)
+    tex_p = texture.sample_plain(*targs, MAX_MIPS)
+    ok_k, ok_p = tex_k[8] > 0.5, tex_p[8] > 0.5
+    both_ok = ok_k & ok_p
+    val_err = (tex_k[:8] - tex_p[:8]).abs().amax(dim=0)
+    err_d = float(val_err[both_ok].max()) if bool(both_ok.any()) else 0.0
+    bad_px = (ok_k != ok_p) | (both_ok & (val_err > 1e-5))
+    tiles_differ = float(texture.to_thread_layout(bad_px).flatten(1)
+                         .any(dim=1).float().mean())
+    ok_share = float(ok_k[valid2].float().mean())
+    print(f"kernel D: ok equal on {float((ok_k == ok_p).float().mean()):.6f}"
+          f" of pixels, values max |err| {err_d:.3e} (limit 1e-5), "
+          f"{tiles_differ:.3e} of tiles differ; {ok_share:.4f} of covered "
+          "pixels textured", flush=True)
+    check(bool((ok_k == ok_p).all()), "kernel D ok channel vs plain")
+    check(err_d <= 1e-5, "kernel D values vs plain")
+    check(ok_share > 0.5, "most covered pixels are textured")
+    mat_t = texture.to_thread_layout(mat_id2).to(torch.int32)
+    n_valid_t, dom_t, _, needs2_t = texture.tile_materials(
+        mat_t, texture.to_thread_layout(valid2), scene2["mat_tex"])
+    windows = int(((scene2["mat_tex"][dom_t.long()] >= 0)
+                   & (n_valid_t > 0)).sum() + needs2_t.sum())
+
+    # shadow atlas: kernel A's multi-view keys and kernel E
+    atlas = frame.render_shadow_atlas(scene2, cams[0], depth2, settings2)
+    check(int(atlas.pairs.overflow) == 0, "no atlas pairs dropped")
+    ki2 = raster.pair_key_inputs(atlas.setup, atlas.n_bins_y,
+                                 atlas.n_bins_x, atlas.pair_budget,
+                                 atlas.sub, order_rows=True, n_views=n_cas)
+    keys2_k, own2_k = raster.expand_keys(ki2)
+    keys2_p, own2_p = raster.expand_keys_plain(ki2)
+    check(torch.equal(keys2_k, keys2_p) and torch.equal(own2_k, own2_p),
+          "kernel A multi-view keys equal the plain version")
+    atlas_live = int(ki2.cum[-1])
+    print(f"kernel A (atlas, {n_cas} views): {ki2.budget} slots, "
+          f"{atlas_live} live, T/view={ki2.tpv}: equal", flush=True)
+    eargs = (atlas.edges, atlas.pairs, atlas.n_bins_y, atlas.n_bins_x)
+    depth_e = raster.rasterize_depth(*eargs, sub=atlas.sub, row_skip=True)
+    depth_ep = raster.depth_plain(
+        atlas.edges, atlas.pairs.tile_start, atlas.pairs.tile_count,
+        atlas.n_bins_y, atlas.n_bins_x, atlas.sub, True)
+    check(torch.equal(depth_e.view(torch.int32),
+                      depth_ep.view(torch.int32)),
+          "kernel E atlas equals the plain version")
+    err_e = float((depth_e - depth_ep).abs().max())
+    atlas_cov = float((depth_e > 0).float().mean())
+    counts_e = atlas.pairs.tile_count
+    print(f"kernel E: {n_cas} x {sres}^2 atlas equal; {atlas_cov:.3f} "
+          f"covered; pairs per bin max {int(counts_e.max())} mean "
+          f"{float(counts_e.float().mean()):.1f}", flush=True)
+
+    # kernel F at the frame's shapes
+    inv_vp = torch.linalg.inv_ex(mv2.view_proj).inverse
+    world_pos2 = shade.reconstruct_world_position(depth2, inv_vp, pw, ph)
+    to_cam = cams[0]["position"].reshape(3, 1, 1) - world_pos2
+    pix_depth = torch.where(valid2, -torch.sum(
+        to_cam * cams[0]["forward"].reshape(3, 1, 1), dim=0), 0.0)
+    noise = frame.blue_noise_screen(
+        luts, torch.zeros((), dtype=torch.int32, device=dev), ph, pw)
+    fargs = (world_pos2, pix_depth, noise, atlas.maps, atlas.cascade_mats,
+             atlas.cascade_scales, atlas.splits, n_cas)
+    radius = settings2.shadows.sample_radius
+    sh_k = shadow.shadow_resolve(*fargs, taps=taps, sample_radius=radius)
+    maps_packed = shadow.pack_shadow_maps_u16(atlas.maps)
+    rows = shadow.cascade_rows(atlas.cascade_mats, atlas.cascade_scales,
+                               atlas.splits)
+    pargs = (world_pos2, pix_depth, noise, maps_packed, rows, n_cas, taps,
+             radius)
+    sh_p = shadow.shadow_resolve_plain(*pargs, sres)
+    diff_f = (sh_k - sh_p).abs()
+    f_equal = float((diff_f == 0).float().mean())
+    err_f = float(diff_f.max())
+    shadowed = float((sh_k[valid2] < 0.5).float().mean())
+    print(f"kernel F: {f_equal:.6f} of pixels equal (limit 0.999), max "
+          f"|err| {err_f:.4f} (limit 1/{taps}); {shadowed:.3f} of covered "
+          "pixels in shadow", flush=True)
+    check(f_equal >= 0.999, "kernel F vs plain")
+    check(err_f <= 1.0 / taps + 1e-6, "kernel F error bound")
+    check(0.01 < shadowed < 0.99, "the frame has light and shadow")
+
+    small2 = dataclasses.replace(
+        slice2_settings(config, 256, 128, resolution=256),
+        exposure_adaption_speed=1000.0)
+    close2 = small_card_vs_cpu(mods, small2, True, luts)
+    print(f"small slice-2 scene card vs CPU plain: {close2:.5f} of pixels "
+          "within 2 LSB (limit > 0.999)", flush=True)
+    check(close2 > 0.999, "small slice-2 image card vs CPU")
+
+    # timings of the slice-2 kernels and their plain versions
+    ms.update({
+        "texture": cuda_ms(lambda: texture.sample_materials(
+            *targs, n_mips=MAX_MIPS), 20),
+        "depth": cuda_ms(lambda: raster.rasterize_depth(
+            *eargs, sub=atlas.sub, row_skip=True), 20),
+        "shadow": cuda_ms(lambda: shadow.resolve_packed(*pargs), 20)})
+    plain_ms.update({
+        "texture": cuda_ms(lambda: texture.sample_plain(
+            *targs, MAX_MIPS), 3),
+        "depth": cuda_ms(lambda: raster.depth_plain(
+            atlas.edges, atlas.pairs.tile_start, atlas.pairs.tile_count,
+            atlas.n_bins_y, atlas.n_bins_x, atlas.sub, True), 1),
+        "shadow": cuda_ms(
+            lambda: shadow.shadow_resolve_plain(*pargs, sres), 3)})
+    # no single PyTorch call computes a windowed, fallback-masked brick
+    # sample, a clamped depth-max raster or a window-clamped PCF
+    library_ms.update({"texture": None, "depth": None, "shadow": None})
+    atlas_a_ms = cuda_ms(lambda: raster.expand_keys(ki2), 50)
+    atlas_a_plain_ms = cuda_ms(lambda: raster.expand_keys_plain(ki2), 10)
+    t_atlas = ki2.cum.shape[0]
+    atlas_a_bound = max(
+        4 * (3 * t_atlas + 2 * ki2.budget) / HBM_BYTES_PER_S,
+        atlas_live * (3 * max(1, int(np.ceil(np.log2(t_atlas)))) + 20)
+        / INT32_OPS_PER_S) * 1e3
+
+    # bounds from this run's inputs: D reads uv, 4 derivatives, id and
+    # valid (29 B) and writes 9 f32 (36 B) per pixel, plus one 24x256
+    # window of both words per sampled (tile, material); E writes the
+    # atlas and reads each pair's 16 rows and each bin's start/count; F
+    # reads position, linear depth and noise (20 B), writes 4 B per pixel
+    # and reads the used cascades' packed maps
+    d_bytes = n_pix2 * 65 + windows * texture.WIN_H * texture.WIN_W * 8
+    e_eval = evaluated_pair_pixels(atlas.edges, atlas.pairs,
+                                   atlas.n_bins_x, atlas.sub)
+    e_bytes = (n_cas * sres * sres * 4 + 16 * 4 * atlas.edges.shape[1]
+               + 8 * atlas.pairs.tile_count.shape[0])
+    f_bytes = n_pix2 * 24 + n_cas * (sres // 2) * sres * 4
+    # F: per tap ~24 flops (rotation, offset, round, compare) per pixel
+    f_ops = float(valid2.sum()) * taps * 24
+    bounds.update({
+        "texture": (d_bytes / HBM_BYTES_PER_S, 0.0),
+        "depth": (e_bytes / HBM_BYTES_PER_S, 12 * e_eval / FP32_OPS_PER_S),
+        "shadow": (f_bytes / HBM_BYTES_PER_S, f_ops / FP32_OPS_PER_S)})
+    errors.update({"texture": err_d, "depth": err_e, "shadow": err_f})
+    del tex_p, depth_ep, sh_p
+
+    # the slice-2 main path: counts reset, 3 warm-up + 8 timed frames
+    run2 = drive(mods, scene2, cams, luts, settings2, dev, S2_WARMUP,
+                 S2_TIMED)
+    check_launches(run2, {"expand_keys": 2, "gbuffer": 1, "material": 1,
+                          "texture": 1, "depth": 1, "shadow": 1},
+                   "slice 2")
+    print("slice 2 passes_ms " + json.dumps(run2["pass_ms"]), flush=True)
+    frames2 = check_frames(run2, WIDTH, HEIGHT, "slice 2")
+    state2 = run2["state"]
+
+    # device busy share and time by kernel name over 2 more slice-2 frames
+    # under torch.profiler (CUDA activity); the profiler's own host cost is
+    # in the window, so the share is a lower bound
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
-            _, state = frame.render_frame(state, scene, cams[-1], luts, dt,
-                                          settings, device=dev)
+            _, state2 = frame.render_frame(state2, scene2, cams[-1], luts,
+                                           1.0 / 60.0, settings2, device=dev)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     by_kernel = sorted(
@@ -356,8 +648,8 @@ def main() -> int:
     device_us = sum(t for _, t, _ in by_kernel)
     device_launches = sum(n for _, _, n in by_kernel) / 2
     busy = device_us / window_us if device_us > 0 else None
-    print(f"profiler: device busy {device_us / 2e3:.2f} ms/frame of "
-          f"{window_us / 2e3:.2f} ms wall -> busy share "
+    print(f"profiler (slice 2): device busy {device_us / 2e3:.2f} ms/frame "
+          f"of {window_us / 2e3:.2f} ms wall -> busy share "
           f"{'not measured' if busy is None else f'{busy:.3f}'}; "
           f"{device_launches:.0f} device kernels/frame under "
           f"{len(by_kernel)} names", flush=True)
@@ -365,29 +657,40 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         by_bytes, by_ops = bounds[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": run2["launches"][name],
             "max_abs_err": errors[name], "ms": ms[name],
             "plain_ms": plain_ms[name],
             "bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": library_ms[name]})
-    report.update(busy_share=busy, profiled_device_us_per_frame=device_us / 2,
-                  device_kernels_per_frame=device_launches,
-                  profiled_wall_us_per_frame=window_us / 2,
-                  top_kernels_us_per_frame=[(k, t / 2, n / 2)
-                                            for k, t, n in by_kernel[:25]],
-                  pairs_per_bin={
-                      "max": int(pairs.tile_count.max()),
-                      "mean": float(pairs.tile_count.float().mean()),
-                      "nonzero_bins": int((pairs.tile_count > 0).sum())},
-                  passes_ms=pass_ms, kernels=kernels, launches=launches,
-                  frames=n_frames, image_mean=mean, image_std=std,
-                  exposure=exposure, gbuffer_pixels_differ=frac_differ,
-                  small_slice_close=close, live_pairs=live_pairs,
-                  pair_budget=budget, evaluated_pair_pixels=evaluated)
+            "library_ms": library_ms[name]}
+        if name == "expand_keys":  # its second use: the atlas's keys
+            entry.update(atlas_ms=atlas_a_ms, atlas_plain_ms=atlas_a_plain_ms,
+                         atlas_bound_ms=atlas_a_bound)
+        kernels.append(entry)
+    report["slice2"] = dict(
+        passes_ms=run2["pass_ms"], launches=run2["launches"],
+        host_syncs_per_frame=run2["host_syncs_per_frame"],
+        frames=run2["frames"], pair_budget_scale=scale,
+        small_close=close2, texture_tiles_differ=tiles_differ,
+        texture_ok_share=ok_share, texture_windows=windows,
+        shadow_equal_share=f_equal, shadowed_share=shadowed,
+        atlas_live_pairs=atlas_live, atlas_pair_budget=atlas.pair_budget,
+        atlas_covered=atlas_cov, atlas_evaluated_pair_pixels=e_eval,
+        atlas_pairs_per_bin={
+            "max": int(counts_e.max()),
+            "mean": float(counts_e.float().mean()),
+            "nonzero_bins": int((counts_e > 0).sum())},
+        busy_share=busy, profiled_device_us_per_frame=device_us / 2,
+        device_kernels_per_frame=device_launches,
+        profiled_wall_us_per_frame=window_us / 2,
+        top_kernels_us_per_frame=[(k, t / 2, n / 2)
+                                  for k, t, n in by_kernel[:30]],
+        **frames2)
+    report.update(kernels=kernels, total_s=time.time() - t_start)
     (OUT / "report.json").write_text(json.dumps(report, indent=1))
+    print(f"total {report['total_s']:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Procedural atrium scene (plainrenderer_tpu/assets/procedural.py, numpy).
 
 A copy of the JAX package's deterministic colonnaded hall: floor, walls,
-two rows of columns, scattered boxes and hanging banners. World is y-down
-(the floor at y = 0, everything else at negative y). The same config and
-seed give bit-identical meshes on both sides. Only the untextured scene is
-ported; textured=True waits for the texture slice.
+two rows of columns, scattered boxes and hanging banners, each mesh with
+procedural checker / brick / marble textures when textured=True (banners
+get an alpha-tested lattice). World is y-down (the floor at y = 0,
+everything else at negative y). The same config and seed give
+bit-identical meshes and texture images on both sides.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 
 from .plain_format import MeshData, ObjectBinary, Scene, TexturePaths
+from .textures import MaterialTextures
 
 
 def _quad(p0, p1, p2, p3, normal, tangent, uv_scale=1.0, subdiv=1):
@@ -147,21 +149,75 @@ class AtriumConfig:
     seed: int = 7
 
 
+def procedural_texture(albedo, kind: str, size: int = 256, seed: int = 0):
+    """Deterministic material textures (checker / brick / lattice / marble)
+    with a normal map from the height field and an ORM specular map
+    (procedural.py:154)."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    base = np.asarray(albedo, np.float32)
+
+    if kind == "checker":
+        c = (((ys // (size // 8)) + (xs // (size // 8))) % 2).astype(
+            np.float32)
+        alb = base[None, None, :] * (0.7 + 0.6 * c)[..., None]
+        height = c
+    elif kind == "brick":
+        row = ys // (size // 8)
+        xoff = (xs + (row % 2) * (size // 8)) % (size // 4)
+        mortar = ((ys % (size // 8)) < 2) | (xoff < 2)
+        alb = np.where(mortar[..., None], base * 0.55, base)
+        tint = rng.normal(0, 0.05, (8, 4, 1)).astype(np.float32)
+        tint_full = np.repeat(np.repeat(tint, size // 8, 0), size // 4, 1)
+        alb = np.clip(alb * (1.0 + tint_full[:size, :size]), 0.0, 1.0)
+        height = 1.0 - mortar.astype(np.float32)
+    elif kind == "lattice":
+        # woven fabric with cut-outs: alpha-tested (depthPrepass.frag:28-31)
+        fx = np.sin(xs / size * np.pi * 16)
+        fy = np.sin(ys / size * np.pi * 16)
+        holes = (np.abs(fx) < 0.45) & (np.abs(fy) < 0.45)
+        weave = 0.8 + 0.2 * np.sign(fx * fy)
+        alb3 = base[None, None, :] * weave[..., None]
+        alpha = np.where(holes, 0.0, 1.0).astype(np.float32)
+        alb = np.concatenate([alb3, alpha[..., None]], -1)
+        height = weave.astype(np.float32) * 0.5
+    else:  # marble-ish bands
+        p = np.sin(xs / size * 12.0 + 3.0 * np.sin(ys / size * 6.0))
+        alb = base[None, None, :] * (0.8 + 0.25 * p)[..., None]
+        height = p.astype(np.float32) * 0.5 + 0.5
+
+    # normal map from the height field (central differences)
+    gx = np.roll(height, -1, 1) - np.roll(height, 1, 1)
+    gy = np.roll(height, -1, 0) - np.roll(height, 1, 0)
+    strength = 1.5
+    nz = np.ones_like(gx)
+    n = np.stack([-gx * strength, -gy * strength, nz], -1)
+    n = n / np.linalg.norm(n, axis=-1, keepdims=True)
+    normal = (n[..., :2] * 0.5 + 0.5).astype(np.float32)
+    rough = np.clip(0.75 - 0.35 * height, 0.05, 1.0).astype(np.float32)
+    spec = np.stack([np.ones_like(rough), rough,
+                     np.zeros_like(rough)], -1)
+    return MaterialTextures(albedo=np.clip(alb, 0, 1).astype(np.float32),
+                            normal=normal, specular=spec)
+
+
 def build_atrium_scene(config: AtriumConfig | None = None,
                        textured: bool = True) -> Scene:
     """Deterministic colonnaded-hall scene (the bench/test flagship)."""
-    if textured:
-        raise NotImplementedError(
-            "textured atrium: material textures arrive with the texture "
-            "slice; pass textured=False")
     cfg = config or AtriumConfig()
     rng = np.random.default_rng(cfg.seed)
     meshes: list[MeshData] = []
     objects: list[ObjectBinary] = []
 
-    def add_object(mesh: MeshData, translate, albedo):
+    tex_kinds = ("checker", "brick", "marble")
+
+    def add_object(mesh: MeshData, translate, albedo, tex_kind=None):
         mesh.mean_albedo = np.asarray(albedo, np.float32)
         mesh_index = len(meshes)
+        if textured:
+            mesh.texture_images = procedural_texture(
+                albedo, tex_kind or tex_kinds[mesh_index % 3],
+                seed=mesh_index)
         meshes.append(mesh)
         m = np.eye(4, dtype=np.float32)
         m[:3, 3] = translate
@@ -207,7 +263,7 @@ def build_atrium_scene(config: AtriumConfig | None = None,
         add_object(b, [x, -size / 2, z], palette[i % len(palette)])
 
     # hanging banners across the hall, double-sided: two opposing quads
-    # (opaque here: their alpha masks come with the texture slice)
+    # (alpha-tested lattice when textured)
     for i in range(cfg.banner_count):
         x = -L * 0.7 + i * (1.4 * L / max(cfg.banner_count - 1, 1))
         front = _quad([x, -H * 0.75, -1.2], [x, -H * 0.75, 1.2],
@@ -218,7 +274,8 @@ def build_atrium_scene(config: AtriumConfig | None = None,
                      [x, -H * 0.2, -1.2], [x, -H * 0.2, 1.2],
                      normal=[-1, 0, 0], tangent=[0, 0, -1], uv_scale=1.0,
                      subdiv=4)
-        add_object(_merge([front, back]), [0.0, 0.0, 0.0], [0.7, 0.25, 0.2])
+        add_object(_merge([front, back]), [0.0, 0.0, 0.0], [0.7, 0.25, 0.2],
+                   tex_kind="lattice")
 
     return Scene(objects=objects, meshes=meshes)
 

@@ -7,8 +7,10 @@
 //   k = j - cum_ex[owner]; dy = k / span_x; dx = k % span_x
 //   tile = (y0 + dy) * n_tiles_x + x0 + dx
 //   key = (tile * bin_rows + max(rel_fy0 - dy * bin_rows, 0)) * (tpv + 1)
-//         + owner                        (order_rows)
-//   key = tile * (tpv + 1) + owner       (otherwise)
+//         + owner % tpv                  (order_rows)
+//   key = tile * (tpv + 1) + owner % tpv (otherwise)
+// owner % tpv is the view-local triangle of a vertical atlas of T / tpv
+// views (the shadow cascades, raster.py:508-524); one view has tpv = T.
 // Slots at or past total = cum[T - 1] get the sentinel key and owner 0.
 //
 // Bound on the H100: it moves ~4 MB at the main view's shapes (three
@@ -62,12 +64,13 @@ __global__ void expand_keys_kernel(const int* __restrict__ cum,
   const int dy = kc / sx;
   const int dx = kc - dy * sx;
   const int tile = (y0 + dy) * n_tiles_x + x0 + dx;
+  const int tri_local = owner % tpv;
   int key;
   if (order_rows) {
     const int kymin = max(rel0 - dy * bin_rows, 0);
-    key = (tile * bin_rows + kymin) * (tpv + 1) + owner;
+    key = (tile * bin_rows + kymin) * (tpv + 1) + tri_local;
   } else {
-    key = tile * (tpv + 1) + owner;
+    key = tile * (tpv + 1) + tri_local;
   }
   keys[j] = key;
   owners[j] = owner;

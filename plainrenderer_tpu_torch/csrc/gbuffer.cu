@@ -44,12 +44,6 @@
 #include "common.cuh"
 
 #define CHUNK 256
-#define N_STAGED 14
-
-// pair_edges rows staged per pair: e0, e1, e2, z as (a, b, c), then the
-// fine-row extents fy0 (row 3) and fy1 (row 7)
-__constant__ int kStagedRow[N_STAGED] = {0, 1, 2, 4, 5, 6, 8, 9, 10,
-                                         12, 13, 14, 3, 7};
 
 __device__ __forceinline__ float bf16_round(float f) {
   unsigned u = __float_as_uint(f);
@@ -91,7 +85,7 @@ gbuffer_kernel(const float* __restrict__ edges,
                                float* __restrict__ gbuf, int n_pairs,
                                int n_tiles_y, int n_tiles_x, int sub,
                                int row_skip) {
-  __shared__ float staged[N_STAGED][CHUNK];
+  __shared__ float staged[PLAIN_N_STAGED][CHUNK];
 
   const int bin = blockIdx.x;
   const int ty = bin / n_tiles_x;
@@ -115,11 +109,11 @@ gbuffer_kernel(const float* __restrict__ edges,
   for (int c0 = 0; c0 < count; c0 += CHUNK) {
     const int n = min(CHUNK, count - c0);
     __syncthreads();  // previous chunk fully consumed
-    for (int i = threadIdx.x; i < N_STAGED * n; i += blockDim.x) {
+    for (int i = threadIdx.x; i < PLAIN_N_STAGED * n; i += blockDim.x) {
       const int r = i / n;
       const int p = i - r * n;
       staged[r][p] =
-          edges[(size_t)kStagedRow[r] * n_pairs + start + c0 + p];
+          edges[(size_t)plain_staged_row(r) * n_pairs + start + c0 + p];
     }
     __syncthreads();
     for (int p = 0; p < n; ++p) {

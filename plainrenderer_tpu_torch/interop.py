@@ -24,6 +24,8 @@ SCENE_KEYS = ("corners", "corner_uvs", "corner_normals", "corner_tangents",
               "corner_bitangents", "tri_material", "tri_object",
               "material_table", "object_bb_min", "object_bb_max",
               "tri_starts", "object_build_inv")
+# present only when the scene has a texture pool (frame.py:1181-1185)
+TEXTURE_KEYS = ("mat_tex", "tex_info", "tex_word0", "tex_word1")
 LUT_KEYS = ("transmission", "multiscatter", "blue_noise")
 
 
@@ -34,12 +36,13 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
 def scene_from_arrays(scene: dict, device="cuda") -> dict:
     """JAX scene dict (arrays) -> the port's scene tensor dict."""
     dev = device_mod.resolve(device)
-    extra = sorted(set(scene) - set(SCENE_KEYS))
+    extra = sorted(set(scene) - set(SCENE_KEYS) - set(TEXTURE_KEYS))
     if extra:
         raise NotImplementedError(
-            f"scene keys of later slices: {extra} (textures, alpha masks, "
-            "SDF volumes, dynamic objects)")
-    return {k: _tensor(scene[k], dev) for k in SCENE_KEYS}
+            f"scene keys of later slices: {extra} (alpha masks, SDF "
+            "volumes, dynamic objects)")
+    keys = SCENE_KEYS + tuple(k for k in TEXTURE_KEYS if k in scene)
+    return {k: _tensor(scene[k], dev) for k in keys}
 
 
 def state_from_arrays(state, device="cuda") -> FrameState:

@@ -28,12 +28,14 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("expand_keys.cu", "gbuffer.cu", "material.cu")
+SOURCES = ("expand_keys.cu", "gbuffer.cu", "material.cu", "texture.cu",
+           "depth.cu", "shadow.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry point -> (launch-count key, argtypes); every entry returns int
 _ENTRIES = {
     # cum, cum_ex, geom, keys, owners, t_count, budget, n_tiles_x,
@@ -44,6 +46,15 @@ _ENTRIES = {
     "gbuffer_launch": ("gbuffer", [_P] * 7 + [_I] * 5 + [_P]),
     # table, ids, valid, out, n_pix, channels, stream
     "material_launch": ("material", [_P] * 4 + [_I] * 2 + [_P]),
+    # edges, tile_start, tile_count, chunk_end, counter, depth, n_pairs,
+    # n_tiles_y, n_tiles_x, sub, row_skip, grid, stream
+    "depth_launch": ("depth", [_P] * 6 + [_I] * 6 + [_P]),
+    # world_pos, linear_depth, noise, maps, rows, spiral, out, h, w,
+    # map_size, cascade_count, taps, sample_radius, inv_taps, stream
+    "shadow_launch": ("shadow", [_P] * 7 + [_I] * 5 + [_F, _F, _P]),
+    # uv, duv, mat_id, valid, mat_tex, info, word0, word1, out, h, w,
+    # n_mat, n_mips, two_mat, mip_bias, stream
+    "texture_launch": ("texture", [_P] * 9 + [_I] * 5 + [_F, _P]),
 }
 
 _launches = {key: 0 for key, _ in _ENTRIES.values()}

@@ -1,20 +1,25 @@
-"""Triangle rasterization for the main view: setup, binning, G-buffer.
+"""Triangle rasterization: setup, binning, G-buffer and depth-only raster.
 
-Port of plainrenderer_tpu/ops/raster.py for the opaque main view. The
-three stages keep the reference's contracts (the (3, 4, T) edge table,
-the (16, P) / (32, P) pair-row tables, the packed int32 sort key, the
-packed depth | slot winner rule, the 13-channel G-buffer layout):
+Port of plainrenderer_tpu/ops/raster.py for opaque geometry: the main view
+and the sun-shadow atlas. The stages keep the reference's contracts (the
+(3, 4, T) edge table, the (16, P) / (32, P) pair-row tables, the packed
+int32 sort key, the packed depth | slot winner rule, the 13-channel
+G-buffer layout):
 
   1. geometry_setup (plain PyTorch): per-triangle 2D-homogeneous edge
      planes, reverse-Z depth plane, perspective-correct attribute planes
-     and tile bboxes, as (T,) lane vectors in the JAX package's op order;
+     and tile bboxes, as (T,) lane vectors in the JAX package's op order
+     (or (B, T) for a batch of view matrices: the shadow cascades);
   2. build_pairs: spans + int32 prefix sum, then kernel A (expand_keys,
      csrc/expand_keys.cu) maps every pair-stream slot to its sort key, one
      torch.sort orders the stream, torch.searchsorted finds each bin's
-     segment; gather_pair_setups duplicates setup rows into pair order;
+     segment; gather_pair_setups duplicates setup rows into pair order. A
+     vertical atlas of n_views views keys each pair by its view-local
+     triangle;
   3. rasterize_gbuffer: kernel B (csrc/gbuffer.cu), one thread block per
      (sub * 16) x 128 bin, resolves visibility and evaluates the winner's
-     attribute planes.
+     attribute planes; rasterize_depth: kernel E (csrc/depth.cu), the
+     depth-only clamped max of the shadow atlas.
 
 Each kernel wrapper runs its plain PyTorch version (*_plain, in this
 module) only when its inputs lie on the CPU; for CUDA tensors it launches
@@ -44,6 +49,8 @@ NATTR_PREV = NATTR + 9  # + previous-frame clip planes (dynamic scenes)
 # G-buffer channels: uv 0-1, uv screen derivatives 2-5, normal 6-8,
 # tangent 9-11, packed material * 2 + (handedness < 0) 12
 GBUF_CHANNELS = 13
+_CH_U = 0  # 0-1 uv
+_CH_DUDX = 2  # 2-5 dudx, dvdx, dudy, dvdy
 _CH_N = 6  # 6-8 normal
 _CH_T = 9  # 9-11 tangent
 _CH_MAT = 12  # packed material * 2 + (handedness < 0)
@@ -103,7 +110,8 @@ def _require(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
 def geometry_setup(corners, corner_uvs, corner_normals, corner_tangents,
                    corner_bitangents, tri_material, tri_visible, view_proj,
                    width: int, height: int, cull: str = "back",
-                   near_w: float = 0.0, bin_rows: int = 1) -> TriangleSetup:
+                   near_w: float = 0.0, bin_rows: int = 1,
+                   with_attrs: bool = True) -> TriangleSetup:
     """Dense per-triangle setup (raster.py:104 geometry_setup).
 
     Edge and attribute planes are built in 2D homogeneous viewport space
@@ -111,19 +119,29 @@ def geometry_setup(corners, corner_uvs, corner_normals, corner_tangents,
     near-plane-crossing triangles rasterize their visible region exactly;
     the bbox covers the vertices in front of the near plane plus the
     edge/near-plane intersections. Every expression keeps the JAX
-    package's operand order. The previous-frame planes of dynamic objects,
-    the alpha-test plane table and the attribute-free shadow setup arrive
-    with their slices."""
+    package's operand order.
+
+    view_proj (B, 4, 4) with tri_visible (B, T) sets up B views at once
+    (the shadow cascades, with_attrs=False): every per-triangle field
+    gains a leading B, and edges come out (3, 4, B, T), so flattening the
+    views into one atlas stream is a free reshape (frame.py:189-204).
+    with_attrs=False leaves attrs empty (the depth-only passes). The
+    previous-frame planes of dynamic objects and the alpha-test plane
+    table arrive with their slices."""
+    if view_proj.dim() == 3 and with_attrs:
+        raise ValueError("a batch of views is set up without attributes")
     cx = [corners[:, v, 0] for v in range(3)]
     cy = [corners[:, v, 1] for v in range(3)]
     cz = [corners[:, v, 2] for v in range(3)]
-    m = view_proj
+    # (..., 4, 4, 1): an entry broadcasts over the triangle axis
+    m = view_proj.unsqueeze(-1)
 
     def project(v):
-        xc = m[0, 0] * cx[v] + m[0, 1] * cy[v] + m[0, 2] * cz[v] + m[0, 3]
-        yc = m[1, 0] * cx[v] + m[1, 1] * cy[v] + m[1, 2] * cz[v] + m[1, 3]
-        zc = m[2, 0] * cx[v] + m[2, 1] * cy[v] + m[2, 2] * cz[v] + m[2, 3]
-        wc = m[3, 0] * cx[v] + m[3, 1] * cy[v] + m[3, 2] * cz[v] + m[3, 3]
+        def row(r):
+            return (m[..., r, 0, :] * cx[v] + m[..., r, 1, :] * cy[v]
+                    + m[..., r, 2, :] * cz[v] + m[..., r, 3, :])
+
+        xc, yc, zc, wc = row(0), row(1), row(2), row(3)
         return ((xc * 0.5 + 0.5 * wc) * width,  # Vulkan y-down == screen
                 (yc * 0.5 + 0.5 * wc) * height, zc, wc)
 
@@ -230,11 +248,16 @@ def geometry_setup(corners, corner_uvs, corner_normals, corner_tangents,
     valid = valid & ~offscreen
     tile_bbox = torch.stack([
         torch.where(valid, ty0, 1), torch.where(valid, tx0, 1),
-        torch.where(valid, ty1, 0), torch.where(valid, tx1, 0)], dim=1)
+        torch.where(valid, ty1, 0), torch.where(valid, tx1, 0)], dim=-1)
     n_fy = height // TILE_H
     fy0, fy1 = to_cell(ymin, TILE_H, n_fy), to_cell(ymax, TILE_H, n_fy)
     fine_y = torch.stack([torch.where(valid, fy0, 1),
-                          torch.where(valid, fy1, 0)], dim=1)
+                          torch.where(valid, fy1, 0)], dim=-1)
+    if not with_attrs:
+        attrs = torch.zeros((NATTR, 0), dtype=torch.float32,
+                            device=edges.device)
+        return TriangleSetup(edges=edges, attrs=attrs, tile_bbox=tile_bbox,
+                             valid=valid, fine_y=fine_y)
 
     rows = []
 
@@ -286,19 +309,22 @@ class KeyInputs:
     n_tiles_x: int
     bin_rows: int
     order_rows: bool
-    tpv: int  # triangles per view (= T: one view)
+    tpv: int  # triangles per view (T / n_views)
     key_rows: int  # sub-row factor in the key
     sentinel: int  # key of dead slots
 
 
 def pair_key_inputs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
                     pair_budget: int | None = None, bin_rows: int = 1,
-                    order_rows: bool = False) -> KeyInputs:
+                    order_rows: bool = False, n_views: int = 1) -> KeyInputs:
     """Spans, their int32 prefix sum and the packed per-triangle geometry
-    word (raster.py:829-867) for one view."""
+    word (raster.py:829-867); n_views > 1 for a vertical atlas of views
+    with T / n_views triangles each."""
     t_count = setup.valid.shape[0]
     n_tiles = n_tiles_y * n_tiles_x
-    tpv = t_count
+    if t_count % n_views or n_tiles % n_views:
+        raise ValueError("triangles and tiles must split evenly into views")
+    tpv = t_count // n_views
     key_rows = bin_rows if order_rows else 1
     if (n_tiles * key_rows + 1) * (tpv + 1) >= 2 ** 31:
         raise ValueError("packed key overflow")
@@ -333,8 +359,9 @@ def pair_key_inputs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
 
 def expand_keys_plain(ki: KeyInputs):
     """Plain version of kernel A: ((budget,) i32 keys, (budget,) i32
-    owners), owner(j) = the first t with cum[t] > j; dead slots
-    (j >= total) get the sentinel key and owner 0."""
+    owners), owner(j) = the first t with cum[t] > j, keyed by its
+    view-local index owner % tpv; dead slots (j >= total) get the
+    sentinel key and owner 0."""
     t_count = ki.cum.shape[0]
     j = torch.arange(ki.budget, dtype=torch.int32, device=ki.cum.device)
     live = j < ki.cum[-1]
@@ -350,11 +377,12 @@ def expand_keys_plain(ki: KeyInputs):
     dy = torch.div(kc, sx, rounding_mode="trunc")
     dx = kc - dy * sx
     tile = (y0 + dy) * ki.n_tiles_x + x0 + dx
+    tri_local = torch.remainder(owner, ki.tpv)
     if ki.order_rows:
         kymin = torch.clamp(rel0 - dy * ki.bin_rows, min=0)
-        key = (tile * ki.bin_rows + kymin) * (ki.tpv + 1) + owner
+        key = (tile * ki.bin_rows + kymin) * (ki.tpv + 1) + tri_local
     else:
-        key = tile * (ki.tpv + 1) + owner
+        key = tile * (ki.tpv + 1) + tri_local
     keys = torch.where(live, key, ki.sentinel).to(torch.int32)
     owners = torch.where(live, owner, 0).to(torch.int32)
     return keys, owners
@@ -383,7 +411,8 @@ def expand_keys(ki: KeyInputs):
 
 def build_pairs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
                 pair_budget: int | None = None, bin_rows: int = 1,
-                order_rows: bool = False) -> PairLists:
+                order_rows: bool = False, n_views: int = 1,
+                tile_cap: int | None = None) -> PairLists:
     """Expand triangles into sorted per-bin pair lists (raster.py:737).
 
     Exact prefix-sum emission into one `pair_budget`-slot stream; pairs
@@ -391,18 +420,24 @@ def build_pairs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
     counted in `overflow`, as are pairs past a bin's cap of
     MAX_PAIRS_PER_TILE - GROUP (the slot must fit SLOT_BITS with the
     group-aligned lead-in). order_rows packs each pair's first covered
-    16px sub-row into the key, so a bin's segment comes out y-sorted. One
-    view only: the shadow atlas's multi-view keys arrive with shadows."""
+    16px sub-row into the key, so a bin's segment comes out y-sorted.
+
+    n_views > 1: the setup is a vertical atlas of n_views views (the shadow
+    cascades), T / n_views triangles each, bboxes offset into each view's
+    band of bin rows; the key packs the view-local triangle and the decode
+    recovers the view from the bin (raster.py:780-786, :967-981).
+    tile_cap replaces the winner-slot cap for depth-only consumers, which
+    have no slot to pack (raster.py:994-1001)."""
     ki = pair_key_inputs(setup, n_tiles_y, n_tiles_x, pair_budget,
-                         bin_rows, order_rows)
-    t_count = ki.tpv
+                         bin_rows, order_rows, n_views)
+    t_count = setup.valid.shape[0]
     n_tiles = n_tiles_y * n_tiles_x
     keys, _ = expand_keys(ki)
     keys_sorted = torch.sort(keys).values
     key_span = ki.key_rows * (ki.tpv + 1)
-    # sentinel keys decode to tile == n_tiles -> view 1 -> index t_count,
-    # the degenerate padding row
-    view = (keys_sorted // key_span) // n_tiles
+    # sentinel keys decode to tile == n_tiles -> view n_views -> index
+    # t_count, the degenerate padding row
+    view = (keys_sorted // key_span) // (n_tiles // n_views)
     tri_glob = view * ki.tpv + keys_sorted % (ki.tpv + 1)
     pair_tri = torch.cat([
         torch.clamp(tri_glob, max=t_count).to(torch.int32),
@@ -412,7 +447,8 @@ def build_pairs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
     raw_start = torch.searchsorted(keys_sorted, tile_ids * key_span)
     raw_end = torch.searchsorted(keys_sorted, (tile_ids + 1) * key_span)
     n_real = (raw_end - raw_start).to(torch.int32)
-    capped = torch.clamp(n_real, max=MAX_PAIRS_PER_TILE - GROUP)
+    cap = MAX_PAIRS_PER_TILE - GROUP if tile_cap is None else tile_cap
+    capped = torch.clamp(n_real, max=cap)
     overflow = (torch.clamp(ki.cum[-1] - ki.budget, min=0)
                 + torch.sum(n_real - capped, dtype=torch.int32))
     return PairLists(pair_tri=pair_tri,
@@ -438,9 +474,13 @@ def setup_row_table(setup: TriangleSetup, row_extents: bool = False):
     if row_extents:
         pad_rows[0, 0, :t_count] = setup.fine_y[:, 0]
         pad_rows[0, 1, :t_count] = setup.fine_y[:, 1]
-        pad_rows[0, 0, t_count] = 1.0  # empty range for the padding row
+        # empty range for the padding row; a slice fill, because a
+        # single-element assignment copies a host scalar and waits
+        pad_rows[0, 0, t_count:] = 1.0
     edges_rows = torch.cat([e, pad_rows], dim=0).permute(1, 0, 2).reshape(
         n_rows, t_count + 1)
+    if setup.attrs.shape[1] == 0:  # a depth-only setup
+        return edges_rows, n_rows
     n_attr = setup.attrs.shape[0]
     attrs_pad = torch.zeros((n_attr + (-n_attr) % 8, t_count + 1),
                             dtype=torch.float32, device=dev)
@@ -449,10 +489,13 @@ def setup_row_table(setup: TriangleSetup, row_extents: bool = False):
 
 
 def gather_pair_setups(setup: TriangleSetup, pairs: PairLists,
-                       row_extents: bool = False):
+                       row_extents: bool = False, with_attrs: bool = True):
     """Duplicate per-triangle setups into pair order (raster.py:1021):
-    (pair_edges (16, P) f32, pair_attrs (32, P) f32)."""
+    (pair_edges (16, P) f32, pair_attrs (32, P) f32, or None without
+    attributes)."""
     rows, n_rows = setup_row_table(setup, row_extents)
+    if not with_attrs:
+        return rows[:n_rows].index_select(1, pairs.pair_tri.long()), None
     pair_rows = rows.index_select(1, pairs.pair_tri.long())
     return pair_rows[:n_rows].contiguous(), pair_rows[n_rows:].contiguous()
 
@@ -509,13 +552,19 @@ def _gbuffer_channels(coeff: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 _PLAIN_CHUNK_ELEMS = 1 << 24
 
 
-def gbuffer_plain(pair_edges, pair_attrs, tile_start, tile_count,
-                  n_tiles_y: int, n_tiles_x: int, sub: int,
-                  row_skip: bool):
-    """Plain version of kernel B: (depth (H, W) f32, vis (H, W) i32,
-    gbuf (13, H, W) f32), same arithmetic as csrc/gbuffer.cu.
+# depth-only passes clamp z into [1/16384, 1] (raster.py:1368-1374)
+DEPTH_CLAMP_MIN = 1.0 / 16384.0
 
-    Visibility loops over chunks of bins and of each chunk's pairs, at most
+
+def _plain_visibility(pair_edges, tile_start, tile_count, n_tiles_y: int,
+                      n_tiles_x: int, sub: int, row_skip: bool,
+                      depth_only: bool) -> torch.Tensor:
+    """The visibility max of kernels B and E, (H, W) i32.
+
+    Winner (depth_only=False): the max of (bits(z) & ~SLOT_MASK) | slot
+    over pairs covering a pixel with 0 < z <= 1. Depth only: the max of
+    bits(clamp(z, 1/16384, 1)) over pairs whose edges cover the pixel.
+    Loops over chunks of bins and of each chunk's pairs, at most
     _PLAIN_CHUNK_ELEMS (bin, pair, pixel) evaluations at a time."""
     dev = pair_edges.device
     n_pairs = pair_edges.shape[1]
@@ -554,20 +603,39 @@ def gbuffer_plain(pair_edges, pair_attrs, tile_start, tile_count,
                 return a * x + (b * y + c)
 
             e0, e1, e2, z = plane(0), plane(1), plane(2), plane(3)
-            cov = ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (z > 0.0)
-                   & (z <= 1.0) & live[..., None, None])
+            cov = ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0)
+                   & live[..., None, None])
             if row_skip:
                 fr = fine_row[b0:b1, None, :, None]
                 cov = cov & ((cf[3][..., None, None] <= fr)
                              & (fr <= cf[7][..., None, None]))
-            slot = (lead[b0:b1, None] + i[None]).to(torch.int32)
-            cand = torch.where(
-                cov, (z.view(torch.int32) & ~SLOT_MASK) | slot[..., None, None],
-                0)
+            if depth_only:
+                zc = torch.clamp(z, DEPTH_CLAMP_MIN, 1.0)
+                cand = torch.where(cov, zc.view(torch.int32), 0)
+            else:
+                slot = (lead[b0:b1, None] + i[None]).to(torch.int32)
+                cand = torch.where(
+                    cov & (z > 0.0) & (z <= 1.0),
+                    (z.view(torch.int32) & ~SLOT_MASK)
+                    | slot[..., None, None], 0)
             acc[b0:b1] = torch.maximum(acc[b0:b1], cand.amax(dim=1))
 
-    acc2d = acc.reshape(n_tiles_y, n_tiles_x, rows_px, TILE_W).permute(
+    return acc.reshape(n_tiles_y, n_tiles_x, rows_px, TILE_W).permute(
         0, 2, 1, 3).reshape(h, w)
+
+
+def gbuffer_plain(pair_edges, pair_attrs, tile_start, tile_count,
+                  n_tiles_y: int, n_tiles_x: int, sub: int,
+                  row_skip: bool):
+    """Plain version of kernel B: (depth (H, W) f32, vis (H, W) i32,
+    gbuf (13, H, W) f32), same arithmetic as csrc/gbuffer.cu."""
+    dev = pair_edges.device
+    n_pairs = pair_edges.shape[1]
+    rows_px = sub * TILE_H
+    h, w = n_tiles_y * rows_px, n_tiles_x * TILE_W
+    starts = tile_start.long()
+    acc2d = _plain_visibility(pair_edges, tile_start, tile_count, n_tiles_y,
+                              n_tiles_x, sub, row_skip, depth_only=False)
     depth = (acc2d & ~SLOT_MASK).view(torch.float32)
     valid = acc2d != 0
     slot = acc2d & SLOT_MASK
@@ -629,6 +697,74 @@ def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
                   pairs.tile_start, pairs.tile_count, depth, vis, gbuf,
                   n_pairs, n_tiles_y, n_tiles_x, sub, int(row_skip))
     return depth, vis, gbuf
+
+
+# --------------------------------------------------------------------------
+# depth-only raster (kernel E) and its plain version
+# --------------------------------------------------------------------------
+
+DEPTH_CHUNK = 256  # pairs per work item of kernel E (csrc/depth.cu)
+
+
+def depth_plain(pair_edges, tile_start, tile_count, n_tiles_y: int,
+                n_tiles_x: int, sub: int, row_skip: bool) -> torch.Tensor:
+    """Plain version of kernel E: (H, W) f32 reverse-Z depth, the max of
+    clamp(z, 1/16384, 1) over pairs whose edges cover the pixel, 0 where
+    none does."""
+    return _plain_visibility(pair_edges, tile_start, tile_count, n_tiles_y,
+                             n_tiles_x, sub, row_skip,
+                             depth_only=True).view(torch.float32)
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def rasterize_depth(pair_edges, pairs: PairLists, n_tiles_y: int,
+                    n_tiles_x: int, sub: int = 1,
+                    row_skip: bool = False) -> torch.Tensor:
+    """Depth-only rasterization of opaque casters (raster.py:1494, the
+    sun-shadow atlas; kernel E, csrc/depth.cu, replaces raster.py:1465
+    _depth_kernel). n_tiles_y counts bins of sub * 16 rows, as the
+    build_pairs run that made `pairs`. Coverage is the three edge planes
+    alone, and z is clamped into [1/16384, 1]: the reference renders
+    cascades with depth clamping, so casters outside the fitted z range
+    still write (raster.py:1368-1374). row_skip needs pair_edges rows 3/7
+    from gather_pair_setups(row_extents=True). Returns (H, W) f32, 0 where
+    nothing covers. The alpha-tested depth kernels arrive with the
+    alpha-test slice."""
+    dev = pair_edges.device
+    _require(pair_edges, "pair_edges", torch.float32, 2, dev)
+    _require(pairs.tile_start, "tile_start", torch.int32, 1, dev)
+    _require(pairs.tile_count, "tile_count", torch.int32, 1, dev)
+    if pair_edges.shape[0] != 16:
+        raise NotImplementedError(
+            f"pair_edges needs the 16-row opaque table, got "
+            f"{tuple(pair_edges.shape)} (alpha-tested casters arrive with "
+            "the alpha-test slice)")
+    n_bins = n_tiles_y * n_tiles_x
+    if pairs.tile_start.shape[0] != n_bins \
+            or pairs.tile_count.shape[0] != n_bins:
+        raise ValueError("tile_start/tile_count need one entry per bin")
+    if not 1 <= sub <= 8:  # kernel E's block is 128 * sub threads
+        raise ValueError(f"sub must be in [1, 8], got {sub}")
+    if not _kernel_device(pair_edges):
+        return depth_plain(pair_edges, pairs.tile_start, pairs.tile_count,
+                           n_tiles_y, n_tiles_x, sub, row_skip)
+    h, w = n_tiles_y * sub * TILE_H, n_tiles_x * TILE_W
+    # work items: DEPTH_CHUNK-pair slices of each bin's segment, handed out
+    # by an atomic counter to persistent blocks (heavy bins spread over
+    # many blocks; their results merge by an integer atomicMax)
+    n_chunks = torch.div(pairs.tile_count + (DEPTH_CHUNK - 1), DEPTH_CHUNK,
+                         rounding_mode="floor")
+    chunk_end = torch.cumsum(n_chunks, 0, dtype=torch.int32)
+    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+    depth = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    native.launch("depth_launch", pair_edges, pairs.tile_start,
+                  pairs.tile_count, chunk_end, counter, depth,
+                  pair_edges.shape[1], n_tiles_y, n_tiles_x, sub,
+                  int(row_skip), 2 * _sm_count(dev))
+    return depth
 
 
 def winner_triangle_ids(vis: torch.Tensor, pairs: PairLists, n_tiles_x: int,

@@ -317,10 +317,13 @@ def sample_transmission_towards_sun(transmission_lut, sun_direction):
     uy = torch.clamp(-sun_direction[1] * 0.5 + 0.5, 0.0, 1.0) * (h - 1)
     y0 = torch.floor(uy)
     f = uy - y0
-    y0i = y0.long()
+    y0i = y0.long().reshape(1)
     y1i = torch.clamp_max(y0i + 1, h - 1)
-    return transmission_lut[:, y0i, 0] * (1 - f) \
-        + transmission_lut[:, y1i, 0] * f
+    # index_select keeps the device index on the device (indexing with a
+    # 0-d tensor reads it back to the host)
+    column = transmission_lut[:, :, 0]
+    return torch.index_select(column, 1, y0i)[:, 0] * (1 - f) \
+        + torch.index_select(column, 1, y1i)[:, 0] * f
 
 
 def view_directions(width, height, cam_forward, cam_up, cam_right,

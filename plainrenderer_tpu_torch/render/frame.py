@@ -1,13 +1,17 @@
 """The per-frame pass graph (plainrenderer_tpu/render/frame.py).
 
-This slice renders the opaque main view: exposure histogram -> exposure
--> sky LUT -> frustum cull -> geometry setup -> binning (kernel A) ->
-G-buffer raster (kernel B) -> material lookup (kernel C) -> forward shade
--> sky composite -> tonemap. Every setting outside it (shadows, SDF GI,
-TAA, bloom, fog, textures, alpha masks, dynamic objects, split-frame
-bands, debug views) raises NotImplementedError instead of silently
-skipping its pass. render_frame runs eagerly and never synchronises with
-the host: every per-frame value stays a device tensor.
+The port renders opaque geometry with material textures and cascaded sun
+shadows: exposure histogram -> exposure -> sky LUT -> frustum cull ->
+geometry setup -> binning (kernel A) -> G-buffer raster (kernel B) ->
+material lookup (kernel C) -> texture sampling (kernel D, textured
+scenes) -> cascade fit -> shadow-atlas setup, binning (kernel A) and
+depth raster (kernel E) -> PCF shadow resolve (kernel F) -> forward shade
+-> sky composite -> tonemap. Every setting outside it (SDF GI, TAA,
+bloom, fog, trilinear / anisotropic texture filtering, alpha masks,
+dynamic objects, split-frame bands, debug views) raises
+NotImplementedError instead of silently skipping its pass. render_frame
+runs eagerly and never synchronises with the host: every per-frame value
+stays a device tensor.
 """
 
 from __future__ import annotations
@@ -20,9 +24,10 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from ..assets.textures import MAX_MIPS
 from ..config import RenderSettings
 from ..ops import exposure as exposure_ops
-from ..ops import post, raster, shade, sky
+from ..ops import hiz, post, raster, shade, shadow, sky, texture
 from ..scene.frustum import expand_object_mask, visible_objects_clipspace
 from ..utils import mathutils, noise as noise_mod
 from .state import FrameState
@@ -73,15 +78,32 @@ def main_bin_sub(ph: int) -> int:
     return 2 if ph % (raster.TILE_H * 2) == 0 else 1
 
 
+def shadow_bin_sub(sres: int) -> int:
+    """Raster-bin height (in 16px rows) for the shadow atlas: the tallest
+    of 8, 4, 2, 1 the map resolution divides (frame.py:145) — 128px bins at
+    2048 maps; depth-only bins have no winner-slot cap."""
+    sub = 8
+    while sub > 1 and sres % (raster.TILE_H * sub):
+        sub //= 2
+    return sub
+
+
 def check_slice(scene: dict, cam: dict, settings: RenderSettings) -> None:
-    """Raise NotImplementedError for anything this slice does not render."""
+    """Raise NotImplementedError for anything the port does not render."""
+    shadows_on = settings.shadows.cascade_count > 0
     unported = [
-        (settings.shadows.cascade_count > 0,
-         "sun shadows (shadows.cascade_count > 0)"),
+        (settings.shadows.cascade_count > shadow.MAX_CASCADES,
+         f"more than {shadow.MAX_CASCADES} shadow cascades"),
         (settings.sdf_trace.enabled, "SDF GI (sdf_trace.enabled)"),
         (settings.taa.enabled, "TAA (taa.enabled)"),
         (settings.bloom.enabled, "bloom (bloom.enabled)"),
-        ("tex_word0" in scene, "material textures (scene 'tex_word0')"),
+        (settings.volumetrics.enabled and shadows_on,
+         "froxel fog (volumetrics.enabled with shadows)"),
+        (settings.shadows.debug_cascade_colors,
+         "cascade debug colours (shadows.debug_cascade_colors)"),
+        (settings.shading.texture_filter >= 1,
+         "trilinear / anisotropic texture filtering "
+         "(shading.texture_filter >= 1)"),
         ("alpha_masks" in scene, "alpha-tested geometry (scene 'alpha_masks')"),
         ("object_transforms" in scene,
          "dynamic objects (scene 'object_transforms')"),
@@ -156,6 +178,10 @@ def _frame_constants(settings: RenderSettings, dev: torch.device) -> dict:
         "exposure_offset": _fill(settings.exposure_offset, dev),
         "adaption_speed": _fill(settings.exposure_adaption_speed, dev),
         "projection": _fill(_projection(settings), dev),
+        # the last cascade reaches the SDF influence radius and the fog's
+        # far plane (lightMatrix.comp push constants, frame.py:587-588)
+        "sdf_influence": _fill(settings.sdf_trace.influence_radius, dev),
+        "fog_max_distance": _fill(settings.volumetrics.max_distance, dev),
     }
 
 
@@ -179,6 +205,123 @@ def raster_main_view(mv: MainView, timer=None):
         pair_edges, pair_attrs, pairs, mv.n_tiles_y, mv.n_tiles_x,
         sub=mv.sub, row_skip=True)
     return pairs, pair_edges, pair_attrs, depth, vis, gbuf
+
+
+def shadow_atlas_setup(scene: dict, cascade_mats: torch.Tensor, n_cas: int,
+                       sres: int) -> raster.TriangleSetup:
+    """All cascades as one vertical-atlas TriangleSetup (frame.py:164-226):
+    per-cascade clip-space culling without the z test, one batched
+    geometry stage with front-face culling (the reference's shadow pass
+    culls front faces, RenderFrontend.cpp:1576), then each cascade's edge
+    planes shifted into its band of atlas rows (c' = c - b * y_off), its
+    bboxes and fine rows offset by the band."""
+    sub = shadow_bin_sub(sres)
+    s_nty = sres // (raster.TILE_H * sub)
+    t_count = scene["corners"].shape[0]
+    cas_mats = cascade_mats[:n_cas]
+    cas_visible = torch.stack([
+        expand_object_mask(
+            visible_objects_clipspace(cas_mats[c], scene["object_bb_min"],
+                                      scene["object_bb_max"], cull_z=False),
+            scene["tri_starts"], t_count)
+        for c in range(n_cas)])
+    s_setup = raster.geometry_setup(
+        scene["corners"], scene["corner_uvs"], scene["corner_normals"],
+        scene["corner_tangents"], scene["corner_bitangents"],
+        scene["tri_material"], cas_visible, cas_mats, sres, sres,
+        cull="front", bin_rows=sub, with_attrs=False)
+    dev = cascade_mats.device
+    # edges (3, n_pl, n_cas, T): the atlas stream is a free reshape
+    y_off = (torch.arange(n_cas, dtype=torch.float32, device=dev)
+             * sres).reshape(1, n_cas, 1)
+    e = s_setup.edges
+    edges = torch.stack([e[0], e[1], e[2] + (-e[1] * y_off)])
+    n_pl = edges.shape[1]
+    offs = (torch.arange(n_cas, dtype=torch.int32, device=dev)
+            * s_nty)[:, None]
+    bb = s_setup.tile_bbox
+    bbox = torch.stack([bb[..., 0] + offs, bb[..., 1], bb[..., 2] + offs,
+                        bb[..., 3]], dim=-1)
+    fine_offs = (torch.arange(n_cas, dtype=torch.int32, device=dev)
+                 * (sres // raster.TILE_H)).reshape(n_cas, 1, 1)
+    return raster.TriangleSetup(
+        edges=edges.reshape(3, n_pl, n_cas * t_count),
+        attrs=s_setup.attrs, tile_bbox=bbox.reshape(-1, 4),
+        valid=s_setup.valid.reshape(-1),
+        fine_y=(s_setup.fine_y + fine_offs).reshape(-1, 2))
+
+
+@dataclasses.dataclass
+class ShadowAtlas:
+    """The cascade fit and the rendered cascade maps of one frame."""
+
+    cascade_mats: torch.Tensor  # (MAX_CASCADES, 4, 4)
+    splits: torch.Tensor  # (MAX_CASCADES,)
+    cascade_scales: torch.Tensor  # (MAX_CASCADES, 2)
+    maps: torch.Tensor  # (MAX_CASCADES, S, S) reverse-Z, unused ones 0
+    setup: raster.TriangleSetup  # the atlas stream, n_cas * T triangles
+    pairs: raster.PairLists
+    edges: torch.Tensor  # (16, P) pair edge rows, as kernel E read them
+    n_bins_y: int  # atlas bins of sub * 16 rows
+    n_bins_x: int
+    sub: int
+    pair_budget: int
+
+
+def render_shadow_atlas(scene: dict, cam: dict, depth: torch.Tensor,
+                        settings: RenderSettings) -> ShadowAtlas:
+    """Cascade fit from the frame's depth bounds, then every cascade in one
+    depth-only atlas pass: atlas setup, binning (kernel A, multi-view
+    keys), setup gather and depth raster (kernel E) (frame.py:576-752,
+    the opaque single-device branch)."""
+    consts = _frame_constants(settings, depth.device)
+    n_cas = settings.shadows.cascade_count
+    d_min, d_max = hiz.depth_min_max(depth)
+    cascade_mats, splits, cascade_scales = shadow.compute_cascade_info(
+        d_min, d_max, cam["position"], cam["forward"], cam["up"],
+        cam["right"], math.tan(math.radians(FOV_DEG) * 0.5),
+        settings.width / settings.height, NEAR_PLANE, FAR_PLANE,
+        consts["sun_dir"], n_cas, consts["sdf_influence"],
+        consts["fog_max_distance"],
+        sample_radius=settings.shadows.sample_radius)
+    sres = settings.shadows.resolution
+    s_sub = shadow_bin_sub(sres)
+    s_nty = sres // (raster.TILE_H * s_sub)
+    s_ntx = sres // raster.TILE_W
+    nb = n_cas * s_nty
+    t_count = scene["corners"].shape[0]
+    setup = shadow_atlas_setup(scene, cascade_mats, n_cas, sres)
+    # budget 1/6 of the atlas triangle stream + a per-bin floor
+    # (frame.py:625-635); overflow lands in debug_counters[1]
+    budget = int(((n_cas * t_count) // 6 + 4 * nb * s_sub * s_ntx)
+                 * settings.pair_budget_scale)
+    pairs = raster.build_pairs(setup, nb, s_ntx, pair_budget=budget,
+                               bin_rows=s_sub, order_rows=True,
+                               n_views=n_cas, tile_cap=1 << 15)
+    edges, _ = raster.gather_pair_setups(setup, pairs, row_extents=True,
+                                         with_attrs=False)
+    atlas = raster.rasterize_depth(edges, pairs, nb, s_ntx, sub=s_sub,
+                                   row_skip=True)
+    maps = atlas.reshape(n_cas, sres, sres)
+    if n_cas < shadow.MAX_CASCADES:
+        maps = torch.cat([maps, torch.zeros(
+            (shadow.MAX_CASCADES - n_cas, sres, sres), dtype=torch.float32,
+            device=maps.device)])
+    return ShadowAtlas(cascade_mats=cascade_mats, splits=splits,
+                       cascade_scales=cascade_scales, maps=maps, setup=setup,
+                       pairs=pairs, edges=edges, n_bins_y=nb, n_bins_x=s_ntx,
+                       sub=s_sub, pair_budget=budget)
+
+
+def blue_noise_screen(luts: dict, frame_index: torch.Tensor, ph: int,
+                      pw: int) -> torch.Tensor:
+    """The frame's blue-noise tile (frame_index % 4) repeated over the
+    padded screen (frame.py:758-761); index_select keeps the device index
+    on the device."""
+    tile = torch.index_select(luts["blue_noise"], 0,
+                              (frame_index % 4).reshape(1).long())[0]
+    reps = (ph // tile.shape[0] + 1, pw // tile.shape[1] + 1)
+    return tile.repeat(reps)[:ph, :pw].contiguous()
 
 
 def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
@@ -248,14 +391,54 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
     albedo = material[0:3]
     rough_metal = torch.stack(
         [torch.ones_like(material[3]), material[3], material[4]], dim=0)
+    normal_ts = torch.zeros((2, ph, pw), **f32)
+
+    # --- material textures (kernel D), constants where not ok ---
+    if "tex_word0" in scene:
+        _mark(timer, "texture")
+        # mip bias log2(0.5) belongs to TAA, which this port refuses
+        ts = texture.sample_materials(
+            gbuf[raster._CH_U:raster._CH_U + 2],
+            gbuf[raster._CH_DUDX:raster._CH_DUDX + 4], mat_id, valid,
+            scene["mat_tex"], scene["tex_info"], scene["tex_word0"],
+            scene["tex_word1"], n_mips=MAX_MIPS, mip_bias=0.0,
+            two_mat=settings.shading.texture_two_mat)
+        tex_ok = ts[8] > 0.5
+        albedo = torch.where(tex_ok[None], ts[0:3], albedo)
+        normal_ts = torch.where(tex_ok[None], ts[4:6], normal_ts)
+        rough_metal = torch.stack([
+            torch.ones_like(material[3]),
+            torch.where(tex_ok, ts[6], material[3]),
+            torch.where(tex_ok, ts[7], material[4])], dim=0)
+
+    # --- sun shadows: cascade fit, atlas (kernels A, E), PCF (kernel F) ---
+    if settings.shadows.cascade_count > 0:
+        _mark(timer, "shadow_atlas")
+        atlas = render_shadow_atlas(scene, cam, depth, settings)
+        _mark(timer, "shadow_resolve")
+        # pixel linear depth = dot(V, -forward) (triangle.frag:205-207)
+        to_cam = cam["position"].reshape(3, 1, 1) - world_pos
+        pixel_depth = -torch.sum(to_cam * cam["forward"].reshape(3, 1, 1),
+                                 dim=0)
+        pixel_depth = torch.where(valid, pixel_depth, 0.0)
+        sun_shadow = shadow.shadow_resolve(
+            world_pos, pixel_depth,
+            blue_noise_screen(luts, state.frame_index, ph, pw), atlas.maps,
+            atlas.cascade_mats, atlas.cascade_scales, atlas.splits,
+            settings.shadows.cascade_count, taps=settings.shadows.pcf_taps,
+            sample_radius=settings.shadows.sample_radius)
+        shadow_overflow = atlas.pairs.overflow
+    else:
+        sun_shadow = torch.ones((ph, pw), **f32)
+        shadow_overflow = torch.zeros_like(pairs.overflow)
+
+    _mark(timer, "shade")
     hdr = shade.shade_forward(
         config=settings.shading, world_pos=world_pos, geo_normal=geo_n,
         tangent=geo_t, bitangent=geo_b, valid=valid,
-        albedo_srgb_linear=albedo,
-        normal_ts=torch.zeros((2, ph, pw), **f32), specular=rough_metal,
+        albedo_srgb_linear=albedo, normal_ts=normal_ts, specular=rough_metal,
         sun_direction=sun_dir, sun_color=sun_color,
-        sun_strength_exposed=sun_strength_exposed,
-        sun_shadow=torch.ones((ph, pw), **f32),
+        sun_strength_exposed=sun_strength_exposed, sun_shadow=sun_shadow,
         camera_position=cam["position"])
 
     # --- sky composite ---
@@ -281,9 +464,8 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
         prev_depth=depth,
         prev_view_projection=mv.view_proj,
         prev_jitter=torch.zeros(2, **f32),
-        debug_counters=torch.stack(
-            [pairs.overflow, torch.zeros_like(pairs.overflow)]).to(
-                torch.int32),
+        debug_counters=torch.stack([pairs.overflow, shadow_overflow]).to(
+            torch.int32),
     )
     return image, new_state
 
@@ -291,14 +473,11 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
 def scene_to_device(rs, device="cuda") -> dict:
     """RenderScene (numpy) -> the tensor dict render_frame reads."""
     dev = device_mod.resolve(device)
-    if rs.tex_word0 is not None or rs.alpha_masks is not None:
-        raise NotImplementedError(
-            "textured / alpha-tested scenes arrive in later slices")
 
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
-    return {
+    scene = {
         "corners": put(rs.corners),
         "corner_uvs": put(rs.corner_uvs),
         "corner_normals": put(rs.corner_normals),
@@ -317,6 +496,13 @@ def scene_to_device(rs, device="cuda") -> dict:
         "object_build_inv": put(np.linalg.inv(
             np.asarray(rs.object_matrices, np.float64)).astype(np.float32)),
     }
+    if rs.tex_word0 is not None:  # frame.py:1181-1188
+        scene.update(mat_tex=put(rs.mat_tex), tex_info=put(rs.tex_info),
+                     tex_word0=put(rs.tex_word0), tex_word1=put(rs.tex_word1))
+    if rs.alpha_masks is not None:  # carried as data; render_frame refuses
+        scene.update(alpha_masks=put(rs.alpha_masks),
+                     tri_alpha_slot=put(rs.tri_alpha_slot))
+    return scene
 
 
 @functools.lru_cache(maxsize=4)

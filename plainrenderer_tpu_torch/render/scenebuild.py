@@ -1,10 +1,12 @@
 """Scene registration: Scene -> flat render arrays (numpy).
 
-Copy of plainrenderer_tpu/render/scenebuild.py for untextured scenes:
-instances are flattened into UNINDEXED per-corner world-space arrays, one
-material per mesh becomes a row of a small constant table, and object AABBs
-drive per-frame frustum culling. The texture pool (scenebuild.py:129-153)
-arrives with the texture slice; a textured scene raises until then.
+Copy of plainrenderer_tpu/render/scenebuild.py: instances are flattened
+into UNINDEXED per-corner world-space arrays, one material per mesh becomes
+a row of a small constant table, object AABBs drive per-frame frustum
+culling, and meshes that carry texture images go into one brick pool
+(assets/textures.py). Textures named by file path need the image readers
+and raise until the asset slice; the alpha-test tables are built as data
+(render_frame refuses them until the alpha-test slice).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import dataclasses
 
 import numpy as np
 
+from ..assets import textures as tex_mod
 from ..assets.plain_format import MeshData, Scene
 
 
@@ -37,10 +40,10 @@ class RenderScene:
     triangle_count: int
     object_count: int
     mat_tex: np.ndarray | None = None  # (M,) i32 material -> texture (-1)
-    tex_info: np.ndarray | None = None  # texture slice
-    tex_word0: np.ndarray | None = None  # texture slice
-    tex_word1: np.ndarray | None = None  # texture slice
-    alpha_masks: np.ndarray | None = None  # alpha-test slice
+    tex_info: np.ndarray | None = None  # (n_tex * n_mips, 4) i32
+    tex_word0: np.ndarray | None = None  # (NB, 8, 128) i32
+    tex_word1: np.ndarray | None = None  # (NB, 8, 128) i32
+    alpha_masks: np.ndarray | None = None  # (MAX_ALPHA_MATERIALS, 128) i32
 
 
 def _mesh_arrays(mesh: MeshData) -> dict:
@@ -54,12 +57,6 @@ def _mesh_arrays(mesh: MeshData) -> dict:
     }
 
 
-def _is_textured(mesh) -> bool:
-    paths = getattr(mesh, "texture_paths", None)
-    return (getattr(mesh, "texture_images", None) is not None
-            or (paths is not None and bool(paths.albedo)))
-
-
 DEFAULT_ROUGHNESS = 0.6
 DEFAULT_METAL = 0.0
 PAD_TRIANGLES_TO = 64
@@ -68,14 +65,12 @@ PAD_TRIANGLES_TO = 64
 def build_render_scene(scene: Scene) -> RenderScene:
     """Flatten a scene's objects into unindexed world-space corner arrays
     (one material per mesh, constants = mesh mean albedo, roughness 0.6,
-    metal 0), padded to a multiple of 64 triangles."""
+    metal 0), padded to a multiple of 64 triangles; textured meshes fill
+    the brick pool (scenebuild.py:129-165)."""
     if not all(isinstance(m, MeshData) for m in scene.meshes):
         raise NotImplementedError(
             "quantized .plain meshes: the .plain loader arrives with the "
             "courtyard slice")
-    if any(_is_textured(m) for m in scene.meshes):
-        raise NotImplementedError(
-            "textured scene: the texture pool arrives with the texture slice")
     corners, uvs, normals, tangents, bitangents = [], [], [], [], []
     tri_material, tri_object = [], []
     bb_mins, bb_maxs = [], []
@@ -126,8 +121,40 @@ def build_render_scene(scene: Scene) -> RenderScene:
         paths = getattr(mesh, "texture_paths", None)
         sdf_paths.append(paths.sdf if paths is not None else "")
 
-    mat_tex = np.full(len(scene.objects), -1, np.int32)
-    tri_alpha_slot = [np.zeros(len(tm), np.int32) for tm in tri_material]
+    # material textures: one pool entry per unique mesh that carries images
+    # or texture paths
+    mesh_tex_index: dict[int, int] = {}
+    tex_sets: list = []
+    for obj in scene.objects:
+        mi = obj.mesh_index
+        if mi in mesh_tex_index:
+            continue
+        mesh = scene.meshes[mi]
+        images = getattr(mesh, "texture_images", None)
+        if images is None:
+            paths = getattr(mesh, "texture_paths", None)
+            if paths is not None and paths.albedo:
+                images = _load_texture_images(paths)
+        if images is not None:
+            mesh_tex_index[mi] = len(tex_sets)
+            tex_sets.append(images)
+        else:
+            mesh_tex_index[mi] = -1
+
+    mat_tex = np.asarray(
+        [mesh_tex_index[obj.mesh_index] for obj in scene.objects], np.int32)
+    pool = tex_mod.build_texture_pool(tex_sets) if tex_sets else None
+
+    # per-object alpha-test slot: objects whose texture the pool gave a
+    # mask slot alpha-test against alpha_masks[slot - 1]
+    obj_slot = []
+    for obj in scene.objects:
+        ti = mesh_tex_index[obj.mesh_index]
+        obj_slot.append(int(pool.alpha_slot[ti])
+                        if (pool is not None and ti >= 0) else 0)
+    tri_alpha_slot = [np.full(len(tm), obj_slot[oi], np.int32)
+                      for oi, tm in enumerate(tri_material)]
+    any_alpha = any(s > 0 for s in obj_slot)
 
     corners = np.concatenate(corners)
     t_count = corners.shape[0]
@@ -159,4 +186,17 @@ def build_render_scene(scene: Scene) -> RenderScene:
         triangle_count=t_count,
         object_count=len(scene.objects),
         mat_tex=mat_tex,
+        tex_info=pool.info if pool is not None else None,
+        tex_word0=pool.word0 if pool is not None else None,
+        tex_word1=pool.word1 if pool is not None else None,
+        alpha_masks=pool.alpha_masks if (pool is not None and any_alpha)
+        else None,
     )
+
+
+def _load_texture_images(paths):
+    """Texture files named by path (scenebuild.py:205) need the image
+    readers of the asset slice."""
+    raise NotImplementedError(
+        f"texture files ({paths.albedo!r}): the image readers arrive with "
+        "the asset slice")

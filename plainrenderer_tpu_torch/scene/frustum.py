@@ -12,11 +12,13 @@ from .aabb import aabb_corners
 
 
 def visible_objects_clipspace(view_proj: torch.Tensor, bb_min: torch.Tensor,
-                              bb_max: torch.Tensor) -> torch.Tensor:
+                              bb_max: torch.Tensor,
+                              cull_z: bool = True) -> torch.Tensor:
     """Conservative per-object culling: an AABB is culled iff all 8 corners
     are outside the same clip half-space (|x| > w, |y| > w, z < 0 or
     z > w, reverse-Z Vulkan conventions). bb_min/bb_max (N, 3) -> (N,) bool.
-    The shadow cascades' variant without the z test comes with shadows.
+    cull_z=False drops the z test: shadow cascades render with depth
+    clamping, so casters outside the fitted z range still matter.
     """
     corners = aabb_corners(bb_min, bb_max)  # (N, 8, 3)
     flat = corners.reshape(-1, 3)
@@ -28,9 +30,12 @@ def visible_objects_clipspace(view_proj: torch.Tensor, bb_min: torch.Tensor,
     out_r = torch.all(clip[..., 0] > w, dim=1)
     out_t = torch.all(clip[..., 1] < -w, dim=1)
     out_b = torch.all(clip[..., 1] > w, dim=1)
-    out_n = torch.all(clip[..., 2] < 0.0, dim=1)
-    out_f = torch.all(clip[..., 2] > w, dim=1)
-    return ~(out_l | out_r | out_t | out_b | out_n | out_f)
+    outside = out_l | out_r | out_t | out_b
+    if cull_z:
+        out_n = torch.all(clip[..., 2] < 0.0, dim=1)
+        out_f = torch.all(clip[..., 2] > w, dim=1)
+        outside = outside | out_n | out_f
+    return ~outside
 
 
 def expand_object_mask(obj_mask: torch.Tensor, tri_starts: torch.Tensor,

@@ -53,7 +53,9 @@ def test_importing_every_module_loads_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
-    assert "plainrenderer_tpu_torch.render.frame" in loaded
+    for m in ("render.frame", "ops.texture", "ops.shadow", "ops.hiz",
+              "assets.textures", "assets.procedural", "render.scenebuild"):
+        assert "plainrenderer_tpu_torch." + m in loaded, m
 
 
 def test_sources_import_no_jax():
