@@ -27,17 +27,29 @@ non-zero without printing its final line:
     version (ok equal, values within 1e-5), kernel E (shadow-atlas depth)
     and kernel A's multi-view keys exactly, kernel F (PCF resolve) on
     >= 99.9% of pixels with the rest within 1/taps; the small textured,
-    shadowed scene card vs CPU by the golden rule; then 3 warm-up + 8
+    shadowed scene card vs CPU by the golden rule; then 1 warm-up + 3
     timed frames with per-pass CUDA events, counts reset just before and
     read just after: A twice per frame, B-F at least once;
- 4. times every kernel, its plain version and, where one exists, one
+ 4. slice 3: the same scene and shadows with SDF GI on
+    (SDFTraceSettings(): half resolution, 128 steps, influence 3, coarse
+    fallback), its scene SDF baked on the card by build_scene_sdf at
+    bake_resolution_cap=32 (bench.py:93-95). Kernel G (GI trace) on frame
+    0's trace inputs: escaped and the hit/miss decision equal to its plain
+    version on >= 99.9% of rays, the six value channels within 1e-4 (abs
+    + rel) where both agree; kernel H (history resample) on frame 1's
+    history: ok equal on every pixel, values within 1e-6 of their taps'
+    magnitude; the small slice-3 scene card vs CPU by the golden rule; 3
+    warm-up + 8 timed frames with the counts reset just before and read
+    just after: A twice per frame, B-H at least once; the escaped share
+    and the GI history after them (an all-zero history fails);
+ 5. times every kernel, its plain version and, where one exists, one
     PyTorch call computing the same function (CUDA events), and computes
     each kernel's bound from this run's inputs;
- 5. checks the frames (debug_counters [0, 0], no host synchronisation in
-    a timed frame, image mean in (2, 253) and std > 5, finite HDR,
-    exposure > 0) and profiles 2 more slice-2 frames;
- 6. prints the per-pass times, the card line, the kernels line and, last,
-    {"ok": true, "device": {...}}.
+ 6. checks the frames of every slice (debug_counters [0, 0], no host
+    synchronisation in a timed frame, image mean in (2, 253) and std > 5,
+    finite HDR, exposure > 0) and profiles 2 more slice-3 frames;
+ 7. prints the per-pass times, the card line, the kernels line (launches
+    from the slice-3 run) and, last, {"ok": true, "device": {...}}.
 
 Everything also goes to chiprun_out/chip_smoke/ as JSON.
 """
@@ -64,7 +76,8 @@ INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 
 WIDTH, HEIGHT = 1920, 1080
 S1_WARMUP, S1_TIMED = 1, 3
-S2_WARMUP, S2_TIMED = 3, 8
+S2_WARMUP, S2_TIMED = 1, 3
+S3_WARMUP, S3_TIMED = 3, 8
 KERNEL_SOURCES = {
     "expand_keys": ("plainrenderer_tpu_torch/csrc/expand_keys.cu",
                     "plainrenderer_tpu/ops/raster.py:406"),
@@ -78,7 +91,18 @@ KERNEL_SOURCES = {
               "plainrenderer_tpu/ops/raster.py:1465"),
     "shadow": ("plainrenderer_tpu_torch/csrc/shadow.cu",
                "plainrenderer_tpu/ops/shadow.py:167"),
+    "sdfgi_trace": ("plainrenderer_tpu_torch/csrc/sdfgi.cu",
+                    "plainrenderer_tpu/ops/sdfgi.py:112"),
+    "packed_planes": ("plainrenderer_tpu_torch/csrc/packed_planes.cu",
+                      "plainrenderer_tpu/ops/taa.py:277"),
 }
+# operations of one step of kernel G's loops and of a ray's fixed work,
+# counted from csrc/sdfgi.cu (float and integer ops alike): the fine step
+# (position, window coords, clamp, inside/excess, brick address, s8
+# decode, hit/exit tests, step), a shadow step, a coarse step, and per
+# ray the setup, refinement, albedo, pow, sky mapping and SH encode
+G_FINE_STEP_OPS, G_SHADOW_STEP_OPS, G_COARSE_STEP_OPS = 60, 45, 35
+G_RAY_OPS = 150
 SLICE1_KERNELS = ("expand_keys", "gbuffer", "material")
 SMALL_ATRIUM = dict(columns_per_row=2, floor_subdiv=2, box_count=3,
                     box_subdiv=1, column_segments=8)
@@ -121,6 +145,12 @@ def slice2_settings(cfg, width, height, **shadows):
         slice1_settings(cfg, width, height),
         shadows=cfg.ShadowSettings(**shadows),
         volumetrics=cfg.VolumetricsSettings(enabled=False))
+
+
+def slice3_settings(cfg, width, height, **shadows):
+    """Slice 2 with the default SDFTraceSettings() (GI on)."""
+    return dataclasses.replace(slice2_settings(cfg, width, height, **shadows),
+                               sdf_trace=cfg.SDFTraceSettings())
 
 
 def bench_camera(frame, cam_mod, t: int, device):
@@ -237,26 +267,38 @@ def check_launches(run: dict, per_frame: dict, what: str) -> None:
               f"{what}: kernel {name} launched {k}x per frame")
 
 
-def small_card_vs_cpu(mods, settings, textured: bool, luts) -> float:
+def small_card_vs_cpu(mods, settings, textured: bool, luts,
+                      gi: bool = False) -> float:
     """3 frames of the small atrium at 256x128 on the card (kernels) and on
-    the CPU (plain versions): the share of u8 pixels within 2 LSB."""
+    the CPU (plain versions): the share of u8 pixels within 2 LSB. With
+    gi, the scene SDF is baked on the card at 16^3 per mesh and attached
+    on both sides, and the camera moves a little every frame (a static
+    camera puts the history window's edge test on exact ties, where
+    rounding noise in the motion decides)."""
     import numpy as np
 
     frame, scenebuild, procedural, cam_mod = (
         mods["frame"], mods["scenebuild"], mods["procedural"],
         mods["cam_mod"])
-    rs = scenebuild.build_render_scene(procedural.build_atrium_scene(
-        procedural.AtriumConfig(**SMALL_ATRIUM), textured=textured))
+    scene_data = procedural.build_atrium_scene(
+        procedural.AtriumConfig(**SMALL_ATRIUM), textured=textured)
+    rs = scenebuild.build_render_scene(scene_data)
+    gsdf = mods["sdf_scene"].build_scene_sdf(
+        rs, scene_data, bake_resolution_cap=16, device="cuda") if gi else None
     images = []
     for d in ("cuda", "cpu"):
         sc = frame.scene_to_device(rs, device=d)
+        if gi:
+            sc = frame.attach_global_sdf(sc, gsdf)
         lt = {k: v.to(d) for k, v in luts.items()}
         st = mods["initial_state"](256, 128, device=d)
-        ext = cam_mod.extrinsic_from_angles([0.0, -1.7, 0.0], pitch_deg=5.0,
-                                            yaw_deg=20.0)
-        cm = frame.camera_arrays(ext.position, ext.forward, ext.right,
-                                 ext.up, device=d)
-        for _ in range(3):
+        for i in range(3):
+            k = i if gi else 0
+            ext = cam_mod.extrinsic_from_angles(
+                [0.05 * k, -1.7, 0.02 * k], pitch_deg=5.0,
+                yaw_deg=20.0 + 0.3 * k)
+            cm = frame.camera_arrays(ext.position, ext.forward, ext.right,
+                                     ext.up, device=d)
             img, st = frame.render_frame(st, sc, cm, lt, 0.016, settings,
                                          device=d)
         images.append(img.cpu().numpy().astype(np.int32))
@@ -277,8 +319,8 @@ def main() -> int:
     from plainrenderer_tpu_torch import config, native
     from plainrenderer_tpu_torch.assets import procedural
     from plainrenderer_tpu_torch.assets.textures import MAX_MIPS
-    from plainrenderer_tpu_torch.ops import post, raster, shade, shadow
-    from plainrenderer_tpu_torch.ops import texture
+    from plainrenderer_tpu_torch.ops import post, raster, sdf_scene, sdfgi
+    from plainrenderer_tpu_torch.ops import shade, shadow, taa, texture
     from plainrenderer_tpu_torch.render import frame, scenebuild
     from plainrenderer_tpu_torch.render.state import initial_state
     from plainrenderer_tpu_torch.scene import camera as cam_mod
@@ -286,7 +328,7 @@ def main() -> int:
 
     mods = dict(frame=frame, native=native, initial_state=initial_state,
                 PassTimer=PassTimer, scenebuild=scenebuild,
-                procedural=procedural, cam_mod=cam_mod)
+                procedural=procedural, cam_mod=cam_mod, sdf_scene=sdf_scene)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     OUT.mkdir(parents=True, exist_ok=True)
@@ -325,7 +367,7 @@ def main() -> int:
     scene = frame.scene_to_device(rs, device=dev)
     luts = frame.bake_static_luts(settings, device=dev)
     cams = [bench_camera(frame, cam_mod, t, dev)
-            for t in range(S2_WARMUP + S2_TIMED)]
+            for t in range(S3_WARMUP + S3_TIMED)]
     torch.cuda.synchronize()
     print(f"slice 1 scene: {rs.triangle_count} triangles, {rs.object_count}"
           f" objects; setup {time.time() - t0:.1f} s", flush=True)
@@ -424,7 +466,7 @@ def main() -> int:
 
     run1 = drive(mods, scene, cams, luts, settings, dev, S1_WARMUP, S1_TIMED)
     check_launches(run1, {k: 1 for k in SLICE1_KERNELS}, "slice 1")
-    for k in ("texture", "depth", "shadow"):
+    for k in ("texture", "depth", "shadow", "sdfgi_trace", "packed_planes"):
         check(run1["launches"][k] == 0, f"slice 1 runs no {k} kernel")
     print("slice 1 passes_ms " + json.dumps(run1["pass_ms"]), flush=True)
     frames1 = check_frames(run1, WIDTH, HEIGHT, "slice 1")
@@ -439,8 +481,8 @@ def main() -> int:
     # ====== slice 2: the textured atrium with cascaded sun shadows ======
     t0 = time.time()
     cfg2 = dataclasses.replace(cfg, banner_count=0)
-    rs2 = scenebuild.build_render_scene(
-        procedural.build_atrium_scene(cfg2, textured=True))
+    scene_data2 = procedural.build_atrium_scene(cfg2, textured=True)
+    rs2 = scenebuild.build_render_scene(scene_data2)
     check(rs2.triangle_count == 292_416, f"triangles {rs2.triangle_count}")
     n_tex = rs2.tex_info.shape[0] // MAX_MIPS
     check(rs2.material_table.shape[0] == 41 and n_tex == 41,
@@ -619,7 +661,7 @@ def main() -> int:
     errors.update({"texture": err_d, "depth": err_e, "shadow": err_f})
     del tex_p, depth_ep, sh_p
 
-    # the slice-2 main path: counts reset, 3 warm-up + 8 timed frames
+    # the slice-2 main path: counts reset, 1 warm-up + 3 timed frames
     run2 = drive(mods, scene2, cams, luts, settings2, dev, S2_WARMUP,
                  S2_TIMED)
     check_launches(run2, {"expand_keys": 2, "gbuffer": 1, "material": 1,
@@ -627,48 +669,8 @@ def main() -> int:
                    "slice 2")
     print("slice 2 passes_ms " + json.dumps(run2["pass_ms"]), flush=True)
     frames2 = check_frames(run2, WIDTH, HEIGHT, "slice 2")
-    state2 = run2["state"]
-
-    # device busy share and time by kernel name over 2 more slice-2 frames
-    # under torch.profiler (CUDA activity); the profiler's own host cost is
-    # in the window, so the share is a lower bound
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            _, state2 = frame.render_frame(state2, scene2, cams[-1], luts,
-                                           1.0 / 60.0, settings2, device=dev)
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-    by_kernel = sorted(
-        ((e.key, getattr(e, "self_device_time_total", 0.0), e.count)
-         for e in prof.key_averages()), key=lambda k: -k[1])
-    device_us = sum(t for _, t, _ in by_kernel)
-    device_launches = sum(n for _, _, n in by_kernel) / 2
-    busy = device_us / window_us if device_us > 0 else None
-    print(f"profiler (slice 2): device busy {device_us / 2e3:.2f} ms/frame "
-          f"of {window_us / 2e3:.2f} ms wall -> busy share "
-          f"{'not measured' if busy is None else f'{busy:.3f}'}; "
-          f"{device_launches:.0f} device kernels/frame under "
-          f"{len(by_kernel)} names", flush=True)
-
-    kernels = []
-    for name, (source, replaces) in KERNEL_SOURCES.items():
-        by_bytes, by_ops = bounds[name]
-        entry = {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": run2["launches"][name],
-            "max_abs_err": errors[name], "ms": ms[name],
-            "plain_ms": plain_ms[name],
-            "bound_ms": max(by_bytes, by_ops) * 1e3,
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": library_ms[name]}
-        if name == "expand_keys":  # its second use: the atlas's keys
-            entry.update(atlas_ms=atlas_a_ms, atlas_plain_ms=atlas_a_plain_ms,
-                         atlas_bound_ms=atlas_a_bound)
-        kernels.append(entry)
+    for k in ("sdfgi_trace", "packed_planes"):
+        check(run2["launches"][k] == 0, f"slice 2 runs no {k} kernel")
     report["slice2"] = dict(
         passes_ms=run2["pass_ms"], launches=run2["launches"],
         host_syncs_per_frame=run2["host_syncs_per_frame"],
@@ -682,12 +684,231 @@ def main() -> int:
             "max": int(counts_e.max()),
             "mean": float(counts_e.float().mean()),
             "nonzero_bins": int((counts_e > 0).sum())},
+        **frames2)
+    del run2, atlas, tex_k, sh_k
+
+    # ============ slice 3: SDF-traced diffuse GI on the card ============
+    t0 = time.time()
+    gsdf = sdf_scene.build_scene_sdf(rs2, scene_data2, bake_resolution_cap=32,
+                                     device=dev)
+    torch.cuda.synchronize()
+    bake_s = time.time() - t0
+    scene3 = frame.attach_global_sdf(scene2, gsdf)
+    grid = scene3["sdf_grid"]
+    n_bricks = scene3["sdf_volume"].shape[0]
+    sdf_bytes = (scene3["sdf_volume"].nbytes + scene3["sdf_albedo"].nbytes)
+    c_dims, c_f = scene3["sdf_coarse"][2:]
+    print(f"slice 3 scene SDF: baked on the card in {bake_s:.1f} s; grid "
+          f"{gsdf.volume.shape} at {gsdf.voxel_size} m -> padded {grid}, "
+          f"{n_bricks} bricks, {sdf_bytes / 1e6:.2f} MB packed; coarse "
+          f"{c_dims} (factor {c_f})", flush=True)
+    settings3 = dataclasses.replace(slice3_settings(config, WIDTH, HEIGHT),
+                                    pair_budget_scale=scale)
+    print(f"slice 3 settings: {settings3.sdf_trace}; pair_budget_scale "
+          f"{scale}", flush=True)
+
+    # frame 0's trace inputs and frame 1's history inputs, recorded on
+    # their way into kernels G and H
+    recorded = {}
+    trace_fn, resample_fn = frame.trace_scene_gi, taa.resample_packed_planes
+
+    def record_trace(*args, **kwargs):
+        recorded.setdefault("trace", args)
+        return trace_fn(*args, **kwargs)
+
+    def record_resample(*args, **kwargs):
+        recorded.setdefault("history", []).append(args)
+        return resample_fn(*args, **kwargs)
+
+    frame.trace_scene_gi, taa.resample_packed_planes = (record_trace,
+                                                        record_resample)
+    try:
+        state3 = initial_state(WIDTH, HEIGHT, device=dev)
+        for i in range(2):
+            _, state3 = frame.render_frame(state3, scene3, cams[i], luts,
+                                           1.0 / 60.0, settings3, device=dev)
+    finally:
+        frame.trace_scene_gi, taa.resample_packed_planes = (trace_fn,
+                                                            resample_fn)
+    t_scene, inp, t_settings, sun_dir, sun_col, sun_str = recorded["trace"]
+    st3 = t_settings.sdf_trace
+    g_args = (inp.world_pos, inp.normal, inp.ray_dirs, inp.valid,
+              inp.sky_lowres, t_scene["sdf_volume"], t_scene["sdf_albedo"],
+              t_scene["sdf_origin"], t_scene["sdf_voxel_size"],
+              t_scene["sdf_grid"], sun_dir, sun_col, sun_str)
+    g_kw = dict(steps=st3.trace_steps, influence=st3.influence_radius * 2.5,
+                strict=st3.strict_influence_radius_cutoff,
+                dims_zyx=t_scene["sdf_grid"],
+                coarse_fallback=st3.coarse_fallback,
+                coarse_tables=t_scene["sdf_coarse"])
+    gh, gw = inp.valid.shape
+    n_rays = gh * gw
+    y_k, c_k, e_k = sdfgi.trace_gi(*g_args, **g_kw)
+    g_stats = {}
+    ref = sdfgi.trace_gi_plain(*g_args, stats=g_stats, **g_kw)
+    out_k = torch.cat([y_k, c_k])
+    # the hit/miss decision: again with the sky shifted by -10, where a
+    # miss reads negative Y and a hit never does
+    shifted = g_args[:4] + (inp.sky_lowres - 10.0,) + g_args[5:]
+    hit_k = sdfgi.trace_gi(*shifted, **g_kw)[0][0] >= 0
+    hit_p = sdfgi.trace_gi_plain(*shifted, **g_kw)[0] >= 0
+    valid3 = inp.valid
+    same_esc = e_k == ref[6]
+    same_hit = hit_k == hit_p
+    esc_equal = float(same_esc.float().mean())
+    hit_equal = float(same_hit[valid3].float().mean())
+    both = same_esc & same_hit
+    err_g = float((out_k - ref[:6]).abs()[:, both].max())
+    excess_g = float(((out_k - ref[:6]).abs() - 1e-4 * ref[:6].abs())
+                     [:, both].max())
+    escaped_share = float(e_k[valid3].mean())
+    hit_share = float(hit_k[valid3].float().mean())
+    print(f"kernel G: {gh}x{gw} rays ({int(valid3.sum())} on surfaces); "
+          f"escaped equal on {esc_equal:.6f}, hit/miss on {hit_equal:.6f} "
+          f"(limit 0.999); values max |err| {err_g:.3e} (limit 1e-4 abs + "
+          f"rel); {hit_share:.4f} of rays hit, {escaped_share:.4f} escaped "
+          f"the window; loop steps {g_stats}", flush=True)
+    check(esc_equal >= 0.999 and hit_equal >= 0.999,
+          "kernel G escaped / hit decision vs plain")
+    check(excess_g <= 1e-4, "kernel G values vs plain")
+    check(0.0 < hit_share < 1.0, "the GI rays both hit and miss")
+
+    planes_h, motion_h, width_h, height_h = recorded["history"][1]
+    coords_h = taa.reprojected_coords(motion_h, width_h, height_h)
+    hist_k = taa.packed_planes(planes_h, coords_h)
+    hist_p = taa.packed_planes_plain(planes_h, coords_h)
+    magnitude = taa.packed_planes_plain(planes_h & 0x7FFF7FFF, coords_h)
+    ok_equal = bool(torch.equal(hist_k[6], hist_p[6]))
+    err_h = float((hist_k[:6] - hist_p[:6]).abs().max())
+    excess_h = float(((hist_k[:6] - hist_p[:6]).abs()
+                      - 1e-6 * magnitude[:6]).max())
+    ok_share = float(hist_k[6].mean())
+    hist_nonzero = float((planes_h != 0).float().mean())
+    print(f"kernel H: {tuple(planes_h.shape)} history ({hist_nonzero:.4f} "
+          f"of words nonzero); ok equal: {ok_equal}, values max |err| "
+          f"{err_h:.3e} (limit 1e-6 of the taps' magnitude); {ok_share:.4f} "
+          "of pixels reproject inside the window", flush=True)
+    check(hist_nonzero > 0.1, "frame 1's GI history is not empty")
+    check(ok_equal, "kernel H ok channel vs plain")
+    check(excess_h <= 0.0, "kernel H values vs plain")
+
+    small3 = dataclasses.replace(
+        slice3_settings(config, 256, 128, resolution=256),
+        exposure_adaption_speed=1000.0)
+    close3 = small_card_vs_cpu(mods, small3, True, luts, gi=True)
+    print(f"small slice-3 scene card vs CPU plain: {close3:.5f} of pixels "
+          "within 2 LSB (limit > 0.999)", flush=True)
+    check(close3 > 0.999, "small slice-3 image card vs CPU")
+
+    # timings of G and H, their plain versions and H's library yardstick
+    ms["sdfgi_trace"] = cuda_ms(lambda: sdfgi.trace_gi(*g_args, **g_kw), 20)
+    plain_ms["sdfgi_trace"] = cuda_ms(
+        lambda: sdfgi.trace_gi_plain(*g_args, **g_kw), 2)
+    ms["packed_planes"] = cuda_ms(lambda: taa.packed_planes(planes_h,
+                                                            coords_h), 50)
+    plain_ms["packed_planes"] = cuda_ms(
+        lambda: taa.packed_planes_plain(planes_h, coords_h), 10)
+    # no PyTorch call sphere-traces a bricked SDF; grid_sample computes H's
+    # bilinear resample (without the window clamp) on the unpacked planes
+    hh, hw = planes_h.shape[1:]
+    unpacked = torch.stack([c for p in planes_h
+                            for c in taa.unpack_f16_pair_flush(p)])[None]
+    grid_h = torch.stack([coords_h[0] / hw * 2.0 - 1.0,
+                          coords_h[1] / hh * 2.0 - 1.0], dim=-1)[None]
+    library_ms["sdfgi_trace"] = None
+    library_ms["packed_planes"] = cuda_ms(
+        lambda: torch.nn.functional.grid_sample(
+            unpacked, grid_h, mode="bilinear", padding_mode="border",
+            align_corners=False), 50)
+    sky_bytes = inp.sky_lowres.nbytes
+    coarse_bytes = sum(t.nbytes for t in t_scene["sdf_coarse"][:2])
+    g_bytes = 68 * n_rays + sdf_bytes + sky_bytes + coarse_bytes
+    g_ops = (G_FINE_STEP_OPS * g_stats["fine_steps"]
+             + G_SHADOW_STEP_OPS * g_stats["shadow_steps"]
+             + G_COARSE_STEP_OPS * (g_stats["coarse_steps"]
+                                    + g_stats["coarse_shadow_steps"])
+             + G_RAY_OPS * g_stats["rays"])
+    h_bytes = 48 * hh * hw
+    bounds.update({
+        "sdfgi_trace": (g_bytes / HBM_BYTES_PER_S, g_ops / FP32_OPS_PER_S),
+        "packed_planes": (h_bytes / HBM_BYTES_PER_S, 0.0)})
+    errors.update({"sdfgi_trace": err_g, "packed_planes": err_h})
+    del ref, hist_p, magnitude, unpacked
+
+    # the slice-3 main path: counts reset, 3 warm-up + 8 timed frames
+    run3 = drive(mods, scene3, cams, luts, settings3, dev, S3_WARMUP,
+                 S3_TIMED)
+    check_launches(run3, {"expand_keys": 2, "gbuffer": 1, "material": 1,
+                          "texture": 1, "depth": 1, "shadow": 1,
+                          "sdfgi_trace": 1, "packed_planes": 1}, "slice 3")
+    print("slice 3 passes_ms " + json.dumps(run3["pass_ms"]), flush=True)
+    frames3 = check_frames(run3, WIDTH, HEIGHT, "slice 3")
+    state3 = run3["state"]
+    hist_vals = torch.cat(taa.unpack_f16_pair(state3.gi_history))
+    hist_mean = float(hist_vals.abs().mean())
+    hist_share = float((state3.gi_history != 0).float().mean())
+    print(f"slice 3 GI history after {run3['frames']} frames: mean |value| "
+          f"{hist_mean:.4e}, {hist_share:.4f} of words nonzero", flush=True)
+    check(hist_share > 0.1 and np.isfinite(hist_mean) and hist_mean > 0.0,
+          "the GI history is written (the temporal path ran)")
+
+    # device busy share and time by kernel name over 2 more slice-3 frames
+    # under torch.profiler (CUDA activity); the profiler's own host cost is
+    # in the window, so the share is a lower bound
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            _, state3 = frame.render_frame(state3, scene3, cams[-1], luts,
+                                           1.0 / 60.0, settings3, device=dev)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    by_kernel = sorted(
+        ((e.key, getattr(e, "self_device_time_total", 0.0), e.count)
+         for e in prof.key_averages()), key=lambda k: -k[1])
+    device_us = sum(t for _, t, _ in by_kernel)
+    device_launches = sum(n for _, _, n in by_kernel) / 2
+    busy = device_us / window_us if device_us > 0 else None
+    print(f"profiler (slice 3): device busy {device_us / 2e3:.2f} ms/frame "
+          f"of {window_us / 2e3:.2f} ms wall -> busy share "
+          f"{'not measured' if busy is None else f'{busy:.3f}'}; "
+          f"{device_launches:.0f} device kernels/frame under "
+          f"{len(by_kernel)} names", flush=True)
+
+    kernels = []
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        by_bytes, by_ops = bounds[name]
+        entry = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": run3["launches"][name],
+            "max_abs_err": errors[name], "ms": ms[name],
+            "plain_ms": plain_ms[name],
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": library_ms[name]}
+        if name == "expand_keys":  # its second use: the atlas's keys
+            entry.update(atlas_ms=atlas_a_ms, atlas_plain_ms=atlas_a_plain_ms,
+                         atlas_bound_ms=atlas_a_bound)
+        kernels.append(entry)
+    report["slice3"] = dict(
+        passes_ms=run3["pass_ms"], launches=run3["launches"],
+        host_syncs_per_frame=run3["host_syncs_per_frame"],
+        frames=run3["frames"], pair_budget_scale=scale, sdf_bake_s=bake_s,
+        sdf_grid=list(grid), sdf_bricks=n_bricks, sdf_packed_bytes=sdf_bytes,
+        coarse_dims=list(c_dims), coarse_factor=c_f, gi_planes=[gh, gw],
+        trace_escaped_equal=esc_equal, trace_hit_equal=hit_equal,
+        trace_hit_share=hit_share, trace_escaped_share=escaped_share,
+        trace_loop_steps=g_stats, history_planes=list(planes_h.shape),
+        history_ok_share=ok_share, small_close=close3,
+        gi_history_mean_abs=hist_mean, gi_history_nonzero=hist_share,
         busy_share=busy, profiled_device_us_per_frame=device_us / 2,
         device_kernels_per_frame=device_launches,
         profiled_wall_us_per_frame=window_us / 2,
         top_kernels_us_per_frame=[(k, t / 2, n / 2)
                                   for k, t, n in by_kernel[:30]],
-        **frames2)
+        **frames3)
     report.update(kernels=kernels, total_s=time.time() - t_start)
     (OUT / "report.json").write_text(json.dumps(report, indent=1))
     print(f"total {report['total_s']:.1f} s", flush=True)

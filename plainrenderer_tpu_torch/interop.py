@@ -26,6 +26,9 @@ SCENE_KEYS = ("corners", "corner_uvs", "corner_normals", "corner_tangents",
               "tri_starts", "object_build_inv")
 # present only when the scene has a texture pool (frame.py:1181-1185)
 TEXTURE_KEYS = ("mat_tex", "tex_info", "tex_word0", "tex_word1")
+# present only when a scene SDF is attached (frame.py:1203-1237)
+SDF_KEYS = ("sdf_volume", "sdf_albedo", "sdf_origin", "sdf_voxel_size",
+            "sdf_dims", "sdf_shape", "sdf_coarse")
 LUT_KEYS = ("transmission", "multiscatter", "blue_noise")
 
 
@@ -34,15 +37,36 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
 
 
 def scene_from_arrays(scene: dict, device="cuda") -> dict:
-    """JAX scene dict (arrays) -> the port's scene tensor dict."""
+    """JAX scene dict (arrays) -> the port's scene tensor dict.
+
+    A static scene SDF crosses as the port's attach_global_sdf lays it
+    out: the brick pools, origin and dims as tensors, the voxel size as a
+    float, the shape token's (D, H, W) as the tuple "sdf_grid", and the
+    coarse tables as (sdf, albedo, (cd, ch, cw), factor)."""
     dev = device_mod.resolve(device)
-    extra = sorted(set(scene) - set(SCENE_KEYS) - set(TEXTURE_KEYS))
+    extra = sorted(set(scene) - set(SCENE_KEYS) - set(TEXTURE_KEYS)
+                   - set(SDF_KEYS))
     if extra:
         raise NotImplementedError(
-            f"scene keys of later slices: {extra} (alpha masks, SDF "
-            "volumes, dynamic objects)")
+            f"scene keys of later slices: {extra} (alpha masks, dynamic "
+            "objects and their SDFs)")
     keys = SCENE_KEYS + tuple(k for k in TEXTURE_KEYS if k in scene)
-    return {k: _tensor(scene[k], dev) for k in keys}
+    out = {k: _tensor(scene[k], dev) for k in keys}
+    sdf = [k for k in SDF_KEYS if k in scene]
+    if sdf and len(sdf) != len(SDF_KEYS):
+        raise ValueError(f"scene SDF keys incomplete: {sdf}")
+    if sdf:
+        c_sdf, c_alb, c_dims, c_f = scene["sdf_coarse"]
+        out.update(
+            sdf_volume=_tensor(scene["sdf_volume"], dev),
+            sdf_albedo=_tensor(scene["sdf_albedo"], dev),
+            sdf_origin=_tensor(scene["sdf_origin"], dev),
+            sdf_voxel_size=float(np.asarray(scene["sdf_voxel_size"])),
+            sdf_dims=_tensor(scene["sdf_dims"], dev),
+            sdf_grid=tuple(int(n) for n in np.shape(scene["sdf_shape"])[:3]),
+            sdf_coarse=(_tensor(c_sdf, dev), _tensor(c_alb, dev),
+                        tuple(int(n) for n in c_dims), int(c_f)))
+    return out
 
 
 def state_from_arrays(state, device="cuda") -> FrameState:

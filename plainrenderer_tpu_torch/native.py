@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("expand_keys.cu", "gbuffer.cu", "material.cu", "texture.cu",
-           "depth.cu", "shadow.cu")
+           "depth.cu", "shadow.cu", "sdfgi.cu", "packed_planes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -55,6 +55,12 @@ _ENTRIES = {
     # uv, duv, mat_id, valid, mat_tex, info, word0, word1, out, h, w,
     # n_mat, n_mips, two_mat, mip_bias, stream
     "texture_launch": ("texture", [_P] * 9 + [_I] * 5 + [_F, _P]),
+    # wpos, normal, dirs, valid, sky, sdf, alb, coarse_sdf, coarse_alb,
+    # meta, out, h, w, vd, vh, vw, cd, ch, cw, coarse_f, steps, strict,
+    # use_coarse, sky_h, sky_w, stream
+    "sdfgi_trace_launch": ("sdfgi_trace", [_P] * 11 + [_I] * 14 + [_P]),
+    # planes, coords, out, n_planes, h, w, stream
+    "packed_planes_launch": ("packed_planes", [_P] * 3 + [_I] * 3 + [_P]),
 }
 
 _launches = {key: 0 for key, _ in _ENTRIES.values()}

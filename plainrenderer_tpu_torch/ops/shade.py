@@ -2,8 +2,9 @@
 
 Pure per-pixel math on (..., H, W) planes (triangle.frag:146-321): normal
 mapping through the interpolated TBN, roughness remap, the four diffuse
-BRDFs with in/out Fresnel, GGX single scatter + multiscatter, constant
-ambient indirect light, and the sun term.
+BRDFs with in/out Fresnel, GGX single scatter + multiscatter, the sun
+term, and indirect light: the SDF GI's SH-L1 irradiance (diffuse and a
+dominant-direction specular lobe), or the constant ambient without GI.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import math
 import torch
 
 from ..config import ShadingConfig
+from ..utils import sh
+from ..utils.color import ycocg_to_linear
 from . import brdf
 from .brdf_lut import diffuse_integral_fitted, env_brdf_fitted
 
@@ -74,12 +77,13 @@ def _normalize(v):
 def shade_forward(*, config: ShadingConfig, world_pos, geo_normal, tangent,
                   bitangent, valid, albedo_srgb_linear, normal_ts, specular,
                   sun_direction, sun_color, sun_strength_exposed, sun_shadow,
-                  camera_position):
+                  camera_position, indirect_y_sh=None, indirect_cocg=None):
     """Linear HDR color (3, H, W), 0 where not valid (shade.py:110).
 
-    Indirect light is the constant ambient of triangle.frag:322-333, as in
-    the JAX package without GI; the SH-L1 branch arrives with the GI
-    slice."""
+    indirect_y_sh (4, H, W) / indirect_cocg (2, H, W): the GI's Y
+    irradiance as SH-L1 and its chroma (triangle.frag:289-321); without
+    them (or with indirect_lighting_tech 1) the constant ambient of
+    triangle.frag:322-333."""
     metalic = specular[2]
     r = specular[1]
     r = torch.clamp_min(r * r, 0.0045)
@@ -138,14 +142,54 @@ def shade_forward(*, config: ShadingConfig, world_pos, geo_normal, tangent,
         config.direct_multiscatter_brdf, r, nol, f0, single, lut_y, lut_y_in)
     specular_direct = sun_radiance * (single + multi)
 
-    ambient = 0.003 * sun_strength_exposed
-    single_amb = lut_x + (lut_y - lut_x) * f0
-    lighting_indirect = (ambient * diffuse_color * diffuse_integral
-                         + single_amb * ambient)
+    if config.indirect_lighting_tech == 0 and indirect_y_sh is not None:
+        lighting_indirect = _sh_indirect(
+            config, n, v, r, f0, nov, diffuse_color, diffuse_integral,
+            indirect_y_sh, indirect_cocg)
+    else:
+        ambient = 0.003 * sun_strength_exposed
+        single_amb = lut_x + (lut_y - lut_x) * f0
+        lighting_indirect = (ambient * diffuse_color * diffuse_integral
+                             + single_amb * ambient)
 
     color = (diffuse_direct + specular_direct) * sun_strength_exposed \
         + lighting_indirect
     return torch.where(valid[None], color, 0.0)
+
+
+def _sh_indirect(config, n, v, r, f0, nov, diffuse_color, diffuse_integral,
+                 indirect_y_sh, indirect_cocg):
+    """triangle.frag:289-321 — SH-L1 irradiance diffuse plus a specular
+    lobe toward the SH's dominant direction (shade.py:204-230)."""
+    sh_n = sh.direction_to_sh_l1(torch.movedim(n, 0, -1))
+    irr_y = torch.clamp_min(
+        torch.sum(torch.movedim(indirect_y_sh, 0, -1) * sh_n, dim=-1), 0.0)
+    irradiance = torch.movedim(ycocg_to_linear(torch.stack(
+        [irr_y, indirect_cocg[0], indirect_cocg[1]], dim=-1)), -1, 0)
+    irradiance = torch.clamp_min(irradiance, 0.0)
+    diffuse_indirect = irradiance * diffuse_color * diffuse_integral
+
+    dom = torch.movedim(sh.dominant_direction_from_sh_l1(
+        torch.movedim(indirect_y_sh, 0, -1)), -1, 0)
+    dom_len = torch.clamp(torch.sqrt(torch.sum(dom * dom, dim=0)), 0.01, 1.0)
+    r_ind = 1.0 + (r - 1.0) * torch.sqrt(dom_len)
+    l_ind = dom / torch.clamp_min(dom_len[None], 1e-9)
+    h_ind = _normalize(l_ind + v)
+    noh_i = torch.clamp_min(_dot(n, h_ind), 0.0)
+    nol_i = torch.clamp_min(_dot(n, l_ind), 0.0)
+    voh_i = torch.clamp_min(_dot(v, h_ind), 0.0)
+    single_i = brdf.ggx_single_scattering(r_ind, f0, noh_i, nov, voh_i,
+                                          nol_i)
+    _, lut_yi = env_brdf_fitted(r_ind, nov)
+    _, lut_yi_in = env_brdf_fitted(r_ind, nol_i)
+    multi_i = specular_multiscatter_lobe(
+        config.direct_multiscatter_brdf if config.use_indirect_multiscatter
+        else 3, r_ind, nol_i, f0, single_i, lut_yi, lut_yi_in)
+    radiance_ind = torch.movedim(ycocg_to_linear(torch.stack(
+        [torch.clamp_min(indirect_y_sh[0], 0.0), indirect_cocg[0],
+         indirect_cocg[1]], dim=-1)), -1, 0)
+    radiance_ind = torch.clamp_min(radiance_ind, 0.0)
+    return diffuse_indirect + (single_i + multi_i) * radiance_ind
 
 
 def reconstruct_world_position(depth, inv_view_proj, width, height):

@@ -1,14 +1,16 @@
 """The per-frame pass graph (plainrenderer_tpu/render/frame.py).
 
-The port renders opaque geometry with material textures and cascaded sun
-shadows: exposure histogram -> exposure -> sky LUT -> frustum cull ->
-geometry setup -> binning (kernel A) -> G-buffer raster (kernel B) ->
-material lookup (kernel C) -> texture sampling (kernel D, textured
-scenes) -> cascade fit -> shadow-atlas setup, binning (kernel A) and
-depth raster (kernel E) -> PCF shadow resolve (kernel F) -> forward shade
--> sky composite -> tonemap. Every setting outside it (SDF GI, TAA,
-bloom, fog, trilinear / anisotropic texture filtering, alpha masks,
-dynamic objects, split-frame bands, debug views) raises
+The port renders opaque geometry with material textures, cascaded sun
+shadows and SDF-traced diffuse GI: exposure histogram -> exposure -> sky
+LUT -> frustum cull -> geometry setup -> binning (kernel A) -> G-buffer
+raster (kernel B) -> material lookup (kernel C) -> texture sampling
+(kernel D, textured scenes) -> cascade fit -> shadow-atlas setup, binning
+(kernel A) and depth raster (kernel E) -> PCF shadow resolve (kernel F)
+-> GI trace (kernel G, scenes with an attached SDF) -> resolve, spatial,
+history resample (kernel H), temporal, spatial -> upscale -> forward
+shade -> sky composite -> tonemap. Every setting outside it (TAA, bloom,
+fog, trilinear / anisotropic texture filtering, alpha masks, dynamic
+objects and their SDFs, split-frame bands, debug views) raises
 NotImplementedError instead of silently skipping its pass. render_frame
 runs eagerly and never synchronises with the host: every per-frame value
 stays a device tensor.
@@ -27,9 +29,12 @@ from .. import device as device_mod
 from ..assets.textures import MAX_MIPS
 from ..config import RenderSettings
 from ..ops import exposure as exposure_ops
-from ..ops import hiz, post, raster, shade, shadow, sky, texture
+from ..ops import hiz, post, raster, sdfgi, shade, shadow, sky, taa, texture
+from ..parallel.halo import crop_halo, halo_extend
 from ..scene.frustum import expand_object_mask, visible_objects_clipspace
 from ..utils import mathutils, noise as noise_mod
+from ..utils.sampling import importance_sample_cosine
+from ..utils.stencil import point_downsample
 from .state import FrameState
 
 FOV_DEG = 35.0  # CameraIntrinsic defaults (Camera.h:11-16)
@@ -94,7 +99,6 @@ def check_slice(scene: dict, cam: dict, settings: RenderSettings) -> None:
     unported = [
         (settings.shadows.cascade_count > shadow.MAX_CASCADES,
          f"more than {shadow.MAX_CASCADES} shadow cascades"),
-        (settings.sdf_trace.enabled, "SDF GI (sdf_trace.enabled)"),
         (settings.taa.enabled, "TAA (taa.enabled)"),
         (settings.bloom.enabled, "bloom (bloom.enabled)"),
         (settings.volumetrics.enabled and shadows_on,
@@ -107,6 +111,7 @@ def check_slice(scene: dict, cam: dict, settings: RenderSettings) -> None:
         ("alpha_masks" in scene, "alpha-tested geometry (scene 'alpha_masks')"),
         ("object_transforms" in scene,
          "dynamic objects (scene 'object_transforms')"),
+        ("sdf_dyn_vols" in scene, "dynamic SDF objects (scene 'sdf_dyn_vols')"),
         ("ndc_y_scale" in cam, "split-frame band mode (cam 'ndc_y_scale')"),
         (cam["position"].dim() == 2, "camera-path mode (render_flight)"),
         (settings.draw_bounding_boxes, "draw_bounding_boxes"),
@@ -324,6 +329,142 @@ def blue_noise_screen(luts: dict, frame_index: torch.Tensor, ph: int,
     return tile.repeat(reps)[:ph, :pw].contiguous()
 
 
+def static_prev_ndc(prev_view_projection, world_pos, valid):
+    """Previous-frame NDC of a static scene: the depth-derived world
+    position through last frame's view-projection (frame.py:526-532)."""
+    _, ph, pw = world_pos.shape
+    pvp = prev_view_projection
+    flat = world_pos.reshape(3, -1)
+    pc = (pvp[:2, :3] @ flat + pvp[:2, 3:4]).reshape(2, ph, pw)
+    pw_h = (pvp[3, :3] @ flat + pvp[3, 3]).reshape(ph, pw)
+    prev_ndc = pc / torch.where(torch.abs(pw_h) > 1e-9, pw_h, 1.0)[None]
+    return torch.where(valid[None], prev_ndc, 0.0)
+
+
+def to_gi_res(plane, gh: int, gw: int, stride: int):
+    """Point-subsample to the GI resolution and zero-pad to its tile-padded
+    size (frame.py:803-808)."""
+    p = point_downsample(plane, stride, stride)
+    out = p.new_zeros(p.shape[:-2] + (gh, gw))
+    out[..., :p.shape[-2], :p.shape[-1]] = p
+    return out
+
+
+@dataclasses.dataclass
+class GITraceInputs:
+    """Kernel G's per-frame inputs at GI resolution (frame.py:810-832)."""
+
+    valid: torch.Tensor  # (gh, gw) bool
+    world_pos: torch.Tensor  # (3, gh, gw)
+    normal: torch.Tensor  # (3, gh, gw) geometric normal
+    lin_depth: torch.Tensor  # (gh, gw) view depth, 0 off-surface
+    ray_dirs: torch.Tensor  # (3, gh, gw) cosine-sampled directions
+    sky_lowres: torch.Tensor  # (3, 32, 64)
+
+
+def gi_trace_inputs(state: FrameState, luts: dict, settings: RenderSettings,
+                    valid, world_pos, geo_normal, pixel_depth,
+                    sky_lut) -> GITraceInputs:
+    """Downsample the G-buffer to the GI resolution, draw one cosine ray
+    per pixel from two blue-noise tiles (frame_index % 4 and the next,
+    sdfDiffuseTrace.comp:141-158) and shrink the sky LUT to 32x64 with an
+    antialiased bilinear resize (jax.image.resize "linear")."""
+    stride = 2 if settings.sdf_trace.half_resolution else 1
+    gh, gw = state.gi_history.shape[1:]
+    gi_normal = to_gi_res(geo_normal, gh, gw, stride)
+    xi = torch.stack([
+        blue_noise_screen(luts, state.frame_index, gh, gw),
+        blue_noise_screen(luts, state.frame_index + 1, gh, gw)], dim=-1)
+    dirs = importance_sample_cosine(xi, torch.movedim(gi_normal, 0, -1))
+    sky_lowres = torch.nn.functional.interpolate(
+        sky_lut[None], size=(32, 64), mode="bilinear", align_corners=False,
+        antialias=True)[0]
+    return GITraceInputs(
+        valid=to_gi_res(valid, gh, gw, stride),
+        world_pos=to_gi_res(world_pos, gh, gw, stride).contiguous(),
+        normal=gi_normal.contiguous(),
+        lin_depth=to_gi_res(pixel_depth, gh, gw, stride),
+        ray_dirs=torch.movedim(dirs, -1, 0).contiguous(),
+        sky_lowres=sky_lowres)
+
+
+def trace_scene_gi(scene: dict, inp: GITraceInputs, settings: RenderSettings,
+                   sun_dir, sun_color, sun_strength_exposed):
+    """Kernel G on the scene's attached SDF (frame.py:833-847): the fine
+    trace clamps to its window; escaped rays continue in the coarse
+    volume up to 2.5x the influence radius."""
+    st = settings.sdf_trace
+    return sdfgi.trace_gi(
+        inp.world_pos, inp.normal, inp.ray_dirs, inp.valid, inp.sky_lowres,
+        scene["sdf_volume"], scene["sdf_albedo"], scene["sdf_origin"],
+        scene["sdf_voxel_size"], scene["sdf_grid"], sun_dir, sun_color,
+        sun_strength_exposed, steps=st.trace_steps,
+        influence=st.influence_radius * 2.5,
+        strict=st.strict_influence_radius_cutoff, dims_zyx=scene["sdf_grid"],
+        coarse_fallback=st.coarse_fallback, coarse_tables=scene["sdf_coarse"])
+
+
+def sdf_gi(state: FrameState, scene: dict, luts: dict,
+           settings: RenderSettings, valid, world_pos, geo_normal, depth,
+           pixel_depth, prev_ndc, sky_lut, sun_dir, sun_color,
+           sun_strength_exposed, timer=None):
+    """The GI pass (frame.py:793-899): trace (kernel G) -> resolve ->
+    spatial -> history resample (kernel H) + temporal -> spatial ->
+    upscale. Returns (indirect_y_sh (4, H, W), indirect_cocg (2, H, W),
+    new gi_history)."""
+    half = settings.sdf_trace.half_resolution
+    stride = 2 if half else 1
+    width, height = settings.width, settings.height
+    ph, pw = depth.shape
+    gh, gw = state.gi_history.shape[1:]
+    inp = gi_trace_inputs(state, luts, settings, valid, world_pos,
+                          geo_normal, pixel_depth, sky_lut)
+    y_sh, cocg, _ = trace_scene_gi(scene, inp, settings, sun_dir, sun_color,
+                                   sun_strength_exposed)
+
+    _mark(timer, "gi_filter")
+    # the chain (resolve -> spatial -> temporal -> spatial) reaches ~40
+    # half-res rows: one 48-row halo covers it (frame.py:851)
+    halo = min(48, gh) // raster.TILE_H * raster.TILE_H
+    y_sh = halo_extend(y_sh, halo)
+    cocg = halo_extend(cocg, halo)
+    normal_e = halo_extend(inp.normal, halo)
+    wpos_e = halo_extend(inp.world_pos, halo)
+    lindepth_e = halo_extend(inp.lin_depth, halo)
+    y_sh, cocg = sdfgi.neighborhood_resolve(y_sh, cocg, normal_e, lindepth_e)
+    proj_scale = 0.5 * height / math.tan(math.radians(FOV_DEG) * 0.5)
+    y_sh, cocg = sdfgi.spatial_filter(
+        y_sh, cocg, normal_e, wpos_e, lindepth_e, state.frame_index, 1.5,
+        proj_scale / stride, seed=0)
+    # TAA is off: the current jitter is 0 (frame.py:865-868)
+    motion_e = halo_extend(to_gi_res(taa.compute_motion(
+        prev_ndc, valid, torch.zeros_like(state.prev_jitter),
+        state.prev_jitter, width, height), gh, gw, stride), halo)
+    hist, hist_ok = taa.resample_packed_planes(
+        halo_extend(state.gi_history, halo), motion_e, gw, gh)
+    mx = motion_e[0] * width
+    my = motion_e[1] * height
+    y_sh, cocg = sdfgi.temporal_filter_gi(
+        y_sh, cocg, hist[0:4], hist[4:6], hist_ok, torch.sqrt(mx * mx + my * my),
+        state.frame_index == 0)
+    new_history = crop_halo(torch.stack([
+        taa.pack_f16_pair(y_sh[0], y_sh[1]),
+        taa.pack_f16_pair(y_sh[2], y_sh[3]),
+        taa.pack_f16_pair(cocg[0], cocg[1])]), halo)
+    y_sh, cocg = sdfgi.spatial_filter(
+        y_sh, cocg, normal_e, wpos_e, lindepth_e, state.frame_index, 1.0,
+        proj_scale / stride, seed=1)
+    y_sh = crop_halo(y_sh, halo)
+    cocg = crop_halo(cocg, halo)
+
+    _mark(timer, "gi_upscale")
+    if half:
+        y_sh, cocg = sdfgi.upscale_half_to_full(
+            y_sh, cocg, depth, to_gi_res(depth, gh, gw, stride), NEAR_PLANE,
+            FAR_PLANE)
+    return y_sh[:, :ph, :pw], cocg[:, :ph, :pw], new_history
+
+
 def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
                  delta_time, settings: RenderSettings, device="cuda",
                  timer=None):
@@ -411,16 +552,16 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
             torch.where(tex_ok, ts[6], material[3]),
             torch.where(tex_ok, ts[7], material[4])], dim=0)
 
+    # pixel linear depth = dot(V, -forward) (triangle.frag:205-207)
+    to_cam = cam["position"].reshape(3, 1, 1) - world_pos
+    pixel_depth = -torch.sum(to_cam * cam["forward"].reshape(3, 1, 1), dim=0)
+    pixel_depth = torch.where(valid, pixel_depth, 0.0)
+
     # --- sun shadows: cascade fit, atlas (kernels A, E), PCF (kernel F) ---
     if settings.shadows.cascade_count > 0:
         _mark(timer, "shadow_atlas")
         atlas = render_shadow_atlas(scene, cam, depth, settings)
         _mark(timer, "shadow_resolve")
-        # pixel linear depth = dot(V, -forward) (triangle.frag:205-207)
-        to_cam = cam["position"].reshape(3, 1, 1) - world_pos
-        pixel_depth = -torch.sum(to_cam * cam["forward"].reshape(3, 1, 1),
-                                 dim=0)
-        pixel_depth = torch.where(valid, pixel_depth, 0.0)
         sun_shadow = shadow.shadow_resolve(
             world_pos, pixel_depth,
             blue_noise_screen(luts, state.frame_index, ph, pw), atlas.maps,
@@ -432,6 +573,19 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
         sun_shadow = torch.ones((ph, pw), **f32)
         shadow_overflow = torch.zeros_like(pairs.overflow)
 
+    # --- SDF GI: trace (kernel G), filters, history (kernel H), upscale ---
+    indirect_y_sh = indirect_cocg = None
+    new_gi_history = state.gi_history
+    if (settings.sdf_trace.enabled
+            and settings.shading.indirect_lighting_tech == 0
+            and "sdf_volume" in scene):
+        _mark(timer, "gi_trace")
+        indirect_y_sh, indirect_cocg, new_gi_history = sdf_gi(
+            state, scene, luts, settings, valid, world_pos, geo_n, depth,
+            pixel_depth, static_prev_ndc(state.prev_view_projection,
+                                         world_pos, valid),
+            sky_lut, sun_dir, sun_color, sun_strength_exposed, timer)
+
     _mark(timer, "shade")
     hdr = shade.shade_forward(
         config=settings.shading, world_pos=world_pos, geo_normal=geo_n,
@@ -439,7 +593,8 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
         albedo_srgb_linear=albedo, normal_ts=normal_ts, specular=rough_metal,
         sun_direction=sun_dir, sun_color=sun_color,
         sun_strength_exposed=sun_strength_exposed, sun_shadow=sun_shadow,
-        camera_position=cam["position"])
+        camera_position=cam["position"], indirect_y_sh=indirect_y_sh,
+        indirect_cocg=indirect_cocg)
 
     # --- sky composite ---
     _mark(timer, "sky")
@@ -462,6 +617,7 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
         exposure=new_exposure,
         prev_color=hdr,
         prev_depth=depth,
+        gi_history=new_gi_history,
         prev_view_projection=mv.view_proj,
         prev_jitter=torch.zeros(2, **f32),
         debug_counters=torch.stack([pairs.overflow, shadow_overflow]).to(
@@ -502,6 +658,38 @@ def scene_to_device(rs, device="cuda") -> dict:
     if rs.alpha_masks is not None:  # carried as data; render_frame refuses
         scene.update(alpha_masks=put(rs.alpha_masks),
                      tri_alpha_slot=put(rs.tri_alpha_slot))
+    return scene
+
+
+def attach_global_sdf(scene: dict, gsdf) -> dict:
+    """Add the composited scene SDF (ops/sdf_scene.GlobalSDF) to the scene
+    tensors, padded and quantized for the trace (frame.py:1203-1237), on
+    the scene's device. The volume dims ride along as the tuple
+    "sdf_grid"; the coarse tables are built once, for a static scene."""
+    dev = scene["corners"].device
+    vol = np.asarray(gsdf.volume, np.float32)
+    alb = np.asarray(gsdf.albedo, np.float32)
+
+    # each axis to whole bricks and at least one 2x2x2-brick window
+    def pad_amount(n):
+        return max(sdfgi.WINDOW, -(-n // sdfgi.BRICK) * sdfgi.BRICK) - n
+
+    pads = [(0, pad_amount(n)) for n in vol.shape]
+    vol = np.pad(vol, pads, constant_values=1e4)
+    alb = np.pad(alb, pads + [(0, 0)], constant_values=0.5)
+    scene = dict(scene)
+    scene["sdf_volume"] = sdfgi.quantize_sdf_volume(
+        torch.as_tensor(vol, device=dev), gsdf.voxel_size)
+    scene["sdf_albedo"] = sdfgi.pack_albedo_volume(
+        torch.as_tensor(alb, device=dev))
+    scene["sdf_origin"] = torch.as_tensor(
+        np.asarray(gsdf.origin, np.float32), device=dev)
+    scene["sdf_voxel_size"] = float(gsdf.voxel_size)
+    scene["sdf_dims"] = torch.as_tensor(np.asarray(vol.shape, np.float32),
+                                        device=dev)
+    scene["sdf_grid"] = tuple(int(n) for n in vol.shape)
+    scene["sdf_coarse"] = sdfgi.build_coarse_tables(
+        scene["sdf_volume"], scene["sdf_albedo"], vol.shape)
     return scene
 
 

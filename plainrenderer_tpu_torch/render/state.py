@@ -1,8 +1,9 @@
 """Carried per-frame state (plainrenderer_tpu/render/state.py).
 
 Every FrameState field exists at the tile-padded sizes of the JAX
-package (state.py:36-44), including the TAA, GI and fog histories this
-slice does not write yet, so later slices change no interface.
+package (state.py:36-44), including the TAA and fog histories the port
+does not write yet, so later slices change no interface. The GI history
+is written by the SDF GI pass.
 """
 
 from __future__ import annotations
@@ -36,12 +37,17 @@ class FrameState:
 FROXEL_DEPTH = 64  # volumetric history depth (state.py:35 default)
 
 
-def initial_state(width: int, height: int, device="cuda") -> FrameState:
+def initial_state(width: int, height: int, gi_half_res: bool = True,
+                  device="cuda") -> FrameState:
     """State buffers at the TILE-PADDED framebuffer size, on `device`; the
-    GI history at half resolution, as the JAX package's defaults."""
+    GI history at half resolution unless gi_half_res is False
+    (state.py:34-43)."""
     dev = device_mod.resolve(device)
     w, h = pad_resolution(width, height)
-    gw, gh = pad_resolution(w // 2, h // 2)
+    if gi_half_res:
+        gw, gh = pad_resolution(w // 2, h // 2)
+    else:
+        gh, gw = h, w
     vh, vw = max(h // 8, 1), max(w // 8, 1)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -14,3 +15,16 @@ def aabb_corners(bb_min: torch.Tensor, bb_max: torch.Tensor) -> torch.Tensor:
     lo = bb_min[..., None, :]
     hi = bb_max[..., None, :]
     return lo + (hi - lo) * picks
+
+
+def pad_sdf_bounding_box(bb_min, bb_max):
+    """sdfUtilities.cpp:5-18 — pad by 7.5% of extent, min 0.5 m per side.
+
+    The rule the SDF baker and the composite share, so baked volumes and
+    their sampling agree. Host numpy in float32 (its callers are the asset
+    pipeline and the scene composite)."""
+    bb_min = np.asarray(bb_min, np.float32)
+    bb_max = np.asarray(bb_max, np.float32)
+    extent = bb_max - bb_min
+    padding = np.maximum(extent * np.float32(0.075), np.float32(0.5))
+    return bb_min - padding, bb_max + padding

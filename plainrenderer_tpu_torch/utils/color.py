@@ -1,7 +1,9 @@
 """Color conversions and hash noise (plainrenderer_tpu/utils/color.py).
 
-Only what the ported passes use: the sRGB encode and the planar dither
-noise of the tonemap pass. Framebuffers are channel-planar (C, H, W).
+Only what the ported passes use: the sRGB encode, the YCoCg transforms of
+the GI encode/decode (channel-last, as the JAX package's) and the planar
+dither noise of the tonemap pass. Framebuffers are channel-planar
+(C, H, W).
 """
 
 from __future__ import annotations
@@ -21,6 +23,24 @@ def linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
     lo = c * 12.92
     hi = torch.pow(torch.abs(c), 1.0 / 2.4) * 1.055 - 0.055
     return torch.where(c <= 0.0031308, lo, hi)
+
+
+def linear_to_ycocg(rgb: torch.Tensor) -> torch.Tensor:
+    """colorConversion.inc:26-31 — RGB -> (Y, Co, Cg), channel-last."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 0.25 * r + 0.5 * g + 0.25 * b
+    co = 0.5 * r - 0.5 * b
+    cg = -0.25 * r + 0.5 * g - 0.25 * b
+    return torch.stack([y, co, cg], dim=-1)
+
+
+def ycocg_to_linear(ycocg: torch.Tensor) -> torch.Tensor:
+    """colorConversion.inc:33-38 — (Y, Co, Cg) -> RGB, channel-last."""
+    y, co, cg = ycocg[..., 0], ycocg[..., 1], ycocg[..., 2]
+    r = y + co - cg
+    g = y + cg
+    b = y - co - cg
+    return torch.stack([r, g, b], dim=-1)
 
 
 def _as_uint32_float(h: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,10 @@ multiplies and adds), its channels within 1e-4 (rsqrt may differ by an
 ulp between the kernel and PyTorch's CUDA rsqrt). Kernel D: the ok
 channel equal, values within 1e-5 where ok; kernel F: >= 99.9% of pixels
 equal, the rest within 1/taps (the CPU tests' rules against the JAX
-package).
+package). Kernel G: escaped and the hit/miss decision equal on >= 99.9%
+of rays, values within 1e-4 (abs + rel) where both agree (powf / rsqrtf
+may differ by an ulp from torch.pow / torch.rsqrt); kernel H: ok equal
+on every pixel, values within 1e-6 relative.
 """
 
 import numpy as np
@@ -19,8 +22,9 @@ import pytest
 import torch
 
 from plainrenderer_tpu_torch import native
-from plainrenderer_tpu_torch.assets import procedural, textures
-from plainrenderer_tpu_torch.ops import post, raster, shadow, texture
+from plainrenderer_tpu_torch.assets import procedural, sdf_bake, textures
+from plainrenderer_tpu_torch.ops import post, raster, sdf_scene, sdfgi
+from plainrenderer_tpu_torch.ops import shadow, taa, texture
 from plainrenderer_tpu_torch.render import frame, scenebuild
 
 pytestmark = pytest.mark.cuda
@@ -240,3 +244,87 @@ def test_shadow_kernel_equals_plain(cuda):
     diff = (out - ref).abs()
     assert float((diff == 0).float().mean()) >= 0.999
     assert float(diff.max()) <= 1.0 / 12 + 1e-6
+
+
+def _gi_case(device, seed=7, h=64, w=256):
+    """A 2 m box (port bake on the card) in a 14 m volume, and rays from a
+    1.6 m sphere around it: half the surfaces face the box, a third of the
+    pixels are empty (one tile fully), the sky is shifted by -10 so that a
+    miss reads negative Y."""
+    mesh = procedural.box_mesh(2.0, 2.0, 2.0)
+    vol = sdf_bake.bake_mesh_sdf(mesh.positions, mesh.indices,
+                                 resolution=(16, 16, 16), device=device)
+    g = sdf_scene.composite_global_sdf(
+        [vol], np.asarray([[-1.0] * 3], np.float32),
+        np.asarray([[1.0] * 3], np.float32), np.eye(4, dtype=np.float32)[None],
+        np.asarray([[0.8, 0.2, 0.1]], np.float32), margin=6.0)
+    scene = frame.attach_global_sdf(
+        {"corners": torch.zeros(1, device=device)}, g)
+    rng = np.random.default_rng(seed)
+    radial = rng.normal(size=(3, h, w))
+    radial /= np.linalg.norm(radial, axis=0)
+    normal = radial * np.where(rng.random((h, w)) < 0.5, -1.0, 1.0)
+    dirs = rng.normal(size=(3, h, w))
+    dirs /= np.linalg.norm(dirs, axis=0)
+    dirs = normal * 1.5 + dirs
+    dirs /= np.linalg.norm(dirs, axis=0)
+    wpos = radial * 1.6 + rng.normal(scale=0.05, size=(3, h, w))
+    valid = rng.random((h, w)) < 0.66
+    valid[:16, :128] = False
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return scene, dict(world_pos=t(wpos), normal=t(normal), ray_dirs=t(dirs),
+                       valid=torch.as_tensor(valid, device=device),
+                       sky_lowres=t(rng.random((3, 32, 64)) - 10.0))
+
+
+@pytest.mark.parametrize("coarse,steps", [(True, 128), (False, 32)])
+def test_sdfgi_kernel_equals_plain(cuda, coarse, steps):
+    scene, rays = _gi_case(cuda)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=cuda)
+    args = (rays["world_pos"], rays["normal"], rays["ray_dirs"],
+            rays["valid"], rays["sky_lowres"], scene["sdf_volume"],
+            scene["sdf_albedo"], scene["sdf_origin"],
+            scene["sdf_voxel_size"], scene["sdf_grid"], f([0.3, -0.9, 0.3]),
+            f([1.0, 0.9, 0.8]), f(10.0))
+    kw = dict(steps=steps, influence=7.5,
+              dims_zyx=scene["sdf_grid"] if coarse else None,
+              coarse_tables=scene["sdf_coarse"] if coarse else None)
+    before = native.launch_counts()["sdfgi_trace"]
+    y, c, e = sdfgi.trace_gi(*args, **kw)
+    assert native.launch_counts()["sdfgi_trace"] == before + 1
+    ref = sdfgi.trace_gi_plain(*args, **kw)
+    out = torch.cat([y, c])
+    valid = rays["valid"]
+    same_hit = (out[0] >= 0) == (ref[0] >= 0)
+    same_esc = e == ref[6]
+    assert float(same_hit[valid].float().mean()) >= 0.999
+    assert float(same_esc.float().mean()) >= 0.999
+    both = same_hit & same_esc
+    err = (out - ref[:6]).abs() - 1e-4 * ref[:6].abs()
+    assert float(err[:, both].max()) <= 1e-4
+    hits = float((ref[0] >= 0)[valid].float().mean())
+    assert 0.05 < hits < 0.95
+    if coarse:
+        assert float(ref[6][valid].mean()) > 0.01
+
+
+def test_packed_planes_kernel_equals_plain(cuda):
+    rng = np.random.default_rng(17)
+    h, w = 96, 640
+    vals = rng.normal(size=(2, 3, h, w)) * np.exp(rng.uniform(-18, 8,
+                                                           (2, 3, h, w)))
+    vals[1, :, ::3, ::5] = 3e-6  # subnormal f16 halves
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    planes = taa.pack_f16_pair(t(vals[0]), t(vals[1]))
+    motion = rng.normal(0, 0.002, (2, h, w)).astype(np.float32)
+    motion[0, :16] -= 0.9
+    motion[0, -16:] += 0.9
+    motion[0, :, :128] += np.linspace(-0.3, 0.3, 128, dtype=np.float32)
+    before = native.launch_counts()["packed_planes"]
+    chans, ok = taa.resample_packed_planes(planes, t(motion), w, h)
+    assert native.launch_counts()["packed_planes"] == before + 1
+    ref = taa.packed_planes_plain(
+        planes, taa.reprojected_coords(t(motion), w, h))
+    torch.testing.assert_close(ok, ref[6] > 0.5, rtol=0, atol=0)
+    assert 0.05 < float(ok.float().mean()) < 0.95
+    torch.testing.assert_close(chans, ref[:6], rtol=1e-6, atol=1e-30)

@@ -1,10 +1,12 @@
 """The port's whole frame against the JAX package at 256x128: 3 frames of
 the small untextured atrium with shadows, GI, TAA and bloom off (slice 1),
 3 frames of the small textured atrium with the default sun shadows at
-256x256 maps (slice 2; fog, GI, TAA and bloom off), plus scene
-registration, LUT/noise setup, the slice guard and device selection."""
+256x256 maps (slice 2; fog, GI, TAA and bloom off), 3 frames of it with
+SDF GI on as well (slice 3), plus scene registration, the scene SDF,
+LUT/noise setup, the slice guard and device selection."""
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 
 from plainrenderer_tpu import config as jcfg
 from plainrenderer_tpu.assets import procedural as jproc
+from plainrenderer_tpu.ops import sdf_scene as jsdf
 from plainrenderer_tpu.render import frame as jframe
 from plainrenderer_tpu.render import scenebuild as jsb
 from plainrenderer_tpu.render.state import initial_state as j_initial_state
@@ -20,6 +23,7 @@ from plainrenderer_tpu.scene import camera as jcam
 from plainrenderer_tpu_torch import config as tcfg
 from plainrenderer_tpu_torch import interop
 from plainrenderer_tpu_torch.assets import procedural as tproc
+from plainrenderer_tpu_torch.ops import sdf_scene as tsdf
 from plainrenderer_tpu_torch.render import frame as tframe
 from plainrenderer_tpu_torch.render import scenebuild as tsb
 from plainrenderer_tpu_torch.render.state import FrameState, initial_state
@@ -48,8 +52,37 @@ def shadow_settings(cfg):
         volumetrics=cfg.VolumetricsSettings(enabled=False))
 
 
+def gi_settings(cfg):
+    """Slice 3: slice 2 with the default SDFTraceSettings() (half-res,
+    128 steps, influence 3, coarse fallback) and indirect_lighting_tech
+    0."""
+    return dataclasses.replace(shadow_settings(cfg),
+                               sdf_trace=cfg.SDFTraceSettings())
+
+
 def _arrays(d):
-    return {k: np.asarray(v) for k, v in d.items()}
+    """A JAX scene/LUT dict as numpy, keeping the SDF's float voxel size
+    and coarse-table tuple (see interop.scene_from_arrays)."""
+    out = {}
+    for k, v in d.items():
+        if k == "sdf_coarse":
+            out[k] = (np.asarray(v[0]), np.asarray(v[1]), v[2], v[3])
+        elif k == "sdf_voxel_size":
+            out[k] = v
+        else:
+            out[k] = np.asarray(v)
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def _textured_atrium_sdf():
+    """The small textured atrium and its scene SDF, baked by the JAX
+    package's jnp path at 16^3 per mesh (bench.py:93-95 uses 32)."""
+    scene = jproc.build_atrium_scene(jproc.AtriumConfig(**SMALL_ATRIUM),
+                                     textured=True)
+    rs = jsb.build_render_scene(scene)
+    return scene, rs, jsdf.build_scene_sdf(rs, scene, use_jax_bake=True,
+                                           bake_resolution_cap=16)
 
 
 def test_three_frames_match_jax():
@@ -63,7 +96,19 @@ def test_three_frames_textured_shadowed_match_jax():
     _check_three_frames(textured_shadowed=True)
 
 
-def _check_three_frames(textured_shadowed: bool):
+def test_three_frames_gi_match_jax():
+    """Slice 3: the textured atrium with sun shadows and SDF GI, the JAX
+    scene and its SDF carried across by interop; the camera moves a little
+    every frame, as on the bench path (_check_three_frames). The GI history
+    after frame 3: f16 words within 2 ulp on >= 99% and within 16 ulp on
+    >= 99.9%. Ulp-level differences upstream (raster depth, kernel B's
+    normals within 1e-4, the sky LUT's cancellation-sensitive texels)
+    redirect a few rays, and the 16-tap spatial filter spreads each over
+    ~150 half-res pixels, so 2 ulp on 99.9% is not reached."""
+    _check_three_frames(textured_shadowed=True, gi=True)
+
+
+def _check_three_frames(textured_shadowed: bool, gi: bool = False):
     """3 frames from the same scene, state and LUTs (carried over with
     interop): the u8 image by the golden rule (test_golden.py:30-31, more
     than 99.9% of pixels within 2 LSB); exposure at rtol 1e-4 (a few
@@ -75,13 +120,19 @@ def _check_three_frames(textured_shadowed: bool):
     differ (a u16 map texel one step off, see test_torch_shadow);
     debug_counters 0 on both sides. Untextured without shadows (slice 1)
     and textured with sun shadows (slice 2, banner_count=0)."""
-    settings = shadow_settings if textured_shadowed else slice_settings
+    settings = (gi_settings if gi else shadow_settings if textured_shadowed
+                else slice_settings)
     js, ts = settings(jcfg), settings(tcfg)
-    rs = jsb.build_render_scene(jproc.build_atrium_scene(
-        jproc.AtriumConfig(**SMALL_ATRIUM), textured=textured_shadowed))
+    if gi:
+        _, rs, gsdf = _textured_atrium_sdf()
+    else:
+        rs = jsb.build_render_scene(jproc.build_atrium_scene(
+            jproc.AtriumConfig(**SMALL_ATRIUM), textured=textured_shadowed))
     assert (rs.tex_word0 is not None) == textured_shadowed
     assert rs.alpha_masks is None
     j_scene = jframe.scene_to_device(rs)
+    if gi:
+        j_scene = jframe.attach_global_sdf(j_scene, gsdf)
     j_luts = jframe.bake_static_luts(js)
     j_state = j_initial_state(W, H)
     t_scene = interop.scene_from_arrays(_arrays(j_scene), device="cpu")
@@ -93,7 +144,15 @@ def _check_three_frames(textured_shadowed: bool):
                                  ext.up)
     t_cam = tframe.camera_arrays(ext.position, ext.forward, ext.right,
                                  ext.up, device="cpu")
-    for _ in range(3):
+    for i in range(3):
+        if gi:
+            ext = jcam.extrinsic_from_angles(
+                [0.05 * i, -1.7, 0.02 * i], pitch_deg=5.0,
+                yaw_deg=20.0 + 0.3 * i)
+            j_cam = jframe.camera_arrays(ext.position, ext.forward,
+                                         ext.right, ext.up)
+            t_cam = tframe.camera_arrays(ext.position, ext.forward,
+                                         ext.right, ext.up, device="cpu")
         j_img, j_state = jframe.render_frame(
             j_state, j_scene, j_cam, j_luts, jnp.asarray(0.016), js,
             interpret=True)
@@ -116,6 +175,16 @@ def _check_three_frames(textured_shadowed: bool):
     assert close[same_cover].mean() >= (0.999 if textured_shadowed else 1.0)
     assert (np.asarray(j_state.debug_counters) == 0).all()
     assert (t_state.debug_counters.numpy() == 0).all()
+    if gi:
+        def ordered(words):  # f16 halves as sign-magnitude ordered ints
+            b = np.stack([words & 0xFFFF, (words >> 16) & 0xFFFF]) \
+                .astype(np.int64)
+            return np.where(b & 0x8000, -(b & 0x7FFF), b & 0x7FFF)
+        ulps = np.abs(ordered(np.asarray(j_state.gi_history))
+                      - ordered(t_state.gi_history.numpy()))
+        assert (ulps <= 2).mean() >= 0.99, (ulps <= 2).mean()
+        assert (ulps <= 16).mean() >= 0.999, (ulps <= 16).mean()
+        assert (t_state.gi_history.numpy() != 0).mean() > 0.5
 
 
 def test_scene_build_and_luts_match_jax():
@@ -145,6 +214,41 @@ def test_scene_build_and_luts_match_jax():
                                   tframe._blue_noise_textures())
 
 
+def test_scene_sdf_matches_jax():
+    """build_scene_sdf (the port's torch bake on the CPU + the host
+    composite) against the JAX package's jnp bake on the small textured
+    atrium: volumes within 1e-5, albedo, origin and voxel size equal; and
+    attach_global_sdf of one GlobalSDF equals the JAX scene's SDF keys
+    carried across by interop, coarse tables included."""
+    scene, rs, want = _textured_atrium_sdf()
+    got = tsdf.build_scene_sdf(rs, scene, bake_resolution_cap=16,
+                               device="cpu")
+    assert got.volume.shape == want.volume.shape
+    np.testing.assert_allclose(got.volume, want.volume, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got.albedo, want.albedo)
+    np.testing.assert_array_equal(got.origin, want.origin)
+    assert got.voxel_size == want.voxel_size
+    carried = interop.scene_from_arrays(
+        _arrays(jframe.attach_global_sdf(jframe.scene_to_device(rs), want)),
+        device="cpu")
+    mine = tframe.attach_global_sdf(
+        tframe.scene_to_device(tsb.build_render_scene(
+            tproc.build_atrium_scene(tproc.AtriumConfig(**SMALL_ATRIUM),
+                                     textured=True)), device="cpu"), want)
+    assert sorted(mine) == sorted(carried)
+    for k in ("sdf_volume", "sdf_albedo", "sdf_origin", "sdf_dims"):
+        np.testing.assert_array_equal(mine[k].numpy(), carried[k].numpy(),
+                                      err_msg=k)
+    assert mine["sdf_voxel_size"] == carried["sdf_voxel_size"]
+    assert mine["sdf_grid"] == carried["sdf_grid"] == (64, 48, 112)
+    for a, b in zip(mine["sdf_coarse"][:2], carried["sdf_coarse"][:2]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert mine["sdf_coarse"][2:] == carried["sdf_coarse"][2:]
+    with pytest.raises(NotImplementedError):
+        interop.scene_from_arrays(dict(_arrays(jframe.scene_to_device(rs)),
+                                       sdf_dyn_vols=[]), device="cpu")
+
+
 def test_initial_state_and_interop_match_jax():
     """Every FrameState field at the JAX package's padded sizes, and the
     interop conversion keeps them."""
@@ -156,14 +260,17 @@ def test_initial_state_and_interop_match_jax():
         np.testing.assert_array_equal(a, b, err_msg=f.name)
     carried = interop.state_from_arrays(j, device="cpu")
     assert carried.prev_color.shape == (3, 128, W)
+    full = initial_state(W, 120, gi_half_res=False, device="cpu")
+    assert full.gi_history.shape == \
+        j_initial_state(W, 120, gi_half_res=False).gi_history.shape
 
 
 def test_render_frame_refuses_settings_outside_the_slice():
-    """RenderSettings() defaults turn on GI, TAA, bloom and fog: the port
+    """RenderSettings() defaults turn on TAA, bloom and fog: the port
     raises instead of skipping them; so does each one alone (fog only with
     shadows, where it runs), trilinear / anisotropic texture filtering,
-    cascade debug colours, and a scene with alpha-tested geometry or
-    dynamic objects."""
+    cascade debug colours, and a scene with alpha-tested geometry, dynamic
+    objects or dynamic SDF objects. SDF GI runs (slice 3)."""
     rs = tsb.build_render_scene(tproc.build_atrium_scene(
         tproc.AtriumConfig(**SMALL_ATRIUM), textured=False))
     scene = tframe.scene_to_device(rs, device="cpu")
@@ -176,7 +283,6 @@ def test_render_frame_refuses_settings_outside_the_slice():
     shadowed = shadow_settings(tcfg)
     bad = [tcfg.RenderSettings(width=W, height=H),
            dataclasses.replace(base, shadows=tcfg.ShadowSettings()),
-           dataclasses.replace(base, sdf_trace=tcfg.SDFTraceSettings()),
            dataclasses.replace(base, taa=tcfg.TAASettings()),
            dataclasses.replace(base, bloom=tcfg.BloomSettings()),
            dataclasses.replace(base, draw_bounding_boxes=True),
@@ -191,7 +297,7 @@ def test_render_frame_refuses_settings_outside_the_slice():
         with pytest.raises(NotImplementedError):
             tframe.render_frame(state, scene, cam, luts, 0.016, settings,
                                 device="cpu")
-    for key in ("alpha_masks", "object_transforms"):
+    for key in ("alpha_masks", "object_transforms", "sdf_dyn_vols"):
         with pytest.raises(NotImplementedError):
             tframe.render_frame(state, dict(scene, **{key: None}), cam, luts,
                                 0.016, base, device="cpu")

@@ -54,7 +54,9 @@ def test_importing_every_module_loads_no_jax():
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
     for m in ("render.frame", "ops.texture", "ops.shadow", "ops.hiz",
-              "assets.textures", "assets.procedural", "render.scenebuild"):
+              "assets.textures", "assets.procedural", "render.scenebuild",
+              "assets.sdf_bake", "ops.sdf_scene", "ops.sdfgi", "ops.taa",
+              "parallel.halo", "utils.sh", "utils.sampling"):
         assert "plainrenderer_tpu_torch." + m in loaded, m
 
 

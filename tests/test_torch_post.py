@@ -186,7 +186,49 @@ def test_shade_forward(diffuse_brdf, multiscatter):
     multiscatter mode: rtol 1e-4 (elementwise float32 with pow/log2/sqrt,
     same operation order; measured 7e-6)."""
     rng = np.random.default_rng(8)
-    h, w = 32, 64
+    planes, valid = _shade_planes(rng, 32, 64)
+    kw = dict(diffuse_brdf=diffuse_brdf,
+              direct_multiscatter_brdf=multiscatter)
+    a = np.asarray(jshade.shade_forward(
+        config=jshade.ShadingConfig(**kw), valid=jnp.asarray(valid),
+        **{k: jnp.asarray(v) for k, v in planes.items()}))
+    b = tshade.shade_forward(
+        config=tcfg.ShadingConfig(**kw), valid=torch.as_tensor(valid),
+        **{k: torch.as_tensor(v) for k, v in planes.items()}).numpy()
+    np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.parametrize("diffuse_brdf,multiscatter,indirect_multiscatter",
+                         [(2, 0, True), (3, 1, True), (1, 2, False)])
+def test_shade_forward_sh_indirect(diffuse_brdf, multiscatter,
+                                   indirect_multiscatter):
+    """The SDF GI's SH-L1 indirect branch (irradiance diffuse plus the
+    dominant-direction specular lobe): rtol 1e-4 as above, atol 1e-6 for
+    terms clamped at 0."""
+    rng = np.random.default_rng(9)
+    planes, valid = _shade_planes(rng, 32, 64)
+    planes["indirect_y_sh"] = rng.normal(size=(4, 32, 64)).astype(np.float32)
+    planes["indirect_cocg"] = (rng.normal(size=(2, 32, 64)) * 0.1) \
+        .astype(np.float32)
+    kw = dict(diffuse_brdf=diffuse_brdf,
+              direct_multiscatter_brdf=multiscatter,
+              use_indirect_multiscatter=indirect_multiscatter)
+    a = np.asarray(jshade.shade_forward(
+        config=jshade.ShadingConfig(**kw), valid=jnp.asarray(valid),
+        **{k: jnp.asarray(v) for k, v in planes.items()}))
+    b = tshade.shade_forward(
+        config=tcfg.ShadingConfig(**kw), valid=torch.as_tensor(valid),
+        **{k: torch.as_tensor(v) for k, v in planes.items()}).numpy()
+    np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-6)
+    ambient = tshade.shade_forward(
+        config=tcfg.ShadingConfig(**kw), valid=torch.as_tensor(valid),
+        **{k: torch.as_tensor(v) for k, v in planes.items()
+           if not k.startswith("indirect")}).numpy()
+    assert np.abs(ambient - b).max() > 1e-3
+
+
+def _shade_planes(rng, h, w):
+    """Random G-buffer planes and lighting inputs for shade_forward."""
     planes = dict(
         world_pos=rng.normal(size=(3, h, w)),
         geo_normal=_unit(rng.normal(size=(3, h, w))),
@@ -202,16 +244,7 @@ def test_shade_forward(diffuse_brdf, multiscatter):
         sun_shadow=np.ones((h, w)),
         camera_position=np.array([0.0, -1.7, 0.0]))
     planes = {k: np.asarray(v, np.float32) for k, v in planes.items()}
-    valid = rng.random((h, w)) > 0.2
-    kw = dict(diffuse_brdf=diffuse_brdf,
-              direct_multiscatter_brdf=multiscatter)
-    a = np.asarray(jshade.shade_forward(
-        config=jshade.ShadingConfig(**kw), valid=jnp.asarray(valid),
-        **{k: jnp.asarray(v) for k, v in planes.items()}))
-    b = tshade.shade_forward(
-        config=tcfg.ShadingConfig(**kw), valid=torch.as_tensor(valid),
-        **{k: torch.as_tensor(v) for k, v in planes.items()}).numpy()
-    np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-9)
+    return planes, rng.random((h, w)) > 0.2
 
 
 def test_reconstruct_world_position():
