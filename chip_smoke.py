@@ -745,13 +745,16 @@ def main() -> int:
     n_rays = gh * gw
     y_k, c_k, e_k = sdfgi.trace_gi(*g_args, **g_kw)
     g_stats = {}
-    ref = sdfgi.trace_gi_plain(*g_args, stats=g_stats, **g_kw)
+    y_p, c_p, e_p = sdfgi.trace_gi(*g_args, plain=True, stats=g_stats,
+                                   **g_kw)
+    ref = torch.cat([y_p, c_p, e_p[None]])
     out_k = torch.cat([y_k, c_k])
-    # the hit/miss decision: again with the sky shifted by -10, where a
-    # miss reads negative Y and a hit never does
-    shifted = g_args[:4] + (inp.sky_lowres - 10.0,) + g_args[5:]
+    # the hit/miss decision: again with the sky shifted below 0 by its
+    # maximum + 1, where a miss reads negative Y and a hit never does
+    sky_shift = float(inp.sky_lowres.max()) + 1.0
+    shifted = g_args[:4] + (inp.sky_lowres - sky_shift,) + g_args[5:]
     hit_k = sdfgi.trace_gi(*shifted, **g_kw)[0][0] >= 0
-    hit_p = sdfgi.trace_gi_plain(*shifted, **g_kw)[0] >= 0
+    hit_p = sdfgi.trace_gi(*shifted, plain=True, **g_kw)[0][0] >= 0
     valid3 = inp.valid
     same_esc = e_k == ref[6]
     same_hit = hit_k == hit_p
@@ -803,7 +806,7 @@ def main() -> int:
     # timings of G and H, their plain versions and H's library yardstick
     ms["sdfgi_trace"] = cuda_ms(lambda: sdfgi.trace_gi(*g_args, **g_kw), 20)
     plain_ms["sdfgi_trace"] = cuda_ms(
-        lambda: sdfgi.trace_gi_plain(*g_args, **g_kw), 2)
+        lambda: sdfgi.trace_gi(*g_args, plain=True, **g_kw), 2)
     ms["packed_planes"] = cuda_ms(lambda: taa.packed_planes(planes_h,
                                                             coords_h), 50)
     plain_ms["packed_planes"] = cuda_ms(
@@ -820,9 +823,14 @@ def main() -> int:
         lambda: torch.nn.functional.grid_sample(
             unpacked, grid_h, mode="bilinear", padding_mode="border",
             align_corners=False), 50)
+    # G's bytes from this run's inputs: every ray reads its valid flag
+    # (1 B) and writes 7 f32; only a valid ray reads its position, normal
+    # and direction (9 f32); plus the bricks, the sky and the coarse tables
+    n_valid = int(valid3.sum())
     sky_bytes = inp.sky_lowres.nbytes
     coarse_bytes = sum(t.nbytes for t in t_scene["sdf_coarse"][:2])
-    g_bytes = 68 * n_rays + sdf_bytes + sky_bytes + coarse_bytes
+    g_bytes = (inp.valid.element_size() * n_rays + 7 * 4 * n_rays
+               + 9 * 4 * n_valid + sdf_bytes + sky_bytes + coarse_bytes)
     g_ops = (G_FINE_STEP_OPS * g_stats["fine_steps"]
              + G_SHADOW_STEP_OPS * g_stats["shadow_steps"]
              + G_COARSE_STEP_OPS * (g_stats["coarse_steps"]

@@ -29,9 +29,11 @@
 // torch.rsqrt by an ulp. Window-local distances are s8 / 8 voxels,
 // sign-extended after & 0xFF.
 //
-// Bound on the H100: per ray it reads 10 f32 (position, normal, direction,
-// valid) and writes 7 f32, 68 B x 557,056 rays at half-res 1080p = 37.9
-// MB, plus the 1.7 MB brick volume and the sky: ~0.012 ms at 3.35 TB/s.
+// Bound on the H100: every ray reads its valid flag (1 B) and writes 7
+// f32; a valid ray also reads 9 f32 (position, normal, direction), so 37 B
+// in + 28 B out per valid ray and 1 B + 28 B per invalid one, plus the
+// brick volume, the coarse tables and the sky; chip_smoke.py counts them
+// from each run's inputs.
 // The work is a chain of dependent gathers per ray (each step's position
 // depends on the last sample), so it is latency-bound; design: shared-
 // memory window, one ray in flight per thread, no tensor cores.

@@ -551,7 +551,7 @@ def trace_gi(world_pos, normal, ray_dirs, valid, sky_lowres, sdf_packed,
              volume_dims: tuple, sun_direction, sun_color, sun_strength, *,
              steps: int = 32, influence: float = 8.0, strict: bool = False,
              dims_zyx: tuple | None = None, coarse_fallback: bool = True,
-             coarse_tables=None):
+             coarse_tables=None, plain: bool = False, stats=None):
     """Trace one GI ray per pixel (sdfgi.py:562; kernel G, csrc/sdfgi.cu,
     replaces sdfgi.py:112 _trace_kernel).
 
@@ -561,16 +561,19 @@ def trace_gi(world_pos, normal, ray_dirs, valid, sky_lowres, sdf_packed,
     volume of volume_dims (D, H, W) voxels at voxel_size (host float) from
     volume_origin (3,); sun direction / color (3,), strength (). With
     dims_zyx and coarse_fallback, rays that leave the fine window march on
-    in the coarse tables (prebuilt, or built here). Returns (Y_SH
-    (4, H, W), CoCg (2, H, W), escaped (H, W) f32 0/1)."""
+    in the coarse tables (prebuilt, or built here). plain=True runs the
+    plain version on any device, for holding kernel G to it; stats as for
+    trace_plain. Returns (Y_SH (4, H, W), CoCg (2, H, W), escaped (H, W)
+    f32 0/1)."""
     sky, c_sdf, c_alb, meta, kw = _trace_setup(
         world_pos, normal, ray_dirs, valid, sky_lowres, sdf_packed,
         albedo_packed, volume_origin, voxel_size, volume_dims,
         sun_direction, sun_color, sun_strength, steps, influence, strict,
         dims_zyx, coarse_fallback, coarse_tables)
-    if not _kernel_device(world_pos):
+    if plain or not _kernel_device(world_pos):
         out = trace_plain(world_pos, normal, ray_dirs, valid, sky,
-                          sdf_packed, albedo_packed, c_sdf, c_alb, meta, **kw)
+                          sdf_packed, albedo_packed, c_sdf, c_alb, meta,
+                          stats=stats, **kw)
     else:
         if sdf_packed.data_ptr() % 16:
             raise ValueError("sdf_packed must be 16-byte aligned (the "
@@ -584,16 +587,6 @@ def trace_gi(world_pos, normal, ray_dirs, valid, sky_lowres, sdf_packed,
                       kw["coarse_f"], kw["steps"], int(kw["strict"]),
                       int(kw["use_coarse"]), kw["sky_h"], kw["sky_w"])
     return out[0:4], out[4:6], out[6]
-
-
-def trace_gi_plain(*args, stats=None, **kwargs):
-    """trace_gi's plain version on any device, for holding kernel G to it:
-    the same arguments, (7, H, W) out; stats as for trace_plain."""
-    sky, c_sdf, c_alb, meta, kw = _trace_setup(*args, **{
-        "steps": 32, "influence": 8.0, "strict": False, "dims_zyx": None,
-        "coarse_fallback": True, "coarse_tables": None, **kwargs})
-    return trace_plain(*args[:4], sky, args[5], args[6], c_sdf, c_alb, meta,
-                       stats=stats, **kw)
 
 
 # --------------------------------------------------------------------------

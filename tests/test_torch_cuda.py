@@ -292,7 +292,8 @@ def test_sdfgi_kernel_equals_plain(cuda, coarse, steps):
     before = native.launch_counts()["sdfgi_trace"]
     y, c, e = sdfgi.trace_gi(*args, **kw)
     assert native.launch_counts()["sdfgi_trace"] == before + 1
-    ref = sdfgi.trace_gi_plain(*args, **kw)
+    y_p, c_p, e_p = sdfgi.trace_gi(*args, plain=True, **kw)
+    ref = torch.cat([y_p, c_p, e_p[None]])
     out = torch.cat([y, c])
     valid = rays["valid"]
     same_hit = (out[0] >= 0) == (ref[0] >= 0)
