@@ -29,7 +29,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("expand_keys.cu", "gbuffer.cu", "material.cu", "texture.cu",
-           "depth.cu", "shadow.cu", "sdfgi.cu", "packed_planes.cu")
+           "depth.cu", "shadow.cu", "sdfgi.cu", "packed_planes.cu",
+           "history_taps.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -61,6 +62,8 @@ _ENTRIES = {
     "sdfgi_trace_launch": ("sdfgi_trace", [_P] * 11 + [_I] * 14 + [_P]),
     # planes, coords, out, n_planes, h, w, stream
     "packed_planes_launch": ("packed_planes", [_P] * 3 + [_I] * 3 + [_P]),
+    # history, coords, out, n_taps, h, w, stream
+    "history_taps_launch": ("history_taps", [_P] * 3 + [_I] * 3 + [_P]),
 }
 
 _launches = {key: 0 for key, _ in _ENTRIES.values()}

@@ -16,6 +16,7 @@ import torch
 from ..config import ShadingConfig
 from ..utils import sh
 from ..utils.color import ycocg_to_linear
+from ..utils.mathutils import fma
 from . import brdf
 from .brdf_lut import diffuse_integral_fitted, env_brdf_fitted
 
@@ -193,18 +194,31 @@ def _sh_indirect(config, n, v, r, f0, nov, diffuse_color, diffuse_integral,
 
 
 def reconstruct_world_position(depth, inv_view_proj, width, height):
-    """Reverse-Z depth + pixel NDC -> world position (3, H, W) (shade.py:249)."""
+    """Reverse-Z depth + pixel NDC -> world position (3, H, W) (shade.py:249).
+
+    Each row m . (x, y, z, 1) is rounded as XLA:CPU contracts the JAX
+    expression m0 x + m1 y + m2 z + m3 at the golden frame's size,
+    fma(m2, z, fma(m0, x, m1 y)) + m3 (its contraction differs at some
+    other sizes), the same on every device. Under a static camera the
+    frame's motion vectors are the rounding noise of this reprojection,
+    and their sign decides the history windows' edge tests at pixel
+    centres (kernels H and I): rounding as the reference does keeps those
+    decisions the reference's."""
     h, w = depth.shape
     dev = depth.device
-    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / width \
-        * 2.0 - 1.0
-    ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / height \
-        * 2.0 - 1.0
-    ndc_x = xs[None, :].expand(h, w)
-    ndc_y = ys[:, None].expand(h, w)
-    z = torch.clamp_min(depth, 1e-9)
+    # XLA divides by a constant as a multiply by its reciprocal
+    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) \
+        * (1.0 / width) * 2.0 - 1.0
+    ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) \
+        * (1.0 / height) * 2.0 - 1.0
+    ndc = (xs[None, :].expand(h, w), ys[:, None].expand(h, w),
+           torch.clamp_min(depth, 1e-9))
     m = inv_view_proj
-    wpos = (m[:3, 0:1, None] * ndc_x[None] + m[:3, 1:2, None] * ndc_y[None]
-            + m[:3, 2:3, None] * z[None] + m[:3, 3:4, None])
-    wdiv = m[3, 0] * ndc_x + m[3, 1] * ndc_y + m[3, 2] * z + m[3, 3]
-    return wpos / torch.where(torch.abs(wdiv) > 1e-12, wdiv, 1.0)[None]
+
+    def row(r):
+        return fma(m[r, 2], ndc[2], fma(m[r, 0], ndc[0],
+                                        m[r, 1] * ndc[1])) + m[r, 3]
+
+    wdiv = row(3)
+    return torch.stack([row(r) for r in range(3)]) \
+        / torch.where(torch.abs(wdiv) > 1e-12, wdiv, 1.0)[None]

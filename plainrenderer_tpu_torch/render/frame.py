@@ -1,15 +1,16 @@
 """The per-frame pass graph (plainrenderer_tpu/render/frame.py).
 
-The port renders opaque geometry with material textures, cascaded sun
-shadows and SDF-traced diffuse GI: exposure histogram -> exposure -> sky
-LUT -> frustum cull -> geometry setup -> binning (kernel A) -> G-buffer
-raster (kernel B) -> material lookup (kernel C) -> texture sampling
-(kernel D, textured scenes) -> cascade fit -> shadow-atlas setup, binning
-(kernel A) and depth raster (kernel E) -> PCF shadow resolve (kernel F)
--> GI trace (kernel G, scenes with an attached SDF) -> resolve, spatial,
-history resample (kernel H), temporal, spatial -> upscale -> forward
-shade -> sky composite -> tonemap. Every setting outside it (TAA, bloom,
-fog, trilinear / anisotropic texture filtering, alpha masks, dynamic
+The port renders the default RenderSettings() on opaque static scenes:
+exposure histogram -> exposure -> sky LUT -> TAA-jittered camera ->
+frustum cull -> geometry setup -> binning (kernel A) -> G-buffer raster
+(kernel B) -> material lookup (kernel C) -> texture sampling (kernel D,
+textured scenes) -> cascade fit -> shadow-atlas setup, binning (kernel A)
+and depth raster (kernel E) -> PCF shadow resolve (kernel F) -> GI trace
+(kernel G, scenes with an attached SDF) -> resolve, spatial, history
+resample (kernel H), temporal, spatial -> upscale -> forward shade -> sky
+composite -> froxel fog (with shadows) -> TAA (history taps, kernel I) ->
+bloom -> tonemap. Every setting outside it (the TAA supersampling
+pre-pass, trilinear / anisotropic texture filtering, alpha masks, dynamic
 objects and their SDFs, split-frame bands, debug views) raises
 NotImplementedError instead of silently skipping its pass. render_frame
 runs eagerly and never synchronises with the host: every per-frame value
@@ -29,17 +30,20 @@ from .. import device as device_mod
 from ..assets.textures import MAX_MIPS
 from ..config import RenderSettings
 from ..ops import exposure as exposure_ops
-from ..ops import hiz, post, raster, sdfgi, shade, shadow, sky, taa, texture
+from ..ops import (bloom, hiz, post, raster, sdfgi, shade, shadow, sky, taa,
+                   texture, volumetrics)
 from ..parallel.halo import crop_halo, halo_extend
 from ..scene.frustum import expand_object_mask, visible_objects_clipspace
 from ..utils import mathutils, noise as noise_mod
-from ..utils.sampling import importance_sample_cosine
+from ..utils.mathutils import fma, fma_matmul, lu_inverse
+from ..utils.sampling import importance_sample_cosine, taa_jitter_sequence
 from ..utils.stencil import point_downsample
 from .state import FrameState
 
 FOV_DEG = 35.0  # CameraIntrinsic defaults (Camera.h:11-16)
 NEAR_PLANE = 0.1
 FAR_PLANE = 300.0
+_JITTER_TABLE = taa_jitter_sequence(8) * 2.0  # TAA.cpp:168-170
 
 
 def camera_arrays(position, forward, right, up, device="cuda") -> dict:
@@ -52,7 +56,7 @@ def camera_arrays(position, forward, right, up, device="cuda") -> dict:
 
 def _view_matrix(cam: dict) -> torch.Tensor:
     rot = torch.stack([cam["right"], cam["up"], -cam["forward"]], dim=0)
-    trans = -rot @ cam["position"]
+    trans = -fma_matmul(rot, cam["position"][:, None])[:, 0]
     m = torch.eye(4, dtype=torch.float32, device=rot.device)
     m[:3, :3] = rot
     m[:3, 3] = trans
@@ -95,14 +99,11 @@ def shadow_bin_sub(sres: int) -> int:
 
 def check_slice(scene: dict, cam: dict, settings: RenderSettings) -> None:
     """Raise NotImplementedError for anything the port does not render."""
-    shadows_on = settings.shadows.cascade_count > 0
     unported = [
         (settings.shadows.cascade_count > shadow.MAX_CASCADES,
          f"more than {shadow.MAX_CASCADES} shadow cascades"),
-        (settings.taa.enabled, "TAA (taa.enabled)"),
-        (settings.bloom.enabled, "bloom (bloom.enabled)"),
-        (settings.volumetrics.enabled and shadows_on,
-         "froxel fog (volumetrics.enabled with shadows)"),
+        (settings.taa.enabled and settings.taa.use_separate_supersampling,
+         "TAA supersampling pre-pass (taa.use_separate_supersampling)"),
         (settings.shadows.debug_cascade_colors,
          "cascade debug colours (shadows.debug_cascade_colors)"),
         (settings.shading.texture_filter >= 1,
@@ -136,16 +137,22 @@ class MainView:
     pair_budget: int
 
 
-def main_view_setup(scene: dict, cam: dict,
-                    settings: RenderSettings) -> MainView:
+def main_view_setup(scene: dict, cam: dict, settings: RenderSettings,
+                    jitter_ndc=None) -> MainView:
     """Camera matrices, frustum cull and geometry setup of the main view
-    (frame.py:342-420), with its bin grid and pair budget (:450)."""
+    (frame.py:342-420), with its bin grid and pair budget (:450).
+    jitter_ndc (2,), the TAA jitter in NDC units, is added to the
+    projection's [0, 2] and [1, 2] (frame.py:352-358)."""
     width, height = settings.width, settings.height
     pw, ph = raster.pad_resolution(width, height)
     m_sub = main_bin_sub(ph)
     nty, ntx = ph // (raster.TILE_H * m_sub), pw // raster.TILE_W
     view = _view_matrix(cam)
-    view_proj = _frame_constants(settings, view.device)["projection"] @ view
+    proj = _frame_constants(settings, view.device)["projection"]
+    if jitter_ndc is not None:
+        proj = proj.clone()
+        proj[0:2, 2] += jitter_ndc
+    view_proj = fma_matmul(proj, view)
     t_count = scene["corners"].shape[0]
     obj_visible = visible_objects_clipspace(
         view_proj, scene["object_bb_min"], scene["object_bb_max"])
@@ -187,6 +194,12 @@ def _frame_constants(settings: RenderSettings, dev: torch.device) -> dict:
         # far plane (lightMatrix.comp push constants, frame.py:587-588)
         "sdf_influence": _fill(settings.sdf_trace.influence_radius, dev),
         "fog_max_distance": _fill(settings.volumetrics.max_distance, dev),
+        "jitter_table": _fill(_JITTER_TABLE, dev),
+        "resolution": _fill([settings.width, settings.height], dev),
+        "wind_dir": _fill([
+            np.cos(np.deg2rad(settings.volumetrics.wind_direction_deg)), 0.0,
+            np.sin(np.deg2rad(settings.volumetrics.wind_direction_deg))],
+            dev),
     }
 
 
@@ -331,13 +344,19 @@ def blue_noise_screen(luts: dict, frame_index: torch.Tensor, ph: int,
 
 def static_prev_ndc(prev_view_projection, world_pos, valid):
     """Previous-frame NDC of a static scene: the depth-derived world
-    position through last frame's view-projection (frame.py:526-532)."""
-    _, ph, pw = world_pos.shape
-    pvp = prev_view_projection
-    flat = world_pos.reshape(3, -1)
-    pc = (pvp[:2, :3] @ flat + pvp[:2, 3:4]).reshape(2, ph, pw)
-    pw_h = (pvp[3, :3] @ flat + pvp[3, 3]).reshape(ph, pw)
-    prev_ndc = pc / torch.where(torch.abs(pw_h) > 1e-9, pw_h, 1.0)[None]
+    position through last frame's view-projection (frame.py:526-532).
+    The product rounds as XLA:CPU's dot does, one multiply then fused
+    multiply-adds over k, the same on every device (see
+    shade.reconstruct_world_position for why the last bits matter)."""
+    p = prev_view_projection
+    x, y, z = world_pos
+
+    def row(r):
+        return fma(p[r, 2], z, fma(p[r, 1], y, p[r, 0] * x)) + p[r, 3]
+
+    pw_h = row(3)
+    prev_ndc = torch.stack([row(0), row(1)]) \
+        / torch.where(torch.abs(pw_h) > 1e-9, pw_h, 1.0)[None]
     return torch.where(valid[None], prev_ndc, 0.0)
 
 
@@ -407,11 +426,12 @@ def trace_scene_gi(scene: dict, inp: GITraceInputs, settings: RenderSettings,
 def sdf_gi(state: FrameState, scene: dict, luts: dict,
            settings: RenderSettings, valid, world_pos, geo_normal, depth,
            pixel_depth, prev_ndc, sky_lut, sun_dir, sun_color,
-           sun_strength_exposed, timer=None):
+           sun_strength_exposed, timer=None, jitter_ndc=None):
     """The GI pass (frame.py:793-899): trace (kernel G) -> resolve ->
     spatial -> history resample (kernel H) + temporal -> spatial ->
-    upscale. Returns (indirect_y_sh (4, H, W), indirect_cocg (2, H, W),
-    new gi_history)."""
+    upscale. jitter_ndc is the frame's TAA jitter (None: no jitter).
+    Returns (indirect_y_sh (4, H, W), indirect_cocg (2, H, W), new
+    gi_history)."""
     half = settings.sdf_trace.half_resolution
     stride = 2 if half else 1
     width, height = settings.width, settings.height
@@ -436,10 +456,11 @@ def sdf_gi(state: FrameState, scene: dict, luts: dict,
     y_sh, cocg = sdfgi.spatial_filter(
         y_sh, cocg, normal_e, wpos_e, lindepth_e, state.frame_index, 1.5,
         proj_scale / stride, seed=0)
-    # TAA is off: the current jitter is 0 (frame.py:865-868)
+    if jitter_ndc is None:
+        jitter_ndc = torch.zeros_like(state.prev_jitter)
     motion_e = halo_extend(to_gi_res(taa.compute_motion(
-        prev_ndc, valid, torch.zeros_like(state.prev_jitter),
-        state.prev_jitter, width, height), gh, gw, stride), halo)
+        prev_ndc, valid, jitter_ndc, state.prev_jitter, width, height),
+        gh, gw, stride), halo)
     hist, hist_ok = taa.resample_packed_planes(
         halo_extend(state.gi_history, halo), motion_e, gw, gh)
     mx = motion_e[0] * width
@@ -506,9 +527,21 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
                                luts["multiscatter"],
                                settings=settings.atmosphere)
 
+    # --- TAA jitter (frame.py:352-361): the table row frame_index % 8,
+    # picked on the device ---
+    taa_on = settings.taa.enabled
+    if taa_on:
+        jitter_px = torch.index_select(
+            consts["jitter_table"], 0,
+            (state.frame_index % 8).reshape(1).long())[0]
+        jitter_ndc = jitter_px / consts["resolution"]
+    else:
+        jitter_ndc = torch.zeros(2, **f32)
+
     # --- cull + setup + binning (kernel A) + G-buffer raster (kernel B) ---
     _mark(timer, "binning")
-    mv = main_view_setup(scene, cam, settings)
+    mv = main_view_setup(scene, cam, settings,
+                         jitter_ndc=jitter_ndc if taa_on else None)
     pairs, _, _, depth, vis, gbuf = raster_main_view(mv, timer)
     valid = vis >= 0
 
@@ -520,7 +553,10 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
 
     # --- forward shade ---
     _mark(timer, "shade")
-    inv_vp = torch.linalg.inv_ex(mv.view_proj).inverse
+    # the inverse in f64, rounded: within an ulp of the JAX package's f32
+    # LU solve, and the same on every device (under a static camera the
+    # reprojection's last bits decide the history windows' edge tests)
+    inv_vp = lu_inverse(mv.view_proj)
     world_pos = shade.reconstruct_world_position(depth, inv_vp, pw, ph)
     # raster packs mat * 2 + (handedness < 0); B = handedness * cross(N, T)
     handedness = 1.0 - 2.0 * (mat_packed - 2.0 * mat_id)
@@ -537,12 +573,14 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
     # --- material textures (kernel D), constants where not ok ---
     if "tex_word0" in scene:
         _mark(timer, "texture")
-        # mip bias log2(0.5) belongs to TAA, which this port refuses
+        # mip bias log2(0.5) under TAA (Filmic SMAA p.117,
+        # RenderFrontend.cpp:1176-1181; frame.py:548-549)
+        bias = -1.0 if taa_on and settings.taa.use_mip_bias else 0.0
         ts = texture.sample_materials(
             gbuf[raster._CH_U:raster._CH_U + 2],
             gbuf[raster._CH_DUDX:raster._CH_DUDX + 4], mat_id, valid,
             scene["mat_tex"], scene["tex_info"], scene["tex_word0"],
-            scene["tex_word1"], n_mips=MAX_MIPS, mip_bias=0.0,
+            scene["tex_word1"], n_mips=MAX_MIPS, mip_bias=bias,
             two_mat=settings.shading.texture_two_mat)
         tex_ok = ts[8] > 0.5
         albedo = torch.where(tex_ok[None], ts[0:3], albedo)
@@ -554,8 +592,10 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
 
     # pixel linear depth = dot(V, -forward) (triangle.frag:205-207)
     to_cam = cam["position"].reshape(3, 1, 1) - world_pos
-    pixel_depth = -torch.sum(to_cam * cam["forward"].reshape(3, 1, 1), dim=0)
-    pixel_depth = torch.where(valid, pixel_depth, 0.0)
+    view_depth = -torch.sum(to_cam * cam["forward"].reshape(3, 1, 1), dim=0)
+    pixel_depth = torch.where(valid, view_depth, 0.0)
+    # previous-frame NDC of the static scene, for TAA's and GI's motion
+    prev_ndc = static_prev_ndc(state.prev_view_projection, world_pos, valid)
 
     # --- sun shadows: cascade fit, atlas (kernels A, E), PCF (kernel F) ---
     if settings.shadows.cascade_count > 0:
@@ -582,9 +622,8 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
         _mark(timer, "gi_trace")
         indirect_y_sh, indirect_cocg, new_gi_history = sdf_gi(
             state, scene, luts, settings, valid, world_pos, geo_n, depth,
-            pixel_depth, static_prev_ndc(state.prev_view_projection,
-                                         world_pos, valid),
-            sky_lut, sun_dir, sun_color, sun_strength_exposed, timer)
+            pixel_depth, prev_ndc, sky_lut, sun_dir, sun_color,
+            sun_strength_exposed, timer, jitter_ndc=jitter_ndc)
 
     _mark(timer, "shade")
     hdr = shade.shade_forward(
@@ -605,6 +644,43 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
     hdr = sky.apply_sky(hdr, valid, sky_lut, luts["transmission"],
                         view_dirs, sun_dir, sun_strength_exposed)
 
+    # --- froxel fog (frame.py:942-1004), with shadows ---
+    new_vol_history = state.volumetric_history
+    if settings.volumetrics.enabled and settings.shadows.cascade_count > 0:
+        _mark(timer, "fog")
+        hdr, new_vol_history = froxel_fog(
+            state, cam, luts, settings, atlas, hdr, valid,
+            torch.where(valid, view_depth, settings.volumetrics.max_distance),
+            sun_dir, sun_color, sun_strength_exposed)
+    scene_color = hdr  # pre-TAA color feeds next frame's histogram
+
+    # --- TAA (frame.py:1008-1051): one 16-row edge-padded halo covers the
+    # 3x3 neighbourhoods, the dilation and the bicubic history window ---
+    taa_history = state.taa_history
+    if taa_on:
+        _mark(timer, "taa")
+        halo = min(16, ph) // raster.TILE_H * raster.TILE_H
+        motion = taa.compute_motion(prev_ndc, valid, jitter_ndc,
+                                    state.prev_jitter, width, height)
+        taa_set = settings.taa
+        hdr, taa_history = taa.temporal_filter(
+            halo_extend(hdr, halo), halo_extend(state.taa_history, halo),
+            halo_extend(motion, halo), halo_extend(depth, halo), jitter_px,
+            state.frame_index == 0, width, height,
+            use_clipping=taa_set.use_clipping,
+            use_motion_dilation=taa_set.use_motion_vector_dilation,
+            use_tonemapping=taa_set.filter_use_tonemapping,
+            history_sampling_tech=taa_set.history_sampling_tech)
+        hdr = crop_halo(hdr, halo)
+        taa_history = crop_halo(taa_history, halo)
+
+    # --- bloom (frame.py:1053-1065) ---
+    if settings.bloom.enabled:
+        _mark(timer, "bloom")
+        bs = settings.bloom
+        hdr = bloom.compute_bloom(hdr, bs.strength, bs.blur_radius,
+                                  bs.mip_count)
+
     # --- tonemap ---
     _mark(timer, "tonemap")
     time = state.frame_index.to(torch.float32) * 0.016
@@ -615,15 +691,70 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
         state,
         frame_index=state.frame_index + 1,
         exposure=new_exposure,
-        prev_color=hdr,
+        prev_color=scene_color,
         prev_depth=depth,
+        taa_history=taa_history,
         gi_history=new_gi_history,
+        volumetric_history=new_vol_history,
         prev_view_projection=mv.view_proj,
-        prev_jitter=torch.zeros(2, **f32),
+        prev_jitter=jitter_ndc,
         debug_counters=torch.stack([pairs.overflow, shadow_overflow]).to(
             torch.int32),
     )
     return image, new_state
+
+
+def froxel_fog(state: FrameState, cam: dict, luts: dict,
+               settings: RenderSettings, atlas: ShadowAtlas, hdr, valid,
+               fog_depth, sun_dir, sun_color, sun_strength_exposed):
+    """The froxel fog pass (frame.py:942-1004): material, the coarse sun
+    shadow of the last cascade, scattering, reprojection against the
+    carried history, integration and the per-pixel apply. fog_depth is
+    the pixel's view depth, max_distance on the sky (sky.frag:31-34).
+    Returns (hdr, new volumetric history)."""
+    vs = settings.volumetrics
+    consts = _frame_constants(settings, hdr.device)
+    fd, fh, fw = state.volumetric_history.shape[1:]
+    tan_fov_half = math.tan(math.radians(FOV_DEG) * 0.5)
+    aspect = settings.width / settings.height
+    wind_offset = consts["wind_dir"] * (
+        vs.wind_speed * state.frame_index.to(torch.float32) * 0.016)
+    fpos = volumetrics.froxel_world_positions(
+        (fw, fh, fd), cam, tan_fov_half, aspect, vs.max_distance)
+    mat_vol = volumetrics.material_volume(fpos, vs, wind_offset)
+
+    # the last cascade's shadow on a 4x coarser grid, a hard test against
+    # the atlas depth at truncated texel indices (frame.py:957-973)
+    cd, ch, cw = max(fd // 4, 1), max(fh // 4, 1), max(fw // 4, 1)
+    cpos = volumetrics.froxel_world_positions(
+        (cw, ch, cd), cam, tan_fov_half, aspect, vs.max_distance)
+    last_c = settings.shadows.cascade_count - 1
+    m_light = atlas.cascade_mats[last_c]
+    cp = cpos.reshape(3, -1).T
+    lxy = cp @ m_light[:2, :3].T + m_light[:2, 3]
+    lz = cp @ m_light[2, :3] + m_light[2, 3]
+    sres = settings.shadows.resolution
+    su = torch.clamp(((lxy[:, 0] * 0.5 + 0.5) * sres).to(torch.int32), 0,
+                     sres - 1)
+    sv = torch.clamp(((lxy[:, 1] * 0.5 + 0.5) * sres).to(torch.int32), 0,
+                     sres - 1)
+    smap_depth = atlas.maps[last_c][sv.long(), su.long()]
+    shadow_c = (torch.clamp(lz, 0.0, 1.0) >= smap_depth).to(
+        torch.float32).reshape(cd, ch, cw)
+
+    scat = volumetrics.light_scattering(
+        mat_vol, fpos, shadow_c, cam, sun_dir, sun_color,
+        sun_strength_exposed, vs.phase_g, ambient=vs.ambient)
+    scat = volumetrics.temporal_reprojection(
+        scat, state.volumetric_history, cpos, state.prev_view_projection,
+        cam["position"], cam["forward"], vs.max_distance,
+        state.frame_index == 0)
+    integrated = volumetrics.integrate_froxels(scat, vs.max_distance)
+    ph, pw = valid.shape
+    hdr = volumetrics.apply_froxel_fog(
+        hdr, fog_depth, integrated, vs.max_distance,
+        blue_noise_screen(luts, state.frame_index, ph, pw))
+    return hdr, scat
 
 
 def scene_to_device(rs, device="cuda") -> dict:

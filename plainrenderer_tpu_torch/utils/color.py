@@ -1,8 +1,8 @@
 """Color conversions and hash noise (plainrenderer_tpu/utils/color.py).
 
 Only what the ported passes use: the sRGB encode, the YCoCg transforms of
-the GI encode/decode (channel-last, as the JAX package's) and the planar
-dither noise of the tonemap pass. Framebuffers are channel-planar
+the GI encode/decode (channel-last, as the JAX package's), luminance and
+the planar dither noise of the tonemap pass. Framebuffers are channel-planar
 (C, H, W).
 """
 
@@ -16,6 +16,7 @@ _UI0 = 1597334673
 _UI1 = 3812015801 - (1 << 32)
 _UI2 = 2798796415 - (1 << 32)
 _UIF = 1.0 / 4294967295.0
+LUMA_WEIGHTS = (0.21, 0.72, 0.07)
 
 
 def linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
@@ -23,6 +24,14 @@ def linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
     lo = c * 12.92
     hi = torch.pow(torch.abs(c), 1.0 / 2.4) * 1.055 - 0.055
     return torch.where(c <= 0.0031308, lo, hi)
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """luminance.inc:5-7 — dot(color, (0.21, 0.72, 0.07)) over the
+    channels of (3, ...) planes, summed in channel order; the weights are
+    Python scalars, so no constant is copied to the device."""
+    return (rgb[0] * LUMA_WEIGHTS[0] + rgb[1] * LUMA_WEIGHTS[1]
+            + rgb[2] * LUMA_WEIGHTS[2])
 
 
 def linear_to_ycocg(rgb: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,13 @@
-"""Hemisphere sampling (plainrenderer_tpu/utils/sampling.py, the part the
-GI ray generation uses; sampling.inc:12-42). Channel-last, as the JAX
+"""Hemisphere sampling and the TAA jitter sequence
+(plainrenderer_tpu/utils/sampling.py, the parts the GI ray generation and
+TAA use; sampling.inc:12-42, TAA.cpp:168-179). Channel-last, as the JAX
 package's."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -43,3 +45,25 @@ def importance_sample_cosine(xi: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     hemi = torch.stack([torch.cos(phi) * sin_theta,
                         torch.sin(phi) * sin_theta, cos_theta], dim=-1)
     return _to_world(hemi, n)
+
+
+def taa_jitter_sequence(length: int = 8) -> np.ndarray:
+    """TAA.cpp:168-179 — per-frame subpixel jitter in [-0.5, 0.5)^2:
+    Hammersley (base 2, base 3) shifted by -0.5, (length, 2) f32 numpy."""
+    b2 = np.zeros(length)
+    b3 = np.zeros(length)
+    for i in range(length):
+        v, f, r2 = i, 0.5, 0.0
+        while v:
+            r2 += f * (v & 1)
+            v >>= 1
+            f *= 0.5
+        b2[i] = r2
+        v, f, rev = i, 1.0 / 3.0, 0
+        while v:
+            rev = rev * 3 + v % 3
+            v //= 3
+            f *= 1.0 / 3.0
+        # the reversed base-3 digits over the same digit count
+        b3[i] = rev * (f * 3.0) if i else 0.0
+    return np.stack([b2, b3], axis=-1).astype(np.float32) - 0.5

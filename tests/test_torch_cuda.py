@@ -13,8 +13,8 @@ channel equal, values within 1e-5 where ok; kernel F: >= 99.9% of pixels
 equal, the rest within 1/taps (the CPU tests' rules against the JAX
 package). Kernel G: escaped and the hit/miss decision equal on >= 99.9%
 of rays, values within 1e-4 (abs + rel) where both agree (powf / rsqrtf
-may differ by an ulp from torch.pow / torch.rsqrt); kernel H: ok equal
-on every pixel, values within 1e-6 relative.
+may differ by an ulp from torch.pow / torch.rsqrt); kernels H and I: ok
+equal on every pixel, values within 1e-6 relative.
 """
 
 import numpy as np
@@ -23,7 +23,8 @@ import torch
 
 from plainrenderer_tpu_torch import native
 from plainrenderer_tpu_torch.assets import procedural, sdf_bake, textures
-from plainrenderer_tpu_torch.ops import post, raster, sdf_scene, sdfgi
+from plainrenderer_tpu_torch.ops import color_packing, post, raster
+from plainrenderer_tpu_torch.ops import sdf_scene, sdfgi
 from plainrenderer_tpu_torch.ops import shadow, taa, texture
 from plainrenderer_tpu_torch.render import frame, scenebuild
 
@@ -329,3 +330,34 @@ def test_packed_planes_kernel_equals_plain(cuda):
     torch.testing.assert_close(ok, ref[6] > 0.5, rtol=0, atol=0)
     assert 0.05 < float(ok.float().mean()) < 0.95
     torch.testing.assert_close(chans, ref[:6], rtol=1e-6, atol=1e-30)
+
+
+@pytest.mark.parametrize("n_taps", [1, 16])
+def test_history_taps_kernel_equals_plain(cuda, n_taps):
+    """Kernel I at K = 1 (tech 4) and K = 16 (tech 1) on a 96x640 history:
+    tiles pushed far left, past the right edge and off the top, a ramp
+    that splits a tile across the window's edge; R11G11B10 values over 12
+    octaves (all >= 0, so the taps' magnitude is the value)."""
+    rng = np.random.default_rng(19 + n_taps)
+    h, w = 96, 640
+    rgb = rng.random((3, h, w)) * np.exp(rng.uniform(-6, 6, (3, h, w)))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    hist = color_packing.pack_r11g11b10(t(rgb))
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32) + 0.5
+    motion = rng.normal(0, 1.5, (2, h, w))
+    motion[0, :16] -= 0.9 * w
+    motion[0, -16:] += 0.9 * w
+    motion[1, 16:32] -= 40.0
+    motion[0, :, :128] += np.linspace(-90, 90, 128)
+    coords = t(np.concatenate([
+        np.stack([xs + motion[0] + rng.uniform(-2, 2),
+                  ys + motion[1] + rng.uniform(-2, 2)])
+        for _ in range(n_taps)]))
+    before = native.launch_counts()["history_taps"]
+    rgb_k, ok_k = taa.resample_history_taps(hist, coords)
+    assert native.launch_counts()["history_taps"] == before + 1
+    ref = taa.history_taps_plain(hist, coords)
+    torch.testing.assert_close(ok_k, ref[3 * n_taps] > 0.5, rtol=0, atol=0)
+    assert 0.05 < float(ok_k.float().mean()) < 0.95
+    torch.testing.assert_close(rgb_k, ref[:3 * n_taps], rtol=1e-6,
+                               atol=1e-30)

@@ -353,11 +353,12 @@ def test_initial_state_and_interop_match_jax():
 
 
 def test_render_frame_refuses_settings_outside_the_slice():
-    """RenderSettings() defaults turn on TAA, bloom and fog: the port
-    raises instead of skipping them; so does each one alone (fog only with
-    shadows, where it runs), trilinear / anisotropic texture filtering,
-    cascade debug colours, and a scene with alpha-tested geometry, dynamic
-    objects or dynamic SDF objects. SDF GI runs (slice 3)."""
+    """The port raises instead of skipping a pass it does not render: the
+    TAA supersampling pre-pass, trilinear / anisotropic texture filtering,
+    cascade debug colours, more than 4 cascades, bounding boxes, SDF debug
+    views, and a scene with alpha-tested geometry, dynamic objects or
+    dynamic SDF objects. TAA, bloom and froxel fog run (slice 4, with the
+    default RenderSettings(): tests/test_torch_golden.py)."""
     rs = tsb.build_render_scene(tproc.build_atrium_scene(
         tproc.AtriumConfig(**SMALL_ATRIUM), textured=False))
     scene = tframe.scene_to_device(rs, device="cpu")
@@ -368,10 +369,8 @@ def test_render_frame_refuses_settings_outside_the_slice():
                                [0, -1, 0], device="cpu")
     base = slice_settings(tcfg)
     shadowed = shadow_settings(tcfg)
-    bad = [tcfg.RenderSettings(width=W, height=H),
-           dataclasses.replace(base, shadows=tcfg.ShadowSettings()),
-           dataclasses.replace(base, taa=tcfg.TAASettings()),
-           dataclasses.replace(base, bloom=tcfg.BloomSettings()),
+    bad = [dataclasses.replace(base, taa=tcfg.TAASettings(
+               use_separate_supersampling=True)),
            dataclasses.replace(base, draw_bounding_boxes=True),
            dataclasses.replace(base, sdf_debug=tcfg.SDFDebugSettings(1)),
            dataclasses.replace(base, shading=tcfg.ShadingConfig(
