@@ -12,7 +12,10 @@ port at 1920x1080 on the bench camera path: 1 the untextured atrium
 (kernels A, B, C); 2 the textured atrium with sun shadows (D, E, F, A's
 multi-view keys; it picks pair_budget_scale); 3 with SDF GI (G, H); 4
 the default RenderSettings() with TAA, bloom and fog (I; the golden
-scene on the card against tests/golden_frame.npz and the CPU). Each row
+scene on the card against tests/golden_frame.npz and the CPU); 5
+bench.py's own scene, the textured atrium with its 4 alpha-tested
+banners (J, K, L; M in a phase of its own, build_pairs(carry_table=...)
+on the frame's main-view setup). Each row
 holds its kernels to their plain PyTorch versions on a real frame's
 inputs (the rule is printed with each result), a small scene on the card
 to the CPU plain path (> 99.9% of pixels within 2 LSB), times each
@@ -75,6 +78,10 @@ KERNEL_SOURCES = {
     "sdfgi_trace": ("sdfgi.cu", "sdfgi.py:112"),
     "packed_planes": ("packed_planes.cu", "taa.py:277"),
     "history_taps": ("history_taps.cu", "taa.py:134"),
+    "depth_alpha": ("depth_alpha.cu", "raster.py:1474"),  # and :1483 (_acc)
+    "winner_alpha": ("gbuffer_alpha.cu", "raster.py:1743"),
+    "attr_resolve": ("gbuffer_alpha.cu", "raster.py:1755"),
+    "expand_rows": ("expand_rows.cu", "raster.py:606"),
 }
 # operations of one step of kernel G's loops and of a ray's fixed work,
 # counted from csrc/sdfgi.cu (float and integer ops alike): the fine step
@@ -85,6 +92,9 @@ G_FINE_STEP_OPS, G_SHADOW_STEP_OPS, G_COARSE_STEP_OPS = 60, 45, 35
 G_RAY_OPS = 150
 SMALL_ATRIUM = dict(columns_per_row=2, floor_subdiv=2, box_count=3,
                     box_subdiv=1, column_segments=8)
+# tests/test_frame.py:312-314's banner atrium and its camera (:320)
+SMALL_BANNERS = dict(columns_per_row=2, floor_subdiv=2, box_count=0,
+                     box_subdiv=1, column_segments=8, banner_count=2)
 
 
 def check(cond: bool, what: str) -> None:
@@ -251,15 +261,17 @@ def check_run(run: dict, row, what: str) -> dict:
 
 
 def small_images(ctx, settings, textured: bool, gi: bool = False,
-                 moving: bool = False):
+                 moving: bool = False, banners: bool = False):
     """3 frames of the small atrium at 256x128 on the card (kernels) and on
     the CPU (plain versions): the two u8 images. With gi, the scene SDF is
     baked on the card at 16^3 per mesh and attached on both sides; with
     moving, the camera moves a little every frame (a static camera puts
     the GI history window's edge test on exact ties, where rounding noise
-    in the motion decides)."""
+    in the motion decides); with banners, the small banner atrium from the
+    JAX test's camera."""
     scene_data = procedural.build_atrium_scene(
-        procedural.AtriumConfig(**SMALL_ATRIUM), textured=textured)
+        procedural.AtriumConfig(**(SMALL_BANNERS if banners
+                                   else SMALL_ATRIUM)), textured=textured)
     rs = scenebuild.build_render_scene(scene_data)
     gsdf = sdf_scene.build_scene_sdf(
         rs, scene_data, bake_resolution_cap=16, device=ctx.dev) if gi else None
@@ -273,8 +285,10 @@ def small_images(ctx, settings, textured: bool, gi: bool = False,
         for i in range(3):
             k = i if moving else 0
             ext = cam_mod.extrinsic_from_angles(
-                [0.05 * k, -1.7, 0.02 * k], pitch_deg=5.0,
-                yaw_deg=20.0 + 0.3 * k)
+                [0.0, -1.7, -4.0], pitch_deg=0.0, yaw_deg=0.0) if banners \
+                else cam_mod.extrinsic_from_angles(
+                    [0.05 * k, -1.7, 0.02 * k], pitch_deg=5.0,
+                    yaw_deg=20.0 + 0.3 * k)
             cm = frame.camera_arrays(ext.position, ext.forward, ext.right,
                                      ext.up, device=d)
             img, st = frame.render_frame(st, sc, cm, lt, 0.016, settings,
@@ -292,70 +306,84 @@ def golden_close(a, b) -> float:
                  .mean())
 
 
-def small_card_vs_cpu(ctx, n: int, **kw) -> float:
+def small_card_vs_cpu(ctx, n: int, what: str = "", **kw) -> float:
     """small_images of a row's settings at 256x128 with 256^2 shadow maps
     and exposure_adaption_speed=1000, card vs CPU by the golden rule."""
     settings = dataclasses.replace(slice_settings(n, 256, 128,
                                                   resolution=256),
                                    exposure_adaption_speed=1000.0)
     close = golden_close(*small_images(ctx, settings, **kw))
-    print(f"small slice-{n} scene card vs CPU plain: {close:.5f} of pixels "
-          "within 2 LSB (limit > 0.999)", flush=True)
-    check(close > 0.999, f"small slice-{n} image card vs CPU")
+    what = what or f"small slice-{n} scene"
+    print(f"{what} card vs CPU plain: {close:.5f} of pixels within 2 LSB "
+          "(limit > 0.999)", flush=True)
+    check(close > 0.999, f"{what} card vs CPU")
     return close
 
 
 # ------------------------------- scenes -------------------------------
 
-def atrium_scene(ctx, textured: bool):
-    """The bench's atrium: untextured with its 4 banners (slice 1), or
-    textured without them (alpha-tested geometry is a later slice)."""
+# bench.py:66-76's atrium; banner_count=4 is bench.py's own scene
+BENCH_ATRIUM = dict(columns_per_row=6, column_segments=64, floor_subdiv=64,
+                    box_count=12, box_subdiv=16, banner_count=4)
+
+
+def atrium_scene(ctx, name: str, textured: bool, banners: int):
+    """The bench's atrium: untextured with its 4 banners (slice 1),
+    textured without them (slices 2-4), or textured with them (slice 5,
+    bench.py's own scene: 256 alpha-tested triangles)."""
     t0 = time.time()
     scene_data = procedural.build_atrium_scene(procedural.AtriumConfig(
-        columns_per_row=6, column_segments=64, floor_subdiv=64, box_count=12,
-        box_subdiv=16, banner_count=0 if textured else 4), textured=textured)
+        **dict(BENCH_ATRIUM, banner_count=banners)), textured=textured)
     rs = scenebuild.build_render_scene(scene_data)
     n_tex = rs.tex_info.shape[0] // MAX_MIPS if textured else 0
-    counts = (rs.triangle_count, rs.material_table.shape[0], n_tex)
-    check(counts == ((292_416, 41, 41) if textured else (292_672, 45, 0)),
-          f"triangles, materials, textures {counts}")
-    check(rs.alpha_masks is None or not textured,
-          "no alpha-tested geometry")
+    n_alpha = 0 if rs.alpha_masks is None else int(
+        (rs.tri_alpha_slot[:rs.triangle_count] > 0).sum())
+    counts = (rs.triangle_count, rs.material_table.shape[0], n_alpha)
+    want = {(False, 4): (292_672, 45, 0), (True, 0): (292_416, 41, 0),
+            (True, 4): (292_672, 45, 256)}[textured, banners]
+    check(counts == want, f"{name}: triangles, materials, alpha-tested "
+          f"triangles {counts}, want {want}")
     scene = frame.scene_to_device(rs, device=ctx.dev)
     torch.cuda.synchronize()
-    print(f"slice {2 if textured else 1} scene: {rs.triangle_count} "
-          f"triangles, {rs.object_count} objects, {n_tex} textures, "
+    print(f"{name} scene: {rs.triangle_count} triangles ({n_alpha} "
+          f"alpha-tested), {rs.object_count} objects, {n_tex} textures, "
           f"{rs.tex_word0.shape[0] if textured else 0} bricks; setup "
           f"{time.time() - t0:.1f} s", flush=True)
-    ctx.scenes["source"] = (rs, scene_data)
+    ctx.scenes[("source", name)] = (rs, scene_data)
     return scene
 
 
-def sdf_atrium_scene(ctx):
-    rs, scene_data = ctx.scenes["source"]
+def sdf_atrium_scene(ctx, base: str, key: str):
+    """The base scene with its scene SDF baked on the card at
+    bake_resolution_cap=32 (bench.py:93-95)."""
+    if base not in ctx.scenes:
+        ctx.scenes[base] = SCENES[base](ctx)
+    rs, scene_data = ctx.scenes[("source", base)]
     t0 = time.time()
     gsdf = sdf_scene.build_scene_sdf(rs, scene_data,
                                      bake_resolution_cap=32, device=ctx.dev)
     torch.cuda.synchronize()
     bake_s = time.time() - t0
-    scene = frame.attach_global_sdf(ctx.scenes["textured"], gsdf)
+    scene = frame.attach_global_sdf(ctx.scenes[base], gsdf)
     grid = scene["sdf_grid"]
     n_bricks = scene["sdf_volume"].shape[0]
     sdf_bytes = scene["sdf_volume"].nbytes + scene["sdf_albedo"].nbytes
     c_dims, c_f = scene["sdf_coarse"][2:]
-    print(f"slice 3 scene SDF: baked on the card in {bake_s:.1f} s; grid "
+    print(f"{base} scene SDF: baked on the card in {bake_s:.1f} s; grid "
           f"{gsdf.volume.shape} at {gsdf.voxel_size} m -> padded {grid}, "
           f"{n_bricks} bricks, {sdf_bytes / 1e6:.2f} MB packed; coarse "
           f"{c_dims} (factor {c_f})", flush=True)
-    ctx.extra["sdf"] = dict(sdf_bake_s=bake_s, sdf_grid=list(grid),
-                            sdf_bricks=n_bricks, sdf_packed_bytes=sdf_bytes,
-                            coarse_dims=list(c_dims), coarse_factor=c_f)
+    ctx.extra[key] = dict(sdf_bake_s=bake_s, sdf_grid=list(grid),
+                          sdf_bricks=n_bricks, sdf_packed_bytes=sdf_bytes,
+                          coarse_dims=list(c_dims), coarse_factor=c_f)
     return scene
 
 
-SCENES = {"untextured": lambda ctx: atrium_scene(ctx, False),
-          "textured": lambda ctx: atrium_scene(ctx, True),
-          "sdf": sdf_atrium_scene}
+SCENES = {"untextured": lambda ctx: atrium_scene(ctx, "untextured", False, 4),
+          "textured": lambda ctx: atrium_scene(ctx, "textured", True, 0),
+          "sdf": lambda ctx: sdf_atrium_scene(ctx, "textured", "sdf"),
+          "banners": lambda ctx: atrium_scene(ctx, "banners", True, 4),
+          "bench": lambda ctx: sdf_atrium_scene(ctx, "banners", "sdf_bench")}
 
 
 # --------------------- per-slice kernel comparisons ---------------------
@@ -383,7 +411,9 @@ def slice1_kernels(ctx, scene, settings) -> dict:
     ki = raster.pair_key_inputs(mv.setup, mv.n_tiles_y, mv.n_tiles_x,
                                 mv.pair_budget, mv.sub, order_rows=True)
     live_pairs, a_bound = check_keys(ki, "kernel A", "T")
-    pairs, pe, pa, depth_k, vis_k, gbuf_k = frame.raster_main_view(mv)
+    main = frame.raster_main_view(mv)
+    pairs, pe, pa = main.pairs, main.pair_edges, main.pair_attrs
+    depth_k, vis_k, gbuf_k = main.depth, main.vis, main.gbuf
     check(int(pairs.overflow) == 0, "no pairs dropped at the bench framing")
     gb_args = (pe, pa, pairs.tile_start, pairs.tile_count, mv.n_tiles_y,
                mv.n_tiles_x, mv.sub, True)
@@ -773,18 +803,176 @@ def slice4_kernels(ctx, scene, settings) -> dict:
                 golden_close=close_golden, golden_card_vs_cpu=close_cpu)
 
 
+def slice5_kernels(ctx, scene, settings) -> dict:
+    """Kernels J, K and L on frame 0's alpha streams (the atlas's and the
+    main view's, recomputed from the recorded inputs of the frame's own
+    calls), the alpha test's work, kernel M in a phase of its own on the
+    frame's main-view setup, and the small banner scene card vs CPU."""
+    print(f"slice 5 settings: default RenderSettings(); pair_budget_scale "
+          f"{ctx.scale}", flush=True)
+    rec = record_frames(ctx, scene, settings, 1,
+                        [(frame, "raster_main_view"),
+                         (frame, "render_shadow_atlas")])
+    atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
+    a = atlas.alpha
+    check(a is not None and int(atlas.overflow) == 0,
+          "the atlas has an alpha stream and drops nothing")
+    j_args = (a.edges, a.pairs.tile_start, a.pairs.tile_count, a.n_bins_y,
+              atlas.n_bins_x, a.sub, False)
+    depth_j = raster.rasterize_depth(a.edges, a.pairs, a.n_bins_y,
+                                     atlas.n_bins_x, sub=a.sub,
+                                     alpha_masks=a.masks,
+                                     init_depth=a.init_depth)
+    check(torch.equal(depth_j.view(torch.int32),
+                      raster.depth_plain(*j_args, masks=a.masks,
+                                         init=a.init_depth)
+                      .view(torch.int32)),
+          "kernel J atlas equals the plain version")
+    uncut_j = raster.depth_plain(*j_args, init=a.init_depth)
+    raised = int((depth_j > a.init_depth).sum())
+    rejected_j = int((uncut_j > depth_j).sum())
+    a_pairs = int(a.pairs.tile_count.sum())
+    print(f"kernel J: {a_pairs} alpha caster pairs in {a.n_bins_y} x "
+          f"{atlas.n_bins_x} bins of {a.sub * 16} rows; atlas equal; "
+          f"{raised} texels raised over the opaque atlas, {rejected_j} "
+          "texels where the masks rejected every covering caster",
+          flush=True)
+    check(raised > 0 and rejected_j > 0, "the alpha casters write and cut")
+    del uncut_j
+
+    mv = rec["raster_main_view"][0][0]
+    main = frame.raster_main_view(mv)
+    check(int(main.overflow) == 0, "no main-view pairs dropped")
+    pa, pe_a, pa_a = main.alpha_pairs, main.alpha_edges, main.alpha_attrs
+    k_args = (pe_a, pa.tile_start, pa.tile_count, mv.alpha_masks,
+              mv.n_tiles_y, mv.n_tiles_x, mv.sub, True)
+    depth_k, vis_k = raster.rasterize_winner_alpha(
+        pe_a, pa, mv.alpha_masks, mv.n_tiles_y, mv.n_tiles_x, mv.sub, True)
+    depth_kp, vis_kp = raster.winner_alpha_plain(*k_args)
+    check(torch.equal(depth_k, depth_kp) and torch.equal(vis_k, vis_kp),
+          "kernel K depth and vis equal the plain version")
+    # the alpha test's work: pixels the alpha stream's edges (and z) cover,
+    # and those where the masks reject every covering pair
+    # (a mask of all ones passes every pair: the edges and z alone)
+    _, vis_edges = raster.winner_alpha_plain(
+        *k_args[:3], torch.full_like(mv.alpha_masks, -1), *k_args[4:])
+    edge_px = int((vis_edges >= 0).sum())
+    rejected = int(((vis_edges >= 0) & (vis_k < 0)).sum())
+    # pixels of the merged frame at the alpha stream's depth (it won, or
+    # tied and the opaque stream won)
+    alpha_wins = int(((depth_k > 0) & (main.depth == depth_k)).sum())
+    print(f"kernel K: {int(pa.tile_count.sum())} alpha pairs; depth and "
+          f"vis equal; the alpha stream's edges cover {edge_px} pixels, "
+          f"the masks reject {rejected} of them; {alpha_wins} pixels of "
+          "the merged frame at the alpha stream's depth", flush=True)
+    check(edge_px > 0 and rejected > 0, "the alpha test does work")
+    gbuf_l = raster.resolve_attributes(pa_a, pa.tile_start, vis_k,
+                                       mv.n_tiles_y, mv.n_tiles_x, mv.sub)
+    l_args = (pa_a, pa.tile_start, vis_k, mv.n_tiles_y, mv.n_tiles_x,
+              mv.sub)
+    err_l = float((gbuf_l - raster.attr_resolve_plain(*l_args)).abs().max())
+    print(f"kernel L: channels max |err| {err_l:.3e} (limit 1e-4, kernel "
+          "B's)", flush=True)
+    check(err_l <= 1e-4, "kernel L channels vs plain")
+
+    # kernel M's own path: build_pairs(carry_table=...) on the frame's
+    # opaque main-view stream, launch counts reset just before it
+    setup_o = dataclasses.replace(
+        mv.setup, edges=mv.setup.edges[:, :4],
+        valid=mv.setup.valid & ~(mv.alpha_slots > 0))
+    table, n_edge = raster.setup_row_table(setup_o, row_extents=True)
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    pairs_m, rows_m = raster.build_pairs(
+        setup_o, mv.n_tiles_y, mv.n_tiles_x, pair_budget=mv.pair_budget,
+        bin_rows=mv.sub, order_rows=True, carry_table=table)
+    torch.cuda.synchronize()
+    m_counts = native.launch_counts()
+    check(m_counts["expand_rows"] == 1 and m_counts["expand_keys"] == 1,
+          f"build_pairs(carry_table) launches A and M once: {m_counts}")
+    for k in ("pair_tri", "tile_start", "tile_count"):
+        check(torch.equal(getattr(pairs_m, k), getattr(main.pairs, k)),
+              f"carry_table gives the frame's segments ({k})")
+    live = int(main.pairs.tile_count.sum())
+    check(torch.equal(rows_m[:, :live], torch.cat(
+        [main.pair_edges, main.pair_attrs])[:, :live]),
+        "kernel M's rows equal gather_pair_setups on every live slot")
+    ki = raster.pair_key_inputs(setup_o, mv.n_tiles_y, mv.n_tiles_x,
+                                mv.pair_budget, mv.sub, order_rows=True)
+    _, owners = raster.expand_keys(ki)
+    m_args = (owners, table, ki.cum[-1:], ki.budget)
+    check(torch.equal(raster.expand_rows(*m_args),
+                      raster.expand_rows_plain(*m_args)),
+          "kernel M equals the plain version")
+    print(f"kernel M: {table.shape[0]} rows x {ki.budget} slots "
+          f"({int(ki.cum[-1])} live), equal; the carried rows equal "
+          f"gather_pair_setups on all {live} live slots; launches on its "
+          f"path {m_counts}", flush=True)
+    ctx.extra["m_launches"] = m_counts["expand_rows"]
+
+    # times and bounds from this run's inputs. J reads the opaque atlas
+    # and writes the merged one, reads each pair's 32 rows and the masks;
+    # per (pair, pixel) of its bins 3 edge planes (12 flops), the alpha
+    # work on covered pixels not counted (a lower bound)
+    n_atlas = a.init_depth.numel()
+    j_bytes = (8 * n_atlas + 32 * 4 * a.edges.shape[1] + a.masks.nbytes
+               + 8 * a.pairs.tile_count.shape[0])
+    j_ops = 12 * a_pairs * a.sub * 16 * raster.TILE_W
+    ctx.kernel("depth_alpha", lambda: raster.rasterize_depth(
+        a.edges, a.pairs, a.n_bins_y, atlas.n_bins_x, sub=a.sub,
+        alpha_masks=a.masks, init_depth=a.init_depth), 20,
+        lambda: raster.depth_plain(*j_args, masks=a.masks,
+                                   init=a.init_depth), 2,
+        (j_bytes / HBM_BYTES_PER_S, j_ops / FP32_OPS_PER_S), 0.0)
+    n_pix = vis_k.numel()
+    k_eval = evaluated_pair_pixels(pe_a, pa, mv.n_tiles_x, mv.sub)
+    k_bytes = (8 * n_pix + 32 * 4 * pe_a.shape[1] + mv.alpha_masks.nbytes
+               + 8 * pa.tile_count.shape[0])
+    ctx.kernel("winner_alpha", lambda: raster.rasterize_winner_alpha(
+        pe_a, pa, mv.alpha_masks, mv.n_tiles_y, mv.n_tiles_x, mv.sub, True),
+        20, lambda: raster.winner_alpha_plain(*k_args), 2,
+        (k_bytes / HBM_BYTES_PER_S, 16 * k_eval / FP32_OPS_PER_S), 0.0)
+    covered = int((vis_k >= 0).sum())
+    l_bytes = (4 * n_pix + 4 * raster.GBUF_CHANNELS * n_pix
+               + 4 * pa_a.shape[0] * pa_a.shape[1] + 4 * pa.tile_start.numel())
+    ctx.kernel("attr_resolve", lambda: raster.resolve_attributes(*l_args),
+               20, lambda: raster.attr_resolve_plain(*l_args), 5,
+               (l_bytes / HBM_BYTES_PER_S, 80 * covered / FP32_OPS_PER_S),
+               err_l)
+    m_bytes = 4 * (ki.budget + table.numel() + table.shape[0] * ki.budget)
+    ctx.kernel("expand_rows", lambda: raster.expand_rows(*m_args), 50,
+               lambda: raster.expand_rows_plain(*m_args), 10,
+               (m_bytes / HBM_BYTES_PER_S, 0.0), 0.0,
+               lambda: table.index_select(1, owners.long()))
+    small = small_card_vs_cpu(ctx, 2, "small banner scene (slice 2 "
+                              "settings)", textured=True, banners=True)
+    return dict(pair_budget_scale=ctx.scale, **ctx.extra["sdf_bench"],
+                atlas_alpha_pairs=a_pairs, atlas_alpha_bins=[
+                    a.n_bins_y, atlas.n_bins_x], atlas_texels_raised=raised,
+                atlas_texels_rejected=rejected_j,
+                main_alpha_pairs=int(pa.tile_count.sum()),
+                main_alpha_edge_pixels=edge_px,
+                main_alpha_rejected_pixels=rejected,
+                main_alpha_winning_pixels=alpha_wins,
+                main_alpha_evaluated_pair_pixels=k_eval,
+                carry_table=dict(rows=table.shape[0], slots=ki.budget,
+                                 live=int(ki.cum[-1]), launches=m_counts),
+                small_banners_close=small)
+
+
 # ------------------------- checks after a run -------------------------
+
+def _one_frame(ctx, scene, run, settings):
+    """One more frame from the run's last state and the last camera."""
+    return frame.render_frame(run["state"], scene, ctx.cams[-1], ctx.luts,
+                              1.0 / 60.0, settings, device=ctx.dev)[0]
+
 
 def slice4_after(ctx, scene, settings, run) -> dict:
     """One frame with fog off and one with bloom off, from the run's last
-    state, differ from the full frame; 2 more frames under torch.profiler
-    (device busy share, kernels per frame; the profiler's own host cost
-    is in the window, so the share is a lower bound)."""
-    state = run["state"]
-
+    state, differ from the full frame; then profile_frames."""
     def one(s):
-        return frame.render_frame(state, scene, ctx.cams[-1], ctx.luts,
-                                  1.0 / 60.0, s, device=ctx.dev)[0]
+        return _one_frame(ctx, scene, run, s)
     full, differ = one(settings), {}
     for name, field, off in (
             ("fog", "volumetrics", config.VolumetricsSettings(enabled=False)),
@@ -794,11 +982,19 @@ def slice4_after(ctx, scene, settings, run) -> dict:
         print(f"slice 4 with {name} off: {differ[name]:.4f} of pixels "
               "differ from the full frame", flush=True)
         check(differ[name] > 0.0, f"the {name} pass changes the frame")
+    return dict(pixels_differ_when_off=differ,
+                **profile_frames(ctx, scene, settings, run, "slice 4"))
+
+
+def profile_frames(ctx, scene, settings, run, what: str) -> dict:
+    """2 more frames under torch.profiler: device busy share and kernels
+    per frame (the profiler's own host cost is in the window, so the share
+    is a lower bound)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
-            one(settings)
+            _one_frame(ctx, scene, run, settings)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     by_kernel = sorted(
@@ -807,13 +1003,12 @@ def slice4_after(ctx, scene, settings, run) -> dict:
     device_us = sum(t for _, t, _ in by_kernel)
     device_launches = sum(n for _, _, n in by_kernel) / 2
     busy = device_us / window_us if device_us > 0 else None
-    print(f"profiler (slice 4): device busy {device_us / 2e3:.2f} ms/frame "
+    print(f"profiler ({what}): device busy {device_us / 2e3:.2f} ms/frame "
           f"of {window_us / 2e3:.2f} ms wall -> busy share "
           f"{'not measured' if busy is None else f'{busy:.3f}'}; "
           f"{device_launches:.0f} device kernels/frame under "
           f"{len(by_kernel)} names", flush=True)
-    return dict(pixels_differ_when_off=differ,
-                busy_share=busy, profiled_device_us_per_frame=device_us / 2,
+    return dict(busy_share=busy, profiled_device_us_per_frame=device_us / 2,
                 device_kernels_per_frame=device_launches,
                 profiled_wall_us_per_frame=window_us / 2,
                 top_kernels_us_per_frame=[(k, t / 2, n / 2)
@@ -830,6 +1025,9 @@ Row = collections.namedtuple(
 
 _A_TO_F = {"expand_keys": 2, "gbuffer": 1, "material": 1, "texture": 1,
            "depth": 1, "shadow": 1}
+_A_TO_I = dict(_A_TO_F, sdfgi_trace=1, packed_planes=1, history_taps=1)
+_HISTORIES = dict(gi_history=taa.unpack_f16_pair,
+                  taa_history=color_packing.unpack_r11g11b10)
 SLICES = [
     Row(1, "untextured", 1, 3,
         {"expand_keys": 1, "gbuffer": 1, "material": 1}, slice1_kernels),
@@ -838,11 +1036,16 @@ SLICES = [
     Row(3, "sdf", 3, 8,
         dict(_A_TO_F, sdfgi_trace=1, packed_planes=1), slice3_kernels,
         histories=dict(gi_history=taa.unpack_f16_pair)),
-    Row(4, "sdf", 3, 8,
-        dict(_A_TO_F, sdfgi_trace=1, packed_planes=1, history_taps=1),
-        slice4_kernels, slice4_after,
-        histories=dict(gi_history=taa.unpack_f16_pair,
-                       taa_history=color_packing.unpack_r11g11b10)),
+    Row(4, "sdf", 3, 8, _A_TO_I, slice4_kernels, slice4_after,
+        histories=_HISTORIES),
+    # bench.py's own scene: A for both streams of the main view and of the
+    # atlas; M stays at 0 on the frame (its own path: slice5_kernels)
+    Row(5, "bench", 3, 8,
+        dict(_A_TO_I, expand_keys=4, depth_alpha=1, winner_alpha=1,
+             attr_resolve=1), slice5_kernels,
+        lambda ctx, scene, settings, run: profile_frames(
+            ctx, scene, settings, run, "slice 5"),
+        pick_scale=True, histories=_HISTORIES),
 ]
 
 
@@ -904,6 +1107,7 @@ def main() -> int:
             "source": "plainrenderer_tpu_torch/csrc/" + source,
             "replaces": "plainrenderer_tpu/ops/" + replaces,
             "launches": run["launches"][name],
+            "path": "render_frame, slice 5",
             "max_abs_err": ctx.errors[name], "ms": ctx.ms[name],
             "plain_ms": ctx.plain_ms[name],
             "bound_ms": max(by_bytes, by_ops) * 1e3,
@@ -911,6 +1115,10 @@ def main() -> int:
             "library_ms": ctx.library_ms[name]}
         if name == "expand_keys":  # its second use: the atlas's keys
             entry.update(ctx.extra["atlas_keys"])
+        if name == "expand_rows":  # not on the frame: its own path
+            entry.update(launches=ctx.extra["m_launches"],
+                         path="build_pairs(carry_table=...)",
+                         frame_launches=run["launches"][name])
         kernels.append(entry)
     ctx.report.update(kernels=kernels, total_s=time.time() - t_start)
     (OUT / "report.json").write_text(json.dumps(ctx.report, indent=1))

@@ -22,6 +22,128 @@ __device__ __forceinline__ int plain_staged_row(int r) {
   return r < 12 ? (r / 3) * 4 + r % 3 : (r == 12 ? 3 : 7);
 }
 
+// The alpha-tested raster kernels (depth_alpha.cu, gbuffer_alpha.cu) stage
+// 24 of the 32 rows: the 14 above, then u/w, v/w, 1/w as (a, b, c) (rows
+// 16-26, planes 4-6) and the mask slot (row 30, plane 7's c). Staged row
+// 14 + 3 * q + k holds plane 4 + q's coefficient k; staged row 23 the slot.
+#define PLAIN_N_STAGED_ALPHA 24
+#define PLAIN_STAGED_SLOT 23
+__device__ __forceinline__ int plain_staged_row_alpha(int r) {
+  return r < PLAIN_N_STAGED ? plain_staged_row(r)
+                            : (r == PLAIN_STAGED_SLOT
+                                   ? 30
+                                   : 16 + ((r - 14) / 3) * 4 + (r - 14) % 3);
+}
+#define PLAIN_MAX_ALPHA_MASKS 8  // = ops/raster.py:MAX_ALPHA_MASKS
+#define PLAIN_ALPHA_MASK_WORDS 128
+
+// A plane at a pixel centre as a*x + (b*y + c), every multiply and add
+// rounded on its own (no FMA contraction), as the plain versions evaluate.
+__device__ __forceinline__ float plain_plane(float a, float b, float c,
+                                             float x, float y) {
+  return __fadd_rn(__fmul_rn(a, x), __fadd_rn(__fmul_rn(b, y), c));
+}
+
+// raster.py:_kernel_recip: 1/x for x > 0 as rsqrt(x)^2 + one Newton step
+__device__ __forceinline__ float plain_kernel_recip(float x) {
+  float r = rsqrtf(x);
+  r = __fmul_rn(r, r);
+  return __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(x, r)));
+}
+
+// The alpha test (raster.py:1393-1416) of a pair with mask slot `slot` at
+// a pixel whose planes 4-6 evaluate to uw, vw, iw: the perspective-correct
+// uv wrapped into 64x64 texels picks one bit of mask slot - 1 (masks in
+// shared memory, n_masks rows of 128 words). Opaque pairs (slot < 0.5) and
+// slots that name no mask pass, as the TPU kernel's table default (-1).
+__device__ __forceinline__ bool plain_alpha_passes(float uw, float vw,
+                                                   float iw, float slot,
+                                                   const int* masks,
+                                                   int n_masks) {
+  if (!(slot >= 0.5f)) return true;
+  const float rs = rintf(slot);
+  if (!(rs >= 1.0f && rs <= (float)n_masks && fabsf(slot - rs) < 0.5f)) {
+    return true;
+  }
+  const float inv = plain_kernel_recip(iw > 1e-12f ? iw : 1.0f);
+  const float u = __fmul_rn(uw, inv);
+  const float v = __fmul_rn(vw, inv);
+  const float fx = fminf(fmaxf(__fmul_rn(__fsub_rn(u, floorf(u)), 64.0f),
+                               0.0f), 63.0f);
+  const float fy = fminf(fmaxf(__fmul_rn(__fsub_rn(v, floorf(v)), 64.0f),
+                               0.0f), 63.0f);
+  const int ix = (int)fx;
+  const int iy = (int)fy;
+  const int word = masks[((int)rs - 1) * PLAIN_ALPHA_MASK_WORDS + iy * 2 +
+                         (ix >= 32 ? 1 : 0)];
+  return ((word >> (ix & 31)) & 1) == 1;
+}
+
+// round to bf16, nearest even (inf stays, NaN stays quiet)
+__device__ __forceinline__ float plain_bf16_round(float f) {
+  unsigned u = __float_as_uint(f);
+  if ((u & 0x7f800000u) == 0x7f800000u) {
+    return (u & 0x007fffffu) ? __uint_as_float((u | 0x00400000u) & 0xffff0000u)
+                             : f;
+  }
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// the TPU's two-pass bf16 product with an exact one-hot: hi + lo
+// (raster.py:1650-1670)
+__device__ __forceinline__ float plain_split_round(float a) {
+  const float hi = plain_bf16_round(a);
+  const float lo = plain_bf16_round(__fsub_rn(a, hi));
+  return __fadd_rn(hi, lo);
+}
+
+// attribute plane at (x, y): (c0 * x + c1 * y) + c2 (raster.py:1687-1689)
+__device__ __forceinline__ float plain_eval_attr(const float* c, float x,
+                                                 float y) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(c[0], x), __fmul_rn(c[1], y)), c[2]);
+}
+
+// The attribute phase of kernels B and L (raster.py:1603 _attr_phase):
+// the 13 G-buffer channels at pixel centre (x, y) of the winner whose 30
+// attribute rows are column idx of attrs (n_pairs columns), split-rounded:
+// uv, its screen derivatives, normal and tangent normalised, the packed
+// material row.
+__device__ __forceinline__ void plain_gbuffer_channels(
+    const float* __restrict__ attrs, int n_pairs, int idx, float x, float y,
+    float ch[PLAIN_GBUF_CHANNELS]) {
+  float cf[PLAIN_NATTR];
+#pragma unroll
+  for (int k = 0; k < PLAIN_NATTR; ++k) {
+    cf[k] = plain_split_round(attrs[(size_t)k * n_pairs + idx]);
+  }
+  const float w =
+      plain_kernel_recip(fmaxf(plain_eval_attr(cf + 0, x, y), 1e-12f));
+  const float u = __fmul_rn(plain_eval_attr(cf + 3, x, y), w);
+  const float v = __fmul_rn(plain_eval_attr(cf + 6, x, y), w);
+  ch[0] = u;
+  ch[1] = v;
+  // rational derivatives d(U/W)/dx = (Ua - u * Wa) * w
+  ch[2] = __fmul_rn(__fsub_rn(cf[3], __fmul_rn(u, cf[0])), w);
+  ch[3] = __fmul_rn(__fsub_rn(cf[6], __fmul_rn(v, cf[0])), w);
+  ch[4] = __fmul_rn(__fsub_rn(cf[4], __fmul_rn(u, cf[1])), w);
+  ch[5] = __fmul_rn(__fsub_rn(cf[7], __fmul_rn(v, cf[1])), w);
+#pragma unroll
+  for (int vec = 0; vec < 2; ++vec) {
+    const float* cv = cf + 9 + 9 * vec;
+    const float vx = __fmul_rn(plain_eval_attr(cv + 0, x, y), w);
+    const float vy = __fmul_rn(plain_eval_attr(cv + 3, x, y), w);
+    const float vz = __fmul_rn(plain_eval_attr(cv + 6, x, y), w);
+    const float len2 = __fadd_rn(
+        __fadd_rn(__fmul_rn(vx, vx), __fmul_rn(vy, vy)), __fmul_rn(vz, vz));
+    const float inv_len = rsqrtf(fmaxf(len2, 1e-20f));
+    ch[6 + 3 * vec] = __fmul_rn(vx, inv_len);
+    ch[7 + 3 * vec] = __fmul_rn(vy, inv_len);
+    ch[8 + 3 * vec] = __fmul_rn(vz, inv_len);
+  }
+  ch[12] = cf[29];
+}
+
 // Every C entry point launches on the caller's stream and returns
 // cudaGetLastError(), so a refused launch (too many threads, too much
 // shared memory) is reported instead of silently never running.
@@ -65,6 +187,32 @@ __device__ T plain_tile_reduce(T v, T* red, Op op) {
   const T r = red[0];
   __syncthreads();  // red is reused by the next reduction
   return r;
+}
+
+// The depth-only kernels' work items (depth.cu, depth_alpha.cu): item i
+// is the DEPTH_CHUNK-pair slice k of the first bin with chunk_end > i,
+// chunk_end being the inclusive prefix sum of each bin's
+// ceil(count / chunk) (ops/raster.py:rasterize_depth). Sets the bin, the
+// slice's first pair in the stream and its pair count.
+__device__ __forceinline__ void plain_depth_item(
+    const int* __restrict__ chunk_end, const int* __restrict__ tile_start,
+    const int* __restrict__ tile_count, int n_bins, int chunk, int item,
+    int* bin, int* start, int* n) {
+  int lo = 0, hi = n_bins - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (chunk_end[mid] <= item) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const int count = tile_count[lo];
+  const int first_item = chunk_end[lo] - (count + chunk - 1) / chunk;
+  const int p0 = (item - first_item) * chunk;
+  *bin = lo;
+  *n = min(chunk, count - p0);
+  *start = tile_start[lo] + p0;
 }
 
 // floor division and modulo for b > 0 (Python / jnp integer semantics)

@@ -53,23 +53,9 @@ depth_kernel(const float* __restrict__ edges,
     const int item = s_item;
     __syncthreads();  // all have read s_item before thread 0 writes again
     if (item >= n_items) break;
-    // the item's bin: the first with chunk_end > item
-    int lo = 0, hi = n_bins - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (chunk_end[mid] <= item) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
-      }
-    }
-    const int bin = lo;
-    const int count = tile_count[bin];
-    const int first_item =
-        chunk_end[bin] - (count + DEPTH_CHUNK - 1) / DEPTH_CHUNK;
-    const int p0 = (item - first_item) * DEPTH_CHUNK;
-    const int n = min(DEPTH_CHUNK, count - p0);
-    const int start = tile_start[bin] + p0;
+    int bin, start, n;
+    plain_depth_item(chunk_end, tile_start, tile_count, n_bins, DEPTH_CHUNK,
+                     item, &bin, &start, &n);
     for (int i = threadIdx.x; i < PLAIN_N_STAGED * n; i += blockDim.x) {
       const int r = i / n;
       const int p = i - r * n;

@@ -9,6 +9,9 @@
 //   key = (tile * bin_rows + max(rel_fy0 - dy * bin_rows, 0)) * (tpv + 1)
 //         + owner % tpv                  (order_rows)
 //   key = tile * (tpv + 1) + owner % tpv (otherwise)
+// With order_alpha the geometry word carries one more low bit, the pair's
+// alpha-tested flag, and tile becomes tile * 2 + flag: alpha-tested pairs
+// sort to the end of each bin (raster.py:489-491, :518-519).
 // owner % tpv is the view-local triangle of a vertical atlas of T / tpv
 // views (the shadow cascades, raster.py:508-524); one view has tpv = T.
 // Slots at or past total = cum[T - 1] get the sentinel key and owner 0.
@@ -33,7 +36,8 @@ __global__ void expand_keys_kernel(const int* __restrict__ cum,
                                    int* __restrict__ keys,
                                    int* __restrict__ owners, int t_count,
                                    int budget, int n_tiles_x, int bin_rows,
-                                   int order_rows, int tpv, int sentinel) {
+                                   int order_rows, int order_alpha, int tpv,
+                                   int sentinel) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= budget) return;
   const int total = __ldg(cum + t_count - 1);
@@ -54,8 +58,10 @@ __global__ void expand_keys_kernel(const int* __restrict__ cum,
   }
   const int owner = lo;
   const int k = j - __ldg(cum_ex + owner);
-  const int g = __ldg(geom + owner);
-  // geom word: ty0[9b] | tx0[7b] | span_x[7b] | rel_fy0[3b]
+  int g = __ldg(geom + owner);
+  // geom word: ty0[9b] | tx0[7b] | span_x[7b] | rel_fy0[3b] [| alpha 1b]
+  const int ia = order_alpha ? (g & 1) : 0;
+  if (order_alpha) g >>= 1;
   const int rel0 = g & 7;
   const int sx = max((g >> 3) & 127, 1);
   const int x0 = (g >> 10) & 127;
@@ -63,7 +69,8 @@ __global__ void expand_keys_kernel(const int* __restrict__ cum,
   const int kc = min(max(k, 0), (1 << 23) - 1);
   const int dy = kc / sx;
   const int dx = kc - dy * sx;
-  const int tile = (y0 + dy) * n_tiles_x + x0 + dx;
+  int tile = (y0 + dy) * n_tiles_x + x0 + dx;
+  if (order_alpha) tile = tile * 2 + ia;
   const int tri_local = owner % tpv;
   int key;
   if (order_rows) {
@@ -79,14 +86,15 @@ __global__ void expand_keys_kernel(const int* __restrict__ cum,
 extern "C" int expand_keys_launch(const void* cum, const void* cum_ex,
                                   const void* geom, void* keys, void* owners,
                                   int t_count, int budget, int n_tiles_x,
-                                  int bin_rows, int order_rows, int tpv,
-                                  int sentinel, void* stream) {
+                                  int bin_rows, int order_rows,
+                                  int order_alpha, int tpv, int sentinel,
+                                  void* stream) {
   const int threads = 256;
   const int blocks = (budget + threads - 1) / threads;
   expand_keys_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int*)cum, (const int*)cum_ex, (const int*)geom, (int*)keys,
-      (int*)owners, t_count, budget, n_tiles_x, bin_rows, order_rows, tpv,
-      sentinel);
+      (int*)owners, t_count, budget, n_tiles_x, bin_rows, order_rows,
+      order_alpha, tpv, sentinel);
   PLAIN_RETURN_LAUNCH_STATUS();
 }
 

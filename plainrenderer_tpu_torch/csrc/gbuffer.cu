@@ -45,35 +45,6 @@
 
 #define CHUNK 256
 
-__device__ __forceinline__ float bf16_round(float f) {
-  unsigned u = __float_as_uint(f);
-  if ((u & 0x7f800000u) == 0x7f800000u) {  // inf stays, NaN stays quiet
-    return (u & 0x007fffffu) ? __uint_as_float((u | 0x00400000u) & 0xffff0000u)
-                             : f;
-  }
-  u += 0x7fffu + ((u >> 16) & 1u);  // round to nearest even
-  return __uint_as_float(u & 0xffff0000u);
-}
-
-// the TPU's two-pass bf16 product with an exact one-hot: hi + lo
-__device__ __forceinline__ float split_round(float a) {
-  const float hi = bf16_round(a);
-  const float lo = bf16_round(__fsub_rn(a, hi));
-  return __fadd_rn(hi, lo);
-}
-
-// raster.py:_kernel_recip — 1/x for x > 0 as rsqrt(x)^2 + one Newton step
-__device__ __forceinline__ float kernel_recip(float x) {
-  float r = rsqrtf(x);
-  r = __fmul_rn(r, r);
-  return __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(x, r)));
-}
-
-// attribute plane at (x, y): (c0 * x + c1 * y) + c2 (raster.py:1687-1689)
-__device__ __forceinline__ float eval_attr(const float* c, float x, float y) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(c[0], x), __fmul_rn(c[1], y)), c[2]);
-}
-
 // at most 4 sub-blocks of 128 threads: caps registers at 128 per thread
 __global__ void __launch_bounds__(4 * PLAIN_TILE_W)
 gbuffer_kernel(const float* __restrict__ edges,
@@ -159,38 +130,8 @@ gbuffer_kernel(const float* __restrict__ edges,
     if (a != 0) {
       const int slot = a & PLAIN_SLOT_MASK;
       vis[o] = slot;
-      const int idx = base + slot;
-      float cf[PLAIN_NATTR];
-#pragma unroll
-      for (int k = 0; k < PLAIN_NATTR; ++k) {
-        cf[k] = split_round(attrs[(size_t)k * n_pairs + idx]);
-      }
-      const float y = (float)(y0 + r) + 0.5f;
-      const float w = kernel_recip(fmaxf(eval_attr(cf + 0, x, y), 1e-12f));
-      const float u = __fmul_rn(eval_attr(cf + 3, x, y), w);
-      const float v = __fmul_rn(eval_attr(cf + 6, x, y), w);
-      ch[0] = u;
-      ch[1] = v;
-      // rational derivatives d(U/W)/dx = (Ua - u * Wa) * w
-      ch[2] = __fmul_rn(__fsub_rn(cf[3], __fmul_rn(u, cf[0])), w);
-      ch[3] = __fmul_rn(__fsub_rn(cf[6], __fmul_rn(v, cf[0])), w);
-      ch[4] = __fmul_rn(__fsub_rn(cf[4], __fmul_rn(u, cf[1])), w);
-      ch[5] = __fmul_rn(__fsub_rn(cf[7], __fmul_rn(v, cf[1])), w);
-#pragma unroll
-      for (int vec = 0; vec < 2; ++vec) {
-        const float* cv = cf + 9 + 9 * vec;
-        const float vx = __fmul_rn(eval_attr(cv + 0, x, y), w);
-        const float vy = __fmul_rn(eval_attr(cv + 3, x, y), w);
-        const float vz = __fmul_rn(eval_attr(cv + 6, x, y), w);
-        const float len2 = __fadd_rn(
-            __fadd_rn(__fmul_rn(vx, vx), __fmul_rn(vy, vy)),
-            __fmul_rn(vz, vz));
-        const float inv_len = rsqrtf(fmaxf(len2, 1e-20f));
-        ch[6 + 3 * vec] = __fmul_rn(vx, inv_len);
-        ch[7 + 3 * vec] = __fmul_rn(vy, inv_len);
-        ch[8 + 3 * vec] = __fmul_rn(vz, inv_len);
-      }
-      ch[12] = cf[29];
+      plain_gbuffer_channels(attrs, n_pairs, base + slot, x,
+                             (float)(y0 + r) + 0.5f, ch);
     } else {
       vis[o] = -1;
     }

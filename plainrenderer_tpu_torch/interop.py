@@ -26,6 +26,8 @@ SCENE_KEYS = ("corners", "corner_uvs", "corner_normals", "corner_tangents",
               "tri_starts", "object_build_inv")
 # present only when the scene has a texture pool (frame.py:1181-1185)
 TEXTURE_KEYS = ("mat_tex", "tex_info", "tex_word0", "tex_word1")
+# present only when the scene has alpha-tested geometry (frame.py:1189-1191)
+ALPHA_KEYS = ("alpha_masks", "tri_alpha_slot")
 # present only when a scene SDF is attached (frame.py:1203-1237)
 SDF_KEYS = ("sdf_volume", "sdf_albedo", "sdf_origin", "sdf_voxel_size",
             "sdf_dims", "sdf_shape", "sdf_coarse")
@@ -45,12 +47,13 @@ def scene_from_arrays(scene: dict, device="cuda") -> dict:
     coarse tables as (sdf, albedo, (cd, ch, cw), factor)."""
     dev = device_mod.resolve(device)
     extra = sorted(set(scene) - set(SCENE_KEYS) - set(TEXTURE_KEYS)
-                   - set(SDF_KEYS))
+                   - set(ALPHA_KEYS) - set(SDF_KEYS))
     if extra:
         raise NotImplementedError(
-            f"scene keys of later slices: {extra} (alpha masks, dynamic "
-            "objects and their SDFs)")
-    keys = SCENE_KEYS + tuple(k for k in TEXTURE_KEYS if k in scene)
+            f"scene keys of later slices: {extra} (dynamic objects and "
+            "their SDFs)")
+    keys = SCENE_KEYS + tuple(k for k in TEXTURE_KEYS + ALPHA_KEYS
+                              if k in scene)
     out = {k: _tensor(scene[k], dev) for k in keys}
     sdf = [k for k in SDF_KEYS if k in scene]
     if sdf and len(sdf) != len(SDF_KEYS):

@@ -30,7 +30,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("expand_keys.cu", "gbuffer.cu", "material.cu", "texture.cu",
            "depth.cu", "shadow.cu", "sdfgi.cu", "packed_planes.cu",
-           "history_taps.cu")
+           "history_taps.cu", "depth_alpha.cu", "gbuffer_alpha.cu",
+           "expand_rows.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -40,8 +41,8 @@ _F = ctypes.c_float
 # C entry point -> (launch-count key, argtypes); every entry returns int
 _ENTRIES = {
     # cum, cum_ex, geom, keys, owners, t_count, budget, n_tiles_x,
-    # bin_rows, order_rows, tpv, sentinel, stream
-    "expand_keys_launch": ("expand_keys", [_P] * 5 + [_I] * 7 + [_P]),
+    # bin_rows, order_rows, order_alpha, tpv, sentinel, stream
+    "expand_keys_launch": ("expand_keys", [_P] * 5 + [_I] * 8 + [_P]),
     # edges, attrs, tile_start, tile_count, depth, vis, gbuf, n_pairs,
     # n_tiles_y, n_tiles_x, sub, row_skip, stream
     "gbuffer_launch": ("gbuffer", [_P] * 7 + [_I] * 5 + [_P]),
@@ -64,6 +65,17 @@ _ENTRIES = {
     "packed_planes_launch": ("packed_planes", [_P] * 3 + [_I] * 3 + [_P]),
     # history, coords, out, n_taps, h, w, stream
     "history_taps_launch": ("history_taps", [_P] * 3 + [_I] * 3 + [_P]),
+    # edges, masks, tile_start, tile_count, chunk_end, counter, depth,
+    # n_pairs, n_masks, n_tiles_y, n_tiles_x, sub, row_skip, grid, stream
+    "depth_alpha_launch": ("depth_alpha", [_P] * 7 + [_I] * 7 + [_P]),
+    # edges, masks, tile_start, tile_count, depth, vis, n_pairs, n_masks,
+    # n_tiles_y, n_tiles_x, sub, row_skip, stream
+    "winner_alpha_launch": ("winner_alpha", [_P] * 6 + [_I] * 6 + [_P]),
+    # attrs, tile_start, vis, gbuf, n_pairs, n_tiles_y, n_tiles_x, sub,
+    # stream
+    "attr_resolve_launch": ("attr_resolve", [_P] * 4 + [_I] * 4 + [_P]),
+    # owners, table, total, out, n_rows, n_cols, budget, stream
+    "expand_rows_launch": ("expand_rows", [_P] * 4 + [_I] * 3 + [_P]),
 }
 
 _launches = {key: 0 for key, _ in _ENTRIES.values()}

@@ -1,25 +1,29 @@
 """Triangle rasterization: setup, binning, G-buffer and depth-only raster.
 
-Port of plainrenderer_tpu/ops/raster.py for opaque geometry: the main view
-and the sun-shadow atlas. The stages keep the reference's contracts (the
-(3, 4, T) edge table, the (16, P) / (32, P) pair-row tables, the packed
-int32 sort key, the packed depth | slot winner rule, the 13-channel
-G-buffer layout):
+Port of plainrenderer_tpu/ops/raster.py: the main view and the sun-shadow
+atlas, opaque and alpha-tested. The stages keep the reference's contracts
+(the (3, 4|8, T) edge table, the (16|32, P) / (32, P) pair-row tables,
+the packed int32 sort key, the packed depth | slot winner rule, the vis
+encoding, the 13-channel G-buffer layout):
 
   1. geometry_setup (plain PyTorch): per-triangle 2D-homogeneous edge
      planes, reverse-Z depth plane, perspective-correct attribute planes
      and tile bboxes, as (T,) lane vectors in the JAX package's op order
-     (or (B, T) for a batch of view matrices: the shadow cascades);
+     (or (B, T) for a batch of view matrices: the shadow cascades); with
+     alpha slots, 4 more planes (u/w, v/w, 1/w, the mask slot);
   2. build_pairs: spans + int32 prefix sum, then kernel A (expand_keys,
      csrc/expand_keys.cu) maps every pair-stream slot to its sort key, one
      torch.sort orders the stream, torch.searchsorted finds each bin's
-     segment; gather_pair_setups duplicates setup rows into pair order. A
-     vertical atlas of n_views views keys each pair by its view-local
-     triangle;
+     segment; gather_pair_setups duplicates setup rows into pair order (or,
+     with carry_table, kernel M expands them before the sort,
+     csrc/expand_rows.cu). A vertical atlas of n_views views keys each pair
+     by its view-local triangle;
   3. rasterize_gbuffer: kernel B (csrc/gbuffer.cu), one thread block per
      (sub * 16) x 128 bin, resolves visibility and evaluates the winner's
-     attribute planes; rasterize_depth: kernel E (csrc/depth.cu), the
-     depth-only clamped max of the shadow atlas.
+     attribute planes; alpha-tested pairs go through kernels K and L
+     (csrc/gbuffer_alpha.cu); rasterize_depth: kernel E (csrc/depth.cu),
+     the depth-only clamped max of the shadow atlas, and kernel J
+     (csrc/depth_alpha.cu) for alpha-tested casters.
 
 Each kernel wrapper runs its plain PyTorch version (*_plain, in this
 module) only when its inputs lie on the CPU; for CUDA tensors it launches
@@ -111,7 +115,8 @@ def geometry_setup(corners, corner_uvs, corner_normals, corner_tangents,
                    corner_bitangents, tri_material, tri_visible, view_proj,
                    width: int, height: int, cull: str = "back",
                    near_w: float = 0.0, bin_rows: int = 1,
-                   with_attrs: bool = True) -> TriangleSetup:
+                   with_attrs: bool = True,
+                   tri_alpha_slot=None) -> TriangleSetup:
     """Dense per-triangle setup (raster.py:104 geometry_setup).
 
     Edge and attribute planes are built in 2D homogeneous viewport space
@@ -125,9 +130,13 @@ def geometry_setup(corners, corner_uvs, corner_normals, corner_tangents,
     (the shadow cascades, with_attrs=False): every per-triangle field
     gains a leading B, and edges come out (3, 4, B, T), so flattening the
     views into one atlas stream is a free reshape (frame.py:189-204).
-    with_attrs=False leaves attrs empty (the depth-only passes). The
-    previous-frame planes of dynamic objects and the alpha-test plane
-    table arrive with their slices."""
+    with_attrs=False leaves attrs empty (the depth-only passes).
+    tri_alpha_slot (T,) i32 (0 = opaque) turns on the 8-plane alpha-test
+    table (raster.py:225-245): planes 4-7 are u/w, v/w, 1/w and the mask
+    slot as a constant plane (0, 0, slot), each zeroed where the triangle
+    is invalid, so the atlas's c - b * y_off shift leaves the slot alone.
+    The previous-frame planes of dynamic objects arrive with their
+    slice."""
     if view_proj.dim() == 3 and with_attrs:
         raise ValueError("a batch of views is set up without attributes")
     cx = [corners[:, v, 0] for v in range(3)]
@@ -196,6 +205,19 @@ def geometry_setup(corners, corner_uvs, corner_normals, corner_tangents,
     e2 = tuple(torch.where(valid, c, n) for c, n in zip(e2, never))
     zp = tuple(torch.where(valid, c, 0.0) for c in zp)
     plane_sets = [e0, e1, e2, zp]
+    if tri_alpha_slot is not None:
+        def guarded(p):
+            return tuple(torch.where(valid, c, 0.0) for c in p)
+
+        ones = torch.ones_like(det)
+        zero = torch.zeros_like(det)
+        plane_sets.append(guarded(plane(
+            corner_uvs[:, 0, 0], corner_uvs[:, 1, 0], corner_uvs[:, 2, 0])))
+        plane_sets.append(guarded(plane(
+            corner_uvs[:, 0, 1], corner_uvs[:, 1, 1], corner_uvs[:, 2, 1])))
+        plane_sets.append(guarded(plane(ones, ones, ones)))
+        slot_f = tri_alpha_slot.to(torch.float32)
+        plane_sets.append((zero, zero, torch.where(valid, slot_f, 0.0)))
     edges = torch.stack(
         [torch.stack([p[coeff] for p in plane_sets], dim=0)
          for coeff in range(3)], dim=0).to(torch.float32)
@@ -309,24 +331,30 @@ class KeyInputs:
     n_tiles_x: int
     bin_rows: int
     order_rows: bool
+    order_alpha: bool  # geom_packed's low bit: the pair is alpha-tested
     tpv: int  # triangles per view (T / n_views)
     key_rows: int  # sub-row factor in the key
+    key_alpha: int  # 2 with order_alpha (an extra key bit), else 1
     sentinel: int  # key of dead slots
 
 
 def pair_key_inputs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
                     pair_budget: int | None = None, bin_rows: int = 1,
-                    order_rows: bool = False, n_views: int = 1) -> KeyInputs:
+                    order_rows: bool = False, n_views: int = 1,
+                    tri_alpha=None) -> KeyInputs:
     """Spans, their int32 prefix sum and the packed per-triangle geometry
     word (raster.py:829-867); n_views > 1 for a vertical atlas of views
-    with T / n_views triangles each."""
+    with T / n_views triangles each; tri_alpha (T,) bool adds a key bit
+    that sorts alpha-tested pairs to the end of each bin (raster.py:821,
+    :865-866, :897)."""
     t_count = setup.valid.shape[0]
     n_tiles = n_tiles_y * n_tiles_x
     if t_count % n_views or n_tiles % n_views:
         raise ValueError("triangles and tiles must split evenly into views")
     tpv = t_count // n_views
     key_rows = bin_rows if order_rows else 1
-    if (n_tiles * key_rows + 1) * (tpv + 1) >= 2 ** 31:
+    key_alpha = 1 if tri_alpha is None else 2
+    if (n_tiles * key_rows * key_alpha + 1) * (tpv + 1) >= 2 ** 31:
         raise ValueError("packed key overflow")
     if n_tiles_y > 512 or n_tiles_x > 128:
         raise ValueError("bbox packing overflow")
@@ -349,19 +377,23 @@ def pair_key_inputs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
     else:
         rel_fy0 = 0
     geom_packed = ((ty0 * 128 + tx0) * 128 + span_x) * 8 + rel_fy0
+    if tri_alpha is not None:
+        geom_packed = geom_packed * 2 + tri_alpha.to(torch.int32)
     return KeyInputs(
         cum=cum.contiguous(), cum_ex=cum_ex.contiguous(),
         geom_packed=geom_packed.to(torch.int32).contiguous(), budget=budget,
         n_tiles_x=n_tiles_x, bin_rows=bin_rows, order_rows=order_rows,
-        tpv=tpv, key_rows=key_rows,
-        sentinel=n_tiles * key_rows * (tpv + 1))
+        order_alpha=tri_alpha is not None, tpv=tpv, key_rows=key_rows,
+        key_alpha=key_alpha,
+        sentinel=n_tiles * key_rows * key_alpha * (tpv + 1))
 
 
 def expand_keys_plain(ki: KeyInputs):
     """Plain version of kernel A: ((budget,) i32 keys, (budget,) i32
     owners), owner(j) = the first t with cum[t] > j, keyed by its
-    view-local index owner % tpv; dead slots (j >= total) get the
-    sentinel key and owner 0."""
+    view-local index owner % tpv (the tile doubled plus the pair's alpha
+    bit with order_alpha); dead slots (j >= total) get the sentinel key and
+    owner 0."""
     t_count = ki.cum.shape[0]
     j = torch.arange(ki.budget, dtype=torch.int32, device=ki.cum.device)
     live = j < ki.cum[-1]
@@ -369,6 +401,9 @@ def expand_keys_plain(ki: KeyInputs):
     owner = torch.clamp(owner, max=t_count - 1)
     k = j - ki.cum_ex[owner.long()]
     g = ki.geom_packed[owner.long()]
+    if ki.order_alpha:
+        ia = g & 1
+        g = g >> 1
     rel0 = g & 7
     sx = torch.clamp((g >> 3) & 127, min=1)
     x0 = (g >> 10) & 127
@@ -378,6 +413,8 @@ def expand_keys_plain(ki: KeyInputs):
     dx = kc - dy * sx
     tile = (y0 + dy) * ki.n_tiles_x + x0 + dx
     tri_local = torch.remainder(owner, ki.tpv)
+    if ki.order_alpha:
+        tile = tile * 2 + ia
     if ki.order_rows:
         kymin = torch.clamp(rel0 - dy * ki.bin_rows, min=0)
         key = (tile * ki.bin_rows + kymin) * (ki.tpv + 1) + tri_local
@@ -405,14 +442,45 @@ def expand_keys(ki: KeyInputs):
     owners = torch.empty((ki.budget,), dtype=torch.int32, device=dev)
     native.launch("expand_keys_launch", ki.cum, ki.cum_ex, ki.geom_packed,
                   keys, owners, t_count, ki.budget, ki.n_tiles_x,
-                  ki.bin_rows, int(ki.order_rows), ki.tpv, ki.sentinel)
+                  ki.bin_rows, int(ki.order_rows), int(ki.order_alpha),
+                  ki.tpv, ki.sentinel)
     return keys, owners
+
+
+def expand_rows_plain(owners, table, total, budget: int):
+    """Plain version of kernel M: (rows, budget) f32, column j the table
+    column of slot j's owner for live slots (j < total), 0 for dead ones
+    (raster.py:950-953, the expand_impl="xla" branch)."""
+    live = torch.arange(budget, device=owners.device) < total
+    return torch.where(live[None], table.index_select(1, owners.long()), 0.0)
+
+
+def expand_rows(owners, table, total, budget: int):
+    """Kernel M (csrc/expand_rows.cu, replaces raster.py:606
+    _expand_rows_kernel): the presort row expansion out[:, j] =
+    table[:, owner(j)] of build_pairs(carry_table=...). owners (budget,)
+    i32 from kernel A, table (rows, T+1) f32, total a (1,) i32 tensor
+    (the stream's live slots, cum[-1])."""
+    dev = owners.device
+    _require(owners, "owners", torch.int32, 1, dev)
+    _require(table, "table", torch.float32, 2, dev)
+    _require(total, "total", torch.int32, 1, dev)
+    if owners.shape[0] != budget or total.shape[0] != 1:
+        raise ValueError("owners needs one entry per slot, total one value")
+    if not _kernel_device(owners):
+        return expand_rows_plain(owners, table, total, budget)
+    out = torch.empty((table.shape[0], budget), dtype=torch.float32,
+                      device=dev)
+    native.launch("expand_rows_launch", owners, table, total, out,
+                  table.shape[0], table.shape[1], budget)
+    return out
 
 
 def build_pairs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
                 pair_budget: int | None = None, bin_rows: int = 1,
                 order_rows: bool = False, n_views: int = 1,
-                tile_cap: int | None = None) -> PairLists:
+                tile_cap: int | None = None, tri_alpha=None,
+                carry_table=None):
     """Expand triangles into sorted per-bin pair lists (raster.py:737).
 
     Exact prefix-sum emission into one `pair_budget`-slot stream; pairs
@@ -427,14 +495,28 @@ def build_pairs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
     band of bin rows; the key packs the view-local triangle and the decode
     recovers the view from the bin (raster.py:780-786, :967-981).
     tile_cap replaces the winner-slot cap for depth-only consumers, which
-    have no slot to pack (raster.py:994-1001)."""
+    have no slot to pack (raster.py:994-1001). tri_alpha (T,) bool sorts
+    each bin's alpha-tested pairs to its end (raster.py:821-830).
+
+    carry_table (rows, T+1) f32, a setup_row_table: kernel M expands its
+    columns into presort slot order and the sort's permutation moves them
+    with the keys (raster.py:938-960); returns (pairs, pair_rows), the
+    (rows, budget + GROUP) pair-order rows, zero past the live slots. The
+    frame does not use this path (raster.py:628-634)."""
     ki = pair_key_inputs(setup, n_tiles_y, n_tiles_x, pair_budget,
-                         bin_rows, order_rows, n_views)
+                         bin_rows, order_rows, n_views, tri_alpha)
     t_count = setup.valid.shape[0]
     n_tiles = n_tiles_y * n_tiles_x
-    keys, _ = expand_keys(ki)
-    keys_sorted = torch.sort(keys).values
-    key_span = ki.key_rows * (ki.tpv + 1)
+    keys, owners = expand_keys(ki)
+    if carry_table is None:
+        keys_sorted = torch.sort(keys).values
+    else:
+        rows_pre = expand_rows(owners, carry_table, ki.cum[-1:], ki.budget)
+        keys_sorted, perm = torch.sort(keys, stable=True)
+        # one GROUP of zero tail columns, as pair_tri's padding
+        pair_rows = torch.nn.functional.pad(rows_pre.index_select(1, perm),
+                                            (0, GROUP))
+    key_span = ki.key_rows * ki.key_alpha * (ki.tpv + 1)
     # sentinel keys decode to tile == n_tiles -> view n_views -> index
     # t_count, the degenerate padding row
     view = (keys_sorted // key_span) // (n_tiles // n_views)
@@ -451,9 +533,12 @@ def build_pairs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
     capped = torch.clamp(n_real, max=cap)
     overflow = (torch.clamp(ki.cum[-1] - ki.budget, min=0)
                 + torch.sum(n_real - capped, dtype=torch.int32))
-    return PairLists(pair_tri=pair_tri,
-                     tile_start=raw_start.to(torch.int32),
-                     tile_count=capped, overflow=overflow.to(torch.int32))
+    pairs = PairLists(pair_tri=pair_tri,
+                      tile_start=raw_start.to(torch.int32),
+                      tile_count=capped, overflow=overflow.to(torch.int32))
+    if carry_table is None:
+        return pairs
+    return pairs, pair_rows
 
 
 def setup_row_table(setup: TriangleSetup, row_extents: bool = False):
@@ -554,16 +639,44 @@ _PLAIN_CHUNK_ELEMS = 1 << 24
 
 # depth-only passes clamp z into [1/16384, 1] (raster.py:1368-1374)
 DEPTH_CLAMP_MIN = 1.0 / 16384.0
+MAX_ALPHA_MASKS = 8  # mask rows the alpha kernels stage (textures.py:49)
+ALPHA_MASK_WORDS = 128  # 64 x 64 bits per mask
+SLOT_ROW = 30  # pair-edge row of plane 7's c: the pair's mask slot
+
+
+def _alpha_passes(plane, slot, masks: torch.Tensor) -> torch.Tensor:
+    """The alpha test of kernels J and K (raster.py:1393-1416): the
+    perspective-correct uv of planes 4-6 (u/w, v/w, 1/w), wrapped into a
+    64x64 grid, selects one bit of mask slot - 1; a pair passes where its
+    slot is below 0.5 (opaque) or the bit is 1. A slot that names no mask
+    reads all ones, as the TPU kernel's table default (-1) does."""
+    uw, vw, iw = plane(4), plane(5), plane(6)
+    inv = _kernel_recip(torch.where(iw > 1e-12, iw, 1.0))
+    u = uw * inv
+    v = vw * inv
+    ix = torch.clamp((u - torch.floor(u)) * 64.0, 0.0, 63.0).to(torch.int32)
+    iy = torch.clamp((v - torch.floor(v)) * 64.0, 0.0, 63.0).to(torch.int32)
+    n_masks = masks.shape[0]
+    rs = torch.round(slot)
+    hit = (rs >= 1.0) & (rs <= n_masks) & (torch.abs(slot - rs) < 0.5)
+    row = torch.where(hit, rs - 1.0, float(n_masks)).long()
+    table = torch.cat([masks, torch.full_like(masks[:1], -1)]).reshape(-1)
+    word = table[row * ALPHA_MASK_WORDS + (iy * 2 + (ix >= 32)).long()]
+    bit = (word >> (ix & 31)) & 1
+    return (slot < 0.5) | (bit == 1)
 
 
 def _plain_visibility(pair_edges, tile_start, tile_count, n_tiles_y: int,
                       n_tiles_x: int, sub: int, row_skip: bool,
-                      depth_only: bool) -> torch.Tensor:
-    """The visibility max of kernels B and E, (H, W) i32.
+                      depth_only: bool, masks=None,
+                      init=None) -> torch.Tensor:
+    """The visibility max of kernels B, E, J and K, (H, W) i32.
 
     Winner (depth_only=False): the max of (bits(z) & ~SLOT_MASK) | slot
     over pairs covering a pixel with 0 < z <= 1. Depth only: the max of
-    bits(clamp(z, 1/16384, 1)) over pairs whose edges cover the pixel.
+    bits(clamp(z, 1/16384, 1)) over pairs whose edges cover the pixel,
+    starting from init's bits (init (H, W) f32, else 0). masks (n, 128)
+    i32 with the 32-row alpha table adds _alpha_passes to coverage.
     Loops over chunks of bins and of each chunk's pairs, at most
     _PLAIN_CHUNK_ELEMS (bin, pair, pixel) evaluations at a time."""
     dev = pair_edges.device
@@ -581,8 +694,13 @@ def _plain_visibility(pair_edges, tile_start, tile_count, n_tiles_y: int,
     starts = tile_start.long()
     counts = tile_count.long()
     lead = starts - starts // GROUP * GROUP
-    acc = torch.zeros((n_bins, rows_px, TILE_W), dtype=torch.int32,
-                      device=dev)
+    if init is None:
+        acc = torch.zeros((n_bins, rows_px, TILE_W), dtype=torch.int32,
+                          device=dev)
+    else:  # positive f32 bits order as i32; 0 is the identity
+        acc = init.view(torch.int32).reshape(
+            n_tiles_y, rows_px, n_tiles_x, TILE_W).permute(0, 2, 1, 3) \
+            .reshape(n_bins, rows_px, TILE_W).clone()
     bin_chunk = max(1, _PLAIN_CHUNK_ELEMS // (64 * rows_px * TILE_W))
     for b0 in range(0, n_bins, bin_chunk):
         b1 = min(b0 + bin_chunk, n_bins)
@@ -594,7 +712,7 @@ def _plain_visibility(pair_edges, tile_start, tile_count, n_tiles_y: int,
             i = torch.arange(c0, min(c0 + pc, maxc), device=dev)
             live = i[None] < counts[b0:b1, None]  # (nb, pc)
             idx = torch.clamp(starts[b0:b1, None] + i[None], max=n_pairs - 1)
-            cf = pair_edges[:, idx]  # (16, nb, pc)
+            cf = pair_edges[:, idx]  # (rows, nb, pc)
             x = xs[b0:b1, None, None, :]
             y = ys[b0:b1, None, :, None]
 
@@ -609,6 +727,9 @@ def _plain_visibility(pair_edges, tile_start, tile_count, n_tiles_y: int,
                 fr = fine_row[b0:b1, None, :, None]
                 cov = cov & ((cf[3][..., None, None] <= fr)
                              & (fr <= cf[7][..., None, None]))
+            if masks is not None:
+                cov = cov & _alpha_passes(
+                    plane, cf[SLOT_ROW][..., None, None], masks)
             if depth_only:
                 zc = torch.clamp(z, DEPTH_CLAMP_MIN, 1.0)
                 cand = torch.where(cov, zc.view(torch.int32), 0)
@@ -624,51 +745,161 @@ def _plain_visibility(pair_edges, tile_start, tile_count, n_tiles_y: int,
         0, 2, 1, 3).reshape(h, w)
 
 
-def gbuffer_plain(pair_edges, pair_attrs, tile_start, tile_count,
-                  n_tiles_y: int, n_tiles_x: int, sub: int,
-                  row_skip: bool):
-    """Plain version of kernel B: (depth (H, W) f32, vis (H, W) i32,
-    gbuf (13, H, W) f32), same arithmetic as csrc/gbuffer.cu."""
-    dev = pair_edges.device
-    n_pairs = pair_edges.shape[1]
+def _vis_encode(acc2d: torch.Tensor):
+    """The vis-buffer contract (raster.py:1129-1145) of the packed winner
+    max: (depth with the slot bits cleared, vis = the slot counted from
+    the bin segment's group-aligned base, -1 where uncovered)."""
+    depth = (acc2d & ~SLOT_MASK).view(torch.float32)
+    vis = torch.where(acc2d != 0, acc2d & SLOT_MASK, -1).to(torch.int32)
+    return depth, vis
+
+
+def attr_resolve_plain(pair_attrs, tile_start, vis, n_tiles_y: int,
+                       n_tiles_x: int, sub: int) -> torch.Tensor:
+    """Plain version of kernel L and of kernel B's attribute half: the
+    (13, H, W) channels of each pixel's winner, read from vis (the
+    _vis_decode side of the contract, raster.py:1137-1145), with the
+    coefficients split-rounded as the TPU's bf16 one-hot product."""
+    dev = pair_attrs.device
+    n_pairs = pair_attrs.shape[1]
     rows_px = sub * TILE_H
     h, w = n_tiles_y * rows_px, n_tiles_x * TILE_W
+    valid = vis >= 0
     starts = tile_start.long()
-    acc2d = _plain_visibility(pair_edges, tile_start, tile_count, n_tiles_y,
-                              n_tiles_x, sub, row_skip, depth_only=False)
-    depth = (acc2d & ~SLOT_MASK).view(torch.float32)
-    valid = acc2d != 0
-    slot = acc2d & SLOT_MASK
-    vis = torch.where(valid, slot, -1)
     base = (starts // GROUP * GROUP).reshape(n_tiles_y, 1, n_tiles_x, 1)
     base = base.expand(n_tiles_y, rows_px, n_tiles_x, TILE_W).reshape(h, w)
-    idx = torch.where(valid, base + slot, 0).clamp(max=n_pairs - 1)
+    idx = torch.where(valid, base + vis, 0).clamp(max=n_pairs - 1)
     coeff = _split_round(pair_attrs[:NATTR, idx.reshape(-1)]).reshape(
         NATTR, h, w)
     coeff = torch.where(valid, coeff, 0.0)
     px = torch.arange(w, device=dev).to(torch.float32) + 0.5
     py = torch.arange(h, device=dev).to(torch.float32) + 0.5
-    gbuf = _gbuffer_channels(coeff, px[None, :], py[:, None], valid)
-    return depth, vis.to(torch.int32), gbuf
+    return _gbuffer_channels(coeff, px[None, :], py[:, None], valid)
+
+
+def gbuffer_plain(pair_edges, pair_attrs, tile_start, tile_count,
+                  n_tiles_y: int, n_tiles_x: int, sub: int,
+                  row_skip: bool):
+    """Plain version of kernel B: (depth (H, W) f32, vis (H, W) i32,
+    gbuf (13, H, W) f32), same arithmetic as csrc/gbuffer.cu."""
+    depth, vis = _vis_encode(_plain_visibility(
+        pair_edges, tile_start, tile_count, n_tiles_y, n_tiles_x, sub,
+        row_skip, depth_only=False))
+    return depth, vis, attr_resolve_plain(pair_attrs, tile_start, vis,
+                                          n_tiles_y, n_tiles_x, sub)
+
+
+def winner_alpha_plain(pair_edges, tile_start, tile_count, masks,
+                       n_tiles_y: int, n_tiles_x: int, sub: int,
+                       row_skip: bool):
+    """Plain version of kernel K: (depth (H, W) f32, vis (H, W) i32), the
+    alpha-tested winner max of the 32-row table."""
+    return _vis_encode(_plain_visibility(
+        pair_edges, tile_start, tile_count, n_tiles_y, n_tiles_x, sub,
+        row_skip, depth_only=False, masks=masks))
+
+
+def _check_bins(pairs: PairLists, n_tiles_y: int, n_tiles_x: int,
+                dev) -> None:
+    _require(pairs.tile_start, "tile_start", torch.int32, 1, dev)
+    _require(pairs.tile_count, "tile_count", torch.int32, 1, dev)
+    n_bins = n_tiles_y * n_tiles_x
+    if pairs.tile_start.shape[0] != n_bins \
+            or pairs.tile_count.shape[0] != n_bins:
+        raise ValueError("tile_start/tile_count need one entry per bin")
+
+
+def _check_masks(alpha_masks, dev) -> None:
+    _require(alpha_masks, "alpha_masks", torch.int32, 2, dev)
+    if alpha_masks.shape[1] != ALPHA_MASK_WORDS \
+            or not 1 <= alpha_masks.shape[0] <= MAX_ALPHA_MASKS:
+        raise ValueError(f"alpha_masks needs (1-{MAX_ALPHA_MASKS}, "
+                         f"{ALPHA_MASK_WORDS}), got "
+                         f"{tuple(alpha_masks.shape)}")
+
+
+def rasterize_winner_alpha(pair_edges, pairs: PairLists, alpha_masks,
+                           n_tiles_y: int, n_tiles_x: int, sub: int = 1,
+                           row_skip: bool = False):
+    """Alpha-tested visibility with winner tracking (kernel K,
+    csrc/gbuffer_alpha.cu, replaces raster.py:1743 _winner_alpha_kernel):
+    (depth (H, W) f32 with the slot bits cleared, vis (H, W) i32), from
+    the 32-row pair table (gather_pair_setups of an 8-plane setup)."""
+    dev = pair_edges.device
+    _require(pair_edges, "pair_edges", torch.float32, 2, dev)
+    _check_bins(pairs, n_tiles_y, n_tiles_x, dev)
+    _check_masks(alpha_masks, dev)
+    if pair_edges.shape[0] != 32:
+        raise ValueError(f"pair_edges needs the 32-row alpha table, got "
+                         f"{tuple(pair_edges.shape)}")
+    if not 1 <= sub <= 4:  # kernel K's block is 128 * sub threads, <= 512
+        raise ValueError(f"sub must be in [1, 4], got {sub}")
+    if not _kernel_device(pair_edges):
+        return winner_alpha_plain(pair_edges, pairs.tile_start,
+                                  pairs.tile_count, alpha_masks, n_tiles_y,
+                                  n_tiles_x, sub, row_skip)
+    h, w = n_tiles_y * sub * TILE_H, n_tiles_x * TILE_W
+    depth = torch.empty((h, w), dtype=torch.float32, device=dev)
+    vis = torch.empty((h, w), dtype=torch.int32, device=dev)
+    native.launch("winner_alpha_launch", pair_edges, alpha_masks,
+                  pairs.tile_start, pairs.tile_count, depth, vis,
+                  pair_edges.shape[1], alpha_masks.shape[0], n_tiles_y,
+                  n_tiles_x, sub, int(row_skip))
+    return depth, vis
+
+
+def resolve_attributes(pair_attrs, tile_start, vis, n_tiles_y: int,
+                       n_tiles_x: int, sub: int = 1) -> torch.Tensor:
+    """The winners' attribute planes -> (13, H, W) G-buffer channels
+    (kernel L, csrc/gbuffer_alpha.cu, replaces raster.py:1755
+    _attr_resolve_kernel): vis from rasterize_winner_alpha, the same
+    arithmetic as kernel B's attribute phase."""
+    dev = pair_attrs.device
+    _require(pair_attrs, "pair_attrs", torch.float32, 2, dev)
+    _require(tile_start, "tile_start", torch.int32, 1, dev)
+    _require(vis, "vis", torch.int32, 2, dev)
+    h, w = n_tiles_y * sub * TILE_H, n_tiles_x * TILE_W
+    if pair_attrs.shape[0] >= NATTR_PREV:
+        raise NotImplementedError(
+            "dynamic-scene motion channels: arrive with dynamic objects")
+    if pair_attrs.shape[0] != 32 or tuple(vis.shape) != (h, w) \
+            or tile_start.shape[0] != n_tiles_y * n_tiles_x:
+        raise ValueError(f"want (32, P) attrs, ({h}, {w}) vis and one "
+                         "start per bin")
+    if not _kernel_device(pair_attrs):
+        return attr_resolve_plain(pair_attrs, tile_start, vis, n_tiles_y,
+                                  n_tiles_x, sub)
+    gbuf = torch.empty((GBUF_CHANNELS, h, w), dtype=torch.float32,
+                       device=dev)
+    native.launch("attr_resolve_launch", pair_attrs, tile_start, vis, gbuf,
+                  pair_attrs.shape[1], n_tiles_y, n_tiles_x, sub)
+    return gbuf
 
 
 def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
                       n_tiles_y: int, n_tiles_x: int, sub: int = 1,
-                      row_skip: bool = False):
+                      row_skip: bool = False, alpha_masks=None):
     """Main-view rasterization producing depth + visibility + G-buffer
-    (raster.py:1857, opaque branch; kernel B, csrc/gbuffer.cu).
+    (raster.py:1857).
 
     Channels: uv (0-1), uv screen derivatives (2-5), normal (6-8), tangent
     (9-11), packed material*2+handedness (12). vis holds each covered
     pixel's slot relative to start // GROUP * GROUP of its bin's segment,
     -1 where uncovered; depth keeps the slot bits cleared. row_skip needs
-    pair_edges rows 3/7 from gather_pair_setups(row_extents=True). The
-    alpha-tested split raster arrives with the alpha-test slice."""
+    pair_edges rows 3/7 from gather_pair_setups(row_extents=True).
+    Opaque (16-row pair_edges): kernel B, csrc/gbuffer.cu. With
+    alpha_masks (32-row pair_edges): the split of raster.py:1784, kernel
+    K (visibility) then kernel L (attributes)."""
+    if alpha_masks is not None:
+        depth, vis = rasterize_winner_alpha(pair_edges, pairs, alpha_masks,
+                                            n_tiles_y, n_tiles_x, sub,
+                                            row_skip)
+        return depth, vis, resolve_attributes(pair_attrs, pairs.tile_start,
+                                              vis, n_tiles_y, n_tiles_x, sub)
     dev = pair_edges.device
     _require(pair_edges, "pair_edges", torch.float32, 2, dev)
     _require(pair_attrs, "pair_attrs", torch.float32, 2, dev)
-    _require(pairs.tile_start, "tile_start", torch.int32, 1, dev)
-    _require(pairs.tile_count, "tile_count", torch.int32, 1, dev)
+    _check_bins(pairs, n_tiles_y, n_tiles_x, dev)
     n_pairs = pair_edges.shape[1]
     if pair_edges.shape[0] != 16:
         raise ValueError(f"pair_edges needs 16 rows, got {pair_edges.shape}")
@@ -678,10 +909,6 @@ def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
     if pair_attrs.shape != (32, n_pairs):
         raise ValueError(f"pair_attrs needs (32, {n_pairs}), got "
                          f"{tuple(pair_attrs.shape)}")
-    n_bins = n_tiles_y * n_tiles_x
-    if pairs.tile_start.shape[0] != n_bins \
-            or pairs.tile_count.shape[0] != n_bins:
-        raise ValueError("tile_start/tile_count need one entry per bin")
     if not 1 <= sub <= 4:  # kernel B's block is 128 * sub threads, <= 512
         raise ValueError(f"sub must be in [1, 4], got {sub}")
     if not _kernel_device(pair_edges):
@@ -700,20 +927,21 @@ def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
 
 
 # --------------------------------------------------------------------------
-# depth-only raster (kernel E) and its plain version
+# depth-only raster (kernels E and J) and its plain version
 # --------------------------------------------------------------------------
 
-DEPTH_CHUNK = 256  # pairs per work item of kernel E (csrc/depth.cu)
+DEPTH_CHUNK = 256  # pairs per work item of kernels E and J (csrc/depth*.cu)
 
 
 def depth_plain(pair_edges, tile_start, tile_count, n_tiles_y: int,
-                n_tiles_x: int, sub: int, row_skip: bool) -> torch.Tensor:
-    """Plain version of kernel E: (H, W) f32 reverse-Z depth, the max of
-    clamp(z, 1/16384, 1) over pairs whose edges cover the pixel, 0 where
-    none does."""
+                n_tiles_x: int, sub: int, row_skip: bool, masks=None,
+                init=None) -> torch.Tensor:
+    """Plain version of kernels E and J: (H, W) f32 reverse-Z depth, the
+    max of clamp(z, 1/16384, 1) over pairs whose edges cover the pixel
+    (and, with masks, pass the alpha test), starting from init (else 0)."""
     return _plain_visibility(pair_edges, tile_start, tile_count, n_tiles_y,
-                             n_tiles_x, sub, row_skip,
-                             depth_only=True).view(torch.float32)
+                             n_tiles_x, sub, row_skip, depth_only=True,
+                             masks=masks, init=init).view(torch.float32)
 
 
 def _sm_count(dev: torch.device) -> int:
@@ -721,37 +949,47 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def rasterize_depth(pair_edges, pairs: PairLists, n_tiles_y: int,
-                    n_tiles_x: int, sub: int = 1,
-                    row_skip: bool = False) -> torch.Tensor:
-    """Depth-only rasterization of opaque casters (raster.py:1494, the
-    sun-shadow atlas; kernel E, csrc/depth.cu, replaces raster.py:1465
-    _depth_kernel). n_tiles_y counts bins of sub * 16 rows, as the
-    build_pairs run that made `pairs`. Coverage is the three edge planes
-    alone, and z is clamped into [1/16384, 1]: the reference renders
-    cascades with depth clamping, so casters outside the fitted z range
-    still write (raster.py:1368-1374). row_skip needs pair_edges rows 3/7
-    from gather_pair_setups(row_extents=True). Returns (H, W) f32, 0 where
-    nothing covers. The alpha-tested depth kernels arrive with the
-    alpha-test slice."""
+                    n_tiles_x: int, sub: int = 1, row_skip: bool = False,
+                    alpha_masks=None, init_depth=None) -> torch.Tensor:
+    """Depth-only rasterization (raster.py:1494, the sun-shadow atlas).
+    n_tiles_y counts bins of sub * 16 rows, as the build_pairs run that
+    made `pairs`. Coverage is the three edge planes alone, and z is
+    clamped into [1/16384, 1]: the reference renders cascades with depth
+    clamping, so casters outside the fitted z range still write
+    (raster.py:1368-1374). row_skip needs pair_edges rows 3/7 from
+    gather_pair_setups(row_extents=True). Returns (H, W) f32, 0 where
+    nothing covers.
+
+    Opaque casters (16-row pair_edges): kernel E, csrc/depth.cu, replaces
+    raster.py:1465 _depth_kernel. With alpha_masks (32-row pair_edges):
+    kernel J, csrc/depth_alpha.cu, replaces _depth_kernel_alpha (:1474)
+    and, with init_depth (the opaque pass's (H, W) depth, max-merged bit
+    for bit), _depth_kernel_alpha_acc (:1483)."""
     dev = pair_edges.device
+    alpha = alpha_masks is not None
     _require(pair_edges, "pair_edges", torch.float32, 2, dev)
-    _require(pairs.tile_start, "tile_start", torch.int32, 1, dev)
-    _require(pairs.tile_count, "tile_count", torch.int32, 1, dev)
-    if pair_edges.shape[0] != 16:
-        raise NotImplementedError(
-            f"pair_edges needs the 16-row opaque table, got "
-            f"{tuple(pair_edges.shape)} (alpha-tested casters arrive with "
-            "the alpha-test slice)")
-    n_bins = n_tiles_y * n_tiles_x
-    if pairs.tile_start.shape[0] != n_bins \
-            or pairs.tile_count.shape[0] != n_bins:
-        raise ValueError("tile_start/tile_count need one entry per bin")
-    if not 1 <= sub <= 8:  # kernel E's block is 128 * sub threads
+    _check_bins(pairs, n_tiles_y, n_tiles_x, dev)
+    if init_depth is not None and not alpha:
+        raise ValueError("init_depth merges the alpha pass onto the opaque "
+                         "one: it needs alpha_masks")
+    if pair_edges.shape[0] != (32 if alpha else 16):
+        raise ValueError(
+            f"pair_edges needs {32 if alpha else 16} rows "
+            f"({'alpha' if alpha else 'opaque'} table), got "
+            f"{tuple(pair_edges.shape)}")
+    if alpha:
+        _check_masks(alpha_masks, dev)
+    h, w = n_tiles_y * sub * TILE_H, n_tiles_x * TILE_W
+    if init_depth is not None:
+        _require(init_depth, "init_depth", torch.float32, 2, dev)
+        if tuple(init_depth.shape) != (h, w):
+            raise ValueError(f"init_depth needs ({h}, {w})")
+    if not 1 <= sub <= 8:  # kernels E and J: blocks of 128 * sub threads
         raise ValueError(f"sub must be in [1, 8], got {sub}")
     if not _kernel_device(pair_edges):
         return depth_plain(pair_edges, pairs.tile_start, pairs.tile_count,
-                           n_tiles_y, n_tiles_x, sub, row_skip)
-    h, w = n_tiles_y * sub * TILE_H, n_tiles_x * TILE_W
+                           n_tiles_y, n_tiles_x, sub, row_skip,
+                           masks=alpha_masks, init=init_depth)
     # work items: DEPTH_CHUNK-pair slices of each bin's segment, handed out
     # by an atomic counter to persistent blocks (heavy bins spread over
     # many blocks; their results merge by an integer atomicMax)
@@ -759,11 +997,21 @@ def rasterize_depth(pair_edges, pairs: PairLists, n_tiles_y: int,
                          rounding_mode="floor")
     chunk_end = torch.cumsum(n_chunks, 0, dtype=torch.int32)
     counter = torch.zeros((1,), dtype=torch.int32, device=dev)
-    depth = torch.zeros((h, w), dtype=torch.float32, device=dev)
-    native.launch("depth_launch", pair_edges, pairs.tile_start,
-                  pairs.tile_count, chunk_end, counter, depth,
-                  pair_edges.shape[1], n_tiles_y, n_tiles_x, sub,
-                  int(row_skip), 2 * _sm_count(dev))
+    if init_depth is None:
+        depth = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    else:
+        depth = init_depth.clone()
+    if not alpha:
+        native.launch("depth_launch", pair_edges, pairs.tile_start,
+                      pairs.tile_count, chunk_end, counter, depth,
+                      pair_edges.shape[1], n_tiles_y, n_tiles_x, sub,
+                      int(row_skip), 2 * _sm_count(dev))
+    else:
+        native.launch("depth_alpha_launch", pair_edges, alpha_masks,
+                      pairs.tile_start, pairs.tile_count, chunk_end, counter,
+                      depth, pair_edges.shape[1], alpha_masks.shape[0],
+                      n_tiles_y, n_tiles_x, sub, int(row_skip),
+                      2 * _sm_count(dev))
     return depth
 
 
@@ -783,14 +1031,19 @@ def winner_triangle_ids(vis: torch.Tensor, pairs: PairLists, n_tiles_x: int,
 
 
 def reference_rasterize(setup_edges: np.ndarray, valid: np.ndarray,
-                        width: int, height: int):
+                        width: int, height: int,
+                        alpha_masks: np.ndarray | None = None):
     """Brute-force numpy rasterizer with the same rules (reverse-Z max,
-    inside = all edges >= 0 at pixel centres; later triangles win ties)."""
+    inside = all edges >= 0 at pixel centres; later triangles win ties).
+    setup_edges is (3, 4|8, T); with 8 planes and alpha_masks the same
+    64x64 nearest-with-wrap alpha test as the kernels is applied
+    (raster.py:1948-1985)."""
     xs = np.arange(width) + 0.5
     ys = np.arange(height) + 0.5
     depth = np.zeros((height, width), np.float32)
     winner = np.full((height, width), -1, np.int32)
     a, b, c = setup_edges[0], setup_edges[1], setup_edges[2]
+    n_planes = setup_edges.shape[1]
     for t in range(setup_edges.shape[2]):
         if not valid[t]:
             continue
@@ -798,6 +1051,19 @@ def reference_rasterize(setup_edges: np.ndarray, valid: np.ndarray,
             b[:, t][:, None, None] * ys[None, :, None] + c[:, t][:, None, None]
         cov = (ex[0] >= 0) & (ex[1] >= 0) & (ex[2] >= 0)
         cov = cov & (ex[3] > 0) & (ex[3] <= 1.0)
+        if n_planes == 8 and alpha_masks is not None:
+            slot = int(round(c[7, t]))
+            if slot > 0:
+                inv = 1.0 / np.where(ex[6] > 1e-12, ex[6], 1.0)
+                u = ex[4] * inv
+                v = ex[5] * inv
+                ix = np.clip((u - np.floor(u)) * 64.0, 0.0, 63.0) \
+                    .astype(np.int32)
+                iy = np.clip((v - np.floor(v)) * 64.0, 0.0, 63.0) \
+                    .astype(np.int32)
+                word = alpha_masks[slot - 1][iy * 2 + (ix >= 32)]
+                bit = (word >> (ix & 31)) & 1
+                cov = cov & (bit == 1)
         z = np.clip(ex[3], 0.0, 1.0)
         upd = cov & (z >= depth)
         depth[upd] = z[upd]

@@ -9,9 +9,11 @@ and depth raster (kernel E) -> PCF shadow resolve (kernel F) -> GI trace
 (kernel G, scenes with an attached SDF) -> resolve, spatial, history
 resample (kernel H), temporal, spatial -> upscale -> forward shade -> sky
 composite -> froxel fog (with shadows) -> TAA (history taps, kernel I) ->
-bloom -> tonemap. Every setting outside it (the TAA supersampling
-pre-pass, trilinear / anisotropic texture filtering, alpha masks, dynamic
-objects and their SDFs, split-frame bands, debug views) raises
+bloom -> tonemap. A scene with alpha masks splits the main view and the
+atlas into an opaque stream (kernels A, B, E) and an alpha-tested stream
+(kernels A, K + L, J), merged by depth. Every setting outside it (the TAA
+supersampling pre-pass, trilinear / anisotropic texture filtering,
+dynamic objects and their SDFs, split-frame bands, debug views) raises
 NotImplementedError instead of silently skipping its pass. render_frame
 runs eagerly and never synchronises with the host: every per-frame value
 stays a device tensor.
@@ -109,7 +111,6 @@ def check_slice(scene: dict, cam: dict, settings: RenderSettings) -> None:
         (settings.shading.texture_filter >= 1,
          "trilinear / anisotropic texture filtering "
          "(shading.texture_filter >= 1)"),
-        ("alpha_masks" in scene, "alpha-tested geometry (scene 'alpha_masks')"),
         ("object_transforms" in scene,
          "dynamic objects (scene 'object_transforms')"),
         ("sdf_dyn_vols" in scene, "dynamic SDF objects (scene 'sdf_dyn_vols')"),
@@ -130,19 +131,42 @@ class MainView:
     """The main view's raster inputs for one frame."""
 
     view_proj: torch.Tensor  # (4, 4)
-    setup: raster.TriangleSetup
+    setup: raster.TriangleSetup  # 8 planes when the scene has alpha masks
     n_tiles_y: int  # bins of sub * 16 rows
     n_tiles_x: int
     sub: int
     pair_budget: int
+    alpha_masks: torch.Tensor | None = None  # (n, 128) i32
+    alpha_slots: torch.Tensor | None = None  # (T,) i32, 0 = opaque
+    alpha_budget: int = 0  # the alpha stream's pair budget
+
+
+@dataclasses.dataclass
+class MainRaster:
+    """The main view's raster of one frame: the opaque stream's pair lists
+    and setup rows as kernel B read them, the alpha stream's as kernels K
+    and L read them (None without alpha masks), and the merged result."""
+
+    pairs: raster.PairLists
+    pair_edges: torch.Tensor  # (16, P)
+    pair_attrs: torch.Tensor  # (32, P)
+    depth: torch.Tensor  # (H, W)
+    vis: torch.Tensor  # (H, W) i32
+    gbuf: torch.Tensor  # (13, H, W)
+    overflow: torch.Tensor  # () i32, both streams' dropped pairs
+    alpha_pairs: raster.PairLists | None = None
+    alpha_edges: torch.Tensor | None = None  # (32, P_a)
+    alpha_attrs: torch.Tensor | None = None  # (32, P_a)
 
 
 def main_view_setup(scene: dict, cam: dict, settings: RenderSettings,
                     jitter_ndc=None) -> MainView:
     """Camera matrices, frustum cull and geometry setup of the main view
-    (frame.py:342-420), with its bin grid and pair budget (:450).
+    (frame.py:342-420), with its bin grid and pair budgets (:450, :484).
     jitter_ndc (2,), the TAA jitter in NDC units, is added to the
-    projection's [0, 2] and [1, 2] (frame.py:352-358)."""
+    projection's [0, 2] and [1, 2] (frame.py:352-358). A scene whose
+    "alpha_masks" is present and not None gets the 8-plane setup
+    (frame.py:408-420)."""
     width, height = settings.width, settings.height
     pw, ph = raster.pad_resolution(width, height)
     m_sub = main_bin_sub(ph)
@@ -158,17 +182,23 @@ def main_view_setup(scene: dict, cam: dict, settings: RenderSettings,
         view_proj, scene["object_bb_min"], scene["object_bb_max"])
     tri_visible = expand_object_mask(obj_visible, scene["tri_starts"],
                                      t_count)
+    masks = scene.get("alpha_masks")
+    slots = None if masks is None else scene["tri_alpha_slot"]
     setup = raster.geometry_setup(
         scene["corners"], scene["corner_uvs"], scene["corner_normals"],
         scene["corner_tangents"], scene["corner_bitangents"],
         scene["tri_material"], tri_visible, view_proj, pw, ph, cull="back",
-        near_w=NEAR_PLANE, bin_rows=m_sub)
-    # budget sized to the culled stream (frame.py:426-451): ~2x headroom
-    # over measured occupancy; overflow lands in debug_counters
-    budget = int((t_count // 4 + 8 * nty * m_sub * ntx)
-                 * settings.pair_budget_scale)
-    return MainView(view_proj=view_proj, setup=setup, n_tiles_y=nty,
-                    n_tiles_x=ntx, sub=m_sub, pair_budget=budget)
+        near_w=NEAR_PLANE, bin_rows=m_sub, tri_alpha_slot=slots)
+    # budgets sized to the culled streams (frame.py:426-451, :484-485):
+    # ~2x headroom over measured occupancy; overflow lands in
+    # debug_counters
+    scale = settings.pair_budget_scale
+    return MainView(
+        view_proj=view_proj, setup=setup, n_tiles_y=nty, n_tiles_x=ntx,
+        sub=m_sub,
+        pair_budget=int((t_count // 4 + 8 * nty * m_sub * ntx) * scale),
+        alpha_masks=masks, alpha_slots=slots,
+        alpha_budget=int((t_count // 32 + 4 * nty * m_sub * ntx) * scale))
 
 
 def _fill(values, dev: torch.device) -> torch.Tensor:
@@ -208,31 +238,62 @@ def _mark(timer, name: str) -> None:
         timer.mark(name)
 
 
-def raster_main_view(mv: MainView, timer=None):
-    """Binning (kernel A) + G-buffer raster (kernel B) of the main view:
-    (pairs, pair_edges, pair_attrs, depth, vis, gbuf). order_rows +
-    row_skip: y-sorted bin segments let the raster skip sub-blocks outside
-    each pair's row extent (frame.py:421-460)."""
-    pairs = raster.build_pairs(mv.setup, mv.n_tiles_y, mv.n_tiles_x,
-                               pair_budget=mv.pair_budget, bin_rows=mv.sub,
+def _bin_main_stream(mv: MainView, setup: raster.TriangleSetup,
+                     budget: int):
+    pairs = raster.build_pairs(setup, mv.n_tiles_y, mv.n_tiles_x,
+                               pair_budget=budget, bin_rows=mv.sub,
                                order_rows=True)
-    pair_edges, pair_attrs = raster.gather_pair_setups(
-        mv.setup, pairs, row_extents=True)
+    return (pairs, *raster.gather_pair_setups(setup, pairs,
+                                              row_extents=True))
+
+
+def raster_main_view(mv: MainView, timer=None) -> MainRaster:
+    """Binning (kernel A) + G-buffer raster (kernel B) of the main view.
+    order_rows + row_skip: y-sorted bin segments let the raster skip
+    sub-blocks outside each pair's row extent (frame.py:421-460).
+
+    With alpha masks the opaque and alpha-tested triangles are two streams
+    (frame.py:462-501): the opaque one keeps 4 planes and runs through
+    kernels A and B, the alpha one (8 planes, its own budget) through
+    kernels A, K and L; a pixel takes the alpha stream's depth, vis and
+    channels where its depth is strictly greater (reverse-Z, so the opaque
+    stream wins ties), and the overflow counts both streams."""
+    setup, budget = mv.setup, mv.pair_budget
+    if mv.alpha_masks is not None:
+        is_alpha = mv.alpha_slots > 0
+        pairs_a, pe_a, pa_a = _bin_main_stream(mv, dataclasses.replace(
+            setup, valid=setup.valid & is_alpha), mv.alpha_budget)
+        setup = dataclasses.replace(setup, edges=setup.edges[:, :4],
+                                    valid=setup.valid & ~is_alpha)
+    pairs, pe, pa = _bin_main_stream(mv, setup, budget)
     _mark(timer, "gbuffer")
     depth, vis, gbuf = raster.rasterize_gbuffer(
-        pair_edges, pair_attrs, pairs, mv.n_tiles_y, mv.n_tiles_x,
-        sub=mv.sub, row_skip=True)
-    return pairs, pair_edges, pair_attrs, depth, vis, gbuf
+        pe, pa, pairs, mv.n_tiles_y, mv.n_tiles_x, sub=mv.sub, row_skip=True)
+    if mv.alpha_masks is None:
+        return MainRaster(pairs=pairs, pair_edges=pe, pair_attrs=pa,
+                          depth=depth, vis=vis, gbuf=gbuf,
+                          overflow=pairs.overflow)
+    d2, v2, g2 = raster.rasterize_gbuffer(
+        pe_a, pa_a, pairs_a, mv.n_tiles_y, mv.n_tiles_x, sub=mv.sub,
+        row_skip=True, alpha_masks=mv.alpha_masks)
+    win2 = d2 > depth
+    return MainRaster(
+        pairs=pairs, pair_edges=pe, pair_attrs=pa,
+        depth=torch.where(win2, d2, depth), vis=torch.where(win2, v2, vis),
+        gbuf=torch.where(win2[None], g2, gbuf),
+        overflow=pairs.overflow + pairs_a.overflow, alpha_pairs=pairs_a,
+        alpha_edges=pe_a, alpha_attrs=pa_a)
 
 
 def shadow_atlas_setup(scene: dict, cascade_mats: torch.Tensor, n_cas: int,
-                       sres: int) -> raster.TriangleSetup:
+                       sres: int, alpha_slots=None) -> raster.TriangleSetup:
     """All cascades as one vertical-atlas TriangleSetup (frame.py:164-226):
     per-cascade clip-space culling without the z test, one batched
     geometry stage with front-face culling (the reference's shadow pass
     culls front faces, RenderFrontend.cpp:1576), then each cascade's edge
     planes shifted into its band of atlas rows (c' = c - b * y_off), its
-    bboxes and fine rows offset by the band."""
+    bboxes and fine rows offset by the band. alpha_slots (T,) i32 gives
+    the 8-plane table; the slot plane has b = 0, so the shift keeps it."""
     sub = shadow_bin_sub(sres)
     s_nty = sres // (raster.TILE_H * sub)
     t_count = scene["corners"].shape[0]
@@ -247,7 +308,8 @@ def shadow_atlas_setup(scene: dict, cascade_mats: torch.Tensor, n_cas: int,
         scene["corners"], scene["corner_uvs"], scene["corner_normals"],
         scene["corner_tangents"], scene["corner_bitangents"],
         scene["tri_material"], cas_visible, cas_mats, sres, sres,
-        cull="front", bin_rows=sub, with_attrs=False)
+        cull="front", bin_rows=sub, with_attrs=False,
+        tri_alpha_slot=alpha_slots)
     dev = cascade_mats.device
     # edges (3, n_pl, n_cas, T): the atlas stream is a free reshape
     y_off = (torch.arange(n_cas, dtype=torch.float32, device=dev)
@@ -278,10 +340,25 @@ class ShadowAtlas:
     cascade_scales: torch.Tensor  # (MAX_CASCADES, 2)
     maps: torch.Tensor  # (MAX_CASCADES, S, S) reverse-Z, unused ones 0
     setup: raster.TriangleSetup  # the atlas stream, n_cas * T triangles
-    pairs: raster.PairLists
+    pairs: raster.PairLists  # the opaque casters'
     edges: torch.Tensor  # (16, P) pair edge rows, as kernel E read them
     n_bins_y: int  # atlas bins of sub * 16 rows
     n_bins_x: int
+    sub: int
+    pair_budget: int
+    overflow: torch.Tensor  # () i32, both streams' dropped pairs
+    alpha: AlphaCasters | None = None
+
+
+@dataclasses.dataclass
+class AlphaCasters:
+    """The atlas's alpha-tested stream, as kernel J read it."""
+
+    pairs: raster.PairLists
+    edges: torch.Tensor  # (32, P) pair edge rows
+    masks: torch.Tensor  # (n, 128) i32
+    init_depth: torch.Tensor  # the opaque casters' atlas (kernel E)
+    n_bins_y: int  # atlas bins of sub * 16 rows
     sub: int
     pair_budget: int
 
@@ -291,7 +368,10 @@ def render_shadow_atlas(scene: dict, cam: dict, depth: torch.Tensor,
     """Cascade fit from the frame's depth bounds, then every cascade in one
     depth-only atlas pass: atlas setup, binning (kernel A, multi-view
     keys), setup gather and depth raster (kernel E) (frame.py:576-752,
-    the opaque single-device branch)."""
+    the single-device branches). With alpha masks the alpha-tested
+    casters are a second stream (frame.py:637-723): re-binned on
+    a_sub = min(4, sub) bins from their fine rows, without row order, and
+    rasterized by kernel J onto the opaque atlas (init_depth)."""
     consts = _frame_constants(settings, depth.device)
     n_cas = settings.shadows.cascade_count
     d_min, d_max = hiz.depth_min_max(depth)
@@ -308,18 +388,52 @@ def render_shadow_atlas(scene: dict, cam: dict, depth: torch.Tensor,
     s_ntx = sres // raster.TILE_W
     nb = n_cas * s_nty
     t_count = scene["corners"].shape[0]
-    setup = shadow_atlas_setup(scene, cascade_mats, n_cas, sres)
+    masks = scene.get("alpha_masks")
+    slots = None if masks is None else scene["tri_alpha_slot"]
+    setup = shadow_atlas_setup(scene, cascade_mats, n_cas, sres, slots)
+    scale = settings.pair_budget_scale
     # budget 1/6 of the atlas triangle stream + a per-bin floor
     # (frame.py:625-635); overflow lands in debug_counters[1]
-    budget = int(((n_cas * t_count) // 6 + 4 * nb * s_sub * s_ntx)
-                 * settings.pair_budget_scale)
-    pairs = raster.build_pairs(setup, nb, s_ntx, pair_budget=budget,
+    budget = int(((n_cas * t_count) // 6 + 4 * nb * s_sub * s_ntx) * scale)
+    setup_o = setup
+    if masks is not None:
+        is_alpha = (slots > 0).repeat(n_cas)
+        setup_o = dataclasses.replace(setup, edges=setup.edges[:, :4],
+                                      valid=setup.valid & ~is_alpha)
+    pairs = raster.build_pairs(setup_o, nb, s_ntx, pair_budget=budget,
                                bin_rows=s_sub, order_rows=True,
                                n_views=n_cas, tile_cap=1 << 15)
-    edges, _ = raster.gather_pair_setups(setup, pairs, row_extents=True,
+    edges, _ = raster.gather_pair_setups(setup_o, pairs, row_extents=True,
                                          with_attrs=False)
     atlas = raster.rasterize_depth(edges, pairs, nb, s_ntx, sub=s_sub,
                                    row_skip=True)
+    overflow, alpha = pairs.overflow, None
+    if masks is not None:
+        # the alpha casters on a_sub-row bins from their fine rows
+        # (frame.py:677-685); the band covers the same pixel rows as the
+        # opaque pass, so the max-merge onto it lines up
+        a_sub = min(4, s_sub)
+        a_nb = nb * (s_sub // a_sub)
+        fy = setup.fine_y
+        setup_a = dataclasses.replace(
+            setup, valid=setup.valid & is_alpha,
+            tile_bbox=torch.stack([fy[:, 0] // a_sub, setup.tile_bbox[:, 1],
+                                   fy[:, 1] // a_sub, setup.tile_bbox[:, 3]],
+                                  dim=1))
+        a_budget = int(((n_cas * t_count) // 24 + 4 * a_nb * a_sub * s_ntx)
+                       * scale)
+        pairs_a = raster.build_pairs(setup_a, a_nb, s_ntx,
+                                     pair_budget=a_budget, bin_rows=a_sub,
+                                     n_views=n_cas, tile_cap=1 << 15)
+        edges_a, _ = raster.gather_pair_setups(setup_a, pairs_a,
+                                               with_attrs=False)
+        alpha = AlphaCasters(pairs=pairs_a, edges=edges_a, masks=masks,
+                             init_depth=atlas, n_bins_y=a_nb, sub=a_sub,
+                             pair_budget=a_budget)
+        atlas = raster.rasterize_depth(edges_a, pairs_a, a_nb, s_ntx,
+                                       sub=a_sub, alpha_masks=masks,
+                                       init_depth=atlas)
+        overflow = overflow + pairs_a.overflow
     maps = atlas.reshape(n_cas, sres, sres)
     if n_cas < shadow.MAX_CASCADES:
         maps = torch.cat([maps, torch.zeros(
@@ -328,7 +442,8 @@ def render_shadow_atlas(scene: dict, cam: dict, depth: torch.Tensor,
     return ShadowAtlas(cascade_mats=cascade_mats, splits=splits,
                        cascade_scales=cascade_scales, maps=maps, setup=setup,
                        pairs=pairs, edges=edges, n_bins_y=nb, n_bins_x=s_ntx,
-                       sub=s_sub, pair_budget=budget)
+                       sub=s_sub, pair_budget=budget, overflow=overflow,
+                       alpha=alpha)
 
 
 def blue_noise_screen(luts: dict, frame_index: torch.Tensor, ph: int,
@@ -542,7 +657,8 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
     _mark(timer, "binning")
     mv = main_view_setup(scene, cam, settings,
                          jitter_ndc=jitter_ndc if taa_on else None)
-    pairs, _, _, depth, vis, gbuf = raster_main_view(mv, timer)
+    main = raster_main_view(mv, timer)
+    depth, vis, gbuf = main.depth, main.vis, main.gbuf
     valid = vis >= 0
 
     # --- material constants (kernel C) ---
@@ -608,10 +724,10 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
             atlas.cascade_mats, atlas.cascade_scales, atlas.splits,
             settings.shadows.cascade_count, taps=settings.shadows.pcf_taps,
             sample_radius=settings.shadows.sample_radius)
-        shadow_overflow = atlas.pairs.overflow
+        shadow_overflow = atlas.overflow
     else:
         sun_shadow = torch.ones((ph, pw), **f32)
-        shadow_overflow = torch.zeros_like(pairs.overflow)
+        shadow_overflow = torch.zeros_like(main.overflow)
 
     # --- SDF GI: trace (kernel G), filters, history (kernel H), upscale ---
     indirect_y_sh = indirect_cocg = None
@@ -698,7 +814,7 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
         volumetric_history=new_vol_history,
         prev_view_projection=mv.view_proj,
         prev_jitter=jitter_ndc,
-        debug_counters=torch.stack([pairs.overflow, shadow_overflow]).to(
+        debug_counters=torch.stack([main.overflow, shadow_overflow]).to(
             torch.int32),
     )
     return image, new_state
@@ -786,7 +902,7 @@ def scene_to_device(rs, device="cuda") -> dict:
     if rs.tex_word0 is not None:  # frame.py:1181-1188
         scene.update(mat_tex=put(rs.mat_tex), tex_info=put(rs.tex_info),
                      tex_word0=put(rs.tex_word0), tex_word1=put(rs.tex_word1))
-    if rs.alpha_masks is not None:  # carried as data; render_frame refuses
+    if rs.alpha_masks is not None:  # frame.py:1189-1191
         scene.update(alpha_masks=put(rs.alpha_masks),
                      tri_alpha_slot=put(rs.tri_alpha_slot))
     return scene

@@ -14,7 +14,10 @@ equal, the rest within 1/taps (the CPU tests' rules against the JAX
 package). Kernel G: escaped and the hit/miss decision equal on >= 99.9%
 of rays, values within 1e-4 (abs + rel) where both agree (powf / rsqrtf
 may differ by an ulp from torch.pow / torch.rsqrt); kernels H and I: ok
-equal on every pixel, values within 1e-6 relative.
+equal on every pixel, values within 1e-6 relative. The alpha-tested
+kernels: J (both bodies), K and M equal their plain versions exactly (the
+mask bit is a discrete function of u, so the uv math is rounded step by
+step on both sides), L's channels within kernel B's 1e-4.
 """
 
 import numpy as np
@@ -361,3 +364,140 @@ def test_history_taps_kernel_equals_plain(cuda, n_taps):
     assert 0.05 < float(ok_k.float().mean()) < 0.95
     torch.testing.assert_close(rgb_k, ref[:3 * n_taps], rtol=1e-6,
                                atol=1e-30)
+
+
+def _alpha_case(device, rng, n=600, width=512, height=256, sub=2):
+    """Random screen triangles with uvs over several wraps of two masks
+    (an 8x8 checkerboard and random texels) and slots 0-2, through the
+    port's 8-plane geometry stage."""
+    cx, cy = rng.uniform(0.05, 0.95, (2, n))
+    size = rng.uniform(0.01, 0.3, n)
+    z = rng.uniform(0.05, 0.99, n)
+    tris = np.stack([np.stack([cx - size, cy - size, z], -1),
+                     np.stack([cx + size, cy - size, z], -1),
+                     np.stack([cx, cy + size, z], -1)], 1).astype(np.float32)
+    vp = np.eye(4, dtype=np.float32)
+    vp[0, 0] = vp[1, 1] = 2.0
+    vp[0, 3] = vp[1, 3] = -1.0
+    unit = rng.normal(size=(n, 3, 3)).astype(np.float32)
+    unit /= np.linalg.norm(unit, axis=-1, keepdims=True)
+    arrays = [tris, (rng.random((n, 3, 2)) * 4).astype(np.float32), unit,
+              unit, unit, rng.integers(0, 40, n).astype(np.float32),
+              np.ones(n, bool), vp]
+    t = [torch.as_tensor(a, device=device) for a in arrays]
+    slots = torch.as_tensor(rng.integers(0, 3, n).astype(np.int32),
+                            device=device)
+    setup = raster.geometry_setup(*t, width, height, cull="none",
+                                  bin_rows=sub, tri_alpha_slot=slots)
+    yy, xx = np.mgrid[0:64, 0:64]
+    masks = np.stack([
+        textures.build_alpha_mask((((yy // 8) + (xx // 8)) % 2)
+                                  .astype(np.float32)),
+        textures.build_alpha_mask((rng.random((64, 64)) > 0.4)
+                                  .astype(np.float32))])
+    return setup, torch.as_tensor(masks, device=device)
+
+
+@pytest.mark.parametrize("sub,row_skip,with_init",
+                         [(4, False, True), (2, True, False),
+                          (8, False, False)])
+def test_depth_alpha_kernel_equals_plain(cuda, sub, row_skip, with_init):
+    """Kernel J, both bodies (with init_depth: the opaque pass's depth,
+    max-merged): equal to its plain version on every texel."""
+    rng = np.random.default_rng(17)
+    setup, masks = _alpha_case(cuda, rng, sub=sub)
+    nb, ntx = 256 // (16 * sub), 4
+    pairs = raster.build_pairs(setup, nb, ntx, bin_rows=sub,
+                               order_rows=row_skip, tile_cap=1 << 15)
+    pe, _ = raster.gather_pair_setups(setup, pairs, row_extents=row_skip,
+                                      with_attrs=False)
+    init = None
+    if with_init:
+        init = raster.depth_plain(pe[:16].contiguous(), pairs.tile_start,
+                                  pairs.tile_count, nb, ntx, sub, False)
+        init = torch.where(init > 0.5, init, 0.0)
+    before = native.launch_counts()["depth_alpha"]
+    depth = raster.rasterize_depth(pe, pairs, nb, ntx, sub=sub,
+                                   row_skip=row_skip, alpha_masks=masks,
+                                   init_depth=init)
+    assert native.launch_counts()["depth_alpha"] == before + 1
+    depth_p = raster.depth_plain(pe, pairs.tile_start, pairs.tile_count, nb,
+                                 ntx, sub, row_skip, masks=masks, init=init)
+    torch.testing.assert_close(depth.view(torch.int32),
+                               depth_p.view(torch.int32), rtol=0, atol=0)
+    uncut = raster.depth_plain(pe, pairs.tile_start, pairs.tile_count, nb,
+                               ntx, sub, row_skip, init=init)
+    assert (depth > 0).float().mean() > 0.3
+    assert bool((uncut > depth).any())  # the masks cut
+
+
+@pytest.mark.parametrize("sub", [2, 4])
+def test_winner_alpha_and_attr_resolve_kernels_equal_plain(cuda, sub):
+    """Kernel K: depth and vis equal to its plain version; kernel L on K's
+    vis: channels within 1e-4 of its plain version (kernel B's rule:
+    rsqrtf may differ by an ulp from PyTorch's CUDA rsqrt)."""
+    rng = np.random.default_rng(18)
+    width, height = 384, 256
+    setup, masks = _alpha_case(cuda, rng, n=400, width=width, height=height,
+                               sub=sub)
+    nty, ntx = height // (16 * sub), width // 128
+    pairs = raster.build_pairs(setup, nty, ntx, bin_rows=sub,
+                               order_rows=True)
+    pe, pa = raster.gather_pair_setups(setup, pairs, row_extents=True)
+    counts = native.launch_counts()
+    depth, vis, gbuf = raster.rasterize_gbuffer(
+        pe, pa, pairs, nty, ntx, sub=sub, row_skip=True, alpha_masks=masks)
+    after = native.launch_counts()
+    assert after["winner_alpha"] == counts["winner_alpha"] + 1
+    assert after["attr_resolve"] == counts["attr_resolve"] + 1
+    assert after["gbuffer"] == counts["gbuffer"]
+    depth_p, vis_p = raster.winner_alpha_plain(
+        pe, pairs.tile_start, pairs.tile_count, masks, nty, ntx, sub, True)
+    torch.testing.assert_close(vis, vis_p, rtol=0, atol=0)
+    torch.testing.assert_close(depth, depth_p, rtol=0, atol=0)
+    assert (vis >= 0).float().mean() > 0.4
+    gbuf_p = raster.attr_resolve_plain(pa, pairs.tile_start, vis, nty, ntx,
+                                       sub)
+    torch.testing.assert_close(gbuf, gbuf_p, rtol=0, atol=1e-4)
+
+
+def test_expand_rows_kernel_equals_plain(cuda):
+    """Kernel M bit for bit, and build_pairs(carry_table=...) on the card:
+    the same segments as without it, rows equal to gather_pair_setups on
+    every live slot."""
+    rng = np.random.default_rng(19)
+    setup, _ = _alpha_case(cuda, rng, n=2000)
+    nb, ntx = 256 // 32, 4
+    table, n_edge = raster.setup_row_table(setup, row_extents=True)
+    ki = raster.pair_key_inputs(setup, nb, ntx, None, 2, True)
+    _, owners = raster.expand_keys(ki)
+    before = native.launch_counts()["expand_rows"]
+    out = raster.expand_rows(owners, table, ki.cum[-1:], ki.budget)
+    assert native.launch_counts()["expand_rows"] == before + 1
+    torch.testing.assert_close(
+        out, raster.expand_rows_plain(owners, table, ki.cum[-1:], ki.budget),
+        rtol=0, atol=0)
+    plain = raster.build_pairs(setup, nb, ntx, bin_rows=2, order_rows=True)
+    pairs, rows = raster.build_pairs(setup, nb, ntx, bin_rows=2,
+                                     order_rows=True, carry_table=table)
+    torch.testing.assert_close(pairs.tile_start, plain.tile_start)
+    torch.testing.assert_close(pairs.tile_count, plain.tile_count)
+    pe, pa = raster.gather_pair_setups(setup, plain, row_extents=True)
+    total = int(plain.tile_count.sum())
+    torch.testing.assert_close(rows[:, :total],
+                               torch.cat([pe, pa])[:, :total], rtol=0,
+                               atol=0)
+
+
+def test_expand_keys_kernel_alpha_keys_equal_plain(cuda):
+    """Kernel A's order_alpha keys (tri_alpha): keys and owners equal."""
+    rng = np.random.default_rng(20)
+    setup, _ = _alpha_case(cuda, rng, n=3000)
+    tri_alpha = torch.as_tensor(rng.random(3000) < 0.1, device=cuda)
+    ki = raster.pair_key_inputs(setup, 8, 4, None, 2, True,
+                                tri_alpha=tri_alpha)
+    assert ki.order_alpha and ki.key_alpha == 2
+    keys, owners = raster.expand_keys(ki)
+    keys_p, owners_p = raster.expand_keys_plain(ki)
+    torch.testing.assert_close(keys, keys_p, rtol=0, atol=0)
+    torch.testing.assert_close(owners, owners_p, rtol=0, atol=0)

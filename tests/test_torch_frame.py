@@ -356,9 +356,11 @@ def test_render_frame_refuses_settings_outside_the_slice():
     """The port raises instead of skipping a pass it does not render: the
     TAA supersampling pre-pass, trilinear / anisotropic texture filtering,
     cascade debug colours, more than 4 cascades, bounding boxes, SDF debug
-    views, and a scene with alpha-tested geometry, dynamic objects or
-    dynamic SDF objects. TAA, bloom and froxel fog run (slice 4, with the
-    default RenderSettings(): tests/test_torch_golden.py)."""
+    views, and a scene with dynamic objects or dynamic SDF objects. TAA,
+    bloom and froxel fog run (slice 4, with the default RenderSettings():
+    tests/test_torch_golden.py), and so does alpha-tested geometry (slice
+    5, tests/test_torch_alpha_frame.py): a scene whose alpha_masks is None
+    renders as the opaque scene does."""
     rs = tsb.build_render_scene(tproc.build_atrium_scene(
         tproc.AtriumConfig(**SMALL_ATRIUM), textured=False))
     scene = tframe.scene_to_device(rs, device="cpu")
@@ -383,10 +385,16 @@ def test_render_frame_refuses_settings_outside_the_slice():
         with pytest.raises(NotImplementedError):
             tframe.render_frame(state, scene, cam, luts, 0.016, settings,
                                 device="cpu")
-    for key in ("alpha_masks", "object_transforms", "sdf_dyn_vols"):
+    for key in ("object_transforms", "sdf_dyn_vols"):
         with pytest.raises(NotImplementedError):
             tframe.render_frame(state, dict(scene, **{key: None}), cam, luts,
                                 0.016, base, device="cpu")
+    # alpha-tested geometry is in the port; alpha_masks=None is the opaque
+    # path (scene.get in frame.py:408)
+    images = [tframe.render_frame(state, sc, cam, luts, 0.016, base,
+                                  device="cpu")[0]
+              for sc in (scene, dict(scene, alpha_masks=None))]
+    assert torch.equal(images[0], images[1])
 
 
 def test_entry_points_never_fall_back_to_the_cpu(monkeypatch):
