@@ -20,7 +20,9 @@ holds its kernels to their plain PyTorch versions on a real frame's
 inputs (the rule is printed with each result), a small scene on the card
 to the CPU plain path (> 99.9% of pixels within 2 LSB), times each
 kernel, its plain version and its PyTorch yardstick (CUDA events) with
-its bound from this run's inputs, and drives warm-up + timed frames with
+its bound from this run's inputs (the kernels line names that row,
+timed_on, and the run its launches come from, launches_on), and drives
+warm-up + timed frames with
 the launch counts reset just before and read just after: its kernels
 launched as expected per frame, the others never, no host sync in a
 timed frame, debug_counters [0, 0], a plausible image. A failed check
@@ -90,6 +92,9 @@ KERNEL_SOURCES = {
 # ray the setup, refinement, albedo, pow, sky mapping and SH encode
 G_FINE_STEP_OPS, G_SHADOW_STEP_OPS, G_COARSE_STEP_OPS = 60, 45, 35
 G_RAY_OPS = 150
+# rows of a pair's 32 that kernels J and K stage and read
+# (csrc/common.cuh, PLAIN_N_STAGED_ALPHA)
+N_STAGED_ALPHA = 24
 SMALL_ATRIUM = dict(columns_per_row=2, floor_subdiv=2, box_count=3,
                     box_subdiv=1, column_segments=8)
 # tests/test_frame.py:312-314's banner atrium and its camera (:320)
@@ -161,11 +166,14 @@ class Ctx:
         self.ms, self.plain_ms, self.library_ms = {}, {}, {}
         self.bounds, self.errors, self.extra = {}, {}, {}
         self.scenes, self.scale, self.report = {}, 1.0, {}
+        self.path, self.timed_on = "", {}
 
     def kernel(self, name, fn, reps, plain, plain_reps, bound, err,
                library=None):
         """Time kernel `name`, its plain version and its PyTorch yardstick
-        (CUDA events); keep its bound (bytes s, operations s) and error."""
+        (CUDA events); keep its bound (bytes s, operations s), its error
+        and the row whose inputs timed it (self.path)."""
+        self.timed_on[name] = self.path
         self.ms[name] = cuda_ms(fn, reps)
         self.plain_ms[name] = cuda_ms(plain, plain_reps)
         self.library_ms[name] = library and cuda_ms(library, 50)
@@ -817,26 +825,36 @@ def slice5_kernels(ctx, scene, settings) -> dict:
     a = atlas.alpha
     check(a is not None and int(atlas.overflow) == 0,
           "the atlas has an alpha stream and drops nothing")
+    # kernel J merges in place onto kernel E's atlas: E again on the
+    # frame's opaque casters gives the atlas J started from
+    init = raster.rasterize_depth(atlas.edges, atlas.pairs, atlas.n_bins_y,
+                                  atlas.n_bins_x, sub=atlas.sub,
+                                  row_skip=True)
     j_args = (a.edges, a.pairs.tile_start, a.pairs.tile_count, a.n_bins_y,
               atlas.n_bins_x, a.sub, False)
     depth_j = raster.rasterize_depth(a.edges, a.pairs, a.n_bins_y,
                                      atlas.n_bins_x, sub=a.sub,
                                      alpha_masks=a.masks,
-                                     init_depth=a.init_depth)
+                                     init_depth=init.clone())
     check(torch.equal(depth_j.view(torch.int32),
-                      raster.depth_plain(*j_args, masks=a.masks,
-                                         init=a.init_depth)
+                      raster.depth_plain(*j_args, masks=a.masks, init=init)
                       .view(torch.int32)),
           "kernel J atlas equals the plain version")
-    uncut_j = raster.depth_plain(*j_args, init=a.init_depth)
-    raised = int((depth_j > a.init_depth).sum())
+    n_cas = settings.shadows.cascade_count
+    check(torch.equal(depth_j, atlas.maps[:n_cas].reshape(depth_j.shape)),
+          "kernel J's result is the frame's atlas")
+    uncut_j = raster.depth_plain(*j_args, init=init)
+    raised = int((depth_j > init).sum())
     rejected_j = int((uncut_j > depth_j).sum())
+    # texels a caster covers and passes: those J reads (and writes if
+    # raised)
+    passing = int((raster.depth_plain(*j_args, masks=a.masks) > 0).sum())
     a_pairs = int(a.pairs.tile_count.sum())
     print(f"kernel J: {a_pairs} alpha caster pairs in {a.n_bins_y} x "
           f"{atlas.n_bins_x} bins of {a.sub * 16} rows; atlas equal; "
-          f"{raised} texels raised over the opaque atlas, {rejected_j} "
-          "texels where the masks rejected every covering caster",
-          flush=True)
+          f"{passing} texels covered by a passing caster, {raised} raised "
+          f"over the opaque atlas, {rejected_j} where the masks rejected "
+          "every covering caster", flush=True)
     check(raised > 0 and rejected_j > 0, "the alpha casters write and cut")
     del uncut_j
 
@@ -877,9 +895,7 @@ def slice5_kernels(ctx, scene, settings) -> dict:
 
     # kernel M's own path: build_pairs(carry_table=...) on the frame's
     # opaque main-view stream, launch counts reset just before it
-    setup_o = dataclasses.replace(
-        mv.setup, edges=mv.setup.edges[:, :4],
-        valid=mv.setup.valid & ~(mv.alpha_slots > 0))
+    setup_o = frame.opaque_stream(mv.setup, mv.alpha_slots > 0)
     table, n_edge = raster.setup_row_table(setup_o, row_extents=True)
     torch.cuda.synchronize()
     native.reset_launch_counts()
@@ -904,42 +920,58 @@ def slice5_kernels(ctx, scene, settings) -> dict:
     check(torch.equal(raster.expand_rows(*m_args),
                       raster.expand_rows_plain(*m_args)),
           "kernel M equals the plain version")
+    live_m = int(ki.cum[-1])
+    n_owners = int(owners[:live_m].unique().numel())
     print(f"kernel M: {table.shape[0]} rows x {ki.budget} slots "
-          f"({int(ki.cum[-1])} live), equal; the carried rows equal "
-          f"gather_pair_setups on all {live} live slots; launches on its "
-          f"path {m_counts}", flush=True)
+          f"({live_m} live, {n_owners} owners), equal; the carried rows "
+          f"equal gather_pair_setups on all {live} live slots; launches on "
+          f"its path {m_counts}", flush=True)
     ctx.extra["m_launches"] = m_counts["expand_rows"]
 
-    # times and bounds from this run's inputs. J reads the opaque atlas
-    # and writes the merged one, reads each pair's 32 rows and the masks;
-    # per (pair, pixel) of its bins 3 edge planes (12 flops), the alpha
-    # work on covered pixels not counted (a lower bound)
-    n_atlas = a.init_depth.numel()
-    j_bytes = (8 * n_atlas + 32 * 4 * a.edges.shape[1] + a.masks.nbytes
+    # times and bounds from this run's inputs, counting what the data
+    # needs: J and K the rows of each live pair that their kernels stage,
+    # the masks and the bin ranges. J, in place, reads the atlas texels a
+    # passing caster covers and writes those it raises; per (pair, pixel)
+    # of its bins 3 edge planes (12 flops), the alpha work on covered
+    # pixels not counted (a lower bound). J is timed on a copy of the
+    # opaque atlas: merging the same casters again does the same work and
+    # leaves it as it is
+    staged = 4 * N_STAGED_ALPHA
+    j_bytes = (4 * passing + 4 * raised + staged * a_pairs + a.masks.nbytes
                + 8 * a.pairs.tile_count.shape[0])
     j_ops = 12 * a_pairs * a.sub * 16 * raster.TILE_W
+    merged = init.clone()
     ctx.kernel("depth_alpha", lambda: raster.rasterize_depth(
         a.edges, a.pairs, a.n_bins_y, atlas.n_bins_x, sub=a.sub,
-        alpha_masks=a.masks, init_depth=a.init_depth), 20,
-        lambda: raster.depth_plain(*j_args, masks=a.masks,
-                                   init=a.init_depth), 2,
+        alpha_masks=a.masks, init_depth=merged), 20,
+        lambda: raster.depth_plain(*j_args, masks=a.masks, init=init), 2,
         (j_bytes / HBM_BYTES_PER_S, j_ops / FP32_OPS_PER_S), 0.0)
+    check(torch.equal(merged, depth_j), "kernel J's timed merges are stable")
+    del init, merged, depth_j
     n_pix = vis_k.numel()
+    k_pairs = int(pa.tile_count.sum())
     k_eval = evaluated_pair_pixels(pe_a, pa, mv.n_tiles_x, mv.sub)
-    k_bytes = (8 * n_pix + 32 * 4 * pe_a.shape[1] + mv.alpha_masks.nbytes
+    k_bytes = (8 * n_pix + staged * k_pairs + mv.alpha_masks.nbytes
                + 8 * pa.tile_count.shape[0])
     ctx.kernel("winner_alpha", lambda: raster.rasterize_winner_alpha(
         pe_a, pa, mv.alpha_masks, mv.n_tiles_y, mv.n_tiles_x, mv.sub, True),
         20, lambda: raster.winner_alpha_plain(*k_args), 2,
         (k_bytes / HBM_BYTES_PER_S, 16 * k_eval / FP32_OPS_PER_S), 0.0)
+    # L reads vis, writes every channel of every pixel, and reads the
+    # attributes of the distinct winning triangles
     covered = int((vis_k >= 0).sum())
+    tri_k = raster.winner_triangle_ids(vis_k, pa, mv.n_tiles_x, mv.sub)
+    winners = int(tri_k[tri_k >= 0].unique().numel())
     l_bytes = (4 * n_pix + 4 * raster.GBUF_CHANNELS * n_pix
-               + 4 * pa_a.shape[0] * pa_a.shape[1] + 4 * pa.tile_start.numel())
+               + 4 * pa_a.shape[0] * winners + 4 * pa.tile_start.numel())
     ctx.kernel("attr_resolve", lambda: raster.resolve_attributes(*l_args),
                20, lambda: raster.attr_resolve_plain(*l_args), 5,
                (l_bytes / HBM_BYTES_PER_S, 80 * covered / FP32_OPS_PER_S),
                err_l)
-    m_bytes = 4 * (ki.budget + table.numel() + table.shape[0] * ki.budget)
+    # M reads the owners of the live slots and the table columns of the
+    # distinct owners, and writes every slot of every row (0 when dead)
+    m_bytes = 4 * (live_m + table.shape[0] * ki.budget
+                   + table.shape[0] * n_owners)
     ctx.kernel("expand_rows", lambda: raster.expand_rows(*m_args), 50,
                lambda: raster.expand_rows_plain(*m_args), 10,
                (m_bytes / HBM_BYTES_PER_S, 0.0), 0.0,
@@ -950,13 +982,15 @@ def slice5_kernels(ctx, scene, settings) -> dict:
                 atlas_alpha_pairs=a_pairs, atlas_alpha_bins=[
                     a.n_bins_y, atlas.n_bins_x], atlas_texels_raised=raised,
                 atlas_texels_rejected=rejected_j,
-                main_alpha_pairs=int(pa.tile_count.sum()),
+                atlas_texels_passing=passing, main_alpha_pairs=k_pairs,
+                main_alpha_winner_triangles=winners,
                 main_alpha_edge_pixels=edge_px,
                 main_alpha_rejected_pixels=rejected,
                 main_alpha_winning_pixels=alpha_wins,
                 main_alpha_evaluated_pair_pixels=k_eval,
                 carry_table=dict(rows=table.shape[0], slots=ki.budget,
-                                 live=int(ki.cum[-1]), launches=m_counts),
+                                 live=live_m, owners=n_owners,
+                                 launches=m_counts),
                 small_banners_close=small)
 
 
@@ -1090,6 +1124,7 @@ def main() -> int:
             ctx.scale = pick_pair_budget_scale(ctx, scene, row)
         settings = dataclasses.replace(slice_settings(row.n, WIDTH, HEIGHT),
                                        pair_budget_scale=ctx.scale)
+        ctx.path = f"slice {row.n} ({row.scene} scene)"
         found = row.kernels(ctx, scene, settings)
         run = drive(ctx, scene, settings, row.warmup, row.timed)
         found.update(check_run(run, row, f"slice {row.n}"))
@@ -1107,7 +1142,8 @@ def main() -> int:
             "source": "plainrenderer_tpu_torch/csrc/" + source,
             "replaces": "plainrenderer_tpu/ops/" + replaces,
             "launches": run["launches"][name],
-            "path": "render_frame, slice 5",
+            "launches_on": f"render_frame, slice {SLICES[-1].n}",
+            "timed_on": ctx.timed_on[name],
             "max_abs_err": ctx.errors[name], "ms": ctx.ms[name],
             "plain_ms": ctx.plain_ms[name],
             "bound_ms": max(by_bytes, by_ops) * 1e3,
@@ -1117,7 +1153,7 @@ def main() -> int:
             entry.update(ctx.extra["atlas_keys"])
         if name == "expand_rows":  # not on the frame: its own path
             entry.update(launches=ctx.extra["m_launches"],
-                         path="build_pairs(carry_table=...)",
+                         launches_on="build_pairs(carry_table=...)",
                          frame_launches=run["launches"][name])
         kernels.append(entry)
     ctx.report.update(kernels=kernels, total_s=time.time() - t_start)

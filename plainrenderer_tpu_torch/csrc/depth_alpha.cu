@@ -10,9 +10,9 @@
 // plain_alpha_passes: the perspective-correct uv of planes 4-6 picks one
 // bit of the pair's 64x64 mask), as the integer max of the positive f32
 // bits. The _acc body starts from init_depth's bits instead of 0: the
-// wrapper (ops/raster.py:rasterize_depth) hands the kernel a copy of
-// init_depth as its output, and the kernel max-merges into it, so one
-// kernel serves both bodies. Planes evaluate as a*x + (b*y + c) with
+// wrapper (ops/raster.py:rasterize_depth) hands the kernel init_depth
+// itself as its output, and the kernel max-merges into it in place, so
+// one kernel serves both bodies. Planes evaluate as a*x + (b*y + c) with
 // separately rounded multiplies and adds, the uv math with _rn
 // intrinsics, so kernel and plain version (ops/raster.py:depth_plain)
 // agree on every texel: one ulp of u at a 1/64 texel edge would flip a
@@ -21,12 +21,13 @@
 // Bound and design on the H100: kernel E's work-item design (depth.cu):
 // DEPTH_CHUNK-pair slices of each bin, taken by persistent blocks from an
 // atomic counter, merged into the atlas by atomicMax on the depth bits
-// (an integer max, so the order does not matter). It must read and write
-// the atlas once (3 x 2048^2 f32 at the bench framing, ~100 MB, ~0.03 ms
-// at 3.35 TB/s): the alpha stream is a few thousand pairs, so the atlas
-// copy dominates. The 24 staged rows of a slice (24 KB) and the mask table
-// (n_masks x 128 words, <= 4 KB) sit in shared memory; the per-pair slot
-// test is uniform across the block, so opaque pairs skip the uv work.
+// (an integer max, so the order does not matter). Merged in place, it
+// touches only the texels that a passing caster covers, a small part of
+// the atlas: the alpha stream is a few thousand pairs, so the work is
+// small and launch-sized. The 24 staged rows of a slice (24 KB) and the
+// mask table (n_masks x 128 words, <= 4 KB) sit in shared memory; the
+// per-pair slot test is uniform across the block, so opaque pairs skip
+// the uv work.
 #include "common.cuh"
 
 #define DEPTH_CHUNK 256  // pairs per work item; = ops/raster.py:DEPTH_CHUNK

@@ -963,8 +963,10 @@ def rasterize_depth(pair_edges, pairs: PairLists, n_tiles_y: int,
     Opaque casters (16-row pair_edges): kernel E, csrc/depth.cu, replaces
     raster.py:1465 _depth_kernel. With alpha_masks (32-row pair_edges):
     kernel J, csrc/depth_alpha.cu, replaces _depth_kernel_alpha (:1474)
-    and, with init_depth (the opaque pass's (H, W) depth, max-merged bit
-    for bit), _depth_kernel_alpha_acc (:1483)."""
+    and, with init_depth (the opaque pass's (H, W) depth),
+    _depth_kernel_alpha_acc (:1483): the alpha casters are max-merged bit
+    for bit into init_depth in place, which is returned (the opaque atlas
+    is not kept, so the merge copies nothing)."""
     dev = pair_edges.device
     alpha = alpha_masks is not None
     _require(pair_edges, "pair_edges", torch.float32, 2, dev)
@@ -987,9 +989,10 @@ def rasterize_depth(pair_edges, pairs: PairLists, n_tiles_y: int,
     if not 1 <= sub <= 8:  # kernels E and J: blocks of 128 * sub threads
         raise ValueError(f"sub must be in [1, 8], got {sub}")
     if not _kernel_device(pair_edges):
-        return depth_plain(pair_edges, pairs.tile_start, pairs.tile_count,
-                           n_tiles_y, n_tiles_x, sub, row_skip,
-                           masks=alpha_masks, init=init_depth)
+        depth = depth_plain(pair_edges, pairs.tile_start, pairs.tile_count,
+                            n_tiles_y, n_tiles_x, sub, row_skip,
+                            masks=alpha_masks, init=init_depth)
+        return depth if init_depth is None else init_depth.copy_(depth)
     # work items: DEPTH_CHUNK-pair slices of each bin's segment, handed out
     # by an atomic counter to persistent blocks (heavy bins spread over
     # many blocks; their results merge by an integer atomicMax)
@@ -997,10 +1000,9 @@ def rasterize_depth(pair_edges, pairs: PairLists, n_tiles_y: int,
                          rounding_mode="floor")
     chunk_end = torch.cumsum(n_chunks, 0, dtype=torch.int32)
     counter = torch.zeros((1,), dtype=torch.int32, device=dev)
-    if init_depth is None:
+    depth = init_depth
+    if depth is None:
         depth = torch.zeros((h, w), dtype=torch.float32, device=dev)
-    else:
-        depth = init_depth.clone()
     if not alpha:
         native.launch("depth_launch", pair_edges, pairs.tile_start,
                       pairs.tile_count, chunk_end, counter, depth,

@@ -247,6 +247,14 @@ def _bin_main_stream(mv: MainView, setup: raster.TriangleSetup,
                                               row_extents=True))
 
 
+def opaque_stream(setup: raster.TriangleSetup,
+                  is_alpha: torch.Tensor) -> raster.TriangleSetup:
+    """The opaque stream of an 8-plane setup: its 4 opaque planes, the
+    alpha-tested triangles (is_alpha) left out (frame.py:469-472, :648-651)."""
+    return dataclasses.replace(setup, edges=setup.edges[:, :4],
+                               valid=setup.valid & ~is_alpha)
+
+
 def raster_main_view(mv: MainView, timer=None) -> MainRaster:
     """Binning (kernel A) + G-buffer raster (kernel B) of the main view.
     order_rows + row_skip: y-sorted bin segments let the raster skip
@@ -263,8 +271,7 @@ def raster_main_view(mv: MainView, timer=None) -> MainRaster:
         is_alpha = mv.alpha_slots > 0
         pairs_a, pe_a, pa_a = _bin_main_stream(mv, dataclasses.replace(
             setup, valid=setup.valid & is_alpha), mv.alpha_budget)
-        setup = dataclasses.replace(setup, edges=setup.edges[:, :4],
-                                    valid=setup.valid & ~is_alpha)
+        setup = opaque_stream(setup, is_alpha)
     pairs, pe, pa = _bin_main_stream(mv, setup, budget)
     _mark(timer, "gbuffer")
     depth, vis, gbuf = raster.rasterize_gbuffer(
@@ -357,7 +364,6 @@ class AlphaCasters:
     pairs: raster.PairLists
     edges: torch.Tensor  # (32, P) pair edge rows
     masks: torch.Tensor  # (n, 128) i32
-    init_depth: torch.Tensor  # the opaque casters' atlas (kernel E)
     n_bins_y: int  # atlas bins of sub * 16 rows
     sub: int
     pair_budget: int
@@ -371,7 +377,8 @@ def render_shadow_atlas(scene: dict, cam: dict, depth: torch.Tensor,
     the single-device branches). With alpha masks the alpha-tested
     casters are a second stream (frame.py:637-723): re-binned on
     a_sub = min(4, sub) bins from their fine rows, without row order, and
-    rasterized by kernel J onto the opaque atlas (init_depth)."""
+    rasterized by kernel J, max-merged in place onto kernel E's opaque
+    atlas."""
     consts = _frame_constants(settings, depth.device)
     n_cas = settings.shadows.cascade_count
     d_min, d_max = hiz.depth_min_max(depth)
@@ -398,8 +405,7 @@ def render_shadow_atlas(scene: dict, cam: dict, depth: torch.Tensor,
     setup_o = setup
     if masks is not None:
         is_alpha = (slots > 0).repeat(n_cas)
-        setup_o = dataclasses.replace(setup, edges=setup.edges[:, :4],
-                                      valid=setup.valid & ~is_alpha)
+        setup_o = opaque_stream(setup, is_alpha)
     pairs = raster.build_pairs(setup_o, nb, s_ntx, pair_budget=budget,
                                bin_rows=s_sub, order_rows=True,
                                n_views=n_cas, tile_cap=1 << 15)
@@ -428,11 +434,9 @@ def render_shadow_atlas(scene: dict, cam: dict, depth: torch.Tensor,
         edges_a, _ = raster.gather_pair_setups(setup_a, pairs_a,
                                                with_attrs=False)
         alpha = AlphaCasters(pairs=pairs_a, edges=edges_a, masks=masks,
-                             init_depth=atlas, n_bins_y=a_nb, sub=a_sub,
-                             pair_budget=a_budget)
-        atlas = raster.rasterize_depth(edges_a, pairs_a, a_nb, s_ntx,
-                                       sub=a_sub, alpha_masks=masks,
-                                       init_depth=atlas)
+                             n_bins_y=a_nb, sub=a_sub, pair_budget=a_budget)
+        raster.rasterize_depth(edges_a, pairs_a, a_nb, s_ntx, sub=a_sub,
+                               alpha_masks=masks, init_depth=atlas)
         overflow = overflow + pairs_a.overflow
     maps = atlas.reshape(n_cas, sres, sres)
     if n_cas < shadow.MAX_CASCADES:

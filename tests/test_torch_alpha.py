@@ -275,7 +275,8 @@ def test_alpha_depth_plain_matches_jax(alpha_case, with_init):
     te, _ = tr.gather_pair_setups(t_setup, tp, with_attrs=False)
     t = tr.rasterize_depth(te, tp, NTY, NTX, sub=SUB,
                            alpha_masks=torch.as_tensor(masks),
-                           init_depth=t_init).numpy()
+                           init_depth=None if t_init is None
+                           else t_init.clone()).numpy()
     _check_edges_only(np.abs(t - j) > 1e-6, t_setup.edges.numpy(), W, H)
     # the masks cut: without them more texels are covered
     uncut = tr.depth_plain(te, tp.tile_start, tp.tile_count, NTY, NTX, SUB,
@@ -288,9 +289,9 @@ def test_alpha_depth_plain_matches_jax(alpha_case, with_init):
 
 def test_split_atlas_streams_equal_single_stream(alpha_case):
     """The port's opaque/alpha atlas split (4-plane kernel-E pass, then the
-    alpha stream max-merged by kernel J's init_depth) equals its single
-    8-plane alpha raster bit for bit (tests/test_raster.py:400-456 holds
-    the same for JAX)."""
+    alpha stream max-merged in place into it by kernel J's init_depth)
+    equals its single 8-plane alpha raster bit for bit
+    (tests/test_raster.py:400-456 holds the same for JAX)."""
     _, t_setup, masks, slots = alpha_case
     m = torch.as_tensor(masks)
     pairs = tr.build_pairs(t_setup, NTY, NTX, bin_rows=SUB, order_rows=True)
@@ -307,8 +308,10 @@ def test_split_atlas_streams_equal_single_stream(alpha_case):
     d0 = tr.rasterize_depth(eo, po, NTY, NTX, sub=SUB, row_skip=True)
     pa = tr.build_pairs(sa, NTY, NTX, bin_rows=SUB, order_rows=True)
     ea, _ = tr.gather_pair_setups(sa, pa, row_extents=True, with_attrs=False)
+    merged = d0.clone()
     split = tr.rasterize_depth(ea, pa, NTY, NTX, sub=SUB, row_skip=True,
-                               alpha_masks=m, init_depth=d0)
+                               alpha_masks=m, init_depth=merged)
+    assert split is merged
     np.testing.assert_array_equal(split.view(torch.int32).numpy(),
                                   single.view(torch.int32).numpy())
     assert (split > d0).any() and (split > 0).float().mean() > 0.3

@@ -403,7 +403,7 @@ def _alpha_case(device, rng, n=600, width=512, height=256, sub=2):
                           (8, False, False)])
 def test_depth_alpha_kernel_equals_plain(cuda, sub, row_skip, with_init):
     """Kernel J, both bodies (with init_depth: the opaque pass's depth,
-    max-merged): equal to its plain version on every texel."""
+    max-merged in place): equal to its plain version on every texel."""
     rng = np.random.default_rng(17)
     setup, masks = _alpha_case(cuda, rng, sub=sub)
     nb, ntx = 256 // (16 * sub), 4
@@ -417,10 +417,12 @@ def test_depth_alpha_kernel_equals_plain(cuda, sub, row_skip, with_init):
                                   pairs.tile_count, nb, ntx, sub, False)
         init = torch.where(init > 0.5, init, 0.0)
     before = native.launch_counts()["depth_alpha"]
+    merged = None if init is None else init.clone()
     depth = raster.rasterize_depth(pe, pairs, nb, ntx, sub=sub,
                                    row_skip=row_skip, alpha_masks=masks,
-                                   init_depth=init)
+                                   init_depth=merged)
     assert native.launch_counts()["depth_alpha"] == before + 1
+    assert merged is None or depth is merged
     depth_p = raster.depth_plain(pe, pairs.tile_start, pairs.tile_count, nb,
                                  ntx, sub, row_skip, masks=masks, init=init)
     torch.testing.assert_close(depth.view(torch.int32),
