@@ -15,7 +15,11 @@ the default RenderSettings() with TAA, bloom and fog (I; the golden
 scene on the card against tests/golden_frame.npz and the CPU); 5
 bench.py's own scene, the textured atrium with its 4 alpha-tested
 banners (J, K, L; M in a phase of its own, build_pairs(carry_table=...)
-on the frame's main-view setup). Each row
+on the frame's main-view setup; A-I checked and timed again on this
+scene's inputs); 6 the same scene with its 12 boxes moving in the raster
+and the SDF and texture_filter 2 (the variants of B and L with the
+previous-NDC channels, D's trilinear and anisotropic branches, M at 56
+rows; the previous NDC, the recomposited SDF). Each row
 holds its kernels to their plain PyTorch versions on a real frame's
 inputs (the rule is printed with each result), a small scene on the card
 to the CPU plain path (> 99.9% of pixels within 2 LSB), times each
@@ -50,11 +54,12 @@ from plainrenderer_tpu_torch import config, native
 from plainrenderer_tpu_torch.assets import procedural
 from plainrenderer_tpu_torch.assets.textures import MAX_MIPS
 from plainrenderer_tpu_torch.ops import (color_packing, post, raster,
-                                         sdf_scene, sdfgi, shadow, taa,
-                                         texture)
+                                         sdf_scene, sdfgi, shade, shadow,
+                                         taa, texture)
 from plainrenderer_tpu_torch.render import frame, scenebuild
 from plainrenderer_tpu_torch.render.state import initial_state
 from plainrenderer_tpu_torch.scene import camera as cam_mod
+from plainrenderer_tpu_torch.utils import mathutils
 from plainrenderer_tpu_torch.utils.timing import PassTimer
 
 ROOT = Path(__file__).resolve().parent
@@ -122,13 +127,16 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def slice_settings(n: int, width: int, height: int, **shadows):
-    """Slice n's RenderSettings: 4 the defaults (TAA tech 4, bloom, fog,
-    GI, 3 sun cascades of 2048^2); 3 without TAA, bloom and fog; 2 also
+    """Slice n's RenderSettings: 4 and 5 the defaults (TAA tech 4, bloom,
+    fog, GI, 3 sun cascades of 2048^2); 6 with anisotropic texture
+    filtering (texture_filter 2); 3 without TAA, bloom and fog; 2 also
     without GI; 1 also without shadows."""
     off = dict(enabled=False)
     drop = dict(taa=config.TAASettings(**off),
                 bloom=config.BloomSettings(**off),
                 volumetrics=config.VolumetricsSettings(**off)) if n <= 3 else {}
+    if n >= 6:
+        drop["shading"] = config.ShadingConfig(texture_filter=2)
     if n <= 2:
         drop["sdf_trace"] = config.SDFTraceSettings(**off)
     if n <= 1:
@@ -158,8 +166,9 @@ def evaluated_pair_pixels(pair_edges, pairs, n_tiles_x: int, sub: int):
 
 
 class Ctx:
-    """What the rows share: device, cameras, LUTs, scenes and the
-    per-kernel results the kernels line is made of."""
+    """What the rows share: device, cameras, LUTs, scenes, the per-frame
+    object motions of dynamic scenes and the per-kernel results the
+    kernels line is made of."""
 
     def __init__(self, dev):
         self.dev = dev
@@ -167,17 +176,44 @@ class Ctx:
         self.bounds, self.errors, self.extra = {}, {}, {}
         self.scenes, self.scale, self.report = {}, 1.0, {}
         self.path, self.timed_on = "", {}
+        self.earlier, self.variants, self.motions = {}, {}, {}
 
     def kernel(self, name, fn, reps, plain, plain_reps, bound, err,
-               library=None):
+               library=None, variant=None):
         """Time kernel `name`, its plain version and its PyTorch yardstick
         (CUDA events); keep its bound (bytes s, operations s), its error
-        and the row whose inputs timed it (self.path)."""
+        and the row whose inputs timed it (self.path). A kernel timed again
+        keeps its earlier time in `earlier`; a variant (another branch of
+        the same kernel) goes into `variants` beside the default one."""
+        result = dict(timed_on=self.path, ms=cuda_ms(fn, reps),
+                      plain_ms=cuda_ms(plain, plain_reps),
+                      library_ms=library and cuda_ms(library, 50),
+                      max_abs_err=err, bound_ms=max(bound) * 1e3,
+                      bound_by="bytes" if bound[0] >= bound[1]
+                      else "operations")
+        if variant is not None:
+            self.variants.setdefault(name, {})[variant] = result
+            return
+        if name in self.ms:
+            self.earlier.setdefault(name, []).append(dict(
+                timed_on=self.timed_on[name], ms=self.ms[name],
+                plain_ms=self.plain_ms[name]))
         self.timed_on[name] = self.path
-        self.ms[name] = cuda_ms(fn, reps)
-        self.plain_ms[name] = cuda_ms(plain, plain_reps)
-        self.library_ms[name] = library and cuda_ms(library, 50)
+        self.ms[name], self.plain_ms[name] = result["ms"], result["plain_ms"]
+        self.library_ms[name] = result["library_ms"]
         self.bounds[name], self.errors[name] = bound, err
+
+
+def scene_at(ctx, scene, i: int):
+    """Frame i's scene: a dynamic scene (one with a motion in ctx.motions)
+    gets that frame's model matrices and the previous frame's, rows of a
+    (frames + 1, O, 4, 4) device tensor made before the run, so that the
+    frame copies nothing from the host."""
+    mats = ctx.motions.get(id(scene))
+    if mats is None:
+        return scene
+    return dict(scene, object_transforms=mats[i + 1],
+                prev_object_transforms=mats[i])
 
 
 def drive(ctx, scene, settings, warmup: int, timed: int):
@@ -199,8 +235,8 @@ def drive(ctx, scene, settings, warmup: int, timed: int):
                 torch.cuda.set_sync_debug_mode("warn")
             timer = PassTimer() if i >= warmup else None
             image, state = frame.render_frame(
-                state, scene, ctx.cams[i], ctx.luts, 1.0 / 60.0, settings,
-                device=ctx.dev, timer=timer)
+                state, scene_at(ctx, scene, i), ctx.cams[i], ctx.luts,
+                1.0 / 60.0, settings, device=ctx.dev, timer=timer)
             counters.append(state.debug_counters)
             if timer is not None:
                 timers.append(timer)
@@ -269,25 +305,34 @@ def check_run(run: dict, row, what: str) -> dict:
 
 
 def small_images(ctx, settings, textured: bool, gi: bool = False,
-                 moving: bool = False, banners: bool = False):
+                 moving: bool = False, banners: bool = False,
+                 dynamic: bool = False):
     """3 frames of the small atrium at 256x128 on the card (kernels) and on
     the CPU (plain versions): the two u8 images. With gi, the scene SDF is
     baked on the card at 16^3 per mesh and attached on both sides; with
     moving, the camera moves a little every frame (a static camera puts
     the GI history window's edge test on exact ties, where rounding noise
     in the motion decides); with banners, the small banner atrium from the
-    JAX test's camera."""
+    JAX test's camera; with dynamic, its first box moves (box_motions) in
+    the raster and, with gi, in the SDF."""
     scene_data = procedural.build_atrium_scene(
         procedural.AtriumConfig(**(SMALL_BANNERS if banners
                                    else SMALL_ATRIUM)), textured=textured)
     rs = scenebuild.build_render_scene(scene_data)
+    boxes = box_objects(SMALL_ATRIUM)[:1] if dynamic else ()
     gsdf = sdf_scene.build_scene_sdf(
-        rs, scene_data, bake_resolution_cap=16, device=ctx.dev) if gi else None
+        rs, scene_data, bake_resolution_cap=16, device=ctx.dev,
+        dynamic_objects=boxes) if gi else None
     images = []
     for d in (ctx.dev, "cpu"):
         sc = frame.scene_to_device(rs, device=d)
-        if gi:
+        if gi and dynamic:
+            sc = frame.attach_dynamic_sdf(
+                frame.attach_global_sdf(sc, gsdf[0]), gsdf[1])
+        elif gi:
             sc = frame.attach_global_sdf(sc, gsdf)
+        mats = box_motions(rs.object_matrices, boxes, 3, d) if dynamic \
+            else None
         lt = {k: v.to(d) for k, v in ctx.luts.items()}
         st = initial_state(256, 128, device=d)
         for i in range(3):
@@ -299,7 +344,10 @@ def small_images(ctx, settings, textured: bool, gi: bool = False,
                     yaw_deg=20.0 + 0.3 * k)
             cm = frame.camera_arrays(ext.position, ext.forward, ext.right,
                                      ext.up, device=d)
-            img, st = frame.render_frame(st, sc, cm, lt, 0.016, settings,
+            sc_i = sc if mats is None else dict(
+                sc, object_transforms=mats[i + 1],
+                prev_object_transforms=mats[i])
+            img, st = frame.render_frame(st, sc_i, cm, lt, 0.016, settings,
                                          device=d)
         images.append(img.cpu().numpy().astype(np.int32))
         if textured:
@@ -391,40 +439,47 @@ SCENES = {"untextured": lambda ctx: atrium_scene(ctx, "untextured", False, 4),
           "textured": lambda ctx: atrium_scene(ctx, "textured", True, 0),
           "sdf": lambda ctx: sdf_atrium_scene(ctx, "textured", "sdf"),
           "banners": lambda ctx: atrium_scene(ctx, "banners", True, 4),
-          "bench": lambda ctx: sdf_atrium_scene(ctx, "banners", "sdf_bench")}
+          "bench": lambda ctx: sdf_atrium_scene(ctx, "banners", "sdf_bench"),
+          "bench_dynamic": lambda ctx: dynamic_atrium_scene(ctx)}
 
 
-# --------------------- per-slice kernel comparisons ---------------------
+# --------------- kernel checks and timings, shared by rows ---------------
 
-def check_keys(ki, what: str, per: str):
-    """Kernel A's keys and owners equal to its plain version; returns the
-    live pairs and the bound (bytes s, operations s): it reads 3 words per
-    triangle and writes 2 per slot, and a live pair costs a binary search
-    over the triangles plus ~20 ops."""
-    keys_k, own_k = raster.expand_keys(ki)
-    keys_p, own_p = raster.expand_keys_plain(ki)
-    check(torch.equal(keys_k, keys_p) and torch.equal(own_k, own_p),
-          f"{what} keys/owners equal the plain version")
-    live, t = int(ki.cum[-1]), ki.cum.shape[0]
-    print(f"{what}: {ki.budget} slots, {live} live, {per}={ki.tpv}: equal",
-          flush=True)
-    return live, (4 * (3 * t + 2 * ki.budget) / HBM_BYTES_PER_S,
-                  live * (3 * max(1, int(np.ceil(np.log2(t)))) + 20)
-                  / INT32_OPS_PER_S)
+def texture_kwargs(settings) -> dict:
+    """Kernel D's keywords as the frame passes them (frame.py:548-558)."""
+    taa_bias = settings.taa.enabled and settings.taa.use_mip_bias
+    return dict(n_mips=MAX_MIPS, mip_bias=-1.0 if taa_bias else 0.0,
+                trilinear=settings.shading.texture_filter >= 1,
+                aniso=settings.shading.texture_filter >= 2,
+                two_mat=settings.shading.texture_two_mat)
 
 
-def slice1_kernels(ctx, scene, settings) -> dict:
-    """Kernels A, B, C at frame 0's shapes against their plain versions."""
-    mv = frame.main_view_setup(scene, ctx.cams[0], settings)
-    ki = raster.pair_key_inputs(mv.setup, mv.n_tiles_y, mv.n_tiles_x,
-                                mv.pair_budget, mv.sub, order_rows=True)
-    live_pairs, a_bound = check_keys(ki, "kernel A", "T")
-    main = frame.raster_main_view(mv)
-    pairs, pe, pa = main.pairs, main.pair_edges, main.pair_attrs
-    depth_k, vis_k, gbuf_k = main.depth, main.vis, main.gbuf
-    check(int(pairs.overflow) == 0, "no pairs dropped at the bench framing")
+def time_keys(ctx, ki=None, bound=None, atlas_ki=None, atlas_bound=None):
+    """Kernel A on a main-view stream and (given) on the atlas's."""
+    if ki is not None:
+        ctx.kernel("expand_keys", lambda: raster.expand_keys(ki), 50,
+                   lambda: raster.expand_keys_plain(ki), 10, bound, 0.0)
+    if atlas_ki is not None:
+        ctx.extra["atlas_keys"] = dict(
+            atlas_ms=cuda_ms(lambda: raster.expand_keys(atlas_ki), 50),
+            atlas_plain_ms=cuda_ms(
+                lambda: raster.expand_keys_plain(atlas_ki), 10),
+            atlas_bound_ms=max(atlas_bound) * 1e3,
+            atlas_timed_on=ctx.path)
+
+
+def check_and_time_b(ctx, mv, pairs, pe, pa, what="kernel B",
+                     variant=None):
+    """Kernel B on one opaque stream against its plain version (the raster
+    rule: <= 1e-3 of pixels differ in winner or depth, channels within
+    1e-4 where the winners agree), then timed with its bound: it writes
+    depth, vis and every channel and reads the pair tables; 4 planes x 3
+    flops per evaluated (pair, pixel) + ~80 flops per covered pixel.
+    Returns (pixels differing, max |err|, covered share, evaluated)."""
     gb_args = (pe, pa, pairs.tile_start, pairs.tile_count, mv.n_tiles_y,
                mv.n_tiles_x, mv.sub, True)
+    depth_k, vis_k, gbuf_k = raster.rasterize_gbuffer(
+        pe, pa, pairs, mv.n_tiles_y, mv.n_tiles_x, sub=mv.sub, row_skip=True)
     depth_p, vis_p, gbuf_p = raster.gbuffer_plain(*gb_args)
     ids_k = raster.winner_triangle_ids(vis_k, pairs, mv.n_tiles_x, mv.sub)
     ids_p = raster.winner_triangle_ids(vis_p, pairs, mv.n_tiles_x, mv.sub)
@@ -433,84 +488,64 @@ def slice1_kernels(ctx, scene, settings) -> dict:
     both = (ids_k >= 0) & (ids_k == ids_p)
     err_b = float((gbuf_k - gbuf_p).abs()[:, both].max())
     covered = float((vis_k >= 0).float().mean())
-    print(f"kernel B: {frac_differ:.3e} of pixels differ (limit 1e-3), "
-          f"channels max |err| {err_b:.3e} (limit 1e-4), "
-          f"{covered:.3f} covered", flush=True)
-    check(frac_differ <= 1e-3, "kernel B winners/depth vs plain")
-    check(err_b <= 1e-4, "kernel B channels vs plain")
-    check(covered > 0.3, "the frame covers the screen")
-    mat_id = torch.floor(gbuf_k[raster._CH_MAT] * 0.5)
-    valid = vis_k >= 0
+    n_ch = gbuf_k.shape[0]
+    print(f"{what}: {pa.shape[0]} attribute rows, {n_ch} channels; "
+          f"{frac_differ:.3e} of pixels differ (limit 1e-3), channels max "
+          f"|err| {err_b:.3e} (limit 1e-4), {covered:.3f} covered",
+          flush=True)
+    check(frac_differ <= 1e-3, f"{what} winners/depth vs plain")
+    check(err_b <= 1e-4, f"{what} channels vs plain")
+    del depth_p, vis_p, gbuf_p
+    n_pix = vis_k.numel()
+    b_bytes = 4 * (pe.shape[0] + pa.shape[0]) * pe.shape[1] \
+        + 8 * pairs.tile_start.shape[0] + n_pix * 4 * (2 + n_ch)
+    evaluated = evaluated_pair_pixels(pe, pairs, mv.n_tiles_x, mv.sub)
+    b_ops = 12 * evaluated + (80 + 10 * (n_ch - 13)) * float(
+        (vis_k >= 0).sum())
+    ctx.kernel("gbuffer", lambda: raster.rasterize_gbuffer(
+        pe, pa, pairs, mv.n_tiles_y, mv.n_tiles_x, sub=mv.sub,
+        row_skip=True), 20, lambda: raster.gbuffer_plain(*gb_args), 2,
+        (b_bytes / HBM_BYTES_PER_S, b_ops / FP32_OPS_PER_S), err_b,
+        variant=variant)
+    return frac_differ, err_b, covered, evaluated
+
+
+def check_and_time_c(ctx, scene, gbuf, vis):
+    """Kernel C on the frame's material ids, exact; yardstick one PyTorch
+    gather of the same table rows (pixel-major output; the id clip and
+    valid select folded into a precomputed index into a table with a zero
+    row 128)."""
+    mat_id = torch.floor(gbuf[raster._CH_MAT] * 0.5)
+    valid = vis >= 0
     table = post.material_table_lanes(scene["material_table"])
     check(torch.equal(post.material_kernel(table, mat_id, valid),
                       post.material_plain(table, mat_id, valid)),
           "kernel C equals the plain version")
     print("kernel C: equal", flush=True)
-    n_pix = vis_k.numel()
-    ctx.kernel("expand_keys", lambda: raster.expand_keys(ki), 50,
-               lambda: raster.expand_keys_plain(ki), 10, a_bound, 0.0)
-    b_bytes = 4 * (pe.shape[0] + pa.shape[0]) * pe.shape[1] \
-        + 8 * pairs.tile_start.shape[0] + n_pix * 4 * (2 + 13)
-    evaluated = evaluated_pair_pixels(pe, pairs, mv.n_tiles_x, mv.sub)
-    # 4 planes x (mul + add + add) per evaluated (pair, pixel) + about 80
-    # flops of attribute evaluation per covered pixel
-    b_ops = 12 * evaluated + 80 * float((vis_k >= 0).sum())
-    ctx.kernel("gbuffer", lambda: raster.rasterize_gbuffer(
-        pe, pa, pairs, mv.n_tiles_y, mv.n_tiles_x, sub=mv.sub,
-        row_skip=True), 20, lambda: raster.gbuffer_plain(*gb_args), 2,
-        (b_bytes / HBM_BYTES_PER_S, b_ops / FP32_OPS_PER_S), err_b)
-    # yardstick for kernel C: one PyTorch gather of the same table rows
-    # (pixel-major output; the id clip and valid select are folded into a
-    # precomputed index into a table with a zero row 128)
     table_rows = torch.cat([table.T, torch.zeros(1, table.shape[0],
                                                  device=ctx.dev)])
     gather_idx = torch.where(valid, mat_id.long().clamp(0, 127),
                              128).reshape(-1)
+    n_pix = vis.numel()
     c_bytes = n_pix * (4 + 1 + 4 * table.shape[0]) + table.numel() * 4
     ctx.kernel("material", lambda: post.material_kernel(table, mat_id, valid),
                50, lambda: post.material_plain(table, mat_id, valid), 20,
                (c_bytes / HBM_BYTES_PER_S, 0.0), 0.0,
                lambda: table_rows.index_select(0, gather_idx))
-    small = small_card_vs_cpu(ctx, 1, textured=False)
-    return dict(gbuffer_pixels_differ=frac_differ, small_close=small,
-                live_pairs=live_pairs, pair_budget=ki.budget,
-                evaluated_pair_pixels=evaluated)
 
 
-def pick_pair_budget_scale(ctx, scene, row):
-    """The smallest power-of-two pair budget scale that drops nothing over
-    the camera path (the JAX app escalates the same way,
-    runtime/app.py:197)."""
-    scale = 1.0
-    while True:
-        settings = dataclasses.replace(slice_settings(row.n, WIDTH, HEIGHT),
-                                       pair_budget_scale=scale)
-        probe = drive(ctx, scene, settings, len(ctx.cams), 0)
-        dropped = probe["counters"].max(axis=0).tolist()
-        print(f"pair_budget_scale {scale}: most dropped per frame "
-              f"(main, atlas) {dropped}", flush=True)
-        if max(dropped) == 0:
-            return scale
-        scale *= 2.0
-        check(scale <= 64.0, "pair budget scale bounded")
-
-
-def slice2_kernels(ctx, scene, settings) -> dict:
-    """Kernel D, the shadow atlas's multi-view keys (kernel A), depth
-    raster (kernel E) and PCF resolve (kernel F) on frame 0's inputs,
-    recorded on their way into the kernels."""
-    n_cas = settings.shadows.cascade_count
-    sres = settings.shadows.resolution
-    taps = settings.shadows.pcf_taps
-    rec = record_frames(ctx, scene, settings, 1,
-                        [(texture, "sample_materials"),
-                         (frame, "render_shadow_atlas"),
-                         (shadow, "shadow_resolve")])
-    targs = rec["sample_materials"][0]
+def check_and_time_d(ctx, scene, targs, kw, what="kernel D",
+                     variant=None) -> dict:
+    """Kernel D on a frame's recorded inputs against its plain version (ok
+    equal on every pixel, values within 1e-5 where ok), then timed with
+    its bound: uv, 4 derivatives, id and valid (29 B) read and 9 f32 (36
+    B) written per pixel, plus one 24x256 window of both words per
+    sampled (tile, material, mip); no single PyTorch call computes a
+    windowed, fallback-masked brick sample."""
     mat_id, valid = targs[2], targs[3]
     n_pix = valid.numel()
-    tex_k = texture.sample_materials(*targs, n_mips=MAX_MIPS)
-    tex_p = texture.sample_plain(*targs, MAX_MIPS)
+    tex_k = texture.sample_materials(*targs, **kw)
+    tex_p = texture.sample_plain(*targs, **kw)
     ok_k, ok_p = tex_k[8] > 0.5, tex_p[8] > 0.5
     both_ok = ok_k & ok_p
     val_err = (tex_k[:8] - tex_p[:8]).abs().amax(dim=0)
@@ -519,25 +554,39 @@ def slice2_kernels(ctx, scene, settings) -> dict:
     tiles_differ = float(texture.to_thread_layout(bad_px).flatten(1)
                          .any(dim=1).float().mean())
     ok_share = float(ok_k[valid].float().mean())
-    print(f"kernel D: ok equal on {float((ok_k == ok_p).float().mean()):.6f}"
-          f" of pixels, values max |err| {err_d:.3e} (limit 1e-5), "
-          f"{tiles_differ:.3e} of tiles differ; {ok_share:.4f} of covered "
-          "pixels textured", flush=True)
-    check(bool((ok_k == ok_p).all()), "kernel D ok channel vs plain")
-    check(err_d <= 1e-5, "kernel D values vs plain")
-    check(ok_share > 0.5, "most covered pixels are textured")
+    flags = {k: kw[k] for k in ("trilinear", "aniso", "two_mat",
+                                "mip_bias")}
+    print(f"{what} {flags}: ok equal on "
+          f"{float((ok_k == ok_p).float().mean()):.6f} of pixels, values "
+          f"max |err| {err_d:.3e} (limit 1e-5), {tiles_differ:.3e} of "
+          f"tiles differ; {ok_share:.4f} of covered pixels textured",
+          flush=True)
+    check(bool((ok_k == ok_p).all()), f"{what} ok channel vs plain")
+    check(err_d <= 1e-5, f"{what} values vs plain")
     n_valid_t, dom_t, _, needs2_t = texture.tile_materials(
         texture.to_thread_layout(mat_id).to(torch.int32),
         texture.to_thread_layout(valid), scene["mat_tex"])
-    windows = int(((scene["mat_tex"][dom_t.long()] >= 0)
-                   & (n_valid_t > 0)).sum() + needs2_t.sum())
-    atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
-    check(int(atlas.pairs.overflow) == 0, "no atlas pairs dropped")
-    ki2 = raster.pair_key_inputs(atlas.setup, atlas.n_bins_y,
-                                 atlas.n_bins_x, atlas.pair_budget,
-                                 atlas.sub, order_rows=True, n_views=n_cas)
-    atlas_live, atlas_bound = check_keys(
-        ki2, f"kernel A (atlas, {n_cas} views)", "T/view")
+    dom_windows = int(((scene["mat_tex"][dom_t.long()] >= 0)
+                       & (n_valid_t > 0)).sum())
+    windows = (2 * dom_windows if kw["trilinear"]
+               else dom_windows + int(needs2_t.sum()) * kw["two_mat"])
+    # taps per sampled pixel: 4 texels of 2 words per bilinear tap, 3 taps
+    # under aniso, 2 windows under trilinear; ~60 flops per tap
+    taps = (3 if kw["aniso"] else 1) * (2 if kw["trilinear"] else 1)
+    d_bytes = n_pix * 65 + windows * texture.WIN_H * texture.WIN_W * 8
+    d_ops = float(ok_k.sum()) * taps * 60
+    ctx.kernel("texture", lambda: texture.sample_materials(*targs, **kw), 20,
+               lambda: texture.sample_plain(*targs, **kw), 3,
+               (d_bytes / HBM_BYTES_PER_S, d_ops / FP32_OPS_PER_S), err_d,
+               variant=variant)
+    return dict(tiles_differ=tiles_differ, ok_share=ok_share,
+                windows=windows)
+
+
+def check_and_time_e(ctx, atlas, n_cas):
+    """Kernel E on the frame's opaque casters, exact against its plain
+    version; bound: the atlas written, each pair's 16 rows and each bin's
+    start/count read, 12 flops per evaluated (pair, pixel)."""
     eargs = (atlas.edges, atlas.pairs, atlas.n_bins_y, atlas.n_bins_x)
     pargs_e = (atlas.edges, atlas.pairs.tile_start, atlas.pairs.tile_count,
                atlas.n_bins_y, atlas.n_bins_x, atlas.sub, True)
@@ -545,14 +594,35 @@ def slice2_kernels(ctx, scene, settings) -> dict:
     check(torch.equal(depth_e.view(torch.int32),
                       raster.depth_plain(*pargs_e).view(torch.int32)),
           "kernel E atlas equals the plain version")
-    atlas_cov = float((depth_e > 0).float().mean())
-    counts_e = atlas.pairs.tile_count
-    print(f"kernel E: {n_cas} x {sres}^2 atlas equal; {atlas_cov:.3f} "
-          f"covered; pairs per bin max {int(counts_e.max())} mean "
-          f"{float(counts_e.float().mean()):.1f}", flush=True)
-    # world position, pixel depth and blue noise as the frame passes them
-    pargs = (*rec["shadow_resolve"][0][:3],
-             shadow.pack_shadow_maps_u16(atlas.maps),
+    cov = float((depth_e > 0).float().mean())
+    counts = atlas.pairs.tile_count
+    print(f"kernel E: {n_cas} x {atlas.n_bins_x * raster.TILE_W}^2 atlas "
+          f"equal; {cov:.3f} covered; pairs per bin max "
+          f"{int(counts.max())} mean {float(counts.float().mean()):.1f}",
+          flush=True)
+    e_eval = evaluated_pair_pixels(atlas.edges, atlas.pairs, atlas.n_bins_x,
+                                   atlas.sub)
+    e_bytes = (depth_e.numel() * 4 + 16 * 4 * atlas.edges.shape[1]
+               + 8 * counts.shape[0])
+    ctx.kernel("depth", lambda: raster.rasterize_depth(
+        *eargs, sub=atlas.sub, row_skip=True), 20,
+        lambda: raster.depth_plain(*pargs_e), 1,
+        (e_bytes / HBM_BYTES_PER_S, 12 * e_eval / FP32_OPS_PER_S), 0.0)
+    return dict(atlas_covered=cov, atlas_evaluated_pair_pixels=e_eval,
+                atlas_pairs_per_bin=dict(
+                    max=int(counts.max()), mean=float(counts.float().mean()),
+                    nonzero_bins=int((counts > 0).sum())))
+
+
+def check_and_time_f(ctx, atlas, resolve_args, settings, valid):
+    """Kernel F on the frame's world position, depth and noise against
+    its plain version (>= 99.9% equal, the rest within 1/taps); bound:
+    20 B read and 4 B written per pixel plus the used cascades' packed
+    maps, ~24 flops per tap per covered pixel."""
+    n_cas = settings.shadows.cascade_count
+    sres = settings.shadows.resolution
+    taps = settings.shadows.pcf_taps
+    pargs = (*resolve_args[:3], shadow.pack_shadow_maps_u16(atlas.maps),
              shadow.cascade_rows(atlas.cascade_mats, atlas.cascade_scales,
                                  atlas.splits),
              n_cas, taps, settings.shadows.sample_radius)
@@ -566,82 +636,23 @@ def slice2_kernels(ctx, scene, settings) -> dict:
           "pixels in shadow", flush=True)
     check(f_equal >= 0.999, "kernel F vs plain")
     check(err_f <= 1.0 / taps + 1e-6, "kernel F error bound")
-    check(0.01 < shadowed < 0.99, "the frame has light and shadow")
-    ctx.extra["atlas_keys"] = dict(
-        atlas_ms=cuda_ms(lambda: raster.expand_keys(ki2), 50),
-        atlas_plain_ms=cuda_ms(lambda: raster.expand_keys_plain(ki2), 10),
-        atlas_bound_ms=max(atlas_bound) * 1e3)
-    # times and bounds from this run's inputs (no single PyTorch call
-    # computes a windowed, fallback-masked brick sample, a clamped
-    # depth-max raster or a window-clamped PCF): D reads uv, 4
-    # derivatives, id and valid (29 B) and writes 9 f32 (36 B) per pixel,
-    # plus one 24x256 window of both words per sampled (tile, material)
-    ctx.kernel("texture", lambda: texture.sample_materials(
-        *targs, n_mips=MAX_MIPS), 20,
-        lambda: texture.sample_plain(*targs, MAX_MIPS), 3,
-        ((n_pix * 65 + windows * texture.WIN_H * texture.WIN_W * 8)
-         / HBM_BYTES_PER_S, 0.0), err_d)
-    # E writes the atlas and reads each pair's 16 rows and each bin's
-    # start/count
-    e_eval = evaluated_pair_pixels(atlas.edges, atlas.pairs, atlas.n_bins_x,
-                                   atlas.sub)
-    e_bytes = (n_cas * sres * sres * 4 + 16 * 4 * atlas.edges.shape[1]
-               + 8 * atlas.pairs.tile_count.shape[0])
-    ctx.kernel("depth", lambda: raster.rasterize_depth(
-        *eargs, sub=atlas.sub, row_skip=True), 20,
-        lambda: raster.depth_plain(*pargs_e), 1,
-        (e_bytes / HBM_BYTES_PER_S, 12 * e_eval / FP32_OPS_PER_S), 0.0)
-    # F reads position, linear depth and noise (20 B), writes 4 B per
-    # pixel and reads the used cascades' packed maps; per tap ~24 flops
-    # (rotation, offset, round, compare) per pixel
+    n_pix = valid.numel()
     ctx.kernel("shadow", lambda: shadow.resolve_packed(*pargs), 20,
                lambda: shadow.shadow_resolve_plain(*pargs, sres), 3,
                ((n_pix * 24 + n_cas * (sres // 2) * sres * 4)
                 / HBM_BYTES_PER_S,
                 float(valid.sum()) * taps * 24 / FP32_OPS_PER_S), err_f)
-    small = small_card_vs_cpu(ctx, 2, textured=True)
-    return dict(
-        pair_budget_scale=ctx.scale, small_close=small,
-        texture_tiles_differ=tiles_differ, texture_ok_share=ok_share,
-        texture_windows=windows, shadow_equal_share=f_equal,
-        shadowed_share=shadowed, atlas_live_pairs=atlas_live,
-        atlas_pair_budget=atlas.pair_budget, atlas_covered=atlas_cov,
-        atlas_evaluated_pair_pixels=e_eval, atlas_pairs_per_bin=dict(
-            max=int(counts_e.max()), mean=float(counts_e.float().mean()),
-            nonzero_bins=int((counts_e > 0).sum())))
+    return dict(shadow_equal_share=f_equal, shadowed_share=shadowed)
 
 
-def record_frames(ctx, scene, settings, n: int, targets):
-    """Render n frames from a fresh state with each (module, name) in
-    targets wrapped to record its positional arguments, in call order."""
-    recorded = {name: [] for _, name in targets}
-    originals = [(mod, name, getattr(mod, name)) for mod, name in targets]
-
-    def recorder(fn, seen):
-        return lambda *args, **kw: (seen.append(args), fn(*args, **kw))[1]
-    for mod, name, fn in originals:
-        setattr(mod, name, recorder(fn, recorded[name]))
-    try:
-        state = initial_state(WIDTH, HEIGHT, device=ctx.dev)
-        for i in range(n):
-            _, state = frame.render_frame(state, scene, ctx.cams[i], ctx.luts,
-                                          1.0 / 60.0, settings, device=ctx.dev)
-    finally:
-        for mod, name, fn in originals:
-            setattr(mod, name, fn)
-    return recorded
-
-
-def slice3_kernels(ctx, scene, settings) -> dict:
-    """Kernel G on frame 0's trace inputs and kernel H on frame 1's GI
-    history, recorded on their way into the kernels."""
-    print(f"slice 3 settings: {settings.sdf_trace}; pair_budget_scale "
-          f"{ctx.scale}", flush=True)
-    rec = record_frames(ctx, scene, settings, 2,
-                        [(frame, "trace_scene_gi"),
-                         (taa, "resample_packed_planes")])
-    t_scene, inp, t_settings, sun_dir, sun_col, sun_str = \
-        rec["trace_scene_gi"][0]
+def check_and_time_g(ctx, trace_args) -> dict:
+    """Kernel G on a frame's recorded trace inputs against its plain
+    version (escaped and hit/miss equal on >= 99.9% of rays, values
+    within 1e-4 abs + rel where both agree); bound from this run's
+    inputs: every ray reads its valid flag (1 B) and writes 7 f32, a
+    valid ray reads 9 f32 more, plus the bricks, the sky and the coarse
+    tables; operations from the loop steps the plain version counts."""
+    t_scene, inp, t_settings, sun_dir, sun_col, sun_str = trace_args
     st3 = t_settings.sdf_trace
     g_args = (inp.world_pos, inp.normal, inp.ray_dirs, inp.valid,
               inp.sky_lowres, t_scene["sdf_volume"], t_scene["sdf_albedo"],
@@ -687,30 +698,34 @@ def slice3_kernels(ctx, scene, settings) -> dict:
     check(excess_g <= 1e-4, "kernel G values vs plain")
     check(0.0 < hit_share < 1.0, "the GI rays both hit and miss")
     del ref, out_k
-    planes_h, motion_h, width_h, height_h = rec["resample_packed_planes"][1]
-    coords_h = taa.reprojected_coords(motion_h, width_h, height_h)
-    err_h, h_ok_share = compare_history(
-        "kernel H", planes_h, 6, taa.packed_planes(planes_h, coords_h),
-        taa.packed_planes_plain(planes_h, coords_h),
-        taa.packed_planes_plain(planes_h & 0x7FFF7FFF, coords_h))
-    # G's bytes from this run's inputs: every ray reads its valid flag
-    # (1 B) and writes 7 f32; only a valid ray reads its position, normal
-    # and direction (9 f32); plus the bricks, the sky and the coarse tables
     n_valid = int(valid3.sum())
+    sdf_bytes = t_scene["sdf_volume"].nbytes + t_scene["sdf_albedo"].nbytes
     g_bytes = (inp.valid.element_size() * n_rays + 7 * 4 * n_rays
-               + 9 * 4 * n_valid + ctx.extra["sdf"]["sdf_packed_bytes"]
-               + inp.sky_lowres.nbytes
+               + 9 * 4 * n_valid + sdf_bytes + inp.sky_lowres.nbytes
                + sum(t.nbytes for t in t_scene["sdf_coarse"][:2]))
     g_ops = (G_FINE_STEP_OPS * g_stats["fine_steps"]
              + G_SHADOW_STEP_OPS * g_stats["shadow_steps"]
              + G_COARSE_STEP_OPS * (g_stats["coarse_steps"]
                                     + g_stats["coarse_shadow_steps"])
              + G_RAY_OPS * g_stats["rays"])
-    # no PyTorch call sphere-traces a bricked SDF; grid_sample computes H's
-    # bilinear resample (without the window clamp) on the unpacked planes
     ctx.kernel("sdfgi_trace", lambda: sdfgi.trace_gi(*g_args, **g_kw), 20,
                lambda: sdfgi.trace_gi(*g_args, plain=True, **g_kw), 2,
                (g_bytes / HBM_BYTES_PER_S, g_ops / FP32_OPS_PER_S), err_g)
+    return dict(gi_planes=[gh, gw], trace_escaped_equal=esc_equal,
+                trace_hit_equal=hit_equal, trace_hit_share=hit_share,
+                trace_escaped_share=escaped_share, trace_loop_steps=g_stats)
+
+
+def check_and_time_h(ctx, resample_args) -> dict:
+    """Kernel H on a frame's recorded GI history and motion (ok equal,
+    values within 1e-6 of the taps' magnitude); bound 48 B per pixel;
+    yardstick grid_sample of the unpacked planes."""
+    planes_h, motion_h, width_h, height_h = resample_args
+    coords_h = taa.reprojected_coords(motion_h, width_h, height_h)
+    err_h, h_ok_share = compare_history(
+        "kernel H", planes_h, 6, taa.packed_planes(planes_h, coords_h),
+        taa.packed_planes_plain(planes_h, coords_h),
+        taa.packed_planes_plain(planes_h & 0x7FFF7FFF, coords_h))
     hh, hw = planes_h.shape[1:]
     unpacked = torch.stack([c for p in planes_h
                             for c in taa.unpack_f16_pair_flush(p)])[None]
@@ -718,13 +733,175 @@ def slice3_kernels(ctx, scene, settings) -> dict:
                50, lambda: taa.packed_planes_plain(planes_h, coords_h), 10,
                (48 * hh * hw / HBM_BYTES_PER_S, 0.0), err_h,
                grid_sample(unpacked, coords_h))
+    return dict(history_planes=list(planes_h.shape),
+                history_ok_share=h_ok_share)
+
+
+def check_and_time_i(ctx, coords_args, history) -> dict:
+    """Kernel I on a frame's recorded TAA history: K = 1 at the frame's
+    tech-4 coords and K = 16 at tech-1 coords of the same (dilated)
+    motion; bound (K = 1) 8 B of coords and 4 B of history read and 3 f32
+    + ok written per pixel; yardstick grid_sample of the unpacked
+    history."""
+    motion, width, height, tech = coords_args
+    check(tech == 4, "the default history sampler is tech 4")
+    coords4 = taa.history_coords(motion, width, height, 4)[0]
+    res = {}
+    for k, coords in ((1, coords4),
+                      (16, taa.history_coords(motion, width, height, 1)[0])):
+        # R11G11B10 values are >= 0: the taps' magnitude is the value
+        out_p = taa.history_taps_plain(history, coords)
+        res[k] = compare_history(f"kernel I (K={k})", history, 3 * k,
+                                 taa.history_taps(history, coords), out_p,
+                                 out_p)
+        del out_p
+    hh, hw = history.shape
+    ctx.kernel("history_taps", lambda: taa.history_taps(history, coords4),
+               50, lambda: taa.history_taps_plain(history, coords4), 10,
+               (28 * hh * hw / HBM_BYTES_PER_S, 0.0), res[1][0],
+               grid_sample(color_packing.unpack_r11g11b10(history)[None],
+                           coords4))
+    return dict(taa_planes=[hh, hw],
+                history_taps={str(k): dict(max_abs_err=e, ok_share=o)
+                              for k, (e, o) in res.items()})
+
+
+# --------------------- per-slice kernel comparisons ---------------------
+
+def check_keys(ki, what: str, per: str):
+    """Kernel A's keys and owners equal to its plain version; returns the
+    live pairs and the bound (bytes s, operations s): it reads 3 words per
+    triangle and writes 2 per slot, and a live pair costs a binary search
+    over the triangles plus ~20 ops."""
+    keys_k, own_k = raster.expand_keys(ki)
+    keys_p, own_p = raster.expand_keys_plain(ki)
+    check(torch.equal(keys_k, keys_p) and torch.equal(own_k, own_p),
+          f"{what} keys/owners equal the plain version")
+    live, t = int(ki.cum[-1]), ki.cum.shape[0]
+    print(f"{what}: {ki.budget} slots, {live} live, {per}={ki.tpv}: equal",
+          flush=True)
+    return live, (4 * (3 * t + 2 * ki.budget) / HBM_BYTES_PER_S,
+                  live * (3 * max(1, int(np.ceil(np.log2(t)))) + 20)
+                  / INT32_OPS_PER_S)
+
+
+def slice1_kernels(ctx, scene, settings) -> dict:
+    """Kernels A, B, C at frame 0's shapes against their plain versions."""
+    mv = frame.main_view_setup(scene, ctx.cams[0], settings)
+    ki = raster.pair_key_inputs(mv.setup, mv.n_tiles_y, mv.n_tiles_x,
+                                mv.pair_budget, mv.sub, order_rows=True)
+    live_pairs, a_bound = check_keys(ki, "kernel A", "T")
+    main = frame.raster_main_view(mv)
+    check(int(main.overflow) == 0, "no pairs dropped at the bench framing")
+    frac_differ, _, covered, evaluated = check_and_time_b(
+        ctx, mv, main.pairs, main.pair_edges, main.pair_attrs)
+    check(covered > 0.3, "the frame covers the screen")
+    check_and_time_c(ctx, scene, main.gbuf, main.vis)
+    time_keys(ctx, ki, a_bound)
+    small = small_card_vs_cpu(ctx, 1, textured=False)
+    return dict(gbuffer_pixels_differ=frac_differ, small_close=small,
+                live_pairs=live_pairs, pair_budget=ki.budget,
+                evaluated_pair_pixels=evaluated)
+
+
+def pick_pair_budget_scale(ctx, scene, row):
+    """The smallest power-of-two pair budget scale that drops nothing over
+    the camera path (the JAX app escalates the same way,
+    runtime/app.py:197)."""
+    scale = 1.0
+    while True:
+        settings = dataclasses.replace(slice_settings(row.n, WIDTH, HEIGHT),
+                                       pair_budget_scale=scale)
+        probe = drive(ctx, scene, settings, len(ctx.cams), 0)
+        dropped = probe["counters"].max(axis=0).tolist()
+        print(f"pair_budget_scale {scale}: most dropped per frame "
+              f"(main, atlas) {dropped}", flush=True)
+        if max(dropped) == 0:
+            return scale
+        scale *= 2.0
+        check(scale <= 64.0, "pair budget scale bounded")
+
+
+def atlas_keys(atlas, settings, what):
+    """Kernel A's multi-view keys of the atlas's opaque casters, equal to
+    the plain version; returns (KeyInputs, live pairs, bound)."""
+    n_cas = settings.shadows.cascade_count
+    setup = atlas.setup
+    if atlas.alpha is not None:
+        setup = frame.opaque_stream(setup, setup.edges[2, 7] > 0.5)
+    ki2 = raster.pair_key_inputs(setup, atlas.n_bins_y, atlas.n_bins_x,
+                                 atlas.pair_budget, atlas.sub,
+                                 order_rows=True, n_views=n_cas)
+    live, bound = check_keys(ki2, what, "T/view")
+    return ki2, live, bound
+
+
+def slice2_kernels(ctx, scene, settings) -> dict:
+    """Kernel D, the shadow atlas's multi-view keys (kernel A), depth
+    raster (kernel E) and PCF resolve (kernel F) on frame 0's inputs,
+    recorded on their way into the kernels."""
+    rec = record_frames(ctx, scene, settings, 1,
+                        [(texture, "sample_materials"),
+                         (frame, "render_shadow_atlas"),
+                         (shadow, "shadow_resolve")])
+    targs = rec["sample_materials"][0]
+    d = check_and_time_d(ctx, scene, targs, texture_kwargs(settings))
+    check(d["ok_share"] > 0.5, "most covered pixels are textured")
+    atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
+    check(int(atlas.pairs.overflow) == 0, "no atlas pairs dropped")
+    ki2, atlas_live, atlas_bound = atlas_keys(
+        atlas, settings, f"kernel A (atlas, "
+        f"{settings.shadows.cascade_count} views)")
+    time_keys(ctx, atlas_ki=ki2, atlas_bound=atlas_bound)
+    e = check_and_time_e(ctx, atlas, settings.shadows.cascade_count)
+    f = check_and_time_f(ctx, atlas, rec["shadow_resolve"][0], settings,
+                         targs[3])
+    check(0.01 < f["shadowed_share"] < 0.99,
+          "the frame has light and shadow")
+    small = small_card_vs_cpu(ctx, 2, textured=True)
+    return dict(
+        pair_budget_scale=ctx.scale, small_close=small,
+        texture_tiles_differ=d["tiles_differ"],
+        texture_ok_share=d["ok_share"], texture_windows=d["windows"], **f,
+        atlas_live_pairs=atlas_live, atlas_pair_budget=atlas.pair_budget,
+        **e)
+
+
+def record_frames(ctx, scene, settings, n: int, targets):
+    """Render n frames from a fresh state with each (module, name) in
+    targets wrapped to record its positional arguments, in call order."""
+    recorded = {name: [] for _, name in targets}
+    originals = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def recorder(fn, seen):
+        return lambda *args, **kw: (seen.append(args), fn(*args, **kw))[1]
+    for mod, name, fn in originals:
+        setattr(mod, name, recorder(fn, recorded[name]))
+    try:
+        state = initial_state(WIDTH, HEIGHT, device=ctx.dev)
+        for i in range(n):
+            _, state = frame.render_frame(
+                state, scene_at(ctx, scene, i), ctx.cams[i], ctx.luts,
+                1.0 / 60.0, settings, device=ctx.dev)
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    return recorded
+
+
+def slice3_kernels(ctx, scene, settings) -> dict:
+    """Kernel G on frame 0's trace inputs and kernel H on frame 1's GI
+    history, recorded on their way into the kernels."""
+    print(f"slice 3 settings: {settings.sdf_trace}; pair_budget_scale "
+          f"{ctx.scale}", flush=True)
+    rec = record_frames(ctx, scene, settings, 2,
+                        [(frame, "trace_scene_gi"),
+                         (taa, "resample_packed_planes")])
+    g = check_and_time_g(ctx, rec["trace_scene_gi"][0])
+    h = check_and_time_h(ctx, rec["resample_packed_planes"][1])
     small = small_card_vs_cpu(ctx, 3, textured=True, gi=True, moving=True)
-    return dict(pair_budget_scale=ctx.scale, **ctx.extra["sdf"],
-                gi_planes=[gh, gw], trace_escaped_equal=esc_equal,
-                trace_hit_equal=hit_equal, trace_hit_share=hit_share,
-                trace_escaped_share=escaped_share, trace_loop_steps=g_stats,
-                history_planes=list(planes_h.shape),
-                history_ok_share=h_ok_share, small_close=small)
+    return dict(pair_budget_scale=ctx.scale, **ctx.extra["sdf"], **g, **h,
+                small_close=small)
 
 
 def grid_sample(planes, coords):
@@ -760,36 +937,16 @@ def compare_history(what, words, n, out_k, out_p, magnitude):
 
 
 def slice4_kernels(ctx, scene, settings) -> dict:
-    """Kernel I on frame 1's TAA history: K = 1 at the frame's tech-4
-    coords and K = 16 at tech-1 coords of the same (dilated) motion; then
-    the golden scene on the card."""
+    """Kernel I on frame 1's TAA history (check_and_time_i); then the
+    golden scene on the card."""
     print(f"slice 4 settings: {settings.taa}; {settings.bloom}; "
           f"{settings.volumetrics}; pair_budget_scale {ctx.scale}",
           flush=True)
     rec = record_frames(ctx, scene, settings, 2,
                         [(taa, "history_coords"),
                          (taa, "resample_history_taps")])
-    motion, width, height, tech = rec["history_coords"][1]
-    check(tech == 4, "the default history sampler is tech 4")
-    history = rec["resample_history_taps"][1][0]
-    coords4 = taa.history_coords(motion, width, height, 4)[0]
-    res = {}
-    for k, coords in ((1, coords4),
-                      (16, taa.history_coords(motion, width, height, 1)[0])):
-        # R11G11B10 values are >= 0: the taps' magnitude is the value
-        out_p = taa.history_taps_plain(history, coords)
-        res[k] = compare_history(f"kernel I (K={k})", history, 3 * k,
-                                 taa.history_taps(history, coords), out_p,
-                                 out_p)
-        del out_p
-    # per pixel of the halo-extended plane: 8 B of coords and 4 B of
-    # history read, 3 f32 + ok written (K = 1)
-    hh, hw = history.shape
-    ctx.kernel("history_taps", lambda: taa.history_taps(history, coords4),
-               50, lambda: taa.history_taps_plain(history, coords4), 10,
-               (28 * hh * hw / HBM_BYTES_PER_S, 0.0), res[1][0],
-               grid_sample(color_packing.unpack_r11g11b10(history)[None],
-                           coords4))
+    found = check_and_time_i(ctx, rec["history_coords"][1],
+                             rec["resample_history_taps"][1][0])
     # the golden scene (tools/make_golden.py:33-58) on the card and the CPU
     gold = config.RenderSettings(
         width=256, height=128,
@@ -805,22 +962,139 @@ def slice4_kernels(ctx, scene, settings) -> dict:
           "plain path (limit > 0.999)", flush=True)
     check(close_golden > 0.999, "golden scene on the card vs golden_frame")
     check(close_cpu > 0.999, "golden scene card vs CPU")
-    return dict(pair_budget_scale=ctx.scale, taa_planes=[hh, hw],
-                history_taps={str(k): dict(max_abs_err=e, ok_share=o)
-                              for k, (e, o) in res.items()},
+    return dict(pair_budget_scale=ctx.scale, **found,
                 golden_close=close_golden, golden_card_vs_cpu=close_cpu)
 
 
+def retime_a_to_i(ctx, scene, settings):
+    """Kernels A-I again, each checked against its plain version and timed
+    on this row's own frame inputs (frames 0 and 1, recorded on their way
+    into the kernels), so that the kernels line's timed_on names this row;
+    the earlier rows' times stay under `earlier`. Returns the recorded
+    calls."""
+    rec = record_frames(ctx, scene, settings, 2, [
+        (frame, "raster_main_view"), (frame, "render_shadow_atlas"),
+        (texture, "sample_materials"), (shadow, "shadow_resolve"),
+        (frame, "trace_scene_gi"), (taa, "resample_packed_planes"),
+        (taa, "history_coords"), (taa, "resample_history_taps")])
+    mv = rec["raster_main_view"][0][0]
+    main = frame.raster_main_view(mv)
+    setup_o = main_opaque_stream(mv)
+    ki = raster.pair_key_inputs(setup_o, mv.n_tiles_y, mv.n_tiles_x,
+                                mv.pair_budget, mv.sub, order_rows=True)
+    _, a_bound = check_keys(ki, "kernel A (opaque main stream)", "T")
+    time_keys(ctx, ki, a_bound)
+    check_and_time_b(ctx, mv, main.pairs, main.pair_edges, main.pair_attrs)
+    check_and_time_c(ctx, scene, main.gbuf, main.vis)
+    targs = rec["sample_materials"][0]
+    check_and_time_d(ctx, scene, targs, texture_kwargs(settings))
+    atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
+    ki2, _, atlas_bound = atlas_keys(atlas, settings,
+                                     "kernel A (atlas, opaque casters)")
+    time_keys(ctx, atlas_ki=ki2, atlas_bound=atlas_bound)
+    check_and_time_e(ctx, atlas, settings.shadows.cascade_count)
+    check_and_time_f(ctx, atlas, rec["shadow_resolve"][0], settings,
+                     targs[3])
+    check_and_time_g(ctx, rec["trace_scene_gi"][0])
+    check_and_time_h(ctx, rec["resample_packed_planes"][1])
+    check_and_time_i(ctx, rec["history_coords"][1],
+                     rec["resample_history_taps"][1][0])
+    return rec
+
+
+def main_opaque_stream(mv):
+    """The main view's opaque stream, as the frame bins it."""
+    if mv.alpha_slots is None:
+        return mv.setup
+    return frame.opaque_stream(mv.setup, mv.alpha_slots > 0)
+
+
+def check_and_time_l(ctx, mv, main, vis_k, variant=None):
+    """Kernel L on kernel K's vis against its plain version (channels
+    within kernel B's 1e-4), timed; bound: it reads vis, writes every
+    channel of every pixel and reads the attribute rows of the distinct
+    winning triangles, ~80 flops per covered pixel (+10 per extra
+    channel). Returns (max |err|, winners)."""
+    pa, pa_a = main.alpha_pairs, main.alpha_attrs
+    l_args = (pa_a, pa.tile_start, vis_k, mv.n_tiles_y, mv.n_tiles_x,
+              mv.sub)
+    gbuf_l = raster.resolve_attributes(*l_args)
+    err_l = float((gbuf_l - raster.attr_resolve_plain(*l_args)).abs().max())
+    n_ch = gbuf_l.shape[0]
+    print(f"kernel L: {pa_a.shape[0]} attribute rows, {n_ch} channels; max "
+          f"|err| {err_l:.3e} (limit 1e-4, kernel B's)", flush=True)
+    check(err_l <= 1e-4, "kernel L channels vs plain")
+    n_pix = vis_k.numel()
+    covered = int((vis_k >= 0).sum())
+    tri_k = raster.winner_triangle_ids(vis_k, pa, mv.n_tiles_x, mv.sub)
+    winners = int(tri_k[tri_k >= 0].unique().numel())
+    l_bytes = (4 * n_pix + 4 * n_ch * n_pix + 4 * pa_a.shape[0] * winners
+               + 4 * pa.tile_start.numel())
+    ctx.kernel("attr_resolve", lambda: raster.resolve_attributes(*l_args),
+               20, lambda: raster.attr_resolve_plain(*l_args), 5,
+               (l_bytes / HBM_BYTES_PER_S,
+                (80 + 10 * (n_ch - 13)) * covered / FP32_OPS_PER_S), err_l,
+               variant=variant)
+    return err_l, winners
+
+
+def check_and_time_m(ctx, mv, main, variant=None) -> dict:
+    """Kernel M's own path: build_pairs(carry_table=...) on the frame's
+    opaque main-view stream, launch counts reset just before it; the
+    carried rows equal gather_pair_setups on every live slot and the
+    kernel its plain version, bit for bit. Bound: the owners of the live
+    slots and the table columns of the distinct owners read, every slot
+    of every row written (0 when dead); yardstick one index_select."""
+    setup_o = main_opaque_stream(mv)
+    table, _ = raster.setup_row_table(setup_o, row_extents=True)
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    pairs_m, rows_m = raster.build_pairs(
+        setup_o, mv.n_tiles_y, mv.n_tiles_x, pair_budget=mv.pair_budget,
+        bin_rows=mv.sub, order_rows=True, carry_table=table)
+    torch.cuda.synchronize()
+    m_counts = native.launch_counts()
+    check(m_counts["expand_rows"] == 1 and m_counts["expand_keys"] == 1,
+          f"build_pairs(carry_table) launches A and M once: {m_counts}")
+    for k in ("pair_tri", "tile_start", "tile_count"):
+        check(torch.equal(getattr(pairs_m, k), getattr(main.pairs, k)),
+              f"carry_table gives the frame's segments ({k})")
+    live = int(main.pairs.tile_count.sum())
+    check(torch.equal(rows_m[:, :live], torch.cat(
+        [main.pair_edges, main.pair_attrs])[:, :live]),
+        "kernel M's rows equal gather_pair_setups on every live slot")
+    ki = raster.pair_key_inputs(setup_o, mv.n_tiles_y, mv.n_tiles_x,
+                                mv.pair_budget, mv.sub, order_rows=True)
+    _, owners = raster.expand_keys(ki)
+    m_args = (owners, table, ki.cum[-1:], ki.budget)
+    check(torch.equal(raster.expand_rows(*m_args),
+                      raster.expand_rows_plain(*m_args)),
+          "kernel M equals the plain version")
+    live_m = int(ki.cum[-1])
+    n_owners = int(owners[:live_m].unique().numel())
+    print(f"kernel M: {table.shape[0]} rows x {ki.budget} slots "
+          f"({live_m} live, {n_owners} owners), equal; the carried rows "
+          f"equal gather_pair_setups on all {live} live slots; launches on "
+          f"its path {m_counts}", flush=True)
+    m_bytes = 4 * (live_m + table.shape[0] * ki.budget
+                   + table.shape[0] * n_owners)
+    ctx.kernel("expand_rows", lambda: raster.expand_rows(*m_args), 50,
+               lambda: raster.expand_rows_plain(*m_args), 10,
+               (m_bytes / HBM_BYTES_PER_S, 0.0), 0.0,
+               lambda: table.index_select(1, owners.long()), variant=variant)
+    return dict(rows=table.shape[0], slots=ki.budget, live=live_m,
+                owners=n_owners, launches=m_counts)
+
+
 def slice5_kernels(ctx, scene, settings) -> dict:
-    """Kernels J, K and L on frame 0's alpha streams (the atlas's and the
+    """Kernels A-I again on this row's frame inputs (retime_a_to_i), then
+    kernels J, K and L on frame 0's alpha streams (the atlas's and the
     main view's, recomputed from the recorded inputs of the frame's own
     calls), the alpha test's work, kernel M in a phase of its own on the
     frame's main-view setup, and the small banner scene card vs CPU."""
     print(f"slice 5 settings: default RenderSettings(); pair_budget_scale "
           f"{ctx.scale}", flush=True)
-    rec = record_frames(ctx, scene, settings, 1,
-                        [(frame, "raster_main_view"),
-                         (frame, "render_shadow_atlas")])
+    rec = retime_a_to_i(ctx, scene, settings)
     atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
     a = atlas.alpha
     check(a is not None and int(atlas.overflow) == 0,
@@ -884,49 +1158,10 @@ def slice5_kernels(ctx, scene, settings) -> dict:
           f"the masks reject {rejected} of them; {alpha_wins} pixels of "
           "the merged frame at the alpha stream's depth", flush=True)
     check(edge_px > 0 and rejected > 0, "the alpha test does work")
-    gbuf_l = raster.resolve_attributes(pa_a, pa.tile_start, vis_k,
-                                       mv.n_tiles_y, mv.n_tiles_x, mv.sub)
-    l_args = (pa_a, pa.tile_start, vis_k, mv.n_tiles_y, mv.n_tiles_x,
-              mv.sub)
-    err_l = float((gbuf_l - raster.attr_resolve_plain(*l_args)).abs().max())
-    print(f"kernel L: channels max |err| {err_l:.3e} (limit 1e-4, kernel "
-          "B's)", flush=True)
-    check(err_l <= 1e-4, "kernel L channels vs plain")
+    err_l, winners = check_and_time_l(ctx, mv, main, vis_k)
 
-    # kernel M's own path: build_pairs(carry_table=...) on the frame's
-    # opaque main-view stream, launch counts reset just before it
-    setup_o = frame.opaque_stream(mv.setup, mv.alpha_slots > 0)
-    table, n_edge = raster.setup_row_table(setup_o, row_extents=True)
-    torch.cuda.synchronize()
-    native.reset_launch_counts()
-    pairs_m, rows_m = raster.build_pairs(
-        setup_o, mv.n_tiles_y, mv.n_tiles_x, pair_budget=mv.pair_budget,
-        bin_rows=mv.sub, order_rows=True, carry_table=table)
-    torch.cuda.synchronize()
-    m_counts = native.launch_counts()
-    check(m_counts["expand_rows"] == 1 and m_counts["expand_keys"] == 1,
-          f"build_pairs(carry_table) launches A and M once: {m_counts}")
-    for k in ("pair_tri", "tile_start", "tile_count"):
-        check(torch.equal(getattr(pairs_m, k), getattr(main.pairs, k)),
-              f"carry_table gives the frame's segments ({k})")
-    live = int(main.pairs.tile_count.sum())
-    check(torch.equal(rows_m[:, :live], torch.cat(
-        [main.pair_edges, main.pair_attrs])[:, :live]),
-        "kernel M's rows equal gather_pair_setups on every live slot")
-    ki = raster.pair_key_inputs(setup_o, mv.n_tiles_y, mv.n_tiles_x,
-                                mv.pair_budget, mv.sub, order_rows=True)
-    _, owners = raster.expand_keys(ki)
-    m_args = (owners, table, ki.cum[-1:], ki.budget)
-    check(torch.equal(raster.expand_rows(*m_args),
-                      raster.expand_rows_plain(*m_args)),
-          "kernel M equals the plain version")
-    live_m = int(ki.cum[-1])
-    n_owners = int(owners[:live_m].unique().numel())
-    print(f"kernel M: {table.shape[0]} rows x {ki.budget} slots "
-          f"({live_m} live, {n_owners} owners), equal; the carried rows "
-          f"equal gather_pair_setups on all {live} live slots; launches on "
-          f"its path {m_counts}", flush=True)
-    ctx.extra["m_launches"] = m_counts["expand_rows"]
+    m_found = check_and_time_m(ctx, mv, main)
+    ctx.extra["m_launches"] = m_found["launches"]["expand_rows"]
 
     # times and bounds from this run's inputs, counting what the data
     # needs: J and K the rows of each live pair that their kernels stage,
@@ -957,25 +1192,6 @@ def slice5_kernels(ctx, scene, settings) -> dict:
         pe_a, pa, mv.alpha_masks, mv.n_tiles_y, mv.n_tiles_x, mv.sub, True),
         20, lambda: raster.winner_alpha_plain(*k_args), 2,
         (k_bytes / HBM_BYTES_PER_S, 16 * k_eval / FP32_OPS_PER_S), 0.0)
-    # L reads vis, writes every channel of every pixel, and reads the
-    # attributes of the distinct winning triangles
-    covered = int((vis_k >= 0).sum())
-    tri_k = raster.winner_triangle_ids(vis_k, pa, mv.n_tiles_x, mv.sub)
-    winners = int(tri_k[tri_k >= 0].unique().numel())
-    l_bytes = (4 * n_pix + 4 * raster.GBUF_CHANNELS * n_pix
-               + 4 * pa_a.shape[0] * winners + 4 * pa.tile_start.numel())
-    ctx.kernel("attr_resolve", lambda: raster.resolve_attributes(*l_args),
-               20, lambda: raster.attr_resolve_plain(*l_args), 5,
-               (l_bytes / HBM_BYTES_PER_S, 80 * covered / FP32_OPS_PER_S),
-               err_l)
-    # M reads the owners of the live slots and the table columns of the
-    # distinct owners, and writes every slot of every row (0 when dead)
-    m_bytes = 4 * (live_m + table.shape[0] * ki.budget
-                   + table.shape[0] * n_owners)
-    ctx.kernel("expand_rows", lambda: raster.expand_rows(*m_args), 50,
-               lambda: raster.expand_rows_plain(*m_args), 10,
-               (m_bytes / HBM_BYTES_PER_S, 0.0), 0.0,
-               lambda: table.index_select(1, owners.long()))
     small = small_card_vs_cpu(ctx, 2, "small banner scene (slice 2 "
                               "settings)", textured=True, banners=True)
     return dict(pair_budget_scale=ctx.scale, **ctx.extra["sdf_bench"],
@@ -988,18 +1204,202 @@ def slice5_kernels(ctx, scene, settings) -> dict:
                 main_alpha_rejected_pixels=rejected,
                 main_alpha_winning_pixels=alpha_wins,
                 main_alpha_evaluated_pair_pixels=k_eval,
-                carry_table=dict(rows=table.shape[0], slots=ki.budget,
-                                 live=live_m, owners=n_owners,
-                                 launches=m_counts),
+                carry_table=m_found,
                 small_banners_close=small)
+
+
+def box_objects(atrium: dict) -> tuple:
+    """Object indices of the atrium's scattered boxes: after the floor,
+    ceiling and 3 walls (5 box_mesh slabs) and each column's shaft and cap
+    (assets/procedural.py:build_atrium_scene)."""
+    first = 5 + 4 * atrium["columns_per_row"]
+    return tuple(range(first, first + atrium["box_count"]))
+
+
+def box_motions(object_matrices, boxes, frames: int, device):
+    """Model matrices of frames -1 .. frames - 1 as one (frames + 1, O, 4,
+    4) tensor on `device`, made once before a run: box k of `boxes` at
+    frame t is shifted by 0.3 (sin(0.2 t + k), 0, cos(0.2 t + k)) m and
+    turned by 0.05 t rad about the vertical axis through its centre; every
+    other object keeps its build matrix."""
+    build = np.asarray(object_matrices, np.float32)
+    out = np.repeat(build[None], frames + 1, axis=0)
+    for j, t in enumerate(range(-1, frames)):
+        for k, o in enumerate(boxes):
+            c = build[o][:3, 3]
+            turn = np.eye(4, dtype=np.float32)
+            turn[0, 0] = turn[2, 2] = np.cos(0.05 * t)
+            turn[0, 2] = np.sin(0.05 * t)
+            turn[2, 0] = -np.sin(0.05 * t)
+            move, back = np.eye(4, dtype=np.float32), np.eye(4,
+                                                             dtype=np.float32)
+            move[:3, 3] = c + 0.3 * np.asarray(
+                [np.sin(0.2 * t + k), 0.0, np.cos(0.2 * t + k)], np.float32)
+            back[:3, 3] = -c
+            out[j, o] = move @ turn @ back @ build[o]
+    return torch.as_tensor(out, device=device)
+
+
+def dynamic_atrium_scene(ctx):
+    """bench.py's scene (the banner atrium) with its 12 scattered boxes
+    dynamic: in the raster (object_transforms, moved every frame by
+    box_motions) and in the SDF (build_scene_sdf(dynamic_objects=...)
+    baked on the card at bake_resolution_cap=32, attach_dynamic_sdf)."""
+    if "banners" not in ctx.scenes:
+        ctx.scenes["banners"] = SCENES["banners"](ctx)
+    rs, scene_data = ctx.scenes[("source", "banners")]
+    boxes = box_objects(BENCH_ATRIUM)
+    t0 = time.time()
+    gsdf, dset = sdf_scene.build_scene_sdf(
+        rs, scene_data, bake_resolution_cap=32, device=ctx.dev,
+        dynamic_objects=boxes)
+    scene = frame.attach_dynamic_sdf(
+        frame.attach_global_sdf(ctx.scenes["banners"], gsdf), dset)
+    torch.cuda.synchronize()
+    bake_s = time.time() - t0
+    ctx.motions[id(scene)] = box_motions(rs.object_matrices, boxes,
+                                         len(ctx.cams) + 1, ctx.dev)
+    windows = [list(w) for w in dset.window_vox]
+    print(f"dynamic scene: boxes {boxes[0]}-{boxes[-1]} move; static SDF "
+          f"without them baked in {bake_s:.1f} s, grid {scene['sdf_grid']}; "
+          f"{len(dset.volumes)} dynamic instances, windows {windows[:2]}...",
+          flush=True)
+    ctx.extra["sdf_dynamic"] = dict(
+        sdf_bake_s=bake_s, sdf_grid=list(scene["sdf_grid"]),
+        dynamic_objects=list(boxes), dynamic_windows=windows)
+    return scene
+
+
+def prev_ndc_error(mv, main, prev_view_proj, tri_object, moving):
+    """|G-buffer channels 13-14 - static_prev_ndc| (max over x, y) of one
+    frame's main view, on the pixels of static objects and on those of
+    the moving ones (object indices `moving`): the opaque stream's winners
+    by kernel B, the alpha stream's (banners, static) by kernel K."""
+    ph, pw = main.depth.shape
+    world = shade.reconstruct_world_position(
+        main.depth, mathutils.lu_inverse(mv.view_proj), pw, ph)
+    err = (main.gbuf[raster._CH_PREV:raster._CH_PREV + 2]
+           - frame.static_prev_ndc(prev_view_proj, world, main.vis >= 0)) \
+        .abs().amax(dim=0)
+    d1, v1, _ = raster.rasterize_gbuffer(
+        main.pair_edges, main.pair_attrs, main.pairs, mv.n_tiles_y,
+        mv.n_tiles_x, sub=mv.sub, row_skip=True)
+    ids = raster.winner_triangle_ids(v1, main.pairs, mv.n_tiles_x, mv.sub)
+    obj = torch.where(ids >= 0, tri_object[ids.clamp(min=0).long()], -1)
+    if main.alpha_pairs is not None:
+        d2, _ = raster.rasterize_winner_alpha(
+            main.alpha_edges, main.alpha_pairs, mv.alpha_masks,
+            mv.n_tiles_y, mv.n_tiles_x, mv.sub, True)
+        obj = torch.where(d2 > d1, -2, obj)  # a banner won
+    on_moving = torch.isin(obj, torch.as_tensor(moving, device=obj.device))
+    covered = main.vis >= 0
+    return err[covered & ~on_moving], err[covered & on_moving]
+
+
+def slice6_kernels(ctx, scene, settings) -> dict:
+    """The dynamic path's new branches on this row's own frame inputs:
+    kernel D under trilinear + anisotropic filtering (the frame's) and
+    under trilinear alone; kernels B and L with the 40-row pair table (15
+    channels); kernel M at the opaque main view's 56 rows; the previous
+    NDC against the static reprojection; the recomposited SDF against
+    the pristine one and the CPU recomposite; the small textured atrium
+    with a moving box, card vs CPU."""
+    print(f"slice 6 settings: default RenderSettings() with "
+          f"{settings.shading}; pair_budget_scale {ctx.scale}", flush=True)
+    rec = record_frames(ctx, scene, settings, 2, [
+        (frame, "raster_main_view"), (texture, "sample_materials"),
+        (sdf_scene, "recomposite_dynamic")])
+    kw = texture_kwargs(settings)
+    check(kw["trilinear"] and kw["aniso"], "texture_filter 2 in the frame")
+    targs = rec["sample_materials"][0]
+    d_both = check_and_time_d(ctx, scene, targs, kw,
+                              variant="trilinear+aniso")
+    d_tri = check_and_time_d(ctx, scene, targs, dict(kw, aniso=False),
+                             variant="trilinear")
+    mv = rec["raster_main_view"][0][0]
+    main = frame.raster_main_view(mv)
+    check(int(main.overflow) == 0, "no main-view pairs dropped")
+    check(main.pair_attrs.shape[0] == 40 and main.gbuf.shape[0] == 15,
+          "the dynamic main view carries 40 attribute rows, 15 channels")
+    frac_b, _, _, _ = check_and_time_b(
+        ctx, mv, main.pairs, main.pair_edges, main.pair_attrs,
+        "kernel B (dynamic)", variant="dynamic 15 channels")
+    _, vis_k = raster.rasterize_winner_alpha(
+        main.alpha_edges, main.alpha_pairs, mv.alpha_masks, mv.n_tiles_y,
+        mv.n_tiles_x, mv.sub, True)
+    check_and_time_l(ctx, mv, main, vis_k, variant="dynamic 15 channels")
+    m_found = check_and_time_m(ctx, mv, main, variant="dynamic 56 rows")
+    check(m_found["rows"] == 56, "kernel M at 16 + 40 rows")
+
+    # previous NDC of frame 1 against the static reprojection of its depth
+    mv1 = rec["raster_main_view"][1][0]
+    main1 = frame.raster_main_view(mv1)
+    rs = ctx.scenes[("source", "banners")][0]
+    tri_object = torch.as_tensor(rs.tri_object, device=ctx.dev)
+    boxes = box_objects(BENCH_ATRIUM)
+    static_err, box_err = prev_ndc_error(mv1, main1, mv.view_proj,
+                                         tri_object, boxes)
+    static_close = float((static_err <= 1e-4).float().mean())
+    box_apart = float((box_err > 1e-3).float().mean()) if box_err.numel() \
+        else None
+    print(f"previous NDC (frame 1): {static_err.numel()} static-object "
+          f"pixels, {static_close:.6f} within 1e-4 of the static "
+          f"reprojection (limit 0.999), max {float(static_err.max()):.3e}; "
+          f"{box_err.numel()} moving-box pixels, share apart by > 1e-3: "
+          f"{box_apart}", flush=True)
+    check(static_close >= 0.999, "previous NDC of static objects")
+
+    # the recomposite: fresh copies that differ from the pristine pools,
+    # equal to the CPU recomposite of the same inputs
+    r_args = rec["recomposite_dynamic"][0]
+    vol_k, alb_k = sdf_scene.recomposite_dynamic(*r_args)
+    cpu_args = [a.cpu() if isinstance(a, torch.Tensor)
+                else [v.cpu() for v in a] if isinstance(a, list) else a
+                for a in r_args]
+    vol_c, alb_c = sdf_scene.recomposite_dynamic(*cpu_args)
+    q_k, q_c = (sdfgi_quanta(v) for v in (vol_k.cpu(), vol_c))
+    q_equal = float((q_k == q_c).float().mean())
+    q_max = int((q_k - q_c).abs().max())
+    alb_equal = float((alb_k.cpu() == alb_c).float().mean())
+    changed = int((vol_k != r_args[0]).flatten(1).any(1).sum())
+    print(f"recomposite: {changed} of {vol_k.shape[0]} bricks differ from "
+          f"the pristine pool; card vs CPU: quanta equal on {q_equal:.6f} "
+          f"(limit 0.999), max {q_max} (limit 1), albedo words equal on "
+          f"{alb_equal:.6f} (limit 0.999)", flush=True)
+    check(changed > 0, "the boxes recomposite into the SDF")
+    check(q_equal >= 0.999 and q_max <= 1 and alb_equal >= 0.999,
+          "recomposite card vs CPU")
+    small = small_card_vs_cpu(ctx, 6, "small dynamic scene (slice 6 "
+                              "settings, moving box)", textured=True,
+                              gi=True, moving=True, dynamic=True)
+    return dict(pair_budget_scale=ctx.scale, **ctx.extra["sdf_dynamic"],
+                texture_trilinear_aniso=d_both, texture_trilinear=d_tri,
+                gbuffer_pixels_differ=frac_b, carry_table=m_found,
+                prev_ndc=dict(static_pixels=static_err.numel(),
+                              static_within_1e4=static_close,
+                              static_max=float(static_err.max()),
+                              box_pixels=box_err.numel(),
+                              box_apart_share=box_apart),
+                recomposite=dict(bricks_changed=changed,
+                                 quanta_equal=q_equal, quanta_max=q_max,
+                                 albedo_equal=alb_equal),
+                small_close=small)
+
+
+def sdfgi_quanta(words):
+    """The s8 distance quanta of packed (NB, 8, 128) SDF words."""
+    q = torch.stack([(words >> (8 * b)) & 0xFF for b in range(4)], dim=-1)
+    return torch.where(q > 127, q - 256, q)
 
 
 # ------------------------- checks after a run -------------------------
 
 def _one_frame(ctx, scene, run, settings):
     """One more frame from the run's last state and the last camera."""
-    return frame.render_frame(run["state"], scene, ctx.cams[-1], ctx.luts,
-                              1.0 / 60.0, settings, device=ctx.dev)[0]
+    i = len(ctx.cams) - 1
+    return frame.render_frame(run["state"], scene_at(ctx, scene, i),
+                              ctx.cams[i], ctx.luts, 1.0 / 60.0, settings,
+                              device=ctx.dev)[0]
 
 
 def slice4_after(ctx, scene, settings, run) -> dict:
@@ -1080,6 +1480,15 @@ SLICES = [
         lambda ctx, scene, settings, run: profile_frames(
             ctx, scene, settings, run, "slice 5"),
         pick_scale=True, histories=_HISTORIES),
+    # the same scene with its 12 boxes moving (raster and SDF) and
+    # texture_filter 2: B and L write 15 channels, D runs its trilinear +
+    # anisotropic branch, the SDF is recomposited every frame
+    Row(6, "bench_dynamic", 3, 8,
+        dict(_A_TO_I, expand_keys=4, depth_alpha=1, winner_alpha=1,
+             attr_resolve=1), slice6_kernels,
+        lambda ctx, scene, settings, run: profile_frames(
+            ctx, scene, settings, run, "slice 6"),
+        pick_scale=True, histories=_HISTORIES),
 ]
 
 
@@ -1149,6 +1558,11 @@ def main() -> int:
             "bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": ctx.library_ms[name]}
+        if name in ctx.variants:  # other branches of the same kernel
+            entry["variants"] = [dict(variant=v, **r) for v, r in
+                                 ctx.variants[name].items()]
+        if name in ctx.earlier:  # its times on earlier rows' inputs
+            entry["earlier"] = ctx.earlier[name]
         if name == "expand_keys":  # its second use: the atlas's keys
             entry.update(ctx.extra["atlas_keys"])
         if name == "expand_rows":  # not on the frame: its own path

@@ -13,6 +13,10 @@
 #define PLAIN_SLOT_MASK ((1 << PLAIN_SLOT_BITS) - 1)
 #define PLAIN_NATTR 30
 #define PLAIN_GBUF_CHANNELS 13
+// dynamic scenes: + the previous-frame clip x, y, w planes (rows 30-38;
+// pair_attrs then has 40 rows) and previous NDC xy (channels 13-14)
+#define PLAIN_NATTR_PREV 39
+#define PLAIN_GBUF_CHANNELS_PREV 15
 
 // The raster kernels (gbuffer.cu, depth.cu) stage 14 of a pair's 16 edge
 // rows in shared memory: e0, e1, e2, z as (a, b, c) (rows 4p + k), then
@@ -105,16 +109,20 @@ __device__ __forceinline__ float plain_eval_attr(const float* c, float x,
 }
 
 // The attribute phase of kernels B and L (raster.py:1603 _attr_phase):
-// the 13 G-buffer channels at pixel centre (x, y) of the winner whose 30
+// the G-buffer channels at pixel centre (x, y) of the winner whose
 // attribute rows are column idx of attrs (n_pairs columns), split-rounded:
 // uv, its screen derivatives, normal and tangent normalised, the packed
-// material row.
+// material row; with PREV (a dynamic scene's 39 rows) also the previous
+// NDC xy of the prev-clip planes, divided by a signed _kernel_recip of
+// |prev w| where it exceeds 1e-9, else by 1 (raster.py:1728-1740).
+template <bool PREV>
 __device__ __forceinline__ void plain_gbuffer_channels(
     const float* __restrict__ attrs, int n_pairs, int idx, float x, float y,
-    float ch[PLAIN_GBUF_CHANNELS]) {
-  float cf[PLAIN_NATTR];
+    float* ch) {
+  constexpr int n_attr = PREV ? PLAIN_NATTR_PREV : PLAIN_NATTR;
+  float cf[n_attr];
 #pragma unroll
-  for (int k = 0; k < PLAIN_NATTR; ++k) {
+  for (int k = 0; k < n_attr; ++k) {
     cf[k] = plain_split_round(attrs[(size_t)k * n_pairs + idx]);
   }
   const float w =
@@ -142,6 +150,18 @@ __device__ __forceinline__ void plain_gbuffer_channels(
     ch[8 + 3 * vec] = __fmul_rn(vz, inv_len);
   }
   ch[12] = cf[29];
+  if (PREV) {
+    const float prev_x = __fmul_rn(plain_eval_attr(cf + 30, x, y), w);
+    const float prev_y = __fmul_rn(plain_eval_attr(cf + 33, x, y), w);
+    const float prev_w = __fmul_rn(plain_eval_attr(cf + 36, x, y), w);
+    float inv_pw = 1.0f;
+    if (fabsf(prev_w) > 1e-9f) {
+      const float r = plain_kernel_recip(fabsf(prev_w));
+      inv_pw = prev_w < 0.0f ? -r : r;
+    }
+    ch[13] = __fmul_rn(prev_x, inv_pw);
+    ch[14] = __fmul_rn(prev_y, inv_pw);
+  }
 }
 
 // Every C entry point launches on the caller's stream and returns

@@ -29,10 +29,13 @@
 //   lo = bf16(a - hi), coeff = hi + lo; a gather replaces the matmul;
 // - 1/w is _kernel_recip (raster.py:1148): rsqrt(x)^2 with one Newton step;
 // - normals and tangents are normalised and masked by valid; channel 12 is
-//   the constant material row coeff[29].
+//   the constant material row coeff[29];
+// - a dynamic scene's 40-row pair_attrs (prev != 0, the PREV instance)
+//   adds channels 13-14, the previous NDC of the prev-clip planes (rows
+//   30-38, raster.py:1728-1740); the static instance keeps 13 channels.
 //
 // Bound on the H100: at 1080p it must write 125 MB (depth, vis and 13
-// f32 channels per pixel) and read the pair tables once; the plane
+// f32 channels per pixel; 142 MB with 15) and read the pair tables once; the plane
 // evaluations are 12 flops per evaluated (pair, pixel). Design: pair
 // setups are staged through shared memory in chunks of CHUNK pairs (14 of
 // the 16 edge rows: 4 planes x (a, b, c) plus the fine-row extents), read
@@ -46,6 +49,7 @@
 #define CHUNK 256
 
 // at most 4 sub-blocks of 128 threads: caps registers at 128 per thread
+template <bool PREV>
 __global__ void __launch_bounds__(4 * PLAIN_TILE_W)
 gbuffer_kernel(const float* __restrict__ edges,
                                const float* __restrict__ attrs,
@@ -124,19 +128,20 @@ gbuffer_kernel(const float* __restrict__ edges,
     const size_t o = (size_t)(y0 + r) * width + px;
     const int a = acc[r];
     depth[o] = __int_as_float(a & ~PLAIN_SLOT_MASK);
-    float ch[PLAIN_GBUF_CHANNELS];
+    constexpr int n_ch = PREV ? PLAIN_GBUF_CHANNELS_PREV : PLAIN_GBUF_CHANNELS;
+    float ch[n_ch];
 #pragma unroll
-    for (int c = 0; c < PLAIN_GBUF_CHANNELS; ++c) ch[c] = 0.0f;
+    for (int c = 0; c < n_ch; ++c) ch[c] = 0.0f;
     if (a != 0) {
       const int slot = a & PLAIN_SLOT_MASK;
       vis[o] = slot;
-      plain_gbuffer_channels(attrs, n_pairs, base + slot, x,
-                             (float)(y0 + r) + 0.5f, ch);
+      plain_gbuffer_channels<PREV>(attrs, n_pairs, base + slot, x,
+                                   (float)(y0 + r) + 0.5f, ch);
     } else {
       vis[o] = -1;
     }
 #pragma unroll
-    for (int c = 0; c < PLAIN_GBUF_CHANNELS; ++c) gbuf[c * plane + o] = ch[c];
+    for (int c = 0; c < n_ch; ++c) gbuf[c * plane + o] = ch[c];
   }
 }
 
@@ -144,10 +149,11 @@ extern "C" int gbuffer_launch(const void* edges, const void* attrs,
                               const void* tile_start, const void* tile_count,
                               void* depth, void* vis, void* gbuf, int n_pairs,
                               int n_tiles_y, int n_tiles_x, int sub,
-                              int row_skip, void* stream) {
+                              int row_skip, int prev, void* stream) {
   const int blocks = n_tiles_y * n_tiles_x;
   const int threads = PLAIN_TILE_W * sub;
-  gbuffer_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  auto kernel = prev ? gbuffer_kernel<true> : gbuffer_kernel<false>;
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)edges, (const float*)attrs, (const int*)tile_start,
       (const int*)tile_count, (float*)depth, (int*)vis, (float*)gbuf,
       n_pairs, n_tiles_y, n_tiles_x, sub, row_skip);

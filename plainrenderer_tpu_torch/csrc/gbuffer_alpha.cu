@@ -21,13 +21,15 @@
 // (ops/raster.py:winner_alpha_plain) on every pixel.
 //
 // L: one thread per pixel. It reads vis, takes the winner's 30 attribute
-// rows at column base + vis of its bin, split-rounds them and evaluates
-// the 13 channels exactly as kernel B's attribute phase
-// (common.cuh, plain_gbuffer_channels); uncovered pixels get zeros.
+// rows (39 in a dynamic scene, prev != 0) at column base + vis of its bin,
+// split-rounds them and evaluates the 13 channels (15 with the previous
+// NDC) exactly as kernel B's attribute phase (common.cuh,
+// plain_gbuffer_channels); uncovered pixels get zeros.
 //
 // Bound on the H100: both are bytes-bound at 1080p. K writes depth and vis
 // (8 B per pixel, 16.7 MB) and reads the few thousand alpha pairs; L reads
-// vis (4 B) and writes 13 f32 channels (52 B) per pixel, ~117 MB. The
+// vis (4 B) and writes 13 f32 channels (52 B; 15, 60 B, in a dynamic
+// scene) per pixel, ~117 MB. The
 // alpha stream covers a small share of the screen, so most of L's threads
 // only write zeros; its writes are coalesced across a warp.
 #include "common.cuh"
@@ -129,6 +131,7 @@ winner_alpha_kernel(const float* __restrict__ edges,
   }
 }
 
+template <bool PREV>
 __global__ void attr_resolve_kernel(const float* __restrict__ attrs,
                                     const int* __restrict__ tile_start,
                                     const int* __restrict__ vis,
@@ -142,17 +145,19 @@ __global__ void attr_resolve_kernel(const float* __restrict__ attrs,
   const int py = (int)(o / width);
   const int px = (int)(o - (size_t)py * width);
   const int slot = vis[o];
-  float ch[PLAIN_GBUF_CHANNELS];
+  constexpr int n_ch = PREV ? PLAIN_GBUF_CHANNELS_PREV : PLAIN_GBUF_CHANNELS;
+  float ch[n_ch];
 #pragma unroll
-  for (int c = 0; c < PLAIN_GBUF_CHANNELS; ++c) ch[c] = 0.0f;
+  for (int c = 0; c < n_ch; ++c) ch[c] = 0.0f;
   if (slot >= 0) {
     const int bin = py / (sub * PLAIN_TILE_H) * n_tiles_x + px / PLAIN_TILE_W;
     const int base = tile_start[bin] / PLAIN_GROUP * PLAIN_GROUP;
-    plain_gbuffer_channels(attrs, n_pairs, min(base + slot, n_pairs - 1),
-                           (float)px + 0.5f, (float)py + 0.5f, ch);
+    plain_gbuffer_channels<PREV>(attrs, n_pairs,
+                                 min(base + slot, n_pairs - 1),
+                                 (float)px + 0.5f, (float)py + 0.5f, ch);
   }
 #pragma unroll
-  for (int c = 0; c < PLAIN_GBUF_CHANNELS; ++c) gbuf[c * plane + o] = ch[c];
+  for (int c = 0; c < n_ch; ++c) gbuf[c * plane + o] = ch[c];
 }
 
 extern "C" int winner_alpha_launch(const void* edges, const void* masks,
@@ -172,12 +177,13 @@ extern "C" int winner_alpha_launch(const void* edges, const void* masks,
 extern "C" int attr_resolve_launch(const void* attrs, const void* tile_start,
                                    const void* vis, void* gbuf, int n_pairs,
                                    int n_tiles_y, int n_tiles_x, int sub,
-                                   void* stream) {
+                                   int prev, void* stream) {
   const size_t n_pix =
       (size_t)n_tiles_y * sub * PLAIN_TILE_H * n_tiles_x * PLAIN_TILE_W;
   const int threads = 256;
-  attr_resolve_kernel<<<(unsigned)((n_pix + threads - 1) / threads), threads,
-                        0, (cudaStream_t)stream>>>(
+  auto kernel = prev ? attr_resolve_kernel<true> : attr_resolve_kernel<false>;
+  kernel<<<(unsigned)((n_pix + threads - 1) / threads), threads, 0,
+           (cudaStream_t)stream>>>(
       (const float*)attrs, (const int*)tile_start, (const int*)vis,
       (float*)gbuf, n_pairs, n_tiles_y, n_tiles_x, sub);
   PLAIN_RETURN_LAUNCH_STATUS();

@@ -31,6 +31,12 @@ ALPHA_KEYS = ("alpha_masks", "tri_alpha_slot")
 # present only when a scene SDF is attached (frame.py:1203-1237)
 SDF_KEYS = ("sdf_volume", "sdf_albedo", "sdf_origin", "sdf_voxel_size",
             "sdf_dims", "sdf_shape", "sdf_coarse")
+# present only in a dynamic scene (frame.py:363-397): this frame's and the
+# previous frame's model matrices (O, 4, 4)
+DYNAMIC_KEYS = ("object_transforms", "prev_object_transforms")
+# present only when dynamic SDF instances are attached (frame.py:1240-1254)
+DYNAMIC_SDF_KEYS = ("sdf_dyn_vols", "sdf_dyn_tokens", "sdf_dyn_pad_min",
+                    "sdf_dyn_pad_max", "sdf_dyn_albedo", "sdf_dyn_obj")
 LUT_KEYS = ("transmission", "multiscatter", "blue_noise")
 
 
@@ -44,21 +50,25 @@ def scene_from_arrays(scene: dict, device="cuda") -> dict:
     A static scene SDF crosses as the port's attach_global_sdf lays it
     out: the brick pools, origin and dims as tensors, the voxel size as a
     float, the shape token's (D, H, W) as the tuple "sdf_grid", and the
-    coarse tables as (sdf, albedo, (cd, ch, cw), factor)."""
+    coarse tables as (sdf, albedo, (cd, ch, cw), factor). Dynamic SDF
+    instances cross as attach_dynamic_sdf lays them out: a list of volume
+    tensors and the window tokens' shapes as the tuple "sdf_dyn_tokens"
+    of (wd, wh, ww)."""
     dev = device_mod.resolve(device)
-    extra = sorted(set(scene) - set(SCENE_KEYS) - set(TEXTURE_KEYS)
-                   - set(ALPHA_KEYS) - set(SDF_KEYS))
+    known = (SCENE_KEYS + TEXTURE_KEYS + ALPHA_KEYS + SDF_KEYS
+             + DYNAMIC_KEYS + DYNAMIC_SDF_KEYS)
+    extra = sorted(set(scene) - set(known))
     if extra:
-        raise NotImplementedError(
-            f"scene keys of later slices: {extra} (dynamic objects and "
-            "their SDFs)")
+        raise NotImplementedError(f"scene keys the port does not read: "
+                                  f"{extra}")
     keys = SCENE_KEYS + tuple(k for k in TEXTURE_KEYS + ALPHA_KEYS
-                              if k in scene)
+                              + DYNAMIC_KEYS if k in scene)
     out = {k: _tensor(scene[k], dev) for k in keys}
-    sdf = [k for k in SDF_KEYS if k in scene]
-    if sdf and len(sdf) != len(SDF_KEYS):
-        raise ValueError(f"scene SDF keys incomplete: {sdf}")
-    if sdf:
+    for group in (SDF_KEYS, DYNAMIC_SDF_KEYS):
+        present = [k for k in group if k in scene]
+        if present and len(present) != len(group):
+            raise ValueError(f"scene keys incomplete: {present}")
+    if "sdf_volume" in scene:
         c_sdf, c_alb, c_dims, c_f = scene["sdf_coarse"]
         out.update(
             sdf_volume=_tensor(scene["sdf_volume"], dev),
@@ -69,6 +79,12 @@ def scene_from_arrays(scene: dict, device="cuda") -> dict:
             sdf_grid=tuple(int(n) for n in np.shape(scene["sdf_shape"])[:3]),
             sdf_coarse=(_tensor(c_sdf, dev), _tensor(c_alb, dev),
                         tuple(int(n) for n in c_dims), int(c_f)))
+    if "sdf_dyn_vols" in scene:
+        out.update(
+            sdf_dyn_vols=[_tensor(v, dev) for v in scene["sdf_dyn_vols"]],
+            sdf_dyn_tokens=tuple(tuple(int(n) for n in np.shape(t)[:3])
+                                 for t in scene["sdf_dyn_tokens"]),
+            **{k: _tensor(scene[k], dev) for k in DYNAMIC_SDF_KEYS[2:]})
     return out
 
 

@@ -44,8 +44,8 @@ _ENTRIES = {
     # bin_rows, order_rows, order_alpha, tpv, sentinel, stream
     "expand_keys_launch": ("expand_keys", [_P] * 5 + [_I] * 8 + [_P]),
     # edges, attrs, tile_start, tile_count, depth, vis, gbuf, n_pairs,
-    # n_tiles_y, n_tiles_x, sub, row_skip, stream
-    "gbuffer_launch": ("gbuffer", [_P] * 7 + [_I] * 5 + [_P]),
+    # n_tiles_y, n_tiles_x, sub, row_skip, prev, stream
+    "gbuffer_launch": ("gbuffer", [_P] * 7 + [_I] * 6 + [_P]),
     # table, ids, valid, out, n_pix, channels, stream
     "material_launch": ("material", [_P] * 4 + [_I] * 2 + [_P]),
     # edges, tile_start, tile_count, chunk_end, counter, depth, n_pairs,
@@ -55,8 +55,8 @@ _ENTRIES = {
     # map_size, cascade_count, taps, sample_radius, inv_taps, stream
     "shadow_launch": ("shadow", [_P] * 7 + [_I] * 5 + [_F, _F, _P]),
     # uv, duv, mat_id, valid, mat_tex, info, word0, word1, out, h, w,
-    # n_mat, n_mips, two_mat, mip_bias, stream
-    "texture_launch": ("texture", [_P] * 9 + [_I] * 5 + [_F, _P]),
+    # n_mat, n_mips, two_mat, trilinear, aniso, mip_bias, stream
+    "texture_launch": ("texture", [_P] * 9 + [_I] * 7 + [_F, _P]),
     # wpos, normal, dirs, valid, sky, sdf, alb, coarse_sdf, coarse_alb,
     # meta, out, h, w, vd, vh, vw, cd, ch, cw, coarse_f, steps, strict,
     # use_coarse, sky_h, sky_w, stream
@@ -72,8 +72,8 @@ _ENTRIES = {
     # n_tiles_y, n_tiles_x, sub, row_skip, stream
     "winner_alpha_launch": ("winner_alpha", [_P] * 6 + [_I] * 6 + [_P]),
     # attrs, tile_start, vis, gbuf, n_pairs, n_tiles_y, n_tiles_x, sub,
-    # stream
-    "attr_resolve_launch": ("attr_resolve", [_P] * 4 + [_I] * 4 + [_P]),
+    # prev, stream
+    "attr_resolve_launch": ("attr_resolve", [_P] * 4 + [_I] * 5 + [_P]),
     # owners, table, total, out, n_rows, n_cols, budget, stream
     "expand_rows_launch": ("expand_rows", [_P] * 4 + [_I] * 3 + [_P]),
 }

@@ -4,13 +4,16 @@ Port of plainrenderer_tpu/ops/raster.py: the main view and the sun-shadow
 atlas, opaque and alpha-tested. The stages keep the reference's contracts
 (the (3, 4|8, T) edge table, the (16|32, P) / (32, P) pair-row tables,
 the packed int32 sort key, the packed depth | slot winner rule, the vis
-encoding, the 13-channel G-buffer layout):
+encoding, the 13-channel G-buffer layout, 15 with a dynamic scene's
+previous-frame NDC):
 
   1. geometry_setup (plain PyTorch): per-triangle 2D-homogeneous edge
      planes, reverse-Z depth plane, perspective-correct attribute planes
      and tile bboxes, as (T,) lane vectors in the JAX package's op order
      (or (B, T) for a batch of view matrices: the shadow cascades); with
-     alpha slots, 4 more planes (u/w, v/w, 1/w, the mask slot);
+     alpha slots, 4 more planes (u/w, v/w, 1/w, the mask slot); with a
+     dynamic scene's previous corners, 9 more attribute rows (the
+     previous-frame clip x, y, w planes);
   2. build_pairs: spans + int32 prefix sum, then kernel A (expand_keys,
      csrc/expand_keys.cu) maps every pair-stream slot to its sort key, one
      torch.sort orders the stream, torch.searchsorted finds each bin's
@@ -51,13 +54,15 @@ NATTR = 30  # attribute-plane rows per triangle (10 planes x 3 coeffs)
 NATTR_PREV = NATTR + 9  # + previous-frame clip planes (dynamic scenes)
 
 # G-buffer channels: uv 0-1, uv screen derivatives 2-5, normal 6-8,
-# tangent 9-11, packed material * 2 + (handedness < 0) 12
+# tangent 9-11, packed material * 2 + (handedness < 0) 12; dynamic scenes
+# (NATTR_PREV attribute rows) add the previous-frame NDC xy 13-14
 GBUF_CHANNELS = 13
 _CH_U = 0  # 0-1 uv
 _CH_DUDX = 2  # 2-5 dudx, dvdx, dudy, dvdy
 _CH_N = 6  # 6-8 normal
 _CH_T = 9  # 9-11 tangent
 _CH_MAT = 12  # packed material * 2 + (handedness < 0)
+_CH_PREV = 13  # 13-14 previous-frame NDC xy (dynamic scenes)
 
 
 def pad_resolution(width: int, height: int) -> tuple[int, int]:
@@ -115,8 +120,8 @@ def geometry_setup(corners, corner_uvs, corner_normals, corner_tangents,
                    corner_bitangents, tri_material, tri_visible, view_proj,
                    width: int, height: int, cull: str = "back",
                    near_w: float = 0.0, bin_rows: int = 1,
-                   with_attrs: bool = True,
-                   tri_alpha_slot=None) -> TriangleSetup:
+                   with_attrs: bool = True, tri_alpha_slot=None,
+                   prev_view_proj=None, prev_corners=None) -> TriangleSetup:
     """Dense per-triangle setup (raster.py:104 geometry_setup).
 
     Edge and attribute planes are built in 2D homogeneous viewport space
@@ -135,8 +140,10 @@ def geometry_setup(corners, corner_uvs, corner_normals, corner_tangents,
     table (raster.py:225-245): planes 4-7 are u/w, v/w, 1/w and the mask
     slot as a constant plane (0, 0, slot), each zeroed where the triangle
     is invalid, so the atlas's c - b * y_off shift leaves the slot alone.
-    The previous-frame planes of dynamic objects arrive with their
-    slice."""
+    prev_corners (T, 3, 3), a dynamic scene's previous-frame world corners,
+    with prev_view_proj (4, 4) adds attribute rows 30-38: the planes of
+    the previous-frame clip x, y and w of prev_view_proj @ prev_corners
+    (raster.py:361-380)."""
     if view_proj.dim() == 3 and with_attrs:
         raise ValueError("a batch of views is set up without attributes")
     cx = [corners[:, v, 0] for v in range(3)]
@@ -310,6 +317,20 @@ def geometry_setup(corners, corner_uvs, corner_normals, corner_tangents,
     rows.append(torch.zeros_like(det))
     rows.append(tri_material.to(torch.float32) * 2.0
                 + hand_neg.to(torch.float32))
+    if prev_corners is not None:
+        # 30-38: previous-frame clip planes (dynamic scenes only; static
+        # motion reprojects the depth-derived world position instead)
+        pm = prev_view_proj
+        px = [prev_corners[:, v, 0] for v in range(3)]
+        py = [prev_corners[:, v, 1] for v in range(3)]
+        pz = [prev_corners[:, v, 2] for v in range(3)]
+
+        def prev_row(r):
+            return [pm[r, 0] * px[v] + pm[r, 1] * py[v] + pm[r, 2] * pz[v]
+                    + pm[r, 3] for v in range(3)]
+
+        for r in (0, 1, 3):
+            add_plane(*prev_row(r))
     attrs = torch.stack(rows, dim=0).to(torch.float32)
     return TriangleSetup(edges=edges, attrs=attrs, tile_bbox=tile_bbox,
                          valid=valid, fine_y=fine_y)
@@ -576,8 +597,8 @@ def setup_row_table(setup: TriangleSetup, row_extents: bool = False):
 def gather_pair_setups(setup: TriangleSetup, pairs: PairLists,
                        row_extents: bool = False, with_attrs: bool = True):
     """Duplicate per-triangle setups into pair order (raster.py:1021):
-    (pair_edges (16, P) f32, pair_attrs (32, P) f32, or None without
-    attributes)."""
+    (pair_edges (16, P) f32, pair_attrs (32, P) f32 (40 with a dynamic
+    scene's prev-clip rows), or None without attributes)."""
     rows, n_rows = setup_row_table(setup, row_extents)
     if not with_attrs:
         return rows[:n_rows].index_select(1, pairs.pair_tri.long()), None
@@ -607,7 +628,9 @@ def _kernel_recip(x: torch.Tensor) -> torch.Tensor:
 def _gbuffer_channels(coeff: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                       valid: torch.Tensor) -> torch.Tensor:
     """Evaluate the winner's 30 attribute rows (zeros where invalid) at
-    pixel centres x, y (raster.py:1680-1726): (13, ...) channels."""
+    pixel centres x, y (raster.py:1680-1726): (13, ...) channels. With a
+    dynamic scene's NATTR_PREV rows, also the previous-frame NDC xy
+    (raster.py:1728-1740): (15, ...)."""
 
     def ev(b):
         return coeff[b] * x + coeff[b + 1] * y + coeff[b + 2]
@@ -629,6 +652,16 @@ def _gbuffer_channels(coeff: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                                               1e-20))
         out += [torch.where(valid, c * inv_len, 0.0) for c in (cx, cy, cz)]
     out.append(coeff[29])
+    if coeff.shape[0] >= NATTR_PREV:
+        prev_x = ev(30) * w
+        prev_y = ev(33) * w
+        prev_w = ev(36) * w
+        # signed reciprocal: _kernel_recip needs x > 0, so factor the sign
+        ok_w = torch.abs(prev_w) > 1e-9
+        inv_pw = torch.where(ok_w, torch.sign(prev_w) * _kernel_recip(
+            torch.where(ok_w, torch.abs(prev_w), 1.0)), 1.0)
+        out += [torch.where(valid, prev_x * inv_pw, 0.0),
+                torch.where(valid, prev_y * inv_pw, 0.0)]
     return torch.stack(out)
 
 
@@ -759,7 +792,8 @@ def attr_resolve_plain(pair_attrs, tile_start, vis, n_tiles_y: int,
     """Plain version of kernel L and of kernel B's attribute half: the
     (13, H, W) channels of each pixel's winner, read from vis (the
     _vis_decode side of the contract, raster.py:1137-1145), with the
-    coefficients split-rounded as the TPU's bf16 one-hot product."""
+    coefficients split-rounded as the TPU's bf16 one-hot product; (15, H,
+    W) from a dynamic scene's 40-row pair_attrs."""
     dev = pair_attrs.device
     n_pairs = pair_attrs.shape[1]
     rows_px = sub * TILE_H
@@ -769,8 +803,9 @@ def attr_resolve_plain(pair_attrs, tile_start, vis, n_tiles_y: int,
     base = (starts // GROUP * GROUP).reshape(n_tiles_y, 1, n_tiles_x, 1)
     base = base.expand(n_tiles_y, rows_px, n_tiles_x, TILE_W).reshape(h, w)
     idx = torch.where(valid, base + vis, 0).clamp(max=n_pairs - 1)
-    coeff = _split_round(pair_attrs[:NATTR, idx.reshape(-1)]).reshape(
-        NATTR, h, w)
+    n_attr = NATTR_PREV if pair_attrs.shape[0] >= NATTR_PREV else NATTR
+    coeff = _split_round(pair_attrs[:n_attr, idx.reshape(-1)]).reshape(
+        n_attr, h, w)
     coeff = torch.where(valid, coeff, 0.0)
     px = torch.arange(w, device=dev).to(torch.float32) + 0.5
     py = torch.arange(h, device=dev).to(torch.float32) + 0.5
@@ -781,7 +816,7 @@ def gbuffer_plain(pair_edges, pair_attrs, tile_start, tile_count,
                   n_tiles_y: int, n_tiles_x: int, sub: int,
                   row_skip: bool):
     """Plain version of kernel B: (depth (H, W) f32, vis (H, W) i32,
-    gbuf (13, H, W) f32), same arithmetic as csrc/gbuffer.cu."""
+    gbuf (13 or 15, H, W) f32), same arithmetic as csrc/gbuffer.cu."""
     depth, vis = _vis_encode(_plain_visibility(
         pair_edges, tile_start, tile_count, n_tiles_y, n_tiles_x, sub,
         row_skip, depth_only=False))
@@ -807,6 +842,16 @@ def _check_bins(pairs: PairLists, n_tiles_y: int, n_tiles_x: int,
     if pairs.tile_start.shape[0] != n_bins \
             or pairs.tile_count.shape[0] != n_bins:
         raise ValueError("tile_start/tile_count need one entry per bin")
+
+
+def _gbuffer_channel_count(pair_attrs: torch.Tensor) -> int:
+    """13 channels from a static scene's 32-row pair_attrs, 15 from a
+    dynamic scene's 40 rows (NATTR_PREV padded to 8); raises otherwise."""
+    rows = pair_attrs.shape[0]
+    if rows not in (32, 40):
+        raise ValueError(f"pair_attrs needs 32 (static) or 40 (dynamic) "
+                         f"rows, got {tuple(pair_attrs.shape)}")
+    return GBUF_CHANNELS + (2 if rows >= NATTR_PREV else 0)
 
 
 def _check_masks(alpha_masks, dev) -> None:
@@ -850,29 +895,27 @@ def rasterize_winner_alpha(pair_edges, pairs: PairLists, alpha_masks,
 
 def resolve_attributes(pair_attrs, tile_start, vis, n_tiles_y: int,
                        n_tiles_x: int, sub: int = 1) -> torch.Tensor:
-    """The winners' attribute planes -> (13, H, W) G-buffer channels
-    (kernel L, csrc/gbuffer_alpha.cu, replaces raster.py:1755
-    _attr_resolve_kernel): vis from rasterize_winner_alpha, the same
-    arithmetic as kernel B's attribute phase."""
+    """The winners' attribute planes -> (13, H, W) G-buffer channels, 15
+    with a dynamic scene's 40-row pair_attrs (kernel L,
+    csrc/gbuffer_alpha.cu, replaces raster.py:1755 _attr_resolve_kernel):
+    vis from rasterize_winner_alpha, the same arithmetic as kernel B's
+    attribute phase."""
     dev = pair_attrs.device
     _require(pair_attrs, "pair_attrs", torch.float32, 2, dev)
     _require(tile_start, "tile_start", torch.int32, 1, dev)
     _require(vis, "vis", torch.int32, 2, dev)
     h, w = n_tiles_y * sub * TILE_H, n_tiles_x * TILE_W
-    if pair_attrs.shape[0] >= NATTR_PREV:
-        raise NotImplementedError(
-            "dynamic-scene motion channels: arrive with dynamic objects")
-    if pair_attrs.shape[0] != 32 or tuple(vis.shape) != (h, w) \
+    n_chan = _gbuffer_channel_count(pair_attrs)
+    if tuple(vis.shape) != (h, w) \
             or tile_start.shape[0] != n_tiles_y * n_tiles_x:
-        raise ValueError(f"want (32, P) attrs, ({h}, {w}) vis and one "
-                         "start per bin")
+        raise ValueError(f"want ({h}, {w}) vis and one start per bin")
     if not _kernel_device(pair_attrs):
         return attr_resolve_plain(pair_attrs, tile_start, vis, n_tiles_y,
                                   n_tiles_x, sub)
-    gbuf = torch.empty((GBUF_CHANNELS, h, w), dtype=torch.float32,
-                       device=dev)
+    gbuf = torch.empty((n_chan, h, w), dtype=torch.float32, device=dev)
     native.launch("attr_resolve_launch", pair_attrs, tile_start, vis, gbuf,
-                  pair_attrs.shape[1], n_tiles_y, n_tiles_x, sub)
+                  pair_attrs.shape[1], n_tiles_y, n_tiles_x, sub,
+                  int(n_chan > GBUF_CHANNELS))
     return gbuf
 
 
@@ -883,7 +926,8 @@ def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
     (raster.py:1857).
 
     Channels: uv (0-1), uv screen derivatives (2-5), normal (6-8), tangent
-    (9-11), packed material*2+handedness (12). vis holds each covered
+    (9-11), packed material*2+handedness (12), and with a dynamic scene's
+    40-row pair_attrs the previous-frame NDC xy (13-14). vis holds each covered
     pixel's slot relative to start // GROUP * GROUP of its bin's segment,
     -1 where uncovered; depth keeps the slot bits cleared. row_skip needs
     pair_edges rows 3/7 from gather_pair_setups(row_extents=True).
@@ -903,11 +947,9 @@ def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
     n_pairs = pair_edges.shape[1]
     if pair_edges.shape[0] != 16:
         raise ValueError(f"pair_edges needs 16 rows, got {pair_edges.shape}")
-    if pair_attrs.shape[0] >= NATTR_PREV:
-        raise NotImplementedError(
-            "dynamic-scene motion channels: arrive with dynamic objects")
-    if pair_attrs.shape != (32, n_pairs):
-        raise ValueError(f"pair_attrs needs (32, {n_pairs}), got "
+    n_chan = _gbuffer_channel_count(pair_attrs)
+    if pair_attrs.shape[1] != n_pairs:
+        raise ValueError(f"pair_attrs needs {n_pairs} columns, got "
                          f"{tuple(pair_attrs.shape)}")
     if not 1 <= sub <= 4:  # kernel B's block is 128 * sub threads, <= 512
         raise ValueError(f"sub must be in [1, 4], got {sub}")
@@ -918,11 +960,11 @@ def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
     h, w = n_tiles_y * sub * TILE_H, n_tiles_x * TILE_W
     depth = torch.empty((h, w), dtype=torch.float32, device=dev)
     vis = torch.empty((h, w), dtype=torch.int32, device=dev)
-    gbuf = torch.empty((GBUF_CHANNELS, h, w), dtype=torch.float32,
-                       device=dev)
+    gbuf = torch.empty((n_chan, h, w), dtype=torch.float32, device=dev)
     native.launch("gbuffer_launch", pair_edges, pair_attrs,
                   pairs.tile_start, pairs.tile_count, depth, vis, gbuf,
-                  n_pairs, n_tiles_y, n_tiles_x, sub, int(row_skip))
+                  n_pairs, n_tiles_y, n_tiles_x, sub, int(row_skip),
+                  int(n_chan > GBUF_CHANNELS))
     return depth, vis, gbuf
 
 

@@ -22,8 +22,10 @@ sample_plain for CPU tensors. Both reduce a tile's 2048 pixels in one fixed
 order: 256 threads of 8 pixels (thread = (row // 8) * 128 + column), each
 summing its 8 rows in turn, then a halving tree over the 256 threads. So
 the tile sums, and with them each tile's mip and window, agree bit for
-bit. trilinear / anisotropic filtering (texture_filter >= 1) is not in
-this slice.
+bit. texture_filter >= 1 adds per-pixel trilinear filtering (a second
+window at mip + 1, lerped by the per-pixel lod fraction; two_mat is then
+off) and texture_filter >= 2 anisotropic filtering (the minor-axis mip,
+3 taps along the major footprint axis), both as the JAX kernel.
 """
 
 from __future__ import annotations
@@ -94,34 +96,21 @@ def _unpack8(w: torch.Tensor, shift: int) -> torch.Tensor:
     return ((w >> shift) & 0xFF).to(torch.float32) / 255.0
 
 
-def _material_pass(m_sel, n_valid, u, v, duv, mat, valid, mat_tex, info,
-                   word0, word1, n_mips: int, mip_bias: float):
-    """Window + taps for one material per tile (texture.py:79-282). All
-    pixel tensors are in thread layout (n, THREADS, ROWS); m_sel (n,).
-    Returns (values (8, n, THREADS, ROWS) zeroed where not ok, ok, sel)."""
-    info_flat = info.reshape(-1)
-
+def _sample_level(mip, texc, sel, n_sel, u, v, info_flat, n_mips: int,
+                  word0, word1, aniso_axis=None):
+    """One (texture, mip) window of one material per tile and its taps
+    (texture.py:113-271). All pixel tensors are in thread layout (n,
+    THREADS, ROWS); mip and texc (n,). aniso_axis (mvx, mvy), the major
+    footprint axis in mip-0 uv units per pixel, takes 3 bilinear taps at
+    -1/3, 0 and 1/3 of it in this level's texel units and averages them,
+    the in-window masks ANDed (texture.py:252-271). Returns (raw (8, n,
+    THREADS, ROWS), the 8 bilinear blends before the gamma and normal
+    decode, and the in-window mask)."""
     def col(row, k):  # per-tile int32 info entry
         return info_flat[(row * 4 + k).long()]
 
     def tile(x):  # per-tile scalar -> broadcast over pixels
         return x[:, None, None]
-
-    tex = mat_tex[m_sel.long()]
-    textured = (tex >= 0) & (n_valid > 0)
-    texc = torch.clamp(tex, min=0)
-    sel = valid & (mat == tile(m_sel))
-    n_sel = torch.clamp(_count(sel).to(torch.float32), min=1.0)
-
-    # mip from the mean uv footprint of this material's pixels
-    lw0 = tile(col(texc * n_mips, 2).to(torch.float32))
-    lh0 = tile(col(texc * n_mips, 3).to(torch.float32))
-    rho = torch.maximum(
-        torch.maximum(torch.abs(duv[0]) * lw0, torch.abs(duv[1]) * lh0),
-        torch.maximum(torch.abs(duv[2]) * lw0, torch.abs(duv[3]) * lh0))
-    mean_rho = tile_sum(torch.where(sel, rho, 0.0)) / n_sel
-    lam = torch.log2(torch.clamp(mean_rho, min=1e-6)) + mip_bias
-    mip = torch.clamp(lam.to(torch.int32), 0, n_mips - 1)
 
     row = texc * n_mips + mip
     base, nbx, lw, lh = (col(row, k) for k in range(4))
@@ -151,13 +140,6 @@ def _material_pass(m_sel, n_valid, u, v, duv, mat, valid, mat_tex, info,
     ty = _jmod(vf - tile((by0 * 8).to(torch.float32)), lhf)
     fits_x = tile(lw <= WIN_W)
     fits_y = tile(lh <= WIN_H)
-    in_w = ((fits_x | ((tx >= 0.5) & (tx <= WIN_W - 1.5)))
-            & (fits_y | ((ty >= 0.5) & (ty <= WIN_H - 1.5))) & sel)
-    x0 = torch.floor(tx - 0.5).to(torch.int32)
-    y0 = torch.floor(ty - 0.5).to(torch.int32)
-    fx = torch.clamp(tx - 0.5 - x0.to(torch.float32), 0.0, 1.0)
-    fy = torch.clamp(ty - 0.5 - y0.to(torch.float32), 0.0, 1.0)
-
     lw_t, lh_t = tile(lw), tile(lh)
     nbx_t = tile(torch.clamp(nbx, min=1))
     nby_t = tile(torch.clamp(nby, min=1))
@@ -178,23 +160,98 @@ def _material_pass(m_sel, n_valid, u, v, duv, mat, valid, mat_tex, info,
         flat = ((bidx * 8 + (yi & 7)) * 128 + (xi & 127)).long()
         return w0_flat[flat], w1_flat[flat]
 
-    w000, w100 = tap(x0, y0)
-    w001, w101 = tap(x0 + 1, y0)
-    w010, w110 = tap(x0, y0 + 1)
-    w011, w111 = tap(x0 + 1, y0 + 1)
-    b00 = (1 - fx) * (1 - fy)
-    b01 = fx * (1 - fy)
-    b10 = (1 - fx) * fy
-    b11 = fx * fy
+    def bilinear_at(txo, tyo):
+        in_w = ((fits_x | ((txo >= 0.5) & (txo <= WIN_W - 1.5)))
+                & (fits_y | ((tyo >= 0.5) & (tyo <= WIN_H - 1.5))) & sel)
+        x0 = torch.floor(txo - 0.5).to(torch.int32)
+        y0 = torch.floor(tyo - 0.5).to(torch.int32)
+        fx = torch.clamp(txo - 0.5 - x0.to(torch.float32), 0.0, 1.0)
+        fy = torch.clamp(tyo - 0.5 - y0.to(torch.float32), 0.0, 1.0)
+        w000, w100 = tap(x0, y0)
+        w001, w101 = tap(x0 + 1, y0)
+        w010, w110 = tap(x0, y0 + 1)
+        w011, w111 = tap(x0 + 1, y0 + 1)
+        b00 = (1 - fx) * (1 - fy)
+        b01 = fx * (1 - fy)
+        b10 = (1 - fx) * fy
+        b11 = fx * fy
 
-    def blend(a, b, c, d, shift):
-        return (_unpack8(a, shift) * b00 + _unpack8(b, shift) * b01
-                + _unpack8(c, shift) * b10 + _unpack8(d, shift) * b11)
+        def blend(a, b, c, d, shift):
+            return (_unpack8(a, shift) * b00 + _unpack8(b, shift) * b01
+                    + _unpack8(c, shift) * b10 + _unpack8(d, shift) * b11)
 
-    r, g, b, alpha = (blend(w000, w001, w010, w011, s) for s in (0, 8, 16, 24))
-    nx, ny, rough, metal = (blend(w100, w101, w110, w111, s)
-                            for s in (0, 8, 16, 24))
-    ok = in_w & tile(textured)
+        return torch.stack(
+            [blend(w000, w001, w010, w011, s) for s in (0, 8, 16, 24)]
+            + [blend(w100, w101, w110, w111, s) for s in (0, 8, 16, 24)]
+        ), in_w
+
+    if aniso_axis is None:
+        return bilinear_at(tx, ty)
+    mvx, mvy = aniso_axis[0] * lwf, aniso_axis[1] * lhf
+    acc = in_win = None
+    for off in (-1.0 / 3.0, 0.0, 1.0 / 3.0):
+        vals, in_o = bilinear_at(tx + mvx * off, ty + mvy * off)
+        acc = vals if acc is None else acc + vals
+        in_win = in_o if in_win is None else in_win & in_o
+    return acc * (1.0 / 3.0), in_win
+
+
+def _material_pass(m_sel, n_valid, u, v, duv, mat, valid, mat_tex, info,
+                   word0, word1, n_mips: int, mip_bias: float,
+                   trilinear: bool = False, aniso: bool = False):
+    """Window + taps for one material per tile (texture.py:79-285). All
+    pixel tensors are in thread layout (n, THREADS, ROWS); m_sel (n,).
+    aniso takes the mip of the footprint's minor axis (with the major
+    axis / 3 as a floor) and 3 taps along its major axis; trilinear lerps
+    a second window at mip + 1 by the per-pixel lod fraction, the
+    in-window masks ANDed. Returns (values (8, n, THREADS, ROWS) zeroed
+    where not ok, ok, sel)."""
+    info_flat = info.reshape(-1)
+
+    def tile(x):  # per-tile scalar -> broadcast over pixels
+        return x[:, None, None]
+
+    tex = mat_tex[m_sel.long()]
+    textured = (tex >= 0) & (n_valid > 0)
+    texc = torch.clamp(tex, min=0)
+    sel = valid & (mat == tile(m_sel))
+    n_sel = torch.clamp(_count(sel).to(torch.float32), min=1.0)
+
+    # mip from the mean uv footprint of this material's pixels, in mip-0
+    # texel units (texture.py:91-111)
+    row0 = (texc * n_mips * 4).long()
+    lw0 = tile(info_flat[row0 + 2].to(torch.float32))
+    lh0 = tile(info_flat[row0 + 3].to(torch.float32))
+    axis = None
+    if aniso:
+        ex_len = torch.sqrt((duv[0] * lw0) ** 2 + (duv[1] * lh0) ** 2)
+        ey_len = torch.sqrt((duv[2] * lw0) ** 2 + (duv[3] * lh0) ** 2)
+        rho_maj = torch.maximum(ex_len, ey_len)
+        # rho_maj / 3 as XLA rounds it: a multiply by the f32 reciprocal
+        rho = torch.maximum(torch.minimum(ex_len, ey_len),
+                            rho_maj * (1.0 / 3.0))
+        use_ex = ex_len >= ey_len
+        axis = (torch.where(use_ex, duv[0], duv[2]),
+                torch.where(use_ex, duv[1], duv[3]))
+    else:
+        rho = torch.maximum(
+            torch.maximum(torch.abs(duv[0]) * lw0, torch.abs(duv[1]) * lh0),
+            torch.maximum(torch.abs(duv[2]) * lw0, torch.abs(duv[3]) * lh0))
+    mean_rho = tile_sum(torch.where(sel, rho, 0.0)) / n_sel
+    lam = torch.log2(torch.clamp(mean_rho, min=1e-6)) + mip_bias
+    mip = torch.clamp(lam.to(torch.int32), 0, n_mips - 1)
+
+    level = (texc, sel, n_sel, u, v, info_flat, n_mips, word0, word1, axis)
+    raw, in_win = _sample_level(mip, *level)
+    if trilinear:
+        raw_hi, in_hi = _sample_level(
+            torch.clamp(mip + 1, max=n_mips - 1), *level)
+        lam_px = torch.log2(torch.clamp(rho, min=1e-6)) + mip_bias
+        t = torch.clamp(lam_px - tile(mip.to(torch.float32)), 0.0, 1.0)
+        raw = raw + (raw_hi - raw) * t
+        in_win = in_win & in_hi
+    r, g, b, alpha, nx, ny, rough, metal = raw
+    ok = in_win & tile(textured)
     vals = torch.stack([r * r, g * g, b * b, alpha, nx * 2.0 - 1.0,
                         ny * 2.0 - 1.0, rough, metal])
     return torch.where(ok, vals, 0.0), ok, sel
@@ -220,11 +277,13 @@ def tile_materials(mat, val, mat_tex):
 
 
 def sample_plain(uv, duv, mat_id, valid, mat_tex, info, word0, word1,
-                 n_mips: int, mip_bias: float = 0.0, two_mat: bool = True):
+                 n_mips: int, mip_bias: float = 0.0, two_mat: bool = True,
+                 trilinear: bool = False, aniso: bool = False):
     """Plain version of kernel D: (9, H, W) f32, the same arithmetic and
     reduction order as csrc/texture.cu. Value channels are 0 where ok is
     0 (the JAX kernel leaves the dominant window's taps there; the frame
-    reads values only where ok)."""
+    reads values only where ok). two_mat is ignored under trilinear, whose
+    second window holds mip + 1 (texture.py:301)."""
     _, h, w = uv.shape
     u, v = to_thread_layout(uv)
     duv_t = to_thread_layout(duv)
@@ -232,9 +291,9 @@ def sample_plain(uv, duv, mat_id, valid, mat_tex, info, word0, word1,
     val = to_thread_layout(valid)
     n_valid, dom, second, needs2 = tile_materials(mat, val, mat_tex)
     args = (n_valid, u, v, duv_t, mat, val, mat_tex, info, word0, word1,
-            n_mips, mip_bias)
+            n_mips, mip_bias, trilinear, aniso)
     vals, ok, _ = _material_pass(dom, *args)
-    if two_mat:
+    if two_mat and not trilinear:
         vals2, ok2, sel2 = _material_pass(second, *args)
         take = sel2 & needs2[:, None, None]
         vals = torch.where(take, vals2, vals)
@@ -253,12 +312,11 @@ def sample_materials(uv, duv, mat_id, valid, mat_tex, info, word0, word1,
 
     uv (2, H, W); duv (4, H, W) dudx, dvdx, dudy, dvdy; mat_id (H, W) f32;
     valid (H, W) bool; mat_tex (M,) i32; info (n_tex * n_mips, 4) i32;
-    word0 / word1 (NB, 8, 128) i32. Returns (9, H, W): linear rgb, alpha,
-    normal xy, rough, metal, ok."""
-    if trilinear or aniso:
-        raise NotImplementedError(
-            "trilinear / anisotropic texture filtering "
-            "(shading.texture_filter >= 1) is not in this slice")
+    word0 / word1 (NB, 8, 128) i32. trilinear: a second window at mip + 1
+    lerped by the per-pixel lod fraction; aniso: the minor-axis mip and 3
+    taps along the major footprint axis; two_mat: mixed tiles window their
+    second material too (ignored under trilinear). Returns (9, H, W):
+    linear rgb, alpha, normal xy, rough, metal, ok."""
     dev = uv.device
     _, h, w = uv.shape
     _require(uv, "uv", torch.float32, 3, dev)
@@ -282,9 +340,11 @@ def sample_materials(uv, duv, mat_id, valid, mat_tex, info, word0, word1,
         raise ValueError("mat_tex needs at least one material")
     if not _kernel_device(uv):
         return sample_plain(uv, duv, mat_id, valid, mat_tex, info, word0,
-                            word1, n_mips, mip_bias, two_mat)
+                            word1, n_mips, mip_bias, two_mat, trilinear,
+                            aniso)
     out = torch.empty((N_OUT, h, w), dtype=torch.float32, device=dev)
     native.launch("texture_launch", uv, duv, mat_id, valid, mat_tex, info,
                   word0, word1, out, h, w, mat_tex.shape[0], n_mips,
-                  int(two_mat), float(mip_bias))
+                  int(two_mat and not trilinear), int(trilinear), int(aniso),
+                  float(mip_bias))
     return out

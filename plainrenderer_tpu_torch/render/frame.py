@@ -11,12 +11,16 @@ resample (kernel H), temporal, spatial -> upscale -> forward shade -> sky
 composite -> froxel fog (with shadows) -> TAA (history taps, kernel I) ->
 bloom -> tonemap. A scene with alpha masks splits the main view and the
 atlas into an opaque stream (kernels A, B, E) and an alpha-tested stream
-(kernels A, K + L, J), merged by depth. Every setting outside it (the TAA
-supersampling pre-pass, trilinear / anisotropic texture filtering,
-dynamic objects and their SDFs, split-frame bands, debug views) raises
-NotImplementedError instead of silently skipping its pass. render_frame
-runs eagerly and never synchronises with the host: every per-frame value
-stays a device tensor.
+(kernels A, K + L, J), merged by depth. A scene with object_transforms
+moves its objects every frame: the transformed corners and bounds feed
+culling, the main view (with the previous frame's clip planes, so kernels
+B and L write the previous NDC) and the atlas; with dynamic SDF objects
+the scene SDF is recomposited each frame. shading.texture_filter 1 and 2
+turn on kernel D's trilinear and anisotropic branches. Every setting
+outside it (the TAA supersampling pre-pass, split-frame bands, camera
+paths, debug views) raises NotImplementedError instead of silently
+skipping its pass. render_frame runs eagerly and never synchronises with
+the host: every per-frame value stays a device tensor.
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ from .. import device as device_mod
 from ..assets.textures import MAX_MIPS
 from ..config import RenderSettings
 from ..ops import exposure as exposure_ops
-from ..ops import (bloom, hiz, post, raster, sdfgi, shade, shadow, sky, taa,
-                   texture, volumetrics)
+from ..ops import (bloom, hiz, post, raster, sdf_scene, sdfgi, shade, shadow,
+                   sky, taa, texture, volumetrics)
 from ..parallel.halo import crop_halo, halo_extend
 from ..scene.frustum import expand_object_mask, visible_objects_clipspace
 from ..utils import mathutils, noise as noise_mod
@@ -99,6 +103,80 @@ def shadow_bin_sub(sres: int) -> int:
     return sub
 
 
+def apply_object_transforms(scene: dict, transforms: torch.Tensor,
+                            positions_only: bool = False):
+    """Dynamic scenes (App.cpp:64-74, frame.py:83): per-object delta
+    transforms (the model matrix times the build-time inverse) applied to
+    the baked world-space corners. transforms (O, 4, 4) is a device tensor
+    of this frame's model matrices. Returns (corners, normals, tangents,
+    bitangents, bb_min, bb_max), or the corners alone with
+    positions_only. Direction attributes go through the inverse-transpose
+    of the delta's 3x3 (exact under non-uniform scale; the raster
+    renormalises per pixel); the culling AABBs are the transformed boxes'
+    bound through |R|. The batched products and inverses round as
+    XLA:CPU's dot and LU solve (mathutils.fma_matmul, lu_inverse); the
+    per-triangle sums round each step, in the JAX package's order."""
+    delta = fma_matmul(transforms, scene["object_build_inv"])
+    tri = scene["tri_object"].long()
+    tr = delta[:, :3, :].reshape(-1, 12).index_select(0, tri)  # (T, 12)
+
+    def apply(rows, c, n_cols):
+        x, y, z = c[..., 0], c[..., 1], c[..., 2]
+
+        def col(i):  # (T, 1) against (T, 3 corners)
+            return rows[:, i:i + 1]
+        out = []
+        for r in range(3):
+            b = r * n_cols
+            v = col(b) * x + col(b + 1) * y + col(b + 2) * z
+            out.append(v + col(b + 3) if n_cols == 4 else v)
+        return torch.stack(out, dim=-1)
+
+    corners = apply(tr, scene["corners"], 4)
+    if positions_only:
+        return corners
+    nrm = lu_inverse(delta[:, :3, :3]).transpose(1, 2)
+    nrows = nrm.reshape(-1, 9).index_select(0, tri)
+    normals, tangents, bitangents = (
+        apply(nrows, scene[k], 3) for k in
+        ("corner_normals", "corner_tangents", "corner_bitangents"))
+    bmin, bmax = scene["object_bb_min"], scene["object_bb_max"]
+    ctr = (bmin + bmax) * 0.5
+    ext = (bmax - bmin) * 0.5
+    r = delta[:, :3, :3]
+    nctr = fma_matmul(r, ctr[:, :, None])[..., 0] + delta[:, :3, 3]
+    next_ = fma_matmul(torch.abs(r), ext[:, :, None])[..., 0]
+    return corners, normals, tangents, bitangents, nctr - next_, nctr + next_
+
+
+def dynamic_scene(scene: dict):
+    """This frame's scene as the passes read it, and the previous frame's
+    corners (None for a static scene). With object_transforms the
+    corners, corner frames and object bounds are transformed
+    (frame.py:363-377), and with dynamic SDF objects as well the scene SDF
+    is recomposited into fresh copies of its brick pools, whose coarse
+    tables the GI trace then rebuilds (frame.py:379-397)."""
+    if "object_transforms" not in scene:
+        return scene, None
+    keys = ("corners", "corner_normals", "corner_tangents",
+            "corner_bitangents", "object_bb_min", "object_bb_max")
+    frame_scene = dict(scene, **dict(zip(keys, apply_object_transforms(
+        scene, scene["object_transforms"]))))
+    prev_corners = apply_object_transforms(
+        scene, scene["prev_object_transforms"], positions_only=True)
+    if "sdf_dyn_vols" in scene and "sdf_volume" in scene:
+        frame_scene["sdf_volume"], frame_scene["sdf_albedo"] = \
+            sdf_scene.recomposite_dynamic(
+                scene["sdf_volume"], scene["sdf_albedo"], scene["sdf_origin"],
+                scene["sdf_voxel_size"], scene["sdf_grid"],
+                scene["sdf_dyn_vols"], scene["sdf_dyn_tokens"],
+                scene["sdf_dyn_pad_min"], scene["sdf_dyn_pad_max"],
+                scene["sdf_dyn_albedo"], scene["sdf_dyn_obj"],
+                scene["object_transforms"])
+        frame_scene["sdf_coarse"] = None
+    return frame_scene, prev_corners
+
+
 def check_slice(scene: dict, cam: dict, settings: RenderSettings) -> None:
     """Raise NotImplementedError for anything the port does not render."""
     unported = [
@@ -108,12 +186,6 @@ def check_slice(scene: dict, cam: dict, settings: RenderSettings) -> None:
          "TAA supersampling pre-pass (taa.use_separate_supersampling)"),
         (settings.shadows.debug_cascade_colors,
          "cascade debug colours (shadows.debug_cascade_colors)"),
-        (settings.shading.texture_filter >= 1,
-         "trilinear / anisotropic texture filtering "
-         "(shading.texture_filter >= 1)"),
-        ("object_transforms" in scene,
-         "dynamic objects (scene 'object_transforms')"),
-        ("sdf_dyn_vols" in scene, "dynamic SDF objects (scene 'sdf_dyn_vols')"),
         ("ndc_y_scale" in cam, "split-frame band mode (cam 'ndc_y_scale')"),
         (cam["position"].dim() == 2, "camera-path mode (render_flight)"),
         (settings.draw_bounding_boxes, "draw_bounding_boxes"),
@@ -149,24 +221,27 @@ class MainRaster:
 
     pairs: raster.PairLists
     pair_edges: torch.Tensor  # (16, P)
-    pair_attrs: torch.Tensor  # (32, P)
+    pair_attrs: torch.Tensor  # (32, P); 40 in a dynamic scene
     depth: torch.Tensor  # (H, W)
     vis: torch.Tensor  # (H, W) i32
-    gbuf: torch.Tensor  # (13, H, W)
+    gbuf: torch.Tensor  # (13, H, W); 15 in a dynamic scene
     overflow: torch.Tensor  # () i32, both streams' dropped pairs
     alpha_pairs: raster.PairLists | None = None
     alpha_edges: torch.Tensor | None = None  # (32, P_a)
-    alpha_attrs: torch.Tensor | None = None  # (32, P_a)
+    alpha_attrs: torch.Tensor | None = None  # (32 or 40, P_a)
 
 
 def main_view_setup(scene: dict, cam: dict, settings: RenderSettings,
-                    jitter_ndc=None) -> MainView:
+                    jitter_ndc=None, prev_view_proj=None,
+                    prev_corners=None) -> MainView:
     """Camera matrices, frustum cull and geometry setup of the main view
     (frame.py:342-420), with its bin grid and pair budgets (:450, :484).
     jitter_ndc (2,), the TAA jitter in NDC units, is added to the
     projection's [0, 2] and [1, 2] (frame.py:352-358). A scene whose
     "alpha_masks" is present and not None gets the 8-plane setup
-    (frame.py:408-420)."""
+    (frame.py:408-420). A dynamic scene passes its previous-frame corners
+    and the previous view-projection: the setup then carries the
+    previous-frame clip planes (39 attribute rows)."""
     width, height = settings.width, settings.height
     pw, ph = raster.pad_resolution(width, height)
     m_sub = main_bin_sub(ph)
@@ -188,7 +263,8 @@ def main_view_setup(scene: dict, cam: dict, settings: RenderSettings,
         scene["corners"], scene["corner_uvs"], scene["corner_normals"],
         scene["corner_tangents"], scene["corner_bitangents"],
         scene["tri_material"], tri_visible, view_proj, pw, ph, cull="back",
-        near_w=NEAR_PLANE, bin_rows=m_sub, tri_alpha_slot=slots)
+        near_w=NEAR_PLANE, bin_rows=m_sub, tri_alpha_slot=slots,
+        prev_view_proj=prev_view_proj, prev_corners=prev_corners)
     # budgets sized to the culled streams (frame.py:426-451, :484-485):
     # ~2x headroom over measured occupancy; overflow lands in
     # debug_counters
@@ -657,10 +733,17 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
     else:
         jitter_ndc = torch.zeros(2, **f32)
 
+    # --- dynamic objects: transformed geometry, recomposited SDF ---
+    if "object_transforms" in scene:
+        _mark(timer, "dynamic")
+    scene, prev_corners = dynamic_scene(scene)
+
     # --- cull + setup + binning (kernel A) + G-buffer raster (kernel B) ---
     _mark(timer, "binning")
     mv = main_view_setup(scene, cam, settings,
-                         jitter_ndc=jitter_ndc if taa_on else None)
+                         jitter_ndc=jitter_ndc if taa_on else None,
+                         prev_view_proj=state.prev_view_projection,
+                         prev_corners=prev_corners)
     main = raster_main_view(mv, timer)
     depth, vis, gbuf = main.depth, main.vis, main.gbuf
     valid = vis >= 0
@@ -701,6 +784,8 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
             gbuf[raster._CH_DUDX:raster._CH_DUDX + 4], mat_id, valid,
             scene["mat_tex"], scene["tex_info"], scene["tex_word0"],
             scene["tex_word1"], n_mips=MAX_MIPS, mip_bias=bias,
+            trilinear=settings.shading.texture_filter >= 1,
+            aniso=settings.shading.texture_filter >= 2,
             two_mat=settings.shading.texture_two_mat)
         tex_ok = ts[8] > 0.5
         albedo = torch.where(tex_ok[None], ts[0:3], albedo)
@@ -714,8 +799,14 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
     to_cam = cam["position"].reshape(3, 1, 1) - world_pos
     view_depth = -torch.sum(to_cam * cam["forward"].reshape(3, 1, 1), dim=0)
     pixel_depth = torch.where(valid, view_depth, 0.0)
-    # previous-frame NDC of the static scene, for TAA's and GI's motion
-    prev_ndc = static_prev_ndc(state.prev_view_projection, world_pos, valid)
+    # previous-frame NDC for TAA's and GI's motion: a dynamic scene's
+    # interpolated prev-clip planes (G-buffer channels 13-14), a static
+    # scene's reprojected depth (frame.py:520-531)
+    if prev_corners is not None:
+        prev_ndc = gbuf[raster._CH_PREV:raster._CH_PREV + 2]
+    else:
+        prev_ndc = static_prev_ndc(state.prev_view_projection, world_pos,
+                                   valid)
 
     # --- sun shadows: cascade fit, atlas (kernels A, E), PCF (kernel F) ---
     if settings.shadows.cascade_count > 0:
@@ -941,6 +1032,29 @@ def attach_global_sdf(scene: dict, gsdf) -> dict:
     scene["sdf_grid"] = tuple(int(n) for n in vol.shape)
     scene["sdf_coarse"] = sdfgi.build_coarse_tables(
         scene["sdf_volume"], scene["sdf_albedo"], vol.shape)
+    return scene
+
+
+def attach_dynamic_sdf(scene: dict, dyn) -> dict:
+    """Add the dynamic SDF instances (ops/sdf_scene.DynamicSDFSet) to the
+    scene tensors on the scene's device (frame.py:1240-1254), so that
+    render_frame recomposites the moved instances into the scene SDF every
+    frame; it needs "object_transforms" in the scene (without them the SDF
+    stays static). The static window shapes ride along as the tuple
+    "sdf_dyn_tokens" of (wd, wh, ww)."""
+    dev = scene["corners"].device
+
+    def put(a, dtype=np.float32):
+        return torch.as_tensor(np.asarray(a, dtype), device=dev)
+
+    scene = dict(scene)
+    scene["sdf_dyn_vols"] = [put(v) for v in dyn.volumes]
+    scene["sdf_dyn_tokens"] = tuple(tuple(int(n) for n in w)
+                                    for w in dyn.window_vox)
+    scene["sdf_dyn_pad_min"] = put(dyn.pad_min)
+    scene["sdf_dyn_pad_max"] = put(dyn.pad_max)
+    scene["sdf_dyn_albedo"] = put(dyn.albedo)
+    scene["sdf_dyn_obj"] = put(dyn.object_index, np.int32)
     return scene
 
 

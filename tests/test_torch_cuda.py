@@ -17,7 +17,10 @@ may differ by an ulp from torch.pow / torch.rsqrt); kernels H and I: ok
 equal on every pixel, values within 1e-6 relative. The alpha-tested
 kernels: J (both bodies), K and M equal their plain versions exactly (the
 mask bit is a discrete function of u, so the uv math is rounded step by
-step on both sides), L's channels within kernel B's 1e-4.
+step on both sides), L's channels within kernel B's 1e-4. The dynamic
+scene's branches: B and L with the 40-row pair table (15 channels, the
+previous NDC within the same 1e-4), D under trilinear, anisotropic and
+both filters (its rule above), M at the main view's 56 rows (exact).
 """
 
 import numpy as np
@@ -41,8 +44,20 @@ def cuda():
     return torch.device("cuda")
 
 
-def _random_setup(rng, n, width, height, bin_rows, device):
-    """Random screen triangles through the port's own geometry stage."""
+def _prev_args(rng, tris, device):
+    """A dynamic scene's setup keywords: the corners moved by up to 0.02
+    and a previous view-projection with a perspective w row."""
+    prev_vp = np.eye(4, dtype=np.float32)
+    prev_vp[0, 0] = prev_vp[1, 1] = 2.0
+    prev_vp[0, 3], prev_vp[1, 3], prev_vp[3, 2] = -0.98, -1.0, 0.5
+    prev = (tris + rng.uniform(-0.02, 0.02, tris.shape)).astype(np.float32)
+    return dict(prev_view_proj=torch.as_tensor(prev_vp, device=device),
+                prev_corners=torch.as_tensor(prev, device=device))
+
+
+def _random_setup(rng, n, width, height, bin_rows, device, prev=False):
+    """Random screen triangles through the port's own geometry stage (with
+    prev, a dynamic scene's previous-frame clip planes too)."""
     cx, cy = rng.uniform(0.05, 0.95, (2, n))
     size = rng.uniform(0.01, 0.3, n)
     z = rng.uniform(0.05, 0.99, n)
@@ -58,8 +73,9 @@ def _random_setup(rng, n, width, height, bin_rows, device):
               unit, rng.integers(0, 40, n).astype(np.float32),
               np.ones(n, bool), vp]
     t = [torch.as_tensor(a, device=device) for a in arrays]
-    return raster.geometry_setup(*t, width, height, cull="none",
-                                 bin_rows=bin_rows)
+    return raster.geometry_setup(
+        *t, width, height, cull="none", bin_rows=bin_rows,
+        **(_prev_args(rng, tris, device) if prev else {}))
 
 
 @pytest.mark.parametrize("order_rows,bin_rows,budget",
@@ -78,11 +94,15 @@ def test_expand_keys_kernel_equals_plain(cuda, order_rows, bin_rows, budget):
     torch.testing.assert_close(owners, owners_p, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("sub,row_skip", [(1, False), (2, True), (4, True)])
-def test_gbuffer_kernel_equals_plain(cuda, sub, row_skip):
+@pytest.mark.parametrize("sub,row_skip,prev",
+                         [(1, False, False), (2, True, False),
+                          (4, True, False), (2, True, True)])
+def test_gbuffer_kernel_equals_plain(cuda, sub, row_skip, prev):
+    """Kernel B; with prev, a dynamic scene's 40-row pair table and its 15
+    channels."""
     rng = np.random.default_rng(12)
     width, height = 384, 256
-    setup = _random_setup(rng, 400, width, height, sub, cuda)
+    setup = _random_setup(rng, 400, width, height, sub, cuda, prev=prev)
     nty, ntx = height // (16 * sub), width // 128
     pairs = raster.build_pairs(setup, nty, ntx, bin_rows=sub,
                                order_rows=row_skip)
@@ -92,6 +112,8 @@ def test_gbuffer_kernel_equals_plain(cuda, sub, row_skip):
     depth_p, vis_p, gbuf_p = raster.gbuffer_plain(
         pe, pa, pairs.tile_start, pairs.tile_count, nty, ntx, sub, row_skip)
     assert (vis >= 0).float().mean() > 0.5
+    assert gbuf.shape[0] == (15 if prev else 13) and pa.shape[0] == (
+        40 if prev else 32)
     torch.testing.assert_close(vis, vis_p, rtol=0, atol=0)
     torch.testing.assert_close(depth, depth_p, rtol=0, atol=0)
     torch.testing.assert_close(gbuf, gbuf_p, rtol=0, atol=1e-4)
@@ -189,7 +211,12 @@ def test_depth_kernel_equals_plain(cuda, sub, row_skip):
                                depth_p.view(torch.int32), rtol=0, atol=0)
 
 
-def test_texture_kernel_equals_plain(cuda):
+@pytest.mark.parametrize("filters", [
+    {}, dict(trilinear=True), dict(aniso=True),
+    dict(trilinear=True, aniso=True)])
+def test_texture_kernel_equals_plain(cuda, filters):
+    """Kernel D's bilinear variant and its trilinear, anisotropic and
+    trilinear + anisotropic ones."""
     rng = np.random.default_rng(15)
     mats = [procedural.procedural_texture([0.7, 0.4, 0.3], kind, size=size,
                                           seed=i)
@@ -209,11 +236,12 @@ def test_texture_kernel_equals_plain(cuda):
     args = [torch.as_tensor(a, device=cuda) for a in (
         uv, duv, mat, valid, np.asarray([0, 1, -1, 2, 3], np.int32),
         pool.info, pool.word0, pool.word1)]
-    out = texture.sample_materials(*args, n_mips=pool.n_mips)
-    ref = texture.sample_plain(*args, n_mips=pool.n_mips)
+    out = texture.sample_materials(*args, n_mips=pool.n_mips, **filters)
+    ref = texture.sample_plain(*args, n_mips=pool.n_mips, **filters)
     torch.testing.assert_close(out[8], ref[8], rtol=0, atol=0)
     ok = ref[8] > 0.5
-    assert 0.2 < float(ok.float().mean()) < 0.95
+    # a filtered pixel is ok only where every tap of both windows is
+    assert (0.1 if filters else 0.2) < float(ok.float().mean()) < 0.95
     torch.testing.assert_close(out[:8][:, ok], ref[:8][:, ok], rtol=0,
                                atol=1e-5)
 
@@ -366,10 +394,12 @@ def test_history_taps_kernel_equals_plain(cuda, n_taps):
                                atol=1e-30)
 
 
-def _alpha_case(device, rng, n=600, width=512, height=256, sub=2):
+def _alpha_case(device, rng, n=600, width=512, height=256, sub=2,
+                prev=False):
     """Random screen triangles with uvs over several wraps of two masks
     (an 8x8 checkerboard and random texels) and slots 0-2, through the
-    port's 8-plane geometry stage."""
+    port's 8-plane geometry stage (with prev, a dynamic scene's
+    previous-frame clip planes too)."""
     cx, cy = rng.uniform(0.05, 0.95, (2, n))
     size = rng.uniform(0.01, 0.3, n)
     z = rng.uniform(0.05, 0.99, n)
@@ -387,8 +417,9 @@ def _alpha_case(device, rng, n=600, width=512, height=256, sub=2):
     t = [torch.as_tensor(a, device=device) for a in arrays]
     slots = torch.as_tensor(rng.integers(0, 3, n).astype(np.int32),
                             device=device)
-    setup = raster.geometry_setup(*t, width, height, cull="none",
-                                  bin_rows=sub, tri_alpha_slot=slots)
+    setup = raster.geometry_setup(
+        *t, width, height, cull="none", bin_rows=sub, tri_alpha_slot=slots,
+        **(_prev_args(rng, tris, device) if prev else {}))
     yy, xx = np.mgrid[0:64, 0:64]
     masks = np.stack([
         textures.build_alpha_mask((((yy // 8) + (xx // 8)) % 2)
@@ -433,15 +464,16 @@ def test_depth_alpha_kernel_equals_plain(cuda, sub, row_skip, with_init):
     assert bool((uncut > depth).any())  # the masks cut
 
 
-@pytest.mark.parametrize("sub", [2, 4])
-def test_winner_alpha_and_attr_resolve_kernels_equal_plain(cuda, sub):
+@pytest.mark.parametrize("sub,prev", [(2, False), (4, False), (2, True)])
+def test_winner_alpha_and_attr_resolve_kernels_equal_plain(cuda, sub, prev):
     """Kernel K: depth and vis equal to its plain version; kernel L on K's
     vis: channels within 1e-4 of its plain version (kernel B's rule:
-    rsqrtf may differ by an ulp from PyTorch's CUDA rsqrt)."""
+    rsqrtf may differ by an ulp from PyTorch's CUDA rsqrt); with prev, a
+    dynamic scene's 40 attribute rows and 15 channels."""
     rng = np.random.default_rng(18)
     width, height = 384, 256
     setup, masks = _alpha_case(cuda, rng, n=400, width=width, height=height,
-                               sub=sub)
+                               sub=sub, prev=prev)
     nty, ntx = height // (16 * sub), width // 128
     pairs = raster.build_pairs(setup, nty, ntx, bin_rows=sub,
                                order_rows=True)
@@ -460,17 +492,24 @@ def test_winner_alpha_and_attr_resolve_kernels_equal_plain(cuda, sub):
     assert (vis >= 0).float().mean() > 0.4
     gbuf_p = raster.attr_resolve_plain(pa, pairs.tile_start, vis, nty, ntx,
                                        sub)
+    assert gbuf.shape[0] == (15 if prev else 13)
     torch.testing.assert_close(gbuf, gbuf_p, rtol=0, atol=1e-4)
 
 
-def test_expand_rows_kernel_equals_plain(cuda):
+@pytest.mark.parametrize("rows", [64, 56])
+def test_expand_rows_kernel_equals_plain(cuda, rows):
     """Kernel M bit for bit, and build_pairs(carry_table=...) on the card:
     the same segments as without it, rows equal to gather_pair_setups on
-    every live slot."""
+    every live slot. 64 rows: the 8-plane alpha table; 56: a dynamic
+    scene's opaque main-view table (16 edge rows, 40 attribute rows)."""
     rng = np.random.default_rng(19)
-    setup, _ = _alpha_case(cuda, rng, n=2000)
+    if rows == 64:
+        setup, _ = _alpha_case(cuda, rng, n=2000)
+    else:
+        setup = _random_setup(rng, 2000, 512, 256, 2, cuda, prev=True)
     nb, ntx = 256 // 32, 4
     table, n_edge = raster.setup_row_table(setup, row_extents=True)
+    assert table.shape[0] == rows
     ki = raster.pair_key_inputs(setup, nb, ntx, None, 2, True)
     _, owners = raster.expand_keys(ki)
     before = native.launch_counts()["expand_rows"]

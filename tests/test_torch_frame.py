@@ -306,7 +306,8 @@ def test_scene_sdf_matches_jax():
     composite) against the JAX package's jnp bake on the small textured
     atrium: volumes within 1e-5, albedo, origin and voxel size equal; and
     attach_global_sdf of one GlobalSDF equals the JAX scene's SDF keys
-    carried across by interop, coarse tables included."""
+    carried across by interop, coarse tables included; interop refuses an
+    incomplete dynamic SDF group and keys it does not read."""
     scene, rs, want = _textured_atrium_sdf()
     got = tsdf.build_scene_sdf(rs, scene, bake_resolution_cap=16,
                                device="cpu")
@@ -331,9 +332,15 @@ def test_scene_sdf_matches_jax():
     for a, b in zip(mine["sdf_coarse"][:2], carried["sdf_coarse"][:2]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert mine["sdf_coarse"][2:] == carried["sdf_coarse"][2:]
-    with pytest.raises(NotImplementedError):
+    # the dynamic SDF keys cross as one group (tests/test_torch_dynamic.py):
+    # a part of the group is refused, and so is a key the port never reads
+    with pytest.raises(ValueError):
         interop.scene_from_arrays(dict(_arrays(jframe.scene_to_device(rs)),
                                        sdf_dyn_vols=[]), device="cpu")
+    with pytest.raises(NotImplementedError):
+        interop.scene_from_arrays(dict(_arrays(jframe.scene_to_device(rs)),
+                                       unknown_key=np.zeros(1)),
+                                  device="cpu")
 
 
 def test_initial_state_and_interop_match_jax():
@@ -354,13 +361,14 @@ def test_initial_state_and_interop_match_jax():
 
 def test_render_frame_refuses_settings_outside_the_slice():
     """The port raises instead of skipping a pass it does not render: the
-    TAA supersampling pre-pass, trilinear / anisotropic texture filtering,
-    cascade debug colours, more than 4 cascades, bounding boxes, SDF debug
-    views, and a scene with dynamic objects or dynamic SDF objects. TAA,
-    bloom and froxel fog run (slice 4, with the default RenderSettings():
+    TAA supersampling pre-pass, cascade debug colours, more than 4
+    cascades, bounding boxes and SDF debug views. TAA, bloom and froxel fog
+    run (slice 4, with the default RenderSettings():
     tests/test_torch_golden.py), and so does alpha-tested geometry (slice
     5, tests/test_torch_alpha_frame.py): a scene whose alpha_masks is None
-    renders as the opaque scene does."""
+    renders as the opaque scene does. Trilinear / anisotropic texture
+    filtering and dynamic objects run too (slice 6,
+    tests/test_torch_texture_filter.py, tests/test_torch_dynamic.py)."""
     rs = tsb.build_render_scene(tproc.build_atrium_scene(
         tproc.AtriumConfig(**SMALL_ATRIUM), textured=False))
     scene = tframe.scene_to_device(rs, device="cpu")
@@ -375,8 +383,6 @@ def test_render_frame_refuses_settings_outside_the_slice():
                use_separate_supersampling=True)),
            dataclasses.replace(base, draw_bounding_boxes=True),
            dataclasses.replace(base, sdf_debug=tcfg.SDFDebugSettings(1)),
-           dataclasses.replace(base, shading=tcfg.ShadingConfig(
-               texture_filter=1)),
            dataclasses.replace(shadowed, shadows=tcfg.ShadowSettings(
                resolution=256, debug_cascade_colors=True)),
            dataclasses.replace(shadowed, shadows=tcfg.ShadowSettings(
@@ -385,10 +391,6 @@ def test_render_frame_refuses_settings_outside_the_slice():
         with pytest.raises(NotImplementedError):
             tframe.render_frame(state, scene, cam, luts, 0.016, settings,
                                 device="cpu")
-    for key in ("object_transforms", "sdf_dyn_vols"):
-        with pytest.raises(NotImplementedError):
-            tframe.render_frame(state, dict(scene, **{key: None}), cam, luts,
-                                0.016, base, device="cpu")
     # alpha-tested geometry is in the port; alpha_masks=None is the opaque
     # path (scene.get in frame.py:408)
     images = [tframe.render_frame(state, sc, cam, luts, 0.016, base,

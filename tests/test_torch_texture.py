@@ -177,12 +177,3 @@ def test_sample_plain_matches_jax(two_mat):
     assert ok[:16, 128:200].any() and ok[:16, 200:].any() == two_mat
     # untextured material and the third material of a tile fall back
     assert not ok[16:24, :128].any()
-
-
-def test_sample_materials_refuses_trilinear_and_aniso():
-    pool, mat_tex, uv, duv, mat, valid = _sample_inputs()
-    args = [torch.as_tensor(a) for a in (uv, duv, mat, valid, mat_tex,
-                                         pool.info, pool.word0, pool.word1)]
-    for kw in (dict(trilinear=True), dict(aniso=True)):
-        with pytest.raises(NotImplementedError):
-            ttexture.sample_materials(*args, n_mips=pool.n_mips, **kw)
