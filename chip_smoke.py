@@ -98,8 +98,8 @@ KERNEL_SOURCES = {
 G_FINE_STEP_OPS, G_SHADOW_STEP_OPS, G_COARSE_STEP_OPS = 60, 45, 35
 G_RAY_OPS = 150
 # rows of a pair's 32 that kernels J and K stage and read
-# (csrc/common.cuh, PLAIN_N_STAGED_ALPHA)
-N_STAGED_ALPHA = 24
+# (csrc/common.cuh, PLAIN_N_STAGED and PLAIN_N_STAGED_ALPHA)
+N_STAGED, N_STAGED_ALPHA = 14, 24
 SMALL_ATRIUM = dict(columns_per_row=2, floor_subdiv=2, box_count=3,
                     box_subdiv=1, column_segments=8)
 # tests/test_frame.py:312-314's banner atrium and its camera (:320)
@@ -166,9 +166,8 @@ def evaluated_pair_pixels(pair_edges, pairs, n_tiles_x: int, sub: int):
 
 
 class Ctx:
-    """What the rows share: device, cameras, LUTs, scenes, the per-frame
-    object motions of dynamic scenes and the per-kernel results the
-    kernels line is made of."""
+    """What the rows share: device, cameras, LUTs, scenes and the
+    per-kernel results the kernels line is made of."""
 
     def __init__(self, dev):
         self.dev = dev
@@ -176,7 +175,7 @@ class Ctx:
         self.bounds, self.errors, self.extra = {}, {}, {}
         self.scenes, self.scale, self.report = {}, 1.0, {}
         self.path, self.timed_on = "", {}
-        self.earlier, self.variants, self.motions = {}, {}, {}
+        self.earlier, self.variants = {}, {}
 
     def kernel(self, name, fn, reps, plain, plain_reps, bound, err,
                library=None, variant=None):
@@ -204,20 +203,9 @@ class Ctx:
         self.bounds[name], self.errors[name] = bound, err
 
 
-def scene_at(ctx, scene, i: int):
-    """Frame i's scene: a dynamic scene (one with a motion in ctx.motions)
-    gets that frame's model matrices and the previous frame's, rows of a
-    (frames + 1, O, 4, 4) device tensor made before the run, so that the
-    frame copies nothing from the host."""
-    mats = ctx.motions.get(id(scene))
-    if mats is None:
-        return scene
-    return dict(scene, object_transforms=mats[i + 1],
-                prev_object_transforms=mats[i])
-
-
-def drive(ctx, scene, settings, warmup: int, timed: int):
-    """One main-path run: launch counts reset just before, read just after;
+def drive(ctx, frames, settings, warmup: int, timed: int):
+    """One main-path run over the per-frame scenes `frames` (one per
+    camera): launch counts reset just before, read just after;
     per-pass CUDA events on the timed frames, which also run under
     torch.cuda's sync debug mode to count the host synchronisations the
     frame makes (none expected)."""
@@ -235,8 +223,8 @@ def drive(ctx, scene, settings, warmup: int, timed: int):
                 torch.cuda.set_sync_debug_mode("warn")
             timer = PassTimer() if i >= warmup else None
             image, state = frame.render_frame(
-                state, scene_at(ctx, scene, i), ctx.cams[i], ctx.luts,
-                1.0 / 60.0, settings, device=ctx.dev, timer=timer)
+                state, frames[i], ctx.cams[i], ctx.luts, 1.0 / 60.0,
+                settings, device=ctx.dev, timer=timer)
             counters.append(state.debug_counters)
             if timer is not None:
                 timers.append(timer)
@@ -331,8 +319,8 @@ def small_images(ctx, settings, textured: bool, gi: bool = False,
                 frame.attach_global_sdf(sc, gsdf[0]), gsdf[1])
         elif gi:
             sc = frame.attach_global_sdf(sc, gsdf)
-        mats = box_motions(rs.object_matrices, boxes, 3, d) if dynamic \
-            else None
+        frames = moving_frames(sc, box_motions(
+            rs.object_matrices, boxes, 3, d)) if dynamic else [sc] * 3
         lt = {k: v.to(d) for k, v in ctx.luts.items()}
         st = initial_state(256, 128, device=d)
         for i in range(3):
@@ -344,11 +332,8 @@ def small_images(ctx, settings, textured: bool, gi: bool = False,
                     yaw_deg=20.0 + 0.3 * k)
             cm = frame.camera_arrays(ext.position, ext.forward, ext.right,
                                      ext.up, device=d)
-            sc_i = sc if mats is None else dict(
-                sc, object_transforms=mats[i + 1],
-                prev_object_transforms=mats[i])
-            img, st = frame.render_frame(st, sc_i, cm, lt, 0.016, settings,
-                                         device=d)
+            img, st = frame.render_frame(st, frames[i], cm, lt, 0.016,
+                                         settings, device=d)
         images.append(img.cpu().numpy().astype(np.int32))
         if textured:
             check((st.debug_counters.cpu().numpy() == 0).all(),
@@ -468,14 +453,27 @@ def time_keys(ctx, ki=None, bound=None, atlas_ki=None, atlas_bound=None):
             atlas_timed_on=ctx.path)
 
 
+def winner_slots(vis, pairs, n_tiles_x: int, sub: int):
+    """The pair slots that won the covered pixels (vis decoded against each
+    bin's group-aligned segment base, as winner_triangle_ids does)."""
+    h, w = vis.shape
+    ty = torch.arange(h, device=vis.device) // (raster.TILE_H * sub)
+    tx = torch.arange(w, device=vis.device) // raster.TILE_W
+    base = pairs.tile_start[ty[:, None] * n_tiles_x + tx[None, :]] \
+        // raster.GROUP * raster.GROUP
+    return (base + vis)[vis >= 0]
+
+
 def check_and_time_b(ctx, mv, pairs, pe, pa, what="kernel B",
                      variant=None):
     """Kernel B on one opaque stream against its plain version (the raster
     rule: <= 1e-3 of pixels differ in winner or depth, channels within
     1e-4 where the winners agree), then timed with its bound: it writes
     depth, vis and every channel and reads the pair tables; 4 planes x 3
-    flops per evaluated (pair, pixel) + ~80 flops per covered pixel.
-    Returns (pixels differing, max |err|, covered share, evaluated)."""
+    flops per evaluated (pair, pixel) + ~80 flops per covered pixel. It
+    reads the staged edge rows of each live pair, the attribute rows of
+    each distinct winning pair slot, and the segment tables. Returns
+    (pixels differing, max |err|, covered share, evaluated)."""
     gb_args = (pe, pa, pairs.tile_start, pairs.tile_count, mv.n_tiles_y,
                mv.n_tiles_x, mv.sub, True)
     depth_k, vis_k, gbuf_k = raster.rasterize_gbuffer(
@@ -497,7 +495,10 @@ def check_and_time_b(ctx, mv, pairs, pe, pa, what="kernel B",
     check(err_b <= 1e-4, f"{what} channels vs plain")
     del depth_p, vis_p, gbuf_p
     n_pix = vis_k.numel()
-    b_bytes = 4 * (pe.shape[0] + pa.shape[0]) * pe.shape[1] \
+    live = int(pairs.tile_count.sum())
+    win_slots = int(winner_slots(vis_k, pairs, mv.n_tiles_x, mv.sub)
+                    .unique().numel())
+    b_bytes = 4 * N_STAGED * live + 4 * pa.shape[0] * win_slots \
         + 8 * pairs.tile_start.shape[0] + n_pix * 4 * (2 + n_ch)
     evaluated = evaluated_pair_pixels(pe, pairs, mv.n_tiles_x, mv.sub)
     b_ops = 12 * evaluated + (80 + 10 * (n_ch - 13)) * float(
@@ -785,9 +786,9 @@ def check_keys(ki, what: str, per: str):
                   / INT32_OPS_PER_S)
 
 
-def slice1_kernels(ctx, scene, settings) -> dict:
+def slice1_kernels(ctx, frames, settings) -> dict:
     """Kernels A, B, C at frame 0's shapes against their plain versions."""
-    mv = frame.main_view_setup(scene, ctx.cams[0], settings)
+    mv = frame.main_view_setup(frames[0], ctx.cams[0], settings)
     ki = raster.pair_key_inputs(mv.setup, mv.n_tiles_y, mv.n_tiles_x,
                                 mv.pair_budget, mv.sub, order_rows=True)
     live_pairs, a_bound = check_keys(ki, "kernel A", "T")
@@ -796,7 +797,7 @@ def slice1_kernels(ctx, scene, settings) -> dict:
     frac_differ, _, covered, evaluated = check_and_time_b(
         ctx, mv, main.pairs, main.pair_edges, main.pair_attrs)
     check(covered > 0.3, "the frame covers the screen")
-    check_and_time_c(ctx, scene, main.gbuf, main.vis)
+    check_and_time_c(ctx, frames[0], main.gbuf, main.vis)
     time_keys(ctx, ki, a_bound)
     small = small_card_vs_cpu(ctx, 1, textured=False)
     return dict(gbuffer_pixels_differ=frac_differ, small_close=small,
@@ -804,7 +805,7 @@ def slice1_kernels(ctx, scene, settings) -> dict:
                 evaluated_pair_pixels=evaluated)
 
 
-def pick_pair_budget_scale(ctx, scene, row):
+def pick_pair_budget_scale(ctx, frames, row):
     """The smallest power-of-two pair budget scale that drops nothing over
     the camera path (the JAX app escalates the same way,
     runtime/app.py:197)."""
@@ -812,7 +813,7 @@ def pick_pair_budget_scale(ctx, scene, row):
     while True:
         settings = dataclasses.replace(slice_settings(row.n, WIDTH, HEIGHT),
                                        pair_budget_scale=scale)
-        probe = drive(ctx, scene, settings, len(ctx.cams), 0)
+        probe = drive(ctx, frames, settings, len(ctx.cams), 0)
         dropped = probe["counters"].max(axis=0).tolist()
         print(f"pair_budget_scale {scale}: most dropped per frame "
               f"(main, atlas) {dropped}", flush=True)
@@ -836,16 +837,16 @@ def atlas_keys(atlas, settings, what):
     return ki2, live, bound
 
 
-def slice2_kernels(ctx, scene, settings) -> dict:
+def slice2_kernels(ctx, frames, settings) -> dict:
     """Kernel D, the shadow atlas's multi-view keys (kernel A), depth
     raster (kernel E) and PCF resolve (kernel F) on frame 0's inputs,
     recorded on their way into the kernels."""
-    rec = record_frames(ctx, scene, settings, 1,
+    rec = record_frames(ctx, frames, settings, 1,
                         [(texture, "sample_materials"),
                          (frame, "render_shadow_atlas"),
                          (shadow, "shadow_resolve")])
     targs = rec["sample_materials"][0]
-    d = check_and_time_d(ctx, scene, targs, texture_kwargs(settings))
+    d = check_and_time_d(ctx, frames[0], targs, texture_kwargs(settings))
     check(d["ok_share"] > 0.5, "most covered pixels are textured")
     atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
     check(int(atlas.pairs.overflow) == 0, "no atlas pairs dropped")
@@ -867,9 +868,10 @@ def slice2_kernels(ctx, scene, settings) -> dict:
         **e)
 
 
-def record_frames(ctx, scene, settings, n: int, targets):
-    """Render n frames from a fresh state with each (module, name) in
-    targets wrapped to record its positional arguments, in call order."""
+def record_frames(ctx, frames, settings, n: int, targets):
+    """Render the first n of the per-frame scenes from a fresh state with
+    each (module, name) in targets wrapped to record its positional
+    arguments, in call order."""
     recorded = {name: [] for _, name in targets}
     originals = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
@@ -881,20 +883,20 @@ def record_frames(ctx, scene, settings, n: int, targets):
         state = initial_state(WIDTH, HEIGHT, device=ctx.dev)
         for i in range(n):
             _, state = frame.render_frame(
-                state, scene_at(ctx, scene, i), ctx.cams[i], ctx.luts,
-                1.0 / 60.0, settings, device=ctx.dev)
+                state, frames[i], ctx.cams[i], ctx.luts, 1.0 / 60.0,
+                settings, device=ctx.dev)
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
     return recorded
 
 
-def slice3_kernels(ctx, scene, settings) -> dict:
+def slice3_kernels(ctx, frames, settings) -> dict:
     """Kernel G on frame 0's trace inputs and kernel H on frame 1's GI
     history, recorded on their way into the kernels."""
     print(f"slice 3 settings: {settings.sdf_trace}; pair_budget_scale "
           f"{ctx.scale}", flush=True)
-    rec = record_frames(ctx, scene, settings, 2,
+    rec = record_frames(ctx, frames, settings, 2,
                         [(frame, "trace_scene_gi"),
                          (taa, "resample_packed_planes")])
     g = check_and_time_g(ctx, rec["trace_scene_gi"][0])
@@ -936,13 +938,13 @@ def compare_history(what, words, n, out_k, out_p, magnitude):
     return err, ok_share
 
 
-def slice4_kernels(ctx, scene, settings) -> dict:
+def slice4_kernels(ctx, frames, settings) -> dict:
     """Kernel I on frame 1's TAA history (check_and_time_i); then the
     golden scene on the card."""
     print(f"slice 4 settings: {settings.taa}; {settings.bloom}; "
           f"{settings.volumetrics}; pair_budget_scale {ctx.scale}",
           flush=True)
-    rec = record_frames(ctx, scene, settings, 2,
+    rec = record_frames(ctx, frames, settings, 2,
                         [(taa, "history_coords"),
                          (taa, "resample_history_taps")])
     found = check_and_time_i(ctx, rec["history_coords"][1],
@@ -966,13 +968,13 @@ def slice4_kernels(ctx, scene, settings) -> dict:
                 golden_close=close_golden, golden_card_vs_cpu=close_cpu)
 
 
-def retime_a_to_i(ctx, scene, settings):
+def retime_a_to_i(ctx, frames, settings):
     """Kernels A-I again, each checked against its plain version and timed
     on this row's own frame inputs (frames 0 and 1, recorded on their way
     into the kernels), so that the kernels line's timed_on names this row;
     the earlier rows' times stay under `earlier`. Returns the recorded
     calls."""
-    rec = record_frames(ctx, scene, settings, 2, [
+    rec = record_frames(ctx, frames, settings, 2, [
         (frame, "raster_main_view"), (frame, "render_shadow_atlas"),
         (texture, "sample_materials"), (shadow, "shadow_resolve"),
         (frame, "trace_scene_gi"), (taa, "resample_packed_planes"),
@@ -985,9 +987,9 @@ def retime_a_to_i(ctx, scene, settings):
     _, a_bound = check_keys(ki, "kernel A (opaque main stream)", "T")
     time_keys(ctx, ki, a_bound)
     check_and_time_b(ctx, mv, main.pairs, main.pair_edges, main.pair_attrs)
-    check_and_time_c(ctx, scene, main.gbuf, main.vis)
+    check_and_time_c(ctx, frames[0], main.gbuf, main.vis)
     targs = rec["sample_materials"][0]
-    check_and_time_d(ctx, scene, targs, texture_kwargs(settings))
+    check_and_time_d(ctx, frames[0], targs, texture_kwargs(settings))
     atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
     ki2, _, atlas_bound = atlas_keys(atlas, settings,
                                      "kernel A (atlas, opaque casters)")
@@ -1086,7 +1088,7 @@ def check_and_time_m(ctx, mv, main, variant=None) -> dict:
                 owners=n_owners, launches=m_counts)
 
 
-def slice5_kernels(ctx, scene, settings) -> dict:
+def slice5_kernels(ctx, frames, settings) -> dict:
     """Kernels A-I again on this row's frame inputs (retime_a_to_i), then
     kernels J, K and L on frame 0's alpha streams (the atlas's and the
     main view's, recomputed from the recorded inputs of the frame's own
@@ -1094,7 +1096,7 @@ def slice5_kernels(ctx, scene, settings) -> dict:
     frame's main-view setup, and the small banner scene card vs CPU."""
     print(f"slice 5 settings: default RenderSettings(); pair_budget_scale "
           f"{ctx.scale}", flush=True)
-    rec = retime_a_to_i(ctx, scene, settings)
+    rec = retime_a_to_i(ctx, frames, settings)
     atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
     a = atlas.alpha
     check(a is not None and int(atlas.overflow) == 0,
@@ -1240,11 +1242,21 @@ def box_motions(object_matrices, boxes, frames: int, device):
     return torch.as_tensor(out, device=device)
 
 
-def dynamic_atrium_scene(ctx):
+def moving_frames(scene, mats) -> list:
+    """Per-frame scenes: frame i gets rows i + 1 (its model matrices) and
+    i (the previous frame's) of box_motions' tensor, so that a frame
+    copies nothing from the host."""
+    return [dict(scene, object_transforms=mats[i + 1],
+                 prev_object_transforms=mats[i])
+            for i in range(mats.shape[0] - 1)]
+
+
+def dynamic_atrium_scene(ctx) -> list:
     """bench.py's scene (the banner atrium) with its 12 scattered boxes
     dynamic: in the raster (object_transforms, moved every frame by
     box_motions) and in the SDF (build_scene_sdf(dynamic_objects=...)
-    baked on the card at bake_resolution_cap=32, attach_dynamic_sdf)."""
+    baked on the card at bake_resolution_cap=32, attach_dynamic_sdf).
+    Returns one scene per camera (moving_frames)."""
     if "banners" not in ctx.scenes:
         ctx.scenes["banners"] = SCENES["banners"](ctx)
     rs, scene_data = ctx.scenes[("source", "banners")]
@@ -1257,8 +1269,6 @@ def dynamic_atrium_scene(ctx):
         frame.attach_global_sdf(ctx.scenes["banners"], gsdf), dset)
     torch.cuda.synchronize()
     bake_s = time.time() - t0
-    ctx.motions[id(scene)] = box_motions(rs.object_matrices, boxes,
-                                         len(ctx.cams) + 1, ctx.dev)
     windows = [list(w) for w in dset.window_vox]
     print(f"dynamic scene: boxes {boxes[0]}-{boxes[-1]} move; static SDF "
           f"without them baked in {bake_s:.1f} s, grid {scene['sdf_grid']}; "
@@ -1267,7 +1277,8 @@ def dynamic_atrium_scene(ctx):
     ctx.extra["sdf_dynamic"] = dict(
         sdf_bake_s=bake_s, sdf_grid=list(scene["sdf_grid"]),
         dynamic_objects=list(boxes), dynamic_windows=windows)
-    return scene
+    return moving_frames(scene, box_motions(rs.object_matrices, boxes,
+                                            len(ctx.cams), ctx.dev))
 
 
 def prev_ndc_error(mv, main, prev_view_proj, tri_object, moving):
@@ -1296,7 +1307,7 @@ def prev_ndc_error(mv, main, prev_view_proj, tri_object, moving):
     return err[covered & ~on_moving], err[covered & on_moving]
 
 
-def slice6_kernels(ctx, scene, settings) -> dict:
+def slice6_kernels(ctx, frames, settings) -> dict:
     """The dynamic path's new branches on this row's own frame inputs:
     kernel D under trilinear + anisotropic filtering (the frame's) and
     under trilinear alone; kernels B and L with the 40-row pair table (15
@@ -1306,15 +1317,15 @@ def slice6_kernels(ctx, scene, settings) -> dict:
     with a moving box, card vs CPU."""
     print(f"slice 6 settings: default RenderSettings() with "
           f"{settings.shading}; pair_budget_scale {ctx.scale}", flush=True)
-    rec = record_frames(ctx, scene, settings, 2, [
+    rec = record_frames(ctx, frames, settings, 2, [
         (frame, "raster_main_view"), (texture, "sample_materials"),
         (sdf_scene, "recomposite_dynamic")])
     kw = texture_kwargs(settings)
     check(kw["trilinear"] and kw["aniso"], "texture_filter 2 in the frame")
     targs = rec["sample_materials"][0]
-    d_both = check_and_time_d(ctx, scene, targs, kw,
+    d_both = check_and_time_d(ctx, frames[0], targs, kw,
                               variant="trilinear+aniso")
-    d_tri = check_and_time_d(ctx, scene, targs, dict(kw, aniso=False),
+    d_tri = check_and_time_d(ctx, frames[0], targs, dict(kw, aniso=False),
                              variant="trilinear")
     mv = rec["raster_main_view"][0][0]
     main = frame.raster_main_view(mv)
@@ -1329,6 +1340,9 @@ def slice6_kernels(ctx, scene, settings) -> dict:
         mv.n_tiles_x, mv.sub, True)
     check_and_time_l(ctx, mv, main, vis_k, variant="dynamic 15 channels")
     m_found = check_and_time_m(ctx, mv, main, variant="dynamic 56 rows")
+    ctx.extra["m_variant_launches"] = {"dynamic 56 rows": dict(
+        launches=m_found["launches"]["expand_rows"],
+        launches_on="build_pairs(carry_table=...), slice 6")}
     check(m_found["rows"] == 56, "kernel M at 16 + 40 rows")
 
     # previous NDC of frame 1 against the static reprojection of its depth
@@ -1394,19 +1408,18 @@ def sdfgi_quanta(words):
 
 # ------------------------- checks after a run -------------------------
 
-def _one_frame(ctx, scene, run, settings):
+def _one_frame(ctx, frames, run, settings):
     """One more frame from the run's last state and the last camera."""
-    i = len(ctx.cams) - 1
-    return frame.render_frame(run["state"], scene_at(ctx, scene, i),
-                              ctx.cams[i], ctx.luts, 1.0 / 60.0, settings,
+    return frame.render_frame(run["state"], frames[-1], ctx.cams[-1],
+                              ctx.luts, 1.0 / 60.0, settings,
                               device=ctx.dev)[0]
 
 
-def slice4_after(ctx, scene, settings, run) -> dict:
+def slice4_after(ctx, frames, settings, run) -> dict:
     """One frame with fog off and one with bloom off, from the run's last
     state, differ from the full frame; then profile_frames."""
     def one(s):
-        return _one_frame(ctx, scene, run, s)
+        return _one_frame(ctx, frames, run, s)
     full, differ = one(settings), {}
     for name, field, off in (
             ("fog", "volumetrics", config.VolumetricsSettings(enabled=False)),
@@ -1417,10 +1430,10 @@ def slice4_after(ctx, scene, settings, run) -> dict:
               "differ from the full frame", flush=True)
         check(differ[name] > 0.0, f"the {name} pass changes the frame")
     return dict(pixels_differ_when_off=differ,
-                **profile_frames(ctx, scene, settings, run, "slice 4"))
+                **profile_frames(ctx, frames, settings, run, "slice 4"))
 
 
-def profile_frames(ctx, scene, settings, run, what: str) -> dict:
+def profile_frames(ctx, frames, settings, run, what: str) -> dict:
     """2 more frames under torch.profiler: device busy share and kernels
     per frame (the profiler's own host cost is in the window, so the share
     is a lower bound)."""
@@ -1428,7 +1441,7 @@ def profile_frames(ctx, scene, settings, run, what: str) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
-            _one_frame(ctx, scene, run, settings)
+            _one_frame(ctx, frames, run, settings)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     by_kernel = sorted(
@@ -1451,10 +1464,11 @@ def profile_frames(ctx, scene, settings, run, what: str) -> dict:
 
 # one slice of the port: its settings, scene, frames, the kernels it
 # launches per frame (the others must stay at 0), the comparisons of its
-# new kernels and the checks after its main-path run
+# new kernels, the checks after its main-path run and the kernels whose
+# frames launch a variant (kernel name -> variant) in place of the default
 Row = collections.namedtuple(
     "Row", "n scene warmup timed per_frame kernels after "
-    "pick_scale histories", defaults=(None, False, {}))
+    "pick_scale histories branches", defaults=(None, False, {}, {}))
 
 
 _A_TO_F = {"expand_keys": 2, "gbuffer": 1, "material": 1, "texture": 1,
@@ -1477,8 +1491,8 @@ SLICES = [
     Row(5, "bench", 3, 8,
         dict(_A_TO_I, expand_keys=4, depth_alpha=1, winner_alpha=1,
              attr_resolve=1), slice5_kernels,
-        lambda ctx, scene, settings, run: profile_frames(
-            ctx, scene, settings, run, "slice 5"),
+        lambda ctx, frames, settings, run: profile_frames(
+            ctx, frames, settings, run, "slice 5"),
         pick_scale=True, histories=_HISTORIES),
     # the same scene with its 12 boxes moving (raster and SDF) and
     # texture_filter 2: B and L write 15 channels, D runs its trilinear +
@@ -1486,9 +1500,12 @@ SLICES = [
     Row(6, "bench_dynamic", 3, 8,
         dict(_A_TO_I, expand_keys=4, depth_alpha=1, winner_alpha=1,
              attr_resolve=1), slice6_kernels,
-        lambda ctx, scene, settings, run: profile_frames(
-            ctx, scene, settings, run, "slice 6"),
-        pick_scale=True, histories=_HISTORIES),
+        lambda ctx, frames, settings, run: profile_frames(
+            ctx, frames, settings, run, "slice 6"),
+        pick_scale=True, histories=_HISTORIES,
+        branches=dict(gbuffer="dynamic 15 channels",
+                      attr_resolve="dynamic 15 channels",
+                      texture="trilinear+aniso")),
 ]
 
 
@@ -1524,25 +1541,35 @@ def main() -> int:
         for t in range(max(r.warmup + r.timed for r in SLICES))]
     ctx.cams = [frame.camera_arrays(e.position, e.forward, e.right, e.up,
                                     device=ctx.dev) for e in exts]
-    run = None
+    row_launches = {}
     for row in SLICES:
         if row.scene not in ctx.scenes:
             ctx.scenes[row.scene] = SCENES[row.scene](ctx)
         scene = ctx.scenes[row.scene]
+        frames = scene if isinstance(scene, list) \
+            else [scene] * len(ctx.cams)
         if row.pick_scale:
-            ctx.scale = pick_pair_budget_scale(ctx, scene, row)
+            ctx.scale = pick_pair_budget_scale(ctx, frames, row)
         settings = dataclasses.replace(slice_settings(row.n, WIDTH, HEIGHT),
                                        pair_budget_scale=ctx.scale)
         ctx.path = f"slice {row.n} ({row.scene} scene)"
-        found = row.kernels(ctx, scene, settings)
-        run = drive(ctx, scene, settings, row.warmup, row.timed)
+        found = row.kernels(ctx, frames, settings)
+        run = drive(ctx, frames, settings, row.warmup, row.timed)
+        row_launches[row.n] = run["launches"]
         found.update(check_run(run, row, f"slice {row.n}"))
         if row.after is not None:
-            found.update(row.after(ctx, scene, settings, run))
+            found.update(row.after(ctx, frames, settings, run))
         ctx.report[f"slice{row.n}"] = found
         if row.scene == "untextured":
             del ctx.scenes["untextured"]
         torch.cuda.empty_cache()
+    def launched(name, variant=None):
+        """The launches of the last row whose frames run this branch."""
+        rows = [r.n for r in SLICES if r.branches.get(name) == variant]
+        if not rows:
+            return dict(launches=0, launches_on="no render_frame row")
+        return dict(launches=row_launches[rows[-1]][name],
+                    launches_on=f"render_frame, slice {rows[-1]}")
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         by_bytes, by_ops = ctx.bounds[name]
@@ -1550,8 +1577,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "plainrenderer_tpu_torch/csrc/" + source,
             "replaces": "plainrenderer_tpu/ops/" + replaces,
-            "launches": run["launches"][name],
-            "launches_on": f"render_frame, slice {SLICES[-1].n}",
+            **launched(name),
             "timed_on": ctx.timed_on[name],
             "max_abs_err": ctx.errors[name], "ms": ctx.ms[name],
             "plain_ms": ctx.plain_ms[name],
@@ -1559,8 +1585,8 @@ def main() -> int:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": ctx.library_ms[name]}
         if name in ctx.variants:  # other branches of the same kernel
-            entry["variants"] = [dict(variant=v, **r) for v, r in
-                                 ctx.variants[name].items()]
+            entry["variants"] = [dict(variant=v, **launched(name, v), **r)
+                                 for v, r in ctx.variants[name].items()]
         if name in ctx.earlier:  # its times on earlier rows' inputs
             entry["earlier"] = ctx.earlier[name]
         if name == "expand_keys":  # its second use: the atlas's keys
@@ -1569,6 +1595,8 @@ def main() -> int:
             entry.update(launches=ctx.extra["m_launches"],
                          launches_on="build_pairs(carry_table=...)",
                          frame_launches=run["launches"][name])
+            for v in entry.get("variants", ()):
+                v.update(ctx.extra["m_variant_launches"][v["variant"]])
         kernels.append(entry)
     ctx.report.update(kernels=kernels, total_s=time.time() - t_start)
     (OUT / "report.json").write_text(json.dumps(ctx.report, indent=1))

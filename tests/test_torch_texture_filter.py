@@ -6,6 +6,7 @@ on every pixel, the 8 value channels within 1e-5 where ok."""
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,7 +34,8 @@ FILTERS = {"trilinear": dict(trilinear=True, two_mat=True),
            "aniso": dict(aniso=True, two_mat=False),
            "trilinear_aniso": dict(trilinear=True, aniso=True, two_mat=True)}
 # every input is padded to one shape (H, W, bricks, level rows, materials),
-# so the JAX kernel compiles once per filter in interpret mode
+# so the jitted JAX kernel compiles once per filter in interpret mode (~120 s
+# under trilinear + aniso); run eagerly it lowers again on every call
 H, W, N_BRICKS, N_INFO, N_MAT = 48, 256, 1616, 192, 16
 
 
@@ -138,6 +140,14 @@ INPUTS = {"mips": _mips_inputs, "stripes": _stripes_inputs,
           "mixed": _mixed_inputs, "atrium": _atrium_inputs}
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_sampler(filt, n_mips, bias):
+    """sample_materials in interpret mode under one jit per filter."""
+    return jax.jit(functools.partial(
+        jtexture.sample_materials, n_mips=n_mips, mip_bias=bias,
+        interpret=True, **FILTERS[filt]))
+
+
 @pytest.mark.parametrize("filt", sorted(FILTERS))
 @pytest.mark.parametrize("inputs", sorted(INPUTS))
 def test_filtered_sample_plain_matches_jax(inputs, filt):
@@ -145,9 +155,8 @@ def test_filtered_sample_plain_matches_jax(inputs, filt):
     not."""
     arrays, n_mips, bias = _padded(INPUTS[inputs])
     kw = FILTERS[filt]
-    j = np.asarray(jtexture.sample_materials(
-        *(jnp.asarray(a) for a in arrays), n_mips=n_mips, mip_bias=bias,
-        interpret=True, **kw))
+    j = np.asarray(_jax_sampler(filt, n_mips, bias)(
+        *(jnp.asarray(a) for a in arrays)))
     t = ttexture.sample_materials(
         *(torch.as_tensor(np.ascontiguousarray(a)) for a in arrays),
         n_mips=n_mips, mip_bias=bias, **kw).numpy()
