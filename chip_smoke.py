@@ -71,6 +71,7 @@ OUT = ROOT / "chiprun_out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = FP32_OPS_PER_S / 2
+L2_BYTES = 50e6
 
 WIDTH, HEIGHT = 1920, 1080
 # kernel -> (source under plainrenderer_tpu_torch/csrc/, the TPU kernel it
@@ -112,18 +113,67 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device ms per call of fn over reps calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+_SLEEP_CYCLES_PER_MS = []
+
+
+def sleep_cycles_per_ms() -> float:
+    """SM clock cycles per device ms of torch.cuda._sleep, measured once."""
+    if not _SLEEP_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(20_000_000 / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
+def cuda_ms(fn, reps: int, strict: bool = True) -> dict:
+    """Device time of fn: reps back-to-back calls between two CUDA events,
+    queued behind torch.cuda._sleep on the same stream. The sleep is sized
+    so that the host has enqueued every call and the end event before the
+    card wakes up, so the card runs the calls with no gap that the host's
+    enqueue makes. Returns ms (device ms per call), host_us (the host's
+    enqueue time per call, taken while the card sleeps), reps, sleep_ms
+    (the sleep's device time between its events) and inside (the enqueue
+    ended within it). A failed attempt halves reps (the launch queue holds
+    ~1,000 entries; a full one blocks the host) and doubles the sleep.
+    strict raises after 6 attempts; the plain versions (strict False,
+    some read values back to the host) take one attempt and report
+    inside."""
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = min(max(2.0, 3.0 * one_ms * reps), 1000.0 if strict else 100.0)
+    pre, start, end = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+    for attempt in range(6 if strict else 1):
+        if attempt:
+            reps = max(1, reps // 2)
+            sleep_ms = min(2.0 * max(sleep_ms, host_ms), 4000.0)
+        t0 = time.perf_counter()
+        pre.record()
+        torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms()))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        slept = pre.elapsed_time(start)
+        if host_ms < slept:
+            break
+    inside = host_ms < slept
+    check(inside or not strict, "the timed calls were enqueued within the "
+          f"sleep ({host_ms:.3f} ms of enqueue, {slept:.3f} ms slept)")
+    return dict(ms=start.elapsed_time(end) / reps,
+                host_us=host_ms * 1e3 / reps, reps=reps, sleep_ms=slept,
+                inside=inside)
 
 
 def slice_settings(n: int, width: int, height: int, **shadows):
@@ -165,42 +215,99 @@ def evaluated_pair_pixels(pair_edges, pairs, n_tiles_x: int, sub: int):
     return float(sub_rows.sum()) * 2048
 
 
+def block_tests(pair_edges, pairs, n_tiles_x: int, sub: int, bw: int,
+                bh: int):
+    """(tests, pixels) of a row-skipping depth raster that tests each pair
+    against the bw x bh blocks of its bin's 16-px rows inside [fy0, fy1]
+    with the exact corner test (raster.block_may_cover) and evaluates the
+    pixels of the blocks that pass: the corner tests made and the pixels
+    of the passing blocks, on these pair lists."""
+    dev = pair_edges.device
+    counts = pairs.tile_count.long()
+    seg = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
+                                  counts)
+    rank = torch.arange(seg.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(counts, 0) - counts, counts)
+    stream = torch.repeat_interleave(pairs.tile_start.long(), counts) + rank
+    row0 = (seg // n_tiles_x * sub).float()
+    lo = torch.maximum(pair_edges[3, stream], row0)
+    n_rows = (torch.minimum(pair_edges[7, stream], row0 + sub - 1) - lo
+              + 1).clamp(min=0).long()
+    edges = pair_edges[[0, 1, 2, 4, 5, 6, 8, 9, 10]]
+    bx = torch.arange(raster.TILE_W // bw, device=dev) * bw
+    by = torch.arange(raster.TILE_H // bh, device=dev) * bh
+    tests = passing = 0
+    step = 1 << 16
+    for c0 in range(0, stream.numel(), step):
+        nr = n_rows[c0:c0 + step]
+        pr = torch.repeat_interleave(torch.arange(nr.numel(), device=dev),
+                                     nr)
+        fine = lo[c0:c0 + step].long()[pr] + torch.arange(
+            pr.numel(), device=dev) - torch.repeat_interleave(
+                torch.cumsum(nr, 0) - nr, nr)
+        x0 = (seg[c0:c0 + step][pr] % n_tiles_x * raster.TILE_W)[
+            :, None, None] + bx[None, None, :]
+        y0 = (fine * raster.TILE_H)[:, None, None] + by[None, :, None]
+        e = edges[:, stream[c0:c0 + step][pr]].reshape(3, 3, -1)
+        may = raster.block_may_cover(e[..., None, None], x0, y0, bw, bh)
+        tests += may.numel()
+        passing += int(may.sum()) * bw * bh
+    return tests, passing
+
+
 class Ctx:
     """What the rows share: device, cameras, LUTs, scenes and the
     per-kernel results the kernels line is made of."""
 
     def __init__(self, dev):
         self.dev = dev
-        self.ms, self.plain_ms, self.library_ms = {}, {}, {}
-        self.bounds, self.errors, self.extra = {}, {}, {}
+        self.results, self.extra = {}, {}
         self.scenes, self.scale, self.report = {}, 1.0, {}
-        self.path, self.timed_on = "", {}
+        self.path = ""
         self.earlier, self.variants = {}, {}
 
     def kernel(self, name, fn, reps, plain, plain_reps, bound, err,
-               library=None, variant=None):
+               library=None, variant=None, l2_bytes=None):
         """Time kernel `name`, its plain version and its PyTorch yardstick
-        (CUDA events); keep its bound (bytes s, operations s), its error
-        and the row whose inputs timed it (self.path). A kernel timed again
-        keeps its earlier time in `earlier`; a variant (another branch of
-        the same kernel) goes into `variants` beside the default one."""
-        result = dict(timed_on=self.path, ms=cuda_ms(fn, reps),
-                      plain_ms=cuda_ms(plain, plain_reps),
-                      library_ms=library and cuda_ms(library, 50),
-                      max_abs_err=err, bound_ms=max(bound) * 1e3,
-                      bound_by="bytes" if bound[0] >= bound[1]
-                      else "operations")
+        (cuda_ms: device time, host enqueue us per call, the check that the
+        enqueue ended within the sleep); keep its bound (bytes s,
+        operations s), its error and the row whose inputs timed it
+        (self.path). The L2 note compares the bytes the calls touch
+        (l2_bytes, else the bound's bytes) with the 50 MB L2: back-to-back
+        calls on inputs that fit read them warm. A kernel timed again keeps
+        its earlier time in `earlier`; a variant (another branch of the
+        same kernel) goes into `variants` beside the default one."""
+        t, tp = cuda_ms(fn, reps), cuda_ms(plain, plain_reps, strict=False)
+        tl = library and cuda_ms(library, 50)
+        touched = bound[0] * HBM_BYTES_PER_S if l2_bytes is None else l2_bytes
+        result = dict(
+            timed_on=self.path, ms=t["ms"], host_us=t["host_us"],
+            enqueue_inside_sleep=t["inside"], reps=t["reps"],
+            sleep_ms=t["sleep_ms"], plain_ms=tp["ms"],
+            plain_host_us=tp["host_us"],
+            plain_enqueue_inside_sleep=tp["inside"],
+            library_ms=tl and tl["ms"], library_host_us=tl and tl["host_us"],
+            max_abs_err=err, bound_ms=max(bound) * 1e3,
+            bound_by="bytes" if bound[0] >= bound[1] else "operations",
+            l2=f"{touched / 1e6:.1f} MB touched per call: "
+               + ("fits in the 50 MB L2, read warm" if touched < L2_BYTES
+                  else "exceeds the 50 MB L2"))
+        lib = "none" if tl is None else f"{tl['ms']:.4f} ms"
+        print(f"{name}{'' if variant is None else f' ({variant})'}: "
+              f"{t['ms']:.4f} ms device ({t['host_us']:.1f} us host enqueue "
+              f"per call, inside the sleep: {t['inside']}), bound "
+              f"{result['bound_ms']:.4f} ms ({result['bound_by']}), plain "
+              f"{tp['ms']:.3f} ms, library {lib}; {result['l2']}",
+              flush=True)
         if variant is not None:
             self.variants.setdefault(name, {})[variant] = result
             return
-        if name in self.ms:
-            self.earlier.setdefault(name, []).append(dict(
-                timed_on=self.timed_on[name], ms=self.ms[name],
-                plain_ms=self.plain_ms[name]))
-        self.timed_on[name] = self.path
-        self.ms[name], self.plain_ms[name] = result["ms"], result["plain_ms"]
-        self.library_ms[name] = result["library_ms"]
-        self.bounds[name], self.errors[name] = bound, err
+        if name in self.results:
+            old = self.results[name]
+            self.earlier.setdefault(name, []).append(
+                {k: old[k] for k in ("timed_on", "ms", "host_us",
+                                     "plain_ms")})
+        self.results[name] = result
 
 
 def drive(ctx, frames, settings, warmup: int, timed: int):
@@ -445,10 +552,13 @@ def time_keys(ctx, ki=None, bound=None, atlas_ki=None, atlas_bound=None):
         ctx.kernel("expand_keys", lambda: raster.expand_keys(ki), 50,
                    lambda: raster.expand_keys_plain(ki), 10, bound, 0.0)
     if atlas_ki is not None:
+        t = cuda_ms(lambda: raster.expand_keys(atlas_ki), 50)
         ctx.extra["atlas_keys"] = dict(
-            atlas_ms=cuda_ms(lambda: raster.expand_keys(atlas_ki), 50),
+            atlas_ms=t["ms"], atlas_host_us=t["host_us"],
+            atlas_enqueue_inside_sleep=t["inside"],
             atlas_plain_ms=cuda_ms(
-                lambda: raster.expand_keys_plain(atlas_ki), 10),
+                lambda: raster.expand_keys_plain(atlas_ki), 10,
+                strict=False)["ms"],
             atlas_bound_ms=max(atlas_bound) * 1e3,
             atlas_timed_on=ctx.path)
 
@@ -603,6 +713,18 @@ def check_and_time_e(ctx, atlas, n_cas):
           flush=True)
     e_eval = evaluated_pair_pixels(atlas.edges, atlas.pairs, atlas.n_bins_x,
                                    atlas.sub)
+    blocks = {}
+    for bw, bh in ((8, 8), (16, 16), (32, 16)):
+        tests, px = block_tests(atlas.edges, atlas.pairs, atlas.n_bins_x,
+                                atlas.sub, bw, bh)
+        blocks[f"{bw}x{bh}"] = dict(tests=tests, passing_pixels=px)
+        print(f"kernel E blocks {bw}x{bh}: {tests} corner tests, {px} "
+              f"pixels in passing blocks (row skip alone: {e_eval:.0f})",
+              flush=True)
+    q = torch.quantile(counts.float(), torch.tensor(
+        [0.5, 0.9, 0.99], device=counts.device)).tolist()
+    print(f"kernel E: {int(counts.sum())} pairs; per bin p50/p90/p99 "
+          f"{q}", flush=True)
     e_bytes = (depth_e.numel() * 4 + 16 * 4 * atlas.edges.shape[1]
                + 8 * counts.shape[0])
     ctx.kernel("depth", lambda: raster.rasterize_depth(
@@ -610,6 +732,8 @@ def check_and_time_e(ctx, atlas, n_cas):
         lambda: raster.depth_plain(*pargs_e), 1,
         (e_bytes / HBM_BYTES_PER_S, 12 * e_eval / FP32_OPS_PER_S), 0.0)
     return dict(atlas_covered=cov, atlas_evaluated_pair_pixels=e_eval,
+                atlas_block_tests=blocks, atlas_pairs=int(counts.sum()),
+                atlas_pairs_per_bin_quantiles=q,
                 atlas_pairs_per_bin=dict(
                     max=int(counts.max()), mean=float(counts.float().mean()),
                     nonzero_bins=int((counts > 0).sum())))
@@ -1572,18 +1696,11 @@ def main() -> int:
                     launches_on=f"render_frame, slice {rows[-1]}")
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
-        by_bytes, by_ops = ctx.bounds[name]
         entry = {
             "name": name, "route": "cuda",
             "source": "plainrenderer_tpu_torch/csrc/" + source,
             "replaces": "plainrenderer_tpu/ops/" + replaces,
-            **launched(name),
-            "timed_on": ctx.timed_on[name],
-            "max_abs_err": ctx.errors[name], "ms": ctx.ms[name],
-            "plain_ms": ctx.plain_ms[name],
-            "bound_ms": max(by_bytes, by_ops) * 1e3,
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": ctx.library_ms[name]}
+            **launched(name), **ctx.results[name]}
         if name in ctx.variants:  # other branches of the same kernel
             entry["variants"] = [dict(variant=v, **launched(name, v), **r)
                                  for v, r in ctx.variants[name].items()]

@@ -986,6 +986,27 @@ def depth_plain(pair_edges, tile_start, tile_count, n_tiles_y: int,
                              masks=masks, init=init).view(torch.float32)
 
 
+def block_may_cover(edges, x0, y0, bw: int, bh: int) -> torch.Tensor:
+    """Kernel E's block test, exact: False only where no pixel centre of
+    the bw x bh block whose first column / row is x0 / y0 can have all
+    three edge planes >= 0 under the rounded a*x + (b*y + c) of
+    depth_plain. edges (3, 3, ...) f32 holds (a, b, c) of planes e0-e2,
+    broadcastable with the integer tensors x0, y0. Round-to-nearest is
+    monotone, so fl(a*x) is monotone in x, fl(fl(b*y) + c) in y and the
+    sum in both; each plane is largest at the corner the signs of a and b
+    pick, and the block is rejected when that corner's value is < 0 or
+    NaN (a NaN corner leaves every pixel < 0 or NaN: see
+    tests/test_torch_block_reject.py)."""
+    may = None
+    for p in range(3):
+        a, b, c = edges[p, 0], edges[p, 1], edges[p, 2]
+        x = torch.where(a > 0, x0 + (bw - 1), x0).to(torch.float32) + 0.5
+        y = torch.where(b > 0, y0 + (bh - 1), y0).to(torch.float32) + 0.5
+        ok = a * x + (b * y + c) >= 0.0
+        may = ok if may is None else may & ok
+    return may
+
+
 def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
