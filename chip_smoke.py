@@ -23,7 +23,10 @@ rows; the previous NDC, the recomposited SDF). Each row
 holds its kernels to their plain PyTorch versions on a real frame's
 inputs (the rule is printed with each result), a small scene on the card
 to the CPU plain path (> 99.9% of pixels within 2 LSB), times each
-kernel, its plain version and its PyTorch yardstick (CUDA events) with
+kernel, its plain version and its PyTorch yardstick on the device
+(cuda_ms: CUDA events around back-to-back calls queued behind
+torch.cuda._sleep, with the host's enqueue time per call beside it and
+the check that the enqueue ended inside the sleep) with
 its bound from this run's inputs (the kernels line names that row,
 timed_on, and the run its launches come from, launches_on), and drives
 warm-up + timed frames with
@@ -156,9 +159,10 @@ def cuda_ms(fn, reps: int, strict: bool = True) -> dict:
         if attempt:
             reps = max(1, reps // 2)
             sleep_ms = min(2.0 * max(sleep_ms, host_ms), 4000.0)
+        cycles = int(sleep_ms * sleep_cycles_per_ms())
         t0 = time.perf_counter()
         pre.record()
-        torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms()))
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(reps):
             fn()
@@ -215,13 +219,14 @@ def evaluated_pair_pixels(pair_edges, pairs, n_tiles_x: int, sub: int):
     return float(sub_rows.sum()) * 2048
 
 
-def block_tests(pair_edges, pairs, n_tiles_x: int, sub: int, bw: int,
-                bh: int):
-    """(tests, pixels) of a row-skipping depth raster that tests each pair
+def block_tests(pair_edges, pairs, n_tiles_x: int, sub: int, bw: int = 16,
+                bh: int = 16, z: bool = False):
+    """(tests, pixels) of a row-skipping raster that tests each pair
     against the bw x bh blocks of its bin's 16-px rows inside [fy0, fy1]
-    with the exact corner test (raster.block_may_cover) and evaluates the
-    pixels of the blocks that pass: the corner tests made and the pixels
-    of the passing blocks, on these pair lists."""
+    with the exact corner test (raster.block_may_cover; with z, kernel B's
+    z range test too) and evaluates the pixels of the blocks that pass:
+    the corner tests made and the pixels of the passing blocks, on these
+    pair lists (the work kernels E and B do at 16 x 16)."""
     dev = pair_edges.device
     counts = pairs.tile_count.long()
     seg = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
@@ -248,8 +253,10 @@ def block_tests(pair_edges, pairs, n_tiles_x: int, sub: int, bw: int,
         x0 = (seg[c0:c0 + step][pr] % n_tiles_x * raster.TILE_W)[
             :, None, None] + bx[None, None, :]
         y0 = (fine * raster.TILE_H)[:, None, None] + by[None, :, None]
-        e = edges[:, stream[c0:c0 + step][pr]].reshape(3, 3, -1)
-        may = raster.block_may_cover(e[..., None, None], x0, y0, bw, bh)
+        cols = stream[c0:c0 + step][pr]
+        e = edges[:, cols].reshape(3, 3, -1)
+        zp = pair_edges[12:15, cols][..., None, None] if z else None
+        may = raster.block_may_cover(e[..., None, None], x0, y0, bw, bh, zp)
         tests += may.numel()
         passing += int(may.sum()) * bw * bh
     return tests, passing
@@ -267,19 +274,19 @@ class Ctx:
         self.earlier, self.variants = {}, {}
 
     def kernel(self, name, fn, reps, plain, plain_reps, bound, err,
-               library=None, variant=None, l2_bytes=None):
+               library=None, variant=None):
         """Time kernel `name`, its plain version and its PyTorch yardstick
         (cuda_ms: device time, host enqueue us per call, the check that the
         enqueue ended within the sleep); keep its bound (bytes s,
         operations s), its error and the row whose inputs timed it
-        (self.path). The L2 note compares the bytes the calls touch
-        (l2_bytes, else the bound's bytes) with the 50 MB L2: back-to-back
-        calls on inputs that fit read them warm. A kernel timed again keeps
+        (self.path). The L2 note compares the bytes a call touches (the
+        bound's bytes) with the 50 MB L2: back-to-back calls on inputs that
+        fit read them warm. A kernel timed again keeps
         its earlier time in `earlier`; a variant (another branch of the
         same kernel) goes into `variants` beside the default one."""
         t, tp = cuda_ms(fn, reps), cuda_ms(plain, plain_reps, strict=False)
         tl = library and cuda_ms(library, 50)
-        touched = bound[0] * HBM_BYTES_PER_S if l2_bytes is None else l2_bytes
+        touched = bound[0] * HBM_BYTES_PER_S
         result = dict(
             timed_on=self.path, ms=t["ms"], host_us=t["host_us"],
             enqueue_inside_sleep=t["inside"], reps=t["reps"],
@@ -579,8 +586,11 @@ def check_and_time_b(ctx, mv, pairs, pe, pa, what="kernel B",
     """Kernel B on one opaque stream against its plain version (the raster
     rule: <= 1e-3 of pixels differ in winner or depth, channels within
     1e-4 where the winners agree), then timed with its bound: it writes
-    depth, vis and every channel and reads the pair tables; 4 planes x 3
-    flops per evaluated (pair, pixel) + ~80 flops per covered pixel. It
+    depth, vis and every channel and reads the pair tables; 12 rounded
+    ops per corner test of a (pair, 16 x 16 block) in the pair's rows and
+    per pixel of the blocks that pass the edge and z tests (block_tests),
+    + ~80 flops per covered pixel (the PR 6 design's count, 12 per pixel
+    of the pair's rows, kept beside it). It
     reads the staged edge rows of each live pair, the attribute rows of
     each distinct winning pair slot, and the segment tables. Returns
     (pixels differing, max |err|, covered share, evaluated)."""
@@ -611,13 +621,23 @@ def check_and_time_b(ctx, mv, pairs, pe, pa, what="kernel B",
     b_bytes = 4 * N_STAGED * live + 4 * pa.shape[0] * win_slots \
         + 8 * pairs.tile_start.shape[0] + n_pix * 4 * (2 + n_ch)
     evaluated = evaluated_pair_pixels(pe, pairs, mv.n_tiles_x, mv.sub)
-    b_ops = 12 * evaluated + (80 + 10 * (n_ch - 13)) * float(
-        (vis_k >= 0).sum())
+    tests, px = block_tests(pe, pairs, mv.n_tiles_x, mv.sub, z=True)
+    counts = pairs.tile_count
+    print(f"{what}: {live} pairs, per bin max {int(counts.max())} mean "
+          f"{float(counts.float().mean()):.1f}; {tests} block tests, {px} "
+          f"pixels in passing blocks ({evaluated:.0f} in the pairs' rows)",
+          flush=True)
+    per_px = (80 + 10 * (n_ch - 13)) * float((vis_k >= 0).sum())
+    b_ops = 12 * (tests + px) + per_px
     ctx.kernel("gbuffer", lambda: raster.rasterize_gbuffer(
         pe, pa, pairs, mv.n_tiles_y, mv.n_tiles_x, sub=mv.sub,
         row_skip=True), 20, lambda: raster.gbuffer_plain(*gb_args), 2,
         (b_bytes / HBM_BYTES_PER_S, b_ops / FP32_OPS_PER_S), err_b,
         variant=variant)
+    result = ctx.results["gbuffer"] if variant is None \
+        else ctx.variants["gbuffer"][variant]
+    result.update(ops=b_ops, pr6_design_ops=12 * evaluated + per_px,
+                  block_tests=tests, block_pixels=px)
     return frac_differ, err_b, covered, evaluated
 
 
@@ -696,8 +716,13 @@ def check_and_time_d(ctx, scene, targs, kw, what="kernel D",
 
 def check_and_time_e(ctx, atlas, n_cas):
     """Kernel E on the frame's opaque casters, exact against its plain
-    version; bound: the atlas written, each pair's 16 rows and each bin's
-    start/count read, 12 flops per evaluated (pair, pixel)."""
+    version; bound: the atlas written, the 14 staged rows of each live pair
+    and each bin's start/count read; operations: 12 rounded ops per corner
+    test of a (pair, 16 x 16 block) in the pair's rows and per pixel of
+    the blocks that pass (block_tests). The PR 6 design's count, 12 per
+    pixel of every 16-px row of the bin inside the pair's rows
+    (evaluated_pair_pixels), is kept beside it: the new count is the
+    smaller, so the bound is a floor for both designs."""
     eargs = (atlas.edges, atlas.pairs, atlas.n_bins_y, atlas.n_bins_x)
     pargs_e = (atlas.edges, atlas.pairs.tile_start, atlas.pairs.tile_count,
                atlas.n_bins_y, atlas.n_bins_x, atlas.sub, True)
@@ -707,33 +732,30 @@ def check_and_time_e(ctx, atlas, n_cas):
           "kernel E atlas equals the plain version")
     cov = float((depth_e > 0).float().mean())
     counts = atlas.pairs.tile_count
-    print(f"kernel E: {n_cas} x {atlas.n_bins_x * raster.TILE_W}^2 atlas "
-          f"equal; {cov:.3f} covered; pairs per bin max "
-          f"{int(counts.max())} mean {float(counts.float().mean()):.1f}",
-          flush=True)
-    e_eval = evaluated_pair_pixels(atlas.edges, atlas.pairs, atlas.n_bins_x,
-                                   atlas.sub)
-    blocks = {}
-    for bw, bh in ((8, 8), (16, 16), (32, 16)):
-        tests, px = block_tests(atlas.edges, atlas.pairs, atlas.n_bins_x,
-                                atlas.sub, bw, bh)
-        blocks[f"{bw}x{bh}"] = dict(tests=tests, passing_pixels=px)
-        print(f"kernel E blocks {bw}x{bh}: {tests} corner tests, {px} "
-              f"pixels in passing blocks (row skip alone: {e_eval:.0f})",
-              flush=True)
+    live = int(counts.sum())
     q = torch.quantile(counts.float(), torch.tensor(
         [0.5, 0.9, 0.99], device=counts.device)).tolist()
-    print(f"kernel E: {int(counts.sum())} pairs; per bin p50/p90/p99 "
-          f"{q}", flush=True)
-    e_bytes = (depth_e.numel() * 4 + 16 * 4 * atlas.edges.shape[1]
+    e_eval = evaluated_pair_pixels(atlas.edges, atlas.pairs, atlas.n_bins_x,
+                                   atlas.sub)
+    tests, px = block_tests(atlas.edges, atlas.pairs, atlas.n_bins_x,
+                            atlas.sub)
+    print(f"kernel E: {n_cas} x {atlas.n_bins_x * raster.TILE_W}^2 atlas "
+          f"equal; {cov:.3f} covered; {live} pairs, per bin max "
+          f"{int(counts.max())} mean {float(counts.float().mean()):.1f} "
+          f"p50/p90/p99 {q}; {tests} block tests, {px} pixels in passing "
+          f"blocks ({e_eval:.0f} in the pairs' rows)", flush=True)
+    e_bytes = (depth_e.numel() * 4 + 4 * N_STAGED * live
                + 8 * counts.shape[0])
     ctx.kernel("depth", lambda: raster.rasterize_depth(
         *eargs, sub=atlas.sub, row_skip=True), 20,
         lambda: raster.depth_plain(*pargs_e), 1,
-        (e_bytes / HBM_BYTES_PER_S, 12 * e_eval / FP32_OPS_PER_S), 0.0)
+        (e_bytes / HBM_BYTES_PER_S, 12 * (tests + px) / FP32_OPS_PER_S), 0.0)
+    ctx.results["depth"].update(
+        ops=12 * (tests + px), pr6_design_ops=12 * e_eval,
+        pr6_design_bound_ms=12 * e_eval / FP32_OPS_PER_S * 1e3)
     return dict(atlas_covered=cov, atlas_evaluated_pair_pixels=e_eval,
-                atlas_block_tests=blocks, atlas_pairs=int(counts.sum()),
-                atlas_pairs_per_bin_quantiles=q,
+                atlas_block_tests=tests, atlas_block_pixels=px,
+                atlas_pairs=live, atlas_pairs_per_bin_quantiles=q,
                 atlas_pairs_per_bin=dict(
                     max=int(counts.max()), mean=float(counts.float().mean()),
                     nonzero_bins=int((counts > 0).sum())))

@@ -48,6 +48,34 @@ __device__ __forceinline__ float plain_plane(float a, float b, float c,
   return __fadd_rn(__fmul_rn(a, x), __fadd_rn(__fmul_rn(b, y), c));
 }
 
+// The exact block test (ops/raster.py:block_may_cover): fl(a*x) is
+// monotone in x, fl(fl(b*y) + c) in y and their rounded sum in both, so a
+// plane's largest value over the pixel centres of the bw x bh block at
+// (x0, y0) is at the corner the signs of a and b pick. False when that
+// value is < 0 or NaN: then no pixel of the block has the plane >= 0.
+__device__ __forceinline__ bool plain_plane_may_pass(float a, float b,
+                                                     float c, int x0, int y0,
+                                                     int bw, int bh) {
+  const float x = (float)(a > 0.0f ? x0 + bw - 1 : x0) + 0.5f;
+  const float y = (float)(b > 0.0f ? y0 + bh - 1 : y0) + 0.5f;
+  return plain_plane(a, b, c, x, y) >= 0.0f;
+}
+
+// The reverse-Z test of the same block (kernel B): some pixel can have
+// 0 < z <= 1 only if the largest corner value is > 0 and the smallest
+// (the opposite corner) is <= 1; a NaN at either corner fails too.
+__device__ __forceinline__ bool plain_depth_may_pass(float a, float b,
+                                                     float c, int x0, int y0,
+                                                     int bw, int bh) {
+  const bool ax = a > 0.0f, by = b > 0.0f;
+  const float xh = (float)(ax ? x0 + bw - 1 : x0) + 0.5f;
+  const float yh = (float)(by ? y0 + bh - 1 : y0) + 0.5f;
+  const float xl = (float)(ax ? x0 : x0 + bw - 1) + 0.5f;
+  const float yl = (float)(by ? y0 : y0 + bh - 1) + 0.5f;
+  return plain_plane(a, b, c, xh, yh) > 0.0f &&
+         plain_plane(a, b, c, xl, yl) <= 1.0f;
+}
+
 // raster.py:_kernel_recip: 1/x for x > 0 as rsqrt(x)^2 + one Newton step
 __device__ __forceinline__ float plain_kernel_recip(float x) {
   float r = rsqrtf(x);
@@ -115,16 +143,12 @@ __device__ __forceinline__ float plain_eval_attr(const float* c, float x,
 // material row; with PREV (a dynamic scene's 39 rows) also the previous
 // NDC xy of the prev-clip planes, divided by a signed _kernel_recip of
 // |prev w| where it exceeds 1e-9, else by 1 (raster.py:1728-1740).
+// plain_gbuffer_eval takes the rows already rounded (kernel B rounds each
+// pair's rows once).
 template <bool PREV>
-__device__ __forceinline__ void plain_gbuffer_channels(
-    const float* __restrict__ attrs, int n_pairs, int idx, float x, float y,
-    float* ch) {
-  constexpr int n_attr = PREV ? PLAIN_NATTR_PREV : PLAIN_NATTR;
-  float cf[n_attr];
-#pragma unroll
-  for (int k = 0; k < n_attr; ++k) {
-    cf[k] = plain_split_round(attrs[(size_t)k * n_pairs + idx]);
-  }
+__device__ __forceinline__ void plain_gbuffer_eval(
+    const float (&cf)[PREV ? PLAIN_NATTR_PREV : PLAIN_NATTR], float x,
+    float y, float* ch) {
   const float w =
       plain_kernel_recip(fmaxf(plain_eval_attr(cf + 0, x, y), 1e-12f));
   const float u = __fmul_rn(plain_eval_attr(cf + 3, x, y), w);
@@ -162,6 +186,18 @@ __device__ __forceinline__ void plain_gbuffer_channels(
     ch[13] = __fmul_rn(prev_x, inv_pw);
     ch[14] = __fmul_rn(prev_y, inv_pw);
   }
+}
+
+template <bool PREV>
+__device__ __forceinline__ void plain_gbuffer_channels(
+    const float* __restrict__ attrs, int n_pairs, int idx, float x, float y,
+    float* ch) {
+  float cf[PREV ? PLAIN_NATTR_PREV : PLAIN_NATTR];
+#pragma unroll
+  for (int k = 0; k < (PREV ? PLAIN_NATTR_PREV : PLAIN_NATTR); ++k) {
+    cf[k] = plain_split_round(attrs[(size_t)k * n_pairs + idx]);
+  }
+  plain_gbuffer_eval<PREV>(cf, x, y, ch);
 }
 
 // Every C entry point launches on the caller's stream and returns
@@ -233,6 +269,174 @@ __device__ __forceinline__ void plain_depth_item(
   *bin = lo;
   *n = min(chunk, count - p0);
   *start = tile_start[lo] + p0;
+}
+
+#define PLAIN_FULL_MASK 0xffffffffu
+
+// The strip kernels' work items (depth.cu, gbuffer.cu): a slice is a
+// chunk-pair piece of one bin's segment (an empty bin has one empty
+// slice, so every strip is written), and item i is the 16-row strip
+// i % sub of slice i / sub. The bins are taken heaviest first (a sort of
+// (count << 13 | bin) keys, descending), so the last items handed out are
+// short ones and no heavy strip starts at the end. Every thread of the
+// block calls plain_slice_prefix once: s_key (n_sort = the power of two
+// >= n_bins ints) gets the sorted keys, s_end[j] the inclusive prefix of
+// max(1, ceil(count / chunk)) over the sorted bins; s_wsum holds one int
+// per warp.
+#define PLAIN_BIN_BITS 13  // bins < 2^13 and pairs per bin < 2^18
+__device__ __forceinline__ void plain_slice_prefix(
+    const int* __restrict__ tile_count, int n_bins, int n_sort, int chunk,
+    int* s_key, int* s_end, int* s_wsum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < n_sort; i += blockDim.x) {
+    s_key[i] = i < n_bins ? (tile_count[i] << PLAIN_BIN_BITS) | i : -1;
+  }
+  __syncthreads();
+  for (int k = 2; k <= n_sort; k <<= 1) {  // bitonic sort, descending
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < n_sort; i += blockDim.x) {
+        const int o = i ^ j;
+        if (o > i) {
+          const int a = s_key[i], b = s_key[o];
+          if ((i & k) == 0 ? a < b : a > b) {
+            s_key[i] = b;
+            s_key[o] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const int per = (n_bins + blockDim.x - 1) / blockDim.x;
+  const int b0 = min((int)threadIdx.x * per, n_bins);
+  const int b1 = min(b0 + per, n_bins);
+  int local = 0;
+  for (int b = b0; b < b1; ++b) {
+    local += max(1, ((s_key[b] >> PLAIN_BIN_BITS) + chunk - 1) / chunk);
+    s_end[b] = local;
+  }
+  int incl = local;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(PLAIN_FULL_MASK, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) s_wsum[warp] = incl;
+  __syncthreads();
+  int before = incl - local;
+  for (int w = 0; w < warp; ++w) before += s_wsum[w];
+  for (int b = b0; b < b1; ++b) s_end[b] += before;
+  __syncthreads();
+}
+
+// the power of two >= n_bins that plain_slice_prefix sorts
+__host__ __device__ __forceinline__ int plain_sort_size(int n_bins) {
+  int n = 1;
+  while (n < n_bins) n <<= 1;
+  return n;
+}
+
+struct PlainStrip {
+  int bin, strip, n_slices, p0, n, start;
+};
+
+// item -> its bin, strip (0 .. sub - 1), the bin's slice count, the
+// slice's first pair in the bin (p0), its pair count and stream offset
+__device__ __forceinline__ PlainStrip plain_strip_item(
+    const int* s_key, const int* s_end, const int* __restrict__ tile_start,
+    int n_bins, int chunk, int sub, int item) {
+  const int slice = item / sub;
+  int lo = 0, hi = n_bins - 1;  // the first sorted bin whose prefix exceeds
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s_end[mid] <= slice) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  PlainStrip it;
+  it.bin = s_key[lo] & ((1 << PLAIN_BIN_BITS) - 1);
+  it.strip = item - slice * sub;
+  const int first = lo > 0 ? s_end[lo - 1] : 0;
+  it.n_slices = s_end[lo] - first;
+  it.p0 = (slice - first) * chunk;
+  it.n = min(chunk, (s_key[lo] >> PLAIN_BIN_BITS) - it.p0);
+  it.start = tile_start[it.bin] + it.p0;
+  return it;
+}
+
+// The pairs of one strip item (kernels E and B), 32 at a time: lane p
+// takes pair p of the slice (pairs start .. start + n - 1 of the stream),
+// and, if its row extent holds the strip's fine row frow (row_skip), its
+// 12 plane coefficients (e0, e1, e2, z as a, b, c); test(cf) returns its
+// mask of 16 x 16 blocks the pair may cover (plus any flag bits), and a
+// pair with a nonzero mask goes to the warp's stash (32 x 13 floats).
+// Then the warp visits each such pair in lane order: visit(c, mask, p).
+template <typename Test, typename Visit>
+__device__ __forceinline__ void plain_strip_pairs(
+    const float* __restrict__ edges, int n_pairs, int start, int n,
+    int row_skip, float frow, float* stash, Test test, Visit visit) {
+  const int lane = threadIdx.x & 31;
+  for (int g = 0; g < n; g += 32) {
+    const int p = g + lane;
+    unsigned mask = 0;
+    if (p < n) {
+      const size_t col = (size_t)start + p;
+      if (!row_skip || (edges[3 * (size_t)n_pairs + col] <= frow &&
+                        frow <= edges[7 * (size_t)n_pairs + col])) {
+        float cf[12];
+#pragma unroll
+        for (int r = 0; r < 12; ++r) {
+          cf[r] = edges[(size_t)plain_staged_row(r) * n_pairs + col];
+        }
+        mask = test(cf);
+        if (mask) {
+#pragma unroll
+          for (int r = 0; r < 12; ++r) stash[lane * 13 + r] = cf[r];
+        }
+      }
+    }
+    __syncwarp();
+    unsigned live = __ballot_sync(PLAIN_FULL_MASK, mask != 0);
+    while (live) {
+      const int src = __ffs(live) - 1;
+      live &= live - 1;
+      const unsigned m = __shfl_sync(PLAIN_FULL_MASK, mask, src);
+      float c[12];
+#pragma unroll
+      for (int r = 0; r < 12; ++r) c[r] = stash[src * 13 + r];
+      visit(c, m, g + src);
+    }
+    __syncwarp();  // the stash is read before the next 32 pairs land
+  }
+}
+
+// The merge of a strip's slices. plain_finish_order: 0 for the first
+// slice to finish (or the only one), which stores its values and then
+// plain_raise_flag; the others plain_wait_flag, then merge by atomicMax.
+// The first finisher waits on nothing, so every waiter's wait ends.
+__device__ __forceinline__ int plain_finish_order(int* done, int n_slices) {
+  int order = 0;
+  if (n_slices > 1) {
+    if ((threadIdx.x & 31) == 0) order = atomicAdd(done, 1);
+    order = __shfl_sync(PLAIN_FULL_MASK, order, 0);
+  }
+  return order;
+}
+
+__device__ __forceinline__ void plain_raise_flag(int* flag) {
+  __threadfence();
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) atomicExch(flag, 1);
+}
+
+__device__ __forceinline__ void plain_wait_flag(int* flag) {
+  if ((threadIdx.x & 31) == 0) {
+    while (*(volatile int*)flag == 0) __nanosleep(64);
+  }
+  __syncwarp();
+  __threadfence();
 }
 
 // floor division and modulo for b > 0 (Python / jnp integer semantics)

@@ -7,113 +7,226 @@
 // edge planes are >= 0 there (no z test: cascades render with depth
 // clamping, raster.py:1368-1374), as the integer max of the positive f32
 // bits; 0 where nothing covers. Planes evaluate as a*x + (b*y + c) with
-// separately rounded multiplies and adds, as kernel B and the plain
-// version (ops/raster.py:depth_plain) do, so the atlas is bit-identical.
-// Row skip: a pair is evaluated in a 16-px sub-block only when the
-// sub-block's fine row lies in the pair's [fy0, fy1] (rows 3 and 7).
+// separately rounded multiplies and adds, as the plain version
+// (ops/raster.py:depth_plain) does, so the atlas is bit-identical. Row
+// skip: a pair is evaluated in a 16-px fine row only when that row lies in
+// the pair's [fy0, fy1] (pair_edges rows 3 and 7).
 //
-// Bound and design on the H100: it writes the atlas once (3 x 2048^2 f32,
-// 50 MB, ~15 us at 3.35 TB/s) and reads 16 rows per pair; the plane
-// evaluations are 12 flops per evaluated (pair, pixel). The shadow atlas
-// lets one bin hold up to 32,768 pairs (tile_cap) where most hold a few
-// dozen, so one block per bin would wait on its heaviest bins. Instead the
-// work is cut into items of DEPTH_CHUNK pairs of one bin; persistent
-// blocks take items from an atomic counter, and each block max-merges its
-// item into the zeroed atlas with atomicMax on the depth bits (an integer
-// max, so the result does not depend on the order). One block is
-// 128 * sub threads; thread t owns column t % 128 of 16-px sub-block
-// t / 128 and keeps its 16 maxima in registers.
+// Bound on the H100: it writes the atlas once (3 x 2048^2 f32, 50 MB,
+// ~15 us at 3.35 TB/s) and reads 14 rows per pair; the work is the plane
+// evaluations: 12 rounded ops per pixel a pair may cover, which the block
+// test below cuts to the 16 x 16 blocks the pair's edges can reach, plus
+// 12 per (pair, block) test. These ops do not fuse into FMAs, so they
+// issue at half the 67 TFLOP/s that counts an FMA as 2 flops.
+//
+// Design. A work item is one 16 x 128 strip of a bin (one fine row) and
+// one E_CHUNK-pair slice of the bin's pairs; one warp does an item,
+// with no block barrier, and takes the next from an atomic counter. Every
+// thread block sorts the bins heaviest first and sums their slice counts
+// into shared memory once, at its start (common.cuh, plain_slice_prefix),
+// so short items come last; slices of 128 pairs keep a heavy strip from
+// holding one warp for long.
+//   1. 32 pairs at a time, one per lane (coalesced loads of the 14 rows),
+//      each lane tests its pair's row skip and, per 16 x 16 block of the
+//      strip, the exact corner test (common.cuh, plain_plane_may_pass):
+//      an 8-bit mask of the blocks the pair may cover. Its coefficients go
+//      to the warp's shared stash (common.cuh, plain_strip_pairs).
+//   2. For each pair with a nonzero mask (a ballot), every lane reads the
+//      coefficients as broadcasts, computes the row terms fl(fl(b*y) + c)
+//      of its 4 rows once, and for each block in the mask the column
+//      terms fl(a*x) of its 2 columns, then 8 pixels: 4 adds, 3 compares
+//      and a max. The warp keeps the strip's 2048 maxima in registers
+//      (64 per lane: per block, 4 rows x 2 columns).
+//   3. Maxima are of z itself (clamping is monotone, so the clamp moves to
+//      the end), when the pair's z coefficients are below 2^64 and z is
+//      therefore finite; other pairs take a path that clamps each z and
+//      maps a NaN (the card's canonical 0x7fffffff, the largest bits) to
+//      +inf, which the end maps back.
+//   4. A strip whose bin has one slice stores its 2048 depths (0 where
+//      nothing covers) with plain stores. A heavier bin's slices merge:
+//      the first to finish stores and raises a ready flag; the others
+//      wait for it, then atomicMax their covered pixels (an integer max,
+//      so the order does not matter). So the atlas needs no zero fill.
 #include "common.cuh"
 
-#define DEPTH_CHUNK 256  // pairs per work item; = ops/raster.py:DEPTH_CHUNK
+#define E_CHUNK 128  // pairs per work item (short items: heavy strips spread)
+#define E_WARPS 8
+#define E_BLOCKS 8       // 16 x 16 blocks per 128-px strip
+#define E_MAX_BINS 4096  // dynamic shared memory: 2 ints per bin
 
-__device__ __forceinline__ float clamp_depth(float z) {
-  // NaN stays NaN, as torch.clamp and jnp.clip leave it
-  return z != z ? z : fminf(fmaxf(z, 1.0f / 16384.0f), 1.0f);
+__device__ __forceinline__ float depth_clamp(float z) {
+  return fminf(fmaxf(z, 1.0f / 16384.0f), 1.0f);
 }
 
-__global__ void __launch_bounds__(8 * PLAIN_TILE_W)
+// the depth bits of a pixel's maximum (-inf: nothing covers; +inf: a NaN)
+__device__ __forceinline__ int depth_key(float m) {
+  if (m == -INFINITY) return 0;
+  if (m == INFINITY) return 0x7fffffff;
+  return __float_as_int(depth_clamp(m));
+}
+
+// One pair's pixels in the blocks of mask m: the lane's 4 rows (ry..) and
+// 2 columns (cx, cx + 1) of each 16 x 16 block. SAFE pairs (finite z)
+// max z itself; the others clamp each z and max +inf for a NaN.
+template <bool SAFE>
+__device__ __forceinline__ void depth_pair(float (&acc)[E_BLOCKS][8],
+                                           const float* c, unsigned m,
+                                           int x0, int y0) {
+  const float xb = (float)x0 + 0.5f, yb = (float)y0 + 0.5f;  // exact
+  float br[4][4];  // [plane][row]: fl(fl(b * y) + c)
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float y = yb + (float)r;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      br[q][r] = __fadd_rn(__fmul_rn(c[3 * q + 1], y), c[3 * q + 2]);
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < E_BLOCKS; ++b) {
+    if (!(m & (1u << b))) continue;
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const float x = xb + (float)(16 * b + cc);
+      const float a0 = __fmul_rn(c[0], x), a1 = __fmul_rn(c[3], x);
+      const float a2 = __fmul_rn(c[6], x), az = __fmul_rn(c[9], x);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (__fadd_rn(a0, br[0][r]) >= 0.0f &&
+            __fadd_rn(a1, br[1][r]) >= 0.0f &&
+            __fadd_rn(a2, br[2][r]) >= 0.0f) {
+          float z = __fadd_rn(az, br[3][r]);
+          if (!SAFE) z = z != z ? INFINITY : depth_clamp(z);
+          acc[b][2 * r + cc] = fmaxf(acc[b][2 * r + cc], z);
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(E_WARPS * 32, 2)
 depth_kernel(const float* __restrict__ edges,
              const int* __restrict__ tile_start,
-             const int* __restrict__ tile_count,
-             const int* __restrict__ chunk_end, int* __restrict__ counter,
+             const int* __restrict__ tile_count, int* __restrict__ aux,
              int* __restrict__ depth_bits, int n_pairs, int n_tiles_y,
              int n_tiles_x, int sub, int row_skip) {
-  __shared__ float staged[PLAIN_N_STAGED][DEPTH_CHUNK];
-  __shared__ int s_item;
+  extern __shared__ int s_dyn[];  // sorted bin keys, then slice prefix
+  __shared__ float s_coef[E_WARPS][32][13];  // 13: no bank conflicts
+  __shared__ int s_wsum[E_WARPS];
   const int n_bins = n_tiles_y * n_tiles_x;
-  const int n_items = chunk_end[n_bins - 1];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const int n_sort = plain_sort_size(n_bins);
+  int* s_key = s_dyn;
+  int* s_end = s_dyn + n_sort;
+  plain_slice_prefix(tile_count, n_bins, n_sort, E_CHUNK, s_key, s_end,
+                     s_wsum);
+
+  int* counter = aux;
+  int* done = aux + 1;                 // per strip: slices finished
+  int* ready = done + n_bins * sub;    // per strip: first slice stored
+  const int n_items = s_end[n_bins - 1] * sub;
   const int width = n_tiles_x * PLAIN_TILE_W;
-  const int lx = threadIdx.x % PLAIN_TILE_W;
-  const int s = threadIdx.x / PLAIN_TILE_W;
+  const int cx = 2 * (lane & 7);   // the lane's 2 columns in a block
+  const int ry = 4 * (lane >> 3);  // its 4 rows in the strip
+  float* stash = &s_coef[warp][0][0];
 
   while (true) {
-    if (threadIdx.x == 0) s_item = atomicAdd(counter, 1);
-    __syncthreads();
-    const int item = s_item;
-    __syncthreads();  // all have read s_item before thread 0 writes again
+    int item = 0;
+    if (lane == 0) item = atomicAdd(counter, 1);
+    item = __shfl_sync(PLAIN_FULL_MASK, item, 0);
     if (item >= n_items) break;
-    int bin, start, n;
-    plain_depth_item(chunk_end, tile_start, tile_count, n_bins, DEPTH_CHUNK,
-                     item, &bin, &start, &n);
-    for (int i = threadIdx.x; i < PLAIN_N_STAGED * n; i += blockDim.x) {
-      const int r = i / n;
-      const int p = i - r * n;
-      staged[r][p] = edges[(size_t)plain_staged_row(r) * n_pairs + start + p];
-    }
-    __syncthreads();
-
+    const PlainStrip it = plain_strip_item(s_key, s_end, tile_start,
+                                           n_bins, E_CHUNK, sub, item);
+    const int bin = it.bin, s = it.strip, n = it.n, start = it.start;
     const int ty = bin / n_tiles_x;
     const int tx = bin - ty * n_tiles_x;
     const int fine_row = ty * sub + s;
     const float frow = (float)fine_row;
     const int y0 = fine_row * PLAIN_TILE_H;
-    const float x = (float)(tx * PLAIN_TILE_W + lx) + 0.5f;
-    int acc[PLAIN_TILE_H];
+    const int x0 = tx * PLAIN_TILE_W;
+
+    float acc[E_BLOCKS][8];
 #pragma unroll
-    for (int r = 0; r < PLAIN_TILE_H; ++r) acc[r] = 0;
-    for (int p = 0; p < n; ++p) {
-      if (row_skip && !(staged[12][p] <= frow && frow <= staged[13][p])) {
-        continue;
+    for (int b = 0; b < E_BLOCKS; ++b) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[b][i] = -INFINITY;
+    }
+
+    plain_strip_pairs(
+        edges, n_pairs, start, n, row_skip, frow, stash,
+        [&](const float* cf) {
+          unsigned mask = 0;
+#pragma unroll
+          for (int b = 0; b < E_BLOCKS; ++b) {
+            const int bx = x0 + 16 * b;
+            if (plain_plane_may_pass(cf[0], cf[1], cf[2], bx, y0, 16, 16) &&
+                plain_plane_may_pass(cf[3], cf[4], cf[5], bx, y0, 16, 16) &&
+                plain_plane_may_pass(cf[6], cf[7], cf[8], bx, y0, 16, 16)) {
+              mask |= 1u << b;
+            }
+          }
+          const float lim = 18446744073709551616.0f;  // 2^64
+          if (mask && fabsf(cf[9]) < lim && fabsf(cf[10]) < lim &&
+              fabsf(cf[11]) < lim) {
+            mask |= 1u << E_BLOCKS;  // safe: z is finite at every pixel
+          }
+          return mask;
+        },
+        [&](const float* c, unsigned m, int) {
+          if (m & (1u << E_BLOCKS)) {
+            depth_pair<true>(acc, c, m, x0 + cx, y0 + ry);
+          } else {
+            depth_pair<false>(acc, c, m, x0 + cx, y0 + ry);
+          }
+        });
+
+    const int strip = bin * sub + s;
+    const int order = plain_finish_order(done + strip, it.n_slices);
+    int* out = depth_bits + (size_t)(y0 + ry) * width + x0 + cx;
+    if (order == 0) {
+#pragma unroll
+      for (int b = 0; b < E_BLOCKS; ++b) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          *reinterpret_cast<int2*>(out + (size_t)r * width + 16 * b) =
+              make_int2(depth_key(acc[b][2 * r]),
+                        depth_key(acc[b][2 * r + 1]));
+        }
       }
-      const float a0 = staged[0][p], b0 = staged[1][p], k0 = staged[2][p];
-      const float a1 = staged[3][p], b1 = staged[4][p], k1 = staged[5][p];
-      const float a2 = staged[6][p], b2 = staged[7][p], k2 = staged[8][p];
-      const float az = staged[9][p], bz = staged[10][p], kz = staged[11][p];
-      const float ax0 = __fmul_rn(a0, x), ax1 = __fmul_rn(a1, x);
-      const float ax2 = __fmul_rn(a2, x), axz = __fmul_rn(az, x);
+      if (it.n_slices > 1) plain_raise_flag(ready + strip);
+    } else {
+      plain_wait_flag(ready + strip);
 #pragma unroll
-      for (int r = 0; r < PLAIN_TILE_H; ++r) {
-        const float y = (float)(y0 + r) + 0.5f;
-        const float e0 = __fadd_rn(ax0, __fadd_rn(__fmul_rn(b0, y), k0));
-        const float e1 = __fadd_rn(ax1, __fadd_rn(__fmul_rn(b1, y), k1));
-        const float e2 = __fadd_rn(ax2, __fadd_rn(__fmul_rn(b2, y), k2));
-        if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) {
-          const float z = __fadd_rn(axz, __fadd_rn(__fmul_rn(bz, y), kz));
-          acc[r] = max(acc[r], __float_as_int(clamp_depth(z)));
+      for (int b = 0; b < E_BLOCKS; ++b) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (acc[b][i] != -INFINITY) {
+            atomicMax(out + (size_t)(i >> 1) * width + 16 * b + (i & 1),
+                      depth_key(acc[b][i]));
+          }
         }
       }
     }
-#pragma unroll
-    for (int r = 0; r < PLAIN_TILE_H; ++r) {
-      if (acc[r] != 0) {
-        atomicMax(depth_bits + (size_t)(y0 + r) * width + tx * PLAIN_TILE_W +
-                      lx,
-                  acc[r]);
-      }
-    }
-    __syncthreads();  // staged fully consumed before the next item
   }
 }
 
 extern "C" int depth_launch(const void* edges, const void* tile_start,
-                            const void* tile_count, const void* chunk_end,
-                            void* counter, void* depth, int n_pairs,
-                            int n_tiles_y, int n_tiles_x, int sub,
-                            int row_skip, int grid, void* stream) {
-  depth_kernel<<<grid, PLAIN_TILE_W * sub, 0, (cudaStream_t)stream>>>(
+                            const void* tile_count, void* aux, void* depth,
+                            int n_pairs, int n_tiles_y, int n_tiles_x,
+                            int sub, int row_skip, void* stream) {
+  const int n_bins = n_tiles_y * n_tiles_x;
+  if (n_bins < 1 || n_bins > E_MAX_BINS) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)(plain_sort_size(n_bins) + n_bins) * sizeof(int);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, depth_kernel,
+                                                E_WARPS * 32, smem);
+  depth_kernel<<<sms * max(per_sm, 1), E_WARPS * 32, smem,
+                 (cudaStream_t)stream>>>(
       (const float*)edges, (const int*)tile_start, (const int*)tile_count,
-      (const int*)chunk_end, (int*)counter, (int*)depth, n_pairs, n_tiles_y,
-      n_tiles_x, sub, row_skip);
+      (int*)aux, (int*)depth, n_pairs, n_tiles_y, n_tiles_x, sub, row_skip);
   PLAIN_RETURN_LAUNCH_STATUS();
 }

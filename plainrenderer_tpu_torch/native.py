@@ -43,14 +43,14 @@ _ENTRIES = {
     # cum, cum_ex, geom, keys, owners, t_count, budget, n_tiles_x,
     # bin_rows, order_rows, order_alpha, tpv, sentinel, stream
     "expand_keys_launch": ("expand_keys", [_P] * 5 + [_I] * 8 + [_P]),
-    # edges, attrs, tile_start, tile_count, depth, vis, gbuf, n_pairs,
-    # n_tiles_y, n_tiles_x, sub, row_skip, prev, stream
-    "gbuffer_launch": ("gbuffer", [_P] * 7 + [_I] * 6 + [_P]),
+    # edges, attrs, rounded, tile_start, tile_count, aux, depth, vis, gbuf,
+    # n_pairs, n_tiles_y, n_tiles_x, sub, row_skip, prev, stream
+    "gbuffer_launch": ("gbuffer", [_P] * 9 + [_I] * 6 + [_P]),
     # table, ids, valid, out, n_pix, channels, stream
     "material_launch": ("material", [_P] * 4 + [_I] * 2 + [_P]),
-    # edges, tile_start, tile_count, chunk_end, counter, depth, n_pairs,
-    # n_tiles_y, n_tiles_x, sub, row_skip, grid, stream
-    "depth_launch": ("depth", [_P] * 6 + [_I] * 6 + [_P]),
+    # edges, tile_start, tile_count, aux, depth, n_pairs, n_tiles_y,
+    # n_tiles_x, sub, row_skip, stream
+    "depth_launch": ("depth", [_P] * 5 + [_I] * 5 + [_P]),
     # world_pos, linear_depth, noise, maps, rows, spiral, out, h, w,
     # map_size, cascade_count, taps, sample_radius, inv_taps, stream
     "shadow_launch": ("shadow", [_P] * 7 + [_I] * 5 + [_F, _F, _P]),

@@ -919,6 +919,9 @@ def resolve_attributes(pair_attrs, tile_start, vis, n_tiles_y: int,
     return gbuf
 
 
+GBUFFER_MAX_BINS = 4096  # kernel B keeps 2 ints per bin in shared memory
+
+
 def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
                       n_tiles_y: int, n_tiles_x: int, sub: int = 1,
                       row_skip: bool = False, alpha_masks=None):
@@ -951,18 +954,28 @@ def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
     if pair_attrs.shape[1] != n_pairs:
         raise ValueError(f"pair_attrs needs {n_pairs} columns, got "
                          f"{tuple(pair_attrs.shape)}")
-    if not 1 <= sub <= 4:  # kernel B's block is 128 * sub threads, <= 512
+    if not 1 <= sub <= 4:  # the bin heights kernel B was checked at
         raise ValueError(f"sub must be in [1, 4], got {sub}")
     if not _kernel_device(pair_edges):
         return gbuffer_plain(pair_edges, pair_attrs, pairs.tile_start,
                              pairs.tile_count, n_tiles_y, n_tiles_x, sub,
                              row_skip)
     h, w = n_tiles_y * sub * TILE_H, n_tiles_x * TILE_W
+    n_bins = n_tiles_y * n_tiles_x
+    if n_bins > GBUFFER_MAX_BINS:
+        raise ValueError(f"kernel B takes at most {GBUFFER_MAX_BINS} bins, "
+                         f"got {n_bins}")
+    # warps take (16-row strip, pair slice) items from aux[0], then
+    # resolve items from aux[1]; aux[2:] holds each strip's merge counters
+    # and flags. rounded: the live pairs' split-rounded attribute rows
+    aux = torch.zeros((2 + 4 * n_bins * sub,), dtype=torch.int32,
+                      device=dev)
+    rounded = torch.empty_like(pair_attrs)
     depth = torch.empty((h, w), dtype=torch.float32, device=dev)
     vis = torch.empty((h, w), dtype=torch.int32, device=dev)
     gbuf = torch.empty((n_chan, h, w), dtype=torch.float32, device=dev)
-    native.launch("gbuffer_launch", pair_edges, pair_attrs,
-                  pairs.tile_start, pairs.tile_count, depth, vis, gbuf,
+    native.launch("gbuffer_launch", pair_edges, pair_attrs, rounded,
+                  pairs.tile_start, pairs.tile_count, aux, depth, vis, gbuf,
                   n_pairs, n_tiles_y, n_tiles_x, sub, int(row_skip),
                   int(n_chan > GBUF_CHANNELS))
     return depth, vis, gbuf
@@ -972,7 +985,8 @@ def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
 # depth-only raster (kernels E and J) and its plain version
 # --------------------------------------------------------------------------
 
-DEPTH_CHUNK = 256  # pairs per work item of kernels E and J (csrc/depth*.cu)
+DEPTH_CHUNK = 256  # pairs per work item of kernel J (csrc/depth_alpha.cu)
+DEPTH_MAX_BINS = 4096  # kernel E keeps 2 ints per bin in shared memory
 
 
 def depth_plain(pair_edges, tile_start, tile_count, n_tiles_y: int,
@@ -986,24 +1000,32 @@ def depth_plain(pair_edges, tile_start, tile_count, n_tiles_y: int,
                              masks=masks, init=init).view(torch.float32)
 
 
-def block_may_cover(edges, x0, y0, bw: int, bh: int) -> torch.Tensor:
-    """Kernel E's block test, exact: False only where no pixel centre of
-    the bw x bh block whose first column / row is x0 / y0 can have all
-    three edge planes >= 0 under the rounded a*x + (b*y + c) of
-    depth_plain. edges (3, 3, ...) f32 holds (a, b, c) of planes e0-e2,
+def block_may_cover(edges, x0, y0, bw: int, bh: int,
+                    z=None) -> torch.Tensor:
+    """The block test of kernels E and B, exact: False only where no pixel
+    centre of the bw x bh block whose first column / row is x0 / y0 can
+    have all three edge planes >= 0 under the rounded a*x + (b*y + c) of
+    the plain versions (and, given the z plane's (a, b, c) as z, 0 < z <=
+    1). edges (3, 3, ...) f32 holds (a, b, c) of planes e0-e2,
     broadcastable with the integer tensors x0, y0. Round-to-nearest is
     monotone, so fl(a*x) is monotone in x, fl(fl(b*y) + c) in y and the
-    sum in both; each plane is largest at the corner the signs of a and b
-    pick, and the block is rejected when that corner's value is < 0 or
-    NaN (a NaN corner leaves every pixel < 0 or NaN: see
-    tests/test_torch_block_reject.py)."""
-    may = None
-    for p in range(3):
-        a, b, c = edges[p, 0], edges[p, 1], edges[p, 2]
-        x = torch.where(a > 0, x0 + (bw - 1), x0).to(torch.float32) + 0.5
-        y = torch.where(b > 0, y0 + (bh - 1), y0).to(torch.float32) + 0.5
-        ok = a * x + (b * y + c) >= 0.0
-        may = ok if may is None else may & ok
+    sum in both: each plane is largest at the corner the signs of a and b
+    pick and smallest at the opposite one. An edge rejects the block when
+    its largest value is < 0 or NaN (a NaN corner leaves every pixel < 0
+    or NaN: see tests/test_torch_block_reject.py); z when its largest is
+    not > 0 or its smallest not <= 1 (csrc/common.cuh,
+    plain_plane_may_pass and plain_depth_may_pass)."""
+    def corner(p, high):
+        a, b, c = p[0], p[1], p[2]
+        x = torch.where((a > 0) == high, x0 + (bw - 1), x0)
+        y = torch.where((b > 0) == high, y0 + (bh - 1), y0)
+        return a * (x.to(torch.float32) + 0.5) + (
+            b * (y.to(torch.float32) + 0.5) + c)
+
+    may = (corner(edges[0], True) >= 0.0) & (corner(edges[1], True) >= 0.0) \
+        & (corner(edges[2], True) >= 0.0)
+    if z is not None:
+        may = may & (corner(z, True) > 0.0) & (corner(z, False) <= 1.0)
     return may
 
 
@@ -1049,14 +1071,29 @@ def rasterize_depth(pair_edges, pairs: PairLists, n_tiles_y: int,
         _require(init_depth, "init_depth", torch.float32, 2, dev)
         if tuple(init_depth.shape) != (h, w):
             raise ValueError(f"init_depth needs ({h}, {w})")
-    if not 1 <= sub <= 8:  # kernels E and J: blocks of 128 * sub threads
+    if not 1 <= sub <= 8:  # kernel J: blocks of 128 * sub threads
         raise ValueError(f"sub must be in [1, 8], got {sub}")
     if not _kernel_device(pair_edges):
         depth = depth_plain(pair_edges, pairs.tile_start, pairs.tile_count,
                             n_tiles_y, n_tiles_x, sub, row_skip,
                             masks=alpha_masks, init=init_depth)
         return depth if init_depth is None else init_depth.copy_(depth)
-    # work items: DEPTH_CHUNK-pair slices of each bin's segment, handed out
+    if not alpha:
+        # kernel E: warps take (16-row strip, pair slice) items
+        # from aux[0]; aux[1:] holds each strip's merge counter and flag.
+        # It writes every texel, so the atlas needs no zero fill.
+        n_bins = n_tiles_y * n_tiles_x
+        if n_bins > DEPTH_MAX_BINS:
+            raise ValueError(f"kernel E takes at most {DEPTH_MAX_BINS} bins, "
+                             f"got {n_bins}")
+        aux = torch.zeros((1 + 2 * n_bins * sub,), dtype=torch.int32,
+                          device=dev)
+        depth = torch.empty((h, w), dtype=torch.float32, device=dev)
+        native.launch("depth_launch", pair_edges, pairs.tile_start,
+                      pairs.tile_count, aux, depth, pair_edges.shape[1],
+                      n_tiles_y, n_tiles_x, sub, int(row_skip))
+        return depth
+    # kernel J: DEPTH_CHUNK-pair slices of each bin's segment, handed out
     # by an atomic counter to persistent blocks (heavy bins spread over
     # many blocks; their results merge by an integer atomicMax)
     n_chunks = torch.div(pairs.tile_count + (DEPTH_CHUNK - 1), DEPTH_CHUNK,
@@ -1066,17 +1103,11 @@ def rasterize_depth(pair_edges, pairs: PairLists, n_tiles_y: int,
     depth = init_depth
     if depth is None:
         depth = torch.zeros((h, w), dtype=torch.float32, device=dev)
-    if not alpha:
-        native.launch("depth_launch", pair_edges, pairs.tile_start,
-                      pairs.tile_count, chunk_end, counter, depth,
-                      pair_edges.shape[1], n_tiles_y, n_tiles_x, sub,
-                      int(row_skip), 2 * _sm_count(dev))
-    else:
-        native.launch("depth_alpha_launch", pair_edges, alpha_masks,
-                      pairs.tile_start, pairs.tile_count, chunk_end, counter,
-                      depth, pair_edges.shape[1], alpha_masks.shape[0],
-                      n_tiles_y, n_tiles_x, sub, int(row_skip),
-                      2 * _sm_count(dev))
+    native.launch("depth_alpha_launch", pair_edges, alpha_masks,
+                  pairs.tile_start, pairs.tile_count, chunk_end, counter,
+                  depth, pair_edges.shape[1], alpha_masks.shape[0],
+                  n_tiles_y, n_tiles_x, sub, int(row_skip),
+                  2 * _sm_count(dev))
     return depth
 
 

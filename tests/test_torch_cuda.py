@@ -94,19 +94,42 @@ def test_expand_keys_kernel_equals_plain(cuda, order_rows, bin_rows, budget):
     torch.testing.assert_close(owners, owners_p, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("sub,row_skip,prev",
-                         [(1, False, False), (2, True, False),
-                          (4, True, False), (2, True, True)])
-def test_gbuffer_kernel_equals_plain(cuda, sub, row_skip, prev):
+def _edge_case_attrs(rng, n_pairs, prev, device):
+    """Attribute rows for hand-made pairs: random planes with 1/w and the
+    previous clip w near 1, so every channel is finite."""
+    attrs = rng.uniform(-1, 1, (40 if prev else 32, n_pairs)) * 1e-2
+    attrs[2] = 1.0  # the 1/w plane's constant
+    if prev:
+        attrs[38] = 1.0  # the previous clip w plane's constant
+    return torch.as_tensor(attrs.astype(np.float32), device=device)
+
+
+@pytest.mark.parametrize("sub,row_skip,prev,case",
+                         [(1, False, False, "random"),
+                          (2, True, False, "random"),
+                          (4, True, False, "random"),
+                          (2, True, True, "random"),
+                          (2, True, False, "edges"),
+                          (1, False, True, "edges")])
+def test_gbuffer_kernel_equals_plain(cuda, sub, row_skip, prev, case):
     """Kernel B; with prev, a dynamic scene's 40-row pair table and its 15
-    channels."""
+    channels. The edges case: kernel E's hand-made pair lists (bins of
+    more than its CHUNK pairs, whose slices merge before the resolve;
+    one-pixel triangles; a pair spanning a bin; edges exactly 0 at pixel
+    centres; NaN and inf coefficients in the edges and in z)."""
     rng = np.random.default_rng(12)
-    width, height = 384, 256
-    setup = _random_setup(rng, 400, width, height, sub, cuda, prev=prev)
+    width, height = 384 if case == "random" else 512, 256
     nty, ntx = height // (16 * sub), width // 128
-    pairs = raster.build_pairs(setup, nty, ntx, bin_rows=sub,
-                               order_rows=row_skip)
-    pe, pa = raster.gather_pair_setups(setup, pairs, row_extents=row_skip)
+    if case == "random":
+        setup = _random_setup(rng, 400, width, height, sub, cuda, prev=prev)
+        pairs = raster.build_pairs(setup, nty, ntx, bin_rows=sub,
+                                   order_rows=row_skip)
+        pe, pa = raster.gather_pair_setups(setup, pairs,
+                                           row_extents=row_skip)
+    else:
+        pe, pairs = _depth_edge_cases(cuda, rng, nty, ntx, sub)
+        pa = _edge_case_attrs(rng, pe.shape[1], prev, cuda)
+        assert int(pairs.tile_count.max()) > 2 * 256
     depth, vis, gbuf = raster.rasterize_gbuffer(pe, pa, pairs, nty, ntx,
                                                 sub=sub, row_skip=row_skip)
     depth_p, vis_p, gbuf_p = raster.gbuffer_plain(
@@ -183,23 +206,136 @@ def test_expand_keys_kernel_multiview_equals_plain(cuda):
     torch.testing.assert_close(owners, owners_p, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("sub,row_skip", [(8, True), (2, False)])
-def test_depth_kernel_equals_plain(cuda, sub, row_skip):
+def _tri_planes(v):
+    """Edge planes (a, b, c) of the pixel-space triangle v (3, 2), each >= 0
+    inside, as float64 (3, 3)."""
+    out = []
+    for i in range(3):
+        (x0, y0), (x1, y1) = v[i], v[(i + 1) % 3]
+        pl = np.array([y0 - y1, x1 - x0, x0 * y1 - x1 * y0])
+        if pl @ np.array([*v[(i + 2) % 3], 1.0]) < 0:
+            pl = -pl
+        out.append(pl)
+    return np.stack(out)
+
+
+def _depth_edge_cases(device, rng, nb, ntx, sub):
+    """Hand-made depth-raster pair lists on an (nb * sub * 16) x (ntx * 128)
+    atlas: random triangles in every bin; 600 tiny ones in bin 0 and 257
+    in bin 1 (more than DEPTH_CHUNK: slices that merge); one-pixel
+    triangles; a triangle spanning a whole bin; edges exactly 0 on columns,
+    rows and diagonals of pixel centres; NaN, +-inf, +-0, huge and tiny
+    coefficients in the edge and z planes. Returns (pair_edges (16, P),
+    PairLists)."""
+    rows = sub * 16
+    bins = [[] for _ in range(nb * ntx)]
+
+    def add(b, v=None, planes=None, z=None, fy=None):
+        ty, tx = divmod(b, ntx)
+        if planes is None:
+            planes = _tri_planes(np.asarray(v, np.float64))
+        if z is None:
+            z = np.array([rng.uniform(-2e-3, 2e-3), rng.uniform(-2e-3, 2e-3),
+                          rng.uniform(-0.3, 1.3)])
+        if fy is None and v is not None:
+            ys = np.asarray(v)[:, 1]
+            fy = (np.floor(ys.min() / 16), np.floor(ys.max() / 16))
+        if fy is None:
+            fy = (ty * sub, ty * sub + sub - 1)
+        col = np.zeros(16)
+        for p in range(3):
+            col[4 * p:4 * p + 3] = planes[p]
+        col[12:15] = z
+        col[3], col[7] = fy
+        bins[b].append(col)
+
+    def rand_tri(b, lo, hi):
+        ty, tx = divmod(b, ntx)
+        c = np.array([tx * 128 + rng.uniform(0, 128),
+                      ty * rows + rng.uniform(0, rows)])
+        return c + rng.uniform(lo, hi) * rng.normal(size=(3, 2))
+
+    for b in range(nb * ntx):
+        for _ in range(rng.integers(3, 20)):
+            add(b, rand_tri(b, 1, 40))
+    for _ in range(600):
+        add(0, rand_tri(0, 0.3, 4))
+    for _ in range(257):
+        add(1, rand_tri(1, 0.5, 10))
+    for b in range(nb * ntx):
+        ty, tx = divmod(b, ntx)
+        x0, y0 = tx * 128, ty * rows
+        for _ in range(4):  # one pixel centre each
+            cx = x0 + rng.integers(0, 128) + 0.5
+            cy = y0 + rng.integers(0, rows) + 0.5
+            add(b, [[cx - 0.4, cy - 0.3], [cx + 0.4, cy - 0.3],
+                    [cx, cy + 0.4]])
+        if b % 3 == 0:  # the whole bin
+            add(b, [[x0 - 900.0, y0 - 900.0], [x0 + 5000.0, y0 - 900.0],
+                    [x0 - 900.0, y0 + 5000.0]],
+                z=np.array([0.0, 0.0, 0.25 + 0.01 * b]))
+        cx = x0 + rng.integers(8, 100) + 0.5
+        cy = y0 + rng.integers(2, rows - 8) + 0.5
+        add(b, [[cx, cy], [cx, cy + 40.0], [cx + 20.0, cy]])  # e = 0 on x
+        add(b, [[cx - 9.0, cy + 3.0], [cx + 9.0, cy + 3.0],
+                [cx, cy - 6.0]])  # e = 0 on a row of centres
+        add(b, [[cx - 7.0, cy - 7.0], [cx + 7.0, cy + 7.0],
+                [cx + 7.0, cy - 7.0]])  # e = 0 on a diagonal
+        base = _tri_planes(np.asarray(rand_tri(b, 8, 30), np.float64))
+        odd = [(0, 0, np.nan), (1, 2, np.inf), (2, 2, -np.inf),
+               (0, 1, np.inf), (1, 0, -0.0), (2, 1, 1e30), (0, 2, 1e-38)]
+        for p, k, val in odd:  # an edge coefficient replaced
+            planes = base.copy()
+            planes[p, k] = val
+            add(b, planes=planes)
+        for k, val in ((0, np.nan), (2, np.inf), (2, -np.inf), (1, 1e30),
+                       (0, -0.0), (2, -0.0), (1, 1e-38)):
+            z = np.array([1e-3, -1e-3, 0.5])
+            z[k] = val
+            add(b, planes=base, z=z)
+    counts = np.array([len(c) for c in bins], np.int32)
+    cols = np.concatenate([np.stack(c, 1) for c in bins], 1)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a, dt),
+                                      device=device)
+    with np.errstate(all="ignore"):
+        edges = t(cols, np.float32)
+    pairs = raster.PairLists(
+        pair_tri=t(np.zeros(cols.shape[1]), np.int32),
+        tile_start=t(starts, np.int32), tile_count=t(counts, np.int32),
+        overflow=t(0, np.int32))
+    return edges, pairs
+
+
+@pytest.mark.parametrize("sub,row_skip,case",
+                         [(8, True, "atlas"), (2, False, "random"),
+                          (8, True, "edges"), (8, False, "edges"),
+                          (2, True, "edges")])
+def test_depth_kernel_equals_plain(cuda, sub, row_skip, case):
     """Kernel E: the atlas depth bit for bit (work items merged by
-    atomicMax), and a random screen at another bin height."""
-    if sub == 8:
+    atomicMax), a random screen at another bin height, and hand-made pair
+    lists: bins of more than DEPTH_CHUNK pairs, one-pixel triangles, a
+    pair spanning a bin, edges exactly 0 at pixel centres, NaN and inf
+    coefficients (a NaN z writes the card's canonical NaN bits)."""
+    if case == "atlas":
         setup, sub, nb, ntx, _ = _atlas_setup(cuda)
         pairs = raster.build_pairs(setup, nb, ntx, bin_rows=sub,
                                    order_rows=True, n_views=3,
                                    tile_cap=1 << 15)
-    else:
+    elif case == "random":
         setup = _random_setup(np.random.default_rng(14), 3000, 512, 256,
                               sub, cuda)
         nb, ntx = 256 // (16 * sub), 4
         pairs = raster.build_pairs(setup, nb, ntx, bin_rows=sub,
                                    tile_cap=1 << 15)
-    pe, _ = raster.gather_pair_setups(setup, pairs, row_extents=row_skip,
-                                      with_attrs=False)
+    if case == "edges":
+        nb, ntx = 256 // (16 * sub), 4
+        pe, pairs = _depth_edge_cases(cuda, np.random.default_rng(31), nb,
+                                      ntx, sub)
+        assert int(pairs.tile_count.max()) > 2 * raster.DEPTH_CHUNK
+    else:
+        pe, _ = raster.gather_pair_setups(setup, pairs, row_extents=row_skip,
+                                          with_attrs=False)
     before = native.launch_counts()["depth"]
     depth = raster.rasterize_depth(pe, pairs, nb, ntx, sub=sub,
                                    row_skip=row_skip)
@@ -209,6 +345,10 @@ def test_depth_kernel_equals_plain(cuda, sub, row_skip):
     assert (depth > 0).float().mean() > 0.3
     torch.testing.assert_close(depth.view(torch.int32),
                                depth_p.view(torch.int32), rtol=0, atol=0)
+    if case == "edges":
+        bits = depth.view(torch.int32)
+        assert bool((bits == 0x7FFFFFFF).any())  # a NaN z covered
+        assert bool((bits == 0).any())
 
 
 @pytest.mark.parametrize("filters", [
