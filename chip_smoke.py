@@ -200,33 +200,10 @@ def slice_settings(n: int, width: int, height: int, **shadows):
                                  **drop)
 
 
-def evaluated_pair_pixels(pair_edges, pairs, n_tiles_x: int, sub: int):
-    """(pair, pixel) plane evaluations a row-skipping raster kernel does on
-    these pair lists: each pair meets the 16-px sub-rows of its bin inside
-    its [fy0, fy1] (pair_edges rows 3 and 7), 2048 pixels each."""
-    dev = pair_edges.device
-    counts = pairs.tile_count.long()
-    seg = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
-                                  counts)
-    first = torch.repeat_interleave(pairs.tile_start.long(), counts)
-    rank = torch.arange(seg.numel(), device=dev) - torch.repeat_interleave(
-        torch.cumsum(counts, 0) - counts, counts)
-    stream = first + rank
-    fy0, fy1 = pair_edges[3, stream], pair_edges[7, stream]
-    row0 = (seg // n_tiles_x * sub).float()
-    sub_rows = (torch.minimum(fy1, row0 + sub - 1)
-                - torch.maximum(fy0, row0) + 1).clamp(min=0)
-    return float(sub_rows.sum()) * 2048
-
-
-def block_tests(pair_edges, pairs, n_tiles_x: int, sub: int, bw: int = 16,
-                bh: int = 16, z: bool = False):
-    """(tests, pixels) of a row-skipping raster that tests each pair
-    against the bw x bh blocks of its bin's 16-px rows inside [fy0, fy1]
-    with the exact corner test (raster.block_may_cover; with z, kernel B's
-    z range test too) and evaluates the pixels of the blocks that pass:
-    the corner tests made and the pixels of the passing blocks, on these
-    pair lists (the work kernels E and B do at 16 x 16)."""
+def pair_rows(pair_edges, pairs, n_tiles_x: int, sub: int):
+    """The live pairs of these pair lists: their bin, their column in the
+    stream, and the first and count of their bin's 16-px fine rows inside
+    the pair's [fy0, fy1] (pair_edges rows 3 and 7)."""
     dev = pair_edges.device
     counts = pairs.tile_count.long()
     seg = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
@@ -238,27 +215,47 @@ def block_tests(pair_edges, pairs, n_tiles_x: int, sub: int, bw: int = 16,
     lo = torch.maximum(pair_edges[3, stream], row0)
     n_rows = (torch.minimum(pair_edges[7, stream], row0 + sub - 1) - lo
               + 1).clamp(min=0).long()
+    return seg, stream, lo.long(), n_rows
+
+
+def evaluated_pair_pixels(pair_edges, pairs, n_tiles_x: int, sub: int):
+    """(pair, pixel) plane evaluations a row-skipping raster kernel does
+    when it evaluates each pair on every pixel of its rows (pair_rows),
+    2048 pixels each."""
+    return float(pair_rows(pair_edges, pairs, n_tiles_x, sub)[3].sum()) \
+        * 2048
+
+
+def block_tests(pair_edges, pairs, n_tiles_x: int, sub: int,
+                z: bool = False):
+    """(tests, pixels) of a row-skipping raster that tests each pair
+    against the 16 x 16 blocks of its rows (pair_rows) with the exact
+    corner test (raster.block_may_cover; with z, kernel B's z range test
+    too) and evaluates the pixels of the blocks that pass, as kernels E
+    and B do: the corner tests made and the pixels of the passing blocks,
+    on these pair lists."""
+    dev = pair_edges.device
+    seg, stream, lo, n_rows = pair_rows(pair_edges, pairs, n_tiles_x, sub)
     edges = pair_edges[[0, 1, 2, 4, 5, 6, 8, 9, 10]]
-    bx = torch.arange(raster.TILE_W // bw, device=dev) * bw
-    by = torch.arange(raster.TILE_H // bh, device=dev) * bh
+    bx = torch.arange(0, raster.TILE_W, 16, device=dev)
     tests = passing = 0
     step = 1 << 16
     for c0 in range(0, stream.numel(), step):
         nr = n_rows[c0:c0 + step]
         pr = torch.repeat_interleave(torch.arange(nr.numel(), device=dev),
                                      nr)
-        fine = lo[c0:c0 + step].long()[pr] + torch.arange(
+        fine = lo[c0:c0 + step][pr] + torch.arange(
             pr.numel(), device=dev) - torch.repeat_interleave(
                 torch.cumsum(nr, 0) - nr, nr)
-        x0 = (seg[c0:c0 + step][pr] % n_tiles_x * raster.TILE_W)[
-            :, None, None] + bx[None, None, :]
-        y0 = (fine * raster.TILE_H)[:, None, None] + by[None, :, None]
+        x0 = (seg[c0:c0 + step][pr] % n_tiles_x * raster.TILE_W)[:, None] \
+            + bx[None]
+        y0 = (fine * raster.TILE_H)[:, None]
         cols = stream[c0:c0 + step][pr]
-        e = edges[:, cols].reshape(3, 3, -1)
-        zp = pair_edges[12:15, cols][..., None, None] if z else None
-        may = raster.block_may_cover(e[..., None, None], x0, y0, bw, bh, zp)
+        zp = pair_edges[12:15, cols][..., None] if z else None
+        may = raster.block_may_cover(edges[:, cols].reshape(3, 3, -1, 1),
+                                     x0, y0, 16, 16, zp)
         tests += may.numel()
-        passing += int(may.sum()) * bw * bh
+        passing += int(may.sum()) * 256
     return tests, passing
 
 

@@ -275,78 +275,108 @@ __device__ __forceinline__ void plain_depth_item(
 
 // The strip kernels' work items (depth.cu, gbuffer.cu): a slice is a
 // chunk-pair piece of one bin's segment (an empty bin has one empty
-// slice, so every strip is written), and item i is the 16-row strip
-// i % sub of slice i / sub. The bins are taken heaviest first (a sort of
-// (count << 13 | bin) keys, descending), so the last items handed out are
-// short ones and no heavy strip starts at the end. Every thread of the
-// block calls plain_slice_prefix once: s_key (n_sort = the power of two
-// >= n_bins ints) gets the sorted keys, s_end[j] the inclusive prefix of
-// max(1, ceil(count / chunk)) over the sorted bins; s_wsum holds one int
-// per warp.
+// slice, so every strip is written), and item i is part i % parts of
+// slice i / parts (kernel B: parts = sub 16-row strips; kernel E: 2 * sub
+// half strips). The bins go heaviest first, so the heavy
+// bins' many items are handed out before the light bins' short ones,
+// which fill the end: bucket k holds the bins of 2^(7-k-1) < slices <=
+// 2^(7-k) (bucket 0: more than 64, bucket 7: one), each bucket in bin
+// order. Every block computes the same order, by block scans (a full
+// sort of the bins cost more than it saved). Every thread of the block
+// calls plain_slice_prefix once: s_key[j] = (count << 13) | bin of the
+// j-th bin in that order, s_end[j] the inclusive prefix of the slice
+// counts up to it; s_wsum holds one int per warp.
 #define PLAIN_BIN_BITS 13  // bins < 2^13 and pairs per bin < 2^18
-__device__ __forceinline__ void plain_slice_prefix(
-    const int* __restrict__ tile_count, int n_bins, int n_sort, int chunk,
-    int* s_key, int* s_end, int* s_wsum) {
+#define PLAIN_BUCKETS 8
+
+// exclusive block-wide prefix of v (every thread calls it); the total in
+// *total
+__device__ __forceinline__ int plain_block_scan(int v, int* s_wsum,
+                                                int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < n_sort; i += blockDim.x) {
-    s_key[i] = i < n_bins ? (tile_count[i] << PLAIN_BIN_BITS) | i : -1;
-  }
-  __syncthreads();
-  for (int k = 2; k <= n_sort; k <<= 1) {  // bitonic sort, descending
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n_sort; i += blockDim.x) {
-        const int o = i ^ j;
-        if (o > i) {
-          const int a = s_key[i], b = s_key[o];
-          if ((i & k) == 0 ? a < b : a > b) {
-            s_key[i] = b;
-            s_key[o] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  const int per = (n_bins + blockDim.x - 1) / blockDim.x;
-  const int b0 = min((int)threadIdx.x * per, n_bins);
-  const int b1 = min(b0 + per, n_bins);
-  int local = 0;
-  for (int b = b0; b < b1; ++b) {
-    local += max(1, ((s_key[b] >> PLAIN_BIN_BITS) + chunk - 1) / chunk);
-    s_end[b] = local;
-  }
-  int incl = local;
+  int incl = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(PLAIN_FULL_MASK, incl, o);
-    if (lane >= o) incl += v;
+    const int u = __shfl_up_sync(PLAIN_FULL_MASK, incl, o);
+    if (lane >= o) incl += u;
   }
   if (lane == 31) s_wsum[warp] = incl;
   __syncthreads();
-  int before = incl - local;
-  for (int w = 0; w < warp; ++w) before += s_wsum[w];
-  for (int b = b0; b < b1; ++b) s_end[b] += before;
+  int before = incl - v, all = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    if (w < warp) before += s_wsum[w];
+    all += s_wsum[w];
+  }
+  __syncthreads();  // s_wsum is read before the next scan writes it
+  *total = all;
+  return before;
+}
+
+__device__ __forceinline__ int plain_slices(int count, int chunk) {
+  return max(1, (count + chunk - 1) / chunk);
+}
+
+__device__ __forceinline__ int plain_bucket(int slices) {
+  return PLAIN_BUCKETS - 1 - min(32 - __clz(slices - 1), PLAIN_BUCKETS - 1);
+}
+
+__device__ __forceinline__ void plain_slice_prefix(
+    const int* __restrict__ tile_count, int n_bins, int chunk, int* s_key,
+    int* s_end, int* s_wsum) {
+  const int per = (n_bins + blockDim.x - 1) / blockDim.x;
+  const int b0 = min((int)threadIdx.x * per, n_bins);
+  const int b1 = min(b0 + per, n_bins);
+  // this thread's bins per bucket, two buckets per int (counts < 2^16)
+  int packed[PLAIN_BUCKETS / 2] = {};
+  for (int b = b0; b < b1; ++b) {
+    const int k = plain_bucket(plain_slices(tile_count[b], chunk));
+#pragma unroll
+    for (int q = 0; q < PLAIN_BUCKETS / 2; ++q) {
+      if (k >> 1 == q) packed[q] += (k & 1) ? 1 : 1 << 16;
+    }
+  }
+  int pos[PLAIN_BUCKETS];  // where this thread's next bin of each goes
+  int base = 0;
+#pragma unroll
+  for (int q = 0; q < PLAIN_BUCKETS / 2; ++q) {
+    int total;
+    const int before = plain_block_scan(packed[q], s_wsum, &total);
+    pos[2 * q] = base + (before >> 16);
+    base += total >> 16;
+    pos[2 * q + 1] = base + (before & 0xffff);
+    base += total & 0xffff;
+  }
+  for (int b = b0; b < b1; ++b) {
+    const int c = tile_count[b];
+    const int k = plain_bucket(plain_slices(c, chunk));
+#pragma unroll
+    for (int q = 0; q < PLAIN_BUCKETS; ++q) {
+      if (k == q) s_key[pos[q]++] = (c << PLAIN_BIN_BITS) | b;
+    }
+  }
+  __syncthreads();
+  int local = 0;
+  for (int j = b0; j < b1; ++j) {
+    local += plain_slices(s_key[j] >> PLAIN_BIN_BITS, chunk);
+    s_end[j] = local;
+  }
+  int total;
+  const int offset = plain_block_scan(local, s_wsum, &total);
+  for (int j = b0; j < b1; ++j) s_end[j] += offset;
   __syncthreads();
 }
 
-// the power of two >= n_bins that plain_slice_prefix sorts
-__host__ __device__ __forceinline__ int plain_sort_size(int n_bins) {
-  int n = 1;
-  while (n < n_bins) n <<= 1;
-  return n;
-}
-
 struct PlainStrip {
-  int bin, strip, n_slices, p0, n, start;
+  int bin, part, n_slices, p0, n, start;
 };
 
-// item -> its bin, strip (0 .. sub - 1), the bin's slice count, the
+// item -> its bin, part (0 .. parts - 1), the bin's slice count, the
 // slice's first pair in the bin (p0), its pair count and stream offset
 __device__ __forceinline__ PlainStrip plain_strip_item(
     const int* s_key, const int* s_end, const int* __restrict__ tile_start,
-    int n_bins, int chunk, int sub, int item) {
-  const int slice = item / sub;
-  int lo = 0, hi = n_bins - 1;  // the first sorted bin whose prefix exceeds
+    int n_bins, int chunk, int parts, int item) {
+  const int slice = item / parts;
+  int lo = 0, hi = n_bins - 1;  // the first bin in order whose prefix exceeds
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (s_end[mid] <= slice) {
@@ -357,7 +387,7 @@ __device__ __forceinline__ PlainStrip plain_strip_item(
   }
   PlainStrip it;
   it.bin = s_key[lo] & ((1 << PLAIN_BIN_BITS) - 1);
-  it.strip = item - slice * sub;
+  it.part = item - slice * parts;
   const int first = lo > 0 ? s_end[lo - 1] : 0;
   it.n_slices = s_end[lo] - first;
   it.p0 = (slice - first) * chunk;

@@ -19,31 +19,32 @@
 // 12 per (pair, block) test. These ops do not fuse into FMAs, so they
 // issue at half the 67 TFLOP/s that counts an FMA as 2 flops.
 //
-// Design. A work item is one 16 x 128 strip of a bin (one fine row) and
-// one E_CHUNK-pair slice of the bin's pairs; one warp does an item,
+// Design. A work item is one half strip of a bin (16 rows x 64 columns,
+// in one fine row) and one E_CHUNK-pair slice of the bin's pairs (a half
+// strip needs 79 registers, so 3 blocks fit per SM); one warp does an item,
 // with no block barrier, and takes the next from an atomic counter. Every
-// thread block sorts the bins heaviest first and sums their slice counts
-// into shared memory once, at its start (common.cuh, plain_slice_prefix),
-// so short items come last; slices of 128 pairs keep a heavy strip from
-// holding one warp for long.
+// thread block orders the bins, those of several slices first, and sums
+// their slice counts into shared memory once, at its start (common.cuh,
+// plain_slice_prefix), so short items come last; slices of E_CHUNK pairs
+// keep a heavy strip from holding one warp for long.
 //   1. 32 pairs at a time, one per lane (coalesced loads of the 14 rows),
 //      each lane tests its pair's row skip and, per 16 x 16 block of the
-//      strip, the exact corner test (common.cuh, plain_plane_may_pass):
-//      an 8-bit mask of the blocks the pair may cover. Its coefficients go
+//      item, the exact corner test (common.cuh, plain_plane_may_pass):
+//      a 4-bit mask of the blocks the pair may cover. Its coefficients go
 //      to the warp's shared stash (common.cuh, plain_strip_pairs).
 //   2. For each pair with a nonzero mask (a ballot), every lane reads the
 //      coefficients as broadcasts, computes the row terms fl(fl(b*y) + c)
 //      of its 4 rows once, and for each block in the mask the column
 //      terms fl(a*x) of its 2 columns, then 8 pixels: 4 adds, 3 compares
-//      and a max. The warp keeps the strip's 2048 maxima in registers
-//      (64 per lane: per block, 4 rows x 2 columns).
+//      and a max. The warp keeps the item's 1024 maxima in registers
+//      (32 per lane: per block, 4 rows x 2 columns).
 //   3. Maxima are of z itself (clamping is monotone, so the clamp moves to
 //      the end), when the pair's z coefficients are below 2^64 and z is
 //      therefore finite; other pairs take a path that clamps each z and
 //      maps a NaN (the card's canonical 0x7fffffff, the largest bits) to
 //      +inf, which the end maps back.
-//   4. A strip whose bin has one slice stores its 2048 depths (0 where
-//      nothing covers) with plain stores. A heavier bin's slices merge:
+//   4. A half strip whose bin has one slice stores its 1024 depths (0
+//      where nothing covers) with plain stores. A heavier bin's slices merge:
 //      the first to finish stores and raises a ready flag; the others
 //      wait for it, then atomicMax their covered pixels (an integer max,
 //      so the order does not matter). So the atlas needs no zero fill.
@@ -51,7 +52,7 @@
 
 #define E_CHUNK 128  // pairs per work item (short items: heavy strips spread)
 #define E_WARPS 8
-#define E_BLOCKS 8       // 16 x 16 blocks per 128-px strip
+#define E_BLOCKS 4       // 16 x 16 blocks per item: half a 128-px strip
 #define E_MAX_BINS 4096  // dynamic shared memory: 2 ints per bin
 
 __device__ __forceinline__ float depth_clamp(float z) {
@@ -104,28 +105,26 @@ __device__ __forceinline__ void depth_pair(float (&acc)[E_BLOCKS][8],
   }
 }
 
-__global__ void __launch_bounds__(E_WARPS * 32, 2)
+__global__ void __launch_bounds__(E_WARPS * 32, 3)
 depth_kernel(const float* __restrict__ edges,
              const int* __restrict__ tile_start,
              const int* __restrict__ tile_count, int* __restrict__ aux,
              int* __restrict__ depth_bits, int n_pairs, int n_tiles_y,
              int n_tiles_x, int sub, int row_skip) {
-  extern __shared__ int s_dyn[];  // sorted bin keys, then slice prefix
+  extern __shared__ int s_dyn[];  // ordered bin keys, then slice prefix
   __shared__ float s_coef[E_WARPS][32][13];  // 13: no bank conflicts
   __shared__ int s_wsum[E_WARPS];
   const int n_bins = n_tiles_y * n_tiles_x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  const int n_sort = plain_sort_size(n_bins);
   int* s_key = s_dyn;
-  int* s_end = s_dyn + n_sort;
-  plain_slice_prefix(tile_count, n_bins, n_sort, E_CHUNK, s_key, s_end,
-                     s_wsum);
+  int* s_end = s_dyn + n_bins;
+  plain_slice_prefix(tile_count, n_bins, E_CHUNK, s_key, s_end, s_wsum);
 
   int* counter = aux;
-  int* done = aux + 1;                 // per strip: slices finished
-  int* ready = done + n_bins * sub;    // per strip: first slice stored
-  const int n_items = s_end[n_bins - 1] * sub;
+  int* done = aux + 1;                   // per half strip: slices done
+  int* ready = done + n_bins * sub * 2;  // per half strip: first slice in
+  const int n_items = s_end[n_bins - 1] * sub * 2;
   const int width = n_tiles_x * PLAIN_TILE_W;
   const int cx = 2 * (lane & 7);   // the lane's 2 columns in a block
   const int ry = 4 * (lane >> 3);  // its 4 rows in the strip
@@ -137,14 +136,15 @@ depth_kernel(const float* __restrict__ edges,
     item = __shfl_sync(PLAIN_FULL_MASK, item, 0);
     if (item >= n_items) break;
     const PlainStrip it = plain_strip_item(s_key, s_end, tile_start,
-                                           n_bins, E_CHUNK, sub, item);
-    const int bin = it.bin, s = it.strip, n = it.n, start = it.start;
+                                           n_bins, E_CHUNK, 2 * sub, item);
+    const int bin = it.bin, s = it.part >> 1, n = it.n, start = it.start;
+    const int half = it.part & 1;
     const int ty = bin / n_tiles_x;
     const int tx = bin - ty * n_tiles_x;
     const int fine_row = ty * sub + s;
     const float frow = (float)fine_row;
     const int y0 = fine_row * PLAIN_TILE_H;
-    const int x0 = tx * PLAIN_TILE_W;
+    const int x0 = tx * PLAIN_TILE_W + half * E_BLOCKS * 16;
 
     float acc[E_BLOCKS][8];
 #pragma unroll
@@ -181,7 +181,7 @@ depth_kernel(const float* __restrict__ edges,
           }
         });
 
-    const int strip = bin * sub + s;
+    const int strip = bin * sub * 2 + it.part;  // this half strip
     const int order = plain_finish_order(done + strip, it.n_slices);
     int* out = depth_bits + (size_t)(y0 + ry) * width + x0 + cx;
     if (order == 0) {
@@ -217,8 +217,7 @@ extern "C" int depth_launch(const void* edges, const void* tile_start,
                             int sub, int row_skip, void* stream) {
   const int n_bins = n_tiles_y * n_tiles_x;
   if (n_bins < 1 || n_bins > E_MAX_BINS) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)(plain_sort_size(n_bins) + n_bins) * sizeof(int);
+  const size_t smem = 2 * (size_t)n_bins * sizeof(int);
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -36,7 +36,7 @@
 // may cover, which the block test below cuts to the 16 x 16 blocks that
 // the pair's edges and z range can reach.
 //
-// Design: kernel E's strip items (depth.cu, common.cuh plain_strip_item):
+// Design: strip items (common.cuh, plain_strip_item, as kernel E's):
 // one warp does one 16 x 128 strip of a bin against one CHUNK-pair slice
 // of the bin's pairs, with no block barrier, taking items from an atomic
 // counter; a second queue then resolves the strips' attributes.
@@ -155,17 +155,15 @@ gbuffer_kernel(const float* __restrict__ edges,
                float* __restrict__ gbuf, int n_pairs, int n_tiles_y,
                int n_tiles_x, int sub, int row_skip) {
   constexpr int n_attr = PREV ? PLAIN_NATTR_PREV : PLAIN_NATTR;
-  extern __shared__ int s_dyn[];  // sorted bin keys, then slice prefix
+  extern __shared__ int s_dyn[];  // ordered bin keys, then slice prefix
   __shared__ float s_coef[B_WARPS][32][13];  // 13: no bank conflicts
   __shared__ int s_wsum[B_WARPS];
   const int n_bins = n_tiles_y * n_tiles_x;
   const int n_strips = n_bins * sub;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_sort = plain_sort_size(n_bins);
   int* s_key = s_dyn;
-  int* s_end = s_dyn + n_sort;
-  plain_slice_prefix(tile_count, n_bins, n_sort, CHUNK, s_key, s_end,
-                     s_wsum);
+  int* s_end = s_dyn + n_bins;
+  plain_slice_prefix(tile_count, n_bins, CHUNK, s_key, s_end, s_wsum);
 
   int* counter = aux;                 // visibility items
   int* r_counter = aux + 1;           // resolve items
@@ -191,7 +189,7 @@ gbuffer_kernel(const float* __restrict__ edges,
     const int lead = tile_start[bin] % PLAIN_GROUP;
     const int ty = bin / n_tiles_x;
     const int tx = bin - ty * n_tiles_x;
-    const int fine_row = ty * sub + it.strip;
+    const int fine_row = ty * sub + it.part;
     const float frow = (float)fine_row;
     const int y0 = fine_row * PLAIN_TILE_H;
     const int x0 = tx * PLAIN_TILE_W;
@@ -203,7 +201,7 @@ gbuffer_kernel(const float* __restrict__ edges,
       for (int i = 0; i < 8; ++i) acc[b][i] = 0;
     }
 
-    if (it.strip == 0) {  // the slice's attribute rows, rounded once
+    if (it.part == 0) {  // the slice's attribute rows, rounded once
       for (int p = lane; p < n; p += 32) {
         const size_t col = (size_t)start + p;
 #pragma unroll 5
@@ -235,7 +233,7 @@ gbuffer_kernel(const float* __restrict__ edges,
         });
 
     // the packed maxima into vis; the strip is final once all are in
-    const int strip = bin * sub + it.strip;
+    const int strip = bin * sub + it.part;
     const int order = plain_finish_order(done + strip, it.n_slices);
     int* out = vis + (size_t)(y0 + ry) * width + x0 + cx;
     if (order == 0) {
@@ -303,8 +301,7 @@ extern "C" int gbuffer_launch(const void* edges, const void* attrs,
                               int row_skip, int prev, void* stream) {
   const int n_bins = n_tiles_y * n_tiles_x;
   if (n_bins < 1 || n_bins > B_MAX_BINS) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)(plain_sort_size(n_bins) + n_bins) * sizeof(int);
+  const size_t smem = 2 * (size_t)n_bins * sizeof(int);
   auto kernel = prev ? gbuffer_kernel<true> : gbuffer_kernel<false>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);

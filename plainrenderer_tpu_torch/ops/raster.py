@@ -21,12 +21,13 @@ previous-frame NDC):
      with carry_table, kernel M expands them before the sort,
      csrc/expand_rows.cu). A vertical atlas of n_views views keys each pair
      by its view-local triangle;
-  3. rasterize_gbuffer: kernel B (csrc/gbuffer.cu), one thread block per
-     (sub * 16) x 128 bin, resolves visibility and evaluates the winner's
+  3. rasterize_gbuffer: kernel B (csrc/gbuffer.cu), warps over 16-row
+     strips of each bin that skip the 16 x 16 blocks a pair cannot cover
+     (block_may_cover), resolves visibility and evaluates the winner's
      attribute planes; alpha-tested pairs go through kernels K and L
-     (csrc/gbuffer_alpha.cu); rasterize_depth: kernel E (csrc/depth.cu),
-     the depth-only clamped max of the shadow atlas, and kernel J
-     (csrc/depth_alpha.cu) for alpha-tested casters.
+     (csrc/gbuffer_alpha.cu); rasterize_depth: kernel E (csrc/depth.cu,
+     the same strips), the depth-only clamped max of the shadow atlas,
+     and kernel J (csrc/depth_alpha.cu) for alpha-tested casters.
 
 Each kernel wrapper runs its plain PyTorch version (*_plain, in this
 module) only when its inputs lie on the CPU; for CUDA tensors it launches
@@ -1079,14 +1080,14 @@ def rasterize_depth(pair_edges, pairs: PairLists, n_tiles_y: int,
                             masks=alpha_masks, init=init_depth)
         return depth if init_depth is None else init_depth.copy_(depth)
     if not alpha:
-        # kernel E: warps take (16-row strip, pair slice) items
-        # from aux[0]; aux[1:] holds each strip's merge counter and flag.
+        # kernel E: warps take (half strip, pair slice) items from
+        # aux[0]; aux[1:] holds each half strip's merge counter and flag.
         # It writes every texel, so the atlas needs no zero fill.
         n_bins = n_tiles_y * n_tiles_x
         if n_bins > DEPTH_MAX_BINS:
             raise ValueError(f"kernel E takes at most {DEPTH_MAX_BINS} bins, "
                              f"got {n_bins}")
-        aux = torch.zeros((1 + 2 * n_bins * sub,), dtype=torch.int32,
+        aux = torch.zeros((1 + 4 * n_bins * sub,), dtype=torch.int32,
                           device=dev)
         depth = torch.empty((h, w), dtype=torch.float32, device=dev)
         native.launch("depth_launch", pair_edges, pairs.tile_start,
