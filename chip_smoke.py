@@ -226,20 +226,26 @@ def evaluated_pair_pixels(pair_edges, pairs, n_tiles_x: int, sub: int):
         * 2048
 
 
-def block_tests(pair_edges, pairs, n_tiles_x: int, sub: int,
-                z: bool = False):
+# block sizes (w, h) whose work the raster bounds compare; each tiles a
+# 16 x 128 fine row. Kernels E and B test 16 x 16 blocks.
+BLOCK_SIZES = ((8, 8), (16, 8), (16, 16), (32, 16), (64, 16))
+
+
+def block_tests(pair_edges, pairs, n_tiles_x: int, sub: int, bw: int,
+                bh: int, z: bool = False):
     """(tests, pixels) of a row-skipping raster that tests each pair
-    against the 16 x 16 blocks of its rows (pair_rows) with the exact
+    against the bw x bh blocks of its rows (pair_rows) with the exact
     corner test (raster.block_may_cover; with z, kernel B's z range test
-    too) and evaluates the pixels of the blocks that pass, as kernels E
-    and B do: the corner tests made and the pixels of the passing blocks,
-    on these pair lists."""
+    too) and evaluates the pixels of the blocks that pass: the corner
+    tests made and the pixels of the passing blocks, on these pair
+    lists."""
     dev = pair_edges.device
     seg, stream, lo, n_rows = pair_rows(pair_edges, pairs, n_tiles_x, sub)
     edges = pair_edges[[0, 1, 2, 4, 5, 6, 8, 9, 10]]
-    bx = torch.arange(0, raster.TILE_W, 16, device=dev)
+    bx = torch.arange(0, raster.TILE_W, bw, device=dev)
+    by = torch.arange(0, raster.TILE_H, bh, device=dev)
     tests = passing = 0
-    step = 1 << 16
+    step = 1 << 15
     for c0 in range(0, stream.numel(), step):
         nr = n_rows[c0:c0 + step]
         pr = torch.repeat_interleave(torch.arange(nr.numel(), device=dev),
@@ -247,16 +253,27 @@ def block_tests(pair_edges, pairs, n_tiles_x: int, sub: int,
         fine = lo[c0:c0 + step][pr] + torch.arange(
             pr.numel(), device=dev) - torch.repeat_interleave(
                 torch.cumsum(nr, 0) - nr, nr)
-        x0 = (seg[c0:c0 + step][pr] % n_tiles_x * raster.TILE_W)[:, None] \
-            + bx[None]
-        y0 = (fine * raster.TILE_H)[:, None]
+        x0 = (seg[c0:c0 + step][pr] % n_tiles_x * raster.TILE_W)[
+            :, None, None] + bx[None, None]
+        y0 = (fine * raster.TILE_H)[:, None, None] + by[None, :, None]
         cols = stream[c0:c0 + step][pr]
-        zp = pair_edges[12:15, cols][..., None] if z else None
-        may = raster.block_may_cover(edges[:, cols].reshape(3, 3, -1, 1),
-                                     x0, y0, 16, 16, zp)
+        zp = pair_edges[12:15, cols][..., None, None] if z else None
+        may = raster.block_may_cover(
+            edges[:, cols].reshape(3, 3, -1, 1, 1), x0, y0, bw, bh, zp)
         tests += may.numel()
-        passing += int(may.sum()) * 256
+        passing += int(may.sum()) * bw * bh
     return tests, passing
+
+
+def block_work(pair_edges, pairs, n_tiles_x: int, sub: int,
+               z: bool = False):
+    """block_tests at each of BLOCK_SIZES, and the size whose tests plus
+    pixels are fewest: a raster bound that counts 12 ops per test and per
+    pixel at that size is a floor for a design at any of these sizes."""
+    sizes = {f"{bw}x{bh}": block_tests(pair_edges, pairs, n_tiles_x, sub,
+                                       bw, bh, z)
+             for bw, bh in BLOCK_SIZES}
+    return sizes, min(sizes, key=lambda k: sum(sizes[k]))
 
 
 class Ctx:
@@ -584,10 +601,11 @@ def check_and_time_b(ctx, mv, pairs, pe, pa, what="kernel B",
     rule: <= 1e-3 of pixels differ in winner or depth, channels within
     1e-4 where the winners agree), then timed with its bound: it writes
     depth, vis and every channel and reads the pair tables; 12 rounded
-    ops per corner test of a (pair, 16 x 16 block) in the pair's rows and
-    per pixel of the blocks that pass the edge and z tests (block_tests),
-    + ~80 flops per covered pixel (the PR 6 design's count, 12 per pixel
-    of the pair's rows, kept beside it). It
+    ops per corner test of a (pair, block) in the pair's rows and per
+    pixel of the blocks that pass the edge and z tests, at the block size
+    that needs the fewest (block_work), + ~80 flops per covered pixel (the
+    PR 6 design's count, 12 per pixel of the pair's rows, kept beside
+    it). It
     reads the staged edge rows of each live pair, the attribute rows of
     each distinct winning pair slot, and the segment tables. Returns
     (pixels differing, max |err|, covered share, evaluated)."""
@@ -618,12 +636,13 @@ def check_and_time_b(ctx, mv, pairs, pe, pa, what="kernel B",
     b_bytes = 4 * N_STAGED * live + 4 * pa.shape[0] * win_slots \
         + 8 * pairs.tile_start.shape[0] + n_pix * 4 * (2 + n_ch)
     evaluated = evaluated_pair_pixels(pe, pairs, mv.n_tiles_x, mv.sub)
-    tests, px = block_tests(pe, pairs, mv.n_tiles_x, mv.sub, z=True)
+    sizes, least = block_work(pe, pairs, mv.n_tiles_x, mv.sub, z=True)
+    tests, px = sizes[least]
     counts = pairs.tile_count
     print(f"{what}: {live} pairs, per bin max {int(counts.max())} mean "
-          f"{float(counts.float().mean()):.1f}; {tests} block tests, {px} "
-          f"pixels in passing blocks ({evaluated:.0f} in the pairs' rows)",
-          flush=True)
+          f"{float(counts.float().mean()):.1f}; block tests and pixels in "
+          f"passing blocks {sizes} (least: {least}; {evaluated:.0f} pixels "
+          f"in the pairs' rows)", flush=True)
     per_px = (80 + 10 * (n_ch - 13)) * float((vis_k >= 0).sum())
     b_ops = 12 * (tests + px) + per_px
     ctx.kernel("gbuffer", lambda: raster.rasterize_gbuffer(
@@ -634,7 +653,7 @@ def check_and_time_b(ctx, mv, pairs, pe, pa, what="kernel B",
     result = ctx.results["gbuffer"] if variant is None \
         else ctx.variants["gbuffer"][variant]
     result.update(ops=b_ops, pr6_design_ops=12 * evaluated + per_px,
-                  block_tests=tests, block_pixels=px)
+                  block_work=sizes, block_least=least)
     return frac_differ, err_b, covered, evaluated
 
 
@@ -711,22 +730,24 @@ def check_and_time_d(ctx, scene, targs, kw, what="kernel D",
                 windows=windows)
 
 
-def check_and_time_e(ctx, atlas, n_cas):
+def check_and_time_e(ctx, atlas, n_cas, variant=None):
     """Kernel E on the frame's opaque casters, exact against its plain
     version; bound: the atlas written, the 14 staged rows of each live pair
     and each bin's start/count read; operations: 12 rounded ops per corner
-    test of a (pair, 16 x 16 block) in the pair's rows and per pixel of
-    the blocks that pass (block_tests). The PR 6 design's count, 12 per
-    pixel of every 16-px row of the bin inside the pair's rows
+    test of a (pair, block) in the pair's rows and per pixel of the blocks
+    that pass, at the block size that needs the fewest (block_work; the
+    kernel tests 16 x 16 blocks). The PR 6 design's count, 12 per pixel of
+    every 16-px row of the bin inside the pair's rows
     (evaluated_pair_pixels), is kept beside it: the new count is the
     smaller, so the bound is a floor for both designs."""
     eargs = (atlas.edges, atlas.pairs, atlas.n_bins_y, atlas.n_bins_x)
     pargs_e = (atlas.edges, atlas.pairs.tile_start, atlas.pairs.tile_count,
                atlas.n_bins_y, atlas.n_bins_x, atlas.sub, True)
     depth_e = raster.rasterize_depth(*eargs, sub=atlas.sub, row_skip=True)
+    what = "kernel E" if variant is None else f"kernel E ({variant})"
     check(torch.equal(depth_e.view(torch.int32),
                       raster.depth_plain(*pargs_e).view(torch.int32)),
-          "kernel E atlas equals the plain version")
+          f"{what} atlas equals the plain version")
     cov = float((depth_e > 0).float().mean())
     counts = atlas.pairs.tile_count
     live = int(counts.sum())
@@ -734,24 +755,30 @@ def check_and_time_e(ctx, atlas, n_cas):
         [0.5, 0.9, 0.99], device=counts.device)).tolist()
     e_eval = evaluated_pair_pixels(atlas.edges, atlas.pairs, atlas.n_bins_x,
                                    atlas.sub)
-    tests, px = block_tests(atlas.edges, atlas.pairs, atlas.n_bins_x,
-                            atlas.sub)
-    print(f"kernel E: {n_cas} x {atlas.n_bins_x * raster.TILE_W}^2 atlas "
+    sizes, least = block_work(atlas.edges, atlas.pairs, atlas.n_bins_x,
+                              atlas.sub)
+    e_ops = 12 * sum(sizes[least])
+    print(f"{what}: {n_cas} x {atlas.n_bins_x * raster.TILE_W}^2 atlas "
           f"equal; {cov:.3f} covered; {live} pairs, per bin max "
           f"{int(counts.max())} mean {float(counts.float().mean()):.1f} "
-          f"p50/p90/p99 {q}; {tests} block tests, {px} pixels in passing "
-          f"blocks ({e_eval:.0f} in the pairs' rows)", flush=True)
+          f"p50/p90/p99 {q}; block tests and pixels in passing blocks "
+          f"{sizes} (least: {least}; {e_eval:.0f} pixels in the pairs' "
+          "rows)", flush=True)
     e_bytes = (depth_e.numel() * 4 + 4 * N_STAGED * live
                + 8 * counts.shape[0])
     ctx.kernel("depth", lambda: raster.rasterize_depth(
         *eargs, sub=atlas.sub, row_skip=True), 20,
         lambda: raster.depth_plain(*pargs_e), 1,
-        (e_bytes / HBM_BYTES_PER_S, 12 * (tests + px) / FP32_OPS_PER_S), 0.0)
-    ctx.results["depth"].update(
-        ops=12 * (tests + px), pr6_design_ops=12 * e_eval,
+        (e_bytes / HBM_BYTES_PER_S, e_ops / FP32_OPS_PER_S), 0.0,
+        variant=variant)
+    result = ctx.results["depth"] if variant is None \
+        else ctx.variants["depth"][variant]
+    result.update(
+        ops=e_ops, block_work=sizes, block_least=least,
+        pr6_design_ops=12 * e_eval,
         pr6_design_bound_ms=12 * e_eval / FP32_OPS_PER_S * 1e3)
     return dict(atlas_covered=cov, atlas_evaluated_pair_pixels=e_eval,
-                atlas_block_tests=tests, atlas_block_pixels=px,
+                atlas_block_work=sizes, atlas_block_least=least,
                 atlas_pairs=live, atlas_pairs_per_bin_quantiles=q,
                 atlas_pairs_per_bin=dict(
                     max=int(counts.max()), mean=float(counts.float().mean()),
@@ -1231,21 +1258,14 @@ def check_and_time_m(ctx, mv, main, variant=None) -> dict:
                 owners=n_owners, launches=m_counts)
 
 
-def slice5_kernels(ctx, frames, settings) -> dict:
-    """Kernels A-I again on this row's frame inputs (retime_a_to_i), then
-    kernels J, K and L on frame 0's alpha streams (the atlas's and the
-    main view's, recomputed from the recorded inputs of the frame's own
-    calls), the alpha test's work, kernel M in a phase of its own on the
-    frame's main-view setup, and the small banner scene card vs CPU."""
-    print(f"slice 5 settings: default RenderSettings(); pair_budget_scale "
-          f"{ctx.scale}", flush=True)
-    rec = retime_a_to_i(ctx, frames, settings)
-    atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
+def check_j(atlas, settings, what):
+    """Kernel J on the atlas's alpha casters, merged in place onto kernel
+    E's atlas of the frame's opaque casters (E again gives the atlas J
+    started from), exact against its plain version and equal to the
+    frame's atlas. Returns (J's atlas, E's, J's plain arguments)."""
     a = atlas.alpha
     check(a is not None and int(atlas.overflow) == 0,
-          "the atlas has an alpha stream and drops nothing")
-    # kernel J merges in place onto kernel E's atlas: E again on the
-    # frame's opaque casters gives the atlas J started from
+          f"{what}: the atlas has an alpha stream and drops nothing")
     init = raster.rasterize_depth(atlas.edges, atlas.pairs, atlas.n_bins_y,
                                   atlas.n_bins_x, sub=atlas.sub,
                                   row_skip=True)
@@ -1258,10 +1278,25 @@ def slice5_kernels(ctx, frames, settings) -> dict:
     check(torch.equal(depth_j.view(torch.int32),
                       raster.depth_plain(*j_args, masks=a.masks, init=init)
                       .view(torch.int32)),
-          "kernel J atlas equals the plain version")
+          f"{what} atlas equals the plain version")
     n_cas = settings.shadows.cascade_count
     check(torch.equal(depth_j, atlas.maps[:n_cas].reshape(depth_j.shape)),
-          "kernel J's result is the frame's atlas")
+          f"{what}'s result is the frame's atlas")
+    return depth_j, init, j_args
+
+
+def slice5_kernels(ctx, frames, settings) -> dict:
+    """Kernels A-I again on this row's frame inputs (retime_a_to_i), then
+    kernels J, K and L on frame 0's alpha streams (the atlas's and the
+    main view's, recomputed from the recorded inputs of the frame's own
+    calls), the alpha test's work, kernel M in a phase of its own on the
+    frame's main-view setup, and the small banner scene card vs CPU."""
+    print(f"slice 5 settings: default RenderSettings(); pair_budget_scale "
+          f"{ctx.scale}", flush=True)
+    rec = retime_a_to_i(ctx, frames, settings)
+    atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
+    a = atlas.alpha
+    depth_j, init, j_args = check_j(atlas, settings, "kernel J")
     uncut_j = raster.depth_plain(*j_args, init=init)
     raised = int((depth_j > init).sum())
     rejected_j = int((uncut_j > depth_j).sum())
@@ -1452,6 +1487,7 @@ def prev_ndc_error(mv, main, prev_view_proj, tri_object, moving):
 
 def slice6_kernels(ctx, frames, settings) -> dict:
     """The dynamic path's new branches on this row's own frame inputs:
+    kernel E (timed) and J, exact, on the atlas of the moving casters;
     kernel D under trilinear + anisotropic filtering (the frame's) and
     under trilinear alone; kernels B and L with the 40-row pair table (15
     channels); kernel M at the opaque main view's 56 rows; the previous
@@ -1462,7 +1498,14 @@ def slice6_kernels(ctx, frames, settings) -> dict:
           f"{settings.shading}; pair_budget_scale {ctx.scale}", flush=True)
     rec = record_frames(ctx, frames, settings, 2, [
         (frame, "raster_main_view"), (texture, "sample_materials"),
-        (sdf_scene, "recomposite_dynamic")])
+        (sdf_scene, "recomposite_dynamic"), (frame, "render_shadow_atlas")])
+    # the atlas of frame 0's moving casters: E exact and timed, J exact
+    atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
+    n_cas = settings.shadows.cascade_count
+    e_dyn = check_and_time_e(ctx, atlas, n_cas, variant="dynamic casters")
+    check_j(atlas, settings, "kernel J (dynamic casters)")
+    print("kernel J (dynamic casters): atlas equal", flush=True)
+    del atlas
     kw = texture_kwargs(settings)
     check(kw["trilinear"] and kw["aniso"], "texture_filter 2 in the frame")
     targs = rec["sample_materials"][0]
@@ -1530,6 +1573,7 @@ def slice6_kernels(ctx, frames, settings) -> dict:
                               "settings, moving box)", textured=True,
                               gi=True, moving=True, dynamic=True)
     return dict(pair_budget_scale=ctx.scale, **ctx.extra["sdf_dynamic"],
+                atlas=e_dyn,
                 texture_trilinear_aniso=d_both, texture_trilinear=d_tri,
                 gbuffer_pixels_differ=frac_b, carry_table=m_found,
                 prev_ndc=dict(static_pixels=static_err.numel(),
@@ -1646,7 +1690,8 @@ SLICES = [
         lambda ctx, frames, settings, run: profile_frames(
             ctx, frames, settings, run, "slice 6"),
         pick_scale=True, histories=_HISTORIES,
-        branches=dict(gbuffer="dynamic 15 channels",
+        branches=dict(depth="dynamic casters",
+                      gbuffer="dynamic 15 channels",
                       attr_resolve="dynamic 15 channels",
                       texture="trilinear+aniso")),
 ]

@@ -1,0 +1,187 @@
+#!/usr/bin/env python3
+"""Compare checkouts of the PyTorch/CUDA port on slice 5's frame, in
+alternating order, on one NVIDIA GPU.
+
+    python3 compare_trees.py --tree parent=DIR --tree change=DIR \
+        --order parent,change,change,parent [--warmup 3 --timed 16]
+
+Each entry of --order runs in a process of its own that imports the port
+and chip_smoke.py of that checkout (so each tree runs its own kernels and
+wrappers), builds bench.py's own scene (chip_smoke.SCENES["bench"]: the
+textured atrium with its banners and its scene SDF) at 1920x1080 with the
+default RenderSettings() and pair_budget_scale 2.0, and drives
+warmup + timed frames on the bench camera path (chip_smoke.drive). It then
+times kernels E (rasterize_depth on frame 0's opaque casters) and B
+(rasterize_gbuffer on frame 0's opaque main view) on the device with
+chip_smoke.cuda_ms of THIS checkout (CUDA events behind torch.cuda._sleep),
+with each tree's own wrapper. Every tree must give the same atlas bits
+(kernel E is exact); the G-buffer's checksums are reported per run (B
+follows the raster rule, so trees may differ there). Alternating the order
+separates a tree's effect from drift over the call. Prints one JSON line
+per process and a summary; the report goes to
+chiprun_out/compare_trees/report.json.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out" / "compare_trees"
+
+
+def one(tree: Path, warmup: int, timed: int) -> dict:
+    """Slice 5's frames and kernels E and B with the port of `tree`."""
+    sys.path.insert(0, str(tree))
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs  # the tree's own
+    from plainrenderer_tpu_torch import native
+    from plainrenderer_tpu_torch.ops import raster
+    from plainrenderer_tpu_torch.render import frame
+    check_root = str(Path(cs.__file__).resolve().parent)
+    if check_root != str(tree.resolve()):
+        raise SystemExit(f"compare_trees: imported {check_root}, not {tree}")
+    # this checkout's device timer, whichever tree runs
+    spec = importlib.util.spec_from_file_location("timer_smoke",
+                                                  ROOT / "chip_smoke.py")
+    timer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timer)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = cs.Ctx(torch.device("cuda"))
+    t0 = time.time()
+    native.build()
+    native.library()
+    build_s = time.time() - t0
+    ctx.luts = frame.bake_static_luts(cs.config.RenderSettings(),
+                                      device=ctx.dev)
+    exts = [cs.cam_mod.extrinsic_from_angles(  # bench.py:105-110's path
+        [-9.0 + 0.02 * t, -1.8, 0.3 * np.sin(t * 0.05)], pitch_deg=8.0,
+        yaw_deg=10.0 + t * 0.1) for t in range(warmup + timed)]
+    ctx.cams = [frame.camera_arrays(e.position, e.forward, e.right, e.up,
+                                    device=ctx.dev) for e in exts]
+    scene = cs.SCENES["bench"](ctx)
+    frames = [scene] * len(ctx.cams)
+    settings = cs.dataclasses.replace(
+        cs.slice_settings(5, cs.WIDTH, cs.HEIGHT), pair_budget_scale=2.0)
+    run = cs.drive(ctx, frames, settings, warmup, timed)
+    cs.check(int(run["counters"].max()) == 0, "debug_counters [0, 0]")
+    cs.check(run["host_syncs_per_frame"] == 0, "no host sync")
+
+    rec = cs.record_frames(ctx, frames, settings, 1, [
+        (frame, "render_shadow_atlas"), (frame, "raster_main_view")])
+    atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
+    mv = rec["raster_main_view"][0][0]
+    main = frame.raster_main_view(mv)
+
+    def e():
+        return raster.rasterize_depth(atlas.edges, atlas.pairs,
+                                      atlas.n_bins_y, atlas.n_bins_x,
+                                      sub=atlas.sub, row_skip=True)
+
+    def b():
+        return raster.rasterize_gbuffer(
+            main.pair_edges, main.pair_attrs, main.pairs, mv.n_tiles_y,
+            mv.n_tiles_x, sub=mv.sub, row_skip=True)
+
+    def checksum(t):
+        w = t.contiguous().view(torch.int32).to(torch.int64)
+        pos = torch.arange(w.numel(), device=w.device) % 1_000_003 + 1
+        return int((w.flatten() * pos).sum())
+
+    depth_b, vis_b, gbuf_b = b()
+    sums = dict(atlas=checksum(e()), depth=checksum(depth_b),
+                vis=checksum(vis_b), gbuf=checksum(gbuf_b))
+    passes = run["pass_ms"]
+    return dict(
+        tree=str(tree), build_s=build_s, sums=sums,
+        frame_ms=passes["frame"], host_wall_ms=passes["host_wall_per_frame"],
+        shadow_atlas_ms=passes["shadow_atlas"], gbuffer_ms=passes["gbuffer"],
+        launches=run["launches"], e=timer.cuda_ms(e, 20),
+        b=timer.cuda_ms(b, 20))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", action="append", default=[],
+                    help="NAME=DIR, a checkout of the port")
+    ap.add_argument("--order", help="comma-separated NAMEs, run in turn")
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--timed", type=int, default=16)
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        print(json.dumps(one(Path(args.one), args.warmup, args.timed)),
+              flush=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_trees: no CUDA device", file=sys.stderr)
+        return 2
+    trees = dict(t.split("=", 1) for t in args.tree)
+    order = args.order.split(",")
+    if not trees or any(n not in trees for n in order):
+        raise SystemExit("compare_trees: --order names a tree not given")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    results = []
+    for name in order:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--one",
+             str(Path(trees[name]).resolve()), "--warmup", str(args.warmup),
+             "--timed", str(args.timed)], capture_output=True, text=True,
+            timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"compare_trees: {name} failed")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        r["name"] = name
+        results.append(r)
+        print(json.dumps({k: r[k] for k in (
+            "name", "frame_ms", "host_wall_ms", "shadow_atlas_ms",
+            "gbuffer_ms", "e", "b", "build_s")}), flush=True)
+    atlases = {r["sums"]["atlas"] for r in results}
+    if len(atlases) != 1:  # kernel E is exact in every tree
+        raise SystemExit(f"compare_trees: the trees' atlases differ: "
+                         f"{atlases}")
+    summary = {}
+    for name in trees:
+        rs = [r for r in results if r["name"] == name]
+        summary[name] = {
+            key: [f(r) for r in rs] for key, f in (
+                ("frame_mean_ms", lambda r: r["frame_ms"]["mean"]),
+                ("frame_min_ms", lambda r: r["frame_ms"]["min"]),
+                ("host_wall_ms", lambda r: r["host_wall_ms"]["mean"]),
+                ("shadow_atlas_ms", lambda r: r["shadow_atlas_ms"]["mean"]),
+                ("e_ms", lambda r: r["e"]["ms"]),
+                ("e_host_us", lambda r: r["e"]["host_us"]),
+                ("b_ms", lambda r: r["b"]["ms"]),
+                ("b_host_us", lambda r: r["b"]["host_us"]))}
+        summary[name]["gbuffer_sums"] = sorted(
+            {json.dumps(r["sums"], sort_keys=True) for r in rs})
+        summary[name]["median"] = {
+            k: statistics.median(v) for k, v in summary[name].items()}
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "report.json").write_text(json.dumps(
+        dict(card=smi, order=order, trees=trees, results=results,
+             summary=summary), indent=1))
+    print(smi, flush=True)
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

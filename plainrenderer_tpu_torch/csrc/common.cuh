@@ -442,6 +442,37 @@ __device__ __forceinline__ void plain_strip_pairs(
   }
 }
 
+// The grid of a persistent kernel (E and B): the SMs times the blocks of
+// `threads` threads and `smem` bytes of dynamic shared memory that fit on
+// one. The lookups take microseconds, so each launcher keeps the last
+// answer per device in `cache` and asks again only when smem changes.
+#define PLAIN_MAX_DEVICES 16
+struct PlainGridCache {  // zero-initialised as a static
+  size_t smem[PLAIN_MAX_DEVICES];
+  int grid[PLAIN_MAX_DEVICES];
+};
+
+template <typename Kernel>
+inline int plain_persistent_grid(PlainGridCache& cache, Kernel kernel,
+                                 int threads, size_t smem) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const bool kept = dev >= 0 && dev < PLAIN_MAX_DEVICES;
+  if (kept && cache.grid[dev] != 0 && cache.smem[dev] == smem) {
+    return cache.grid[dev];
+  }
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  const int grid = sms * (per_sm > 1 ? per_sm : 1);
+  if (kept) {
+    cache.smem[dev] = smem;
+    cache.grid[dev] = grid;
+  }
+  return grid;
+}
+
 // The merge of a strip's slices. plain_finish_order: 0 for the first
 // slice to finish (or the only one), which stores its values and then
 // plain_raise_flag; the others plain_wait_flag, then merge by atomicMax.

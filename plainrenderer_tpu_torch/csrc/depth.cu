@@ -14,10 +14,11 @@
 //
 // Bound on the H100: it writes the atlas once (3 x 2048^2 f32, 50 MB,
 // ~15 us at 3.35 TB/s) and reads 14 rows per pair; the work is the plane
-// evaluations: 12 rounded ops per pixel a pair may cover, which the block
-// test below cuts to the 16 x 16 blocks the pair's edges can reach, plus
-// 12 per (pair, block) test. These ops do not fuse into FMAs, so they
-// issue at half the 67 TFLOP/s that counts an FMA as 2 flops.
+// evaluations: 12 rounded ops per (pair, block) corner test and per pixel
+// of the blocks that pass, counted at the block size that needs the least
+// (chip_smoke.py, block_work: 8 x 8 to 64 x 16; this kernel uses 16 x
+// 16). These ops do not fuse into FMAs, so they issue at half the 67
+// TFLOP/s that counts an FMA as 2 flops.
 //
 // Design. A work item is one half strip of a bin (16 rows x 64 columns,
 // in one fine row) and one E_CHUNK-pair slice of the bin's pairs (a half
@@ -42,7 +43,9 @@
 //      the end), when the pair's z coefficients are below 2^64 and z is
 //      therefore finite; other pairs take a path that clamps each z and
 //      maps a NaN (the card's canonical 0x7fffffff, the largest bits) to
-//      +inf, which the end maps back.
+//      +inf, which the end maps back. Clamping every pair's z instead
+//      measured 0.1816 ms against 0.1557 on slice 5's atlas (H100 80GB
+//      HBM3, 700 W; compare_trees.py, medians of 3 alternated runs).
 //   4. A half strip whose bin has one slice stores its 1024 depths (0
 //      where nothing covers) with plain stores. A heavier bin's slices merge:
 //      the first to finish stores and raises a ready flag; the others
@@ -218,13 +221,10 @@ extern "C" int depth_launch(const void* edges, const void* tile_start,
   const int n_bins = n_tiles_y * n_tiles_x;
   if (n_bins < 1 || n_bins > E_MAX_BINS) return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * (size_t)n_bins * sizeof(int);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, depth_kernel,
-                                                E_WARPS * 32, smem);
-  depth_kernel<<<sms * max(per_sm, 1), E_WARPS * 32, smem,
-                 (cudaStream_t)stream>>>(
+  static PlainGridCache cache;
+  const int grid =
+      plain_persistent_grid(cache, depth_kernel, E_WARPS * 32, smem);
+  depth_kernel<<<grid, E_WARPS * 32, smem, (cudaStream_t)stream>>>(
       (const float*)edges, (const int*)tile_start, (const int*)tile_count,
       (int*)aux, (int*)depth, n_pairs, n_tiles_y, n_tiles_x, sub, row_skip);
   PLAIN_RETURN_LAUNCH_STATUS();

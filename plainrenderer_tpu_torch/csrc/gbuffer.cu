@@ -34,7 +34,8 @@
 // channels per pixel; 142 MB with 15), ~37 us at 3.35 TB/s, and read the
 // pair tables once. The visibility work is 12 rounded ops per pixel a pair
 // may cover, which the block test below cuts to the 16 x 16 blocks that
-// the pair's edges and z range can reach.
+// the pair's edges and z range can reach (the bound counts the block size
+// that needs the least: chip_smoke.py, block_work).
 //
 // Design: strip items (common.cuh, plain_strip_item, as kernel E's):
 // one warp does one 16 x 128 strip of a bin against one CHUNK-pair slice
@@ -72,6 +73,9 @@
 
 // One pair's candidates in the blocks of mask m: the lane's 4 rows and
 // 2 columns of each 16 x 16 block, origin (x0, y0) the lane's first.
+// Kernel E's depth_pair walks the same pixels; one template for both, with
+// the per-pixel step as a functor, measured B at 0.117-0.119 ms against
+// 0.109 (H100 80GB HBM3, 700 W; compare_trees.py), so each keeps its own.
 __device__ __forceinline__ void gbuffer_pair(int (&acc)[B_BLOCKS][8],
                                              const float* c, unsigned m,
                                              int slot, int x0, int y0) {
@@ -303,13 +307,10 @@ extern "C" int gbuffer_launch(const void* edges, const void* attrs,
   if (n_bins < 1 || n_bins > B_MAX_BINS) return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * (size_t)n_bins * sizeof(int);
   auto kernel = prev ? gbuffer_kernel<true> : gbuffer_kernel<false>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                B_WARPS * 32, smem);
-  kernel<<<sms * max(per_sm, 1), B_WARPS * 32, smem,
-           (cudaStream_t)stream>>>(
+  static PlainGridCache caches[2];  // the static and PREV instances
+  const int grid =
+      plain_persistent_grid(caches[prev ? 1 : 0], kernel, B_WARPS * 32, smem);
+  kernel<<<grid, B_WARPS * 32, smem, (cudaStream_t)stream>>>(
       (const float*)edges, (const float*)attrs, (float*)rounded,
       (const int*)tile_start, (const int*)tile_count, (int*)aux,
       (float*)depth, (int*)vis, (float*)gbuf, n_pairs, n_tiles_y, n_tiles_x,
