@@ -11,12 +11,14 @@ wrappers), builds bench.py's own scene (chip_smoke.SCENES["bench"]: the
 textured atrium with its banners and its scene SDF) at 1920x1080 with the
 default RenderSettings() and pair_budget_scale 2.0, and drives
 warmup + timed frames on the bench camera path (chip_smoke.drive). It then
-times kernels E (rasterize_depth on frame 0's opaque casters) and B
-(rasterize_gbuffer on frame 0's opaque main view) on the device with
-chip_smoke.cuda_ms of THIS checkout (CUDA events behind torch.cuda._sleep),
-with each tree's own wrapper. Every tree must give the same atlas bits
-(kernel E is exact); the G-buffer's checksums are reported per run (B
-follows the raster rule, so trees may differ there). Alternating the order
+times kernels E (rasterize_depth on frame 0's opaque casters), B
+(rasterize_gbuffer on frame 0's opaque main view), D (sample_materials on
+frame 0's G-buffer) and F (resolve_packed on frame 0's shadow inputs) on
+the device with chip_smoke.cuda_ms of THIS checkout (CUDA events behind
+torch.cuda._sleep), with each tree's own wrapper. Every tree must give the
+same atlas bits (kernel E is exact); the G-buffer's, D's and F's checksums
+are reported per run (B follows the raster rule, so trees may differ
+there; D and F are bit-equal between their designs). Alternating the order
 separates a tree's effect from drift over the call. Prints one JSON line
 per process and a summary; the report goes to
 chiprun_out/compare_trees/report.json.
@@ -45,7 +47,7 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
 
     import chip_smoke as cs  # the tree's own
     from plainrenderer_tpu_torch import native
-    from plainrenderer_tpu_torch.ops import raster
+    from plainrenderer_tpu_torch.ops import raster, shadow, texture
     from plainrenderer_tpu_torch.render import frame
     check_root = str(Path(cs.__file__).resolve().parent)
     if check_root != str(tree.resolve()):
@@ -79,7 +81,8 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
     cs.check(run["host_syncs_per_frame"] == 0, "no host sync")
 
     rec = cs.record_frames(ctx, frames, settings, 1, [
-        (frame, "render_shadow_atlas"), (frame, "raster_main_view")])
+        (frame, "render_shadow_atlas"), (frame, "raster_main_view"),
+        (texture, "sample_materials"), (shadow, "shadow_resolve")])
     atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
     mv = rec["raster_main_view"][0][0]
     main = frame.raster_main_view(mv)
@@ -94,6 +97,18 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
             main.pair_edges, main.pair_attrs, main.pairs, mv.n_tiles_y,
             mv.n_tiles_x, sub=mv.sub, row_skip=True)
 
+    targs, d_kw = rec["sample_materials"][0], cs.texture_kwargs(settings)
+    sargs = rec["shadow_resolve"][0]
+    f_args = (*sargs[:3], shadow.pack_shadow_maps_u16(sargs[3]).contiguous(),
+              shadow.cascade_rows(*sargs[4:7]), sargs[7],
+              settings.shadows.pcf_taps, settings.shadows.sample_radius)
+
+    def d():
+        return texture.sample_materials(*targs, **d_kw)
+
+    def f():
+        return shadow.resolve_packed(*f_args)
+
     def checksum(t):
         w = t.contiguous().view(torch.int32).to(torch.int64)
         pos = torch.arange(w.numel(), device=w.device) % 1_000_003 + 1
@@ -101,14 +116,16 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
 
     depth_b, vis_b, gbuf_b = b()
     sums = dict(atlas=checksum(e()), depth=checksum(depth_b),
-                vis=checksum(vis_b), gbuf=checksum(gbuf_b))
+                vis=checksum(vis_b), gbuf=checksum(gbuf_b),
+                texture=checksum(d()), shadow=checksum(f()))
     passes = run["pass_ms"]
     return dict(
         tree=str(tree), build_s=build_s, sums=sums,
         frame_ms=passes["frame"], host_wall_ms=passes["host_wall_per_frame"],
         shadow_atlas_ms=passes["shadow_atlas"], gbuffer_ms=passes["gbuffer"],
         launches=run["launches"], e=timer.cuda_ms(e, 20),
-        b=timer.cuda_ms(b, 20))
+        b=timer.cuda_ms(b, 20), d=timer.cuda_ms(d, 20),
+        f=timer.cuda_ms(f, 20))
 
 
 def main() -> int:
@@ -152,11 +169,12 @@ def main() -> int:
         results.append(r)
         print(json.dumps({k: r[k] for k in (
             "name", "frame_ms", "host_wall_ms", "shadow_atlas_ms",
-            "gbuffer_ms", "e", "b", "build_s")}), flush=True)
-    atlases = {r["sums"]["atlas"] for r in results}
-    if len(atlases) != 1:  # kernel E is exact in every tree
-        raise SystemExit(f"compare_trees: the trees' atlases differ: "
-                         f"{atlases}")
+            "gbuffer_ms", "e", "b", "d", "f", "build_s")}), flush=True)
+    for key in ("atlas", "texture", "shadow"):  # E, D and F: equal bits
+        sums = {r["sums"][key] for r in results}
+        if len(sums) != 1:
+            raise SystemExit(f"compare_trees: the trees' {key} outputs "
+                             f"differ: {sums}")
     summary = {}
     for name in trees:
         rs = [r for r in results if r["name"] == name]
@@ -169,7 +187,9 @@ def main() -> int:
                 ("e_ms", lambda r: r["e"]["ms"]),
                 ("e_host_us", lambda r: r["e"]["host_us"]),
                 ("b_ms", lambda r: r["b"]["ms"]),
-                ("b_host_us", lambda r: r["b"]["host_us"]))}
+                ("b_host_us", lambda r: r["b"]["host_us"]),
+                ("d_ms", lambda r: r["d"]["ms"]),
+                ("f_ms", lambda r: r["f"]["ms"]))}
         summary[name]["gbuffer_sums"] = sorted(
             {json.dumps(r["sums"], sort_keys=True) for r in rs})
         summary[name]["median"] = {

@@ -245,6 +245,79 @@ __device__ T plain_tile_reduce(T v, T* red, Op op) {
   return r;
 }
 
+// K independent reductions of the block's 256 threads at once, in the
+// same halving tree as plain_tile_reduce (so float sums stay bit-identical
+// to ops/texture.py:tile_sum) with two barriers in all: every thread
+// stores its K values (red holds K * 256), then warp k % 8 reduces value
+// k: lane i takes the steps s = 128, 64, 32 from shared memory in the
+// tree's own pairing, v[i] op v[i + s], and s = 16 .. 1 with
+// __shfl_down_sync, which pairs the same lanes. op(k, a, b) gives value
+// k's operation. The results land in res[k] and in v[k] of every thread.
+template <int K, typename T, typename Op>
+__device__ __forceinline__ void plain_tile_reduce_n(T (&v)[K], T* red,
+                                                    T* res, Op op) {
+  const int t = threadIdx.x, lane = t & 31;
+#pragma unroll
+  for (int k = 0; k < K; ++k) red[k * PLAIN_TILE_THREADS + t] = v[k];
+  __syncthreads();
+  for (int k = t >> 5; k < K; k += PLAIN_TILE_THREADS / 32) {
+    const T* r = red + k * PLAIN_TILE_THREADS + lane;
+    const T lo = op(k, op(k, r[0], r[128]), op(k, r[64], r[192]));
+    const T hi = op(k, op(k, r[32], r[160]), op(k, r[96], r[224]));
+    T x = op(k, lo, hi);
+#pragma unroll
+    for (int s = 16; s >= 1; s >>= 1) {
+      x = op(k, x, __shfl_down_sync(0xffffffffu, x, s));
+    }
+    if (lane == 0) res[k] = x;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = res[k];
+}
+
+// op(k, a, b) forms of the tree's operations (plain_tile_reduce_n)
+struct PlainAddFK {
+  __device__ float operator()(int, float a, float b) const {
+    return __fadd_rn(a, b);
+  }
+};
+struct PlainMinFK {
+  __device__ float operator()(int, float a, float b) const {
+    return fminf(a, b);
+  }
+};
+struct PlainAddIK {
+  __device__ int operator()(int, int a, int b) const { return a + b; }
+};
+
+// (int)rintf(x), round half to even, without the conversion unit for
+// |x| < 2^22: x + 1.5 * 2^23 rounds x to an integer in the low mantissa
+// bits. Larger or non-finite x take rintf.
+__device__ __forceinline__ int plain_rint_small(float x) {  // |x| < 2^22
+  return __float_as_int(__fadd_rn(x, 12582912.0f)) - 0x4B400000;
+}
+__device__ __forceinline__ int plain_rint_int(float x) {
+  return fabsf(x) < 4194304.0f ? plain_rint_small(x) : (int)rintf(x);
+}
+
+// floor(x) as an int and as a float (exact), without the conversion unit
+// for |x| < 2^22: rint(x) as above, minus 1 where it rounded up.
+// Larger or non-finite x take floorf, as (int)floorf(x) and
+// (float)(int)floorf(x).
+__device__ __forceinline__ int plain_floor_int(float x, float* xf) {
+  if (fabsf(x) < 4194304.0f) {
+    const float r = __fadd_rn(x, 12582912.0f);
+    const float rf = __fsub_rn(r, 12582912.0f);
+    const int up = rf > x ? 1 : 0;
+    *xf = __fsub_rn(rf, (float)up);
+    return __float_as_int(r) - 0x4B400000 - up;
+  }
+  const int i = (int)floorf(x);
+  *xf = (float)i;
+  return i;
+}
+
 // The depth-only kernels' work items (depth.cu, depth_alpha.cu): item i
 // is the DEPTH_CHUNK-pair slice k of the first bin with chunk_end > i,
 // chunk_end being the inclusive prefix sum of each bin's

@@ -3,8 +3,8 @@
 // Replaces plainrenderer_tpu/ops/texture.py:_sample_kernel (:47) in all its
 // variants: bilinear (the frame's default, texture_filter 0), trilinear
 // (texture_filter >= 1) and anisotropic (texture_filter >= 2), each with or
-// without two_mat. One block of 256 threads per 16x128 screen tile; thread
-// t owns column t % 128 and rows (t / 128) * 8 .. + 8. Per tile it:
+// without two_mat. One block of 256 threads per 16x128 screen tile. Per
+// tile it:
 //   1. finds the two extreme materials of the valid pixels and the more
 //      frequent one, dom (texture.py:68-74);
 //   2. takes one mip from the mean footprint rho of dom's pixels
@@ -27,31 +27,61 @@
 //
 // The window is a cache on the TPU but part of the semantics here: the
 // in-window rule decides ok. So the taps read the brick pool straight from
-// device memory with the window's own addressing: window texel (yi, xi) is
-// pool brick base + ((by0 + yi / 8) mod nby) * nbx + (bx0 + xi / 128) mod
-// nbx, row yi % 8, lane xi % 128. Tile sums (rho, texel offsets) use
-// plain_tile_reduce's fixed tree and the plain version's per-thread order,
-// with __fadd_rn / __fmul_rn everywhere (no FMA contraction), so each
-// tile's mip and window origin equal ops/texture.py:sample_plain's.
-// Integer >> is arithmetic, so every byte extract masks with & 0xFF.
+// device memory with the window's own addressing. Tile sums (rho, texel
+// offsets) keep the plain version's order (each thread sums its 8 rows,
+// thread = (row / 8) * 128 + column, then the halving tree) with
+// __fadd_rn / __fmul_rn everywhere (no FMA contraction), so each tile's
+// mip and window origin equal ops/texture.py:sample_plain's. Integer >> is
+// arithmetic, so every byte extract masks with & 0xFF.
 //
 // Bound on the H100: it reads uv, 4 derivatives, the material id and the
 // valid byte and writes 9 f32 channels, 65 B per pixel (136 MB at 1080p,
-// ~0.04 ms at 3.35 TB/s), plus 8 texel words per tap of a sampled pixel
-// (4 taps bilinear, 12 aniso, twice under trilinear), mostly L2 hits
-// because neighbouring pixels share texels. Design: reductions in shared
-// memory (7-9 per tile and window), taps as plain global loads; no
-// tensor-core or TMA use because the work is a gather.
+// ~0.04 ms at 3.35 TB/s), plus the distinct texel words its taps read
+// (8 B each), mostly L2 hits because neighbouring pixels share texels.
+//
+// Design (the previous one, csrc/previous/texture.cu, ran up to ~170
+// block barriers per tile, an IEEE division per unpacked byte, two integer
+// modulos per tap and kept every window's fields in registers, with
+// spills):
+//   - a tile has at most two windows (dom's mip and mip + 1 under
+//     trilinear, else dom's and the second material's), so its reductions
+//     run as five batched passes of plain_tile_reduce_n, two barriers
+//     each: (valid count, min, max material); the counts of both extreme
+//     materials (dom, the second and their pixel counts); both windows'
+//     rho sums; their texel minima; their offset sums. Then one barrier
+//     for the window table: 11 in all;
+//   - the bytes unpack through a 256-entry table of the correctly rounded
+//     b / 255 in shared memory (ops/texture.byte_table), the same bits as
+//     the division;
+//   - each window's 6 pool bricks are computed once per tile
+//     (ops/texture.window_bricks), so a tap's word is
+//     brick[(yi >> 3) * 2 + (xi >> 7)] + (yi & 7) * 128 + (xi & 127);
+//   - windows, the per-pixel uv and each pixel's window set live in shared
+//     memory; the sampling walks the tile's 2048 pixels row-major (a warp
+//     takes 32 columns of one row) and issues a sample's 8 tap words (24
+//     under aniso) before it unpacks any;
+//   - floor and rint of small values use the 1.5 * 2^23 trick instead of
+//     the conversion unit (common.cuh: plain_floor_int);
+//   - the 9 output planes go out as streaming stores (-3% on bench.py's
+//     scene, H100 80GB HBM3 at 700 W, compare_trees.py). Measured and not
+//     kept: 5 blocks per SM for the bilinear instance (51 registers, 132 B
+//     of spill, +28%); word1's bytes by an FMA-corrected multiply in place
+//     of the table (+1.4%).
 #include "common.cuh"
 
+// fmodf fast paths for |x| < 2y (y > 0): the exact remainder, as fmodf
 __device__ __forceinline__ float jnp_mod(float x, float y) {
-  float r = fmodf(x, y);
+  const float ax = fabsf(x);
+  float r;
+  if (ax < y) {
+    r = x;
+  } else if (ax < __fmul_rn(2.0f, y)) {
+    r = x > 0.0f ? __fsub_rn(x, y) : __fadd_rn(x, y);
+  } else {
+    r = fmodf(x, y);
+  }
   if (r != 0.0f && ((r < 0.0f) != (y < 0.0f))) r = __fadd_rn(r, y);
   return r;
-}
-
-__device__ __forceinline__ float unpack8(int w, int shift) {
-  return __fdiv_rn((float)((w >> shift) & 0xFF), 255.0f);
 }
 
 struct TileInputs {
@@ -68,113 +98,79 @@ struct TileInputs {
   float mip_bias;
 };
 
-// one (texture, mip) window of one material's pixels in a tile
-struct Window {
-  int base, nbx, lw, lh, nbx1, nby1, bx0, by0;
+// one (texture, mip) window of one material's pixels in a tile, in shared
+// memory
+struct TexWindow {
+  int brick[6];  // pool word of window brick (yi >> 3) * 2 + (xi >> 7)
+  int lw, lh;
   float lwf, lhf, bxf, byf;
-  bool fits_x, fits_y;
+  int fits_x, fits_y;
 };
 
-// Place the window of level `mip` of texture texc around the circular mean
-// texel of the selected pixels: anchor at the selected minimum, wrap
-// offsets into [-L/4, 3L/4), average. Every thread of the block calls it.
-__device__ __forceinline__ Window place_window(
-    const TileInputs& in, int texc, int mip, const bool* sel, float n_sel,
-    const float* u, const float* v, float* red_f) {
-  Window W;
-  const int row = (texc * in.n_mips + mip) * 4;
-  W.base = in.info[row];
-  W.nbx = in.info[row + 1];
-  W.lw = in.info[row + 2];
-  W.lh = in.info[row + 3];
-  const int nby = plain_floordiv(W.lh + 7, 8);
-  W.lwf = (float)W.lw;
-  W.lhf = (float)W.lh;
-  float uf[PLAIN_ROWS_PER_THREAD], vf[PLAIN_ROWS_PER_THREAD];
-  float mu = 1e9f, mv = 1e9f;
-#pragma unroll
-  for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
-    uf[r] = __fmul_rn(__fsub_rn(u[r], floorf(u[r])), W.lwf);
-    vf[r] = __fmul_rn(__fsub_rn(v[r], floorf(v[r])), W.lhf);
-    if (sel[r]) {
-      mu = fminf(mu, uf[r]);
-      mv = fminf(mv, vf[r]);
-    }
-  }
-  const float a_u = plain_tile_reduce(mu, red_f, PlainMinF());
-  const float a_v = plain_tile_reduce(mv, red_f, PlainMinF());
-  float su = 0.0f, sv = 0.0f;
-#pragma unroll
-  for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
-    float ru = __fsub_rn(uf[r], a_u);
-    ru = __fsub_rn(
-        ru, __fmul_rn(floorf(__fadd_rn(__fdiv_rn(ru, W.lwf), 0.25f)), W.lwf));
-    float rv = __fsub_rn(vf[r], a_v);
-    rv = __fsub_rn(
-        rv, __fmul_rn(floorf(__fadd_rn(__fdiv_rn(rv, W.lhf), 0.25f)), W.lhf));
-    su = __fadd_rn(su, sel[r] ? ru : 0.0f);
-    sv = __fadd_rn(sv, sel[r] ? rv : 0.0f);
-  }
-  const float mean_u = __fadd_rn(
-      a_u, __fdiv_rn(plain_tile_reduce(su, red_f, PlainAddF()), n_sel));
-  const float mean_v = __fadd_rn(
-      a_v, __fdiv_rn(plain_tile_reduce(sv, red_f, PlainAddF()), n_sel));
-  W.bx0 = plain_floordiv(__float2int_rz(__fsub_rn(mean_u, 128.0f)), 128);
-  W.by0 = plain_floordiv(__float2int_rz(__fsub_rn(mean_v, 12.0f)), 8);
-  W.fits_x = W.lw <= 256;
-  W.fits_y = W.lh <= 24;
-  W.nbx1 = max(W.nbx, 1);
-  W.nby1 = max(nby, 1);
-  W.bxf = (float)(W.bx0 * 128);
-  W.byf = (float)(W.by0 * 8);
-  return W;
-}
+#define TEX_PIXELS (PLAIN_TILE_H * PLAIN_TILE_W)
 
-__device__ __forceinline__ bool in_window(const Window& W, float tx,
+struct TexShared {
+  float byte[256];  // b / 255, correctly rounded
+  float u[TEX_PIXELS], v[TEX_PIXELS];  // row-major in the tile
+  signed char set[TEX_PIXELS];  // window set of the pixel, -1: not sampled
+  float red_f[4 * PLAIN_TILE_THREADS];
+  int red_i[3 * PLAIN_TILE_THREADS];
+  float res_f[4];
+  int res_i[3];
+  TexWindow win[2];
+  float lw0[2], lh0[2];  // mip-0 size of each set's texture
+  float mip;  // window 0's mip (the trilinear lerp)
+};
+
+__device__ __forceinline__ bool in_window(const TexWindow& W, float tx,
                                           float ty) {
   return (W.fits_x || (tx >= 0.5f && tx <= 254.5f)) &&
          (W.fits_y || (ty >= 0.5f && ty <= 22.5f));
 }
 
-// the 8 bilinear blends (4 bytes of each packed word) at window coords
-// (tx, ty), taps wrapped on the level's torus
-__device__ __forceinline__ void bilinear_at(const TileInputs& in,
-                                            const Window& W, float tx,
-                                            float ty, float raw[8]) {
+// The pool words and weights of the 4 taps of a bilinear sample at window
+// coords (tx, ty), taps wrapped on the level's torus.
+__device__ __forceinline__ void bilinear_taps(const TexWindow& W, float tx,
+                                              float ty, int* off,
+                                              float* wts) {
   const float tx5 = __fsub_rn(tx, 0.5f), ty5 = __fsub_rn(ty, 0.5f);
-  const int x0 = (int)floorf(tx5), yb = (int)floorf(ty5);
-  const float fx = fminf(fmaxf(__fsub_rn(tx5, (float)x0), 0.0f), 1.0f);
-  const float fy = fminf(fmaxf(__fsub_rn(ty5, (float)yb), 0.0f), 1.0f);
-  const float wts[4] = {
-      __fmul_rn(__fsub_rn(1.0f, fx), __fsub_rn(1.0f, fy)),
-      __fmul_rn(fx, __fsub_rn(1.0f, fy)), __fmul_rn(__fsub_rn(1.0f, fx), fy),
-      __fmul_rn(fx, fy)};
-  int w0[4], w1[4];
+  float x0f, y0f;
+  const int x0 = plain_floor_int(tx5, &x0f);
+  const int yb = plain_floor_int(ty5, &y0f);
+  const float fx = fminf(fmaxf(__fsub_rn(tx5, x0f), 0.0f), 1.0f);
+  const float fy = fminf(fmaxf(__fsub_rn(ty5, y0f), 0.0f), 1.0f);
+  wts[0] = __fmul_rn(__fsub_rn(1.0f, fx), __fsub_rn(1.0f, fy));
+  wts[1] = __fmul_rn(fx, __fsub_rn(1.0f, fy));
+  wts[2] = __fmul_rn(__fsub_rn(1.0f, fx), fy);
+  wts[3] = __fmul_rn(fx, fy);
+  const int lw = W.lw, lh = W.lh;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     int xi = x0 + (k & 1), yi = yb + (k >> 1);
-    if (xi >= W.lw) xi -= W.lw;
-    if (xi < 0) xi += W.lw;
-    if (yi >= W.lh) yi -= W.lh;
-    if (yi < 0) yi += W.lh;
+    if (xi >= lw) xi -= lw;
+    if (xi < 0) xi += lw;
+    if (yi >= lh) yi -= lh;
+    if (yi < 0) yi += lh;
     xi = min(max(xi, 0), 255);
     yi = min(max(yi, 0), 23);
-    const int by = plain_floormod(W.by0 + (yi >> 3), W.nby1);
-    const int bx = plain_floormod(W.bx0 + (xi >> 7), W.nbx1);
-    const size_t idx =
-        ((size_t)(W.base + by * W.nbx + bx) * 8 + (yi & 7)) * 128 +
-        (xi & 127);
-    w0[k] = __ldg(in.word0 + idx);
-    w1[k] = __ldg(in.word1 + idx);
+    off[k] = W.brick[(yi >> 3) * 2 + (xi >> 7)] + (yi & 7) * 128 +
+             (xi & 127);
   }
+}
+
+// the 8 bilinear blends (4 bytes of each packed word) of one sample
+__device__ __forceinline__ void blend8(const float* byte, const int* w0,
+                                       const int* w1, const float* wts,
+                                       float raw[8]) {
 #pragma unroll
   for (int ch = 0; ch < 4; ++ch) {
-    float a = __fmul_rn(unpack8(w0[0], 8 * ch), wts[0]);
-    float b = __fmul_rn(unpack8(w1[0], 8 * ch), wts[0]);
+    const int s = 8 * ch;
+    float a = __fmul_rn(byte[(w0[0] >> s) & 0xFF], wts[0]);
+    float b = __fmul_rn(byte[(w1[0] >> s) & 0xFF], wts[0]);
 #pragma unroll
     for (int k = 1; k < 4; ++k) {
-      a = __fadd_rn(a, __fmul_rn(unpack8(w0[k], 8 * ch), wts[k]));
-      b = __fadd_rn(b, __fmul_rn(unpack8(w1[k], 8 * ch), wts[k]));
+      a = __fadd_rn(a, __fmul_rn(byte[(w0[k] >> s) & 0xFF], wts[k]));
+      b = __fadd_rn(b, __fmul_rn(byte[(w1[k] >> s) & 0xFF], wts[k]));
     }
     raw[ch] = a;
     raw[4 + ch] = b;
@@ -183,38 +179,57 @@ __device__ __forceinline__ void bilinear_at(const TileInputs& in,
 
 // One window's sample of a selected pixel with level coords (uf, vf):
 // false when a tap leaves the window (raw is then not written). ANISO takes
-// 3 taps along (mvx, mvy), the major axis in mip-0 uv units per pixel.
+// 3 bilinear samples along (mvx, mvy), the major axis in mip-0 uv units per
+// pixel, and averages them. All tap words are loaded before any unpacks.
 template <bool ANISO>
 __device__ __forceinline__ bool sample_window(const TileInputs& in,
-                                              const Window& W, float uf,
-                                              float vf, float mvx,
-                                              float mvy, float raw[8]) {
+                                              const TexWindow& W,
+                                              const float* byte, float uf,
+                                              float vf, float mvx, float mvy,
+                                              float raw[8]) {
   const float tx = jnp_mod(__fsub_rn(uf, W.bxf), W.lwf);
   const float ty = jnp_mod(__fsub_rn(vf, W.byf), W.lhf);
+  constexpr int NS = ANISO ? 3 : 1;
+  float txo[NS], tyo[NS];
   if (!ANISO) {
+    txo[0] = tx;
+    tyo[0] = ty;
     if (!in_window(W, tx, ty)) return false;
-    bilinear_at(in, W, tx, ty, raw);
-    return true;
+  } else {
+    const float ax = __fmul_rn(mvx, W.lwf), ay = __fmul_rn(mvy, W.lhf);
+    const float offs[3] = {-(1.0f / 3.0f), 0.0f, 1.0f / 3.0f};
+    bool inside = true;
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      txo[k] = __fadd_rn(tx, __fmul_rn(ax, offs[k]));
+      tyo[k] = __fadd_rn(ty, __fmul_rn(ay, offs[k]));
+      inside = inside && in_window(W, txo[k], tyo[k]);
+    }
+    if (!inside) return false;
   }
-  const float ax = __fmul_rn(mvx, W.lwf), ay = __fmul_rn(mvy, W.lhf);
-  const float offs[3] = {-(1.0f / 3.0f), 0.0f, 1.0f / 3.0f};
-  float txo[3], tyo[3];
+  int off[4 * NS], w0[4 * NS], w1[4 * NS];
+  float wts[4 * NS];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    txo[k] = __fadd_rn(tx, __fmul_rn(ax, offs[k]));
-    tyo[k] = __fadd_rn(ty, __fmul_rn(ay, offs[k]));
-    if (!in_window(W, txo[k], tyo[k])) return false;
-  }
-  bilinear_at(in, W, txo[0], tyo[0], raw);
-#pragma unroll
-  for (int k = 1; k < 3; ++k) {
-    float tap[8];
-    bilinear_at(in, W, txo[k], tyo[k], tap);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) raw[c] = __fadd_rn(raw[c], tap[c]);
+  for (int k = 0; k < NS; ++k) {
+    bilinear_taps(W, txo[k], tyo[k], off + 4 * k, wts + 4 * k);
   }
 #pragma unroll
-  for (int c = 0; c < 8; ++c) raw[c] = __fmul_rn(raw[c], 1.0f / 3.0f);
+  for (int k = 0; k < 4 * NS; ++k) {
+    w0[k] = __ldg(in.word0 + off[k]);
+    w1[k] = __ldg(in.word1 + off[k]);
+  }
+  blend8(byte, w0, w1, wts, raw);
+  if (ANISO) {
+#pragma unroll
+    for (int k = 1; k < NS; ++k) {
+      float tap[8];
+      blend8(byte, w0 + 4 * k, w1 + 4 * k, wts + 4 * k, tap);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) raw[c] = __fadd_rn(raw[c], tap[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) raw[c] = __fmul_rn(raw[c], 1.0f / 3.0f);
+  }
   return true;
 }
 
@@ -241,80 +256,243 @@ __device__ __forceinline__ float footprint(const TileInputs& in, size_t o,
   return fmaxf(fminf(ex, ey), __fmul_rn(fmaxf(ex, ey), 1.0f / 3.0f));
 }
 
-// one material's pass over the tile; writes every pixel (first pass) or
-// only this material's pixels (second pass)
+// (valid count, min material, max material)
+struct TexMaterialOps {
+  __device__ int operator()(int k, int a, int b) const {
+    return k == 0 ? a + b : (k == 1 ? min(a, b) : max(a, b));
+  }
+};
+
 template <bool TRI, bool ANISO>
-__device__ __forceinline__ void material_pass(
-    const TileInputs& in, int m, int n_valid, const float* u, const float* v,
-    const int* mat, const bool* val, int x, int y0, bool write_all,
-    float* red_f, int* red_i) {
-  const int tex = in.mat_tex[m];
-  const bool textured = tex >= 0 && n_valid > 0;
-  const int texc = max(tex, 0);
-  bool sel[PLAIN_ROWS_PER_THREAD];
-  int ns = 0;
-#pragma unroll
-  for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
-    sel[r] = val[r] && mat[r] == m;
-    ns += sel[r] ? 1 : 0;
-  }
-  const float n_sel =
-      fmaxf((float)plain_tile_reduce(ns, red_i, PlainAddI()), 1.0f);
+__global__ void __launch_bounds__(PLAIN_TILE_THREADS, (TRI || ANISO) ? 3 : 4)
+texture_kernel(TileInputs in, const float* __restrict__ mat_id,
+               const unsigned char* __restrict__ valid, int n_mat,
+               int two_mat) {
+  __shared__ TexShared sh;
+  const int t = threadIdx.x;
+  sh.byte[t] = __fdiv_rn((float)t, 255.0f);
+  const int ntx = in.w / PLAIN_TILE_W;
+  const int ty = blockIdx.x / ntx, tx = blockIdx.x - ty * ntx;
+  const size_t tile_o =
+      (size_t)(ty * PLAIN_TILE_H) * in.w + tx * PLAIN_TILE_W;
+  // reduction phase: thread t owns column t % 128, rows (t / 128) * 8 .. + 8
+  const int col = t % PLAIN_TILE_W;
+  const int row0 = (t / PLAIN_TILE_W) * PLAIN_ROWS_PER_THREAD;
 
-  // mip from the mean uv footprint of this material's pixels
-  const float lw0 = (float)in.info[(texc * in.n_mips) * 4 + 2];
-  const float lh0 = (float)in.info[(texc * in.n_mips) * 4 + 3];
-  float srho = 0.0f, mvx, mvy;
+  float u[PLAIN_ROWS_PER_THREAD], v[PLAIN_ROWS_PER_THREAD];
+  int mat[PLAIN_ROWS_PER_THREAD];
+  unsigned vbits = 0;
+  int m3[3] = {0, 1 << 20, -1};  // valid count, min, max material
 #pragma unroll
   for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
-    float rho = 0.0f;
-    if (sel[r]) {
-      rho = footprint<ANISO>(in, (size_t)(y0 + r) * in.w + x, lw0, lh0,
-                             &mvx, &mvy);
+    const size_t o = tile_o + (size_t)(row0 + r) * in.w + col;
+    u[r] = in.uv[o];
+    v[r] = in.uv[in.plane + o];
+    mat[r] = __float2int_rz(mat_id[o]);
+    sh.u[(row0 + r) * PLAIN_TILE_W + col] = u[r];
+    sh.v[(row0 + r) * PLAIN_TILE_W + col] = v[r];
+    if (valid[o] != 0) {
+      vbits |= 1u << r;
+      ++m3[0];
+      m3[1] = min(m3[1], mat[r]);
+      m3[2] = max(m3[2], mat[r]);
     }
-    srho = __fadd_rn(srho, rho);
   }
-  const float mean_rho =
-      __fdiv_rn(plain_tile_reduce(srho, red_f, PlainAddF()), n_sel);
-  const float lam = __fadd_rn(log2f(fmaxf(mean_rho, 1e-6f)), in.mip_bias);
-  const int mip = min(max(__float2int_rz(lam), 0), in.n_mips - 1);
-
-  const Window W0 = place_window(in, texc, mip, sel, n_sel, u, v, red_f);
-  Window W1;
-  if (TRI) {
-    W1 = place_window(in, texc, min(mip + 1, in.n_mips - 1), sel, n_sel, u,
-                      v, red_f);
-  }
+  plain_tile_reduce_n<3>(m3, sh.red_i, sh.res_i, TexMaterialOps());
+  const int n_valid = m3[0];
+  const int m_min = min(max(m3[1], 0), n_mat - 1);
+  const int m_max = min(max(m3[2], 0), n_mat - 1);
+  int cnt[2] = {0, 0};
 #pragma unroll
   for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
-    if (!write_all && !sel[r]) continue;
-    const size_t o = (size_t)(y0 + r) * in.w + x;
+    if ((vbits >> r) & 1u) {
+      cnt[0] += mat[r] == m_min ? 1 : 0;
+      cnt[1] += mat[r] == m_max ? 1 : 0;
+    }
+  }
+  plain_tile_reduce_n<2>(cnt, sh.red_i, sh.res_i, PlainAddIK());
+  const int dom = 2 * cnt[0] >= n_valid ? m_min : m_max;
+  const int second = dom == m_min ? m_max : m_min;
+  const int n_dom = dom == m_min ? cnt[0] : cnt[1];
+  const int n_sec = second == m_min ? cnt[0] : cnt[1];
+  const bool textured = in.mat_tex[dom] >= 0 && n_valid > 0;
+  const bool pass2 = !TRI && two_mat && second != dom && n_sec > 0 &&
+                     in.mat_tex[second] >= 0;
+  if (!textured && !pass2) {  // tile-uniform: nothing is sampled
+    for (int p = t; p < TEX_PIXELS; p += PLAIN_TILE_THREADS) {
+      const size_t o = tile_o + (size_t)(p / PLAIN_TILE_W) * in.w +
+                       p % PLAIN_TILE_W;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) in.out[k * in.plane + o] = 0.0f;
+    }
+    return;
+  }
+
+  // window sets: 0 = dom; 1 = dom again (trilinear's mip + 1) or second
+  unsigned sel0 = 0, sel1 = 0;
+#pragma unroll
+  for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
+    const bool vr = (vbits >> r) & 1u;
+    if (vr && mat[r] == dom) sel0 |= 1u << r;
+    if (vr && mat[r] == second && second != dom) sel1 |= 1u << r;
+    sh.set[(row0 + r) * PLAIN_TILE_W + col] =
+        (vr && mat[r] == dom && textured) ? 0
+        : ((pass2 && vr && mat[r] == second) ? 1 : -1);
+  }
+  if (TRI) sel1 = sel0;
+  const int texc0 = max(in.mat_tex[dom], 0);
+  const int texc1 = TRI ? texc0 : max(in.mat_tex[second], 0);
+  const float lw00 = (float)__ldg(in.info + texc0 * in.n_mips * 4 + 2);
+  const float lh00 = (float)__ldg(in.info + texc0 * in.n_mips * 4 + 3);
+  const float lw01 = (float)__ldg(in.info + texc1 * in.n_mips * 4 + 2);
+  const float lh01 = (float)__ldg(in.info + texc1 * in.n_mips * 4 + 3);
+
+  // the mean footprint of each set's pixels -> its mip
+  float srho[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
+    const bool s0 = (sel0 >> r) & 1u, s1 = !TRI && ((sel1 >> r) & 1u);
+    if (s0 || s1) {
+      float mvx, mvy;
+      const float rho = footprint<ANISO>(
+          in, tile_o + (size_t)(row0 + r) * in.w + col, s0 ? lw00 : lw01,
+          s0 ? lh00 : lh01, &mvx, &mvy);
+      if (s0) srho[0] = __fadd_rn(srho[0], rho);
+      if (s1) srho[1] = __fadd_rn(srho[1], rho);
+    }
+  }
+  plain_tile_reduce_n<2>(srho, sh.red_f, sh.res_f, PlainAddFK());
+  const float n_sel0 = fmaxf((float)n_dom, 1.0f);
+  const float n_sel1 = TRI ? n_sel0 : fmaxf((float)n_sec, 1.0f);
+  int mip[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float mean_rho = __fdiv_rn(srho[j], j ? n_sel1 : n_sel0);
+    const float lam = __fadd_rn(log2f(fmaxf(mean_rho, 1e-6f)), in.mip_bias);
+    mip[j] = min(max(__float2int_rz(lam), 0), in.n_mips - 1);
+  }
+  if (TRI) mip[1] = min(mip[0] + 1, in.n_mips - 1);
+
+  // the windows: level size, then the circular mean texel of the set's
+  // pixels (anchor at their minimum, offsets wrapped into [-L/4, 3L/4))
+  int base[2], nbx[2], lw[2], lh[2];
+  float lwf[2], lhf[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = ((j ? texc1 : texc0) * in.n_mips + mip[j]) * 4;
+    base[j] = __ldg(in.info + row);
+    nbx[j] = __ldg(in.info + row + 1);
+    lw[j] = __ldg(in.info + row + 2);
+    lh[j] = __ldg(in.info + row + 3);
+    lwf[j] = (float)lw[j];
+    lhf[j] = (float)lh[j];
+  }
+  float amin[4] = {1e9f, 1e9f, 1e9f, 1e9f};  // a_u0, a_v0, a_u1, a_v1
+#pragma unroll
+  for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
+    const float fu = __fsub_rn(u[r], floorf(u[r]));
+    const float fv = __fsub_rn(v[r], floorf(v[r]));
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if ((((j ? sel1 : sel0) >> r) & 1u)) {
+        amin[2 * j] = fminf(amin[2 * j], __fmul_rn(fu, lwf[j]));
+        amin[2 * j + 1] = fminf(amin[2 * j + 1], __fmul_rn(fv, lhf[j]));
+      }
+    }
+  }
+  plain_tile_reduce_n<4>(amin, sh.red_f, sh.res_f, PlainMinFK());
+  float sums[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // su0, sv0, su1, sv1
+#pragma unroll
+  for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
+    const float fu = __fsub_rn(u[r], floorf(u[r]));
+    const float fv = __fsub_rn(v[r], floorf(v[r]));
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if ((((j ? sel1 : sel0) >> r) & 1u)) {
+        float ru = __fsub_rn(__fmul_rn(fu, lwf[j]), amin[2 * j]);
+        ru = __fsub_rn(ru, __fmul_rn(floorf(__fadd_rn(
+                                         __fdiv_rn(ru, lwf[j]), 0.25f)),
+                                     lwf[j]));
+        float rv = __fsub_rn(__fmul_rn(fv, lhf[j]), amin[2 * j + 1]);
+        rv = __fsub_rn(rv, __fmul_rn(floorf(__fadd_rn(
+                                         __fdiv_rn(rv, lhf[j]), 0.25f)),
+                                     lhf[j]));
+        sums[2 * j] = __fadd_rn(sums[2 * j], ru);
+        sums[2 * j + 1] = __fadd_rn(sums[2 * j + 1], rv);
+      }
+    }
+  }
+  plain_tile_reduce_n<4>(sums, sh.red_f, sh.res_f, PlainAddFK());
+  if (t < 14) {  // the window table; selects, not indexing (no stack)
+    const int j = t < 12 ? t / 6 : t - 12;
+    const float n_sel = j ? n_sel1 : n_sel0;
+    const float mean_u = __fadd_rn(j ? amin[2] : amin[0],
+                                   __fdiv_rn(j ? sums[2] : sums[0], n_sel));
+    const float mean_v = __fadd_rn(j ? amin[3] : amin[1],
+                                   __fdiv_rn(j ? sums[3] : sums[1], n_sel));
+    const int bx0 =
+        plain_floordiv(__float2int_rz(__fsub_rn(mean_u, 128.0f)), 128);
+    const int by0 =
+        plain_floordiv(__float2int_rz(__fsub_rn(mean_v, 12.0f)), 8);
+    const int lw_j = j ? lw[1] : lw[0], lh_j = j ? lh[1] : lh[0];
+    const int nbx_j = j ? nbx[1] : nbx[0];
+    TexWindow& W = sh.win[j];
+    if (t < 12) {  // brick i of window j (ops/texture.window_bricks)
+      const int i = t - 6 * j;
+      const int nby1 = max(plain_floordiv(lh_j + 7, 8), 1);
+      const int by = plain_floormod(by0 + i / 2, nby1);
+      const int bx = plain_floormod(bx0 + i % 2, max(nbx_j, 1));
+      W.brick[i] = ((j ? base[1] : base[0]) + by * nbx_j + bx) * 1024;
+    } else {
+      W.lw = lw_j;
+      W.lh = lh_j;
+      W.lwf = j ? lwf[1] : lwf[0];
+      W.lhf = j ? lhf[1] : lhf[0];
+      W.bxf = (float)(bx0 * 128);
+      W.byf = (float)(by0 * 8);
+      W.fits_x = lw_j <= 256;
+      W.fits_y = lh_j <= 24;
+      sh.lw0[j] = j ? lw01 : lw00;
+      sh.lh0[j] = j ? lh01 : lh00;
+      if (j == 0) sh.mip = (float)mip[0];
+    }
+  }
+  __syncthreads();
+
+  // sampling phase: pixel p = i * 256 + t, row p / 128, column p % 128
+  for (int p = t; p < TEX_PIXELS; p += PLAIN_TILE_THREADS) {
+    const size_t o =
+        tile_o + (size_t)(p / PLAIN_TILE_W) * in.w + p % PLAIN_TILE_W;
+    const int set = sh.set[p];
     float vals[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) vals[k] = 0.0f;
     bool ok = false;
-    if (sel[r] && textured) {
-      mvx = mvy = 0.0f;
-      const float rho = (TRI || ANISO)
-                            ? footprint<ANISO>(in, o, lw0, lh0, &mvx, &mvy)
-                            : 0.0f;
-      const float fu = __fsub_rn(u[r], floorf(u[r]));
-      const float fv = __fsub_rn(v[r], floorf(v[r]));
-      ok = sample_window<ANISO>(in, W0, __fmul_rn(fu, W0.lwf),
+    if (set >= 0) {
+      const float pu = sh.u[p], pv = sh.v[p];
+      const float fu = __fsub_rn(pu, floorf(pu));
+      const float fv = __fsub_rn(pv, floorf(pv));
+      float mvx = 0.0f, mvy = 0.0f, rho = 0.0f;
+      if (TRI || ANISO) {
+        rho = footprint<ANISO>(in, o, sh.lw0[set], sh.lh0[set], &mvx, &mvy);
+      }
+      const TexWindow& W0 = sh.win[TRI ? 0 : set];
+      ok = sample_window<ANISO>(in, W0, sh.byte, __fmul_rn(fu, W0.lwf),
                                 __fmul_rn(fv, W0.lhf), mvx, mvy, vals);
       if (TRI && ok) {
+        const TexWindow& W1 = sh.win[1];
         float hi[8];
-        ok = sample_window<ANISO>(in, W1, __fmul_rn(fu, W1.lwf),
+        ok = sample_window<ANISO>(in, W1, sh.byte, __fmul_rn(fu, W1.lwf),
                                   __fmul_rn(fv, W1.lhf), mvx, mvy, hi);
         if (ok) {
           const float lam_px =
               __fadd_rn(log2f(fmaxf(rho, 1e-6f)), in.mip_bias);
-          const float t =
-              fminf(fmaxf(__fsub_rn(lam_px, (float)mip), 0.0f), 1.0f);
+          const float tl =
+              fminf(fmaxf(__fsub_rn(lam_px, sh.mip), 0.0f), 1.0f);
 #pragma unroll
           for (int k = 0; k < 8; ++k) {
             vals[k] = __fadd_rn(vals[k],
-                                __fmul_rn(__fsub_rn(hi[k], vals[k]), t));
+                                __fmul_rn(__fsub_rn(hi[k], vals[k]), tl));
           }
         }
       }
@@ -330,68 +508,10 @@ __device__ __forceinline__ void material_pass(
         for (int k = 0; k < 8; ++k) vals[k] = 0.0f;
       }
     }
+    // streaming stores: the channels are read once, by the next pass
 #pragma unroll
-    for (int k = 0; k < 8; ++k) in.out[k * in.plane + o] = vals[k];
-    in.out[8 * in.plane + o] = ok ? 1.0f : 0.0f;
-  }
-}
-
-template <bool TRI, bool ANISO>
-__global__ void __launch_bounds__(PLAIN_TILE_THREADS)
-texture_kernel(TileInputs in, const float* __restrict__ mat_id,
-               const unsigned char* __restrict__ valid, int n_mat,
-               int two_mat) {
-  __shared__ float red_f[PLAIN_TILE_THREADS];
-  __shared__ int red_i[PLAIN_TILE_THREADS];
-  const int ntx = in.w / PLAIN_TILE_W;
-  const int ty = blockIdx.x / ntx, tx = blockIdx.x - ty * ntx;
-  const int x = tx * PLAIN_TILE_W + (threadIdx.x % PLAIN_TILE_W);
-  const int y0 = ty * PLAIN_TILE_H +
-                 (threadIdx.x / PLAIN_TILE_W) * PLAIN_ROWS_PER_THREAD;
-
-  float u[PLAIN_ROWS_PER_THREAD], v[PLAIN_ROWS_PER_THREAD];
-  int mat[PLAIN_ROWS_PER_THREAD];
-  bool val[PLAIN_ROWS_PER_THREAD];
-  int nv = 0, mn = 1 << 20, mx = -1;
-#pragma unroll
-  for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
-    const size_t o = (size_t)(y0 + r) * in.w + x;
-    u[r] = in.uv[o];
-    v[r] = in.uv[in.plane + o];
-    mat[r] = __float2int_rz(mat_id[o]);
-    val[r] = valid[o] != 0;
-    if (val[r]) {
-      ++nv;
-      mn = min(mn, mat[r]);
-      mx = max(mx, mat[r]);
-    }
-  }
-  const int n_valid = plain_tile_reduce(nv, red_i, PlainAddI());
-  const int m_min =
-      min(max(plain_tile_reduce(mn, red_i, PlainMinI()), 0), n_mat - 1);
-  const int m_max =
-      min(max(plain_tile_reduce(mx, red_i, PlainMaxI()), 0), n_mat - 1);
-  int cmin = 0, csec = 0;
-#pragma unroll
-  for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
-    cmin += (val[r] && mat[r] == m_min) ? 1 : 0;
-  }
-  const int n_min = plain_tile_reduce(cmin, red_i, PlainAddI());
-  const int dom = 2 * n_min >= n_valid ? m_min : m_max;
-  const int second = dom == m_min ? m_max : m_min;
-
-  material_pass<TRI, ANISO>(in, dom, n_valid, u, v, mat, val, x, y0, true,
-                            red_f, red_i);
-  if (two_mat && !TRI) {
-#pragma unroll
-    for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
-      csec += (val[r] && mat[r] == second) ? 1 : 0;
-    }
-    const int n_sec = plain_tile_reduce(csec, red_i, PlainAddI());
-    if (second != dom && n_sec > 0 && in.mat_tex[second] >= 0) {
-      material_pass<TRI, ANISO>(in, second, n_valid, u, v, mat, val, x, y0,
-                                false, red_f, red_i);
-    }
+    for (int k = 0; k < 8; ++k) __stcs(in.out + k * in.plane + o, vals[k]);
+    __stcs(in.out + 8 * in.plane + o, ok ? 1.0f : 0.0f);
   }
 }
 

@@ -157,15 +157,18 @@ def _spiral(taps: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=8)
 def _spiral_table(taps: int, dev: torch.device) -> torch.Tensor:
-    """_spiral on the device, copied once."""
+    """_spiral on the device, copied once (a CPU tensor for the CPU)."""
     return torch.as_tensor(_spiral(taps), device=dev)
 
 
 def shadow_resolve_plain(world_pos, linear_depth, noise, maps_packed, rows,
                          cascade_count: int, taps: int,
-                         sample_radius: float, map_size: int):
+                         sample_radius: float, map_size: int, words=None):
     """Plain version of kernel F: (H, W) f32 shadow factor, the same
-    arithmetic and tile-sum order as csrc/shadow.cu (shadow.py:167-295)."""
+    arithmetic and tile-sum order as csrc/shadow.cu (shadow.py:167-295).
+    words, a list, receives the flat index into maps_packed of the word
+    that every tap inside the map reads (one int64 tensor per cascade and
+    tap), for counting the distinct words."""
     _, h, w = world_pos.shape
     win_h, win_w = min(WINDOW_H, map_size), min(WINDOW_W, map_size)
     wx, wy, wz = to_thread_layout(world_pos)
@@ -216,12 +219,14 @@ def shadow_resolve_plain(world_pos, linear_depth, noise, maps_packed, rows,
             sy = torch.round(lv + dv).to(torch.int32)
             sxc = torch.clamp(sx, 0, win_w - 1)
             syc = torch.clamp(sy, 0, win_h - 1)
-            word = maps_c[((byw_t + (syc >> 1)) * map_size + bx_t
-                           + sxc).long()]
+            idx = ((byw_t + (syc >> 1)) * map_size + bx_t + sxc).long()
+            word = maps_c[idx]
             half = (word >> ((syc & 1) * 16)) & 0xFFFF
             texel = half.to(torch.float32) * (1.0 / 65535.0)
             inside = ((sx >= -bx_t) & (sy >= -by_t)
                       & (sx < map_size - bx_t) & (sy < map_size - by_t))
+            if words is not None:
+                words.append((idx + c * maps_c.numel())[mask & inside])
             lit = torch.where(receiver >= texel, 1.0, 0.0)
             acc = acc + torch.where(inside, lit, 1.0)
         out = torch.where(mask, acc * inv_taps, out)
@@ -279,8 +284,10 @@ def resolve_packed(world_pos, linear_depth, noise, maps_packed, rows,
                                     maps_packed, rows, cascade_count, taps,
                                     sample_radius, map_size)
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
+    # the 12-tap kernel takes the spiral by value, read from host memory
     native.launch("shadow_launch", world_pos, linear_depth, noise,
-                  maps_packed, rows, _spiral_table(taps, dev), out, h, w,
+                  maps_packed, rows, _spiral_table(taps, dev),
+                  _spiral_table(taps, torch.device("cpu")), out, h, w,
                   map_size, cascade_count, taps, float(sample_radius),
                   float(np.float32(1.0 / taps)))
     return out

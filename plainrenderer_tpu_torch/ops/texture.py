@@ -30,6 +30,8 @@ off) and texture_filter >= 2 anisotropic filtering (the minor-axis mip,
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import native
@@ -92,18 +94,51 @@ def _jmod(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
 
 
-def _unpack8(w: torch.Tensor, shift: int) -> torch.Tensor:
-    return ((w >> shift) & 0xFF).to(torch.float32) / 255.0
+@functools.lru_cache(maxsize=8)
+def byte_table(device: torch.device = torch.device("cpu")) -> torch.Tensor:
+    """(256,) f32: b / 255 for every byte b, correctly rounded (an IEEE
+    division of f32 tensors). A multiply by fl(1 / 255) is not the same
+    function: it differs for 126 of the 256 bytes. Kernel D unpacks
+    through the same table in shared memory."""
+    b = torch.arange(256, dtype=torch.float32)
+    return torch.div(b, torch.full_like(b, 255.0)).to(device)
+
+
+def _unpack8(w: torch.Tensor, shift: int, table: torch.Tensor):
+    return table[((w >> shift) & 0xFF).long()]
+
+
+def window_bricks(base, nbx, nby, bx0, by0) -> torch.Tensor:
+    """The pool bricks of a window of WIN_BY x WIN_BX bricks on a level
+    of nby x nbx bricks whose first brick is base, at brick (by0, bx0) of
+    the level's torus: (..., 6) for int tensors of shape (...), brick
+    (i, j) at index i * WIN_BX + j is base + ((by0 + i) mod nby) * nbx +
+    (bx0 + j) mod nbx, the modulos taken by max(n, 1). Window texel
+    (yi, xi), 0 <= yi < 24 and 0 <= xi < 256, is then pool word
+    (bricks[(yi >> 3) * 2 + (xi >> 7)] * 8 + (yi & 7)) * 128 + (xi & 127):
+    the same address as wrapping each tap's brick on the torus, with no
+    division per tap. Kernel D computes the same 6 per window."""
+    dev = base.device
+    i = torch.arange(WIN_BY, dtype=base.dtype, device=dev)[:, None]
+    j = torch.arange(WIN_BX, dtype=base.dtype, device=dev)[None, :]
+
+    def grid(x):
+        return x[..., None, None]
+    by = torch.remainder(grid(by0) + i, grid(torch.clamp(nby, min=1)))
+    bx = torch.remainder(grid(bx0) + j, grid(torch.clamp(nbx, min=1)))
+    bricks = grid(base) + by * grid(nbx) + bx
+    return bricks.reshape(*base.shape, WIN_BY * WIN_BX)
 
 
 def _sample_level(mip, texc, sel, n_sel, u, v, info_flat, n_mips: int,
-                  word0, word1, aniso_axis=None):
+                  word0, word1, aniso_axis=None, taps=None):
     """One (texture, mip) window of one material per tile and its taps
     (texture.py:113-271). All pixel tensors are in thread layout (n,
     THREADS, ROWS); mip and texc (n,). aniso_axis (mvx, mvy), the major
     footprint axis in mip-0 uv units per pixel, takes 3 bilinear taps at
     -1/3, 0 and 1/3 of it in this level's texel units and averages them,
-    the in-window masks ANDed (texture.py:252-271). Returns (raw (8, n,
+    the in-window masks ANDed (texture.py:252-271). taps, a list, receives
+    each tap's pool word index (n, THREADS, ROWS). Returns (raw (8, n,
     THREADS, ROWS), the 8 bilinear blends before the gamma and normal
     decode, and the in-window mask)."""
     def col(row, k):  # per-tile int32 info entry
@@ -141,9 +176,9 @@ def _sample_level(mip, texc, sel, n_sel, u, v, info_flat, n_mips: int,
     fits_x = tile(lw <= WIN_W)
     fits_y = tile(lh <= WIN_H)
     lw_t, lh_t = tile(lw), tile(lh)
-    nbx_t = tile(torch.clamp(nbx, min=1))
-    nby_t = tile(torch.clamp(nby, min=1))
+    bricks = window_bricks(base, nbx, nby, bx0, by0).long()
     w0_flat, w1_flat = word0.reshape(-1), word1.reshape(-1)
+    table = byte_table(word0.device)
 
     def tap(xi, yi):
         xi = torch.where(xi >= lw_t, xi - lw_t, xi)
@@ -154,10 +189,11 @@ def _sample_level(mip, texc, sel, n_sel, u, v, info_flat, n_mips: int,
         yi = torch.clamp(yi, 0, WIN_H - 1)
         # window brick (yi >> 3, xi >> 7) is pool brick (by0 + ., bx0 + .)
         # modulo the level's brick grid
-        by = torch.remainder(tile(by0) + (yi >> 3), nby_t)
-        bx = torch.remainder(tile(bx0) + (xi >> 7), nbx_t)
-        bidx = tile(base) + by * tile(nbx) + bx
-        flat = ((bidx * 8 + (yi & 7)) * 128 + (xi & 127)).long()
+        slot = ((yi >> 3) * WIN_BX + (xi >> 7)).long()
+        bidx = torch.gather(bricks, 1, slot.flatten(1)).reshape(slot.shape)
+        flat = (bidx * 8 + (yi & 7)) * 128 + (xi & 127)
+        if taps is not None:
+            taps.append(flat)
         return w0_flat[flat], w1_flat[flat]
 
     def bilinear_at(txo, tyo):
@@ -177,8 +213,10 @@ def _sample_level(mip, texc, sel, n_sel, u, v, info_flat, n_mips: int,
         b11 = fx * fy
 
         def blend(a, b, c, d, shift):
-            return (_unpack8(a, shift) * b00 + _unpack8(b, shift) * b01
-                    + _unpack8(c, shift) * b10 + _unpack8(d, shift) * b11)
+            return (_unpack8(a, shift, table) * b00
+                    + _unpack8(b, shift, table) * b01
+                    + _unpack8(c, shift, table) * b10
+                    + _unpack8(d, shift, table) * b11)
 
         return torch.stack(
             [blend(w000, w001, w010, w011, s) for s in (0, 8, 16, 24)]
@@ -198,14 +236,14 @@ def _sample_level(mip, texc, sel, n_sel, u, v, info_flat, n_mips: int,
 
 def _material_pass(m_sel, n_valid, u, v, duv, mat, valid, mat_tex, info,
                    word0, word1, n_mips: int, mip_bias: float,
-                   trilinear: bool = False, aniso: bool = False):
+                   trilinear: bool = False, aniso: bool = False, taps=None):
     """Window + taps for one material per tile (texture.py:79-285). All
     pixel tensors are in thread layout (n, THREADS, ROWS); m_sel (n,).
     aniso takes the mip of the footprint's minor axis (with the major
     axis / 3 as a floor) and 3 taps along its major axis; trilinear lerps
     a second window at mip + 1 by the per-pixel lod fraction, the
-    in-window masks ANDed. Returns (values (8, n, THREADS, ROWS) zeroed
-    where not ok, ok, sel)."""
+    in-window masks ANDed. taps: as _sample_level's. Returns (values (8,
+    n, THREADS, ROWS) zeroed where not ok, ok, sel)."""
     info_flat = info.reshape(-1)
 
     def tile(x):  # per-tile scalar -> broadcast over pixels
@@ -241,7 +279,8 @@ def _material_pass(m_sel, n_valid, u, v, duv, mat, valid, mat_tex, info,
     lam = torch.log2(torch.clamp(mean_rho, min=1e-6)) + mip_bias
     mip = torch.clamp(lam.to(torch.int32), 0, n_mips - 1)
 
-    level = (texc, sel, n_sel, u, v, info_flat, n_mips, word0, word1, axis)
+    level = (texc, sel, n_sel, u, v, info_flat, n_mips, word0, word1, axis,
+             taps)
     raw, in_win = _sample_level(mip, *level)
     if trilinear:
         raw_hi, in_hi = _sample_level(
@@ -278,12 +317,14 @@ def tile_materials(mat, val, mat_tex):
 
 def sample_plain(uv, duv, mat_id, valid, mat_tex, info, word0, word1,
                  n_mips: int, mip_bias: float = 0.0, two_mat: bool = True,
-                 trilinear: bool = False, aniso: bool = False):
+                 trilinear: bool = False, aniso: bool = False, words=None):
     """Plain version of kernel D: (9, H, W) f32, the same arithmetic and
     reduction order as csrc/texture.cu. Value channels are 0 where ok is
     0 (the JAX kernel leaves the dominant window's taps there; the frame
     reads values only where ok). two_mat is ignored under trilinear, whose
-    second window holds mip + 1 (texture.py:301)."""
+    second window holds mip + 1 (texture.py:301). words, a list, receives
+    the pool word index of every tap that an ok pixel's value reads (one
+    int64 tensor per tap), for counting the distinct words."""
     _, h, w = uv.shape
     u, v = to_thread_layout(uv)
     duv_t = to_thread_layout(duv)
@@ -292,12 +333,18 @@ def sample_plain(uv, duv, mat_id, valid, mat_tex, info, word0, word1,
     n_valid, dom, second, needs2 = tile_materials(mat, val, mat_tex)
     args = (n_valid, u, v, duv_t, mat, val, mat_tex, info, word0, word1,
             n_mips, mip_bias, trilinear, aniso)
-    vals, ok, _ = _material_pass(dom, *args)
+    taps = [] if words is not None else None
+    vals, ok, _ = _material_pass(dom, *args, taps=taps)
+    kept = [(taps, ok)]
     if two_mat and not trilinear:
-        vals2, ok2, sel2 = _material_pass(second, *args)
+        taps2 = [] if words is not None else None
+        vals2, ok2, sel2 = _material_pass(second, *args, taps=taps2)
         take = sel2 & needs2[:, None, None]
+        kept = [(taps, ok & ~take), (taps2, ok2 & take)]
         vals = torch.where(take, vals2, vals)
         ok = torch.where(take, ok2, ok)
+    if words is not None:
+        words.extend(f[keep] for pass_taps, keep in kept for f in pass_taps)
     out = torch.cat([vals, ok[None].to(torch.float32)])
     return from_thread_layout(out, h, w)
 

@@ -21,6 +21,8 @@ step on both sides), L's channels within kernel B's 1e-4. The dynamic
 scene's branches: B and L with the 40-row pair table (15 channels, the
 previous NDC within the same 1e-4), D under trilinear, anisotropic and
 both filters (its rule above), M at the main view's 56 rows (exact).
+Kernels D and F also run on hand-made edge cases (_texture_edge_inputs,
+_shadow_world) and F at 1 and 16 taps and 1 and 4 cascades.
 """
 
 import numpy as np
@@ -351,12 +353,42 @@ def test_depth_kernel_equals_plain(cuda, sub, row_skip, case):
         assert bool((bits == 0).any())
 
 
+def _texture_edge_inputs(rng, h, w):
+    """Tiles that the random layout may miss (mat_tex [0, 1, -1, 2, 3]):
+    an all-invalid tile; an untextured dominant material (2) with a
+    textured second (1); four materials in one tile; uv across the wrap
+    seam and far from [0, 1) (u near 1000, v near -37); derivatives 50x
+    larger in the bottom tile row, so the mip levels are smaller than the
+    24x256 window; the rest random 8x64 blocks of materials."""
+    mat = rng.integers(0, 5, (h // 8, w // 64)).repeat(8, 0).repeat(64, 1)
+    valid = rng.random((h, w)) > 0.1
+    valid[0:16, 0:128] = False
+    mat[0:16, 128:224] = 2
+    mat[0:16, 224:256] = 1
+    mat[0:16, 256:384] = np.repeat([0, 1, 3, 4], [50, 30, 28, 20])
+    mat[16:32, 128:256] = 3
+    ys, xs = np.meshgrid(np.arange(h, dtype=np.float32),
+                         np.arange(w, dtype=np.float32), indexing="ij")
+    u = 0.9 + xs * 0.003 + ys * 0.0004
+    v = 0.3 + ys * 0.002 - xs * 0.0002
+    u[16:48] += 1000.0
+    v[32:64] -= 37.0
+    u[64:80] = 0.995 + xs[64:80] * 0.0001  # the seam inside each tile
+    duv = np.abs(rng.normal(0.002, 0.002, (4, h, w)))
+    duv[:, h - 16:] *= 50.0
+    return (np.stack([u, v]).astype(np.float32), duv.astype(np.float32),
+            mat.astype(np.float32), valid)
+
+
+@pytest.mark.parametrize("case", ["random", "edges"])
+@pytest.mark.parametrize("two_mat", [True, False])
 @pytest.mark.parametrize("filters", [
     {}, dict(trilinear=True), dict(aniso=True),
     dict(trilinear=True, aniso=True)])
-def test_texture_kernel_equals_plain(cuda, filters):
+def test_texture_kernel_equals_plain(cuda, filters, two_mat, case):
     """Kernel D's bilinear variant and its trilinear, anisotropic and
-    trilinear + anisotropic ones."""
+    trilinear + anisotropic ones, with and without two_mat, on random
+    tiles and on the edge cases of _texture_edge_inputs."""
     rng = np.random.default_rng(15)
     mats = [procedural.procedural_texture([0.7, 0.4, 0.3], kind, size=size,
                                           seed=i)
@@ -365,28 +397,74 @@ def test_texture_kernel_equals_plain(cuda, filters):
                  ("checker", 16)])]
     pool = textures.build_texture_pool(mats)
     h, w = 128, 384
-    ys, xs = np.meshgrid(np.arange(h, dtype=np.float32),
-                         np.arange(w, dtype=np.float32), indexing="ij")
-    uv = np.stack([0.9 + xs * 0.003 + ys * 0.0004,
-                   0.3 + ys * 0.002 - xs * 0.0002]).astype(np.float32)
-    duv = np.abs(rng.normal(0.002, 0.002, (4, h, w))).astype(np.float32)
-    mat = (rng.integers(0, 5, (h // 8, w // 64)).repeat(8, 0).repeat(64, 1)
-           ).astype(np.float32)
-    valid = rng.random((h, w)) > 0.1
+    if case == "random":
+        ys, xs = np.meshgrid(np.arange(h, dtype=np.float32),
+                             np.arange(w, dtype=np.float32), indexing="ij")
+        uv = np.stack([0.9 + xs * 0.003 + ys * 0.0004,
+                       0.3 + ys * 0.002 - xs * 0.0002]).astype(np.float32)
+        duv = np.abs(rng.normal(0.002, 0.002, (4, h, w))).astype(np.float32)
+        mat = (rng.integers(0, 5, (h // 8, w // 64)).repeat(8, 0)
+               .repeat(64, 1)).astype(np.float32)
+        valid = rng.random((h, w)) > 0.1
+    else:
+        uv, duv, mat, valid = _texture_edge_inputs(rng, h, w)
     args = [torch.as_tensor(a, device=cuda) for a in (
         uv, duv, mat, valid, np.asarray([0, 1, -1, 2, 3], np.int32),
         pool.info, pool.word0, pool.word1)]
-    out = texture.sample_materials(*args, n_mips=pool.n_mips, **filters)
-    ref = texture.sample_plain(*args, n_mips=pool.n_mips, **filters)
+    kw = dict(n_mips=pool.n_mips, two_mat=two_mat, **filters)
+    before = native.launch_counts()["texture"]
+    out = texture.sample_materials(*args, **kw)
+    assert native.launch_counts()["texture"] == before + 1
+    ref = texture.sample_plain(*args, **kw)
     torch.testing.assert_close(out[8], ref[8], rtol=0, atol=0)
     ok = ref[8] > 0.5
-    # a filtered pixel is ok only where every tap of both windows is
-    assert (0.1 if filters else 0.2) < float(ok.float().mean()) < 0.95
+    if case == "random":
+        # a filtered pixel is ok only where every tap of both windows is
+        assert (0.1 if filters else 0.2) < float(ok.float().mean()) < 0.95
+    else:
+        assert not bool(ok[0:16, 0:128].any())  # all invalid
+        assert not bool(ok[0:16, 128:224].any())  # untextured dominant
+        second = bool(ok[0:16, 224:256].any())
+        assert second == (two_mat and not filters.get("trilinear", False))
+        assert bool(ok[16:64].any()) and bool(ok[64:80].any())
+        assert bool(ok[h - 16:].any())
     torch.testing.assert_close(out[:8][:, ok], ref[:8][:, ok], rtol=0,
                                atol=1e-5)
 
 
-def test_shadow_kernel_equals_plain(cuda):
+def _shadow_world(rng, case, h, w):
+    """World positions and linear depth: random points over the atrium
+    (every tile straddles every cascade), a depth ramp across the screen
+    (tiles at a split straddle two), or points 3x farther out (many taps
+    leave the map)."""
+    cam = np.float32([-3.0, -1.8, 0.3])
+    fwd = np.asarray([0.94, 0.14, 0.31], np.float32)
+    fwd /= np.linalg.norm(fwd)
+    if case == "ramp":
+        ys, xs = np.meshgrid(np.arange(h, dtype=np.float32),
+                             np.arange(w, dtype=np.float32), indexing="ij")
+        side = np.float32([-0.31, 0.0, 0.95])
+        depth = 0.2 + xs * (30.0 / w) + ys * 0.01
+        world = (cam[:, None, None] + fwd[:, None, None] * depth
+                 + side[:, None, None] * (ys - h / 2) * 0.05)
+    else:
+        world = np.stack([rng.uniform(-1, 12, (h, w)),
+                          rng.uniform(-6, 0, (h, w)),
+                          rng.uniform(-5.5, 5.5, (h, w))])
+        if case == "edge":
+            world = cam[:, None, None] + 3.0 * (world - cam[:, None, None])
+    lin = np.einsum("c,chw->hw", fwd, world - cam[:, None, None])
+    lin[rng.random((h, w)) < 0.05] = 0.0
+    return world.astype(np.float32), lin.astype(np.float32)
+
+
+@pytest.mark.parametrize("case,cascades,taps", [
+    ("random", 3, 12), ("ramp", 3, 12), ("edge", 3, 12), ("random", 1, 12),
+    ("random", 4, 12), ("random", 3, 1), ("random", 3, 16)])
+def test_shadow_kernel_equals_plain(cuda, case, cascades, taps):
+    """Kernel F at the default 12 taps and at run-time counts 1 and 16,
+    with 1, 3 and 4 cascades, on tiles that straddle cascades and with
+    taps off the map edge."""
     setup, sub, nb, ntx, (mats, splits, scales) = _atlas_setup(cuda)
     pairs = raster.build_pairs(setup, nb, ntx, bin_rows=sub, order_rows=True,
                                n_views=3, tile_cap=1 << 15)
@@ -394,28 +472,47 @@ def test_shadow_kernel_equals_plain(cuda):
                                       with_attrs=False)
     atlas = raster.rasterize_depth(pe, pairs, nb, ntx, sub=sub,
                                    row_skip=True).reshape(3, 512, 512)
-    maps = torch.cat([atlas, torch.zeros_like(atlas[:1])])
+    maps = torch.cat([atlas, atlas[:1] if cascades == 4
+                      else torch.zeros_like(atlas[:1])])
+    if cascades != 3:
+        def vec(v):
+            v = np.asarray(v, np.float32)
+            return torch.as_tensor(v / np.linalg.norm(v), device=cuda)
+        f = lambda x: torch.tensor(x, dtype=torch.float32, device=cuda)
+        mats, splits, scales = shadow.compute_cascade_info(
+            f(0.004), f(0.3), f([-3.0, -1.8, 0.3]), vec([0.94, 0.14, 0.31]),
+            vec([0.13, -0.99, 0.04]), vec([-0.31, 0.0, 0.95]), 0.3153,
+            16 / 9, 0.1, 300.0, vec([0.3, -0.8, 0.45]), cascades, f(3.0),
+            f(30.0))
     rng = np.random.default_rng(16)
     h, w = 64, 256
-    world = np.stack([rng.uniform(-1, 12, (h, w)),
-                      rng.uniform(-6, 0, (h, w)),
-                      rng.uniform(-5.5, 5.5, (h, w))]).astype(np.float32)
-    fwd = np.asarray([0.94, 0.14, 0.31], np.float32)
-    lin = np.einsum("c,chw->hw", fwd / np.linalg.norm(fwd),
-                    world - np.float32([-3.0, -1.8, 0.3])[:, None, None])
-    lin[rng.random((h, w)) < 0.05] = 0.0
+    world, lin = _shadow_world(rng, case, h, w)
     args = [torch.as_tensor(a.astype(np.float32), device=cuda)
             for a in (world, lin, rng.random((h, w)))]
     before = native.launch_counts()["shadow"]
-    out = shadow.shadow_resolve(*args, maps, mats, scales, splits, 3)
+    out = shadow.shadow_resolve(*args, maps, mats, scales, splits, cascades,
+                                taps=taps)
     assert native.launch_counts()["shadow"] == before + 1
+    rows = shadow.cascade_rows(mats, scales, splits)
+    words = []
     ref = shadow.shadow_resolve_plain(
-        *args, shadow.pack_shadow_maps_u16(maps),
-        shadow.cascade_rows(mats, scales, splits), 3, 12,
-        shadow.SHADOW_SAMPLE_RADIUS, 512)
+        *args, shadow.pack_shadow_maps_u16(maps), rows, cascades, taps,
+        shadow.SHADOW_SAMPLE_RADIUS, 512, words=words)
     diff = (out - ref).abs()
     assert float((diff == 0).float().mean()) >= 0.999
-    assert float(diff.max()) <= 1.0 / 12 + 1e-6
+    assert float(diff.max()) <= 1.0 / taps + 1e-6
+    valid = args[1] > 0
+    in_map = sum(int(wd.numel()) for wd in words)
+    if case == "edge":  # many taps read no word: they left the map
+        assert in_map < 0.9 * taps * int(valid.sum())
+    if case in ("ramp", "random") and cascades > 1:
+        cas = torch.zeros_like(args[1], dtype=torch.int64)
+        for c in range(cascades - 1):
+            cas += (args[1] >= rows[c, 18]).long()
+        per_tile = [len(torch.unique(cas[y:y + 16, x:x + 128][
+            valid[y:y + 16, x:x + 128]]))
+            for y in range(0, h, 16) for x in range(0, w, 128)]
+        assert max(per_tile) >= 2
 
 
 def _gi_case(device, seed=7, h=64, w=256):
