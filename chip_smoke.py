@@ -26,9 +26,7 @@ to the CPU plain path (> 99.9% of pixels within 2 LSB), times each
 kernel, its plain version and its PyTorch yardstick on the device
 (cuda_ms: CUDA events around back-to-back calls queued behind
 torch.cuda._sleep, with the host's enqueue time per call beside it and
-the check that the enqueue ended inside the sleep; kernels D and F also
-against their previous designs, csrc/previous/, built beside the port)
-with
+the check that the enqueue ended inside the sleep) with
 its bound from this run's inputs (the kernels line names that row,
 timed_on, and the run its launches come from, launches_on), and drives
 warm-up + timed frames with
@@ -43,7 +41,6 @@ The report goes to chiprun_out/chip_smoke/.
 from __future__ import annotations
 
 import collections
-import concurrent.futures
 import dataclasses
 import json
 import subprocess
@@ -291,30 +288,22 @@ class Ctx:
         self.earlier, self.variants = {}, {}
 
     def kernel(self, name, fn, reps, plain, plain_reps, bound, err,
-               library=None, variant=None, previous=None):
+               library=None, variant=None):
         """Time kernel `name`, its plain version and its PyTorch yardstick
         (cuda_ms: device time, host enqueue us per call, the check that the
         enqueue ended within the sleep); keep its bound (bytes s,
         operations s), its time as a multiple of the bound (x_bound), its
         error and the row whose inputs timed it (self.path). The L2 note
         compares the bytes a call touches (the bound's bytes) with the 50
-        MB L2: back-to-back calls on inputs that fit read them warm. With
-        `previous` (the kernel's previous design on the same inputs) the
-        two are timed in turns, kernel, previous, previous, kernel, and
-        ms and previous_ms are the means of each pair. A kernel timed again
-        keeps its earlier time in `earlier`; a variant (another branch of
-        the same kernel) goes into `variants` beside the default one."""
-        t = cuda_ms(fn, reps)
-        runs = [t["ms"]]
-        if previous is not None:
-            prev_runs = [cuda_ms(previous, reps)["ms"] for _ in range(2)]
-            runs.append(cuda_ms(fn, reps)["ms"])
-        tp = cuda_ms(plain, plain_reps, strict=False)
+        MB L2: back-to-back calls on inputs that fit read them warm. A
+        kernel timed again keeps its earlier time in `earlier`; a variant
+        (another branch of the same kernel) goes into `variants` beside the
+        default one."""
+        t, tp = cuda_ms(fn, reps), cuda_ms(plain, plain_reps, strict=False)
         tl = library and cuda_ms(library, 50)
         touched = bound[0] * HBM_BYTES_PER_S
-        ms = float(np.mean(runs))
         result = dict(
-            timed_on=self.path, ms=ms, host_us=t["host_us"],
+            timed_on=self.path, ms=t["ms"], host_us=t["host_us"],
             enqueue_inside_sleep=t["inside"], reps=t["reps"],
             sleep_ms=t["sleep_ms"], plain_ms=tp["ms"],
             plain_host_us=tp["host_us"],
@@ -322,26 +311,17 @@ class Ctx:
             library_ms=tl and tl["ms"], library_host_us=tl and tl["host_us"],
             max_abs_err=err, bound_ms=max(bound) * 1e3,
             bound_by="bytes" if bound[0] >= bound[1] else "operations",
-            x_bound=ms / (max(bound) * 1e3),
+            x_bound=t["ms"] / (max(bound) * 1e3),
             l2=f"{touched / 1e6:.1f} MB touched per call: "
                + ("fits in the 50 MB L2, read warm" if touched < L2_BYTES
                   else "exceeds the 50 MB L2"))
         lib = "none" if tl is None else f"{tl['ms']:.4f} ms"
-        prev = ""
-        if previous is not None:
-            result.update(ms_runs=runs, previous_ms=float(np.mean(prev_runs)),
-                          previous_ms_runs=prev_runs,
-                          speedup=float(np.mean(prev_runs)) / ms)
-            prev = (f"; previous design {result['previous_ms']:.4f} ms "
-                    f"(runs {runs[0]:.4f} {prev_runs[0]:.4f} "
-                    f"{prev_runs[1]:.4f} {runs[1]:.4f}), "
-                    f"{result['speedup']:.2f}x")
         print(f"{name}{'' if variant is None else f' ({variant})'}: "
-              f"{ms:.4f} ms device ({t['host_us']:.1f} us host enqueue "
+              f"{t['ms']:.4f} ms device ({t['host_us']:.1f} us host enqueue "
               f"per call, inside the sleep: {t['inside']}), bound "
               f"{result['bound_ms']:.4f} ms ({result['bound_by']}), "
               f"{result['x_bound']:.2f}x the bound, plain "
-              f"{tp['ms']:.3f} ms, library {lib}{prev}; {result['l2']}",
+              f"{tp['ms']:.3f} ms, library {lib}; {result['l2']}",
               flush=True)
         if variant is not None:
             self.variants.setdefault(name, {})[variant] = result
@@ -349,8 +329,8 @@ class Ctx:
         if name in self.results:
             old = self.results[name]
             self.earlier.setdefault(name, []).append(
-                {k: old[k] for k in ("timed_on", "ms", "host_us", "plain_ms",
-                                     "previous_ms") if k in old})
+                {k: old[k] for k in ("timed_on", "ms", "host_us",
+                                     "plain_ms")})
         self.results[name] = result
 
 
@@ -704,31 +684,14 @@ def check_and_time_c(ctx, scene, gbuf, vis):
                lambda: table_rows.index_select(0, gather_idx))
 
 
-def previous_texture(uv, duv, mat_id, valid, mat_tex, info, word0, word1,
-                     *, n_mips, mip_bias=0.0, trilinear=False, aniso=False,
-                     two_mat=True):
-    """Kernel D's previous design (csrc/previous/texture.cu) with
-    texture.sample_materials' arguments."""
-    _, h, w = uv.shape
-    out = torch.empty((texture.N_OUT, h, w), dtype=torch.float32,
-                      device=uv.device)
-    native.launch_previous(
-        "texture_previous_launch", uv, duv, mat_id, valid, mat_tex, info,
-        word0, word1, out, h, w, mat_tex.shape[0], n_mips,
-        int(two_mat and not trilinear), int(trilinear), int(aniso),
-        float(mip_bias))
-    return out
-
-
 def check_and_time_d(ctx, scene, targs, kw, what="kernel D",
                      variant=None) -> dict:
     """Kernel D on a frame's recorded inputs against its plain version (ok
     equal on every pixel, values within 1e-5 where ok), then timed with
-    its previous design on the same inputs (both write the same bits) and
     its bound: uv, 4 derivatives, id and valid (29 B) read and 9 f32 (36
     B) written per pixel, plus 8 B for every distinct pool word that the
-    taps of the ok pixels read (sample_plain's words; the count before
-    this one took every sampled window whole); no single PyTorch call
+    taps of the ok pixels read (sample_plain's words; window_count_bytes
+    keeps the looser count of every sampled window whole); no single PyTorch call
     computes a windowed, fallback-masked brick sample."""
     mat_id, valid = targs[2], targs[3]
     n_pix = valid.numel()
@@ -743,14 +706,13 @@ def check_and_time_d(ctx, scene, targs, kw, what="kernel D",
     tiles_differ = float(texture.to_thread_layout(bad_px).flatten(1)
                          .any(dim=1).float().mean())
     ok_share = float(ok_k[valid].float().mean())
-    prev_same = bool(torch.equal(previous_texture(*targs, **kw), tex_k))
     flags = {k: kw[k] for k in ("trilinear", "aniso", "two_mat",
                                 "mip_bias")}
     print(f"{what} {flags}: ok equal on "
           f"{float((ok_k == ok_p).float().mean()):.6f} of pixels, values "
           f"max |err| {err_d:.3e} (limit 1e-5), {tiles_differ:.3e} of "
-          f"tiles differ; {ok_share:.4f} of covered pixels textured; the "
-          f"previous design's output is bit-equal: {prev_same}", flush=True)
+          f"tiles differ; {ok_share:.4f} of covered pixels textured",
+          flush=True)
     check(bool((ok_k == ok_p).all()), f"{what} ok channel vs plain")
     check(err_d <= 1e-5, f"{what} values vs plain")
     n_valid_t, dom_t, _, needs2_t = texture.tile_materials(
@@ -770,13 +732,11 @@ def check_and_time_d(ctx, scene, targs, kw, what="kernel D",
     ctx.kernel("texture", lambda: texture.sample_materials(*targs, **kw), 20,
                lambda: texture.sample_plain(*targs, **kw), 3,
                (d_bytes / HBM_BYTES_PER_S, d_ops / FP32_OPS_PER_S), err_d,
-               variant=variant, previous=lambda: previous_texture(*targs,
-                                                                  **kw))
+               variant=variant)
     result = ctx.results["texture"] if variant is None \
         else ctx.variants["texture"][variant]
     result.update(
-        distinct_texel_words=distinct, previous_output_equal=prev_same,
-        windows=windows, window_count_bytes=(
+        distinct_texel_words=distinct, windows=windows, window_count_bytes=(
             n_pix * 65 + windows * texture.WIN_H * texture.WIN_W * 8))
     return dict(tiles_differ=tiles_differ, ok_share=ok_share,
                 windows=windows, distinct_texel_words=distinct)
@@ -837,28 +797,13 @@ def check_and_time_e(ctx, atlas, n_cas, variant=None):
                     nonzero_bins=int((counts > 0).sum())))
 
 
-def previous_shadow(world_pos, linear_depth, noise, maps_packed, rows,
-                    cascade_count, taps, sample_radius):
-    """Kernel F's previous design (csrc/previous/shadow.cu) with
-    shadow.resolve_packed's arguments."""
-    _, h, w = world_pos.shape
-    out = torch.empty((h, w), dtype=torch.float32, device=world_pos.device)
-    native.launch_previous(
-        "shadow_previous_launch", world_pos, linear_depth, noise,
-        maps_packed, rows, shadow._spiral_table(taps, world_pos.device), out,
-        h, w, maps_packed.shape[-1], cascade_count, taps,
-        float(sample_radius), float(np.float32(1.0 / taps)))
-    return out
-
-
 def check_and_time_f(ctx, atlas, resolve_args, settings, valid):
     """Kernel F on the frame's world position, depth and noise against
-    its plain version (>= 99.9% equal, the rest within 1/taps), timed with
-    its previous design on the same inputs; bound: 20 B read and 4 B
-    written per pixel plus 4 B for every distinct map word that a tap
-    inside the map reads (shadow_resolve_plain's words; the count before
-    this one took every word of the used cascades' maps), ~24 flops per
-    tap per covered pixel."""
+    its plain version (>= 99.9% equal, the rest within 1/taps); bound:
+    20 B read and 4 B written per pixel plus 4 B for every distinct map
+    word that a tap inside the map reads (shadow_resolve_plain's words;
+    map_count_bytes keeps the looser count of every word of the used
+    cascades' maps), ~24 flops per tap per covered pixel."""
     n_cas = settings.shadows.cascade_count
     sres = settings.shadows.resolution
     taps = settings.shadows.pcf_taps
@@ -875,21 +820,19 @@ def check_and_time_f(ctx, atlas, resolve_args, settings, valid):
     f_equal = float((diff_f == 0).float().mean())
     err_f = float(diff_f.max())
     shadowed = float((sh_k[valid] < 0.5).float().mean())
-    prev_same = bool(torch.equal(previous_shadow(*pargs), sh_k))
     print(f"kernel F: {f_equal:.6f} of pixels equal (limit 0.999), max "
           f"|err| {err_f:.4f} (limit 1/{taps}); {shadowed:.3f} of covered "
-          f"pixels in shadow; {distinct} distinct map words read; the "
-          f"previous design's output is bit-equal: {prev_same}", flush=True)
+          f"pixels in shadow; {distinct} distinct map words read",
+          flush=True)
     check(f_equal >= 0.999, "kernel F vs plain")
     check(err_f <= 1.0 / taps + 1e-6, "kernel F error bound")
     n_pix = valid.numel()
     ctx.kernel("shadow", lambda: shadow.resolve_packed(*pargs), 20,
                lambda: shadow.shadow_resolve_plain(*pargs, sres), 3,
                ((n_pix * 24 + distinct * 4) / HBM_BYTES_PER_S,
-                float(valid.sum()) * taps * 24 / FP32_OPS_PER_S), err_f,
-               previous=lambda: previous_shadow(*pargs))
+                float(valid.sum()) * taps * 24 / FP32_OPS_PER_S), err_f)
     ctx.results["shadow"].update(
-        distinct_map_words=distinct, previous_output_equal=prev_same,
+        distinct_map_words=distinct,
         map_count_bytes=n_pix * 24 + n_cas * (sres // 2) * sres * 4)
     return dict(shadow_equal_share=f_equal, shadowed_share=shadowed,
                 shadow_distinct_map_words=distinct)
@@ -1794,20 +1737,13 @@ def main() -> int:
     ctx = Ctx(torch.device("cuda"))
     ctx.report["card"] = smi
     t_start = t0 = time.time()
-    # the previous designs of D and F build beside the port's kernels
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        prev_build = pool.submit(native.build, native.PREVIOUS_SOURCES)
-        lib_path = native.build()
-        prev_path = prev_build.result()
+    lib_path = native.build()
     native.library()
-    native.previous_library()
     ctx.report["build_s"] = time.time() - t0
     print(f"build: {ctx.report['build_s']:.1f} s -> {lib_path}", flush=True)
-    for name, path in (("ptxas.log", lib_path),
-                       ("ptxas_previous.log", prev_path)):
-        log = path.parent / "ptxas.log"
-        (OUT / name).write_text(log.read_text() if log.exists()
-                                else "cached build\n")
+    (OUT / "ptxas.log").write_text(
+        (lib_path.parent / "ptxas.log").read_text()
+        if (lib_path.parent / "ptxas.log").exists() else "cached build\n")
     ctx.luts = frame.bake_static_luts(config.RenderSettings(), device=ctx.dev)
     exts = [cam_mod.extrinsic_from_angles(  # bench.py:105-110's path
         [-9.0 + 0.02 * t, -1.8, 0.3 * np.sin(t * 0.05)], pitch_deg=8.0,

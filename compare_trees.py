@@ -13,12 +13,14 @@ default RenderSettings() and pair_budget_scale 2.0, and drives
 warmup + timed frames on the bench camera path (chip_smoke.drive). It then
 times kernels E (rasterize_depth on frame 0's opaque casters), B
 (rasterize_gbuffer on frame 0's opaque main view), D (sample_materials on
-frame 0's G-buffer) and F (resolve_packed on frame 0's shadow inputs) on
+frame 0's G-buffer, with the frame's keywords and again trilinear +
+anisotropic and trilinear, texture_filter 2 and 1) and F (resolve_packed on frame 0's shadow inputs) on
 the device with chip_smoke.cuda_ms of THIS checkout (CUDA events behind
 torch.cuda._sleep), with each tree's own wrapper. Every tree must give the
 same atlas bits (kernel E is exact); the G-buffer's, D's and F's checksums
-are reported per run (B follows the raster rule, so trees may differ
-there; D and F are bit-equal between their designs). Alternating the order
+are reported per run (B, D and F have rules that allow a difference
+from their plain versions, which chip_smoke.py checks, so trees may
+differ there). Alternating the order
 separates a tree's effect from drift over the call. Prints one JSON line
 per process and a summary; the report goes to
 chiprun_out/compare_trees/report.json.
@@ -40,7 +42,8 @@ OUT = ROOT / "chiprun_out" / "compare_trees"
 
 
 def one(tree: Path, warmup: int, timed: int) -> dict:
-    """Slice 5's frames and kernels E and B with the port of `tree`."""
+    """Slice 5's frames and kernels E, B, D and F with the port of
+    `tree`."""
     sys.path.insert(0, str(tree))
     import numpy as np
     import torch
@@ -103,8 +106,8 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
               shadow.cascade_rows(*sargs[4:7]), sargs[7],
               settings.shadows.pcf_taps, settings.shadows.sample_radius)
 
-    def d():
-        return texture.sample_materials(*targs, **d_kw)
+    def d(**filters):
+        return texture.sample_materials(*targs, **dict(d_kw, **filters))
 
     def f():
         return shadow.resolve_packed(*f_args)
@@ -125,6 +128,8 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
         shadow_atlas_ms=passes["shadow_atlas"], gbuffer_ms=passes["gbuffer"],
         launches=run["launches"], e=timer.cuda_ms(e, 20),
         b=timer.cuda_ms(b, 20), d=timer.cuda_ms(d, 20),
+        d_tri_aniso=timer.cuda_ms(lambda: d(trilinear=True, aniso=True), 20),
+        d_tri=timer.cuda_ms(lambda: d(trilinear=True, aniso=False), 20),
         f=timer.cuda_ms(f, 20))
 
 
@@ -169,12 +174,12 @@ def main() -> int:
         results.append(r)
         print(json.dumps({k: r[k] for k in (
             "name", "frame_ms", "host_wall_ms", "shadow_atlas_ms",
-            "gbuffer_ms", "e", "b", "d", "f", "build_s")}), flush=True)
-    for key in ("atlas", "texture", "shadow"):  # E, D and F: equal bits
-        sums = {r["sums"][key] for r in results}
-        if len(sums) != 1:
-            raise SystemExit(f"compare_trees: the trees' {key} outputs "
-                             f"differ: {sums}")
+            "gbuffer_ms", "e", "b", "d", "d_tri_aniso", "d_tri", "f",
+            "build_s")}), flush=True)
+    atlases = {r["sums"]["atlas"] for r in results}
+    if len(atlases) != 1:  # kernel E is exact in every tree
+        raise SystemExit(f"compare_trees: the trees' atlases differ: "
+                         f"{atlases}")
     summary = {}
     for name in trees:
         rs = [r for r in results if r["name"] == name]
@@ -189,6 +194,8 @@ def main() -> int:
                 ("b_ms", lambda r: r["b"]["ms"]),
                 ("b_host_us", lambda r: r["b"]["host_us"]),
                 ("d_ms", lambda r: r["d"]["ms"]),
+                ("d_tri_aniso_ms", lambda r: r["d_tri_aniso"]["ms"]),
+                ("d_tri_ms", lambda r: r["d_tri"]["ms"]),
                 ("f_ms", lambda r: r["f"]["ms"]))}
         summary[name]["gbuffer_sums"] = sorted(
             {json.dumps(r["sums"], sort_keys=True) for r in rs})

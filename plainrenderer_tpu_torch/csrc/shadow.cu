@@ -29,7 +29,7 @@
 // its taps read: ~0.02 ms at 3.35 TB/s. Taps hit neighbouring words, so
 // most come from L1/L2.
 //
-// Design (the previous one, csrc/previous/shadow.cu, ran three tile
+// Design (the previous one, git 58c782b, ran three tile
 // reductions for every cascade, used or not, transformed every pixel into
 // all cascades, read the cascade rows from device memory and ran the taps,
 // a runtime count, inside the loop over cascades):
@@ -56,7 +56,13 @@
 //     (H100 80GB HBM3 at 700 W, compare_trees.py). Staging the window as
 //     packed words alone, before the u16 texels, the spiral by value and
 //     the per-pixel tests, measured no gain: the kernel is bound by its
-//     instruction count, not by its loads.
+//     instruction count, not by its loads;
+//   - the per-pixel fast path and the spiral by value, each taken out
+//     alone (compare_trees.py on bench.py's scene, H100 80GB HBM3 at
+//     700 W, two alternated runs each): as kept 0.0807 / 0.0810 ms; every
+//     pixel on the general path 0.0967 / 0.0971 (+20%); the spiral read
+//     through __ldg 0.0842 / 0.0841 (+4%, and 8 B of spill); both
+//     0.0997 / 0.0996.
 #include "common.cuh"
 
 #define SHADOW_MAX_CASCADES 4  // = ops/shadow.py:MAX_CASCADES
@@ -347,6 +353,8 @@ shadow_kernel(const float* __restrict__ world_pos,
 
 // spiral: the (2, taps) cos / sin table in device memory; spiral_host:
 // the same table in host memory, read here for the 12-tap kernel's params
+// (the table's bits are ops/shadow.py:_spiral's, the plain version's, so
+// they are passed in rather than recomputed with another libm)
 extern "C" int shadow_launch(const void* world_pos, const void* lin_depth,
                              const void* noise, const void* maps,
                              const void* rows, const void* spiral,

@@ -39,7 +39,7 @@
 // ~0.04 ms at 3.35 TB/s), plus the distinct texel words its taps read
 // (8 B each), mostly L2 hits because neighbouring pixels share texels.
 //
-// Design (the previous one, csrc/previous/texture.cu, ran up to ~170
+// Design (the previous one, git 58c782b, ran up to ~170
 // block barriers per tile, an IEEE division per unpacked byte, two integer
 // modulos per tap and kept every window's fields in registers, with
 // spills):

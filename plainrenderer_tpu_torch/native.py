@@ -13,11 +13,6 @@ launch() is the only place that bumps a kernel's launch count, and the
 wrappers in ops/ call it only on the branch that runs the kernel, so a
 count read after a run says how many times the run went through that
 kernel.
-
-csrc/previous/ holds earlier designs of redesigned kernels. They are not
-part of the frame: previous_library() builds them into a library of their
-own, and launch_previous() runs one (uncounted) so that chip_smoke.py can
-time it beside the current kernel on the same inputs.
 """
 
 from __future__ import annotations
@@ -37,7 +32,6 @@ SOURCES = ("expand_keys.cu", "gbuffer.cu", "material.cu", "texture.cu",
            "depth.cu", "shadow.cu", "sdfgi.cu", "packed_planes.cu",
            "history_taps.cu", "depth_alpha.cu", "gbuffer_alpha.cu",
            "expand_rows.cu")
-PREVIOUS_SOURCES = ("previous/texture.cu", "previous/shadow.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -85,16 +79,8 @@ _ENTRIES = {
     "expand_rows_launch": ("expand_rows", [_P] * 4 + [_I] * 3 + [_P]),
 }
 
-# the previous designs' entry points: the signatures of texture_launch and
-# shadow_launch before their redesign
-_PREVIOUS_ENTRIES = {
-    "texture_previous_launch": [_P] * 9 + [_I] * 7 + [_F, _P],
-    "shadow_previous_launch": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
-}
-
 _launches = {key: 0 for key, _ in _ENTRIES.values()}
 _lib = None
-_previous_lib = None
 _lock = threading.Lock()
 
 
@@ -118,26 +104,25 @@ def _nvcc() -> str:
     return found
 
 
-def _build_dir(sources) -> Path:
+def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sources + ("common.cuh",):
+    for name in SOURCES + ("common.cuh",):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build(sources: tuple = SOURCES) -> Path:
-    """Compile these csrc/ sources (by default the port's kernels) into
-    one shared library (cached by content hash); returns its path. Raises
-    with nvcc's output when a compile fails."""
-    out_dir = _build_dir(sources)
+def build() -> Path:
+    """Compile csrc/ into one shared library (cached by content hash);
+    returns its path. Raises with nvcc's output when a compile fails."""
+    out_dir = _build_dir()
     lib_path = out_dir / "libplain_kernels.so"
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for name in sources:
+    for name in SOURCES:
         # per-process names: concurrent first uses must not share files
         obj = out_dir / f"{Path(name).stem}.{os.getpid()}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC / name),
@@ -178,41 +163,18 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def previous_library() -> ctypes.CDLL:
-    """The previous designs' library (PREVIOUS_SOURCES), built on first
-    use."""
-    global _previous_lib
-    with _lock:
-        if _previous_lib is None:
-            lib = ctypes.CDLL(str(build(PREVIOUS_SOURCES)))
-            for name, argtypes in _PREVIOUS_ENTRIES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _previous_lib = lib
-    return _previous_lib
-
-
-def _call(lib, entry: str, args) -> None:
+def launch(entry: str, *args) -> None:
+    """Call one C entry point with args (tensors pass their data_ptr(),
+    ints pass as they are) on the current CUDA stream, raise on a launch
+    error, and count the launch."""
     import torch
 
+    lib = library()
     stream = torch.cuda.current_stream().cuda_stream
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args]
     err = getattr(lib, entry)(*c_args, stream)
     if err != 0:
-        msg = library().plain_kernels_error_string(err).decode()
+        msg = lib.plain_kernels_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")
-
-
-def launch(entry: str, *args) -> None:
-    """Call one C entry point with args (tensors pass their data_ptr(),
-    ints pass as they are) on the current CUDA stream, raise on a launch
-    error, and count the launch."""
-    _call(library(), entry, args)
     _launches[_ENTRIES[entry][0]] += 1
-
-
-def launch_previous(entry: str, *args) -> None:
-    """launch() for a previous design's entry point, not counted."""
-    _call(previous_library(), entry, args)

@@ -7,9 +7,7 @@ so tests/test_torch_texture.py and tests/test_torch_texture_filter.py hold
 them to the JAX package. Here: the table is the correctly rounded division
 (a multiply by fl(1/255) is not), and the brick table gives the same word
 as wrapping every tap's brick on the level's torus (torch.remainder), for
-every texel of the window. The numpy cases check the rounding rules of
-csrc/common.cuh (plain_rint_int, plain_floor_int) and kernel F's lit
-threshold (csrc/shadow.cu: lit_threshold), emulated in f32.
+every texel of the window.
 """
 
 import numpy as np
@@ -48,8 +46,9 @@ def _torus_words(base, nbx, nby, bx0, by0, xi, yi):
 
 
 # (level width, level height, window origin range in bricks): levels
-# larger and smaller than the 24x256 window, one brick column (lw <= 128),
-# rows shorter than a brick (lh < 8), and origins far on both sides
+# larger and smaller than the 24x256 window and of its size, one brick
+# column (lw <= 128), one brick in all, rows shorter than a brick (lh < 8),
+# and origins far on both sides
 LEVELS = {
     "large": (2048, 1024, 40),
     "wide": (4096, 16, 9),
@@ -58,6 +57,8 @@ LEVELS = {
     "tiny": (16, 4, 5),
     "one_texel_row": (256, 1, 3),
     "odd": (384, 40, 11),
+    "window_size": (256, 24, 4),
+    "one_brick": (128, 8, 6),
 }
 
 
@@ -102,59 +103,3 @@ def test_window_bricks_int32_and_batched():
               for a in range(2) for c in range(2)]
     assert bricks.reshape(4, 6).tolist() == [[int(e) for e in row]
                                              for row in expect]
-
-
-MAGIC = np.float32(12582912.0)  # 1.5 * 2^23
-
-
-def _values(rng):
-    x = np.concatenate([rng.uniform(-300, 300, 200_000),
-                        np.arange(-600, 601) * 0.5,
-                        rng.uniform(-4.19e6, 4.19e6, 100_000),
-                        [0.0, -0.0]]).astype(np.float32)
-    return np.concatenate([x, np.nextafter(x, np.float32(np.inf)),
-                           np.nextafter(x, np.float32(-np.inf))])
-
-
-def test_rint_and_floor_by_the_magic_constant():
-    """plain_rint_int and plain_floor_int for |x| < 2^22: x + 1.5 * 2^23
-    rounds half to even into the low mantissa bits."""
-    x = _values(np.random.default_rng(0))
-    assert (np.abs(x) < 4194304.0).all()
-    r = x + MAGIC
-    ri = r.view(np.int32).astype(np.int64) - 0x4B400000
-    np.testing.assert_array_equal(ri, np.rint(x).astype(np.int64))
-    rf = r - MAGIC
-    up = (rf > x).astype(np.int64)
-    np.testing.assert_array_equal(ri - up, np.floor(x).astype(np.int64))
-    floor_f = rf - up.astype(np.float32)
-    assert floor_f.dtype == np.float32
-    # (float)(int)floorf(x): -0.0 floors to integer 0, i.e. +0.0
-    np.testing.assert_array_equal(
-        floor_f.view(np.int32),
-        np.floor(x).astype(np.int64).astype(np.float32).view(np.int32))
-
-
-def test_lit_threshold_is_the_texel_compare():
-    """Kernel F: fl(h * fl(1/65535)) is monotone in h, so receiver >= the
-    texel of u16 half h iff h <= H(receiver), the largest such h, found
-    from int(receiver * 65535) + 2 by stepping down."""
-    c = np.float32(1.0 / 65535.0)
-    h = np.arange(65536, dtype=np.float32)
-    texel = h * c
-    assert (np.diff(texel) >= 0).all()
-    rng = np.random.default_rng(1)
-    rec = np.concatenate([rng.random(4000), texel[::7], np.nextafter(
-        texel[::7], np.float32(2)), np.nextafter(texel[1::7], np.float32(-1)),
-        [0.0, 1.0]]).astype(np.float32)
-    start = np.minimum((rec * np.float32(65535.0)).astype(np.int64) + 2,
-                       65535)
-    thr = start.copy()
-    for _ in range(8):
-        step = (thr >= 0) & (thr.astype(np.float32) * c > rec)
-        thr = np.where(step, thr - 1, thr)
-    assert not ((thr >= 0) & (thr.astype(np.float32) * c > rec)).any()
-    assert int((start - thr).max()) <= 4
-    lit = rec[:, None] >= texel[None, ::97]
-    np.testing.assert_array_equal(lit,
-                                  h[None, ::97] <= thr[:, None])
