@@ -11,19 +11,22 @@ wrappers), builds bench.py's own scene (chip_smoke.SCENES["bench"]: the
 textured atrium with its banners and its scene SDF) at 1920x1080 with the
 default RenderSettings() and pair_budget_scale 2.0, and drives
 warmup + timed frames on the bench camera path (chip_smoke.drive). It then
-times kernels E (rasterize_depth on frame 0's opaque casters), B
-(rasterize_gbuffer on frame 0's opaque main view), D (sample_materials on
-frame 0's G-buffer, with the frame's keywords and again trilinear +
-anisotropic and trilinear, texture_filter 2 and 1) and F (resolve_packed on frame 0's shadow inputs) on
-the device with chip_smoke.cuda_ms of THIS checkout (CUDA events behind
-torch.cuda._sleep), with each tree's own wrapper. Every tree must give the
-same atlas bits (kernel E is exact); the G-buffer's, D's and F's checksums
-are reported per run (B, D and F have rules that allow a difference
-from their plain versions, which chip_smoke.py checks, so trees may
-differ there). Alternating the order
-separates a tree's effect from drift over the call. Prints one JSON line
-per process and a summary; the report goes to
-chiprun_out/compare_trees/report.json.
+times, on frame 0's inputs, kernels E (rasterize_depth on the opaque
+casters), B (rasterize_gbuffer on the opaque main view), D
+(sample_materials on the G-buffer, with the frame's keywords and again
+trilinear + anisotropic and trilinear, texture_filter 2 and 1), F
+(resolve_packed on the shadow inputs), G (trace_gi on the trace inputs),
+K (rasterize_winner_alpha on the main view's alpha stream) and L
+(resolve_attributes on K's vis), on the device with chip_smoke.cuda_ms of
+THIS checkout (CUDA events behind torch.cuda._sleep), with each tree's
+own wrapper. Every tree must give the same bits from E (the atlas), G
+(its 7 planes), K (depth and vis) and L (its 13 channels): each equals
+its plain version exactly. The G-buffer's, D's and F's checksums are
+reported per run (B, D and F have rules that allow a difference from
+their plain versions, which chip_smoke.py checks, so trees may differ
+there). Alternating the order separates a tree's effect from drift over
+the call. Prints one JSON line per process and a summary; the report goes
+to chiprun_out/compare_trees/report.json.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ OUT = ROOT / "chiprun_out" / "compare_trees"
 
 
 def one(tree: Path, warmup: int, timed: int) -> dict:
-    """Slice 5's frames and kernels E, B, D and F with the port of
+    """Slice 5's frames and kernels E, B, D, F, G, K and L with the port of
     `tree`."""
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -50,7 +53,7 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
 
     import chip_smoke as cs  # the tree's own
     from plainrenderer_tpu_torch import native
-    from plainrenderer_tpu_torch.ops import raster, shadow, texture
+    from plainrenderer_tpu_torch.ops import raster, sdfgi, shadow, texture
     from plainrenderer_tpu_torch.render import frame
     check_root = str(Path(cs.__file__).resolve().parent)
     if check_root != str(tree.resolve()):
@@ -85,7 +88,8 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
 
     rec = cs.record_frames(ctx, frames, settings, 1, [
         (frame, "render_shadow_atlas"), (frame, "raster_main_view"),
-        (texture, "sample_materials"), (shadow, "shadow_resolve")])
+        (texture, "sample_materials"), (shadow, "shadow_resolve"),
+        (frame, "trace_scene_gi")])
     atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
     mv = rec["raster_main_view"][0][0]
     main = frame.raster_main_view(mv)
@@ -112,6 +116,37 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
     def f():
         return shadow.resolve_packed(*f_args)
 
+    # G on the frame's trace inputs, as frame.trace_scene_gi calls it
+    t_scene, inp, t_set, sun_dir, sun_col, sun_str = rec["trace_scene_gi"][0]
+    st = t_set.sdf_trace
+    g_args = (inp.world_pos, inp.normal, inp.ray_dirs, inp.valid,
+              inp.sky_lowres, t_scene["sdf_volume"], t_scene["sdf_albedo"],
+              t_scene["sdf_origin"], t_scene["sdf_voxel_size"],
+              t_scene["sdf_grid"], sun_dir, sun_col, sun_str)
+    g_kw = dict(steps=st.trace_steps, influence=st.influence_radius * 2.5,
+                strict=st.strict_influence_radius_cutoff,
+                dims_zyx=t_scene["sdf_grid"],
+                coarse_fallback=st.coarse_fallback,
+                coarse_tables=t_scene["sdf_coarse"])
+
+    def g():
+        y, c, esc = sdfgi.trace_gi(*g_args, **g_kw)
+        return torch.cat([y, c, esc[None]])
+
+    pa = main.alpha_pairs
+
+    def k():
+        return raster.rasterize_winner_alpha(
+            main.alpha_edges, pa, mv.alpha_masks, mv.n_tiles_y,
+            mv.n_tiles_x, mv.sub, True)
+
+    vis_k = k()[1]
+
+    def l():
+        return raster.resolve_attributes(main.alpha_attrs, pa.tile_start,
+                                         vis_k, mv.n_tiles_y, mv.n_tiles_x,
+                                         mv.sub)
+
     def checksum(t):
         w = t.contiguous().view(torch.int32).to(torch.int64)
         pos = torch.arange(w.numel(), device=w.device) % 1_000_003 + 1
@@ -120,7 +155,9 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
     depth_b, vis_b, gbuf_b = b()
     sums = dict(atlas=checksum(e()), depth=checksum(depth_b),
                 vis=checksum(vis_b), gbuf=checksum(gbuf_b),
-                texture=checksum(d()), shadow=checksum(f()))
+                texture=checksum(d()), shadow=checksum(f()),
+                gi=checksum(g()), alpha_depth=checksum(k()[0]),
+                alpha_vis=checksum(vis_k), alpha_gbuf=checksum(l()))
     passes = run["pass_ms"]
     return dict(
         tree=str(tree), build_s=build_s, sums=sums,
@@ -130,7 +167,9 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
         b=timer.cuda_ms(b, 20), d=timer.cuda_ms(d, 20),
         d_tri_aniso=timer.cuda_ms(lambda: d(trilinear=True, aniso=True), 20),
         d_tri=timer.cuda_ms(lambda: d(trilinear=True, aniso=False), 20),
-        f=timer.cuda_ms(f, 20))
+        f=timer.cuda_ms(f, 20),
+        g=timer.cuda_ms(lambda: sdfgi.trace_gi(*g_args, **g_kw), 20),
+        k=timer.cuda_ms(k, 20), l=timer.cuda_ms(l, 20))
 
 
 def main() -> int:
@@ -174,12 +213,13 @@ def main() -> int:
         results.append(r)
         print(json.dumps({k: r[k] for k in (
             "name", "frame_ms", "host_wall_ms", "shadow_atlas_ms",
-            "gbuffer_ms", "e", "b", "d", "d_tri_aniso", "d_tri", "f",
-            "build_s")}), flush=True)
-    atlases = {r["sums"]["atlas"] for r in results}
-    if len(atlases) != 1:  # kernel E is exact in every tree
-        raise SystemExit(f"compare_trees: the trees' atlases differ: "
-                         f"{atlases}")
+            "gbuffer_ms", "e", "b", "d", "d_tri_aniso", "d_tri", "f", "g",
+            "k", "l", "build_s")}), flush=True)
+    for key in ("atlas", "gi", "alpha_depth", "alpha_vis", "alpha_gbuf"):
+        found = {r["sums"][key] for r in results}
+        if len(found) != 1:  # E, G, K and L are exact in every tree
+            raise SystemExit(f"compare_trees: the trees' {key} bits "
+                             f"differ: {found}")
     summary = {}
     for name in trees:
         rs = [r for r in results if r["name"] == name]
@@ -196,7 +236,11 @@ def main() -> int:
                 ("d_ms", lambda r: r["d"]["ms"]),
                 ("d_tri_aniso_ms", lambda r: r["d_tri_aniso"]["ms"]),
                 ("d_tri_ms", lambda r: r["d_tri"]["ms"]),
-                ("f_ms", lambda r: r["f"]["ms"]))}
+                ("f_ms", lambda r: r["f"]["ms"]),
+                ("g_ms", lambda r: r["g"]["ms"]),
+                ("k_ms", lambda r: r["k"]["ms"]),
+                ("l_ms", lambda r: r["l"]["ms"]),
+                ("k_plus_l_ms", lambda r: r["k"]["ms"] + r["l"]["ms"]))}
         summary[name]["gbuffer_sums"] = sorted(
             {json.dumps(r["sums"], sort_keys=True) for r in rs})
         summary[name]["median"] = {

@@ -137,14 +137,13 @@ __device__ __forceinline__ float plain_eval_attr(const float* c, float x,
 }
 
 // The attribute phase of kernels B and L (raster.py:1603 _attr_phase):
-// the G-buffer channels at pixel centre (x, y) of the winner whose
-// attribute rows are column idx of attrs (n_pairs columns), split-rounded:
-// uv, its screen derivatives, normal and tangent normalised, the packed
-// material row; with PREV (a dynamic scene's 39 rows) also the previous
-// NDC xy of the prev-clip planes, divided by a signed _kernel_recip of
-// |prev w| where it exceeds 1e-9, else by 1 (raster.py:1728-1740).
-// plain_gbuffer_eval takes the rows already rounded (kernel B rounds each
-// pair's rows once).
+// the G-buffer channels at pixel centre (x, y) of a winner from its
+// attribute rows, split-rounded (both kernels round each pair's rows once
+// into a table): uv, its screen derivatives, normal and tangent
+// normalised, the packed material row; with PREV (a dynamic scene's 39
+// rows) also the previous NDC xy of the prev-clip planes, divided by a
+// signed _kernel_recip of |prev w| where it exceeds 1e-9, else by 1
+// (raster.py:1728-1740).
 template <bool PREV>
 __device__ __forceinline__ void plain_gbuffer_eval(
     const float (&cf)[PREV ? PLAIN_NATTR_PREV : PLAIN_NATTR], float x,
@@ -174,7 +173,7 @@ __device__ __forceinline__ void plain_gbuffer_eval(
     ch[8 + 3 * vec] = __fmul_rn(vz, inv_len);
   }
   ch[12] = cf[29];
-  if (PREV) {
+  if constexpr (PREV) {
     const float prev_x = __fmul_rn(plain_eval_attr(cf + 30, x, y), w);
     const float prev_y = __fmul_rn(plain_eval_attr(cf + 33, x, y), w);
     const float prev_w = __fmul_rn(plain_eval_attr(cf + 36, x, y), w);
@@ -186,18 +185,6 @@ __device__ __forceinline__ void plain_gbuffer_eval(
     ch[13] = __fmul_rn(prev_x, inv_pw);
     ch[14] = __fmul_rn(prev_y, inv_pw);
   }
-}
-
-template <bool PREV>
-__device__ __forceinline__ void plain_gbuffer_channels(
-    const float* __restrict__ attrs, int n_pairs, int idx, float x, float y,
-    float* ch) {
-  float cf[PREV ? PLAIN_NATTR_PREV : PLAIN_NATTR];
-#pragma unroll
-  for (int k = 0; k < (PREV ? PLAIN_NATTR_PREV : PLAIN_NATTR); ++k) {
-    cf[k] = plain_split_round(attrs[(size_t)k * n_pairs + idx]);
-  }
-  plain_gbuffer_eval<PREV>(cf, x, y, ch);
 }
 
 // Every C entry point launches on the caller's stream and returns

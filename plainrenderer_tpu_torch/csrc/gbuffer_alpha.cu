@@ -20,21 +20,39 @@
 // multiply and add is rounded on its own, so K equals its plain version
 // (ops/raster.py:winner_alpha_plain) on every pixel.
 //
-// L: one thread per pixel. It reads vis, takes the winner's 30 attribute
-// rows (39 in a dynamic scene, prev != 0) at column base + vis of its bin,
-// split-rounds them and evaluates the 13 channels (15 with the previous
-// NDC) exactly as kernel B's attribute phase (common.cuh,
-// plain_gbuffer_channels); uncovered pixels get zeros.
+// L, two launches (counted together as kernel L):
+//   1. attr_round_kernel: one thread per pair column split-rounds its 30
+//      attribute rows (39 in a dynamic scene, prev != 0) once into a
+//      pair-major record of L_REC (L_REC_PREV) floats, 16-byte aligned
+//      (ops/raster.py:attr_table_plain). Kernel B does the same in its
+//      strip 0 (gbuffer.cu).
+//   2. attr_resolve_kernel: a warp takes the 128 columns of one row (a
+//      bin's width), a thread 4 adjacent pixels (vis as one int4); a
+//      winner's record is read as 8 (10) float4s, once for each run of
+//      the thread's pixels with the same winner, and the 13 channels (15
+//      with the previous NDC) are evaluated as kernel B's attribute phase
+//      (common.cuh, plain_gbuffer_eval) and written as float4 streaming
+//      stores. A warp whose 128 pixels are all uncovered only stores
+//      zeros. The records hold the values the previous design rounded per
+//      pixel, so the channels keep its bits (compare_trees.py checks).
+// ptxas: resolve 94 registers (13 channels) and 122 (15), round 40 and
+// 48, no spill. Slice 5 (H100 80GB HBM3, 700 W): PR 8's one thread per
+// pixel, 30 strided loads and 30 splits per covered pixel, took 0.098 ms;
+// this design 0.054 (both launches; compare_trees.py).
 //
 // Bound on the H100: both are bytes-bound at 1080p. K writes depth and vis
 // (8 B per pixel, 16.7 MB) and reads the few thousand alpha pairs; L reads
 // vis (4 B) and writes 13 f32 channels (52 B; 15, 60 B, in a dynamic
-// scene) per pixel, ~117 MB. The
-// alpha stream covers a small share of the screen, so most of L's threads
-// only write zeros; its writes are coalesced across a warp.
+// scene) per pixel, ~117 MB, plus the winners' rows. Where the alpha
+// stream covers most of the screen (slice 5's banner 0 fills the view)
+// nearly every pixel evaluates its winner's channels.
 #include "common.cuh"
 
 #define CHUNK 256
+#define L_REC 32       // floats per pair record: 30 rounded rows, 2 zeros
+#define L_REC_PREV 40  // a dynamic scene's: 39 rows, 1 zero
+#define L_ROWS 8       // rows per block of kernel L
+#define L_THREADS (32 * L_ROWS)
 
 __global__ void __launch_bounds__(4 * PLAIN_TILE_W)
 winner_alpha_kernel(const float* __restrict__ edges,
@@ -131,33 +149,92 @@ winner_alpha_kernel(const float* __restrict__ edges,
   }
 }
 
+// L, part 1: each pair column's attribute rows, split-rounded once into a
+// pair-major record of L_REC (L_REC_PREV) floats, the rows then zeros.
 template <bool PREV>
-__global__ void attr_resolve_kernel(const float* __restrict__ attrs,
-                                    const int* __restrict__ tile_start,
-                                    const int* __restrict__ vis,
-                                    float* __restrict__ gbuf, int n_pairs,
-                                    int n_tiles_y, int n_tiles_x, int sub) {
-  const int width = n_tiles_x * PLAIN_TILE_W;
-  const int height = n_tiles_y * sub * PLAIN_TILE_H;
-  const size_t plane = (size_t)height * width;
-  const size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= plane) return;
-  const int py = (int)(o / width);
-  const int px = (int)(o - (size_t)py * width);
-  const int slot = vis[o];
-  constexpr int n_ch = PREV ? PLAIN_GBUF_CHANNELS_PREV : PLAIN_GBUF_CHANNELS;
-  float ch[n_ch];
+__global__ void __launch_bounds__(256)
+attr_round_kernel(const float* __restrict__ attrs, float* __restrict__ table,
+                  int n_pairs) {
+  constexpr int n_attr = PREV ? PLAIN_NATTR_PREV : PLAIN_NATTR;
+  constexpr int rec = PREV ? L_REC_PREV : L_REC;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_pairs) return;
+  float r[rec];
 #pragma unroll
-  for (int c = 0; c < n_ch; ++c) ch[c] = 0.0f;
-  if (slot >= 0) {
-    const int bin = py / (sub * PLAIN_TILE_H) * n_tiles_x + px / PLAIN_TILE_W;
-    const int base = tile_start[bin] / PLAIN_GROUP * PLAIN_GROUP;
-    plain_gbuffer_channels<PREV>(attrs, n_pairs,
-                                 min(base + slot, n_pairs - 1),
-                                 (float)px + 0.5f, (float)py + 0.5f, ch);
+  for (int k = 0; k < rec; ++k) {
+    r[k] = k < n_attr ? plain_split_round(attrs[(size_t)k * n_pairs + j])
+                      : 0.0f;
+  }
+  float4* dst = reinterpret_cast<float4*>(table + (size_t)j * rec);
+#pragma unroll
+  for (int q = 0; q < rec / 4; ++q) {
+    dst[q] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
+  }
+}
+
+// L, part 2: 4 adjacent pixels per thread; a warp takes 128 columns of
+// one row (a bin's width), a block 8 rows, so the whole block lies in
+// one bin.
+template <bool PREV>
+__global__ void __launch_bounds__(L_THREADS)
+attr_resolve_kernel(const float* __restrict__ table,
+                    const int* __restrict__ tile_start,
+                    const int* __restrict__ vis, float* __restrict__ gbuf,
+                    int n_pairs, int n_tiles_x, int sub, size_t plane) {
+  constexpr int n_ch = PREV ? PLAIN_GBUF_CHANNELS_PREV : PLAIN_GBUF_CHANNELS;
+  constexpr int n_attr = PREV ? PLAIN_NATTR_PREV : PLAIN_NATTR;
+  constexpr int rec = PREV ? L_REC_PREV : L_REC;
+  const int width = n_tiles_x * PLAIN_TILE_W;
+  const int lane = threadIdx.x & 31;
+  const int py = blockIdx.y * L_ROWS + (threadIdx.x >> 5);
+  const int px = blockIdx.x * PLAIN_TILE_W + 4 * lane;
+  const size_t o = (size_t)py * width + px;
+  const int4 v4 = __ldcs(reinterpret_cast<const int4*>(vis + o));
+  const int slot[4] = {v4.x, v4.y, v4.z, v4.w};
+  float4* dst = reinterpret_cast<float4*>(gbuf + o);
+  const bool any = v4.x >= 0 || v4.y >= 0 || v4.z >= 0 || v4.w >= 0;
+  if (!__any_sync(PLAIN_FULL_MASK, any)) {  // no winner in the warp's row
+#pragma unroll
+    for (int c = 0; c < n_ch; ++c) {
+      __stcs(dst + c * (plane / 4), make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+    }
+    return;
+  }
+  const int bin = py / (sub * PLAIN_TILE_H) * n_tiles_x + blockIdx.x;
+  const int base = tile_start[bin] / PLAIN_GROUP * PLAIN_GROUP;
+  float ch[n_ch][4];
+  float cf[n_attr];
+  int loaded = -1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < n_ch; ++c) ch[c][i] = 0.0f;
+    if (slot[i] < 0) continue;
+    const int idx = min(base + slot[i], n_pairs - 1);
+    if (idx != loaded) {  // the pixels of a winner share its record
+      const float4* r = reinterpret_cast<const float4*>(table) +
+                        (size_t)idx * (rec / 4);
+#pragma unroll
+      for (int q = 0; q < rec / 4; ++q) {
+        const float4 f = __ldg(r + q);
+        if (4 * q < n_attr) cf[4 * q] = f.x;
+        if (4 * q + 1 < n_attr) cf[4 * q + 1] = f.y;
+        if (4 * q + 2 < n_attr) cf[4 * q + 2] = f.z;
+        if (4 * q + 3 < n_attr) cf[4 * q + 3] = f.w;
+      }
+      loaded = idx;
+    }
+    float c1[n_ch];
+    plain_gbuffer_eval<PREV>(cf, (float)(px + i) + 0.5f, (float)py + 0.5f,
+                             c1);
+#pragma unroll
+    for (int c = 0; c < n_ch; ++c) ch[c][i] = c1[c];
   }
 #pragma unroll
-  for (int c = 0; c < n_ch; ++c) gbuf[c * plane + o] = ch[c];
+  for (int c = 0; c < n_ch; ++c) {
+    __stcs(dst + c * (plane / 4),
+           make_float4(ch[c][0], ch[c][1], ch[c][2], ch[c][3]));
+  }
 }
 
 extern "C" int winner_alpha_launch(const void* edges, const void* masks,
@@ -174,17 +251,26 @@ extern "C" int winner_alpha_launch(const void* edges, const void* masks,
   PLAIN_RETURN_LAUNCH_STATUS();
 }
 
-extern "C" int attr_resolve_launch(const void* attrs, const void* tile_start,
+extern "C" int attr_round_launch(const void* attrs, void* table,
+                                 int n_pairs, int prev, void* stream) {
+  const int threads = 256;
+  auto kernel = prev ? attr_round_kernel<true> : attr_round_kernel<false>;
+  kernel<<<(n_pairs + threads - 1) / threads, threads, 0,
+           (cudaStream_t)stream>>>((const float*)attrs, (float*)table,
+                                   n_pairs);
+  PLAIN_RETURN_LAUNCH_STATUS();
+}
+
+extern "C" int attr_resolve_launch(const void* table, const void* tile_start,
                                    const void* vis, void* gbuf, int n_pairs,
                                    int n_tiles_y, int n_tiles_x, int sub,
                                    int prev, void* stream) {
-  const size_t n_pix =
-      (size_t)n_tiles_y * sub * PLAIN_TILE_H * n_tiles_x * PLAIN_TILE_W;
-  const int threads = 256;
+  const int height = n_tiles_y * sub * PLAIN_TILE_H;
+  const size_t plane = (size_t)height * n_tiles_x * PLAIN_TILE_W;
+  const dim3 grid(n_tiles_x, height / L_ROWS);
   auto kernel = prev ? attr_resolve_kernel<true> : attr_resolve_kernel<false>;
-  kernel<<<(unsigned)((n_pix + threads - 1) / threads), threads, 0,
-           (cudaStream_t)stream>>>(
-      (const float*)attrs, (const int*)tile_start, (const int*)vis,
-      (float*)gbuf, n_pairs, n_tiles_y, n_tiles_x, sub);
+  kernel<<<grid, L_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)table, (const int*)tile_start, (const int*)vis,
+      (float*)gbuf, n_pairs, n_tiles_x, sub, plane);
   PLAIN_RETURN_LAUNCH_STATUS();
 }

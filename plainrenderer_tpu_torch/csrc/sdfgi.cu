@@ -1,19 +1,16 @@
 // Kernel G: SDF-traced diffuse GI, one ray per (half-res) pixel.
 //
-// Replaces plainrenderer_tpu/ops/sdfgi.py:_trace_kernel (:112). One block
-// of 256 threads per 16x128 tile (thread t: column t % 128, rows
-// (t / 128) * 8 .. + 8). Per tile:
-//   1. the masked mean surface point (plain_tile_reduce's fixed order, so
-//      the origin equals ops/sdfgi.py:trace_plain's) picks the base brick
-//      of a 2x2x2-brick (32^3-voxel) window (sdfgi.py:139-158); its 8 SDF
-//      bricks (32 KB of s8 words) are staged in shared memory;
-//   2. each thread then traces its 8 rays one after the other: the fine
-//      sphere trace from wpos + 0.2 n with hits gated on `inside` and the
-//      clamp-`excess` step rule (:192-291), Claybook refinement (:295-303),
-//      albedo at the hit, an 8-step SDF sun-shadow march (:321-339); rays
-//      that left the window continue in the coarse whole-scene volume (24
-//      steps, its own albedo and a 6-step shadow, :341-439); misses read
-//      the low-res sky through the polynomial acos / atan2 (:450-467);
+// Replaces plainrenderer_tpu/ops/sdfgi.py:_trace_kernel (:112). What a ray
+// sees is the TPU kernel's:
+//   1. per 16x128 tile, the masked mean surface point picks the base brick
+//      of a 2x2x2-brick (32^3-voxel) window (sdfgi.py:139-158);
+//   2. the fine sphere trace from wpos + 0.2 n samples only that window
+//      (clamped), with hits gated on `inside` and the clamp-`excess` step
+//      rule (:192-291), Claybook refinement (:295-303), albedo at the hit
+//      and an 8-step SDF sun-shadow march (:321-339); rays that left the
+//      window continue in the coarse whole-scene volume (24 steps, its own
+//      albedo and a 6-step shadow, :341-439); misses read the low-res sky
+//      through the polynomial acos / atan2 (:450-467);
 //   3. the result is Y * SH_L1(dir) (4), CoCg (2) and `escaped` (1).
 //
 // Per-ray loops. The TPU kernel runs each loop while ANY ray of its tile
@@ -27,22 +24,83 @@
 // PyTorch ops are; 1 / voxel arrives precomputed (meta[4]); sqrtf is the
 // correctly rounded one; powf and rsqrtf may differ from torch.pow /
 // torch.rsqrt by an ulp. Window-local distances are s8 / 8 voxels,
-// sign-extended after & 0xFF.
+// sign-extended after & 0xFF; s8 * 0.125 is that quotient exactly. Voxel
+// indices of clamped, non-negative coordinates truncate by one add in
+// round-toward-zero (trunc_small), the value the conversion gives.
 //
 // Bound on the H100: every ray reads its valid flag (1 B) and writes 7
 // f32; a valid ray also reads 9 f32 (position, normal, direction), so 37 B
 // in + 28 B out per valid ray and 1 B + 28 B per invalid one, plus the
 // brick volume, the coarse tables and the sky; chip_smoke.py counts them
-// from each run's inputs.
-// The work is a chain of dependent gathers per ray (each step's position
-// depends on the last sample), so it is latency-bound; design: shared-
-// memory window, one ray in flight per thread, no tensor cores.
+// from each run's inputs. Per ray the work is a chain of dependent
+// samples (each step's position depends on the last sample), so the time
+// is latency and idle lanes, not bytes or arithmetic.
+//
+// Design (Hopper). PR 8's kernel took 0.1075 ms on slice 5's trace
+// (544 x 1024 rays, 520,355 on surfaces; H100 80GB HBM3, 700 W): one
+// block of 256 threads per 16x128 tile, 8 rays per thread in turn. The
+// frame's rays need 6.7 fine steps on average (29 at most) and 75% of all
+// steps are shadow and coarse steps, so divergence is small (a warp of
+// one ray per lane keeps 84% of its lanes busy; refilling lanes from a
+// pool could save <= 15%). What cost the time was work per step and per
+// ray, and each block's start. Now:
+//   - GI_PARTS = 4 blocks of 256 threads per tile, 2 rays per thread
+//     (rows part * 4 + t / 128 and + 2, column t % 128: a warp's 32 rays
+//     are 32 neighbouring pixels of one row);
+//   - every block sums the whole tile itself (thread t: column t % 128
+//     over rows (t / 128) * 8 .. + 8 in order, then tile_sum's tree,
+//     common.cuh plain_tile_reduce_n), so every block picks the window
+//     ops/sdfgi.py:window_bricks picks, and loads the window's 8 bricks
+//     (32 KB, one int4 per thread each) from L2 into shared memory as
+//     a linear 32^3 byte volume (one byte load per sample, no brick
+//     arithmetic);
+//   - the coarse SDF table is staged beside it when it fits
+//     (GI_COARSE_SMEM_WORDS, the COARSE_SMEM instance; a larger table is
+//     read through __ldg by the other instance, picked on the host from
+//     the table's shape), read a byte at a time;
+//   - per step no division and no conversion (s8 * 0.125, trunc_small),
+//     `inside` from the clamp excess; per ray pow(b / 255, 2.2) from a
+//     256-entry table (the same powf of the same byte); the shadow
+//     marches stop at the first occluder (lit stays 0 from there on);
+//     outputs are streaming stores.
+// ptxas: 56 registers (both instances), 33.8 KB of static shared memory
+// (+ the staged coarse table, 5.4 KB on slice 5), no spill, no stack: 4
+// blocks of 8 warps per SM (32 resident warps; PR 8 had ~16).
+//
+// Forks measured (device ms on slice 5's trace, H100 80GB HBM3, 700 W;
+// compare_trees.py and variant trees timed in one call each, the output
+// bit-equal in every variant):
+//   - 8 blocks per tile in a cluster, one ray per thread, tile sums across
+//     the cluster through DSMEM and each block's brick stored into all 8
+//     windows: 0.0905; the coarse phase over a block-local queue of the
+//     escaped rays instead of each thread's own: 0.0920 (dropped). The
+//     window broadcast alone cost 0.031 of the 0.057 the cluster's start
+//     took (8 DSMEM int4 stores per thread).
+//   - each block loading its own window from L2, cluster kept for the
+//     sums: 0.0692 (1 ray per thread), 0.0584 (2); no cluster, every
+//     block summing the tile: 0.0615 (1), 0.0567 (2), 0.0589 (4), 0.0646
+//     (8, PR 8's shape with the new steps; PR 8: 0.1075).
+//   - kept design 0.0566 -> 0.0553 with streaming stores; 5 blocks per SM
+//     (48 registers) 0.0567; the window bases from a launch of their own
+//     0.0569 (against 0.0556); 4 rays per thread at 5 blocks per SM
+//     0.0582; a thread's two rays marched together 0.0583 (64
+//     registers).
+//   - where the time goes (phases removed one at a time): the block start
+//     and zero stores 0.020, the fine march 0.027, the shadow marches
+//     0.011, the coarse march 0.007.
 #include "common.cuh"
 
 #define GI_WINDOW 32
 #define GI_BRICK 16
 #define GI_BRICK_WORDS 1024  // s8 SDF words per brick (16^3 / 4)
 #define GI_ALB_WORDS 4096    // rgb8 albedo words per brick
+#define GI_RAYS 2  // rays per thread
+#define GI_PARTS (8 / GI_RAYS)  // blocks per 16 x 128 tile
+// coarse SDF words staged in shared memory (16 KB): every table of
+// <= 8192 voxels that ops/sdfgi.coarse_factor_for gives (<= 2,816 words
+// with x padded to whole words); larger tables take the global instance
+#define GI_COARSE_SMEM_WORDS 4096
+#define GI_MIN_BLOCKS 4  // blocks per SM the register budget is sized for
 
 namespace {
 
@@ -68,15 +126,16 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
-// signed byte `byte` of `word`, / 8 (sdfgi.py:85-87)
-__device__ __forceinline__ float unpack_s8(int word, int byte) {
-  int v = (word >> (8 * byte)) & 0xFF;
-  v = v > 127 ? v - 256 : v;
-  return fdiv((float)v, 8.0f);
+// (int)x for 0 <= x < 2^23: x + 2^23 rounded toward zero is 2^23 +
+// trunc(x), so its low mantissa bits are the integer (no conversion unit)
+__device__ __forceinline__ int trunc_small(float x) {
+  return __float_as_int(__fadd_rz(x, 8388608.0f)) - 0x4B000000;
 }
 
-__device__ __forceinline__ float unpack_u8(int word, int shift) {
-  return fdiv((float)((word >> shift) & 0xFF), 255.0f);
+// a stored s8 distance / 8 (sdfgi.py:85-87): the product by 0.125 is the
+// quotient, exactly
+__device__ __forceinline__ float s8_voxels(signed char b) {
+  return (float)b * 0.125f;
 }
 
 __device__ __forceinline__ float signf(float x) {
@@ -117,40 +176,38 @@ struct Scene {
 };
 
 struct Voxel {
-  int brick, lx, ly, lz;  // window brick 0..7, in-brick voxel
-  bool inside;
-  float excess;
+  int ix, iy, iz;  // window voxel, 0..31 each
+  float excess;    // inside (sdfgi.py:206-209) iff excess <= 0.5
 };
 
-// window_coords (sdfgi.py:192-222): clamped window voxel of a world point
-__device__ Voxel window_voxel(const Scene& s, float px, float py, float pz) {
+// window_coords (sdfgi.py:192-222): clamped window voxel of a world point.
+// For finite coordinates g in window voxels, -0.5 <= g <= 31.5 iff
+// |g - clamp(g, 0, 31)| <= 0.5 (the difference is exact there), so
+// `inside` is excess <= 0.5.
+__device__ __forceinline__ Voxel window_voxel(const Scene& s, float px,
+                                              float py, float pz) {
   const float gxr = fsub(fmul(fsub(px, s.ox), s.inv_voxel), s.wx0);
   const float gyr = fsub(fmul(fsub(py, s.oy), s.inv_voxel), s.wy0);
   const float gzr = fsub(fmul(fsub(pz, s.oz), s.inv_voxel), s.wz0);
   const float gx = clampf(gxr, 0.0f, GI_WINDOW - 1.0f);
   const float gy = clampf(gyr, 0.0f, GI_WINDOW - 1.0f);
   const float gz = clampf(gzr, 0.0f, GI_WINDOW - 1.0f);
-  const int ix = (int)gx, iy = (int)gy, iz = (int)gz;
   Voxel v;
-  v.brick = ((iz >> 4) << 2) | ((iy >> 4) << 1) | (ix >> 4);
-  v.lx = ix & 15;
-  v.ly = iy & 15;
-  v.lz = iz & 15;
-  const float lo = -0.5f, hi = GI_WINDOW - 0.5f;
-  v.inside = gxr >= lo && gxr <= hi && gyr >= lo && gyr <= hi && gzr >= lo &&
-             gzr <= hi;
+  v.ix = trunc_small(gx);
+  v.iy = trunc_small(gy);
+  v.iz = trunc_small(gz);
   v.excess = fmaxf(fmaxf(fabsf(fsub(gxr, gx)), fabsf(fsub(gyr, gy))),
                    fabsf(fsub(gzr, gz)));
   return v;
 }
 
-// world distance at a window voxel (sample_sdf, sdfgi.py:224-238)
-__device__ __forceinline__ float window_distance(const int* win,
+// world distance at a window voxel (sample_sdf, sdfgi.py:224-238); the
+// window holds voxel (x, y, z) at byte (z * 32 + y) * 32 + x
+__device__ __forceinline__ float window_distance(const signed char* win,
                                                  const Scene& s,
                                                  const Voxel& v) {
-  const int word = win[v.brick * GI_BRICK_WORDS +
-                       (v.lz * GI_BRICK + v.ly) * 4 + (v.lx >> 2)];
-  return fmul(unpack_s8(word, v.lx & 3), s.voxel);
+  return fmul(s8_voxels(win[(v.iz * GI_WINDOW + v.iy) * GI_WINDOW + v.ix]),
+              s.voxel);
 }
 
 struct Coarse {
@@ -158,25 +215,93 @@ struct Coarse {
   int cd, ch, cw, cw_words;
 };
 
-// sample_coarse (sdfgi.py:356-374): distance and albedo index
-__device__ float coarse_distance(const int* __restrict__ csdf, const Scene& s,
-                                 const Coarse& c, float px, float py,
-                                 float pz, int* aidx) {
+// sample_coarse (sdfgi.py:356-374): distance and albedo index; the table
+// from shared memory (SMEM) or through the read-only path
+template <bool SMEM>
+__device__ __forceinline__ float coarse_distance(
+    const signed char* __restrict__ csdf, const Scene& s, const Coarse& c,
+    float px, float py, float pz, int* aidx) {
   const float gx =
       clampf(fmul(fsub(px, s.ox), c.inv_voxel_c), 0.0f, c.cw - 1.0f);
   const float gy =
       clampf(fmul(fsub(py, s.oy), c.inv_voxel_c), 0.0f, c.ch - 1.0f);
   const float gz =
       clampf(fmul(fsub(pz, s.oz), c.inv_voxel_c), 0.0f, c.cd - 1.0f);
-  const int ix = (int)gx, iy = (int)gy, iz = (int)gz;
-  const int word = __ldg(csdf + (iz * c.ch + iy) * c.cw_words + (ix >> 2));
-  *aidx = (iz * c.ch + iy) * c.cw + ix;
-  return fmul(unpack_s8(word, ix & 3), c.voxel_c);
+  const int ix = trunc_small(gx), iy = trunc_small(gy), iz = trunc_small(gz);
+  const int row = iz * c.ch + iy;  // byte ix of the row's words
+  const int bidx = row * (4 * c.cw_words) + ix;
+  const signed char b = SMEM ? csdf[bidx] : __ldg(csdf + bidx);
+  *aidx = row * c.cw + ix;
+  return fmul(s8_voxels(b), c.voxel_c);
+}
+
+// The coarse fallback march of an escaped ray from t up to the full
+// influence (sdfgi.py:376-393), then, on a hit, the coarse albedo word and
+// the 6-step coarse shadow (:395-439). True on a hit, with the albedo
+// word, lit and the hit distance.
+template <bool SMEM>
+__device__ __forceinline__ bool coarse_trace(
+    const signed char* __restrict__ ctab, const int* __restrict__ calb,
+    const Scene& s, const float* __restrict__ meta, int cd, int ch, int cw,
+    int coarse_f, float px, float py, float pz, float dx, float dy, float dz,
+    float t, int* caw, float* lit, float* t_hit) {
+  Coarse co;
+  co.voxel_c = fmul(s.voxel, (float)coarse_f);
+  co.inv_voxel_c = fmul(s.inv_voxel, 1.0f / (float)coarse_f);
+  co.cd = cd;
+  co.ch = ch;
+  co.cw = cw;
+  co.cw_words = (cw + 3) / 4;
+  const float infl_far = meta[6];
+  const float thr_c = fmul(co.voxel_c, 0.6f);
+  const float min_step_c = fmul(co.voxel_c, 0.5f);
+  float t2 = t;
+  bool hitc = false, alive2 = true;
+  int aidx = 0;
+  for (int i = 0; i < 24 && alive2; ++i) {
+    const float dc = coarse_distance<SMEM>(
+        ctab, s, co, fadd(px, fmul(dx, t2)), fadd(py, fmul(dy, t2)),
+        fadd(pz, fmul(dz, t2)), &aidx);
+    const bool new_hit = dc < thr_c;
+    hitc = hitc || new_hit;
+    alive2 = !new_hit && t2 < infl_far;
+    if (alive2) t2 = fadd(t2, fmaxf(fmul(fabsf(dc), 0.8f), min_step_c));
+  }
+  if (!hitc) return false;
+  const float cx = fadd(px, fmul(dx, t2));
+  const float cy = fadd(py, fmul(dy, t2));
+  const float cz = fadd(pz, fmul(dz, t2));
+  coarse_distance<SMEM>(ctab, s, co, cx, cy, cz, &aidx);
+  *caw = __ldg(calb + aidx);
+  const float sdx = meta[7], sdy = meta[8], sdz = meta[9];
+  float st = fmul(co.voxel_c, 1.5f);
+  const float thr_s = fmul(thr_c, 0.8f);
+  float l = 1.0f;
+  for (int i = 0; i < 6 && l != 0.0f; ++i) {  // lit stays 0 once shadowed
+    int unused;
+    const float ds = coarse_distance<SMEM>(
+        ctab, s, co, fadd(cx, fmul(sdx, st)), fadd(cy, fmul(sdy, st)),
+        fadd(cz, fmul(sdz, st)), &unused);
+    if (ds < thr_s) l = 0.0f;
+    st = fadd(st, fmaxf(fabsf(ds), co.voxel_c));
+  }
+  *lit = l;
+  *t_hit = t2;
+  return true;
+}
+
+// The window's base brick on one axis from the tile's mean (sdfgi.py:150)
+__device__ __forceinline__ int window_base(float mean, float o, float voxel,
+                                           int nb) {
+  const float c = fdiv(fsub(mean, o), voxel);
+  const int b = __float2int_rz(floorf(fdiv(fsub(c, 8.0f), 16.0f)));
+  return min(max(b, 0), max(nb - 2, 0));
 }
 
 }  // namespace
 
-__global__ void __launch_bounds__(PLAIN_TILE_THREADS)
+template <bool COARSE_SMEM>
+__global__ void __launch_bounds__(PLAIN_TILE_THREADS, GI_MIN_BLOCKS)
 sdfgi_trace_kernel(const float* __restrict__ wpos,
                    const float* __restrict__ normal,
                    const float* __restrict__ dirs,
@@ -187,15 +312,20 @@ sdfgi_trace_kernel(const float* __restrict__ wpos,
                    const float* __restrict__ meta, float* __restrict__ out,
                    int h, int w, int vd, int vh, int vw, int cd, int ch,
                    int cw, int coarse_f, int steps, int strict,
-                   int use_coarse, int sky_h, int sky_w) {
-  __shared__ int win[8 * GI_BRICK_WORDS];  // the tile's 8 SDF bricks
-  __shared__ float red[PLAIN_TILE_THREADS];
+                   int use_coarse, int sky_h, int sky_w, int coarse_words) {
+  // the tile's 8 SDF bricks, voxel (x, y, z) at byte (z * 32 + y) * 32 + x;
+  // until the window is loaded its first 4 KB hold the tile sums' tree
+  __shared__ __align__(16) int win[8 * GI_BRICK_WORDS];
+  __shared__ float sums[4];
+  __shared__ float alb_pow[256];  // powf(b / 255, 2.2) (sdfgi.py:470)
+  extern __shared__ int s_coarse[];  // COARSE_SMEM: the coarse SDF words
+  const int part = blockIdx.x % GI_PARTS;
+  const int tile = blockIdx.x / GI_PARTS;
   const int ntx = w / PLAIN_TILE_W;
-  const int ty = blockIdx.x / ntx, tx = blockIdx.x - ty * ntx;
-  const int x = tx * PLAIN_TILE_W + (threadIdx.x % PLAIN_TILE_W);
-  const int y0 = ty * PLAIN_TILE_H +
-                 (threadIdx.x / PLAIN_TILE_W) * PLAIN_ROWS_PER_THREAD;
+  const int ty = tile / ntx, tx = tile - ty * ntx;
+  const int col = threadIdx.x % PLAIN_TILE_W;
   const size_t plane = (size_t)h * w;
+  const size_t tile0 = (size_t)(ty * PLAIN_TILE_H) * w + tx * PLAIN_TILE_W;
 
   Scene s;
   s.ox = meta[0];
@@ -203,76 +333,100 @@ sdfgi_trace_kernel(const float* __restrict__ wpos,
   s.oz = meta[2];
   s.voxel = meta[3];
   s.inv_voxel = meta[4];
-  const float infl_eff = meta[5], infl_far = meta[6];
-  const float sdx = meta[7], sdy = meta[8], sdz = meta[9];
-  const float sun_r = meta[10], sun_g = meta[11], sun_b = meta[12];
   s.nbx = vw / GI_BRICK;
   s.nby = vh / GI_BRICK;
   const int nbz = vd / GI_BRICK;
 
-  // --- window origin from the masked tile means (sdfgi.py:139-158) ---
-  float cnt = 0.0f, sx = 0.0f, sy = 0.0f, sz = 0.0f;
-#pragma unroll
-  for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
-    const size_t o = (size_t)(y0 + r) * w + x;
-    const bool v = valid[o] != 0;
-    cnt = fadd(cnt, v ? 1.0f : 0.0f);
-    sx = fadd(sx, v ? wpos[o] : 0.0f);
-    sy = fadd(sy, v ? wpos[plane + o] : 0.0f);
-    sz = fadd(sz, v ? wpos[2 * plane + o] : 0.0f);
+  // the tables that do not depend on the window, first (their loads and
+  // powf overlap the sums below)
+  if (COARSE_SMEM) {
+    for (int i = threadIdx.x; i < coarse_words; i += PLAIN_TILE_THREADS) {
+      s_coarse[i] = __ldg(csdf + i);
+    }
   }
-  const float n_valid = plain_tile_reduce(cnt, red, PlainAddF());
+  alb_pow[threadIdx.x] = powf(fdiv((float)threadIdx.x, 255.0f), 2.2f);
+
+  // --- 1. window origin from the masked tile means (sdfgi.py:139-158):
+  // every block of the tile sums all of it, thread t its column t % 128
+  // over rows (t / 128) * 8 .. + 8 in order, then tile_sum's tree ---
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  {
+    const size_t r0 = tile0 + (size_t)((threadIdx.x / PLAIN_TILE_W) *
+                                       PLAIN_ROWS_PER_THREAD) * w + col;
+#pragma unroll
+    for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
+      const size_t o = r0 + (size_t)r * w;
+      const bool ok = valid[o] != 0;
+      v[0] = fadd(v[0], ok ? 1.0f : 0.0f);
+      v[1] = fadd(v[1], ok ? wpos[o] : 0.0f);
+      v[2] = fadd(v[2], ok ? wpos[plane + o] : 0.0f);
+      v[3] = fadd(v[3], ok ? wpos[2 * plane + o] : 0.0f);
+    }
+  }
+  plain_tile_reduce_n<4>(v, reinterpret_cast<float*>(win), sums,
+                         PlainAddFK());
+  // this block's rays: rows part * 2 GI_RAYS + t / 128 + 2 j of the tile
+  const size_t o0 = tile0 +
+                    (size_t)(part * 2 * GI_RAYS + threadIdx.x / PLAIN_TILE_W) *
+                        w +
+                    col;
+  const float n_valid = v[0];
+  if (n_valid == 0.0f) {  // all-sky tile: zeros
+#pragma unroll
+    for (int j = 0; j < GI_RAYS; ++j) {
+#pragma unroll
+      for (int c = 0; c < 7; ++c) {
+        __stcs(out + c * plane + o0 + (size_t)(2 * j) * w, 0.0f);
+      }
+    }
+    return;
+  }
   const float count = fmaxf(n_valid, 1.0f);
-  const float mx = fdiv(plain_tile_reduce(sx, red, PlainAddF()), count);
-  const float my = fdiv(plain_tile_reduce(sy, red, PlainAddF()), count);
-  const float mz = fdiv(plain_tile_reduce(sz, red, PlainAddF()), count);
-  auto base = [&](float mean, float o, int nb) {
-    const float c = fdiv(fsub(mean, o), s.voxel);
-    const int b = __float2int_rz(floorf(fdiv(fsub(c, 8.0f), 16.0f)));
-    return min(max(b, 0), max(nb - 2, 0));
-  };
-  s.bx0 = base(mx, s.ox, s.nbx);
-  s.by0 = base(my, s.oy, s.nby);
-  s.bz0 = base(mz, s.oz, nbz);
+  s.bx0 = window_base(fdiv(v[1], count), s.ox, s.voxel, s.nbx);
+  s.by0 = window_base(fdiv(v[2], count), s.oy, s.voxel, s.nby);
+  s.bz0 = window_base(fdiv(v[3], count), s.oz, s.voxel, nbz);
   s.wx0 = (float)(s.bx0 * GI_BRICK);
   s.wy0 = (float)(s.by0 * GI_BRICK);
   s.wz0 = (float)(s.bz0 * GI_BRICK);
 
-  if (n_valid == 0.0f) {  // all-sky tile: every output is 0
+  // --- 2. the window ---
+  {
+    // thread t takes row (lz, ly) = (t / 16, t % 16) of each brick: 16
+    // bytes of window row (z, y)
+    int4 words[8];
 #pragma unroll
-    for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
-      const size_t o = (size_t)(y0 + r) * w + x;
-      for (int c = 0; c < 7; ++c) out[c * plane + o] = 0.0f;
+    for (int k = 0; k < 8; ++k) {
+      const int bidx =
+          ((s.bz0 + (k >> 2)) * s.nby + (s.by0 + ((k >> 1) & 1))) * s.nbx +
+          s.bx0 + (k & 1);
+      words[k] = __ldg(reinterpret_cast<const int4*>(
+                           sdf + (size_t)bidx * GI_BRICK_WORDS) +
+                       threadIdx.x);
     }
-    return;  // block-uniform
-  }
-
-  // --- stage the 8 window bricks (one int4 per thread per brick) ---
-  for (int k = 0; k < 8; ++k) {
-    const int bidx = ((s.bz0 + (k >> 2)) * s.nby + (s.by0 + ((k >> 1) & 1))) *
-                         s.nbx +
-                     s.bx0 + (k & 1);
-    const int4* src =
-        reinterpret_cast<const int4*>(sdf + (size_t)bidx * GI_BRICK_WORDS);
-    reinterpret_cast<int4*>(win + k * GI_BRICK_WORDS)[threadIdx.x] =
-        __ldg(src + threadIdx.x);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int z = (k >> 2) * GI_BRICK + (threadIdx.x >> 4);
+      const int yw = ((k >> 1) & 1) * GI_BRICK + (threadIdx.x & 15);
+      reinterpret_cast<int4*>(win)[(z * GI_WINDOW + yw) * 2 + (k & 1)] =
+          words[k];
+    }
   }
   __syncthreads();
-
-  Coarse co;
-  co.voxel_c = fmul(s.voxel, (float)coarse_f);
-  co.inv_voxel_c = fmul(s.inv_voxel, 1.0f / (float)coarse_f);
-  co.cd = cd;
-  co.ch = ch;
-  co.cw = cw;
-  co.cw_words = (cw + 3) / 4;
+  const signed char* ctab = reinterpret_cast<const signed char*>(
+      COARSE_SMEM ? s_coarse : csdf);
+  const signed char* win8 = reinterpret_cast<const signed char*>(win);
+  const float infl_eff = meta[5];
   const float threshold = fmul(s.voxel, 0.43f);
-  const float thr_c = fmul(co.voxel_c, 0.6f);
+  const float min_step = fmul(s.voxel, 0.5f);
+  const float sdx = meta[7], sdy = meta[8], sdz = meta[9];
 
-  for (int r = 0; r < PLAIN_ROWS_PER_THREAD; ++r) {
-    const size_t o = (size_t)(y0 + r) * w + x;
-    if (valid[o] == 0) {
-      for (int c = 0; c < 7; ++c) out[c * plane + o] = 0.0f;
+  // --- 3. the rays ---
+#pragma unroll 1
+  for (int j = 0; j < GI_RAYS; ++j) {
+    const size_t o = o0 + (size_t)(2 * j) * w;
+    if (valid[o] == 0) {  // no surface: zeros
+#pragma unroll
+      for (int c = 0; c < 7; ++c) __stcs(out + c * plane + o, 0.0f);
       continue;
     }
     const float nx = normal[o], ny = normal[plane + o],
@@ -283,17 +437,18 @@ sdfgi_trace_kernel(const float* __restrict__ wpos,
     const float py = fadd(wpos[plane + o], fmul(ny, 0.2f));
     const float pz = fadd(wpos[2 * plane + o], fmul(nz, 0.2f));
 
-    // --- fine march ---
+    // fine march
     float t = 0.0f, d_prev = 0.0f, d_hit = 0.0f, dprev_hit = 0.0f;
     bool hit = false, exited = false, alive = true;
     for (int i = 0; i < steps && alive; ++i) {
       const Voxel v = window_voxel(s, fadd(px, fmul(dx, t)),
                                    fadd(py, fmul(dy, t)),
                                    fadd(pz, fmul(dz, t)));
-      const float d = window_distance(win, s, v);
-      const bool new_hit = v.inside && d < threshold;
-      const bool exit_now =
-          !v.inside && fadd(t, fmul(v.excess, s.voxel)) >= infl_eff;
+      const float d = window_distance(win8, s, v);
+      const float ex = fmul(v.excess, s.voxel);
+      const bool inside = v.excess <= 0.5f;
+      const bool new_hit = inside && d < threshold;
+      const bool exit_now = !inside && fadd(t, ex) >= infl_eff;
       if (new_hit) {
         d_hit = d;
         dprev_hit = d_prev;
@@ -301,9 +456,7 @@ sdfgi_trace_kernel(const float* __restrict__ wpos,
       }
       exited = exited || exit_now;
       alive = !new_hit && !exit_now && t < infl_eff;
-      const float step = fmaxf(fmaxf(fabsf(d), fmul(v.excess, s.voxel)),
-                               fmul(s.voxel, 0.5f));
-      if (alive) t = fadd(t, step);
+      if (alive) t = fadd(t, fmaxf(fmaxf(fabsf(d), ex), min_step));
       d_prev = d;
     }
     // Claybook planar refinement (SDF.inc:160-168)
@@ -311,85 +464,46 @@ sdfgi_trace_kernel(const float* __restrict__ wpos,
         fdiv(d_hit, fmaxf(fsub(1.0f, fsub(d_hit, dprev_hit)), 1e-3f));
     float t_hit = fadd(t, hit ? refine : 0.0f);
     if (strict) hit = hit && t_hit <= infl_eff;
-    const float hx = fadd(px, fmul(dx, t_hit));
-    const float hy = fadd(py, fmul(dy, t_hit));
-    const float hz = fadd(pz, fmul(dz, t_hit));
     const bool escaped =
         !hit && (t >= fsub(infl_eff, fmul(s.voxel, 0.25f)) || exited);
 
-    float ar = 0.0f, ag = 0.0f, ab = 0.0f, lit = 1.0f;
+    int aw = 0;  // rgb8 albedo word of the hit
+    float lit = 1.0f;
     if (hit) {
+      const float hx = fadd(px, fmul(dx, t_hit));
+      const float hy = fadd(py, fmul(dy, t_hit));
+      const float hz = fadd(pz, fmul(dz, t_hit));
       const Voxel v = window_voxel(s, hx, hy, hz);
       const int pool =
-          ((s.bz0 + (v.brick >> 2)) * s.nby + s.by0 + ((v.brick >> 1) & 1)) *
-              s.nbx +
-          s.bx0 + (v.brick & 1);
-      const int aw = __ldg(alb + (size_t)pool * GI_ALB_WORDS +
-                           (v.lz * GI_BRICK + v.ly) * GI_BRICK + v.lx);
-      ar = unpack_u8(aw, 0);
-      ag = unpack_u8(aw, 8);
-      ab = unpack_u8(aw, 16);
+          ((s.bz0 + (v.iz >> 4)) * s.nby + s.by0 + (v.iy >> 4)) * s.nbx +
+          s.bx0 + (v.ix >> 4);
+      aw = __ldg(alb + (size_t)pool * GI_ALB_WORDS +
+                 ((v.iz & 15) * GI_BRICK + (v.iy & 15)) * GI_BRICK +
+                 (v.ix & 15));
       // sun visibility: 8-step SDF shadow march (sdfgi.py:321-339)
       float st = fmul(s.voxel, 1.5f);
       const float thr_s = fmul(threshold, 0.8f);
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < 8 && lit != 0.0f; ++i) {  // 0 stays 0
         const Voxel u = window_voxel(s, fadd(hx, fmul(sdx, st)),
                                      fadd(hy, fmul(sdy, st)),
                                      fadd(hz, fmul(sdz, st)));
-        const float ds = window_distance(win, s, u);
+        const float ds = window_distance(win8, s, u);
         if (ds < thr_s) lit = 0.0f;
         st = fadd(st, fmaxf(fabsf(ds), s.voxel));
       }
     }
-
-    if (use_coarse && escaped) {
-      // coarse fallback march up to the full influence (sdfgi.py:376-393)
-      float t2 = t;
-      bool hitc = false, alive2 = true;
-      int aidx = 0;
-      for (int i = 0; i < 24 && alive2; ++i) {
-        const float dc =
-            coarse_distance(csdf, s, co, fadd(px, fmul(dx, t2)),
-                            fadd(py, fmul(dy, t2)), fadd(pz, fmul(dz, t2)),
-                            &aidx);
-        const bool new_hit = dc < thr_c;
-        hitc = hitc || new_hit;
-        alive2 = !new_hit && t2 < infl_far;
-        const float step =
-            fmaxf(fmul(fabsf(dc), 0.8f), fmul(co.voxel_c, 0.5f));
-        if (alive2) t2 = fadd(t2, step);
-      }
-      if (hitc) {  // escaped rays have no fine hit: hit_c == hitc
-        const float cx = fadd(px, fmul(dx, t2));
-        const float cy = fadd(py, fmul(dy, t2));
-        const float cz = fadd(pz, fmul(dz, t2));
-        coarse_distance(csdf, s, co, cx, cy, cz, &aidx);
-        const int caw = __ldg(calb + aidx);
-        ar = unpack_u8(caw, 0);
-        ag = unpack_u8(caw, 8);
-        ab = unpack_u8(caw, 16);
-        float st = fmul(co.voxel_c, 1.5f);
-        const float thr_s = fmul(thr_c, 0.8f);
-        lit = 1.0f;
-        for (int i = 0; i < 6; ++i) {
-          int unused;
-          const float ds = coarse_distance(
-              csdf, s, co, fadd(cx, fmul(sdx, st)), fadd(cy, fmul(sdy, st)),
-              fadd(cz, fmul(sdz, st)), &unused);
-          if (ds < thr_s) lit = 0.0f;
-          st = fadd(st, fmaxf(fabsf(ds), co.voxel_c));
-        }
-        t_hit = t2;
-        hit = true;
-      }
+    if (use_coarse && escaped) {  // escaped rays have no fine hit
+      hit = coarse_trace<COARSE_SMEM>(ctab, calb, s, meta, cd, ch, cw,
+                                      coarse_f, px, py, pz, dx, dy, dz, t,
+                                      &aw, &lit, &t_hit);
     }
 
     // hit: meanAlbedo^2.2 * sun * lit; miss: the low-res sky
     float cr, cg_, cb;
     if (hit) {
-      cr = fmul(fmul(powf(ar, 2.2f), sun_r), lit);
-      cg_ = fmul(fmul(powf(ag, 2.2f), sun_g), lit);
-      cb = fmul(fmul(powf(ab, 2.2f), sun_b), lit);
+      cr = fmul(fmul(alb_pow[aw & 0xFF], meta[10]), lit);
+      cg_ = fmul(fmul(alb_pow[(aw >> 8) & 0xFF], meta[11]), lit);
+      cb = fmul(fmul(alb_pow[(aw >> 16) & 0xFF], meta[12]), lit);
       if (t_hit < 1e-4f) cr = cg_ = cb = 0.0f;  // self-intersection
     } else {
       const float theta = acos_approx(clampf(-dy, -1.0f, 1.0f));
@@ -409,8 +523,8 @@ sdfgi_trace_kernel(const float* __restrict__ wpos,
     }
 
     // YCoCg + SH_L1(L) projection (sdfDiffuseTrace.comp:205-209)
-    const float y = fadd(fadd(fmul(0.25f, cr), fmul(0.5f, cg_)),
-                         fmul(0.25f, cb));
+    const float yl = fadd(fadd(fmul(0.25f, cr), fmul(0.5f, cg_)),
+                          fmul(0.25f, cb));
     const float co_ = fsub(fmul(0.5f, cr), fmul(0.5f, cb));
     const float cgv = fsub(fadd(fmul(-0.25f, cr), fmul(0.5f, cg_)),
                            fmul(0.25f, cb));
@@ -422,15 +536,31 @@ sdfgi_trace_kernel(const float* __restrict__ wpos,
         fadd(fadd(fadd(fmul(sh0, sh0), fmul(sh1, sh1)), fmul(sh2, sh2)),
              fmul(sh3, sh3)),
         1e-20f));
-    out[o] = fmul(fmul(y, sh0), norm);
-    out[plane + o] = fmul(fmul(y, sh1), norm);
-    out[2 * plane + o] = fmul(fmul(y, sh2), norm);
-    out[3 * plane + o] = fmul(fmul(y, sh3), norm);
-    out[4 * plane + o] = co_;
-    out[5 * plane + o] = cgv;
-    out[6 * plane + o] = escaped ? 1.0f : 0.0f;
+    __stcs(out + o, fmul(fmul(yl, sh0), norm));
+    __stcs(out + plane + o, fmul(fmul(yl, sh1), norm));
+    __stcs(out + 2 * plane + o, fmul(fmul(yl, sh2), norm));
+    __stcs(out + 3 * plane + o, fmul(fmul(yl, sh3), norm));
+    __stcs(out + 4 * plane + o, co_);
+    __stcs(out + 5 * plane + o, cgv);
+    __stcs(out + 6 * plane + o, escaped ? 1.0f : 0.0f);
   }
 }
+
+namespace {
+
+// Lift a kernel's dynamic shared memory limit to `bytes` once per device.
+template <typename Kernel>
+int gi_allow_smem(Kernel kernel, int* done, size_t bytes) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < PLAIN_MAX_DEVICES && done[dev]) return 0;
+  const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == 0 && dev >= 0 && dev < PLAIN_MAX_DEVICES) done[dev] = 1;
+  return err;
+}
+
+}  // namespace
 
 extern "C" int sdfgi_trace_launch(
     const void* wpos, const void* normal, const void* dirs, const void* valid,
@@ -438,12 +568,22 @@ extern "C" int sdfgi_trace_launch(
     const void* calb, const void* meta, void* out, int h, int w, int vd,
     int vh, int vw, int cd, int ch, int cw, int coarse_f, int steps,
     int strict, int use_coarse, int sky_h, int sky_w, void* stream) {
-  const int blocks = (h / PLAIN_TILE_H) * (w / PLAIN_TILE_W);
-  sdfgi_trace_kernel<<<blocks, PLAIN_TILE_THREADS, 0, (cudaStream_t)stream>>>(
+  const int blocks = (h / PLAIN_TILE_H) * (w / PLAIN_TILE_W) * GI_PARTS;
+  const int words = use_coarse ? cd * ch * ((cw + 3) / 4) : 0;
+  const bool staged = words <= GI_COARSE_SMEM_WORDS;
+  const size_t smem = staged ? (size_t)words * sizeof(int) : 0;
+  static int allowed[PLAIN_MAX_DEVICES];
+  if (staged) {
+    const int err = gi_allow_smem(sdfgi_trace_kernel<true>, allowed,
+                                  GI_COARSE_SMEM_WORDS * sizeof(int));
+    if (err != 0) return err;
+  }
+  auto kernel = staged ? sdfgi_trace_kernel<true> : sdfgi_trace_kernel<false>;
+  kernel<<<blocks, PLAIN_TILE_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)wpos, (const float*)normal, (const float*)dirs,
       (const unsigned char*)valid, (const float*)sky, (const int*)sdf,
       (const int*)alb, (const int*)csdf, (const int*)calb,
       (const float*)meta, (float*)out, h, w, vd, vh, vw, cd, ch, cw,
-      coarse_f, steps, strict, use_coarse, sky_h, sky_w);
+      coarse_f, steps, strict, use_coarse, sky_h, sky_w, words);
   PLAIN_RETURN_LAUNCH_STATUS();
 }

@@ -788,15 +788,12 @@ def _vis_encode(acc2d: torch.Tensor):
     return depth, vis
 
 
-def attr_resolve_plain(pair_attrs, tile_start, vis, n_tiles_y: int,
-                       n_tiles_x: int, sub: int) -> torch.Tensor:
-    """Plain version of kernel L and of kernel B's attribute half: the
-    (13, H, W) channels of each pixel's winner, read from vis (the
-    _vis_decode side of the contract, raster.py:1137-1145), with the
-    coefficients split-rounded as the TPU's bf16 one-hot product; (15, H,
-    W) from a dynamic scene's 40-row pair_attrs."""
-    dev = pair_attrs.device
-    n_pairs = pair_attrs.shape[1]
+def _winner_channels(coeff_of, n_pairs: int, tile_start, vis,
+                     n_tiles_y: int, n_tiles_x: int,
+                     sub: int) -> torch.Tensor:
+    """The channels of each pixel's winner, read from vis (the _vis_decode
+    side of the contract, raster.py:1137-1145): coeff_of(idx) gives the
+    rounded (n_attr, N) coefficients of the pair columns idx (N,)."""
     rows_px = sub * TILE_H
     h, w = n_tiles_y * rows_px, n_tiles_x * TILE_W
     valid = vis >= 0
@@ -804,13 +801,23 @@ def attr_resolve_plain(pair_attrs, tile_start, vis, n_tiles_y: int,
     base = (starts // GROUP * GROUP).reshape(n_tiles_y, 1, n_tiles_x, 1)
     base = base.expand(n_tiles_y, rows_px, n_tiles_x, TILE_W).reshape(h, w)
     idx = torch.where(valid, base + vis, 0).clamp(max=n_pairs - 1)
-    n_attr = NATTR_PREV if pair_attrs.shape[0] >= NATTR_PREV else NATTR
-    coeff = _split_round(pair_attrs[:n_attr, idx.reshape(-1)]).reshape(
-        n_attr, h, w)
-    coeff = torch.where(valid, coeff, 0.0)
-    px = torch.arange(w, device=dev).to(torch.float32) + 0.5
-    py = torch.arange(h, device=dev).to(torch.float32) + 0.5
+    coeff = torch.where(valid, coeff_of(idx.reshape(-1)).reshape(-1, h, w),
+                        0.0)
+    px = torch.arange(w, device=vis.device).to(torch.float32) + 0.5
+    py = torch.arange(h, device=vis.device).to(torch.float32) + 0.5
     return _gbuffer_channels(coeff, px[None, :], py[:, None], valid)
+
+
+def attr_resolve_plain(pair_attrs, tile_start, vis, n_tiles_y: int,
+                       n_tiles_x: int, sub: int) -> torch.Tensor:
+    """Plain version of kernel L and of kernel B's attribute half: the
+    (13, H, W) channels of each pixel's winner, with the coefficients
+    split-rounded as the TPU's bf16 one-hot product; (15, H, W) from a
+    dynamic scene's 40-row pair_attrs."""
+    n_attr = NATTR_PREV if pair_attrs.shape[0] >= NATTR_PREV else NATTR
+    return _winner_channels(
+        lambda idx: _split_round(pair_attrs[:n_attr, idx]),
+        pair_attrs.shape[1], tile_start, vis, n_tiles_y, n_tiles_x, sub)
 
 
 def gbuffer_plain(pair_edges, pair_attrs, tile_start, tile_count,
@@ -894,13 +901,39 @@ def rasterize_winner_alpha(pair_edges, pairs: PairLists, alpha_masks,
     return depth, vis
 
 
+def attr_table_plain(pair_attrs) -> torch.Tensor:
+    """Plain version of kernel L's first launch: each pair column's
+    attribute rows split-rounded once into a pair-major record, (P, 32)
+    f32 (30 rows, 2 zeros), (P, 40) from a dynamic scene's 40 rows (39, 1
+    zero)."""
+    n_attr = NATTR_PREV if pair_attrs.shape[0] >= NATTR_PREV else NATTR
+    rec = 40 if n_attr == NATTR_PREV else 32
+    table = torch.zeros((pair_attrs.shape[1], rec), dtype=torch.float32,
+                        device=pair_attrs.device)
+    table[:, :n_attr] = _split_round(pair_attrs[:n_attr]).T
+    return table
+
+
+def attr_resolve_table_plain(table, tile_start, vis, n_tiles_y: int,
+                             n_tiles_x: int, sub: int) -> torch.Tensor:
+    """Plain version of kernel L's second launch: attr_resolve_plain's
+    channels with each winner's coefficients read from its record in
+    attr_table_plain's table (equal bits: the rounding is per value)."""
+    n_attr = NATTR_PREV if table.shape[1] >= NATTR_PREV else NATTR
+    return _winner_channels(lambda idx: table[idx, :n_attr].T,
+                            table.shape[0], tile_start, vis, n_tiles_y,
+                            n_tiles_x, sub)
+
+
 def resolve_attributes(pair_attrs, tile_start, vis, n_tiles_y: int,
                        n_tiles_x: int, sub: int = 1) -> torch.Tensor:
     """The winners' attribute planes -> (13, H, W) G-buffer channels, 15
     with a dynamic scene's 40-row pair_attrs (kernel L,
     csrc/gbuffer_alpha.cu, replaces raster.py:1755 _attr_resolve_kernel):
     vis from rasterize_winner_alpha, the same arithmetic as kernel B's
-    attribute phase."""
+    attribute phase. Two launches: every pair's rows rounded once into a
+    pair-major table (attr_table_plain), then the pixels
+    (attr_resolve_table_plain)."""
     dev = pair_attrs.device
     _require(pair_attrs, "pair_attrs", torch.float32, 2, dev)
     _require(tile_start, "tile_start", torch.int32, 1, dev)
@@ -911,12 +944,20 @@ def resolve_attributes(pair_attrs, tile_start, vis, n_tiles_y: int,
             or tile_start.shape[0] != n_tiles_y * n_tiles_x:
         raise ValueError(f"want ({h}, {w}) vis and one start per bin")
     if not _kernel_device(pair_attrs):
-        return attr_resolve_plain(pair_attrs, tile_start, vis, n_tiles_y,
-                                  n_tiles_x, sub)
+        return attr_resolve_table_plain(attr_table_plain(pair_attrs),
+                                        tile_start, vis, n_tiles_y,
+                                        n_tiles_x, sub)
+    if vis.data_ptr() % 16:
+        raise ValueError("vis must be 16-byte aligned (kernel L reads 4 "
+                         "pixels at once)")
+    n_pairs = pair_attrs.shape[1]
+    prev = int(n_chan > GBUF_CHANNELS)
+    table = torch.empty((n_pairs, 40 if prev else 32), dtype=torch.float32,
+                        device=dev)
+    native.launch("attr_round_launch", pair_attrs, table, n_pairs, prev)
     gbuf = torch.empty((n_chan, h, w), dtype=torch.float32, device=dev)
-    native.launch("attr_resolve_launch", pair_attrs, tile_start, vis, gbuf,
-                  pair_attrs.shape[1], n_tiles_y, n_tiles_x, sub,
-                  int(n_chan > GBUF_CHANNELS))
+    native.launch("attr_resolve_launch", table, tile_start, vis, gbuf,
+                  n_pairs, n_tiles_y, n_tiles_x, sub, prev)
     return gbuf
 
 

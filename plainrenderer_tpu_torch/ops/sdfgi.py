@@ -271,7 +271,9 @@ def trace_plain(wpos, normal, dirs, valid, sky_flat, sdf_packed, alb_packed,
     masks; a loop stops once no ray is live, which changes no result.
 
     stats, a dict, receives the loop counts this frame's rays need: fine /
-    coarse march steps taken by live rays, fine / coarse shadow steps."""
+    coarse march steps taken by live rays, fine / coarse shadow steps up
+    to a ray's first occluder (after it the ray stays shadowed, so kernel
+    G stops there)."""
     _, h, w = wpos.shape
     nty, ntx = h // TILE_H, w // TILE_W
     _, vh, vw = dims
@@ -382,16 +384,18 @@ def trace_plain(wpos, normal, dirs, valid, sky_flat, sdf_packed, alb_packed,
     # sun visibility at the hit: 8-step SDF shadow march, hit rays only
     lit = torch.ones_like(px)
     sel = torch.nonzero(hit).reshape(-1)
+    shadow_steps = 0
     if sel.numel():
         st = (voxel * 1.5).expand(sel.shape).clone()
         lit_s = torch.ones_like(st)
         for _ in range(8):
+            if stats is not None:
+                shadow_steps += int((lit_s != 0).sum())
             ds, _, _ = sample_sdf(hx[sel] + sdx * st, hy[sel] + sdy * st,
                                   hz[sel] + sdz * st, sel)
             lit_s = torch.where(ds < threshold * 0.8, 0.0, lit_s)
             st = st + torch.maximum(torch.abs(ds), voxel)
         lit[sel] = lit_s
-    shadow_steps = sel.numel() * 8
     coarse_steps = 0
     coarse_shadow_steps = 0
 
@@ -444,6 +448,8 @@ def trace_plain(wpos, normal, dirs, valid, sky_flat, sdf_packed, alb_packed,
             st = (voxel_c * 1.5).expand(sel.shape).clone()
             lit_c = torch.ones_like(st)
             for _ in range(6):
+                if stats is not None:
+                    coarse_shadow_steps += int((lit_c != 0).sum())
                 ds, _ = sample_coarse(cx[sel] + sdx * st, cy[sel] + sdy * st,
                                       cz[sel] + sdz * st)
                 lit_c = torch.where(ds < thr_c * 0.8, 0.0, lit_c)
@@ -453,7 +459,6 @@ def trace_plain(wpos, normal, dirs, valid, sky_flat, sdf_packed, alb_packed,
                 a = _div(((caw >> s) & 0xFF).to(torch.float32), 255.0)
                 alb[k][sel] = torch.where(take, a, alb[k][sel])
             lit[sel] = torch.where(take, lit_c, lit[sel])
-        coarse_shadow_steps = sel.numel() * 6
         t_hit = torch.where(hit_c, t2, t_hit)
         hit = hit | hit_c
 

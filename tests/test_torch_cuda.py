@@ -546,18 +546,76 @@ def _gi_case(device, seed=7, h=64, w=256):
                        sky_lowres=t(rng.random((3, 32, 64)) - 10.0))
 
 
-@pytest.mark.parametrize("coarse,steps", [(True, 128), (False, 32)])
-def test_sdfgi_kernel_equals_plain(cuda, coarse, steps):
-    scene, rays = _gi_case(cuda)
-    f = lambda x: torch.tensor(x, dtype=torch.float32, device=cuda)
+def _escaping_tile(rays):
+    """Rays of tile (1, 0) leave the box along the outward radial: every
+    one escapes the fine window."""
+    radial = rays["world_pos"][:, 16:32, :128]
+    radial = radial / radial.norm(dim=0, keepdim=True)
+    for key in ("normal", "ray_dirs"):
+        rays[key][:, 16:32, :128] = radial
+    rays["valid"][16:32, :128] = True
+    return rays
+
+
+def _plane_gi_case(device, dims, seed=9, h=32, w=256):
+    """A floor and, 6 m above it (world y), a ceiling over x < W / 2 -
+    3.2 m (a quarter of the rays' x range) of a synthetic volume of dims (D, H, W) voxels of 0.25 m, random
+    albedo, and rays from points between them, facing up from mid-air or
+    down from the ceiling: some hit in the window, most escape it and hit
+    in the coarse volume, the rays up from the open half see the sky (they
+    start 3 m above the floor, a coarse voxel or more at factor 8 or
+    16)."""
+    d, hh, ww = dims
+    voxel = 0.25
+    y = torch.arange(hh, device=device, dtype=torch.float32)[:, None] * voxel
+    x = torch.arange(ww, device=device, dtype=torch.float32)[None] * voxel
+    y0 = 0.5 * hh * voxel - 3.0
+    edge = 0.5 * ww * voxel - 3.2
+    ceiling = torch.sqrt(torch.clamp_min(x - edge, 0.0) ** 2
+                         + (y0 + 6.0 - y) ** 2)
+    vol = torch.minimum(y - y0, ceiling)[None].expand(d, hh, ww).contiguous()
+    sdf_packed = sdfgi.quantize_sdf_volume(vol, voxel)
+    del vol
+    g = torch.Generator(device=device).manual_seed(seed)
+    nb = sdf_packed.shape[0]
+    alb_packed = torch.randint(0, 1 << 24, (nb, 32, 128), generator=g,
+                               device=device, dtype=torch.int32)
+    rng = np.random.default_rng(seed)
+    up = rng.random((h, w)) < 0.5
+    n = np.zeros((3, h, w))
+    n[1] = np.where(up, 1.0, -1.0)
+    dirs = rng.normal(size=(3, h, w))
+    dirs /= np.linalg.norm(dirs, axis=0)
+    dirs = n * 1.2 + dirs
+    dirs /= np.linalg.norm(dirs, axis=0)
+    rows, cols = np.mgrid[0:h, 0:w] - np.asarray([h, w])[:, None, None] / 2
+    wpos = np.stack([0.5 * ww * voxel + 0.05 * cols,  # a tile spans 6.4 m
+                     np.where(up, y0 + 3.0, y0 + 5.7),
+                     0.5 * d * voxel + 0.05 * rows
+                     + rng.uniform(-0.1, 0.1, (h, w))])
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    rays = dict(world_pos=t(wpos), normal=t(n), ray_dirs=t(dirs),
+                valid=torch.as_tensor(rng.random((h, w)) < 0.8,
+                                      device=device),
+                sky_lowres=t(rng.random((3, 32, 64)) - 10.0))
+    scene = dict(sdf_volume=sdf_packed, sdf_albedo=alb_packed,
+                 sdf_origin=torch.zeros(3, device=device),
+                 sdf_voxel_size=voxel, sdf_grid=tuple(dims),
+                 sdf_coarse=sdfgi.build_coarse_tables(sdf_packed, alb_packed,
+                                                      tuple(dims)))
+    return scene, rays
+
+
+def _check_gi(device, scene, rays, mixed=True, **kw):
+    """Kernel G once (one launch) against its plain version, by the rule
+    of the module docstring; with mixed, the rays both hit and miss and
+    some escape the window. Returns the plain escaped plane."""
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
     args = (rays["world_pos"], rays["normal"], rays["ray_dirs"],
             rays["valid"], rays["sky_lowres"], scene["sdf_volume"],
             scene["sdf_albedo"], scene["sdf_origin"],
             scene["sdf_voxel_size"], scene["sdf_grid"], f([0.3, -0.9, 0.3]),
             f([1.0, 0.9, 0.8]), f(10.0))
-    kw = dict(steps=steps, influence=7.5,
-              dims_zyx=scene["sdf_grid"] if coarse else None,
-              coarse_tables=scene["sdf_coarse"] if coarse else None)
     before = native.launch_counts()["sdfgi_trace"]
     y, c, e = sdfgi.trace_gi(*args, **kw)
     assert native.launch_counts()["sdfgi_trace"] == before + 1
@@ -572,10 +630,42 @@ def test_sdfgi_kernel_equals_plain(cuda, coarse, steps):
     both = same_hit & same_esc
     err = (out - ref[:6]).abs() - 1e-4 * ref[:6].abs()
     assert float(err[:, both].max()) <= 1e-4
-    hits = float((ref[0] >= 0)[valid].float().mean())
-    assert 0.05 < hits < 0.95
-    if coarse:
+    assert not bool(out[:, ~valid].any()) and not bool(e[~valid].any())
+    if mixed:
+        hits = float((ref[0] >= 0)[valid].float().mean())
+        assert 0.05 < hits < 0.95
         assert float(ref[6][valid].mean()) > 0.01
+    return ref[6]
+
+
+@pytest.mark.parametrize("coarse,steps,strict", [
+    (True, 128, False), (False, 32, False), (True, 1, False),
+    (True, 32, True)])
+def test_sdfgi_kernel_equals_plain(cuda, coarse, steps, strict):
+    """The box scene: an all-sky tile (0, 0), a tile whose rays all escape
+    (1, 0); 128, 32 and 1 fine steps; the strict influence cutoff."""
+    scene, rays = _gi_case(cuda)
+    rays = _escaping_tile(rays)
+    escaped = _check_gi(
+        cuda, scene, rays, mixed=steps > 1, steps=steps, influence=7.5,
+        strict=strict, dims_zyx=scene["sdf_grid"] if coarse else None,
+        coarse_tables=scene["sdf_coarse"] if coarse else None)
+    if steps > 1:
+        assert bool(escaped[16:32, :128].bool().all())
+
+
+@pytest.mark.parametrize("dims,words", [
+    ((128, 128, 256), 2048),  # 8192 voxels: the largest table at factor 8
+    ((512, 512, 272), 5120)])  # factor 16 and still larger: global memory
+def test_sdfgi_kernel_coarse_table_sizes(cuda, dims, words):
+    """Kernel G's two instances: the coarse table staged in shared memory
+    at the largest size ops/sdfgi.coarse_factor_for allows, and read from
+    global memory past the staged capacity (4,096 words)."""
+    scene, rays = _plane_gi_case(cuda, dims)
+    cd, ch, cw = scene["sdf_coarse"][2]
+    assert cd * ch * ((cw + 3) // 4) == words
+    _check_gi(cuda, scene, rays, steps=32, influence=7.5,
+              dims_zyx=scene["sdf_grid"], coarse_tables=scene["sdf_coarse"])
 
 
 def test_packed_planes_kernel_equals_plain(cuda):
@@ -720,7 +810,7 @@ def test_winner_alpha_and_attr_resolve_kernels_equal_plain(cuda, sub, prev):
         pe, pa, pairs, nty, ntx, sub=sub, row_skip=True, alpha_masks=masks)
     after = native.launch_counts()
     assert after["winner_alpha"] == counts["winner_alpha"] + 1
-    assert after["attr_resolve"] == counts["attr_resolve"] + 1
+    assert after["attr_resolve"] == counts["attr_resolve"] + 2
     assert after["gbuffer"] == counts["gbuffer"]
     depth_p, vis_p = raster.winner_alpha_plain(
         pe, pairs.tile_start, pairs.tile_count, masks, nty, ntx, sub, True)
@@ -731,6 +821,49 @@ def test_winner_alpha_and_attr_resolve_kernels_equal_plain(cuda, sub, prev):
                                        sub)
     assert gbuf.shape[0] == (15 if prev else 13)
     torch.testing.assert_close(gbuf, gbuf_p, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("sub,prev,coverage,lead", [
+    (1, False, "none", 0), (2, False, "full", 37), (3, True, "full", 5),
+    (4, False, "mixed", 100), (4, True, "mixed", 0)])
+def test_attr_resolve_kernel_cases(cuda, sub, prev, coverage, lead):
+    """Kernel L on a made vis: no pixel covered, every pixel covered, a
+    mix with whole uncovered rows; sub 1-4; segments that start off the
+    128-pair grid (lead); 15 channels with prev. Its table is
+    attr_table_plain's bit for bit; its channels within 1e-4 of the
+    per-pixel plain version (kernel B's rule)."""
+    rng = np.random.default_rng(23 + sub)
+    nty, ntx = 3, 4
+    counts = rng.integers(1, 80, nty * ntx)
+    starts = lead + np.concatenate([[0], np.cumsum(counts)[:-1]])
+    n_pairs = int(starts[-1] + counts[-1] + 50)
+    rows = 40 if prev else 32
+    a = rng.normal(size=(rows, n_pairs)) * np.exp(rng.uniform(-4, 4, (
+        rows, n_pairs)))
+    a[0] = np.abs(a[0]) + 0.5
+    pa = torch.as_tensor(a.astype(np.float32), device=cuda)
+    h, w = nty * sub * 16, ntx * 128
+    bin_of = (np.arange(h)[:, None] // (16 * sub)) * ntx \
+        + np.arange(w)[None] // 128
+    vis = (starts % 128)[bin_of] + rng.integers(0, counts[bin_of])
+    if coverage == "none":
+        vis[:] = -1
+    elif coverage == "mixed":
+        vis[rng.random((h, w)) < 0.4] = -1
+        vis[8:24] = -1
+    vis = torch.as_tensor(vis.astype(np.int32), device=cuda)
+    tile_start = torch.as_tensor(starts.astype(np.int32), device=cuda)
+    before = native.launch_counts()["attr_resolve"]
+    gbuf = raster.resolve_attributes(pa, tile_start, vis, nty, ntx, sub)
+    assert native.launch_counts()["attr_resolve"] == before + 2
+    ref = raster.attr_resolve_plain(pa, tile_start, vis, nty, ntx, sub)
+    assert gbuf.shape == ref.shape == (15 if prev else 13, h, w)
+    torch.testing.assert_close(gbuf, ref, rtol=0, atol=1e-4)
+    assert not bool(gbuf[:, vis < 0].any())
+    table = torch.empty((n_pairs, rows), dtype=torch.float32, device=cuda)
+    native.launch("attr_round_launch", pa, table, n_pairs, int(prev))
+    torch.testing.assert_close(table, raster.attr_table_plain(pa), rtol=0,
+                               atol=0)
 
 
 @pytest.mark.parametrize("rows", [64, 56])
