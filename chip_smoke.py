@@ -1696,11 +1696,10 @@ SLICES = [
     Row(4, "sdf", 3, 8, _A_TO_I, slice4_kernels, slice4_after,
         histories=_HISTORIES),
     # bench.py's own scene: A for both streams of the main view and of the
-    # atlas; L's two launches (its rounding, then the pixels); M stays at
-    # 0 on the frame (its own path: slice5_kernels)
+    # atlas; M stays at 0 on the frame (its own path: slice5_kernels)
     Row(5, "bench", 3, 8,
         dict(_A_TO_I, expand_keys=4, depth_alpha=1, winner_alpha=1,
-             attr_resolve=2), slice5_kernels,
+             attr_resolve=1), slice5_kernels,
         lambda ctx, frames, settings, run: profile_frames(
             ctx, frames, settings, run, "slice 5"),
         pick_scale=True, histories=_HISTORIES),
@@ -1709,7 +1708,7 @@ SLICES = [
     # anisotropic branch, the SDF is recomposited every frame
     Row(6, "bench_dynamic", 3, 8,
         dict(_A_TO_I, expand_keys=4, depth_alpha=1, winner_alpha=1,
-             attr_resolve=2), slice6_kernels,
+             attr_resolve=1), slice6_kernels,
         lambda ctx, frames, settings, run: profile_frames(
             ctx, frames, settings, run, "slice 6"),
         pick_scale=True, histories=_HISTORIES,

@@ -19,14 +19,18 @@ trilinear + anisotropic and trilinear, texture_filter 2 and 1), F
 K (rasterize_winner_alpha on the main view's alpha stream) and L
 (resolve_attributes on K's vis), on the device with chip_smoke.cuda_ms of
 THIS checkout (CUDA events behind torch.cuda._sleep), with each tree's
-own wrapper. Every tree must give the same bits from E (the atlas), G
-(its 7 planes), K (depth and vis) and L (its 13 channels): each equals
-its plain version exactly. The G-buffer's, D's and F's checksums are
-reported per run (B, D and F have rules that allow a difference from
-their plain versions, which chip_smoke.py checks, so trees may differ
-there). Alternating the order separates a tree's effect from drift over
-the call. Prints one JSON line per process and a summary; the report goes
-to chiprun_out/compare_trees/report.json.
+own wrapper; each time comes with the host's enqueue per call (host us).
+G's host time is also split into its argument set-up
+(sdfgi._trace_setup) and the launch of sdfgi_trace_launch alone. Every
+tree must give the same bits from E (the atlas), G (its 7 planes), K
+(depth and vis) and L (its 13 channels): each equals its plain version
+exactly today. The G-buffer's, D's and F's checksums are reported per run
+(B, D and F have rules that allow a difference from their plain versions,
+which chip_smoke.py checks, so trees may differ there). Alternating the
+order separates a tree's effect from drift over the call. Prints one JSON
+line per process and a summary, and writes the report to
+chiprun_out/compare_trees/report.json; then exits non-zero if E's, G's,
+K's or L's bits differ between trees (the timings are printed first).
 """
 
 from __future__ import annotations
@@ -133,6 +137,24 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
         y, c, esc = sdfgi.trace_gi(*g_args, **g_kw)
         return torch.cat([y, c, esc[None]])
 
+    # G's host time, split: its arguments laid out, then the launch alone
+    def g_setup():
+        return sdfgi._trace_setup(
+            *g_args, g_kw["steps"], g_kw["influence"], g_kw["strict"],
+            g_kw["dims_zyx"], g_kw["coarse_fallback"], g_kw["coarse_tables"])
+
+    sky, c_sdf, c_alb, meta, kw = g_setup()
+    _, gh, gw = inp.world_pos.shape
+    g_out = torch.empty((7, gh, gw), dtype=torch.float32, device=ctx.dev)
+
+    def g_launch():
+        native.launch("sdfgi_trace_launch", inp.world_pos, inp.normal,
+                      inp.ray_dirs, inp.valid, sky, t_scene["sdf_volume"],
+                      t_scene["sdf_albedo"], c_sdf, c_alb, meta, g_out, gh,
+                      gw, *kw["dims"], *kw["coarse_dims"], kw["coarse_f"],
+                      kw["steps"], int(kw["strict"]), int(kw["use_coarse"]),
+                      kw["sky_h"], kw["sky_w"])
+
     pa = main.alpha_pairs
 
     def k():
@@ -169,6 +191,8 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
         d_tri=timer.cuda_ms(lambda: d(trilinear=True, aniso=False), 20),
         f=timer.cuda_ms(f, 20),
         g=timer.cuda_ms(lambda: sdfgi.trace_gi(*g_args, **g_kw), 20),
+        g_setup=timer.cuda_ms(g_setup, 20),
+        g_launch=timer.cuda_ms(g_launch, 20),
         k=timer.cuda_ms(k, 20), l=timer.cuda_ms(l, 20))
 
 
@@ -214,12 +238,10 @@ def main() -> int:
         print(json.dumps({k: r[k] for k in (
             "name", "frame_ms", "host_wall_ms", "shadow_atlas_ms",
             "gbuffer_ms", "e", "b", "d", "d_tri_aniso", "d_tri", "f", "g",
-            "k", "l", "build_s")}), flush=True)
-    for key in ("atlas", "gi", "alpha_depth", "alpha_vis", "alpha_gbuf"):
-        found = {r["sums"][key] for r in results}
-        if len(found) != 1:  # E, G, K and L are exact in every tree
-            raise SystemExit(f"compare_trees: the trees' {key} bits "
-                             f"differ: {found}")
+            "g_setup", "g_launch", "k", "l", "build_s")}), flush=True)
+    differ = {key: sorted({r["sums"][key] for r in results}) for key in (
+        "atlas", "gi", "alpha_depth", "alpha_vis", "alpha_gbuf")}
+    differ = {k: v for k, v in differ.items() if len(v) != 1}
     summary = {}
     for name in trees:
         rs = [r for r in results if r["name"] == name]
@@ -238,8 +260,14 @@ def main() -> int:
                 ("d_tri_ms", lambda r: r["d_tri"]["ms"]),
                 ("f_ms", lambda r: r["f"]["ms"]),
                 ("g_ms", lambda r: r["g"]["ms"]),
+                ("g_host_us", lambda r: r["g"]["host_us"]),
+                ("g_setup_host_us", lambda r: r["g_setup"]["host_us"]),
+                ("g_launch_ms", lambda r: r["g_launch"]["ms"]),
+                ("g_launch_host_us", lambda r: r["g_launch"]["host_us"]),
                 ("k_ms", lambda r: r["k"]["ms"]),
+                ("k_host_us", lambda r: r["k"]["host_us"]),
                 ("l_ms", lambda r: r["l"]["ms"]),
+                ("l_host_us", lambda r: r["l"]["host_us"]),
                 ("k_plus_l_ms", lambda r: r["k"]["ms"] + r["l"]["ms"]))}
         summary[name]["gbuffer_sums"] = sorted(
             {json.dumps(r["sums"], sort_keys=True) for r in rs})
@@ -248,9 +276,11 @@ def main() -> int:
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "report.json").write_text(json.dumps(
         dict(card=smi, order=order, trees=trees, results=results,
-             summary=summary), indent=1))
+             summary=summary, differ=differ), indent=1))
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
+    if differ:  # E, G, K and L equal their plain versions in every tree
+        raise SystemExit(f"compare_trees: the trees' bits differ: {differ}")
     return 0
 
 

@@ -20,7 +20,8 @@
 // multiply and add is rounded on its own, so K equals its plain version
 // (ops/raster.py:winner_alpha_plain) on every pixel.
 //
-// L, two launches (counted together as kernel L):
+// L, two grids enqueued by one call (attr_resolve_launch), so the host
+// pays one launch call as for the previous one-grid design:
 //   1. attr_round_kernel: one thread per pair column split-rounds its 30
 //      attribute rows (39 in a dynamic scene, prev != 0) once into a
 //      pair-major record of L_REC (L_REC_PREV) floats, 16-byte aligned
@@ -251,25 +252,24 @@ extern "C" int winner_alpha_launch(const void* edges, const void* masks,
   PLAIN_RETURN_LAUNCH_STATUS();
 }
 
-extern "C" int attr_round_launch(const void* attrs, void* table,
-                                 int n_pairs, int prev, void* stream) {
+// Kernel L: both grids from one call, so the host pays one launch call
+extern "C" int attr_resolve_launch(const void* attrs, void* table,
+                                   const void* tile_start, const void* vis,
+                                   void* gbuf, int n_pairs, int n_tiles_y,
+                                   int n_tiles_x, int sub, int prev,
+                                   void* stream) {
   const int threads = 256;
-  auto kernel = prev ? attr_round_kernel<true> : attr_round_kernel<false>;
-  kernel<<<(n_pairs + threads - 1) / threads, threads, 0,
-           (cudaStream_t)stream>>>((const float*)attrs, (float*)table,
-                                   n_pairs);
-  PLAIN_RETURN_LAUNCH_STATUS();
-}
-
-extern "C" int attr_resolve_launch(const void* table, const void* tile_start,
-                                   const void* vis, void* gbuf, int n_pairs,
-                                   int n_tiles_y, int n_tiles_x, int sub,
-                                   int prev, void* stream) {
+  auto round = prev ? attr_round_kernel<true> : attr_round_kernel<false>;
+  round<<<(n_pairs + threads - 1) / threads, threads, 0,
+          (cudaStream_t)stream>>>((const float*)attrs, (float*)table,
+                                  n_pairs);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
   const int height = n_tiles_y * sub * PLAIN_TILE_H;
   const size_t plane = (size_t)height * n_tiles_x * PLAIN_TILE_W;
   const dim3 grid(n_tiles_x, height / L_ROWS);
-  auto kernel = prev ? attr_resolve_kernel<true> : attr_resolve_kernel<false>;
-  kernel<<<grid, L_THREADS, 0, (cudaStream_t)stream>>>(
+  auto resolve = prev ? attr_resolve_kernel<true> : attr_resolve_kernel<false>;
+  resolve<<<grid, L_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const int*)tile_start, (const int*)vis,
       (float*)gbuf, n_pairs, n_tiles_x, sub, plane);
   PLAIN_RETURN_LAUNCH_STATUS();

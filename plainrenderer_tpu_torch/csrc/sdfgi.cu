@@ -54,18 +54,17 @@
 //     (32 KB, one int4 per thread each) from L2 into shared memory as
 //     a linear 32^3 byte volume (one byte load per sample, no brick
 //     arithmetic);
-//   - the coarse SDF table is staged beside it when it fits
-//     (GI_COARSE_SMEM_WORDS, the COARSE_SMEM instance; a larger table is
-//     read through __ldg by the other instance, picked on the host from
-//     the table's shape), read a byte at a time;
+//   - the coarse SDF table is read a byte at a time through __ldg (5.4
+//     KB on slice 5, <= 11 KB for any table coarse_factor_for gives below
+//     its factor cap; L1 holds it);
 //   - per step no division and no conversion (s8 * 0.125, trunc_small),
 //     `inside` from the clamp excess; per ray pow(b / 255, 2.2) from a
 //     256-entry table (the same powf of the same byte); the shadow
 //     marches stop at the first occluder (lit stays 0 from there on);
 //     outputs are streaming stores.
-// ptxas: 56 registers (both instances), 33.8 KB of static shared memory
-// (+ the staged coarse table, 5.4 KB on slice 5), no spill, no stack: 4
-// blocks of 8 warps per SM (32 resident warps; PR 8 had ~16).
+// ptxas: 64 registers, 33.8 KB of static shared memory, no spill, no
+// stack: 4 blocks of 8 warps per SM (32 resident warps; the previous
+// design had ~16).
 //
 // Forks measured (device ms on slice 5's trace, H100 80GB HBM3, 700 W;
 // compare_trees.py and variant trees timed in one call each, the output
@@ -85,6 +84,10 @@
 //     0.0569 (against 0.0556); 4 rays per thread at 5 blocks per SM
 //     0.0582; a thread's two rays marched together 0.0583 (64
 //     registers).
+//   - the coarse table staged in shared memory beside the window (a
+//     second instance for tables past 16 KB): 0.0558 / 0.0558 / 0.0562
+//     against 0.0552 / 0.0554 / 0.0556 for this design, alternated in one
+//     call (56 registers there); dropped.
 //   - where the time goes (phases removed one at a time): the block start
 //     and zero stores 0.020, the fine march 0.027, the shadow marches
 //     0.011, the coarse march 0.007.
@@ -96,10 +99,6 @@
 #define GI_ALB_WORDS 4096    // rgb8 albedo words per brick
 #define GI_RAYS 2  // rays per thread
 #define GI_PARTS (8 / GI_RAYS)  // blocks per 16 x 128 tile
-// coarse SDF words staged in shared memory (16 KB): every table of
-// <= 8192 voxels that ops/sdfgi.coarse_factor_for gives (<= 2,816 words
-// with x padded to whole words); larger tables take the global instance
-#define GI_COARSE_SMEM_WORDS 4096
 #define GI_MIN_BLOCKS 4  // blocks per SM the register budget is sized for
 
 namespace {
@@ -215,9 +214,7 @@ struct Coarse {
   int cd, ch, cw, cw_words;
 };
 
-// sample_coarse (sdfgi.py:356-374): distance and albedo index; the table
-// from shared memory (SMEM) or through the read-only path
-template <bool SMEM>
+// sample_coarse (sdfgi.py:356-374): distance and albedo index
 __device__ __forceinline__ float coarse_distance(
     const signed char* __restrict__ csdf, const Scene& s, const Coarse& c,
     float px, float py, float pz, int* aidx) {
@@ -230,7 +227,7 @@ __device__ __forceinline__ float coarse_distance(
   const int ix = trunc_small(gx), iy = trunc_small(gy), iz = trunc_small(gz);
   const int row = iz * c.ch + iy;  // byte ix of the row's words
   const int bidx = row * (4 * c.cw_words) + ix;
-  const signed char b = SMEM ? csdf[bidx] : __ldg(csdf + bidx);
+  const signed char b = __ldg(csdf + bidx);
   *aidx = row * c.cw + ix;
   return fmul(s8_voxels(b), c.voxel_c);
 }
@@ -239,7 +236,6 @@ __device__ __forceinline__ float coarse_distance(
 // influence (sdfgi.py:376-393), then, on a hit, the coarse albedo word and
 // the 6-step coarse shadow (:395-439). True on a hit, with the albedo
 // word, lit and the hit distance.
-template <bool SMEM>
 __device__ __forceinline__ bool coarse_trace(
     const signed char* __restrict__ ctab, const int* __restrict__ calb,
     const Scene& s, const float* __restrict__ meta, int cd, int ch, int cw,
@@ -259,7 +255,7 @@ __device__ __forceinline__ bool coarse_trace(
   bool hitc = false, alive2 = true;
   int aidx = 0;
   for (int i = 0; i < 24 && alive2; ++i) {
-    const float dc = coarse_distance<SMEM>(
+    const float dc = coarse_distance(
         ctab, s, co, fadd(px, fmul(dx, t2)), fadd(py, fmul(dy, t2)),
         fadd(pz, fmul(dz, t2)), &aidx);
     const bool new_hit = dc < thr_c;
@@ -271,7 +267,7 @@ __device__ __forceinline__ bool coarse_trace(
   const float cx = fadd(px, fmul(dx, t2));
   const float cy = fadd(py, fmul(dy, t2));
   const float cz = fadd(pz, fmul(dz, t2));
-  coarse_distance<SMEM>(ctab, s, co, cx, cy, cz, &aidx);
+  coarse_distance(ctab, s, co, cx, cy, cz, &aidx);
   *caw = __ldg(calb + aidx);
   const float sdx = meta[7], sdy = meta[8], sdz = meta[9];
   float st = fmul(co.voxel_c, 1.5f);
@@ -279,7 +275,7 @@ __device__ __forceinline__ bool coarse_trace(
   float l = 1.0f;
   for (int i = 0; i < 6 && l != 0.0f; ++i) {  // lit stays 0 once shadowed
     int unused;
-    const float ds = coarse_distance<SMEM>(
+    const float ds = coarse_distance(
         ctab, s, co, fadd(cx, fmul(sdx, st)), fadd(cy, fmul(sdy, st)),
         fadd(cz, fmul(sdz, st)), &unused);
     if (ds < thr_s) l = 0.0f;
@@ -300,7 +296,6 @@ __device__ __forceinline__ int window_base(float mean, float o, float voxel,
 
 }  // namespace
 
-template <bool COARSE_SMEM>
 __global__ void __launch_bounds__(PLAIN_TILE_THREADS, GI_MIN_BLOCKS)
 sdfgi_trace_kernel(const float* __restrict__ wpos,
                    const float* __restrict__ normal,
@@ -312,13 +307,12 @@ sdfgi_trace_kernel(const float* __restrict__ wpos,
                    const float* __restrict__ meta, float* __restrict__ out,
                    int h, int w, int vd, int vh, int vw, int cd, int ch,
                    int cw, int coarse_f, int steps, int strict,
-                   int use_coarse, int sky_h, int sky_w, int coarse_words) {
+                   int use_coarse, int sky_h, int sky_w) {
   // the tile's 8 SDF bricks, voxel (x, y, z) at byte (z * 32 + y) * 32 + x;
   // until the window is loaded its first 4 KB hold the tile sums' tree
   __shared__ __align__(16) int win[8 * GI_BRICK_WORDS];
   __shared__ float sums[4];
   __shared__ float alb_pow[256];  // powf(b / 255, 2.2) (sdfgi.py:470)
-  extern __shared__ int s_coarse[];  // COARSE_SMEM: the coarse SDF words
   const int part = blockIdx.x % GI_PARTS;
   const int tile = blockIdx.x / GI_PARTS;
   const int ntx = w / PLAIN_TILE_W;
@@ -337,13 +331,8 @@ sdfgi_trace_kernel(const float* __restrict__ wpos,
   s.nby = vh / GI_BRICK;
   const int nbz = vd / GI_BRICK;
 
-  // the tables that do not depend on the window, first (their loads and
-  // powf overlap the sums below)
-  if (COARSE_SMEM) {
-    for (int i = threadIdx.x; i < coarse_words; i += PLAIN_TILE_THREADS) {
-      s_coarse[i] = __ldg(csdf + i);
-    }
-  }
+  // the table that does not depend on the window, first (its powf
+  // overlaps the sums below)
   alb_pow[threadIdx.x] = powf(fdiv((float)threadIdx.x, 255.0f), 2.2f);
 
   // --- 1. window origin from the masked tile means (sdfgi.py:139-158):
@@ -412,8 +401,7 @@ sdfgi_trace_kernel(const float* __restrict__ wpos,
     }
   }
   __syncthreads();
-  const signed char* ctab = reinterpret_cast<const signed char*>(
-      COARSE_SMEM ? s_coarse : csdf);
+  const signed char* ctab = reinterpret_cast<const signed char*>(csdf);
   const signed char* win8 = reinterpret_cast<const signed char*>(win);
   const float infl_eff = meta[5];
   const float threshold = fmul(s.voxel, 0.43f);
@@ -493,9 +481,8 @@ sdfgi_trace_kernel(const float* __restrict__ wpos,
       }
     }
     if (use_coarse && escaped) {  // escaped rays have no fine hit
-      hit = coarse_trace<COARSE_SMEM>(ctab, calb, s, meta, cd, ch, cw,
-                                      coarse_f, px, py, pz, dx, dy, dz, t,
-                                      &aw, &lit, &t_hit);
+      hit = coarse_trace(ctab, calb, s, meta, cd, ch, cw, coarse_f, px, py,
+                         pz, dx, dy, dz, t, &aw, &lit, &t_hit);
     }
 
     // hit: meanAlbedo^2.2 * sun * lit; miss: the low-res sky
@@ -546,22 +533,6 @@ sdfgi_trace_kernel(const float* __restrict__ wpos,
   }
 }
 
-namespace {
-
-// Lift a kernel's dynamic shared memory limit to `bytes` once per device.
-template <typename Kernel>
-int gi_allow_smem(Kernel kernel, int* done, size_t bytes) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 0 && dev < PLAIN_MAX_DEVICES && done[dev]) return 0;
-  const int err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == 0 && dev >= 0 && dev < PLAIN_MAX_DEVICES) done[dev] = 1;
-  return err;
-}
-
-}  // namespace
-
 extern "C" int sdfgi_trace_launch(
     const void* wpos, const void* normal, const void* dirs, const void* valid,
     const void* sky, const void* sdf, const void* alb, const void* csdf,
@@ -569,21 +540,12 @@ extern "C" int sdfgi_trace_launch(
     int vh, int vw, int cd, int ch, int cw, int coarse_f, int steps,
     int strict, int use_coarse, int sky_h, int sky_w, void* stream) {
   const int blocks = (h / PLAIN_TILE_H) * (w / PLAIN_TILE_W) * GI_PARTS;
-  const int words = use_coarse ? cd * ch * ((cw + 3) / 4) : 0;
-  const bool staged = words <= GI_COARSE_SMEM_WORDS;
-  const size_t smem = staged ? (size_t)words * sizeof(int) : 0;
-  static int allowed[PLAIN_MAX_DEVICES];
-  if (staged) {
-    const int err = gi_allow_smem(sdfgi_trace_kernel<true>, allowed,
-                                  GI_COARSE_SMEM_WORDS * sizeof(int));
-    if (err != 0) return err;
-  }
-  auto kernel = staged ? sdfgi_trace_kernel<true> : sdfgi_trace_kernel<false>;
-  kernel<<<blocks, PLAIN_TILE_THREADS, smem, (cudaStream_t)stream>>>(
+  sdfgi_trace_kernel<<<blocks, PLAIN_TILE_THREADS, 0,
+                       (cudaStream_t)stream>>>(
       (const float*)wpos, (const float*)normal, (const float*)dirs,
       (const unsigned char*)valid, (const float*)sky, (const int*)sdf,
       (const int*)alb, (const int*)csdf, (const int*)calb,
       (const float*)meta, (float*)out, h, w, vd, vh, vw, cd, ch, cw,
-      coarse_f, steps, strict, use_coarse, sky_h, sky_w, words);
+      coarse_f, steps, strict, use_coarse, sky_h, sky_w);
   PLAIN_RETURN_LAUNCH_STATUS();
 }

@@ -72,11 +72,9 @@ _ENTRIES = {
     # edges, masks, tile_start, tile_count, depth, vis, n_pairs, n_masks,
     # n_tiles_y, n_tiles_x, sub, row_skip, stream
     "winner_alpha_launch": ("winner_alpha", [_P] * 6 + [_I] * 6 + [_P]),
-    # kernel L's two launches, counted together: attrs, table, n_pairs,
-    # prev, stream; then table, tile_start, vis, gbuf, n_pairs, n_tiles_y,
-    # n_tiles_x, sub, prev, stream
-    "attr_round_launch": ("attr_resolve", [_P] * 2 + [_I] * 2 + [_P]),
-    "attr_resolve_launch": ("attr_resolve", [_P] * 4 + [_I] * 5 + [_P]),
+    # kernel L, its two grids from one call: attrs, table, tile_start, vis,
+    # gbuf, n_pairs, n_tiles_y, n_tiles_x, sub, prev, stream
+    "attr_resolve_launch": ("attr_resolve", [_P] * 5 + [_I] * 5 + [_P]),
     # owners, table, total, out, n_rows, n_cols, budget, stream
     "expand_rows_launch": ("expand_rows", [_P] * 4 + [_I] * 3 + [_P]),
 }

@@ -931,8 +931,8 @@ def resolve_attributes(pair_attrs, tile_start, vis, n_tiles_y: int,
     with a dynamic scene's 40-row pair_attrs (kernel L,
     csrc/gbuffer_alpha.cu, replaces raster.py:1755 _attr_resolve_kernel):
     vis from rasterize_winner_alpha, the same arithmetic as kernel B's
-    attribute phase. Two launches: every pair's rows rounded once into a
-    pair-major table (attr_table_plain), then the pixels
+    attribute phase. One launch of two grids: every pair's rows rounded
+    once into a pair-major table (attr_table_plain), then the pixels
     (attr_resolve_table_plain)."""
     dev = pair_attrs.device
     _require(pair_attrs, "pair_attrs", torch.float32, 2, dev)
@@ -954,10 +954,9 @@ def resolve_attributes(pair_attrs, tile_start, vis, n_tiles_y: int,
     prev = int(n_chan > GBUF_CHANNELS)
     table = torch.empty((n_pairs, 40 if prev else 32), dtype=torch.float32,
                         device=dev)
-    native.launch("attr_round_launch", pair_attrs, table, n_pairs, prev)
     gbuf = torch.empty((n_chan, h, w), dtype=torch.float32, device=dev)
-    native.launch("attr_resolve_launch", table, tile_start, vis, gbuf,
-                  n_pairs, n_tiles_y, n_tiles_x, sub, prev)
+    native.launch("attr_resolve_launch", pair_attrs, table, tile_start, vis,
+                  gbuf, n_pairs, n_tiles_y, n_tiles_x, sub, prev)
     return gbuf
 
 

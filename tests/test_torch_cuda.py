@@ -557,6 +557,52 @@ def _escaping_tile(rays):
     return rays
 
 
+def _window_edge_rays(scene, rays, ty, tx, n=5):
+    """Rays of tile (ty, tx) whose first sample lies at window x -0.5 and
+    31.5 and the f32 values beside them (the edges of the trace's
+    `inside`, which kernel G takes from the clamp excess): normal x 0, so
+    the sample's x is wpos x, and y, z at the tile's mean, inside the
+    window. Returns the mask of those rays."""
+    wpos, valid, normal = rays["world_pos"], rays["valid"], rays["normal"]
+    dev = wpos.device
+    meta = sdfgi.trace_meta(scene["sdf_origin"], scene["sdf_voxel_size"],
+                            7.5, torch.zeros(3, device=dev),
+                            torch.zeros(3, device=dev),
+                            torch.zeros((), device=dev))
+    dims = scene["sdf_grid"]
+    f32 = np.float32
+    ox, inv = f32(meta[0].item()), f32(meta[4].item())
+    rows, cols = slice(ty * 16, ty * 16 + 16), slice(tx * 128, tx * 128 + 128)
+    sel = valid[rows, cols]
+    mean = wpos[:, rows, cols][:, sel].mean(dim=1)
+    mask = torch.zeros_like(valid)
+    mask[ty * 16, tx * 128:tx * 128 + 2 * n] = True
+    wpos[1:, mask] = mean[1:, None]
+    normal[0, mask] = 0.0
+    valid[mask] = True
+    tile = ty * (wpos.shape[2] // 128) + tx
+    bx0 = int(sdfgi.window_bricks(wpos, valid, meta, dims)[0][tile])
+    wx0 = f32(bx0 * 16)
+    xs = []
+    for target in (f32(-0.5), f32(31.5)):
+        # the f32 x values around the target and the window x each gives,
+        # computed as the trace does: (x - origin) * (1 / voxel) - wx0
+        x0 = f32(ox + (float(wx0) + float(target)) / float(inv))
+        cand = [x0]
+        for _ in range(64):
+            cand = [np.nextafter(cand[0], f32(-np.inf)), *cand,
+                    np.nextafter(cand[-1], f32(np.inf))]
+        cand = np.asarray(cand, f32)
+        g = (cand - ox) * inv - wx0
+        _, first = np.unique(g, return_index=True)
+        i = int(np.searchsorted(g[first], target))
+        assert g[first][i - 1] < target <= g[first][i]
+        xs.append(cand[first][i - n // 2:i - n // 2 + n])
+    wpos[0, mask] = torch.as_tensor(np.concatenate(xs), device=dev)
+    assert int(sdfgi.window_bricks(wpos, valid, meta, dims)[0][tile]) == bx0
+    return mask
+
+
 def _plane_gi_case(device, dims, seed=9, h=32, w=256):
     """A floor and, 6 m above it (world y), a ceiling over x < W / 2 -
     3.2 m (a quarter of the rays' x range) of a synthetic volume of dims (D, H, W) voxels of 0.25 m, random
@@ -606,10 +652,11 @@ def _plane_gi_case(device, dims, seed=9, h=32, w=256):
     return scene, rays
 
 
-def _check_gi(device, scene, rays, mixed=True, **kw):
+def _check_gi(device, scene, rays, mixed=True, edge=None, **kw):
     """Kernel G once (one launch) against its plain version, by the rule
     of the module docstring; with mixed, the rays both hit and miss and
-    some escape the window. Returns the plain escaped plane."""
+    some escape the window; the rays of the mask edge agree on hit and
+    escape every one. Returns the plain escaped plane."""
     f = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
     args = (rays["world_pos"], rays["normal"], rays["ray_dirs"],
             rays["valid"], rays["sky_lowres"], scene["sdf_volume"],
@@ -627,6 +674,8 @@ def _check_gi(device, scene, rays, mixed=True, **kw):
     same_esc = e == ref[6]
     assert float(same_hit[valid].float().mean()) >= 0.999
     assert float(same_esc.float().mean()) >= 0.999
+    if edge is not None:
+        assert bool((same_hit & same_esc)[edge].all())
     both = same_hit & same_esc
     err = (out - ref[:6]).abs() - 1e-4 * ref[:6].abs()
     assert float(err[:, both].max()) <= 1e-4
@@ -643,11 +692,14 @@ def _check_gi(device, scene, rays, mixed=True, **kw):
     (True, 32, True)])
 def test_sdfgi_kernel_equals_plain(cuda, coarse, steps, strict):
     """The box scene: an all-sky tile (0, 0), a tile whose rays all escape
-    (1, 0); 128, 32 and 1 fine steps; the strict influence cutoff."""
+    (1, 0), rays that start on the window's x edges (2, 1); 128, 32 and 1
+    fine steps; the strict influence cutoff."""
     scene, rays = _gi_case(cuda)
     rays = _escaping_tile(rays)
+    edge = _window_edge_rays(scene, rays, 2, 1)
     escaped = _check_gi(
-        cuda, scene, rays, mixed=steps > 1, steps=steps, influence=7.5,
+        cuda, scene, rays, mixed=steps > 1, edge=edge, steps=steps,
+        influence=7.5,
         strict=strict, dims_zyx=scene["sdf_grid"] if coarse else None,
         coarse_tables=scene["sdf_coarse"] if coarse else None)
     if steps > 1:
@@ -656,15 +708,16 @@ def test_sdfgi_kernel_equals_plain(cuda, coarse, steps, strict):
 
 @pytest.mark.parametrize("dims,words", [
     ((128, 128, 256), 2048),  # 8192 voxels: the largest table at factor 8
-    ((512, 512, 272), 5120)])  # factor 16 and still larger: global memory
+    ((512, 512, 272), 5120)])  # factor 16 and still larger
 def test_sdfgi_kernel_coarse_table_sizes(cuda, dims, words):
-    """Kernel G's two instances: the coarse table staged in shared memory
-    at the largest size ops/sdfgi.coarse_factor_for allows, and read from
-    global memory past the staged capacity (4,096 words)."""
+    """Kernel G's coarse march on the largest table
+    ops/sdfgi.coarse_factor_for allows below factor 16 and on a larger
+    one; rays that start on the window's x edges (1, 1)."""
     scene, rays = _plane_gi_case(cuda, dims)
     cd, ch, cw = scene["sdf_coarse"][2]
     assert cd * ch * ((cw + 3) // 4) == words
-    _check_gi(cuda, scene, rays, steps=32, influence=7.5,
+    edge = _window_edge_rays(scene, rays, 1, 1)
+    _check_gi(cuda, scene, rays, edge=edge, steps=32, influence=7.5,
               dims_zyx=scene["sdf_grid"], coarse_tables=scene["sdf_coarse"])
 
 
@@ -810,7 +863,7 @@ def test_winner_alpha_and_attr_resolve_kernels_equal_plain(cuda, sub, prev):
         pe, pa, pairs, nty, ntx, sub=sub, row_skip=True, alpha_masks=masks)
     after = native.launch_counts()
     assert after["winner_alpha"] == counts["winner_alpha"] + 1
-    assert after["attr_resolve"] == counts["attr_resolve"] + 2
+    assert after["attr_resolve"] == counts["attr_resolve"] + 1
     assert after["gbuffer"] == counts["gbuffer"]
     depth_p, vis_p = raster.winner_alpha_plain(
         pe, pairs.tile_start, pairs.tile_count, masks, nty, ntx, sub, True)
@@ -855,13 +908,14 @@ def test_attr_resolve_kernel_cases(cuda, sub, prev, coverage, lead):
     tile_start = torch.as_tensor(starts.astype(np.int32), device=cuda)
     before = native.launch_counts()["attr_resolve"]
     gbuf = raster.resolve_attributes(pa, tile_start, vis, nty, ntx, sub)
-    assert native.launch_counts()["attr_resolve"] == before + 2
+    assert native.launch_counts()["attr_resolve"] == before + 1
     ref = raster.attr_resolve_plain(pa, tile_start, vis, nty, ntx, sub)
     assert gbuf.shape == ref.shape == (15 if prev else 13, h, w)
     torch.testing.assert_close(gbuf, ref, rtol=0, atol=1e-4)
     assert not bool(gbuf[:, vis < 0].any())
     table = torch.empty((n_pairs, rows), dtype=torch.float32, device=cuda)
-    native.launch("attr_round_launch", pa, table, n_pairs, int(prev))
+    native.launch("attr_resolve_launch", pa, table, tile_start, vis,
+                  torch.empty_like(gbuf), n_pairs, nty, ntx, sub, int(prev))
     torch.testing.assert_close(table, raster.attr_table_plain(pa), rtol=0,
                                atol=0)
 

@@ -1,6 +1,5 @@
-"""The exact rules that kernels D, F and G use in place of slower
-arithmetic, held to the arithmetic they replace (plain PyTorch and numpy,
-no JAX).
+"""The exact rules that kernels D and F use in place of slower arithmetic,
+held to the arithmetic they replace (plain PyTorch and numpy, no JAX).
 
 Kernel D unpacks texel bytes through ops/texture.byte_table and addresses
 a window's taps through ops/texture.window_bricks; sample_plain uses both,
@@ -8,9 +7,7 @@ so tests/test_torch_texture.py and tests/test_torch_texture_filter.py hold
 them to the JAX package. Here: the table is the correctly rounded division
 (a multiply by fl(1/255) is not), and the brick table gives the same word
 as wrapping every tap's brick on the level's torus (torch.remainder), for
-every texel of the window. Kernel G (csrc/sdfgi.cu) decides `inside` from
-the clamp excess and divides stored distances by 8 with a multiply; both
-give the bits of the tests they replace.
+every texel of the window.
 """
 
 import numpy as np
@@ -106,38 +103,3 @@ def test_window_bricks_int32_and_batched():
               for a in range(2) for c in range(2)]
     assert bricks.reshape(4, 6).tolist() == [[int(e) for e in row]
                                              for row in expect]
-
-
-def _window_coords():
-    """f32 window coordinates around both ends of the window and far off:
-    a fine grid, the neighbours of -0.5, 0, 31 and 31.5, zeros, tiny,
-    huge and infinite values."""
-    g = [np.arange(-3.0, 35.0, 1.0 / 64.0, dtype=np.float32)]
-    for edge in (-0.5, 0.0, 31.0, 31.5):
-        e = np.float32(edge)
-        g.append(np.asarray([np.nextafter(e, np.float32(-np.inf)), e,
-                             np.nextafter(e, np.float32(np.inf))],
-                            np.float32))
-    g.append(np.asarray([0.0, -0.0, 1e-30, -1e-30, 1e30, -1e30, 62.0, 63.5,
-                         -1e-45, np.inf, -np.inf], np.float32))
-    return np.concatenate(g)
-
-
-def test_window_inside_is_the_clamp_excess():
-    """For finite and infinite coordinates, -0.5 <= g <= 31.5 (the trace's
-    `inside`, ops/sdfgi.py:window_coords) iff |g - clamp(g, 0, 31)| <= 0.5
-    in f32, the excess kernel G computes anyway."""
-    g = _window_coords()
-    clamped = np.clip(g, np.float32(0.0), np.float32(31.0))
-    excess = np.abs(g - clamped)
-    assert excess.dtype == np.float32
-    np.testing.assert_array_equal((g >= -0.5) & (g <= 31.5), excess <= 0.5)
-
-
-def test_s8_eighths_are_the_quotient():
-    """A stored distance b / 8 (the plain version's true division) is
-    b * 0.125 for every signed byte, bit for bit."""
-    b = np.arange(-128, 128).astype(np.float32)
-    quotient = torch.as_tensor(b) / torch.full((), 8.0)
-    np.testing.assert_array_equal((b * np.float32(0.125)).view(np.int32),
-                                  quotient.numpy().view(np.int32))
