@@ -101,8 +101,10 @@ KERNEL_SOURCES = {
 # ray the setup, refinement, albedo, pow, sky mapping and SH encode
 G_FINE_STEP_OPS, G_SHADOW_STEP_OPS, G_COARSE_STEP_OPS = 60, 45, 35
 G_RAY_OPS = 150
-# rows of a pair's 32 that kernels J and K stage and read
-# (csrc/common.cuh, PLAIN_N_STAGED and PLAIN_N_STAGED_ALPHA)
+# rows of a pair's table that the raster kernels' bounds count as read:
+# B and E 12 plane rows and the row extents (rows 3, 7); J and K the 22
+# rows of their per-pixel step (csrc/common.cuh, PLAIN_ROWS_ALPHA) and
+# the row extents
 N_STAGED, N_STAGED_ALPHA = 14, 24
 SMALL_ATRIUM = dict(columns_per_row=2, floor_subdiv=2, box_count=3,
                     box_subdiv=1, column_segments=8)
@@ -200,10 +202,12 @@ def slice_settings(n: int, width: int, height: int, **shadows):
                                  **drop)
 
 
-def pair_rows(pair_edges, pairs, n_tiles_x: int, sub: int):
+def pair_rows(pair_edges, pairs, n_tiles_x: int, sub: int,
+              row_skip: bool = True):
     """The live pairs of these pair lists: their bin, their column in the
     stream, and the first and count of their bin's 16-px fine rows inside
-    the pair's [fy0, fy1] (pair_edges rows 3 and 7)."""
+    the pair's [fy0, fy1] (pair_edges rows 3 and 7; all sub rows of the
+    bin without row_skip)."""
     dev = pair_edges.device
     counts = pairs.tile_count.long()
     seg = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
@@ -212,6 +216,8 @@ def pair_rows(pair_edges, pairs, n_tiles_x: int, sub: int):
         torch.cumsum(counts, 0) - counts, counts)
     stream = torch.repeat_interleave(pairs.tile_start.long(), counts) + rank
     row0 = (seg // n_tiles_x * sub).float()
+    if not row_skip:
+        return seg, stream, row0.long(), torch.full_like(seg, sub)
     lo = torch.maximum(pair_edges[3, stream], row0)
     n_rows = (torch.minimum(pair_edges[7, stream], row0 + sub - 1) - lo
               + 1).clamp(min=0).long()
@@ -232,15 +238,15 @@ BLOCK_SIZES = ((8, 8), (16, 8), (16, 16), (32, 16), (64, 16))
 
 
 def block_tests(pair_edges, pairs, n_tiles_x: int, sub: int, bw: int,
-                bh: int, z: bool = False):
-    """(tests, pixels) of a row-skipping raster that tests each pair
-    against the bw x bh blocks of its rows (pair_rows) with the exact
-    corner test (raster.block_may_cover; with z, kernel B's z range test
-    too) and evaluates the pixels of the blocks that pass: the corner
-    tests made and the pixels of the passing blocks, on these pair
-    lists."""
+                bh: int, z: bool = False, row_skip: bool = True):
+    """(tests, pixels) of a raster that tests each pair against the bw x
+    bh blocks of its rows (pair_rows) with the exact corner test
+    (raster.block_may_cover; with z, kernel B's z range test too) and
+    evaluates the pixels of the blocks that pass: the corner tests made
+    and the pixels of the passing blocks, on these pair lists."""
     dev = pair_edges.device
-    seg, stream, lo, n_rows = pair_rows(pair_edges, pairs, n_tiles_x, sub)
+    seg, stream, lo, n_rows = pair_rows(pair_edges, pairs, n_tiles_x, sub,
+                                        row_skip)
     edges = pair_edges[[0, 1, 2, 4, 5, 6, 8, 9, 10]]
     bx = torch.arange(0, raster.TILE_W, bw, device=dev)
     by = torch.arange(0, raster.TILE_H, bh, device=dev)
@@ -274,6 +280,24 @@ def block_work(pair_edges, pairs, n_tiles_x: int, sub: int,
                                        bw, bh, z)
              for bw, bh in BLOCK_SIZES}
     return sizes, min(sizes, key=lambda k: sum(sizes[k]))
+
+
+def stream_counts(pair_edges, pairs, n_tiles_x: int, sub: int,
+                  row_skip: bool, z: bool) -> dict:
+    """A pair stream's work as kernels J (z False, no row skip on the
+    atlas) and K (z True, row_skip) see it: its pairs, the bins holding
+    any, the median and largest pairs of such a bin, and the corner tests
+    and pixels of the passing 16 x 16 blocks (block_tests)."""
+    counts = pairs.tile_count
+    live = counts[counts > 0].float()
+    tests, pixels = block_tests(pair_edges, pairs, n_tiles_x, sub, 16, 16,
+                                z, row_skip)
+    return dict(pairs=int(counts.sum()), bins=counts.numel(),
+                bins_with_pairs=live.numel(),
+                p50_pairs_per_bin=float(live.quantile(0.5))
+                if live.numel() else 0.0,
+                max_pairs_per_bin=int(counts.max()),
+                block_tests_16x16=tests, block_pixels_16x16=pixels)
 
 
 class Ctx:
@@ -1333,6 +1357,9 @@ def slice5_kernels(ctx, frames, settings) -> dict:
           "every covering caster", flush=True)
     check(raised > 0 and rejected_j > 0, "the alpha casters write and cut")
     del uncut_j
+    j_counts = stream_counts(a.edges, a.pairs, atlas.n_bins_x, a.sub,
+                             row_skip=False, z=False)
+    print(f"kernel J's stream: {j_counts}", flush=True)
 
     mv = rec["raster_main_view"][0][0]
     main = frame.raster_main_view(mv)
@@ -1360,6 +1387,9 @@ def slice5_kernels(ctx, frames, settings) -> dict:
           f"the masks reject {rejected} of them; {alpha_wins} pixels of "
           "the merged frame at the alpha stream's depth", flush=True)
     check(edge_px > 0 and rejected > 0, "the alpha test does work")
+    k_counts = stream_counts(pe_a, pa, mv.n_tiles_x, mv.sub, row_skip=True,
+                             z=True)
+    print(f"kernel K's stream: {k_counts}", flush=True)
     err_l, winners = check_and_time_l(ctx, mv, main, vis_k)
 
     m_found = check_and_time_m(ctx, mv, main)
@@ -1400,7 +1430,8 @@ def slice5_kernels(ctx, frames, settings) -> dict:
                 atlas_alpha_pairs=a_pairs, atlas_alpha_bins=[
                     a.n_bins_y, atlas.n_bins_x], atlas_texels_raised=raised,
                 atlas_texels_rejected=rejected_j,
-                atlas_texels_passing=passing, main_alpha_pairs=k_pairs,
+                atlas_texels_passing=passing, atlas_alpha_stream=j_counts,
+                main_alpha_stream=k_counts, main_alpha_pairs=k_pairs,
                 main_alpha_winner_triangles=winners,
                 main_alpha_edge_pixels=edge_px,
                 main_alpha_rejected_pixels=rejected,

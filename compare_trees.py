@@ -12,7 +12,8 @@ textured atrium with its banners and its scene SDF) at 1920x1080 with the
 default RenderSettings() and pair_budget_scale 2.0, and drives
 warmup + timed frames on the bench camera path (chip_smoke.drive). It then
 times, on frame 0's inputs, kernels E (rasterize_depth on the opaque
-casters), B (rasterize_gbuffer on the opaque main view), D
+casters), J (rasterize_depth merging the atlas's alpha casters into a
+clone of E's atlas), B (rasterize_gbuffer on the opaque main view), D
 (sample_materials on the G-buffer, with the frame's keywords and again
 trilinear + anisotropic and trilinear, texture_filter 2 and 1), F
 (resolve_packed on the shadow inputs), G (trace_gi on the trace inputs),
@@ -21,16 +22,21 @@ K (rasterize_winner_alpha on the main view's alpha stream) and L
 THIS checkout (CUDA events behind torch.cuda._sleep), with each tree's
 own wrapper; each time comes with the host's enqueue per call (host us).
 G's host time is also split into its argument set-up
-(sdfgi._trace_setup) and the launch of sdfgi_trace_launch alone. Every
-tree must give the same bits from E (the atlas), G (its 7 planes), K
-(depth and vis) and L (its 13 channels): each equals its plain version
-exactly today. The G-buffer's, D's and F's checksums are reported per run
-(B, D and F have rules that allow a difference from their plain versions,
-which chip_smoke.py checks, so trees may differ there). Alternating the
+(sdfgi._trace_setup) and the launch of sdfgi_trace_launch alone. The work
+of the two alpha streams (chip_smoke.stream_counts of THIS checkout:
+pairs, bins with pairs, median and largest pairs per bin, pixels of the
+16 x 16 blocks that pass the corner test) is reported per process. Every
+tree must give the same bits from E (the atlas), J (the merged atlas), G
+(its 7 planes), K (depth and vis) and L (its 13 channels): each equals its
+plain version exactly today. The G-buffer's, D's and F's checksums are
+reported per run (B, D and F have rules that allow a difference from
+their plain versions, which chip_smoke.py checks, so trees may differ
+there). Alternating the
 order separates a tree's effect from drift over the call. Prints one JSON
 line per process and a summary, and writes the report to
 chiprun_out/compare_trees/report.json; then exits non-zero if E's, G's,
-K's or L's bits differ between trees (the timings are printed first).
+K's, L's or J's bits differ between trees (the timings are printed
+first).
 """
 
 from __future__ import annotations
@@ -49,8 +55,8 @@ OUT = ROOT / "chiprun_out" / "compare_trees"
 
 
 def one(tree: Path, warmup: int, timed: int) -> dict:
-    """Slice 5's frames and kernels E, B, D, F, G, K and L with the port of
-    `tree`."""
+    """Slice 5's frames and kernels E, J, B, D, F, G, K and L with the port
+    of `tree`."""
     sys.path.insert(0, str(tree))
     import numpy as np
     import torch
@@ -102,6 +108,17 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
         return raster.rasterize_depth(atlas.edges, atlas.pairs,
                                       atlas.n_bins_y, atlas.n_bins_x,
                                       sub=atlas.sub, row_skip=True)
+
+    # J merging the alpha casters into a clone of E's atlas: merging them
+    # again (the timed calls) leaves it as it is
+    a = atlas.alpha
+    opaque = e()
+    merged = opaque.clone()
+
+    def j(into=merged):
+        return raster.rasterize_depth(a.edges, a.pairs, a.n_bins_y,
+                                      atlas.n_bins_x, sub=a.sub,
+                                      alpha_masks=a.masks, init_depth=into)
 
     def b():
         return raster.rasterize_gbuffer(
@@ -175,17 +192,24 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
         return int((w.flatten() * pos).sum())
 
     depth_b, vis_b, gbuf_b = b()
-    sums = dict(atlas=checksum(e()), depth=checksum(depth_b),
+    counts = dict(
+        atlas=timer.stream_counts(a.edges, a.pairs, atlas.n_bins_x, a.sub,
+                                  row_skip=False, z=False),
+        main=timer.stream_counts(main.alpha_edges, pa, mv.n_tiles_x, mv.sub,
+                                 row_skip=True, z=True))
+    sums = dict(atlas=checksum(opaque), alpha_atlas=checksum(
+                    j(opaque.clone())), depth=checksum(depth_b),
                 vis=checksum(vis_b), gbuf=checksum(gbuf_b),
                 texture=checksum(d()), shadow=checksum(f()),
                 gi=checksum(g()), alpha_depth=checksum(k()[0]),
                 alpha_vis=checksum(vis_k), alpha_gbuf=checksum(l()))
     passes = run["pass_ms"]
     return dict(
-        tree=str(tree), build_s=build_s, sums=sums,
+        tree=str(tree), build_s=build_s, sums=sums, alpha_counts=counts,
         frame_ms=passes["frame"], host_wall_ms=passes["host_wall_per_frame"],
         shadow_atlas_ms=passes["shadow_atlas"], gbuffer_ms=passes["gbuffer"],
         launches=run["launches"], e=timer.cuda_ms(e, 20),
+        j=timer.cuda_ms(j, 20),
         b=timer.cuda_ms(b, 20), d=timer.cuda_ms(d, 20),
         d_tri_aniso=timer.cuda_ms(lambda: d(trilinear=True, aniso=True), 20),
         d_tri=timer.cuda_ms(lambda: d(trilinear=True, aniso=False), 20),
@@ -237,13 +261,15 @@ def main() -> int:
         results.append(r)
         print(json.dumps({k: r[k] for k in (
             "name", "frame_ms", "host_wall_ms", "shadow_atlas_ms",
-            "gbuffer_ms", "e", "b", "d", "d_tri_aniso", "d_tri", "f", "g",
-            "g_setup", "g_launch", "k", "l", "build_s")}), flush=True)
+            "gbuffer_ms", "alpha_counts", "e", "j", "b", "d", "d_tri_aniso",
+            "d_tri", "f", "g", "g_setup", "g_launch", "k", "l",
+            "build_s")}), flush=True)
     differ = {key: sorted({r["sums"][key] for r in results}) for key in (
-        "atlas", "gi", "alpha_depth", "alpha_vis", "alpha_gbuf")}
+        "atlas", "alpha_atlas", "gi", "alpha_depth", "alpha_vis",
+        "alpha_gbuf")}
     differ = {k: v for k, v in differ.items() if len(v) != 1}
     summary = {}
-    for name in trees:
+    for name in dict.fromkeys(order):
         rs = [r for r in results if r["name"] == name]
         summary[name] = {
             key: [f(r) for r in rs] for key, f in (
@@ -253,6 +279,8 @@ def main() -> int:
                 ("shadow_atlas_ms", lambda r: r["shadow_atlas_ms"]["mean"]),
                 ("e_ms", lambda r: r["e"]["ms"]),
                 ("e_host_us", lambda r: r["e"]["host_us"]),
+                ("j_ms", lambda r: r["j"]["ms"]),
+                ("j_host_us", lambda r: r["j"]["host_us"]),
                 ("b_ms", lambda r: r["b"]["ms"]),
                 ("b_host_us", lambda r: r["b"]["host_us"]),
                 ("d_ms", lambda r: r["d"]["ms"]),
@@ -279,7 +307,7 @@ def main() -> int:
              summary=summary, differ=differ), indent=1))
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
-    if differ:  # E, G, K and L equal their plain versions in every tree
+    if differ:  # E, J, G, K and L equal their plain versions in every tree
         raise SystemExit(f"compare_trees: the trees' bits differ: {differ}")
     return 0
 

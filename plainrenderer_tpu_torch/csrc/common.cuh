@@ -18,25 +18,22 @@
 #define PLAIN_NATTR_PREV 39
 #define PLAIN_GBUF_CHANNELS_PREV 15
 
-// The raster kernels (gbuffer.cu, depth.cu) stage 14 of a pair's 16 edge
-// rows in shared memory: e0, e1, e2, z as (a, b, c) (rows 4p + k), then
-// the fine-row extents fy0 (row 3) and fy1 (row 7).
-#define PLAIN_N_STAGED 14
-__device__ __forceinline__ int plain_staged_row(int r) {
-  return r < 12 ? (r / 3) * 4 + r % 3 : (r == 12 ? 3 : 7);
-}
-
-// The alpha-tested raster kernels (depth_alpha.cu, gbuffer_alpha.cu) stage
-// 24 of the 32 rows: the 14 above, then u/w, v/w, 1/w as (a, b, c) (rows
-// 16-26, planes 4-6) and the mask slot (row 30, plane 7's c). Staged row
-// 14 + 3 * q + k holds plane 4 + q's coefficient k; staged row 23 the slot.
-#define PLAIN_N_STAGED_ALPHA 24
-#define PLAIN_STAGED_SLOT 23
-__device__ __forceinline__ int plain_staged_row_alpha(int r) {
-  return r < PLAIN_N_STAGED ? plain_staged_row(r)
-                            : (r == PLAIN_STAGED_SLOT
-                                   ? 30
-                                   : 16 + ((r - 14) / 3) * 4 + (r - 14) % 3);
+// The strip kernels load ROWS of a pair's table rows (plain_strip_pairs):
+// 12 in kernels E and B (gbuffer.cu, depth.cu), e0, e1, e2, z as (a, b,
+// c) at rows 4p + k; 22 in the alpha-tested J and K (depth_alpha.cu,
+// gbuffer_alpha.cu), those 12, then u/w, v/w, 1/w as (a, b, c) at rows
+// 16-26 (planes 4-6; loaded row 12 + 3q + k holds plane 4 + q's k) and
+// the mask slot (row 30, plane 7's c; loaded row 21).
+#define PLAIN_ROWS_ALPHA 22
+#define PLAIN_ROW_SLOT 21
+template <int ROWS>
+__device__ __forceinline__ int plain_pair_row(int r) {
+  if constexpr (ROWS == PLAIN_ROWS_ALPHA) {
+    if (r >= 12) {
+      return r == PLAIN_ROW_SLOT ? 30 : 16 + ((r - 12) / 3) * 4 + (r - 12) % 3;
+    }
+  }
+  return (r / 3) * 4 + r % 3;
 }
 #define PLAIN_MAX_ALPHA_MASKS 8  // = ops/raster.py:MAX_ALPHA_MASKS
 #define PLAIN_ALPHA_MASK_WORDS 128
@@ -83,20 +80,33 @@ __device__ __forceinline__ float plain_kernel_recip(float x) {
   return __fmul_rn(r, __fsub_rn(2.0f, __fmul_rn(x, r)));
 }
 
-// The alpha test (raster.py:1393-1416) of a pair with mask slot `slot` at
-// a pixel whose planes 4-6 evaluate to uw, vw, iw: the perspective-correct
-// uv wrapped into 64x64 texels picks one bit of mask slot - 1 (masks in
-// shared memory, n_masks rows of 128 words). Opaque pairs (slot < 0.5) and
-// slots that name no mask pass, as the TPU kernel's table default (-1).
-__device__ __forceinline__ bool plain_alpha_passes(float uw, float vw,
-                                                   float iw, float slot,
-                                                   const int* masks,
-                                                   int n_masks) {
-  if (!(slot >= 0.5f)) return true;
-  const float rs = rintf(slot);
-  if (!(rs >= 1.0f && rs <= (float)n_masks && fabsf(slot - rs) < 0.5f)) {
-    return true;
+// The alpha test (raster.py:1393-1416), in two steps. The masks sit in
+// shared memory (plain_load_masks): n_masks rows of 128 words, then a row
+// of ones, the TPU kernel's table default (-1). plain_alpha_mask, once per
+// pair: the row that mask slot `slot` names, or the row of ones for
+// opaque pairs (slot < 0.5) and slots that name no mask.
+__device__ __forceinline__ void plain_load_masks(
+    const int* __restrict__ masks, int n_masks, int* s_masks) {
+  for (int i = threadIdx.x; i < (n_masks + 1) * PLAIN_ALPHA_MASK_WORDS;
+       i += blockDim.x) {
+    s_masks[i] = i < n_masks * PLAIN_ALPHA_MASK_WORDS ? masks[i] : -1;
   }
+}
+
+__device__ __forceinline__ const int* plain_alpha_mask(float slot,
+                                                       const int* s_masks,
+                                                       int n_masks) {
+  const float rs = rintf(slot);
+  const bool named = slot >= 0.5f && rs >= 1.0f && rs <= (float)n_masks &&
+                     fabsf(slot - rs) < 0.5f;
+  return s_masks + (named ? (int)rs - 1 : n_masks) * PLAIN_ALPHA_MASK_WORDS;
+}
+
+// plain_alpha_bit, per pixel whose planes 4-6 evaluate to uw, vw, iw: the
+// perspective-correct uv wrapped into 64x64 texels picks one bit of the
+// mask row.
+__device__ __forceinline__ bool plain_alpha_bit(float uw, float vw, float iw,
+                                                const int* mask) {
   const float inv = plain_kernel_recip(iw > 1e-12f ? iw : 1.0f);
   const float u = __fmul_rn(uw, inv);
   const float v = __fmul_rn(vw, inv);
@@ -106,8 +116,7 @@ __device__ __forceinline__ bool plain_alpha_passes(float uw, float vw,
                                0.0f), 63.0f);
   const int ix = (int)fx;
   const int iy = (int)fy;
-  const int word = masks[((int)rs - 1) * PLAIN_ALPHA_MASK_WORDS + iy * 2 +
-                         (ix >= 32 ? 1 : 0)];
+  const int word = mask[iy * 2 + (ix >= 32 ? 1 : 0)];
   return ((word >> (ix & 31)) & 1) == 1;
 }
 
@@ -305,47 +314,23 @@ __device__ __forceinline__ int plain_floor_int(float x, float* xf) {
   return i;
 }
 
-// The depth-only kernels' work items (depth.cu, depth_alpha.cu): item i
-// is the DEPTH_CHUNK-pair slice k of the first bin with chunk_end > i,
-// chunk_end being the inclusive prefix sum of each bin's
-// ceil(count / chunk) (ops/raster.py:rasterize_depth). Sets the bin, the
-// slice's first pair in the stream and its pair count.
-__device__ __forceinline__ void plain_depth_item(
-    const int* __restrict__ chunk_end, const int* __restrict__ tile_start,
-    const int* __restrict__ tile_count, int n_bins, int chunk, int item,
-    int* bin, int* start, int* n) {
-  int lo = 0, hi = n_bins - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (chunk_end[mid] <= item) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  const int count = tile_count[lo];
-  const int first_item = chunk_end[lo] - (count + chunk - 1) / chunk;
-  const int p0 = (item - first_item) * chunk;
-  *bin = lo;
-  *n = min(chunk, count - p0);
-  *start = tile_start[lo] + p0;
-}
-
 #define PLAIN_FULL_MASK 0xffffffffu
 
-// The strip kernels' work items (depth.cu, gbuffer.cu): a slice is a
-// chunk-pair piece of one bin's segment (an empty bin has one empty
-// slice, so every strip is written), and item i is part i % parts of
-// slice i / parts (kernel B: parts = sub 16-row strips; kernel E: 2 * sub
-// half strips). The bins go heaviest first, so the heavy
-// bins' many items are handed out before the light bins' short ones,
-// which fill the end: bucket k holds the bins of 2^(7-k-1) < slices <=
-// 2^(7-k) (bucket 0: more than 64, bucket 7: one), each bucket in bin
-// order. Every block computes the same order, by block scans (a full
-// sort of the bins cost more than it saved). Every thread of the block
-// calls plain_slice_prefix once: s_key[j] = (count << 13) | bin of the
-// j-th bin in that order, s_end[j] the inclusive prefix of the slice
-// counts up to it; s_wsum holds one int per warp.
+// The strip kernels' work items (E, B, J, K): a slice is a chunk-pair
+// piece of one bin's segment (an empty bin has one empty slice, so every
+// strip is written, unless SKIP_EMPTY: kernel J merges into its atlas and
+// has nothing to write there), and item i is part i % parts of slice i /
+// parts (kernel B: parts = sub 16-row strips; E: 2 * sub half strips; J
+// and K: 8 * sub 16 x 16 blocks). The bins go heaviest first, so the
+// heavy bins' many items are handed out before the light bins' short
+// ones, which fill the end: bucket k holds the bins of 2^(7-k-1) < slices
+// <= 2^(7-k) (bucket 0: more than 64, bucket 7: one), each bucket in bin
+// order; BY_PAIRS (J and K, whose bins are mostly one slice) buckets by
+// pairs instead of slices. Every block computes the same order, by block
+// scans (a full sort of the bins cost more than it saved). Every thread
+// of the block calls plain_slice_prefix once: s_key[j] = (count << 13) |
+// bin of the j-th bin in that order, s_end[j] the inclusive prefix of the
+// slice counts up to it; s_wsum holds one int per warp.
 #define PLAIN_BIN_BITS 13  // bins < 2^13 and pairs per bin < 2^18
 #define PLAIN_BUCKETS 8
 
@@ -380,6 +365,7 @@ __device__ __forceinline__ int plain_bucket(int slices) {
   return PLAIN_BUCKETS - 1 - min(32 - __clz(slices - 1), PLAIN_BUCKETS - 1);
 }
 
+template <bool SKIP_EMPTY = false, bool BY_PAIRS = false>
 __device__ __forceinline__ void plain_slice_prefix(
     const int* __restrict__ tile_count, int n_bins, int chunk, int* s_key,
     int* s_end, int* s_wsum) {
@@ -389,7 +375,8 @@ __device__ __forceinline__ void plain_slice_prefix(
   // this thread's bins per bucket, two buckets per int (counts < 2^16)
   int packed[PLAIN_BUCKETS / 2] = {};
   for (int b = b0; b < b1; ++b) {
-    const int k = plain_bucket(plain_slices(tile_count[b], chunk));
+    const int k = plain_bucket(BY_PAIRS ? max(1, tile_count[b])
+                                        : plain_slices(tile_count[b], chunk));
 #pragma unroll
     for (int q = 0; q < PLAIN_BUCKETS / 2; ++q) {
       if (k >> 1 == q) packed[q] += (k & 1) ? 1 : 1 << 16;
@@ -408,7 +395,8 @@ __device__ __forceinline__ void plain_slice_prefix(
   }
   for (int b = b0; b < b1; ++b) {
     const int c = tile_count[b];
-    const int k = plain_bucket(plain_slices(c, chunk));
+    const int k =
+        plain_bucket(BY_PAIRS ? max(1, c) : plain_slices(c, chunk));
 #pragma unroll
     for (int q = 0; q < PLAIN_BUCKETS; ++q) {
       if (k == q) s_key[pos[q]++] = (c << PLAIN_BIN_BITS) | b;
@@ -417,13 +405,25 @@ __device__ __forceinline__ void plain_slice_prefix(
   __syncthreads();
   int local = 0;
   for (int j = b0; j < b1; ++j) {
-    local += plain_slices(s_key[j] >> PLAIN_BIN_BITS, chunk);
+    const int c = s_key[j] >> PLAIN_BIN_BITS;
+    local += SKIP_EMPTY ? (c + chunk - 1) / chunk : plain_slices(c, chunk);
     s_end[j] = local;
   }
   int total;
   const int offset = plain_block_scan(local, s_wsum, &total);
   for (int j = b0; j < b1; ++j) s_end[j] += offset;
   __syncthreads();
+}
+
+// The next item of a persistent warp whose first item was its index in
+// the grid (kernels J and K): the counter hands out n_warps, n_warps + 1,
+// ...; when every item was some warp's first, none asks it.
+__device__ __forceinline__ int plain_next_item(int* counter, int n_warps,
+                                               int n_items) {
+  if (n_warps >= n_items) return n_items;
+  int next = 0;
+  if ((threadIdx.x & 31) == 0) next = n_warps + atomicAdd(counter, 1);
+  return __shfl_sync(PLAIN_FULL_MASK, next, 0);
 }
 
 struct PlainStrip {
@@ -456,14 +456,17 @@ __device__ __forceinline__ PlainStrip plain_strip_item(
   return it;
 }
 
-// The pairs of one strip item (kernels E and B), 32 at a time: lane p
-// takes pair p of the slice (pairs start .. start + n - 1 of the stream),
-// and, if its row extent holds the strip's fine row frow (row_skip), its
-// 12 plane coefficients (e0, e1, e2, z as a, b, c); test(cf) returns its
-// mask of 16 x 16 blocks the pair may cover (plus any flag bits), and a
-// pair with a nonzero mask goes to the warp's stash (32 x 13 floats).
-// Then the warp visits each such pair in lane order: visit(c, mask, p).
-template <typename Test, typename Visit>
+// The pairs of one strip item, 32 at a time: lane p takes pair p of the
+// slice (pairs start .. start + n - 1 of the stream), and, if its row
+// extent holds the strip's fine row frow (row_skip), its ROWS table rows
+// (plain_pair_row: 12 in kernels E and B, 22 in J and K); test(cf)
+// returns its mask of 16 x 16 blocks the pair may cover (plus any flag
+// bits), and a pair with a nonzero mask goes to the warp's stash (32 x
+// (ROWS + 1) floats: the odd stride keeps the lanes' stores off each
+// other's banks). Then the warp visits each such pair in lane order:
+// visit(c, mask, p), c its first 12 rows; all ROWS stay at stash + (p %
+// 32) * (ROWS + 1) during the visit.
+template <int ROWS = 12, typename Test, typename Visit>
 __device__ __forceinline__ void plain_strip_pairs(
     const float* __restrict__ edges, int n_pairs, int start, int n,
     int row_skip, float frow, float* stash, Test test, Visit visit) {
@@ -475,15 +478,15 @@ __device__ __forceinline__ void plain_strip_pairs(
       const size_t col = (size_t)start + p;
       if (!row_skip || (edges[3 * (size_t)n_pairs + col] <= frow &&
                         frow <= edges[7 * (size_t)n_pairs + col])) {
-        float cf[12];
+        float cf[ROWS];
 #pragma unroll
-        for (int r = 0; r < 12; ++r) {
-          cf[r] = edges[(size_t)plain_staged_row(r) * n_pairs + col];
+        for (int r = 0; r < ROWS; ++r) {
+          cf[r] = edges[(size_t)plain_pair_row<ROWS>(r) * n_pairs + col];
         }
         mask = test(cf);
         if (mask) {
 #pragma unroll
-          for (int r = 0; r < 12; ++r) stash[lane * 13 + r] = cf[r];
+          for (int r = 0; r < ROWS; ++r) stash[lane * (ROWS + 1) + r] = cf[r];
         }
       }
     }
@@ -495,17 +498,18 @@ __device__ __forceinline__ void plain_strip_pairs(
       const unsigned m = __shfl_sync(PLAIN_FULL_MASK, mask, src);
       float c[12];
 #pragma unroll
-      for (int r = 0; r < 12; ++r) c[r] = stash[src * 13 + r];
+      for (int r = 0; r < 12; ++r) c[r] = stash[src * (ROWS + 1) + r];
       visit(c, m, g + src);
     }
     __syncwarp();  // the stash is read before the next 32 pairs land
   }
 }
 
-// The grid of a persistent kernel (E and B): the SMs times the blocks of
-// `threads` threads and `smem` bytes of dynamic shared memory that fit on
-// one. The lookups take microseconds, so each launcher keeps the last
-// answer per device in `cache` and asks again only when smem changes.
+// The grid of a persistent kernel (E, B, J and K): the SMs times the
+// blocks of `threads` threads and `smem` bytes of dynamic shared memory
+// that fit on one. The lookups take microseconds, so each launcher keeps
+// the last answer per device in `cache` and asks again only when smem
+// changes.
 #define PLAIN_MAX_DEVICES 16
 struct PlainGridCache {  // zero-initialised as a static
   size_t smem[PLAIN_MAX_DEVICES];

@@ -66,12 +66,12 @@ _ENTRIES = {
     "packed_planes_launch": ("packed_planes", [_P] * 3 + [_I] * 3 + [_P]),
     # history, coords, out, n_taps, h, w, stream
     "history_taps_launch": ("history_taps", [_P] * 3 + [_I] * 3 + [_P]),
-    # edges, masks, tile_start, tile_count, chunk_end, counter, depth,
-    # n_pairs, n_masks, n_tiles_y, n_tiles_x, sub, row_skip, grid, stream
-    "depth_alpha_launch": ("depth_alpha", [_P] * 7 + [_I] * 7 + [_P]),
-    # edges, masks, tile_start, tile_count, depth, vis, n_pairs, n_masks,
+    # edges, masks, tile_start, tile_count, aux, depth, n_pairs, n_masks,
     # n_tiles_y, n_tiles_x, sub, row_skip, stream
-    "winner_alpha_launch": ("winner_alpha", [_P] * 6 + [_I] * 6 + [_P]),
+    "depth_alpha_launch": ("depth_alpha", [_P] * 6 + [_I] * 6 + [_P]),
+    # edges, masks, tile_start, tile_count, aux, depth, vis, n_pairs,
+    # n_masks, n_tiles_y, n_tiles_x, sub, row_skip, stream
+    "winner_alpha_launch": ("winner_alpha", [_P] * 7 + [_I] * 6 + [_P]),
     # kernel L, its two grids from one call: attrs, table, tile_start, vis,
     # gbuf, n_pairs, n_tiles_y, n_tiles_x, sub, prev, stream
     "attr_resolve_launch": ("attr_resolve", [_P] * 5 + [_I] * 5 + [_P]),

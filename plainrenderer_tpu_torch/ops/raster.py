@@ -885,17 +885,26 @@ def rasterize_winner_alpha(pair_edges, pairs: PairLists, alpha_masks,
     if pair_edges.shape[0] != 32:
         raise ValueError(f"pair_edges needs the 32-row alpha table, got "
                          f"{tuple(pair_edges.shape)}")
-    if not 1 <= sub <= 4:  # kernel K's block is 128 * sub threads, <= 512
+    if not 1 <= sub <= 4:  # the bin heights kernel K was checked at
         raise ValueError(f"sub must be in [1, 4], got {sub}")
     if not _kernel_device(pair_edges):
         return winner_alpha_plain(pair_edges, pairs.tile_start,
                                   pairs.tile_count, alpha_masks, n_tiles_y,
                                   n_tiles_x, sub, row_skip)
+    n_bins = n_tiles_y * n_tiles_x
+    if n_bins > GBUFFER_MAX_BINS:
+        raise ValueError(f"kernel K takes at most {GBUFFER_MAX_BINS} bins, "
+                         f"got {n_bins}")
     h, w = n_tiles_y * sub * TILE_H, n_tiles_x * TILE_W
+    # warps take (16 x 16 block, pair slice) items, the first by their
+    # index in the grid, then from aux[0]; aux[1:] holds each block's
+    # merge counters and flag
+    aux = torch.zeros((1 + 3 * 8 * n_bins * sub,), dtype=torch.int32,
+                      device=dev)
     depth = torch.empty((h, w), dtype=torch.float32, device=dev)
     vis = torch.empty((h, w), dtype=torch.int32, device=dev)
     native.launch("winner_alpha_launch", pair_edges, alpha_masks,
-                  pairs.tile_start, pairs.tile_count, depth, vis,
+                  pairs.tile_start, pairs.tile_count, aux, depth, vis,
                   pair_edges.shape[1], alpha_masks.shape[0], n_tiles_y,
                   n_tiles_x, sub, int(row_skip))
     return depth, vis
@@ -1026,8 +1035,10 @@ def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
 # depth-only raster (kernels E and J) and its plain version
 # --------------------------------------------------------------------------
 
-DEPTH_CHUNK = 256  # pairs per work item of kernel J (csrc/depth_alpha.cu)
-DEPTH_MAX_BINS = 4096  # kernel E keeps 2 ints per bin in shared memory
+DEPTH_CHUNK = 128  # pairs per slice of kernel E (csrc/depth.cu, E_CHUNK)
+J_CHUNK = 32  # pairs per slice of kernel J (csrc/depth_alpha.cu, J_CHUNK)
+K_CHUNK = 16  # pairs per slice of kernel K (csrc/gbuffer_alpha.cu, K_CHUNK)
+DEPTH_MAX_BINS = 4096  # kernels E and J keep 2 ints per bin in shared memory
 
 
 def depth_plain(pair_edges, tile_start, tile_count, n_tiles_y: int,
@@ -1070,10 +1081,6 @@ def block_may_cover(edges, x0, y0, bw: int, bh: int,
     return may
 
 
-def _sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def rasterize_depth(pair_edges, pairs: PairLists, n_tiles_y: int,
                     n_tiles_x: int, sub: int = 1, row_skip: bool = False,
                     alpha_masks=None, init_depth=None) -> torch.Tensor:
@@ -1112,21 +1119,21 @@ def rasterize_depth(pair_edges, pairs: PairLists, n_tiles_y: int,
         _require(init_depth, "init_depth", torch.float32, 2, dev)
         if tuple(init_depth.shape) != (h, w):
             raise ValueError(f"init_depth needs ({h}, {w})")
-    if not 1 <= sub <= 8:  # kernel J: blocks of 128 * sub threads
+    if not 1 <= sub <= 8:  # the bin heights kernels E and J are tested at
         raise ValueError(f"sub must be in [1, 8], got {sub}")
     if not _kernel_device(pair_edges):
         depth = depth_plain(pair_edges, pairs.tile_start, pairs.tile_count,
                             n_tiles_y, n_tiles_x, sub, row_skip,
                             masks=alpha_masks, init=init_depth)
         return depth if init_depth is None else init_depth.copy_(depth)
+    n_bins = n_tiles_y * n_tiles_x
+    if n_bins > DEPTH_MAX_BINS:
+        raise ValueError(f"kernels E and J take at most {DEPTH_MAX_BINS} "
+                         f"bins, got {n_bins}")
     if not alpha:
         # kernel E: warps take (half strip, pair slice) items from
         # aux[0]; aux[1:] holds each half strip's merge counter and flag.
         # It writes every texel, so the atlas needs no zero fill.
-        n_bins = n_tiles_y * n_tiles_x
-        if n_bins > DEPTH_MAX_BINS:
-            raise ValueError(f"kernel E takes at most {DEPTH_MAX_BINS} bins, "
-                             f"got {n_bins}")
         aux = torch.zeros((1 + 4 * n_bins * sub,), dtype=torch.int32,
                           device=dev)
         depth = torch.empty((h, w), dtype=torch.float32, device=dev)
@@ -1134,21 +1141,17 @@ def rasterize_depth(pair_edges, pairs: PairLists, n_tiles_y: int,
                       pairs.tile_count, aux, depth, pair_edges.shape[1],
                       n_tiles_y, n_tiles_x, sub, int(row_skip))
         return depth
-    # kernel J: DEPTH_CHUNK-pair slices of each bin's segment, handed out
-    # by an atomic counter to persistent blocks (heavy bins spread over
-    # many blocks; their results merge by an integer atomicMax)
-    n_chunks = torch.div(pairs.tile_count + (DEPTH_CHUNK - 1), DEPTH_CHUNK,
-                         rounding_mode="floor")
-    chunk_end = torch.cumsum(n_chunks, 0, dtype=torch.int32)
-    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+    # kernel J: warps take (16 x 16 block, pair slice) items of the bins
+    # with pairs, the first by their index in the grid, then from aux[0],
+    # and atomicMax their covered texels onto depth
+    aux = torch.zeros((1,), dtype=torch.int32, device=dev)
     depth = init_depth
     if depth is None:
         depth = torch.zeros((h, w), dtype=torch.float32, device=dev)
     native.launch("depth_alpha_launch", pair_edges, alpha_masks,
-                  pairs.tile_start, pairs.tile_count, chunk_end, counter,
-                  depth, pair_edges.shape[1], alpha_masks.shape[0],
-                  n_tiles_y, n_tiles_x, sub, int(row_skip),
-                  2 * _sm_count(dev))
+                  pairs.tile_start, pairs.tile_count, aux, depth,
+                  pair_edges.shape[1], alpha_masks.shape[0], n_tiles_y,
+                  n_tiles_x, sub, int(row_skip))
     return depth
 
 

@@ -1,21 +1,24 @@
-"""The block test of kernels E and B (ops/raster.py:block_may_cover).
+"""The block test of kernels E, B, J and K (ops/raster.py:block_may_cover).
 
 The CUDA kernels skip a 16 x 16 block of pixel centres for a pair when the
-pair's edge planes (and, in kernel B, its z range) rule out every pixel of
-the block at its extreme corner. That skip may never drop a pixel the
-plain versions cover, or the atlas and the G-buffer would differ from
-them. Here, on the CPU: one pair per bin, its coverage from depth_plain
-(kernel E's plain version) and from gbuffer_plain (kernel B's, which adds
-0 < z <= 1), against block_may_cover for every 16 x 16 block of the bin.
-Pairs are random triangles and adversarial planes: edges through pixel
-centres, +-0, huge and tiny coefficients, NaN and +-inf. A block whose
-every corner is clearly outside one edge (in float64) must be rejected.
+pair's edge planes (and, in kernels B and K, its z range) rule out every
+pixel of the block at its extreme corner. That skip may never drop a
+pixel the plain versions cover, or the atlas and the G-buffer would
+differ from them. Here, on the CPU: one pair per bin, its coverage from
+depth_plain (kernel E's plain version) and from gbuffer_plain (kernel B's,
+which adds 0 < z <= 1), against block_may_cover for every 16 x 16 block of
+the bin; and the same pairs as the 32-row alpha table of kernels J
+(depth_plain with masks) and K (winner_alpha_plain). Pairs are random
+triangles and adversarial planes: edges through pixel centres, +-0, huge
+and tiny coefficients, NaN and +-inf. A block whose every corner is
+clearly outside one edge (in float64) must be rejected.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from plainrenderer_tpu_torch.assets import textures
 from plainrenderer_tpu_torch.ops import raster
 
 torch.set_num_threads(1)
@@ -155,6 +158,66 @@ def test_block_test_never_rejects_a_covered_block(kind, with_z):
         f"{int(missed.sum())} covered blocks rejected, first at bin "
         f"{int(missed.nonzero()[0, 0])}")
     assert bool((~may).any())  # and the test does reject blocks
+
+
+def _alpha_table(pe, kind, rng):
+    """The pairs of pe as the 32-row alpha table with 2 masks (an 8 x 8
+    checkerboard and random texels): planes 4-6 wrap the masks every few
+    pixels, slots 0-2 (0: opaque); the nonfinite kind also puts NaN and
+    +-inf into a uv coefficient of every third pair."""
+    n = pe.shape[1]
+    pa = np.zeros((32, n))
+    pa[:16] = pe.numpy()
+    pa[16] = rng.uniform(-0.03, 0.03, n)
+    pa[17] = rng.uniform(-0.03, 0.03, n)
+    pa[18] = rng.uniform(-4, 4, n)
+    pa[20] = rng.uniform(-0.03, 0.03, n)
+    pa[21] = rng.uniform(-0.03, 0.03, n)
+    pa[22] = rng.uniform(-4, 4, n)
+    pa[24:27] = np.array([0.0, 0.0, 1.0])[:, None]
+    pa[30] = rng.integers(0, 3, n)
+    if kind == "nonfinite":
+        for i in range(0, n, 3):
+            pa[rng.choice([16, 17, 18, 20, 21, 22, 24, 25, 26]), i] = \
+                rng.choice([np.nan, np.inf, -np.inf])
+    yy, xx = np.mgrid[0:64, 0:64]
+    masks = np.stack([
+        textures.build_alpha_mask((((yy // 8) + (xx // 8)) % 2)
+                                  .astype(np.float32)),
+        textures.build_alpha_mask((rng.random((64, 64)) > 0.4)
+                                  .astype(np.float32))])
+    with np.errstate(all="ignore"):
+        return torch.as_tensor(pa.astype(np.float32)), torch.as_tensor(masks)
+
+
+@pytest.mark.parametrize("with_z", [False, True])
+@pytest.mark.parametrize("kind", ["random", "centres", "zeros", "extreme",
+                                  "nonfinite"])
+def test_block_test_never_rejects_an_alpha_covered_block(kind, with_z):
+    """Kernels J (edges only: depth_plain with masks) and K (edges and z:
+    winner_alpha_plain) on the 32-row alpha table: the alpha test only
+    removes pixels, so a block the edges (and z) rule out stays out."""
+    rng = np.random.default_rng(["random", "centres", "zeros", "extreme",
+                                 "nonfinite"].index(kind) + 10 * with_z + 20)
+    pe, pairs = _pair_table(*_planes(kind, rng))
+    pa, masks = _alpha_table(pe, kind, rng)
+    if with_z:
+        _, vis = raster.winner_alpha_plain(pa, pairs.tile_start,
+                                           pairs.tile_count, masks, NTY, NTX,
+                                           1, False)
+        covered = _blocks(vis >= 0)
+    else:
+        bits = raster.depth_plain(pa, pairs.tile_start, pairs.tile_count,
+                                  NTY, NTX, 1, False,
+                                  masks=masks).view(torch.int32)
+        covered = _blocks(bits != 0)
+    may = _may(pa, with_z)
+    assert int(covered.sum()) > 10  # the masks drop some of the > 20
+    missed = covered & ~may
+    assert not bool(missed.any()), (
+        f"{int(missed.sum())} covered blocks rejected, first at bin "
+        f"{int(missed.nonzero()[0, 0])}")
+    assert bool((~may).any())
 
 
 @pytest.mark.parametrize("with_z", [False, True])

@@ -25,6 +25,8 @@ Kernels D and F also run on hand-made edge cases (_texture_edge_inputs,
 _shadow_world) and F at 1 and 16 taps and 1 and 4 cascades.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -334,7 +336,7 @@ def test_depth_kernel_equals_plain(cuda, sub, row_skip, case):
         nb, ntx = 256 // (16 * sub), 4
         pe, pairs = _depth_edge_cases(cuda, np.random.default_rng(31), nb,
                                       ntx, sub)
-        assert int(pairs.tile_count.max()) > 2 * raster.DEPTH_CHUNK
+        assert int(pairs.tile_count.max()) > 4 * raster.DEPTH_CHUNK
     else:
         pe, _ = raster.gather_pair_setups(setup, pairs, row_extents=row_skip,
                                           with_attrs=False)
@@ -809,6 +811,66 @@ def _alpha_case(device, rng, n=600, width=512, height=256, sub=2,
     return setup, torch.as_tensor(masks, device=device)
 
 
+def _alpha_edge_cases(device, rng, nb, ntx, sub):
+    """Kernel E's hand-made pair lists (_depth_edge_cases: bins over 512
+    pairs, one-pixel triangles, a bin-wide triangle, edges 0 at pixel
+    centres, NaN / inf / +-0 / huge / tiny edge and z coefficients) as
+    the 32-row alpha table: planes 4-6 (u/w, v/w, 1/w) wrap the 64x64
+    masks every 0.5-60 px, slots 0-2 and the odd slots 3 (names no mask),
+    0.7 (mask 1) and 1.5 (no mask: |slot - round(slot)| is not < 0.5);
+    one pair in 7 has a NaN or +-inf uv coefficient. In bin 0, six
+    bin-wide pairs at one depth sit in different slices of kernel K's
+    K_CHUNK (equal packed depths: the highest slot that passes wins), and
+    bins 2 and 5 are emptied (their pairs stay as dead columns). Returns
+    (pair_edges (32, P), PairLists, masks (2, 128) i32)."""
+    pe16, pairs = _depth_edge_cases(device, rng, nb, ntx, sub)
+    n = pe16.shape[1]
+    rows = sub * 16
+    pe = np.zeros((32, n), np.float64)
+    pe[:16] = pe16.cpu().numpy()
+    scale = 1.0 / (64.0 * np.exp(rng.uniform(np.log(0.5), np.log(60.0),
+                                             (2, n))))
+    ang = rng.uniform(0, 2 * np.pi, (2, n))
+    for q in range(2):  # u/w and v/w
+        pe[16 + 4 * q] = scale[q] * np.cos(ang[q])
+        pe[17 + 4 * q] = scale[q] * np.sin(ang[q])
+        pe[18 + 4 * q] = rng.uniform(-5, 5, n)
+    pe[24] = rng.uniform(-1e-4, 1e-4, n)  # 1/w, positive on the screen
+    pe[25] = rng.uniform(-1e-4, 1e-4, n)
+    pe[26] = rng.uniform(0.6, 1.4, n)
+    slot = rng.integers(0, 3, n).astype(np.float64)
+    odd = rng.random(n)
+    slot[odd < 0.05] = 3.0
+    slot[(odd >= 0.05) & (odd < 0.1)] = 0.7
+    slot[(odd >= 0.1) & (odd < 0.15)] = 1.5
+    pe[30] = slot
+    bad = np.nonzero(rng.random(n) < 1 / 7)[0]
+    rows_uv = np.array([16, 17, 18, 20, 21, 22, 24, 25, 26])
+    pe[rows_uv[rng.integers(0, 9, bad.size)], bad] = rng.choice(
+        [np.nan, np.inf, -np.inf], bad.size)
+    for k, p in enumerate((3, 40, 41, 77, 150, 300)):  # bin 0's slices
+        pe[:16, p] = 0.0
+        for e, (a, b) in enumerate(((1.0, 0.0), (0.0, 1.0), (-1.0, -1.0))):
+            pe[4 * e:4 * e + 3, p] = (a, b, 900.0 if e < 2 else 128.0 +
+                                      rows + 900.0)
+        pe[12:15, p] = (0.0, 0.0, 0.875)
+        pe[rows_uv, p] = (0.02, 0.01, 0.0, -0.01, 0.03, 0.5, 0.0, 0.0, 1.0)
+        pe[3, p], pe[7, p] = 0.0, sub - 1.0
+        pe[30, p] = (1.0, 0.0, 2.0, 1.0, 2.0, 1.0)[k]
+    with np.errstate(all="ignore"):
+        edges = torch.as_tensor(pe.astype(np.float32), device=device)
+    counts = pairs.tile_count.clone()
+    counts[[2, 5]] = 0
+    yy, xx = np.mgrid[0:64, 0:64]
+    masks = np.stack([
+        textures.build_alpha_mask((((yy // 8) + (xx // 8)) % 2)
+                                  .astype(np.float32)),
+        textures.build_alpha_mask((rng.random((64, 64)) > 0.4)
+                                  .astype(np.float32))])
+    return edges, dataclasses.replace(pairs, tile_count=counts), \
+        torch.as_tensor(masks, device=device)
+
+
 @pytest.mark.parametrize("sub,row_skip,with_init",
                          [(4, False, True), (2, True, False),
                           (8, False, False)])
@@ -842,6 +904,102 @@ def test_depth_alpha_kernel_equals_plain(cuda, sub, row_skip, with_init):
                                ntx, sub, row_skip, init=init)
     assert (depth > 0).float().mean() > 0.3
     assert bool((uncut > depth).any())  # the masks cut
+
+
+@pytest.mark.parametrize("sub,row_skip,with_init", [
+    (1, False, True), (1, True, False), (2, False, False), (2, True, True),
+    (4, False, True), (4, True, False), (8, False, False), (8, True, True)])
+def test_depth_alpha_kernel_edge_cases(cuda, sub, row_skip, with_init):
+    """Kernel J on _alpha_edge_cases at sub 1, 2, 4 and 8, with and without
+    row skip and init_depth: bins of many slices merging by atomicMax,
+    empty bins, non-finite z and uv coefficients, odd slots; equal to its
+    plain version on every texel, one launch per call."""
+    rng = np.random.default_rng(41 + sub)
+    nb, ntx = 256 // (16 * sub), 4
+    pe, pairs, masks = _alpha_edge_cases(cuda, rng, nb, ntx, sub)
+    assert int(pairs.tile_count.max()) > 2 * raster.J_CHUNK
+    init = None
+    if with_init:  # an opaque atlas: zeros and depths in (0, 0.9)
+        d = torch.as_tensor(rng.uniform(0, 0.9, (256, 512)).astype(
+            np.float32), device=cuda)
+        init = torch.where(d > 0.45, d, 0.0)
+    merged = None if init is None else init.clone()
+    before = native.launch_counts()["depth_alpha"]
+    depth = raster.rasterize_depth(pe, pairs, nb, ntx, sub=sub,
+                                   row_skip=row_skip, alpha_masks=masks,
+                                   init_depth=merged)
+    assert native.launch_counts()["depth_alpha"] == before + 1
+    depth_p = raster.depth_plain(pe, pairs.tile_start, pairs.tile_count, nb,
+                                 ntx, sub, row_skip, masks=masks, init=init)
+    torch.testing.assert_close(depth.view(torch.int32),
+                               depth_p.view(torch.int32), rtol=0, atol=0)
+    base = torch.zeros_like(depth) if init is None else init
+    raised = depth.view(torch.int32) > base.view(torch.int32)
+    assert float(raised.float().mean()) > 0.05
+    assert bool((depth.view(torch.int32) == 0x7FFFFFFF).any())  # NaN z
+    rows = sub * 16  # the emptied bins 2 and 5 keep their values
+    for b in (2, 5):
+        ty, tx = divmod(b, ntx)
+        cut = (slice(ty * rows, (ty + 1) * rows), slice(tx * 128,
+                                                       tx * 128 + 128))
+        assert torch.equal(depth[cut], base[cut])
+
+
+@pytest.mark.parametrize("sub,row_skip", [
+    (1, False), (1, True), (2, False), (2, True), (3, False), (3, True),
+    (4, False), (4, True)])
+def test_winner_alpha_kernel_edge_cases(cuda, sub, row_skip):
+    """Kernel K on _alpha_edge_cases at sub 1-4, with and without row
+    skip: slices that merge (the first stores, the rest atomicMax, the
+    last splits), equal packed depths in different slices of bin 0,
+    empty bins (-1), non-finite z and uv coefficients, odd slots; depth
+    and vis equal to its plain version on every pixel, one launch."""
+    rng = np.random.default_rng(51 + sub)
+    nty, ntx = 256 // (16 * sub), 4
+    pe, pairs, masks = _alpha_edge_cases(cuda, rng, nty, ntx, sub)
+    assert int(pairs.tile_count.max()) > 2 * raster.K_CHUNK
+    before = native.launch_counts()["winner_alpha"]
+    depth, vis = raster.rasterize_winner_alpha(pe, pairs, masks, nty, ntx,
+                                               sub, row_skip)
+    assert native.launch_counts()["winner_alpha"] == before + 1
+    depth_p, vis_p = raster.winner_alpha_plain(
+        pe, pairs.tile_start, pairs.tile_count, masks, nty, ntx, sub,
+        row_skip)
+    torch.testing.assert_close(vis, vis_p, rtol=0, atol=0)
+    torch.testing.assert_close(depth.view(torch.int32),
+                               depth_p.view(torch.int32), rtol=0, atol=0)
+    assert 0.3 < float((vis >= 0).float().mean()) < 1.0
+    rows = sub * 16
+    bin0 = vis[:rows, :128]
+    # bin 0's equal-depth pairs: slots 300 (mask 1), 150 (mask 2), 77, ...
+    assert bool((bin0 == 300).any()) and bool((bin0 == 150).any())
+    for b in (2, 5):  # emptied: uncovered
+        ty, tx = divmod(b, ntx)
+        assert bool((vis[ty * rows:(ty + 1) * rows,
+                         tx * 128:tx * 128 + 128] == -1).all())
+
+
+def test_alpha_kernels_empty_bins(cuda):
+    """No pairs at all: J leaves init_depth as it is (zeros without it),
+    K gives vis -1 and depth 0 everywhere; one launch each."""
+    pairs = raster.PairLists(
+        pair_tri=torch.zeros(256, dtype=torch.int32, device=cuda),
+        tile_start=torch.zeros(8, dtype=torch.int32, device=cuda),
+        tile_count=torch.zeros(8, dtype=torch.int32, device=cuda),
+        overflow=torch.zeros((), dtype=torch.int32, device=cuda))
+    pe = torch.zeros((32, 256), device=cuda)
+    masks = torch.full((1, 128), -1, dtype=torch.int32, device=cuda)
+    counts = native.launch_counts()
+    init = torch.rand((128, 256), device=cuda)
+    depth = raster.rasterize_depth(pe, pairs, 4, 2, sub=2, alpha_masks=masks,
+                                   init_depth=init.clone())
+    zeros = raster.rasterize_depth(pe, pairs, 4, 2, sub=2, alpha_masks=masks)
+    d_k, vis = raster.rasterize_winner_alpha(pe, pairs, masks, 4, 2, 2, True)
+    after = native.launch_counts()
+    assert after["depth_alpha"] == counts["depth_alpha"] + 2
+    assert after["winner_alpha"] == counts["winner_alpha"] + 1
+    assert torch.equal(depth, init) and not bool(zeros.any())
+    assert (vis == -1).all() and (d_k == 0).all()
 
 
 @pytest.mark.parametrize("sub,prev", [(2, False), (4, False), (2, True)])
