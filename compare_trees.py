@@ -17,8 +17,13 @@ clone of E's atlas), B (rasterize_gbuffer on the opaque main view), D
 (sample_materials on the G-buffer, with the frame's keywords and again
 trilinear + anisotropic and trilinear, texture_filter 2 and 1), F
 (resolve_packed on the shadow inputs), G (trace_gi on the trace inputs),
-K (rasterize_winner_alpha on the main view's alpha stream) and L
-(resolve_attributes on K's vis), on the device with chip_smoke.cuda_ms of
+K (rasterize_winner_alpha on the main view's alpha stream), L
+(resolve_attributes on K's vis), I (history_taps at K = 1 on frame 1's
+TAA history and coords, the first frame whose history holds an image;
+its bits also at K = 16, tech 1's coords of the same motion)
+and A (expand_keys on each of frame 0's four pair streams: the main
+view's alpha and opaque streams, the atlas's opaque and alpha casters,
+in the frame's order), on the device with chip_smoke.cuda_ms of
 THIS checkout (CUDA events behind torch.cuda._sleep), with each tree's
 own wrapper; each time comes with the host's enqueue per call (host us).
 G's host time is also split into its argument set-up
@@ -27,8 +32,9 @@ of the two alpha streams (chip_smoke.stream_counts of THIS checkout:
 pairs, bins with pairs, median and largest pairs per bin, pixels of the
 16 x 16 blocks that pass the corner test) is reported per process. Every
 tree must give the same bits from E (the atlas), J (the merged atlas), G
-(its 7 planes), K (depth and vis) and L (its 13 channels): each equals its
-plain version exactly today. The G-buffer's, D's and F's checksums are
+(its 7 planes), K (depth and vis), L (its 13 channels), I (its 4 planes
+at K = 1, 49 at K = 16) and A (each stream's keys and owners): each equals its plain version
+exactly today. The G-buffer's, D's and F's checksums are
 reported per run (B, D and F have rules that allow a difference from
 their plain versions, which chip_smoke.py checks, so trees may differ
 there). Alternating the
@@ -55,15 +61,16 @@ OUT = ROOT / "chiprun_out" / "compare_trees"
 
 
 def one(tree: Path, warmup: int, timed: int) -> dict:
-    """Slice 5's frames and kernels E, J, B, D, F, G, K and L with the port
-    of `tree`."""
+    """Slice 5's frames and kernels E, J, B, D, F, G, K, L, I and A with
+    the port of `tree`."""
     sys.path.insert(0, str(tree))
     import numpy as np
     import torch
 
     import chip_smoke as cs  # the tree's own
     from plainrenderer_tpu_torch import native
-    from plainrenderer_tpu_torch.ops import raster, sdfgi, shadow, texture
+    from plainrenderer_tpu_torch.ops import raster, sdfgi, shadow, taa
+    from plainrenderer_tpu_torch.ops import texture
     from plainrenderer_tpu_torch.render import frame
     check_root = str(Path(cs.__file__).resolve().parent)
     if check_root != str(tree.resolve()):
@@ -96,10 +103,11 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
     cs.check(int(run["counters"].max()) == 0, "debug_counters [0, 0]")
     cs.check(run["host_syncs_per_frame"] == 0, "no host sync")
 
-    rec = cs.record_frames(ctx, frames, settings, 1, [
+    rec = cs.record_frames(ctx, frames, settings, 2, [
         (frame, "render_shadow_atlas"), (frame, "raster_main_view"),
         (texture, "sample_materials"), (shadow, "shadow_resolve"),
-        (frame, "trace_scene_gi")])
+        (frame, "trace_scene_gi"), (taa, "resample_history_taps"),
+        (taa, "history_coords"), (raster, "expand_keys")])
     atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
     mv = rec["raster_main_view"][0][0]
     main = frame.raster_main_view(mv)
@@ -181,6 +189,18 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
 
     vis_k = k()[1]
 
+    history, coords = rec["resample_history_taps"][1]
+    motion, width, height, _ = rec["history_coords"][1]
+    coords16 = taa.history_coords(motion, width, height, 1)[0]  # tech 1
+
+    def i(c=coords):
+        return taa.history_taps(history, c)
+
+    # A on frame 0's four streams (the first four calls: the second
+    # frame's follow)
+    cs.check(len(rec["expand_keys"]) == 8, "A runs 4 times a frame")
+    key_inputs = [args[0] for args in rec["expand_keys"][:4]]
+
     def l():
         return raster.resolve_attributes(main.alpha_attrs, pa.tile_start,
                                          vis_k, mv.n_tiles_y, mv.n_tiles_x,
@@ -202,7 +222,15 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
                 vis=checksum(vis_b), gbuf=checksum(gbuf_b),
                 texture=checksum(d()), shadow=checksum(f()),
                 gi=checksum(g()), alpha_depth=checksum(k()[0]),
-                alpha_vis=checksum(vis_k), alpha_gbuf=checksum(l()))
+                alpha_vis=checksum(vis_k), alpha_gbuf=checksum(l()),
+                taps=checksum(i()), taps16=checksum(i(coords16)),
+                keys=[checksum(torch.stack(raster.expand_keys(ki)))
+                      for ki in key_inputs])
+    streams = [dict(view="atlas" if ki.tpv < ki.cum.shape[0] else "main",
+                    triangles=ki.cum.shape[0], budget=ki.budget,
+                    live=int(ki.cum[-1]), **timer.cuda_ms(
+                        lambda ki=ki: raster.expand_keys(ki), 50))
+               for ki in key_inputs]
     passes = run["pass_ms"]
     return dict(
         tree=str(tree), build_s=build_s, sums=sums, alpha_counts=counts,
@@ -217,7 +245,8 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
         g=timer.cuda_ms(lambda: sdfgi.trace_gi(*g_args, **g_kw), 20),
         g_setup=timer.cuda_ms(g_setup, 20),
         g_launch=timer.cuda_ms(g_launch, 20),
-        k=timer.cuda_ms(k, 20), l=timer.cuda_ms(l, 20))
+        k=timer.cuda_ms(k, 20), l=timer.cuda_ms(l, 20),
+        i=timer.cuda_ms(i, 20), a=streams)
 
 
 def main() -> int:
@@ -262,11 +291,12 @@ def main() -> int:
         print(json.dumps({k: r[k] for k in (
             "name", "frame_ms", "host_wall_ms", "shadow_atlas_ms",
             "gbuffer_ms", "alpha_counts", "e", "j", "b", "d", "d_tri_aniso",
-            "d_tri", "f", "g", "g_setup", "g_launch", "k", "l",
+            "d_tri", "f", "g", "g_setup", "g_launch", "k", "l", "i", "a",
             "build_s")}), flush=True)
-    differ = {key: sorted({r["sums"][key] for r in results}) for key in (
-        "atlas", "alpha_atlas", "gi", "alpha_depth", "alpha_vis",
-        "alpha_gbuf")}
+    differ = {key: sorted({json.dumps(r["sums"][key]) for r in results})
+              for key in ("atlas", "alpha_atlas", "gi", "alpha_depth",
+                          "alpha_vis", "alpha_gbuf", "taps", "taps16",
+                          "keys")}
     differ = {k: v for k, v in differ.items() if len(v) != 1}
     summary = {}
     for name in dict.fromkeys(order):
@@ -296,7 +326,13 @@ def main() -> int:
                 ("k_host_us", lambda r: r["k"]["host_us"]),
                 ("l_ms", lambda r: r["l"]["ms"]),
                 ("l_host_us", lambda r: r["l"]["host_us"]),
-                ("k_plus_l_ms", lambda r: r["k"]["ms"] + r["l"]["ms"]))}
+                ("k_plus_l_ms", lambda r: r["k"]["ms"] + r["l"]["ms"]),
+                ("i_ms", lambda r: r["i"]["ms"]),
+                ("i_host_us", lambda r: r["i"]["host_us"]),
+                *[(f"a{n}_ms", lambda r, n=n: r["a"][n]["ms"])
+                  for n in range(4)],
+                *[(f"a{n}_host_us", lambda r, n=n: r["a"][n]["host_us"])
+                  for n in range(4)])}
         summary[name]["gbuffer_sums"] = sorted(
             {json.dumps(r["sums"], sort_keys=True) for r in rs})
         summary[name]["median"] = {
@@ -307,7 +343,7 @@ def main() -> int:
              summary=summary, differ=differ), indent=1))
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
-    if differ:  # E, J, G, K and L equal their plain versions in every tree
+    if differ:  # E, J, G, K, L, I and A equal their plain versions
         raise SystemExit(f"compare_trees: the trees' bits differ: {differ}")
     return 0
 

@@ -330,7 +330,12 @@ __device__ __forceinline__ int plain_floor_int(float x, float* xf) {
 // scans (a full sort of the bins cost more than it saved). Every thread
 // of the block calls plain_slice_prefix once: s_key[j] = (count << 13) |
 // bin of the j-th bin in that order, s_end[j] the inclusive prefix of the
-// slice counts up to it; s_wsum holds one int per warp.
+// slice counts up to it; s_wsum holds one int per warp. Where the bins
+// do not fit that key or the block's shared memory (plain_strip_launch),
+// the order goes to a global scratch instead, computed once by
+// plain_order_kernel with WIDE keys (the bin alone; its count is read
+// from tile_count) and read through __ldg by the kernel's GLOBAL
+// instance (plain_order_bin, plain_order_end, plain_strip_item).
 #define PLAIN_BIN_BITS 13  // bins < 2^13 and pairs per bin < 2^18
 #define PLAIN_BUCKETS 8
 
@@ -365,33 +370,44 @@ __device__ __forceinline__ int plain_bucket(int slices) {
   return PLAIN_BUCKETS - 1 - min(32 - __clz(slices - 1), PLAIN_BUCKETS - 1);
 }
 
-template <bool SKIP_EMPTY = false, bool BY_PAIRS = false>
+template <bool SKIP_EMPTY = false, bool BY_PAIRS = false, bool WIDE = false>
 __device__ __forceinline__ void plain_slice_prefix(
     const int* __restrict__ tile_count, int n_bins, int chunk, int* s_key,
     int* s_end, int* s_wsum) {
   const int per = (n_bins + blockDim.x - 1) / blockDim.x;
   const int b0 = min((int)threadIdx.x * per, n_bins);
   const int b1 = min(b0 + per, n_bins);
-  // this thread's bins per bucket, two buckets per int (counts < 2^16)
-  int packed[PLAIN_BUCKETS / 2] = {};
+  // this thread's bins per bucket, two buckets per int (counts < 2^16);
+  // WIDE: one bucket per int
+  constexpr int NQ = WIDE ? PLAIN_BUCKETS : PLAIN_BUCKETS / 2;
+  int packed[NQ] = {};
   for (int b = b0; b < b1; ++b) {
     const int k = plain_bucket(BY_PAIRS ? max(1, tile_count[b])
                                         : plain_slices(tile_count[b], chunk));
 #pragma unroll
-    for (int q = 0; q < PLAIN_BUCKETS / 2; ++q) {
-      if (k >> 1 == q) packed[q] += (k & 1) ? 1 : 1 << 16;
+    for (int q = 0; q < NQ; ++q) {
+      if constexpr (WIDE) {
+        if (k == q) ++packed[q];
+      } else if (k >> 1 == q) {
+        packed[q] += (k & 1) ? 1 : 1 << 16;
+      }
     }
   }
   int pos[PLAIN_BUCKETS];  // where this thread's next bin of each goes
   int base = 0;
 #pragma unroll
-  for (int q = 0; q < PLAIN_BUCKETS / 2; ++q) {
+  for (int q = 0; q < NQ; ++q) {
     int total;
     const int before = plain_block_scan(packed[q], s_wsum, &total);
-    pos[2 * q] = base + (before >> 16);
-    base += total >> 16;
-    pos[2 * q + 1] = base + (before & 0xffff);
-    base += total & 0xffff;
+    if constexpr (WIDE) {
+      pos[q] = base + before;
+      base += total;
+    } else {
+      pos[2 * q] = base + (before >> 16);
+      base += total >> 16;
+      pos[2 * q + 1] = base + (before & 0xffff);
+      base += total & 0xffff;
+    }
   }
   for (int b = b0; b < b1; ++b) {
     const int c = tile_count[b];
@@ -399,13 +415,13 @@ __device__ __forceinline__ void plain_slice_prefix(
         plain_bucket(BY_PAIRS ? max(1, c) : plain_slices(c, chunk));
 #pragma unroll
     for (int q = 0; q < PLAIN_BUCKETS; ++q) {
-      if (k == q) s_key[pos[q]++] = (c << PLAIN_BIN_BITS) | b;
+      if (k == q) s_key[pos[q]++] = WIDE ? b : (c << PLAIN_BIN_BITS) | b;
     }
   }
   __syncthreads();
   int local = 0;
   for (int j = b0; j < b1; ++j) {
-    const int c = s_key[j] >> PLAIN_BIN_BITS;
+    const int c = WIDE ? tile_count[s_key[j]] : s_key[j] >> PLAIN_BIN_BITS;
     local += SKIP_EMPTY ? (c + chunk - 1) / chunk : plain_slices(c, chunk);
     s_end[j] = local;
   }
@@ -413,6 +429,40 @@ __device__ __forceinline__ void plain_slice_prefix(
   const int offset = plain_block_scan(local, s_wsum, &total);
   for (int j = b0; j < b1; ++j) s_end[j] += offset;
   __syncthreads();
+}
+
+// The bin order of plain_slice_prefix once for a whole launch, into the
+// global scratch `order` (n_bins WIDE keys, then n_bins prefix ends): one
+// block, enqueued before a strip kernel's GLOBAL instance, which reads it.
+#define PLAIN_ORDER_THREADS 1024
+template <bool SKIP_EMPTY, bool BY_PAIRS>
+__global__ void __launch_bounds__(PLAIN_ORDER_THREADS)
+plain_order_kernel(const int* __restrict__ tile_count, int n_bins, int chunk,
+                   int* __restrict__ order) {
+  __shared__ int s_wsum[PLAIN_ORDER_THREADS / 32];
+  plain_slice_prefix<SKIP_EMPTY, BY_PAIRS, true>(tile_count, n_bins, chunk,
+                                                  order, order + n_bins,
+                                                  s_wsum);
+}
+
+// The j-th bin of the order and its prefix end: from shared memory
+// (packed keys), or GLOBAL from plain_order_kernel's scratch
+template <bool GLOBAL>
+__device__ __forceinline__ int plain_order_bin(const int* key, int j) {
+  if constexpr (GLOBAL) {
+    return __ldg(key + j);
+  } else {
+    return key[j] & ((1 << PLAIN_BIN_BITS) - 1);
+  }
+}
+
+template <bool GLOBAL>
+__device__ __forceinline__ int plain_order_end(const int* end, int j) {
+  if constexpr (GLOBAL) {
+    return __ldg(end + j);
+  } else {
+    return end[j];
+  }
 }
 
 // The next item of a persistent warp whose first item was its index in
@@ -431,27 +481,32 @@ struct PlainStrip {
 };
 
 // item -> its bin, part (0 .. parts - 1), the bin's slice count, the
-// slice's first pair in the bin (p0), its pair count and stream offset
+// slice's first pair in the bin (p0), its pair count and stream offset;
+// key and end: the order (plain_slice_prefix), GLOBAL as plain_order_bin
+template <bool GLOBAL = false>
 __device__ __forceinline__ PlainStrip plain_strip_item(
-    const int* s_key, const int* s_end, const int* __restrict__ tile_start,
-    int n_bins, int chunk, int parts, int item) {
+    const int* key, const int* end, const int* __restrict__ tile_start,
+    const int* __restrict__ tile_count, int n_bins, int chunk, int parts,
+    int item) {
   const int slice = item / parts;
   int lo = 0, hi = n_bins - 1;  // the first bin in order whose prefix exceeds
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (s_end[mid] <= slice) {
+    if (plain_order_end<GLOBAL>(end, mid) <= slice) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
   PlainStrip it;
-  it.bin = s_key[lo] & ((1 << PLAIN_BIN_BITS) - 1);
+  it.bin = plain_order_bin<GLOBAL>(key, lo);
   it.part = item - slice * parts;
-  const int first = lo > 0 ? s_end[lo - 1] : 0;
-  it.n_slices = s_end[lo] - first;
+  const int first = lo > 0 ? plain_order_end<GLOBAL>(end, lo - 1) : 0;
+  it.n_slices = plain_order_end<GLOBAL>(end, lo) - first;
   it.p0 = (slice - first) * chunk;
-  it.n = min(chunk, (s_key[lo] >> PLAIN_BIN_BITS) - it.p0);
+  const int count = GLOBAL ? __ldg(tile_count + it.bin)
+                           : key[lo] >> PLAIN_BIN_BITS;
+  it.n = min(chunk, count - it.p0);
   it.start = tile_start[it.bin] + it.p0;
   return it;
 }
@@ -505,36 +560,78 @@ __device__ __forceinline__ void plain_strip_pairs(
   }
 }
 
-// The grid of a persistent kernel (E, B, J and K): the SMs times the
-// blocks of `threads` threads and `smem` bytes of dynamic shared memory
-// that fit on one. The lookups take microseconds, so each launcher keeps
-// the last answer per device in `cache` and asks again only when smem
-// changes.
+// The launch of a persistent strip kernel (E, B, J and K) at n_bins.
+// Its order of the bins (2 ints per bin) goes to dynamic shared memory
+// beside the kernel's static shared memory while both fit the device's
+// cudaDevAttrMaxSharedMemoryPerBlockOptin and every bin fits the packed
+// key's PLAIN_BIN_BITS; above the default 48 KB per block the launch opts
+// in with cudaFuncSetAttribute. Otherwise (global) the GLOBAL instance
+// runs with no dynamic shared memory, after plain_order_kernel has
+// written the order into the wrapper's scratch. The grid is the SMs times
+// the blocks of `threads` threads that fit on one. The lookups take
+// microseconds, so each launcher keeps the last answer per device in
+// `cache` and asks again only when n_bins changes.
 #define PLAIN_MAX_DEVICES 16
+#define PLAIN_DEFAULT_SMEM 49152
+struct PlainStripLaunch {
+  int grid;
+  size_t smem;
+  bool global;
+};
 struct PlainGridCache {  // zero-initialised as a static
-  size_t smem[PLAIN_MAX_DEVICES];
-  int grid[PLAIN_MAX_DEVICES];
+  int n_bins[PLAIN_MAX_DEVICES];
+  PlainStripLaunch launch[PLAIN_MAX_DEVICES];
 };
 
-template <typename Kernel>
-inline int plain_persistent_grid(PlainGridCache& cache, Kernel kernel,
-                                 int threads, size_t smem) {
+template <typename Shared, typename Global>
+inline PlainStripLaunch plain_strip_launch(PlainGridCache& cache,
+                                           Shared shared, Global global,
+                                           int threads, int n_bins) {
   int dev = 0;
   cudaGetDevice(&dev);
   const bool kept = dev >= 0 && dev < PLAIN_MAX_DEVICES;
-  if (kept && cache.grid[dev] != 0 && cache.smem[dev] == smem) {
-    return cache.grid[dev];
+  if (kept && cache.launch[dev].grid != 0 && cache.n_bins[dev] == n_bins) {
+    return cache.launch[dev];
   }
-  int sms = 0, per_sm = 0;
+  cudaFuncAttributes attr;
+  cudaFuncGetAttributes(&attr, shared);
+  int optin = 0, sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                smem);
-  const int grid = sms * (per_sm > 1 ? per_sm : 1);
-  if (kept) {
-    cache.smem[dev] = smem;
-    cache.grid[dev] = grid;
+  PlainStripLaunch l;
+  l.smem = 2 * (size_t)n_bins * sizeof(int);
+  l.global = n_bins > (1 << PLAIN_BIN_BITS) ||
+             attr.sharedSizeBytes + l.smem > (size_t)optin;
+  if (l.global) {
+    l.smem = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, global, threads,
+                                                  0);
+  } else {
+    if (attr.sharedSizeBytes + l.smem > PLAIN_DEFAULT_SMEM) {
+      cudaFuncSetAttribute(shared, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)l.smem);
+    }
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shared, threads,
+                                                  l.smem);
   }
-  return grid;
+  l.grid = sms * (per_sm > 1 ? per_sm : 1);
+  if (kept) {
+    cache.n_bins[dev] = n_bins;
+    cache.launch[dev] = l;
+  }
+  return l;
+}
+
+// plain_strip_launch's global case: the order into `order` (2 * n_bins
+// ints of the wrapper's scratch) on the stream, before the kernel
+template <bool SKIP_EMPTY = false, bool BY_PAIRS = false>
+inline int plain_order_launch(const void* tile_count, int n_bins, int chunk,
+                              int* order, void* stream) {
+  plain_order_kernel<SKIP_EMPTY, BY_PAIRS>
+      <<<1, PLAIN_ORDER_THREADS, 0, (cudaStream_t)stream>>>(
+          (const int*)tile_count, n_bins, chunk, order);
+  return (int)cudaGetLastError();
 }
 
 // The merge of a strip's slices. plain_finish_order: 0 for the first

@@ -27,7 +27,11 @@
 // thread block orders the bins, those of several slices first, and sums
 // their slice counts into shared memory once, at its start (common.cuh,
 // plain_slice_prefix), so short items come last; slices of E_CHUNK pairs
-// keep a heavy strip from holding one warp for long.
+// keep a heavy strip from holding one warp for long. Where the order of
+// the bins does not fit shared memory or the packed key (more than 8,192
+// bins), the launcher writes it once into aux's tail and the GLOBAL
+// instance reads it there (common.cuh, plain_strip_launch); kernels B, J
+// and K do the same. No bin count is refused.
 //   1. 32 pairs at a time, one per lane (coalesced loads of the 14 rows),
 //      each lane tests its pair's row skip and, per 16 x 16 block of the
 //      item, the exact corner test (common.cuh, plain_plane_may_pass):
@@ -55,8 +59,7 @@
 
 #define E_CHUNK 128  // pairs per work item (short items: heavy strips spread)
 #define E_WARPS 8
-#define E_BLOCKS 4       // 16 x 16 blocks per item: half a 128-px strip
-#define E_MAX_BINS 4096  // dynamic shared memory: 2 ints per bin
+#define E_BLOCKS 4  // 16 x 16 blocks per item: half a 128-px strip
 
 __device__ __forceinline__ float depth_clamp(float z) {
   return fminf(fmaxf(z, 1.0f / 16384.0f), 1.0f);
@@ -108,6 +111,14 @@ __device__ __forceinline__ void depth_pair(float (&acc)[E_BLOCKS][8],
   }
 }
 
+// aux: the item counter, per half strip a merge counter and a ready
+// flag, then the global order's scratch (plain_strip_launch)
+__host__ __device__ __forceinline__ int* depth_order(int* aux, int n_bins,
+                                                     int sub) {
+  return aux + 1 + 4 * (size_t)n_bins * sub;
+}
+
+template <bool GLOBAL>
 __global__ void __launch_bounds__(E_WARPS * 32, 3)
 depth_kernel(const float* __restrict__ edges,
              const int* __restrict__ tile_start,
@@ -120,14 +131,21 @@ depth_kernel(const float* __restrict__ edges,
   const int n_bins = n_tiles_y * n_tiles_x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  int* s_key = s_dyn;
-  int* s_end = s_dyn + n_bins;
-  plain_slice_prefix(tile_count, n_bins, E_CHUNK, s_key, s_end, s_wsum);
+  const int* s_key = s_dyn;
+  const int* s_end = s_dyn + n_bins;
+  if constexpr (GLOBAL) {
+    s_key = depth_order(aux, n_bins, sub);
+    s_end = s_key + n_bins;
+  } else {
+    plain_slice_prefix(tile_count, n_bins, E_CHUNK, s_dyn, s_dyn + n_bins,
+                       s_wsum);
+  }
 
   int* counter = aux;
   int* done = aux + 1;                   // per half strip: slices done
   int* ready = done + n_bins * sub * 2;  // per half strip: first slice in
-  const int n_items = s_end[n_bins - 1] * sub * 2;
+  const int n_items =
+      plain_order_end<GLOBAL>(s_end, n_bins - 1) * sub * 2;
   const int width = n_tiles_x * PLAIN_TILE_W;
   const int cx = 2 * (lane & 7);   // the lane's 2 columns in a block
   const int ry = 4 * (lane >> 3);  // its 4 rows in the strip
@@ -138,8 +156,9 @@ depth_kernel(const float* __restrict__ edges,
     if (lane == 0) item = atomicAdd(counter, 1);
     item = __shfl_sync(PLAIN_FULL_MASK, item, 0);
     if (item >= n_items) break;
-    const PlainStrip it = plain_strip_item(s_key, s_end, tile_start,
-                                           n_bins, E_CHUNK, 2 * sub, item);
+    const PlainStrip it =
+        plain_strip_item<GLOBAL>(s_key, s_end, tile_start, tile_count,
+                                 n_bins, E_CHUNK, 2 * sub, item);
     const int bin = it.bin, s = it.part >> 1, n = it.n, start = it.start;
     const int half = it.part & 1;
     const int ty = bin / n_tiles_x;
@@ -219,12 +238,18 @@ extern "C" int depth_launch(const void* edges, const void* tile_start,
                             int n_pairs, int n_tiles_y, int n_tiles_x,
                             int sub, int row_skip, void* stream) {
   const int n_bins = n_tiles_y * n_tiles_x;
-  if (n_bins < 1 || n_bins > E_MAX_BINS) return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)n_bins * sizeof(int);
+  if (n_bins < 1) return (int)cudaErrorInvalidValue;
   static PlainGridCache cache;
-  const int grid =
-      plain_persistent_grid(cache, depth_kernel, E_WARPS * 32, smem);
-  depth_kernel<<<grid, E_WARPS * 32, smem, (cudaStream_t)stream>>>(
+  const PlainStripLaunch l = plain_strip_launch(
+      cache, depth_kernel<false>, depth_kernel<true>, E_WARPS * 32, n_bins);
+  if (l.global) {
+    const int err = plain_order_launch(
+        tile_count, n_bins, E_CHUNK, depth_order((int*)aux, n_bins, sub),
+        stream);
+    if (err != 0) return err;
+  }
+  auto kernel = l.global ? depth_kernel<true> : depth_kernel<false>;
+  kernel<<<l.grid, E_WARPS * 32, l.smem, (cudaStream_t)stream>>>(
       (const float*)edges, (const int*)tile_start, (const int*)tile_count,
       (int*)aux, (int*)depth, n_pairs, n_tiles_y, n_tiles_x, sub, row_skip);
   PLAIN_RETURN_LAUNCH_STATUS();

@@ -92,7 +92,6 @@
 #define J_WARPS 8
 #define J_MIN_BLOCKS 3  // blocks of J_WARPS warps per SM
 #define J_STRIDE (PLAIN_ROWS_ALPHA + 1)
-#define J_MAX_BINS 4096  // dynamic shared memory: 2 ints per bin
 #define J_SAFE 2u        // flag bit beside the block bit: z is finite
 
 __device__ __forceinline__ float depth_clamp(float z) {
@@ -148,6 +147,13 @@ __device__ __forceinline__ void depth_alpha_pair(float (&acc)[8],
   }
 }
 
+// aux: the item counter, then the global order's scratch
+// (plain_strip_launch)
+__host__ __device__ __forceinline__ int* depth_alpha_order(int* aux) {
+  return aux + 1;
+}
+
+template <bool GLOBAL>
 __global__ void __launch_bounds__(J_WARPS * 32, J_MIN_BLOCKS)
 depth_alpha_kernel(const float* __restrict__ edges,
                    const int* __restrict__ masks,
@@ -163,14 +169,21 @@ depth_alpha_kernel(const float* __restrict__ edges,
   const int n_bins = n_tiles_y * n_tiles_x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   plain_load_masks(masks, n_masks, s_masks);
-  int* s_key = s_dyn;
-  int* s_end = s_dyn + n_bins;
-  // its barriers also publish s_masks
-  plain_slice_prefix<true, true>(tile_count, n_bins, J_CHUNK, s_key, s_end,
-                                 s_wsum);
+  const int* s_key = s_dyn;
+  const int* s_end = s_dyn + n_bins;
+  if constexpr (GLOBAL) {
+    s_key = depth_alpha_order(aux);
+    s_end = s_key + n_bins;
+    __syncthreads();  // publishes s_masks
+  } else {
+    // its barriers also publish s_masks
+    plain_slice_prefix<true, true>(tile_count, n_bins, J_CHUNK, s_dyn,
+                                   s_dyn + n_bins, s_wsum);
+  }
 
   int* counter = aux;
-  const int n_items = s_end[n_bins - 1] * sub * 8;  // 8 blocks a fine row
+  // 8 blocks a fine row
+  const int n_items = plain_order_end<GLOBAL>(s_end, n_bins - 1) * sub * 8;
   const int width = n_tiles_x * PLAIN_TILE_W;
   const int cx = 2 * (lane & 7);   // the lane's 2 columns in the block
   const int ry = 4 * (lane >> 3);  // its 4 rows
@@ -179,8 +192,9 @@ depth_alpha_kernel(const float* __restrict__ edges,
   const int n_warps = gridDim.x * J_WARPS;
   for (int item = blockIdx.x * J_WARPS + warp; item < n_items;
        item = plain_next_item(counter, n_warps, n_items)) {
-    const PlainStrip it = plain_strip_item(s_key, s_end, tile_start, n_bins,
-                                           J_CHUNK, sub * 8, item);
+    const PlainStrip it =
+        plain_strip_item<GLOBAL>(s_key, s_end, tile_start, tile_count,
+                                 n_bins, J_CHUNK, sub * 8, item);
     const int ty = it.bin / n_tiles_x;
     const int tx = it.bin - ty * n_tiles_x;
     const int fine_row = ty * sub + (it.part >> 3);
@@ -233,15 +247,20 @@ extern "C" int depth_alpha_launch(const void* edges, const void* masks,
                                   int n_tiles_y, int n_tiles_x, int sub,
                                   int row_skip, void* stream) {
   const int n_bins = n_tiles_y * n_tiles_x;
-  if (n_bins < 1 || n_bins > J_MAX_BINS || n_masks < 1 ||
-      n_masks > PLAIN_MAX_ALPHA_MASKS) {
+  if (n_bins < 1 || n_masks < 1 || n_masks > PLAIN_MAX_ALPHA_MASKS) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = 2 * (size_t)n_bins * sizeof(int);
   static PlainGridCache cache;
-  const int grid =
-      plain_persistent_grid(cache, depth_alpha_kernel, J_WARPS * 32, smem);
-  depth_alpha_kernel<<<grid, J_WARPS * 32, smem, (cudaStream_t)stream>>>(
+  const PlainStripLaunch l =
+      plain_strip_launch(cache, depth_alpha_kernel<false>,
+                         depth_alpha_kernel<true>, J_WARPS * 32, n_bins);
+  if (l.global) {
+    const int err = plain_order_launch<true, true>(
+        tile_count, n_bins, J_CHUNK, depth_alpha_order((int*)aux), stream);
+    if (err != 0) return err;
+  }
+  auto kernel = l.global ? depth_alpha_kernel<true> : depth_alpha_kernel<false>;
+  kernel<<<l.grid, J_WARPS * 32, l.smem, (cudaStream_t)stream>>>(
       (const float*)edges, (const int*)masks, (const int*)tile_start,
       (const int*)tile_count, (int*)aux, (int*)depth, n_pairs, n_masks,
       n_tiles_y, n_tiles_x, sub, row_skip);

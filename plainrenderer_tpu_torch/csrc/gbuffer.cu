@@ -68,7 +68,6 @@
 #define CHUNK 32  // pairs per work item (short items: heavy strips spread)
 #define B_WARPS 8
 #define B_BLOCKS 8        // 16 x 16 blocks per 128-px strip
-#define B_MAX_BINS 4096  // dynamic shared memory: 2 ints per bin
 #define B_PARTS 4         // 32-column resolve items per strip
 
 // One pair's candidates in the blocks of mask m: the lane's 4 rows and
@@ -149,7 +148,14 @@ __device__ __forceinline__ void gbuffer_resolve(
   }
 }
 
-template <bool PREV>
+// aux: the two item counters, per strip a merge counter, three flags,
+// then the global order's scratch (plain_strip_launch)
+__host__ __device__ __forceinline__ int* gbuffer_order(int* aux, int n_bins,
+                                                       int sub) {
+  return aux + 2 + 4 * (size_t)n_bins * sub;
+}
+
+template <bool PREV, bool GLOBAL>
 __global__ void __launch_bounds__(B_WARPS * 32, 2)
 gbuffer_kernel(const float* __restrict__ edges,
                const float* __restrict__ attrs, float* __restrict__ rounded,
@@ -165,9 +171,15 @@ gbuffer_kernel(const float* __restrict__ edges,
   const int n_bins = n_tiles_y * n_tiles_x;
   const int n_strips = n_bins * sub;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* s_key = s_dyn;
-  int* s_end = s_dyn + n_bins;
-  plain_slice_prefix(tile_count, n_bins, CHUNK, s_key, s_end, s_wsum);
+  const int* s_key = s_dyn;
+  const int* s_end = s_dyn + n_bins;
+  if constexpr (GLOBAL) {
+    s_key = gbuffer_order(aux, n_bins, sub);
+    s_end = s_key + n_bins;
+  } else {
+    plain_slice_prefix(tile_count, n_bins, CHUNK, s_dyn, s_dyn + n_bins,
+                       s_wsum);
+  }
 
   int* counter = aux;                 // visibility items
   int* r_counter = aux + 1;           // resolve items
@@ -175,7 +187,7 @@ gbuffer_kernel(const float* __restrict__ edges,
   int* ready = done + n_strips;       // per strip: first slice stored
   int* merged = ready + n_strips;     // per strip: slices merged after it
   int* complete = merged + n_strips;  // per strip: its maxima are in vis
-  const int n_items = s_end[n_bins - 1] * sub;
+  const int n_items = plain_order_end<GLOBAL>(s_end, n_bins - 1) * sub;
   const int width = n_tiles_x * PLAIN_TILE_W;
   const size_t plane = (size_t)n_tiles_y * sub * PLAIN_TILE_H * width;
   const int cx = 2 * (lane & 7);   // the lane's 2 columns in a block
@@ -187,8 +199,8 @@ gbuffer_kernel(const float* __restrict__ edges,
     if (lane == 0) item = atomicAdd(counter, 1);
     item = __shfl_sync(PLAIN_FULL_MASK, item, 0);
     if (item >= n_items) break;
-    const PlainStrip it = plain_strip_item(s_key, s_end, tile_start,
-                                           n_bins, CHUNK, sub, item);
+    const PlainStrip it = plain_strip_item<GLOBAL>(
+        s_key, s_end, tile_start, tile_count, n_bins, CHUNK, sub, item);
     const int bin = it.bin, n = it.n, start = it.start;
     const int lead = tile_start[bin] % PLAIN_GROUP;
     const int ty = bin / n_tiles_x;
@@ -281,8 +293,7 @@ gbuffer_kernel(const float* __restrict__ edges,
     item = __shfl_sync(PLAIN_FULL_MASK, item, 0);
     if (item >= n_resolve) break;
     // bins in the visibility queue's order, so early items wait least
-    const int bin =
-        s_key[item / (sub * B_PARTS)] & ((1 << PLAIN_BIN_BITS) - 1);
+    const int bin = plain_order_bin<GLOBAL>(s_key, item / (sub * B_PARTS));
     for (int s = 0; s < sub; ++s) {  // strip 0 rounded the bin's rows
       plain_wait_flag(complete + bin * sub + s);
     }
@@ -304,13 +315,26 @@ extern "C" int gbuffer_launch(const void* edges, const void* attrs,
                               int n_tiles_y, int n_tiles_x, int sub,
                               int row_skip, int prev, void* stream) {
   const int n_bins = n_tiles_y * n_tiles_x;
-  if (n_bins < 1 || n_bins > B_MAX_BINS) return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)n_bins * sizeof(int);
-  auto kernel = prev ? gbuffer_kernel<true> : gbuffer_kernel<false>;
+  if (n_bins < 1) return (int)cudaErrorInvalidValue;
   static PlainGridCache caches[2];  // the static and PREV instances
-  const int grid =
-      plain_persistent_grid(caches[prev ? 1 : 0], kernel, B_WARPS * 32, smem);
-  kernel<<<grid, B_WARPS * 32, smem, (cudaStream_t)stream>>>(
+  const PlainStripLaunch l =
+      prev ? plain_strip_launch(caches[1], gbuffer_kernel<true, false>,
+                                gbuffer_kernel<true, true>, B_WARPS * 32,
+                                n_bins)
+           : plain_strip_launch(caches[0], gbuffer_kernel<false, false>,
+                                gbuffer_kernel<false, true>, B_WARPS * 32,
+                                n_bins);
+  if (l.global) {
+    const int err = plain_order_launch(tile_count, n_bins, CHUNK,
+                                       gbuffer_order((int*)aux, n_bins, sub),
+                                       stream);
+    if (err != 0) return err;
+  }
+  auto kernel = prev ? (l.global ? gbuffer_kernel<true, true>
+                                 : gbuffer_kernel<true, false>)
+                     : (l.global ? gbuffer_kernel<false, true>
+                                 : gbuffer_kernel<false, false>);
+  kernel<<<l.grid, B_WARPS * 32, l.smem, (cudaStream_t)stream>>>(
       (const float*)edges, (const float*)attrs, (float*)rounded,
       (const int*)tile_start, (const int*)tile_count, (int*)aux,
       (float*)depth, (int*)vis, (float*)gbuf, n_pairs, n_tiles_y, n_tiles_x,

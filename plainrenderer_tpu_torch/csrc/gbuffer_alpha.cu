@@ -105,7 +105,6 @@
 #define K_WARPS 8
 #define K_MIN_BLOCKS 3  // blocks of K_WARPS warps per SM
 #define K_STRIDE (PLAIN_ROWS_ALPHA + 1)
-#define K_MAX_BINS 4096  // dynamic shared memory: 2 ints per bin
 #define L_REC 32       // floats per pair record: 30 rounded rows, 2 zeros
 #define L_REC_PREV 40  // a dynamic scene's: 39 rows, 1 zero
 #define L_ROWS 8       // rows per block of kernel L
@@ -174,6 +173,16 @@ __device__ __forceinline__ void winner_split(const int (&acc)[8],
   }
 }
 
+// aux: the item counter, per 16 x 16 block a merge counter, a ready
+// flag and a merged count, then the global order's scratch
+// (plain_strip_launch)
+__host__ __device__ __forceinline__ int* winner_alpha_order(int* aux,
+                                                            int n_bins,
+                                                            int sub) {
+  return aux + 1 + 3 * 8 * (size_t)n_bins * sub;
+}
+
+template <bool GLOBAL>
 __global__ void __launch_bounds__(K_WARPS * 32, K_MIN_BLOCKS)
 winner_alpha_kernel(const float* __restrict__ edges,
                     const int* __restrict__ masks,
@@ -191,17 +200,23 @@ winner_alpha_kernel(const float* __restrict__ edges,
   const int n_blocks = n_bins * sub * 8;  // 16 x 16 blocks of the screen
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   plain_load_masks(masks, n_masks, s_masks);
-  int* s_key = s_dyn;
-  int* s_end = s_dyn + n_bins;
-  // its barriers also publish s_masks
-  plain_slice_prefix<false, true>(tile_count, n_bins, K_CHUNK, s_key, s_end,
-                                  s_wsum);
+  const int* s_key = s_dyn;
+  const int* s_end = s_dyn + n_bins;
+  if constexpr (GLOBAL) {
+    s_key = winner_alpha_order(aux, n_bins, sub);
+    s_end = s_key + n_bins;
+    __syncthreads();  // publishes s_masks
+  } else {
+    // its barriers also publish s_masks
+    plain_slice_prefix<false, true>(tile_count, n_bins, K_CHUNK, s_dyn,
+                                    s_dyn + n_bins, s_wsum);
+  }
 
   int* counter = aux;
   int* done = aux + 1;             // per block: slices finished
   int* ready = done + n_blocks;    // per block: first slice stored
   int* merged = ready + n_blocks;  // per block: slices merged later
-  const int n_items = s_end[n_bins - 1] * sub * 8;
+  const int n_items = plain_order_end<GLOBAL>(s_end, n_bins - 1) * sub * 8;
   const int width = n_tiles_x * PLAIN_TILE_W;
   const int cx = 2 * (lane & 7);   // the lane's 2 columns in the block
   const int ry = 4 * (lane >> 3);  // its 4 rows
@@ -210,8 +225,9 @@ winner_alpha_kernel(const float* __restrict__ edges,
   const int n_warps = gridDim.x * K_WARPS;
   for (int item = blockIdx.x * K_WARPS + warp; item < n_items;
        item = plain_next_item(counter, n_warps, n_items)) {
-    const PlainStrip it = plain_strip_item(s_key, s_end, tile_start, n_bins,
-                                           K_CHUNK, sub * 8, item);
+    const PlainStrip it =
+        plain_strip_item<GLOBAL>(s_key, s_end, tile_start, tile_count,
+                                 n_bins, K_CHUNK, sub * 8, item);
     const int lead = tile_start[it.bin] % PLAIN_GROUP;
     const int ty = it.bin / n_tiles_x;
     const int tx = it.bin - ty * n_tiles_x;
@@ -373,15 +389,22 @@ extern "C" int winner_alpha_launch(const void* edges, const void* masks,
                                    int n_masks, int n_tiles_y, int n_tiles_x,
                                    int sub, int row_skip, void* stream) {
   const int n_bins = n_tiles_y * n_tiles_x;
-  if (n_bins < 1 || n_bins > K_MAX_BINS || n_masks < 1 ||
-      n_masks > PLAIN_MAX_ALPHA_MASKS) {
+  if (n_bins < 1 || n_masks < 1 || n_masks > PLAIN_MAX_ALPHA_MASKS) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = 2 * (size_t)n_bins * sizeof(int);
   static PlainGridCache cache;
-  const int grid =
-      plain_persistent_grid(cache, winner_alpha_kernel, K_WARPS * 32, smem);
-  winner_alpha_kernel<<<grid, K_WARPS * 32, smem, (cudaStream_t)stream>>>(
+  const PlainStripLaunch l =
+      plain_strip_launch(cache, winner_alpha_kernel<false>,
+                         winner_alpha_kernel<true>, K_WARPS * 32, n_bins);
+  if (l.global) {
+    const int err = plain_order_launch<false, true>(
+        tile_count, n_bins, K_CHUNK,
+        winner_alpha_order((int*)aux, n_bins, sub), stream);
+    if (err != 0) return err;
+  }
+  auto kernel =
+      l.global ? winner_alpha_kernel<true> : winner_alpha_kernel<false>;
+  kernel<<<l.grid, K_WARPS * 32, l.smem, (cudaStream_t)stream>>>(
       (const float*)edges, (const int*)masks, (const int*)tile_start,
       (const int*)tile_count, (int*)aux, (float*)depth, (int*)vis, n_pairs,
       n_masks, n_tiles_y, n_tiles_x, sub, row_skip);

@@ -892,15 +892,13 @@ def rasterize_winner_alpha(pair_edges, pairs: PairLists, alpha_masks,
                                   pairs.tile_count, alpha_masks, n_tiles_y,
                                   n_tiles_x, sub, row_skip)
     n_bins = n_tiles_y * n_tiles_x
-    if n_bins > GBUFFER_MAX_BINS:
-        raise ValueError(f"kernel K takes at most {GBUFFER_MAX_BINS} bins, "
-                         f"got {n_bins}")
     h, w = n_tiles_y * sub * TILE_H, n_tiles_x * TILE_W
     # warps take (16 x 16 block, pair slice) items, the first by their
     # index in the grid, then from aux[0]; aux[1:] holds each block's
-    # merge counters and flag
-    aux = torch.zeros((1 + 3 * 8 * n_bins * sub,), dtype=torch.int32,
-                      device=dev)
+    # merge counters and flag, then the bins' order where it does not fit
+    # shared memory (ORDER_INTS)
+    aux = torch.zeros((1 + 3 * 8 * n_bins * sub + ORDER_INTS * n_bins,),
+                      dtype=torch.int32, device=dev)
     depth = torch.empty((h, w), dtype=torch.float32, device=dev)
     vis = torch.empty((h, w), dtype=torch.int32, device=dev)
     native.launch("winner_alpha_launch", pair_edges, alpha_masks,
@@ -969,9 +967,6 @@ def resolve_attributes(pair_attrs, tile_start, vis, n_tiles_y: int,
     return gbuf
 
 
-GBUFFER_MAX_BINS = 4096  # kernel B keeps 2 ints per bin in shared memory
-
-
 def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
                       n_tiles_y: int, n_tiles_x: int, sub: int = 1,
                       row_skip: bool = False, alpha_masks=None):
@@ -1012,14 +1007,12 @@ def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
                              row_skip)
     h, w = n_tiles_y * sub * TILE_H, n_tiles_x * TILE_W
     n_bins = n_tiles_y * n_tiles_x
-    if n_bins > GBUFFER_MAX_BINS:
-        raise ValueError(f"kernel B takes at most {GBUFFER_MAX_BINS} bins, "
-                         f"got {n_bins}")
     # warps take (16-row strip, pair slice) items from aux[0], then
     # resolve items from aux[1]; aux[2:] holds each strip's merge counters
-    # and flags. rounded: the live pairs' split-rounded attribute rows
-    aux = torch.zeros((2 + 4 * n_bins * sub,), dtype=torch.int32,
-                      device=dev)
+    # and flags, then the bins' order where it does not fit shared memory
+    # (ORDER_INTS). rounded: the live pairs' split-rounded attribute rows
+    aux = torch.zeros((2 + 4 * n_bins * sub + ORDER_INTS * n_bins,),
+                      dtype=torch.int32, device=dev)
     rounded = torch.empty_like(pair_attrs)
     depth = torch.empty((h, w), dtype=torch.float32, device=dev)
     vis = torch.empty((h, w), dtype=torch.int32, device=dev)
@@ -1038,7 +1031,11 @@ def rasterize_gbuffer(pair_edges, pair_attrs, pairs: PairLists,
 DEPTH_CHUNK = 128  # pairs per slice of kernel E (csrc/depth.cu, E_CHUNK)
 J_CHUNK = 32  # pairs per slice of kernel J (csrc/depth_alpha.cu, J_CHUNK)
 K_CHUNK = 16  # pairs per slice of kernel K (csrc/gbuffer_alpha.cu, K_CHUNK)
-DEPTH_MAX_BINS = 4096  # kernels E and J keep 2 ints per bin in shared memory
+# The strip kernels E, B, J and K order the bins (2 ints per bin) in
+# shared memory while they fit (opting in above 48 KB), else in a scratch
+# at the end of their aux (csrc/common.cuh, plain_strip_launch): they take
+# any bin count that build_pairs makes.
+ORDER_INTS = 2
 
 
 def depth_plain(pair_edges, tile_start, tile_count, n_tiles_y: int,
@@ -1127,15 +1124,13 @@ def rasterize_depth(pair_edges, pairs: PairLists, n_tiles_y: int,
                             masks=alpha_masks, init=init_depth)
         return depth if init_depth is None else init_depth.copy_(depth)
     n_bins = n_tiles_y * n_tiles_x
-    if n_bins > DEPTH_MAX_BINS:
-        raise ValueError(f"kernels E and J take at most {DEPTH_MAX_BINS} "
-                         f"bins, got {n_bins}")
     if not alpha:
         # kernel E: warps take (half strip, pair slice) items from
-        # aux[0]; aux[1:] holds each half strip's merge counter and flag.
-        # It writes every texel, so the atlas needs no zero fill.
-        aux = torch.zeros((1 + 4 * n_bins * sub,), dtype=torch.int32,
-                          device=dev)
+        # aux[0]; aux[1:] holds each half strip's merge counter and flag,
+        # then the bins' order where it does not fit shared memory. It
+        # writes every texel, so the atlas needs no zero fill.
+        aux = torch.zeros((1 + 4 * n_bins * sub + ORDER_INTS * n_bins,),
+                          dtype=torch.int32, device=dev)
         depth = torch.empty((h, w), dtype=torch.float32, device=dev)
         native.launch("depth_launch", pair_edges, pairs.tile_start,
                       pairs.tile_count, aux, depth, pair_edges.shape[1],
@@ -1143,8 +1138,10 @@ def rasterize_depth(pair_edges, pairs: PairLists, n_tiles_y: int,
         return depth
     # kernel J: warps take (16 x 16 block, pair slice) items of the bins
     # with pairs, the first by their index in the grid, then from aux[0],
-    # and atomicMax their covered texels onto depth
-    aux = torch.zeros((1,), dtype=torch.int32, device=dev)
+    # and atomicMax their covered texels onto depth; aux[1:]: the bins'
+    # order where it does not fit shared memory
+    aux = torch.zeros((1 + ORDER_INTS * n_bins,), dtype=torch.int32,
+                      device=dev)
     depth = init_depth
     if depth is None:
         depth = torch.zeros((h, w), dtype=torch.float32, device=dev)

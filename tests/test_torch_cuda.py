@@ -824,6 +824,12 @@ def _alpha_edge_cases(device, rng, nb, ntx, sub):
     bins 2 and 5 are emptied (their pairs stay as dead columns). Returns
     (pair_edges (32, P), PairLists, masks (2, 128) i32)."""
     pe16, pairs = _depth_edge_cases(device, rng, nb, ntx, sub)
+    return _alpha_rows(device, rng, pe16, pairs, sub)
+
+
+def _alpha_rows(device, rng, pe16, pairs, sub):
+    """_alpha_edge_cases' alpha table on any 16-row pair lists whose bin 0
+    holds more than 300 pairs from column 0 on."""
     n = pe16.shape[1]
     rows = sub * 16
     pe = np.zeros((32, n), np.float64)
@@ -1124,3 +1130,250 @@ def test_expand_keys_kernel_alpha_keys_equal_plain(cuda):
     keys_p, owners_p = raster.expand_keys_plain(ki)
     torch.testing.assert_close(keys, keys_p, rtol=0, atol=0)
     torch.testing.assert_close(owners, owners_p, rtol=0, atol=0)
+
+
+def _wide_depth_case(device, rng, nb, ntx, sub):
+    """Pair lists over many bins, made in bulk: 2-6 random triangles (1-40
+    px) in every bin, a bin-wide one in every third bin, 600 tiny
+    triangles in bin 0 and 257 in bin 1 and in the last bin (slices that
+    merge; above 8,192 bins the last bin's index needs more than the
+    packed key's 13 bits); z as in _depth_edge_cases. Returns
+    (pair_edges (16, P) f32, PairLists)."""
+    rows, n_bins = sub * 16, nb * ntx
+    per = rng.integers(2, 7, n_bins)
+    per[[0, 1, n_bins - 1]] += (600, 257, 257)
+    bin_of = np.repeat(np.arange(n_bins), per)
+    n = bin_of.size
+    ty, tx = np.divmod(bin_of, ntx)
+    tiny = np.zeros(n, bool)
+    first = np.concatenate([[0], np.cumsum(per)[:-1]])
+    for b, k in ((0, 600), (1, 257), (n_bins - 1, 257)):
+        tiny[first[b] + per[b] - k:first[b] + per[b]] = True
+    centre = np.stack([tx * 128 + rng.uniform(0, 128, n),
+                       ty * rows + rng.uniform(0, rows, n)], -1)
+    size = np.where(tiny, rng.uniform(0.3, 4, n), rng.uniform(1, 40, n))
+    v = centre[:, None] + size[:, None, None] * rng.normal(size=(n, 3, 2))
+    wide = (np.arange(n) == first[bin_of]) & (bin_of % 3 == 0)
+    x0, y0 = tx[wide] * 128.0, ty[wide] * rows
+    v[wide] = np.stack([np.stack([x0 - 900, y0 - 900], -1),
+                        np.stack([x0 + 5000, y0 - 900], -1),
+                        np.stack([x0 - 900, y0 + 5000], -1)], 1)
+    cols = np.zeros((16, n))
+    for i in range(3):  # edge planes, >= 0 inside
+        (xa, ya), (xb, yb) = v[:, i].T, v[:, (i + 1) % 3].T
+        pl = np.stack([ya - yb, xb - xa, xa * yb - xb * ya])
+        xc, yc = v[:, (i + 2) % 3].T
+        pl *= np.where(pl[0] * xc + pl[1] * yc + pl[2] < 0, -1.0, 1.0)
+        cols[4 * i:4 * i + 3] = pl
+    cols[12] = rng.uniform(-2e-3, 2e-3, n)
+    cols[13] = rng.uniform(-2e-3, 2e-3, n)
+    cols[14] = np.where(wide, 0.25 + 0.5 * (bin_of % 97) / 97,
+                        rng.uniform(-0.3, 1.3, n))
+    cols[12:14, wide] = 0.0
+    cols[3] = np.floor(v[..., 1].min(1) / 16)
+    cols[7] = np.floor(v[..., 1].max(1) / 16)
+    t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a, dt),
+                                      device=device)
+    pairs = raster.PairLists(
+        pair_tri=t(np.zeros(n), np.int32), tile_start=t(first, np.int32),
+        tile_count=t(per, np.int32), overflow=t(0, np.int32))
+    return t(cols, np.float32), pairs
+
+
+# bin counts the reference renders: J with bench.py's banners at shadow
+# resolution 3072 (144 x 24 bins of 64 rows) and 4096 (192 x 32; 256 x 32
+# with 4 cascades); K on a 5120x2880 view (90 x 40 bins of 32 rows); B at
+# 7680x4320 (135 x 60); E at 8,192; and every kernel above 8,192 bins
+WIDE_BINS = [("J", 144, 24, 4, False), ("J", 144, 24, 4, True),
+             ("J", 192, 32, 4, False), ("J", 192, 32, 4, True),
+             ("J", 256, 32, 4, True), ("J", 128, 72, 1, True),
+             ("K", 90, 40, 2, True), ("K", 128, 72, 1, False),
+             ("E", 256, 32, 4, True), ("E", 144, 64, 1, False),
+             ("B", 135, 60, 2, True), ("B", 128, 72, 1, False)]
+
+
+@pytest.mark.parametrize("kernel,nb,ntx,sub,flag", WIDE_BINS,
+                         ids=[f"{k}-{nb * ntx}-{f}"
+                              for k, nb, ntx, _, f in WIDE_BINS])
+def test_strip_kernels_take_many_bins(cuda, kernel, nb, ntx, sub, flag):
+    """Kernels E, B, J and K at the bin counts above, each equal to its
+    plain version (E, J, K exact; B by its rule), one launch per call. J:
+    flag merges onto an init atlas; K, E and B: flag is row skip."""
+    rng = np.random.default_rng(nb * ntx + sub)
+    pe, pairs = _wide_depth_case(cuda, rng, nb, ntx, sub)
+    h, w = nb * sub * 16, ntx * 128
+    name = dict(J="depth_alpha", K="winner_alpha", E="depth",
+                B="gbuffer")[kernel]
+    before = native.launch_counts()[name]
+    if kernel in "JK":
+        pe, pairs, masks = _alpha_rows(cuda, rng, pe, pairs, sub)
+    if kernel == "J":
+        init = None
+        if flag:
+            d = torch.rand((h, w), device=cuda) * 0.9
+            init = torch.where(d > 0.45, d, 0.0)
+        depth = raster.rasterize_depth(
+            pe, pairs, nb, ntx, sub=sub, alpha_masks=masks,
+            init_depth=None if init is None else init.clone())
+        want = raster.depth_plain(pe, pairs.tile_start, pairs.tile_count, nb,
+                                  ntx, sub, False, masks=masks, init=init)
+        got = [depth.view(torch.int32)]
+        want = [want.view(torch.int32)]
+    elif kernel == "K":
+        got = list(raster.rasterize_winner_alpha(pe, pairs, masks, nb, ntx,
+                                                 sub, flag))
+        want = list(raster.winner_alpha_plain(
+            pe, pairs.tile_start, pairs.tile_count, masks, nb, ntx, sub,
+            flag))
+    elif kernel == "E":
+        got = [raster.rasterize_depth(pe, pairs, nb, ntx, sub=sub,
+                                      row_skip=flag).view(torch.int32)]
+        want = [raster.depth_plain(pe, pairs.tile_start, pairs.tile_count,
+                                   nb, ntx, sub, flag).view(torch.int32)]
+    else:
+        pa = _edge_case_attrs(rng, pe.shape[1], False, cuda)
+        got = list(raster.rasterize_gbuffer(pe, pa, pairs, nb, ntx, sub=sub,
+                                            row_skip=flag))
+        want = list(raster.gbuffer_plain(pe, pa, pairs.tile_start,
+                                         pairs.tile_count, nb, ntx, sub,
+                                         flag))
+        torch.testing.assert_close(got.pop(), want.pop(), rtol=0, atol=1e-4)
+    assert native.launch_counts()[name] == before + 1
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g, p, rtol=0, atol=0)
+    assert float((got[0] != 0).float().mean()) > 0.1
+    assert bool(got[0][h - sub * 16:, w - 128:].any())  # the last bin
+
+
+def _keys_setup(rng, t, nty, ntx, bin_rows, valid, device):
+    """Random bboxes (1-3 bins tall, 1-2 wide, fine rows inside the first
+    bin row) where valid, as the TriangleSetup fields pair_key_inputs
+    reads (tests/test_torch_raster.py:_random_bbox_setup's layout)."""
+    ty0 = rng.integers(0, nty, t)
+    ty1 = np.minimum(ty0 + rng.integers(1, 4, t) - 1, nty - 1)
+    tx0 = rng.integers(0, ntx, t)
+    tx1 = np.minimum(tx0 + rng.integers(1, 3, t) - 1, ntx - 1)
+    fine = np.stack([ty0 * bin_rows + rng.integers(0, bin_rows, t),
+                     ty1 * bin_rows + bin_rows - 1], axis=1)
+    fine = np.where(valid[:, None], fine, [1, 0])
+    t_ = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a, dt),
+                                       device=device)
+    return raster.TriangleSetup(
+        edges=torch.zeros((3, 4, t), device=device),
+        attrs=torch.zeros((raster.NATTR, 0), device=device),
+        tile_bbox=t_(np.stack([ty0, tx0, ty1, tx1], 1), np.int32),
+        valid=t_(valid, bool), fine_y=t_(fine, np.int32))
+
+
+def _flat_valid(rng, t):
+    """An alpha stream's validity: three runs of 256 triangles (one at the
+    end of the table) and 40 single ones among long runs that cover no
+    bin, so cum stays flat over all but ~800 of t entries."""
+    valid = np.zeros(t, bool)
+    for s in (1000, t // 2, t - 256):
+        valid[s:s + 256] = True
+    valid[rng.integers(0, t, 40)] = True
+    return valid
+
+
+@pytest.mark.parametrize("case,budget", [
+    ("dense", "past"), ("dense", "short"), ("flat", "default"),
+    ("flat", "short"), ("flat-views", "default")])
+def test_expand_keys_kernel_owner_search_cases(cuda, case, budget):
+    """Kernel A's owner search: a dense stream (owners change every few
+    slots, so warps' and rounds' slots straddle owners), a flat alpha
+    stream of 300,000 triangles with ~800 live (runs of empty triangles
+    longer than any window; alpha keys), the same as 3 views; budgets
+    past the total (dead slots: 3,000 more, or the frame's default for
+    the alpha streams, T + 8 slots per bin row) and half the total (every
+    slot live). Keys and owners equal expand_keys_plain exactly."""
+    rng = np.random.default_rng(61)
+    nty, ntx, bin_rows = 48, 4, 2
+    t = 40_000 if case == "dense" else 300_000
+    valid = rng.random(t) > 0.3 if case == "dense" else _flat_valid(rng, t)
+    setup = _keys_setup(rng, t, nty, ntx, bin_rows, valid, cuda)
+    alpha = None if case == "dense" else setup.valid
+    views = 3 if case == "flat-views" else 1
+    ki = raster.pair_key_inputs(setup, nty, ntx, None, bin_rows, True,
+                                n_views=views, tri_alpha=alpha)
+    total = int(ki.cum[-1])
+    if budget != "default":
+        ki = raster.pair_key_inputs(
+            setup, nty, ntx, total // 2 if budget == "short" else
+            total + 3000, bin_rows, True, n_views=views, tri_alpha=alpha)
+    assert (ki.budget < total) == (budget == "short")
+    assert ki.budget < total or ki.budget > total + 2900
+    assert total > (50_000 if case == "dense" else 800)
+    before = native.launch_counts()["expand_keys"]
+    keys, owners = raster.expand_keys(ki)
+    assert native.launch_counts()["expand_keys"] == before + 1
+    keys_p, owners_p = raster.expand_keys_plain(ki)
+    torch.testing.assert_close(keys, keys_p, rtol=0, atol=0)
+    torch.testing.assert_close(owners, owners_p, rtol=0, atol=0)
+
+
+def _window_edge_coords(rng, h, w, n_taps):
+    """Kernel I's coords (as tests/test_torch_taa.py:_coords) with 16
+    pixels of every 16 x 128 tile moved, in every tap, onto the edges of
+    their tile's window: the footprint clamped at 0 and at win - 2, fx or
+    fy exactly 0 and 1, the in-window margin exactly 2.5 and one f32 step
+    inside it, far outside on either side. The window follows tap 0's
+    mean x, so the moves are redone until no tile's window changes.
+    Returns (2K, h, w) f32 numpy."""
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32) + 0.5
+    motion = rng.normal(0, 1.5, (2, h, w)).astype(np.float32)
+    motion[0, :, :128] += np.linspace(-90, 90, 128, dtype=np.float32)
+    coords = np.concatenate([
+        np.stack([xs + motion[0] + rng.uniform(-2, 2),
+                  ys + motion[1] + rng.uniform(-2, 2)])
+        for _ in range(n_taps)]).astype(np.float32)
+    win_h, win_w = min(32, h), min(256, w)
+
+    def edges(win):
+        f = np.float32
+        return np.array([0.0, 0.5, -100.0, 2.5, np.nextafter(f(2.5), f(3)),
+                         win - 2.5, np.nextafter(f(win - 2.5), f(0)),
+                         win - 1.5, win - 0.5, win + 50.0,
+                         0.5 - 2.0 ** -20, 1.0, 1.5, win - 1.0, 3e4,
+                         -3e4], np.float32)
+
+    ex, ey = edges(win_w), edges(win_h)
+    py = (np.arange(16) * 5) % 16  # 16 pixels of a tile: (py, px)
+    px = (np.arange(16) * 37 + 3) % 128
+    windows = None
+    for _ in range(6):
+        by, bx = (v.numpy() for v in taa._tile_window(
+            torch.as_tensor(coords[0]), h, w))
+        if windows is not None and np.array_equal(windows, (by, bx)):
+            return coords
+        windows = np.array((by, bx))
+        for ty in range(h // 16):
+            for tx in range(w // 128):
+                y, x = ty * 16 + py, tx * 128 + px
+                for k in range(n_taps):
+                    roll = np.roll(np.arange(16), k)
+                    coords[2 * k, y, x] = bx[y, x] + ex[roll]
+                    coords[2 * k + 1, y, x] = by[y, x] + ey[roll[::-1]]
+    raise AssertionError("the windows did not settle")
+
+
+@pytest.mark.parametrize("n_taps", [1, 16])
+def test_history_taps_kernel_window_edges(cuda, n_taps):
+    """Kernel I with taps on its windows' clamp edges
+    (_window_edge_coords) on a 64 x 512 history, so windows move in x and
+    y: ok equal to its plain version on every pixel, values within 1e-6
+    of the taps' magnitude (R11G11B10 values are >= 0)."""
+    rng = np.random.default_rng(71 + n_taps)
+    h, w = 64, 512
+    rgb = rng.random((3, h, w)) * np.exp(rng.uniform(-6, 6, (3, h, w)))
+    hist = color_packing.pack_r11g11b10(
+        torch.as_tensor(rgb.astype(np.float32), device=cuda))
+    coords = torch.as_tensor(_window_edge_coords(rng, h, w, n_taps),
+                             device=cuda)
+    before = native.launch_counts()["history_taps"]
+    rgb_k, ok_k = taa.resample_history_taps(hist, coords)
+    assert native.launch_counts()["history_taps"] == before + 1
+    ref = taa.history_taps_plain(hist, coords)
+    torch.testing.assert_close(ok_k, ref[3 * n_taps] > 0.5, rtol=0, atol=0)
+    torch.testing.assert_close(rgb_k, ref[:3 * n_taps], rtol=1e-6,
+                               atol=1e-30)

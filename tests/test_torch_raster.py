@@ -5,6 +5,8 @@ its Pallas kernels in interpret mode, the port side its plain PyTorch
 versions (the CUDA kernels run only on the card, see chip_smoke.py).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -175,6 +177,45 @@ def test_expand_keys_plain_matches_jax_kernel_keys():
     total = int(ki.cum[-1])
     assert 0 < total < ki.budget
     assert (keys.numpy()[total:] == ki.sentinel).all()
+
+
+@pytest.mark.parametrize("short", [False, True])
+def test_expand_keys_plain_matches_jax_on_a_flat_alpha_stream(short):
+    """Kernel A's plain version against the Pallas kernel (interpret mode)
+    on an alpha stream's table: 4,096 triangles of which three runs and a
+    few singles cover bins, so cum is flat over long runs of empty
+    triangles (the case kernel A's window search jumps), alpha keys; a
+    budget past the total (dead slots: sentinel keys, owner 0) and one
+    below it."""
+    rng = np.random.default_rng(8)
+    t, nty, ntx, bin_rows = 4096, 8, 4, 2
+    j_setup, t_setup = _random_bbox_setup(rng, t, nty, ntx, bin_rows)
+    valid = np.zeros(t, bool)
+    for s in (100, 2000, t - 40):
+        valid[s:s + 40] = True
+    valid[rng.integers(0, t, 12)] = True
+    t_setup = dataclasses.replace(t_setup, valid=torch.as_tensor(valid))
+    alpha = torch.as_tensor(valid)
+    ki = tr.pair_key_inputs(t_setup, nty, ntx, bin_rows=bin_rows,
+                            order_rows=True, tri_alpha=alpha)
+    total = int(ki.cum[-1])
+    if short:
+        ki = tr.pair_key_inputs(t_setup, nty, ntx, total // 2, bin_rows,
+                                True, tri_alpha=alpha)
+    assert (ki.budget < total) == short
+    keys, owners = tr.expand_keys_plain(ki)
+    jk, jo = jr._expand_keys(
+        jnp.asarray(ki.cum.numpy()), jnp.asarray(ki.cum_ex.numpy()),
+        jnp.asarray(ki.geom_packed.numpy()), jnp.int32(total), ki.budget,
+        n_tiles_x=ntx, bin_rows=bin_rows, order_rows=True, order_alpha=True,
+        tpv=ki.tpv, n_views=1, sentinel=ki.sentinel, interpret=True)
+    np.testing.assert_array_equal(np.asarray(jk), keys.numpy())
+    np.testing.assert_array_equal(np.asarray(jo), owners.numpy())
+    spans = np.diff(ki.cum.numpy(), prepend=0)
+    assert (spans == 0).mean() > 0.9
+    if not short:
+        assert (keys.numpy()[total:] == ki.sentinel).all()
+        assert (owners.numpy()[total:] == 0).all()
 
 
 def _edge_margin(edges, width, height):

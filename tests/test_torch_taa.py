@@ -22,6 +22,7 @@ from plainrenderer_tpu.render import frame as jframe
 from plainrenderer_tpu_torch.ops import color_packing as tcp
 from plainrenderer_tpu_torch.ops import taa as ttaa
 from plainrenderer_tpu_torch.utils.sampling import taa_jitter_sequence
+from test_torch_cuda import _window_edge_coords
 
 torch.set_num_threads(1)
 _JAX_RESAMPLE_HISTORY_TAPS = jtaa.resample_history_taps
@@ -115,6 +116,34 @@ def test_history_taps_plain_matches_jax(n_taps, h, w):
     magnitude = ttaa.history_taps_plain(hist, _t(coords))[:3 * n_taps]
     assert (np.abs(t_rgb.numpy() - np.asarray(j_rgb))
             <= 1e-6 * magnitude.numpy()).all()
+
+
+@pytest.mark.parametrize("n_taps,h,w", [(1, 64, 512), (16, 16, 128)])
+def test_history_taps_plain_matches_jax_at_window_edges(n_taps, h, w):
+    """Kernel I's plain version against the JAX kernel (interpret mode) on
+    coords at its windows' clamp edges (test_torch_cuda.py:
+    _window_edge_coords: the footprint clamped at 0 and at win - 2, fx
+    and fy exactly 0 and 1, the 2.5-texel margin exactly and one f32 step
+    inside, far outside), with the shapes of
+    test_history_taps_plain_matches_jax so the compiled kernels are
+    shared. Its rule: ok equal, values within 1e-6 of the taps'
+    magnitude."""
+    rng = np.random.default_rng(71 + n_taps)
+    hist = _history(rng, h, w)
+    coords = _window_edge_coords(rng, h, w, n_taps)
+    j_rgb, j_ok = _jax_taps(n_taps, h, w)(jnp.asarray(hist.numpy()),
+                                          jnp.asarray(coords))
+    t_rgb, t_ok = ttaa.resample_history_taps(hist, _t(coords))
+    np.testing.assert_array_equal(t_ok.numpy(), np.asarray(j_ok))
+    magnitude = ttaa.history_taps_plain(hist, _t(coords))[:3 * n_taps]
+    assert (np.abs(t_rgb.numpy() - np.asarray(j_rgb))
+            <= 1e-6 * magnitude.numpy()).all()
+    # the edges are hit: taps clamped on both sides of the window, and tap
+    # 0 exactly on the margin
+    by, bx = ttaa._tile_window(_t(coords[0]), h, w)
+    sx = coords[0::2] - bx.numpy()
+    assert (sx < 0.5).any() and (sx > min(256, w) - 1.5).any()
+    assert (sx[0] == 2.5).any()
 
 
 def _r11_steps(a, b):
