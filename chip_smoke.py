@@ -1185,16 +1185,24 @@ def slice4_kernels(ctx, frames, settings) -> dict:
 
 
 def retime_a_to_i(ctx, frames, settings):
-    """Kernels A-I again, each checked against its plain version and timed
-    on this row's own frame inputs (frames 0 and 1, recorded on their way
-    into the kernels), so that the kernels line's timed_on names this row;
+    """Kernels A-I again, each checked against its plain version (A on all
+    four of frame 0's streams) and timed on this row's own frame inputs
+    (frames 0 and 1, recorded on their way into the kernels), so that the
+    kernels line's timed_on names this row;
     the earlier rows' times stay under `earlier`. Returns the recorded
     calls."""
     rec = record_frames(ctx, frames, settings, 2, [
         (frame, "raster_main_view"), (frame, "render_shadow_atlas"),
         (texture, "sample_materials"), (shadow, "shadow_resolve"),
         (frame, "trace_scene_gi"), (taa, "resample_packed_planes"),
-        (taa, "history_coords"), (taa, "resample_history_taps")])
+        (taa, "history_coords"), (taa, "resample_history_taps"),
+        (raster, "expand_keys")])
+    # kernel A on each of frame 0's four pair streams (the main view's
+    # alpha and opaque streams, the atlas's opaque and alpha casters)
+    check(len(rec["expand_keys"]) == 8, "kernel A runs 4 times a frame")
+    for n, (ki_n,) in enumerate(rec["expand_keys"][:4]):
+        check_keys(ki_n, f"kernel A (frame 0, stream {n + 1} of 4)",
+                   "T/view" if ki_n.tpv < ki_n.cum.shape[0] else "T")
     mv = rec["raster_main_view"][0][0]
     main = frame.raster_main_view(mv)
     setup_o = main_opaque_stream(mv)
