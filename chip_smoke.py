@@ -8,7 +8,8 @@ Run from the repository root with one CUDA device visible:
 It prints the card's name and power limit (nvidia-smi), builds the CUDA
 kernels of plainrenderer_tpu_torch/csrc (nvcc, sm_90a, one process per
 source, all started together) and walks SLICES, one row per slice of the
-port at 1920x1080 on the bench camera path: 1 the untextured atrium
+port at 1920x1080 on the bench camera path (uploaded once, indexed on
+the device: camera-path mode): 1 the untextured atrium
 (kernels A, B, C); 2 the textured atrium with sun shadows (D, E, F, A's
 multi-view keys; it picks pair_budget_scale); 3 with SDF GI (G, H); 4
 the default RenderSettings() with TAA, bloom and fog (I; the golden
@@ -16,7 +17,9 @@ scene on the card against tests/golden_frame.npz and the CPU); 5
 bench.py's own scene, the textured atrium with its 4 alpha-tested
 banners (J, K, L; M in a phase of its own, build_pairs(carry_table=...)
 on the frame's main-view setup; A-I checked and timed again on this
-scene's inputs); 6 the same scene with its 12 boxes moving in the raster
+scene's inputs; after its run the same frames run as a flight,
+render_flight's CUDA graph replays, bit-equal to them, with the replays'
+frame time, capture time, launches and busy share); 6 the same scene with its 12 boxes moving in the raster
 and the SDF and texture_filter 2 (the variants of B and L with the
 previous-NDC channels, D's trilinear and anisotropic branches, M at 56
 rows; the previous NDC, the recomposited SDF). Each row
@@ -101,6 +104,9 @@ KERNEL_SOURCES = {
 # ray the setup, refinement, albedo, pow, sky mapping and SH encode
 G_FINE_STEP_OPS, G_SHADOW_STEP_OPS, G_COARSE_STEP_OPS = 60, 45, 35
 G_RAY_OPS = 150
+# the flight phase's measured replays: between CUDA events, and under the
+# profiler (flight_phase)
+FLIGHT_REPLAYS, FLIGHT_PROFILED = 8, 3
 # rows of a pair's table that the raster kernels' bounds count as read:
 # B and E 12 plane rows and the row extents (rows 3, 7); J and K the 22
 # rows of their per-pixel step (csrc/common.cuh, PLAIN_ROWS_ALPHA) and
@@ -116,6 +122,17 @@ SMALL_BANNERS = dict(columns_per_row=2, floor_subdiv=2, box_count=0,
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes, types and bits (a float's sign of zero and NaN
+    payloads too)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.view(bits[t.element_size()]) for t in (a, b))
+    return bool(torch.equal(a, b))
 
 
 _SLEEP_CYCLES_PER_MS = []
@@ -363,7 +380,9 @@ def drive(ctx, frames, settings, warmup: int, timed: int):
     camera): launch counts reset just before, read just after;
     per-pass CUDA events on the timed frames, which also run under
     torch.cuda's sync debug mode to count the host synchronisations the
-    frame makes (none expected)."""
+    frame makes (none expected). Every frame gets the whole camera path
+    (ctx.cam_path, camera-path mode: render_frame indexes it on the
+    device), as bench.py drives its frames."""
     state = initial_state(settings.width, settings.height, device=ctx.dev)
     torch.cuda.synchronize()
     native.reset_launch_counts()
@@ -378,7 +397,7 @@ def drive(ctx, frames, settings, warmup: int, timed: int):
                 torch.cuda.set_sync_debug_mode("warn")
             timer = PassTimer() if i >= warmup else None
             image, state = frame.render_frame(
-                state, frames[i], ctx.cams[i], ctx.luts, 1.0 / 60.0,
+                state, frames[i], ctx.cam_path, ctx.luts, 1.0 / 60.0,
                 settings, device=ctx.dev, timer=timer)
             counters.append(state.debug_counters)
             if timer is not None:
@@ -934,15 +953,14 @@ def check_and_time_g(ctx, trace_args) -> dict:
 
 
 def check_and_time_h(ctx, resample_args) -> dict:
-    """Kernel H on a frame's recorded GI history and motion (ok equal,
-    values within 1e-6 of the taps' magnitude); bound 48 B per pixel;
+    """Kernel H on a frame's recorded GI history and motion (every bit of
+    its output equal to the plain version's); bound 48 B per pixel;
     yardstick grid_sample of the unpacked planes."""
     planes_h, motion_h, width_h, height_h = resample_args
     coords_h = taa.reprojected_coords(motion_h, width_h, height_h)
     err_h, h_ok_share = compare_history(
         "kernel H", planes_h, 6, taa.packed_planes(planes_h, coords_h),
-        taa.packed_planes_plain(planes_h, coords_h),
-        taa.packed_planes_plain(planes_h & 0x7FFF7FFF, coords_h))
+        taa.packed_planes_plain(planes_h, coords_h))
     hh, hw = planes_h.shape[1:]
     unpacked = torch.stack([c for p in planes_h
                             for c in taa.unpack_f16_pair_flush(p)])[None]
@@ -1134,23 +1152,29 @@ def grid_sample(planes, coords):
         align_corners=False)
 
 
-def compare_history(what, words, n, out_k, out_p, magnitude):
+def compare_history(what, words, n, out_k, out_p, magnitude=None):
     """A history kernel's (n + 1, H, W) output against its plain version:
     ok (the last channel) equal on every pixel, values within 1e-6 of the
-    taps' magnitude. Returns (max |err|, ok share)."""
+    taps' magnitude, or (magnitude None) every value's bits equal.
+    Returns (max |err|, ok share)."""
     nonzero = float((words != 0).float().mean())
     ok_equal = bool(torch.equal(out_k[n], out_p[n]))
     diff = (out_k[:n] - out_p[:n]).abs()
     err = float(diff.max())
     ok_share = float(out_k[n].mean())
+    rule = ("every value's bits equal" if magnitude is None
+            else "limit 1e-6 of the taps' magnitude")
     print(f"{what}: {tuple(words.shape)} history ({nonzero:.4f} of words "
           f"nonzero); ok equal: {ok_equal}, values max |err| {err:.3e} "
-          f"(limit 1e-6 of the taps' magnitude); {ok_share:.4f} of pixels "
-          "reproject inside the window", flush=True)
+          f"({rule}); {ok_share:.4f} of pixels reproject inside the "
+          "window", flush=True)
     check(nonzero > 0.1, f"{what}: frame 1's history is not empty")
     check(ok_equal, f"{what} ok channel vs plain")
-    check(float((diff - 1e-6 * magnitude[:n]).max()) <= 0.0,
-          f"{what} values vs plain")
+    if magnitude is None:
+        check(same_bits(out_k, out_p), f"{what} bits vs plain")
+    else:
+        check(float((diff - 1e-6 * magnitude[:n]).max()) <= 0.0,
+              f"{what} values vs plain")
     return err, ok_share
 
 
@@ -1684,7 +1708,9 @@ def slice4_after(ctx, frames, settings, run) -> dict:
 def profile_frames(ctx, frames, settings, run, what: str) -> dict:
     """2 more frames under torch.profiler: device busy share and kernels
     per frame (the profiler's own host cost is in the window, so the share
-    is a lower bound)."""
+    is a lower bound). Device kernels are the events with device time; the
+    others are the host's CUDA runtime calls (a cudaLaunchKernel per
+    kernel), counted apart."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1696,18 +1722,125 @@ def profile_frames(ctx, frames, settings, run, what: str) -> dict:
         ((e.key, getattr(e, "self_device_time_total", 0.0), e.count)
          for e in prof.key_averages()), key=lambda k: -k[1])
     device_us = sum(t for _, t, _ in by_kernel)
-    device_launches = sum(n for _, _, n in by_kernel) / 2
+    device_launches = sum(n for _, t, n in by_kernel if t > 0) / 2
+    other = sum(n for _, t, n in by_kernel if t <= 0) / 2
     busy = device_us / window_us if device_us > 0 else None
     print(f"profiler ({what}): device busy {device_us / 2e3:.2f} ms/frame "
           f"of {window_us / 2e3:.2f} ms wall -> busy share "
           f"{'not measured' if busy is None else f'{busy:.3f}'}; "
           f"{device_launches:.0f} device kernels/frame under "
-          f"{len(by_kernel)} names", flush=True)
+          f"{sum(t > 0 for _, t, _ in by_kernel)} names, {other:.0f} host "
+          "runtime events/frame", flush=True)
     return dict(busy_share=busy, profiled_device_us_per_frame=device_us / 2,
                 device_kernels_per_frame=device_launches,
+                runtime_events_per_frame=other,
                 profiled_wall_us_per_frame=window_us / 2,
                 top_kernels_us_per_frame=[(k, t / 2, n / 2)
                                           for k, t, n in by_kernel[:30]])
+
+
+def flight_phase(ctx, frames, settings, run, per_frame: dict) -> dict:
+    """render_flight over the same frames as the row's eager run (the same
+    initial state, scene, camera path and settings; frame 1 eager, then one
+    captured frame step replayed): launch counts reset just before, read
+    just after, per_frame times the frames for the path's kernels and 0
+    for the others; the last image and every state field bit-equal to the
+    eager camera-path run's. Then, on the flight's final state, one
+    FrameGraph: its capture time, REPLAYS replays between CUDA events
+    (device ms per frame) and on the host clock to their end, and
+    PROFILED replays under torch.profiler (busy share, device kernels per
+    replay)."""
+    n = run["frames"]
+    state0 = initial_state(settings.width, settings.height, device=ctx.dev)
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    image, state = frame.render_flight(state0, frames[0], ctx.cam_path,
+                                       ctx.luts, 1.0 / 60.0, settings, n,
+                                       device=ctx.dev)
+    torch.cuda.synchronize()
+    flight_s = time.perf_counter() - t0
+    launches = native.launch_counts()
+    print(f"flight: {n} frames in {flight_s:.3f} s (frame 1 eager, capture, "
+          f"{n - 1} replays); launches {launches}", flush=True)
+    for name in KERNEL_SOURCES:
+        want = per_frame.get(name, 0) * n
+        check(launches[name] == want,
+              f"flight: kernel {name} launched {launches[name]}x, want {want}")
+    fields = [f.name for f in dataclasses.fields(state)]
+    differ = [k for k in fields
+              if not same_bits(getattr(state, k), getattr(run["state"], k))]
+    image_equal = same_bits(image, run["image"])
+    print(f"flight vs the eager camera-path run: image bits equal "
+          f"{image_equal}, state fields differing {differ}", flush=True)
+    check(image_equal and not differ, "flight equals the eager frames")
+    del image, state0
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = frame.FrameGraph(state, frames[0], ctx.cam_path, ctx.luts,
+                            1.0 / 60.0, settings)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    step.replay()  # the first replay after capture uploads the graph
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    step.replay(FLIGHT_REPLAYS)
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / FLIGHT_REPLAYS
+    device_ms = start.elapsed_time(end) / FLIGHT_REPLAYS
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step.replay(FLIGHT_PROFILED)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    by_kernel = [(getattr(e, "self_device_time_total", 0.0), e.count)
+                 for e in prof.key_averages()]
+    busy_us = sum(t for t, _ in by_kernel)
+    kernels = sum(c for t, c in by_kernel if t > 0) / FLIGHT_PROFILED
+    busy = busy_us / window_us if busy_us > 0 else None
+    per_replay = sum(step.launches.values())
+    eager = run["pass_ms"]
+    print(f"flight (slice 5): replayed frames {device_ms:.3f} ms/frame "
+          f"(CUDA events over {FLIGHT_REPLAYS} replays), {wall_ms:.3f} "
+          f"ms/frame host wall (enqueue {enqueue_ms:.3f} ms for all); "
+          f"capture {capture_s * 1e3:.1f} ms; {per_replay} hand-written "
+          f"kernel launches per replay {step.launches}; profiler over "
+          f"{FLIGHT_PROFILED} replays: busy share "
+          f"{'not measured' if busy is None else f'{busy:.3f}'}, "
+          f"{busy_us / FLIGHT_PROFILED / 1e3:.2f} ms of device work in "
+          f"{kernels:.0f} device kernels per replay", flush=True)
+    print(f"flight (slice 5) beside the eager frame: eager "
+          f"{eager['frame']['mean']:.3f} ms/frame (events), "
+          f"{eager['host_wall_per_frame']['mean']:.3f} ms host wall; "
+          f"replayed {device_ms:.3f} ms (events), {wall_ms:.3f} ms host "
+          "wall", flush=True)
+    found = dict(frames=n, flight_s=flight_s, launches=launches,
+                 equal_to_eager=True, capture_s=capture_s,
+                 replays=FLIGHT_REPLAYS, replay_ms_per_frame=device_ms,
+                 replay_host_wall_ms_per_frame=wall_ms,
+                 replay_enqueue_ms=enqueue_ms,
+                 launches_per_replay=per_replay,
+                 kernel_launches_per_replay=dict(step.launches),
+                 profiled_replays=FLIGHT_PROFILED, busy_share=busy,
+                 device_us_per_replay=busy_us / FLIGHT_PROFILED,
+                 device_kernels_per_replay=kernels,
+                 eager_frame_ms=eager["frame"]["mean"],
+                 eager_host_wall_ms=eager["host_wall_per_frame"]["mean"])
+    del step
+    torch.cuda.empty_cache()
+    return found
+
+
+def slice5_after(ctx, frames, settings, run) -> dict:
+    """profile_frames of the eager run, then flight_phase."""
+    found = profile_frames(ctx, frames, settings, run, "slice 5")
+    found["flight"] = flight_phase(ctx, frames, settings, run, _BENCH)
+    return found
 
 
 # one slice of the port: its settings, scene, frames, the kernels it
@@ -1724,6 +1857,10 @@ _A_TO_F = {"expand_keys": 2, "gbuffer": 1, "material": 1, "texture": 1,
 _A_TO_I = dict(_A_TO_F, sdfgi_trace=1, packed_planes=1, history_taps=1)
 _HISTORIES = dict(gi_history=taa.unpack_f16_pair,
                   taa_history=color_packing.unpack_r11g11b10)
+# bench.py's scene: A for both streams of the main view and of the atlas;
+# M stays at 0 on the frame (its own path: slice5_kernels)
+_BENCH = dict(_A_TO_I, expand_keys=4, depth_alpha=1, winner_alpha=1,
+              attr_resolve=1)
 SLICES = [
     Row(1, "untextured", 1, 3,
         {"expand_keys": 1, "gbuffer": 1, "material": 1}, slice1_kernels),
@@ -1734,20 +1871,14 @@ SLICES = [
         histories=dict(gi_history=taa.unpack_f16_pair)),
     Row(4, "sdf", 3, 8, _A_TO_I, slice4_kernels, slice4_after,
         histories=_HISTORIES),
-    # bench.py's own scene: A for both streams of the main view and of the
-    # atlas; M stays at 0 on the frame (its own path: slice5_kernels)
-    Row(5, "bench", 3, 8,
-        dict(_A_TO_I, expand_keys=4, depth_alpha=1, winner_alpha=1,
-             attr_resolve=1), slice5_kernels,
-        lambda ctx, frames, settings, run: profile_frames(
-            ctx, frames, settings, run, "slice 5"),
+    # bench.py's own scene; after its run, the same frames as a flight
+    # (render_flight)
+    Row(5, "bench", 3, 8, _BENCH, slice5_kernels, slice5_after,
         pick_scale=True, histories=_HISTORIES),
     # the same scene with its 12 boxes moving (raster and SDF) and
     # texture_filter 2: B and L write 15 channels, D runs its trilinear +
     # anisotropic branch, the SDF is recomposited every frame
-    Row(6, "bench_dynamic", 3, 8,
-        dict(_A_TO_I, expand_keys=4, depth_alpha=1, winner_alpha=1,
-             attr_resolve=1), slice6_kernels,
+    Row(6, "bench_dynamic", 3, 8, _BENCH, slice6_kernels,
         lambda ctx, frames, settings, run: profile_frames(
             ctx, frames, settings, run, "slice 6"),
         pick_scale=True, histories=_HISTORIES,
@@ -1790,6 +1921,9 @@ def main() -> int:
         for t in range(max(r.warmup + r.timed for r in SLICES))]
     ctx.cams = [frame.camera_arrays(e.position, e.forward, e.right, e.up,
                                     device=ctx.dev) for e in exts]
+    ctx.cam_path = frame.camera_arrays(  # bench.py:114-115: one upload
+        *(np.stack([getattr(e, k) for e in exts])
+          for k in ("position", "forward", "right", "up")), device=ctx.dev)
     row_launches = {}
     for row in SLICES:
         if row.scene not in ctx.scenes:

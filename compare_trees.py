@@ -20,7 +20,8 @@ trilinear + anisotropic and trilinear, texture_filter 2 and 1), F
 K (rasterize_winner_alpha on the main view's alpha stream), L
 (resolve_attributes on K's vis), I (history_taps at K = 1 on frame 1's
 TAA history and coords, the first frame whose history holds an image;
-its bits also at K = 16, tech 1's coords of the same motion)
+its bits also at K = 16, tech 1's coords of the same motion), H
+(packed_planes on frame 1's GI history and its reprojected coords)
 and A (expand_keys on each of frame 0's four pair streams: the main
 view's alpha and opaque streams, the atlas's opaque and alpha casters,
 in the frame's order), on the device with chip_smoke.cuda_ms of
@@ -33,16 +34,16 @@ pairs, bins with pairs, median and largest pairs per bin, pixels of the
 16 x 16 blocks that pass the corner test) is reported per process. Every
 tree must give the same bits from E (the atlas), J (the merged atlas), G
 (its 7 planes), K (depth and vis), L (its 13 channels), I (its 4 planes
-at K = 1, 49 at K = 16) and A (each stream's keys and owners): each equals its plain version
-exactly today. The G-buffer's, D's and F's checksums are
+at K = 1, 49 at K = 16), H (its 7 planes) and A (each stream's keys and
+owners): each equals its plain version exactly today. The G-buffer's, D's and F's checksums are
 reported per run (B, D and F have rules that allow a difference from
 their plain versions, which chip_smoke.py checks, so trees may differ
 there). Alternating the
 order separates a tree's effect from drift over the call. Prints one JSON
 line per process and a summary, and writes the report to
-chiprun_out/compare_trees/report.json; then exits non-zero if E's, G's,
-K's, L's or J's bits differ between trees (the timings are printed
-first).
+chiprun_out/compare_trees/report.json; then exits non-zero if E's, J's,
+G's, K's, L's, I's, H's or A's bits differ between trees (the timings
+are printed first).
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ OUT = ROOT / "chiprun_out" / "compare_trees"
 
 
 def one(tree: Path, warmup: int, timed: int) -> dict:
-    """Slice 5's frames and kernels E, J, B, D, F, G, K, L, I and A with
+    """Slice 5's frames and kernels E, J, B, D, F, G, K, L, I, H and A with
     the port of `tree`."""
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -95,6 +96,9 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
         yaw_deg=10.0 + t * 0.1) for t in range(warmup + timed)]
     ctx.cams = [frame.camera_arrays(e.position, e.forward, e.right, e.up,
                                     device=ctx.dev) for e in exts]
+    ctx.cam_path = frame.camera_arrays(  # drive's camera path, one upload
+        *(np.stack([getattr(e, k) for e in exts])
+          for k in ("position", "forward", "right", "up")), device=ctx.dev)
     scene = cs.SCENES["bench"](ctx)
     frames = [scene] * len(ctx.cams)
     settings = cs.dataclasses.replace(
@@ -107,7 +111,8 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
         (frame, "render_shadow_atlas"), (frame, "raster_main_view"),
         (texture, "sample_materials"), (shadow, "shadow_resolve"),
         (frame, "trace_scene_gi"), (taa, "resample_history_taps"),
-        (taa, "history_coords"), (raster, "expand_keys")])
+        (taa, "history_coords"), (taa, "resample_packed_planes"),
+        (raster, "expand_keys")])
     atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
     mv = rec["raster_main_view"][0][0]
     main = frame.raster_main_view(mv)
@@ -196,6 +201,12 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
     def i(c=coords):
         return taa.history_taps(history, c)
 
+    planes_h, motion_h, width_h, height_h = rec["resample_packed_planes"][1]
+    coords_h = taa.reprojected_coords(motion_h, width_h, height_h)
+
+    def h():
+        return taa.packed_planes(planes_h, coords_h)
+
     # A on frame 0's four streams (the first four calls: the second
     # frame's follow)
     cs.check(len(rec["expand_keys"]) == 8, "A runs 4 times a frame")
@@ -224,6 +235,7 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
                 gi=checksum(g()), alpha_depth=checksum(k()[0]),
                 alpha_vis=checksum(vis_k), alpha_gbuf=checksum(l()),
                 taps=checksum(i()), taps16=checksum(i(coords16)),
+                planes=checksum(h()),
                 keys=[checksum(torch.stack(raster.expand_keys(ki)))
                       for ki in key_inputs])
     streams = [dict(view="atlas" if ki.tpv < ki.cum.shape[0] else "main",
@@ -246,7 +258,7 @@ def one(tree: Path, warmup: int, timed: int) -> dict:
         g_setup=timer.cuda_ms(g_setup, 20),
         g_launch=timer.cuda_ms(g_launch, 20),
         k=timer.cuda_ms(k, 20), l=timer.cuda_ms(l, 20),
-        i=timer.cuda_ms(i, 20), a=streams)
+        i=timer.cuda_ms(i, 20), h=timer.cuda_ms(h, 20), a=streams)
 
 
 def main() -> int:
@@ -291,12 +303,12 @@ def main() -> int:
         print(json.dumps({k: r[k] for k in (
             "name", "frame_ms", "host_wall_ms", "shadow_atlas_ms",
             "gbuffer_ms", "alpha_counts", "e", "j", "b", "d", "d_tri_aniso",
-            "d_tri", "f", "g", "g_setup", "g_launch", "k", "l", "i", "a",
-            "build_s")}), flush=True)
+            "d_tri", "f", "g", "g_setup", "g_launch", "k", "l", "i", "h",
+            "a", "build_s")}), flush=True)
     differ = {key: sorted({json.dumps(r["sums"][key]) for r in results})
               for key in ("atlas", "alpha_atlas", "gi", "alpha_depth",
                           "alpha_vis", "alpha_gbuf", "taps", "taps16",
-                          "keys")}
+                          "planes", "keys")}
     differ = {k: v for k, v in differ.items() if len(v) != 1}
     summary = {}
     for name in dict.fromkeys(order):
@@ -329,6 +341,8 @@ def main() -> int:
                 ("k_plus_l_ms", lambda r: r["k"]["ms"] + r["l"]["ms"]),
                 ("i_ms", lambda r: r["i"]["ms"]),
                 ("i_host_us", lambda r: r["i"]["host_us"]),
+                ("h_ms", lambda r: r["h"]["ms"]),
+                ("h_host_us", lambda r: r["h"]["host_us"]),
                 *[(f"a{n}_ms", lambda r, n=n: r["a"][n]["ms"])
                   for n in range(4)],
                 *[(f"a{n}_host_us", lambda r, n=n: r["a"][n]["host_us"])
@@ -343,7 +357,7 @@ def main() -> int:
              summary=summary, differ=differ), indent=1))
     print(smi, flush=True)
     print(json.dumps(summary), flush=True)
-    if differ:  # E, J, G, K, L, I and A equal their plain versions
+    if differ:  # E, J, G, K, L, I, H and A equal their plain versions
         raise SystemExit(f"compare_trees: the trees' bits differ: {differ}")
     return 0
 

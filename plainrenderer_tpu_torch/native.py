@@ -9,14 +9,17 @@ every pointer and the stream are passed as c_void_p, every C entry point
 returns cudaGetLastError() after its launch, and launch() raises when that
 is not cudaSuccess.
 
-launch() is the only place that bumps a kernel's launch count, and the
-wrappers in ops/ call it only on the branch that runs the kernel, so a
-count read after a run says how many times the run went through that
-kernel.
+launch() bumps a kernel's launch count, and the wrappers in ops/ call it
+only on the branch that runs the kernel, so a count read after a run says
+how many times the run went through that kernel. A launch recorded into a
+CUDA graph capture (inside capturing()) runs nothing: it counts into the
+capture's own dict, and count_replays() adds that dict once per replay of
+the graph, the one other place that bumps the counts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -80,6 +83,7 @@ _ENTRIES = {
 }
 
 _launches = {key: 0 for key, _ in _ENTRIES.values()}
+_recording = None  # a capture's counts while capturing() is open
 _lib = None
 _lock = threading.Lock()
 
@@ -92,6 +96,29 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for key in _launches:
         _launches[key] = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """Count the launches of a CUDA graph capture apart: inside, launch()
+    counts into the yielded dict (kernel name -> launches in one replay of
+    the graph) and not into launch_counts(), since a capture runs
+    nothing."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("capturing() does not nest")
+    _recording = {key: 0 for key in _launches}
+    try:
+        yield _recording
+    finally:
+        _recording = None
+
+
+def count_replays(step: dict, replays: int) -> None:
+    """Count `replays` replays of a graph whose capture recorded `step`
+    (capturing()'s dict): each replay launches those kernels again."""
+    for key, n in step.items():
+        _launches[key] += n * replays
 
 
 def _nvcc() -> str:
@@ -166,7 +193,8 @@ def library() -> ctypes.CDLL:
 def launch(entry: str, *args) -> None:
     """Call one C entry point with args (tensors pass their data_ptr(),
     ints pass as they are) on the current CUDA stream, raise on a launch
-    error, and count the launch."""
+    error, and count the launch (into the open capture's dict inside
+    capturing())."""
     import torch
 
     lib = library()
@@ -177,4 +205,5 @@ def launch(entry: str, *args) -> None:
     if err != 0:
         msg = lib.plain_kernels_error_string(err).decode()
         raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")
-    _launches[_ENTRIES[entry][0]] += 1
+    counts = _launches if _recording is None else _recording
+    counts[_ENTRIES[entry][0]] += 1

@@ -38,6 +38,7 @@ from .texture import tile_sum, to_thread_layout
 WIN_H = 32
 WIN_W = 256
 MAX_TAPS = 16  # kernel I's most taps: tech 1's 4x4 Catmull-Rom footprint
+MAX_PLANES = 3  # kernel H's most planes: the GI history's 6 f16 channels
 
 
 def compute_motion(prev_ndc, valid, cur_jitter, prev_jitter, width, height):
@@ -170,10 +171,13 @@ def reprojected_coords(motion, width, height):
 def packed_planes(planes, coords):
     """Kernel H on CUDA tensors, packed_planes_plain on CPU tensors:
     planes (P, H, W) i32, absolute pixel coords (2, H, W) f32 ->
-    (2P + 1, H, W) f32."""
+    (2P + 1, H, W) f32. The kernel takes 1 to MAX_PLANES planes."""
     n_planes, h, w = planes.shape
     if not _kernel_device(planes):
         return packed_planes_plain(planes, coords)
+    if not 1 <= n_planes <= MAX_PLANES:
+        raise ValueError(f"kernel H takes 1 to {MAX_PLANES} planes, got "
+                         f"{n_planes}")
     out = torch.empty((2 * n_planes + 1, h, w), dtype=torch.float32,
                       device=planes.device)
     native.launch("packed_planes_launch", planes, coords.contiguous(), out,

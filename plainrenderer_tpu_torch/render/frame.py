@@ -17,10 +17,15 @@ culling, the main view (with the previous frame's clip planes, so kernels
 B and L write the previous NDC) and the atlas; with dynamic SDF objects
 the scene SDF is recomposited each frame. shading.texture_filter 1 and 2
 turn on kernel D's trilinear and anisotropic branches. Every setting
-outside it (the TAA supersampling pre-pass, split-frame bands, camera
-paths, debug views) raises NotImplementedError instead of silently
-skipping its pass. render_frame runs eagerly and never synchronises with
-the host: every per-frame value stays a device tensor.
+outside it (the TAA supersampling pre-pass, split-frame bands, debug
+views) raises NotImplementedError instead of silently skipping its pass.
+render_frame runs eagerly and never synchronises with the host: every
+per-frame value stays a device tensor. A camera whose leaves lead with a
+path dimension is indexed on the device by the frame counter
+(camera-path mode), and render_flight renders a whole flight along such
+a path: on the card one frame step captured as a CUDA graph (FrameGraph)
+and replayed, the port's counterpart of the JAX package's one-dispatch
+lax.scan.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from .. import native
 from ..assets.textures import MAX_MIPS
 from ..config import RenderSettings
 from ..ops import exposure as exposure_ops
@@ -177,6 +183,27 @@ def dynamic_scene(scene: dict):
     return frame_scene, prev_corners
 
 
+def camera_at_frame(cam: dict, frame_index: torch.Tensor) -> dict:
+    """Camera-path mode (frame.py:294-307): when cam["position"] is (n, 3),
+    every non-scalar leaf must lead with the path length n (ValueError
+    otherwise: a leaf without the path dimension would be misindexed), and
+    each is indexed at frame_index % n on the device (index_select: no
+    host sync). A single camera passes through."""
+    if cam["position"].dim() != 2:
+        return cam
+    n_path = cam["position"].shape[0]
+    for k, v in cam.items():
+        if getattr(v, "ndim", 0) >= 1 and v.shape[0] != n_path:
+            raise ValueError(
+                f"camera-path mode: leaf {k!r} shape {tuple(v.shape)} does "
+                f"not lead with the path length {n_path}; stack every "
+                "non-scalar camera leaf along the path dimension")
+    idx = (frame_index % n_path).reshape(1).long()
+    return {k: (torch.index_select(v, 0, idx)[0]
+                if getattr(v, "ndim", 0) >= 1 else v)
+            for k, v in cam.items()}
+
+
 def check_slice(scene: dict, cam: dict, settings: RenderSettings) -> None:
     """Raise NotImplementedError for anything the port does not render."""
     unported = [
@@ -187,7 +214,6 @@ def check_slice(scene: dict, cam: dict, settings: RenderSettings) -> None:
         (settings.shadows.debug_cascade_colors,
          "cascade debug colours (shadows.debug_cascade_colors)"),
         ("ndc_y_scale" in cam, "split-frame band mode (cam 'ndc_y_scale')"),
-        (cam["position"].dim() == 2, "camera-path mode (render_flight)"),
         (settings.draw_bounding_boxes, "draw_bounding_boxes"),
         (settings.sdf_debug.visualisation_mode != 0,
          "SDF debug views (sdf_debug.visualisation_mode != 0)"),
@@ -686,12 +712,15 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
                  timer=None):
     """One frame: (image_u8 (H, W, 3), FrameState').
 
-    All inputs must lie on `device`. timer (utils.timing.PassTimer) records
-    a CUDA event at each pass boundary; None records nothing."""
+    All inputs must lie on `device`. cam is one camera, or a camera path
+    whose leaves lead with the path length (camera_at_frame). timer
+    (utils.timing.PassTimer) records a CUDA event at each pass boundary;
+    None records nothing."""
     dev = device_mod.resolve(device)
     if state.prev_color.device.type != dev.type:
         raise ValueError(f"state lies on {state.prev_color.device}, "
                          f"render_frame was asked for {dev}")
+    cam = camera_at_frame(cam, state.frame_index)
     check_slice(scene, cam, settings)
     f32 = dict(dtype=torch.float32, device=dev)
     width, height = settings.width, settings.height
@@ -966,6 +995,78 @@ def froxel_fog(state: FrameState, cam: dict, luts: dict,
         hdr, fog_depth, integrated, vs.max_distance,
         blue_noise_screen(luts, state.frame_index, ph, pw))
     return hdr, scat
+
+
+class FrameGraph:
+    """One frame step captured as a CUDA graph, to replay (render_flight).
+
+    The state is cloned into static buffers (the caller's tensors are never
+    written), then one render_frame on them is captured with
+    torch.cuda.graph, ending with state' copied back into those buffers, so
+    each replay() renders the next frame: .state always holds the state
+    after the last replay, .image (in the graph's memory pool) its image.
+    The caches a frame fills on first use (_frame_constants, the shadow
+    fit's constants and PCF spiral, the GI filter's tap table, the kernel
+    library and the strip launchers' grids) must be filled before, by an
+    eager frame at the same settings on the same device: a host-to-device
+    copy or a kernel attribute query inside the capture would fail it. A
+    capture that fails raises; nothing falls back to eager frames. Frozen
+    at capture: a Python delta_time (a fill baked into the graph; pass a
+    device tensor to vary it between replays) and everything the host
+    decides per frame (none: render_frame never reads the device). No
+    PassTimer runs inside the graph, so per-pass times come from eager
+    frames. The kernels' launches recorded by the capture are counted
+    once per replay (native.count_replays)."""
+
+    def __init__(self, state: FrameState, scene: dict, cam_path: dict,
+                 luts: dict, delta_time, settings: RenderSettings):
+        names = [f.name for f in dataclasses.fields(FrameState)]
+        self.state = FrameState(**{k: getattr(state, k).clone()
+                                   for k in names})
+        self.graph = torch.cuda.CUDAGraph()
+        with native.capturing() as step:
+            with torch.cuda.graph(self.graph):
+                image, new = render_frame(
+                    self.state, scene, cam_path, luts, delta_time, settings,
+                    device=self.state.prev_color.device)
+                for k in names:
+                    getattr(self.state, k).copy_(getattr(new, k))
+        self.image = image
+        self.launches = dict(step)  # kernel -> launches per replay
+
+    def replay(self, n: int = 1) -> None:
+        for _ in range(n):
+            self.graph.replay()
+        native.count_replays(self.launches, n)
+
+
+def render_flight(state: FrameState, scene: dict, cam_path: dict,
+                  luts: dict, delta_time, settings: RenderSettings,
+                  n_frames: int, device="cuda"):
+    """n_frames consecutive frames along cam_path (camera-path mode:
+    leaves lead with the path length, indexed by state.frame_index):
+    (the last frame's image, the final state), frame_index advanced by
+    n_frames (frame.py:1122-1153, render_flight's lax.scan). On the card
+    frame 1 runs eagerly (it fills the caches a capture needs), then one
+    frame step is captured (FrameGraph) and replayed n_frames - 1 times,
+    with no host work per frame; the image is cloned out of the graph's
+    pool. On the CPU it is a loop of render_frame. The caller's state is
+    not written."""
+    dev = device_mod.resolve(device)
+    if n_frames < 1:
+        raise ValueError(f"n_frames must be >= 1, got {n_frames}")
+    image, state = render_frame(state, scene, cam_path, luts, delta_time,
+                                settings, device=dev)
+    if dev.type == "cpu":
+        for _ in range(n_frames - 1):
+            image, state = render_frame(state, scene, cam_path, luts,
+                                        delta_time, settings, device=dev)
+        return image, state
+    if n_frames == 1:
+        return image, state
+    step = FrameGraph(state, scene, cam_path, luts, delta_time, settings)
+    step.replay(n_frames - 1)
+    return step.image.clone(), step.state
 
 
 def scene_to_device(rs, device="cuda") -> dict:

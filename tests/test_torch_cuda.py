@@ -26,17 +26,20 @@ _shadow_world) and F at 1 and 16 taps and 1 and 4 cascades.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
-from plainrenderer_tpu_torch import native
+from plainrenderer_tpu_torch import config, native
 from plainrenderer_tpu_torch.assets import procedural, sdf_bake, textures
 from plainrenderer_tpu_torch.ops import color_packing, post, raster
 from plainrenderer_tpu_torch.ops import sdf_scene, sdfgi
 from plainrenderer_tpu_torch.ops import shadow, taa, texture
 from plainrenderer_tpu_torch.render import frame, scenebuild
+from plainrenderer_tpu_torch.render.state import FrameState, initial_state
+from plainrenderer_tpu_torch.scene import camera as cam_mod
 
 pytestmark = pytest.mark.cuda
 
@@ -723,11 +726,26 @@ def test_sdfgi_kernel_coarse_table_sizes(cuda, dims, words):
               dims_zyx=scene["sdf_grid"], coarse_tables=scene["sdf_coarse"])
 
 
-def test_packed_planes_kernel_equals_plain(cuda):
-    rng = np.random.default_rng(17)
-    h, w = 96, 640
-    vals = rng.normal(size=(2, 3, h, w)) * np.exp(rng.uniform(-18, 8,
-                                                           (2, 3, h, w)))
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("n_planes", [1, 2, 3])
+@pytest.mark.parametrize("h", [16, 32, 96, 640])
+def test_packed_planes_kernel_equals_plain(cuda, n_planes, h):
+    """Kernel H at P = 1-3 planes of 640 columns and h rows: the first
+    tile row's windows clamped at the planes' top, the last's at the
+    bottom (h 16 and 32: one window of all rows), tiles pushed far left
+    and past the right edge (windows clamped at both sides), a ramp that
+    splits a tile across its window; f16 halves over 26 octaves, some
+    subnormal. The wrapper on motion (resample_packed_planes) and the
+    kernel on the same coords with 16 pixels of every tile on their
+    window's clamp edges (_window_edge_coords): every output bit equal to
+    packed_planes_plain's. More than 3 planes raise."""
+    rng = np.random.default_rng(17 + 4 * n_planes + h)
+    w = 640
+    vals = rng.normal(size=(2, n_planes, h, w)) * np.exp(
+        rng.uniform(-18, 8, (2, n_planes, h, w)))
     vals[1, :, ::3, ::5] = 3e-6  # subnormal f16 halves
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
     planes = taa.pack_f16_pair(t(vals[0]), t(vals[1]))
@@ -738,11 +756,18 @@ def test_packed_planes_kernel_equals_plain(cuda):
     before = native.launch_counts()["packed_planes"]
     chans, ok = taa.resample_packed_planes(planes, t(motion), w, h)
     assert native.launch_counts()["packed_planes"] == before + 1
-    ref = taa.packed_planes_plain(
-        planes, taa.reprojected_coords(t(motion), w, h))
-    torch.testing.assert_close(ok, ref[6] > 0.5, rtol=0, atol=0)
-    assert 0.05 < float(ok.float().mean()) < 0.95
-    torch.testing.assert_close(chans, ref[:6], rtol=1e-6, atol=1e-30)
+    coords = taa.reprojected_coords(t(motion), w, h)
+    ref = taa.packed_planes_plain(planes, coords)
+    assert torch.equal(ok, ref[2 * n_planes] > 0.5)
+    assert 0.0 < float(ok.float().mean()) < 1.0
+    assert torch.equal(_bits(chans), _bits(ref[:2 * n_planes]))
+    edge = t(_window_edge_coords(rng, h, w, 1, coords.cpu().numpy()))
+    out = taa.packed_planes(planes, edge)
+    ref = taa.packed_planes_plain(planes, edge)
+    assert torch.equal(_bits(out), _bits(ref))
+    assert 0.0 < float(out[-1].mean()) < 1.0
+    with pytest.raises(ValueError):  # the kernel takes 1 to 3 planes
+        taa.packed_planes(planes.repeat(4, 1, 1), edge)
 
 
 @pytest.mark.parametrize("n_taps", [1, 16])
@@ -1312,21 +1337,26 @@ def test_expand_keys_kernel_owner_search_cases(cuda, case, budget):
     torch.testing.assert_close(owners, owners_p, rtol=0, atol=0)
 
 
-def _window_edge_coords(rng, h, w, n_taps):
-    """Kernel I's coords (as tests/test_torch_taa.py:_coords) with 16
-    pixels of every 16 x 128 tile moved, in every tap, onto the edges of
-    their tile's window: the footprint clamped at 0 and at win - 2, fx or
-    fy exactly 0 and 1, the in-window margin exactly 2.5 and one f32 step
-    inside it, far outside on either side. The window follows tap 0's
+def _window_edge_coords(rng, h, w, n_taps, coords=None):
+    """Kernel I's coords (as tests/test_torch_taa.py:_coords), or a copy of
+    the given (2K, h, w) coords, with 16 pixels of every 16 x 128 tile
+    moved, in every tap, onto the edges of their tile's window: the
+    footprint clamped at 0 and at win - 2, fx or fy exactly 0 and 1, the
+    in-window margin exactly 2.5 and one f32 step inside it (I's), exactly
+    0.5, just below it and exactly win - 1.5 (H's), far outside on either
+    side. The window follows tap 0's
     mean x, so the moves are redone until no tile's window changes.
     Returns (2K, h, w) f32 numpy."""
-    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32) + 0.5
-    motion = rng.normal(0, 1.5, (2, h, w)).astype(np.float32)
-    motion[0, :, :128] += np.linspace(-90, 90, 128, dtype=np.float32)
-    coords = np.concatenate([
-        np.stack([xs + motion[0] + rng.uniform(-2, 2),
-                  ys + motion[1] + rng.uniform(-2, 2)])
-        for _ in range(n_taps)]).astype(np.float32)
+    if coords is not None:
+        coords = np.array(coords, np.float32)
+    else:
+        ys, xs = np.mgrid[0:h, 0:w].astype(np.float32) + 0.5
+        motion = rng.normal(0, 1.5, (2, h, w)).astype(np.float32)
+        motion[0, :, :128] += np.linspace(-90, 90, 128, dtype=np.float32)
+        coords = np.concatenate([
+            np.stack([xs + motion[0] + rng.uniform(-2, 2),
+                      ys + motion[1] + rng.uniform(-2, 2)])
+            for _ in range(n_taps)]).astype(np.float32)
     win_h, win_w = min(32, h), min(256, w)
 
     def edges(win):
@@ -1377,3 +1407,92 @@ def test_history_taps_kernel_window_edges(cuda, n_taps):
     torch.testing.assert_close(ok_k, ref[3 * n_taps] > 0.5, rtol=0, atol=0)
     torch.testing.assert_close(rgb_k, ref[:3 * n_taps], rtol=1e-6,
                                atol=1e-30)
+
+
+# the small banner atrium (tests/test_frame.py:312-314) with 3 boxes
+FLIGHT_ATRIUM = dict(columns_per_row=2, floor_subdiv=2, box_count=3,
+                     box_subdiv=1, column_segments=8, banner_count=2)
+
+
+@functools.lru_cache(maxsize=1)
+def _flight_case(device):
+    """The small textured banner atrium with its scene SDF baked on the
+    card at 16^3 per mesh, the default RenderSettings() at 256x128 (TAA,
+    bloom, fog, GI, 3 sun cascades of 256^2, alpha-tested banners) and a
+    4-camera path moving a little every frame, uploaded once."""
+    scene_data = procedural.build_atrium_scene(
+        procedural.AtriumConfig(**FLIGHT_ATRIUM), textured=True)
+    rs = scenebuild.build_render_scene(scene_data)
+    gsdf = sdf_scene.build_scene_sdf(rs, scene_data, bake_resolution_cap=16,
+                                     device=device)
+    scene = frame.attach_global_sdf(frame.scene_to_device(rs, device=device),
+                                    gsdf)
+    settings = config.RenderSettings(
+        width=256, height=128, exposure_adaption_speed=1000.0,
+        shadows=config.ShadowSettings(resolution=256))
+    luts = frame.bake_static_luts(settings, device=device)
+    exts = [cam_mod.extrinsic_from_angles([0.05 * i, -1.7, -4.0 + 0.02 * i],
+                                          pitch_deg=2.0, yaw_deg=0.3 * i)
+            for i in range(4)]
+    path = frame.camera_arrays(
+        *(np.stack([getattr(e, k) for e in exts])
+          for k in ("position", "forward", "right", "up")), device=device)
+    return scene, settings, luts, path
+
+
+def _counts_since(before):
+    return {k: v - before[k] for k, v in native.launch_counts().items()}
+
+
+def test_flight_equals_eager_camera_path_frames(cuda):
+    """render_flight (frame 1 eager, then a captured frame step replayed)
+    over 5 frames of a 4-camera path equals 5 eager camera-path frames from
+    the same state: the last image and every FrameState field, bit for
+    bit; the replays count as many kernel launches as the eager frames
+    made; the caller's state is not written."""
+    scene, settings, luts, path = _flight_case(cuda)
+    n = 5
+    state0 = initial_state(256, 128, device=cuda)
+    before = native.launch_counts()
+    img_e, st_e = None, state0
+    for _ in range(n):
+        img_e, st_e = frame.render_frame(st_e, scene, path, luts, 1.0 / 60.0,
+                                         settings, device=cuda)
+    eager = _counts_since(before)
+    before = native.launch_counts()
+    img_f, st_f = frame.render_flight(state0, scene, path, luts, 1.0 / 60.0,
+                                      settings, n, device=cuda)
+    assert _counts_since(before) == eager
+    assert eager["packed_planes"] == n and eager["winner_alpha"] == n
+    assert torch.equal(img_f, img_e)
+    assert img_f.float().std() > 5
+    for f in dataclasses.fields(FrameState):
+        a, b = getattr(st_f, f.name), getattr(st_e, f.name)
+        if a.is_floating_point():
+            a, b = _bits(a), _bits(b)
+        assert torch.equal(a, b), f.name
+    assert int(st_f.frame_index) == n and int(state0.frame_index) == 0
+    assert not bool(state0.prev_color.any())
+
+
+def test_flight_capture_that_fails_raises(cuda, monkeypatch):
+    """A frame step that waits for the device (here the tonemap pass
+    reading a value back) cannot be captured: render_flight raises after
+    its one eager frame and renders no frame eagerly in the graph's place.
+    Last in this file: the failed capture is the process's last CUDA
+    work."""
+    scene, settings, luts, path = _flight_case(cuda)
+    tonemap = post.tonemap_pass
+
+    def reading_back(hdr, time):
+        float(hdr.sum())  # a host synchronisation
+        return tonemap(hdr, time)
+
+    monkeypatch.setattr(post, "tonemap_pass", reading_back)
+    state0 = initial_state(256, 128, device=cuda)
+    before = native.launch_counts()
+    with pytest.raises(RuntimeError):
+        frame.render_flight(state0, scene, path, luts, 1.0 / 60.0, settings,
+                            3, device=cuda)
+    ran = _counts_since(before)
+    assert ran["gbuffer"] == 1 and ran["packed_planes"] == 1
