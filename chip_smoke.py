@@ -22,7 +22,14 @@ render_flight's CUDA graph replays, bit-equal to them, with the replays'
 frame time, capture time, launches and busy share); 6 the same scene with its 12 boxes moving in the raster
 and the SDF and texture_filter 2 (the variants of B and L with the
 previous-NDC channels, D's trilinear and anisotropic branches, M at 56
-rows; the previous NDC, the recomposited SDF). Each row
+rows; the previous NDC, the recomposited SDF). After the rows, the runtime phase
+runs the port's App on the committed courtyard demo
+(assets/demo/courtyard.plain) as runtime/app.main() sets it up at
+1920x1080: its DDS volumes and textures loaded, kernels A-L held to
+their plain versions on its frames' inputs, timed run_frames (each step
+timed: run_frame, the copy to the host, burn_stats, save_image), the
+debug views, a small App card vs CPU, and the command line in
+subprocesses (runtime_phase). Each row
 holds its kernels to their plain PyTorch versions on a real frame's
 inputs (the rule is printed with each result), a small scene on the card
 to the CPU plain path (> 99.9% of pixels within 2 LSB), times each
@@ -44,11 +51,13 @@ The report goes to chiprun_out/chip_smoke/.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import subprocess
 import sys
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -327,6 +336,16 @@ class Ctx:
         self.scenes, self.scale, self.report = {}, 1.0, {}
         self.path = ""
         self.earlier, self.variants = {}, {}
+        # set while a phase times kernels on its own inputs: their results
+        # go under this variant name beside the rows' own
+        self.tag = None
+
+    def result(self, name, variant=None) -> dict:
+        """The record that kernel() last stored for name (and variant, or
+        the phase's tag)."""
+        variant = variant if variant is not None else self.tag
+        return self.results[name] if variant is None \
+            else self.variants[name][variant]
 
     def kernel(self, name, fn, reps, plain, plain_reps, bound, err,
                library=None, variant=None):
@@ -340,6 +359,7 @@ class Ctx:
         kernel timed again keeps its earlier time in `earlier`; a variant
         (another branch of the same kernel) goes into `variants` beside the
         default one."""
+        variant = variant if variant is not None else self.tag
         t, tp = cuda_ms(fn, reps), cuda_ms(plain, plain_reps, strict=False)
         tl = library and cuda_ms(library, 50)
         touched = bound[0] * HBM_BYTES_PER_S
@@ -696,8 +716,7 @@ def check_and_time_b(ctx, mv, pairs, pe, pa, what="kernel B",
         row_skip=True), 20, lambda: raster.gbuffer_plain(*gb_args), 2,
         (b_bytes / HBM_BYTES_PER_S, b_ops / FP32_OPS_PER_S), err_b,
         variant=variant)
-    result = ctx.results["gbuffer"] if variant is None \
-        else ctx.variants["gbuffer"][variant]
+    result = ctx.result("gbuffer", variant)
     result.update(ops=b_ops, pr6_design_ops=12 * evaluated + per_px,
                   block_work=sizes, block_least=least)
     return frac_differ, err_b, covered, evaluated
@@ -776,8 +795,7 @@ def check_and_time_d(ctx, scene, targs, kw, what="kernel D",
                lambda: texture.sample_plain(*targs, **kw), 3,
                (d_bytes / HBM_BYTES_PER_S, d_ops / FP32_OPS_PER_S), err_d,
                variant=variant)
-    result = ctx.results["texture"] if variant is None \
-        else ctx.variants["texture"][variant]
+    result = ctx.result("texture", variant)
     result.update(
         distinct_texel_words=distinct, windows=windows, window_count_bytes=(
             n_pix * 65 + windows * texture.WIN_H * texture.WIN_W * 8))
@@ -826,8 +844,7 @@ def check_and_time_e(ctx, atlas, n_cas, variant=None):
         lambda: raster.depth_plain(*pargs_e), 1,
         (e_bytes / HBM_BYTES_PER_S, e_ops / FP32_OPS_PER_S), 0.0,
         variant=variant)
-    result = ctx.results["depth"] if variant is None \
-        else ctx.variants["depth"][variant]
+    result = ctx.result("depth", variant)
     result.update(
         ops=e_ops, block_work=sizes, block_least=least,
         pr6_design_ops=12 * e_eval,
@@ -874,7 +891,7 @@ def check_and_time_f(ctx, atlas, resolve_args, settings, valid):
                lambda: shadow.shadow_resolve_plain(*pargs, sres), 3,
                ((n_pix * 24 + distinct * 4) / HBM_BYTES_PER_S,
                 float(valid.sum()) * taps * 24 / FP32_OPS_PER_S), err_f)
-    ctx.results["shadow"].update(
+    ctx.result("shadow").update(
         distinct_map_words=distinct,
         map_count_bytes=n_pix * 24 + n_cas * (sres // 2) * sres * 4)
     return dict(shadow_equal_share=f_equal, shadowed_share=shadowed,
@@ -1102,10 +1119,10 @@ def slice2_kernels(ctx, frames, settings) -> dict:
         **e)
 
 
-def record_frames(ctx, frames, settings, n: int, targets):
-    """Render the first n of the per-frame scenes from a fresh state with
-    each (module, name) in targets wrapped to record its positional
-    arguments, in call order."""
+@contextlib.contextmanager
+def recorded_calls(targets):
+    """Within the block, each (module, name) in targets is wrapped to
+    record its positional arguments, in call order; yields name -> list."""
     recorded = {name: [] for _, name in targets}
     originals = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
@@ -1114,14 +1131,21 @@ def record_frames(ctx, frames, settings, n: int, targets):
     for mod, name, fn in originals:
         setattr(mod, name, recorder(fn, recorded[name]))
     try:
+        yield recorded
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+def record_frames(ctx, frames, settings, n: int, targets):
+    """Render the first n of the per-frame scenes from a fresh state with
+    each (module, name) in targets recorded (recorded_calls)."""
+    with recorded_calls(targets) as recorded:
         state = initial_state(WIDTH, HEIGHT, device=ctx.dev)
         for i in range(n):
             _, state = frame.render_frame(
                 state, frames[i], ctx.cams[i], ctx.luts, 1.0 / 60.0,
                 settings, device=ctx.dev)
-    finally:
-        for mod, name, fn in originals:
-            setattr(mod, name, fn)
     return recorded
 
 
@@ -1208,6 +1232,15 @@ def slice4_kernels(ctx, frames, settings) -> dict:
                 golden_close=close_golden, golden_card_vs_cpu=close_cpu)
 
 
+# the calls whose arguments check_a_to_i reads (frames 0 and 1)
+A_TO_I_CALLS = [
+    (frame, "raster_main_view"), (frame, "render_shadow_atlas"),
+    (texture, "sample_materials"), (shadow, "shadow_resolve"),
+    (frame, "trace_scene_gi"), (taa, "resample_packed_planes"),
+    (taa, "history_coords"), (taa, "resample_history_taps"),
+    (raster, "expand_keys")]
+
+
 def retime_a_to_i(ctx, frames, settings):
     """Kernels A-I again, each checked against its plain version (A on all
     four of frame 0's streams) and timed on this row's own frame inputs
@@ -1215,12 +1248,15 @@ def retime_a_to_i(ctx, frames, settings):
     kernels line's timed_on names this row;
     the earlier rows' times stay under `earlier`. Returns the recorded
     calls."""
-    rec = record_frames(ctx, frames, settings, 2, [
-        (frame, "raster_main_view"), (frame, "render_shadow_atlas"),
-        (texture, "sample_materials"), (shadow, "shadow_resolve"),
-        (frame, "trace_scene_gi"), (taa, "resample_packed_planes"),
-        (taa, "history_coords"), (taa, "resample_history_taps"),
-        (raster, "expand_keys")])
+    rec = record_frames(ctx, frames, settings, 2, A_TO_I_CALLS)
+    check_a_to_i(ctx, rec, frames[0], settings)
+    return rec
+
+
+def check_a_to_i(ctx, rec, scene, settings, atlas_time=True):
+    """check_and_time_* of kernels A-I on recorded frames 0 and 1 of one
+    scene (A_TO_I_CALLS); atlas_time False checks the atlas's keys without
+    timing them."""
     # kernel A on each of frame 0's four pair streams (the main view's
     # alpha and opaque streams, the atlas's opaque and alpha casters)
     check(len(rec["expand_keys"]) == 8, "kernel A runs 4 times a frame")
@@ -1235,13 +1271,14 @@ def retime_a_to_i(ctx, frames, settings):
     _, a_bound = check_keys(ki, "kernel A (opaque main stream)", "T")
     time_keys(ctx, ki, a_bound)
     check_and_time_b(ctx, mv, main.pairs, main.pair_edges, main.pair_attrs)
-    check_and_time_c(ctx, frames[0], main.gbuf, main.vis)
+    check_and_time_c(ctx, scene, main.gbuf, main.vis)
     targs = rec["sample_materials"][0]
-    check_and_time_d(ctx, frames[0], targs, texture_kwargs(settings))
+    check_and_time_d(ctx, scene, targs, texture_kwargs(settings))
     atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
     ki2, _, atlas_bound = atlas_keys(atlas, settings,
                                      "kernel A (atlas, opaque casters)")
-    time_keys(ctx, atlas_ki=ki2, atlas_bound=atlas_bound)
+    if atlas_time:
+        time_keys(ctx, atlas_ki=ki2, atlas_bound=atlas_bound)
     check_and_time_e(ctx, atlas, settings.shadows.cascade_count)
     check_and_time_f(ctx, atlas, rec["shadow_resolve"][0], settings,
                      targs[3])
@@ -1249,7 +1286,6 @@ def retime_a_to_i(ctx, frames, settings):
     check_and_time_h(ctx, rec["resample_packed_planes"][1])
     check_and_time_i(ctx, rec["history_coords"][1],
                      rec["resample_history_taps"][1][0])
-    return rec
 
 
 def main_opaque_stream(mv):
@@ -1363,18 +1399,17 @@ def check_j(atlas, settings, what):
     return depth_j, init, j_args
 
 
-def slice5_kernels(ctx, frames, settings) -> dict:
-    """Kernels A-I again on this row's frame inputs (retime_a_to_i), then
-    kernels J, K and L on frame 0's alpha streams (the atlas's and the
-    main view's, recomputed from the recorded inputs of the frame's own
-    calls), the alpha test's work, kernel M in a phase of its own on the
-    frame's main-view setup, and the small banner scene card vs CPU."""
-    print(f"slice 5 settings: default RenderSettings(); pair_budget_scale "
-          f"{ctx.scale}", flush=True)
-    rec = retime_a_to_i(ctx, frames, settings)
+def check_and_time_jkl(ctx, rec, settings, what: str = "") -> dict:
+    """Kernels J, K and L on recorded frame 0's alpha streams (the
+    atlas's and the main view's, recomputed from the recorded inputs of
+    the frame's own calls): J exact and equal to the frame's atlas
+    (check_j), K's depth and vis exact, L by check_and_time_l; the alpha
+    test's work; J and K timed with bounds from this run's inputs.
+    Returns the stats, and the main view's setup and raster under "mv"
+    and "main"."""
     atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
     a = atlas.alpha
-    depth_j, init, j_args = check_j(atlas, settings, "kernel J")
+    depth_j, init, j_args = check_j(atlas, settings, f"kernel J{what}")
     uncut_j = raster.depth_plain(*j_args, init=init)
     raised = int((depth_j > init).sum())
     rejected_j = int((uncut_j > depth_j).sum())
@@ -1382,28 +1417,27 @@ def slice5_kernels(ctx, frames, settings) -> dict:
     # raised)
     passing = int((raster.depth_plain(*j_args, masks=a.masks) > 0).sum())
     a_pairs = int(a.pairs.tile_count.sum())
-    print(f"kernel J: {a_pairs} alpha caster pairs in {a.n_bins_y} x "
+    print(f"kernel J{what}: {a_pairs} alpha caster pairs in {a.n_bins_y} x "
           f"{atlas.n_bins_x} bins of {a.sub * 16} rows; atlas equal; "
           f"{passing} texels covered by a passing caster, {raised} raised "
           f"over the opaque atlas, {rejected_j} where the masks rejected "
           "every covering caster", flush=True)
-    check(raised > 0 and rejected_j > 0, "the alpha casters write and cut")
     del uncut_j
     j_counts = stream_counts(a.edges, a.pairs, atlas.n_bins_x, a.sub,
                              row_skip=False, z=False)
-    print(f"kernel J's stream: {j_counts}", flush=True)
+    print(f"kernel J's stream{what}: {j_counts}", flush=True)
 
     mv = rec["raster_main_view"][0][0]
     main = frame.raster_main_view(mv)
-    check(int(main.overflow) == 0, "no main-view pairs dropped")
-    pa, pe_a, pa_a = main.alpha_pairs, main.alpha_edges, main.alpha_attrs
+    check(int(main.overflow) == 0, f"no main-view pairs dropped{what}")
+    pa, pe_a = main.alpha_pairs, main.alpha_edges
     k_args = (pe_a, pa.tile_start, pa.tile_count, mv.alpha_masks,
               mv.n_tiles_y, mv.n_tiles_x, mv.sub, True)
     depth_k, vis_k = raster.rasterize_winner_alpha(
         pe_a, pa, mv.alpha_masks, mv.n_tiles_y, mv.n_tiles_x, mv.sub, True)
     depth_kp, vis_kp = raster.winner_alpha_plain(*k_args)
     check(torch.equal(depth_k, depth_kp) and torch.equal(vis_k, vis_kp),
-          "kernel K depth and vis equal the plain version")
+          f"kernel K{what} depth and vis equal the plain version")
     # the alpha test's work: pixels the alpha stream's edges (and z) cover,
     # and those where the masks reject every covering pair
     # (a mask of all ones passes every pair: the edges and z alone)
@@ -1414,18 +1448,14 @@ def slice5_kernels(ctx, frames, settings) -> dict:
     # pixels of the merged frame at the alpha stream's depth (it won, or
     # tied and the opaque stream won)
     alpha_wins = int(((depth_k > 0) & (main.depth == depth_k)).sum())
-    print(f"kernel K: {int(pa.tile_count.sum())} alpha pairs; depth and "
-          f"vis equal; the alpha stream's edges cover {edge_px} pixels, "
+    print(f"kernel K{what}: {int(pa.tile_count.sum())} alpha pairs; depth "
+          f"and vis equal; the alpha stream's edges cover {edge_px} pixels, "
           f"the masks reject {rejected} of them; {alpha_wins} pixels of "
           "the merged frame at the alpha stream's depth", flush=True)
-    check(edge_px > 0 and rejected > 0, "the alpha test does work")
     k_counts = stream_counts(pe_a, pa, mv.n_tiles_x, mv.sub, row_skip=True,
                              z=True)
-    print(f"kernel K's stream: {k_counts}", flush=True)
+    print(f"kernel K's stream{what}: {k_counts}", flush=True)
     err_l, winners = check_and_time_l(ctx, mv, main, vis_k)
-
-    m_found = check_and_time_m(ctx, mv, main)
-    ctx.extra["m_launches"] = m_found["launches"]["expand_rows"]
 
     # times and bounds from this run's inputs, counting what the data
     # needs: J and K the rows of each live pair that their kernels stage,
@@ -1445,7 +1475,8 @@ def slice5_kernels(ctx, frames, settings) -> dict:
         alpha_masks=a.masks, init_depth=merged), 20,
         lambda: raster.depth_plain(*j_args, masks=a.masks, init=init), 2,
         (j_bytes / HBM_BYTES_PER_S, j_ops / FP32_OPS_PER_S), 0.0)
-    check(torch.equal(merged, depth_j), "kernel J's timed merges are stable")
+    check(torch.equal(merged, depth_j),
+          f"kernel J{what}'s timed merges are stable")
     del init, merged, depth_j
     n_pix = vis_k.numel()
     k_pairs = int(pa.tile_count.sum())
@@ -1456,10 +1487,7 @@ def slice5_kernels(ctx, frames, settings) -> dict:
         pe_a, pa, mv.alpha_masks, mv.n_tiles_y, mv.n_tiles_x, mv.sub, True),
         20, lambda: raster.winner_alpha_plain(*k_args), 2,
         (k_bytes / HBM_BYTES_PER_S, 16 * k_eval / FP32_OPS_PER_S), 0.0)
-    small = small_card_vs_cpu(ctx, 2, "small banner scene (slice 2 "
-                              "settings)", textured=True, banners=True)
-    return dict(pair_budget_scale=ctx.scale, **ctx.extra["sdf_bench"],
-                atlas_alpha_pairs=a_pairs, atlas_alpha_bins=[
+    return dict(atlas_alpha_pairs=a_pairs, atlas_alpha_bins=[
                     a.n_bins_y, atlas.n_bins_x], atlas_texels_raised=raised,
                 atlas_texels_rejected=rejected_j,
                 atlas_texels_passing=passing, atlas_alpha_stream=j_counts,
@@ -1469,8 +1497,31 @@ def slice5_kernels(ctx, frames, settings) -> dict:
                 main_alpha_rejected_pixels=rejected,
                 main_alpha_winning_pixels=alpha_wins,
                 main_alpha_evaluated_pair_pixels=k_eval,
-                carry_table=m_found,
-                small_banners_close=small)
+                attr_resolve_err=err_l, mv=mv, main=main)
+
+
+def slice5_kernels(ctx, frames, settings) -> dict:
+    """Kernels A-I again on this row's frame inputs (retime_a_to_i), then
+    kernels J, K and L on frame 0's alpha streams (check_and_time_jkl),
+    the alpha test's work, kernel M in a phase of its own on the frame's
+    main-view setup, and the small banner scene card vs CPU."""
+    print(f"slice 5 settings: default RenderSettings(); pair_budget_scale "
+          f"{ctx.scale}", flush=True)
+    rec = retime_a_to_i(ctx, frames, settings)
+    found = check_and_time_jkl(ctx, rec, settings)
+    mv, main = found.pop("mv"), found.pop("main")
+    check(found["atlas_texels_raised"] > 0
+          and found["atlas_texels_rejected"] > 0,
+          "the alpha casters write and cut")
+    check(found["main_alpha_edge_pixels"] > 0
+          and found["main_alpha_rejected_pixels"] > 0,
+          "the alpha test does work")
+    m_found = check_and_time_m(ctx, mv, main)
+    ctx.extra["m_launches"] = m_found["launches"]["expand_rows"]
+    small = small_card_vs_cpu(ctx, 2, "small banner scene (slice 2 "
+                              "settings)", textured=True, banners=True)
+    return dict(pair_budget_scale=ctx.scale, **ctx.extra["sdf_bench"],
+                **found, carry_table=m_found, small_banners_close=small)
 
 
 def box_objects(atrium: dict) -> tuple:
@@ -1705,17 +1756,20 @@ def slice4_after(ctx, frames, settings, run) -> dict:
                 **profile_frames(ctx, frames, settings, run, "slice 4"))
 
 
-def profile_frames(ctx, frames, settings, run, what: str) -> dict:
-    """2 more frames under torch.profiler: device busy share and kernels
-    per frame (the profiler's own host cost is in the window, so the share
-    is a lower bound). Device kernels are the events with device time; the
-    others are the host's CUDA runtime calls (a cudaLaunchKernel per
-    kernel), counted apart."""
+def profile_frames(ctx, frames, settings, run, what: str,
+                   step=None) -> dict:
+    """2 more frames under torch.profiler (one more frame from the run's
+    last state, or step()): device busy share and kernels per frame (the
+    profiler's own host cost is in the window, so the share is a lower
+    bound). Device kernels are the events with device time; the others
+    are the host's CUDA runtime calls (a cudaLaunchKernel per kernel),
+    counted apart."""
+    step = step or (lambda: _one_frame(ctx, frames, run, settings))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
-            _one_frame(ctx, frames, run, settings)
+            step()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     by_kernel = sorted(
@@ -1843,6 +1897,334 @@ def slice5_after(ctx, frames, settings, run) -> dict:
     return found
 
 
+# ---------------------------- the runtime ----------------------------
+
+# the committed real-asset demo (assets/demo): its texture and SDF paths
+# are relative to the repository root
+COURTYARD = "assets/demo/courtyard.plain"
+RUNTIME_WARMUP, RUNTIME_TIMED = 3, 8
+RUNTIME_OUT = "chiprun_out/runtime"
+FORBIDDEN = ("jax", "jaxlib", "plainrenderer_tpu")
+
+
+def runtime_app(device, width, height, demo=False):
+    """The port's App on the courtyard. At 1920x1080: the settings, camera
+    and SDF cap that runtime/app.main() builds from its default flags (the
+    default RenderSettings() with GI on, pair_budget_scale 1.0, escalation
+    on). demo: tests/test_demo_asset.py's settings and camera at
+    width x height, with a fixed delta time."""
+    from plainrenderer_tpu_torch.runtime.app import App
+
+    if demo:
+        settings = config.RenderSettings(
+            width=width, height=height,
+            sdf_trace=config.SDFTraceSettings(enabled=True, trace_steps=8),
+            volumetrics=config.VolumetricsSettings(enabled=False),
+            shadows=config.ShadowSettings(resolution=512),
+            exposure_adaption_speed=1000.0)
+    else:
+        settings = config.RenderSettings(
+            width=width, height=height,
+            sdf_trace=config.SDFTraceSettings(enabled=True))
+    app = App(settings, COURTYARD, with_gi=True, sdf_resolution_cap=32,
+              device=device)
+    if demo:
+        lo = app.scene["object_bb_min"].cpu().numpy().min(0)
+        hi = app.scene["object_bb_max"].cpu().numpy().max(0)
+        center = (lo + hi) * 0.5
+        app.camera.position = np.asarray(
+            [lo[0] - 0.6 * (hi[0] - lo[0]), center[1], center[2]],
+            np.float32)
+        app.camera.yaw, app.camera.pitch = 0.0, 0.0
+        app.timer = types.SimpleNamespace(mark_new_frame=lambda: None,
+                                          delta_time=1.0 / 60.0)
+    else:  # main()'s --cam, --yaw and --pitch defaults
+        app.camera.position = np.asarray([-9.0, -1.8, 0.0], np.float32)
+        app.camera.yaw, app.camera.pitch = 10.0, 8.0
+    return app
+
+
+def orbit_input(app):
+    """main()'s orbit: mouse-look of --orbit-speed 20 x the last frame's
+    delta time (app.py:395)."""
+    from plainrenderer_tpu_torch.runtime.shell import InputState
+
+    return InputState(right_mouse_down=True,
+                      mouse_movement=(20.0 * app.timer.delta_time, 0.0))
+
+
+def debug_view_settings(base):
+    """The three debug views as settings: the AABB wireframes, the
+    cascade tint and SDF visualisation modes 1-4."""
+    views = {"draw_bounding_boxes": dataclasses.replace(
+                 base, draw_bounding_boxes=True),
+             "shadows.debug_cascade_colors": dataclasses.replace(
+                 base, shadows=dataclasses.replace(
+                     base.shadows, debug_cascade_colors=True))}
+    for mode in (1, 2, 3, 4):
+        views[f"sdf_debug.visualisation_mode={mode}"] = dataclasses.replace(
+            base, sdf_debug=config.SDFDebugSettings(mode))
+    return views
+
+
+def fresh_frame(app, settings):
+    """One frame of settings from a fresh state with the app's scene, LUTs
+    and current camera (app.state is left alone); the u8 image on the
+    host."""
+    from plainrenderer_tpu_torch.runtime.shell import InputState
+
+    cam = app._camera(app.camera.update(InputState(), 0.0))
+    state = initial_state(settings.width, settings.height,
+                          gi_half_res=settings.sdf_trace.half_resolution,
+                          device=app.device)
+    return frame.render_frame(state, app.scene, cam, app.luts, 1.0 / 60.0,
+                              settings, device=app.device)[0].cpu().numpy()
+
+
+def courtyard_textures_reach_the_pool(app) -> int:
+    """Every mesh's albedo, normal and specular file loads with the port's
+    own readers, and every object samples a pool texture."""
+    from plainrenderer_tpu_torch.assets.plain_format import \
+        load_binary_scene
+
+    meshes = load_binary_scene(COURTYARD).meshes
+    for i, mesh in enumerate(meshes):
+        images = scenebuild._load_texture_images(mesh.texture_paths)
+        for slot in ("albedo", "normal", "specular"):
+            check(getattr(images, slot) is not None,
+                  f"courtyard mesh {i}: its {slot} texture "
+                  f"({getattr(mesh.texture_paths, slot)!r}) loads")
+    check(bool((app.scene["mat_tex"] >= 0).all()),
+          "every courtyard object samples a pool texture")
+    return 3 * len(meshes)
+
+
+def courtyard_kernels(ctx, rec, app) -> dict:
+    """Kernels A-L against their plain versions on the courtyard frame's
+    own intermediates (frames 0 and 1 of the App's run, recorded on their
+    way into the kernels): A-I by check_a_to_i, J, K and L by
+    check_and_time_jkl. Their times are kept as the kernels' "courtyard"
+    variant."""
+    ctx.tag, ctx.path = "courtyard", "runtime (courtyard, App.run_frame)"
+    try:
+        check_a_to_i(ctx, rec, app.scene, app.settings, atlas_time=False)
+        found = check_and_time_jkl(ctx, rec, app.settings, " (courtyard)")
+        del found["mv"], found["main"]
+        print(f"courtyard: kernels A-L equal their plain versions on the "
+              f"frame's inputs ({found['main_alpha_pairs']} alpha pairs in "
+              f"the main view, {found['atlas_alpha_pairs']} alpha caster "
+              "pairs in the atlas)", flush=True)
+        return found
+    finally:
+        ctx.tag = None
+
+
+def timed_runtime_frames(app, n: int) -> dict:
+    """n timed App.run_frame calls with main()'s orbit input, each step
+    timed on its own: run_frame (CUDA events around it and the host wall
+    clock; it ends in the escalation check's fetch of debug_counters), the
+    image's copy to the host, burn_stats and save_image of the 1080p PNG;
+    and the host syncs run_frame makes (torch.cuda's sync debug mode)."""
+    from plainrenderer_tpu_torch.assets.image_io import save_image
+    from plainrenderer_tpu_torch.runtime.overlay import burn_stats
+
+    steps = collections.defaultdict(list)
+    syncs, image = [], None
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    png = OUT / "runtime_frame.png"
+    for _ in range(n):
+        inputs = orbit_input(app)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            start.record()
+            image = app.run_frame(inputs)
+            end.record()
+            t1 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("default")
+        end.synchronize()
+        syncs.append(sum("called a synchronizing CUDA operation"
+                         in str(w.message) for w in caught))
+        steps["run_frame_events_ms"].append(start.elapsed_time(end))
+        steps["run_frame_host_ms"].append((t1 - t0) * 1e3)
+        t0 = time.perf_counter()
+        host = image.cpu().numpy()
+        t1 = time.perf_counter()
+        stats = [f"{1e3 / steps['run_frame_host_ms'][-1]:6.1f} FPS  "
+                 f"{steps['run_frame_host_ms'][-1]:7.2f} MS",
+                 f"{app.settings.width}X{app.settings.height}  GI:ON"]
+        framed = burn_stats(host, stats, scale=2)
+        t2 = time.perf_counter()
+        save_image(png, framed)
+        t3 = time.perf_counter()
+        steps["copy_to_host_ms"].append((t1 - t0) * 1e3)
+        steps["burn_stats_ms"].append((t2 - t1) * 1e3)
+        steps["save_png_ms"].append((t3 - t2) * 1e3)
+    summary = {k: dict(mean=float(np.mean(v)), min=float(np.min(v)),
+                       max=float(np.max(v))) for k, v in steps.items()}
+    return dict(steps=summary, host_syncs_per_run_frame=syncs, image=image,
+                png_bytes=png.stat().st_size)
+
+
+def runtime_cli() -> dict:
+    """The app's command line as a user runs it, in a subprocess: 8
+    frames at WIDTH x HEIGHT of the courtyard into RUNTIME_OUT, read back with
+    the port's PNG reader; then one more frame in a second subprocess that
+    lists the modules it imported (no jax, nothing of the JAX
+    package)."""
+    import shutil
+
+    from plainrenderer_tpu_torch.assets.image_io import load_image
+
+    out = ROOT / RUNTIME_OUT
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "plainrenderer_tpu_torch.runtime.app",
+           str(WIDTH), str(HEIGHT), COURTYARD, "--frames", "8", "--out",
+           RUNTIME_OUT]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    cli_s = time.perf_counter() - t0
+    print(f"runtime command line ({' '.join(cmd[1:])}): exit "
+          f"{proc.returncode} in {cli_s:.1f} s; stderr tail: "
+          f"{proc.stderr.strip().splitlines()[-3:]}", flush=True)
+    check(proc.returncode == 0, "the runtime command line exits 0")
+    pngs = sorted(out.glob("frame_*.png"))
+    check([p.name for p in pngs] == [f"frame_{i:04d}.png" for i in range(8)],
+          f"the command line wrote 8 PNGs: {[p.name for p in pngs]}")
+    for p in pngs:
+        img = load_image(p)
+        check(img.shape == (HEIGHT, WIDTH, 4) and img.dtype == np.uint8
+              and img[..., :3].std() > 5.0, f"{p.name} reads back")
+    png_bytes = [p.stat().st_size for p in pngs]
+    code = (
+        "import json, runpy, sys\n"
+        "sys.argv = ['app', %r, %r, %r, '--frames', '1', '--out', %r]\n"
+        "runpy.run_module('plainrenderer_tpu_torch.runtime.app',"
+        " run_name='__main__')\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+        % (str(WIDTH), str(HEIGHT), COURTYARD, RUNTIME_OUT + "/imports"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"the import probe runs: {proc.stderr[-500:]}")
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if any(m == f or m.startswith(f + ".")
+                                    for f in FORBIDDEN)]
+    print(f"runtime command line imports: {len(loaded)} modules, of JAX or "
+          f"the JAX package: {bad}", flush=True)
+    check(not bad, f"the app imports no jax: {bad}")
+    shutil.rmtree(out / "imports", ignore_errors=True)
+    return dict(command=" ".join(cmd[1:]), seconds=cli_s,
+                png_bytes=png_bytes, forbidden_imports=bad)
+
+
+def runtime_phase(ctx) -> dict:
+    """The runtime on the committed courtyard demo (assets/demo): the
+    port's App at 1920x1080 with main()'s settings (3 DDS volumes read,
+    none baked, the ivy's alpha masks, every texture in the pool); kernels
+    A-L held to their plain versions on its frames 0 and 1; 3 warm-up
+    and RUNTIME_TIMED timed run_frames with the launch counts reset just
+    before the timed ones and read just after, each step timed; the debug
+    views at 1080p; a small App frame and each debug view card vs CPU at
+    256x128; the command line in subprocesses."""
+    t0 = time.perf_counter()
+    app = runtime_app(ctx.dev, WIDTH, HEIGHT)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check((app.sdf_loaded, app.sdf_baked) == (3, 0),
+          f"the courtyard's 3 DDS volumes read, none baked: "
+          f"{app.sdf_loaded}, {app.sdf_baked}")
+    check("alpha_masks" in app.scene, "the ivy's alpha masks are built")
+    n_tex = courtyard_textures_reach_the_pool(app)
+    print(f"runtime: App on {COURTYARD} at {WIDTH}x{HEIGHT} in {load_s:.2f} "
+          f"s (3 DDS volumes, {n_tex} textures, alpha masks); settings: "
+          f"GI {app.settings.sdf_trace.enabled}, pair_budget_scale "
+          f"{app.settings.pair_budget_scale}", flush=True)
+    with recorded_calls(A_TO_I_CALLS) as rec:
+        for _ in range(2):
+            app.run_frame(orbit_input(app))
+    found = dict(load_s=load_s, kernels=courtyard_kernels(ctx, rec, app))
+    del rec
+    for _ in range(RUNTIME_WARMUP - 2):
+        app.run_frame(orbit_input(app))
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    run = timed_runtime_frames(app, RUNTIME_TIMED)
+    torch.cuda.synchronize()
+    launches = native.launch_counts()
+    n = RUNTIME_TIMED
+    print(f"runtime: launches over {n} timed run_frames: {launches}; host "
+          f"syncs per run_frame {run['host_syncs_per_run_frame']}",
+          flush=True)
+    for name, k in _BENCH.items():
+        check(launches[name] >= k * n,
+              f"runtime: kernel {name} launched {k}x per frame")
+    for name in set(KERNEL_SOURCES) - set(_BENCH):
+        check(launches[name] == 0, f"runtime runs no {name} kernel")
+    check(all(s == 1 for s in run["host_syncs_per_run_frame"]),
+          "run_frame syncs once: the escalation check's debug_counters")
+    counters = app.state.debug_counters.cpu().numpy()
+    image = run.pop("image")
+    mean, std = float(image.float().mean()), float(image.float().std())
+    print(f"runtime: final pair_budget_scale "
+          f"{app.settings.pair_budget_scale:g}, debug_counters "
+          f"{counters.tolist()}; image {tuple(image.shape)} mean {mean:.2f} "
+          f"std {std:.2f}", flush=True)
+    check((counters == 0).all(), "runtime: debug_counters [0, 0]")
+    check(tuple(image.shape) == (HEIGHT, WIDTH, 3) and 2 < mean < 253
+          and std > 5, "runtime: a plausible image")
+    steps = run["steps"]
+    print("runtime steps (ms per frame, mean/min/max over "
+          f"{n}): " + json.dumps(steps), flush=True)
+    found.update(run, launches=launches, frames=n,
+                 pair_budget_scale=app.settings.pair_budget_scale,
+                 image_mean=mean, image_std=std,
+                 **profile_frames(ctx, None, None, None, "runtime",
+                                  lambda: app.run_frame(orbit_input(app))))
+
+    # the debug views at 1080p: each changes the frame
+    base = fresh_frame(app, app.settings)
+    views = {}
+    for name, settings in debug_view_settings(app.settings).items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = fresh_frame(app, settings)
+        ms = (time.perf_counter() - t0) * 1e3
+        share = float((img != base).any(axis=-1).mean())
+        views[name] = dict(frame_host_ms=ms, pixels_changed=share)
+        check(share > 0.0, f"the {name} view changes the 1080p frame")
+    print("runtime debug views at 1080p (one frame from a fresh state, "
+          "host ms with the copy; share of pixels changed): "
+          + json.dumps(views), flush=True)
+    found["debug_views_1080p"] = views
+    del app, base
+    torch.cuda.empty_cache()
+
+    # card vs CPU at 256x128: two App frames, then each debug view
+    small = [runtime_app(d, 256, 128, demo=True) for d in (ctx.dev, "cpu")]
+    for i in range(2):
+        card, cpu = (a.run_frame().cpu().numpy() for a in small)
+    close = golden_close(card, cpu)
+    check(close > 0.999, f"small courtyard App card vs CPU: {close:.5f}")
+    small_views = {}
+    plain = [fresh_frame(a, a.settings) for a in small]
+    for name, settings in debug_view_settings(small[0].settings).items():
+        card, cpu = (fresh_frame(a, settings) for a in small)
+        small_views[name] = golden_close(card, cpu)
+        check(small_views[name] > 0.999 and (card != plain[0]).any(),
+              f"{name} at 256x128: card vs CPU {small_views[name]:.5f}, "
+              "and it changes the image")
+    print(f"runtime at 256x128 (tests/test_demo_asset.py's settings): App "
+          f"frames card vs CPU {close:.5f}; debug views card vs CPU "
+          + json.dumps(small_views) + " (limit > 0.999)", flush=True)
+    found.update(small_card_vs_cpu=close, small_debug_views=small_views)
+    del small
+    found["command_line"] = runtime_cli()
+    return found
+
+
 # one slice of the port: its settings, scene, frames, the kernels it
 # launches per frame (the others must stay at 0), the comparisons of its
 # new kernels, the checks after its main-path run and the kernels whose
@@ -1946,6 +2328,10 @@ def main() -> int:
         if row.scene == "untextured":
             del ctx.scenes["untextured"]
         torch.cuda.empty_cache()
+    ctx.path = "runtime (courtyard)"
+    ctx.report["runtime"] = runtime_phase(ctx)
+    runtime_launches = ctx.report["runtime"]["launches"]
+
     def launched(name, variant=None):
         """The launches of the last row whose frames run this branch."""
         rows = [r.n for r in SLICES if r.branches.get(name) == variant]
@@ -1960,9 +2346,18 @@ def main() -> int:
             "source": "plainrenderer_tpu_torch/csrc/" + source,
             "replaces": "plainrenderer_tpu/ops/" + replaces,
             **launched(name), **ctx.results[name]}
+        # the runtime's courtyard run (App.run_frame, RUNTIME_TIMED frames)
+        entry["launches_on"] += (f"; App.run_frame on the courtyard: "
+                                 f"{runtime_launches[name]} over "
+                                 f"{RUNTIME_TIMED} frames")
+        entry["courtyard_launches"] = runtime_launches[name]
         if name in ctx.variants:  # other branches of the same kernel
             entry["variants"] = [dict(variant=v, **launched(name, v), **r)
                                  for v, r in ctx.variants[name].items()]
+            for v in entry["variants"]:
+                if v["variant"] == "courtyard":
+                    v.update(launches=runtime_launches[name],
+                             launches_on="App.run_frame on the courtyard")
         if name in ctx.earlier:  # its times on earlier rows' inputs
             entry["earlier"] = ctx.earlier[name]
         if name == "expand_keys":  # its second use: the atlas's keys

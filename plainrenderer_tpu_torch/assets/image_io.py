@@ -1,0 +1,336 @@
+"""Texture image IO without PIL or imageio (plainrenderer_tpu/assets/
+image_io.py).
+
+The JAX package reads images through PIL and imageio (the reference's stb
+loader, Plain/src/Common/ImageIO.cpp:17-116); the card's machine has
+neither, so the port carries its own readers on the standard library:
+
+  - PNG: chunks and CRCs with `struct` and `zlib`, the five scanline
+    filters in numpy (undone along anti-diagonals, so Average and Paeth
+    rows need no per-pixel Python loop), colour types 0, 2, 3, 4 and 6 at
+    every bit depth the format allows, Adam7 interlacing. The result is
+    (H, W, 4) u8 as PIL's ``Image.convert("RGBA")`` gives it: 16-bit
+    samples keep their high byte (16-bit grey clips to 255), grey and
+    palette expand to RGBA, and a tRNS chunk gives alpha as PIL applies it
+    (tests/test_torch_assets.py holds every case bit for bit to PIL);
+  - Radiance RGBE (.hdr): new-style run-length or flat scanlines (the
+    first scanline decides, as in stb), as (H, W, 4) f32 with alpha 1;
+  - DDS rgba8 textures through assets/dds.py.
+
+Any other format raises ValueError naming it. save_image writes (H, W, 3|4)
+u8 as an 8-bit RGB or RGBA PNG.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+from . import dds
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> samples per pixel, and the bit depths the format allows
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# magic bytes of formats the port does not read, for the error message
+_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"),
+                  (b"BM", "BMP"), (b"RIFF", "WebP"), (b"II*\x00", "TIFF"),
+                  (b"MM\x00*", "TIFF"))
+
+
+def load_image(path: str | Path) -> np.ndarray:
+    """Load an image as (H, W, 4): u8 for PNG and DDS rgba8, f32 for .hdr
+    (image_io.py:16-41). Raises ValueError for a format the port does not
+    read, or for a malformed file."""
+    path = Path(path)
+    suffix = path.suffix.lower()
+    if suffix == ".dds":
+        img = dds.read_dds(path)
+        if img.format != "rgba8":
+            raise ValueError(f"only rgba8 DDS supported as 2D texture: {path}")
+        arr = np.frombuffer(img.data, np.uint8)
+        return arr[: img.height * img.width * 4].reshape(img.height, img.width, 4).copy()
+    data = path.read_bytes()
+    if suffix == ".hdr":
+        return read_hdr(data, str(path))
+    if data.startswith(PNG_SIGNATURE):
+        return decode_png(data, str(path))
+    name = next((n for magic, n in _OTHER_FORMATS if data.startswith(magic)),
+                f"{suffix or 'unknown'!r}")
+    raise ValueError(f"image format {name} is not read by the port "
+                     f"(PNG, Radiance .hdr and rgba8 DDS are): {path}")
+
+
+def save_image(path: str | Path, image: np.ndarray) -> None:
+    """Save (H, W, 3|4) u8 as an 8-bit RGB or RGBA PNG (screenshots, debug
+    output)."""
+    Path(path).write_bytes(encode_png(image))
+
+
+# ------------------------------- PNG ---------------------------------
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """(H, W, 3|4) u8 -> PNG bytes: every row with the Up filter, one
+    zlib stream."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError(f"save_image takes (H, W, 3|4) uint8, got "
+                         f"{img.dtype} {img.shape}")
+    h, w, c = img.shape
+    rows = img.reshape(h, w * c)
+    up = np.empty((h, w * c + 1), np.uint8)
+    up[:, 0] = 2
+    up[0, 1:] = rows[0]
+    up[1:, 1:] = rows[1:] - rows[:-1]  # u8 wraps: the Up filter
+    header = struct.pack(">IIBBBBB", w, h, 8, 6 if c == 4 else 2, 0, 0, 0)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(up.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def _png_chunks(data: bytes, where: str):
+    """(type, body) of every chunk up to IEND, CRCs checked."""
+    pos = len(PNG_SIGNATURE)
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError(f"PNG ends before IEND: {where}")
+        length, kind = struct.unpack_from(">I4s", data, pos)
+        body = data[pos + 8:pos + 8 + length]
+        if len(body) != length or pos + 12 + length > len(data):
+            raise ValueError(f"PNG chunk {kind!r} truncated: {where}")
+        (crc,) = struct.unpack_from(">I", data, pos + 8 + length)
+        if zlib.crc32(kind + body) != crc:
+            raise ValueError(f"PNG chunk {kind!r} fails its CRC: {where}")
+        pos += 12 + length
+        yield kind, body
+        if kind == b"IEND":
+            return
+
+
+def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the scanline filters of (h, 1 + stride) filtered rows (filter
+    type first) with bpp bytes per complete pixel (1 below 8 bits).
+
+    Filters predict a byte from its left (a), upper (b) and upper-left (c)
+    neighbours, bpp bytes apart. A pixel therefore depends only on pixels
+    of earlier anti-diagonals (row + pixel column), so each anti-diagonal
+    is one vector step: the image is sheared so that diagonal d is column
+    d of `s` (s[1 + y, 2 + y + p] holds pixel (y, p); row 0 and the
+    columns left of each row stay 0, the neighbours outside the image)."""
+    h = rows.shape[0]
+    ftype = rows[:, 0]
+    if ftype.size and int(ftype.max()) > 4:
+        raise ValueError(f"PNG filter type {int(ftype.max())} is not one of "
+                         "the five")
+    n = (rows.shape[1] - 1) // bpp
+    raw = rows[:, 1:].reshape(h, n, bpp).astype(np.int16)
+    if not ftype.any():
+        return raw.astype(np.uint8).reshape(h, n * bpp)
+    ys = np.arange(h)[:, None]
+    cols = ys + np.arange(n)[None, :] + 2
+    sraw = np.zeros((h, h + n + 1, bpp), np.int16)
+    sraw[ys, cols - 1] = raw
+    s = np.zeros((h + 1, h + n + 1, bpp), np.int16)
+    f = ftype[:, None].astype(np.int16)
+    for d in range(h + n - 1):
+        y0, y1 = max(0, d - n + 1), min(h - 1, d)
+        a = s[y0 + 1:y1 + 2, d + 1]
+        b = s[y0:y1 + 1, d + 1]
+        c = s[y0:y1 + 1, d]
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        fd = f[y0:y1 + 1]
+        pred = np.where(fd == 1, a, np.where(fd == 2, b, np.where(
+            fd == 3, (a + b) >> 1, np.where(fd == 4, paeth, 0))))
+        s[y0 + 1:y1 + 2, d + 2] = (sraw[y0:y1 + 1, d + 1] + pred) & 0xFF
+    return s[ys + 1, cols].astype(np.uint8).reshape(h, n * bpp)
+
+
+def _unpack_samples(rows: np.ndarray, width: int, channels: int,
+                    depth: int) -> np.ndarray:
+    """Unfiltered rows -> (h, width, channels) integer samples."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2")[:, :width * channels].astype(
+            np.uint16).reshape(h, width, channels)
+    if depth == 8:
+        return rows[:, :width * channels].reshape(h, width, channels)
+    bits = np.unpackbits(rows, axis=1)[:, :width * channels * depth]
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    vals = (bits.reshape(h, -1, depth) * weights).sum(axis=2)
+    return vals.astype(np.uint8).reshape(h, width, channels)
+
+
+def decode_png(data: bytes, where: str = "<bytes>") -> np.ndarray:
+    """PNG bytes -> (H, W, 4) u8, as PIL's convert("RGBA") gives them."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError(f"not a PNG: {where}")
+    header = palette = trns = None
+    idat = []
+    for kind, body in _png_chunks(data, where):
+        if kind == b"IHDR" and len(body) == 13:
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None or not idat:
+        raise ValueError(f"PNG without IHDR or IDAT: {where}")
+    w, h, depth, ctype, comp, filt, interlace = header
+    if (ctype not in _PNG_CHANNELS or depth not in _PNG_DEPTHS[ctype]
+            or comp != 0 or filt != 0 or interlace > 1 or w == 0 or h == 0):
+        raise ValueError(f"PNG header not supported (colour type {ctype}, "
+                         f"depth {depth}, interlace {interlace}): {where}")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"palette PNG without PLTE: {where}")
+    ch = _PNG_CHANNELS[ctype]
+    bits_pp = ch * depth
+    bpp = max(1, bits_pp // 8)
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"PNG image data does not inflate ({e}): "
+                         f"{where}") from None
+    samples = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = (pw * bits_pp + 7) // 8
+        size = ph * (stride + 1)
+        if pos + size > raw.size:
+            raise ValueError(f"PNG image data truncated: {where}")
+        rows = _unfilter(raw[pos:pos + size].reshape(ph, stride + 1), bpp)
+        samples[y0::dy, x0::dx] = _unpack_samples(rows, pw, ch, depth)
+        pos += size
+    return _to_rgba(samples, ctype, depth, palette, trns)
+
+
+def _to_rgba(samples, ctype: int, depth: int, palette, trns) -> np.ndarray:
+    """Integer samples -> (H, W, 4) u8 by PIL's rules: 16-bit colour and
+    alpha keep the high byte; grey below 8 bits scales to 0-255 and 16-bit
+    grey clips at 255; a grey or RGB tRNS key is compared with the
+    converted 8-bit value (a 1-bit key, nonzero, with 255); palette
+    entries past the table are opaque black."""
+    h, w, _ = samples.shape
+    out = np.empty((h, w, 4), np.uint8)
+    if ctype == 3:
+        table = np.zeros((256, 4), np.uint8)
+        table[:, 3] = 255
+        pal = palette[:256]
+        table[:len(pal), :3] = pal
+        if trns is not None:
+            alpha = np.frombuffer(trns, np.uint8)[:256]
+            table[:len(alpha), 3] = alpha
+        return table[samples[..., 0]]
+    if ctype in (0, 4):
+        grey = samples[..., 0].astype(np.int64)
+        if depth < 8:
+            grey = grey * (255 // ((1 << depth) - 1))
+        elif depth == 16:
+            grey = grey >> 8 if ctype == 4 else np.minimum(grey, 255)
+        out[..., :3] = grey[..., None]
+        if ctype == 4:
+            a = samples[..., 1]
+            out[..., 3] = a >> 8 if depth == 16 else a
+        else:
+            out[..., 3] = 255
+            if trns is not None and len(trns) >= 2:
+                (key,) = struct.unpack(">H", trns[:2])
+                if depth == 1:
+                    key = 255 if key else 0
+                out[..., 3][grey == key] = 0
+        return out
+    rgb = samples[..., :3]
+    if depth == 16:
+        rgb = rgb >> 8
+    out[..., :3] = rgb
+    if ctype == 6:
+        a = samples[..., 3]
+        out[..., 3] = a >> 8 if depth == 16 else a
+    else:
+        out[..., 3] = 255
+        if trns is not None and len(trns) >= 6:
+            key = np.asarray(struct.unpack(">3H", trns[:6]))
+            out[..., 3][(rgb.astype(np.int64) == key).all(axis=-1)] = 0
+    return out
+
+
+# ------------------------------ Radiance -----------------------------
+
+def read_hdr(data: bytes, where: str = "<bytes>") -> np.ndarray:
+    """Radiance RGBE bytes -> (H, W, 4) f32 with alpha 1 (-Y H +X W
+    orientation), each texel rgb * 2^(e - 136), 0 where e is 0."""
+    if not (data.startswith(b"#?RADIANCE") or data.startswith(b"#?RGBE")):
+        raise ValueError(f"not a Radiance .hdr file: {where}")
+    end = data.find(b"\n\n")
+    if end < 0:
+        raise ValueError(f".hdr header not terminated: {where}")
+    header = data[:end].decode("latin-1").split("\n")
+    fmt = [ln for ln in header if ln.startswith("FORMAT=")]
+    if fmt and fmt[0] != "FORMAT=32-bit_rle_rgbe":
+        raise ValueError(f".hdr {fmt[0]} is not read by the port: {where}")
+    nl = data.index(b"\n", end + 2)
+    dims = data[end + 2:nl].decode("latin-1").split()
+    if len(dims) != 4 or dims[0] != "-Y" or dims[2] != "+X":
+        raise ValueError(f".hdr orientation {' '.join(dims)!r} is not "
+                         f"-Y H +X W: {where}")
+    h, w = int(dims[1]), int(dims[3])
+    buf = np.frombuffer(data, np.uint8, offset=nl + 1)
+    # the first scanline decides, as in stb and Radiance's rgbe.c: new-style
+    # run-length scanlines throughout, or the whole image flat
+    rle = (8 <= w < 32768 and buf.size >= 4 and buf[0] == 2 and buf[1] == 2
+           and not buf[2] & 0x80)
+    if not rle:
+        if buf.size < 4 * w * h:
+            raise ValueError(f".hdr data truncated: {where}")
+        rgbe = buf[:4 * w * h].reshape(h, w, 4)
+    else:
+        rgbe = np.empty((h, w, 4), np.uint8)
+        pos = 0
+        for y in range(h):
+            if (pos + 4 > buf.size or buf[pos] != 2 or buf[pos + 1] != 2
+                    or (int(buf[pos + 2]) << 8 | int(buf[pos + 3])) != w):
+                raise ValueError(f".hdr scanline {y} is not a run-length "
+                                 f"scanline of width {w}: {where}")
+            pos += 4
+            for c in range(4):
+                x = 0
+                while x < w:
+                    if pos >= buf.size:
+                        raise ValueError(f".hdr data truncated: {where}")
+                    count = int(buf[pos])
+                    if count > 128:  # a run of one byte
+                        count -= 128
+                        if x + count > w or pos + 1 >= buf.size:
+                            raise ValueError(f".hdr bad run: {where}")
+                        rgbe[y, x:x + count, c] = buf[pos + 1]
+                        pos += 2
+                    else:  # count literal bytes
+                        if (count == 0 or x + count > w
+                                or pos + 1 + count > buf.size):
+                            raise ValueError(f".hdr bad literal: {where}")
+                        rgbe[y, x:x + count, c] = buf[pos + 1:pos + 1 + count]
+                        pos += 1 + count
+                    x += count
+    e = rgbe[..., 3].astype(np.int32)
+    scale = np.where(e > 0, np.ldexp(np.float32(1.0), e - (128 + 8)),
+                     0.0).astype(np.float32)
+    out = np.ones((h, w, 4), np.float32)
+    out[..., :3] = rgbe[..., :3].astype(np.float32) * scale[..., None]
+    return out

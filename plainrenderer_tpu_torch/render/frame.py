@@ -16,9 +16,12 @@ moves its objects every frame: the transformed corners and bounds feed
 culling, the main view (with the previous frame's clip planes, so kernels
 B and L write the previous NDC) and the atlas; with dynamic SDF objects
 the scene SDF is recomposited each frame. shading.texture_filter 1 and 2
-turn on kernel D's trilinear and anisotropic branches. Every setting
-outside it (the TAA supersampling pre-pass, split-frame bands, debug
-views) raises NotImplementedError instead of silently skipping its pass.
+turn on kernel D's trilinear and anisotropic branches. The three debug
+views (ops/debugviz.py) draw where the JAX frame draws them: the cascade
+tint before the sky composite, the AABB wireframes over the tonemapped
+image, the SDF visualisation in place of it. Every setting outside it
+(the TAA supersampling pre-pass, split-frame bands) raises
+NotImplementedError instead of silently skipping its pass.
 render_frame runs eagerly and never synchronises with the host: every
 per-frame value stays a device tensor. A camera whose leaves lead with a
 path dimension is indexed on the device by the frame counter
@@ -42,8 +45,8 @@ from .. import native
 from ..assets.textures import MAX_MIPS
 from ..config import RenderSettings
 from ..ops import exposure as exposure_ops
-from ..ops import (bloom, hiz, post, raster, sdf_scene, sdfgi, shade, shadow,
-                   sky, taa, texture, volumetrics)
+from ..ops import (bloom, debugviz, hiz, post, raster, sdf_scene, sdfgi,
+                   shade, shadow, sky, taa, texture, volumetrics)
 from ..parallel.halo import crop_halo, halo_extend
 from ..scene.frustum import expand_object_mask, visible_objects_clipspace
 from ..utils import mathutils, noise as noise_mod
@@ -211,12 +214,7 @@ def check_slice(scene: dict, cam: dict, settings: RenderSettings) -> None:
          f"more than {shadow.MAX_CASCADES} shadow cascades"),
         (settings.taa.enabled and settings.taa.use_separate_supersampling,
          "TAA supersampling pre-pass (taa.use_separate_supersampling)"),
-        (settings.shadows.debug_cascade_colors,
-         "cascade debug colours (shadows.debug_cascade_colors)"),
         ("ndc_y_scale" in cam, "split-frame band mode (cam 'ndc_y_scale')"),
-        (settings.draw_bounding_boxes, "draw_bounding_boxes"),
-        (settings.sdf_debug.visualisation_mode != 0,
-         "SDF debug views (sdf_debug.visualisation_mode != 0)"),
     ]
     missing = [name for bad, name in unported if bad]
     if missing:
@@ -875,6 +873,17 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
         camera_position=cam["position"], indirect_y_sh=indirect_y_sh,
         indirect_cocg=indirect_cocg)
 
+    if (settings.shadows.debug_cascade_colors
+            and settings.shadows.cascade_count > 0):
+        # sunShadowCascades.inc:23-31 cascade debug tint (frame.py:919-931)
+        cascade_idx = torch.zeros((ph, pw), dtype=torch.int32, device=dev)
+        for c in range(settings.shadows.cascade_count - 1):
+            cascade_idx = cascade_idx + (
+                pixel_depth >= atlas.splits[c]).to(torch.int32)
+        hdr = debugviz.cascade_debug_tint(
+            hdr, torch.where(valid, cascade_idx, -1),
+            settings.shadows.cascade_count)
+
     # --- sky composite ---
     _mark(timer, "sky")
     tan_fov_half = math.tan(math.radians(FOV_DEG) * 0.5)
@@ -925,6 +934,20 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
     _mark(timer, "tonemap")
     time = state.frame_index.to(torch.float32) * 0.016
     image = post.tonemap_pass(hdr, time)[:height, :width]
+    if settings.draw_bounding_boxes:
+        # AABB wireframes with the jittered view-projection
+        # (frame.py:1075-1082)
+        image = debugviz.aabb_line_overlay(
+            image, scene["object_bb_min"], scene["object_bb_max"],
+            mv.view_proj, width, height)
+    if settings.sdf_debug.visualisation_mode != 0 and "sdf_volume" in scene:
+        # the SDF visualisation replaces the final image (frame.py:1084-1098)
+        dbg = debugviz.sdf_debug_image(
+            settings.sdf_debug.visualisation_mode, scene, cam, sky_lut,
+            luts["transmission"], sun_dir, sun_color, sun_strength_exposed,
+            pw, ph, tan_fov_half, width / height)
+        image = torch.clamp(torch.round(dbg[:, :height, :width] * 255.0), 0,
+                            255).permute(1, 2, 0).to(torch.uint8)
     _mark(timer, "end")
 
     new_state = dataclasses.replace(

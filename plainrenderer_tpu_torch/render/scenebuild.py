@@ -3,10 +3,11 @@
 Copy of plainrenderer_tpu/render/scenebuild.py: instances are flattened
 into UNINDEXED per-corner world-space arrays, one material per mesh becomes
 a row of a small constant table, object AABBs drive per-frame frustum
-culling, and meshes that carry texture images go into one brick pool
-(assets/textures.py). Textures named by file path need the image readers
-and raise until the asset slice; the alpha-test tables are built as data
-(render_frame refuses them until the alpha-test slice).
+culling, and meshes that carry texture images, or name texture files that
+assets/image_io.py reads, go into one brick pool (assets/textures.py) with
+the alpha-test tables of alpha-tested textures. Scenes come from the
+procedural builders (full-precision MeshData) or from .plain files
+(quantized MeshBinary, decoded by plain_format.mesh_binary_to_arrays).
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ import dataclasses
 
 import numpy as np
 
+from ..assets import plain_format
 from ..assets import textures as tex_mod
-from ..assets.plain_format import MeshData, Scene
+from ..assets.plain_format import MeshBinary, Scene, SceneBinary
 
 
 @dataclasses.dataclass
@@ -46,7 +48,13 @@ class RenderScene:
     alpha_masks: np.ndarray | None = None  # (MAX_ALPHA_MATERIALS, 128) i32
 
 
-def _mesh_arrays(mesh: MeshData) -> dict:
+def _mesh_arrays(mesh) -> dict:
+    """A mesh's planar arrays: a quantized MeshBinary decoded, any
+    full-precision mesh (MeshData, or a mesh with its fields) as is."""
+    if isinstance(mesh, MeshBinary):
+        arrays = plain_format.mesh_binary_to_arrays(mesh)
+        arrays["indices"] = arrays["indices"].astype(np.int64)
+        return arrays
     return {
         "indices": np.asarray(mesh.indices, np.int64).reshape(-1, 3),
         "positions": np.asarray(mesh.positions, np.float32),
@@ -62,15 +70,11 @@ DEFAULT_METAL = 0.0
 PAD_TRIANGLES_TO = 64
 
 
-def build_render_scene(scene: Scene) -> RenderScene:
+def build_render_scene(scene: Scene | SceneBinary) -> RenderScene:
     """Flatten a scene's objects into unindexed world-space corner arrays
     (one material per mesh, constants = mesh mean albedo, roughness 0.6,
     metal 0), padded to a multiple of 64 triangles; textured meshes fill
     the brick pool (scenebuild.py:129-165)."""
-    if not all(isinstance(m, MeshData) for m in scene.meshes):
-        raise NotImplementedError(
-            "quantized .plain meshes: the .plain loader arrives with the "
-            "courtyard slice")
     corners, uvs, normals, tangents, bitangents = [], [], [], [], []
     tri_material, tri_object = [], []
     bb_mins, bb_maxs = [], []
@@ -195,8 +199,21 @@ def build_render_scene(scene: Scene) -> RenderScene:
 
 
 def _load_texture_images(paths):
-    """Texture files named by path (scenebuild.py:205) need the image
-    readers of the asset slice."""
-    raise NotImplementedError(
-        f"texture files ({paths.albedo!r}): the image readers arrive with "
-        "the asset slice")
+    """Load a mesh's texture files (scenebuild.py:205-223). A file that
+    does not load gives no image for its slot, as in the reference."""
+    from ..assets import image_io
+
+    def load(p):
+        if not p:
+            return None
+        try:
+            img = image_io.load_image(p)
+        except (OSError, ValueError):
+            return None
+        return np.asarray(img, np.float32) / 255.0
+
+    return tex_mod.MaterialTextures(
+        albedo=load(paths.albedo),
+        normal=load(paths.normal),
+        specular=load(paths.specular),
+    )

@@ -1496,3 +1496,112 @@ def test_flight_capture_that_fails_raises(cuda, monkeypatch):
                             3, device=cuda)
     ran = _counts_since(before)
     assert ran["gbuffer"] == 1 and ran["packed_planes"] == 1
+
+
+# ------------------- the runtime on the courtyard demo ---------------------
+
+COURTYARD = "assets/demo/courtyard.plain"  # its paths are repo-relative
+REPO = __import__("pathlib").Path(__file__).resolve().parent.parent
+
+
+def _demo_settings(**kw):
+    """tests/test_demo_asset.py's settings."""
+    return config.RenderSettings(
+        width=256, height=128,
+        sdf_trace=config.SDFTraceSettings(enabled=True, trace_steps=8),
+        volumetrics=config.VolumetricsSettings(enabled=False),
+        shadows=config.ShadowSettings(resolution=512, **kw),
+        exposure_adaption_speed=1000.0)
+
+
+@functools.lru_cache(maxsize=1)
+def _courtyard_apps(device):
+    """The port's App on the courtyard on the card and on the CPU, at
+    tests/test_demo_asset.py's camera and a fixed delta time."""
+    import os
+    import types
+
+    from plainrenderer_tpu_torch.runtime.app import App
+
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        apps = [App(_demo_settings(), COURTYARD, device=d)
+                for d in (device, "cpu")]
+    finally:
+        os.chdir(cwd)
+    lo = apps[1].scene["object_bb_min"].numpy().min(0)
+    hi = apps[1].scene["object_bb_max"].numpy().max(0)
+    center = (lo + hi) * 0.5
+    for app in apps:
+        app.camera.position = np.asarray(
+            [lo[0] - 0.6 * (hi[0] - lo[0]), center[1], center[2]],
+            np.float32)
+        app.camera.yaw = 0.0
+        app.camera.pitch = 0.0
+        app.timer = types.SimpleNamespace(mark_new_frame=lambda: None,
+                                          delta_time=1.0 / 60.0)
+    return apps
+
+
+def _golden(a, b):
+    diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return float((diff <= 2).mean())
+
+
+def _one_frame(app, settings):
+    """One frame of settings from a fresh state with the app's scene,
+    LUTs and camera; app.state is left alone."""
+    from plainrenderer_tpu_torch.runtime.shell import InputState
+
+    ext = app.camera.update(InputState(), 0.0)
+    state = initial_state(settings.width, settings.height, device=app.device)
+    return frame.render_frame(state, app.scene, app._camera(ext), app.luts,
+                              1.0 / 60.0, settings,
+                              device=app.device)[0].cpu().numpy()
+
+
+def test_courtyard_app_frames_card_equals_cpu(cuda):
+    """The courtyard through the App's run_frame: the card's two frames
+    against the CPU's by the golden rule (> 99.9% of pixels within 2
+    LSB), the 3 DDS volumes read, debug_counters zero."""
+    apps = _courtyard_apps(cuda)
+    assert all((a.sdf_loaded, a.sdf_baked) == (3, 0) for a in apps)
+    assert "alpha_masks" in apps[0].scene
+    for _ in range(2):
+        card, cpu = (a.run_frame().cpu().numpy() for a in apps)
+        assert _golden(card, cpu) > 0.999, _golden(card, cpu)
+    assert not apps[0].state.debug_counters.cpu().numpy().any()
+
+
+@pytest.mark.parametrize("view", ["aabb", "cascades", "sdf1", "sdf2",
+                                  "sdf3", "sdf4"])
+def test_debug_views_card_equal_cpu(cuda, view):
+    """Each debug view on the courtyard, one frame from a fresh state:
+    card = CPU by the golden rule, and the view changes the image."""
+    apps = _courtyard_apps(cuda)
+    base = _demo_settings()
+    if view == "aabb":
+        settings = dataclasses.replace(base, draw_bounding_boxes=True)
+    elif view == "cascades":
+        settings = _demo_settings(debug_cascade_colors=True)
+    else:
+        settings = dataclasses.replace(
+            base, sdf_debug=config.SDFDebugSettings(int(view[3])))
+    card, cpu = (_one_frame(a, settings) for a in apps)
+    assert _golden(card, cpu) > 0.999, _golden(card, cpu)
+    assert (card != _one_frame(apps[0], base)).any()
+
+
+def test_precompile_variants_leave_the_state_on_the_card(cuda):
+    """precompile_variants renders each default toggle once on a copy of
+    the state: app.state keeps every bit."""
+    app = _courtyard_apps(cuda)[0]
+    app.run_frame()
+    torch.cuda.synchronize()
+    before = {f.name: getattr(app.state, f.name).clone()
+              for f in dataclasses.fields(FrameState)}
+    app.precompile_variants()
+    torch.cuda.synchronize()
+    for name, value in before.items():
+        assert torch.equal(getattr(app.state, name), value), name

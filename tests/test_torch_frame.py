@@ -361,14 +361,17 @@ def test_initial_state_and_interop_match_jax():
 
 def test_render_frame_refuses_settings_outside_the_slice():
     """The port raises instead of skipping a pass it does not render: the
-    TAA supersampling pre-pass, cascade debug colours, more than 4
-    cascades, bounding boxes and SDF debug views. TAA, bloom and froxel fog
-    run (slice 4, with the default RenderSettings():
+    TAA supersampling pre-pass and more than 4 cascades. TAA, bloom and
+    froxel fog run (slice 4, with the default RenderSettings():
     tests/test_torch_golden.py), and so does alpha-tested geometry (slice
     5, tests/test_torch_alpha_frame.py): a scene whose alpha_masks is None
     renders as the opaque scene does. Trilinear / anisotropic texture
     filtering and dynamic objects run too (slice 6,
-    tests/test_torch_texture_filter.py, tests/test_torch_dynamic.py)."""
+    tests/test_torch_texture_filter.py, tests/test_torch_dynamic.py), and
+    so do the three debug views (slice 13, tests/test_torch_debugviz.py):
+    bounding boxes and the cascade tint change the frame here, and the
+    SDF debug view leaves a scene without an SDF as it is (frame.py:1084).
+    """
     rs = tsb.build_render_scene(tproc.build_atrium_scene(
         tproc.AtriumConfig(**SMALL_ATRIUM), textured=False))
     scene = tframe.scene_to_device(rs, device="cpu")
@@ -381,10 +384,6 @@ def test_render_frame_refuses_settings_outside_the_slice():
     shadowed = shadow_settings(tcfg)
     bad = [dataclasses.replace(base, taa=tcfg.TAASettings(
                use_separate_supersampling=True)),
-           dataclasses.replace(base, draw_bounding_boxes=True),
-           dataclasses.replace(base, sdf_debug=tcfg.SDFDebugSettings(1)),
-           dataclasses.replace(shadowed, shadows=tcfg.ShadowSettings(
-               resolution=256, debug_cascade_colors=True)),
            dataclasses.replace(shadowed, shadows=tcfg.ShadowSettings(
                cascade_count=5))]
     for settings in bad:
@@ -397,6 +396,22 @@ def test_render_frame_refuses_settings_outside_the_slice():
                                   device="cpu")[0]
               for sc in (scene, dict(scene, alpha_masks=None))]
     assert torch.equal(images[0], images[1])
+    # the debug views draw (ops/debugviz.py)
+    luts = dict(luts, blue_noise=torch.zeros(4, 32, 32))  # shadow PCF's
+    shaded = tframe.render_frame(state, scene, cam, luts, 0.016, shadowed,
+                                 device="cpu")[0]
+    for plain, settings in (
+            (images[0], dataclasses.replace(base, draw_bounding_boxes=True)),
+            (shaded, dataclasses.replace(shadowed, shadows=tcfg.ShadowSettings(
+                resolution=256, debug_cascade_colors=True)))):
+        img = tframe.render_frame(state, scene, cam, luts, 0.016, settings,
+                                  device="cpu")[0]
+        assert (img != plain).any()
+    img = tframe.render_frame(state, scene, cam, luts, 0.016,
+                              dataclasses.replace(
+                                  base, sdf_debug=tcfg.SDFDebugSettings(1)),
+                              device="cpu")[0]
+    assert torch.equal(img, images[0])
 
 
 def test_entry_points_never_fall_back_to_the_cpu(monkeypatch):

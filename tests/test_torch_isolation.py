@@ -56,7 +56,11 @@ def test_importing_every_module_loads_no_jax():
     for m in ("render.frame", "ops.texture", "ops.shadow", "ops.hiz",
               "assets.textures", "assets.procedural", "render.scenebuild",
               "assets.sdf_bake", "ops.sdf_scene", "ops.sdfgi", "ops.taa",
-              "parallel.halo", "utils.sh", "utils.sampling"):
+              "parallel.halo", "utils.sh", "utils.sampling",
+              "assets.compressed", "assets.plain_format", "assets.dds",
+              "assets.image_io", "assets.gltf_import", "assets.pipeline",
+              "ops.debugviz", "runtime.shell", "runtime.overlay",
+              "runtime.app"):
         assert "plainrenderer_tpu_torch." + m in loaded, m
 
 

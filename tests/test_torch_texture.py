@@ -6,6 +6,7 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+from PIL import Image
 import pytest
 import torch
 
@@ -86,12 +87,27 @@ def test_textured_atrium_matches_jax():
                                       err_msg=k)
 
 
-def test_path_loaded_textures_wait_for_the_image_readers():
-    scene = tproc.build_atrium_scene(tproc.AtriumConfig(**SMALL_ATRIUM),
-                                     textured=False)
-    scene.meshes[0].texture_paths.albedo = "bricks.png"
-    with pytest.raises(NotImplementedError):
-        tsb.build_render_scene(scene)
+def test_path_loaded_textures_wait_for_the_image_readers(tmp_path):
+    """Textures named by path load through the port's image readers
+    (assets/image_io.py, since the asset slice): a PNG written to disk
+    gives the same pool as the JAX package's scene build, and a path that
+    does not load gives no image for its slot, as in the reference
+    (scenebuild.py:205-223)."""
+    rng = np.random.default_rng(8)
+    png = tmp_path / "bricks.png"
+    Image.fromarray(rng.integers(0, 256, (64, 128, 4)).astype(
+        np.uint8)).save(png)
+    scenes = []
+    for proc in (jproc, tproc):
+        scene = proc.build_atrium_scene(proc.AtriumConfig(**SMALL_ATRIUM),
+                                        textured=False)
+        scene.meshes[0].texture_paths.albedo = str(png)
+        scene.meshes[0].texture_paths.normal = str(tmp_path / "none.png")
+        scenes.append(scene)
+    j_rs = jsb.build_render_scene(scenes[0])
+    t_rs = tsb.build_render_scene(scenes[1])
+    assert t_rs.tex_word0 is not None and t_rs.mat_tex.max() == 0
+    _assert_same_fields(j_rs, t_rs)
 
 
 def test_thread_layout_and_tile_sum_order():
