@@ -22,14 +22,20 @@ render_flight's CUDA graph replays, bit-equal to them, with the replays'
 frame time, capture time, launches and busy share); 6 the same scene with its 12 boxes moving in the raster
 and the SDF and texture_filter 2 (the variants of B and L with the
 previous-NDC channels, D's trilinear and anisotropic branches, M at 56
-rows; the previous NDC, the recomposited SDF). After the rows, the runtime phase
-runs the port's App on the committed courtyard demo
+rows; the previous NDC, the recomposited SDF); 7 slice 5's scene with the
+TAA supersampling pre-pass (I at K = 1 on the previous frame's packed
+colour and H at P = 1 on its (luminance, linear depth) pair, beside their
+default uses; after its run the same frames as a flight). After the
+rows, the runtime phase runs the port's App on the committed courtyard demo
 (assets/demo/courtyard.plain) as runtime/app.main() sets it up at
 1920x1080: its DDS volumes and textures loaded, kernels A-L held to
 their plain versions on its frames' inputs, timed run_frames (each step
 timed: run_frame, the copy to the host, burn_stats, save_image), the
 debug views, a small App card vs CPU, and the command line in
-subprocesses (runtime_phase). Each row
+subprocesses (runtime_phase). Then the modules phase: the Monte Carlo BRDF
+bake for each diffuse BRDF on the card (timed, its peak memory; against
+the CPU's plain bake and the fitted polynomials) and the committed JPEG
+fixtures decoded equal to PIL's PNGs (modules_phase). Each row
 holds its kernels to their plain PyTorch versions on a real frame's
 inputs (the rule is printed with each result), a small scene on the card
 to the CPU plain path (> 99.9% of pixels within 2 LSB), times each
@@ -66,9 +72,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from plainrenderer_tpu_torch import config, native
-from plainrenderer_tpu_torch.assets import procedural
+from plainrenderer_tpu_torch.assets import image_io, procedural
 from plainrenderer_tpu_torch.assets.textures import MAX_MIPS
-from plainrenderer_tpu_torch.ops import (color_packing, post, raster,
+from plainrenderer_tpu_torch.ops import (brdf_lut, color_packing,
+                                         env_brdf_fit, post, raster,
                                          sdf_scene, sdfgi, shade, shadow,
                                          taa, texture)
 from plainrenderer_tpu_torch.render import frame, scenebuild
@@ -211,14 +218,17 @@ def cuda_ms(fn, reps: int, strict: bool = True) -> dict:
 def slice_settings(n: int, width: int, height: int, **shadows):
     """Slice n's RenderSettings: 4 and 5 the defaults (TAA tech 4, bloom,
     fog, GI, 3 sun cascades of 2048^2); 6 with anisotropic texture
-    filtering (texture_filter 2); 3 without TAA, bloom and fog; 2 also
-    without GI; 1 also without shadows."""
+    filtering (texture_filter 2); 7 the defaults with the TAA
+    supersampling pre-pass (taa.use_separate_supersampling); 3 without
+    TAA, bloom and fog; 2 also without GI; 1 also without shadows."""
     off = dict(enabled=False)
     drop = dict(taa=config.TAASettings(**off),
                 bloom=config.BloomSettings(**off),
                 volumetrics=config.VolumetricsSettings(**off)) if n <= 3 else {}
-    if n >= 6:
+    if n == 6:
         drop["shading"] = config.ShadingConfig(texture_filter=2)
+    if n == 7:
+        drop["taa"] = config.TAASettings(use_separate_supersampling=True)
     if n <= 2:
         drop["sdf_trace"] = config.SDFTraceSettings(**off)
     if n <= 1:
@@ -1524,6 +1534,63 @@ def slice5_kernels(ctx, frames, settings) -> dict:
                 **found, carry_table=m_found, small_banners_close=small)
 
 
+PRE_PASS_I, PRE_PASS_H = "pre-pass K=1", "pre-pass P=1"
+
+
+def slice7_kernels(ctx, frames, settings) -> dict:
+    """Kernels I and H on the supersampling pre-pass's inputs of frame 1
+    (the previous frame's packed colour, K = 1; its (luminance, linear
+    depth) pair, P = 1; the dilated motion on the 32-row halo), recorded
+    on their way into history_resample and the one-plane
+    resample_packed_planes: I within 1e-6 of the taps' magnitude, H every
+    bit, ok equal on both (compare_history); timed as the variants
+    PRE_PASS_I and PRE_PASS_H with bounds from this run's bytes (I: 8 B of
+    coords, 4 B of colour read, 3 f32 and ok written per pixel; H: 8 + 4
+    read, 2 f32 and ok written) and a grid_sample yardstick each. Then the
+    small textured atrium with GI and the pre-pass, card vs CPU over 3
+    frames of a moving camera."""
+    print(f"slice 7 settings: {settings.taa}; pair_budget_scale "
+          f"{ctx.scale}", flush=True)
+    rec = record_frames(ctx, frames, settings, 2,
+                        [(taa, "history_resample"),
+                         (taa, "resample_packed_planes")])
+    colour, motion, width, height = rec["history_resample"][1]
+    pairs = [a for a in rec["resample_packed_planes"] if a[0].shape[0] == 1]
+    check(len(rec["history_resample"]) == 2 and len(pairs) == 2,
+          "the pre-pass fetched once a frame")
+    planes, motion_h, width_h, height_h = pairs[1]
+    check(torch.equal(motion_h, motion) and (width_h, height_h)
+          == (width, height), "the pre-pass's two fetches share the motion")
+    coords = taa.reprojected_coords(motion, width, height)
+    hh, hw = colour.shape
+    out_p = taa.history_taps_plain(colour, coords)
+    err_i, ok_i = compare_history(f"kernel I ({PRE_PASS_I})", colour, 3,
+                                  taa.history_taps(colour, coords), out_p,
+                                  out_p)
+    del out_p
+    err_h, ok_h = compare_history(
+        f"kernel H ({PRE_PASS_H})", planes, 2,
+        taa.packed_planes(planes, coords),
+        taa.packed_planes_plain(planes, coords))
+    ctx.kernel("history_taps", lambda: taa.history_taps(colour, coords), 50,
+               lambda: taa.history_taps_plain(colour, coords), 10,
+               (28 * hh * hw / HBM_BYTES_PER_S, 0.0), err_i,
+               grid_sample(color_packing.unpack_r11g11b10(colour)[None],
+                           coords), variant=PRE_PASS_I)
+    unpacked = torch.stack(taa.unpack_f16_pair_flush(planes[0]))[None]
+    ctx.kernel("packed_planes", lambda: taa.packed_planes(planes, coords),
+               50, lambda: taa.packed_planes_plain(planes, coords), 10,
+               (24 * hh * hw / HBM_BYTES_PER_S, 0.0), err_h,
+               grid_sample(unpacked, coords), variant=PRE_PASS_H)
+    small = small_card_vs_cpu(ctx, 7, "small atrium with GI and the "
+                              "pre-pass", textured=True, gi=True,
+                              moving=True)
+    return dict(pair_budget_scale=ctx.scale, pre_pass_planes=[hh, hw],
+                pre_pass_i=dict(max_abs_err=err_i, ok_share=ok_i),
+                pre_pass_h=dict(max_abs_err=err_h, ok_share=ok_h),
+                small_close=small)
+
+
 def box_objects(atrium: dict) -> tuple:
     """Object indices of the atrium's scattered boxes: after the floor,
     ceiling and 3 walls (5 box_mesh slabs) and each column's shaft and cap
@@ -1793,7 +1860,8 @@ def profile_frames(ctx, frames, settings, run, what: str,
                                           for k, t, n in by_kernel[:30]])
 
 
-def flight_phase(ctx, frames, settings, run, per_frame: dict) -> dict:
+def flight_phase(ctx, frames, settings, run, per_frame: dict,
+                 what: str = "slice 5") -> dict:
     """render_flight over the same frames as the row's eager run (the same
     initial state, scene, camera path and settings; frame 1 eager, then one
     captured frame step replayed): launch counts reset just before, read
@@ -1815,7 +1883,7 @@ def flight_phase(ctx, frames, settings, run, per_frame: dict) -> dict:
     torch.cuda.synchronize()
     flight_s = time.perf_counter() - t0
     launches = native.launch_counts()
-    print(f"flight: {n} frames in {flight_s:.3f} s (frame 1 eager, capture, "
+    print(f"flight ({what}): {n} frames in {flight_s:.3f} s (frame 1 eager, capture, "
           f"{n - 1} replays); launches {launches}", flush=True)
     for name in KERNEL_SOURCES:
         want = per_frame.get(name, 0) * n
@@ -1825,7 +1893,7 @@ def flight_phase(ctx, frames, settings, run, per_frame: dict) -> dict:
     differ = [k for k in fields
               if not same_bits(getattr(state, k), getattr(run["state"], k))]
     image_equal = same_bits(image, run["image"])
-    print(f"flight vs the eager camera-path run: image bits equal "
+    print(f"flight ({what}) vs the eager camera-path run: image bits equal "
           f"{image_equal}, state fields differing {differ}", flush=True)
     check(image_equal and not differ, "flight equals the eager frames")
     del image, state0
@@ -1859,7 +1927,7 @@ def flight_phase(ctx, frames, settings, run, per_frame: dict) -> dict:
     busy = busy_us / window_us if busy_us > 0 else None
     per_replay = sum(step.launches.values())
     eager = run["pass_ms"]
-    print(f"flight (slice 5): replayed frames {device_ms:.3f} ms/frame "
+    print(f"flight ({what}): replayed frames {device_ms:.3f} ms/frame "
           f"(CUDA events over {FLIGHT_REPLAYS} replays), {wall_ms:.3f} "
           f"ms/frame host wall (enqueue {enqueue_ms:.3f} ms for all); "
           f"capture {capture_s * 1e3:.1f} ms; {per_replay} hand-written "
@@ -1868,7 +1936,7 @@ def flight_phase(ctx, frames, settings, run, per_frame: dict) -> dict:
           f"{'not measured' if busy is None else f'{busy:.3f}'}, "
           f"{busy_us / FLIGHT_PROFILED / 1e3:.2f} ms of device work in "
           f"{kernels:.0f} device kernels per replay", flush=True)
-    print(f"flight (slice 5) beside the eager frame: eager "
+    print(f"flight ({what}) beside the eager frame: eager "
           f"{eager['frame']['mean']:.3f} ms/frame (events), "
           f"{eager['host_wall_per_frame']['mean']:.3f} ms host wall; "
           f"replayed {device_ms:.3f} ms (events), {wall_ms:.3f} ms host "
@@ -2225,6 +2293,123 @@ def runtime_phase(ctx) -> dict:
     return found
 
 
+# --------------------- modules off the frame's path ---------------------
+
+BRDF_LUT = (512, 1024)  # the default bake: texels per side, samples
+BRDF_SMALL = (64, 256)  # card vs the CPU's plain bake
+BRDF_FIT = (128, 1024)  # the grid the fitted polynomials were fitted on
+BRDF_CPU_TOL = 1e-5
+# env_brdf_fit.py's recorded |fit - bake| (mean, max) per channel, to 4
+# decimals: the check allows half the last digit plus 2e-4 for the card's
+# bake against the one the fit was made from
+BRDF_FIT_BOUNDS = {"bias": (0.0019, 0.0880), "k": (0.0026, 0.0144),
+                   "z0": (0.0, 0.0), "z1": (0.0004, 0.0052),
+                   "z2": (0.0009, 0.0154), "z3": (0.0004, 0.0040)}
+BRDF_FIT_SLACK = 0.00005 + 2e-4
+JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
+
+
+def brdf_fit_errors(lut, diffuse_brdf: int) -> dict:
+    """|fit - bake| (mean, max) of a BRDF_FIT bake against the fitted
+    polynomials in f64, on the grid and coordinates the fit used
+    (tools/fit_env_brdf.py)."""
+    n = lut.shape[-1]
+    ax = torch.arange(n, dtype=torch.float64)
+    r = torch.clamp_min(ax / n, 1e-4)[None, :].expand(n, n)
+    nov = (torch.clamp_min(ax, 0.1) / n)[:, None].expand(n, n)
+    s = nov / (r + nov + 1e-6)
+    lut = lut.double().cpu()
+
+    def err(coef, u, v, ch):
+        e = (brdf_lut._poly6(np.asarray(coef, np.float64), u, v)
+             - lut[ch]).abs()
+        return float(e.mean()), float(e.max())
+    out = {f"z{diffuse_brdf}": err(brdf_lut._Z_COEFS[diffuse_brdf], r, nov,
+                                   2)}
+    if diffuse_brdf == 0:
+        out["bias"] = err(env_brdf_fit.BIAS_SV, s, nov, 0)
+        out["k"] = err(env_brdf_fit.K_RS, r, s, 1)
+    return out
+
+
+def brdf_bake(ctx) -> dict:
+    """bake_brdf_lut on the card for each diffuse_brdf: the default 512^2
+    x 1024 bake timed (CUDA events; peak memory above what was allocated
+    before), finite and in range; the card's 64^2 x 256 bake against the
+    plain bake on the CPU within BRDF_CPU_TOL; the card's 128^2 x 1024
+    bake against the fitted polynomials within env_brdf_fit.py's recorded
+    bounds (BRDF_FIT_BOUNDS, BRDF_FIT_SLACK)."""
+    found = {}
+    for mode in range(4):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        lut = brdf_lut.bake_brdf_lut(*BRDF_LUT, mode, device=ctx.dev)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        peak_mb = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+        check(tuple(lut.shape) == (3,) + BRDF_LUT[:1] * 2
+              and bool(torch.isfinite(lut).all())
+              and float(lut.min()) >= 0.0 and float(lut[:2].max()) <= 1.1,
+              f"BRDF bake {mode}: (3, 512, 512), finite, in range")
+        card = brdf_lut.bake_brdf_lut(*BRDF_SMALL, mode, device=ctx.dev)
+        cpu = brdf_lut.bake_brdf_lut(*BRDF_SMALL, mode, device="cpu")
+        err = float((card.cpu() - cpu).abs().max())
+        check(err <= BRDF_CPU_TOL, f"BRDF bake {mode} at 64^2 x 256: card vs "
+              f"CPU max |err| {err:.3e} (limit {BRDF_CPU_TOL})")
+        fit = brdf_fit_errors(
+            brdf_lut.bake_brdf_lut(*BRDF_FIT, mode, device=ctx.dev), mode)
+        for name, (mean, mx) in fit.items():
+            lim_mean, lim_max = BRDF_FIT_BOUNDS[name]
+            check(mean <= lim_mean + BRDF_FIT_SLACK
+                  and mx <= lim_max + BRDF_FIT_SLACK,
+                  f"BRDF bake {mode}: |fit - bake| of {name} mean {mean:.5f} "
+                  f"max {mx:.5f} within env_brdf_fit.py's {lim_mean:.4f} / "
+                  f"{lim_max:.4f} + {BRDF_FIT_SLACK}")
+        print(f"BRDF bake (diffuse_brdf {mode}): {BRDF_LUT[0]}^2 x "
+              f"{BRDF_LUT[1]} in {ms:.2f} "
+              f"ms (CUDA events), peak {peak_mb:.1f} MiB above the "
+              f"baseline; 64^2 x 256 card vs CPU max |err| {err:.3e} "
+              f"(limit {BRDF_CPU_TOL}); 128^2 x 1024 against the fitted "
+              "polynomials (mean, max): " + json.dumps(fit) + " (limits "
+              f"env_brdf_fit.py's + {BRDF_FIT_SLACK})", flush=True)
+        found[str(mode)] = dict(ms=ms, peak_mib=peak_mb, card_vs_cpu=err,
+                                fit=fit)
+        del lut
+    return found
+
+
+def jpeg_fixtures() -> dict:
+    """The committed JPEG fixtures through load_image (this machine has
+    no PIL): each equal to PIL's decode committed beside it as PNG, and
+    the decode's host wall time (the best of 3 loads)."""
+    found = {}
+    names = sorted(p.stem for p in JPEG_FIXTURES.glob("*.jpg"))
+    check(names == ["baseline420", "grey", "progressive", "restart"],
+          f"the JPEG fixtures: {names}")
+    for name in names:
+        want = image_io.load_image(JPEG_FIXTURES / f"{name}.png")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = image_io.load_image(JPEG_FIXTURES / f"{name}.jpg")
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(got, want), f"JPEG {name} equals PIL's decode")
+        found[name] = dict(shape=list(got.shape), load_ms=min(times))
+    print("JPEG fixtures decoded equal to PIL's PNGs (host ms, best of 3): "
+          + json.dumps(found), flush=True)
+    return found
+
+
+def modules_phase(ctx) -> dict:
+    """The modules off the frame's path: the Monte Carlo BRDF bake
+    (brdf_bake) and JPEG decoding (jpeg_fixtures)."""
+    return dict(brdf_bake=brdf_bake(ctx), jpeg=jpeg_fixtures())
+
+
 # one slice of the port: its settings, scene, frames, the kernels it
 # launches per frame (the others must stay at 0), the comparisons of its
 # new kernels, the checks after its main-path run and the kernels whose
@@ -2243,6 +2428,8 @@ _HISTORIES = dict(gi_history=taa.unpack_f16_pair,
 # M stays at 0 on the frame (its own path: slice5_kernels)
 _BENCH = dict(_A_TO_I, expand_keys=4, depth_alpha=1, winner_alpha=1,
               attr_resolve=1)
+# with the supersampling pre-pass I and H run twice a frame
+_PRE_PASS = dict(_BENCH, history_taps=2, packed_planes=2)
 SLICES = [
     Row(1, "untextured", 1, 3,
         {"expand_keys": 1, "gbuffer": 1, "material": 1}, slice1_kernels),
@@ -2268,6 +2455,15 @@ SLICES = [
                       gbuffer="dynamic 15 channels",
                       attr_resolve="dynamic 15 channels",
                       texture="trilinear+aniso")),
+    # bench.py's scene with the TAA supersampling pre-pass: I on the
+    # previous colour (K = 1) and H on its (luminance, depth) pair (P = 1)
+    # beside their default uses; after its run the same frames as a flight
+    Row(7, "bench", 3, 8, _PRE_PASS, slice7_kernels,
+        lambda ctx, frames, settings, run: dict(flight=flight_phase(
+            ctx, frames, settings, run, _PRE_PASS, "slice 7")),
+        pick_scale=True,
+        histories=dict(_HISTORIES, taa_luminance=lambda x: (x,)),
+        branches=dict(history_taps=PRE_PASS_I, packed_planes=PRE_PASS_H)),
 ]
 
 
@@ -2330,6 +2526,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     ctx.path = "runtime (courtyard)"
     ctx.report["runtime"] = runtime_phase(ctx)
+    ctx.path = "modules"
+    ctx.report["modules"] = modules_phase(ctx)
     runtime_launches = ctx.report["runtime"]["launches"]
 
     def launched(name, variant=None):
@@ -2358,6 +2556,9 @@ def main() -> int:
                 if v["variant"] == "courtyard":
                     v.update(launches=runtime_launches[name],
                              launches_on="App.run_frame on the courtyard")
+                if v["variant"] in (PRE_PASS_I, PRE_PASS_H):
+                    v["launches_on"] += (": the pre-pass's launch and the "
+                                         "default use's, 2 a frame")
         if name in ctx.earlier:  # its times on earlier rows' inputs
             entry["earlier"] = ctx.earlier[name]
         if name == "expand_keys":  # its second use: the atlas's keys

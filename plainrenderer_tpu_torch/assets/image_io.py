@@ -13,12 +13,17 @@ neither, so the port carries its own readers on the standard library:
     samples keep their high byte (16-bit grey clips to 255), grey and
     palette expand to RGBA, and a tRNS chunk gives alpha as PIL applies it
     (tests/test_torch_assets.py holds every case bit for bit to PIL);
+  - JPEG (files that start with FF D8 FF) through assets/jpeg.py:
+    sequential and progressive Huffman, 8-bit, grey, YCbCr and RGB, bit
+    for bit as PIL's libjpeg decode converted to RGBA;
   - Radiance RGBE (.hdr): new-style run-length or flat scanlines (the
     first scanline decides, as in stb), as (H, W, 4) f32 with alpha 1;
   - DDS rgba8 textures through assets/dds.py.
 
-Any other format raises ValueError naming it. save_image writes (H, W, 3|4)
-u8 as an 8-bit RGB or RGBA PNG.
+Any other format (GIF, BMP, TIFF, WebP, ...) raises ValueError naming
+it, and so does a JPEG feature assets/jpeg.py does not read (CMYK /
+YCCK, 12-bit samples, arithmetic coding, lossless mode). save_image
+writes (H, W, 3|4) u8 as an 8-bit RGB or RGBA PNG.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import dds
+from . import dds, jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel, and the bit depths the format allows
@@ -40,14 +45,14 @@ _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 # magic bytes of formats the port does not read, for the error message
-_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"),
+_OTHER_FORMATS = ((b"GIF8", "GIF"),
                   (b"BM", "BMP"), (b"RIFF", "WebP"), (b"II*\x00", "TIFF"),
                   (b"MM\x00*", "TIFF"))
 
 
 def load_image(path: str | Path) -> np.ndarray:
-    """Load an image as (H, W, 4): u8 for PNG and DDS rgba8, f32 for .hdr
-    (image_io.py:16-41). Raises ValueError for a format the port does not
+    """Load an image as (H, W, 4): u8 for PNG, JPEG and DDS rgba8, f32 for
+    .hdr (image_io.py:16-41). Raises ValueError for a format the port does not
     read, or for a malformed file."""
     path = Path(path)
     suffix = path.suffix.lower()
@@ -62,10 +67,12 @@ def load_image(path: str | Path) -> np.ndarray:
         return read_hdr(data, str(path))
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data, str(path))
+    if data.startswith(b"\xff\xd8\xff"):
+        return jpeg.decode_jpeg(data, str(path))
     name = next((n for magic, n in _OTHER_FORMATS if data.startswith(magic)),
                 f"{suffix or 'unknown'!r}")
     raise ValueError(f"image format {name} is not read by the port "
-                     f"(PNG, Radiance .hdr and rgba8 DDS are): {path}")
+                     f"(PNG, JPEG, Radiance .hdr and rgba8 DDS are): {path}")
 
 
 def save_image(path: str | Path, image: np.ndarray) -> None:

@@ -279,3 +279,8 @@ def build_atrium_scene(config: AtriumConfig | None = None,
 
     return Scene(objects=objects, meshes=meshes)
 
+
+
+def triangle_count(scene: Scene) -> int:
+    """The scene's triangles over all meshes (procedural.py:289)."""
+    return sum(m.indices.shape[0] // 3 for m in scene.meshes)

@@ -21,6 +21,17 @@ def d_ggx(noh, r):
     return k * k * (1.0 / PI)
 
 
+def g_ggx(r, xon):
+    """brdf.inc:11-16 — GGX geometric occlusion for one direction."""
+    r2 = r * r
+    return (xon * 2.0) / (xon + torch.sqrt(r2 + (1.0 - r2) * xon * xon))
+
+
+def g_smith_uncorrelated(r, nov, nol):
+    """brdf.inc:29-31."""
+    return g_ggx(r, nov) * g_ggx(r, nol)
+
+
 def visibility_smith_ggx_height_correlated(nov, nol, r):
     """brdf.inc:18-26 — height-correlated Smith visibility."""
     r2 = r * r

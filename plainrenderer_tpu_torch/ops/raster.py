@@ -48,6 +48,9 @@ TILE_H = 16
 TILE_W = 128
 PX_PER_TILE = TILE_H * TILE_W  # 2048
 GROUP = 128  # segment alignment unit: vis slots count from start // GROUP
+# pairs per evaluation slice of the JAX kernels (raster.py:65); no kernel
+# of the port reads it: each CUDA kernel has its own slice width (*_CHUNK)
+EVAL_WIDTH = 32
 SLOT_BITS = 11  # pair-slot bits packed into the depth mantissa
 SLOT_MASK = (1 << SLOT_BITS) - 1
 MAX_PAIRS_PER_TILE = 1 << SLOT_BITS

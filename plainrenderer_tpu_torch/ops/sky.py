@@ -72,6 +72,12 @@ def _phase_rayleigh(vol):
     return 3.0 / (16.0 * math.pi) * (1.0 + vol * vol)
 
 
+def phase_greenstein(vol, g):
+    """volumeShading.inc:4-6 — Henyey-Greenstein."""
+    return (1.0 - g * g) / (
+        4.0 * math.pi * torch.pow(1.0 + g * g - 2.0 * g * vol, 1.5))
+
+
 def _phase_cornette_shanks(vol, g):
     """volumeShading.inc:18-22."""
     nom = 3.0 / (8.0 * math.pi) * (1.0 - g * g) * (1.0 + vol * vol)
@@ -242,6 +248,26 @@ def bilinear_lookup(lut, u, v):
     row0 = lut[:, yi0, xi0] * wx0 + lut[:, yi0, xi1] * wx1
     row1 = lut[:, yi1, xi0] * wx0 + lut[:, yi1, xi1] * wx1
     return (row0 * wy0 + row1 * wy1).permute(*range(1, u.dim() + 1), 0)
+
+
+def bilinear_lookup_matmul(lut, u, v):
+    """bilinear_lookup as two one-hot weight contractions (sky.py:274):
+    lut (3, H, W), u and v in [0, 1] of any shape -> (..., 3). The JAX
+    package's gather-free form for its TPU; the frame uses
+    bilinear_lookup."""
+    _, h, w = lut.shape
+    shape = u.shape
+
+    def hat_weights(coord, n):
+        grid = torch.arange(n, dtype=torch.float32, device=lut.device)
+        return torch.clamp_min(1.0 - torch.abs(grid[None, :]
+                                               - coord[:, None]), 0.0)
+    wx = hat_weights(torch.clamp(u.reshape(-1) * (w - 1), 0.0, w - 1), w)
+    wy = hat_weights(torch.clamp(v.reshape(-1) * (h - 1), 0.0, h - 1), h)
+    lut_flat = lut.permute(1, 0, 2).reshape(h * 3, w)
+    a = (wx @ lut_flat.T).reshape(-1, h, 3)
+    out = torch.sum(a * wy[:, :, None], dim=1)
+    return out.reshape(tuple(shape) + (3,))
 
 
 def bake_sky_lut(sun_direction, sun_strength_exposed, multiscatter_lut,

@@ -1,6 +1,5 @@
-"""Temporal anti-aliasing, motion vectors and the packed history resamples
-(plainrenderer_tpu/ops/taa.py; the supersampling pre-pass,
-temporal_supersampling, is not in the port yet).
+"""Temporal anti-aliasing, motion vectors, the packed history resamples
+and the supersampling pre-pass (plainrenderer_tpu/ops/taa.py).
 
 temporal_filter is temporalFilter.comp: a 3x3 neighbourhood with
 jitter-aware resolve weights, motion dilation, AABB clipping of the
@@ -22,6 +21,10 @@ fixed order (ops/texture.py tile_sum), so the windows agree bit for bit.
     tensors and packed_planes_plain for CPU tensors: the f16-pair GI
     history. Its words decode with the in-kernel rule of the JAX package
     (_unpack_f16_pair_kernel), which flushes f16 subnormals to zero.
+
+temporal_supersampling (temporalSupersampling.comp) reaches both: I with
+one tap on the previous frame's packed colour (history_resample) and H
+with one plane, the (luminance, linear depth) f16 pair.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ..utils.color import luminance
 from ..utils.stencil import EdgePadded
 from .color_packing import pack_r11g11b10, unpack_r11g11b10
 from .raster import TILE_H, TILE_W, _kernel_device, _require
+from .shadow import linearize_depth
 from .texture import tile_sum, to_thread_layout
 
 WIN_H = 32
@@ -157,6 +161,13 @@ def resample_packed_planes(planes_packed, motion, width, height):
     return out[:2 * n_planes], out[2 * n_planes] > 0.5
 
 
+def history_resample(history_packed, motion, width, height):
+    """One bilinear fetch of packed R11G11B10 colour at uv + motion
+    (taa.py:240): kernel I with K = 1. Returns ((3, H, W), ok)."""
+    return resample_history_taps(
+        history_packed, reprojected_coords(motion, width, height))
+
+
 def reprojected_coords(motion, width, height):
     """Absolute pixel coords (2, H, W) at uv + motion, motion in UV units
     of the logical width x height (taa.py:229-237)."""
@@ -252,6 +263,57 @@ def resample_history_taps(history_packed, coords):
         raise ValueError(f"({h}, {w}) is not a multiple of the 16x128 tile")
     out = history_taps(history_packed, coords)
     return out[:3 * n_taps], out[3 * n_taps] > 0.5
+
+
+# --------------------------------------------------------------------------
+# the supersampling pre-pass (temporalSupersampling.comp)
+# --------------------------------------------------------------------------
+
+def temporal_supersampling(color, prev_color_packed, prev_lum_depth_packed,
+                           motion, depth, near, far, width, height,
+                           camera_cut, *, use_tonemapping: bool = True):
+    """The optional pre-pass that blends 50% of the reprojected last frame
+    into the current one before the main filter (taa.py:375-436,
+    TAA.cpp:85-137). Accepts a pixel when the 2x2-block luminance
+    contrast difference is < 0.5, the closest-neighbourhood linear depth
+    is within 1.0 of the last frame's, both fetches stay in their windows
+    and the frame is no camera cut (camera_cut: a 0-d bool tensor, never
+    read on the host). Returns (color', luminance of the input colour),
+    the luminance for next frame's state."""
+    cur_lum = luminance(color)
+    motion_d = dilate_motion(motion, depth)
+    last_rgb, in_window = history_resample(prev_color_packed, motion_d,
+                                           width, height)
+    ld, ok2 = resample_packed_planes(prev_lum_depth_packed[None], motion_d,
+                                     width, height)
+    last_lum, last_lin_depth = ld[0], ld[1]
+    cur = _reversible_tonemap(color) if use_tonemapping else color
+    last = _reversible_tonemap(last_rgb) if use_tonemapping else last_rgb
+
+    def block(p):  # the 2x2 block (minAbsoluteDifference sums)
+        e = EdgePadded(p, 1, 1)
+        return [p, e.tap(0, -1), e.tap(-1, 0), e.tap(-1, -1)]
+
+    cur_b, last_b = block(cur_lum), block(last_lum)
+    last_max = torch.maximum(
+        torch.maximum(torch.abs(last_b[0]), torch.abs(last_b[1])),
+        torch.maximum(torch.abs(last_b[2]), torch.abs(last_b[3])))
+    contrast = 0  # Python's sum: 0 + the four terms, in order
+    for c in cur_b:
+        contrast = contrast + (torch.abs(c) - last_max)
+    pdep = EdgePadded(depth, 1, 1)
+    closest = depth  # reverse-Z: the closest depth is the largest
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            closest = torch.maximum(closest, pdep.tap(dy, dx))
+    depth_ok = torch.abs(linearize_depth(closest, near, far)
+                         - last_lin_depth) < 1.0
+    accept = (contrast < 0.5) & depth_ok & in_window & ok2 & ~camera_cut
+    blend = torch.where(accept, 0.5, 0.0)
+    out = cur + (last - cur) * blend[None]
+    if use_tonemapping:
+        out = _reversible_tonemap_inverse(out)
+    return torch.where(torch.isnan(out), color, out), cur_lum
 
 
 # --------------------------------------------------------------------------

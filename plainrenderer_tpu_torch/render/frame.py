@@ -8,19 +8,21 @@ textured scenes) -> cascade fit -> shadow-atlas setup, binning (kernel A)
 and depth raster (kernel E) -> PCF shadow resolve (kernel F) -> GI trace
 (kernel G, scenes with an attached SDF) -> resolve, spatial, history
 resample (kernel H), temporal, spatial -> upscale -> forward shade -> sky
-composite -> froxel fog (with shadows) -> TAA (history taps, kernel I) ->
-bloom -> tonemap. A scene with alpha masks splits the main view and the
-atlas into an opaque stream (kernels A, B, E) and an alpha-tested stream
-(kernels A, K + L, J), merged by depth. A scene with object_transforms
-moves its objects every frame: the transformed corners and bounds feed
-culling, the main view (with the previous frame's clip planes, so kernels
-B and L write the previous NDC) and the atlas; with dynamic SDF objects
-the scene SDF is recomposited each frame. shading.texture_filter 1 and 2
+composite -> froxel fog (with shadows) -> TAA (history taps, kernel I;
+with taa.use_separate_supersampling the supersampling pre-pass first,
+kernel I on the previous colour and kernel H on its (luminance, linear
+depth) pair) -> bloom -> tonemap. A scene with alpha masks splits the
+main view and the atlas into an opaque stream (kernels A, B, E) and an
+alpha-tested stream (kernels A, K + L, J), merged by depth. A scene with
+object_transforms moves its objects every frame: the transformed corners
+and bounds feed culling, the main view (with the previous frame's clip
+planes, so kernels B and L write the previous NDC) and the atlas; with
+dynamic SDF objects the scene SDF is recomposited each frame. shading.texture_filter 1 and 2
 turn on kernel D's trilinear and anisotropic branches. The three debug
 views (ops/debugviz.py) draw where the JAX frame draws them: the cascade
 tint before the sky composite, the AABB wireframes over the tonemapped
 image, the SDF visualisation in place of it. Every setting outside it
-(the TAA supersampling pre-pass, split-frame bands) raises
+(more than 4 shadow cascades, split-frame bands) raises
 NotImplementedError instead of silently skipping its pass.
 render_frame runs eagerly and never synchronises with the host: every
 per-frame value stays a device tensor. A camera whose leaves lead with a
@@ -47,6 +49,7 @@ from ..config import RenderSettings
 from ..ops import exposure as exposure_ops
 from ..ops import (bloom, debugviz, hiz, post, raster, sdf_scene, sdfgi,
                    shade, shadow, sky, taa, texture, volumetrics)
+from ..ops.color_packing import pack_r11g11b10
 from ..parallel.halo import crop_halo, halo_extend
 from ..scene.frustum import expand_object_mask, visible_objects_clipspace
 from ..utils import mathutils, noise as noise_mod
@@ -212,8 +215,6 @@ def check_slice(scene: dict, cam: dict, settings: RenderSettings) -> None:
     unported = [
         (settings.shadows.cascade_count > shadow.MAX_CASCADES,
          f"more than {shadow.MAX_CASCADES} shadow cascades"),
-        (settings.taa.enabled and settings.taa.use_separate_supersampling,
-         "TAA supersampling pre-pass (taa.use_separate_supersampling)"),
         ("ndc_y_scale" in cam, "split-frame band mode (cam 'ndc_y_scale')"),
     ]
     missing = [name for bad, name in unported if bad]
@@ -903,19 +904,36 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
             sun_dir, sun_color, sun_strength_exposed)
     scene_color = hdr  # pre-TAA color feeds next frame's histogram
 
-    # --- TAA (frame.py:1008-1051): one 16-row edge-padded halo covers the
-    # 3x3 neighbourhoods, the dilation and the bicubic history window ---
+    # --- TAA (frame.py:1008-1051): one edge-padded halo covers the 3x3
+    # neighbourhoods, the dilation and the bicubic history window, 16 rows,
+    # 32 with the supersampling pre-pass ---
     taa_history = state.taa_history
+    new_taa_luminance = state.taa_luminance
     if taa_on:
         _mark(timer, "taa")
-        halo = min(16, ph) // raster.TILE_H * raster.TILE_H
-        motion = taa.compute_motion(prev_ndc, valid, jitter_ndc,
-                                    state.prev_jitter, width, height)
         taa_set = settings.taa
+        want = 32 if taa_set.use_separate_supersampling else 16
+        halo = min(want, ph) // raster.TILE_H * raster.TILE_H
+        motion_e = halo_extend(taa.compute_motion(
+            prev_ndc, valid, jitter_ndc, state.prev_jitter, width, height),
+            halo)
+        hdr_e = halo_extend(hdr, halo)
+        depth_e = halo_extend(depth, halo)
+        camera_cut = state.frame_index == 0
+        if taa_set.use_separate_supersampling:
+            prev_ld = taa.pack_f16_pair(
+                state.taa_luminance,
+                shadow.linearize_depth(state.prev_depth, NEAR_PLANE,
+                                       FAR_PLANE))
+            hdr_e, new_taa_luminance = taa.temporal_supersampling(
+                hdr_e, halo_extend(pack_r11g11b10(state.prev_color), halo),
+                halo_extend(prev_ld, halo), motion_e, depth_e, NEAR_PLANE,
+                FAR_PLANE, width, height, camera_cut,
+                use_tonemapping=taa_set.supersample_use_tonemapping)
+            new_taa_luminance = crop_halo(new_taa_luminance, halo)
         hdr, taa_history = taa.temporal_filter(
-            halo_extend(hdr, halo), halo_extend(state.taa_history, halo),
-            halo_extend(motion, halo), halo_extend(depth, halo), jitter_px,
-            state.frame_index == 0, width, height,
+            hdr_e, halo_extend(state.taa_history, halo), motion_e, depth_e,
+            jitter_px, camera_cut, width, height,
             use_clipping=taa_set.use_clipping,
             use_motion_dilation=taa_set.use_motion_vector_dilation,
             use_tonemapping=taa_set.filter_use_tonemapping,
@@ -956,6 +974,7 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
         exposure=new_exposure,
         prev_color=scene_color,
         prev_depth=depth,
+        taa_luminance=new_taa_luminance,
         taa_history=taa_history,
         gi_history=new_gi_history,
         volumetric_history=new_vol_history,

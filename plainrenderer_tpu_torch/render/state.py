@@ -1,9 +1,9 @@
 """Carried per-frame state (plainrenderer_tpu/render/state.py).
 
 Every FrameState field exists at the tile-padded sizes of the JAX
-package (state.py:36-44), including the TAA and fog histories the port
-does not write yet, so later slices change no interface. The GI history
-is written by the SDF GI pass.
+package (state.py:36-44). The GI history is written by the SDF GI pass,
+the TAA history by the temporal filter, the fog history by the froxel
+fog and taa_luminance by the TAA supersampling pre-pass.
 """
 
 from __future__ import annotations

@@ -1,9 +1,15 @@
-"""Axis-aligned bounding boxes (plainrenderer_tpu/scene/aabb.py)."""
+"""Axis-aligned bounding boxes (plainrenderer_tpu/scene/aabb.py): a box is
+a pair of (..., 3) tensors (min, max), so object lists vectorise."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def aabb_from_positions(positions: torch.Tensor):
+    """AABB.cpp — (min, max) over (N, 3) positions."""
+    return positions.amin(dim=0), positions.amax(dim=0)
 
 
 def aabb_corners(bb_min: torch.Tensor, bb_max: torch.Tensor) -> torch.Tensor:
@@ -15,6 +21,16 @@ def aabb_corners(bb_min: torch.Tensor, bb_max: torch.Tensor) -> torch.Tensor:
     lo = bb_min[..., None, :]
     hi = bb_max[..., None, :]
     return lo + (hi - lo) * picks
+
+
+def aabb_transformed(bb_min: torch.Tensor, bb_max: torch.Tensor,
+                     matrix: torch.Tensor):
+    """AABB.cpp axisAlignedBoundingBoxTransformed — the 8 corners through
+    matrix (..., 4, 4) row-major, then min / max: (..., 3) each."""
+    corners = aabb_corners(bb_min, bb_max)  # (..., 8, 3)
+    world = torch.einsum("...ij,...kj->...ki", matrix[..., :3, :3],
+                         corners) + matrix[..., :3, 3][..., None, :]
+    return world.amin(dim=-2), world.amax(dim=-2)
 
 
 def pad_sdf_bounding_box(bb_min, bb_max):

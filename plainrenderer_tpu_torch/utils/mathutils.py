@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -15,6 +17,22 @@ def direction_to_vector(direction_deg: torch.Tensor) -> torch.Tensor:
         -torch.cos(theta),
         torch.sin(theta) * torch.sin(phi),
     ], dim=-1)
+
+
+def mip_count_from_resolution(width: int, height: int = 1,
+                              depth: int = 1) -> int:
+    """MathUtils.cpp:18-20."""
+    return 1 + int(math.floor(math.log2(max(width, height, depth))))
+
+
+def resolution_from_mip(base: tuple[int, ...], mip: int) -> tuple[int, ...]:
+    """MathUtils.cpp:22-24 — per axis max(base >> mip, 1)."""
+    return tuple(max(b // (2 ** mip), 1) for b in base)
+
+
+def dot2(v: torch.Tensor) -> torch.Tensor:
+    """MathUtils.cpp:80-82 — squared length over the last axis."""
+    return torch.sum(v * v, dim=-1)
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

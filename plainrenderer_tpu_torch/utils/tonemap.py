@@ -1,4 +1,6 @@
-"""ACES fitted tonemap curve (plainrenderer_tpu/utils/tonemap.py)."""
+"""ACES tonemap curves (plainrenderer_tpu/utils/tonemap.py;
+tonemapping.inc): the Narkowicz approximation and the fitted RRT + ODT,
+channel-last and channel-planar."""
 
 from __future__ import annotations
 
@@ -17,6 +19,12 @@ _ACES_OUTPUT = (
 )
 
 
+def aces_film_approximate(x: torch.Tensor) -> torch.Tensor:
+    """tonemapping.inc:5-13 — Narkowicz ACES fit, clamped to [0, 1]."""
+    a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
+    return torch.clamp((x * (a * x + b)) / (x * (c * x + d) + e), 0.0, 1.0)
+
+
 def _rrt_odt_fit(v: torch.Tensor) -> torch.Tensor:
     """tonemapping.inc:32-37."""
     a = v * (v + 0.0245786) - 0.000090537
@@ -28,6 +36,11 @@ def _mat3(m, r, g, b):
     return (m[0][0] * r + m[0][1] * g + m[0][2] * b,
             m[1][0] * r + m[1][1] * g + m[1][2] * b,
             m[2][0] * r + m[2][1] * g + m[2][2] * b)
+
+
+def aces_fitted(color: torch.Tensor) -> torch.Tensor:
+    """tonemapping.inc:40-49 — fitted ACES RRT + ODT, color (..., 3)."""
+    return aces_fitted_planar(torch.movedim(color, -1, 0)).movedim(0, -1)
 
 
 def aces_fitted_planar(color: torch.Tensor) -> torch.Tensor:

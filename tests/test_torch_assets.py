@@ -215,12 +215,19 @@ def test_generated_pngs_decode_as_pil(ctype, depth, interlace):
 
 
 def test_png_errors_raise_value_error(tmp_path):
-    """A format the port does not read names itself; a bad CRC, a
-    truncated file and bad image data raise ValueError."""
+    """A format the port does not read names itself (GIF); a JPEG, which
+    the port reads since slice 14, loads equal to PIL's decode; a bad CRC,
+    a truncated file and bad image data raise ValueError."""
+    gif = tmp_path / "a.gif"
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(gif)
+    with pytest.raises(ValueError, match="GIF"):
+        tio.load_image(gif)
     jpg = tmp_path / "a.jpg"
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(jpg)
-    with pytest.raises(ValueError, match="JPEG"):
-        tio.load_image(jpg)
+    pixels = np.random.default_rng(1).integers(0, 256, (9, 13, 3), np.uint8)
+    Image.fromarray(pixels).save(jpg)
+    with Image.open(jpg) as im:
+        np.testing.assert_array_equal(tio.load_image(jpg),
+                                      np.asarray(im.convert("RGBA")))
     good = _write_png(np.zeros((4, 4, 3), np.int64), 2, 8, 0,
                       np.random.default_rng(0))
     bad_crc = bytearray(good)

@@ -1451,7 +1451,25 @@ def test_flight_equals_eager_camera_path_frames(cuda):
     bit; the replays count as many kernel launches as the eager frames
     made; the caller's state is not written."""
     scene, settings, luts, path = _flight_case(cuda)
-    n = 5
+    eager = _flight_against_eager(cuda, scene, settings, luts, path)
+    assert eager["history_taps"] == 5 and eager["packed_planes"] == 5
+
+
+def test_flight_with_the_pre_pass_equals_eager_frames(cuda):
+    """test_flight_equals_eager_camera_path_frames with the TAA
+    supersampling pre-pass on: the flight carries taa_luminance and the
+    previous colour and depth that feed the pre-pass through its static
+    buffers, bit-equal to the eager frames; kernels I and H run twice a
+    frame (the pre-pass's colour and (luminance, depth) fetches beside the
+    filter's history and the GI history)."""
+    scene, settings, luts, path = _flight_case(cuda)
+    settings = dataclasses.replace(settings, taa=config.TAASettings(
+        use_separate_supersampling=True))
+    eager = _flight_against_eager(cuda, scene, settings, luts, path)
+    assert eager["history_taps"] == 10 and eager["packed_planes"] == 10
+
+
+def _flight_against_eager(cuda, scene, settings, luts, path, n=5):
     state0 = initial_state(256, 128, device=cuda)
     before = native.launch_counts()
     img_e, st_e = None, state0
@@ -1463,7 +1481,7 @@ def test_flight_equals_eager_camera_path_frames(cuda):
     img_f, st_f = frame.render_flight(state0, scene, path, luts, 1.0 / 60.0,
                                       settings, n, device=cuda)
     assert _counts_since(before) == eager
-    assert eager["packed_planes"] == n and eager["winner_alpha"] == n
+    assert eager["winner_alpha"] == n
     assert torch.equal(img_f, img_e)
     assert img_f.float().std() > 5
     for f in dataclasses.fields(FrameState):
@@ -1473,6 +1491,78 @@ def test_flight_equals_eager_camera_path_frames(cuda):
         assert torch.equal(a, b), f.name
     assert int(st_f.frame_index) == n and int(state0.frame_index) == 0
     assert not bool(state0.prev_color.any())
+    return eager
+
+
+def _pre_pass_band(rng, device, h=128, w=640):
+    """A 64-row band with its 32-row halo (128 rows) as the pre-pass sees
+    it: the previous frame's HDR colour packed R11G11B10 (zeros and 12
+    octaves), its (luminance, linear depth) f16 pair, and motion with
+    tiles pushed off both sides, off the top and split by a ramp."""
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    rgb = rng.random((3, h, w)) * np.exp(rng.uniform(-6, 6, (3, h, w)))
+    rgb[:, ::7, ::3] = 0.0
+    packed = color_packing.pack_r11g11b10(t(rgb))
+    ld = taa.pack_f16_pair(t(rng.random((h, w)) * 4.0),
+                           t(0.1 + 299.9 * rng.random((h, w)) ** 3))
+    motion = rng.normal(0, 0.002, (2, h, w)).astype(np.float32)
+    motion[0, :16] -= 0.9
+    motion[0, -16:] += 0.9
+    motion[1, 16:32] -= 0.3
+    motion[0, :, :128] += np.linspace(-0.14, 0.14, 128, dtype=np.float32)
+    return packed, ld, t(motion)
+
+
+def test_pre_pass_fetches_equal_plain(cuda):
+    """The supersampling pre-pass's two fetches on a 32-row-halo band:
+    kernel I at K = 1 on the packed previous colour (history_resample)
+    and kernel H at P = 1 on the (luminance, linear depth) pair, each
+    once through its wrapper on the reprojected coords and once on the
+    same coords with 16 pixels of every tile on its window's clamp edges
+    (_window_edge_coords). I: ok equal, values within 1e-6 of the taps'
+    magnitude; H: every bit equal. Then the whole pre-pass on the card
+    equals it on the CPU: accepted pixels (test_torch_supersampling's
+    rule) equal, colour within 1e-5 relative."""
+    rng = np.random.default_rng(41)
+    h, w = 128, 640
+    packed, ld, motion = _pre_pass_band(rng, cuda, h, w)
+    before = native.launch_counts()
+    rgb, ok = taa.history_resample(packed, motion, w, h)
+    chans, ok2 = taa.resample_packed_planes(ld[None], motion, w, h)
+    ran = _counts_since(before)
+    assert ran["history_taps"] == 1 and ran["packed_planes"] == 1
+    coords = taa.reprojected_coords(motion, w, h)
+    ref_i = taa.history_taps_plain(packed, coords)
+    ref_h = taa.packed_planes_plain(ld[None], coords)
+    assert torch.equal(ok, ref_i[3] > 0.5) and torch.equal(ok2,
+                                                           ref_h[2] > 0.5)
+    assert 0.05 < float(ok.float().mean()) < 0.95
+    torch.testing.assert_close(rgb, ref_i[:3], rtol=1e-6, atol=1e-30)
+    assert torch.equal(_bits(chans), _bits(ref_h[:2]))
+    edge = torch.as_tensor(_window_edge_coords(
+        rng, h, w, 1, coords.cpu().numpy()), device=cuda)
+    out_i = taa.history_taps(packed, edge)
+    ref_i = taa.history_taps_plain(packed, edge)
+    assert torch.equal(out_i[3], ref_i[3])
+    assert 0.0 < float(out_i[3].mean()) < 1.0
+    torch.testing.assert_close(out_i[:3], ref_i[:3], rtol=1e-6, atol=1e-30)
+    assert torch.equal(_bits(taa.packed_planes(ld[None], edge)),
+                       _bits(taa.packed_planes_plain(ld[None], edge)))
+    color = torch.as_tensor(rng.random((3, h, w), np.float32) * 2.0,
+                            device=cuda)
+    depth = torch.as_tensor(0.02 + 0.3 * rng.random((h, w), np.float32)
+                            ** 4, device=cuda)
+    outs = []
+    for dev in (cuda, "cpu"):
+        args = [x.to(dev) for x in (color, packed, ld, motion, depth)]
+        full = taa.temporal_supersampling(
+            *args, 0.1, 300.0, w, h, torch.tensor(False, device=dev))[0]
+        args[1] = torch.zeros_like(args[1])
+        black = taa.temporal_supersampling(
+            *args, 0.1, 300.0, w, h, torch.tensor(False, device=dev))[0]
+        outs.append(((full != black).any(0).cpu(), full.cpu()))
+    assert torch.equal(outs[0][0], outs[1][0]) and bool(outs[0][0].any())
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-5, atol=1e-6)
 
 
 def test_flight_capture_that_fails_raises(cuda, monkeypatch):

@@ -360,8 +360,9 @@ def test_initial_state_and_interop_match_jax():
 
 
 def test_render_frame_refuses_settings_outside_the_slice():
-    """The port raises instead of skipping a pass it does not render: the
-    TAA supersampling pre-pass and more than 4 cascades. TAA, bloom and
+    """The port raises instead of skipping a pass it does not render: more
+    than 4 cascades. The TAA supersampling pre-pass renders (slice 14,
+    tests/test_torch_supersampling.py) and writes taa_luminance. TAA, bloom and
     froxel fog run (slice 4, with the default RenderSettings():
     tests/test_torch_golden.py), and so does alpha-tested geometry (slice
     5, tests/test_torch_alpha_frame.py): a scene whose alpha_masks is None
@@ -382,14 +383,19 @@ def test_render_frame_refuses_settings_outside_the_slice():
                                [0, -1, 0], device="cpu")
     base = slice_settings(tcfg)
     shadowed = shadow_settings(tcfg)
-    bad = [dataclasses.replace(base, taa=tcfg.TAASettings(
-               use_separate_supersampling=True)),
-           dataclasses.replace(shadowed, shadows=tcfg.ShadowSettings(
+    bad = [dataclasses.replace(shadowed, shadows=tcfg.ShadowSettings(
                cascade_count=5))]
     for settings in bad:
         with pytest.raises(NotImplementedError):
             tframe.render_frame(state, scene, cam, luts, 0.016, settings,
                                 device="cpu")
+    pre_pass = dataclasses.replace(base, taa=tcfg.TAASettings(
+        use_separate_supersampling=True))
+    img, new = tframe.render_frame(state, scene, cam, luts, 0.016, pre_pass,
+                                   device="cpu")
+    assert img.shape == (H, W, 3)
+    assert bool(torch.isfinite(new.taa_luminance).all())
+    assert bool((new.taa_luminance > 0).any())
     # alpha-tested geometry is in the port; alpha_masks=None is the opaque
     # path (scene.get in frame.py:408)
     images = [tframe.render_frame(state, sc, cam, luts, 0.016, base,
