@@ -35,7 +35,18 @@ debug views, a small App card vs CPU, and the command line in
 subprocesses (runtime_phase). Then the modules phase: the Monte Carlo BRDF
 bake for each diffuse BRDF on the card (timed, its peak memory; against
 the CPU's plain bake and the fitted polynomials) and the committed JPEG
-fixtures decoded equal to PIL's PNGs (modules_phase). Each row
+fixtures decoded equal to PIL's PNGs (modules_phase). Then row 8, the
+band phase: split-frame band mode on 4 ranks sharing the one card over
+gloo (collectives staged through the host, counted), bench.py's scene at
+1920x1024 (band_settings' frame for 1920x1080 and 4 bands) in 256-row
+bands, 3 frames against the parent's single-device render of the same
+frames (seams included), each rank's counters, launches, frame ms,
+collectives, host copies and syncs and peak memory, A, B, E, J, K and L
+held to their plain versions on rank 1's band (timed as the variant
+"band (rank 1 of 4)" while the other ranks wait), and a small band frame
+on card ranks against CPU ranks (band_phase). It measures correctness
+and the collectives' cost of ranks that share a card, not a speed-up
+across cards. Each row
 holds its kernels to their plain PyTorch versions on a real frame's
 inputs (the rule is printed with each result), a small scene on the card
 to the CPU plain path (> 99.9% of pixels within 2 LSB), times each
@@ -1390,6 +1401,12 @@ def check_j(atlas, settings, what):
     a = atlas.alpha
     check(a is not None and int(atlas.overflow) == 0,
           f"{what}: the atlas has an alpha stream and drops nothing")
+    n_cas, sres = settings.shadows.cascade_count, settings.shadows.resolution
+    # the frame's atlas rows this call rasterized: all of them, or in band
+    # mode the band's (its ceil-padded tail past the atlas cut)
+    r0 = 0 if atlas.view_row0 is None \
+        else atlas.view_row0 * atlas.sub * raster.TILE_H
+    rows = min(atlas.n_bins_y * atlas.sub * raster.TILE_H, n_cas * sres - r0)
     init = raster.rasterize_depth(atlas.edges, atlas.pairs, atlas.n_bins_y,
                                   atlas.n_bins_x, sub=atlas.sub,
                                   row_skip=True)
@@ -1403,21 +1420,24 @@ def check_j(atlas, settings, what):
                       raster.depth_plain(*j_args, masks=a.masks, init=init)
                       .view(torch.int32)),
           f"{what} atlas equals the plain version")
-    n_cas = settings.shadows.cascade_count
-    check(torch.equal(depth_j, atlas.maps[:n_cas].reshape(depth_j.shape)),
+    check(torch.equal(depth_j[:rows],
+                      atlas.maps[:n_cas].reshape(-1, sres)[r0:r0 + rows]),
           f"{what}'s result is the frame's atlas")
     return depth_j, init, j_args
 
 
-def check_and_time_jkl(ctx, rec, settings, what: str = "") -> dict:
+def check_and_time_jkl(ctx, rec, settings, what: str = "", atlas=None,
+                       mv=None, variant=None) -> dict:
     """Kernels J, K and L on recorded frame 0's alpha streams (the
     atlas's and the main view's, recomputed from the recorded inputs of
-    the frame's own calls): J exact and equal to the frame's atlas
-    (check_j), K's depth and vis exact, L by check_and_time_l; the alpha
-    test's work; J and K timed with bounds from this run's inputs.
-    Returns the stats, and the main view's setup and raster under "mv"
-    and "main"."""
-    atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
+    the frame's own calls, or given: atlas, the frame's ShadowAtlas, and
+    mv, its MainView): J exact and equal to the frame's atlas (check_j),
+    K's depth and vis exact, L by check_and_time_l; the alpha test's
+    work; J and K timed with bounds from this run's inputs (as
+    `variant`). Returns the stats, and the main view's setup and raster
+    under "mv" and "main"."""
+    if atlas is None:
+        atlas = frame.render_shadow_atlas(*rec["render_shadow_atlas"][0])
     a = atlas.alpha
     depth_j, init, j_args = check_j(atlas, settings, f"kernel J{what}")
     uncut_j = raster.depth_plain(*j_args, init=init)
@@ -1437,7 +1457,8 @@ def check_and_time_jkl(ctx, rec, settings, what: str = "") -> dict:
                              row_skip=False, z=False)
     print(f"kernel J's stream{what}: {j_counts}", flush=True)
 
-    mv = rec["raster_main_view"][0][0]
+    if mv is None:
+        mv = rec["raster_main_view"][0][0]
     main = frame.raster_main_view(mv)
     check(int(main.overflow) == 0, f"no main-view pairs dropped{what}")
     pa, pe_a = main.alpha_pairs, main.alpha_edges
@@ -1465,7 +1486,7 @@ def check_and_time_jkl(ctx, rec, settings, what: str = "") -> dict:
     k_counts = stream_counts(pe_a, pa, mv.n_tiles_x, mv.sub, row_skip=True,
                              z=True)
     print(f"kernel K's stream{what}: {k_counts}", flush=True)
-    err_l, winners = check_and_time_l(ctx, mv, main, vis_k)
+    err_l, winners = check_and_time_l(ctx, mv, main, vis_k, variant)
 
     # times and bounds from this run's inputs, counting what the data
     # needs: J and K the rows of each live pair that their kernels stage,
@@ -1484,7 +1505,8 @@ def check_and_time_jkl(ctx, rec, settings, what: str = "") -> dict:
         a.edges, a.pairs, a.n_bins_y, atlas.n_bins_x, sub=a.sub,
         alpha_masks=a.masks, init_depth=merged), 20,
         lambda: raster.depth_plain(*j_args, masks=a.masks, init=init), 2,
-        (j_bytes / HBM_BYTES_PER_S, j_ops / FP32_OPS_PER_S), 0.0)
+        (j_bytes / HBM_BYTES_PER_S, j_ops / FP32_OPS_PER_S), 0.0,
+        variant=variant)
     check(torch.equal(merged, depth_j),
           f"kernel J{what}'s timed merges are stable")
     del init, merged, depth_j
@@ -1496,7 +1518,8 @@ def check_and_time_jkl(ctx, rec, settings, what: str = "") -> dict:
     ctx.kernel("winner_alpha", lambda: raster.rasterize_winner_alpha(
         pe_a, pa, mv.alpha_masks, mv.n_tiles_y, mv.n_tiles_x, mv.sub, True),
         20, lambda: raster.winner_alpha_plain(*k_args), 2,
-        (k_bytes / HBM_BYTES_PER_S, 16 * k_eval / FP32_OPS_PER_S), 0.0)
+        (k_bytes / HBM_BYTES_PER_S, 16 * k_eval / FP32_OPS_PER_S), 0.0,
+        variant=variant)
     return dict(atlas_alpha_pairs=a_pairs, atlas_alpha_bins=[
                     a.n_bins_y, atlas.n_bins_x], atlas_texels_raised=raised,
                 atlas_texels_rejected=rejected_j,
@@ -2410,6 +2433,334 @@ def modules_phase(ctx) -> dict:
     return dict(brdf_bake=brdf_bake(ctx), jpeg=jpeg_fixtures())
 
 
+# ------------------------- row 8: split-frame bands -------------------------
+
+# 4 ranks on the one card, over gloo with host-staged collectives (NCCL
+# refuses two ranks on one device); bench.py's scene at the frame that
+# band_settings gives for bench.py's 1920x1080 and 4 bands: 4 x 256 rows.
+# Bands tile the single-device frame only where the band height is a
+# multiple of 32 rows (the GI's half-resolution rows must fill whole
+# 16-row tiles and the fog's coarse grid whole rows: the JAX package's
+# band semantics, kept; tests/test_torch_bands.py measures the drift at
+# 144-row bands), so 1920x1088 (272-row bands) is not a height this row
+# can hold to the single-device frame.
+BAND_RANKS, BAND_FRAMES, BAND_HEIGHT = 4, 3, 1024
+BAND_CHECK_RANK = 1  # a band with two real halos
+BAND_VARIANT = "band (rank 1 of 4)"
+BAND_KERNELS = ("expand_keys", "depth", "depth_alpha", "gbuffer",
+                "winner_alpha", "attr_resolve")
+# the rule: the looser of tests/test_parallel.py's fog and GI rules (both
+# are on): within 2 LSB, above 12 LSB, the seam rows within 2 LSB
+BAND_RULE = dict(within2=0.965, above12=5e-3, seam_within2=0.97)
+
+
+def band_settings_at(scale: float):
+    """The default RenderSettings() at 1920 x BAND_HEIGHT."""
+    return dataclasses.replace(config.RenderSettings(), width=WIDTH,
+                               height=BAND_HEIGHT, pair_budget_scale=scale)
+
+
+def band_kernels(ctx, atlas, mv, settings) -> dict:
+    """Kernels A, E and J on this rank's band of atlas bins (A's keys of
+    the band slice, decoded from view_row0; E on the band's opaque
+    casters; J's alpha casters merged on E's band) and B, K and L on the
+    band view, each against its plain version and timed as BAND_VARIANT
+    (the other ranks wait at a barrier)."""
+    n_cas = settings.shadows.cascade_count
+    check(atlas.view_row0 is not None and int(atlas.overflow) == 0,
+          "band atlas: a band of bins, nothing dropped")
+    ki = raster.pair_key_inputs(atlas.band_setup, atlas.n_bins_y,
+                                atlas.n_bins_x, atlas.pair_budget, atlas.sub,
+                                order_rows=True, n_views=n_cas, band=True)
+    live, bound = check_keys(
+        ki, f"kernel A ({BAND_VARIANT}: atlas bins from row "
+        f"{atlas.view_row0}, {atlas.n_bins_y} rows, {atlas.rows_per_view} "
+        "per cascade)", "T/view")
+    ctx.kernel("expand_keys", lambda: raster.expand_keys(ki), 50,
+               lambda: raster.expand_keys_plain(ki), 10, bound, 0.0)
+    found = dict(atlas_band_row0=atlas.view_row0,
+                 atlas_band_bins=atlas.n_bins_y, atlas_band_live_pairs=live)
+    found.update(check_and_time_e(ctx, atlas, n_cas, variant=BAND_VARIANT))
+    jkl = check_and_time_jkl(ctx, None, settings, f" ({BAND_VARIANT})",
+                             atlas=atlas, mv=mv, variant=BAND_VARIANT)
+    main = jkl.pop("main")
+    jkl.pop("mv")
+    check_and_time_b(ctx, mv, main.pairs, main.pair_edges, main.pair_attrs,
+                     what=f"kernel B ({BAND_VARIANT})", variant=BAND_VARIANT)
+    found.update(jkl)
+    return found
+
+
+def band_rank(group, path: str, settings, n_frames: int) -> dict:
+    """One rank of the band phase (comm.launch spawns it): bench.py's
+    scene, the LUTs and the camera path loaded onto the rank's card,
+    n_frames frames of its band. Frame 0 runs with the main view's setup
+    and the atlas recorded; then rank BAND_CHECK_RANK holds A, B, E, J, K
+    and L to their plain versions on them while the others wait at a
+    barrier; the other frames are timed: CUDA events, host wall,
+    collectives and their ms, host-staged copies, host syncs (sync debug
+    mode), peak memory, launches. If any rank dropped pairs, every rank
+    doubles pair_budget_scale and renders again."""
+    import torch.distributed as dist
+
+    from plainrenderer_tpu_torch.parallel import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = group.device
+    data = torch.load(path, map_location=dev, weights_only=False)
+    scene, luts, cam = data["scene"], data["luts"], data["cam"]
+    native.library()
+    ctx = Ctx(dev)
+    ctx.path = f"band phase, rank {group.rank} of {group.size}"
+    ctx.tag = BAND_VARIANT
+    while True:
+        run, bset = sharding.sharded_frame_fn(settings, group.size)
+        state = sharding.initial_sharded_state(settings, group.size,
+                                               device=dev)
+        kept = []
+        render_atlas = frame.render_shadow_atlas
+
+        def keep_atlas(*args, **kw):
+            kept.append(render_atlas(*args, **kw))
+            return kept[-1]
+        frame.render_shadow_atlas = keep_atlas
+        try:
+            with recorded_calls([(frame, "raster_main_view")]) as rec:
+                image, state = run(group, state, scene, cam, luts,
+                                   1.0 / 60.0)
+        finally:
+            frame.render_shadow_atlas = render_atlas
+        counters = [state.debug_counters]
+        dist.barrier()
+        found = {}
+        if group.rank == BAND_CHECK_RANK:
+            found = band_kernels(ctx, kept[0], rec["raster_main_view"][0][0],
+                                 bset)
+        del kept, rec
+        dist.barrier()
+        torch.cuda.synchronize()
+        native.reset_launch_counts()
+        group.reset_stats()
+        torch.cuda.reset_peak_memory_stats(dev)
+        events, host_ms = [], []
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            for _ in range(n_frames - 1):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                t0 = time.perf_counter()
+                ev[0].record()
+                image, state = run(group, state, scene, cam, luts,
+                                   1.0 / 60.0)
+                ev[1].record()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                events.append(ev)
+                counters.append(state.debug_counters)
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        timed = n_frames - 1
+        syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+        stats = {k: v / timed for k, v in group.stats.items()}
+        counters = torch.stack(counters)
+        dropped = group.max_(counters.max().reshape(1).float())
+        if float(dropped) == 0.0:
+            break
+        print(f"band rank {group.rank}: pairs dropped at "
+              f"pair_budget_scale {settings.pair_budget_scale}", flush=True)
+        settings = dataclasses.replace(
+            settings, pair_budget_scale=2.0 * settings.pair_budget_scale)
+        check(settings.pair_budget_scale <= 64.0, "band budget bounded")
+    return dict(
+        rank=group.rank, transport=group.transport,
+        pair_budget_scale=settings.pair_budget_scale,
+        image=image.cpu(), counters=counters.cpu().numpy(),
+        frame_ms=[a.elapsed_time(b) for a, b in events], host_ms=host_ms,
+        collectives_per_frame=stats["collectives"],
+        collective_ms_per_frame=stats["ms"],
+        host_copies_per_frame=stats["host_copies"],
+        host_syncs_per_frame=syncs / timed,
+        peak_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        launches=native.launch_counts(), timed_frames=timed,
+        variants=ctx.variants, found=found)
+
+
+def gloo_cuda_support(group) -> dict:
+    """Which gloo collectives take CUDA tensors on this PyTorch: each
+    tried once on a CUDA tensor, its outcome reported (comm.py stages
+    every gloo collective through the host whatever this says)."""
+    import torch.distributed as dist
+
+    x = torch.ones(4, device=group.device)
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(group.size)], x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * group.size, device=x.device), x),
+        "barrier": dist.barrier}
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            out[name] = "takes CUDA tensors"
+        except Exception as err:  # reported, nothing is chosen by it
+            out[name] = f"{type(err).__name__}: " \
+                f"{str(err).strip().splitlines()[0][:160]}"
+    return out
+
+
+def band_small_card_vs_cpu(ctx) -> float:
+    """4 bands of the small textured atrium at 128 x 256 (64-row bands;
+    tests/test_parallel.py's GI settings: SDF GI at 8 steps, fog, TAA,
+    bloom, the banded atlas at 512-px maps; the scene SDF baked on the
+    card at 16^3 per mesh), 2 frames on 4 gloo ranks on the card and on 4
+    gloo CPU ranks, by the golden rule."""
+    from plainrenderer_tpu_torch.parallel import comm, sharding
+
+    data = procedural.build_atrium_scene(procedural.AtriumConfig(
+        **SMALL_ATRIUM))
+    rs = scenebuild.build_render_scene(data)
+    gsdf = sdf_scene.build_scene_sdf(rs, data, bake_resolution_cap=16,
+                                     device=ctx.dev)
+    scene = frame.attach_global_sdf(frame.scene_to_device(rs, device="cpu"),
+                                    gsdf)
+    settings = config.RenderSettings(
+        width=128, height=256, exposure_adaption_speed=1000.0,
+        shadows=config.ShadowSettings(resolution=512),
+        sdf_trace=config.SDFTraceSettings(enabled=True, trace_steps=8))
+    ext = cam_mod.extrinsic_from_angles([0.0, -1.7, 0.0], pitch_deg=5.0,
+                                        yaw_deg=20.0)
+    cam = frame.camera_arrays(ext.position, ext.forward, ext.right, ext.up,
+                              device="cpu")
+    luts = {k: v.cpu() for k, v in ctx.luts.items()}
+    images = []
+    for d in ("cuda", "cpu"):
+        runs = comm.launch(sharding.render_bands, BAND_RANKS,
+                           args=(settings, scene, cam, luts, 2), device=d,
+                           timeout=600.0, pg_timeout=300.0)
+        for r in runs:
+            check((r["debug_counters"] == 0).all(),
+                  f"small band frame on {d}: debug_counters [0, 0]")
+        images.append(sharding.assemble_image(
+            torch.stack([r["image"] for r in runs])))
+        print(f"small band frame on {d}: ranks over {runs[0]['transport']}",
+              flush=True)
+    close = golden_close(*images)
+    print(f"small band frame (128 x 256, 4 bands) card vs CPU ranks: "
+          f"{close:.5f} of pixels within 2 LSB (limit > 0.999)", flush=True)
+    check(close > 0.999, "small band frame card vs CPU ranks")
+    return close
+
+
+def band_phase(ctx) -> dict:
+    """Row 8: bench.py's scene in BAND_RANKS bands at 1920 x BAND_HEIGHT
+    on the one card (band_rank), against the parent's single-device render
+    of the same BAND_FRAMES frames by BAND_RULE, seams included; every
+    rank's debug_counters [0, 0], its launches of every kernel of the
+    path, host syncs only the host-staged copies; rank 1's A, B, E, J, K
+    and L against their plain versions; the small band frame card vs
+    CPU ranks. 4 ranks sharing one H100 measure correctness and the
+    collectives' cost, not a speed-up across cards; the NCCL path (one
+    card per rank) does not run on a one-card machine."""
+    import tempfile
+
+    from plainrenderer_tpu_torch.parallel import comm
+
+    t0 = time.time()
+    support = comm.launch(gloo_cuda_support, 2, device="cuda", timeout=120.0,
+                          pg_timeout=30.0)[0]
+    print("gloo on CUDA tensors (torch "
+          f"{torch.__version__}): " + json.dumps(support), flush=True)
+    scene = ctx.scenes["bench"]
+    tmp = Path(tempfile.mkdtemp(prefix="plain_band_phase_"))
+    path = tmp / "inputs.pt"
+    torch.save(dict(scene=scene, luts=ctx.luts, cam=ctx.cam_path), path)
+    backend = comm.pick_backend(BAND_RANKS, "cuda")
+    print(f"band phase: {BAND_RANKS} ranks on {torch.cuda.device_count()} "
+          f"card(s), backend {backend}; 1920 x {BAND_HEIGHT} in bands of "
+          f"{BAND_HEIGHT // BAND_RANKS} rows, {BAND_FRAMES} frames", flush=True)
+    try:
+        runs = comm.launch(band_rank, BAND_RANKS,
+                           args=(str(path), band_settings_at(ctx.scale),
+                                 BAND_FRAMES), device="cuda", timeout=900.0,
+                           pg_timeout=600.0)
+    finally:
+        path.unlink(missing_ok=True)
+        tmp.rmdir()
+    scale = runs[0]["pair_budget_scale"]
+    settings = band_settings_at(scale)
+    state = initial_state(WIDTH, BAND_HEIGHT, device=ctx.dev)
+    for _ in range(BAND_FRAMES):
+        single, state = frame.render_frame(state, scene, ctx.cam_path,
+                                           ctx.luts, 1.0 / 60.0, settings,
+                                           device=ctx.dev)
+    check(state.debug_counters.tolist() == [0, 0],
+          "band phase: the single-device frame drops nothing")
+    single = single.cpu().numpy()
+    bands = np.concatenate([r["image"].numpy() for r in runs])
+    diff = np.abs(single.astype(np.int32) - bands.astype(np.int32))
+    bh = BAND_HEIGHT // BAND_RANKS
+    seam_rows = [y for b in range(1, BAND_RANKS) for y in (b * bh - 1,
+                                                          b * bh)]
+    found = dict(
+        ranks=BAND_RANKS, frames=BAND_FRAMES, height=BAND_HEIGHT,
+        transport=runs[0]["transport"], pair_budget_scale=scale,
+        within2=float((diff <= 2).mean()),
+        above12=float((diff > 12).mean()),
+        seam_within2=float((diff[seam_rows] <= 2).mean()),
+        seam_rows=seam_rows, max_diff=int(diff.max()), rule=BAND_RULE)
+    print(f"band phase: the {BAND_RANKS}-band image against the "
+          f"single-device one: {found['within2']:.5f} within 2 LSB (limit > "
+          f"{BAND_RULE['within2']}), {found['above12']:.2e} above 12 LSB "
+          f"(limit < {BAND_RULE['above12']}), seam rows {seam_rows} "
+          f"{found['seam_within2']:.5f} within 2 LSB (limit > "
+          f"{BAND_RULE['seam_within2']}); max {found['max_diff']}",
+          flush=True)
+    check(found["within2"] > BAND_RULE["within2"]
+          and found["above12"] < BAND_RULE["above12"]
+          and found["seam_within2"] > BAND_RULE["seam_within2"],
+          "band phase: the bands meet the single-device frame")
+    check(bands.std() > 5.0, "band phase: the image is not empty")
+    per_rank = []
+    for r in runs:
+        check((r["counters"] == 0).all(),
+              f"band rank {r['rank']}: debug_counters all [0, 0]: "
+              f"{r['counters'].tolist()}")
+        for name, k in _BENCH.items():
+            check(r["launches"][name] >= k * r["timed_frames"],
+                  f"band rank {r['rank']}: kernel {name} launched {k}x per "
+                  f"frame ({r['launches'][name]} in {r['timed_frames']})")
+        check(r["host_syncs_per_frame"] <= r["collectives_per_frame"],
+              f"band rank {r['rank']}: host syncs only the host-staged "
+              "copies to the host, one per collective")
+        line = {k: r[k] for k in (
+            "rank", "transport", "frame_ms", "host_ms",
+            "collectives_per_frame", "collective_ms_per_frame",
+            "host_copies_per_frame", "host_syncs_per_frame",
+            "peak_allocated_gb")}
+        line["launches_per_frame"] = {
+            k: v / r["timed_frames"] for k, v in r["launches"].items() if v}
+        print("band rank " + json.dumps(line), flush=True)
+        per_rank.append(line)
+    checked = runs[BAND_CHECK_RANK]
+    for name, by_variant in checked["variants"].items():
+        ctx.variants.setdefault(name, {}).update(by_variant)
+    ctx.extra["band_launches"] = {
+        name: checked["launches"][name] for name in BAND_KERNELS}
+    ctx.extra["band_timed_frames"] = checked["timed_frames"]
+    found.update(gloo_cuda_support=support, per_rank=per_rank,
+                 checked_rank=BAND_CHECK_RANK,
+                 checked=checked["found"],
+                 small_card_vs_cpu=band_small_card_vs_cpu(ctx),
+                 phase_s=time.time() - t0)
+    print(f"band phase: {found['phase_s']:.1f} s", flush=True)
+    return found
+
+
 # one slice of the port: its settings, scene, frames, the kernels it
 # launches per frame (the others must stay at 0), the comparisons of its
 # new kernels, the checks after its main-path run and the kernels whose
@@ -2528,6 +2879,8 @@ def main() -> int:
     ctx.report["runtime"] = runtime_phase(ctx)
     ctx.path = "modules"
     ctx.report["modules"] = modules_phase(ctx)
+    ctx.path = "band phase (bench scene)"
+    ctx.report["band"] = band_phase(ctx)
     runtime_launches = ctx.report["runtime"]["launches"]
 
     def launched(name, variant=None):
@@ -2559,6 +2912,12 @@ def main() -> int:
                 if v["variant"] in (PRE_PASS_I, PRE_PASS_H):
                     v["launches_on"] += (": the pre-pass's launch and the "
                                          "default use's, 2 a frame")
+                if v["variant"] == BAND_VARIANT:
+                    v.update(launches=ctx.extra["band_launches"][name],
+                             launches_on=(
+                                 f"band phase: rank {BAND_CHECK_RANK} of "
+                                 f"{BAND_RANKS}, "
+                                 f"{ctx.extra['band_timed_frames']} frames"))
         if name in ctx.earlier:  # its times on earlier rows' inputs
             entry["earlier"] = ctx.earlier[name]
         if name == "expand_keys":  # its second use: the atlas's keys

@@ -4,7 +4,8 @@ The renderer's counterpart of carrying weights: the scene dict of
 plainrenderer_tpu's scene_to_device (frame.py:1156), its FrameState and
 its bake_static_luts dict (frame.py:1257) arrive here as numpy arrays (or
 anything np.asarray accepts) and leave as tensors on `device`, so both
-sides of a comparison start from the same scene, state and LUTs. This
+sides of a comparison start from the same scene, state and LUTs; a
+sharded state (parallel/sharding.py) leaves as one band's state. This
 module imports nothing of the JAX package: the caller converts.
 """
 
@@ -103,3 +104,14 @@ def luts_from_arrays(luts: dict, device="cuda") -> dict:
     """JAX bake_static_luts dict -> the port's LUT tensor dict."""
     dev = device_mod.resolve(device)
     return {k: _tensor(luts[k], dev) for k in LUT_KEYS}
+
+
+def band_state_from_arrays(state_stacked, rank: int,
+                           device="cuda") -> FrameState:
+    """A sharded JAX FrameState (every leaf stacked along a leading band
+    axis: parallel/sharding.initial_sharded_state, or a sharded frame's
+    state') -> band `rank`'s port FrameState."""
+    fields = state_stacked._asdict() if hasattr(state_stacked, "_asdict") \
+        else dict(state_stacked)
+    return state_from_arrays({k: np.asarray(v)[rank]
+                              for k, v in fields.items()}, device)

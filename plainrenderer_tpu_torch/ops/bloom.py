@@ -12,7 +12,9 @@ mip), which XLA keeps in f32 because the bloom is cast to f32 right
 after it. The weights are sums of a few powers of two, exact in bf16, so
 a tap's product is exact and only the sums round.
 
-compute_bloom_banded (split-frame band mode) is not in the port yet.
+compute_bloom_banded is the split-frame band mode's bloom: each band's
+mips 1-2 from an 8-row halo, mip 2 gathered whole, the coarse chain on
+every band, the band's rows recomposed at the end.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import math
 
 import torch
 
-from ..utils.stencil import EdgePadded, point_downsample
+from ..utils.stencil import EdgePadded, clamped_index, point_downsample
 
 
 def _expand_taps(taps):
@@ -125,4 +127,56 @@ def compute_bloom(color, strength: float, blur_radius: float,
             out = (out.float() + up.float() if target == 0 else out + up)
         prev = out
     bloom = prev.to(torch.float32)
+    return color + (bloom - color) * strength
+
+
+def compute_bloom_banded(color, strength: float, blur_radius: float,
+                         mip_count: int, group, halo_extend_fn):
+    """Split-frame bloom (bloom.py:123-186): color (3, hb, W) is one band
+    of the frame, group a comm.BandGroup, halo_extend_fn(x, n) the band's
+    halo exchange. Mips 1 and 2 run on the band from an 8-row halo (every
+    band row of mip 2 then equals the frame's), the bands' mip 2 rows are
+    gathered into the frame's mip 2, mips 3+ and the upsample chain down
+    to mip 1 run on every band, and the band's final rows are recomposed
+    from its halo'd mip 1 and its rows of the frame's upsampled mip 1
+    (edge-padded by one row at the frame's top and bottom, as the
+    stencils clamp). Under the JAX package's conditions (one band, at most
+    two mips, a band height not a multiple of 16, blur_radius past the
+    fixed halo's reach) it is compute_bloom on the band."""
+    hb, w = color.shape[-2:]
+    if group.size <= 1 or mip_count <= 2 or hb % 16 != 0 \
+            or blur_radius > 2.5:
+        return compute_bloom(color, strength, blur_radius, mip_count)
+    ext = halo_extend_fn(color, 8).to(torch.bfloat16)  # (3, hb + 16, w)
+    m1e = downsample_13tap(ext)  # mip-1 rows [-4, hb / 2 + 4)
+    m2e = downsample_13tap(m1e)  # mip-2 rows [-2, hb / 4 + 2)
+    m2_full = group.all_gather(m2e[:, 2:-2].contiguous(), 1)
+    mips_full = [m2_full]
+    for _ in range(mip_count - 3):
+        if mips_full[-1].shape[-1] < 4 or mips_full[-1].shape[-2] < 4:
+            break
+        mips_full.append(downsample_13tap(mips_full[-1]))
+    prev = None  # the upsample chain down to mip 2's resolution
+    for t in range(len(mips_full) - 2, -1, -1):
+        h2, w2 = mips_full[t].shape[-2:]
+        out = _box_upsample(tent9(mips_full[t + 1], blur_radius), h2, w2)
+        if prev is not None:
+            out = out + _box_upsample(prev, h2, w2)
+        prev = out
+    h1, w1 = m2_full.shape[-2] * 2, m2_full.shape[-1] * 2
+    u1_full = _box_upsample(tent9(m2_full, blur_radius), h1, w1)
+    if prev is not None:
+        u1_full = u1_full + _box_upsample(prev, h1, w1)
+
+    def box_up_crop(src):
+        """2x upsample of band rows carrying a 1-row halo -> the band."""
+        return _box_upsample(src, src.shape[-2] * 2, w)[:, 2:-2]
+
+    hb1 = hb // 2
+    r0 = group.rank * hb1  # the band's first mip-1 row, before the pad
+    u1_band = u1_full.index_select(-2, clamped_index(
+        u1_full.shape[-2], r0 - 1, r0 + hb1 + 1, u1_full.device))
+    t1_band = tent9(m1e, blur_radius)[:, 3:-3]  # mip-1 rows [-1, hb1 + 1)
+    # the last sum in f32, as compute_bloom's mip-0 sum
+    bloom = box_up_crop(t1_band).float() + box_up_crop(u1_band).float()
     return color + (bloom - color) * strength

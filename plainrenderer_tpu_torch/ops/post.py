@@ -17,14 +17,18 @@ from ..utils import tonemap as tonemaplib
 from .raster import TILE_H, TILE_W, _kernel_device, _require
 
 
-def tonemap_pass(hdr: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
+def tonemap_pass(hdr: torch.Tensor, time: torch.Tensor,
+                 row_offset: int = 0) -> torch.Tensor:
     """hdr (3, H, W) linear -> (H, W, 3) uint8 sRGB (tonemapping.comp):
-    ACES fitted, sRGB encode, hash dither, round half to even, clip."""
+    ACES fitted, sRGB encode, hash dither, round half to even, clip.
+    row_offset: a split-frame band's first row in the frame, so the
+    dither hash sees the frame's rows (post.py:22-36)."""
     c = tonemaplib.aces_fitted_planar(hdr)
     c = colorlib.linear_to_srgb(c)
     h, w = c.shape[-2:]
     px = torch.arange(w, dtype=torch.int32, device=c.device)[None, :]
-    py = torch.arange(h, dtype=torch.int32, device=c.device)[:, None]
+    py = torch.arange(h, dtype=torch.int32, device=c.device)[:, None] \
+        + row_offset
     px, py = torch.broadcast_tensors(px, py)
     c = c + colorlib.dither_noise_planar(px, py, time)
     u8 = torch.clamp(torch.round(c * 255.0), 0, 255).to(torch.uint8)

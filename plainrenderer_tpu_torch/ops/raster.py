@@ -366,16 +366,20 @@ class KeyInputs:
 def pair_key_inputs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
                     pair_budget: int | None = None, bin_rows: int = 1,
                     order_rows: bool = False, n_views: int = 1,
-                    tri_alpha=None) -> KeyInputs:
+                    tri_alpha=None, band: bool = False) -> KeyInputs:
     """Spans, their int32 prefix sum and the packed per-triangle geometry
     word (raster.py:829-867); n_views > 1 for a vertical atlas of views
     with T / n_views triangles each; tri_alpha (T,) bool adds a key bit
     that sorts alpha-tested pairs to the end of each bin (raster.py:821,
-    :865-866, :897)."""
+    :865-866, :897). band: the bins are a band of the atlas that may
+    start or end inside a view (build_pairs' view_row0), so only the
+    triangles must split evenly into views."""
     t_count = setup.valid.shape[0]
     n_tiles = n_tiles_y * n_tiles_x
-    if t_count % n_views or n_tiles % n_views:
-        raise ValueError("triangles and tiles must split evenly into views")
+    if t_count % n_views:
+        raise ValueError("triangles must split evenly into views")
+    if n_tiles % n_views and not band:
+        raise ValueError("tiles must split evenly into views")
     tpv = t_count // n_views
     key_rows = bin_rows if order_rows else 1
     key_alpha = 1 if tri_alpha is None else 2
@@ -505,7 +509,8 @@ def build_pairs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
                 pair_budget: int | None = None, bin_rows: int = 1,
                 order_rows: bool = False, n_views: int = 1,
                 tile_cap: int | None = None, tri_alpha=None,
-                carry_table=None):
+                carry_table=None, view_row0: int | None = None,
+                rows_per_view: int | None = None):
     """Expand triangles into sorted per-bin pair lists (raster.py:737).
 
     Exact prefix-sum emission into one `pair_budget`-slot stream; pairs
@@ -523,13 +528,24 @@ def build_pairs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
     have no slot to pack (raster.py:994-1001). tri_alpha (T,) bool sorts
     each bin's alpha-tested pairs to its end (raster.py:821-830).
 
+    view_row0 + rows_per_view (the split-frame atlas band): the setup's
+    bin rows are local to a band of the atlas whose first bin row is the
+    atlas's row view_row0 (an int: the band's index times its height);
+    rows_per_view is the whole atlas's bin rows per view. The decode
+    recovers a bin's view as (view_row0 + bin_row) // rows_per_view, so a
+    band may start or end inside a cascade (raster.py:787-793, :973-978);
+    kernel A's key stays view-local.
+
     carry_table (rows, T+1) f32, a setup_row_table: kernel M expands its
     columns into presort slot order and the sort's permutation moves them
     with the keys (raster.py:938-960); returns (pairs, pair_rows), the
     (rows, budget + GROUP) pair-order rows, zero past the live slots. The
     frame does not use this path (raster.py:628-634)."""
+    if (view_row0 is None) != (rows_per_view is None):
+        raise ValueError("view_row0 and rows_per_view go together")
     ki = pair_key_inputs(setup, n_tiles_y, n_tiles_x, pair_budget,
-                         bin_rows, order_rows, n_views, tri_alpha)
+                         bin_rows, order_rows, n_views, tri_alpha,
+                         band=view_row0 is not None)
     t_count = setup.valid.shape[0]
     n_tiles = n_tiles_y * n_tiles_x
     keys, owners = expand_keys(ki)
@@ -544,7 +560,11 @@ def build_pairs(setup: TriangleSetup, n_tiles_y: int, n_tiles_x: int,
     key_span = ki.key_rows * ki.key_alpha * (ki.tpv + 1)
     # sentinel keys decode to tile == n_tiles -> view n_views -> index
     # t_count, the degenerate padding row
-    view = (keys_sorted // key_span) // (n_tiles // n_views)
+    tile_s = keys_sorted // key_span
+    if view_row0 is not None:
+        view = (view_row0 + tile_s // n_tiles_x) // rows_per_view
+    else:
+        view = tile_s // (n_tiles // n_views)
     tri_glob = view * ki.tpv + keys_sorted % (ki.tpv + 1)
     pair_tri = torch.cat([
         torch.clamp(tri_glob, max=t_count).to(torch.int32),

@@ -353,14 +353,19 @@ def sample_transmission_towards_sun(transmission_lut, sun_direction):
 
 
 def view_directions(width, height, cam_forward, cam_up, cam_right,
-                    tan_fov_half, aspect):
+                    tan_fov_half, aspect, ndc_y_scale=None,
+                    ndc_y_offset=None):
     """screenToWorld.inc:4-9 — per-pixel ray directions (camera -> scene),
-    channel-planar (3, H, W): forward + tan*(aspect*x*right - y*up)."""
+    channel-planar (3, H, W): forward + tan*(aspect*x*right - y*up).
+    A split-frame band (0-d ndc_y_scale / ndc_y_offset tensors) maps its
+    band-local NDC y into the frame's frustum (sky.py:405-407)."""
     dev = cam_forward.device
     xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) \
         / width * 2.0 - 1.0
     ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) \
         / height * 2.0 - 1.0
+    if ndc_y_scale is not None:
+        ys = (ys - ndc_y_offset) / ndc_y_scale
     ndc_x = xs[None, :].expand(height, width)
     ndc_y = ys[:, None].expand(height, width)
     f, u, r = cam_forward, cam_up, cam_right

@@ -1,5 +1,4 @@
-"""Froxel volumetric lighting (plainrenderer_tpu/ops/volumetrics.py,
-single-device: the split-frame halo_fn branches are not in the port).
+"""Froxel volumetric lighting (plainrenderer_tpu/ops/volumetrics.py).
 
 A froxel grid of screen/8 x screen/8 x 64 slices with an exponential
 depth distribution (k = 3, volumetricFroxelLighting.inc:22-41), every
@@ -19,6 +18,11 @@ volume channel-planar (C, D, Hf, Wf):
     slices (volumetricLightingIntegration.comp);
   - apply_froxel_fog: the per-pixel lookup at quarter resolution with a
     noise-jittered slice, bilinearly upsampled (triangle.frag:131-144).
+
+In split-frame band mode the froxel grids span the band's sub-frustum,
+and the coarse-to-fine upsamples and the fog apply take a halo_fn that
+adds one row of the neighbouring bands on each side before the resize
+and crop after it, so they interpolate across band borders.
 
 The trilinear / bilinear resizes are jax.image.resize's separable
 triangle weights (ops/sky._resize_weights). Divisions the JAX package
@@ -108,12 +112,23 @@ def froxel_world_positions(res_xyz, cam, tan_fov_half, aspect,
                            max_distance, sample_offset=0.5):
     """Froxel centres in world space, (3, D, Hf, Wf)
     (froxelVolumeMaterial.comp:24-30): the view ray through the froxel's
-    NDC, unnormalised so dot(ray, forward) == 1, times the slice depth."""
+    NDC, unnormalised so dot(ray, forward) == 1, times the slice depth.
+    A band camera (0-d "ndc_y_scale" / "ndc_y_offset") gets the band's
+    rows of the frame's grid, computed from their global row index in
+    the JAX package's operation order (volumetrics.py:115-125), so they
+    equal the single-device grid's rows bit for bit."""
     wf, hf, d = res_xyz
     dev = cam["position"].device
     ar = dict(dtype=torch.float32, device=dev)
     xs = _div(torch.arange(wf, **ar) + sample_offset, wf) * 2.0 - 1.0
-    ys = _div(torch.arange(hf, **ar) + sample_offset, hf) * 2.0 - 1.0
+    if "ndc_y_scale" in cam:
+        nsc = cam["ndc_y_scale"]
+        band = torch.round((-cam["ndc_y_offset"] / nsc + 1.0) * nsc * 0.5
+                           - 0.5)
+        g = band * hf + torch.arange(hf, **ar) + sample_offset
+        ys = g / (hf * nsc) * 2.0 - 1.0
+    else:
+        ys = _div(torch.arange(hf, **ar) + sample_offset, hf) * 2.0 - 1.0
     depth = froxel_uv_to_depth(_div(torch.arange(d, **ar) + sample_offset, d),
                                max_distance)
     f, u, r = cam["forward"], cam["up"], cam["right"]
@@ -141,9 +156,16 @@ def material_volume(world_pos, settings, wind_offset):
     return torch.stack([scatter, scatter, scatter, absorption])
 
 
-def _resize_coarse(x, fine_shape):
+def _resize_coarse(x, fine_shape, halo_fn=None):
     """jax.image.resize(x, lead + fine_shape, "trilinear"): the separable
-    triangle weights along each of the last three axes."""
+    triangle weights along each of the last three axes. halo_fn (band
+    mode) adds one coarse row of the neighbouring bands on each side; the
+    rows are resized with them and cropped after (volumetrics.py:220-236)."""
+    if halo_fn is not None:
+        ratio = fine_shape[-2] // x.shape[-2]
+        d, hf, wf = fine_shape
+        return _resize_coarse(halo_fn(x), (d, hf + 2 * ratio, wf))[
+            ..., ratio:-ratio, :]
     out = x
     for axis, n_out in zip((-3, -2, -1), fine_shape):
         n_in = out.shape[axis]
@@ -155,12 +177,14 @@ def _resize_coarse(x, fine_shape):
 
 
 def light_scattering(material, world_pos, shadow_coarse, cam, sun_dir,
-                     sun_color, sun_strength, phase_g, ambient=0.02):
+                     sun_color, sun_strength, phase_g, ambient=0.02,
+                     halo_fn=None):
     """froxelLightScattering.comp — per-froxel inscattering rgb and the
     transmittance coefficient, (4, D, Hf, Wf); shadow_coarse (Dc, Hc, Wc)
-    is trilinearly upsampled (volumetrics.py:188)."""
+    is trilinearly upsampled (volumetrics.py:188), across band borders
+    with halo_fn."""
     _, d, hf, wf = material.shape
-    shadow = _resize_coarse(shadow_coarse, (d, hf, wf))
+    shadow = _resize_coarse(shadow_coarse, (d, hf, wf), halo_fn)
     vx = world_pos[0] - cam["position"][0]
     vy = world_pos[1] - cam["position"][1]
     vz = world_pos[2] - cam["position"][2]
@@ -181,12 +205,12 @@ def light_scattering(material, world_pos, shadow_coarse, cam, sun_dir,
 
 def temporal_reprojection(current, history, world_pos_coarse, prev_view_proj,
                           prev_cam_pos, prev_cam_forward, max_distance,
-                          camera_cut):
+                          camera_cut, halo_fn=None):
     """volumeLightingReprojection.comp — EMA alpha 0.95 with the history
     fetched trilinearly at the coarse points' previous-frustum froxel
     coords, upsampled to the full grid (volumetrics.py:239).
     current / history (4, D, Hf, Wf); world_pos_coarse (3, Dc, Hc, Wc);
-    camera_cut a 0-d bool tensor."""
+    camera_cut a 0-d bool tensor; halo_fn as light_scattering's."""
     _, d, hf, wf = current.shape
     _, dc, hc, wc = world_pos_coarse.shape
     p = world_pos_coarse.reshape(3, -1).T
@@ -225,8 +249,9 @@ def temporal_reprojection(current, history, world_pos_coarse, prev_view_proj,
     c1 = c10 + (c11 - c10) * fy
     hist = torch.where(ok[None], c0 + (c1 - c0) * fz, 0.0)
     alpha_c = torch.where(ok, 0.95, 0.0).reshape(dc, hc, wc)
-    alpha = _resize_coarse(alpha_c, (d, hf, wf))
-    hist_full = _resize_coarse(hist.reshape(4, dc, hc, wc), (d, hf, wf))
+    alpha = _resize_coarse(alpha_c, (d, hf, wf), halo_fn)
+    hist_full = _resize_coarse(hist.reshape(4, dc, hc, wc), (d, hf, wf),
+                               halo_fn)
     alpha = torch.where(camera_cut, 0.0, alpha)
     out = current + (hist_full - current) * alpha[None]
     return torch.where(torch.isnan(out), current, out)
@@ -255,10 +280,12 @@ def integrate_froxels(scattering, max_distance):
 
 
 def apply_froxel_fog(color, pixel_depth, integrated, max_distance, noise,
-                     quarter: int = 4):
+                     quarter: int = 4, halo_fn=None):
     """Per-pixel fog (triangle.frag:131-144): color * T + inscatter, the
     froxel lookup at 1/quarter resolution with the slice jittered by noise
-    (H, W) in [0, 1), bilinearly upsampled."""
+    (H, W) in [0, 1), bilinearly upsampled; with halo_fn (band mode) one
+    quarter-resolution row of the neighbouring bands on each side joins
+    the upsample, cropped after (volumetrics.py:351-356)."""
     _, h, w = color.shape
     _, d, hf, wf = integrated.shape
     q = quarter
@@ -272,5 +299,8 @@ def apply_froxel_fog(color, pixel_depth, integrated, max_distance, noise,
     fx = torch.clamp(torch.arange(wq, device=dev) * q // (w // wf), 0, wf - 1)
     fy = torch.clamp(torch.arange(hq, device=dev) * q // (h // hf), 0, hf - 1)
     fog_q = integrated[:, z_idx, fy[:, None], fx[None, :]]
-    fog = resize_bilinear(fog_q, h, w)
+    if halo_fn is not None:
+        fog = resize_bilinear(halo_fn(fog_q), h + 2 * q, w)[:, q:-q]
+    else:
+        fog = resize_bilinear(fog_q, h, w)
     return color * fog[3][None] + fog[0:3]

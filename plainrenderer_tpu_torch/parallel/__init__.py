@@ -1,1 +1,1 @@
-"""Multi-device helpers (plainrenderer_tpu/parallel/); single device only."""
+"""Split-frame band rendering over torch.distributed (plainrenderer_tpu/parallel/)."""

@@ -21,9 +21,17 @@ dynamic SDF objects the scene SDF is recomposited each frame. shading.texture_fi
 turn on kernel D's trilinear and anisotropic branches. The three debug
 views (ops/debugviz.py) draw where the JAX frame draws them: the cascade
 tint before the sky composite, the AABB wireframes over the tonemapped
-image, the SDF visualisation in place of it. Every setting outside it
-(more than 4 shadow cascades, split-frame bands) raises
-NotImplementedError instead of silently skipping its pass.
+image, the SDF visualisation in place of it. More than 4 shadow cascades
+raise NotImplementedError instead of silently skipping a pass.
+Split-frame band mode (render_frame's group and full_height; driven
+through parallel/sharding.py) renders one horizontal band of the frame
+per rank of a torch.distributed group: the band's sub-frustum from cam
+"ndc_y_scale" / "ndc_y_offset", the exposure histogram summed over the
+bands, the cascade fit on the frame's depth range (min / max over the
+bands), each rank rasterizing one band of the shadow atlas's bins
+(kernels A, E, J) and the bands gathered, halo rows exchanged with the
+neighbouring bands before the GI chain, the fog's upsamples and TAA,
+banded bloom, and the dither hash on the frame's rows.
 render_frame runs eagerly and never synchronises with the host: every
 per-frame value stays a device tensor. A camera whose leaves lead with a
 path dimension is indexed on the device by the frame counter
@@ -81,10 +89,12 @@ def _view_matrix(cam: dict) -> torch.Tensor:
     return m
 
 
-def _projection(settings: RenderSettings) -> np.ndarray:
+def _projection(settings: RenderSettings,
+                full_height: int | None = None) -> np.ndarray:
     """Camera.cpp:14-27 — GL perspective + Vulkan reverse-Z correction
-    (numpy f32, as the JAX package builds it)."""
-    aspect = settings.width / settings.height
+    (numpy f32, as the JAX package builds it); a band's aspect is the
+    whole frame's (full_height)."""
+    aspect = settings.width / (full_height or settings.height)
     tan_half = math.tan(math.radians(FOV_DEG) * 0.5)
     near, far = NEAR_PLANE, FAR_PLANE
     p = np.zeros((4, 4), np.float32)
@@ -215,7 +225,6 @@ def check_slice(scene: dict, cam: dict, settings: RenderSettings) -> None:
     unported = [
         (settings.shadows.cascade_count > shadow.MAX_CASCADES,
          f"more than {shadow.MAX_CASCADES} shadow cascades"),
-        ("ndc_y_scale" in cam, "split-frame band mode (cam 'ndc_y_scale')"),
     ]
     missing = [name for bad, name in unported if bad]
     if missing:
@@ -256,9 +265,22 @@ class MainRaster:
     alpha_attrs: torch.Tensor | None = None  # (32 or 40, P_a)
 
 
+def band_projection(proj: torch.Tensor, cam: dict) -> torch.Tensor:
+    """A split-frame band's asymmetric sub-frustum (frame.py:345-351):
+    y' = ndc_y_scale * y + ndc_y_offset * w, from the band's 0-d cam
+    leaves; a camera without them keeps proj."""
+    if "ndc_y_scale" not in cam:
+        return proj
+    band = torch.eye(4, dtype=torch.float32, device=proj.device)
+    band[1, 1] = cam["ndc_y_scale"]
+    band[1, 3] = cam["ndc_y_offset"]
+    return fma_matmul(band, proj)
+
+
 def main_view_setup(scene: dict, cam: dict, settings: RenderSettings,
                     jitter_ndc=None, prev_view_proj=None,
-                    prev_corners=None) -> MainView:
+                    prev_corners=None, full_height: int | None = None,
+                    n_bands: int = 1) -> MainView:
     """Camera matrices, frustum cull and geometry setup of the main view
     (frame.py:342-420), with its bin grid and pair budgets (:450, :484).
     jitter_ndc (2,), the TAA jitter in NDC units, is added to the
@@ -266,13 +288,19 @@ def main_view_setup(scene: dict, cam: dict, settings: RenderSettings,
     "alpha_masks" is present and not None gets the 8-plane setup
     (frame.py:408-420). A dynamic scene passes its previous-frame corners
     and the previous view-projection: the setup then carries the
-    previous-frame clip planes (39 attribute rows)."""
+    previous-frame clip planes (39 attribute rows). A split-frame band
+    (a cam with "ndc_y_scale", full_height the frame's rows, n_bands
+    bands) projects through its sub-frustum (band_projection), with the
+    jitter added after it, and shares the triangle-proportional budget
+    terms out at twice the even share (frame.py:440-450, :484)."""
     width, height = settings.width, settings.height
     pw, ph = raster.pad_resolution(width, height)
     m_sub = main_bin_sub(ph)
     nty, ntx = ph // (raster.TILE_H * m_sub), pw // raster.TILE_W
     view = _view_matrix(cam)
-    proj = _frame_constants(settings, view.device)["projection"]
+    proj = band_projection(
+        _frame_constants(settings, view.device, full_height)["projection"],
+        cam)
     if jitter_ndc is not None:
         proj = proj.clone()
         proj[0:2, 2] += jitter_ndc
@@ -294,12 +322,15 @@ def main_view_setup(scene: dict, cam: dict, settings: RenderSettings,
     # ~2x headroom over measured occupancy; overflow lands in
     # debug_counters
     scale = settings.pair_budget_scale
+    share = max(1, n_bands // 2)
     return MainView(
         view_proj=view_proj, setup=setup, n_tiles_y=nty, n_tiles_x=ntx,
         sub=m_sub,
-        pair_budget=int((t_count // 4 + 8 * nty * m_sub * ntx) * scale),
+        pair_budget=int((t_count // (4 * share) + 8 * nty * m_sub * ntx)
+                        * scale),
         alpha_masks=masks, alpha_slots=slots,
-        alpha_budget=int((t_count // 32 + 4 * nty * m_sub * ntx) * scale))
+        alpha_budget=int((t_count // (32 * share) + 4 * nty * m_sub * ntx)
+                         * scale))
 
 
 def _fill(values, dev: torch.device) -> torch.Tensor:
@@ -312,15 +343,17 @@ def _fill(values, dev: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
-def _frame_constants(settings: RenderSettings, dev: torch.device) -> dict:
-    """Per-settings device constants, made once and reused every frame."""
+def _frame_constants(settings: RenderSettings, dev: torch.device,
+                     full_height: int | None = None) -> dict:
+    """Per-settings device constants, made once and reused every frame
+    (a band's projection has the whole frame's aspect: full_height)."""
     return {
         "sun_dir": mathutils.direction_to_vector(
             _fill(settings.sun_direction_angles, dev)),
         "sun_illuminance": _fill(settings.sun_illuminance, dev),
         "exposure_offset": _fill(settings.exposure_offset, dev),
         "adaption_speed": _fill(settings.exposure_adaption_speed, dev),
-        "projection": _fill(_projection(settings), dev),
+        "projection": _fill(_projection(settings, full_height), dev),
         # the last cascade reaches the SDF influence radius and the fog's
         # far plane (lightMatrix.comp push constants, frame.py:587-588)
         "sdf_influence": _fill(settings.sdf_trace.influence_radius, dev),
@@ -439,6 +472,35 @@ def shadow_atlas_setup(scene: dict, cascade_mats: torch.Tensor, n_cas: int,
         fine_y=(s_setup.fine_y + fine_offs).reshape(-1, 2))
 
 
+def _atlas_band_slice(stp: raster.TriangleSetup, row0_bins: int,
+                      nbd_bins: int, sub: int) -> raster.TriangleSetup:
+    """An atlas setup restricted to a band of nbd_bins bins starting at
+    the atlas's bin row row0_bins (frame.py:229-260): the edge planes
+    rebased so band-local y = 0 is global row row0_bins * sub * 16
+    (c' = c + b * y0), bboxes and fine rows shifted into the band and
+    clamped, triangles outside it made invalid (invalid rows keep empty
+    ranges)."""
+    y0_px = float(row0_bins * sub * raster.TILE_H)
+    e = stp.edges
+    edges = torch.stack([e[0], e[1], e[2] + e[1] * y0_px])
+    ty0 = stp.tile_bbox[:, 0] - row0_bins
+    ty1 = stp.tile_bbox[:, 2] - row0_bins
+    valid = stp.valid & (ty1 >= 0) & (ty0 < nbd_bins)
+    bbox = torch.stack([
+        torch.where(valid, torch.clamp(ty0, 0, nbd_bins - 1), 1),
+        torch.where(valid, stp.tile_bbox[:, 1], 1),
+        torch.where(valid, torch.clamp(ty1, 0, nbd_bins - 1), 0),
+        torch.where(valid, stp.tile_bbox[:, 3], 0)], dim=1)
+    r16, n_f = row0_bins * sub, nbd_bins * sub
+    fine = torch.stack([
+        torch.where(valid, torch.clamp(stp.fine_y[:, 0] - r16, 0, n_f - 1),
+                    1),
+        torch.where(valid, torch.clamp(stp.fine_y[:, 1] - r16, 0, n_f - 1),
+                    0)], dim=1)
+    return dataclasses.replace(stp, edges=edges, tile_bbox=bbox,
+                               valid=valid, fine_y=fine)
+
+
 @dataclasses.dataclass
 class ShadowAtlas:
     """The cascade fit and the rendered cascade maps of one frame."""
@@ -450,12 +512,18 @@ class ShadowAtlas:
     setup: raster.TriangleSetup  # the atlas stream, n_cas * T triangles
     pairs: raster.PairLists  # the opaque casters'
     edges: torch.Tensor  # (16, P) pair edge rows, as kernel E read them
-    n_bins_y: int  # atlas bins of sub * 16 rows
+    n_bins_y: int  # atlas bins of sub * 16 rows (this band's)
     n_bins_x: int
     sub: int
     pair_budget: int
     overflow: torch.Tensor  # () i32, both streams' dropped pairs
     alpha: AlphaCasters | None = None
+    # split-frame band mode: the opaque stream's setup as kernel A binned
+    # it (the band slice), its first bin row in the atlas and the atlas's
+    # bin rows per cascade (build_pairs' view_row0, rows_per_view)
+    band_setup: raster.TriangleSetup | None = None
+    view_row0: int | None = None
+    rows_per_view: int | None = None
 
 
 @dataclasses.dataclass
@@ -465,13 +533,14 @@ class AlphaCasters:
     pairs: raster.PairLists
     edges: torch.Tensor  # (32, P) pair edge rows
     masks: torch.Tensor  # (n, 128) i32
-    n_bins_y: int  # atlas bins of sub * 16 rows
+    n_bins_y: int  # atlas bins of sub * 16 rows (this band's)
     sub: int
     pair_budget: int
 
 
 def render_shadow_atlas(scene: dict, cam: dict, depth: torch.Tensor,
-                        settings: RenderSettings) -> ShadowAtlas:
+                        settings: RenderSettings, group=None,
+                        full_height: int | None = None) -> ShadowAtlas:
     """Cascade fit from the frame's depth bounds, then every cascade in one
     depth-only atlas pass: atlas setup, binning (kernel A, multi-view
     keys), setup gather and depth raster (kernel E) (frame.py:576-752,
@@ -479,14 +548,27 @@ def render_shadow_atlas(scene: dict, cam: dict, depth: torch.Tensor,
     casters are a second stream (frame.py:637-723): re-binned on
     a_sub = min(4, sub) bins from their fine rows, without row order, and
     rasterized by kernel J, max-merged in place onto kernel E's opaque
-    atlas."""
+    atlas.
+
+    In split-frame band mode (group, a comm.BandGroup) the cascades fit
+    the frame's depth range (min / max over the bands) and the frame's
+    aspect (full_height), and each rank bins and rasterizes only its
+    band of ceil(bins / bands) atlas bins (_atlas_band_slice, kernel A's
+    decode from view_row0; the alpha stream's band covers the same pixel
+    rows on its finer bins), each budget's triangle term at twice the
+    even share; the bands are gathered and the padded tail cut
+    (frame.py:578-582, :609-746)."""
     consts = _frame_constants(settings, depth.device)
     n_cas = settings.shadows.cascade_count
     d_min, d_max = hiz.depth_min_max(depth)
+    n_dev = 1 if group is None else group.size
+    if group is not None:
+        d_min, d_max = group.min_(d_min), group.max_(d_max)
     cascade_mats, splits, cascade_scales = shadow.compute_cascade_info(
         d_min, d_max, cam["position"], cam["forward"], cam["up"],
         cam["right"], math.tan(math.radians(FOV_DEG) * 0.5),
-        settings.width / settings.height, NEAR_PLANE, FAR_PLANE,
+        settings.width / (full_height or settings.height), NEAR_PLANE,
+        FAR_PLANE,
         consts["sun_dir"], n_cas, consts["sdf_influence"],
         consts["fog_max_distance"],
         sample_radius=settings.shadows.sample_radius)
@@ -500,19 +582,28 @@ def render_shadow_atlas(scene: dict, cam: dict, depth: torch.Tensor,
     slots = None if masks is None else scene["tri_alpha_slot"]
     setup = shadow_atlas_setup(scene, cascade_mats, n_cas, sres, slots)
     scale = settings.pair_budget_scale
+    # this rank's band of bins (all of them on one device), ceil-sized
+    nb_d = -(-nb // n_dev)
+    row0 = None if n_dev == 1 else group.rank * nb_d
+    share = max(n_dev // 2, 1)
     # budget 1/6 of the atlas triangle stream + a per-bin floor
     # (frame.py:625-635); overflow lands in debug_counters[1]
-    budget = int(((n_cas * t_count) // 6 + 4 * nb * s_sub * s_ntx) * scale)
+    budget = int(((n_cas * t_count) // (6 * share) + 4 * nb_d * s_sub * s_ntx)
+                 * scale)
     setup_o = setup
     if masks is not None:
         is_alpha = (slots > 0).repeat(n_cas)
         setup_o = opaque_stream(setup, is_alpha)
-    pairs = raster.build_pairs(setup_o, nb, s_ntx, pair_budget=budget,
+    if row0 is not None:
+        setup_o = _atlas_band_slice(setup_o, row0, nb_d, s_sub)
+    pairs = raster.build_pairs(setup_o, nb_d, s_ntx, pair_budget=budget,
                                bin_rows=s_sub, order_rows=True,
-                               n_views=n_cas, tile_cap=1 << 15)
+                               n_views=n_cas, tile_cap=1 << 15,
+                               view_row0=row0,
+                               rows_per_view=None if row0 is None else s_nty)
     edges, _ = raster.gather_pair_setups(setup_o, pairs, row_extents=True,
                                          with_attrs=False)
-    atlas = raster.rasterize_depth(edges, pairs, nb, s_ntx, sub=s_sub,
+    atlas = raster.rasterize_depth(edges, pairs, nb_d, s_ntx, sub=s_sub,
                                    row_skip=True)
     overflow, alpha = pairs.overflow, None
     if masks is not None:
@@ -520,18 +611,24 @@ def render_shadow_atlas(scene: dict, cam: dict, depth: torch.Tensor,
         # (frame.py:677-685); the band covers the same pixel rows as the
         # opaque pass, so the max-merge onto it lines up
         a_sub = min(4, s_sub)
-        a_nb = nb * (s_sub // a_sub)
+        a_scale = s_sub // a_sub
+        a_nb = nb_d * a_scale
+        a_row0 = None if row0 is None else row0 * a_scale
+        a_nty = sres // (raster.TILE_H * a_sub)
         fy = setup.fine_y
         setup_a = dataclasses.replace(
             setup, valid=setup.valid & is_alpha,
             tile_bbox=torch.stack([fy[:, 0] // a_sub, setup.tile_bbox[:, 1],
                                    fy[:, 1] // a_sub, setup.tile_bbox[:, 3]],
                                   dim=1))
-        a_budget = int(((n_cas * t_count) // 24 + 4 * a_nb * a_sub * s_ntx)
-                       * scale)
-        pairs_a = raster.build_pairs(setup_a, a_nb, s_ntx,
-                                     pair_budget=a_budget, bin_rows=a_sub,
-                                     n_views=n_cas, tile_cap=1 << 15)
+        if a_row0 is not None:
+            setup_a = _atlas_band_slice(setup_a, a_row0, a_nb, a_sub)
+        a_budget = int(((n_cas * t_count) // (24 * share)
+                        + 4 * a_nb * a_sub * s_ntx) * scale)
+        pairs_a = raster.build_pairs(
+            setup_a, a_nb, s_ntx, pair_budget=a_budget, bin_rows=a_sub,
+            n_views=n_cas, tile_cap=1 << 15, view_row0=a_row0,
+            rows_per_view=None if a_row0 is None else a_nty)
         edges_a, _ = raster.gather_pair_setups(setup_a, pairs_a,
                                                with_attrs=False)
         alpha = AlphaCasters(pairs=pairs_a, edges=edges_a, masks=masks,
@@ -539,6 +636,9 @@ def render_shadow_atlas(scene: dict, cam: dict, depth: torch.Tensor,
         raster.rasterize_depth(edges_a, pairs_a, a_nb, s_ntx, sub=a_sub,
                                alpha_masks=masks, init_depth=atlas)
         overflow = overflow + pairs_a.overflow
+    if row0 is not None:
+        # the bands reassembled; a ceil-padded tail is cut (frame.py:742-746)
+        atlas = group.all_gather(atlas, 0)[:n_cas * sres]
     maps = atlas.reshape(n_cas, sres, sres)
     if n_cas < shadow.MAX_CASCADES:
         maps = torch.cat([maps, torch.zeros(
@@ -546,9 +646,11 @@ def render_shadow_atlas(scene: dict, cam: dict, depth: torch.Tensor,
             device=maps.device)])
     return ShadowAtlas(cascade_mats=cascade_mats, splits=splits,
                        cascade_scales=cascade_scales, maps=maps, setup=setup,
-                       pairs=pairs, edges=edges, n_bins_y=nb, n_bins_x=s_ntx,
-                       sub=s_sub, pair_budget=budget, overflow=overflow,
-                       alpha=alpha)
+                       pairs=pairs, edges=edges, n_bins_y=nb_d,
+                       n_bins_x=s_ntx, sub=s_sub, pair_budget=budget,
+                       overflow=overflow, alpha=alpha, band_setup=setup_o,
+                       view_row0=row0,
+                       rows_per_view=None if row0 is None else s_nty)
 
 
 def blue_noise_screen(luts: dict, frame_index: torch.Tensor, ph: int,
@@ -646,12 +748,15 @@ def trace_scene_gi(scene: dict, inp: GITraceInputs, settings: RenderSettings,
 def sdf_gi(state: FrameState, scene: dict, luts: dict,
            settings: RenderSettings, valid, world_pos, geo_normal, depth,
            pixel_depth, prev_ndc, sky_lut, sun_dir, sun_color,
-           sun_strength_exposed, timer=None, jitter_ndc=None):
+           sun_strength_exposed, timer=None, jitter_ndc=None, group=None,
+           full_height: int | None = None):
     """The GI pass (frame.py:793-899): trace (kernel G) -> resolve ->
     spatial -> history resample (kernel H) + temporal -> spatial ->
     upscale. jitter_ndc is the frame's TAA jitter (None: no jitter).
-    Returns (indirect_y_sh (4, H, W), indirect_cocg (2, H, W), new
-    gi_history)."""
+    In split-frame band mode (group) the 48-row halo carries the
+    neighbouring bands' rows and the spatial filters' projection scale
+    is the whole frame's (full_height). Returns (indirect_y_sh (4, H,
+    W), indirect_cocg (2, H, W), new gi_history)."""
     half = settings.sdf_trace.half_resolution
     stride = 2 if half else 1
     width, height = settings.width, settings.height
@@ -666,13 +771,14 @@ def sdf_gi(state: FrameState, scene: dict, luts: dict,
     # the chain (resolve -> spatial -> temporal -> spatial) reaches ~40
     # half-res rows: one 48-row halo covers it (frame.py:851)
     halo = min(48, gh) // raster.TILE_H * raster.TILE_H
-    y_sh = halo_extend(y_sh, halo)
-    cocg = halo_extend(cocg, halo)
-    normal_e = halo_extend(inp.normal, halo)
-    wpos_e = halo_extend(inp.world_pos, halo)
-    lindepth_e = halo_extend(inp.lin_depth, halo)
+    y_sh = halo_extend(y_sh, halo, group)
+    cocg = halo_extend(cocg, halo, group)
+    normal_e = halo_extend(inp.normal, halo, group)
+    wpos_e = halo_extend(inp.world_pos, halo, group)
+    lindepth_e = halo_extend(inp.lin_depth, halo, group)
     y_sh, cocg = sdfgi.neighborhood_resolve(y_sh, cocg, normal_e, lindepth_e)
-    proj_scale = 0.5 * height / math.tan(math.radians(FOV_DEG) * 0.5)
+    proj_scale = 0.5 * (full_height or height) / math.tan(
+        math.radians(FOV_DEG) * 0.5)
     y_sh, cocg = sdfgi.spatial_filter(
         y_sh, cocg, normal_e, wpos_e, lindepth_e, state.frame_index, 1.5,
         proj_scale / stride, seed=0)
@@ -680,9 +786,9 @@ def sdf_gi(state: FrameState, scene: dict, luts: dict,
         jitter_ndc = torch.zeros_like(state.prev_jitter)
     motion_e = halo_extend(to_gi_res(taa.compute_motion(
         prev_ndc, valid, jitter_ndc, state.prev_jitter, width, height),
-        gh, gw, stride), halo)
+        gh, gw, stride), halo, group)
     hist, hist_ok = taa.resample_packed_planes(
-        halo_extend(state.gi_history, halo), motion_e, gw, gh)
+        halo_extend(state.gi_history, halo, group), motion_e, gw, gh)
     mx = motion_e[0] * width
     my = motion_e[1] * height
     y_sh, cocg = sdfgi.temporal_filter_gi(
@@ -708,13 +814,20 @@ def sdf_gi(state: FrameState, scene: dict, luts: dict,
 
 def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
                  delta_time, settings: RenderSettings, device="cuda",
-                 timer=None):
+                 timer=None, group=None, full_height: int | None = None):
     """One frame: (image_u8 (H, W, 3), FrameState').
 
     All inputs must lie on `device`. cam is one camera, or a camera path
     whose leaves lead with the path length (camera_at_frame). timer
     (utils.timing.PassTimer) records a CUDA event at each pass boundary;
-    None records nothing."""
+    None records nothing.
+
+    Split-frame band mode (frame.py:266-283): group, a comm.BandGroup,
+    makes this call one band of a frame of full_height rows, settings
+    the band's (parallel/sharding.band_settings) and cam carrying the
+    band's 0-d "ndc_y_scale" / "ndc_y_offset" (sharding.band_camera).
+    The image and state are the band's; debug_counters count the band's
+    own dropped pairs, as the JAX package's (frame.py:1111-1112)."""
     dev = device_mod.resolve(device)
     if state.prev_color.device.type != dev.type:
         raise ValueError(f"state lies on {state.prev_color.device}, "
@@ -724,6 +837,15 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
     f32 = dict(dtype=torch.float32, device=dev)
     width, height = settings.width, settings.height
     pw, ph = raster.pad_resolution(width, height)
+    if group is not None and (not full_height or "ndc_y_scale" not in cam):
+        raise ValueError("band mode needs full_height and a band camera "
+                         "(parallel/sharding.band_camera)")
+    if group is None:
+        full_height = None
+    n_bands = 1 if group is None else group.size
+    # the band's first row in the frame (0 on one device)
+    row0 = 0 if group is None else group.rank * height
+    aspect = width / (full_height or height)
     consts = _frame_constants(settings, state.prev_color.device)
     sun_dir = consts["sun_dir"]
     if not isinstance(delta_time, torch.Tensor):
@@ -733,11 +855,15 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
     _mark(timer, "exposure")
     histogram = exposure_ops.compute_histogram(state.prev_color,
                                                state.exposure)
+    if group is not None:
+        # one histogram for the frame: the bands' summed (frame.py:316-320)
+        histogram = group.sum_(histogram)
     new_exposure, sun_strength_exposed = exposure_ops.pre_expose_lights(
         histogram, state.exposure,
         consts["sun_illuminance"], consts["exposure_offset"],
         consts["adaption_speed"], delta_time.to(torch.float32),
-        float(width * height),
+        # the frame's pixel count: the histogram is the whole frame's
+        float(width * (full_height or height)),
         # frame 0 sees a black history and frame 1 the first real one:
         # snap exposure for both
         camera_cut=state.frame_index <= 1)
@@ -771,7 +897,8 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
     mv = main_view_setup(scene, cam, settings,
                          jitter_ndc=jitter_ndc if taa_on else None,
                          prev_view_proj=state.prev_view_projection,
-                         prev_corners=prev_corners)
+                         prev_corners=prev_corners, full_height=full_height,
+                         n_bands=n_bands)
     main = raster_main_view(mv, timer)
     depth, vis, gbuf = main.depth, main.vis, main.gbuf
     valid = vis >= 0
@@ -839,7 +966,8 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
     # --- sun shadows: cascade fit, atlas (kernels A, E), PCF (kernel F) ---
     if settings.shadows.cascade_count > 0:
         _mark(timer, "shadow_atlas")
-        atlas = render_shadow_atlas(scene, cam, depth, settings)
+        atlas = render_shadow_atlas(scene, cam, depth, settings, group,
+                                    full_height)
         _mark(timer, "shadow_resolve")
         sun_shadow = shadow.shadow_resolve(
             world_pos, pixel_depth,
@@ -862,7 +990,8 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
         indirect_y_sh, indirect_cocg, new_gi_history = sdf_gi(
             state, scene, luts, settings, valid, world_pos, geo_n, depth,
             pixel_depth, prev_ndc, sky_lut, sun_dir, sun_color,
-            sun_strength_exposed, timer, jitter_ndc=jitter_ndc)
+            sun_strength_exposed, timer, jitter_ndc=jitter_ndc, group=group,
+            full_height=full_height)
 
     _mark(timer, "shade")
     hdr = shade.shade_forward(
@@ -889,8 +1018,9 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
     _mark(timer, "sky")
     tan_fov_half = math.tan(math.radians(FOV_DEG) * 0.5)
     view_dirs = sky.view_directions(pw, ph, cam["forward"], cam["up"],
-                                    cam["right"], tan_fov_half,
-                                    width / height)
+                                    cam["right"], tan_fov_half, aspect,
+                                    ndc_y_scale=cam.get("ndc_y_scale"),
+                                    ndc_y_offset=cam.get("ndc_y_offset"))
     hdr = sky.apply_sky(hdr, valid, sky_lut, luts["transmission"],
                         view_dirs, sun_dir, sun_strength_exposed)
 
@@ -901,7 +1031,7 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
         hdr, new_vol_history = froxel_fog(
             state, cam, luts, settings, atlas, hdr, valid,
             torch.where(valid, view_depth, settings.volumetrics.max_distance),
-            sun_dir, sun_color, sun_strength_exposed)
+            sun_dir, sun_color, sun_strength_exposed, aspect, group)
     scene_color = hdr  # pre-TAA color feeds next frame's histogram
 
     # --- TAA (frame.py:1008-1051): one edge-padded halo covers the 3x3
@@ -916,9 +1046,9 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
         halo = min(want, ph) // raster.TILE_H * raster.TILE_H
         motion_e = halo_extend(taa.compute_motion(
             prev_ndc, valid, jitter_ndc, state.prev_jitter, width, height),
-            halo)
-        hdr_e = halo_extend(hdr, halo)
-        depth_e = halo_extend(depth, halo)
+            halo, group)
+        hdr_e = halo_extend(hdr, halo, group)
+        depth_e = halo_extend(depth, halo, group)
         camera_cut = state.frame_index == 0
         if taa_set.use_separate_supersampling:
             prev_ld = taa.pack_f16_pair(
@@ -926,13 +1056,16 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
                 shadow.linearize_depth(state.prev_depth, NEAR_PLANE,
                                        FAR_PLANE))
             hdr_e, new_taa_luminance = taa.temporal_supersampling(
-                hdr_e, halo_extend(pack_r11g11b10(state.prev_color), halo),
-                halo_extend(prev_ld, halo), motion_e, depth_e, NEAR_PLANE,
+                hdr_e, halo_extend(pack_r11g11b10(state.prev_color), halo,
+                                   group),
+                halo_extend(prev_ld, halo, group), motion_e, depth_e,
+                NEAR_PLANE,
                 FAR_PLANE, width, height, camera_cut,
                 use_tonemapping=taa_set.supersample_use_tonemapping)
             new_taa_luminance = crop_halo(new_taa_luminance, halo)
         hdr, taa_history = taa.temporal_filter(
-            hdr_e, halo_extend(state.taa_history, halo), motion_e, depth_e,
+            hdr_e, halo_extend(state.taa_history, halo, group), motion_e,
+            depth_e,
             jitter_px, camera_cut, width, height,
             use_clipping=taa_set.use_clipping,
             use_motion_dilation=taa_set.use_motion_vector_dilation,
@@ -945,13 +1078,19 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
     if settings.bloom.enabled:
         _mark(timer, "bloom")
         bs = settings.bloom
-        hdr = bloom.compute_bloom(hdr, bs.strength, bs.blur_radius,
-                                  bs.mip_count)
+        if group is None:
+            hdr = bloom.compute_bloom(hdr, bs.strength, bs.blur_radius,
+                                      bs.mip_count)
+        else:
+            hdr = bloom.compute_bloom_banded(
+                hdr, bs.strength, bs.blur_radius, bs.mip_count, group,
+                lambda p, n: halo_extend(p, n, group))
 
     # --- tonemap ---
     _mark(timer, "tonemap")
     time = state.frame_index.to(torch.float32) * 0.016
-    image = post.tonemap_pass(hdr, time)[:height, :width]
+    # the dither hash sees the frame's rows (frame.py:1069-1073)
+    image = post.tonemap_pass(hdr, time, row_offset=row0)[:height, :width]
     if settings.draw_bounding_boxes:
         # AABB wireframes with the jittered view-projection
         # (frame.py:1075-1082)
@@ -963,7 +1102,7 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
         dbg = debugviz.sdf_debug_image(
             settings.sdf_debug.visualisation_mode, scene, cam, sky_lut,
             luts["transmission"], sun_dir, sun_color, sun_strength_exposed,
-            pw, ph, tan_fov_half, width / height)
+            pw, ph, tan_fov_half, aspect)
         image = torch.clamp(torch.round(dbg[:, :height, :width] * 255.0), 0,
                             255).permute(1, 2, 0).to(torch.uint8)
     _mark(timer, "end")
@@ -988,17 +1127,23 @@ def render_frame(state: FrameState, scene: dict, cam: dict, luts: dict,
 
 def froxel_fog(state: FrameState, cam: dict, luts: dict,
                settings: RenderSettings, atlas: ShadowAtlas, hdr, valid,
-               fog_depth, sun_dir, sun_color, sun_strength_exposed):
+               fog_depth, sun_dir, sun_color, sun_strength_exposed,
+               aspect: float, group=None):
     """The froxel fog pass (frame.py:942-1004): material, the coarse sun
     shadow of the last cascade, scattering, reprojection against the
     carried history, integration and the per-pixel apply. fog_depth is
     the pixel's view depth, max_distance on the sky (sky.frag:31-34).
-    Returns (hdr, new volumetric history)."""
+    In split-frame band mode (group) the froxel grids span the band's
+    sub-frustum, the frame's aspect, and the upsamples take one halo row
+    from the neighbouring bands (frame.py:975-1004). aspect is the
+    frame's width over its full height. Returns (hdr, new volumetric
+    history)."""
     vs = settings.volumetrics
     consts = _frame_constants(settings, hdr.device)
     fd, fh, fw = state.volumetric_history.shape[1:]
     tan_fov_half = math.tan(math.radians(FOV_DEG) * 0.5)
-    aspect = settings.width / settings.height
+    halo_fn = None if group is None else (
+        lambda p: halo_extend(p, 1, group))
     wind_offset = consts["wind_dir"] * (
         vs.wind_speed * state.frame_index.to(torch.float32) * 0.016)
     fpos = volumetrics.froxel_world_positions(
@@ -1026,16 +1171,17 @@ def froxel_fog(state: FrameState, cam: dict, luts: dict,
 
     scat = volumetrics.light_scattering(
         mat_vol, fpos, shadow_c, cam, sun_dir, sun_color,
-        sun_strength_exposed, vs.phase_g, ambient=vs.ambient)
+        sun_strength_exposed, vs.phase_g, ambient=vs.ambient,
+        halo_fn=halo_fn)
     scat = volumetrics.temporal_reprojection(
         scat, state.volumetric_history, cpos, state.prev_view_projection,
         cam["position"], cam["forward"], vs.max_distance,
-        state.frame_index == 0)
+        state.frame_index == 0, halo_fn=halo_fn)
     integrated = volumetrics.integrate_froxels(scat, vs.max_distance)
     ph, pw = valid.shape
     hdr = volumetrics.apply_froxel_fog(
         hdr, fog_depth, integrated, vs.max_distance,
-        blue_noise_screen(luts, state.frame_index, ph, pw))
+        blue_noise_screen(luts, state.frame_index, ph, pw), halo_fn=halo_fn)
     return hdr, scat
 
 

@@ -1574,9 +1574,9 @@ def test_flight_capture_that_fails_raises(cuda, monkeypatch):
     scene, settings, luts, path = _flight_case(cuda)
     tonemap = post.tonemap_pass
 
-    def reading_back(hdr, time):
+    def reading_back(hdr, time, **kw):
         float(hdr.sum())  # a host synchronisation
-        return tonemap(hdr, time)
+        return tonemap(hdr, time, **kw)
 
     monkeypatch.setattr(post, "tonemap_pass", reading_back)
     state0 = initial_state(256, 128, device=cuda)
@@ -1695,3 +1695,75 @@ def test_precompile_variants_leave_the_state_on_the_card(cuda):
     torch.cuda.synchronize()
     for name, value in before.items():
         assert torch.equal(getattr(app.state, name), value), name
+
+
+# ------------------------ split-frame band mode ------------------------
+
+def _band_case():
+    """The small untextured atrium at 128 x 128 (2 bands of 64 rows) with
+    tests/test_parallel.py's full-stack settings, built on the CPU."""
+    atrium = procedural.AtriumConfig(columns_per_row=2, floor_subdiv=2,
+                                     box_count=3, box_subdiv=1,
+                                     column_segments=8)
+    scene = frame.scene_to_device(scenebuild.build_render_scene(
+        procedural.build_atrium_scene(atrium, textured=False)), device="cpu")
+    settings = config.RenderSettings(
+        width=128, height=128, exposure_adaption_speed=1000.0,
+        shadows=config.ShadowSettings(resolution=512),
+        sdf_trace=config.SDFTraceSettings(enabled=False),
+        volumetrics=config.VolumetricsSettings(enabled=False))
+    ext = cam_mod.extrinsic_from_angles([0.0, -1.7, 0.0], pitch_deg=5.0,
+                                        yaw_deg=20.0)
+    cam = frame.camera_arrays(ext.position, ext.forward, ext.right, ext.up,
+                              device="cpu")
+    luts = frame.bake_static_luts(settings, device="cpu")
+    return settings, scene, cam, luts
+
+
+def _bands_on(device):
+    from plainrenderer_tpu_torch.parallel import comm, sharding
+
+    settings, scene, cam, luts = _band_case()
+    runs = comm.launch(sharding.render_bands, 2,
+                       args=(settings, scene, cam, luts, 2), device=device,
+                       timeout=600.0, pg_timeout=120.0)
+    for r in runs:
+        assert (r["debug_counters"] == 0).all()
+    image = sharding.assemble_image(torch.stack([r["image"] for r in runs]))
+    return image, runs
+
+
+def test_band_frame_two_gloo_ranks_on_one_card_equal_cpu_ranks(cuda):
+    """2 gloo ranks sharing the card (host-staged collectives) against 2
+    gloo CPU ranks: the 128 x 128 band frame by the golden rule."""
+    card, runs = _bands_on("cuda")
+    assert all(r["transport"] == "gloo (host-staged)" for r in runs)
+    assert all(r["stats"]["host_copies"] > 0 for r in runs)
+    cpu, _ = _bands_on("cpu")
+    assert _golden(card, cpu) > 0.999, _golden(card, cpu)
+
+
+def test_band_frame_nccl_ranks_equal_cpu_ranks(cuda):
+    """One rank per card over NCCL (needs 2 cards) against 2 gloo CPU
+    ranks, by the golden rule."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL band ranks need a card each (2 cards)")
+    card, runs = _bands_on("cuda")
+    assert all(r["transport"] == "nccl" for r in runs)
+    cpu, _ = _bands_on("cpu")
+    assert _golden(card, cpu) > 0.999, _golden(card, cpu)
+
+
+def test_band_launcher_raises_on_a_failed_card_rank(cuda):
+    """A card rank that raises makes comm.launch raise within its
+    timeout."""
+    import time
+
+    import torch_band_ranks
+    from plainrenderer_tpu_torch.parallel import comm
+
+    t0 = time.monotonic()
+    with pytest.raises(Exception):
+        comm.launch(torch_band_ranks.fail_on_rank_1, 2, device="cuda",
+                    timeout=120.0, pg_timeout=60.0)
+    assert time.monotonic() - t0 < 120.0

@@ -277,12 +277,6 @@ EXCEPTIONS = {
                       "torch.cumsum is exact on integers)",
     "native/__init__.py": "the C++ SDF baker; assets/sdf_bake.bake_mesh_sdf "
                           "takes its place (ROADMAP Queue 1 item 5)",
-    "parallel/sharding.py": "split-frame multi-GPU, the next slice (ROADMAP "
-                            "Queue 1 item 8): assemble_image, band_settings, "
-                            "initial_sharded_state, make_mesh, "
-                            "sharded_frame_fn",
-    "ops/bloom.py:compute_bloom_banded": "split-frame bloom, the next slice "
-                                         "(ROADMAP Queue 1 item 8)",
 }
 
 

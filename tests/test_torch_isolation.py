@@ -60,16 +60,17 @@ def test_importing_every_module_loads_no_jax():
               "assets.compressed", "assets.plain_format", "assets.dds",
               "assets.image_io", "assets.gltf_import", "assets.pipeline",
               "ops.debugviz", "runtime.shell", "runtime.overlay",
-              "runtime.app"):
+              "runtime.app", "parallel.comm", "parallel.sharding"):
         assert "plainrenderer_tpu_torch." + m in loaded, m
 
 
 def test_sources_import_no_jax():
-    """Every import statement in the port's sources, chip_smoke.py and
-    compare_trees.py."""
+    """Every import statement in the port's sources, chip_smoke.py,
+    compare_trees.py and the band tests' rank functions."""
     bad = []
-    for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                              ROOT / "compare_trees.py"]:
+    for path in sorted(PKG.rglob("*.py")) + [
+            ROOT / "chip_smoke.py", ROOT / "compare_trees.py",
+            ROOT / "tests" / "torch_band_ranks.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -80,3 +81,26 @@ def test_sources_import_no_jax():
                 continue
             bad += [(str(path), n) for n in names if _forbidden(n)]
     assert not bad, bad
+
+
+def test_band_ranks_load_no_jax():
+    """comm.launch's spawned rank entry (comm._rank_main) imports the
+    rank function's module afresh: 2 gloo CPU ranks list what they
+    loaded."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import json, torch_band_ranks\n"
+        "from plainrenderer_tpu_torch.parallel import comm\n"
+        "if __name__ == '__main__':\n"
+        "    out = comm.launch(torch_band_ranks.loaded_modules, 2,\n"
+        "                      device='cpu', timeout=120.0)\n"
+        "    print(json.dumps(out))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=180,
+                         check=True)
+    ranks = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(ranks) == 2
+    for loaded in ranks:
+        assert "plainrenderer_tpu_torch.parallel.comm" in loaded
+        assert not [m for m in loaded if _forbidden(m)]
