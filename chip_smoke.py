@@ -35,8 +35,15 @@ debug views, a small App card vs CPU, and the command line in
 subprocesses (runtime_phase). Then the modules phase: the Monte Carlo BRDF
 bake for each diffuse BRDF on the card (timed, its peak memory; against
 the CPU's plain bake and the fitted polynomials) and the committed JPEG
-fixtures decoded equal to PIL's PNGs (modules_phase). Then row 8, the
-band phase: split-frame band mode on 4 ranks sharing the one card over
+fixtures decoded equal to PIL's PNGs (modules_phase). Then the formats
+phase: the committed fixtures of tests/data/formats (BMP, TGA, PNM, GIF,
+TIFF, WebP, CMYK / YCCK and cut progressive JPEG) decoded equal to PIL's
+PNGs beside them, timed on the host; then the courtyard with its 12
+textures re-saved by the port's save_image as TGA, as TIFF, and with its
+four RGB normal maps as BMP and PPM, each loaded by the App at 1920x1080
+(all 12 texture slots in the pool) and rendered for 3 frames, its
+texture pool and frames equal bit for bit to the committed PNG
+courtyard's (formats_phase). Then row 8, the band phase: split-frame band mode on 4 ranks sharing the one card over
 gloo (collectives staged through the host, counted), bench.py's scene at
 1920x1024 (band_settings' frame for 1920x1080 and 4 bands) in 256-row
 bands, 3 frames against the parent's single-device render of the same
@@ -1998,12 +2005,13 @@ RUNTIME_OUT = "chiprun_out/runtime"
 FORBIDDEN = ("jax", "jaxlib", "plainrenderer_tpu")
 
 
-def runtime_app(device, width, height, demo=False):
-    """The port's App on the courtyard. At 1920x1080: the settings, camera
-    and SDF cap that runtime/app.main() builds from its default flags (the
-    default RenderSettings() with GI on, pair_budget_scale 1.0, escalation
-    on). demo: tests/test_demo_asset.py's settings and camera at
-    width x height, with a fixed delta time."""
+def runtime_app(device, width, height, demo=False, scene_path=COURTYARD):
+    """The port's App on the courtyard (scene_path: a .plain of it). At
+    1920x1080: the settings, camera and SDF cap that runtime/app.main()
+    builds from its default flags (the default RenderSettings() with GI
+    on, pair_budget_scale 1.0, escalation on). demo:
+    tests/test_demo_asset.py's settings and camera at width x height,
+    with a fixed delta time."""
     from plainrenderer_tpu_torch.runtime.app import App
 
     if demo:
@@ -2017,7 +2025,7 @@ def runtime_app(device, width, height, demo=False):
         settings = config.RenderSettings(
             width=width, height=height,
             sdf_trace=config.SDFTraceSettings(enabled=True))
-    app = App(settings, COURTYARD, with_gi=True, sdf_resolution_cap=32,
+    app = App(settings, scene_path, with_gi=True, sdf_resolution_cap=32,
               device=device)
     if demo:
         lo = app.scene["object_bb_min"].cpu().numpy().min(0)
@@ -2072,13 +2080,13 @@ def fresh_frame(app, settings):
                               settings, device=app.device)[0].cpu().numpy()
 
 
-def courtyard_textures_reach_the_pool(app) -> int:
+def courtyard_textures_reach_the_pool(app, scene_path=COURTYARD) -> int:
     """Every mesh's albedo, normal and specular file loads with the port's
     own readers, and every object samples a pool texture."""
     from plainrenderer_tpu_torch.assets.plain_format import \
         load_binary_scene
 
-    meshes = load_binary_scene(COURTYARD).meshes
+    meshes = load_binary_scene(scene_path).meshes
     for i, mesh in enumerate(meshes):
         images = scenebuild._load_texture_images(mesh.texture_paths)
         for slot in ("albedo", "normal", "specular"):
@@ -2431,6 +2439,160 @@ def modules_phase(ctx) -> dict:
     """The modules off the frame's path: the Monte Carlo BRDF bake
     (brdf_bake) and JPEG decoding (jpeg_fixtures)."""
     return dict(brdf_bake=brdf_bake(ctx), jpeg=jpeg_fixtures())
+
+
+# ----------------------- image formats (PR 16) -----------------------
+
+FORMAT_FIXTURES = ROOT / "tests" / "data" / "formats"
+# tests/test_torch_formats.py _fixture_files: each beside PIL's decode
+FORMAT_NAMES = (
+    "anim.webp", "bilevel_whiteiszero.tif", "cmap16.tga", "cmyk.jpg",
+    "cut_ac.jpg", "cut_dc.jpg", "grey.gif", "grey16_mm.tif", "grey8.bmp",
+    "grey8_topleft.tga", "interlaced_transparent.gif", "local_offset.gif",
+    "lossless.webp", "lossy.webp", "lossy_alpha.webp", "p1.pbm",
+    "p2_maxval15.pgm", "p3.ppm", "p4.pbm", "p5_16bit.pgm",
+    "p6_maxval1000.ppm", "pal4.bmp", "pal4_packbits.tif", "palette.gif",
+    "rgb16.tga", "rgb24.bmp", "rgb24.tga", "rgb565.bmp", "rgb_lzw_pred.tif",
+    "rgba32_rle.tga", "rgba32_v5.bmp", "rgba_assoc_planar.tif",
+    "rgba_deflate_tiled.tif", "rle4.bmp", "rle8.bmp", "ycck.jpg")
+FORMAT_FRAMES = 3
+# the courtyard's copies: a texture slot's file -> the suffix it is saved
+# with (None: the committed PNG stays)
+NORMAL_MAPS_ALPHA_FREE = {"ivy_normal": ".bmp", "metal_normal": ".bmp",
+                          "stone_normal": ".ppm", "wood_normal": ".ppm"}
+
+
+def format_fixtures() -> dict:
+    """Every committed fixture through load_image (this machine has no
+    PIL) equal to PIL's decode committed beside it as PNG, and its host
+    wall time (the best of 3 loads)."""
+    names = tuple(sorted(p.name for p in FORMAT_FIXTURES.iterdir()
+                         if not p.name.endswith(".png")))
+    check(names == FORMAT_NAMES, f"the format fixtures: {names}")
+    found = {}
+    for name in names:
+        want = image_io.load_image(FORMAT_FIXTURES / f"{name}.png")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = image_io.load_image(FORMAT_FIXTURES / name)
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"{name} equals PIL's decode")
+        found[name] = dict(shape=list(got.shape), load_ms=min(times))
+    print("format fixtures decoded equal to PIL's PNGs (host ms, best of "
+          "3): " + json.dumps(found), flush=True)
+    return found
+
+
+def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list]:
+    """A .plain of the courtyard whose texture files are re-saved by the
+    port's save_image under tmp: kind "tga" or "tif" (all 12), or
+    "bmp_ppm" (the four RGB normal maps as two BMP and two PPM, the RGBA
+    maps left as PNG). The SDF volume paths stay as committed."""
+    from plainrenderer_tpu_torch.assets import plain_format
+
+    scene = plain_format.load_binary_scene(COURTYARD)
+    written = []
+    meshes = []
+    for mesh in scene.meshes:
+        paths = {}
+        for slot in ("albedo", "normal", "specular"):
+            src = Path(getattr(mesh.texture_paths, slot))
+            if kind == "bmp_ppm":
+                suffix = NORMAL_MAPS_ALPHA_FREE.get(src.stem)
+            else:
+                suffix = "." + kind
+            if suffix is None:
+                paths[slot] = str(src)
+                continue
+            img = image_io.load_image(src)
+            if slot == "normal":  # the RGB maps stay RGB
+                check(bool((img[..., 3] == 255).all()),
+                      f"{src.name} is opaque")
+                img = img[..., :3]
+            dst = tmp / (src.stem + suffix)
+            image_io.save_image(dst, img)
+            paths[slot] = str(dst)
+            written.append(dst.name)
+        meshes.append(dataclasses.replace(
+            mesh, texture_paths=dataclasses.replace(mesh.texture_paths,
+                                                    **paths)))
+    out = tmp / "courtyard.plain"
+    plain_format.save_binary_scene(out, dataclasses.replace(scene,
+                                                            meshes=meshes))
+    return out, written
+
+
+def format_frames(ctx, scene_path) -> dict:
+    """The App at 1920x1080 with main()'s settings on a courtyard .plain:
+    its load time, its texture pool on the host, and FORMAT_FRAMES
+    run_frames at a fixed delta time and orbit input."""
+    from plainrenderer_tpu_torch.runtime.shell import InputState
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    app = runtime_app(ctx.dev, WIDTH, HEIGHT, scene_path=str(scene_path))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_tex = courtyard_textures_reach_the_pool(app, str(scene_path))
+    app.timer = types.SimpleNamespace(mark_new_frame=lambda: None,
+                                      delta_time=1.0 / 60.0)
+    pool = {k: app.scene[k].cpu().numpy() for k in (
+        "mat_tex", "tex_info", "tex_word0", "tex_word1", "alpha_masks")
+        if k in app.scene}
+    images = [app.run_frame(InputState(right_mouse_down=True,
+                                       mouse_movement=(20.0 / 60.0, 0.0)))
+              .cpu().numpy() for _ in range(FORMAT_FRAMES)]
+    del app
+    torch.cuda.empty_cache()
+    return dict(load_s=load_s, textures=n_tex, pool=pool, images=images)
+
+
+def formats_phase(ctx) -> dict:
+    """The image readers and writers on the card's machine (no PIL): the
+    committed fixtures, then the courtyard with its textures re-saved as
+    TGA, as TIFF, and with BMP / PPM normal maps, each loaded by the App
+    and rendered (kernels A-L on the card) equal bit for bit, pool and
+    frames, to the committed PNG courtyard's run."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    found = dict(fixtures=format_fixtures())
+    base = format_frames(ctx, COURTYARD)
+    check(base["textures"] == 12, "the PNG courtyard's 12 texture slots")
+    loads = {"png": base["load_s"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("tga", "tif", "bmp_ppm"):
+            sub = Path(tmp) / kind
+            sub.mkdir()
+            plain, written = courtyard_copy(sub, kind)
+            check(len(written) == (4 if kind == "bmp_ppm" else 12),
+                  f"courtyard as {kind}: textures written {written}")
+            run = format_frames(ctx, plain)
+            check(run["textures"] == 12,
+                  f"courtyard as {kind}: all 12 texture slots load")
+            for key, want in base["pool"].items():
+                got = run["pool"].get(key)
+                check(got is not None and got.shape == want.shape
+                      and np.array_equal(got, want),
+                      f"courtyard as {kind}: texture pool {key} equals the "
+                      f"PNG courtyard's")
+            for i, (got, want) in enumerate(zip(run["images"],
+                                                base["images"])):
+                diff = np.argwhere((got != want).any(axis=-1))
+                check(diff.size == 0,
+                      f"courtyard as {kind}: frame {i} equals the PNG "
+                      f"courtyard's bit for bit ({len(diff)} pixels differ, "
+                      f"first at {diff[:3].tolist()})")
+            loads[kind] = run["load_s"]
+    found.update(scene_load_s=loads, frames=FORMAT_FRAMES,
+                 phase_s=time.perf_counter() - t_phase)
+    print(f"courtyard scene load at {WIDTH}x{HEIGHT} (s, App() with the "
+          f"texture decodes): {json.dumps(loads)}; {FORMAT_FRAMES} frames "
+          f"each equal to the PNG courtyard's, texture pools equal; phase "
+          f"{found['phase_s']:.1f} s", flush=True)
+    return found
 
 
 # ------------------------- row 8: split-frame bands -------------------------
@@ -2879,6 +3041,8 @@ def main() -> int:
     ctx.report["runtime"] = runtime_phase(ctx)
     ctx.path = "modules"
     ctx.report["modules"] = modules_phase(ctx)
+    ctx.path = "formats (courtyard as TGA, TIFF, BMP / PPM)"
+    ctx.report["formats"] = formats_phase(ctx)
     ctx.path = "band phase (bench scene)"
     ctx.report["band"] = band_phase(ctx)
     runtime_launches = ctx.report["runtime"]["launches"]

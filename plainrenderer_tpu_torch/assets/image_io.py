@@ -3,27 +3,34 @@ image_io.py).
 
 The JAX package reads images through PIL and imageio (the reference's stb
 loader, Plain/src/Common/ImageIO.cpp:17-116); the card's machine has
-neither, so the port carries its own readers on the standard library:
+neither, so the port carries its own readers on numpy and the standard
+library. ``load_image`` picks the reader by the file's content, as
+``PIL.Image.open`` does (magic bytes; TGA, which has none, by its suffix
+and PIL's header check), and every reader returns what
+``np.asarray(Image.open(path).convert("RGBA"))`` gives, bit for bit
+(assets/modes.py holds PIL's mode conversions):
 
   - PNG: chunks and CRCs with `struct` and `zlib`, the five scanline
     filters in numpy (undone along anti-diagonals, so Average and Paeth
     rows need no per-pixel Python loop), colour types 0, 2, 3, 4 and 6 at
-    every bit depth the format allows, Adam7 interlacing. The result is
-    (H, W, 4) u8 as PIL's ``Image.convert("RGBA")`` gives it: 16-bit
-    samples keep their high byte (16-bit grey clips to 255), grey and
-    palette expand to RGBA, and a tRNS chunk gives alpha as PIL applies it
-    (tests/test_torch_assets.py holds every case bit for bit to PIL);
-  - JPEG (files that start with FF D8 FF) through assets/jpeg.py:
-    sequential and progressive Huffman, 8-bit, grey, YCbCr and RGB, bit
-    for bit as PIL's libjpeg decode converted to RGBA;
-  - Radiance RGBE (.hdr): new-style run-length or flat scanlines (the
-    first scanline decides, as in stb), as (H, W, 4) f32 with alpha 1;
-  - DDS rgba8 textures through assets/dds.py.
+    every bit depth the format allows, Adam7 interlacing; 16-bit samples
+    keep their high byte (16-bit grey clips to 255), a tRNS chunk gives
+    alpha as PIL applies it;
+  - JPEG (assets/jpeg.py), BMP (assets/bmp.py), GIF's first frame
+    (assets/gif.py), TIFF's first page (assets/tiff.py), TGA
+    (assets/tga.py), PBM / PGM / PPM (assets/pnm.py) and WebP
+    (assets/webp.py), each within the limits its module states;
+  - Radiance RGBE (.hdr, by suffix as in the JAX package): new-style
+    run-length or flat scanlines (the first scanline decides, as in stb),
+    as (H, W, 4) f32 with alpha 1;
+  - DDS (.dds, by suffix) rgba8 textures through assets/dds.py.
 
-Any other format (GIF, BMP, TIFF, WebP, ...) raises ValueError naming
-it, and so does a JPEG feature assets/jpeg.py does not read (CMYK /
-YCCK, 12-bit samples, arithmetic coding, lossless mode). save_image
-writes (H, W, 3|4) u8 as an 8-bit RGB or RGBA PNG.
+Any other format PIL opens (the ``_OTHER_FORMATS`` list) raises ValueError
+naming it, and so does a feature of a format above that the port does not
+read yet. ``save_image`` writes the format the suffix names (PNG, BMP,
+TGA, TIFF, PPM / PGM / PNM) from (H, W) and (H, W, 3|4) u8, as PIL's
+``Image.fromarray(...).save(path)`` writes modes L, RGB and RGBA; any
+other suffix raises ValueError and writes nothing.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import dds, jpeg
+from . import bmp, dds, gif, jpeg, modes, pnm, tga, tiff, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel, and the bit depths the format allows
@@ -44,16 +51,33 @@ _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
 # Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
-# magic bytes of formats the port does not read, for the error message
-_OTHER_FORMATS = ((b"GIF8", "GIF"),
-                  (b"BM", "BMP"), (b"RIFF", "WebP"), (b"II*\x00", "TIFF"),
-                  (b"MM\x00*", "TIFF"))
+# magic bytes (offset, bytes) of formats PIL opens and the port does not
+_OTHER_FORMATS = (
+    (0, b"\x0a", "PCX"), (0, b"\x00\x00\x01\x00", "ICO"),
+    (0, b"\x00\x00\x02\x00", "CUR"), (0, b"qoif", "QOI"),
+    (0, b"8BPS", "PSD"), (0, b"\x01\xda", "SGI"),
+    (0, b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
+    (0, b"\xffO\xffQ", "JPEG 2000"), (0, b"icns", "ICNS"),
+    (0, b"#define", "XBM"), (0, b"/* XPM */", "XPM"),
+    (0, b"SIMPLE", "FITS"), (0, b"\x59\xa6\x6a\x95", "SUN"),
+    (4, b"ftypavif", "AVIF"), (4, b"ftypavis", "AVIF"), (0, b"BLP", "BLP"),
+    (0, b"\xb1\x68\xde\x3a", "DCX"), (4, b"\xaf\x11", "FLI"),
+    (4, b"\xaf\x12", "FLI"), (0, b"FTEX", "FTEX"), (20, b"GIMP", "GBR"),
+    (0, b"Image type", "IM"), (0, b"DanM", "MSP"), (0, b"LinS", "MSP"),
+    (0, b"\x00\x00\x01\xb3", "MPEG"), (0, b"%!PS", "EPS"),
+    (0, b"\xc5\xd0\xd3\xc6", "EPS"), (0, b"\x80\xe8\x00\x00", "PIXAR"),
+    (0, b"P7 332", "XVTHUMB"), (0, b"DDS ", "DDS"))
+SAVE_FORMATS = {".png": "PNG", ".bmp": "BMP", ".tga": "TGA", ".tif": "TIFF",
+                ".tiff": "TIFF", ".ppm": "PPM", ".pgm": "PPM", ".pnm": "PPM"}
+# formats PIL writes under these suffixes and the port does not yet
+_UNWRITTEN = {".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
+              ".gif": "GIF", ".webp": "WebP", ".pbm": "PBM"}
 
 
 def load_image(path: str | Path) -> np.ndarray:
-    """Load an image as (H, W, 4): u8 for PNG, JPEG and DDS rgba8, f32 for
-    .hdr (image_io.py:16-41). Raises ValueError for a format the port does not
-    read, or for a malformed file."""
+    """Load an image as (H, W, 4): u8 for every LDR format, f32 for .hdr
+    (image_io.py:16-41). Raises ValueError for a format or feature the
+    port does not read, or for a malformed file."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix == ".dds":
@@ -65,20 +89,73 @@ def load_image(path: str | Path) -> np.ndarray:
     data = path.read_bytes()
     if suffix == ".hdr":
         return read_hdr(data, str(path))
+    return decode_image(data, str(path), suffix)
+
+
+def decode_image(data: bytes, where: str = "<bytes>",
+                 suffix: str = "") -> np.ndarray:
+    """Image bytes -> (H, W, 4) u8 by the reader the content names (TGA
+    only under one of its suffixes). A malformed file raises ValueError,
+    whatever the reader tripped on."""
+    reader = _reader(data, suffix)
+    if reader is None:
+        name = next((n for at, magic, n in _OTHER_FORMATS
+                     if data[at:at + len(magic)] == magic),
+                    f"{suffix or 'unknown'!r}")
+        raise ValueError(
+            f"image format {name} is not read by the port (PNG, JPEG, BMP, "
+            f"GIF, TIFF, WebP, TGA, PBM/PGM/PPM, Radiance .hdr and rgba8 "
+            f"DDS are): {where}")
+    try:
+        return reader(data, where)
+    except (IndexError, KeyError, struct.error, zlib.error,
+            OverflowError) as e:
+        raise ValueError(f"malformed image file {where}: {e!r}") from e
+
+
+def _reader(data: bytes, suffix: str):
+    """The decode function for the content, as Image.open picks it."""
     if data.startswith(PNG_SIGNATURE):
-        return decode_png(data, str(path))
+        return decode_png
     if data.startswith(b"\xff\xd8\xff"):
-        return jpeg.decode_jpeg(data, str(path))
-    name = next((n for magic, n in _OTHER_FORMATS if data.startswith(magic)),
-                f"{suffix or 'unknown'!r}")
-    raise ValueError(f"image format {name} is not read by the port "
-                     f"(PNG, JPEG, Radiance .hdr and rgba8 DDS are): {path}")
+        return jpeg.decode_jpeg
+    if data.startswith(b"BM"):
+        return bmp.read_bmp
+    if data.startswith((b"GIF87a", b"GIF89a")):
+        return gif.read_gif
+    if tiff.looks_like_tiff(data[:4]):
+        return tiff.read_tiff
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return webp.read_webp
+    if pnm.looks_like_pnm(data[:2]) and not data.startswith(b"P7 332"):
+        return pnm.read_pnm
+    if suffix in tga.EXTENSIONS:  # TGA has no magic bytes
+        return tga.read_tga
+    return None
 
 
 def save_image(path: str | Path, image: np.ndarray) -> None:
-    """Save (H, W, 3|4) u8 as an 8-bit RGB or RGBA PNG (screenshots, debug
-    output)."""
-    Path(path).write_bytes(encode_png(image))
+    """Save (H, W) or (H, W, 3|4) u8 in the format the suffix names (case
+    aside): .png, .bmp, .tga, .tif / .tiff, .ppm / .pgm / .pnm; PIL's
+    decode of the file equals its decode of PIL's own save of the array
+    (RGBA as BMP reads back as RGB, as PPM is written as RGB, as PIL
+    does). Any other suffix raises ValueError and writes no file."""
+    path = Path(path)
+    suffix = path.suffix.lower()
+    if suffix not in SAVE_FORMATS:
+        name = _UNWRITTEN.get(suffix, repr(suffix or "no suffix"))
+        raise ValueError(
+            f"save_image does not write {name} ({path}); it writes "
+            f"{', '.join(sorted(SAVE_FORMATS))}")
+    img = np.asarray(image)
+    if img.dtype != np.uint8 or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (3, 4))):
+        raise ValueError(f"save_image takes (H, W) or (H, W, 3|4) uint8, "
+                         f"got {img.dtype} {img.shape}")
+    encode = {"PNG": encode_png, "BMP": bmp.encode_bmp,
+              "TGA": tga.encode_tga, "TIFF": tiff.encode_tiff,
+              "PPM": pnm.encode_pnm}[SAVE_FORMATS[suffix]]
+    path.write_bytes(encode(img))
 
 
 # ------------------------------- PNG ---------------------------------
@@ -89,19 +166,21 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def encode_png(image: np.ndarray) -> bytes:
-    """(H, W, 3|4) u8 -> PNG bytes: every row with the Up filter, one
-    zlib stream."""
+    """(H, W) or (H, W, 3|4) u8 -> grey, RGB or RGBA PNG bytes: every row
+    with the Up filter, one zlib stream."""
     img = np.asarray(image)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
-        raise ValueError(f"save_image takes (H, W, 3|4) uint8, got "
-                         f"{img.dtype} {img.shape}")
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (1, 3, 4):
+        raise ValueError(f"encode_png takes (H, W) or (H, W, 3|4) uint8, "
+                         f"got {img.dtype} {img.shape}")
     h, w, c = img.shape
     rows = img.reshape(h, w * c)
     up = np.empty((h, w * c + 1), np.uint8)
     up[:, 0] = 2
     up[0, 1:] = rows[0]
     up[1:, 1:] = rows[1:] - rows[:-1]  # u8 wraps: the Up filter
-    header = struct.pack(">IIBBBBB", w, h, 8, 6 if c == 4 else 2, 0, 0, 0)
+    header = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2, 4: 6}[c], 0, 0, 0)
     return (PNG_SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(up.tobytes(), 6))
             + _chunk(b"IEND", b""))
@@ -237,14 +316,7 @@ def _to_rgba(samples, ctype: int, depth: int, palette, trns) -> np.ndarray:
     h, w, _ = samples.shape
     out = np.empty((h, w, 4), np.uint8)
     if ctype == 3:
-        table = np.zeros((256, 4), np.uint8)
-        table[:, 3] = 255
-        pal = palette[:256]
-        table[:len(pal), :3] = pal
-        if trns is not None:
-            alpha = np.frombuffer(trns, np.uint8)[:256]
-            table[:len(alpha), 3] = alpha
-        return table[samples[..., 0]]
+        return modes.palette_table(palette, trns)[samples[..., 0]]
     if ctype in (0, 4):
         grey = samples[..., 0].astype(np.int64)
         if depth < 8:

@@ -6,10 +6,13 @@ Covered: baseline and extended sequential Huffman coding, 8-bit samples;
 progressive Huffman coding (spectral selection and successive
 approximation, DC and AC, first and refinement scans, EOB runs); restart
 intervals; grayscale, YCbCr and RGB (Adobe APP14 transform 0, or the
-component ids 'R', 'G', 'B' without JFIF); any integral sampling factors
-(4:4:4, 4:2:2, 4:4:0, 4:2:0, ...) and image sizes that are not multiples
-of the MCU. CMYK / YCCK, 12-bit samples, arithmetic coding, lossless and
-hierarchical modes raise ValueError naming the feature.
+component ids 'R', 'G', 'B' without JFIF); four components, CMYK (Adobe
+transform 0, or no Adobe marker) and YCCK (any other transform), which
+PIL reads as Adobe's inverted CMYK ("CMYK;I") and converts to RGB; any
+integral sampling factors (4:4:4, 4:2:2, 4:4:0, 4:2:0, ...) and image
+sizes that are not multiples of the MCU. 12-bit samples, arithmetic
+coding, lossless and hierarchical modes raise ValueError naming the
+feature.
 
 The entropy decoder is the one sequential part: a Python loop over the
 scan's Huffman symbols, table-driven (a 16-bit lookahead table per
@@ -26,15 +29,19 @@ with libjpeg's integer rules:
     other integral ratios; edges replicate the last real sample row and
     column (jdmainct.c's context rows, the last-column special cases);
   - jdcolor.c's fixed-point YCbCr -> RGB tables (SCALEBITS 16).
-A progressive file whose scans stop before every coefficient is complete
-is decoded from the coefficients it has (libjpeg also smooths such
-blocks, jdcoefct.c decompress_smooth_data; no complete progression needs
-it).
+A progressive file whose scans stop before coefficients 1-9 are complete
+is block-smoothed as libjpeg-turbo 3.1 does it (jdcoefct.c smoothing_ok
+and decompress_smooth_data): the missing low-frequency coefficients are
+estimated from the DC values of the 5 x 5 block neighbourhood, with the
+DC itself re-estimated when no AC scan has arrived (the variant of
+libjpeg-turbo 2.1 and later).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from . import modes
 
 EOI, SOS, DHT, DQT, DRI = 0xD9, 0xDA, 0xC4, 0xDB, 0xDD
 # zigzag index -> natural (row-major) index (jutils.c jpeg_natural_order)
@@ -59,6 +66,11 @@ class _Component:
         self.coefs = None  # flat list: block (row-major) * 64 + natural
         self.quant = None  # latched at the component's first scan
         self.dc_pred = 0
+        # progressive status (jdphuff.c): the successive-approximation bit
+        # each coefficient was last refined to (-1: never), and the same
+        # before the latest scan that included the component
+        self.coef_bits = [-1] * 64
+        self.prev_bits = [0] * 64
 
 
 def _huffman_table(counts, symbols):
@@ -125,6 +137,7 @@ class _Frame:
         self.adobe = None
         self.jfif = False
         self.eobrun = 0
+        self.scans = 0  # cinfo->input_scan_number
 
 
 def _parse_sof(fr, body, marker):
@@ -139,9 +152,7 @@ def _parse_sof(fr, body, marker):
     n = body[5]
     if fr.height == 0 or fr.width == 0:
         raise ValueError("JPEG: empty image (or a DNL marker height)")
-    if n == 4:
-        raise ValueError("JPEG: 4 components (CMYK/YCCK) are not supported")
-    if n not in (1, 3):
+    if n not in (1, 3, 4):
         raise ValueError(f"JPEG: {n} components are not supported")
     for i in range(n):
         cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
@@ -247,6 +258,13 @@ def _decode_scan(fr, body, data, start):
         tables.append((td_ta >> 4, td_ta & 15))
     ss, se = body[1 + 2 * ns], body[2 + 2 * ns]
     ah, al = body[3 + 2 * ns] >> 4, body[3 + 2 * ns] & 15
+    fr.scans += 1
+    if fr.progressive:  # start_pass_phuff_decoder's status update
+        for c in comps:
+            for k in range(min(ss, 1), max(se, 9) + 1):
+                c.prev_bits[k] = c.coef_bits[k] if fr.scans > 1 else 0
+            for k in range(ss, se + 1):
+                c.coef_bits[k] = al
     segs, end = _segments(data, start)
     mcus = _block_order(fr, comps)
     per = fr.restart or len(mcus)
@@ -499,14 +517,125 @@ def _ycc_tables():
 _CR_R, _CB_B, _CR_G, _CB_G = _ycc_tables()
 
 
-def _ycc_to_rgb(y, cb, cr):
+def _ycc_to_rgb(y, cb, cr, clip=True):
     y = y.astype(np.int64)
     cb = cb.astype(np.int64)
     cr = cr.astype(np.int64)
     r = y + _CR_R[cr]
     g = y + ((_CB_G[cb] + _CR_G[cr]) >> 16)
     b = y + _CB_B[cb]
+    if not clip:
+        return [r, g, b]
     return [np.clip(v, 0, 255).astype(np.uint8) for v in (r, g, b)]
+
+
+# --------------------------- block smoothing ---------------------------
+
+# jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1 and later): the
+# weights of the 5 x 5 DC neighbourhood (rows -2..2, columns -2..2, as
+# DC01..DC25) for each estimated coefficient: (natural position,
+# coef_bits index, weights when only DC is known (change_dc), weights
+# otherwise or None where only the DC-only pass estimates it).
+_SMOOTH = (
+    (1, 1, (-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3,
+            -3, 13, 0, -13, 3, -1, -1, 0, 1, 1),
+     (0,) * 10 + (-7, 50, 0, -50, 7) + (0,) * 10),
+    (8, 2, (-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0,
+            1, -13, -38, -13, 1, 1, 3, 3, 3, 1),
+     (0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0, 0, 0, -50, 0, 0,
+      0, 0, 7, 0, 0)),
+    (16, 3, (0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0, 0, 2, 7, 2,
+             0, 0, 0, 1, 0, 0),
+     (0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0, 0, 0, 13, 0, 0,
+      0, 0, -1, 0, 0)),
+    (9, 4, (-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0, 0, -9, 0, 9, 0,
+            1, 0, 0, 0, -1),
+     (0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0, 1, -10, 0, 10, -1,
+      0, 1, 0, -1, 0)),
+    (2, 5, (0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1, 0, 2, -5, 2, 0,
+            0, 0, 0, 0, 0),
+     (0,) * 10 + (-1, 13, -24, 13, -1) + (0,) * 10),
+    (3, 6, (0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0, 0, 1, 0, -1, 0,
+            0, 0, 0, 0, 0), None),
+    (10, 7, (0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0, 0, -1, 3, -1, 0,
+             0, 0, 0, 0, 0), None),
+    (17, 8, (0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0, 0, 1, 0, -1, 0,
+             0, 0, 0, 0, 0), None),
+    (24, 9, (0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0, 0, -1, -2, -1, 0,
+             0, 0, 0, 0, 0), None),
+)
+_SMOOTH_DC = (-2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42, -8,
+              -6, 6, 42, 6, -6, -2, -6, -8, -6, -2)
+
+
+def _smoothing_ok(fr) -> bool:
+    """jdcoefct.c smoothing_ok: a progressive file whose every component
+    has DC and non-zero quantisers 0-9, and some coefficient 1-9 not
+    refined to its last bit."""
+    if not fr.progressive:
+        return False
+    useful = False
+    for c in fr.comps:
+        if c.quant is None or not c.quant[:10].all() or c.coef_bits[0] < 0:
+            return False
+        useful = useful or any(c.coef_bits[k] != 0 for k in range(1, 10))
+    return useful
+
+
+def _predict(num, q, al):
+    """The estimate num / (q << 8), rounded, its magnitude capped below
+    1 << al when al > 0."""
+    mag = ((q << 7) + np.abs(num)) // (q << 8)
+    if al > 0:
+        mag = np.minimum(mag, (1 << al) - 1)
+    return np.where(num >= 0, mag, -mag)
+
+
+def _smooth(fr, c, coefs):
+    """Estimate the missing low-frequency coefficients of every block of
+    component c from the DC of its 5 x 5 neighbourhood (coefs: (bh * bw,
+    64) natural order, modified in place)."""
+    bits = c.coef_bits
+    change_dc = all(bits[k] == -1 for k in range(1, 10))
+    blocks = coefs.reshape(c.bh, c.bw, 64)
+    dc = blocks[..., 0].copy()
+    v = c.v
+    total = fr.mcuy
+    nby, nbx = c.nby, c.nbx
+    rows = np.arange(nby)
+    # image_block_row and image_block_rows as libjpeg counts them (the
+    # last iMCU row counts its own block rows)
+    last_rows = nby % v or v
+    in_last = rows >= (total - 1) * v
+    brows = np.where(in_last, last_rows, v)
+    ibr_row = np.where(in_last, (total - 1) * last_rows + rows % v, rows)
+    ibr = brows * total
+    prev = np.where(ibr_row > 0, rows - 1, rows)
+    prev2 = np.where(ibr_row > 1, rows - 2, prev)
+    nxt = np.where(ibr_row < ibr - 1, rows + 1, rows)
+    nxt2 = np.where(ibr_row < ibr - 2, rows + 2, nxt)
+    cols = np.arange(nbx)
+    nb = []
+    for r in (prev2, prev, rows, nxt, nxt2):
+        for dx in (-2, -1, 0, 1, 2):
+            nb.append(dc[r][:, np.clip(cols + dx, 0, nbx - 1)])
+    nb = np.stack(nb).astype(np.int64)  # (25, nby, nbx)
+    work = blocks[:nby, :nbx]
+    q = c.quant
+    for pos, k, w_dc, w_ac in _SMOOTH:
+        w = w_dc if change_dc else w_ac
+        al = bits[k]
+        if w is None or al == 0:
+            continue
+        num = int(q[0]) * np.tensordot(np.asarray(w, np.int64), nb, 1)
+        pred = _predict(num, int(q[pos]), al)
+        cur = work[..., pos]
+        work[..., pos] = np.where(cur == 0, pred, cur)
+    if change_dc:
+        num = int(q[0]) * np.tensordot(np.asarray(_SMOOTH_DC, np.int64),
+                                       nb, 1)
+        work[..., 0] = _predict(num, int(q[0]), 0)
+    blocks[:nby, :nbx] = work
 
 
 # ------------------------------ decode ------------------------------
@@ -559,12 +688,15 @@ def decode_jpeg(data: bytes, name: str = "<jpeg>") -> np.ndarray:
         raise ValueError(f"malformed JPEG file {name}: {e!r}") from e
     if not seen_sof:
         raise ValueError(f"JPEG without a frame header: {name}")
+    smoothing = _smoothing_ok(fr)
     planes = []
     for c in fr.comps:
         if c.quant is None:
             raise ValueError(f"JPEG: component {c.id} has no scan: {name}")
-        blocks = idct_islow(np.array(c.coefs, np.int64).reshape(-1, 64),
-                            c.quant).reshape(c.bh, c.bw, 8, 8)
+        coefs = np.array(c.coefs, np.int64).reshape(-1, 64)
+        if smoothing:
+            _smooth(fr, c, coefs)
+        blocks = idct_islow(coefs, c.quant).reshape(c.bh, c.bw, 8, 8)
         plane = blocks.transpose(0, 2, 1, 3).reshape(c.bh * 8, c.bw * 8)
         planes.append(_upsample(plane, c, fr))
     h, w = fr.height, fr.width
@@ -572,6 +704,18 @@ def decode_jpeg(data: bytes, name: str = "<jpeg>") -> np.ndarray:
     if len(planes) == 1:
         out[..., :3] = planes[0][..., None]
         return out
+    if len(planes) == 4:
+        # jdapimin.c: Adobe transform 2 (or another non-zero one) is YCCK,
+        # else CMYK; jdcolor.c ycck_cmyk_convert; PIL reads the CMYK as
+        # Adobe's inverted "CMYK;I" and converts it to RGB (cmyk2rgb)
+        if fr.adobe is not None and fr.adobe != 0:
+            r, g, b = _ycc_to_rgb(*planes[:3], clip=False)
+            cmyk = [np.clip(255 - v, 0, 255) for v in (r, g, b)]
+        else:
+            cmyk = [p.astype(np.int64) for p in planes[:3]]
+        cmyk.append(planes[3].astype(np.int64))
+        return modes.to_rgba("CMYK", (255 - np.stack(cmyk, -1)).astype(
+            np.uint8))
     if _is_rgb(fr):
         rgb = [p.astype(np.uint8) for p in planes]
     else:

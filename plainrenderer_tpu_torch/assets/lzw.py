@@ -1,0 +1,118 @@
+"""LZW decoding for GIF and TIFF, in the two variants their readers use:
+
+  - GIF (Pillow 12.1's libImaging/GifDecode.c): codes packed LSB first,
+    a minimum code size from the file, clear and end codes after the
+    roots, the code width growing when the next free code reaches the
+    current width's limit, up to 12 bits; a full table adds no codes
+    until the next clear;
+  - TIFF compression 5 (libtiff's tif_lzw.c LZWDecode, which PIL calls):
+    codes packed MSB first, 9 to 12 bits, clear 256, end 257, and the
+    width growing one code early ("early change").
+
+Both return the decoded bytes; the callers cut or check the length.
+"""
+
+from __future__ import annotations
+
+
+def decode_gif(data: bytes, min_size: int, limit: int) -> bytes:
+    """GIF LZW data (the sub-blocks joined) -> at most `limit` bytes of
+    pixel indices. Stops at the end code, at the end of the data, or
+    when `limit` bytes are out."""
+    if not 0 < min_size <= 11:
+        raise ValueError(f"GIF LZW minimum code size {min_size} is out of "
+                         "range")
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    roots = [bytes([i]) for i in range(clear)]
+    table = roots + [b"", b""]
+    size = min_size + 1
+    out = bytearray()
+    acc = nbits = pos = 0
+    prev = None
+    n = len(data)
+    while len(out) < limit:
+        while nbits < size and pos < n:
+            acc |= data[pos] << nbits
+            nbits += 8
+            pos += 1
+        if nbits < size:
+            break
+        code = acc & ((1 << size) - 1)
+        acc >>= size
+        nbits -= size
+        if code == clear:
+            table = roots + [b"", b""]
+            size = min_size + 1
+            prev = None
+            continue
+        if code == end:
+            break
+        if prev is None:
+            if code >= len(table):
+                raise ValueError("GIF LZW: a code before its entry exists")
+            entry = table[code]
+        elif code < len(table):
+            entry = table[code]
+            if len(table) < 4096:
+                table.append(prev + entry[:1])
+        elif code == len(table):
+            entry = prev + prev[:1]
+            if len(table) < 4096:
+                table.append(entry)
+        else:
+            raise ValueError("GIF LZW: a code past the table")
+        if len(table) == 1 << size and size < 12:
+            size += 1
+        out += entry
+        prev = entry
+    return bytes(out[:limit])
+
+
+def decode_tiff(data: bytes, limit: int) -> bytes:
+    """TIFF LZW (MSB first, early change) -> at most `limit` bytes."""
+    if data[:1] == b"\0" and len(data) > 1 and data[1] & 1:
+        raise ValueError("TIFF LZW in the old (LSB-first) form is not read "
+                         "by the port")
+    roots = [bytes([i]) for i in range(256)]
+    table = roots + [b"", b""]
+    size = 9
+    out = bytearray()
+    acc = nbits = pos = 0
+    prev = None
+    n = len(data)
+    while len(out) < limit:
+        while nbits < size and pos < n:
+            acc = (acc << 8) | data[pos]
+            nbits += 8
+            pos += 1
+        if nbits < size:
+            break
+        code = (acc >> (nbits - size)) & ((1 << size) - 1)
+        nbits -= size
+        acc &= (1 << nbits) - 1
+        if code == 256:
+            table = roots + [b"", b""]
+            size = 9
+            prev = None
+            continue
+        if code == 257:
+            break
+        if prev is None:
+            if code >= 256:
+                raise ValueError("TIFF LZW: the first code is not a root")
+            entry = table[code]
+        elif code < len(table):
+            entry = table[code]
+            table.append(prev + entry[:1])
+        elif code == len(table):
+            entry = prev + prev[:1]
+            table.append(entry)
+        else:
+            raise ValueError("TIFF LZW: a code past the table")
+        if len(table) >= (1 << size) - 1 and size < 12:
+            size += 1
+        if len(table) > 4096:
+            raise ValueError("TIFF LZW: the table overflows")
+        out += entry
+        prev = entry
+    return bytes(out[:limit])

@@ -215,13 +215,15 @@ def test_generated_pngs_decode_as_pil(ctype, depth, interlace):
 
 
 def test_png_errors_raise_value_error(tmp_path):
-    """A format the port does not read names itself (GIF); a JPEG, which
-    the port reads since slice 14, loads equal to PIL's decode; a bad CRC,
-    a truncated file and bad image data raise ValueError."""
-    gif = tmp_path / "a.gif"
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(gif)
-    with pytest.raises(ValueError, match="GIF"):
-        tio.load_image(gif)
+    """A format PIL reads and the port does not names itself (PCX and ICO,
+    written by PIL); a JPEG, which the port reads since slice 14, loads
+    equal to PIL's decode; a bad CRC, a truncated file and bad image data
+    raise ValueError."""
+    for name, fmt in (("a.pcx", "PCX"), ("a.ico", "ICO")):
+        path = tmp_path / name
+        Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path)
+        with pytest.raises(ValueError, match=fmt):
+            tio.load_image(path)
     jpg = tmp_path / "a.jpg"
     pixels = np.random.default_rng(1).integers(0, 256, (9, 13, 3), np.uint8)
     Image.fromarray(pixels).save(jpg)

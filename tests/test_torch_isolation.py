@@ -1,4 +1,6 @@
-"""plainrenderer_tpu_torch imports neither jax nor plainrenderer_tpu.
+"""plainrenderer_tpu_torch imports neither jax nor plainrenderer_tpu,
+nor PIL or imageio, which the card's machine does not have (the port
+reads and writes images with its own decoders).
 
 Module names are matched exactly or by their dotted prefix: the port's
 own name starts with "plainrenderer_tpu", so a substring test would be
@@ -12,7 +14,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "plainrenderer_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "plainrenderer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "plainrenderer_tpu", "PIL", "imageio")
 
 
 def _forbidden(name: str) -> bool:
@@ -35,6 +37,19 @@ def test_forbidden_matches_exact_names_only():
     assert _forbidden("plainrenderer_tpu.ops.raster")
     assert not _forbidden("plainrenderer_tpu_torch.ops.raster")
     assert not _forbidden("jaxtyping")
+    assert _forbidden("PIL") and _forbidden("PIL.Image")
+    assert _forbidden("imageio.v3") and not _forbidden("imageio_ffmpeg")
+
+
+def test_torch_and_numpy_load_no_pil():
+    """The runtime check below is only meaningful if torch and numpy do
+    not bring PIL or imageio in themselves."""
+    out = subprocess.run(
+        [sys.executable, "-c", "import json, sys, numpy, torch\n"
+         "print(json.dumps(sorted(sys.modules)))"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300, check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not [m for m in loaded if _forbidden(m)]
 
 
 def test_importing_every_module_loads_no_jax():
@@ -59,6 +74,9 @@ def test_importing_every_module_loads_no_jax():
               "parallel.halo", "utils.sh", "utils.sampling",
               "assets.compressed", "assets.plain_format", "assets.dds",
               "assets.image_io", "assets.gltf_import", "assets.pipeline",
+              "assets.modes", "assets.bmp", "assets.tga", "assets.pnm",
+              "assets.lzw", "assets.gif", "assets.tiff", "assets.webp",
+              "assets.vp8l", "assets.vp8", "assets.jpeg",
               "ops.debugviz", "runtime.shell", "runtime.overlay",
               "runtime.app", "parallel.comm", "parallel.sharding"):
         assert "plainrenderer_tpu_torch." + m in loaded, m
