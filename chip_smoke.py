@@ -36,14 +36,15 @@ subprocesses (runtime_phase). Then the modules phase: the Monte Carlo BRDF
 bake for each diffuse BRDF on the card (timed, its peak memory; against
 the CPU's plain bake and the fitted polynomials) and the committed JPEG
 fixtures decoded equal to PIL's PNGs (modules_phase). Then the formats
-phase: the committed fixtures of tests/data/formats (BMP, TGA, PNM, GIF,
-TIFF, WebP, CMYK / YCCK and cut progressive JPEG) decoded equal to PIL's
-PNGs beside them, timed on the host; then the courtyard with its 12
-textures re-saved by the port's save_image as TGA, as TIFF, and with its
-four RGB normal maps as BMP and PPM, each loaded by the App at 1920x1080
-(all 12 texture slots in the pool) and rendered for 3 frames, its
-texture pool and frames equal bit for bit to the committed PNG
-courtyard's (formats_phase). Then row 8, the band phase: split-frame band mode on 4 ranks sharing the one card over
+phase: the committed fixtures of tests/data/formats (BMP, DIB, TGA, PNM,
+GIF, TIFF, WebP, JPEG, PSD, QOI, SGI, PCX / DCX, ICO / CUR) decoded
+equal to PIL's PNGs beside them, timed on the host; then the courtyard
+with its 12 textures re-saved by the port's save_image as TGA, TIFF, QOI
+and SGI, and with its four RGB normal maps as BMP and PPM, each loaded
+by the App at 1920x1080 (all 12 texture slots in the pool) and rendered
+for 3 frames, its texture pool and frames equal bit for bit to the
+committed PNG courtyard's; and with those four maps written as JPEG,
+their bytes PIL's (SHA-256), loaded and rendered (formats_phase). Then row 8, the band phase: split-frame band mode on 4 ranks sharing the one card over
 gloo (collectives staged through the host, counted), bench.py's scene at
 1920x1024 (band_settings' frame for 1920x1080 and 4 bands) in 256-row
 bands, 3 frames against the parent's single-device render of the same
@@ -77,6 +78,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -2446,20 +2448,41 @@ def modules_phase(ctx) -> dict:
 FORMAT_FIXTURES = ROOT / "tests" / "data" / "formats"
 # tests/test_torch_formats.py _fixture_files: each beside PIL's decode
 FORMAT_NAMES = (
-    "anim.webp", "bilevel_whiteiszero.tif", "cmap16.tga", "cmyk.jpg",
-    "cut_ac.jpg", "cut_dc.jpg", "grey.gif", "grey16_mm.tif", "grey8.bmp",
+    "anim.webp", "bigtiff_rgb.tif", "bilevel_whiteiszero.tif", "cmap16.tga",
+    "cmyk.jpg", "cmyk_lzw.tif", "cmyk_raw.psd", "cut_ac.jpg", "cut_dc.jpg",
+    "float_pred3.tif", "grey.dcx", "grey.gif", "grey16_mm.tif", "grey8.bmp",
     "grey8_topleft.tga", "interlaced_transparent.gif", "local_offset.gif",
-    "lossless.webp", "lossy.webp", "lossy_alpha.webp", "p1.pbm",
-    "p2_maxval15.pgm", "p3.ppm", "p4.pbm", "p5_16bit.pgm",
-    "p6_maxval1000.ppm", "pal4.bmp", "pal4_packbits.tif", "palette.gif",
-    "rgb16.tga", "rgb24.bmp", "rgb24.tga", "rgb565.bmp", "rgb_lzw_pred.tif",
-    "rgba32_rle.tga", "rgba32_v5.bmp", "rgba_assoc_planar.tif",
-    "rgba_deflate_tiled.tif", "rle4.bmp", "rle8.bmp", "ycck.jpg")
+    "lossless.webp", "lossy.webp", "lossy_alpha.webp", "orient6.tif",
+    "p1.pbm", "p2_maxval15.pgm", "p3.ppm", "p4.pbm", "p5_16bit.pgm",
+    "p6_maxval1000.ppm", "pal4.bmp", "pal4_packbits.tif", "pal4_planes.pcx",
+    "pal8.pcx", "pal8_mask.ico", "palette.gif", "rgb.pcx", "rgb.sgi",
+    "rgb16.tga", "rgb24.bmp", "rgb24.dib", "rgb24.tga", "rgb565.bmp",
+    "rgb_jpeg.tif", "rgb_lzw_pred.tif", "rgba.ico", "rgba.qoi", "rgba16.sgi",
+    "rgba32.cur", "rgba32_rle.tga", "rgba32_v5.bmp", "rgba_assoc_planar.tif",
+    "rgba_deflate_tiled.tif", "rgba_packbits.psd", "rgba_rle.sgi", "rle4.bmp",
+    "rle8.bmp", "ycbcr21_deflate.tif", "ycbcr_jpeg.tif", "ycbcr_lzw.tif",
+    "ycck.jpg")
 FORMAT_FRAMES = 3
 # the courtyard's copies: a texture slot's file -> the suffix it is saved
 # with (None: the committed PNG stays)
 NORMAL_MAPS_ALPHA_FREE = {"ivy_normal": ".bmp", "metal_normal": ".bmp",
                           "stone_normal": ".ppm", "wood_normal": ".ppm"}
+# SHA-256 of PIL's default JPEG save of the courtyard's four RGB maps
+# (tests/test_torch_formats_more.py checks them against PIL); the port's
+# save_image must write these bytes
+COURTYARD_JPEG_SHA256 = {
+    "ivy_normal": "cbdb59ddda618d33e00f7ef0050dd935"
+                  "c8f8f6f826c2a6abadc16f92bef67da3",
+    "metal_normal": "5688d28c4b70b678189090e99fca4a0f"
+                    "274f6c0cf086d77f2c8dfc8fc7c9dad0",
+    "stone_normal": "575890df350ecf0489538960bfe43c7b"
+                    "5f6c5f87e434a12c39d9f41930f07946",
+    "wood_normal": "cad015a94530e1508f0d79c4258d2250"
+                   "afd9de115e7bd9d321a0478ad7a63a9d"}
+# the copies formats_phase renders: kind -> (texture files written, frames
+# and pool held bit-equal to the PNG courtyard's)
+FORMAT_COPIES = {"tga": (12, True), "tif": (12, True), "bmp_ppm": (4, True),
+                 "qoi": (12, True), "sgi": (12, True), "jpg": (4, False)}
 
 
 def format_fixtures() -> dict:
@@ -2487,9 +2510,10 @@ def format_fixtures() -> dict:
 
 def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list]:
     """A .plain of the courtyard whose texture files are re-saved by the
-    port's save_image under tmp: kind "tga" or "tif" (all 12), or
-    "bmp_ppm" (the four RGB normal maps as two BMP and two PPM, the RGBA
-    maps left as PNG). The SDF volume paths stay as committed."""
+    port's save_image under tmp: kind "tga", "tif", "qoi" or "sgi" (all
+    12), "bmp_ppm" (the four RGB normal maps as two BMP and two PPM, the
+    RGBA maps left as PNG) or "jpg" (the four RGB maps as JPEG). The SDF
+    volume paths stay as committed."""
     from plainrenderer_tpu_torch.assets import plain_format
 
     scene = plain_format.load_binary_scene(COURTYARD)
@@ -2501,6 +2525,8 @@ def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list]:
             src = Path(getattr(mesh.texture_paths, slot))
             if kind == "bmp_ppm":
                 suffix = NORMAL_MAPS_ALPHA_FREE.get(src.stem)
+            elif kind == "jpg":
+                suffix = ".jpg" if src.stem in COURTYARD_JPEG_SHA256 else None
             else:
                 suffix = "." + kind
             if suffix is None:
@@ -2552,9 +2578,12 @@ def format_frames(ctx, scene_path) -> dict:
 def formats_phase(ctx) -> dict:
     """The image readers and writers on the card's machine (no PIL): the
     committed fixtures, then the courtyard with its textures re-saved as
-    TGA, as TIFF, and with BMP / PPM normal maps, each loaded by the App
-    and rendered (kernels A-L on the card) equal bit for bit, pool and
-    frames, to the committed PNG courtyard's run."""
+    TGA, TIFF, QOI and SGI, and with BMP / PPM normal maps, each loaded by
+    the App and rendered (kernels A-L on the card) equal bit for bit,
+    pool and frames, to the committed PNG courtyard's run; and with its
+    four RGB maps written as JPEG, byte for byte PIL's (their digests),
+    loaded with all 12 slots and rendered to frames that are neither
+    black nor white."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -2563,15 +2592,30 @@ def formats_phase(ctx) -> dict:
     check(base["textures"] == 12, "the PNG courtyard's 12 texture slots")
     loads = {"png": base["load_s"]}
     with tempfile.TemporaryDirectory() as tmp:
-        for kind in ("tga", "tif", "bmp_ppm"):
+        for kind, (n_written, equal) in FORMAT_COPIES.items():
             sub = Path(tmp) / kind
             sub.mkdir()
             plain, written = courtyard_copy(sub, kind)
-            check(len(written) == (4 if kind == "bmp_ppm" else 12),
+            check(len(written) == n_written,
                   f"courtyard as {kind}: textures written {written}")
+            if kind == "jpg":
+                digests = {Path(n).stem: hashlib.sha256(
+                    (sub / n).read_bytes()).hexdigest() for n in written}
+                check(digests == COURTYARD_JPEG_SHA256,
+                      f"courtyard maps as JPEG: the bytes of PIL's save "
+                      f"({digests})")
             run = format_frames(ctx, plain)
             check(run["textures"] == 12,
                   f"courtyard as {kind}: all 12 texture slots load")
+            loads[kind] = run["load_s"]
+            if not equal:
+                check(all(img.shape == base["images"][0].shape
+                          and img.dtype == base["images"][0].dtype
+                          and 0 < float(img.mean()) < 255
+                          for img in run["images"]),
+                      f"courtyard as {kind}: {FORMAT_FRAMES} frames of the "
+                      f"PNG courtyard's shape, neither black nor white")
+                continue
             for key, want in base["pool"].items():
                 got = run["pool"].get(key)
                 check(got is not None and got.shape == want.shape
@@ -2585,12 +2629,12 @@ def formats_phase(ctx) -> dict:
                       f"courtyard as {kind}: frame {i} equals the PNG "
                       f"courtyard's bit for bit ({len(diff)} pixels differ, "
                       f"first at {diff[:3].tolist()})")
-            loads[kind] = run["load_s"]
     found.update(scene_load_s=loads, frames=FORMAT_FRAMES,
                  phase_s=time.perf_counter() - t_phase)
     print(f"courtyard scene load at {WIDTH}x{HEIGHT} (s, App() with the "
           f"texture decodes): {json.dumps(loads)}; {FORMAT_FRAMES} frames "
-          f"each equal to the PNG courtyard's, texture pools equal; phase "
+          f"each, equal to the PNG courtyard's with equal texture pools "
+          f"except jpg (lossy; its files' digests equal PIL's); phase "
           f"{found['phase_s']:.1f} s", flush=True)
     return found
 

@@ -152,12 +152,34 @@ def read_bmp(buf: bytes, where: str = "<bmp>") -> np.ndarray:
     gives them."""
     if not buf.startswith(b"BM") or len(buf) < 18:
         raise ValueError(f"not a BMP file: {where}")
-    offset = _u32(buf, 10)
-    hsize = _u32(buf, 14)
-    hdr = buf[18:14 + hsize]
+    return bitmap(buf, 14, _u32(buf, 10), where)[0]
+
+
+def looks_like_dib(head: bytes) -> bool:
+    """PIL's DIB format: an info header without the file header."""
+    return len(head) >= 4 and _u32(head) in (12, 40, 52, 56, 64, 108, 124)
+
+
+def read_dib(buf: bytes, where: str = "<dib>") -> np.ndarray:
+    """A bare DIB (info header, palette and pixels), as PIL's DibImageFile
+    opens it."""
+    return bitmap(buf, 0, 0, where)[0]
+
+
+def bitmap(buf: bytes, at: int, offset: int, where: str,
+           halve: bool = False, raw_alpha: bool = False):
+    """PIL's BmpImageFile._bitmap from the info header at `at`, its pixels
+    at `offset` (0: right after the header and palette): (RGBA pixels,
+    where the pixels start). `halve` reads the top half of the rows, as
+    ICO and CUR images (pixels and mask in one height) are read;
+    `raw_alpha` reads 32-bit BI_RGB as BGRA (a cursor at offset 22)."""
+    if len(buf) < at + 4:
+        raise ValueError(f"BMP header truncated: {where}")
+    hsize = _u32(buf, at)
+    hdr = buf[at + 4:at + hsize]
     if len(hdr) < hsize - 4:
         raise ValueError(f"BMP header truncated: {where}")
-    pos = 14 + hsize
+    pos = at + hsize
     direction = -1
     masks = None
     if hsize == 12:
@@ -190,6 +212,8 @@ def read_bmp(buf: bytes, where: str = "<bmp>") -> np.ndarray:
     if bits not in _BIT2MODE:
         raise ValueError(f"BMP pixel depth {bits} is not supported: {where}")
     mode, rawmode = _BIT2MODE[bits]
+    if halve:
+        height //= 2
     rle = False
     if compression == 3:
         key = (bits, tuple(masks) if bits == 32 else tuple(masks[:3]))
@@ -198,6 +222,8 @@ def read_bmp(buf: bytes, where: str = "<bmp>") -> np.ndarray:
                              f"{[hex(m) for m in masks]} is not supported: "
                              f"{where}")
         rawmode = _MASK_MODES[key]
+    elif compression == 0 and bits == 32 and raw_alpha:
+        rawmode = "BGRA"
     elif compression in (1, 2):
         rle = True
     elif compression != 0:
@@ -209,6 +235,7 @@ def read_bmp(buf: bytes, where: str = "<bmp>") -> np.ndarray:
             raise ValueError(f"BMP palette size {colors} is not supported: "
                              f"{where}")
         pal = buf[pos:pos + padding * colors]
+        pos += padding * colors
         indices = (0, 255) if colors == 2 else range(colors)
         grey = all(pal[i * padding:i * padding + 3] == bytes([v]) * 3
                    for i, v in enumerate(indices))
@@ -233,8 +260,8 @@ def read_bmp(buf: bytes, where: str = "<bmp>") -> np.ndarray:
         px = _unpack_rows(buf[start:], width, height, stride, rawmode,
                           direction, where)
     if px.ndim == 3:
-        return px
-    return modes.to_rgba(mode, px, palette)
+        return px, start
+    return modes.to_rgba(mode, px, palette), start
 
 
 def encode_bmp(image: np.ndarray) -> bytes:

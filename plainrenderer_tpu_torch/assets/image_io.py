@@ -16,10 +16,13 @@ and PIL's header check), and every reader returns what
     every bit depth the format allows, Adam7 interlacing; 16-bit samples
     keep their high byte (16-bit grey clips to 255), a tRNS chunk gives
     alpha as PIL applies it;
-  - JPEG (assets/jpeg.py), BMP (assets/bmp.py), GIF's first frame
-    (assets/gif.py), TIFF's first page (assets/tiff.py), TGA
-    (assets/tga.py), PBM / PGM / PPM (assets/pnm.py) and WebP
-    (assets/webp.py), each within the limits its module states;
+  - JPEG (assets/jpeg.py), BMP and bare DIB (assets/bmp.py), GIF's
+    first frame (assets/gif.py), TIFF's first page (assets/tiff.py), TGA
+    (assets/tga.py), PBM / PGM / PPM (assets/pnm.py), WebP
+    (assets/webp.py), PSD's merged image (assets/psd.py), QOI
+    (assets/qoi.py), SGI (assets/sgi.py), PCX and DCX's first page
+    (assets/pcx.py), ICO and CUR (assets/ico.py), each within the limits
+    its module states;
   - Radiance RGBE (.hdr, by suffix as in the JAX package): new-style
     run-length or flat scanlines (the first scanline decides, as in stb),
     as (H, W, 4) f32 with alpha 1;
@@ -27,10 +30,13 @@ and PIL's header check), and every reader returns what
 
 Any other format PIL opens (the ``_OTHER_FORMATS`` list) raises ValueError
 naming it, and so does a feature of a format above that the port does not
-read yet. ``save_image`` writes the format the suffix names (PNG, BMP,
-TGA, TIFF, PPM / PGM / PNM) from (H, W) and (H, W, 3|4) u8, as PIL's
-``Image.fromarray(...).save(path)`` writes modes L, RGB and RGBA; any
-other suffix raises ValueError and writes nothing.
+read yet. ``save_image`` writes the format the suffix names from (H, W)
+and (H, W, 3|4) u8, as PIL's ``Image.fromarray(...).save(path)`` writes
+modes L, RGB and RGBA: PNG, BMP, TGA, TIFF, PPM / PGM / PNM / PBM (P5 or
+P6, as PIL writes by mode), JPEG (.jpg, .jpeg, .jpe, .jfif;
+assets/jpeg_encode.py), QOI, SGI (.sgi, .rgb, .rgba, .bw) and PCX; what
+PIL refuses to write (RGBA as JPEG or PCX, grey as QOI) and any other
+suffix raise ValueError and write nothing.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ from pathlib import Path
 
 import numpy as np
 
-from . import bmp, dds, gif, jpeg, modes, pnm, tga, tiff, webp
+from . import (bmp, dds, gif, ico, jpeg, jpeg_encode, modes, pcx, pnm, psd,
+               qoi, sgi, tga, tiff, webp)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel, and the bit depths the format allows
@@ -53,25 +60,25 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 # magic bytes (offset, bytes) of formats PIL opens and the port does not
 _OTHER_FORMATS = (
-    (0, b"\x0a", "PCX"), (0, b"\x00\x00\x01\x00", "ICO"),
-    (0, b"\x00\x00\x02\x00", "CUR"), (0, b"qoif", "QOI"),
-    (0, b"8BPS", "PSD"), (0, b"\x01\xda", "SGI"),
     (0, b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
     (0, b"\xffO\xffQ", "JPEG 2000"), (0, b"icns", "ICNS"),
     (0, b"#define", "XBM"), (0, b"/* XPM */", "XPM"),
     (0, b"SIMPLE", "FITS"), (0, b"\x59\xa6\x6a\x95", "SUN"),
     (4, b"ftypavif", "AVIF"), (4, b"ftypavis", "AVIF"), (0, b"BLP", "BLP"),
-    (0, b"\xb1\x68\xde\x3a", "DCX"), (4, b"\xaf\x11", "FLI"),
-    (4, b"\xaf\x12", "FLI"), (0, b"FTEX", "FTEX"), (20, b"GIMP", "GBR"),
+    (4, b"\xaf\x11", "FLI"), (4, b"\xaf\x12", "FLI"), (0, b"FTEX", "FTEX"),
+    (20, b"GIMP", "GBR"),
     (0, b"Image type", "IM"), (0, b"DanM", "MSP"), (0, b"LinS", "MSP"),
     (0, b"\x00\x00\x01\xb3", "MPEG"), (0, b"%!PS", "EPS"),
     (0, b"\xc5\xd0\xd3\xc6", "EPS"), (0, b"\x80\xe8\x00\x00", "PIXAR"),
     (0, b"P7 332", "XVTHUMB"), (0, b"DDS ", "DDS"))
 SAVE_FORMATS = {".png": "PNG", ".bmp": "BMP", ".tga": "TGA", ".tif": "TIFF",
-                ".tiff": "TIFF", ".ppm": "PPM", ".pgm": "PPM", ".pnm": "PPM"}
+                ".tiff": "TIFF", ".ppm": "PPM", ".pgm": "PPM", ".pnm": "PPM",
+                ".pbm": "PPM", ".jpg": "JPEG", ".jpeg": "JPEG",
+                ".jpe": "JPEG", ".jfif": "JPEG", ".qoi": "QOI",
+                ".sgi": "SGI", ".rgb": "SGI", ".rgba": "SGI", ".bw": "SGI",
+                ".pcx": "PCX"}
 # formats PIL writes under these suffixes and the port does not yet
-_UNWRITTEN = {".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
-              ".gif": "GIF", ".webp": "WebP", ".pbm": "PBM"}
+_UNWRITTEN = {".gif": "GIF", ".webp": "WebP"}
 
 
 def load_image(path: str | Path) -> np.ndarray:
@@ -97,49 +104,56 @@ def decode_image(data: bytes, where: str = "<bytes>",
     """Image bytes -> (H, W, 4) u8 by the reader the content names (TGA
     only under one of its suffixes). A malformed file raises ValueError,
     whatever the reader tripped on."""
-    reader = _reader(data, suffix)
-    if reader is None:
-        name = next((n for at, magic, n in _OTHER_FORMATS
-                     if data[at:at + len(magic)] == magic),
-                    f"{suffix or 'unknown'!r}")
-        raise ValueError(
-            f"image format {name} is not read by the port (PNG, JPEG, BMP, "
-            f"GIF, TIFF, WebP, TGA, PBM/PGM/PPM, Radiance .hdr and rgba8 "
-            f"DDS are): {where}")
-    try:
-        return reader(data, where)
-    except (IndexError, KeyError, struct.error, zlib.error,
-            OverflowError) as e:
-        raise ValueError(f"malformed image file {where}: {e!r}") from e
+    for reader in _readers(data, suffix):
+        try:
+            return reader(data, where)
+        except modes.NotThisFormat:
+            continue  # Image.open tries the next format
+        except (IndexError, KeyError, struct.error, zlib.error,
+                OverflowError) as e:
+            raise ValueError(f"malformed image file {where}: {e!r}") from e
+    name = next((n for at, magic, n in _OTHER_FORMATS
+                 if data[at:at + len(magic)] == magic),
+                f"{suffix or 'unknown'!r}")
+    raise ValueError(
+        f"image format {name} is not read by the port (PNG, JPEG, BMP, DIB, "
+        f"GIF, TIFF, WebP, TGA, PBM/PGM/PPM, PSD, QOI, SGI, PCX/DCX, "
+        f"ICO/CUR, Radiance .hdr and rgba8 DDS are): {where}")
 
 
-def _reader(data: bytes, suffix: str):
-    """The decode function for the content, as Image.open picks it."""
-    if data.startswith(PNG_SIGNATURE):
-        return decode_png
-    if data.startswith(b"\xff\xd8\xff"):
-        return jpeg.decode_jpeg
-    if data.startswith(b"BM"):
-        return bmp.read_bmp
-    if data.startswith((b"GIF87a", b"GIF89a")):
-        return gif.read_gif
-    if tiff.looks_like_tiff(data[:4]):
-        return tiff.read_tiff
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return webp.read_webp
-    if pnm.looks_like_pnm(data[:2]) and not data.startswith(b"P7 332"):
-        return pnm.read_pnm
-    if suffix in tga.EXTENSIONS:  # TGA has no magic bytes
-        return tga.read_tga
-    return None
+def _readers(data: bytes, suffix: str) -> list:
+    """The decode functions whose magic bytes the content has, in the
+    order of Image.open's format list; TGA, which has no magic bytes and
+    whose header check PIL runs on any file, last and only under one of
+    its suffixes."""
+    claims = (
+        (data.startswith(b"BM"), bmp.read_bmp),
+        (bmp.looks_like_dib(data[:4]), bmp.read_dib),
+        (data.startswith(ico.CUR_MAGIC), ico.read_cur),
+        (pcx.looks_like_pcx(data[:2]), pcx.read_pcx),
+        (pcx.looks_like_dcx(data[:4]), pcx.read_dcx),
+        (data.startswith((b"GIF87a", b"GIF89a")), gif.read_gif),
+        (data.startswith(PNG_SIGNATURE), decode_png),
+        (data.startswith(ico.ICO_MAGIC), ico.read_ico),
+        (data.startswith(b"\xff\xd8\xff"), jpeg.decode_jpeg),
+        (tiff.looks_like_tiff(data[:4]), tiff.read_tiff),
+        (pnm.looks_like_pnm(data[:2]) and not data.startswith(b"P7 332"),
+         pnm.read_pnm),
+        (data.startswith(psd.MAGIC), psd.read_psd),
+        (data.startswith(qoi.MAGIC), qoi.read_qoi),
+        (sgi.looks_like_sgi(data[:2]), sgi.read_sgi),
+        (data[:4] == b"RIFF" and data[8:12] == b"WEBP", webp.read_webp),
+        (suffix in tga.EXTENSIONS, tga.read_tga))
+    return [reader for claimed, reader in claims if claimed]
 
 
 def save_image(path: str | Path, image: np.ndarray) -> None:
     """Save (H, W) or (H, W, 3|4) u8 in the format the suffix names (case
-    aside): .png, .bmp, .tga, .tif / .tiff, .ppm / .pgm / .pnm; PIL's
-    decode of the file equals its decode of PIL's own save of the array
-    (RGBA as BMP reads back as RGB, as PPM is written as RGB, as PIL
-    does). Any other suffix raises ValueError and writes no file."""
+    aside, SAVE_FORMATS); PIL's decode of the file equals its decode of
+    PIL's own save of the array (RGBA as BMP reads back as RGB, as PPM is
+    written as RGB, as PIL does), and PNM, BMP, TGA, JPEG, QOI, SGI and
+    PCX are byte for byte PIL's. What PIL refuses to write and any other
+    suffix raise ValueError and write no file."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix not in SAVE_FORMATS:
@@ -154,8 +168,10 @@ def save_image(path: str | Path, image: np.ndarray) -> None:
                          f"got {img.dtype} {img.shape}")
     encode = {"PNG": encode_png, "BMP": bmp.encode_bmp,
               "TGA": tga.encode_tga, "TIFF": tiff.encode_tiff,
-              "PPM": pnm.encode_pnm}[SAVE_FORMATS[suffix]]
-    path.write_bytes(encode(img))
+              "PPM": pnm.encode_pnm, "JPEG": jpeg_encode.encode_jpeg,
+              "QOI": qoi.encode_qoi, "PCX": pcx.encode_pcx,
+              "SGI": lambda a: sgi.encode_sgi(a, path.stem)}
+    path.write_bytes(encode[SAVE_FORMATS[suffix]](img))
 
 
 # ------------------------------- PNG ---------------------------------
@@ -259,8 +275,10 @@ def _unpack_samples(rows: np.ndarray, width: int, channels: int,
     return vals.astype(np.uint8).reshape(h, width, channels)
 
 
-def decode_png(data: bytes, where: str = "<bytes>") -> np.ndarray:
-    """PNG bytes -> (H, W, 4) u8, as PIL's convert("RGBA") gives them."""
+def decode_png(data: bytes, where: str = "<bytes>",
+               transparency: bool = True) -> np.ndarray:
+    """PNG bytes -> (H, W, 4) u8, as PIL's convert("RGBA") gives them;
+    without `transparency` a tRNS chunk is ignored (an ICO's PNG entry)."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f"not a PNG: {where}")
     header = palette = trns = None
@@ -270,7 +288,7 @@ def decode_png(data: bytes, where: str = "<bytes>") -> np.ndarray:
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"tRNS":
+        elif kind == b"tRNS" and transparency:
             trns = body
         elif kind == b"IDAT":
             idat.append(body)

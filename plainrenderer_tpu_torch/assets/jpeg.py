@@ -644,6 +644,52 @@ def decode_jpeg(data: bytes, name: str = "<jpeg>") -> np.ndarray:
     """JPEG bytes -> (H, W, 4) u8 RGBA, alpha 255, equal to PIL's
     ``Image.open(...).convert("RGBA")``. Raises ValueError for a feature
     outside the module docstring's list, or for a malformed file."""
+    fr, planes = _planes(data, name)
+    h, w = fr.height, fr.width
+    out = np.full((h, w, 4), 255, np.uint8)
+    if len(planes) == 1:
+        out[..., :3] = planes[0][..., None]
+        return out
+    if len(planes) == 4:
+        # jdapimin.c: Adobe transform 2 (or another non-zero one) is YCCK,
+        # else CMYK; jdcolor.c ycck_cmyk_convert; PIL reads the CMYK as
+        # Adobe's inverted "CMYK;I" and converts it to RGB (cmyk2rgb)
+        if fr.adobe is not None and fr.adobe != 0:
+            r, g, b = _ycc_to_rgb(*planes[:3], clip=False)
+            cmyk = [np.clip(255 - v, 0, 255) for v in (r, g, b)]
+        else:
+            cmyk = [p.astype(np.int64) for p in planes[:3]]
+        cmyk.append(planes[3].astype(np.int64))
+        return modes.to_rgba("CMYK", (255 - np.stack(cmyk, -1)).astype(
+            np.uint8))
+    if _is_rgb(fr):
+        rgb = [p.astype(np.uint8) for p in planes]
+    else:
+        rgb = _ycc_to_rgb(*planes)
+    for k in range(3):
+        out[..., k] = rgb[k]
+    return out
+
+
+def decode_components(data: bytes, name: str = "<jpeg>",
+                      ycbcr: bool = False):
+    """JPEG bytes -> ((H, W, components) u8 samples, [(h, v) sampling
+    factors of each component]), upsampled but not colour-converted (a
+    TIFF strip's JPEG, which libtiff decodes as colour space "unknown"),
+    or, with `ycbcr`, 3 components converted from YCbCr to RGB (libtiff's
+    JPEGCOLORMODE_RGB)."""
+    fr, planes = _planes(data, name)
+    if ycbcr:
+        if len(planes) != 3:
+            raise ValueError(f"JPEG with {len(planes)} components is not "
+                             f"YCbCr: {name}")
+        planes = _ycc_to_rgb(*planes)
+    return (np.stack([p.astype(np.uint8) for p in planes], -1),
+            [(c.h, c.v) for c in fr.comps])
+
+
+def _planes(data: bytes, name: str):
+    """The frame and its components' samples at full size, (H, W) each."""
     if not data.startswith(b"\xff\xd8"):
         raise ValueError(f"not a JPEG file: {name}")
     fr = _Frame()
@@ -699,30 +745,7 @@ def decode_jpeg(data: bytes, name: str = "<jpeg>") -> np.ndarray:
         blocks = idct_islow(coefs, c.quant).reshape(c.bh, c.bw, 8, 8)
         plane = blocks.transpose(0, 2, 1, 3).reshape(c.bh * 8, c.bw * 8)
         planes.append(_upsample(plane, c, fr))
-    h, w = fr.height, fr.width
-    out = np.full((h, w, 4), 255, np.uint8)
-    if len(planes) == 1:
-        out[..., :3] = planes[0][..., None]
-        return out
-    if len(planes) == 4:
-        # jdapimin.c: Adobe transform 2 (or another non-zero one) is YCCK,
-        # else CMYK; jdcolor.c ycck_cmyk_convert; PIL reads the CMYK as
-        # Adobe's inverted "CMYK;I" and converts it to RGB (cmyk2rgb)
-        if fr.adobe is not None and fr.adobe != 0:
-            r, g, b = _ycc_to_rgb(*planes[:3], clip=False)
-            cmyk = [np.clip(255 - v, 0, 255) for v in (r, g, b)]
-        else:
-            cmyk = [p.astype(np.int64) for p in planes[:3]]
-        cmyk.append(planes[3].astype(np.int64))
-        return modes.to_rgba("CMYK", (255 - np.stack(cmyk, -1)).astype(
-            np.uint8))
-    if _is_rgb(fr):
-        rgb = [p.astype(np.uint8) for p in planes]
-    else:
-        rgb = _ycc_to_rgb(*planes)
-    for k in range(3):
-        out[..., k] = rgb[k]
-    return out
+    return fr, planes
 
 
 def _is_rgb(fr) -> bool:

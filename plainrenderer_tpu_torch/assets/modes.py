@@ -29,6 +29,12 @@ from __future__ import annotations
 import numpy as np
 
 
+class NotThisFormat(ValueError):
+    """A reader's finding that a file its magic bytes claimed is not its
+    format after all (PIL's plugins raise SyntaxError, TypeError or
+    IndexError from _open, and Image.open tries the next format)."""
+
+
 def _u8(x) -> np.ndarray:
     return np.clip(x, 0, 255).astype(np.uint8)
 

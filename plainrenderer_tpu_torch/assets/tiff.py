@@ -2,31 +2,47 @@
 TiffImagePlugin.py opens it (``TiffImageFile._setup`` and its OPEN_INFO
 table) and decodes it (its raw decoder for uncompressed data; libtiff's
 TIFFReadEncodedStrip / TIFFReadEncodedTile, tif_lzw.c, tif_zip.c,
-tif_packbits.c and tif_predict.c for the rest), converted as
-``Image.convert("RGBA")`` converts it.
+tif_packbits.c, tif_predict.c and tif_jpeg.c for the rest, and its RGBA
+interface, tif_getimage.c, for compressed YCbCr), converted as
+``Image.convert("RGBA")`` converts it, then transposed by the Orientation
+tag as PIL's ``load_end`` does (``ImageOps.exif_transpose``).
 
-Covered: byte orders II and MM; strips and tiles; compression 1 (none), 5
-(LZW), 8 and 32946 (Deflate, through zlib) and 32773 (PackBits);
-predictor 1 and 2 (horizontal differencing on 8-, 16- and 32-bit samples;
-like PIL, uncompressed data ignores the predictor, and so does PackBits,
-which libtiff runs without one); FillOrder 2 where PIL's table has it;
-planar configuration 1 and 2 (compressed LA and PA planes come out
-with alpha 0, as PIL's libtiff decoder leaves them); photometric 0
-(WhiteIsZero) and 1 (BlackIsZero) at 1, 2, 4, 8, 16 and 32 bits, 2 (RGB) at 8 and 16 bits
-with ExtraSamples 0 (ignored), 1 (associated alpha, PIL's RGBa: rgb * 255
-// a at unpack time, black where a is 0) and 2 (unassociated alpha), and
-3 (palette) at 1, 2, 4 and 8 bits with a 16-bit ColorMap (its high
-bytes), with or without an alpha sample.
+Covered: classic TIFF and BigTIFF; byte orders II and MM; strips and
+tiles; compression 1 (none), 5 (LZW), 7 (JPEG, each strip or tile an
+abbreviated stream after the JPEGTables tables, decoded by assets/
+jpeg.py), 8 and 32946 (Deflate, through zlib) and 32773 (PackBits);
+predictor 1, 2 (horizontal differencing on 8-, 16- and 32-bit samples)
+and 3 (floating point; like PIL, uncompressed data ignores the
+predictor, and so do PackBits and JPEG); FillOrder 2 where PIL's table
+has it; planar configuration 1 and 2 (compressed LA and PA planes come
+out with alpha 0, as PIL's libtiff decoder leaves them); photometric 0
+(WhiteIsZero) and 1 (BlackIsZero) at 1, 2, 4, 8, 16 and 32 bits and as
+32-bit floats (mode F: truncated and clipped to 0-255); 2 (RGB) at 8 and
+16 bits with ExtraSamples 0 (ignored), 1 (associated alpha, PIL's RGBa:
+rgb * 255 // a at unpack time, black where a is 0) and 2 (unassociated
+alpha); 3 (palette) at 1, 2, 4 and 8 bits with a 16-bit ColorMap (its
+high bytes), with or without an alpha sample; 5 (CMYK) at 8 bits (with
+one or two ignored extra samples) and 16 bits; 6 (YCbCr): JPEG-compressed
+through libjpeg's conversion and upsampling, otherwise libtiff's
+(single-precision coefficient and reference black / white tables, 16-bit
+fixed point, each data unit's chroma on all its pixels) for the
+subsamplings libtiff converts.
 
-PIL's quirks are kept: 16-bit grey is I;16 (clipped at 255, WhiteIsZero
-not inverted), 16-bit colour keeps each sample's high byte, an RGB image
-with a fourth sample and no ExtraSamples is RGBA, 8-bit samples marked
-signed read as unsigned. What PIL refuses raises ValueError naming it;
-so does what the port does not read yet: JPEG compression (6, 7), CCITT
-(2, 3, 4), LZMA, ZSTD, WebP and other codecs; float samples (SampleFormat
-3) and the floating-point predictor (3); 12-bit samples; photometric 4
-and up (CMYK, YCbCr, CIELab and the rest); BigTIFF; an Orientation of 5
-to 8 (PIL swaps the size); old-style LZW.
+PIL's and libtiff's quirks are kept: 16-bit grey is I;16 (clipped at 255,
+WhiteIsZero not inverted), 16-bit colour keeps each sample's high byte,
+an RGB image with a fourth sample and no ExtraSamples is RGBA, 8-bit
+samples marked signed read as unsigned; compressed floats of a
+big-endian file are byte-swapped (PIL unpacks libtiff's native floats
+with the file's raw mode); uncompressed 3-sample YCbCr is read as PIL's
+raw decoder reads it, 4 bytes a pixel as RGBX, unconverted; a 1-sample
+YCbCr file reads as grey when uncompressed and is refused otherwise; a
+YCbCr strip gives the RGBA interface only rows x (sampling row size //
+vs) bytes, and its 4 x 4 tile routine skips 10 bytes, not 18, for each
+unit past a tile's visible width. What PIL refuses raises ValueError
+naming it; so does what the port does not read yet: old-style JPEG (6),
+CCITT (2, 3, 4), LZMA, ZSTD, WebP, JPEG 2000 and other codecs; JPEG in
+planar or 12-bit files; planar YCbCr; 12-bit samples; photometric 4, 7 and
+up (CIELab and the rest); old-style LZW.
 
 Write: L, RGB and RGBA (ExtraSamples 2), uncompressed, little-endian, one
 strip, which PIL reads back as the same mode and pixels.
@@ -39,7 +55,7 @@ import zlib
 
 import numpy as np
 
-from . import lzw, modes
+from . import jpeg, lzw, modes
 
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h",
           9: "i", 10: "ii", 11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
@@ -56,9 +72,10 @@ _PHOTOMETRIC = {4: "transparency mask", 5: "CMYK (separated)", 6: "YCbCr",
 (WIDTH, LENGTH, BPS, COMPRESSION, PHOTOMETRIC, FILLORDER, STRIPOFFSETS,
  ORIENTATION, SPP, ROWSPERSTRIP, STRIPBYTECOUNTS, PLANAR, PREDICTOR,
  COLORMAP, TILEWIDTH, TILELENGTH, TILEOFFSETS, TILEBYTECOUNTS,
- EXTRASAMPLES, SAMPLEFORMAT) = (256, 257, 258, 259, 262, 266, 273, 274,
-                                277, 278, 279, 284, 317, 320, 322, 323,
-                                324, 325, 338, 339)
+ EXTRASAMPLES, SAMPLEFORMAT, JPEGTABLES, YCBCRCOEFFICIENTS,
+ YCBCRSUBSAMPLING, REFERENCEBLACKWHITE) = (
+    256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 284, 317, 320,
+    322, 323, 324, 325, 338, 339, 347, 529, 530, 532)
 
 
 def looks_like_tiff(head: bytes) -> bool:
@@ -69,25 +86,35 @@ def looks_like_tiff(head: bytes) -> bool:
 
 
 def _first_ifd(buf: bytes, where: str) -> tuple[str, dict]:
+    """The byte order and the first IFD's tags; BigTIFF (version 43: 8-byte
+    offsets and counts, 20-byte entries) as classic TIFF."""
     bo = "<" if buf[:2] == b"II" else ">"
     if buf[2:4] in (b"\x2b\x00", b"\x00\x2b"):
-        raise ValueError(f"BigTIFF is not read by the port: {where}")
-    (off,) = struct.unpack_from(bo + "I", buf, 4)
-    if off + 2 > len(buf):
+        size, _, off = struct.unpack_from(bo + "HHQ", buf, 4)
+        if size != 8:
+            raise ValueError(f"BigTIFF offset size {size} is not 8: {where}")
+        num, entry, inline, ref = "Q", 20, 8, "Q"
+    else:
+        (off,) = struct.unpack_from(bo + "I", buf, 4)
+        num, entry, inline, ref = "H", 12, 4, "I"
+    head = struct.calcsize(num)
+    if off + head > len(buf):
         raise ValueError(f"TIFF IFD offset past the file: {where}")
-    (n,) = struct.unpack_from(bo + "H", buf, off)
+    (n,) = struct.unpack_from(bo + num, buf, off)
     tags = {}
     for i in range(n):
-        e = off + 2 + 12 * i
-        if e + 12 > len(buf):
+        e = off + head + entry * i
+        if e + entry > len(buf):
             raise ValueError(f"TIFF IFD truncated: {where}")
-        tag, typ, count = struct.unpack_from(bo + "HHI", buf, e)
+        tag, typ = struct.unpack_from(bo + "HH", buf, e)
+        (count,) = struct.unpack_from(bo + ref, buf, e + 4)
         if typ not in _TYPES:
             continue
         fmt = _TYPES[typ]
         size = struct.calcsize("<" + fmt) * count
-        pos = e + 8 if size <= 4 else struct.unpack_from(bo + "I", buf,
-                                                          e + 8)[0]
+        at = e + 4 + struct.calcsize(ref)
+        pos = at if size <= inline else struct.unpack_from(bo + ref, buf,
+                                                           at)[0]
         if pos + size > len(buf):
             raise ValueError(f"TIFF tag {tag} data past the file: {where}")
         if typ == 2:
@@ -111,15 +138,14 @@ def _mode(bo, photo, fmt, fill, bps, extra, where):
     or ValueError."""
     b8 = all(b == 8 for b in bps)
     n = len(bps)
-    if photo in _PHOTOMETRIC or photo > 3:
+    if photo not in (0, 1, 2, 3, 5, 6):
         name = _PHOTOMETRIC.get(photo, str(photo))
         raise ValueError(f"TIFF photometric {photo} ({name}) is not read by "
                          f"the port: {where}")
-    if fmt == (3,):
-        raise ValueError(f"TIFF float samples (SampleFormat 3) are not read "
-                         f"by the port: {where}")
     if photo in (0, 1) and n == 1 and not extra:
         b = bps[0]
+        if b == 32 and fmt == (3,) and fill == 1:
+            return "F", ""
         if b in (1, 2, 4) and fmt == (1,):
             return ("1" if b == 1 else "L"), ("invert" if photo == 0 else "")
         if b == 8 and (fmt == (1,) or (fmt == (2,) and photo == 1)):
@@ -149,6 +175,13 @@ def _mode(bo, photo, fmt, fill, bps, extra, where):
                          f"read (PIL: unknown pixel mode): {where}")
     if photo == 1 and bps == (8, 8) and extra == (2,):
         return "LA", ""
+    if photo == 5 and (bps, extra) in (((8,) * 4, ()), ((8,) * 5, (0,)),
+                                       ((8,) * 6, (0, 0)), ((16,) * 4, ())):
+        return "CMYK", ""
+    if photo == 6 and bps == (8,) and not extra:
+        return "L", ""
+    if photo == 6 and bps == (8, 8, 8) and not extra:
+        return "RGB", "ycbcr"
     if photo == 2 and (b8 or all(b == 16 for b in bps)):
         if n == 3 and not extra:
             return "RGB", ""
@@ -215,7 +248,7 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
     if 0xBC01 in tags:
         raise ValueError(f"Windows Media Photo in TIFF is not read: {where}")
     comp = _scalar(tags, COMPRESSION, 1)
-    if comp not in (1, 5, 8, 32773, 32946):
+    if comp not in (1, 5, 7, 8, 32773, 32946):
         name = _COMPRESSIONS.get(comp, str(comp))
         raise ValueError(f"TIFF compression {comp} ({name}) is not read by "
                          f"the port: {where}")
@@ -225,9 +258,6 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
     if WIDTH not in tags or LENGTH not in tags:
         raise ValueError(f"TIFF without its dimensions: {where}")
     w, h = tags[WIDTH][0], tags[LENGTH][0]
-    if _scalar(tags, ORIENTATION, 1) in (5, 6, 7, 8):
-        raise ValueError(f"TIFF Orientation {tags[ORIENTATION][0]} (PIL "
-                         f"swaps the size) is not read by the port: {where}")
     fmt = tuple(tags.get(SAMPLEFORMAT, (1,)))
     if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
         fmt = (1,)
@@ -247,14 +277,35 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
         raise ValueError(f"TIFF samples of mixed sizes {bps}: {where}")
     predictor = _scalar(tags, PREDICTOR, 1)
     if comp in (5, 8, 32946) and predictor != 1:
-        if predictor != 2:
+        if predictor not in (2, 3):
             raise ValueError(f"TIFF predictor {predictor} is not read by the "
                              f"port: {where}")
-        if bits < 8:
+        if predictor == 2 and bits < 8:
             raise ValueError(f"TIFF horizontal predictor at {bits} bits "
                              f"(libtiff refuses it): {where}")
+        if predictor == 3 and mode != "F":
+            raise ValueError(f"TIFF floating-point predictor on integer "
+                             f"samples (libtiff refuses it): {where}")
     else:
         predictor = 1
+    sub = tuple(tags.get(YCBCRSUBSAMPLING, (2, 2)))[:2]
+    if photo == 6 and spp == 1 and comp != 1:
+        raise ValueError(f"compressed YCbCr TIFF with 1 sample (libtiff: "
+                         f"invalid samples per pixel): {where}")
+    if photo == 6 and spp == 3:
+        if planar == 2:
+            raise ValueError(f"planar YCbCr TIFF is not read (libtiff "
+                             f"converts only contiguous YCbCr): {where}")
+        if comp not in (1, 7) and sub not in _YCBCR_BLOCKS:
+            raise ValueError(f"TIFF YCbCr subsampling {sub} (libtiff: can "
+                             f"not handle it): {where}")
+        if comp not in (1, 7) and sub != (1, 1) and predictor != 1:
+            raise ValueError(f"TIFF predictor on subsampled YCbCr is not "
+                             f"read by the port: {where}")
+    if comp == 7 and (planar == 2 or bits != 8):
+        raise ValueError(f"TIFF JPEG compression with planar configuration "
+                         f"{planar} at {bits} bits is not read by the port "
+                         f"(contiguous 8-bit samples are): {where}")
     if planar == 2 and comp != 1 and mode == "RGB" and spp > 3:
         raise ValueError(f"planar TIFF with an ignored extra sample (PIL: "
                          f"decoder error): {where}")
@@ -275,12 +326,20 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
         cw, ch = w, min(_scalar(tags, ROWSPERSTRIP, h), h)
     else:
         raise ValueError(f"TIFF without strips or tiles: {where}")
+    if how == "ycbcr" and comp == 1:
+        rgb = _raw_rgbx(buf, offsets, w, h, cw, ch, where)
+        return _orient(modes.to_rgba("RGB", rgb), tags)
     planes = spp if planar == 2 else 1
     per_chunk = spp // planes
     across, down = -(-w // cw), -(-h // ch)
     if len(offsets) < across * down * planes:
         raise ValueError(f"TIFF has {len(offsets)} strips or tiles, the "
                          f"image needs {across * down * planes}: {where}")
+    subsampled = how == "ycbcr" and comp != 7
+    if comp == 7:
+        tables = bytes(tags.get(JPEGTABLES, b""))
+        if photo == 6:
+            how = ""  # libjpeg converts to RGB
     dt = np.uint8 if bits <= 8 else np.uint32 if bits == 32 else np.uint16
     out = np.zeros((h, w, spp), dt)
     for p in range(planes):
@@ -288,8 +347,13 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
             for tx in range(across):
                 k = (p * down + ty) * across + tx
                 rows = ch if tiled else min(ch, h - ty * ch)
-                stride = (cw * per_chunk * bits + 7) // 8
-                need = stride * rows
+                if subsampled:
+                    hs, vs = sub
+                    stride = -(-cw // hs) * (hs * vs + 2)
+                    need = stride * -(-rows // vs)
+                else:
+                    stride = (cw * per_chunk * bits + 7) // 8
+                    need = stride * rows
                 start = offsets[k]
                 if comp == 1:
                     raw = buf[start:start + need]
@@ -298,17 +362,26 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
                     raw = buf[start:start + size]
                 if fill == 2:
                     raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
-                if comp == 5:
-                    raw = lzw.decode_tiff(raw, need)
-                elif comp in (8, 32946):
-                    try:
-                        raw = zlib.decompressobj().decompress(raw, need)
-                    except zlib.error as e:
-                        raise ValueError(f"TIFF Deflate data does not "
-                                         f"inflate ({e}): {where}") from None
-                elif comp == 32773:
-                    raw = _packbits(raw, need)
-                s = _samples(raw, rows, cw, per_chunk, bits, bo, where)
+                if comp == 7:
+                    s = _jpeg_chunk(raw, tables, photo, spp, sub, rows, cw,
+                                    where)
+                else:
+                    raw = _decompress(raw, comp, need, where)
+                    if predictor == 3:
+                        raw = _fp_accumulate(raw, rows, stride, per_chunk,
+                                             where)
+                    if subsampled:
+                        if not tiled:
+                            # libtiff's RGBA interface reads rows x
+                            # (sampling row size // vs) bytes of a strip;
+                            # the rest of its buffer stays 0
+                            keep = -(-rows // vs) * vs * (stride // vs)
+                            raw = raw[:keep].ljust(need, b"\0")
+                        visible = min(cw, w - tx * cw) if tiled else cw
+                        s = _ycbcr_units(raw, rows, cw, sub, where, visible)
+                    else:
+                        s = _samples(raw, rows, cw, per_chunk, bits,
+                                     ">" if predictor == 3 else bo, where)
                 if predictor == 2:
                     s = np.cumsum(s.astype(np.uint64), axis=1).astype(s.dtype)
                 y0, x0 = ty * ch, tx * cw
@@ -318,7 +391,179 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
         # PIL's libtiff decoder puts each plane in the band of its index;
         # these modes keep alpha in band 3, which stays 0
         out[..., 1] = 0
-    return _convert(mode, how, out, bits, tags, where)
+    if mode == "F" and bo == ">" and comp != 1:
+        # libtiff hands PIL native (little-endian) floats, which PIL
+        # unpacks with the file's big-endian raw mode
+        out = out.byteswap()
+    if subsampled:
+        out = ycbcr_to_rgb(out, tags)
+        how = ""
+    return _orient(_convert(mode, how, out, bits, tags, where), tags)
+
+
+def _decompress(raw: bytes, comp: int, need: int, where: str) -> bytes:
+    if comp == 5:
+        return lzw.decode_tiff(raw, need)
+    if comp in (8, 32946):
+        try:
+            return zlib.decompressobj().decompress(raw, need)
+        except zlib.error as e:
+            raise ValueError(f"TIFF Deflate data does not inflate ({e}): "
+                             f"{where}") from None
+    if comp == 32773:
+        return _packbits(raw, need)
+    return raw
+
+
+def _fp_accumulate(raw: bytes, rows: int, stride: int, spp: int,
+                   where: str) -> bytes:
+    """tif_predict.c fpAcc on each row of 32-bit floats: undo the byte
+    differences (spp bytes apart), then gather each sample's bytes from
+    the row's four byte planes (most significant first) as big-endian."""
+    if len(raw) < rows * stride:
+        raise ValueError(f"TIFF strip or tile data too short: {where}")
+    b = np.frombuffer(raw, np.uint8, rows * stride).reshape(rows, -1, spp)
+    b = np.cumsum(b, axis=1, dtype=np.uint64).astype(np.uint8)
+    planes = b.reshape(rows, 4, stride // 4)
+    return np.ascontiguousarray(planes.transpose(0, 2, 1)).tobytes()
+
+
+def _jpeg_chunk(raw: bytes, tables: bytes, photo: int, spp: int, sub,
+                rows: int, cols: int, where: str) -> np.ndarray:
+    """One strip or tile of JPEG compression (7) through jpeg.py: the
+    abbreviated stream after the JPEGTables stream's tables; YCbCr
+    converted to RGB (libtiff's JPEGCOLORMODE_RGB), every other colour
+    space left as stored. libtiff's checks are kept: the component count
+    is the samples per pixel, component 0 has the YCbCr subsampling (1 x 1
+    outside YCbCr) and the others 1 x 1, and the stream is the strip's or
+    tile's size (the last strip's may be taller)."""
+    if tables.endswith(b"\xff\xd9") and raw.startswith(b"\xff\xd8"):
+        raw = tables[:-2] + raw[2:]
+    px, sampling = jpeg.decode_components(raw, where, ycbcr=photo == 6)
+    want = sub if photo == 6 else (1, 1)
+    if len(sampling) != spp or sampling[0] != want or any(
+            f != (1, 1) for f in sampling[1:]):
+        raise ValueError(f"TIFF JPEG components {sampling} do not match "
+                         f"{spp} samples with sampling {want} (libtiff: "
+                         f"improper JPEG sampling factors): {where}")
+    if px.shape[1] != cols or px.shape[0] < rows:
+        raise ValueError(f"TIFF JPEG strip or tile is {px.shape[1]}x"
+                         f"{px.shape[0]}, expected {cols}x{rows}: {where}")
+    return px[:rows]
+
+
+# libtiff's putcontig8bitYCbCr routines: the subsamplings it converts
+_YCBCR_BLOCKS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+
+
+def _ycbcr_units(raw: bytes, rows: int, cols: int, sub, where: str,
+                 visible: int):
+    """Subsampled YCbCr data units (hs x vs Y samples, then Cb and Cr) ->
+    (rows, cols, 3) with each unit's Cb and Cr on all its pixels, as
+    libtiff's RGBA interface reads them. Of a tile whose right part lies
+    past the image (`visible` columns inside it), putcontig8bitYCbCr44tile
+    skips (cols - visible) // 4 units of 10 bytes, not 18, after each unit
+    row: its later unit rows are read from that many bytes too early."""
+    hs, vs = sub
+    across, down = -(-cols // hs), -(-rows // vs)
+    n = hs * vs + 2
+    if len(raw) < across * down * n:
+        raise ValueError(f"TIFF YCbCr data too short: {where}")
+    flat = np.frombuffer(raw, np.uint8, across * down * n)
+    if sub == (4, 4) and cols - visible >= 4:
+        inside = -(-visible // 4)
+        step = inside * n + (cols - visible) // 4 * 10
+        at = (np.arange(down) * step)[:, None] + np.arange(inside * n)
+        u = np.zeros((down, across, n), np.uint8)
+        u[:, :inside] = flat[at].reshape(down, inside, n)
+    else:
+        u = flat.reshape(down, across, n)
+    y = u[..., :hs * vs].reshape(down, across, vs, hs).transpose(
+        0, 2, 1, 3).reshape(down * vs, across * hs)
+    c = np.repeat(np.repeat(u[..., hs * vs:], vs, axis=0), hs, axis=1)
+    return np.concatenate((y[..., None], c), axis=2)[:rows, :cols]
+
+
+def ycbcr_to_rgb(ycc: np.ndarray, tags) -> np.ndarray:
+    """tif_color.c TIFFYCbCrToRGBInit and TIFFYCbCrtoRGB: (..., 3) u8
+    YCbCr -> RGB with the file's YCbCrCoefficients and
+    ReferenceBlackWhite (libtiff's defaults 0.299, 0.587, 0.114 and 0,
+    255, 128, 255, 128, 255), in single-precision floats and 16-bit fixed
+    point."""
+    f32 = np.float32
+    luma = [f32(v) for v in tags.get(YCBCRCOEFFICIENTS,
+                                     (0.299, 0.587, 0.114))]
+    rbw = [f32(v) for v in tags.get(REFERENCEBLACKWHITE,
+                                    (0, 255, 128, 255, 128, 255))]
+
+    def fix(v):
+        return int(float(min(max(v, f32(0)), f32(2))) * 65536 + 0.5)
+
+    def code2v(c, rb, rw, cr):
+        den = rw - rb
+        num = (c - np.int64(int(rb))).astype(f32) * f32(cr)
+        v = num / (den if den != 0 else f32(1))
+        return np.clip(v, f32(-4096), f32(4096)).astype(np.int64)
+    lr, lg, lb = luma
+    f1 = f32(2) - f32(2) * lr
+    f3 = f32(2) - f32(2) * lb
+    d1, d2 = fix(f1), -fix(lr * f1 / lg)
+    d3, d4 = fix(f3), -fix(lb * f3 / lg)
+    x = np.arange(256, dtype=np.int64) - 128
+    cr = code2v(x, rbw[4] - f32(128), rbw[5] - f32(128), 127)
+    cb = code2v(x, rbw[2] - f32(128), rbw[3] - f32(128), 127)
+    cr_r, cb_b = (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16
+    cr_g, cb_g = d2 * cr, d4 * cb + 32768
+    y_tab = code2v(x + 128, rbw[0], rbw[1], 255)
+    yy, b_, r_ = (ycc[..., k].astype(np.int64) for k in range(3))
+    y = y_tab[yy]
+    rgb = np.stack([y + cr_r[r_], y + ((cb_g[b_] + cr_g[r_]) >> 16),
+                    y + cb_b[b_]], axis=-1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _raw_rgbx(buf: bytes, offsets, w: int, h: int, cw: int, ch: int,
+              where: str) -> np.ndarray:
+    """Uncompressed 3-sample YCbCr as PIL reads it: its raw decoder, given
+    OPEN_INFO's raw mode RGBX, takes 4 bytes a pixel from each strip or
+    tile (and the rows after it), unconverted; data past the file is
+    PIL's truncation error."""
+    if cw == w and ch >= h:
+        offsets = offsets[-1:]
+    out = np.zeros((h, w, 3), np.uint8)
+    x = y = 0
+    for off in offsets:
+        cols, rows = min(x + cw, w) - x, min(y + ch, h) - y
+        nbytes = 4 * cols
+        stride = cw * 3 if x + cw > w else nbytes
+        if stride < nbytes:
+            raise ValueError(f"TIFF YCbCr tile row shorter than PIL's RGBX "
+                             f"row (PIL: decoder error): {where}")
+        if off + stride * (rows - 1) + nbytes > len(buf):
+            raise ValueError(f"TIFF uncompressed YCbCr read as RGBX runs "
+                             f"past the file (PIL: image file is truncated): "
+                             f"{where}")
+        data = np.frombuffer(buf, np.uint8, stride * (rows - 1) + nbytes, off)
+        rgbx = np.lib.stride_tricks.as_strided(
+            data, (rows, cols, 4), (stride, 4, 1))
+        out[y:y + rows, x:x + cols] = rgbx[..., :3]
+        x += cw
+        if x >= w:
+            x, y = 0, y + ch
+            if y >= h:
+                break
+    return out
+
+
+def _orient(rgba: np.ndarray, tags) -> np.ndarray:
+    """ImageOps.exif_transpose by the Orientation tag, as PIL's TIFF
+    plugin applies it after loading."""
+    o = _scalar(tags, ORIENTATION, 1)
+    t = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
+         4: lambda a: a[::-1], 5: lambda a: a.transpose(1, 0, 2),
+         6: lambda a: np.rot90(a, -1), 8: lambda a: np.rot90(a),
+         7: lambda a: a[::-1, ::-1].transpose(1, 0, 2)}.get(o)
+    return rgba if t is None else np.ascontiguousarray(t(rgba))
 
 
 def _convert(mode, how, s, bits, tags, where) -> np.ndarray:
@@ -338,8 +583,15 @@ def _convert(mode, how, s, bits, tags, where) -> np.ndarray:
                                                      1) == 2:
             v = np.where(v >= 2**31, v - 2**32, v)
         return modes.to_rgba(mode, v)
+    if mode == "F":
+        # Convert.c: the float truncated, clipped to 0-255 (NaN to 0)
+        f = s[..., 0].astype(np.uint32).view(np.float32)
+        v = np.where(f >= 255, 255, np.where(f > 0, f, 0))
+        return modes.to_rgba("L", v.astype(np.uint8))
     if bits == 16:
         s = (s >> 8).astype(np.uint8)
+    if mode == "CMYK":
+        return modes.to_rgba("CMYK", s[..., :4])
     if mode in ("P", "PA"):
         cmap = tags.get(COLORMAP)
         if cmap is None:

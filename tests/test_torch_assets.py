@@ -215,11 +215,11 @@ def test_generated_pngs_decode_as_pil(ctype, depth, interlace):
 
 
 def test_png_errors_raise_value_error(tmp_path):
-    """A format PIL reads and the port does not names itself (PCX and ICO,
+    """A format PIL reads and the port does not names itself (IM and ICNS,
     written by PIL); a JPEG, which the port reads since slice 14, loads
     equal to PIL's decode; a bad CRC, a truncated file and bad image data
     raise ValueError."""
-    for name, fmt in (("a.pcx", "PCX"), ("a.ico", "ICO")):
+    for name, fmt in (("a.im", "IM"), ("a.icns", "ICNS")):
         path = tmp_path / name
         Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path)
         with pytest.raises(ValueError, match=fmt):

@@ -26,7 +26,7 @@ from plainrenderer_tpu.scene import camera as jcam
 from plainrenderer_tpu_torch import config as tcfg
 from plainrenderer_tpu_torch import interop
 from plainrenderer_tpu_torch.parallel import comm, sharding
-from test_torch_frame import _arrays
+from torch_frame_checks import _arrays
 
 torch.set_num_threads(1)
 

@@ -400,7 +400,7 @@ def test_three_dynamic_frames_match_jax():
                                float(j_state.exposure), rtol=1e-4)
     assert (np.asarray(j_state.debug_counters) == 0).all()
     assert (t_state.debug_counters.numpy() == 0).all()
-    from test_torch_frame import _f16_ulps
+    from torch_frame_checks import _f16_ulps
     ulps = _f16_ulps(np.asarray(j_state.gi_history),
                      t_state.gi_history.numpy())
     assert (ulps <= 2).mean() >= 0.95, (ulps <= 2).mean()

@@ -719,15 +719,18 @@ def test_tiff_refusals_name_the_feature():
     lists each), and what PIL refuses too."""
     rng = np.random.default_rng(0)
     img = Image.fromarray(_picture(16, 8))
-    _refused(_save(img, "TIFF", compression="jpeg"), ".tif", "JPEG", True)
+    _refused(_tiff(rng.integers(0, 256, (4, 4, 1)), 8, 1, compression=6),
+             ".tif", "old-style JPEG", False)
     _refused(_save(img.convert("1"), "TIFF", compression="group4"), ".tif",
              "CCITT", True)
-    _refused(_save(img.convert("CMYK"), "TIFF"), ".tif", "CMYK", True)
-    _refused(_save(img.convert("F"), "TIFF"), ".tif", "float", True)
+    _refused(_tiff(rng.integers(0, 256, (4, 4, 3)), 8, 8), ".tif", "CIELab",
+             True)
+    _refused(_tiff(rng.integers(0, 65536, (4, 4, 1)), 16, 1,
+                   sample_format=3), ".tif", "SampleFormat", False)
     _refused(_tiff(rng.integers(0, 4096, (4, 4, 1)), 12, 1), ".tif",
              "12-bit", True)
-    _refused(_tiff(rng.integers(0, 256, (4, 4, 1)), 8, 1, orientation=6),
-             ".tif", "Orientation", True)
+    _refused(_tiff(rng.integers(0, 256, (4, 4, 1)), 8, 1, compression=50000),
+             ".tif", "ZSTD", False)
     _refused(_tiff(rng.integers(0, 256, (4, 4, 2)), 8, 1, extra=(2,),
                    planar=2), ".tif", "planar", False)
     _refused(_tiff(rng.integers(0, 256, (4, 4, 4)), 8, 2, extra=(0,),
@@ -1007,7 +1010,8 @@ def test_jpeg_cut_progressive_is_block_smoothed(mode, sub, size):
 # ----------------------------- fixtures ------------------------------
 
 def _fixture_files() -> dict:
-    """name -> bytes of every committed fixture, all made here."""
+    """name -> bytes of every committed fixture, all made here (those of
+    test_torch_formats_more.py by its more_fixture_files)."""
     out = {}
     rgb = _picture(32, 24, 3, 11)
     rgba = _picture(32, 24, 4, 12)
@@ -1093,6 +1097,8 @@ def _fixture_files() -> dict:
     sos = _sos(prog)
     out["cut_dc.jpg"] = prog[:sos[1]] + b"\xff\xd9"
     out["cut_ac.jpg"] = prog[:sos[4]] + b"\xff\xd9"
+    from test_torch_formats_more import more_fixture_files
+    out.update(more_fixture_files())
     return out
 
 
@@ -1150,7 +1156,7 @@ def test_save_image_writes_what_the_suffix_names(tmp_path, suffix):
                                       _pil(ours.read_bytes()))
 
 
-@pytest.mark.parametrize("suffix", [".jpg", ".jpeg", ".gif", ".webp",
+@pytest.mark.parametrize("suffix", [".ico", ".dib", ".gif", ".webp",
                                     ".exr", ""])
 def test_save_image_refuses_other_suffixes(tmp_path, suffix):
     path = tmp_path / f"a{suffix}"
@@ -1218,18 +1224,18 @@ def test_texture_images_match_jax(tmp_path, fmt):
 
 def test_refused_texture_is_none_in_both(tmp_path):
     """Where the JAX package loads no image (a file that is no image), the
-    port loads none either; a PCX, which PIL reads and the port does not,
-    raises in load_image and is the one listed difference."""
+    port loads none either; an IM file, which PIL reads and the port does
+    not, raises in load_image and is a listed difference."""
     bad = tmp_path / "bad.tga"
     bad.write_bytes(b"not an image at all")
     paths = types.SimpleNamespace(albedo=str(bad), normal="", specular=None)
     got, want = tsb._load_texture_images(paths), \
         jsb._load_texture_images(paths)
     assert got.albedo is None and want.albedo is None
-    pcx = tmp_path / "a.pcx"
-    Image.fromarray(_picture(8, 8)).save(pcx)
-    with pytest.raises(ValueError, match="PCX"):
-        tio.load_image(pcx)
+    im = tmp_path / "a.im"
+    Image.fromarray(_picture(8, 8)).save(im)
+    with pytest.raises(ValueError, match="IM"):
+        tio.load_image(im)
 
 
 def test_gltf_with_webp_and_tga_textures_imports_as_the_reference(tmp_path):

@@ -77,7 +77,8 @@ def test_importing_every_module_loads_no_jax():
               "assets.modes", "assets.bmp", "assets.tga", "assets.pnm",
               "assets.lzw", "assets.gif", "assets.tiff", "assets.webp",
               "assets.vp8l", "assets.vp8", "assets.jpeg",
-              "ops.debugviz", "runtime.shell", "runtime.overlay",
+              "assets.jpeg_encode", "assets.psd", "assets.qoi",
+              "assets.sgi", "assets.pcx", "assets.ico", "ops.debugviz", "runtime.shell", "runtime.overlay",
               "runtime.app", "parallel.comm", "parallel.sharding"):
         assert "plainrenderer_tpu_torch." + m in loaded, m
 
