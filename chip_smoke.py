@@ -2462,6 +2462,20 @@ FORMAT_NAMES = (
     "rgba_deflate_tiled.tif", "rgba_packbits.psd", "rgba_rle.sgi", "rle4.bmp",
     "rle8.bmp", "ycbcr21_deflate.tif", "ycbcr_jpeg.tif", "ycbcr_lzw.tif",
     "ycck.jpg")
+# tests/test_torch_formats_legacy.py fixture_files: PIL's legacy formats
+# (PR 18), each beside PIL's decode
+LEGACY_FORMAT_FIXTURES = ROOT / "tests" / "data" / "formats_legacy"
+LEGACY_FORMAT_NAMES = (
+    "a.xbm", "band.iim", "bc3_dx10.tex", "bc4.tex", "bc5s.tex",
+    "bgr24_rle.ras", "bits.ras", "blp1_jpeg.blp", "blp1_pal.blp",
+    "blp2_dxt1_alpha.blp", "blp2_dxt5.blp", "blp2_pal.blp", "brun.fli",
+    "cmyk.pnm", "dxt1.ftc", "dxt1.tex", "dxt3.tex", "f32.fits", "float.pfm",
+    "float.spi", "grey.imt", "grey_v1.gbr", "gzip_tiles.fits", "i16.area",
+    "i16.fits", "lab.psd", "lab.tif", "lc_ss2.flc", "lstar12.im", "lut.im",
+    "pal.xpm", "pal8.ras", "pal8.tex", "png.icns", "raw.iim", "rgb.ftu",
+    "rgb.pxr", "rgb300.xpm", "rgb565_masks.tex", "rgba.im", "rgba1000.pnm",
+    "rgba_v2.gbr", "rle_mask.icns", "thumb.xv", "v1.msp", "v2_rle.msp",
+    "ycc.im")
 FORMAT_FRAMES = 3
 # the courtyard's copies: a texture slot's file -> the suffix it is saved
 # with (None: the committed PNG stays)
@@ -2482,27 +2496,34 @@ COURTYARD_JPEG_SHA256 = {
 # the copies formats_phase renders: kind -> (texture files written, frames
 # and pool held bit-equal to the PNG courtyard's)
 FORMAT_COPIES = {"tga": (12, True), "tif": (12, True), "bmp_ppm": (4, True),
-                 "qoi": (12, True), "sgi": (12, True), "jpg": (4, False)}
+                 "qoi": (12, True), "sgi": (12, True), "jpg": (4, False),
+                 "im": (12, True)}
 
 
 def format_fixtures() -> dict:
-    """Every committed fixture through load_image (this machine has no
-    PIL) equal to PIL's decode committed beside it as PNG, and its host
+    """Every committed fixture of tests/data/formats (PRs 16-17) and
+    tests/data/formats_legacy (PR 18) through load_image (this machine has
+    no PIL) equal to PIL's decode committed beside it as PNG, and its host
     wall time (the best of 3 loads)."""
-    names = tuple(sorted(p.name for p in FORMAT_FIXTURES.iterdir()
-                         if not p.name.endswith(".png")))
-    check(names == FORMAT_NAMES, f"the format fixtures: {names}")
     found = {}
-    for name in names:
-        want = image_io.load_image(FORMAT_FIXTURES / f"{name}.png")
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            got = image_io.load_image(FORMAT_FIXTURES / name)
-            times.append((time.perf_counter() - t0) * 1e3)
-        check(got.shape == want.shape and np.array_equal(got, want),
-              f"{name} equals PIL's decode")
-        found[name] = dict(shape=list(got.shape), load_ms=min(times))
+    for folder, expected, prefix in (
+            (FORMAT_FIXTURES, FORMAT_NAMES, ""),
+            (LEGACY_FORMAT_FIXTURES, LEGACY_FORMAT_NAMES, "legacy/")):
+        names = tuple(sorted(p.name for p in folder.iterdir()
+                             if not p.name.endswith(".png")))
+        check(names == expected, f"the format fixtures of {folder.name}: "
+                                 f"{names}")
+        for name in names:
+            want = image_io.load_image(folder / f"{name}.png")
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got = image_io.load_image(folder / name)
+                times.append((time.perf_counter() - t0) * 1e3)
+            check(got.shape == want.shape and np.array_equal(got, want),
+                  f"{prefix}{name} equals PIL's decode")
+            found[prefix + name] = dict(shape=list(got.shape),
+                                        load_ms=min(times))
     print("format fixtures decoded equal to PIL's PNGs (host ms, best of "
           "3): " + json.dumps(found), flush=True)
     return found
@@ -2510,8 +2531,8 @@ def format_fixtures() -> dict:
 
 def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list]:
     """A .plain of the courtyard whose texture files are re-saved by the
-    port's save_image under tmp: kind "tga", "tif", "qoi" or "sgi" (all
-    12), "bmp_ppm" (the four RGB normal maps as two BMP and two PPM, the
+    port's save_image under tmp: kind "tga", "tif", "qoi", "sgi" or "im"
+    (all 12), "bmp_ppm" (the four RGB normal maps as two BMP and two PPM, the
     RGBA maps left as PNG) or "jpg" (the four RGB maps as JPEG). The SDF
     volume paths stay as committed."""
     from plainrenderer_tpu_torch.assets import plain_format
@@ -2577,8 +2598,9 @@ def format_frames(ctx, scene_path) -> dict:
 
 def formats_phase(ctx) -> dict:
     """The image readers and writers on the card's machine (no PIL): the
-    committed fixtures, then the courtyard with its textures re-saved as
-    TGA, TIFF, QOI and SGI, and with BMP / PPM normal maps, each loaded by
+    committed fixtures (PIL's legacy formats since PR 18), then the
+    courtyard with its textures re-saved as TGA, TIFF, QOI, SGI and IM,
+    and with BMP / PPM normal maps, each loaded by
     the App and rendered (kernels A-L on the card) equal bit for bit,
     pool and frames, to the committed PNG courtyard's run; and with its
     four RGB maps written as JPEG, byte for byte PIL's (their digests),

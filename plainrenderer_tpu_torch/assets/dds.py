@@ -8,6 +8,15 @@ The renderer uses DDS for two things:
 
 We implement the DX10-header path fully (R16_FLOAT, R8G8B8A8_UNORM) and read
 BC1/BC3/BC5 headers with raw payload passthrough, like the reference.
+
+A file that starts ``DDS `` under any other suffix than .dds is an image
+that the JAX package reads through PIL: ``read_dds_image`` decodes it as
+Pillow 12.1's DdsImagePlugin does (uncompressed RGB(A) by bit masks,
+8-bit L, 16-bit LA, 8-bit palette with an RGBA table, DX10
+R8G8B8A8, and BC1-BC5 in the legacy FourCC and the DX10 forms through
+assets/bcn.py); BC6H and BC7 raise ValueError naming themselves.
+``encode_dds`` writes (H, W) and (H, W, 3|4) u8 as PIL's ``_save`` does:
+uncompressed, with masks.
 """
 
 from __future__ import annotations
@@ -17,6 +26,8 @@ import struct
 from pathlib import Path
 
 import numpy as np
+
+from . import bcn, modes
 
 MAGIC = 0x20534444  # 'DDS '
 
@@ -167,3 +178,125 @@ def write_sdf_volume(path: str | Path, volume: np.ndarray) -> None:
     """(depth, height, width) float distances -> reference-format DDS."""
     d, h, w = volume.shape
     write_dds(path, w, h, d, volume.astype(np.float16), fmt="r16_sfloat")
+
+
+# ---------------------- DDS as PIL reads and writes it -------------------
+
+_PF_ALPHAPIXELS, _PF_PALETTE8, _PF_RGB, _PF_LUMINANCE = 0x1, 0x20, 0x40, 0x20000
+# FourCC -> (bcn number, signed), DdsImagePlugin.D3DFMT
+_BCN_FOURCC = {b"DXT1": (1, False), b"DXT3": (2, False), b"DXT5": (3, False),
+               b"BC4U": (4, False), b"ATI1": (4, False),
+               b"BC5S": (5, True), b"BC5U": (5, False), b"ATI2": (5, False)}
+# DXGI format -> (bcn number, signed); 0: raw RGBA
+_BCN_DXGI = {70: (1, False), 71: (1, False), 73: (2, False), 74: (2, False),
+             76: (3, False), 77: (3, False), 79: (4, False), 80: (4, False),
+             82: (5, False), 83: (5, False), 84: (5, True), 27: (0, False),
+             28: (0, False), 29: (0, False)}
+_DXGI_REFUSED = {95: "BC6H", 96: "BC6H", 97: "BC7", 98: "BC7", 99: "BC7"}
+
+
+def _mask_channel(values: np.ndarray, mask: int) -> np.ndarray:
+    """DdsRgbDecoder: int((value & mask) >> shift) / (mask >> shift) * 255,
+    0 for an empty mask."""
+    if mask == 0:
+        return np.zeros(values.shape, np.uint8)
+    shift = (mask & -mask).bit_length() - 1
+    total = mask >> shift
+    v = ((values & mask) >> shift).astype(np.float64)
+    return (v / total * 255).astype(np.uint8)
+
+
+def read_dds_image(buf: bytes, where: str = "<dds>") -> np.ndarray:
+    """DDS bytes -> (H, W, 4) u8 as ``Image.open(...).convert("RGBA")``
+    gives them."""
+    if not buf.startswith(b"DDS "):
+        raise ValueError(f"not a DDS file: {where}")
+    (hsize,) = struct.unpack_from("<I", buf, 4)
+    if hsize != 124 or len(buf) < 128:
+        raise ValueError(f"DDS header size {hsize} is not 124, or the "
+                         f"header is incomplete: {where}")
+    h, w = struct.unpack_from("<2I", buf, 12)
+    pfflags, fourcc, bits = struct.unpack_from("<I4sI", buf, 80)
+    if h == 0 or w == 0:
+        raise ValueError(f"DDS size {w}x{h}: {where}")
+    pos = 128
+    if pfflags & _PF_RGB:
+        n = 4 if pfflags & _PF_ALPHAPIXELS else 3
+        masks = struct.unpack_from(f"<{n}I", buf, 92)
+        # DdsRgbDecoder reads bits // 8 bytes a pixel, little-endian; past
+        # the end of the file it reads zeros
+        nbytes = bits // 8
+        raw = np.zeros((w * h, nbytes), np.uint8).reshape(-1)
+        body = np.frombuffer(buf, np.uint8, offset=pos)[:raw.size]
+        raw[:len(body)] = body
+        values = np.zeros(w * h, np.uint64)
+        for k, col in enumerate(raw.reshape(w * h, nbytes).T):
+            values |= col.astype(np.uint64) << np.uint64(8 * k)
+        px = np.stack([_mask_channel(values, m) for m in masks], -1)
+        return modes.to_rgba("RGBA" if n == 4 else "RGB",
+                             px.reshape(h, w, n))
+    palette = None
+    if pfflags & _PF_LUMINANCE:
+        if bits == 8:
+            mode, bands = "L", 1
+        elif bits == 16 and pfflags & _PF_ALPHAPIXELS:
+            mode, bands = "LA", 2
+        else:
+            raise ValueError(f"DDS luminance at {bits} bits is not read by "
+                             f"PIL: {where}")
+    elif pfflags & _PF_PALETTE8:
+        mode, bands = "P", 1
+        palette = np.frombuffer(buf[pos:pos + 1024], np.uint8)
+        palette = palette[:len(palette) // 4 * 4].reshape(-1, 4)
+        pos += 1024
+    elif pfflags & _PF_FLAG_FOURCC:
+        if fourcc == b"DX10":
+            (dxgi,) = struct.unpack_from("<I", buf, pos)
+            pos += 20
+            if dxgi in _DXGI_REFUSED:
+                raise ValueError(f"DDS {_DXGI_REFUSED[dxgi]} is not read by "
+                                 f"the port: {where}")
+            if dxgi not in _BCN_DXGI:
+                raise ValueError(f"DDS DXGI format {dxgi} is not read by "
+                                 f"PIL: {where}")
+            n, signed = _BCN_DXGI[dxgi]
+        elif fourcc in _BCN_FOURCC:
+            n, signed = _BCN_FOURCC[fourcc]
+        else:
+            raise ValueError(f"DDS pixel format {fourcc!r} is not read by "
+                             f"PIL: {where}")
+        if n == 0:
+            mode, bands = "RGBA", 4
+        else:
+            px = bcn.decode_bcn(buf[pos:], n, w, h, where, signed)
+            return modes.to_rgba({1: "RGBA", 4: "L", 5: "RGB"}.get(
+                n, "RGBA"), px[..., 0] if n == 4 else px)
+    else:
+        raise ValueError(f"DDS pixel format flags {pfflags:#x} are not read "
+                         f"by PIL: {where}")
+    need = w * h * bands
+    if len(buf) - pos < need:
+        raise ValueError(f"DDS data truncated: {where}")
+    px = np.frombuffer(buf, np.uint8, need, pos).reshape(h, w, bands)
+    return modes.to_rgba(mode, px[..., 0] if bands == 1 else px, palette)
+
+
+def encode_dds(image: np.ndarray) -> bytes:
+    """(H, W) or (H, W, 3|4) u8 -> DDS bytes as PIL's DdsImagePlugin._save
+    writes modes L, RGB and RGBA: uncompressed, the pixels as B, G, R(, A)
+    or grey, with their masks."""
+    img = np.asarray(image)
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    flags = _FLAG_CAPS | _FLAG_HEIGHT | _FLAG_WIDTH | _FLAG_PIXELFORMAT | 0x8
+    if c == 1:
+        pf, masks, px = _PF_LUMINANCE, [0xFF000000] * 3 + [0], img
+    else:
+        pf = _PF_RGB | (_PF_ALPHAPIXELS if c == 4 else 0)
+        masks = [0xFF0000, 0xFF00, 0xFF, 0xFF000000 if c == 4 else 0]
+        px = img[..., [2, 1, 0, 3][:c]]
+    head = (struct.pack("<I7I", MAGIC, 124, flags, h, w, (w * 8 * c + 7) // 8,
+                        0, 0) + bytes(44)
+            + struct.pack("<4I", 32, pf, 0, 8 * c) + struct.pack("<4I", *masks)
+            + struct.pack("<5I", _CAPS_TEXTURE, 0, 0, 0, 0))
+    return head + np.ascontiguousarray(px).tobytes()

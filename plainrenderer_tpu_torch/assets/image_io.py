@@ -18,25 +18,41 @@ and PIL's header check), and every reader returns what
     alpha as PIL applies it;
   - JPEG (assets/jpeg.py), BMP and bare DIB (assets/bmp.py), GIF's
     first frame (assets/gif.py), TIFF's first page (assets/tiff.py), TGA
-    (assets/tga.py), PBM / PGM / PPM (assets/pnm.py), WebP
-    (assets/webp.py), PSD's merged image (assets/psd.py), QOI
-    (assets/qoi.py), SGI (assets/sgi.py), PCX and DCX's first page
-    (assets/pcx.py), ICO and CUR (assets/ico.py), each within the limits
-    its module states;
+    (assets/tga.py), PBM / PGM / PPM and PIL's PNM extensions (Pf,
+    P0CMYK, PyP, PyRGBA, PyCMYK; assets/pnm.py), WebP (assets/webp.py),
+    PSD's merged image (assets/psd.py), QOI (assets/qoi.py), SGI
+    (assets/sgi.py), PCX and DCX's first page (assets/pcx.py), ICO and
+    CUR (assets/ico.py), DDS by content under any other suffix than .dds
+    (BC1-BC5 through assets/bcn.py; assets/dds.py), XBM, XPM, PIXAR, XV
+    thumbnails, IM Tools, McIdas, GIMP brushes, MSP and Sun rasters
+    (assets/legacy.py), SPIDER and FITS (assets/spider_fits.py), IM
+    (assets/im.py), FLI / FLC (assets/fli.py), BLP and FTEX
+    (assets/blp.py), ICNS (assets/icns.py), PhotoCD (assets/pcd.py) and
+    IPTC (assets/iptc.py), each within the limits its module states;
   - Radiance RGBE (.hdr, by suffix as in the JAX package): new-style
     run-length or flat scanlines (the first scanline decides, as in stb),
     as (H, W, 4) f32 with alpha 1;
   - DDS (.dds, by suffix) rgba8 textures through assets/dds.py.
 
-Any other format PIL opens (the ``_OTHER_FORMATS`` list) raises ValueError
-naming it, and so does a feature of a format above that the port does not
-read yet. ``save_image`` writes the format the suffix names from (H, W)
-and (H, W, 3|4) u8, as PIL's ``Image.fromarray(...).save(path)`` writes
-modes L, RGB and RGBA: PNG, BMP, TGA, TIFF, PPM / PGM / PNM / PBM (P5 or
-P6, as PIL writes by mode), JPEG (.jpg, .jpeg, .jpe, .jfif;
-assets/jpeg_encode.py), QOI, SGI (.sgi, .rgb, .rgba, .bw) and PCX; what
-PIL refuses to write (RGBA as JPEG or PCX, grey as QOI) and any other
-suffix raise ValueError and write nothing.
+The readers are tried in the order of PIL's format list (``Image.ID``),
+each where its magic bytes match; the formats without magic bytes (IM,
+IM Tools, IPTC, PhotoCD, SPIDER) at their places in that order, each
+raising modes.NotThisFormat where PIL's header check fails, and TGA last,
+under its suffixes only. The formats PIL opens and the port does not read
+(AVIF and JPEG 2000, which PIL decodes, and BUFR, GRIB, HDF5, MPEG, EPS
+and WMF, which PIL opens and cannot load here either: stubs with no
+handler, MPEG's missing decoder, EPS's Ghostscript, WMF's Windows
+renderer) raise ValueError naming them (``_refuse``), and so does a
+feature of a format above that the port does not read yet.
+
+``save_image`` writes the format the suffix names from (H, W) and (H, W,
+3|4) u8, as PIL's ``Image.fromarray(...).save(path)`` writes modes L, RGB
+and RGBA: PNG (.png, .apng), BMP, DIB, TGA (.tga, .icb, .vda, .vst),
+TIFF, PPM / PGM / PNM / PBM / PFM (P5 or P6, as PIL writes by mode), JPEG
+(.jpg, .jpeg, .jpe, .jfif; assets/jpeg_encode.py), QOI, SGI (.sgi, .rgb,
+.rgba, .bw), PCX, IM (assets/im.py) and DDS (assets/dds.py); what PIL
+refuses to write (RGBA as JPEG or PCX, grey as QOI) and any other suffix
+raise ValueError and write nothing.
 """
 
 from __future__ import annotations
@@ -47,8 +63,9 @@ from pathlib import Path
 
 import numpy as np
 
-from . import (bmp, dds, gif, ico, jpeg, jpeg_encode, modes, pcx, pnm, psd,
-               qoi, sgi, tga, tiff, webp)
+from . import (blp, bmp, dds, fli, gif, icns, ico, im, iptc, jpeg,
+               jpeg_encode, legacy, modes, pcd, pcx, pnm, psd, qoi, sgi,
+               spider_fits, tga, tiff, webp)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel, and the bit depths the format allows
@@ -58,27 +75,30 @@ _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
 # Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
-# magic bytes (offset, bytes) of formats PIL opens and the port does not
-_OTHER_FORMATS = (
-    (0, b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-    (0, b"\xffO\xffQ", "JPEG 2000"), (0, b"icns", "ICNS"),
-    (0, b"#define", "XBM"), (0, b"/* XPM */", "XPM"),
-    (0, b"SIMPLE", "FITS"), (0, b"\x59\xa6\x6a\x95", "SUN"),
-    (4, b"ftypavif", "AVIF"), (4, b"ftypavis", "AVIF"), (0, b"BLP", "BLP"),
-    (4, b"\xaf\x11", "FLI"), (4, b"\xaf\x12", "FLI"), (0, b"FTEX", "FTEX"),
-    (20, b"GIMP", "GBR"),
-    (0, b"Image type", "IM"), (0, b"DanM", "MSP"), (0, b"LinS", "MSP"),
-    (0, b"\x00\x00\x01\xb3", "MPEG"), (0, b"%!PS", "EPS"),
-    (0, b"\xc5\xd0\xd3\xc6", "EPS"), (0, b"\x80\xe8\x00\x00", "PIXAR"),
-    (0, b"P7 332", "XVTHUMB"), (0, b"DDS ", "DDS"))
-SAVE_FORMATS = {".png": "PNG", ".bmp": "BMP", ".tga": "TGA", ".tif": "TIFF",
-                ".tiff": "TIFF", ".ppm": "PPM", ".pgm": "PPM", ".pnm": "PPM",
-                ".pbm": "PPM", ".jpg": "JPEG", ".jpeg": "JPEG",
-                ".jpe": "JPEG", ".jfif": "JPEG", ".qoi": "QOI",
-                ".sgi": "SGI", ".rgb": "SGI", ".rgba": "SGI", ".bw": "SGI",
-                ".pcx": "PCX"}
-# formats PIL writes under these suffixes and the port does not yet
-_UNWRITTEN = {".gif": "GIF", ".webp": "WebP"}
+READ = ("PNG, JPEG, BMP, DIB, GIF, TIFF, WebP, TGA, PBM/PGM/PPM/PFM, PSD, "
+        "QOI, SGI, PCX/DCX, ICO/CUR, DDS, BLP, FTEX, FITS, FLI/FLC, GBR, "
+        "ICNS, IM, IMT, IPTC, McIdas, MSP, PCD, PIXAR, SPIDER, Sun, XBM, "
+        "XPM, XVThumb and Radiance .hdr")
+SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".bmp": "BMP", ".dib": "DIB",
+                ".tga": "TGA", ".icb": "TGA", ".vda": "TGA", ".vst": "TGA",
+                ".tif": "TIFF", ".tiff": "TIFF", ".ppm": "PPM", ".pgm": "PPM",
+                ".pnm": "PPM", ".pbm": "PPM", ".pfm": "PPM", ".jpg": "JPEG",
+                ".jpeg": "JPEG", ".jpe": "JPEG", ".jfif": "JPEG",
+                ".qoi": "QOI", ".sgi": "SGI", ".rgb": "SGI", ".rgba": "SGI",
+                ".bw": "SGI", ".pcx": "PCX", ".im": "IM", ".dds": "DDS"}
+# formats PIL writes under these suffixes and the port does not: it
+# resamples, quantises or stamps a time (GIF, WebP, ICO, ICNS, EPS / PS,
+# PDF, MPO), codecs the port lacks (JPEG 2000, AVIF), and formats PIL
+# refuses for L, RGB and RGBA too (BLP, MSP, XBM, PALM) or has no writer
+# for here (BUFR, GRIB, HDF5, WMF)
+_UNWRITTEN = {".gif": "GIF", ".webp": "WebP", ".ico": "ICO",
+              ".icns": "ICNS", ".eps": "EPS", ".ps": "PostScript",
+              ".pdf": "PDF", ".mpo": "MPO", ".jp2": "JPEG 2000",
+              ".j2k": "JPEG 2000", ".jpc": "JPEG 2000", ".jpf": "JPEG 2000",
+              ".jpx": "JPEG 2000", ".j2c": "JPEG 2000", ".avif": "AVIF",
+              ".avifs": "AVIF", ".blp": "BLP", ".msp": "MSP", ".xbm": "XBM",
+              ".palm": "PALM", ".bufr": "BUFR", ".grib": "GRIB",
+              ".h5": "HDF5", ".hdf": "HDF5", ".wmf": "WMF", ".emf": "WMF"}
 
 
 def load_image(path: str | Path) -> np.ndarray:
@@ -112,37 +132,77 @@ def decode_image(data: bytes, where: str = "<bytes>",
         except (IndexError, KeyError, struct.error, zlib.error,
                 OverflowError) as e:
             raise ValueError(f"malformed image file {where}: {e!r}") from e
-    name = next((n for at, magic, n in _OTHER_FORMATS
-                 if data[at:at + len(magic)] == magic),
-                f"{suffix or 'unknown'!r}")
-    raise ValueError(
-        f"image format {name} is not read by the port (PNG, JPEG, BMP, DIB, "
-        f"GIF, TIFF, WebP, TGA, PBM/PGM/PPM, PSD, QOI, SGI, PCX/DCX, "
-        f"ICO/CUR, Radiance .hdr and rgba8 DDS are): {where}")
+    raise ValueError(f"image format {suffix or 'unknown'!r} is not read by "
+                     f"the port ({READ} are): {where}")
+
+
+def _refuse(name: str):
+    def reader(data: bytes, where: str):
+        raise ValueError(f"image format {name} is not read by the port "
+                         f"(PIL opens it): {where}")
+    return reader
+
+
+def _wmf(data: bytes) -> bool:
+    """WmfImagePlugin: a placeable metafile or an enhanced one."""
+    return ((data.startswith(b"\xd7\xcd\xc6\x9a\x00\x00")
+             and data[22:26] == b"\x01\x00\t\x00")
+            or (data.startswith(b"\x01\x00\x00\x00")
+                and data[40:44] == b" EMF"))
 
 
 def _readers(data: bytes, suffix: str) -> list:
     """The decode functions whose magic bytes the content has, in the
-    order of Image.open's format list; TGA, which has no magic bytes and
-    whose header check PIL runs on any file, last and only under one of
-    its suffixes."""
+    order of Image.open's format list; the formats without magic bytes
+    at their places in it, and TGA, whose header check PIL runs on any
+    file, last and only under one of its suffixes."""
+    head = data[:16]
     claims = (
+        (data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis", b"mif1",
+                                                  b"msf1"), _refuse("AVIF")),
+        (data.startswith((b"BLP1", b"BLP2")), blp.read_blp),
         (data.startswith(b"BM"), bmp.read_bmp),
         (bmp.looks_like_dib(data[:4]), bmp.read_dib),
+        (data.startswith((b"BUFR", b"ZCZC")), _refuse("BUFR")),
         (data.startswith(ico.CUR_MAGIC), ico.read_cur),
         (pcx.looks_like_pcx(data[:2]), pcx.read_pcx),
         (pcx.looks_like_dcx(data[:4]), pcx.read_dcx),
+        (data.startswith(b"DDS "), dds.read_dds_image),
+        (data.startswith((b"%!PS", b"\xc5\xd0\xd3\xc6")), _refuse("EPS")),
+        (data.startswith(b"SIMPLE"), spider_fits.read_fits),
+        (fli.looks_like_fli(head), fli.read_fli),
+        (data.startswith(b"FTEX"), blp.read_ftex),
+        (legacy.looks_like_gbr(head), legacy.read_gbr),
         (data.startswith((b"GIF87a", b"GIF89a")), gif.read_gif),
+        (data.startswith(b"GRIB") and data[7:8] == b"\x01", _refuse("GRIB")),
+        (data.startswith(b"\x89HDF\r\n\x1a\n"), _refuse("HDF5")),
         (data.startswith(PNG_SIGNATURE), decode_png),
+        (data.startswith((b"\xffO\xffQ", b"\x00\x00\x00\x0cjP  \r\n\x87\n")),
+         _refuse("JPEG 2000")),
+        (data.startswith(b"icns"),
+         lambda d, w: icns.read_icns(d, w, decode_png)),
         (data.startswith(ico.ICO_MAGIC), ico.read_ico),
+        (True, im.read_im),
+        (True, legacy.read_imt),
+        (True, lambda d, w: iptc.read_iptc(d, w, decode_image)),
         (data.startswith(b"\xff\xd8\xff"), jpeg.decode_jpeg),
+        (data.startswith(b"\0\0\0\0\0\0\0\x04"), legacy.read_mcidas),
+        (data.startswith(b"\x00\x00\x01\xb3"), _refuse("MPEG")),
         (tiff.looks_like_tiff(data[:4]), tiff.read_tiff),
-        (pnm.looks_like_pnm(data[:2]) and not data.startswith(b"P7 332"),
-         pnm.read_pnm),
+        (data.startswith((b"DanM", b"LinS")), legacy.read_msp),
+        (pcd.looks_like_pcd(data), pcd.read_pcd),
+        (data.startswith(b"\x80\xe8\x00\x00"), legacy.read_pixar),
+        (pnm.looks_like_pnm(data[:2]), pnm.read_pnm),
         (data.startswith(psd.MAGIC), psd.read_psd),
         (data.startswith(qoi.MAGIC), qoi.read_qoi),
         (sgi.looks_like_sgi(data[:2]), sgi.read_sgi),
+        (True, spider_fits.read_spider),
+        (data.startswith(b"\x59\xa6\x6a\x95"), legacy.read_sun),
         (data[:4] == b"RIFF" and data[8:12] == b"WEBP", webp.read_webp),
+        (_wmf(data), _refuse("WMF")),
+        (legacy.looks_like_xbm(head), legacy.read_xbm),
+        (data.startswith(b"/* XPM */"), legacy.read_xpm),
+        (data.startswith(b"P7 332"), legacy.read_xvthumb),
         (suffix in tga.EXTENSIONS, tga.read_tga))
     return [reader for claimed, reader in claims if claimed]
 
@@ -151,9 +211,9 @@ def save_image(path: str | Path, image: np.ndarray) -> None:
     """Save (H, W) or (H, W, 3|4) u8 in the format the suffix names (case
     aside, SAVE_FORMATS); PIL's decode of the file equals its decode of
     PIL's own save of the array (RGBA as BMP reads back as RGB, as PPM is
-    written as RGB, as PIL does), and PNM, BMP, TGA, JPEG, QOI, SGI and
-    PCX are byte for byte PIL's. What PIL refuses to write and any other
-    suffix raise ValueError and write no file."""
+    written as RGB, as PIL does), and every format but PNG and TIFF is
+    byte for byte PIL's. What PIL refuses to write and any other suffix
+    raise ValueError and write no file."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix not in SAVE_FORMATS:
@@ -167,10 +227,13 @@ def save_image(path: str | Path, image: np.ndarray) -> None:
         raise ValueError(f"save_image takes (H, W) or (H, W, 3|4) uint8, "
                          f"got {img.dtype} {img.shape}")
     encode = {"PNG": encode_png, "BMP": bmp.encode_bmp,
+              "DIB": lambda a: bmp.encode_bmp(a)[14:],
               "TGA": tga.encode_tga, "TIFF": tiff.encode_tiff,
               "PPM": pnm.encode_pnm, "JPEG": jpeg_encode.encode_jpeg,
               "QOI": qoi.encode_qoi, "PCX": pcx.encode_pcx,
-              "SGI": lambda a: sgi.encode_sgi(a, path.stem)}
+              "SGI": lambda a: sgi.encode_sgi(a, path.stem),
+              "IM": lambda a: im.encode_im(a, path.name),
+              "DDS": dds.encode_dds}
     path.write_bytes(encode[SAVE_FORMATS[suffix]](img))
 
 

@@ -640,10 +640,13 @@ def _smooth(fr, c, coefs):
 
 # ------------------------------ decode ------------------------------
 
-def decode_jpeg(data: bytes, name: str = "<jpeg>") -> np.ndarray:
+def decode_jpeg(data: bytes, name: str = "<jpeg>",
+                cmyk_space: bool = False) -> np.ndarray:
     """JPEG bytes -> (H, W, 4) u8 RGBA, alpha 255, equal to PIL's
     ``Image.open(...).convert("RGBA")``. Raises ValueError for a feature
-    outside the module docstring's list, or for a malformed file."""
+    outside the module docstring's list, or for a malformed file. With
+    `cmyk_space` four components are CMYK whatever the Adobe transform
+    says (the JPEG colour space "CMYK" that PIL sets for BLP files)."""
     fr, planes = _planes(data, name)
     h, w = fr.height, fr.width
     out = np.full((h, w, 4), 255, np.uint8)
@@ -654,7 +657,7 @@ def decode_jpeg(data: bytes, name: str = "<jpeg>") -> np.ndarray:
         # jdapimin.c: Adobe transform 2 (or another non-zero one) is YCCK,
         # else CMYK; jdcolor.c ycck_cmyk_convert; PIL reads the CMYK as
         # Adobe's inverted "CMYK;I" and converts it to RGB (cmyk2rgb)
-        if fr.adobe is not None and fr.adobe != 0:
+        if fr.adobe is not None and fr.adobe != 0 and not cmyk_space:
             r, g, b = _ycc_to_rgb(*planes[:3], clip=False)
             cmyk = [np.clip(255 - v, 0, 255) for v in (r, g, b)]
         else:

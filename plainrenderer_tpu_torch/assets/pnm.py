@@ -9,8 +9,12 @@ even) except where the raw decoder reads it directly (maxval 255 as is;
 raw grey at maxval 65535 as 16 bits); grey above maxval 255 is PIL's mode
 I (round(v / maxval * 65535)), which converts to RGBA clipped at 255.
 Header comments (``#`` to the end of the line) are skipped between
-tokens, and in plain data. PIL's extensions (Pf float maps, P0CMYK and
-its Py* test formats) raise ValueError naming them.
+tokens, and in plain data. PIL's extensions are read as its
+``PpmImagePlugin.MODES`` maps them: Pf (PFM: one 32-bit float a pixel,
+big-endian where the scale is positive and little-endian where it is
+negative, the rows bottom-up, converted as mode F), P0CMYK and PyCMYK
+(CMYK), PyRGBA (RGBA) and PyP (palette indices with no palette, so every
+pixel is black), raw, with PIL's maxval scaling.
 
 Write: grey as P5 and RGB as P6 at maxval 255; RGBA is written as P6, its
 alpha dropped, as PIL does.
@@ -24,8 +28,9 @@ from . import modes
 
 _WHITESPACE = b" \t\n\x0b\x0c\r"
 _MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L",
-          b"P6": "RGB"}
-_EXTENSIONS = (b"P0CMYK", b"Pf", b"PyP", b"PyRGBA", b"PyCMYK")
+          b"P6": "RGB", b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P",
+          b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+_BANDS = {"RGB": 3, "RGBA": 4, "CMYK": 4}
 
 
 def looks_like_pnm(head: bytes) -> bool:
@@ -92,9 +97,6 @@ def read_pnm(buf: bytes, where: str = "<pnm>") -> np.ndarray:
     Image.open(...).convert("RGBA") gives them."""
     r = _Reader(buf, where)
     magic = r.magic()
-    if magic in _EXTENSIONS:
-        raise ValueError(f"PNM extension {magic.decode()} is not read by "
-                         f"the port: {where}")
     if magic not in _MODES:
         raise ValueError(f"not a PNM file: {where}")
     mode = _MODES[magic]
@@ -105,7 +107,7 @@ def read_pnm(buf: bytes, where: str = "<pnm>") -> np.ndarray:
     if w <= 0 or h <= 0:
         raise ValueError(f"PNM size {w}x{h}: {where}")
     plain = magic in (b"P1", b"P2", b"P3")
-    bands = 3 if mode == "RGB" else 1
+    bands = _BANDS.get(mode, 1)
     if mode == "1":
         data = buf[r.pos:]
         if plain:
@@ -124,6 +126,19 @@ def read_pnm(buf: bytes, where: str = "<pnm>") -> np.ndarray:
                                  .reshape(h, stride), axis=1)[:, :w]
             px = bits == 0
         return modes.to_rgba("1", px.astype(np.uint8))
+    if mode == "F":
+        tok = r.token()
+        try:
+            scale = float(tok)
+        except ValueError:
+            raise ValueError(f"PFM scale {tok!r} is not a number: "
+                             f"{where}") from None
+        if scale == 0.0 or not np.isfinite(scale):
+            raise ValueError(f"PFM scale must be finite and non-zero: "
+                             f"{where}")
+        return modes.to_rgba("F", modes.raw(
+            buf, r.pos, "F;32F" if scale < 0 else "F;32BF", w, h, ystep=-1,
+            where=where))
     tok = r.token()
     try:
         maxval = int(tok)
@@ -162,7 +177,7 @@ def read_pnm(buf: bytes, where: str = "<pnm>") -> np.ndarray:
         else:
             px = np.minimum(out_max, np.round(vals / maxval * out_max)) \
                 .astype(np.int64)
-    px = px.reshape(h, w, bands) if bands == 3 else px.reshape(h, w)
+    px = px.reshape(h, w, bands) if bands > 1 else px.reshape(h, w)
     return modes.to_rgba(mode, px if mode == "I" else px.astype(np.uint8))
 
 

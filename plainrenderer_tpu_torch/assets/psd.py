@@ -12,8 +12,9 @@ ignored, and PackBits row counts are read for the channels PIL reads
 only, so the planes of a file with more channels start where PIL starts
 them. What PIL refuses (16- and 32-bit samples, PSB, too few channels,
 compressions other than raw and PackBits, too little data) raises
-ValueError naming it, and so does the Lab mode, which PIL reads and the
-port does not yet.
+ValueError naming it. Lab (mode 9) is read as PIL reads it, L, a and b
+planes with a and b offset by 128, converted by modes.lab_to_rgb with
+alpha 0 (PIL copies LAB's unset fourth byte).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from . import modes
 MAGIC = b"8BPS"
 _MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1),
           (2, 8): ("P", 1), (3, 8): ("RGB", 3), (4, 8): ("CMYK", 4),
-          (7, 8): ("L", 1), (8, 8): ("L", 1)}
+          (7, 8): ("L", 1), (8, 8): ("L", 1), (9, 8): ("LAB", 3)}
 _MODE_NAMES = {0: "bitmap", 1: "grayscale", 2: "indexed", 3: "RGB",
                4: "CMYK", 7: "multichannel", 8: "duotone", 9: "Lab"}
 
@@ -75,9 +76,6 @@ def read_psd(buf: bytes, where: str = "<psd>") -> np.ndarray:
         raise ValueError(f"not a PSD file (or a PSB, version 2): {where}")
     n_channels, h, w = _u16(buf, 12), _u32(buf, 14), _u32(buf, 18)
     bits, psd_mode = _u16(buf, 22), _u16(buf, 24)
-    if (psd_mode, bits) == (9, 8):
-        raise ValueError(f"PSD Lab mode is not read by the port (PIL "
-                         f"converts Lab to RGB): {where}")
     if (psd_mode, bits) not in _MODES:
         name = _MODE_NAMES.get(psd_mode, f"mode {psd_mode}")
         raise ValueError(f"PSD {name} at {bits}-bit samples is not read "
@@ -133,4 +131,6 @@ def read_psd(buf: bytes, where: str = "<psd>") -> np.ndarray:
         return modes.to_rgba(mode, px[..., 0], palette)
     if mode == "CMYK":
         return modes.to_rgba("CMYK", 255 - px)
+    if mode == "LAB":  # planes copied into L, a, b; the fourth byte stays 0
+        return modes.to_rgba("LAB", np.dstack([px, np.zeros_like(px[..., 0])]))
     return modes.to_rgba(mode, px)

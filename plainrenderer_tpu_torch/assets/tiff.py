@@ -42,7 +42,11 @@ unit past a tile's visible width. What PIL refuses raises ValueError
 naming it; so does what the port does not read yet: old-style JPEG (6),
 CCITT (2, 3, 4), LZMA, ZSTD, WebP, JPEG 2000 and other codecs; JPEG in
 planar or 12-bit files; planar YCbCr; 12-bit samples; photometric 4, 7 and
-up (CIELab and the rest); old-style LZW.
+9 up (ICCLab, ITULab, which PIL refuses too, and the rest); old-style LZW.
+Photometric 8 (CIELab) at 8 bits is read as PIL reads it: contiguous
+samples with signed a and b, planes as stored, converted by
+modes.lab_to_rgb with alpha 255 (contiguous) or 0 (planar, PIL's fourth
+byte left unset).
 
 Write: L, RGB and RGBA (ExtraSamples 2), uncompressed, little-endian, one
 strip, which PIL reads back as the same mode and pixels.
@@ -138,7 +142,7 @@ def _mode(bo, photo, fmt, fill, bps, extra, where):
     or ValueError."""
     b8 = all(b == 8 for b in bps)
     n = len(bps)
-    if photo not in (0, 1, 2, 3, 5, 6):
+    if photo not in (0, 1, 2, 3, 5, 6, 8):
         name = _PHOTOMETRIC.get(photo, str(photo))
         raise ValueError(f"TIFF photometric {photo} ({name}) is not read by "
                          f"the port: {where}")
@@ -175,6 +179,8 @@ def _mode(bo, photo, fmt, fill, bps, extra, where):
                          f"read (PIL: unknown pixel mode): {where}")
     if photo == 1 and bps == (8, 8) and extra == (2,):
         return "LA", ""
+    if photo == 8 and bps == (8, 8, 8) and not extra:
+        return "LAB", ""
     if photo == 5 and (bps, extra) in (((8,) * 4, ()), ((8,) * 5, (0,)),
                                        ((8,) * 6, (0, 0)), ((16,) * 4, ())):
         return "CMYK", ""
@@ -309,8 +315,10 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
     if planar == 2 and comp != 1 and mode == "RGB" and spp > 3:
         raise ValueError(f"planar TIFF with an ignored extra sample (PIL: "
                          f"decoder error): {where}")
-    if planar == 2 and comp == 1 and not (bits == 8 and how == "" and
-                                          mode in ("RGB", "RGBA")):
+    if mode == "LAB" and planar == 2:
+        how = "planar"
+    if planar == 2 and comp == 1 and not (bits == 8 and how in ("", "planar")
+                                          and mode in ("RGB", "RGBA", "LAB")):
         # PIL's raw decoder reads each plane with one letter of the mode's
         # raw mode, which exists only for 8-bit R, G, B and A
         raise ValueError(f"uncompressed planar TIFF in mode {mode} at "
@@ -584,10 +592,17 @@ def _convert(mode, how, s, bits, tags, where) -> np.ndarray:
             v = np.where(v >= 2**31, v - 2**32, v)
         return modes.to_rgba(mode, v)
     if mode == "F":
-        # Convert.c: the float truncated, clipped to 0-255 (NaN to 0)
-        f = s[..., 0].astype(np.uint32).view(np.float32)
-        v = np.where(f >= 255, 255, np.where(f > 0, f, 0))
-        return modes.to_rgba("L", v.astype(np.uint8))
+        return modes.to_rgba("F", s[..., 0].astype(np.uint32).view(
+            np.float32))
+    if mode == "LAB":
+        # the contiguous raw mode "LAB" takes a and b as signed bytes (+128)
+        # and sets the fourth byte, which LittleCMS copies as alpha, to 255;
+        # PIL's planes ("L", "A", "B") copy the bytes and leave it 0
+        px = np.zeros(s.shape[:2] + (4,), np.uint8)
+        px[..., :3] = s[..., :3]
+        if how != "planar":
+            px ^= np.array([0, 128, 128, 255], np.uint8)
+        return modes.to_rgba("LAB", px)
     if bits == 16:
         s = (s >> 8).astype(np.uint8)
     if mode == "CMYK":

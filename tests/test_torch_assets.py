@@ -215,11 +215,12 @@ def test_generated_pngs_decode_as_pil(ctype, depth, interlace):
 
 
 def test_png_errors_raise_value_error(tmp_path):
-    """A format PIL reads and the port does not names itself (IM and ICNS,
-    written by PIL); a JPEG, which the port reads since slice 14, loads
-    equal to PIL's decode; a bad CRC, a truncated file and bad image data
-    raise ValueError."""
-    for name, fmt in (("a.im", "IM"), ("a.icns", "ICNS")):
+    """A format PIL reads and the port does not names itself (JPEG 2000
+    and AVIF, written by PIL; IM and ICNS, which this test named before,
+    are read since slice 18); a JPEG, which the port reads since slice
+    14, loads equal to PIL's decode; a bad CRC, a truncated file and bad
+    image data raise ValueError."""
+    for name, fmt in (("a.jp2", "JPEG 2000"), ("a.avif", "AVIF")):
         path = tmp_path / name
         Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path)
         with pytest.raises(ValueError, match=fmt):

@@ -414,7 +414,7 @@ def test_pnm_maxvals_built_here(magic, maxval):
 
 
 def test_pnm_refusals_name_the_feature():
-    _refused(b"Pf\n2 2\n-1.0\n" + bytes(16), ".pfm", "Pf", True)
+    _refused(b"Pf\n2 2\n0.0\n" + bytes(16), ".pfm", "scale", False)
     _refused(b"P5\n2 2\n0\n" + bytes(4), ".pgm", "maxval", False)
     _refused(b"P6\n2 2\n255\n" + bytes(5), ".ppm", "truncated", False)
 
@@ -723,8 +723,8 @@ def test_tiff_refusals_name_the_feature():
              ".tif", "old-style JPEG", False)
     _refused(_save(img.convert("1"), "TIFF", compression="group4"), ".tif",
              "CCITT", True)
-    _refused(_tiff(rng.integers(0, 256, (4, 4, 3)), 8, 8), ".tif", "CIELab",
-             True)
+    _refused(_tiff(rng.integers(0, 256, (4, 4, 3)), 8, 9), ".tif", "ICCLab",
+             False)
     _refused(_tiff(rng.integers(0, 65536, (4, 4, 1)), 16, 1,
                    sample_format=3), ".tif", "SampleFormat", False)
     _refused(_tiff(rng.integers(0, 4096, (4, 4, 1)), 12, 1), ".tif",
@@ -1156,7 +1156,7 @@ def test_save_image_writes_what_the_suffix_names(tmp_path, suffix):
                                       _pil(ours.read_bytes()))
 
 
-@pytest.mark.parametrize("suffix", [".ico", ".dib", ".gif", ".webp",
+@pytest.mark.parametrize("suffix", [".ico", ".pdf", ".gif", ".webp",
                                     ".exr", ""])
 def test_save_image_refuses_other_suffixes(tmp_path, suffix):
     path = tmp_path / f"a{suffix}"
@@ -1224,17 +1224,18 @@ def test_texture_images_match_jax(tmp_path, fmt):
 
 def test_refused_texture_is_none_in_both(tmp_path):
     """Where the JAX package loads no image (a file that is no image), the
-    port loads none either; an IM file, which PIL reads and the port does
-    not, raises in load_image and is a listed difference."""
+    port loads none either; a JPEG 2000 file, which PIL reads and the port
+    does not, raises in load_image and is a listed difference (an IM file
+    was until the port read IM)."""
     bad = tmp_path / "bad.tga"
     bad.write_bytes(b"not an image at all")
     paths = types.SimpleNamespace(albedo=str(bad), normal="", specular=None)
     got, want = tsb._load_texture_images(paths), \
         jsb._load_texture_images(paths)
     assert got.albedo is None and want.albedo is None
-    im = tmp_path / "a.im"
+    im = tmp_path / "a.jp2"
     Image.fromarray(_picture(8, 8)).save(im)
-    with pytest.raises(ValueError, match="IM"):
+    with pytest.raises(ValueError, match="JPEG 2000"):
         tio.load_image(im)
 
 

@@ -78,7 +78,10 @@ def test_importing_every_module_loads_no_jax():
               "assets.lzw", "assets.gif", "assets.tiff", "assets.webp",
               "assets.vp8l", "assets.vp8", "assets.jpeg",
               "assets.jpeg_encode", "assets.psd", "assets.qoi",
-              "assets.sgi", "assets.pcx", "assets.ico", "ops.debugviz", "runtime.shell", "runtime.overlay",
+              "assets.sgi", "assets.pcx", "assets.ico", "assets.bcn",
+              "assets.legacy", "assets.spider_fits", "assets.im",
+              "assets.fli", "assets.blp", "assets.icns", "assets.pcd",
+              "assets.iptc", "ops.debugviz", "runtime.shell", "runtime.overlay",
               "runtime.app", "parallel.comm", "parallel.sharding"):
         assert "plainrenderer_tpu_torch." + m in loaded, m
 
