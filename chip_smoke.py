@@ -2476,6 +2476,17 @@ LEGACY_FORMAT_NAMES = (
     "rgb.pxr", "rgb300.xpm", "rgb565_masks.tex", "rgba.im", "rgba1000.pnm",
     "rgba_v2.gbr", "rle_mask.icns", "thumb.xv", "v1.msp", "v2_rle.msp",
     "ycc.im")
+# tests/test_torch_formats_codecs.py fixture_files: the TIFF codecs and
+# JPEG modes (CCITT, LZMA, ZSTD, old-style LZW and JPEG, 12-bit, planar;
+# arithmetic and lossless JPEG), each beside PIL's decode
+CODECS_FORMAT_FIXTURES = ROOT / "tests" / "data" / "formats_codecs"
+CODECS_FORMAT_NAMES = (
+    "arith_420_restart.jpg", "arith_progressive.jpg",
+    "ccitt_g3_1d_eolfill.tif", "ccitt_g3_2d_whiteiszero.tif", "ccitt_g4.tif",
+    "ccitt_mh_fill2.tif", "grey12_deflate.tif", "jpeg12.tif",
+    "jpeg_planar_tables.tif", "lossless_rgb_pred6_pt1.jpg", "lzma_pred.tif",
+    "lzw_old_pred.tif", "ojpeg_jif.tif", "ojpeg_tables_strips.tif",
+    "planar_ycbcr_deflate.tif", "planar_ycbcr_raw.tif", "zstd_rgba.tif")
 FORMAT_FRAMES = 3
 # the courtyard's copies: a texture slot's file -> the suffix it is saved
 # with (None: the committed PNG stays)
@@ -2501,14 +2512,15 @@ FORMAT_COPIES = {"tga": (12, True), "tif": (12, True), "bmp_ppm": (4, True),
 
 
 def format_fixtures() -> dict:
-    """Every committed fixture of tests/data/formats (PRs 16-17) and
-    tests/data/formats_legacy (PR 18) through load_image (this machine has
-    no PIL) equal to PIL's decode committed beside it as PNG, and its host
-    wall time (the best of 3 loads)."""
+    """Every committed fixture of tests/data/formats,
+    tests/data/formats_legacy and tests/data/formats_codecs through
+    load_image (this machine has no PIL) equal to PIL's decode committed
+    beside it as PNG, and its host wall time (the best of 3 loads)."""
     found = {}
     for folder, expected, prefix in (
             (FORMAT_FIXTURES, FORMAT_NAMES, ""),
-            (LEGACY_FORMAT_FIXTURES, LEGACY_FORMAT_NAMES, "legacy/")):
+            (LEGACY_FORMAT_FIXTURES, LEGACY_FORMAT_NAMES, "legacy/"),
+            (CODECS_FORMAT_FIXTURES, CODECS_FORMAT_NAMES, "codecs/")):
         names = tuple(sorted(p.name for p in folder.iterdir()
                              if not p.name.endswith(".png")))
         check(names == expected, f"the format fixtures of {folder.name}: "
@@ -2598,7 +2610,8 @@ def format_frames(ctx, scene_path) -> dict:
 
 def formats_phase(ctx) -> dict:
     """The image readers and writers on the card's machine (no PIL): the
-    committed fixtures (PIL's legacy formats since PR 18), then the
+    committed fixtures (PIL's legacy formats, the TIFF codecs and JPEG
+    modes among them), then the
     courtyard with its textures re-saved as TGA, TIFF, QOI, SGI and IM,
     and with BMP / PPM normal maps, each loaded by
     the App and rendered (kernels A-L on the card) equal bit for bit,

@@ -34,7 +34,7 @@ import struct
 
 import numpy as np
 
-from .jpeg import ZIGZAG
+from .jpeg import STD_HUFFMAN, ZIGZAG
 
 # jcparam.c: the standard quantisation tables (natural order) ...
 _LUMA_Q = np.array([
@@ -46,23 +46,10 @@ _CHROMA_Q = np.array([
     17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
     + [99] * 32)
-# ... and Huffman tables: code counts for lengths 1-16, then the symbols
-_DC_LUMA = ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), tuple(range(12)))
-_DC_CHROMA = ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0),
-              tuple(range(12)))
-_AC_LUMA = ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D), bytes.fromhex(
-    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
-    "2433627282090a161718191a25262728292a3435363738393a434445464748494a"
-    "535455565758595a636465666768696a737475767778797a838485868788898a"
-    "92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6"
-    "c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"))
-_AC_CHROMA = ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77),
-              bytes.fromhex(
-    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
-    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
-    "494a535455565758595a636465666768696a737475767778797a828384858687"
-    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
-    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"))
+# ... and Huffman tables (jpeg.py keeps them: the decoder's defaults too)
+_DC_LUMA, _AC_LUMA, _DC_CHROMA, _AC_CHROMA = (
+    STD_HUFFMAN[(0, 0)], STD_HUFFMAN[(1, 0)], STD_HUFFMAN[(0, 1)],
+    STD_HUFFMAN[(1, 1)])
 # jfdctint.c's constants, FIX(x) at CONST_BITS 13
 _CONST_BITS, _PASS1_BITS = 13, 2
 (_F0298, _F0390, _F0541, _F0765, _F0899, _F1175, _F1501, _F1847, _F1961,

@@ -7,7 +7,12 @@
     until the next clear;
   - TIFF compression 5 (libtiff's tif_lzw.c LZWDecode, which PIL calls):
     codes packed MSB first, 9 to 12 bits, clear 256, end 257, and the
-    width growing one code early ("early change").
+    width growing one code early ("early change");
+  - TIFF compression 5 in the old form (tif_lzw.c LZWDecodeCompat, which
+    libtiff picks for data that starts 0x00 0x01: a clear code packed LSB
+    first): codes packed LSB first, the width growing when the next free
+    code reaches the current width's limit, a code past the table an
+    error, as is a clear code followed by a code above 256.
 
 Both return the decoded bytes; the callers cut or check the length.
 """
@@ -69,10 +74,10 @@ def decode_gif(data: bytes, min_size: int, limit: int) -> bytes:
 
 
 def decode_tiff(data: bytes, limit: int) -> bytes:
-    """TIFF LZW (MSB first, early change) -> at most `limit` bytes."""
+    """TIFF LZW (MSB first, early change; or the old LSB-first form) -> at
+    most `limit` bytes."""
     if data[:1] == b"\0" and len(data) > 1 and data[1] & 1:
-        raise ValueError("TIFF LZW in the old (LSB-first) form is not read "
-                         "by the port")
+        return _decode_tiff_compat(data, limit)
     roots = [bytes([i]) for i in range(256)]
     table = roots + [b"", b""]
     size = 9
@@ -113,6 +118,60 @@ def decode_tiff(data: bytes, limit: int) -> bytes:
             size += 1
         if len(table) > 4096:
             raise ValueError("TIFF LZW: the table overflows")
+        out += entry
+        prev = entry
+    return bytes(out[:limit])
+
+
+def _decode_tiff_compat(data: bytes, limit: int) -> bytes:
+    """libtiff's LZWDecodeCompat: LSB-first codes; the width grows once
+    the next free code passes the current width's largest; a string code
+    not yet in the table is corrupt data (libtiff: wrong length of decoded
+    string), so are a clear code followed by a code above 256 and a
+    table past libtiff's 5119 entries. The data
+    ends with the end code or when fewer bits than a code remain."""
+    roots = [bytes([i]) for i in range(256)]
+    table = roots + [b"", b""]
+    size = 9
+    out = bytearray()
+    acc = nbits = pos = 0
+    prev = None
+    n = len(data)
+    while len(out) < limit:
+        while nbits < size and pos < n:
+            acc |= data[pos] << nbits
+            nbits += 8
+            pos += 1
+        if nbits < size:
+            break
+        code = acc & ((1 << size) - 1)
+        acc >>= size
+        nbits -= size
+        if code == 257:
+            break
+        if code == 256:
+            table = roots + [b"", b""]
+            size = 9
+            prev = None
+            continue
+        if prev is None:
+            if code > 256:
+                raise ValueError("TIFF old-style LZW: corrupted table (a "
+                                 "string code after a clear code)")
+            entry = table[code]
+        else:
+            if len(table) >= 5119:  # libtiff's CSIZE; codes reach 4095
+                raise ValueError("TIFF old-style LZW: corrupted table")
+            if code < len(table):
+                entry = table[code]
+                table.append(prev + entry[:1])
+            elif code == len(table):
+                entry = prev + prev[:1]
+                table.append(entry)
+            else:
+                raise ValueError("TIFF old-style LZW: a code past the table")
+            if len(table) > (1 << size) - 1 and size < 12:
+                size += 1
         out += entry
         prev = entry
     return bytes(out[:limit])

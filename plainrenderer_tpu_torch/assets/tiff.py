@@ -1,32 +1,39 @@
 """TIFF reading and writing without PIL: the first page, as Pillow 12.1's
 TiffImagePlugin.py opens it (``TiffImageFile._setup`` and its OPEN_INFO
-table) and decodes it (its raw decoder for uncompressed data; libtiff's
-TIFFReadEncodedStrip / TIFFReadEncodedTile, tif_lzw.c, tif_zip.c,
-tif_packbits.c, tif_predict.c and tif_jpeg.c for the rest, and its RGBA
-interface, tif_getimage.c, for compressed YCbCr), converted as
+table) and decodes it (its raw decoder for uncompressed data; libtiff
+4.7's TIFFReadEncodedStrip / TIFFReadEncodedTile, tif_lzw.c, tif_zip.c,
+tif_lzma.c, tif_zstd.c, tif_fax3.c, tif_packbits.c, tif_predict.c,
+tif_jpeg.c and tif_ojpeg.c for the rest, and its RGBA interface,
+tif_getimage.c, for compressed YCbCr), converted as
 ``Image.convert("RGBA")`` converts it, then transposed by the Orientation
 tag as PIL's ``load_end`` does (``ImageOps.exif_transpose``).
 
 Covered: classic TIFF and BigTIFF; byte orders II and MM; strips and
-tiles; compression 1 (none), 5 (LZW), 7 (JPEG, each strip or tile an
-abbreviated stream after the JPEGTables tables, decoded by assets/
-jpeg.py), 8 and 32946 (Deflate, through zlib) and 32773 (PackBits);
+tiles; compression 1 (none), 2, 3 and 4 (CCITT MH, T.4 1-D / 2-D and
+T.6, assets/ccitt.py), 5 (LZW, new and old style, assets/lzw.py), 6
+(old-style JPEG, its JPEGInterchangeFormat and table forms, decoded raw
+by assets/jpeg.py), 7 (JPEG, each strip or tile an abbreviated stream
+after the JPEGTables tables, decoded by assets/jpeg.py; in planar files
+one component per plane; 12-bit grey as tif_jpeg.c packs it), 8 and
+32946 (Deflate, through zlib), 32773 (PackBits), 34925 (LZMA, through
+the standard library's lzma) and 50000 (ZSTD, assets/zstd.py);
 predictor 1, 2 (horizontal differencing on 8-, 16- and 32-bit samples)
 and 3 (floating point; like PIL, uncompressed data ignores the
-predictor, and so do PackBits and JPEG); FillOrder 2 where PIL's table
-has it; planar configuration 1 and 2 (compressed LA and PA planes come
-out with alpha 0, as PIL's libtiff decoder leaves them); photometric 0
-(WhiteIsZero) and 1 (BlackIsZero) at 1, 2, 4, 8, 16 and 32 bits and as
-32-bit floats (mode F: truncated and clipped to 0-255); 2 (RGB) at 8 and
-16 bits with ExtraSamples 0 (ignored), 1 (associated alpha, PIL's RGBa:
-rgb * 255 // a at unpack time, black where a is 0) and 2 (unassociated
-alpha); 3 (palette) at 1, 2, 4 and 8 bits with a 16-bit ColorMap (its
-high bytes), with or without an alpha sample; 5 (CMYK) at 8 bits (with
-one or two ignored extra samples) and 16 bits; 6 (YCbCr): JPEG-compressed
-through libjpeg's conversion and upsampling, otherwise libtiff's
-(single-precision coefficient and reference black / white tables, 16-bit
-fixed point, each data unit's chroma on all its pixels) for the
-subsamplings libtiff converts.
+predictor, and so do PackBits, CCITT and JPEG); FillOrder 2 where PIL's
+table has it; planar configuration 1 and 2 (compressed LA and PA planes
+come out with alpha 0, as PIL's libtiff decoder leaves them); photometric
+0 (WhiteIsZero) and 1 (BlackIsZero) at 1, 2, 4, 8, 16 and 32 bits, 12
+bits (little-endian BlackIsZero only, PIL's I;12) and as 32-bit floats
+(mode F: truncated and clipped to 0-255); 2 (RGB) at 8 and 16 bits with
+ExtraSamples 0 (ignored), 1 (associated alpha, PIL's RGBa: rgb * 255 // a
+at unpack time, black where a is 0) and 2 (unassociated alpha); 3
+(palette) at 1, 2, 4 and 8 bits with a 16-bit ColorMap (its high bytes),
+with or without an alpha sample; 5 (CMYK) at 8 bits (with one or two
+ignored extra samples) and 16 bits; 6 (YCbCr): JPEG-compressed through
+libjpeg's conversion and upsampling, otherwise libtiff's (single-precision
+coefficient and reference black / white tables, 16-bit fixed point, each
+data unit's chroma on all its pixels) for the subsamplings libtiff
+converts, planes at 1 x 1 only.
 
 PIL's and libtiff's quirks are kept: 16-bit grey is I;16 (clipped at 255,
 WhiteIsZero not inverted), 16-bit colour keeps each sample's high byte,
@@ -34,19 +41,22 @@ an RGB image with a fourth sample and no ExtraSamples is RGBA, 8-bit
 samples marked signed read as unsigned; compressed floats of a
 big-endian file are byte-swapped (PIL unpacks libtiff's native floats
 with the file's raw mode); uncompressed 3-sample YCbCr is read as PIL's
-raw decoder reads it, 4 bytes a pixel as RGBX, unconverted; a 1-sample
+raw decoder reads it, 4 bytes a pixel as RGBX, unconverted, and
+uncompressed planar YCbCr as its three planes, unconverted; a 1-sample
 YCbCr file reads as grey when uncompressed and is refused otherwise; a
 YCbCr strip gives the RGBA interface only rows x (sampling row size //
 vs) bytes, and its 4 x 4 tile routine skips 10 bytes, not 18, for each
-unit past a tile's visible width. What PIL refuses raises ValueError
-naming it; so does what the port does not read yet: old-style JPEG (6),
-CCITT (2, 3, 4), LZMA, ZSTD, WebP, JPEG 2000 and other codecs; JPEG in
-planar or 12-bit files; planar YCbCr; 12-bit samples; photometric 4, 7 and
-9 up (ICCLab, ITULab, which PIL refuses too, and the rest); old-style LZW.
-Photometric 8 (CIELab) at 8 bits is read as PIL reads it: contiguous
-samples with signed a and b, planes as stored, converted by
-modes.lab_to_rgb with alpha 255 (contiguous) or 0 (planar, PIL's fourth
-byte left unset).
+unit past a tile's visible width; old-style JPEG reads 3 samples as YCbCr
+whatever the photometric tag says and grey uninverted; an LZMA strip
+whose buffer is full succeeds whatever liblzma reports after it; a ZSTD
+strip is the first frame only. What PIL refuses raises ValueError naming
+it: WebP (50001) and JPEG 2000 (34712), for which PIL's libtiff has no
+codec, and other codecs; planar YCbCr other than 1 x 1; other 12-bit
+layouts and 12-bit predictors; photometric 4, 7 and 9 up (ICCLab,
+ITULab, and the rest). Photometric 8 (CIELab) at 8 bits is read as PIL
+reads it: contiguous samples with signed a and b, planes as stored,
+converted by modes.lab_to_rgb with alpha 255 (contiguous) or 0 (planar,
+PIL's fourth byte left unset).
 
 Write: L, RGB and RGBA (ExtraSamples 2), uncompressed, little-endian, one
 strip, which PIL reads back as the same mode and pixels.
@@ -59,7 +69,7 @@ import zlib
 
 import numpy as np
 
-from . import jpeg, lzw, modes
+from . import ccitt, jpeg, lzw, modes, zstd
 
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h",
           9: "i", 10: "ii", 11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
@@ -77,9 +87,12 @@ _PHOTOMETRIC = {4: "transparency mask", 5: "CMYK (separated)", 6: "YCbCr",
  ORIENTATION, SPP, ROWSPERSTRIP, STRIPBYTECOUNTS, PLANAR, PREDICTOR,
  COLORMAP, TILEWIDTH, TILELENGTH, TILEOFFSETS, TILEBYTECOUNTS,
  EXTRASAMPLES, SAMPLEFORMAT, JPEGTABLES, YCBCRCOEFFICIENTS,
- YCBCRSUBSAMPLING, REFERENCEBLACKWHITE) = (
+ YCBCRSUBSAMPLING, REFERENCEBLACKWHITE, T4OPTIONS) = (
     256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 284, 317, 320,
-    322, 323, 324, 325, 338, 339, 347, 529, 530, 532)
+    322, 323, 324, 325, 338, 339, 347, 529, 530, 532, 292)
+# the codecs the port decodes; PIL's libtiff has no WebP (50001) or JPEG
+# 2000 (34712) codec, and PIL refuses those files too
+_READ = (1, 2, 3, 4, 5, 6, 7, 8, 32773, 32946, 34925, 50000)
 
 
 def looks_like_tiff(head: bytes) -> bool:
@@ -156,9 +169,9 @@ def _mode(bo, photo, fmt, fill, bps, extra, where):
             if fill == 2 and fmt == (2,):
                 raise ValueError(f"TIFF unknown pixel mode: {where}")
             return "L", "invert" if photo == 0 else ""
-        if b == 12:
-            raise ValueError(f"TIFF 12-bit samples are not read by the "
-                             f"port: {where}")
+        if b == 12 and fmt == (1,) and bo == "<" and photo == 1 \
+                and fill == 1:
+            return "I;16", ""  # PIL's raw mode I;12
         if b == 16 and fill == 1:
             if fmt == (1,) and (bo == "<" or photo == 1):
                 return "I;16", ""
@@ -235,14 +248,15 @@ def _samples(raw: bytes, rows: int, width: int, spp: int, bits: int,
     if len(raw) < stride * rows:
         raise ValueError(f"TIFF strip or tile data too short: {where}")
     b = np.frombuffer(raw, np.uint8, stride * rows).reshape(rows, stride)
-    if bits >= 8:
+    if bits in (8, 16, 32):
         dt = {8: np.uint8, 16: np.dtype(bo + "u2"), 32: np.dtype(bo + "u4")}
         return b.copy().view(dt[bits])[:, :width * spp].reshape(
             rows, width, spp)
+    # packed most significant bit first (12-bit samples as PIL's I;12)
     bit = np.unpackbits(b, axis=1)[:, :width * spp * bits]
-    w = (1 << np.arange(bits - 1, -1, -1)).astype(np.uint8)
+    w = 1 << np.arange(bits - 1, -1, -1)
     return (bit.reshape(rows, width * spp, bits) * w).sum(-1).astype(
-        np.uint8).reshape(rows, width, spp)
+        np.uint8 if bits < 8 else np.uint16).reshape(rows, width, spp)
 
 
 def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
@@ -254,10 +268,12 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
     if 0xBC01 in tags:
         raise ValueError(f"Windows Media Photo in TIFF is not read: {where}")
     comp = _scalar(tags, COMPRESSION, 1)
-    if comp not in (1, 5, 7, 8, 32773, 32946):
+    if comp not in _READ:
         name = _COMPRESSIONS.get(comp, str(comp))
+        why = " (PIL's libtiff has no codec for it either)" if comp in (
+            34712, 50001) else ""
         raise ValueError(f"TIFF compression {comp} ({name}) is not read by "
-                         f"the port: {where}")
+                         f"the port{why}: {where}")
     planar = _scalar(tags, PLANAR, 1)
     photo = _scalar(tags, PHOTOMETRIC, 0)
     fill = _scalar(tags, FILLORDER, 1)
@@ -282,11 +298,11 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
     if len(set(bps)) != 1:
         raise ValueError(f"TIFF samples of mixed sizes {bps}: {where}")
     predictor = _scalar(tags, PREDICTOR, 1)
-    if comp in (5, 8, 32946) and predictor != 1:
+    if comp in (5, 8, 32946, 34925, 50000) and predictor != 1:
         if predictor not in (2, 3):
             raise ValueError(f"TIFF predictor {predictor} is not read by the "
                              f"port: {where}")
-        if predictor == 2 and bits < 8:
+        if predictor == 2 and bits not in (8, 16, 32):
             raise ValueError(f"TIFF horizontal predictor at {bits} bits "
                              f"(libtiff refuses it): {where}")
         if predictor == 3 and mode != "F":
@@ -298,20 +314,27 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
     if photo == 6 and spp == 1 and comp != 1:
         raise ValueError(f"compressed YCbCr TIFF with 1 sample (libtiff: "
                          f"invalid samples per pixel): {where}")
-    if photo == 6 and spp == 3:
-        if planar == 2:
-            raise ValueError(f"planar YCbCr TIFF is not read (libtiff "
-                             f"converts only contiguous YCbCr): {where}")
+    if photo == 6 and spp == 3 and planar == 2:
+        if comp == 1:
+            how = ""  # PIL's raw decoder: the planes as R, G, B, unconverted
+        elif sub != (1, 1):
+            # tif_getimage.c has a separate-plane YCbCr routine for 1 x 1 only
+            raise ValueError(f"planar YCbCr TIFF with subsampling {sub} "
+                             f"(libtiff: can not handle it): {where}")
+    elif photo == 6 and spp == 3:
         if comp not in (1, 7) and sub not in _YCBCR_BLOCKS:
             raise ValueError(f"TIFF YCbCr subsampling {sub} (libtiff: can "
                              f"not handle it): {where}")
         if comp not in (1, 7) and sub != (1, 1) and predictor != 1:
             raise ValueError(f"TIFF predictor on subsampled YCbCr is not "
                              f"read by the port: {where}")
-    if comp == 7 and (planar == 2 or bits != 8):
-        raise ValueError(f"TIFF JPEG compression with planar configuration "
-                         f"{planar} at {bits} bits is not read by the port "
-                         f"(contiguous 8-bit samples are): {where}")
+    if comp == 7 and bits not in (8, 12):
+        raise ValueError(f"TIFF JPEG compression at {bits} bits (libtiff: "
+                         f"improper JPEG data precision): {where}")
+    if comp in (2, 3, 4) and (bits != 1 or spp != 1):
+        raise ValueError(f"TIFF CCITT compression with {spp} samples of "
+                         f"{bits} bits (libtiff: bits/sample must be 1): "
+                         f"{where}")
     if planar == 2 and comp != 1 and mode == "RGB" and spp > 3:
         raise ValueError(f"planar TIFF with an ignored extra sample (PIL: "
                          f"decoder error): {where}")
@@ -337,17 +360,30 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
     if how == "ycbcr" and comp == 1:
         rgb = _raw_rgbx(buf, offsets, w, h, cw, ch, where)
         return _orient(modes.to_rgba("RGB", rgb), tags)
+    if comp == 6:
+        if tiled or planar == 2 or bits != 8 or spp not in (1, 3):
+            raise ValueError(f"old-style JPEG TIFF with {spp} samples of "
+                             f"{bits} bits, planar configuration {planar}, "
+                             f"{'tiles' if tiled else 'strips'} is not read "
+                             f"by the port: {where}")
+        s = _ojpeg(buf, tags, offsets, counts, w, h, ch, spp, where)
+        # converted from YCbCr whatever PhotometricInterpretation says (RGB
+        # too, as libtiff reads it); grey stays as decoded, WhiteIsZero
+        # too (PIL does not invert it)
+        return _orient(_convert(mode, "", s, 8, tags, where), tags)
     planes = spp if planar == 2 else 1
     per_chunk = spp // planes
     across, down = -(-w // cw), -(-h // ch)
     if len(offsets) < across * down * planes:
         raise ValueError(f"TIFF has {len(offsets)} strips or tiles, the "
                          f"image needs {across * down * planes}: {where}")
-    subsampled = how == "ycbcr" and comp != 7
+    subsampled = how == "ycbcr" and comp != 7 and planar == 1
     if comp == 7:
         tables = bytes(tags.get(JPEGTABLES, b""))
-        if photo == 6:
+        if photo == 6 and planar == 1:
             how = ""  # libjpeg converts to RGB
+    fax = _scalar(tags, T4OPTIONS, 0) if comp == 3 else 0
+    fax_mode = {}  # libtiff's codec mode, kept from strip to strip
     dt = np.uint8 if bits <= 8 else np.uint32 if bits == 32 else np.uint16
     out = np.zeros((h, w, spp), dt)
     for p in range(planes):
@@ -371,8 +407,12 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
                 if fill == 2:
                     raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
                 if comp == 7:
-                    s = _jpeg_chunk(raw, tables, photo, spp, sub, rows, cw,
-                                    where)
+                    s = _jpeg_chunk(raw, tables, photo, per_chunk, sub, rows,
+                                    cw, bits, bo, planar, where)
+                elif comp in (2, 3, 4):
+                    s = _samples(ccitt.decode(raw, comp, fax, cw, rows, where,
+                                              fax_mode),
+                                 rows, cw, 1, 1, bo, where)
                 else:
                     raw = _decompress(raw, comp, need, where)
                     if predictor == 3:
@@ -403,15 +443,164 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
         # libtiff hands PIL native (little-endian) floats, which PIL
         # unpacks with the file's big-endian raw mode
         out = out.byteswap()
-    if subsampled:
+    if how == "ycbcr" and (subsampled or planar == 2):
+        # libtiff's RGBA interface: subsampled units, or separate planes
         out = ycbcr_to_rgb(out, tags)
         how = ""
     return _orient(_convert(mode, how, out, bits, tags, where), tags)
 
 
+def _ojpeg(buf: bytes, tags, offsets, counts, w: int, h: int, rows: int,
+           spp: int, where: str) -> np.ndarray:
+    """Old-style JPEG (compression 6) as libtiff's tif_ojpeg.c reads it:
+    one JPEG stream for the whole image, its header from the
+    JPEGInterchangeFormat stream (513, cut at the first strip when that
+    lies inside it; its bytes after SOS are scan data too) or built from
+    the JPEGQTables, JPEGDCTables and JPEGACTables (519-521, component k
+    on table k, component 0 sampled as YCbCrSubsampling says), its scan
+    the strips joined by RST markers (the restart interval from the
+    header's DRI, JPEGRestartInterval (515), or one strip's MCUs). Only
+    sequential Huffman frames are read (libtiff refuses other SOF markers
+    in the header); JPEGProc (512) is not consulted, as libtiff does not.
+    3 samples are YCbCr whatever PhotometricInterpretation says, decoded
+    raw (not upsampled) and converted by libtiff's RGBA interface, each
+    sampling unit's chroma on all its pixels; the sampling is the
+    stream's (libtiff corrects the tag from the SOF). -> (H, W, spp)
+    samples as PIL's unpacker takes them."""
+    strips = []
+    for k, off in enumerate(offsets):
+        size = counts[k] if k < len(counts) else len(buf) - off
+        strips.append(buf[off:off + size])
+    jif = _scalar(tags, 513, 0)
+    if jif:
+        if jif >= len(buf):
+            raise ValueError(f"old-style JPEG stream past the file: {where}")
+        length = _scalar(tags, 514, 0) or len(buf) - jif
+        if offsets and jif < offsets[0] < jif + length:
+            length = offsets[0] - jif
+        head, rest = _ojpeg_header(buf[jif:jif + length], where)
+    else:
+        head, rest = _ojpeg_tables(buf, tags, spp, w, h, where), b""
+    sof, dri = _sof_and_dri(head, where)
+    restart = dri or _scalar(tags, 515, 0)
+    if not restart and len(strips) > 1:
+        hmax = max(b >> 4 for b in sof[7::3])
+        vmax = max(b & 15 for b in sof[7::3])
+        mcux = -(-(sof[3] << 8 | sof[4]) // (8 * hmax))
+        restart = mcux * max(rows // (8 * vmax), 1)
+    if restart and not dri:
+        sof = head.index(b"\xff\xda")
+        head = head[:sof] + b"\xff\xdd\x00\x04" + struct.pack(
+            ">H", restart) + head[sof:]
+    scan = bytearray(rest + (strips[0] if strips else b""))
+    for k, strip in enumerate(strips[1:]):
+        scan += bytes([0xFF, 0xD0 + k % 8]) + strip
+    try:
+        fr, planes = jpeg.decode_raw(head + bytes(scan) + b"\xff\xd9", where)
+    except ValueError as e:
+        raise ValueError(f"old-style JPEG data: {e}") from None
+    if len(planes) != spp or fr.width < w or fr.height < h:
+        raise ValueError(f"old-style JPEG frame of {len(planes)} components "
+                         f"at {fr.width}x{fr.height} for a {w}x{h} image of "
+                         f"{spp} samples: {where}")
+    if spp == 1:
+        return planes[0][:h, :w, None]
+    hs, vs = fr.comps[0].h, fr.comps[0].v
+    if any((c.h, c.v) != (1, 1) for c in fr.comps[1:]) or (
+            hs, vs) not in _YCBCR_BLOCKS:
+        raise ValueError(f"old-style JPEG sampling "
+                         f"{[(c.h, c.v) for c in fr.comps]} (libtiff: can "
+                         f"not handle it): {where}")
+    ycc = np.stack([planes[0][:h, :w]] + [
+        np.repeat(np.repeat(p, vs, 0), hs, 1)[:h, :w] for p in planes[1:]],
+        -1)
+    return ycbcr_to_rgb(ycc, tags)
+
+
+def _sof_and_dri(head: bytes, where: str):
+    """The SOF body and the restart interval of a JPEG header."""
+    i, sof, dri = 2, None, 0
+    while i + 4 <= len(head):
+        m, n = head[i + 1], head[i + 2] << 8 | head[i + 3]
+        if m in (0xC0, 0xC1):
+            sof = head[i + 4:i + 2 + n]
+        elif m == 0xDD and n >= 4:
+            dri = head[i + 4] << 8 | head[i + 5]
+        i += 2 + n
+    if sof is None or len(sof) < 6 + 3 * sof[5]:
+        raise ValueError(f"old-style JPEG header without a frame: {where}")
+    return sof, dri
+
+
+def _ojpeg_header(region: bytes, where: str):
+    """The JPEGInterchangeFormat stream's header up to its SOS segment, and
+    the bytes after it; tif_ojpeg.c reads SOI, DQT, DHT, DRI, SOF0, SOF1,
+    APPn, COM and SOS, and refuses every other marker."""
+    if region[:2] != b"\xff\xd8":
+        raise ValueError(f"old-style JPEG stream without SOI: {where}")
+    i = 2
+    while i + 4 <= len(region):
+        if region[i] != 0xFF:
+            raise ValueError(f"old-style JPEG header: bytes between "
+                             f"markers: {where}")
+        m = region[i + 1]
+        if m == 0xFF:
+            i += 1
+            continue
+        if m not in (0xC0, 0xC1, 0xC4, 0xDB, 0xDA, 0xDD, 0xFE) and not (
+                0xE0 <= m <= 0xEF):
+            raise ValueError(f"old-style JPEG header: marker 0x{m:02X} "
+                             f"(libtiff: unknown marker type): {where}")
+        end = i + 2 + (region[i + 2] << 8 | region[i + 3])
+        if m == 0xDA:
+            return region[:end], region[end:]
+        i = end
+    raise ValueError(f"old-style JPEG stream without SOS: {where}")
+
+
+def _ojpeg_tables(buf: bytes, tags, spp: int, w: int, h: int,
+                  where: str) -> bytes:
+    """The header tif_ojpeg.c writes from JPEGQTables, JPEGDCTables and
+    JPEGACTables: component k on tables k, YCbCrSubsampling on component
+    0 of 3."""
+    q, dc, ac = (tuple(tags.get(t, ())) for t in (519, 520, 521))
+    if len(q) < spp or len(dc) < spp or len(ac) < spp:
+        raise ValueError(f"old-style JPEG without its tables (libtiff: "
+                         f"missing JPEG tables): {where}")
+    out = bytearray(b"\xff\xd8")
+    for k in range(spp):
+        if q[k] + 64 > len(buf):
+            raise ValueError(f"old-style JPEG table past the file: {where}")
+        out += b"\xff\xdb\x00\x43" + bytes([k]) + buf[q[k]:q[k] + 64]
+    for cls, offs in ((0x00, dc), (0x10, ac)):
+        for k in range(spp):
+            counts = buf[offs[k]:offs[k] + 16]
+            n = sum(counts)
+            table = buf[offs[k]:offs[k] + 16 + n]
+            if len(counts) < 16 or len(table) < 16 + n:
+                raise ValueError(f"old-style JPEG table past the file: "
+                                 f"{where}")
+            out += b"\xff\xc4" + struct.pack(">H", 3 + len(table)) + bytes(
+                [cls | k]) + table
+    sub = tuple(tags.get(YCBCRSUBSAMPLING, (2, 2)))[:2] if spp == 3 \
+        else (1, 1)
+    sof = struct.pack(">BHHB", 8, h, w, spp) + b"".join(
+        bytes([k + 1, (sub if k == 0 else (1, 1))[0] << 4
+               | (sub if k == 0 else (1, 1))[1], k]) for k in range(spp))
+    out += b"\xff\xc0" + struct.pack(">H", 2 + len(sof)) + sof
+    sos = bytes([spp]) + b"".join(bytes([k + 1, k << 4 | k])
+                                  for k in range(spp)) + bytes([0, 63, 0])
+    out += b"\xff\xda" + struct.pack(">H", 2 + len(sos)) + sos
+    return bytes(out)
+
+
 def _decompress(raw: bytes, comp: int, need: int, where: str) -> bytes:
     if comp == 5:
         return lzw.decode_tiff(raw, need)
+    if comp == 34925:
+        return _lzma(raw, need, where)
+    if comp == 50000:
+        return zstd.decode_strip(raw, need, where)
     if comp in (8, 32946):
         try:
             return zlib.decompressobj().decompress(raw, need)
@@ -421,6 +610,66 @@ def _decompress(raw: bytes, comp: int, need: int, where: str) -> bytes:
     if comp == 32773:
         return _packbits(raw, need)
     return raw
+
+
+def _lzma(raw: bytes, need: int, where: str) -> bytes:
+    """tif_lzma.c: liblzma's .xz stream decoder, one call with the whole
+    strip's data and a buffer of `need` bytes; libtiff succeeds when the
+    buffer is full, even where liblzma reports an error in that call (as
+    it does when an LZMA2 chunk that ends at the buffer's end fails its
+    final range-coder check, or the index or footer after it is bad).
+    Python's lzma raises there and keeps no output, so that chunk is read
+    again one byte longer out and 16 zero bytes longer in, which gives the
+    same bytes and stops before any check."""
+    import lzma  # the standard library's liblzma binding, on first use
+
+    try:
+        return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(raw, need)
+    except lzma.LZMAError as e:
+        err = e
+    longer = _xz_chunk_ending_at(raw, need)
+    if longer is not None:
+        try:
+            out = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(longer,
+                                                                   need)
+            if len(out) == need:
+                return out
+        except lzma.LZMAError:
+            pass
+    raise ValueError(f"TIFF LZMA data does not decode ({err}): {where}")
+
+
+def _xz_chunk_ending_at(raw: bytes, end: int):
+    """The .xz stream with its first block's LZMA2 chunk that ends at
+    uncompressed byte `end` made longer, or None."""
+    if raw[:6] != b"\xfd7zXZ\0" or len(raw) < 14 or raw[13] & 0xC0:
+        return None  # not .xz, or a block header that records sizes
+    pos, out = 12 + (raw[12] + 1) * 4, 0
+    while pos + 5 < len(raw):
+        c = raw[pos]
+        if c in (1, 2):  # an uncompressed chunk
+            out += (raw[pos + 1] << 8 | raw[pos + 2]) + 1
+            pos += 3 + (raw[pos + 1] << 8 | raw[pos + 2]) + 1
+            continue
+        if c < 0x80:
+            return None
+        size = ((c & 0x1F) << 16 | raw[pos + 1] << 8 | raw[pos + 2]) + 1
+        packed = (raw[pos + 3] << 8 | raw[pos + 4]) + 1
+        data_at = pos + (6 if c >= 0xC0 else 5)
+        if out + size == end:
+            if size >= 1 << 21 or packed + 16 > 1 << 16:
+                return None
+            # one more byte out of 16 more (zero) bytes in: the range
+            # decoder reaches neither before the buffer is full (liblzma
+            # 5.4 reads a few bytes further ahead on bad data than the
+            # 5.8 that PIL links, which needs none of them)
+            head = bytes([(c & 0xE0) | size >> 16, (size >> 8) & 255,
+                          size & 255, (packed + 15) >> 8, (packed + 15) & 255])
+            at = data_at + packed
+            return raw[:pos] + head + raw[pos + 5:at] + bytes(16) + raw[at:]
+        out += size
+        pos = data_at + packed
+    return None
 
 
 def _fp_accumulate(raw: bytes, rows: int, stride: int, spp: int,
@@ -437,18 +686,25 @@ def _fp_accumulate(raw: bytes, rows: int, stride: int, spp: int,
 
 
 def _jpeg_chunk(raw: bytes, tables: bytes, photo: int, spp: int, sub,
-                rows: int, cols: int, where: str) -> np.ndarray:
+                rows: int, cols: int, bits: int, bo: str, planar: int,
+                where: str) -> np.ndarray:
     """One strip or tile of JPEG compression (7) through jpeg.py: the
-    abbreviated stream after the JPEGTables stream's tables; YCbCr
-    converted to RGB (libtiff's JPEGCOLORMODE_RGB), every other colour
-    space left as stored. libtiff's checks are kept: the component count
-    is the samples per pixel, component 0 has the YCbCr subsampling (1 x 1
-    outside YCbCr) and the others 1 x 1, and the stream is the strip's or
-    tile's size (the last strip's may be taller)."""
+    abbreviated stream after the JPEGTables stream's tables; contiguous
+    YCbCr converted to RGB (libtiff's JPEGCOLORMODE_RGB), every other
+    colour space (and each plane of a planar file) left as stored. libtiff's
+    checks are kept: the component count is the samples per chunk,
+    component 0 has the YCbCr subsampling (1 x 1 outside contiguous YCbCr)
+    and the others 1 x 1, the data precision is the bits per sample, and
+    the stream is the strip's or tile's size (the last strip's may be
+    taller). 12-bit samples come out as tif_jpeg.c packs them, two to
+    three bytes, a row's odd last sample left 0, and are unpacked as
+    PIL's I;12 reads them."""
     if tables.endswith(b"\xff\xd9") and raw.startswith(b"\xff\xd8"):
         raw = tables[:-2] + raw[2:]
-    px, sampling = jpeg.decode_components(raw, where, ycbcr=photo == 6)
-    want = sub if photo == 6 else (1, 1)
+    contig_ycc = photo == 6 and planar == 1
+    px, sampling = jpeg.decode_components(raw, where, ycbcr=contig_ycc,
+                                          precision=bits)
+    want = sub if contig_ycc else (1, 1)
     if len(sampling) != spp or sampling[0] != want or any(
             f != (1, 1) for f in sampling[1:]):
         raise ValueError(f"TIFF JPEG components {sampling} do not match "
@@ -457,7 +713,16 @@ def _jpeg_chunk(raw: bytes, tables: bytes, photo: int, spp: int, sub,
     if px.shape[1] != cols or px.shape[0] < rows:
         raise ValueError(f"TIFF JPEG strip or tile is {px.shape[1]}x"
                          f"{px.shape[0]}, expected {cols}x{rows}: {where}")
-    return px[:rows]
+    if bits == 8:
+        return px[:rows]
+    v = px[:rows].reshape(rows, -1).astype(np.int64)
+    pairs = v.shape[1] // 2
+    packed = np.zeros((rows, (v.shape[1] * 12 + 7) // 8), np.uint8)
+    a, b = v[:, 0:2 * pairs:2], v[:, 1:2 * pairs:2]
+    packed[:, 0:3 * pairs:3] = a >> 4
+    packed[:, 1:3 * pairs:3] = ((a & 15) << 4) | (b >> 8)
+    packed[:, 2:3 * pairs:3] = b & 255
+    return _samples(packed.tobytes(), rows, cols, spp, 12, bo, where)
 
 
 # libtiff's putcontig8bitYCbCr routines: the subsamplings it converts

@@ -55,16 +55,11 @@ FIXTURES = Path(__file__).resolve().parent / "data" / "formats_legacy"
 SIZES = ((1, 1), (7, 5), (33, 17))
 # what PIL reads and the port refuses by name (name -> the words the
 # port's ValueError holds); ROADMAP.md lists the same names (Queue 1 items
-# 2.2-2.6). PIL refuses some of the TIFF features too.
+# 2.5-2.6). TIFF WebP and TIFF JPEG 2000 are refused by PIL too
+# (tests/test_torch_formats_codecs.py).
 STILL_REFUSED = {
     "AVIF": "AVIF", "JPEG 2000": "JPEG 2000", "DDS BC6H": "BC6H",
-    "DDS BC7": "BC7", "TIFF CCITT": "CCITT", "TIFF LZMA": "LZMA",
-    "TIFF ZSTD": "ZSTD", "TIFF WebP": "WebP", "TIFF JPEG 2000": "JPEG 2000",
-    "TIFF 12-bit samples": "12-bit", "TIFF old-style LZW": "old-style LZW",
-    "TIFF old-style JPEG": "old-style JPEG",
-    "TIFF JPEG in planar or 12-bit files": "JPEG compression",
-    "TIFF planar YCbCr": "planar YCbCr",
-    "JPEG arithmetic coding": "arithmetic", "JPEG lossless mode": "lossless"}
+    "DDS BC7": "BC7"}
 # names of PIL's Image.ID that are STILL_REFUSED formats
 ID_REFUSED = {"AVIF": "AVIF", "JPEG2000": "JPEG 2000"}
 

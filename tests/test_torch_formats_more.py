@@ -9,7 +9,7 @@ PIL, which the JAX package's load_image and save_image use:
     and on files this test builds itself where PIL writes none (SGI
     run-length and 16-bit files, PSD, CUR and ICO bitmaps, 1-, 2- and
     4-bit PCX, DCX, TIFF YCbCr with subsampling and with JPEG);
-  - what the port still refuses raises ValueError naming the feature;
+  - what PIL refuses too raises ValueError naming the feature;
   - save_image byte for byte as PIL's save for JPEG, QOI, SGI, PCX and
     PBM, refusing what PIL refuses;
   - the texture loads: the port's _load_texture_images equals the JAX
@@ -647,24 +647,25 @@ def test_tiff_layouts_built_here():
 
 
 def test_tiff_refusals_still_name_the_feature():
-    """What PIL reads and the port does not yet (ROADMAP.md lists each),
-    and what PIL refuses too."""
+    """What PIL refuses too, by name; the LZMA and CCITT files PIL reads
+    are read now, equal to PIL's decode (more in
+    tests/test_torch_formats_codecs.py)."""
     rng = np.random.default_rng(1)
     img = Image.fromarray(_picture(16, 8))
     rgb = rng.integers(0, 256, (4, 5, 3)).astype(np.uint8)
     base = {258: (3, [8, 8, 8]), 262: (3, [2]), 277: (3, [3]),
             278: (4, [4])}
-    _refused(_tiff_file(5, 4, [lzma.compress(rgb.tobytes())],
-                        {**base, 259: (3, [34925])}), ".tif", "LZMA", True)
-    # this PIL's libtiff has no WebP or JPEG 2000 codec; ZSTD data is not
-    # built here
+    _check(_tiff_file(5, 4, [lzma.compress(rgb.tobytes())],
+                      {**base, 259: (3, [34925])}), ".tif")
+    # this PIL's libtiff has no WebP or JPEG 2000 codec; the ZSTD and
+    # old-style JPEG strips here hold raw samples, which PIL refuses as bad
+    # data (PIL writes real ZSTD TIFFs, which the port reads)
     for comp, name in ((50000, "ZSTD"), (50001, "WebP"),
                        (34712, "JPEG 2000"), (6, "old-style JPEG")):
         _refused(_tiff_file(5, 4, [rgb.tobytes()], {**base, 259: (3, [comp])}),
                  ".tif", name, False)
     for comp in ("group3", "group4"):
-        _refused(_save(img.convert("1"), "TIFF", compression=comp), ".tif",
-                 "CCITT", True)
+        _check(_save(img.convert("1"), "TIFF", compression=comp), ".tif")
     _refused(_tiff(rng.integers(0, 256, (4, 4, 3)), 8, 10), ".tif",
              "ITULab", False)
     _refused(_tiff(rng.integers(0, 256, (4, 4, 1)), 8, 6, compression=8),

@@ -10,7 +10,8 @@ chip_smoke.py also checks on a machine without PIL), and through the
 glTF import of a courtyard copy with a .jpg texture. The features the
 decoder does not read raise ValueError naming them (CMYK / YCCK and the
 block smoothing of cut progressive files are held to PIL in
-tests/test_torch_formats.py).
+tests/test_torch_formats.py, arithmetic coding and lossless mode in
+tests/test_torch_formats_codecs.py).
 
 Run as a script (``PYTHONPATH=. python tests/test_torch_jpeg.py``), it
 prints the decoder's host time on 512^2 and 2048^2 pictures that PIL
@@ -244,10 +245,17 @@ def _patched(data, offset_of, value):
 def test_unsupported_features_raise_naming_themselves():
     base = _save(_picture(16, 16), quality=75)
     sof = base.index(b"\xff\xc0")
-    for marker, name in ((0xC9, "arithmetic"), (0xC3, "lossless"),
-                         (0xC5, "hierarchical")):
+    # arithmetic coding is read now: the baseline file's data under SOF9
+    # decodes as libjpeg-turbo decodes it (real SOF9 / SOF10 / SOF3 files:
+    # tests/test_torch_formats_codecs.py)
+    arith = _patched(base, lambda b: sof + 1, 0xC9)
+    np.testing.assert_array_equal(tjpeg.decode_jpeg(arith), _pil(arith))
+    for marker, name in ((0xC3, "lossless"), (0xC5, "hierarchical")):
+        data = _patched(base, lambda b: sof + 1, marker)
+        with pytest.raises(OSError):  # PIL refuses these files too
+            _pil(data)
         with pytest.raises(ValueError, match=name):
-            tjpeg.decode_jpeg(_patched(base, lambda b: sof + 1, marker))
+            tjpeg.decode_jpeg(data)
     with pytest.raises(ValueError, match="12-bit"):
         tjpeg.decode_jpeg(_patched(base, lambda b: sof + 4, 12))
     with pytest.raises(ValueError):
