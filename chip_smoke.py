@@ -80,6 +80,7 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -2487,6 +2488,41 @@ CODECS_FORMAT_NAMES = (
     "jpeg_planar_tables.tif", "lossless_rgb_pred6_pt1.jpg", "lzma_pred.tif",
     "lzw_old_pred.tif", "ojpeg_jif.tif", "ojpeg_tables_strips.tif",
     "planar_ycbcr_deflate.tif", "planar_ycbcr_raw.tif", "zstd_rgba.tif")
+# tests/test_torch_formats_j2k.py fixture_files: JPEG 2000, each
+# beside PIL's decode; its courtyard/ folder holds the 12 textures as JP2
+J2K_FORMAT_FIXTURES = ROOT / "tests" / "data" / "formats_j2k"
+J2K_FORMAT_NAMES = (
+    "bypass_termall_segsym.jp2", "cut_in_part.j2k", "grey16.jp2",
+    "jp2_elements.icns", "pclr.jp2", "ppt_sop_eph.j2k", "rgn_vsc_reset.j2k",
+    "rpcl_precincts_poc.j2k", "sycc_subsampled.jp2", "tiles_97.j2k")
+COURTYARD_JP2 = J2K_FORMAT_FIXTURES / "courtyard"
+# SHA-256 of PIL's RGBA decode of each courtyard JP2 (PIL's irreversible
+# save at 40:1; tests/test_torch_formats_j2k.py checks them against PIL)
+COURTYARD_JP2_SHA256 = {
+    "ivy_albedo": "f2a14f6daeeceeba8aa4ed1bfbeb2fe6"
+                  "1471875d574e3dfade1d1661cebc72a5",
+    "ivy_mr": "fdf3f4ae6e735cfdc35ff8634df1db95"
+              "15a6603f0a064ab8539c90adc1c73635",
+    "ivy_normal": "809e6e76a4b5b930ae0cea544f19ea44"
+                  "ba0dcf4de895db14041f47f141ca8817",
+    "metal_albedo": "f0d6c0dffa07d596642a8bc2aca14c20"
+                    "68c579a1bcb6a8e4a540294f45655c96",
+    "metal_mr": "f96d60f457df8389b42874b895b997b7"
+                "11287bda9e82ac97178d8560a8e71d2a",
+    "metal_normal": "46ce91d915173a63c4e38588ccbaf70e"
+                    "a61fd09d5da2848ca695cb5c4c43b1ba",
+    "stone_albedo": "69976ce8e67b8ea33b1c3b40cdf9fd7c"
+                    "636eac0d587d71d072c8c81f04d8c153",
+    "stone_mr": "0190ff4d575d222f92fc6f82433b7cf6"
+                "7a2bd898243ef91e30be8130bad55add",
+    "stone_normal": "b34c2e9f9b5b0a9c054ad52609b9f1e5"
+                    "58c702d40008dfcd1382a937d1cf8d48",
+    "wood_albedo": "e52669d35c203b3b677334772dcb9d3f"
+                   "ef5289e69a94697d38eb71bdffef9d7d",
+    "wood_mr": "f19868b1c4d987700321582da6227829"
+               "023ec54ceb8f836ca30e035f16c505e1",
+    "wood_normal": "4461b119d95468f07dd3d741a4fedf4e"
+                   "fc7022e67b363dc53f9829f653dc126d"}
 FORMAT_FRAMES = 3
 # the courtyard's copies: a texture slot's file -> the suffix it is saved
 # with (None: the committed PNG stays)
@@ -2508,21 +2544,23 @@ COURTYARD_JPEG_SHA256 = {
 # and pool held bit-equal to the PNG courtyard's)
 FORMAT_COPIES = {"tga": (12, True), "tif": (12, True), "bmp_ppm": (4, True),
                  "qoi": (12, True), "sgi": (12, True), "jpg": (4, False),
-                 "im": (12, True)}
+                 "im": (12, True), "jp2": (12, False)}
 
 
 def format_fixtures() -> dict:
     """Every committed fixture of tests/data/formats,
-    tests/data/formats_legacy and tests/data/formats_codecs through
-    load_image (this machine has no PIL) equal to PIL's decode committed
-    beside it as PNG, and its host wall time (the best of 3 loads)."""
+    tests/data/formats_legacy, tests/data/formats_codecs and
+    tests/data/formats_j2k through load_image (this machine has no PIL)
+    equal to PIL's decode committed beside it as PNG, and its host wall
+    time (the best of 3 loads)."""
     found = {}
     for folder, expected, prefix in (
             (FORMAT_FIXTURES, FORMAT_NAMES, ""),
             (LEGACY_FORMAT_FIXTURES, LEGACY_FORMAT_NAMES, "legacy/"),
-            (CODECS_FORMAT_FIXTURES, CODECS_FORMAT_NAMES, "codecs/")):
+            (CODECS_FORMAT_FIXTURES, CODECS_FORMAT_NAMES, "codecs/"),
+            (J2K_FORMAT_FIXTURES, J2K_FORMAT_NAMES, "j2k/")):
         names = tuple(sorted(p.name for p in folder.iterdir()
-                             if not p.name.endswith(".png")))
+                             if p.is_file() and not p.name.endswith(".png")))
         check(names == expected, f"the format fixtures of {folder.name}: "
                                  f"{names}")
         for name in names:
@@ -2545,8 +2583,10 @@ def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list]:
     """A .plain of the courtyard whose texture files are re-saved by the
     port's save_image under tmp: kind "tga", "tif", "qoi", "sgi" or "im"
     (all 12), "bmp_ppm" (the four RGB normal maps as two BMP and two PPM, the
-    RGBA maps left as PNG) or "jpg" (the four RGB maps as JPEG). The SDF
-    volume paths stay as committed."""
+    RGBA maps left as PNG) or "jpg" (the four RGB maps as JPEG); kind
+    "jp2" copies the 12 committed JP2 files of tests/data/formats_j2k
+    (the port writes no JPEG 2000). The SDF volume paths stay as
+    committed."""
     from plainrenderer_tpu_torch.assets import plain_format
 
     scene = plain_format.load_binary_scene(COURTYARD)
@@ -2564,6 +2604,12 @@ def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list]:
                 suffix = "." + kind
             if suffix is None:
                 paths[slot] = str(src)
+                continue
+            if kind == "jp2":
+                dst = tmp / (src.stem + ".jp2")
+                shutil.copyfile(COURTYARD_JP2 / dst.name, dst)
+                paths[slot] = str(dst)
+                written.append(dst.name)
                 continue
             img = image_io.load_image(src)
             if slot == "normal":  # the RGB maps stay RGB
@@ -2608,17 +2654,34 @@ def format_frames(ctx, scene_path) -> dict:
     return dict(load_s=load_s, textures=n_tex, pool=pool, images=images)
 
 
+def jp2_decodes(folder: Path, names) -> dict:
+    """Each courtyard JP2 decoded on the host: its RGBA digest equal to
+    PIL's decode's (COURTYARD_JP2_SHA256), and its wall time in ms."""
+    times = {}
+    for name in names:
+        t0 = time.perf_counter()
+        img = image_io.load_image(folder / name)
+        times[name] = (time.perf_counter() - t0) * 1e3
+        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        check(digest == COURTYARD_JP2_SHA256[Path(name).stem],
+              f"courtyard {name} decodes to PIL's RGBA ({digest})")
+    print("courtyard JP2 decodes equal to PIL's (host ms): "
+          + json.dumps(times), flush=True)
+    return times
+
+
 def formats_phase(ctx) -> dict:
     """The image readers and writers on the card's machine (no PIL): the
     committed fixtures (PIL's legacy formats, the TIFF codecs and JPEG
-    modes among them), then the
+    modes, JPEG 2000 among them), then the
     courtyard with its textures re-saved as TGA, TIFF, QOI, SGI and IM,
     and with BMP / PPM normal maps, each loaded by
     the App and rendered (kernels A-L on the card) equal bit for bit,
-    pool and frames, to the committed PNG courtyard's run; and with its
+    pool and frames, to the committed PNG courtyard's run; with its
     four RGB maps written as JPEG, byte for byte PIL's (their digests),
-    loaded with all 12 slots and rendered to frames that are neither
-    black nor white."""
+    and with all 12 textures as the committed JP2 files, each decoded to
+    PIL's RGBA (their digests), both loaded with all 12 slots and rendered
+    to frames that are neither black nor white."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -2639,6 +2702,8 @@ def formats_phase(ctx) -> dict:
                 check(digests == COURTYARD_JPEG_SHA256,
                       f"courtyard maps as JPEG: the bytes of PIL's save "
                       f"({digests})")
+            if kind == "jp2":
+                found["jp2_decode_ms"] = jp2_decodes(sub, written)
             run = format_frames(ctx, plain)
             check(run["textures"] == 12,
                   f"courtyard as {kind}: all 12 texture slots load")
@@ -2669,7 +2734,7 @@ def formats_phase(ctx) -> dict:
     print(f"courtyard scene load at {WIDTH}x{HEIGHT} (s, App() with the "
           f"texture decodes): {json.dumps(loads)}; {FORMAT_FRAMES} frames "
           f"each, equal to the PNG courtyard's with equal texture pools "
-          f"except jpg (lossy; its files' digests equal PIL's); phase "
+          f"except jpg and jp2 (lossy; their digests equal PIL's); phase "
           f"{found['phase_s']:.1f} s", flush=True)
     return found
 

@@ -13,8 +13,9 @@ holds), then:
     bytes), with the 8-bit mask (t8mk, h8mk, l8mk, s8mk) as alpha where
     the file has one.
 
-A JPEG 2000 element raises ValueError naming "JPEG 2000 in ICNS" (PIL
-reads it through OpenJPEG; the port does not read JPEG 2000).
+A JPEG 2000 element (a J2K codestream or a JP2 file; PIL's
+read_png_or_jpeg2000) is decoded from its own bytes by assets/jp2.py and
+held to the same size check as a PNG element.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import struct
 
 import numpy as np
 
-from . import modes
+from . import jp2, modes
 
 _PNG = b"\x89PNG\r\n\x1a\n"
 # (width, height, scale) -> the element types PIL reads for it, in order
@@ -102,18 +103,19 @@ def read_icns(buf: bytes, where: str = "<icns>",
             sig = buf[start:start + 12]
             if sig.startswith(_PNG):
                 img = decode_png(buf[start:], where)
-                ih, iw = img.shape[:2]
-                if not any((s[1] * s[2]) / ih == (s[0] * s[2]) // iw
-                           for s in sizes):
-                    raise ValueError(f"ICNS PNG of {iw}x{ih} fits none of "
-                                     f"the file's sizes: {where}")
-                png = img
-                continue
-            if sig.startswith((b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a")) \
+            elif sig.startswith((b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a")) \
                     or sig == b"\0\0\0\x0cjP  \r\n\x87\n":
-                raise ValueError(f"JPEG 2000 in ICNS is not read by the "
-                                 f"port: {where}")
-            raise ValueError(f"unsupported ICNS element format: {where}")
+                # read_png_or_jpeg2000: the element's bytes alone
+                img = jp2.read_jpeg2000(buf[start:start + length], where)
+            else:
+                raise ValueError(f"unsupported ICNS element format: {where}")
+            ih, iw = img.shape[:2]
+            if not any((s[1] * s[2]) / ih == (s[0] * s[2]) // iw
+                       for s in sizes):
+                raise ValueError(f"ICNS element of {iw}x{ih} fits none of "
+                                 f"the file's sizes: {where}")
+            png = img
+            continue
         if code.endswith(b"8mk"):
             data = buf[start:start + w * h]
             if len(data) < w * h:

@@ -27,8 +27,10 @@ and PIL's header check), and every reader returns what
     thumbnails, IM Tools, McIdas, GIMP brushes, MSP and Sun rasters
     (assets/legacy.py), SPIDER and FITS (assets/spider_fits.py), IM
     (assets/im.py), FLI / FLC (assets/fli.py), BLP and FTEX
-    (assets/blp.py), ICNS (assets/icns.py), PhotoCD (assets/pcd.py) and
-    IPTC (assets/iptc.py), each within the limits its module states;
+    (assets/blp.py), ICNS (assets/icns.py), PhotoCD (assets/pcd.py),
+    IPTC (assets/iptc.py) and JPEG 2000 codestreams and JP2 / JPX files
+    (assets/jp2.py over j2k_codestream.py, j2k_t2.py, j2k_t1.py and
+    j2k_recon.py), each within the limits its module states;
   - Radiance RGBE (.hdr, by suffix as in the JAX package): new-style
     run-length or flat scanlines (the first scanline decides, as in stb),
     as (H, W, 4) f32 with alpha 1;
@@ -39,7 +41,7 @@ each where its magic bytes match; the formats without magic bytes (IM,
 IM Tools, IPTC, PhotoCD, SPIDER) at their places in that order, each
 raising modes.NotThisFormat where PIL's header check fails, and TGA last,
 under its suffixes only. The formats PIL opens and the port does not read
-(AVIF and JPEG 2000, which PIL decodes, and BUFR, GRIB, HDF5, MPEG, EPS
+(AVIF, which PIL decodes, and BUFR, GRIB, HDF5, MPEG, EPS
 and WMF, which PIL opens and cannot load here either: stubs with no
 handler, MPEG's missing decoder, EPS's Ghostscript, WMF's Windows
 renderer) raise ValueError naming them (``_refuse``), and so does a
@@ -63,7 +65,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import (blp, bmp, dds, fli, gif, icns, ico, im, iptc, jpeg,
+from . import (blp, bmp, dds, fli, gif, icns, ico, im, iptc, jp2, jpeg,
                jpeg_encode, legacy, modes, pcd, pcx, pnm, psd, qoi, sgi,
                spider_fits, tga, tiff, webp)
 
@@ -75,8 +77,9 @@ _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
 # Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
-READ = ("PNG, JPEG, BMP, DIB, GIF, TIFF, WebP, TGA, PBM/PGM/PPM/PFM, PSD, "
-        "QOI, SGI, PCX/DCX, ICO/CUR, DDS, BLP, FTEX, FITS, FLI/FLC, GBR, "
+READ = ("PNG, JPEG, JPEG 2000, BMP, DIB, GIF, TIFF, WebP, TGA, "
+        "PBM/PGM/PPM/PFM, PSD, QOI, SGI, PCX/DCX, ICO/CUR, DDS, BLP, FTEX, "
+        "FITS, FLI/FLC, GBR, "
         "ICNS, IM, IMT, IPTC, McIdas, MSP, PCD, PIXAR, SPIDER, Sun, XBM, "
         "XPM, XVThumb and Radiance .hdr")
 SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".bmp": "BMP", ".dib": "DIB",
@@ -177,8 +180,7 @@ def _readers(data: bytes, suffix: str) -> list:
         (data.startswith(b"GRIB") and data[7:8] == b"\x01", _refuse("GRIB")),
         (data.startswith(b"\x89HDF\r\n\x1a\n"), _refuse("HDF5")),
         (data.startswith(PNG_SIGNATURE), decode_png),
-        (data.startswith((b"\xffO\xffQ", b"\x00\x00\x00\x0cjP  \r\n\x87\n")),
-         _refuse("JPEG 2000")),
+        (data.startswith((jp2.J2K_MAGIC, jp2.JP2_MAGIC)), jp2.read_jpeg2000),
         (data.startswith(b"icns"),
          lambda d, w: icns.read_icns(d, w, decode_png)),
         (data.startswith(ico.ICO_MAGIC), ico.read_ico),

@@ -1225,9 +1225,9 @@ def test_texture_images_match_jax(tmp_path, fmt):
 
 def test_refused_texture_is_none_in_both(tmp_path):
     """Where the JAX package loads no image (a file that is no image), the
-    port loads none either; a JPEG 2000 file, which PIL reads and the port
-    does not, raises in load_image and is a listed difference (an IM file
-    was until the port read IM)."""
+    port loads none either; a JPEG 2000 file, which the port refused until
+    it read JPEG 2000 (an IM file until it read IM), loads in both, equal
+    to PIL's decode."""
     bad = tmp_path / "bad.tga"
     bad.write_bytes(b"not an image at all")
     paths = types.SimpleNamespace(albedo=str(bad), normal="", specular=None)
@@ -1236,8 +1236,12 @@ def test_refused_texture_is_none_in_both(tmp_path):
     assert got.albedo is None and want.albedo is None
     im = tmp_path / "a.jp2"
     Image.fromarray(_picture(8, 8)).save(im)
-    with pytest.raises(ValueError, match="JPEG 2000"):
-        tio.load_image(im)
+    np.testing.assert_array_equal(tio.load_image(im), _pil(im.read_bytes()))
+    paths = types.SimpleNamespace(albedo=str(im), normal="", specular=None)
+    got, want = tsb._load_texture_images(paths), \
+        jsb._load_texture_images(paths)
+    assert got.albedo is not None and want.albedo is not None
+    np.testing.assert_array_equal(got.albedo, want.albedo)
 
 
 def test_gltf_with_webp_and_tga_textures_imports_as_the_reference(tmp_path):

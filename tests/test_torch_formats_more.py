@@ -754,13 +754,18 @@ def test_courtyard_jpeg_digests_are_pils():
 def test_other_formats_still_name_themselves(tmp_path):
     """Formats PIL reads and writes that the port does not (ROADMAP.md
     lists them): load_image and save_image name the format. IM, XBM, MSP
-    and ICNS, which this test named until slice 18, are read now; the
-    writers PIL runs for these suffixes resample, quantise, stamp a time
-    or refuse L, RGB and RGBA themselves."""
+    and ICNS, which this test named until slice 18, are read now, and so
+    is JPEG 2000 (.jp2, .j2k: PIL's decode, bit for bit), which it named
+    until slice 20; the writers PIL runs for these suffixes resample,
+    quantise, stamp a time or refuse L, RGB and RGBA themselves."""
     rgb = np.zeros((4, 4, 3), np.uint8)
-    for name, fmt in (("a.jp2", "JPEG 2000"), ("a.j2k", "JPEG 2000"),
-                      ("a.avif", "AVIF")):
+    for name, fmt in (("a.jp2", None), ("a.j2k", None), ("a.avif", "AVIF")):
         Image.fromarray(rgb).save(tmp_path / name)
+        if fmt is None:
+            np.testing.assert_array_equal(
+                tio.load_image(tmp_path / name),
+                _pil((tmp_path / name).read_bytes()))
+            continue
         with pytest.raises(ValueError, match=fmt):
             tio.load_image(tmp_path / name)
     for suffix, fmt in ((".gif", "GIF"), (".webp", "WebP"), (".ico", "ICO"),
