@@ -81,6 +81,7 @@ import dataclasses
 import hashlib
 import json
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -2523,6 +2524,58 @@ COURTYARD_JP2_SHA256 = {
                "023ec54ceb8f836ca30e035f16c505e1",
     "wood_normal": "4461b119d95468f07dd3d741a4fedf4e"
                    "fc7022e67b363dc53f9829f653dc126d"}
+# tests/test_torch_formats_bcn.py fixture_files: BC6H and BC7 as DDS
+# content under other suffixes, each beside PIL's decode as PNG, and a
+# Radiance file beside the JAX package's load_image result as .npy
+BPTC_FORMAT_FIXTURES = ROOT / "tests" / "data" / "formats_bptc"
+BPTC_FORMAT_NAMES = ("bc6h_sf16.bin", "bc6h_uf16.tex", "bc7.tex",
+                     "bc7_srgb.dat", "radiance.hdr")
+# save_image's writers of GIF, EPS / PS, PDF, MPO, ICO and ICNS on
+# writer_image's arrays: (height, width) by suffix, the modes PIL writes
+# (RGBA as EPS, PS, PDF or MPO is refused), the clock PDF dates are taken
+# at, and PIL's save of each (tests/test_torch_formats_writers.py checks
+# them against PIL): the file's SHA-256, and for ICO and ICNS icon_digest
+WRITER_SIZES = {".gif": (96, 128), ".eps": (40, 56), ".ps": (40, 56),
+                ".pdf": (64, 80), ".mpo": (64, 80), ".ico": (300, 260),
+                ".icns": (48, 48)}
+WRITER_REFUSED = {".eps": ("RGBA",), ".ps": ("RGBA",), ".pdf": ("RGBA",),
+                  ".mpo": ("RGBA",)}
+WRITER_CLOCK = 1_700_000_000
+WRITER_SHA256 = {
+    ".gif L": "74e9bd19791262110431acb607b32a66"
+        "738519b4a2774156819d3a6fe4518e4d",
+    ".gif RGB": "372d1d732b1ff18ae575abfb99e3f8fc"
+        "f0192ae61503a9ca18745801b999823e",
+    ".gif RGBA": "85b4ea816a198e2ddcd8579536fbb08c"
+        "ca873eeb61cb229ed9910a6ff9d6962f",
+    ".eps L": "1584657bf6187927b74c692a81917e94"
+        "2352cd358f8bce4549964610cb0fac07",
+    ".eps RGB": "96dd8f30d56a1edf7d0185c248f10e64"
+        "18f7e51232bd7d0b8959471a87825a48",
+    ".ps L": "1fcf41557381233ffd42b0f479a0cf21"
+        "5efd7d7b15115be821e3fef6a7634183",
+    ".ps RGB": "3a252c5997b5d5abac6139002ffa999a"
+        "492b3430e1970140f6db37d2661d60de",
+    ".pdf L": "c74b82c477132f2740aefec7cc1e46c3"
+        "9836d9bccc235fc5bcc1ee6297720e05",
+    ".pdf RGB": "3f62aaa255d90b7d2e31080725d2bf84"
+        "113ba47f17f3f6c447cb9b3aca8f91f5",
+    ".mpo L": "5004c1f1f47821aab2cccb2decd55631"
+        "06e3011a11db3e8e490ad6a00801bab2",
+    ".mpo RGB": "3f2c96bd193760b2056719f9edca0917"
+        "b47d545e012e5ad872683043e47c0fa7",
+    ".ico L": "071e175709c267dd5e2d504b63a2d9df"
+        "e198c283626906b36690c5dad87baf39",
+    ".ico RGB": "d19be9af7fa9d72176306e6ea9538e90"
+        "f612ae670c0582f154ecbacb2a7e10d0",
+    ".ico RGBA": "827e9de575b6fba6241a726c3a8edf73"
+        "388ef57ec5539952cb389b6131120ce4",
+    ".icns L": "e8a4780fc294b996b9916083736a4fbb"
+        "832300fb985e51dfbb9520d65f386fd6",
+    ".icns RGB": "2fc42e69cd0b7c00acaa609e11ff02f2"
+        "42adba436624e22546ba9a0382ab341f",
+    ".icns RGBA": "eb36ca75d24ca159b642fc9cbea61259"
+        "10a985fdd99bc01f32ddad1253f37e34"}
 FORMAT_FRAMES = 3
 # the courtyard's copies: a texture slot's file -> the suffix it is saved
 # with (None: the committed PNG stays)
@@ -2549,33 +2602,130 @@ FORMAT_COPIES = {"tga": (12, True), "tif": (12, True), "bmp_ppm": (4, True),
 
 def format_fixtures() -> dict:
     """Every committed fixture of tests/data/formats,
-    tests/data/formats_legacy, tests/data/formats_codecs and
-    tests/data/formats_j2k through load_image (this machine has no PIL)
-    equal to PIL's decode committed beside it as PNG, and its host wall
-    time (the best of 3 loads)."""
+    tests/data/formats_legacy, tests/data/formats_codecs,
+    tests/data/formats_j2k and tests/data/formats_bptc through load_image
+    (this machine has no PIL) equal to PIL's decode committed beside it as
+    PNG (a .hdr file: to the JAX package's load_image result, as .npy),
+    and its host wall time (the best of 3 loads)."""
     found = {}
     for folder, expected, prefix in (
             (FORMAT_FIXTURES, FORMAT_NAMES, ""),
             (LEGACY_FORMAT_FIXTURES, LEGACY_FORMAT_NAMES, "legacy/"),
             (CODECS_FORMAT_FIXTURES, CODECS_FORMAT_NAMES, "codecs/"),
-            (J2K_FORMAT_FIXTURES, J2K_FORMAT_NAMES, "j2k/")):
+            (J2K_FORMAT_FIXTURES, J2K_FORMAT_NAMES, "j2k/"),
+            (BPTC_FORMAT_FIXTURES, BPTC_FORMAT_NAMES, "bptc/")):
         names = tuple(sorted(p.name for p in folder.iterdir()
-                             if p.is_file() and not p.name.endswith(".png")))
+                             if p.is_file()
+                             and not p.name.endswith((".png", ".npy"))))
         check(names == expected, f"the format fixtures of {folder.name}: "
                                  f"{names}")
         for name in names:
-            want = image_io.load_image(folder / f"{name}.png")
+            if name.endswith(".hdr"):  # the JAX package's load_image
+                want = np.load(folder / f"{name}.npy")
+            else:
+                want = image_io.load_image(folder / f"{name}.png")
             times = []
             for _ in range(3):
                 t0 = time.perf_counter()
                 got = image_io.load_image(folder / name)
                 times.append((time.perf_counter() - t0) * 1e3)
-            check(got.shape == want.shape and np.array_equal(got, want),
-                  f"{prefix}{name} equals PIL's decode")
+            check(got.shape == want.shape and got.dtype == want.dtype
+                  and np.array_equal(got, want),
+                  f"{prefix}{name} equals PIL's decode (.hdr: the JAX "
+                  f"package's load_image)")
             found[prefix + name] = dict(shape=list(got.shape),
                                         load_ms=min(times))
     print("format fixtures decoded equal to PIL's PNGs (host ms, best of "
           "3): " + json.dumps(found), flush=True)
+    return found
+
+
+def writer_image(suffix: str, mode: str) -> np.ndarray:
+    """A seeded gradient-and-noise picture at WRITER_SIZES[suffix] in mode
+    L, RGB or RGBA (a tenth of the RGBA pixels transparent)."""
+    h, w = WRITER_SIZES[suffix]
+    c = {"L": 1, "RGB": 3, "RGBA": 4}[mode]
+    rng = np.random.default_rng(sum(map(ord, suffix + mode)))
+    y, x = np.mgrid[0:h, 0:w]
+    chans = [x * 255.0 / (w - 1), y * 255.0 / (h - 1), (x + 2 * y) * 5.0
+             % 256, 255.0 - (x * y) % 200]
+    a = np.stack(chans[:c], -1) + rng.normal(0, 12, (h, w, c))
+    a = np.clip(a, 0, 255).astype(np.uint8)
+    if c == 4:
+        a[..., 3][rng.random((h, w)) < 0.1] = 0
+    return a[..., 0] if c == 1 else a
+
+
+def icon_digest(data: bytes, decode) -> str:
+    """SHA-256 over an ICO's or ICNS's entries in file order: the ICO
+    directory fields but size and offset, or the ICNS element type, then
+    each PNG entry's colour type and its RGBA decode (`decode`: PNG bytes
+    -> (H, W, 4) u8). The PNG bytes themselves are not PIL's: the port
+    deflates with Python's zlib."""
+    entries = []
+    if data[:4] == b"icns":
+        (total,) = struct.unpack_from(">i", data, 4)
+        at = 8
+        while at < total:
+            kind, size = struct.unpack_from(">4si", data, at)
+            if kind != b"TOC ":
+                entries.append((kind, data[at + 8:at + size]))
+            at += size
+    else:
+        (n,) = struct.unpack_from("<H", data, 4)
+        for i in range(n):
+            d = data[6 + 16 * i:22 + 16 * i]
+            size, offset = struct.unpack_from("<II", d, 8)
+            entries.append((d[:8], data[offset:offset + size]))
+    h = hashlib.sha256()
+    for head, png in entries:
+        h.update(head + png[25:26])
+        h.update(np.ascontiguousarray(decode(png)).tobytes())
+    return h.hexdigest()
+
+
+def format_writers(tmp: Path) -> dict:
+    """save_image's GIF, EPS, PS, PDF, MPO, ICO and ICNS writers on
+    writer_image's arrays (this machine has no PIL): each file's digest
+    equal to PIL's save of the same array (WRITER_SHA256; PDFs written
+    with time.gmtime frozen at WRITER_CLOCK), the modes PIL refuses raising
+    ValueError with no file written, and the host wall time of each write
+    (the best of 3)."""
+    from unittest import mock
+
+    clock = time.gmtime(WRITER_CLOCK)
+    found = {}
+    for suffix in WRITER_SIZES:
+        for mode in ("L", "RGB", "RGBA"):
+            img = writer_image(suffix, mode)
+            path = tmp / f"writer_{mode.lower()}{suffix}"
+            if mode in WRITER_REFUSED.get(suffix, ()):
+                try:
+                    image_io.save_image(path, img)
+                    refused = False
+                except ValueError:
+                    refused = True
+                check(refused and not path.exists(),
+                      f"save_image refuses {mode} as {suffix}, as PIL does")
+                continue
+            times = []
+            with mock.patch.object(time, "gmtime", lambda *a: clock):
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    image_io.save_image(path, img)
+                    times.append((time.perf_counter() - t0) * 1e3)
+            data = path.read_bytes()
+            if suffix in (".ico", ".icns"):
+                digest = icon_digest(data, image_io.decode_png)
+            else:
+                digest = hashlib.sha256(data).hexdigest()
+            key = f"{suffix} {mode}"
+            check(digest == WRITER_SHA256[key],
+                  f"save_image {key}: PIL's save ({digest})")
+            found[key] = dict(shape=list(img.shape), bytes=len(data),
+                              save_ms=min(times))
+    print("writers equal to PIL's saves (host ms, best of 3): "
+          + json.dumps(found), flush=True)
     return found
 
 
@@ -2673,7 +2823,8 @@ def jp2_decodes(folder: Path, names) -> dict:
 def formats_phase(ctx) -> dict:
     """The image readers and writers on the card's machine (no PIL): the
     committed fixtures (PIL's legacy formats, the TIFF codecs and JPEG
-    modes, JPEG 2000 among them), then the
+    modes, JPEG 2000, BC6H, BC7 and Radiance among them), the writers of
+    GIF, EPS / PS, PDF, MPO, ICO and ICNS against PIL's saves, then the
     courtyard with its textures re-saved as TGA, TIFF, QOI, SGI and IM,
     and with BMP / PPM normal maps, each loaded by
     the App and rendered (kernels A-L on the card) equal bit for bit,
@@ -2686,6 +2837,8 @@ def formats_phase(ctx) -> dict:
 
     t_phase = time.perf_counter()
     found = dict(fixtures=format_fixtures())
+    with tempfile.TemporaryDirectory() as tmp:
+        found["writers"] = format_writers(Path(tmp))
     base = format_frames(ctx, COURTYARD)
     check(base["textures"] == 12, "the PNG courtyard's 12 texture slots")
     loads = {"png": base["load_s"]}

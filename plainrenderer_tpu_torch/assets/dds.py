@@ -13,8 +13,9 @@ A file that starts ``DDS `` under any other suffix than .dds is an image
 that the JAX package reads through PIL: ``read_dds_image`` decodes it as
 Pillow 12.1's DdsImagePlugin does (uncompressed RGB(A) by bit masks,
 8-bit L, 16-bit LA, 8-bit palette with an RGBA table, DX10
-R8G8B8A8, and BC1-BC5 in the legacy FourCC and the DX10 forms through
-assets/bcn.py); BC6H and BC7 raise ValueError naming themselves.
+R8G8B8A8, BC1-BC5 in the legacy FourCC and the DX10 forms through
+assets/bcn.py, BC6H (DXGI 95 and 96) through assets/bc6h.py and BC7
+(DXGI 97-99, sRGB unconverted) through assets/bc7.py).
 ``encode_dds`` writes (H, W) and (H, W, 3|4) u8 as PIL's ``_save`` does:
 uncompressed, with masks.
 """
@@ -27,7 +28,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import bcn, modes
+from . import bc6h, bc7, bcn, modes
 
 MAGIC = 0x20534444  # 'DDS '
 
@@ -192,7 +193,6 @@ _BCN_DXGI = {70: (1, False), 71: (1, False), 73: (2, False), 74: (2, False),
              76: (3, False), 77: (3, False), 79: (4, False), 80: (4, False),
              82: (5, False), 83: (5, False), 84: (5, True), 27: (0, False),
              28: (0, False), 29: (0, False)}
-_DXGI_REFUSED = {95: "BC6H", 96: "BC6H", 97: "BC7", 98: "BC7", 99: "BC7"}
 
 
 def _mask_channel(values: np.ndarray, mask: int) -> np.ndarray:
@@ -253,9 +253,10 @@ def read_dds_image(buf: bytes, where: str = "<dds>") -> np.ndarray:
         if fourcc == b"DX10":
             (dxgi,) = struct.unpack_from("<I", buf, pos)
             pos += 20
-            if dxgi in _DXGI_REFUSED:
-                raise ValueError(f"DDS {_DXGI_REFUSED[dxgi]} is not read by "
-                                 f"the port: {where}")
+            if dxgi in (95, 96):
+                return bc6h.decode_bc6h(buf[pos:], w, h, dxgi == 96, where)
+            if dxgi in (97, 98, 99):
+                return bc7.decode_bc7(buf[pos:], w, h, where)
             if dxgi not in _BCN_DXGI:
                 raise ValueError(f"DDS DXGI format {dxgi} is not read by "
                                  f"PIL: {where}")

@@ -14,15 +14,30 @@ frame's rectangle are the transparency index where there is one, else 0.
 Conversion: P through its table (an index past the table is opaque
 black) with the transparent entry's alpha 0; L as grey with alpha 0 where
 the value is the transparency index.
+
+``encode_gif`` writes (H, W) and (H, W, 3|4) u8 as PIL's
+GifImagePlugin._save writes one frame at its default arguments
+(``optimize`` on): L as it is, RGB and RGBA through
+``convert("P", palette=ADAPTIVE)`` (assets/quantize.py: median cut, and
+for RGBA the fast octree with its RGBA palette, whose first entry of
+alpha 0 becomes the transparency index); ``_get_optimize``'s palette
+remap (always for L; for a palette image under 512 x 512 pixels where the
+used entries leave holes or fit a table half the size); the header (GIF89a
+where there is a transparency index, else GIF87a), the global colour
+table padded to a power of two, the graphic control extension, the image
+descriptor (interlaced where both sides are at least 16), minimum code
+size 8 and PIL's LZW data (assets/lzw.py) in sub-blocks of 255 bytes,
+each encoder buffer of max(65536, 4 W) bytes ending its last sub-block.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 
 import numpy as np
 
-from . import lzw, modes
+from . import lzw, modes, quantize
 
 
 def _palette_needed(p: bytes) -> bool:
@@ -111,3 +126,78 @@ def read_gif(buf: bytes, where: str = "<gif>") -> np.ndarray:
         return modes.to_rgba("L", canvas, transparency=transparency)
     pal = np.frombuffer(palette[:len(palette) // 3 * 3], np.uint8)
     return modes.to_rgba("P", canvas, pal.reshape(-1, 3), transparency)
+
+
+def _table_size(palette: bytes) -> int:
+    """_get_color_table_size."""
+    if not palette:
+        return 0
+    if len(palette) < 9:
+        return 1
+    return math.ceil(math.log(len(palette) // 3, 2)) - 1
+
+
+def _sub_blocks_of(data: bytes, bufsize: int) -> bytes:
+    """GifEncode.c's sub-blocks: 255 data bytes each, the last of each
+    encoder buffer of `bufsize` bytes shorter where the buffer ends."""
+    out = bytearray()
+    pos = 0
+    while pos < len(data):
+        room = bufsize
+        while room >= 2 and pos < len(data):
+            n = min(room, 256) - 1
+            chunk = data[pos:pos + n]
+            out += bytes([len(chunk)]) + chunk
+            pos += len(chunk)
+            room -= len(chunk) + 1
+    return bytes(out)
+
+
+def encode_gif(image: np.ndarray) -> bytes:
+    """(H, W) or (H, W, 3|4) u8 -> GIF bytes."""
+    img = np.asarray(image)
+    h, w = img.shape[:2]
+    transparency = None
+    if img.ndim == 2:
+        idx, bands = img, 3
+        source = bytes(i // 3 for i in range(768))
+        used = np.flatnonzero(np.bincount(idx.reshape(-1), minlength=256))
+    else:
+        if img.shape[2] == 3:
+            idx, pal = quantize.median_cut(img)
+        else:
+            idx, pal = quantize.fast_octree(img)
+            clear = np.flatnonzero(pal[:, 3] == 0)
+            transparency = int(clear[0]) if len(clear) else None
+        idx = idx.reshape(h, w)
+        bands, source = pal.shape[1], pal.tobytes()
+        used = np.flatnonzero(np.bincount(idx.reshape(-1), minlength=256))
+        size = 1 << (len(pal) - 1).bit_length()
+        if not (w * h < 512 * 512 and (
+                used[-1] >= len(used)
+                or (len(used) <= size // 2 and size > 2))):
+            used = None
+    if used is not None:  # remap_palette
+        if bands == 3 and len(source) > 768:
+            bands = 4
+        new = np.zeros(256, np.uint8)
+        new[used] = np.arange(len(used))
+        idx = new[idx]
+        source = b"".join(source[u * bands:u * bands + bands] for u in used)
+        if transparency is not None:
+            hit = np.flatnonzero(used == transparency)
+            transparency = int(hit[0]) if len(hit) else None
+    palette = source if bands == 3 else b"".join(
+        source[i * 4:i * 4 + 3] for i in range(len(source) // 3))
+    size = _table_size(palette)
+    table = palette + bytes(3 * max(0, (2 << size) - len(palette) // 3))
+    out = (b"GIF" + (b"87a" if transparency is None else b"89a")
+           + struct.pack("<HHBBB", w, h, size + 128, 0, 0) + table)
+    if transparency is not None:
+        out += b"!\xf9\x04\x01\x00\x00" + bytes([transparency, 0])
+    interlace = min(w, h) >= 16
+    out += b"," + struct.pack("<HHHHB", 0, 0, w, h, 64 if interlace else 0)
+    rows = idx[_interlaced_rows(h)] if interlace else idx
+    data = lzw.encode_gif(np.ascontiguousarray(rows, np.uint8).tobytes())
+    return (out + b"\x08" + _sub_blocks_of(data, max(65536, 4 * w))
+            + b"\x00;")

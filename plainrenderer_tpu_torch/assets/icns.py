@@ -16,6 +16,12 @@ holds), then:
 A JPEG 2000 element (a J2K codestream or a JP2 file; PIL's
 read_png_or_jpeg2000) is decoded from its own bytes by assets/jp2.py and
 held to the same size check as a PNG element.
+
+``encode_icns`` writes (H, W) and (H, W, 3|4) u8 as PIL's
+IcnsImagePlugin._save does: the image resized (BICUBIC, assets/
+resample.py) to 32, 64, 128, 256, 512 and 1024 pixels square, each a PNG
+of the image's mode, under the 8 element types ic07-ic14, after the
+header and a table of contents of their types and lengths.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import struct
 
 import numpy as np
 
-from . import jp2, modes
+from . import jp2, modes, resample
 
 _PNG = b"\x89PNG\r\n\x1a\n"
 # (width, height, scale) -> the element types PIL reads for it, in order
@@ -137,3 +143,23 @@ def read_icns(buf: bytes, where: str = "<icns>",
         raise ValueError(f"ICNS mask without its colour element: {where}")
     return modes.to_rgba("RGB", rgb) if alpha is None else \
         modes.to_rgba("RGBA", np.dstack([rgb, alpha]))
+
+
+# IcnsImagePlugin._save: element type -> size, in the order it writes them
+ICNS_TYPES = {b"ic07": 128, b"ic08": 256, b"ic09": 512, b"ic10": 1024,
+              b"ic11": 32, b"ic12": 64, b"ic13": 256, b"ic14": 512}
+
+
+def encode_icns(image: np.ndarray, encode_png) -> bytes:
+    """(H, W) or (H, W, 3|4) u8 -> ICNS bytes; `encode_png` is
+    image_io.encode_png."""
+    img = np.asarray(image)
+    pngs = {s: encode_png(resample.resize(img, (s, s), "bicubic"))
+            for s in sorted(set(ICNS_TYPES.values()))}
+    toc = b"".join(t + struct.pack(">i", 8 + len(pngs[s]))
+                   for t, s in ICNS_TYPES.items())
+    body = b"".join(t + struct.pack(">i", 8 + len(pngs[s])) + pngs[s]
+                    for t, s in ICNS_TYPES.items())
+    total = 8 + 8 + len(toc) + len(body)
+    return (b"icns" + struct.pack(">i", total) + b"TOC "
+            + struct.pack(">i", 8 + len(toc)) + toc + body)

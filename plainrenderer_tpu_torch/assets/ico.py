@@ -16,6 +16,14 @@ CUR: the first entry, replaced by each later one larger in both width
 and height (the directory's bytes), read as a DIB of twice its height
 with no mask; 32-bit pixels keep their fourth byte as alpha only when the
 bitmap starts at byte 22, as in PIL.
+
+``encode_ico`` writes (H, W) and (H, W, 3|4) u8 as PIL's IcoImagePlugin
+._save does at its default arguments: one entry for each of PIL's sizes
+16, 24, 32, 48, 64, 128 and 256 (square) that fits within the image, the
+image shrunk into it by ``thumbnail`` with the LANCZOS filter
+(assets/resample.py, which keeps the aspect ratio) and stored as a PNG of
+the image's mode; directory entries of 32 bits a pixel, 0 colours and 0
+planes, the data in size order after the directory.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import struct
 
 import numpy as np
 
-from . import bmp
+from . import bmp, resample
 from .modes import NotThisFormat
 
 ICO_MAGIC = b"\x00\x00\x01\x00"
@@ -101,3 +109,25 @@ def read_cur(buf: bytes, where: str = "<cur>") -> np.ndarray:
         raise NotThisFormat(f"CUR file without cursors: {where}")
     (at,) = struct.unpack_from("<I", best, 12)
     return bmp.bitmap(buf, at, 0, where, halve=True, raw_alpha=at == 22)[0]
+
+
+# IcoImagePlugin._save's default sizes, each (width, height)
+ICO_SIZES = (16, 24, 32, 48, 64, 128, 256)
+
+
+def encode_ico(image: np.ndarray, encode_png) -> bytes:
+    """(H, W) or (H, W, 3|4) u8 -> ICO bytes; `encode_png` is
+    image_io.encode_png."""
+    img = np.asarray(image)
+    h, w = img.shape[:2]
+    frames = [resample.thumbnail(img, (s, s), "lanczos")
+              for s in ICO_SIZES if s <= w and s <= h]
+    pngs = [encode_png(f) for f in frames]
+    head = ICO_MAGIC + struct.pack("<H", len(frames))
+    offset = len(head) + 16 * len(frames)
+    for f, png in zip(frames, pngs):
+        fh, fw = f.shape[:2]
+        head += struct.pack("<BBBBHHII", fw % 256, fh % 256, 0, 0, 0, 32,
+                            len(png), offset)
+        offset += len(png)
+    return head + b"".join(pngs)

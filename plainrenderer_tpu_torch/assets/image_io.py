@@ -23,7 +23,8 @@ and PIL's header check), and every reader returns what
     PSD's merged image (assets/psd.py), QOI (assets/qoi.py), SGI
     (assets/sgi.py), PCX and DCX's first page (assets/pcx.py), ICO and
     CUR (assets/ico.py), DDS by content under any other suffix than .dds
-    (BC1-BC5 through assets/bcn.py; assets/dds.py), XBM, XPM, PIXAR, XV
+    (BC1-BC5 through assets/bcn.py, BC6H through assets/bc6h.py, BC7
+    through assets/bc7.py; assets/dds.py), XBM, XPM, PIXAR, XV
     thumbnails, IM Tools, McIdas, GIMP brushes, MSP and Sun rasters
     (assets/legacy.py), SPIDER and FITS (assets/spider_fits.py), IM
     (assets/im.py), FLI / FLC (assets/fli.py), BLP and FTEX
@@ -31,9 +32,11 @@ and PIL's header check), and every reader returns what
     IPTC (assets/iptc.py) and JPEG 2000 codestreams and JP2 / JPX files
     (assets/jp2.py over j2k_codestream.py, j2k_t2.py, j2k_t1.py and
     j2k_recon.py), each within the limits its module states;
-  - Radiance RGBE (.hdr, by suffix as in the JAX package): new-style
-    run-length or flat scanlines (the first scanline decides, as in stb),
-    as (H, W, 4) f32 with alpha 1;
+  - Radiance RGBE (.hdr, by suffix as in the JAX package): what the JAX
+    package's imageio call returns here, OpenCV's reader at its default
+    flags (``read_hdr``: its header rules, new-style run-length scanlines
+    until one is flat; ``hdr_to_ldr``: its 8-bit conversion), as (H, W,
+    4) f32 holding 0-255 with alpha 1;
   - DDS (.dds, by suffix) rgba8 textures through assets/dds.py.
 
 The readers are tried in the order of PIL's format list (``Image.ID``),
@@ -51,23 +54,29 @@ feature of a format above that the port does not read yet.
 3|4) u8, as PIL's ``Image.fromarray(...).save(path)`` writes modes L, RGB
 and RGBA: PNG (.png, .apng), BMP, DIB, TGA (.tga, .icb, .vda, .vst),
 TIFF, PPM / PGM / PNM / PBM / PFM (P5 or P6, as PIL writes by mode), JPEG
-(.jpg, .jpeg, .jpe, .jfif; assets/jpeg_encode.py), QOI, SGI (.sgi, .rgb,
-.rgba, .bw), PCX, IM (assets/im.py) and DDS (assets/dds.py); what PIL
-refuses to write (RGBA as JPEG or PCX, grey as QOI) and any other suffix
-raise ValueError and write nothing.
+(.jpg, .jpeg, .jpe, .jfif, and .mpo, which PIL writes as JPEG;
+assets/jpeg_encode.py), QOI, SGI (.sgi, .rgb, .rgba, .bw), PCX, IM
+(assets/im.py), DDS (assets/dds.py), GIF (assets/gif.py over
+quantize.py and lzw.py), ICO and ICNS (assets/ico.py, icns.py over
+resample.py), EPS and PS (assets/eps.py) and PDF (assets/pdf.py, dated
+by time.gmtime() as PIL dates it); what PIL refuses to write (RGBA as
+JPEG, MPO, PCX, EPS or PS, grey as QOI), RGBA as PDF (PIL writes it as
+JPEG 2000, which the port does not encode) and any other suffix raise
+ValueError and write nothing.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 from pathlib import Path
 
 import numpy as np
 
-from . import (blp, bmp, dds, fli, gif, icns, ico, im, iptc, jp2, jpeg,
-               jpeg_encode, legacy, modes, pcd, pcx, pnm, psd, qoi, sgi,
-               spider_fits, tga, tiff, webp)
+from . import (blp, bmp, dds, eps, fli, gif, icns, ico, im, iptc, jp2,
+               jpeg, jpeg_encode, legacy, modes, pcd, pcx, pdf, pnm, psd, qoi,
+               sgi, spider_fits, tga, tiff, webp)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel, and the bit depths the format allows
@@ -88,15 +97,14 @@ SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".bmp": "BMP", ".dib": "DIB",
                 ".pnm": "PPM", ".pbm": "PPM", ".pfm": "PPM", ".jpg": "JPEG",
                 ".jpeg": "JPEG", ".jpe": "JPEG", ".jfif": "JPEG",
                 ".qoi": "QOI", ".sgi": "SGI", ".rgb": "SGI", ".rgba": "SGI",
-                ".bw": "SGI", ".pcx": "PCX", ".im": "IM", ".dds": "DDS"}
-# formats PIL writes under these suffixes and the port does not: it
-# resamples, quantises or stamps a time (GIF, WebP, ICO, ICNS, EPS / PS,
-# PDF, MPO), codecs the port lacks (JPEG 2000, AVIF), and formats PIL
+                ".bw": "SGI", ".pcx": "PCX", ".im": "IM", ".dds": "DDS",
+                ".gif": "GIF", ".ico": "ICO", ".icns": "ICNS", ".eps": "EPS",
+                ".ps": "EPS", ".pdf": "PDF", ".mpo": "JPEG"}
+# formats PIL writes under these suffixes and the port does not: codecs
+# the port lacks (WebP's encoders, JPEG 2000, AVIF), and formats PIL
 # refuses for L, RGB and RGBA too (BLP, MSP, XBM, PALM) or has no writer
 # for here (BUFR, GRIB, HDF5, WMF)
-_UNWRITTEN = {".gif": "GIF", ".webp": "WebP", ".ico": "ICO",
-              ".icns": "ICNS", ".eps": "EPS", ".ps": "PostScript",
-              ".pdf": "PDF", ".mpo": "MPO", ".jp2": "JPEG 2000",
+_UNWRITTEN = {".webp": "WebP", ".jp2": "JPEG 2000",
               ".j2k": "JPEG 2000", ".jpc": "JPEG 2000", ".jpf": "JPEG 2000",
               ".jpx": "JPEG 2000", ".j2c": "JPEG 2000", ".avif": "AVIF",
               ".avifs": "AVIF", ".blp": "BLP", ".msp": "MSP", ".xbm": "XBM",
@@ -106,8 +114,9 @@ _UNWRITTEN = {".gif": "GIF", ".webp": "WebP", ".ico": "ICO",
 
 def load_image(path: str | Path) -> np.ndarray:
     """Load an image as (H, W, 4): u8 for every LDR format, f32 for .hdr
-    (image_io.py:16-41). Raises ValueError for a format or feature the
-    port does not read, or for a malformed file."""
+    (image_io.py:16-41; 8-bit values, as the JAX package gets them here).
+    Raises ValueError for a format or feature the port does not read, or
+    for a malformed file."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix == ".dds":
@@ -118,7 +127,7 @@ def load_image(path: str | Path) -> np.ndarray:
         return arr[: img.height * img.width * 4].reshape(img.height, img.width, 4).copy()
     data = path.read_bytes()
     if suffix == ".hdr":
-        return read_hdr(data, str(path))
+        return hdr_to_ldr(read_hdr(data, str(path)))
     return decode_image(data, str(path), suffix)
 
 
@@ -213,9 +222,10 @@ def save_image(path: str | Path, image: np.ndarray) -> None:
     """Save (H, W) or (H, W, 3|4) u8 in the format the suffix names (case
     aside, SAVE_FORMATS); PIL's decode of the file equals its decode of
     PIL's own save of the array (RGBA as BMP reads back as RGB, as PPM is
-    written as RGB, as PIL does), and every format but PNG and TIFF is
-    byte for byte PIL's. What PIL refuses to write and any other suffix
-    raise ValueError and write no file."""
+    written as RGB, as PIL does), and every format but PNG, TIFF, ICO and
+    ICNS (whose PNG entries use Python's zlib) is byte for byte PIL's.
+    What PIL refuses to write, RGBA as PDF and any other suffix raise
+    ValueError and write no file."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix not in SAVE_FORMATS:
@@ -235,7 +245,11 @@ def save_image(path: str | Path, image: np.ndarray) -> None:
               "QOI": qoi.encode_qoi, "PCX": pcx.encode_pcx,
               "SGI": lambda a: sgi.encode_sgi(a, path.stem),
               "IM": lambda a: im.encode_im(a, path.name),
-              "DDS": dds.encode_dds}
+              "DDS": dds.encode_dds, "GIF": gif.encode_gif,
+              "ICO": lambda a: ico.encode_ico(a, encode_png),
+              "ICNS": lambda a: icns.encode_icns(a, encode_png),
+              "EPS": eps.encode_eps,
+              "PDF": lambda a: pdf.encode_pdf(a, path.stem)}
     path.write_bytes(encode[SAVE_FORMATS[suffix]](img))
 
 
@@ -435,64 +449,102 @@ def _to_rgba(samples, ctype: int, depth: int, palette, trns) -> np.ndarray:
 
 # ------------------------------ Radiance -----------------------------
 
+_HDR_DIMS = re.compile(rb"-Y\s*([+-]?\d+)\s*\+X\s*([+-]?\d+)")
+
+
+def _hdr_line(data: bytes, pos: int, where: str) -> tuple[bytes, int]:
+    """C's fgets into a 128-byte buffer: up to and including the next
+    newline, at most 127 bytes; nothing left is a read error."""
+    if pos >= len(data):
+        raise ValueError(f".hdr header ends early: {where}")
+    nl = data.find(b"\n", pos, pos + 127)
+    end = nl + 1 if nl >= 0 else min(len(data), pos + 127)
+    return data[pos:end], end
+
+
 def read_hdr(data: bytes, where: str = "<bytes>") -> np.ndarray:
-    """Radiance RGBE bytes -> (H, W, 4) f32 with alpha 1 (-Y H +X W
-    orientation), each texel rgb * 2^(e - 136), 0 where e is 0."""
-    if not (data.startswith(b"#?RADIANCE") or data.startswith(b"#?RGBE")):
+    """Radiance RGBE bytes -> (H, W, 3) f32 radiance, each texel rgb *
+    2^(e - 136), 0 where e is 0, as OpenCV's rgbe.cpp reads them (the
+    decoder imageio picks for .hdr here): the header's lines up to a blank
+    one must hold FORMAT=32-bit_rle_rgbe (EXPOSURE and other lines are
+    ignored), the next line must start "-Y H +X W" (no other orientation)
+    with H and W positive; widths of 8 to 32767 take new-style run-length
+    scanlines until one does not start 2 2, from which texel on the rest
+    of the image is flat; other widths are flat throughout."""
+    if not data.startswith((b"#?RADIANCE", b"#?RGBE")):
         raise ValueError(f"not a Radiance .hdr file: {where}")
-    end = data.find(b"\n\n")
-    if end < 0:
-        raise ValueError(f".hdr header not terminated: {where}")
-    header = data[:end].decode("latin-1").split("\n")
-    fmt = [ln for ln in header if ln.startswith("FORMAT=")]
-    if fmt and fmt[0] != "FORMAT=32-bit_rle_rgbe":
-        raise ValueError(f".hdr {fmt[0]} is not read by the port: {where}")
-    nl = data.index(b"\n", end + 2)
-    dims = data[end + 2:nl].decode("latin-1").split()
-    if len(dims) != 4 or dims[0] != "-Y" or dims[2] != "+X":
-        raise ValueError(f".hdr orientation {' '.join(dims)!r} is not "
-                         f"-Y H +X W: {where}")
-    h, w = int(dims[1]), int(dims[3])
-    buf = np.frombuffer(data, np.uint8, offset=nl + 1)
-    # the first scanline decides, as in stb and Radiance's rgbe.c: new-style
-    # run-length scanlines throughout, or the whole image flat
-    rle = (8 <= w < 32768 and buf.size >= 4 and buf[0] == 2 and buf[1] == 2
-           and not buf[2] & 0x80)
-    if not rle:
-        if buf.size < 4 * w * h:
+    pos, found = 0, False
+    while True:
+        line, pos = _hdr_line(data, pos, where)
+        if line in (b"", b"\n"):
+            break
+        found |= line == b"FORMAT=32-bit_rle_rgbe\n"
+    if not found:
+        raise ValueError(f".hdr header without FORMAT=32-bit_rle_rgbe "
+                         f"before its blank line: {where}")
+    line, pos = _hdr_line(data, pos, where)
+    dims = _HDR_DIMS.match(line)
+    if dims is None or int(dims[1]) <= 0 or int(dims[2]) <= 0:
+        raise ValueError(f".hdr size line {line[:40]!r} is not -Y H +X W: "
+                         f"{where}")
+    h, w = int(dims[1]), int(dims[2])
+    buf = np.frombuffer(data, np.uint8, offset=pos)
+    rgbe = np.empty((h * w, 4), np.uint8)
+    y = at = 0
+    while 8 <= w <= 0x7FFF and y < h:
+        head = buf[at:at + 4]
+        if head.size < 4:
             raise ValueError(f".hdr data truncated: {where}")
-        rgbe = buf[:4 * w * h].reshape(h, w, 4)
-    else:
-        rgbe = np.empty((h, w, 4), np.uint8)
-        pos = 0
-        for y in range(h):
-            if (pos + 4 > buf.size or buf[pos] != 2 or buf[pos + 1] != 2
-                    or (int(buf[pos + 2]) << 8 | int(buf[pos + 3])) != w):
-                raise ValueError(f".hdr scanline {y} is not a run-length "
-                                 f"scanline of width {w}: {where}")
-            pos += 4
-            for c in range(4):
-                x = 0
-                while x < w:
-                    if pos >= buf.size:
+        if head[0] != 2 or head[1] != 2 or head[2] & 0x80:
+            break  # flat from here on
+        if (int(head[2]) << 8 | int(head[3])) != w:
+            raise ValueError(f".hdr scanline {y} is not of width {w}: "
+                             f"{where}")
+        at += 4
+        line = np.empty((4, w), np.uint8)
+        for c in range(4):
+            x = 0
+            while x < w:
+                if at + 2 > buf.size:
+                    raise ValueError(f".hdr data truncated: {where}")
+                count = int(buf[at])
+                run = count > 128
+                count -= 128 * run
+                if count == 0 or count > w - x:
+                    raise ValueError(f".hdr bad scanline data: {where}")
+                if run:
+                    line[c, x:x + count] = buf[at + 1]
+                    at += 2
+                else:
+                    if at + 1 + count > buf.size:
                         raise ValueError(f".hdr data truncated: {where}")
-                    count = int(buf[pos])
-                    if count > 128:  # a run of one byte
-                        count -= 128
-                        if x + count > w or pos + 1 >= buf.size:
-                            raise ValueError(f".hdr bad run: {where}")
-                        rgbe[y, x:x + count, c] = buf[pos + 1]
-                        pos += 2
-                    else:  # count literal bytes
-                        if (count == 0 or x + count > w
-                                or pos + 1 + count > buf.size):
-                            raise ValueError(f".hdr bad literal: {where}")
-                        rgbe[y, x:x + count, c] = buf[pos + 1:pos + 1 + count]
-                        pos += 1 + count
-                    x += count
+                    line[c, x:x + count] = buf[at + 1:at + 1 + count]
+                    at += 1 + count
+                x += count
+        rgbe[y * w:(y + 1) * w] = line.T
+        y += 1
+    rest = (h - y) * w * 4
+    if buf.size - at < rest:
+        raise ValueError(f".hdr data truncated: {where}")
+    rgbe[y * w:] = buf[at:at + rest].reshape(-1, 4)
+    rgbe = rgbe.reshape(h, w, 4)
     e = rgbe[..., 3].astype(np.int32)
     scale = np.where(e > 0, np.ldexp(np.float32(1.0), e - (128 + 8)),
                      0.0).astype(np.float32)
-    out = np.ones((h, w, 4), np.float32)
-    out[..., :3] = rgbe[..., :3].astype(np.float32) * scale[..., None]
+    return rgbe[..., :3].astype(np.float32) * scale[..., None]
+
+
+def hdr_to_ldr(radiance: np.ndarray) -> np.ndarray:
+    """(H, W, 3) f32 radiance -> (H, W, 4) f32 as the JAX package's
+    load_image returns .hdr here: imageio's OpenCV reader at its default
+    flags converts to 8 bits (saturate_cast<uchar>(v * 255.f): rounded
+    half to even, clipped to 0-255, and 0 where the product passes 2^31,
+    as cvRound's int32 overflows), which the JAX code casts to f32 and
+    pads with alpha 1."""
+    with np.errstate(over="ignore"):
+        x = radiance * np.float32(255.0)
+    u8 = np.where(x >= 2.0 ** 31, 0.0,
+                  np.clip(np.rint(np.minimum(x, 2.0 ** 31)), 0, 255))
+    out = np.ones(radiance.shape[:2] + (4,), np.float32)
+    out[..., :3] = u8
     return out

@@ -14,7 +14,9 @@
     code reaches the current width's limit, a code past the table an
     error, as is a clear code followed by a code above 256.
 
-Both return the decoded bytes; the callers cut or check the length.
+The decoders return the decoded bytes; the callers cut or check the
+length. ``encode_gif`` is the GIF encoder PIL's GifImagePlugin runs
+(libImaging/GifEncode.c).
 """
 
 from __future__ import annotations
@@ -175,3 +177,56 @@ def _decode_tiff_compat(data: bytes, limit: int) -> bytes:
         out += entry
         prev = entry
     return bytes(out[:limit])
+
+
+def encode_gif(indices: bytes) -> bytes:
+    """Pixel indices -> GIF LZW codes packed LSB first at PIL's minimum
+    code size of 8, as PIL's GifEncode.c writes them: a clear code first; greedy matching; after
+    each emitted code the new string takes the next code while the
+    table has fewer than 4096, and the code width grows once the code
+    just added passes the width's largest; at 4096 a clear code (at 12
+    bits) resets the table instead; the last string's code, the end code,
+    and the last partial byte."""
+    min_size = 8
+    clear = 1 << min_size
+    out = bytearray()
+    acc = nacc = 0
+
+    def put(code: int, width: int) -> None:
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += width
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+
+    width = min_size + 1
+    put(clear, width)
+    if indices:
+        table: dict[int, int] = {}
+        next_code, max_code = clear + 2, 2 * clear - 1
+        head = indices[0]
+        for tail in indices[1:]:
+            key = (head << 8) | tail
+            code = table.get(key)
+            if code is not None:
+                head = code
+                continue
+            put(head, width)
+            if next_code < 4096:
+                table[key] = next_code
+                if next_code > max_code:
+                    max_code, width = 2 * max_code + 1, width + 1
+                next_code += 1
+            else:
+                put(clear, width)
+                table.clear()
+                next_code, max_code = clear + 2, 2 * clear - 1
+                width = min_size + 1
+            head = tail
+        put(head, width)
+    put(clear + 1, width)
+    if nacc:
+        out.append(acc & 0xFF)
+    return bytes(out)

@@ -285,10 +285,11 @@ def _rle_scanline(row):
 
 def test_hdr_decodes_as_imageio(tmp_path):
     """Seeded RGBE files, one of flat scanlines and one run-length
-    encoded, against imageio's float decode (its OpenCV plugin, flags
-    IMREAD_UNCHANGED)."""
-    cv2 = pytest.importorskip("cv2")
-    import imageio.v3 as iio
+    encoded, against the JAX package's load_image: imageio's default
+    reader for .hdr here (OpenCV at its default flags, 8-bit RGB), cast to
+    f32 and padded with alpha 1. tests/test_torch_formats_bcn.py sweeps
+    every RGBE pair and the header variants."""
+    from plainrenderer_tpu.assets import image_io as jio
 
     rng = np.random.default_rng(6)
     h, w = 9, 40
@@ -302,11 +303,17 @@ def test_hdr_decodes_as_imageio(tmp_path):
         path = tmp_path / f"{name}.hdr"
         path.write_bytes(head + body)
         got = tio.load_image(path)
-        want = iio.imread(path, plugin="opencv", flags=cv2.IMREAD_UNCHANGED)
-        assert got.dtype == np.float32 and got.shape == (h, w, 4)
-        assert want.dtype == np.float32 and want.shape == (h, w, 3)
-        np.testing.assert_array_equal(got[..., :3], want, err_msg=name)
+        want = jio.load_image(path)
+        assert got.dtype == want.dtype == np.float32
+        assert got.shape == want.shape == (h, w, 4)
+        np.testing.assert_array_equal(got, want, err_msg=name)
         assert (got[..., 3] == 1.0).all()
+        # the radiance itself, before the 8-bit conversion
+        e = rgbe[..., 3].astype(np.int32)
+        radiance = rgbe[..., :3] * np.where(
+            e > 0, np.ldexp(np.float32(1.0), e - 136), 0.0)[..., None]
+        np.testing.assert_array_equal(tio.read_hdr(path.read_bytes()),
+                                      radiance.astype(np.float32))
 
 
 def test_mean_albedo_reads_as_the_reference():

@@ -54,10 +54,11 @@ DEMO = REPO / "assets" / "demo"
 FIXTURES = Path(__file__).resolve().parent / "data" / "formats_legacy"
 SIZES = ((1, 1), (7, 5), (33, 17))
 # what PIL reads and the port refuses by name (name -> the words the
-# port's ValueError holds); ROADMAP.md lists the same names (Queue 1 items
-# 2.5-2.6). TIFF WebP and TIFF JPEG 2000 are refused by PIL too
-# (tests/test_torch_formats_codecs.py).
-STILL_REFUSED = {"AVIF": "AVIF", "DDS BC6H": "BC6H", "DDS BC7": "BC7"}
+# port's ValueError holds); ROADMAP.md lists the same names (Queue 1 item
+# 2.5). TIFF WebP and TIFF JPEG 2000 are refused by PIL too
+# (tests/test_torch_formats_codecs.py). DDS BC6H and BC7 are read since
+# slice 21 (tests/test_torch_formats_bcn.py).
+STILL_REFUSED = {"AVIF": "AVIF"}
 # names of PIL's Image.ID that are STILL_REFUSED formats
 ID_REFUSED = {"AVIF": "AVIF"}
 
@@ -158,11 +159,11 @@ def test_dds_written_by_pil(size):
 
 
 def test_dds_refusals_name_the_feature():
+    """What PIL refuses in DDS content the port refuses, naming it; BC6H
+    and BC7 (refused by name until slice 21) decode as PIL decodes them."""
     rng = _rng(1)
-    for dxgi, name in ((95, "BC6H"), (96, "BC6H"), (97, "BC7"),
-                       (98, "BC7")):
-        _refused(_dds(8, 8, 4, b"DX10", dxgi=dxgi) + _u8(rng, 64), ".tex",
-                 name, True)
+    for dxgi in (95, 96, 97, 98):
+        _check(_dds(8, 8, 4, b"DX10", dxgi=dxgi) + _u8(rng, 64), ".tex")
     _refused(_dds(8, 8, 4, b"DX10", dxgi=72) + _u8(rng, 32), ".tex",
              "DXGI format 72", False)
     _refused(_dds(8, 8, 4, b"DXT1") + _u8(rng, 16), ".tex", "truncated",

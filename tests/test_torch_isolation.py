@@ -1,6 +1,6 @@
 """plainrenderer_tpu_torch imports neither jax nor plainrenderer_tpu,
-nor PIL or imageio, which the card's machine does not have (the port
-reads and writes images with its own decoders).
+nor PIL, imageio or OpenCV (cv2), which the card's machine does not have
+(the port reads and writes images with its own decoders).
 
 Module names are matched exactly or by their dotted prefix: the port's
 own name starts with "plainrenderer_tpu", so a substring test would be
@@ -14,7 +14,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "plainrenderer_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "plainrenderer_tpu", "PIL", "imageio")
+FORBIDDEN = ("jax", "jaxlib", "plainrenderer_tpu", "PIL", "imageio",
+             "cv2")
 
 
 def _forbidden(name: str) -> bool:
