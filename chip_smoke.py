@@ -2530,16 +2530,16 @@ COURTYARD_JP2_SHA256 = {
 BPTC_FORMAT_FIXTURES = ROOT / "tests" / "data" / "formats_bptc"
 BPTC_FORMAT_NAMES = ("bc6h_sf16.bin", "bc6h_uf16.tex", "bc7.tex",
                      "bc7_srgb.dat", "radiance.hdr")
-# save_image's writers of GIF, EPS / PS, PDF, MPO, ICO and ICNS on
-# writer_image's arrays: (height, width) by suffix, the modes PIL writes
-# (RGBA as EPS, PS, PDF or MPO is refused), the clock PDF dates are taken
-# at, and PIL's save of each (tests/test_torch_formats_writers.py checks
-# them against PIL): the file's SHA-256, and for ICO and ICNS icon_digest
+# save_image's writers of GIF, EPS / PS, PDF, MPO, ICO, ICNS and JPEG 2000
+# (JP2 and a bare J2K codestream) on writer_image's arrays: (height,
+# width) by suffix, the modes PIL writes (RGBA as EPS, PS or MPO is
+# refused), the clock PDF dates are taken at, and PIL's save of each
+# (tests/test_torch_formats_writers.py checks them against PIL): the
+# file's SHA-256, and for ICO and ICNS icon_digest
 WRITER_SIZES = {".gif": (96, 128), ".eps": (40, 56), ".ps": (40, 56),
                 ".pdf": (64, 80), ".mpo": (64, 80), ".ico": (300, 260),
-                ".icns": (48, 48)}
-WRITER_REFUSED = {".eps": ("RGBA",), ".ps": ("RGBA",), ".pdf": ("RGBA",),
-                  ".mpo": ("RGBA",)}
+                ".icns": (48, 48), ".jp2": (96, 128), ".j2k": (96, 128)}
+WRITER_REFUSED = {".eps": ("RGBA",), ".ps": ("RGBA",), ".mpo": ("RGBA",)}
 WRITER_CLOCK = 1_700_000_000
 WRITER_SHA256 = {
     ".gif L": "74e9bd19791262110431acb607b32a66"
@@ -2560,6 +2560,8 @@ WRITER_SHA256 = {
         "9836d9bccc235fc5bcc1ee6297720e05",
     ".pdf RGB": "3f62aaa255d90b7d2e31080725d2bf84"
         "113ba47f17f3f6c447cb9b3aca8f91f5",
+    ".pdf RGBA": "7bb8439cdadb88b016d8d4e3de2ab0e2"
+        "d582c1ed05510057d0a7c8e7559e3c72",
     ".mpo L": "5004c1f1f47821aab2cccb2decd55631"
         "06e3011a11db3e8e490ad6a00801bab2",
     ".mpo RGB": "3f2c96bd193760b2056719f9edca0917"
@@ -2575,7 +2577,19 @@ WRITER_SHA256 = {
     ".icns RGB": "2fc42e69cd0b7c00acaa609e11ff02f2"
         "42adba436624e22546ba9a0382ab341f",
     ".icns RGBA": "eb36ca75d24ca159b642fc9cbea61259"
-        "10a985fdd99bc01f32ddad1253f37e34"}
+        "10a985fdd99bc01f32ddad1253f37e34",
+    ".jp2 L": "701bebb3c949acf9c249f7d0d60521b5"
+        "35b66dc848668bd298e0545f6f366ee1",
+    ".jp2 RGB": "9646607d4fc3e64d20aa82a8e0ce64fe"
+        "4fb3cb333fc1c2bca2772ab790d222cb",
+    ".jp2 RGBA": "5d7a0fcca7dd3387e3b0dcb900d7488d"
+        "ddf04c1e8cdc63812045bb610c9cc71a",
+    ".j2k L": "d43edf9b02be4c152cf55ed8cde97dcb"
+        "23ba6509cb3007818e2e973adc724b48",
+    ".j2k RGB": "00d06361a6bc7dd9b1aceedec3e52e13"
+        "70fd0990edd21a97154202653a0cddb1",
+    ".j2k RGBA": "6416f94736bbb19558d80e15a84f4e5e"
+        "2fa4ee1a676f1d99ae51ba7eb94fa279"}
 FORMAT_FRAMES = 3
 # the courtyard's copies: a texture slot's file -> the suffix it is saved
 # with (None: the committed PNG stays)
@@ -2593,11 +2607,40 @@ COURTYARD_JPEG_SHA256 = {
                     "5f6c5f87e434a12c39d9f41930f07946",
     "wood_normal": "cad015a94530e1508f0d79c4258d2250"
                    "afd9de115e7bd9d321a0478ad7a63a9d"}
+# SHA-256 of PIL's default JPEG 2000 save as .jp2 of the courtyard's 12
+# textures, the RGB normal maps kept RGB (tests/test_torch_formats_j2k_write.py
+# checks them against PIL); the port's save_image must write these bytes
+COURTYARD_JP2_WRITTEN_SHA256 = {
+    "ivy_albedo": "fbca8667ea17fb4ded8a5ca55a9c452a"
+                  "e9cb01cd3c776fdef1ab65a69cc0d08f",
+    "ivy_mr": "26cd573c60622f82fad3ca8b3ffecc25"
+              "75be7abce2c0653652d1880da7382806",
+    "ivy_normal": "6ee02b4f9fdb3e9a3f48c4be3e33621a"
+                  "3b3425f2d0a55b7b59beb91456f8cc13",
+    "metal_albedo": "8ef4fedc605eee3033e12c6afe42c9b1"
+                    "e693a620174220bd2512f60a12147c77",
+    "metal_mr": "4759a4448d5b8817af9d9d20b8e51f3f"
+                "31e3854f055618cb2a672dfdf7311df7",
+    "metal_normal": "c88780765032c7e55672c644bce4a24d"
+                    "b32bb3af2cad2a69acfe1472016d419a",
+    "stone_albedo": "ecdda843d1f52dafb361865c02bfb98c"
+                    "ef82c57ec00a9ad184fb3d5d5ff7daa3",
+    "stone_mr": "ff3cf9188469270222f989d9c16d2952"
+                "918b595bc54d2e03cb8c9c17935139bd",
+    "stone_normal": "13daeb6d2687b46c1362bbc78c0b1eae"
+                    "75499f96976030ceee345ca441ab6677",
+    "wood_albedo": "c0ff6f8262294be605f05c566ce8d5c0"
+                   "f7bc89543faa7bf20ef1f879e82553f2",
+    "wood_mr": "10157adcfead00e9a85600030458fc92"
+               "84c936461829e4240810c94af108e37d",
+    "wood_normal": "ca0858441e8fa2f68411f80d9c8d5038"
+                   "a057fcb404f2500519dee2a0d40931e7"}
 # the copies formats_phase renders: kind -> (texture files written, frames
 # and pool held bit-equal to the PNG courtyard's)
 FORMAT_COPIES = {"tga": (12, True), "tif": (12, True), "bmp_ppm": (4, True),
                  "qoi": (12, True), "sgi": (12, True), "jpg": (4, False),
-                 "im": (12, True), "jp2": (12, False)}
+                 "im": (12, True), "jp2": (12, False),
+                 "jp2_written": (12, True)}
 
 
 def format_fixtures() -> dict:
@@ -2685,7 +2728,7 @@ def icon_digest(data: bytes, decode) -> str:
 
 
 def format_writers(tmp: Path) -> dict:
-    """save_image's GIF, EPS, PS, PDF, MPO, ICO and ICNS writers on
+    """save_image's GIF, EPS, PS, PDF, MPO, ICO, ICNS and JPEG 2000 writers on
     writer_image's arrays (this machine has no PIL): each file's digest
     equal to PIL's save of the same array (WRITER_SHA256; PDFs written
     with time.gmtime frozen at WRITER_CLOCK), the modes PIL refuses raising
@@ -2729,18 +2772,19 @@ def format_writers(tmp: Path) -> dict:
     return found
 
 
-def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list]:
+def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list, dict]:
     """A .plain of the courtyard whose texture files are re-saved by the
-    port's save_image under tmp: kind "tga", "tif", "qoi", "sgi" or "im"
-    (all 12), "bmp_ppm" (the four RGB normal maps as two BMP and two PPM, the
-    RGBA maps left as PNG) or "jpg" (the four RGB maps as JPEG); kind
-    "jp2" copies the 12 committed JP2 files of tests/data/formats_j2k
-    (the port writes no JPEG 2000). The SDF volume paths stay as
-    committed."""
+    port's save_image under tmp: kind "tga", "tif", "qoi", "sgi", "im" or
+    "jp2_written" (all 12; the last as .jp2), "bmp_ppm" (the four RGB normal
+    maps as two BMP and two PPM, the RGBA maps left as PNG) or "jpg" (the
+    four RGB maps as JPEG); kind "jp2" copies the 12 committed JP2 files of
+    tests/data/formats_j2k (PIL's lossy saves). The SDF volume paths stay
+    as committed. Also each written file's save_image wall time in ms."""
     from plainrenderer_tpu_torch.assets import plain_format
 
     scene = plain_format.load_binary_scene(COURTYARD)
     written = []
+    save_ms = {}
     meshes = []
     for mesh in scene.meshes:
         paths = {}
@@ -2750,6 +2794,8 @@ def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list]:
                 suffix = NORMAL_MAPS_ALPHA_FREE.get(src.stem)
             elif kind == "jpg":
                 suffix = ".jpg" if src.stem in COURTYARD_JPEG_SHA256 else None
+            elif kind == "jp2_written":
+                suffix = ".jp2"
             else:
                 suffix = "." + kind
             if suffix is None:
@@ -2767,7 +2813,9 @@ def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list]:
                       f"{src.name} is opaque")
                 img = img[..., :3]
             dst = tmp / (src.stem + suffix)
+            t0 = time.perf_counter()
             image_io.save_image(dst, img)
+            save_ms[dst.name] = (time.perf_counter() - t0) * 1e3
             paths[slot] = str(dst)
             written.append(dst.name)
         meshes.append(dataclasses.replace(
@@ -2776,7 +2824,7 @@ def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list]:
     out = tmp / "courtyard.plain"
     plain_format.save_binary_scene(out, dataclasses.replace(scene,
                                                             meshes=meshes))
-    return out, written
+    return out, written, save_ms
 
 
 def format_frames(ctx, scene_path) -> dict:
@@ -2820,12 +2868,33 @@ def jp2_decodes(folder: Path, names) -> dict:
     return times
 
 
+def jp2_written(folder: Path, names, save_ms: dict) -> dict:
+    """The courtyard's textures as the port wrote them as JP2: each file's
+    SHA-256 equal to PIL's save of the same array
+    (COURTYARD_JP2_WRITTEN_SHA256), its host encode ms (save_image) and
+    decode ms (load_image) and its size."""
+    found = {}
+    for name in names:
+        data = (folder / name).read_bytes()
+        digest = hashlib.sha256(data).hexdigest()
+        check(digest == COURTYARD_JP2_WRITTEN_SHA256[Path(name).stem],
+              f"courtyard {name} written as PIL writes it ({digest})")
+        t0 = time.perf_counter()
+        image_io.load_image(folder / name)
+        found[name] = dict(bytes=len(data), encode_ms=save_ms[name],
+                           decode_ms=(time.perf_counter() - t0) * 1e3)
+    print("courtyard JP2 written equal to PIL's saves (host ms): "
+          + json.dumps(found), flush=True)
+    return found
+
+
 def formats_phase(ctx) -> dict:
     """The image readers and writers on the card's machine (no PIL): the
     committed fixtures (PIL's legacy formats, the TIFF codecs and JPEG
     modes, JPEG 2000, BC6H, BC7 and Radiance among them), the writers of
-    GIF, EPS / PS, PDF, MPO, ICO and ICNS against PIL's saves, then the
-    courtyard with its textures re-saved as TGA, TIFF, QOI, SGI and IM,
+    GIF, EPS / PS, PDF, MPO, ICO, ICNS and JPEG 2000 against PIL's saves,
+    then the courtyard with its textures re-saved as TGA, TIFF, QOI, SGI,
+    IM and JP2 (the JP2 files byte for byte PIL's saves: their digests),
     and with BMP / PPM normal maps, each loaded by
     the App and rendered (kernels A-L on the card) equal bit for bit,
     pool and frames, to the committed PNG courtyard's run; with its
@@ -2846,7 +2915,7 @@ def formats_phase(ctx) -> dict:
         for kind, (n_written, equal) in FORMAT_COPIES.items():
             sub = Path(tmp) / kind
             sub.mkdir()
-            plain, written = courtyard_copy(sub, kind)
+            plain, written, save_ms = courtyard_copy(sub, kind)
             check(len(written) == n_written,
                   f"courtyard as {kind}: textures written {written}")
             if kind == "jpg":
@@ -2857,6 +2926,8 @@ def formats_phase(ctx) -> dict:
                       f"({digests})")
             if kind == "jp2":
                 found["jp2_decode_ms"] = jp2_decodes(sub, written)
+            if kind == "jp2_written":
+                found["jp2_written"] = jp2_written(sub, written, save_ms)
             run = format_frames(ctx, plain)
             check(run["textures"] == 12,
                   f"courtyard as {kind}: all 12 texture slots load")

@@ -58,11 +58,13 @@ TIFF, PPM / PGM / PNM / PBM / PFM (P5 or P6, as PIL writes by mode), JPEG
 assets/jpeg_encode.py), QOI, SGI (.sgi, .rgb, .rgba, .bw), PCX, IM
 (assets/im.py), DDS (assets/dds.py), GIF (assets/gif.py over
 quantize.py and lzw.py), ICO and ICNS (assets/ico.py, icns.py over
-resample.py), EPS and PS (assets/eps.py) and PDF (assets/pdf.py, dated
-by time.gmtime() as PIL dates it); what PIL refuses to write (RGBA as
-JPEG, MPO, PCX, EPS or PS, grey as QOI), RGBA as PDF (PIL writes it as
-JPEG 2000, which the port does not encode) and any other suffix raise
-ValueError and write nothing.
+resample.py), EPS and PS (assets/eps.py), PDF (assets/pdf.py, dated by
+time.gmtime() as PIL dates it; RGBA as a JPEG 2000 image) and JPEG 2000
+(.jp2, .j2k, .jpc, .jpf, .jpx, .j2c; PIL's lossless default through
+assets/j2k_encode.py, a bare codestream where the file name ends in
+".j2k" as PIL tests it, case and all, JP2 boxes from assets/jp2.py
+otherwise); what PIL refuses to write (RGBA as JPEG, MPO, PCX, EPS or
+PS, grey as QOI) and any other suffix raise ValueError and write nothing.
 """
 
 from __future__ import annotations
@@ -74,9 +76,9 @@ from pathlib import Path
 
 import numpy as np
 
-from . import (blp, bmp, dds, eps, fli, gif, icns, ico, im, iptc, jp2,
-               jpeg, jpeg_encode, legacy, modes, pcd, pcx, pdf, pnm, psd, qoi,
-               sgi, spider_fits, tga, tiff, webp)
+from . import (blp, bmp, dds, eps, fli, gif, icns, ico, im, iptc,
+               j2k_encode, jp2, jpeg, jpeg_encode, legacy, modes, pcd, pcx,
+               pdf, pnm, psd, qoi, sgi, spider_fits, tga, tiff, webp)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel, and the bit depths the format allows
@@ -99,17 +101,17 @@ SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".bmp": "BMP", ".dib": "DIB",
                 ".qoi": "QOI", ".sgi": "SGI", ".rgb": "SGI", ".rgba": "SGI",
                 ".bw": "SGI", ".pcx": "PCX", ".im": "IM", ".dds": "DDS",
                 ".gif": "GIF", ".ico": "ICO", ".icns": "ICNS", ".eps": "EPS",
-                ".ps": "EPS", ".pdf": "PDF", ".mpo": "JPEG"}
+                ".ps": "EPS", ".pdf": "PDF", ".mpo": "JPEG",
+                ".jp2": "JPEG2000", ".j2k": "JPEG2000", ".jpc": "JPEG2000",
+                ".jpf": "JPEG2000", ".jpx": "JPEG2000", ".j2c": "JPEG2000"}
 # formats PIL writes under these suffixes and the port does not: codecs
-# the port lacks (WebP's encoders, JPEG 2000, AVIF), and formats PIL
-# refuses for L, RGB and RGBA too (BLP, MSP, XBM, PALM) or has no writer
-# for here (BUFR, GRIB, HDF5, WMF)
-_UNWRITTEN = {".webp": "WebP", ".jp2": "JPEG 2000",
-              ".j2k": "JPEG 2000", ".jpc": "JPEG 2000", ".jpf": "JPEG 2000",
-              ".jpx": "JPEG 2000", ".j2c": "JPEG 2000", ".avif": "AVIF",
-              ".avifs": "AVIF", ".blp": "BLP", ".msp": "MSP", ".xbm": "XBM",
-              ".palm": "PALM", ".bufr": "BUFR", ".grib": "GRIB",
-              ".h5": "HDF5", ".hdf": "HDF5", ".wmf": "WMF", ".emf": "WMF"}
+# the port lacks (WebP's encoders, AVIF), and formats PIL refuses for L,
+# RGB and RGBA too (BLP, MSP, XBM, PALM) or has no writer for here (BUFR,
+# GRIB, HDF5, WMF)
+_UNWRITTEN = {".webp": "WebP", ".avif": "AVIF", ".avifs": "AVIF",
+              ".blp": "BLP", ".msp": "MSP", ".xbm": "XBM", ".palm": "PALM",
+              ".bufr": "BUFR", ".grib": "GRIB", ".h5": "HDF5",
+              ".hdf": "HDF5", ".wmf": "WMF", ".emf": "WMF"}
 
 
 def load_image(path: str | Path) -> np.ndarray:
@@ -224,8 +226,8 @@ def save_image(path: str | Path, image: np.ndarray) -> None:
     PIL's own save of the array (RGBA as BMP reads back as RGB, as PPM is
     written as RGB, as PIL does), and every format but PNG, TIFF, ICO and
     ICNS (whose PNG entries use Python's zlib) is byte for byte PIL's.
-    What PIL refuses to write, RGBA as PDF and any other suffix raise
-    ValueError and write no file."""
+    What PIL refuses to write and any other suffix raise ValueError and
+    write no file."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix not in SAVE_FORMATS:
@@ -249,7 +251,9 @@ def save_image(path: str | Path, image: np.ndarray) -> None:
               "ICO": lambda a: ico.encode_ico(a, encode_png),
               "ICNS": lambda a: icns.encode_icns(a, encode_png),
               "EPS": eps.encode_eps,
-              "PDF": lambda a: pdf.encode_pdf(a, path.stem)}
+              "PDF": lambda a: pdf.encode_pdf(a, path.stem),
+              "JPEG2000": (j2k_encode.encode_j2k if path.name.endswith(".j2k")
+                           else jp2.encode_jp2)}
     path.write_bytes(encode[SAVE_FORMATS[suffix]](img))
 
 

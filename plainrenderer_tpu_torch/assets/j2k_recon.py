@@ -41,7 +41,7 @@ LIFT = (np.float32(-0.443506852), np.float32(-0.882911075),
 _MIRROR: dict = {}
 
 
-def _layout(n: int, cas: int):
+def line_layout(n: int, cas: int):
     """Positions of the lows and highs of an n-sample line, and each
     position's mirrored left and right neighbours."""
     key = (n, cas)
@@ -67,7 +67,7 @@ def _idwt53(x: np.ndarray, sn: int, cas: int) -> np.ndarray:
             v = x.astype(np.int64)
             return (np.sign(v) * (np.abs(v) // 2)).astype(np.int32)
         return x
-    low, high, ll, lr, hl, hr = _layout(n, cas)
+    low, high, ll, lr, hl, hr = line_layout(n, cas)
     out = np.empty_like(x)
     out[..., low] = x[..., :sn]
     out[..., high] = x[..., sn:]
@@ -81,7 +81,7 @@ def _idwt97(x: np.ndarray, sn: int, cas: int) -> np.ndarray:
     n = x.shape[-1]
     if n == 1:
         return x
-    low, high, ll, lr, hl, hr = _layout(n, cas)
+    low, high, ll, lr, hl, hr = line_layout(n, cas)
     out = np.empty_like(x)
     out[..., low] = x[..., :sn] * K
     out[..., high] = x[..., sn:] * TWO_INVK
@@ -108,6 +108,15 @@ def _inverse_dwt(data: np.ndarray, tc, numres: int, irreversible: bool):
             data[:rh, :rw] = inv(data[:rh, :rw].T, sh, r.y0 % 2).T
 
 
+def band_origin(tc, resno: int, b) -> tuple[int, int]:
+    """Where sub-band ``b`` of resolution ``resno`` starts in the
+    tile-component's plane, whose resolutions hold their lows first and
+    their highs after them along each axis."""
+    p = tc.res[resno - 1] if resno else None
+    return (p.x1 - p.x0 if b.bandno & 1 else 0,
+            p.y1 - p.y0 if b.bandno & 2 else 0)
+
+
 def _cblk_segments(cb):
     data = b"".join(cb.chunks)
     out = []
@@ -131,13 +140,7 @@ def decode_tile(cs, tileno: int, tcp, data: bytes, ppm_state):
         plane = np.zeros((h, w), np.float32 if irrev else np.int32)
         for resno, r in enumerate(tc.res):
             for b in r.bands:
-                xoff = yoff = 0
-                if b.bandno & 1:
-                    p = tc.res[resno - 1]
-                    xoff = p.x1 - p.x0
-                if b.bandno & 2:
-                    p = tc.res[resno - 1]
-                    yoff = p.y1 - p.y0
+                xoff, yoff = band_origin(tc, resno, b)
                 for pr in b.precincts:
                     for cb in pr.cblks:
                         cw, chh = cb.x1 - cb.x0, cb.y1 - cb.y0

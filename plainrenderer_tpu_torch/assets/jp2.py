@@ -34,7 +34,16 @@ What PIL does, and so what this module does:
 
 A tile that does not fit the image PIL allocated, a component count that
 differs from the mode's, or anything OpenJPEG refuses raises ValueError,
-where PIL raises OSError."""
+where PIL raises OSError.
+
+``encode_jp2`` writes what PIL's default JPEG 2000 save writes under any
+suffix but .j2k: the codestream of j2k_encode in OpenJPEG's JP2 boxes
+(jp2.c): the signature, ``ftyp`` (brand ``jp2 ``, minor version 0, one
+compatible brand ``jp2 ``), ``jp2h`` holding ``ihdr`` (8-bit unsigned
+components, compression type 7, no unknown colour space, no IPR) and
+``colr`` (method 1, enumerated sRGB for RGB and RGBA, greyscale for L),
+with ``cdef`` for RGBA (the three colours, then channel 3 as the opacity
+of the whole image), then ``jp2c``."""
 
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ import numpy as np
 
 from . import modes
 from .j2k_codestream import Codestream, J2kError
+from .j2k_encode import encode_j2k
 from .j2k_recon import decode_tile
 
 J2K_MAGIC = b"\xff\x4f\xff\x51"
@@ -305,6 +315,26 @@ def _opj_jp2h(body: bytes, ihdr, colour, has_colr):
     if not seen_ihdr:
         raise J2kError("no 'ihdr' box")
     return ihdr, colour, has_colr
+
+
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body) + 8) + kind + body
+
+
+def encode_jp2(image: np.ndarray) -> bytes:
+    """(H, W) or (H, W, 3|4) uint8 -> a JP2 file, as PIL writes it."""
+    img = np.asarray(image)
+    h, w = img.shape[:2]
+    nc = 1 if img.ndim == 2 else img.shape[2]
+    header = _box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, 7, 7, 0, 0))
+    header += _box(b"colr", struct.pack(">BBBI", 1, 0, 0, 17 if nc == 1
+                                        else 16))
+    if nc == 4:
+        header += _box(b"cdef", struct.pack(">H", 4) + b"".join(
+            struct.pack(">HHH", c, 1 if c == 3 else 0, 0 if c == 3 else c + 1)
+            for c in range(4)))
+    return (JP2_MAGIC + _box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + _box(b"jp2h", header) + _box(b"jp2c", encode_j2k(img)))
 
 
 def read_jpeg2000(data: bytes, where: str = "<jpeg2000>") -> np.ndarray:

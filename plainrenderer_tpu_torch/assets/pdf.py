@@ -2,12 +2,13 @@
 one image with its default arguments, through PdfParser's writer: the
 header and comment, the catalog (object 4) and page tree (5), the image
 XObject (1) with PIL's default JPEG of the image as its DCTDecode stream
-(assets/jpeg_encode.py; DeviceGray for grey, DeviceRGB for RGB), the page
-(2) at 72 dpi and its content stream (3), the info dictionary (6: the
-title, which is the file name without its suffix, then the creation and
-modification dates from ``time.gmtime()`` at the call), the xref table
-and the trailer. RGBA, which PIL writes as JPEG 2000 (JPXDecode), is
-refused: the port has no JPEG 2000 encoder.
+(assets/jpeg_encode.py; DeviceGray for grey, DeviceRGB for RGB), or for
+RGBA PIL's default JPEG 2000 save as a JP2 file (assets/jp2.py) in a
+JPXDecode stream with ``/SMaskInData 1`` (the alpha is in the data) and
+no colour space or bit depth, the page (2) at 72 dpi and its content
+stream (3), the info dictionary (6: the title, which is the file name
+without its suffix, then the creation and modification dates from
+``time.gmtime()`` at the call), the xref table and the trailer.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import time
 
 import numpy as np
 
-from . import jpeg_encode
+from . import jp2, jpeg_encode
 
 
 def _string(value: bytes) -> bytes:
@@ -37,15 +38,18 @@ def _dict(items: list[tuple[bytes, bytes]]) -> bytes:
 
 
 def encode_pdf(image: np.ndarray, title: str = "") -> bytes:
-    """(H, W) or (H, W, 3) u8 -> PDF bytes; `title` is the file name's
+    """(H, W) or (H, W, 3|4) u8 -> PDF bytes; `title` is the file name's
     stem (PIL's Title entry, left out where empty)."""
     img = np.asarray(image)
-    if img.ndim == 3 and img.shape[2] != 3:
-        raise ValueError("PDF: PIL writes RGBA as JPEG 2000 (JPXDecode), "
-                         "which the port does not encode")
     h, w = img.shape[:2]
     grey = img.ndim == 2
-    jpeg = jpeg_encode.encode_jpeg(img)
+    if img.ndim == 3 and img.shape[2] == 4:
+        stream = jp2.encode_jp2(img)
+        kind = [(b"Filter", b"/JPXDecode"), (b"SMaskInData", b"1")]
+    else:
+        stream = jpeg_encode.encode_jpeg(img)
+        kind = [(b"Filter", b"/DCTDecode"), (b"BitsPerComponent", b"8"),
+                (b"ColorSpace", b"/DeviceGray" if grey else b"/DeviceRGB")]
     created, modified = time.gmtime(), time.gmtime()
     out = bytearray(b"%PDF-1.4\n% created by Pillow PDF driver\n")
     offsets = {}
@@ -61,11 +65,8 @@ def encode_pdf(image: np.ndarray, title: str = "") -> bytes:
     obj(5, _dict([(b"Type", b"/Pages"), (b"Count", b"1"),
                   (b"Kids", b"[ 2 0 R ]")]))
     obj(1, _dict([(b"Type", b"/XObject"), (b"Subtype", b"/Image"),
-                  (b"Width", b"%d" % w), (b"Height", b"%d" % h),
-                  (b"Filter", b"/DCTDecode"), (b"BitsPerComponent", b"8"),
-                  (b"ColorSpace",
-                   b"/DeviceGray" if grey else b"/DeviceRGB"),
-                  (b"Length", b"%d" % len(jpeg))]), jpeg)
+                  (b"Width", b"%d" % w), (b"Height", b"%d" % h)] + kind
+                 + [(b"Length", b"%d" % len(stream))]), stream)
     resources = _dict([
         (b"ProcSet", b"[ /PDF /ImageB ]" if grey else b"[ /PDF /ImageC ]"),
         (b"XObject", _dict([(b"image", b"1 0 R")]))])

@@ -808,13 +808,15 @@ def test_jpeg2000_texture_loads_match_jax(tmp_path):
 
 
 def test_save_image_still_refuses_jpeg2000(tmp_path):
-    """JPEG 2000 is read, not written (PIL's lossless 5/3 save is a later
-    item): save_image names it and writes nothing."""
+    """save_image writes JPEG 2000 from (H, W) and (H, W, 3|4) uint8
+    (tests/test_torch_formats_j2k_write.py); under every JPEG 2000 suffix
+    it still refuses the arrays it does not take (two channels, 16-bit),
+    which PIL would write as LA or I;16, and writes nothing."""
     for suffix in (".jp2", ".j2k", ".jpc", ".jpf", ".jpx", ".j2c"):
-        with pytest.raises(ValueError, match="does not write JPEG 2000"):
-            tio.save_image(tmp_path / f"a{suffix}", np.zeros((4, 4, 3),
-                                                             np.uint8))
-        assert not (tmp_path / f"a{suffix}").exists()
+        for a in (np.zeros((4, 4, 2), np.uint8), np.zeros((4, 4), np.uint16)):
+            with pytest.raises(ValueError, match="uint8"):
+                tio.save_image(tmp_path / f"a{suffix}", a)
+            assert not (tmp_path / f"a{suffix}").exists()
 
 
 # ------------------------------ fixtures ------------------------------

@@ -757,9 +757,10 @@ def test_other_formats_still_name_themselves(tmp_path):
     and ICNS, which this test named until slice 18, are read now, and so
     is JPEG 2000 (.jp2, .j2k: PIL's decode, bit for bit), which it named
     until slice 20; GIF, ICO, ICNS, EPS / PS, PDF and MPO are written
-    since slice 21 (tests/test_torch_formats_writers.py); the writers PIL
-    runs for the suffixes left need codecs the port lacks or refuse L, RGB
-    and RGBA themselves."""
+    since slice 21 (tests/test_torch_formats_writers.py), and JPEG 2000
+    since slice 22 (tests/test_torch_formats_j2k_write.py); the writers PIL
+    runs for the suffixes left need codecs the port lacks, refuse L, RGB
+    and RGBA themselves or have no handler here (BUFR, WMF)."""
     rgb = np.zeros((4, 4, 3), np.uint8)
     for name, fmt in (("a.jp2", None), ("a.j2k", None), ("a.avif", "AVIF")):
         Image.fromarray(rgb).save(tmp_path / name)
@@ -770,8 +771,8 @@ def test_other_formats_still_name_themselves(tmp_path):
             continue
         with pytest.raises(ValueError, match=fmt):
             tio.load_image(tmp_path / name)
-    for suffix, fmt in ((".webp", "WebP"), (".jp2", "JPEG 2000"),
-                        (".j2k", "JPEG 2000"), (".avif", "AVIF"),
+    for suffix, fmt in ((".webp", "WebP"), (".bufr", "BUFR"),
+                        (".wmf", "WMF"), (".avif", "AVIF"),
                         (".blp", "BLP"), (".msp", "MSP"), (".xbm", "XBM"),
                         (".palm", "PALM")):
         with pytest.raises(ValueError, match=f"does not write {fmt}"):

@@ -8,10 +8,10 @@ JAX package's save_image uses:
   - the quantisers equal ``convert("P", palette=ADAPTIVE)``, palette and
     indices: median cut for RGB (one image with more than 65536 colours,
     where PIL's hash table coarsens), fast octree for RGBA;
-  - GIF, EPS, PS, PDF (with ``time.gmtime`` frozen on both sides) and MPO
-    byte for byte PIL's save, for 1 x 1 and 9 x 13 L / RGB / RGBA and an
-    image wider than 256 pixels; what PIL refuses (and PDF's RGBA, which
-    PIL writes as JPEG 2000) raises ValueError and writes no file;
+  - GIF, EPS, PS, PDF (with ``time.gmtime`` frozen on both sides; RGBA
+    as PIL's JPEG 2000 image) and MPO byte for byte PIL's save, for 1 x 1
+    and 9 x 13 L / RGB / RGBA and an image wider than 256 pixels; what PIL
+    refuses raises ValueError and writes no file;
   - ICO and ICNS entry for entry: the same directory fields, and each
     embedded PNG decoded equal to PIL's (the PNG bytes differ: the port
     deflates with Python's zlib);
@@ -162,8 +162,7 @@ def test_save_image_byte_for_byte(tmp_path, monkeypatch, suffix, shape):
     want = _pil_save(tmp_path / f"pil{suffix}", a)
     ours = tmp_path / f"pil_{suffix[1:]}" / f"pil{suffix}"  # same stem
     ours.parent.mkdir()
-    if isinstance(want, Exception) or (suffix == ".pdf" and a.ndim == 3
-                                       and a.shape[2] == 4):
+    if isinstance(want, Exception):
         with pytest.raises(ValueError, match="RGBA|mode"):
             tio.save_image(ours, a)
         assert not ours.exists()
@@ -172,15 +171,17 @@ def test_save_image_byte_for_byte(tmp_path, monkeypatch, suffix, shape):
     assert ours.read_bytes() == want
 
 
-def test_pdf_rgba_names_jpeg_2000(tmp_path):
-    """PIL writes RGBA as JPEG 2000 (JPXDecode); the port refuses it by
-    name until it has a JPEG 2000 encoder."""
+def test_pdf_rgba_names_jpeg_2000(tmp_path, monkeypatch):
+    """PIL writes RGBA as JPEG 2000 (JPXDecode); so does the port, byte
+    for byte at a frozen clock."""
+    monkeypatch.setattr(time, "gmtime", lambda *a: CLOCK)
     a = _image((9, 13, 4), 1)
     Image.fromarray(a).save(tmp_path / "pil.pdf")
-    assert b"/JPXDecode" in (tmp_path / "pil.pdf").read_bytes()
-    with pytest.raises(ValueError, match="JPEG 2000"):
-        tio.save_image(tmp_path / "port.pdf", a)
-    assert not (tmp_path / "port.pdf").exists()
+    want = (tmp_path / "pil.pdf").read_bytes()
+    assert b"/JPXDecode" in want
+    (tmp_path / "port").mkdir()
+    tio.save_image(tmp_path / "port" / "pil.pdf", a)
+    assert (tmp_path / "port" / "pil.pdf").read_bytes() == want
 
 
 def _pil_rgba(png: bytes) -> np.ndarray:
@@ -251,9 +252,9 @@ def test_icns_entries_equal_pil(tmp_path, shape):
 
 def test_refused_modes_write_nothing(tmp_path):
     rgba = _image((9, 13, 4), 2)
-    for suffix in (".eps", ".ps", ".pdf", ".mpo"):
+    for suffix in (".eps", ".ps", ".pcx", ".mpo"):
         assert isinstance(_pil_save(tmp_path / f"pil{suffix}", rgba),
-                          Exception) == (suffix != ".pdf")
+                          Exception)
         with pytest.raises(ValueError):
             tio.save_image(tmp_path / f"port{suffix}", rgba)
         assert not (tmp_path / f"port{suffix}").exists()
@@ -288,8 +289,7 @@ def pil_writer_digests() -> dict:
 
 def test_chip_smoke_writer_digests_are_pils(tmp_path):
     """chip_smoke.WRITER_SHA256, which the card's machine holds save_image
-    to, is PIL's; the refused modes are the ones PIL refuses (and PDF's
-    RGBA, written by PIL as JPEG 2000)."""
+    to, is PIL's; the refused modes are the ones PIL refuses."""
     import chip_smoke
 
     assert chip_smoke.WRITER_SHA256 == pil_writer_digests()
@@ -298,4 +298,4 @@ def test_chip_smoke_writer_digests_are_pils(tmp_path):
             img = chip_smoke.writer_image(suffix, mode)
             refused = isinstance(_pil_save(tmp_path / f"a{suffix}", img),
                                  Exception)
-            assert refused == (suffix != ".pdf"), (suffix, mode)
+            assert refused, (suffix, mode)
