@@ -2538,7 +2538,8 @@ BPTC_FORMAT_NAMES = ("bc6h_sf16.bin", "bc6h_uf16.tex", "bc7.tex",
 # file's SHA-256, and for ICO and ICNS icon_digest
 WRITER_SIZES = {".gif": (96, 128), ".eps": (40, 56), ".ps": (40, 56),
                 ".pdf": (64, 80), ".mpo": (64, 80), ".ico": (300, 260),
-                ".icns": (48, 48), ".jp2": (96, 128), ".j2k": (96, 128)}
+                ".icns": (48, 48), ".jp2": (96, 128), ".j2k": (96, 128),
+                ".webp": (96, 128)}
 WRITER_REFUSED = {".eps": ("RGBA",), ".ps": ("RGBA",), ".mpo": ("RGBA",)}
 WRITER_CLOCK = 1_700_000_000
 WRITER_SHA256 = {
@@ -2589,7 +2590,13 @@ WRITER_SHA256 = {
     ".j2k RGB": "00d06361a6bc7dd9b1aceedec3e52e13"
         "70fd0990edd21a97154202653a0cddb1",
     ".j2k RGBA": "6416f94736bbb19558d80e15a84f4e5e"
-        "2fa4ee1a676f1d99ae51ba7eb94fa279"}
+        "2fa4ee1a676f1d99ae51ba7eb94fa279",
+    ".webp L": "87d7bc8d324313c616472134ea041e87"
+        "ba833bd0cec1b069f0c1fafa99d14729",
+    ".webp RGB": "be5572249d61afa549f46f1d1dbd8391"
+        "8f1ceeac3a56a399790d9cad33efedbf",
+    ".webp RGBA": "cce13450f985d080b159a955b3a77b03"
+        "2fe43ca518d6dc2a33e442bafbc73e9a"}
 FORMAT_FRAMES = 3
 # the courtyard's copies: a texture slot's file -> the suffix it is saved
 # with (None: the committed PNG stays)
@@ -2635,12 +2642,41 @@ COURTYARD_JP2_WRITTEN_SHA256 = {
                "84c936461829e4240810c94af108e37d",
     "wood_normal": "ca0858441e8fa2f68411f80d9c8d5038"
                    "a057fcb404f2500519dee2a0d40931e7"}
+# SHA-256 of PIL's default (lossy) WebP save of the courtyard's 12
+# textures, the RGB normal maps kept RGB
+# (tests/test_torch_formats_webp_write.py checks them against PIL); the
+# port's save_image must write these bytes
+COURTYARD_WEBP_WRITTEN_SHA256 = {
+    "ivy_albedo": "f4e6d6e190baaa6f387ed829caab2e2a"
+                  "e68c98829185d751c7c19819078b97c8",
+    "ivy_mr": "49ebc845f1b780bf8afd95c325c6db03"
+              "c99b73ee3acea8c1c2a076d8b9e3b14e",
+    "ivy_normal": "ba1d8d1a68b14cc9dbf5403906fdd9f2"
+                  "694abc465c1f45fefed3eccb1944dcb3",
+    "metal_albedo": "957bee5f067931ca993ddbc4429daa8e"
+                    "690d37598e4572ecd4587bd6d3d6faec",
+    "metal_mr": "008c9fc34cf721a8f31906fc5733bc06"
+                "7bd3dc44d25f3741c771c897283464c4",
+    "metal_normal": "a4fdcb36a14138afe431d610be34f3e4"
+                    "155f0cd27670939eb6e495c53df7bfa1",
+    "stone_albedo": "7de5dddb8cf6b07de2b4862bee38c0d1"
+                    "fed2046b8311fd7b75de83bfce74d7cf",
+    "stone_mr": "1a0af4a95b5741403f817045d961e19a"
+                "5d84ae52f23a5956576c8d6f7a732298",
+    "stone_normal": "fb9e3efd070bf8b9e219e4820510adcc"
+                    "b9241daee06e077e4561fb5d7f569528",
+    "wood_albedo": "392e8aa3ec1e04ba9f26e8eef53a76f0"
+                   "9938cd4eba09d406d5a3090643f4c594",
+    "wood_mr": "853de402122c72f8c65fc16691c31d1d"
+               "05b3e7bd20b84a35db09f5a62e7744af",
+    "wood_normal": "4e9e260a73819706dc47d5a7236cf35d"
+                   "3c92a125c609d08faf42d902137bb90c"}
 # the copies formats_phase renders: kind -> (texture files written, frames
 # and pool held bit-equal to the PNG courtyard's)
 FORMAT_COPIES = {"tga": (12, True), "tif": (12, True), "bmp_ppm": (4, True),
                  "qoi": (12, True), "sgi": (12, True), "jpg": (4, False),
                  "im": (12, True), "jp2": (12, False),
-                 "jp2_written": (12, True)}
+                 "jp2_written": (12, True), "webp_written": (12, False)}
 
 
 def format_fixtures() -> dict:
@@ -2774,8 +2810,9 @@ def format_writers(tmp: Path) -> dict:
 
 def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list, dict]:
     """A .plain of the courtyard whose texture files are re-saved by the
-    port's save_image under tmp: kind "tga", "tif", "qoi", "sgi", "im" or
-    "jp2_written" (all 12; the last as .jp2), "bmp_ppm" (the four RGB normal
+    port's save_image under tmp: kind "tga", "tif", "qoi", "sgi", "im",
+    "jp2_written" or "webp_written" (all 12; the last two as .jp2 and
+    .webp), "bmp_ppm" (the four RGB normal
     maps as two BMP and two PPM, the RGBA maps left as PNG) or "jpg" (the
     four RGB maps as JPEG); kind "jp2" copies the 12 committed JP2 files of
     tests/data/formats_j2k (PIL's lossy saves). The SDF volume paths stay
@@ -2794,8 +2831,8 @@ def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list, dict]:
                 suffix = NORMAL_MAPS_ALPHA_FREE.get(src.stem)
             elif kind == "jpg":
                 suffix = ".jpg" if src.stem in COURTYARD_JPEG_SHA256 else None
-            elif kind == "jp2_written":
-                suffix = ".jp2"
+            elif kind in ("jp2_written", "webp_written"):
+                suffix = "." + kind.split("_")[0]
             else:
                 suffix = "." + kind
             if suffix is None:
@@ -2868,22 +2905,23 @@ def jp2_decodes(folder: Path, names) -> dict:
     return times
 
 
-def jp2_written(folder: Path, names, save_ms: dict) -> dict:
-    """The courtyard's textures as the port wrote them as JP2: each file's
-    SHA-256 equal to PIL's save of the same array
-    (COURTYARD_JP2_WRITTEN_SHA256), its host encode ms (save_image) and
-    decode ms (load_image) and its size."""
+def courtyard_written(folder: Path, names, save_ms: dict, digests: dict,
+                      what: str) -> dict:
+    """The courtyard's textures as the port wrote them (as JP2 or WebP):
+    each file's SHA-256 equal to PIL's save of the same array (digests),
+    its host encode ms (save_image) and decode ms (load_image) and its
+    size."""
     found = {}
     for name in names:
         data = (folder / name).read_bytes()
         digest = hashlib.sha256(data).hexdigest()
-        check(digest == COURTYARD_JP2_WRITTEN_SHA256[Path(name).stem],
+        check(digest == digests[Path(name).stem],
               f"courtyard {name} written as PIL writes it ({digest})")
         t0 = time.perf_counter()
         image_io.load_image(folder / name)
         found[name] = dict(bytes=len(data), encode_ms=save_ms[name],
                            decode_ms=(time.perf_counter() - t0) * 1e3)
-    print("courtyard JP2 written equal to PIL's saves (host ms): "
+    print(f"courtyard {what} written equal to PIL's saves (host ms): "
           + json.dumps(found), flush=True)
     return found
 
@@ -2892,16 +2930,17 @@ def formats_phase(ctx) -> dict:
     """The image readers and writers on the card's machine (no PIL): the
     committed fixtures (PIL's legacy formats, the TIFF codecs and JPEG
     modes, JPEG 2000, BC6H, BC7 and Radiance among them), the writers of
-    GIF, EPS / PS, PDF, MPO, ICO, ICNS and JPEG 2000 against PIL's saves,
-    then the courtyard with its textures re-saved as TGA, TIFF, QOI, SGI,
-    IM and JP2 (the JP2 files byte for byte PIL's saves: their digests),
-    and with BMP / PPM normal maps, each loaded by
+    GIF, EPS / PS, PDF, MPO, ICO, ICNS, JPEG 2000 and WebP against PIL's
+    saves, then the courtyard with its textures re-saved as TGA, TIFF,
+    QOI, SGI, IM and JP2 (the JP2 files byte for byte PIL's saves: their
+    digests), and with BMP / PPM normal maps, each loaded by
     the App and rendered (kernels A-L on the card) equal bit for bit,
     pool and frames, to the committed PNG courtyard's run; with its
     four RGB maps written as JPEG, byte for byte PIL's (their digests),
-    and with all 12 textures as the committed JP2 files, each decoded to
-    PIL's RGBA (their digests), both loaded with all 12 slots and rendered
-    to frames that are neither black nor white."""
+    with all 12 textures as the committed JP2 files, each decoded to
+    PIL's RGBA (their digests), and with all 12 written as WebP (lossy),
+    byte for byte PIL's saves (their digests), each loaded with all 12
+    slots and rendered to frames that are neither black nor white."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -2927,7 +2966,13 @@ def formats_phase(ctx) -> dict:
             if kind == "jp2":
                 found["jp2_decode_ms"] = jp2_decodes(sub, written)
             if kind == "jp2_written":
-                found["jp2_written"] = jp2_written(sub, written, save_ms)
+                found[kind] = courtyard_written(
+                    sub, written, save_ms, COURTYARD_JP2_WRITTEN_SHA256,
+                    "JP2")
+            if kind == "webp_written":
+                found[kind] = courtyard_written(
+                    sub, written, save_ms, COURTYARD_WEBP_WRITTEN_SHA256,
+                    "WebP")
             run = format_frames(ctx, plain)
             check(run["textures"] == 12,
                   f"courtyard as {kind}: all 12 texture slots load")
@@ -2958,7 +3003,8 @@ def formats_phase(ctx) -> dict:
     print(f"courtyard scene load at {WIDTH}x{HEIGHT} (s, App() with the "
           f"texture decodes): {json.dumps(loads)}; {FORMAT_FRAMES} frames "
           f"each, equal to the PNG courtyard's with equal texture pools "
-          f"except jpg and jp2 (lossy; their digests equal PIL's); phase "
+          f"except jpg, jp2 and webp_written (lossy; their digests equal "
+          f"PIL's); phase "
           f"{found['phase_s']:.1f} s", flush=True)
     return found
 

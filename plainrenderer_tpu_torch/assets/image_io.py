@@ -63,8 +63,10 @@ time.gmtime() as PIL dates it; RGBA as a JPEG 2000 image) and JPEG 2000
 (.jp2, .j2k, .jpc, .jpf, .jpx, .j2c; PIL's lossless default through
 assets/j2k_encode.py, a bare codestream where the file name ends in
 ".j2k" as PIL tests it, case and all, JP2 boxes from assets/jp2.py
-otherwise); what PIL refuses to write (RGBA as JPEG, MPO, PCX, EPS or
-PS, grey as QOI) and any other suffix raise ValueError and write nothing.
+otherwise) and WebP (.webp; PIL's lossy default through
+assets/webp_encode.py); what PIL refuses to write (RGBA as JPEG, MPO,
+PCX, EPS or PS, grey as QOI, a WebP side above 16383) and any other
+suffix raise ValueError and write nothing.
 """
 
 from __future__ import annotations
@@ -78,7 +80,8 @@ import numpy as np
 
 from . import (blp, bmp, dds, eps, fli, gif, icns, ico, im, iptc,
                j2k_encode, jp2, jpeg, jpeg_encode, legacy, modes, pcd, pcx,
-               pdf, pnm, psd, qoi, sgi, spider_fits, tga, tiff, webp)
+               pdf, pnm, psd, qoi, sgi, spider_fits, tga, tiff, webp,
+               webp_encode)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel, and the bit depths the format allows
@@ -103,12 +106,12 @@ SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".bmp": "BMP", ".dib": "DIB",
                 ".gif": "GIF", ".ico": "ICO", ".icns": "ICNS", ".eps": "EPS",
                 ".ps": "EPS", ".pdf": "PDF", ".mpo": "JPEG",
                 ".jp2": "JPEG2000", ".j2k": "JPEG2000", ".jpc": "JPEG2000",
-                ".jpf": "JPEG2000", ".jpx": "JPEG2000", ".j2c": "JPEG2000"}
-# formats PIL writes under these suffixes and the port does not: codecs
-# the port lacks (WebP's encoders, AVIF), and formats PIL refuses for L,
-# RGB and RGBA too (BLP, MSP, XBM, PALM) or has no writer for here (BUFR,
-# GRIB, HDF5, WMF)
-_UNWRITTEN = {".webp": "WebP", ".avif": "AVIF", ".avifs": "AVIF",
+                ".jpf": "JPEG2000", ".jpx": "JPEG2000", ".j2c": "JPEG2000",
+                ".webp": "WEBP"}
+# formats PIL writes under these suffixes and the port does not: the codec
+# the port lacks (AVIF), and formats PIL refuses for L, RGB and RGBA too
+# (BLP, MSP, XBM, PALM) or has no writer for here (BUFR, GRIB, HDF5, WMF)
+_UNWRITTEN = {".avif": "AVIF", ".avifs": "AVIF",
               ".blp": "BLP", ".msp": "MSP", ".xbm": "XBM", ".palm": "PALM",
               ".bufr": "BUFR", ".grib": "GRIB", ".h5": "HDF5",
               ".hdf": "HDF5", ".wmf": "WMF", ".emf": "WMF"}
@@ -253,7 +256,8 @@ def save_image(path: str | Path, image: np.ndarray) -> None:
               "EPS": eps.encode_eps,
               "PDF": lambda a: pdf.encode_pdf(a, path.stem),
               "JPEG2000": (j2k_encode.encode_j2k if path.name.endswith(".j2k")
-                           else jp2.encode_jp2)}
+                           else jp2.encode_jp2),
+              "WEBP": webp_encode.encode_webp}
     path.write_bytes(encode[SAVE_FORMATS[suffix]](img))
 
 

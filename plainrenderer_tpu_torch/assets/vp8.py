@@ -229,29 +229,32 @@ def _i16(x):
     return ((np.asarray(x, np.int64) + 32768) & 0xFFFF) - 32768
 
 
-def _mul1(a):
-    return ((a * 20091) >> 16) + a
+# the rows x0 x1 x2 x3, MUL1(x0..3), MUL2(x0..3) -> TransformOne's four
+# outputs of a pass (a = x0 + x2, b = x0 - x2, c = MUL2(x1) - MUL1(x3),
+# d = MUL1(x1) + MUL2(x3); out = a + d, b + c, b - c, a - d)
+_IDCT_PASS = np.array([[1, 0, 1, 0, 0, 1, 0, 0, 0, 0, 0, 1],
+                       [1, 0, -1, 0, 0, 0, 0, -1, 0, 1, 0, 0],
+                       [1, 0, -1, 0, 0, 0, 0, 1, 0, -1, 0, 0],
+                       [1, 0, 1, 0, 0, -1, 0, 0, 0, 0, 0, -1]], np.int64)
 
 
-def _mul2(a):
-    return (a * 35468) >> 16
+def _mul12(x):
+    """MUL1 and MUL2 of TransformOne."""
+    return ((x * 20091) >> 16) + x, (x * 35468) >> 16
 
 
-def _idct_residual(c):
-    """(N, 16) int16 coefficients -> (N, 4, 4) residual (v >> 3) of
-    TransformOne_C (the DC and AC3 shortcuts give the same values)."""
-    c = c.astype(np.int64).reshape(-1, 4, 4)  # [row][col] of coefficients
-    i0, i4, i8, i12 = c[:, 0], c[:, 1], c[:, 2], c[:, 3]  # rows, by column
-    a, b = i0 + i8, i0 - i8
-    cc = _mul2(i4) - _mul1(i12)
-    d = _mul1(i4) + _mul2(i12)
-    tmp = np.stack([a + d, b + cc, b - cc, a - d], axis=1)  # [k][col]
-    dc = tmp[:, :, 0] + 4
-    a, b = dc + tmp[:, :, 2], dc - tmp[:, :, 2]
-    cc = _mul2(tmp[:, :, 1]) - _mul1(tmp[:, :, 3])
-    d = _mul1(tmp[:, :, 1]) + _mul2(tmp[:, :, 3])
-    out = np.stack([a + d, b + cc, b - cc, a - d], axis=2)  # [row][x]
-    return out >> 3
+def idct_residual(c):
+    """(..., 16) coefficients -> (..., 4, 4) residual (v >> 3) of
+    TransformOne_C (the DC and AC3 shortcuts give the same values): each
+    pass a product of the rows and their MUL1 / MUL2 images."""
+    x = np.asarray(c, np.int64).reshape(c.shape[:-1] + (4, 4))
+    m1, m2 = _mul12(x)
+    tmp = _IDCT_PASS @ np.concatenate([x, m1, m2], -2)  # [k][col]
+    tmp[..., 0] += 4
+    t = np.swapaxes(tmp, -1, -2)  # [col][k]
+    m1, m2 = _mul12(t)
+    out = _IDCT_PASS @ np.concatenate([t, m1, m2], -2)  # [x][k]
+    return np.swapaxes(out, -1, -2) >> 3
 
 
 def _wht(dc):
@@ -634,7 +637,7 @@ def _reconstruct(hd, mbs, coefs):
     Y = np.zeros((16 * mbh, 16 * mbw), np.int64)
     U = np.zeros((8 * mbh, 8 * mbw), np.int64)
     V = np.zeros((8 * mbh, 8 * mbw), np.int64)
-    res = _idct_residual(np.concatenate(coefs).reshape(-1, 16)).reshape(
+    res = idct_residual(np.concatenate(coefs).reshape(-1, 16)).reshape(
         mbh, mbw, 24, 4, 4)
     for my in range(mbh):
         for mx in range(mbw):

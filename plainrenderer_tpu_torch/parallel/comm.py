@@ -124,8 +124,15 @@ def pick_backend(n_ranks: int, device_type: str) -> str:
 def _rank_main(rank, n_ranks, backend, device_type, run_dir, pg_timeout,
                fn, args):
     """One rank (the entry that launch() spawns): one thread (ranks share
-    the host's cores), join the group, pin the device, run
-    fn(group, *args) and save what it returns for the launcher."""
+    the host's cores), join the group, pin the device, wait until every
+    rank has joined, run fn(group, *args) and save what it returns for the
+    launcher.
+
+    The wait matters: gloo's init_process_group can return on one rank
+    while a peer is still completing its side of the connections; a rank
+    whose fn makes no collective would then destroy the group (closing
+    those sockets) under the peer, whose init fails with "Connection
+    closed by peer"."""
     torch.set_num_threads(1)
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     if device_type == "cuda":
@@ -138,6 +145,7 @@ def _rank_main(rank, n_ranks, backend, device_type, run_dir, pg_timeout,
         world_size=n_ranks, rank=rank,
         timeout=datetime.timedelta(seconds=pg_timeout))
     try:
+        dist.barrier()
         result = fn(BandGroup(device), *args)
         torch.save(result, os.path.join(run_dir, f"rank{rank}.pt"))
     finally:

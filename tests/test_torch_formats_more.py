@@ -771,7 +771,7 @@ def test_other_formats_still_name_themselves(tmp_path):
             continue
         with pytest.raises(ValueError, match=fmt):
             tio.load_image(tmp_path / name)
-    for suffix, fmt in ((".webp", "WebP"), (".bufr", "BUFR"),
+    for suffix, fmt in ((".bufr", "BUFR"),
                         (".wmf", "WMF"), (".avif", "AVIF"),
                         (".blp", "BLP"), (".msp", "MSP"), (".xbm", "XBM"),
                         (".palm", "PALM")):

@@ -82,7 +82,9 @@ def test_importing_every_module_loads_no_jax():
               "assets.sgi", "assets.pcx", "assets.ico", "assets.bcn",
               "assets.legacy", "assets.spider_fits", "assets.im",
               "assets.fli", "assets.blp", "assets.icns", "assets.pcd",
-              "assets.iptc", "ops.debugviz", "runtime.shell", "runtime.overlay",
+              "assets.iptc", "assets.webp_encode", "assets.webp_picture",
+              "assets.vp8_encode", "assets.vp8l_encode",
+              "ops.debugviz", "runtime.shell", "runtime.overlay",
               "runtime.app", "parallel.comm", "parallel.sharding"):
         assert "plainrenderer_tpu_torch." + m in loaded, m
 
@@ -119,9 +121,16 @@ def test_band_ranks_load_no_jax():
         "    out = comm.launch(torch_band_ranks.loaded_modules, 2,\n"
         "                      device='cpu', timeout=120.0)\n"
         "    print(json.dumps(out))\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=180,
-                         check=True)
+    try:
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             capture_output=True, text=True, timeout=180)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(
+            f"the launcher ran past 180 s\n--- stdout ---\n{e.stdout}\n"
+            f"--- stderr ---\n{e.stderr}") from e
+    assert out.returncode == 0, (
+        f"the launcher exited {out.returncode}\n--- stdout ---\n"
+        f"{out.stdout}\n--- stderr ---\n{out.stderr}")
     ranks = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(ranks) == 2
     for loaded in ranks:
