@@ -2524,6 +2524,43 @@ COURTYARD_JP2_SHA256 = {
                "023ec54ceb8f836ca30e035f16c505e1",
     "wood_normal": "4461b119d95468f07dd3d741a4fedf4e"
                    "fc7022e67b363dc53f9829f653dc126d"}
+# tests/test_torch_formats_avif.py fixture_files: AVIF, each beside PIL's
+# decode; its courtyard/ folder holds the 12 textures as PIL's default
+# AVIF saves (libaom 3.12.1 at quality 75, speed 6, 4:2:0)
+AVIF_FORMAT_FIXTURES = ROOT / "tests" / "data" / "formats_avif"
+AVIF_FORMAT_NAMES = (
+    "cdef_lr_speed0.avif", "default_rgb.avif", "grain.avif", "grid.avif",
+    "idat.avif", "limited_422.avif", "lossless_444.avif", "mono_400.avif",
+    "qm.avif", "rgba_premultiplied.avif", "screen_intrabc.avif",
+    "screen_palette.avif", "sequence_rgba.avif", "tiles.avif")
+COURTYARD_AVIF = AVIF_FORMAT_FIXTURES / "courtyard"
+# SHA-256 of PIL's RGBA decode of each courtyard AVIF (libavif 1.3.0 with
+# dav1d 1.5.1; tests/test_torch_formats_avif.py checks them against PIL)
+COURTYARD_AVIF_SHA256 = {
+    "ivy_albedo": "0d03c814b2799c3c42fb6431f8fe061b"
+        "1577ae199c17066dc507de7907a3c362",
+    "ivy_mr": "44e0b70d394781e2c52df176547c8f7d"
+        "90bb96005f675efd505252fb6a7283bb",
+    "ivy_normal": "cfc4d4df969adbb9ff8ae4d911f94d18"
+        "95112ea77641af24286fa9c040aa9a50",
+    "metal_albedo": "edafec0e9b38e87beaa4218a10a00e84"
+        "b36756159925405f6d8fdad62ded5b98",
+    "metal_mr": "7e4ea38bc6cab9a5bb22c3bcfc2c8ae0"
+        "93323cdcd3f5ead4b78f05a57dc9a303",
+    "metal_normal": "f2354cc492e2682f01709fefc0b585be"
+        "8d1cfad16913ebde632ec768e3c58ed3",
+    "stone_albedo": "b0bd13739a2ddc7ee0873310aabac26c"
+        "1d684c62f63e1aab99bd08e3dcd74185",
+    "stone_mr": "6f02f181c2dca4825131a4691df4a22a"
+        "d0187891f02575e11b24738e6044f323",
+    "stone_normal": "cfa5b359a4aa5011055485af8cb8b735"
+        "9dd7bc04d9c8f4c28619c809a2a8114e",
+    "wood_albedo": "2fbbbc1d98a50b53dfc54cdc740ae145"
+        "8a291a64d6eb8135d2adf9d2f508720b",
+    "wood_mr": "7d6c9bc4ba64f237821489657b76cf74"
+        "ac5fa16e76dd12387cfba9dce63520f2",
+    "wood_normal": "895ed03705e5265cbf97b80f4831a28d"
+        "c08f9a7172e2b5a9851ccb8b70dd4af0"}
 # tests/test_torch_formats_bcn.py fixture_files: BC6H and BC7 as DDS
 # content under other suffixes, each beside PIL's decode as PNG, and a
 # Radiance file beside the JAX package's load_image result as .npy
@@ -2676,13 +2713,15 @@ COURTYARD_WEBP_WRITTEN_SHA256 = {
 FORMAT_COPIES = {"tga": (12, True), "tif": (12, True), "bmp_ppm": (4, True),
                  "qoi": (12, True), "sgi": (12, True), "jpg": (4, False),
                  "im": (12, True), "jp2": (12, False),
-                 "jp2_written": (12, True), "webp_written": (12, False)}
+                 "jp2_written": (12, True), "webp_written": (12, False),
+                 "avif": (12, False)}
 
 
 def format_fixtures() -> dict:
     """Every committed fixture of tests/data/formats,
     tests/data/formats_legacy, tests/data/formats_codecs,
-    tests/data/formats_j2k and tests/data/formats_bptc through load_image
+    tests/data/formats_j2k, tests/data/formats_bptc and
+    tests/data/formats_avif through load_image
     (this machine has no PIL) equal to PIL's decode committed beside it as
     PNG (a .hdr file: to the JAX package's load_image result, as .npy),
     and its host wall time (the best of 3 loads)."""
@@ -2692,7 +2731,8 @@ def format_fixtures() -> dict:
             (LEGACY_FORMAT_FIXTURES, LEGACY_FORMAT_NAMES, "legacy/"),
             (CODECS_FORMAT_FIXTURES, CODECS_FORMAT_NAMES, "codecs/"),
             (J2K_FORMAT_FIXTURES, J2K_FORMAT_NAMES, "j2k/"),
-            (BPTC_FORMAT_FIXTURES, BPTC_FORMAT_NAMES, "bptc/")):
+            (BPTC_FORMAT_FIXTURES, BPTC_FORMAT_NAMES, "bptc/"),
+            (AVIF_FORMAT_FIXTURES, AVIF_FORMAT_NAMES, "avif/")):
         names = tuple(sorted(p.name for p in folder.iterdir()
                              if p.is_file()
                              and not p.name.endswith((".png", ".npy"))))
@@ -2815,7 +2855,9 @@ def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list, dict]:
     .webp), "bmp_ppm" (the four RGB normal
     maps as two BMP and two PPM, the RGBA maps left as PNG) or "jpg" (the
     four RGB maps as JPEG); kind "jp2" copies the 12 committed JP2 files of
-    tests/data/formats_j2k (PIL's lossy saves). The SDF volume paths stay
+    tests/data/formats_j2k (PIL's lossy saves), kind "avif" the 12
+    committed AVIF files of tests/data/formats_avif (PIL's default saves).
+    The SDF volume paths stay
     as committed. Also each written file's save_image wall time in ms."""
     from plainrenderer_tpu_torch.assets import plain_format
 
@@ -2838,9 +2880,10 @@ def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list, dict]:
             if suffix is None:
                 paths[slot] = str(src)
                 continue
-            if kind == "jp2":
-                dst = tmp / (src.stem + ".jp2")
-                shutil.copyfile(COURTYARD_JP2 / dst.name, dst)
+            if kind in ("jp2", "avif"):
+                dst = tmp / (src.stem + "." + kind)
+                shutil.copyfile((COURTYARD_JP2 if kind == "jp2"
+                                 else COURTYARD_AVIF) / dst.name, dst)
                 paths[slot] = str(dst)
                 written.append(dst.name)
                 continue
@@ -2889,18 +2932,20 @@ def format_frames(ctx, scene_path) -> dict:
     return dict(load_s=load_s, textures=n_tex, pool=pool, images=images)
 
 
-def jp2_decodes(folder: Path, names) -> dict:
-    """Each courtyard JP2 decoded on the host: its RGBA digest equal to
-    PIL's decode's (COURTYARD_JP2_SHA256), and its wall time in ms."""
+def jp2_decodes(folder: Path, names, digests=None, what="JP2") -> dict:
+    """Each courtyard JP2 (or AVIF) decoded on the host: its RGBA digest
+    equal to PIL's decode's (COURTYARD_JP2_SHA256 / COURTYARD_AVIF_SHA256),
+    and its wall time in ms."""
+    digests = COURTYARD_JP2_SHA256 if digests is None else digests
     times = {}
     for name in names:
         t0 = time.perf_counter()
         img = image_io.load_image(folder / name)
         times[name] = (time.perf_counter() - t0) * 1e3
         digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
-        check(digest == COURTYARD_JP2_SHA256[Path(name).stem],
+        check(digest == digests[Path(name).stem],
               f"courtyard {name} decodes to PIL's RGBA ({digest})")
-    print("courtyard JP2 decodes equal to PIL's (host ms): "
+    print(f"courtyard {what} decodes equal to PIL's (host ms): "
           + json.dumps(times), flush=True)
     return times
 
@@ -2938,9 +2983,11 @@ def formats_phase(ctx) -> dict:
     pool and frames, to the committed PNG courtyard's run; with its
     four RGB maps written as JPEG, byte for byte PIL's (their digests),
     with all 12 textures as the committed JP2 files, each decoded to
-    PIL's RGBA (their digests), and with all 12 written as WebP (lossy),
-    byte for byte PIL's saves (their digests), each loaded with all 12
-    slots and rendered to frames that are neither black nor white."""
+    PIL's RGBA (their digests), with all 12 written as WebP (lossy),
+    byte for byte PIL's saves (their digests), and with all 12 as the
+    committed AVIF files, each decoded to PIL's RGBA (their digests), each
+    loaded with all 12 slots and rendered to frames that are neither black
+    nor white."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -2965,6 +3012,9 @@ def formats_phase(ctx) -> dict:
                       f"({digests})")
             if kind == "jp2":
                 found["jp2_decode_ms"] = jp2_decodes(sub, written)
+            if kind == "avif":
+                found["avif_decode_ms"] = jp2_decodes(
+                    sub, written, COURTYARD_AVIF_SHA256, "AVIF")
             if kind == "jp2_written":
                 found[kind] = courtyard_written(
                     sub, written, save_ms, COURTYARD_JP2_WRITTEN_SHA256,
@@ -3003,8 +3053,8 @@ def formats_phase(ctx) -> dict:
     print(f"courtyard scene load at {WIDTH}x{HEIGHT} (s, App() with the "
           f"texture decodes): {json.dumps(loads)}; {FORMAT_FRAMES} frames "
           f"each, equal to the PNG courtyard's with equal texture pools "
-          f"except jpg, jp2 and webp_written (lossy; their digests equal "
-          f"PIL's); phase "
+          f"except jpg, jp2, webp_written and avif (lossy; their digests "
+          f"equal PIL's); phase "
           f"{found['phase_s']:.1f} s", flush=True)
     return found
 

@@ -1,0 +1,216 @@
+"""AVIF reading as PIL's AVIF plugin gets it from libavif 1.3.0 with dav1d
+1.5.1 (AvifImagePlugin.py, libavif's src/read.c and src/reformat*.c):
+
+  - the file's brands: 'avif' or 'avis' among ftyp's major and compatible
+    brands, else it is not AVIF (PIL's SyntaxError, the next plugin);
+  - the source: a sequence ('avis' major brand with an av01 track) decodes
+    the first sample of its colour track, and of the track whose 'auxl'
+    reference names it with an alpha 'auxi' type for alpha; otherwise the primary item ('av01', or
+    'grid' over av01 tiles assembled in row-major order and cropped to the
+    grid's output size) and the item whose 'auxl' reference names it with
+    an alpha auxC type; a 'prem' reference from the colour item marks the
+    alpha premultiplied;
+  - each AV1 payload through assets/av1_decode.py, film grain applied;
+  - the matrix and range from the nclx 'colr' property (else the AV1
+    sequence header's), then libavif's YUV to RGBA8
+    (assets/avif_yuv.py). 'irot', 'imir', 'clap', ICC and EXIF are not
+    applied, as PIL's convert("RGBA") does not apply them.
+
+What the port does not decode raises ValueError naming it: 10 and 12-bit
+streams, superres, several frames in one sample (assets/av1_decode.py)
+and matrix coefficients outside libyuv's tables (assets/avif_yuv.py).
+An item's ispe that differs from its frame's size is refused before the
+frame is decoded, where libavif returns an image of the ispe's size
+(ROADMAP Queue 3).
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+from . import av1_decode, avif_yuv, isobmff
+from .modes import NotThisFormat
+
+ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+              b"urn:mpeg:hevc:2015:auxid:1")
+
+
+def accepts(data: bytes) -> bool:
+    """PIL's _accept: an ftyp box with a major brand libavif may read."""
+    return data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis", b"mif1",
+                                                   b"msf1")
+
+
+def read_avif(data: bytes, where: str = "<bytes>") -> np.ndarray:
+    """The first frame as (H, W, 4) u8."""
+    try:
+        f = isobmff.parse(data)
+    except isobmff.BoxError as e:
+        raise NotThisFormat(f"not an AVIF file libavif parses: {e}") from e
+    try:
+        return _read(data, f)
+    except (ZeroDivisionError, RecursionError) as e:
+        raise ValueError(f"malformed AVIF stream: {e!r}") from e
+
+
+def _read(data, f):
+    brands = [f.major] + f.brands
+    if b"avif" not in brands and b"avis" not in brands:
+        raise NotThisFormat("ftyp names neither 'avif' nor 'avis'")
+    tracks = [t for t in f.tracks if t.sample_entry == b"av01"]
+    if f.major == b"avis" and tracks:
+        color, alpha, prem, nclx = _from_tracks(data, tracks)
+    else:
+        if not f.has_meta:
+            raise NotThisFormat("AVIF file without a meta box")
+        color, alpha, prem, nclx = _from_items(data, f)
+    return _to_rgba(color, alpha, prem, nclx)
+
+
+def _nclx(props):
+    """The nclx colr property's (matrix, full range), or None."""
+    for p, _ in props:
+        if p.kind == b"colr" and p.fields.get("colour_type") == b"nclx":
+            return p.fields["matrix"], p.fields["full_range"]
+    return None
+
+
+def _from_tracks(data, tracks):
+    color = next((t for t in tracks if not t.refs.get(b"auxl")), None)
+    if color is None:
+        raise ValueError("AVIF sequence without a colour track")
+    off, size = color.first_sample()
+    if off + size > len(data):
+        raise ValueError("AVIF sample runs past the file")
+    frame = av1_decode.decode(data[off:off + size])
+    alpha = None
+    for t in tracks:
+        aux = next((p for p, _ in t.props if p.kind == b"auxi"), None)
+        if (color.id in t.refs.get(b"auxl", []) and aux is not None
+                and aux.fields.get("aux_type") in ALPHA_URNS):
+            aoff, asize = t.first_sample()
+            if aoff + asize > len(data):
+                raise ValueError("AVIF alpha sample runs past the file")
+            alpha = av1_decode.decode(data[aoff:aoff + asize])
+            break
+    return frame, alpha, False, _nclx(color.props)
+
+
+def _item_image(data, f, item, alpha=False):
+    """An av01 item's frame, or a grid's tiles assembled. A colour item's
+    frame must have its ispe's size; an alpha item's only the colour's."""
+    if item.type == b"av01":
+        if item.prop(b"av1C") is None:
+            raise ValueError(f"AVIF item {item.id} has no av1C property")
+        ispe = item.prop(b"ispe")
+        if ispe is None:
+            raise ValueError(f"AVIF item {item.id} has no ispe property")
+        size = None if alpha else (ispe.fields["width"], ispe.fields["height"])
+        frame = av1_decode.decode(isobmff.item_payload(data, f, item),
+                                  size=size)
+        pixi = item.prop(b"pixi")
+        if pixi is not None and any(d != frame.seq.bit_depth
+                                    for d in pixi.fields["depths"]):
+            raise ValueError("AVIF pixi depth differs from the AV1 stream")
+        return frame
+    if item.type != b"grid":
+        raise ValueError(f"AVIF item of type {item.type!r} is not an image")
+    if item.prop(b"ispe") is None:
+        raise ValueError(f"AVIF item {item.id} has no ispe property")
+    raw = isobmff.item_payload(data, f, item)
+    if len(raw) < 8:
+        raise ValueError("AVIF grid payload too short")
+    version, flags, rows, cols = raw[0], raw[1], raw[2] + 1, raw[3] + 1
+    if version != 0:
+        raise ValueError("AVIF grid version")
+    big = flags & 1
+    need = 4 + (8 if big else 4)
+    if len(raw) != need:
+        raise ValueError("AVIF grid payload size")
+    ow, oh = struct.unpack(">II" if big else ">HH", raw[4:need])
+    tiles = item.refs.get(b"dimg", [])
+    if len(tiles) != rows * cols:
+        raise ValueError("AVIF grid tile count")
+    frames = []
+    for tid in tiles:
+        t = f.items.get(tid)
+        if t is None or t.type != b"av01":
+            raise ValueError("AVIF grid tile is not an av01 item")
+        frames.append(_item_image(data, f, t, alpha))
+    first = frames[0]
+    tw, th = first.width, first.height
+    seq0 = first.seq
+    for fr in frames:
+        s = fr.seq
+        if ((fr.width, fr.height) != (tw, th) or s.num_planes != seq0.num_planes
+                or (s.ssx, s.ssy) != (seq0.ssx, seq0.ssy)
+                or s.color_range != seq0.color_range):
+            raise ValueError("AVIF grid tiles differ")
+    if tw * cols < ow or th * rows < oh or tw * (cols - 1) >= ow or th * (rows - 1) >= oh:
+        raise ValueError("AVIF grid size does not fit its tiles")
+    # MIAF's grid rules as libavif checks them: tiles at least 64 x 64,
+    # even widths (and heights, in 4:2:0) in subsampled chroma
+    if tw < 64 or th < 64:
+        raise ValueError("AVIF grid tiles smaller than 64 x 64")
+    if seq0.num_planes > 1 and ((seq0.ssx and (ow % 2 or tw % 2))
+                                or (seq0.ssy and (oh % 2 or th % 2))):
+        raise ValueError("AVIF grid of odd size in subsampled chroma")
+    ispe = item.prop(b"ispe").fields
+    if (ispe["width"], ispe["height"]) != (ow, oh):
+        raise ValueError("AVIF grid size differs from its ispe")
+    planes = []
+    for p in range(seq0.num_planes):
+        sx = seq0.ssx if p else 0
+        sy = seq0.ssy if p else 0
+        ptw, pth = (tw + sx) >> sx, (th + sy) >> sy
+        big_p = np.zeros((pth * rows, ptw * cols), frames[0].planes[0].dtype)
+        for k, fr in enumerate(frames):
+            r, c = divmod(k, cols)
+            big_p[r * pth:(r + 1) * pth, c * ptw:(c + 1) * ptw] = fr.planes[p]
+        planes.append(big_p[:(oh + sy) >> sy, :(ow + sx) >> sx])
+    first.planes = planes
+    first.width, first.height = ow, oh
+    return first
+
+
+def _from_items(data, f):
+    if f.primary is None or f.primary not in f.items:
+        raise ValueError("AVIF file without a primary item")
+    color = f.items[f.primary]
+    if color.type not in (b"av01", b"grid"):
+        raise ValueError(f"AVIF primary item of type {color.type!r}")
+    frame = _item_image(data, f, color)
+    alpha = None
+    prem = False
+    for it in f.items.values():
+        if f.primary not in it.refs.get(b"auxl", []):
+            continue
+        aux = it.prop(b"auxC")
+        if aux is None or aux.fields.get("aux_type") not in ALPHA_URNS:
+            continue
+        if it.type not in (b"av01", b"grid") or (
+                it.type == b"av01" and (it.prop(b"av1C") is None
+                                        or it.prop(b"ispe") is None)):
+            continue   # libavif leaves such an alpha item out
+        alpha = _item_image(data, f, it, alpha=True)
+        prem = it.id in color.refs.get(b"prem", [])
+        break
+    return frame, alpha, prem, _nclx(color.props)
+
+
+def _to_rgba(frame, alpha, prem, nclx):
+    """libavif takes the matrix and the range from the nclx colr property
+    where there is one, else from the AV1 sequence header."""
+    seq = frame.seq
+    matrix, full = nclx if nclx is not None else (seq.mc, seq.color_range)
+    a = None
+    if alpha is not None:
+        if (alpha.width, alpha.height) != (frame.width, frame.height):
+            raise ValueError("AVIF alpha size differs from the image")
+        a = alpha.planes[0]
+        if not alpha.seq.color_range:
+            a = avif_yuv.limited_to_full_alpha(a)
+    return avif_yuv.yuv_to_rgba(frame.planes, seq.ssx, seq.ssy, bool(full),
+                                matrix, a, prem)

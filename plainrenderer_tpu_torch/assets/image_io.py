@@ -29,9 +29,12 @@ and PIL's header check), and every reader returns what
     (assets/legacy.py), SPIDER and FITS (assets/spider_fits.py), IM
     (assets/im.py), FLI / FLC (assets/fli.py), BLP and FTEX
     (assets/blp.py), ICNS (assets/icns.py), PhotoCD (assets/pcd.py),
-    IPTC (assets/iptc.py) and JPEG 2000 codestreams and JP2 / JPX files
+    IPTC (assets/iptc.py), JPEG 2000 codestreams and JP2 / JPX files
     (assets/jp2.py over j2k_codestream.py, j2k_t2.py, j2k_t1.py and
-    j2k_recon.py), each within the limits its module states;
+    j2k_recon.py) and AVIF's first frame as libavif with dav1d decodes
+    it (assets/avif.py over isobmff.py, the AV1 intra decoder
+    av1_decode.py and avif_yuv.py), each within the limits its module
+    states;
   - Radiance RGBE (.hdr, by suffix as in the JAX package): what the JAX
     package's imageio call returns here, OpenCV's reader at its default
     flags (``read_hdr``: its header rules, new-style run-length scanlines
@@ -43,12 +46,11 @@ The readers are tried in the order of PIL's format list (``Image.ID``),
 each where its magic bytes match; the formats without magic bytes (IM,
 IM Tools, IPTC, PhotoCD, SPIDER) at their places in that order, each
 raising modes.NotThisFormat where PIL's header check fails, and TGA last,
-under its suffixes only. The formats PIL opens and the port does not read
-(AVIF, which PIL decodes, and BUFR, GRIB, HDF5, MPEG, EPS
-and WMF, which PIL opens and cannot load here either: stubs with no
-handler, MPEG's missing decoder, EPS's Ghostscript, WMF's Windows
-renderer) raise ValueError naming them (``_refuse``), and so does a
-feature of a format above that the port does not read yet.
+under its suffixes only. The formats PIL opens and cannot load here
+either (BUFR, GRIB, HDF5, MPEG, EPS and WMF: stubs with no handler,
+MPEG's missing decoder, EPS's Ghostscript, WMF's Windows renderer) raise
+ValueError naming them (``_refuse``), and so does a feature of a format
+above that the port does not read yet.
 
 ``save_image`` writes the format the suffix names from (H, W) and (H, W,
 3|4) u8, as PIL's ``Image.fromarray(...).save(path)`` writes modes L, RGB
@@ -78,7 +80,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import (blp, bmp, dds, eps, fli, gif, icns, ico, im, iptc,
+from . import (avif, blp, bmp, dds, eps, fli, gif, icns, ico, im, iptc,
                j2k_encode, jp2, jpeg, jpeg_encode, legacy, modes, pcd, pcx,
                pdf, pnm, psd, qoi, sgi, spider_fits, tga, tiff, webp,
                webp_encode)
@@ -91,7 +93,7 @@ _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
 # Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
-READ = ("PNG, JPEG, JPEG 2000, BMP, DIB, GIF, TIFF, WebP, TGA, "
+READ = ("PNG, JPEG, JPEG 2000, AVIF, BMP, DIB, GIF, TIFF, WebP, TGA, "
         "PBM/PGM/PPM/PFM, PSD, QOI, SGI, PCX/DCX, ICO/CUR, DDS, BLP, FTEX, "
         "FITS, FLI/FLC, GBR, "
         "ICNS, IM, IMT, IPTC, McIdas, MSP, PCD, PIXAR, SPIDER, Sun, XBM, "
@@ -108,8 +110,9 @@ SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".bmp": "BMP", ".dib": "DIB",
                 ".jp2": "JPEG2000", ".j2k": "JPEG2000", ".jpc": "JPEG2000",
                 ".jpf": "JPEG2000", ".jpx": "JPEG2000", ".j2c": "JPEG2000",
                 ".webp": "WEBP"}
-# formats PIL writes under these suffixes and the port does not: the codec
-# the port lacks (AVIF), and formats PIL refuses for L, RGB and RGBA too
+# formats PIL writes under these suffixes and the port does not: AVIF
+# (read, not written: PIL writes it with libaom's encoder), and formats PIL
+# refuses for L, RGB and RGBA too
 # (BLP, MSP, XBM, PALM) or has no writer for here (BUFR, GRIB, HDF5, WMF)
 _UNWRITTEN = {".avif": "AVIF", ".avifs": "AVIF",
               ".blp": "BLP", ".msp": "MSP", ".xbm": "XBM", ".palm": "PALM",
@@ -175,8 +178,7 @@ def _readers(data: bytes, suffix: str) -> list:
     file, last and only under one of its suffixes."""
     head = data[:16]
     claims = (
-        (data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis", b"mif1",
-                                                  b"msf1"), _refuse("AVIF")),
+        (avif.accepts(data), avif.read_avif),
         (data.startswith((b"BLP1", b"BLP2")), blp.read_blp),
         (data.startswith(b"BM"), bmp.read_bmp),
         (bmp.looks_like_dib(data[:4]), bmp.read_dib),

@@ -215,15 +215,16 @@ def test_generated_pngs_decode_as_pil(ctype, depth, interlace):
 
 
 def test_png_errors_raise_value_error(tmp_path):
-    """A format PIL reads and the port does not names itself (AVIF,
-    written by PIL; IM and ICNS, which this test named before, are read
-    since slice 18, JPEG 2000 since slice 20); a JPEG (read since slice
-    14) and a JPEG 2000 file load equal to PIL's decode; a bad CRC, a
-    truncated file and bad image data raise ValueError."""
+    """Formats this test named as refused are read now (IM and ICNS since
+    slice 18, JPEG 2000 since slice 20, and AVIF): an AVIF, a
+    JPEG (read since slice 14) and a JPEG 2000 file load equal to PIL's
+    decode; a bad CRC, a truncated file and bad image data raise
+    ValueError."""
     avif = tmp_path / "a.avif"
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(avif)
-    with pytest.raises(ValueError, match="AVIF"):
-        tio.load_image(avif)
+    with Image.open(avif) as im:
+        np.testing.assert_array_equal(tio.load_image(avif),
+                                      np.asarray(im.convert("RGBA")))
     jp2 = tmp_path / "a.jp2"
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(jp2)
     with Image.open(jp2) as im:

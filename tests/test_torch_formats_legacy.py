@@ -57,10 +57,11 @@ SIZES = ((1, 1), (7, 5), (33, 17))
 # port's ValueError holds); ROADMAP.md lists the same names (Queue 1 item
 # 2.5). TIFF WebP and TIFF JPEG 2000 are refused by PIL too
 # (tests/test_torch_formats_codecs.py). DDS BC6H and BC7 are read since
-# slice 21 (tests/test_torch_formats_bcn.py).
-STILL_REFUSED = {"AVIF": "AVIF"}
+# slice 21 (tests/test_torch_formats_bcn.py) and AVIF now
+# (tests/test_torch_formats_avif.py): none is left.
+STILL_REFUSED: dict = {}
 # names of PIL's Image.ID that are STILL_REFUSED formats
-ID_REFUSED = {"AVIF": "AVIF"}
+ID_REFUSED: dict = {}
 
 
 def _rng(seed):
@@ -969,7 +970,7 @@ def test_still_refused_matches_roadmap():
     each under the STILL_REFUSED name this file uses."""
     text = (REPO / "ROADMAP.md").read_text()
     listed = text.split("STILL_REFUSED:", 1)[1].split("\n\n", 1)[0]
-    names = {" ".join(n.split()) for n in listed.split(";")}
+    names = {" ".join(n.split()) for n in listed.split(";")} - {""}
     assert names == set(STILL_REFUSED)
 
 

@@ -756,13 +756,14 @@ def test_other_formats_still_name_themselves(tmp_path):
     lists them): load_image and save_image name the format. IM, XBM, MSP
     and ICNS, which this test named until slice 18, are read now, and so
     is JPEG 2000 (.jp2, .j2k: PIL's decode, bit for bit), which it named
-    until slice 20; GIF, ICO, ICNS, EPS / PS, PDF and MPO are written
+    until slice 20, and AVIF (PIL's decode, bit for bit, through
+    assets/avif.py); GIF, ICO, ICNS, EPS / PS, PDF and MPO are written
     since slice 21 (tests/test_torch_formats_writers.py), and JPEG 2000
     since slice 22 (tests/test_torch_formats_j2k_write.py); the writers PIL
     runs for the suffixes left need codecs the port lacks, refuse L, RGB
     and RGBA themselves or have no handler here (BUFR, WMF)."""
     rgb = np.zeros((4, 4, 3), np.uint8)
-    for name, fmt in (("a.jp2", None), ("a.j2k", None), ("a.avif", "AVIF")):
+    for name, fmt in (("a.jp2", None), ("a.j2k", None), ("a.avif", None)):
         Image.fromarray(rgb).save(tmp_path / name)
         if fmt is None:
             np.testing.assert_array_equal(

@@ -83,7 +83,13 @@ def test_importing_every_module_loads_no_jax():
               "assets.legacy", "assets.spider_fits", "assets.im",
               "assets.fli", "assets.blp", "assets.icns", "assets.pcd",
               "assets.iptc", "assets.webp_encode", "assets.webp_picture",
-              "assets.vp8_encode", "assets.vp8l_encode",
+              "assets.vp8_encode", "assets.vp8l_encode", "assets.avif",
+              "assets.avif_yuv", "assets.isobmff", "assets.av1_decode",
+              "assets.av1_obu", "assets.av1_msac", "assets.av1_cdf",
+              "assets.av1_block", "assets.av1_intra", "assets.av1_intrabc",
+              "assets.av1_transform", "assets.av1_loopfilter",
+              "assets.av1_cdef", "assets.av1_restoration",
+              "assets.av1_filmgrain",
               "ops.debugviz", "runtime.shell", "runtime.overlay",
               "runtime.app", "parallel.comm", "parallel.sharding"):
         assert "plainrenderer_tpu_torch." + m in loaded, m
