@@ -2561,6 +2561,86 @@ COURTYARD_AVIF_SHA256 = {
         "ac5fa16e76dd12387cfba9dce63520f2",
     "wood_normal": "895ed03705e5265cbf97b80f4831a28d"
         "c08f9a7172e2b5a9851ccb8b70dd4af0"}
+# tests/test_torch_formats_avif_matrix.py fixture_files: AVIF in the
+# matrices libavif converts without libyuv (identity, YCgCo, FCC, SMPTE
+# 240, chromaticity-derived, 15) and items whose ispe is not their
+# frame's size, each beside PIL's decode as PNG; courtyard_ycgco/ the 12
+# courtyard textures as YCgCo 4:2:0 files libavif writes at its default
+# quality
+AVIF_MATRIX_FIXTURES = ROOT / "tests" / "data" / "formats_avif_matrix"
+AVIF_MATRIX_NAMES = (
+    "derived_p22_420.avif", "derived_p9_420_prem.avif",
+    "fcc_420_limited.avif", "identity_400.avif",
+    "identity_lossless_texture.avif", "ispe_20x16.avif", "ispe_30x20.avif",
+    "matrix15_444.avif", "smpte240_422_rgba.avif", "ycgco_420_rgba.avif",
+    "ycgco_422.avif")
+COURTYARD_AVIF_YCGCO = AVIF_MATRIX_FIXTURES / "courtyard_ycgco"
+# SHA-256 of PIL's RGBA decode of each (libavif 1.3.0 with dav1d 1.5.1;
+# tests/test_torch_formats_avif_matrix.py checks them against PIL)
+COURTYARD_AVIF_YCGCO_SHA256 = {
+    "ivy_albedo": "e01b82c364f4cd6f18e13673184c04ef"
+                  "208473b97463d720afed29506c9872fa",
+    "ivy_mr": "fdf3f4ae6e735cfdc35ff8634df1db95"
+              "15a6603f0a064ab8539c90adc1c73635",
+    "ivy_normal": "21e7951a54b8954b36ede026142f1b18"
+                  "2f0dc95e57fccc4a1bef8013d293e7d6",
+    "metal_albedo": "58c2f5010f3ae44b40ccca907a23301d"
+                    "15f86cb3d83ae9efe550728189e6060b",
+    "metal_mr": "cad32706862e9ff4f846d669f05dc35e"
+                "4e98594a208f9ae907f781e69283f1fa",
+    "metal_normal": "12dd602efa0b743454729b754537779e"
+                    "22f781dc64aff231cab1f90f56ea3fd3",
+    "stone_albedo": "3aa41db7c4c70484583317580ad59f26"
+                    "068729f2f7770df80e046dad0f15df3f",
+    "stone_mr": "05277d7b09a1cbceaf325cde4b16cc61"
+                "f3114b6e446505af8932f5786fba7c7c",
+    "stone_normal": "19367170fbf40a367631368537940268"
+                    "2f5cd57bdd8ca97f80f3971ffcb0e191",
+    "wood_albedo": "04d50a7dd7c191dc8e44a86cbfe8e0d3"
+                   "77b7f0fa074cfddccc4ba2fe9a9c0ebb",
+    "wood_mr": "f19868b1c4d987700321582da6227829"
+               "023ec54ceb8f836ca30e035f16c505e1",
+    "wood_normal": "83c2d3113396c340902fac87dd5a83eb"
+                   "cf07226dad0748da9360aa4d1d1a958d"}
+# tests/test_torch_formats_htj2k.py fixture_files: HTJ2K (Part 15)
+# code-blocks from the test-side writer, each beside PIL's decode
+# (OpenJPEG 2.5.4) as PNG; courtyard/ the 12 courtyard textures as
+# HTJ2K 9/7 codestreams
+HTJ2K_FORMAT_FIXTURES = ROOT / "tests" / "data" / "formats_htj2k"
+HTJ2K_FORMAT_NAMES = (
+    "cblk_1024x4.j2k", "cleanup_only_warning.j2k", "elements.icns",
+    "grey16.j2k", "irreversible_97_two_pass.j2k", "layers_spread.j2k",
+    "lossless_53_rgb.j2k", "rgba.jp2", "rgba_97_three_pass.j2k",
+    "rpcl_precincts.j2k", "stripe_causal_8x8.j2k", "three_pass_53.j2k",
+    "tiles_97.j2k")
+COURTYARD_HTJ2K = HTJ2K_FORMAT_FIXTURES / "courtyard"
+# SHA-256 of PIL's RGBA decode of each (tests/test_torch_formats_htj2k.py
+# checks them against PIL)
+COURTYARD_HTJ2K_SHA256 = {
+    "ivy_albedo": "39a9be7d9a4b5e55b9882c663a4cafeb"
+                  "8192263494b082139727d3fad2d83702",
+    "ivy_mr": "fdf3f4ae6e735cfdc35ff8634df1db95"
+              "15a6603f0a064ab8539c90adc1c73635",
+    "ivy_normal": "108317bba790881736b2a2ed532b401a"
+                  "100d1d7d18b447581e29e60efaf4245b",
+    "metal_albedo": "2a3873e6205054cd49e05985d5134b08"
+                    "07879a434606b8ebe957bdd756ab704d",
+    "metal_mr": "f96d60f457df8389b42874b895b997b7"
+                "11287bda9e82ac97178d8560a8e71d2a",
+    "metal_normal": "ef9e770a522ad521bf0f4d137e5f54f4"
+                    "08ed5dfbb7c6a48d899ff29df947304e",
+    "stone_albedo": "3bba1d599ef92a41601c587060cc2907"
+                    "45bc6741fc71ce9aabf1f2ea3f5ce96a",
+    "stone_mr": "e80b584a490d2c66f40db9bbde7a99cc"
+                "2937c8a2bd643bc40c1a2ed4795dcb50",
+    "stone_normal": "df053688eb570d5ea4a906d15bca7687"
+                    "8f9b428105bcf7b65cb87278f0e39a5e",
+    "wood_albedo": "9681a0b21bda56e9314d23a00433e816"
+                   "0b98a0a25cd6dad031aa6b77c3c569fe",
+    "wood_mr": "f19868b1c4d987700321582da6227829"
+               "023ec54ceb8f836ca30e035f16c505e1",
+    "wood_normal": "04227a3210c0e1beb71a26ec97f86b2b"
+                   "573d5c9f5c3974490b277d6d0f4b96e1"}
 # tests/test_torch_formats_bcn.py fixture_files: BC6H and BC7 as DDS
 # content under other suffixes, each beside PIL's decode as PNG, and a
 # Radiance file beside the JAX package's load_image result as .npy
@@ -2714,14 +2794,24 @@ FORMAT_COPIES = {"tga": (12, True), "tif": (12, True), "bmp_ppm": (4, True),
                  "qoi": (12, True), "sgi": (12, True), "jpg": (4, False),
                  "im": (12, True), "jp2": (12, False),
                  "jp2_written": (12, True), "webp_written": (12, False),
-                 "avif": (12, False)}
+                 "avif": (12, False), "htj2k": (12, False),
+                 "avif_ycgco": (12, False)}
+# the committed courtyard sets copied whole: kind -> (folder, suffix, the
+# digests of PIL's decodes)
+COURTYARD_SETS = {
+    "jp2": (COURTYARD_JP2, ".jp2", COURTYARD_JP2_SHA256),
+    "avif": (COURTYARD_AVIF, ".avif", COURTYARD_AVIF_SHA256),
+    "htj2k": (COURTYARD_HTJ2K, ".j2k", COURTYARD_HTJ2K_SHA256),
+    "avif_ycgco": (COURTYARD_AVIF_YCGCO, ".avif",
+                   COURTYARD_AVIF_YCGCO_SHA256)}
 
 
 def format_fixtures() -> dict:
     """Every committed fixture of tests/data/formats,
     tests/data/formats_legacy, tests/data/formats_codecs,
-    tests/data/formats_j2k, tests/data/formats_bptc and
-    tests/data/formats_avif through load_image
+    tests/data/formats_j2k, tests/data/formats_bptc,
+    tests/data/formats_avif, tests/data/formats_avif_matrix and
+    tests/data/formats_htj2k through load_image
     (this machine has no PIL) equal to PIL's decode committed beside it as
     PNG (a .hdr file: to the JAX package's load_image result, as .npy),
     and its host wall time (the best of 3 loads)."""
@@ -2732,7 +2822,9 @@ def format_fixtures() -> dict:
             (CODECS_FORMAT_FIXTURES, CODECS_FORMAT_NAMES, "codecs/"),
             (J2K_FORMAT_FIXTURES, J2K_FORMAT_NAMES, "j2k/"),
             (BPTC_FORMAT_FIXTURES, BPTC_FORMAT_NAMES, "bptc/"),
-            (AVIF_FORMAT_FIXTURES, AVIF_FORMAT_NAMES, "avif/")):
+            (AVIF_FORMAT_FIXTURES, AVIF_FORMAT_NAMES, "avif/"),
+            (AVIF_MATRIX_FIXTURES, AVIF_MATRIX_NAMES, "avif_matrix/"),
+            (HTJ2K_FORMAT_FIXTURES, HTJ2K_FORMAT_NAMES, "htj2k/")):
         names = tuple(sorted(p.name for p in folder.iterdir()
                              if p.is_file()
                              and not p.name.endswith((".png", ".npy"))))
@@ -2854,9 +2946,10 @@ def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list, dict]:
     "jp2_written" or "webp_written" (all 12; the last two as .jp2 and
     .webp), "bmp_ppm" (the four RGB normal
     maps as two BMP and two PPM, the RGBA maps left as PNG) or "jpg" (the
-    four RGB maps as JPEG); kind "jp2" copies the 12 committed JP2 files of
-    tests/data/formats_j2k (PIL's lossy saves), kind "avif" the 12
-    committed AVIF files of tests/data/formats_avif (PIL's default saves).
+    four RGB maps as JPEG); kinds "jp2", "avif", "htj2k" and "avif_ycgco"
+    copy the 12 committed files of COURTYARD_SETS (PIL's lossy JP2 and
+    default AVIF saves, the HTJ2K 9/7 codestreams, the YCgCo 4:2:0 AVIF
+    files libavif writes).
     The SDF volume paths stay
     as committed. Also each written file's save_image wall time in ms."""
     from plainrenderer_tpu_torch.assets import plain_format
@@ -2880,10 +2973,10 @@ def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list, dict]:
             if suffix is None:
                 paths[slot] = str(src)
                 continue
-            if kind in ("jp2", "avif"):
-                dst = tmp / (src.stem + "." + kind)
-                shutil.copyfile((COURTYARD_JP2 if kind == "jp2"
-                                 else COURTYARD_AVIF) / dst.name, dst)
+            if kind in COURTYARD_SETS:
+                folder, suffix, _ = COURTYARD_SETS[kind]
+                dst = tmp / (src.stem + suffix)
+                shutil.copyfile(folder / dst.name, dst)
                 paths[slot] = str(dst)
                 written.append(dst.name)
                 continue
@@ -2985,9 +3078,9 @@ def formats_phase(ctx) -> dict:
     with all 12 textures as the committed JP2 files, each decoded to
     PIL's RGBA (their digests), with all 12 written as WebP (lossy),
     byte for byte PIL's saves (their digests), and with all 12 as the
-    committed AVIF files, each decoded to PIL's RGBA (their digests), each
-    loaded with all 12 slots and rendered to frames that are neither black
-    nor white."""
+    committed AVIF files, as HTJ2K 9/7 codestreams and as YCgCo 4:2:0
+    AVIF, each decoded to PIL's RGBA (their digests), each loaded with all
+    12 slots and rendered to frames that are neither black nor white."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -3010,11 +3103,9 @@ def formats_phase(ctx) -> dict:
                 check(digests == COURTYARD_JPEG_SHA256,
                       f"courtyard maps as JPEG: the bytes of PIL's save "
                       f"({digests})")
-            if kind == "jp2":
-                found["jp2_decode_ms"] = jp2_decodes(sub, written)
-            if kind == "avif":
-                found["avif_decode_ms"] = jp2_decodes(
-                    sub, written, COURTYARD_AVIF_SHA256, "AVIF")
+            if kind in COURTYARD_SETS:
+                found[f"{kind}_decode_ms"] = jp2_decodes(
+                    sub, written, COURTYARD_SETS[kind][2], kind)
             if kind == "jp2_written":
                 found[kind] = courtyard_written(
                     sub, written, save_ms, COURTYARD_JP2_WRITTEN_SHA256,
@@ -3053,7 +3144,8 @@ def formats_phase(ctx) -> dict:
     print(f"courtyard scene load at {WIDTH}x{HEIGHT} (s, App() with the "
           f"texture decodes): {json.dumps(loads)}; {FORMAT_FRAMES} frames "
           f"each, equal to the PNG courtyard's with equal texture pools "
-          f"except jpg, jp2, webp_written and avif (lossy; their digests "
+          f"except jpg, jp2, webp_written, avif, htj2k and avif_ycgco "
+          f"(lossy; their digests "
           f"equal PIL's); phase "
           f"{found['phase_s']:.1f} s", flush=True)
     return found

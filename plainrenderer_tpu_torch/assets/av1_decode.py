@@ -5,9 +5,17 @@ tiles through assets/av1_block.py, then the post filters in the
 specification's order (deblocking, CDEF, loop restoration) and film grain
 as dav1d applies it, and the frame's planes cropped to its size.
 
-Refused by name, as no PIL save reaches them: superres (PIL's encoder
-refuses its options), 10 and 12-bit streams, and a sample holding more
-than one frame (spatial layers).
+Refused by name: 10 and 12-bit streams, superres, and a sample holding
+more than one frame (spatial layers). They stay refused because nothing
+on this box can write such a file to hold the port against PIL, not
+because PIL cannot read one: the wheel's libaom 3.12.1 has no high bit
+depth (avifEncoderWrite returns 7, "Encoding of color planes failed",
+for a 10 or 12-bit image and writes nothing), PIL refuses libaom's superres
+options ("Invalid codec-specific option"), and a layered image needs AV1
+inter prediction, which this intra decoder does not carry. Other encoders
+do write 10-bit AVIF; whether this wheel's dav1d 1.5.1 decodes it is
+unverified. Frames above 8192 x 8192 samples are refused too (the
+decoder's int64 planes; libavif allows 16384 x 16384).
 """
 
 from __future__ import annotations
@@ -24,14 +32,12 @@ from .av1_obu import AV1Error
 MAX_PIXELS = 8192 * 8192
 
 
-def decode(data: bytes, size: tuple | None = None,
-           check_trailing: bool = False) -> SimpleNamespace:
+def decode(data: bytes, check_trailing: bool = False) -> SimpleNamespace:
     """The frame in one temporal unit: planes (Y[, U, V]) as int64 arrays
     of the frame's size, the sequence and frame headers, and the set of
-    coding tools the frame used. A frame whose size is not `size` (the
-    container's, when given) raises before anything is allocated;
-    check_trailing also fails a tile that does not end on its padding (a
-    parse that lost step). Operating point 0, as libavif selects it."""
+    coding tools the frame used; check_trailing also fails a tile that
+    does not end on its padding (a parse that lost step). Operating point
+    0, as libavif selects it."""
     seq = hdr = None
     fs = None
     tiles_done = 0
@@ -60,8 +66,6 @@ def decode(data: bytes, size: tuple | None = None,
             hdr, pos = av1_obu.frame_header(data, s, e, seq, tid, sid)
             if hdr.use_superres:
                 raise AV1Error("AV1 superres is not decoded by the port")
-            if size is not None and (hdr.upscaled_width, hdr.height) != size:
-                raise AV1Error("AV1 frame size differs from its container's")
             if hdr.upscaled_width * hdr.height > MAX_PIXELS:
                 raise AV1Error("AV1 frame above 8192 x 8192 samples is not "
                                "decoded by the port")

@@ -16,12 +16,15 @@
     (assets/avif_yuv.py). 'irot', 'imir', 'clap', ICC and EXIF are not
     applied, as PIL's convert("RGBA") does not apply them.
 
+A frame whose size is not its item's ispe (or its track's tkhd size) is
+scaled to that size as libavif's avifImageScale does it (libyuv's box
+filter, assets/avif_scale.py), each tile of a grid and the alpha frame
+alike; PIL's image has the container's size.
+
 What the port does not decode raises ValueError naming it: 10 and 12-bit
-streams, superres, several frames in one sample (assets/av1_decode.py)
-and matrix coefficients outside libyuv's tables (assets/avif_yuv.py).
-An item's ispe that differs from its frame's size is refused before the
-frame is decoded, where libavif returns an image of the ispe's size
-(ROADMAP Queue 3).
+streams, superres, several frames in one sample (assets/av1_decode.py),
+the matrix coefficients libavif refuses too (assets/avif_yuv.py), and
+images above 8192 x 8192 samples.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import struct
 
 import numpy as np
 
-from . import av1_decode, avif_yuv, isobmff
+from . import av1_decode, avif_scale, avif_yuv, isobmff
 from .modes import NotThisFormat
 
 ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
@@ -70,46 +73,70 @@ def _read(data, f):
 
 
 def _nclx(props):
-    """The nclx colr property's (matrix, full range), or None."""
+    """The nclx colr property's (matrix, full range, primaries), or None."""
     for p, _ in props:
         if p.kind == b"colr" and p.fields.get("colour_type") == b"nclx":
-            return p.fields["matrix"], p.fields["full_range"]
+            return (p.fields["matrix"], p.fields["full_range"],
+                    p.fields["primaries"])
     return None
+
+
+def _sized(frame, w, h):
+    """The frame scaled to the container's w x h (libavif's
+    avifImageScaleWithLimit, with its default limits: 32768 samples a
+    side, 16384 x 16384 in all), or as it is where the sizes agree."""
+    if (frame.width, frame.height) == (w, h):
+        return frame
+    if not w or not h:
+        raise ValueError("AVIF image of zero size")
+    if w > 32768 or h > 32768 or w * h > 16384 * 16384:
+        raise ValueError("AVIF image above libavif's size limit")
+    if w * h > av1_decode.MAX_PIXELS:
+        raise ValueError("AVIF image above 8192 x 8192 samples is not "
+                         "decoded by the port")
+    seq = frame.seq
+    frame.planes = avif_scale.scale_frame(frame.planes, seq.ssx, seq.ssy,
+                                          w, h)
+    frame.width, frame.height = w, h
+    return frame
+
+
+def _track_frame(data, track, what):
+    if not track.width or not track.height:
+        raise ValueError(f"AVIF {what} track of zero size")
+    off, size = track.first_sample()
+    if off + size > len(data):
+        raise ValueError(f"AVIF {what} sample runs past the file")
+    return _sized(av1_decode.decode(data[off:off + size]), track.width,
+                  track.height)
 
 
 def _from_tracks(data, tracks):
     color = next((t for t in tracks if not t.refs.get(b"auxl")), None)
     if color is None:
         raise ValueError("AVIF sequence without a colour track")
-    off, size = color.first_sample()
-    if off + size > len(data):
-        raise ValueError("AVIF sample runs past the file")
-    frame = av1_decode.decode(data[off:off + size])
+    frame = _track_frame(data, color, "colour")
     alpha = None
     for t in tracks:
         aux = next((p for p, _ in t.props if p.kind == b"auxi"), None)
         if (color.id in t.refs.get(b"auxl", []) and aux is not None
                 and aux.fields.get("aux_type") in ALPHA_URNS):
-            aoff, asize = t.first_sample()
-            if aoff + asize > len(data):
-                raise ValueError("AVIF alpha sample runs past the file")
-            alpha = av1_decode.decode(data[aoff:aoff + asize])
+            alpha = _track_frame(data, t, "alpha")
             break
     return frame, alpha, False, _nclx(color.props)
 
 
 def _item_image(data, f, item, alpha=False):
-    """An av01 item's frame, or a grid's tiles assembled. A colour item's
-    frame must have its ispe's size; an alpha item's only the colour's."""
+    """An av01 item's frame scaled to its ispe, or a grid's tiles
+    assembled."""
     if item.type == b"av01":
         if item.prop(b"av1C") is None:
             raise ValueError(f"AVIF item {item.id} has no av1C property")
         ispe = item.prop(b"ispe")
         if ispe is None:
             raise ValueError(f"AVIF item {item.id} has no ispe property")
-        size = None if alpha else (ispe.fields["width"], ispe.fields["height"])
-        frame = av1_decode.decode(isobmff.item_payload(data, f, item),
-                                  size=size)
+        frame = _sized(av1_decode.decode(isobmff.item_payload(data, f, item)),
+                       ispe.fields["width"], ispe.fields["height"])
         pixi = item.prop(b"pixi")
         if pixi is not None and any(d != frame.seq.bit_depth
                                     for d in pixi.fields["depths"]):
@@ -204,7 +231,8 @@ def _to_rgba(frame, alpha, prem, nclx):
     """libavif takes the matrix and the range from the nclx colr property
     where there is one, else from the AV1 sequence header."""
     seq = frame.seq
-    matrix, full = nclx if nclx is not None else (seq.mc, seq.color_range)
+    matrix, full, primaries = (nclx if nclx is not None
+                               else (seq.mc, seq.color_range, seq.cp))
     a = None
     if alpha is not None:
         if (alpha.width, alpha.height) != (frame.width, frame.height):
@@ -213,4 +241,4 @@ def _to_rgba(frame, alpha, prem, nclx):
         if not alpha.seq.color_range:
             a = avif_yuv.limited_to_full_alpha(a)
     return avif_yuv.yuv_to_rgba(frame.planes, seq.ssx, seq.ssy, bool(full),
-                                matrix, a, prem)
+                                matrix, a, prem, primaries)

@@ -7,14 +7,19 @@ YuvConstants), its bilinear chroma upsampling for 4:2:0 and linear for
 The constants (luma scale YG and bias YB, chroma weights UB UG VG VR) are
 libyuv's kYuvJPEG / F709 / V2020 (full range) and kYuvI601 / H709 / 2020
 (limited range) tables; libavif maps matrix coefficients 1 to BT.709, 2, 5
-and 6 to BT.601 and 9 to BT.2020. Other matrices go through libavif's own
-floating-point path, which the port does not carry: they are refused by
-name.
+and 6 to BT.601 and 9 to BT.2020, and matrix 12 (chromaticity-derived)
+with colour primaries 1 or 2 to BT.709, 5 or 6 to BT.601 and 9 to
+BT.2020. The other matrices it converts (0, 4, 7, 8, 12 with any other
+primaries, 15) go through libavif's own floating-point path
+(assets/avif_reformat.py), and the alpha is unpremultiplied after either
+by libyuv's ARGBUnattenuate. What libavif refuses raises ValueError.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from . import avif_reformat
 
 # (YG, YB, UB, UG, VG, VR)
 _FULL = {"601": (16320, 32, 113, 22, 46, 90), "709": (16320, 32, 119, 12, 30, 101),
@@ -23,6 +28,15 @@ _LIMITED = {"601": (18997, -1160, 128, 25, 52, 102),
             "709": (18997, -1160, 128, 14, 34, 115),
             "2020": (19003, -1160, 128, 12, 42, 107)}
 _MATRIX = {1: "709", 2: "601", 5: "601", 6: "601", 9: "2020"}
+# matrix 12's colour primaries that libavif hands to libyuv's tables
+_DERIVED = {1: "709", 2: "709", 5: "601", 6: "601", 9: "2020"}
+
+
+def libyuv_table(matrix: int, primaries: int) -> str | None:
+    """The libyuv table libavif converts this matrix with, or None."""
+    if matrix == 12:
+        return _DERIVED.get(primaries)
+    return _MATRIX.get(matrix)
 
 
 def _up_linear(s: np.ndarray, n: int) -> np.ndarray:
@@ -85,12 +99,29 @@ def _pixels(Y, U, V, consts):
 
 def yuv_to_rgba(planes: list, ssx: int, ssy: int, full_range: bool,
                 matrix: int, alpha: np.ndarray | None = None,
-                premultiplied: bool = False) -> np.ndarray:
+                premultiplied: bool = False,
+                primaries: int = 1) -> np.ndarray:
     """(H, W, 4) u8 from 8-bit Y[, U, V] planes (and an alpha plane)."""
-    if matrix not in _MATRIX:
-        raise ValueError(f"AVIF matrix coefficients {matrix} (libavif's "
-                         "floating-point conversion) are not read by the port")
-    consts = (_FULL if full_range else _LIMITED)[_MATRIX[matrix]]
+    why = avif_reformat.refusal(matrix, bool(ssx or ssy), len(planes) == 1,
+                                full_range)
+    if why is not None:
+        raise ValueError(f"{why}: libavif's YUV to RGB refuses it")
+    mono = len(planes) == 1
+    table = libyuv_table(matrix, primaries)
+    if mono:
+        # libyuv converts 4:0:0 only into RGBA (the identity with BT.601's
+        # luma); RGB output and the other matrices take libavif's path
+        table = (table or ("601" if matrix == 0 else None)
+                 if alpha is not None else None)
+    if table is None:
+        inline = premultiplied and alpha is not None and \
+            avif_reformat.slow_path(matrix, bool(ssx or ssy), mono,
+                                    full_range)
+        r, g, b = avif_reformat.yuv_to_rgb(planes, ssx, ssy, full_range,
+                                           matrix, primaries,
+                                           alpha if inline else None)
+        return _with_alpha(r, g, b, alpha, premultiplied and not inline)
+    consts = (_FULL if full_range else _LIMITED)[table]
     Y = planes[0].astype(np.int64)
     h, w = Y.shape
     if len(planes) == 1:
@@ -105,6 +136,12 @@ def yuv_to_rgba(planes: list, ssx: int, ssy: int, full_range: bool,
         U = planes[1].astype(np.int64)
         V = planes[2].astype(np.int64)
     r, g, b = _pixels(Y, U, V, consts)
+    return _with_alpha(r, g, b, alpha, premultiplied)
+
+
+def _with_alpha(r, g, b, alpha, premultiplied):
+    """RGBA8, the alpha unpremultiplied by libyuv's ARGBUnattenuate."""
+    h, w = r.shape
     out = np.empty((h, w, 4), np.uint8)
     out[..., 3] = 255
     if alpha is not None:

@@ -131,6 +131,8 @@ class Track:
     sample_sizes: list = field(default_factory=list)
     stsc: list = field(default_factory=list)
     props: list = field(default_factory=list)
+    width: int = 0
+    height: int = 0
 
     def first_sample(self) -> tuple[int, int]:
         if not self.chunk_offsets or not self.sample_sizes or not self.stsc:
@@ -370,6 +372,10 @@ def _trak(data, s, e) -> Track:
                 v, _ = r.full()
                 r.take(16 if v == 1 else 8)
                 t.id = r.u32()
+                # reserved, duration, reserved, layer, alternate group,
+                # volume, reserved, matrix; then 16.16 width and height
+                r.take((12 if v == 1 else 8) + 52)
+                t.width, t.height = r.u32() >> 16, r.u32() >> 16
             elif typ == b"stbl":
                 _stbl(data, bs, be, t)
             elif typ == b"tref":

@@ -5,7 +5,11 @@
 tile grid, per-component precision 1-31 bits, signedness, XRsiz / YRsiz),
 then COD, COC, QCD, QCC, RGN, POC, PPM, TLM, PLM, CRG, COM, CAP and Part
 2's CBD (new bit depths) and MCT (checked, unused) in any order up to the
-first SOT; Part 2's MCC and MCO are refused by name. Markers apply in the order they come, as in
+first SOT; Part 2's MCC and MCO are refused by name. Part 15 (HTJ2K) needs
+nothing of SIZ's Rsiz flag or of CAP, whose body OpenJPEG reads as an
+empty segment of any length: the HT code-block style bit of COD / COC
+alone sends a block to assets/j2k_ht.py; the mixed HT style is refused,
+as OpenJPEG refuses it. Markers apply in the order they come, as in
 j2k.c: a COD sets every component's coding style (a COC before it is
 overwritten), a QCD every component's quantisation, a POC in a tile header
 appends to the progressions the main header gave. An unknown marker in the

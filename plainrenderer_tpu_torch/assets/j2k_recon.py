@@ -31,8 +31,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import j2k_t1, j2k_t2
-from .j2k_codestream import J2kError
+from . import j2k_ht, j2k_t1, j2k_t2
+from .j2k_codestream import HT, J2kError
 
 K = np.float32(1.230174105)
 TWO_INVK = np.float32(1.625732422)
@@ -127,6 +127,17 @@ def _cblk_segments(cb):
     return out
 
 
+def _ht_cblk(cb, w, h, b, tccp):
+    """An HT code-block (assets/j2k_ht.py): OpenJPEG reads a block of one
+    chunk where tier 2 left it in the tile's data, and copies several
+    into its own (aligned) buffer."""
+    align = cb.chunk_at[0] % 4 if len(cb.chunks) == 1 else 0
+    return j2k_ht.decode_cblk(b"".join(cb.chunks),
+                              [(s[2], s[1]) for s in cb.segs], w, h,
+                              cb.numbps, b.numbps, tccp.roishift,
+                              tccp.cblksty, align)
+
+
 def decode_tile(cs, tileno: int, tcp, data: bytes, ppm_state):
     """(tile rectangle, [int32 (h, w) per component]) of one tile."""
     tile, comps = j2k_t2.tile_geometry(cs, tileno, tcp)
@@ -146,7 +157,9 @@ def decode_tile(cs, tileno: int, tcp, data: bytes, ppm_state):
                         cw, chh = cb.x1 - cb.x0, cb.y1 - cb.y0
                         if cw <= 0 or chh <= 0:
                             continue
-                        if cb.chunks:
+                        if cb.chunks and tccp.cblksty & HT:
+                            v = _ht_cblk(cb, cw, chh, b, tccp)
+                        elif cb.chunks:
                             v = j2k_t1.decode_cblk(
                                 _cblk_segments(cb), cw, chh, b.bandno,
                                 cb.numbps, tccp.roishift, tccp.cblksty)

@@ -16,9 +16,10 @@ array), and ``read_packets`` reads each packet: SOP (a warning when
 missing), the header bits with 0xFF bit stuffing (opj_bio), tag trees for
 inclusion and zero bit-planes, the pass count code, Lblock, one length per
 codeword segment (TERMALL ends a segment after every pass, BYPASS after
-the first ten and then after every raw or MQ run), EPH (an error when
-missing), and the data, which
-become each code-block's chunks. Headers come from PPM / PPT when the
+the first ten and then after every raw or MQ run; an HT code-block's
+first segment takes one pass, the cleanup, and the next all the passes
+the packet has left, as t2.c reads them), EPH (an error when missing),
+and the data, which become each code-block's chunks. Headers come from PPM / PPT when the
 codestream moved them there. Bits past the end of the header data read as
 0, so a stream that stops early gives empty packets; a code-block segment
 longer than the data left raises J2kError (strict mode)."""
@@ -40,7 +41,7 @@ def _ceilpow2(a: int, e: int) -> int:
 
 class Cblk:
     __slots__ = ("x0", "y0", "x1", "y1", "numbps", "numlenbits", "segs",
-                 "chunks", "newpasses")
+                 "chunks", "chunk_at", "newpasses")
 
     def __init__(self, x0, y0, x1, y1):
         self.x0, self.y0, self.x1, self.y1 = x0, y0, x1, y1
@@ -48,6 +49,7 @@ class Cblk:
         self.numlenbits = 0
         self.segs = []  # [maxpasses, numpasses, len, newlen, newpasses]
         self.chunks = []
+        self.chunk_at = []  # each chunk's offset in the tile's data
         self.newpasses = 0
 
 
@@ -418,8 +420,6 @@ def read_packets(tcp, comps, tile, data: bytes, ppm):
         tc = comps[compno]
         res = tc.res[resno]
         cblksty = tcp.tccps[compno].cblksty
-        if cblksty & HT:
-            raise J2kError("HTJ2K (Part 15) code-blocks are not read by the port")
         tc.resno_decoded = max(tc.resno_decoded, resno)
         bands = [b for b in res.bands if b.x1 > b.x0 and b.y1 > b.y0]
         if layno == 0:
@@ -433,6 +433,7 @@ def read_packets(tcp, comps, tile, data: bytes, ppm):
                 for cb in pr.cblks:
                     cb.segs = []
                     cb.chunks = []
+                    cb.chunk_at = []
         if sop:
             if end - pos >= 6 and data[pos] == 0xFF and data[pos + 1] == 0x91:
                 pos += 6
@@ -480,7 +481,10 @@ def read_packets(tcp, comps, tile, data: bytes, ppm):
                     first_seg = segno
                     while True:
                         seg = cb.segs[segno]
-                        seg[4] = min(seg[0] - seg[1], n)
+                        if cblksty & HT:   # the cleanup pass, then the rest
+                            seg[4] = 1 if segno == 0 else n
+                        else:
+                            seg[4] = min(seg[0] - seg[1], n)
                         bits = cb.numlenbits + (seg[4].bit_length() - 1)
                         if bits > 32:
                             raise J2kError(f"Invalid bit number {bits} in a packet header")
@@ -509,6 +513,7 @@ def read_packets(tcp, comps, tile, data: bytes, ppm):
                 if pos + seg[3] > end:
                     raise J2kError("read: segment too long for a code-block")
                 cb.chunks.append(data[pos:pos + seg[3]])
+                cb.chunk_at.append(pos)
                 pos += seg[3]
                 seg[2] += seg[3]
                 seg[1] += seg[4]

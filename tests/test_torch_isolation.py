@@ -89,7 +89,9 @@ def test_importing_every_module_loads_no_jax():
               "assets.av1_block", "assets.av1_intra", "assets.av1_intrabc",
               "assets.av1_transform", "assets.av1_loopfilter",
               "assets.av1_cdef", "assets.av1_restoration",
-              "assets.av1_filmgrain",
+              "assets.av1_filmgrain", "assets.avif_reformat",
+              "assets.avif_scale", "assets.jp2", "assets.j2k_codestream",
+              "assets.j2k_t2", "assets.j2k_recon", "assets.j2k_ht",
               "ops.debugviz", "runtime.shell", "runtime.overlay",
               "runtime.app", "parallel.comm", "parallel.sharding"):
         assert "plainrenderer_tpu_torch." + m in loaded, m
