@@ -2658,6 +2658,40 @@ WRITER_SIZES = {".gif": (96, 128), ".eps": (40, 56), ".ps": (40, 56),
                 ".icns": (48, 48), ".jp2": (96, 128), ".j2k": (96, 128),
                 ".webp": (96, 128)}
 WRITER_REFUSED = {".eps": ("RGBA",), ".ps": ("RGBA",), ".mpo": ("RGBA",)}
+# save_image's AVIF writer on writer_image's arrays: the AV1 tile data is
+# the port's own intra search (assets/av1_intra_search.py), so the bytes
+# held are the port's, written on the development host (its integer
+# search gives them on any host; tests/test_torch_formats_avif_write.py
+# holds every other layer to PIL's save): the file's SHA-256 and that of
+# its RGBA decode there
+AVIF_WRITER_SIZES = {".avif": (48, 64)}
+AVIF_WRITER_SHA256 = {
+    ".avif L": "4a4019e720f275ce395a8e8f47f45bfd"
+        "1a0d18cd34f0711840a75b0ce5584ac3",
+    ".avif RGB": "b11ce6ea5840c1ca43cc6a54d32bdac3"
+        "f8477abb4584e797fa7cd8309751b151",
+    ".avif RGBA": "8aebe9c3617cb86b28af4220ce8bffae"
+        "43e9a713c87b907c1349d84b7ed3edae"}
+AVIF_WRITER_DECODED_SHA256 = {
+    ".avif L": "e4318bfa1ea22198db49c3727cb9a6fe"
+        "cef58295ff744971b0a33f73430b586a",
+    ".avif RGB": "48b60c5577416259e65edf27713cea0b"
+        "beafb8e4e3f79282c80b2cab27eab96b",
+    ".avif RGBA": "3c28d3a0e62e53add608cc3ec71f517d"
+        "e300403fa204c9724853a21b22dddfc6"}
+# the port's AVIF saves of two courtyard textures (the one with an alpha
+# item, and a 512 x 512 RGB map), and of their RGBA decodes, as above
+COURTYARD_AVIF_WRITTEN = ("ivy_albedo", "stone_normal")
+COURTYARD_AVIF_WRITTEN_SHA256 = {
+    "ivy_albedo": "2daf9e1ae569d3a3008a8449a2fb331e"
+        "45e0ac9716223e1da7dbae533ba7e08b",
+    "stone_normal": "d08d23afda789fc50a75af0dd80a6c6c"
+        "4228e8431172022ae070085d91e399b8"}
+COURTYARD_AVIF_WRITTEN_DECODED_SHA256 = {
+    "ivy_albedo": "88e966315920946d5a8f14c3e0f995e1"
+        "364e461543eadb4a0ba75dc4a6707715",
+    "stone_normal": "96c7fea934b00ad9685f37e2b6d06f9b"
+        "984a1b30c8f511bb78b62b8e06b9f0b8"}
 WRITER_CLOCK = 1_700_000_000
 WRITER_SHA256 = {
     ".gif L": "74e9bd19791262110431acb607b32a66"
@@ -2854,7 +2888,7 @@ def format_fixtures() -> dict:
 def writer_image(suffix: str, mode: str) -> np.ndarray:
     """A seeded gradient-and-noise picture at WRITER_SIZES[suffix] in mode
     L, RGB or RGBA (a tenth of the RGBA pixels transparent)."""
-    h, w = WRITER_SIZES[suffix]
+    h, w = {**WRITER_SIZES, **AVIF_WRITER_SIZES}[suffix]
     c = {"L": 1, "RGB": 3, "RGBA": 4}[mode]
     rng = np.random.default_rng(sum(map(ord, suffix + mode)))
     y, x = np.mgrid[0:h, 0:w]
@@ -2937,14 +2971,61 @@ def format_writers(tmp: Path) -> dict:
                               save_ms=min(times))
     print("writers equal to PIL's saves (host ms, best of 3): "
           + json.dumps(found), flush=True)
+    for suffix in AVIF_WRITER_SIZES:
+        for mode in ("L", "RGB", "RGBA"):
+            key = f"{suffix} {mode}"
+            path = tmp / f"writer_{mode.lower()}{suffix}"
+            t0 = time.perf_counter()
+            image_io.save_image(path, writer_image(suffix, mode))
+            ms = (time.perf_counter() - t0) * 1e3
+            found[key] = avif_check(path, ms, AVIF_WRITER_SHA256[key],
+                                    AVIF_WRITER_DECODED_SHA256[key], key)
+    return found
+
+
+def avif_check(path: Path, encode_ms: float, digest: str, decoded: str,
+               what: str) -> dict:
+    """A file the port's AVIF writer wrote: its SHA-256 equal to the one
+    written on the development host, the port's decode of it equal to the
+    decode there, and its encode and decode host ms."""
+    data = path.read_bytes()
+    got = hashlib.sha256(data).hexdigest()
+    check(got == digest, f"AVIF {what} written as on the development host "
+          f"({got})")
+    t0 = time.perf_counter()
+    img = image_io.load_image(path)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    got = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+    check(got == decoded, f"AVIF {what} decodes as on the development host "
+          f"({got})")
+    out = dict(bytes=len(data), encode_ms=encode_ms, decode_ms=decode_ms)
+    print(f"AVIF {what} written by the port: {json.dumps(out)}", flush=True)
+    return out
+
+
+def avif_written(tmp: Path) -> dict:
+    """The port's AVIF saves of COURTYARD_AVIF_WRITTEN (RGB normal maps kept
+    RGB), each against the development host's bytes and decode."""
+    found = {}
+    for stem in COURTYARD_AVIF_WRITTEN:
+        img = image_io.load_image(ROOT / "assets" / "demo" / f"{stem}.png")
+        if "normal" in stem and (img[..., 3] == 255).all():
+            img = img[..., :3]
+        path = tmp / f"{stem}.avif"
+        t0 = time.perf_counter()
+        image_io.save_image(path, img)
+        ms = (time.perf_counter() - t0) * 1e3
+        found[stem] = avif_check(path, ms, COURTYARD_AVIF_WRITTEN_SHA256[stem],
+                                 COURTYARD_AVIF_WRITTEN_DECODED_SHA256[stem],
+                                 stem)
     return found
 
 
 def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list, dict]:
     """A .plain of the courtyard whose texture files are re-saved by the
     port's save_image under tmp: kind "tga", "tif", "qoi", "sgi", "im",
-    "jp2_written" or "webp_written" (all 12; the last two as .jp2 and
-    .webp), "bmp_ppm" (the four RGB normal
+    "jp2_written", "webp_written" or "avif_written" (all 12; the last
+    three as .jp2, .webp and .avif), "bmp_ppm" (the four RGB normal
     maps as two BMP and two PPM, the RGBA maps left as PNG) or "jpg" (the
     four RGB maps as JPEG); kinds "jp2", "avif", "htj2k" and "avif_ycgco"
     copy the 12 committed files of COURTYARD_SETS (PIL's lossy JP2 and
@@ -2966,7 +3047,7 @@ def courtyard_copy(tmp: Path, kind: str) -> tuple[Path, list, dict]:
                 suffix = NORMAL_MAPS_ALPHA_FREE.get(src.stem)
             elif kind == "jpg":
                 suffix = ".jpg" if src.stem in COURTYARD_JPEG_SHA256 else None
-            elif kind in ("jp2_written", "webp_written"):
+            elif kind in ("jp2_written", "webp_written", "avif_written"):
                 suffix = "." + kind.split("_")[0]
             else:
                 suffix = "." + kind
@@ -3087,6 +3168,7 @@ def formats_phase(ctx) -> dict:
     found = dict(fixtures=format_fixtures())
     with tempfile.TemporaryDirectory() as tmp:
         found["writers"] = format_writers(Path(tmp))
+        found["avif_written"] = avif_written(Path(tmp))
     base = format_frames(ctx, COURTYARD)
     check(base["textures"] == 12, "the PNG courtyard's 12 texture slots")
     loads = {"png": base["load_s"]}

@@ -7,7 +7,15 @@ syntax (txb skip, eob, base / br levels, Golomb, dc sign, scans) and the
 reconstruction of each transform block in decoding order.
 
 Per-4x4 state (modes, sizes, skips, segment ids, transform sizes) lives in
-frame-wide numpy arrays the post filters read afterwards.
+frame-wide numpy arrays the post filters read afterwards, each in the
+narrowest dtype that holds it (the 8-bit planes as uint8, vectors as
+int32), so a 16384 x 16384 frame fits; arithmetic on samples is int64.
+
+``RecordingDecoder`` is a symbol decoder that also lists every syntax
+element the tile decoder reads from it: (CDF name, context, value) for a
+symbol, ("bool", icdf0, bit) for a bit read at a fixed probability. The
+tile decoder itself is the same with or without it; assets/
+av1_block_encode.py drives it with a symbol writer in the decoder's place.
 """
 
 from __future__ import annotations
@@ -16,7 +24,7 @@ import copy
 
 import numpy as np
 
-from . import av1_intra, av1_intrabc, av1_restoration, av1_transform
+from . import av1_intra, av1_intrabc, av1_msac, av1_restoration, av1_transform
 from .av1_cdf import TABLES
 from .av1_obu import AV1Error, qindex
 
@@ -203,6 +211,14 @@ def default_cdfs(base_q_idx: int) -> dict:
     return copy.deepcopy(_DEFAULTS[qctx])
 
 
+def plane_shape(seq, hdr, p: int) -> tuple:
+    """The (rows, columns) of plane p in the frame state: the frame's mode
+    info grid in samples, with 160 of margin for blocks past its edge."""
+    sx = seq.ssx if p else 0
+    sy = seq.ssy if p else 0
+    return ((hdr.mi_rows * 4) >> sy) + 160, ((hdr.mi_cols * 4) >> sx) + 160
+
+
 class FrameState:
     """What decoding writes and the post filters read."""
 
@@ -229,11 +245,8 @@ class FrameState:
         self.mvs = np.zeros(shape + (2,), np.int32)
         self.decoded_mi = np.zeros(shape, bool)
         for p in range(seq.num_planes):
-            sx = seq.ssx if p else 0
-            sy = seq.ssy if p else 0
-            ph = ((mr * 4) >> sy) + 160
-            pw = ((mc * 4) >> sx) + 160
-            self.planes.append(np.zeros((ph, pw), np.int64))
+            ph, pw = plane_shape(seq, hdr, p)
+            self.planes.append(np.zeros((ph, pw), np.uint8))
             self.lf_tx.append(np.zeros((ph // 4 + 1, pw // 4 + 1), np.int8))
         self.lr = {}
         self.tools = set()   # the coding tools this frame used
@@ -408,8 +421,10 @@ class TileDecoder:
                                "chroma size")
 
     # ------------------------------------------------------------- block
-    def block(self, r, c, bsize):
-        fs, h, seq, sd = self.fs, self.h, self.seq, self.sd
+    def block_setup(self, r, c, bsize):
+        """The block's position, size, chroma and neighbour availability
+        (what block() sets before its first read)."""
+        seq = self.seq
         self.mi_row, self.mi_col, self.mi_size = r, c, bsize
         bw, bh = BLOCK_DIMS[bsize]
         bw4, bh4 = bw >> 2, bh >> 2
@@ -432,6 +447,13 @@ class TileDecoder:
                 self.avail_l_c = self._inside(r, c - 2)
         else:
             self.avail_u_c = self.avail_l_c = False
+
+    def block(self, r, c, bsize):
+        fs, h, seq, sd = self.fs, self.h, self.seq, self.sd
+        self.block_setup(r, c, bsize)
+        bw, bh = BLOCK_DIMS[bsize]
+        bw4, bh4 = self.bw4, self.bh4
+        has_chroma = self.has_chroma
         # intra_frame_mode_info
         self.skip = 0
         if h.seg_id_pre_skip:
@@ -761,32 +783,9 @@ class TileDecoder:
         cdfs = self.c[name + str(n)]
         m = [[0] * bw for _ in range(bh)]
         m[0][0] = sd.ns(n)
-        for i in range(1, oh + ow - 1):
-            for j in range(min(i, ow - 1), max(0, i - oh + 1) - 1, -1):
-                rr, cc = i - j, j
-                scores = [0] * 8
-                order = list(range(8))
-                if cc > 0:
-                    scores[m[rr][cc - 1]] += 2
-                if rr > 0 and cc > 0:
-                    scores[m[rr - 1][cc - 1]] += 1
-                if rr > 0:
-                    scores[m[rr - 1][cc]] += 2
-                for a in range(3):
-                    mx, mi = scores[a], a
-                    for b in range(a + 1, n):
-                        if scores[b] > mx:
-                            mx, mi = scores[b], b
-                    if mi != a:
-                        mo = order[mi]
-                        for k in range(mi, a, -1):
-                            scores[k] = scores[k - 1]
-                            order[k] = order[k - 1]
-                        scores[a] = mx
-                        order[a] = mo
-                hsh = scores[0] + 2 * scores[1] + 2 * scores[2]
-                ctx = PALETTE_COLOR_CONTEXT[hsh]
-                m[rr][cc] = order[sd.symbol(cdfs[ctx])]
+        for rr, cc in color_scan(ow, oh):
+            ctx, order = color_context(m, rr, cc, n)
+            m[rr][cc] = order[sd.symbol(cdfs[ctx])]
         for i in range(oh):
             for j in range(ow, bw):
                 m[i][j] = m[i][ow - 1]
@@ -974,51 +973,10 @@ class TileDecoder:
         if start_x >= max_x or start_y >= max_y:
             return
         tw, th = TX_DIMS[t]
-        row = (start_y << sy) >> 2
-        col = (start_x << sx) >> 2
-        sbm = self.sb4 - 1
-        sub_r = (row & sbm) >> sy
-        sub_c = (col & sbm) >> sx
+        sub_r, sub_c = self._sub(plane, start_x, start_y)
         step_x, step_y = tw >> 2, th >> 2
-        frame = fs.planes[plane]
         if not self.is_inter_:
-            if (plane == 0 and self.pal_y) or (plane and self.pal_uv):
-                if plane == 0:
-                    pal, m = self.colors_y, self.map_y
-                else:
-                    pal = self.colors_u if plane == 1 else self.colors_v
-                    m = self.map_uv
-                pal = np.array(pal, np.int64)
-                frame[start_y:start_y + th, start_x:start_x + tw] = pal[
-                    m[y * 4:y * 4 + th, x * 4:x * 4 + tw]]
-            else:
-                is_cfl = plane > 0 and self.uv_mode_ == UV_CFL
-                if plane == 0:
-                    mode = self.y_mode_
-                    angle = self.angle_y
-                else:
-                    mode = DC_PRED if is_cfl else self.uv_mode_
-                    angle = self.angle_uv
-                dec = self.decoded[plane]
-                have_left = (self.avail_l if plane == 0 else self.avail_l_c) or x > 0
-                have_above = (self.avail_u if plane == 0 else self.avail_u_c) or y > 0
-                ar = bool(dec[sub_r, sub_c + step_x + 1]) if sub_c + step_x + 1 < dec.shape[1] else False
-                bl = bool(dec[sub_r + step_y + 1, sub_c]) if sub_r + step_y + 1 < dec.shape[0] else False
-                fmode = self.filter_mode if (plane == 0 and self.use_filter_intra) else None
-                ftype = self._filter_type(plane) if (
-                    seq.enable_intra_edge_filter and 1 <= mode <= 8) else 0
-                av1_intra.predict(frame, start_x, start_y, _log2(tw), _log2(th),
-                                  mode, angle, have_left, have_above, ar, bl,
-                                  max_x - 1, max_y - 1, self.bd,
-                                  seq.enable_intra_edge_filter, ftype, fmode)
-                if is_cfl:
-                    alpha = self.alpha_u if plane == 1 else self.alpha_v
-                    av1_intra.cfl(frame, fs.planes[0], start_x, start_y, tw, th,
-                                  sx, sy, self.max_luma_w, self.max_luma_h,
-                                  alpha, self.maxv)
-            if plane == 0:
-                self.max_luma_w = start_x + step_x * 4
-                self.max_luma_h = start_y + step_y * 4
+            self.predict_tx(plane, start_x, start_y, t, x, y)
         if not self.skip:
             eob = self._coeffs(start_x, start_y, plane, t)
             if eob > 0:
@@ -1027,6 +985,67 @@ class TileDecoder:
         fs.lf_tx[plane][ly:ly + step_y, lx:lx + step_x] = t
         dec = self.decoded[plane]
         dec[sub_r + 1:sub_r + 1 + step_y, sub_c + 1:sub_c + 1 + step_x] = 1
+
+    def _sub(self, plane, start_x, start_y):
+        """A transform block's place in its superblock's decoded flags."""
+        seq = self.seq
+        sx = seq.ssx if plane else 0
+        sy = seq.ssy if plane else 0
+        row = (start_y << sy) >> 2
+        col = (start_x << sx) >> 2
+        sbm = self.sb4 - 1
+        return (row & sbm) >> sy, (col & sbm) >> sx
+
+    def predict_tx(self, plane, start_x, start_y, t, x, y):
+        """The intra prediction of one transform block (palette, or the
+        block's mode with filter intra, the edge filter and CfL) into the
+        frame, from the block's modes and the neighbours decoded so far."""
+        seq, h, fs = self.seq, self.h, self.fs
+        sx = seq.ssx if plane else 0
+        sy = seq.ssy if plane else 0
+        max_x = (h.mi_cols * 4) >> sx
+        max_y = (h.mi_rows * 4) >> sy
+        tw, th = TX_DIMS[t]
+        sub_r, sub_c = self._sub(plane, start_x, start_y)
+        step_x, step_y = tw >> 2, th >> 2
+        frame = fs.planes[plane]
+        if (plane == 0 and self.pal_y) or (plane and self.pal_uv):
+            if plane == 0:
+                pal, m = self.colors_y, self.map_y
+            else:
+                pal = self.colors_u if plane == 1 else self.colors_v
+                m = self.map_uv
+            pal = np.array(pal, np.int64)
+            frame[start_y:start_y + th, start_x:start_x + tw] = pal[
+                m[y * 4:y * 4 + th, x * 4:x * 4 + tw]]
+        else:
+            is_cfl = plane > 0 and self.uv_mode_ == UV_CFL
+            if plane == 0:
+                mode = self.y_mode_
+                angle = self.angle_y
+            else:
+                mode = DC_PRED if is_cfl else self.uv_mode_
+                angle = self.angle_uv
+            dec = self.decoded[plane]
+            have_left = (self.avail_l if plane == 0 else self.avail_l_c) or x > 0
+            have_above = (self.avail_u if plane == 0 else self.avail_u_c) or y > 0
+            ar = bool(dec[sub_r, sub_c + step_x + 1]) if sub_c + step_x + 1 < dec.shape[1] else False
+            bl = bool(dec[sub_r + step_y + 1, sub_c]) if sub_r + step_y + 1 < dec.shape[0] else False
+            fmode = self.filter_mode if (plane == 0 and self.use_filter_intra) else None
+            ftype = self._filter_type(plane) if (
+                seq.enable_intra_edge_filter and 1 <= mode <= 8) else 0
+            av1_intra.predict(frame, start_x, start_y, _log2(tw), _log2(th),
+                              mode, angle, have_left, have_above, ar, bl,
+                              max_x - 1, max_y - 1, self.bd,
+                              seq.enable_intra_edge_filter, ftype, fmode)
+            if is_cfl:
+                alpha = self.alpha_u if plane == 1 else self.alpha_v
+                av1_intra.cfl(frame, fs.planes[0], start_x, start_y, tw, th,
+                              sx, sy, self.max_luma_w, self.max_luma_h,
+                              alpha, self.maxv)
+        if plane == 0:
+            self.max_luma_w = start_x + step_x * 4
+            self.max_luma_h = start_y + step_y * 4
 
     def _filter_type(self, plane):
         fs, seq = self.fs, self.seq
@@ -1336,6 +1355,41 @@ DC_Q = av1_transform.DC_Q
 AC_Q = av1_transform.AC_Q
 
 
+def color_scan(ow, oh):
+    """The palette colour map's coding order after its first sample: anti-
+    diagonals, each from its top-right sample."""
+    for i in range(1, oh + ow - 1):
+        for j in range(min(i, ow - 1), max(0, i - oh + 1) - 1, -1):
+            yield i - j, j
+
+
+def color_context(m, rr, cc, n):
+    """get_palette_color_context: the context of the map sample at (rr, cc)
+    and the colour order its symbol indexes."""
+    scores = [0] * 8
+    order = list(range(8))
+    if cc > 0:
+        scores[m[rr][cc - 1]] += 2
+    if rr > 0 and cc > 0:
+        scores[m[rr - 1][cc - 1]] += 1
+    if rr > 0:
+        scores[m[rr - 1][cc]] += 2
+    for a in range(3):
+        mx, mi = scores[a], a
+        for b in range(a + 1, n):
+            if scores[b] > mx:
+                mx, mi = scores[b], b
+        if mi != a:
+            mo = order[mi]
+            for k in range(mi, a, -1):
+                scores[k] = scores[k - 1]
+                order[k] = order[k - 1]
+            scores[a] = mx
+            order[a] = mo
+    hsh = scores[0] + 2 * scores[1] + 2 * scores[2]
+    return PALETTE_COLOR_CONTEXT[hsh], order
+
+
 def _psum(cdf, syms):
     n = len(cdf) - 1
     total = 0
@@ -1358,3 +1412,45 @@ def _neg_deinterleave(diff, ref, mx):
     if diff <= 2 * (mx - ref - 1):
         return ref + ((diff + 1) >> 1) if diff & 1 else ref - (diff >> 1)
     return mx - (diff + 1)
+
+
+def cdf_names(*trees) -> dict:
+    """id of every CDF list in the trees (dicts of nested lists) -> (name,
+    index path): the kind of element a read over that CDF is."""
+    out = {}
+
+    def walk(node, name, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k if name is None else name + "." + k, path)
+        elif node and isinstance(node[0], list):
+            for i, v in enumerate(node):
+                walk(v, name, path + (i,))
+        else:
+            out[id(node)] = (name, path)
+
+    for t in trees:
+        walk(t, None, ())
+    return out
+
+
+class RecordingDecoder(av1_msac.SymbolDecoder):
+    """A symbol decoder that appends each element it reads to ``record``:
+    (CDF name, context path, value) or ("bool", icdf0, bit); ``names`` is
+    cdf_names over the tile's CDFs, set once the tile decoder exists."""
+
+    def __init__(self, data, pos, size, disable_cdf_update, record: list):
+        super().__init__(data, pos, size, disable_cdf_update)
+        self.record = record
+        self.names = {}
+
+    def symbol(self, cdf: list) -> int:
+        v = super().symbol(cdf)
+        name, path = self.names.get(id(cdf), ("?", ()))
+        self.record.append((name, path, v))
+        return v
+
+    def bool_prob(self, icdf0: int) -> int:
+        v = super().bool_prob(icdf0)
+        self.record.append(("bool", icdf0, v))
+        return v

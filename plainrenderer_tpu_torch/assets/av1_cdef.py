@@ -126,7 +126,7 @@ def _filter(fs, src, plane, R, C, pri, sec, damping, dirs):
     n = R.size
     yy = y0[:, None, None] + np.arange(hh)[None, :, None]
     xx = x0[:, None, None] + np.arange(w)[None, None, :]
-    x = frame[yy, xx]
+    x = frame[yy, xx].astype(np.int64)
     pri_b = pri[:, None, None]
     sec_b = sec[:, None, None]
     ptap = np.array(PRI_TAPS, np.int64)[pri & 1]      # (n, 2)
@@ -141,7 +141,7 @@ def _filter(fs, src, plane, R, C, pri, sec, damping, dirs):
         ty = yy + sign * off[:, 0][:, None, None]
         tx = xx + sign * off[:, 1][:, None, None]
         ok = (ty >= 0) & (ty < lim_y) & (tx >= 0) & (tx < lim_x)
-        v = frame[np.clip(ty, 0, H - 1), np.clip(tx, 0, W - 1)]
+        v = frame[np.clip(ty, 0, H - 1), np.clip(tx, 0, W - 1)].astype(np.int64)
         return v, ok
 
     for k in range(2):

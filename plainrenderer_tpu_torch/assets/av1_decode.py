@@ -14,8 +14,12 @@ for a 10 or 12-bit image and writes nothing), PIL refuses libaom's superres
 options ("Invalid codec-specific option"), and a layered image needs AV1
 inter prediction, which this intra decoder does not carry. Other encoders
 do write 10-bit AVIF; whether this wheel's dav1d 1.5.1 decodes it is
-unverified. Frames above 8192 x 8192 samples are refused too (the
-decoder's int64 planes; libavif allows 16384 x 16384).
+unverified. Frames above libavif's 16384 x 16384 samples are refused, as
+libavif refuses them (its decoder's default imageSizeLimit; dav1d's frame
+size limit is set to it). The planes are uint8 and the per-4x4 arrays
+int8 (vectors int32): the frame state of a 16384 x 16384 4:2:0 frame
+holds 394 MiB of planes (with their margins) and 398 MiB of per-4x4
+arrays. tests/torch_avif_peak_memory.py measures a whole read's peak.
 """
 
 from __future__ import annotations
@@ -27,17 +31,18 @@ from . import (av1_block, av1_cdef, av1_filmgrain, av1_loopfilter, av1_msac,
                av1_obu, av1_restoration)
 from .av1_obu import AV1Error
 
-# the port's frame size limit (libavif's is 16384 x 16384): the decoder
-# keeps every plane and per-4x4 array of the frame as int64 numpy
-MAX_PIXELS = 8192 * 8192
+# libavif 1.3.0's AVIF_DEFAULT_IMAGE_SIZE_LIMIT, in samples
+MAX_PIXELS = 16384 * 16384
 
 
-def decode(data: bytes, check_trailing: bool = False) -> SimpleNamespace:
-    """The frame in one temporal unit: planes (Y[, U, V]) as int64 arrays
+def decode(data: bytes, check_trailing: bool = False,
+           record: list | None = None) -> SimpleNamespace:
+    """The frame in one temporal unit: planes (Y[, U, V]) as uint8 arrays
     of the frame's size, the sequence and frame headers, and the set of
     coding tools the frame used; check_trailing also fails a tile that
     does not end on its padding (a parse that lost step). Operating point
-    0, as libavif selects it."""
+    0, as libavif selects it. A list passed as record gets one list per
+    tile of the syntax elements read (av1_block.RecordingDecoder)."""
     seq = hdr = None
     fs = None
     tiles_done = 0
@@ -67,19 +72,19 @@ def decode(data: bytes, check_trailing: bool = False) -> SimpleNamespace:
             if hdr.use_superres:
                 raise AV1Error("AV1 superres is not decoded by the port")
             if hdr.upscaled_width * hdr.height > MAX_PIXELS:
-                raise AV1Error("AV1 frame above 8192 x 8192 samples is not "
-                               "decoded by the port")
+                raise AV1Error("AV1 frame above 16384 x 16384 samples "
+                               "(libavif's image size limit)")
             fs = av1_block.FrameState(seq, hdr)
             fs.cdfs = av1_block.default_cdfs(hdr.base_q_idx)
             num_tiles = hdr.tile_cols * hdr.tile_rows
             if typ == av1_obu.OBU_FRAME:
                 tiles_done = _tile_group(fs, data, pos, e, tiles_done,
-                                         check_trailing)
+                                         check_trailing, record)
         elif typ == av1_obu.OBU_TILE_GROUP:
             if fs is None:
                 raise AV1Error("AV1 tile group without a frame header")
             tiles_done = _tile_group(fs, data, s, e, tiles_done,
-                                     check_trailing)
+                                     check_trailing, record)
         elif typ == av1_obu.OBU_REDUNDANT_FRAME_HEADER:
             continue
     if fs is None:
@@ -89,7 +94,7 @@ def decode(data: bytes, check_trailing: bool = False) -> SimpleNamespace:
     return _finish(fs)
 
 
-def _tile_group(fs, data, pos, end, done, check_trailing):
+def _tile_group(fs, data, pos, end, done, check_trailing, record=None):
     h = fs.hdr
     r = av1_obu.BitReader(data, pos, end)
     n = h.tile_cols * h.tile_rows
@@ -112,12 +117,19 @@ def _tile_group(fs, data, pos, end, done, check_trailing):
             p += h.tile_size_bytes
         if size <= 0 or p + size > end:
             raise AV1Error("AV1 tile runs past its tile group")
-        sd = av1_msac.SymbolDecoder(data, p, size, h.disable_cdf_update)
+        if record is None:
+            sd = av1_msac.SymbolDecoder(data, p, size, h.disable_cdf_update)
+        else:
+            record.append([])
+            sd = av1_block.RecordingDecoder(data, p, size,
+                                            h.disable_cdf_update, record[-1])
         cdfs = copy.deepcopy(fs.cdfs)
         td = av1_block.TileDecoder(fs, cdfs, sd, h.mi_row_starts[row],
                                    h.mi_row_starts[row + 1],
                                    h.mi_col_starts[col],
                                    h.mi_col_starts[col + 1])
+        if record is not None:
+            sd.names = av1_block.cdf_names(cdfs, td.mv_cdfs)
         td.decode()
         if sd.shifted >= 8 * size:
             # dav1d fails a tile whose symbol decoder used up its data (a

@@ -96,11 +96,11 @@ def predict(frame, x, y, log2w, log2h, mode, angle_delta, have_left,
         rows = np.minimum(np.arange(y, y + n), lim)
         left[_OFF:_OFF + n] = frame[rows, x - 1]
     if have_above and have_left:
-        corner = frame[y - 1, x - 1]
+        corner = int(frame[y - 1, x - 1])
     elif have_above:
-        corner = frame[y - 1, x]
+        corner = int(frame[y - 1, x])
     elif have_left:
-        corner = frame[y, x - 1]
+        corner = int(frame[y, x - 1])
     else:
         corner = base
     above[_OFF - 1] = left[_OFF - 1] = corner

@@ -5,8 +5,9 @@ delta lf, reference delta), limits and the 4 / 6 / 8 / 14-tap filters.
 
 Within one pass the filters of different edges read and write disjoint
 samples (an edge's filter length is bounded by the transform sizes on both
-sides), so a pass runs on all of its edges at once in numpy and gives the
-specification's sequential result.
+sides), so a pass runs on its edges at once in numpy (in raster-order
+chunks of _EDGES, which bound the filters' arrays on a large frame) and
+gives the specification's sequential result.
 """
 
 from __future__ import annotations
@@ -15,10 +16,11 @@ import numpy as np
 
 from .av1_block import BLOCK_DIMS, TX_DIMS
 
-_BW = np.array([d[0] for d in BLOCK_DIMS], np.int64)
-_BH = np.array([d[1] for d in BLOCK_DIMS], np.int64)
-_TW = np.array([d[0] for d in TX_DIMS], np.int64)
-_TH = np.array([d[1] for d in TX_DIMS], np.int64)
+_BW = np.array([d[0] for d in BLOCK_DIMS], np.int32)
+_BH = np.array([d[1] for d in BLOCK_DIMS], np.int32)
+_TW = np.array([d[0] for d in TX_DIMS], np.int32)
+_TH = np.array([d[1] for d in TX_DIMS], np.int32)
+_EDGES = 1 << 16   # 4-sample edge segments filtered at once
 
 
 def apply(fs):
@@ -35,15 +37,15 @@ def apply(fs):
 def _levels(fs, plane, pass_, mr, mc):
     h = fs.hdr
     i = pass_ if plane == 0 else plane + 1
-    seg = fs.seg_id[mr, mc].astype(np.int64)
+    seg = fs.seg_id[mr, mc]
     if h.delta_lf_multi:
-        dlf = fs.delta_lf[mr, mc, i].astype(np.int64)
+        dlf = fs.delta_lf[mr, mc, i].astype(np.int32)
     else:
-        dlf = fs.delta_lf[mr, mc, 0].astype(np.int64)
+        dlf = fs.delta_lf[mr, mc, 0].astype(np.int32)
     lvl = np.clip(dlf + h.lf_level[i], 0, 63)
     if h.seg_enabled:
         feat = np.array([h.seg_feature[s][1 + i] for s in range(8)], bool)[seg]
-        data = np.array([h.seg_data[s][1 + i] for s in range(8)], np.int64)[seg]
+        data = np.array([h.seg_data[s][1 + i] for s in range(8)], np.int32)[seg]
         lvl = np.where(feat, np.clip(lvl + data, 0, 63), lvl)
     if h.lf_delta_enabled:
         lvl = np.clip(lvl + (h.lf_ref_deltas[0] << (lvl >> 5)), 0, 63)
@@ -66,10 +68,10 @@ def _pass(fs, plane, pass_):
         on = on & (i > 0)
     mr = np.broadcast_to((i << sy) | sy, (rows4, cols4))
     mc = np.broadcast_to((j << sx) | sx, (rows4, cols4))
-    bsize = fs.mi_size[mr, mc].astype(np.int64)
+    bsize = fs.mi_size[mr, mc]
     pw = np.maximum(4, _BW[bsize] >> sx)
     ph = np.maximum(4, _BH[bsize] >> sy)
-    lf_tx = fs.lf_tx[plane][:rows4, :cols4].astype(np.int64)
+    lf_tx = fs.lf_tx[plane][:rows4, :cols4]
     if pass_ == 0:
         prev_tx = np.concatenate([lf_tx[:, :1], lf_tx[:, :-1]], 1)
         pos = np.broadcast_to(j * 4, (rows4, cols4))
@@ -109,15 +111,17 @@ def _pass(fs, plane, pass_):
     thresh = lv >> 4
     # four sample lines per edge segment
     k = np.arange(4)
-    if pass_ == 0:
-        ys = (ei[:, None] * 4 + k[None, :]).ravel()
-        xs = np.repeat(ej * 4, 4)
-    else:
-        ys = np.repeat(ei * 4, 4)
-        xs = (ej[:, None] * 4 + k[None, :]).ravel()
-    rep = lambda a: np.repeat(a, 4)
-    _filter(fs.planes[plane], ys, xs, pass_, rep(sz), rep(limit), rep(blimit),
-            rep(thresh), plane)
+    for a in range(0, ei.size, _EDGES):
+        e = slice(a, a + _EDGES)
+        if pass_ == 0:
+            ys = (ei[e, None] * 4 + k[None, :]).ravel()
+            xs = np.repeat(ej[e] * 4, 4)
+        else:
+            ys = np.repeat(ei[e] * 4, 4)
+            xs = (ej[e, None] * 4 + k[None, :]).ravel()
+        rep = lambda v: np.repeat(v[e], 4)
+        _filter(fs.planes[plane], ys, xs, pass_, rep(sz), rep(limit),
+                rep(blimit), rep(thresh), plane)
 
 
 def _filter(frame, ys, xs, pass_, size, limit, blimit, thresh, plane):

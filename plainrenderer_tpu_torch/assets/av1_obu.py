@@ -126,8 +126,9 @@ def sequence_header(data: bytes, pos: int, end: int) -> SimpleNamespace:
     s.decoder_model_present_for_op = [0]
     s.buffer_removal_time_length = 0
     s.frame_presentation_time_length = 0
+    s.level = 0
     if s.reduced:
-        r.f(5)
+        s.level = r.f(5)
     else:
         s.timing_info_present = r.f(1)
         if s.timing_info_present:
@@ -201,7 +202,8 @@ def sequence_header(data: bytes, pos: int, end: int) -> SimpleNamespace:
         s.bit_depth = 10 if high else 8
     s.mono = 0 if s.profile == 1 else r.f(1)
     s.num_planes = 1 if s.mono else 3
-    if r.f(1):
+    s.color_description_present = r.f(1)
+    if s.color_description_present:
         s.cp, s.tc, s.mc = r.f(8), r.f(8), r.f(8)
     else:
         s.cp = s.tc = s.mc = 2
@@ -271,8 +273,9 @@ def frame_header(data: bytes, pos: int, end: int, seq, tid: int = 0,
         h.allow_screen_content_tools = r.f(1)
     else:
         h.allow_screen_content_tools = seq.force_screen_content_tools
+    h.force_integer_mv_bit = 0
     if h.allow_screen_content_tools and seq.force_integer_mv == 2:
-        r.f(1)
+        h.force_integer_mv_bit = r.f(1)
     if seq.frame_id_numbers_present:
         r.f(seq.frame_id_length)
     frame_size_override = 0 if seq.reduced else r.f(1)
@@ -302,7 +305,8 @@ def frame_header(data: bytes, pos: int, end: int, seq, tid: int = 0,
     h.width = (h.upscaled_width * 8 + h.superres_denom // 2) // h.superres_denom
     h.mi_cols = 2 * ((h.width + 7) >> 3)
     h.mi_rows = 2 * ((h.height + 7) >> 3)
-    if r.f(1):
+    h.render_size_different = r.f(1)
+    if h.render_size_different:
         r.f(16)
         r.f(16)
     h.allow_intrabc = 0
@@ -386,13 +390,16 @@ def frame_header(data: bytes, pos: int, end: int, seq, tid: int = 0,
     h.lf_delta_enabled = 1
     h.lf_ref_deltas = [1, 0, 0, 0, -1, 0, -1, -1]
     h.lf_mode_deltas = [0, 0]
+    h.lf_delta_update = 0
     if not (h.coded_lossless or h.allow_intrabc):
         h.lf_level[0], h.lf_level[1] = r.f(6), r.f(6)
         if seq.num_planes > 1 and (h.lf_level[0] or h.lf_level[1]):
             h.lf_level[2], h.lf_level[3] = r.f(6), r.f(6)
         h.lf_sharpness = r.f(3)
         h.lf_delta_enabled = r.f(1)
-        if h.lf_delta_enabled and r.f(1):
+        if h.lf_delta_enabled:
+            h.lf_delta_update = r.f(1)
+        if h.lf_delta_update:
             for i in range(8):
                 if r.f(1):
                     h.lf_ref_deltas[i] = r.su(7)
@@ -480,7 +487,8 @@ def _tile_info(r: BitReader, seq, h):
     min_log2_tiles = max(min_log2_cols,
                          _tile_log2(max_tile_area_sb, sb_rows * sb_cols))
     col_starts, row_starts = [], []
-    if r.f(1):
+    h.uniform_tile_spacing = r.f(1)
+    if h.uniform_tile_spacing:
         cols_log2 = min_log2_cols
         while cols_log2 < max_log2_cols and r.f(1):
             cols_log2 += 1
@@ -516,8 +524,9 @@ def _tile_info(r: BitReader, seq, h):
     h.mi_row_starts = row_starts + [h.mi_rows]
     h.tile_cols_log2, h.tile_rows_log2 = cols_log2, rows_log2
     h.tile_size_bytes = 4
+    h.context_update_tile_id = 0
     if cols_log2 or rows_log2:
-        r.f(rows_log2 + cols_log2)  # context_update_tile_id
+        h.context_update_tile_id = r.f(rows_log2 + cols_log2)
         h.tile_size_bytes = r.f(2) + 1
 
 

@@ -68,8 +68,10 @@ def _H(T, a, b, flip):
     T[a], T[b] = x + y, x - y
 
 
-def idct(T: list, n: int) -> list:
-    """The inverse DCT of 2**n points on a list of numpy rows."""
+def idct(T: list, n: int, _B=_B, _H=_H) -> list:
+    """The inverse DCT of 2**n points on a list of numpy rows (_B and _H
+    are the butterfly steps; assets/av1_fwd_transform.py passes recorders
+    to read the flow graph off this function)."""
     T = [T[_brev(n, i)] for i in range(1 << n)]
     if n == 6:
         for i in range(16):

@@ -24,7 +24,7 @@ alike; PIL's image has the container's size.
 What the port does not decode raises ValueError naming it: 10 and 12-bit
 streams, superres, several frames in one sample (assets/av1_decode.py),
 the matrix coefficients libavif refuses too (assets/avif_yuv.py), and
-images above 8192 x 8192 samples.
+images above libavif's 16384 x 16384 samples, as libavif refuses them.
 """
 
 from __future__ import annotations
@@ -89,11 +89,8 @@ def _sized(frame, w, h):
         return frame
     if not w or not h:
         raise ValueError("AVIF image of zero size")
-    if w > 32768 or h > 32768 or w * h > 16384 * 16384:
+    if w > 32768 or h > 32768 or w * h > av1_decode.MAX_PIXELS:
         raise ValueError("AVIF image above libavif's size limit")
-    if w * h > av1_decode.MAX_PIXELS:
-        raise ValueError("AVIF image above 8192 x 8192 samples is not "
-                         "decoded by the port")
     seq = frame.seq
     frame.planes = avif_scale.scale_frame(frame.planes, seq.ssx, seq.ssy,
                                           w, h)

@@ -30,6 +30,7 @@ _LIMITED = {"601": (18997, -1160, 128, 25, 52, 102),
 _MATRIX = {1: "709", 2: "601", 5: "601", 6: "601", 9: "2020"}
 # matrix 12's colour primaries that libavif hands to libyuv's tables
 _DERIVED = {1: "709", 2: "709", 5: "601", 6: "601", 9: "2020"}
+_ROWS = 256        # picture rows converted at once
 
 
 def libyuv_table(matrix: int, primaries: int) -> str | None:
@@ -40,8 +41,9 @@ def libyuv_table(matrix: int, primaries: int) -> str | None:
 
 
 def _up_linear(s: np.ndarray, n: int) -> np.ndarray:
-    """libyuv ScaleRowUp2_Linear_Any along the last axis: n outputs."""
-    s = s.astype(np.int64)
+    """libyuv ScaleRowUp2_Linear_Any along the last axis: n outputs
+    (int16)."""
+    s = s.astype(np.int16)
     cw = s.shape[-1]
     x = np.arange(n)
     i = np.clip((x - 1) // 2, 0, cw - 1)
@@ -53,47 +55,54 @@ def _up_linear(s: np.ndarray, n: int) -> np.ndarray:
     return out
 
 
-def _up_bilinear(s: np.ndarray, h: int, w: int) -> np.ndarray:
-    """libyuv I420ToARGBMatrixBilinear's chroma: the first row (and the
-    last of an even height) linear from one chroma row, the others 9:3:3:1
-    from two, the first and last column vertical only."""
-    s = s.astype(np.int64)
+def _up_bilinear(s: np.ndarray, h: int, w: int,
+                 rows: slice = slice(None)) -> np.ndarray:
+    """libyuv I420ToARGBMatrixBilinear's chroma (int16) of an h x w
+    picture, its rows ``rows``: the first row (and the last of an even
+    height) linear from one chroma row, the others 9:3:3:1 from two, the
+    first and last column vertical only."""
     ch = s.shape[0]
-    lin = _up_linear(s, w)                        # (ch, w) horizontal pass
-    out = np.empty((h, w), np.int64)
-    y = np.arange(h)
+    y = np.arange(h)[rows]
     k = np.clip((y - 1) // 2, 0, ch - 1)
     k1 = np.minimum(k + 1, ch - 1)
     near = np.where(y % 2 == 1, k, k1)
     far = np.where(y % 2 == 1, k1, k)
-    # 2D weights: horizontal 3:1 then vertical 3:1 combine to 9:3:3:1 /16;
-    # rebuild them exactly from the four source samples
+    # only the chroma rows these rows read
+    lo = int(min(near.min(), far.min()))
+    s = s[lo:int(max(near.max(), far.max())) + 1].astype(np.int16)
+    near, far = near - lo, far - lo
     x = np.arange(w)
     i = np.clip((x - 1) // 2, 0, s.shape[1] - 1)
     i1 = np.minimum(i + 1, s.shape[1] - 1)
     nx = np.where(x % 2 == 1, i, i1)
     fx = np.where(x % 2 == 1, i1, i)
-    sn = s[near][:, nx]
-    snf = s[near][:, fx]
-    sfn = s[far][:, nx]
-    sff = s[far][:, fx]
-    out[:] = (9 * sn + 3 * snf + 3 * sfn + sff + 8) >> 4
+    # 9:3:3:1 is the vertical 3:1 of the horizontal 3:1 of each chroma row:
+    # the same sum, at most 4,088 before the shift
+    hn = 3 * s[:, nx] + s[:, fx]
+    out = hn[near] * 3
+    out += hn[far]
+    out += 8
+    out >>= 4
     for col, c in ((0, 0), (w - 1, (w - 1) // 2)):
         out[:, col] = (3 * s[near, c] + s[far, c] + 2) >> 2
-    out[0] = lin[0]
-    if h % 2 == 0 and h > 1:
-        out[h - 1] = lin[(h - 1) // 2]
+    if y[0] == 0:
+        out[0] = _up_linear(s[0], w)
+    if h % 2 == 0 and h > 1 and y[-1] == h - 1:
+        out[-1] = _up_linear(s[(h - 1) // 2 - lo], w)
     return out
 
 
 def _pixels(Y, U, V, consts):
+    """u8 R, G, B from u8 luma and int16 chroma. Y * 257 * YG is below
+    2**31 and the chroma terms within int16, so int32 holds every sum."""
     YG, YB, UB, UG, VG, VR = consts
-    y1 = (Y.astype(np.int64) * 257 * YG) >> 16
-    u = U - 128
-    v = V - 128
-    b = np.clip((y1 + UB * u + YB) >> 6, 0, 255)
-    g = np.clip((y1 - (UG * u + VG * v) + YB) >> 6, 0, 255)
-    r = np.clip((y1 + VR * v + YB) >> 6, 0, 255)
+    y1 = (Y.astype(np.int32) * (257 * YG)) >> 16
+    u = U - np.int16(128)
+    v = V - np.int16(128)
+    u8 = lambda t: np.clip((y1 + t + YB) >> 6, 0, 255).astype(np.uint8)
+    b = u8(UB * u)
+    g = u8(-(UG * u + VG * v))
+    r = u8(VR * v)
     return r, g, b
 
 
@@ -122,21 +131,24 @@ def yuv_to_rgba(planes: list, ssx: int, ssy: int, full_range: bool,
                                            alpha if inline else None)
         return _with_alpha(r, g, b, alpha, premultiplied and not inline)
     consts = (_FULL if full_range else _LIMITED)[table]
-    Y = planes[0].astype(np.int64)
+    Y = planes[0]
     h, w = Y.shape
-    if len(planes) == 1:
-        U = V = np.full((h, w), 128, np.int64)
-    elif ssx and ssy:
-        U = _up_bilinear(planes[1], h, w)
-        V = _up_bilinear(planes[2], h, w)
-    elif ssx:
-        U = _up_linear(planes[1], w)
-        V = _up_linear(planes[2], w)
-    else:
-        U = planes[1].astype(np.int64)
-        V = planes[2].astype(np.int64)
-    r, g, b = _pixels(Y, U, V, consts)
-    return _with_alpha(r, g, b, alpha, premultiplied)
+    rgb = np.empty((3, h, w), np.uint8)
+    for r0 in range(0, h, _ROWS):    # bands bound the wide intermediates
+        rows = slice(r0, r0 + _ROWS)
+        if len(planes) == 1:
+            U = V = np.full((len(range(h)[rows]), w), 128, np.int16)
+        elif ssx and ssy:
+            U = _up_bilinear(planes[1], h, w, rows)
+            V = _up_bilinear(planes[2], h, w, rows)
+        elif ssx:
+            U = _up_linear(planes[1][rows], w)
+            V = _up_linear(planes[2][rows], w)
+        else:
+            U = planes[1][rows].astype(np.int16)
+            V = planes[2][rows].astype(np.int16)
+        rgb[:, rows] = _pixels(Y[rows], U, V, consts)
+    return _with_alpha(*rgb, alpha, premultiplied)
 
 
 def _with_alpha(r, g, b, alpha, premultiplied):
@@ -151,6 +163,7 @@ def _with_alpha(r, g, b, alpha, premultiplied):
             ia = np.where(a == 0, 0, np.where(a == 1, 0xFFFF,
                                               0x10000 // np.maximum(a, 1)))
             def un(c):
+                c = np.asarray(c, np.int64)
                 p = c * 257 * ia
                 v = np.where(p >= 1 << 31, 0, np.minimum(255, p >> 16))
                 return np.where(a == 255, c, v)

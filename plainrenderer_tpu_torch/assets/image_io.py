@@ -65,10 +65,13 @@ time.gmtime() as PIL dates it; RGBA as a JPEG 2000 image) and JPEG 2000
 (.jp2, .j2k, .jpc, .jpf, .jpx, .j2c; PIL's lossless default through
 assets/j2k_encode.py, a bare codestream where the file name ends in
 ".j2k" as PIL tests it, case and all, JP2 boxes from assets/jp2.py
-otherwise) and WebP (.webp; PIL's lossy default through
-assets/webp_encode.py); what PIL refuses to write (RGBA as JPEG, MPO,
-PCX, EPS or PS, grey as QOI, a WebP side above 16383) and any other
-suffix raise ValueError and write nothing.
+otherwise), WebP (.webp; PIL's lossy default through
+assets/webp_encode.py) and AVIF (.avif, .avifs; PIL's default through
+assets/avif_write.py: libavif's YUV, container and libaom's frame rules
+byte for byte, the AV1 tile data from the port's own intra search); what
+PIL refuses to write (RGBA as JPEG, MPO, PCX, EPS or PS, grey as QOI, a
+WebP side above 16383, an AVIF side above 65536) and any other suffix
+raise ValueError and write nothing.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import (avif, blp, bmp, dds, eps, fli, gif, icns, ico, im, iptc,
+from . import (avif, avif_write, blp, bmp, dds, eps, fli, gif, icns, ico, im, iptc,
                j2k_encode, jp2, jpeg, jpeg_encode, legacy, modes, pcd, pcx,
                pdf, pnm, psd, qoi, sgi, spider_fits, tga, tiff, webp,
                webp_encode)
@@ -109,13 +112,10 @@ SAVE_FORMATS = {".png": "PNG", ".apng": "PNG", ".bmp": "BMP", ".dib": "DIB",
                 ".ps": "EPS", ".pdf": "PDF", ".mpo": "JPEG",
                 ".jp2": "JPEG2000", ".j2k": "JPEG2000", ".jpc": "JPEG2000",
                 ".jpf": "JPEG2000", ".jpx": "JPEG2000", ".j2c": "JPEG2000",
-                ".webp": "WEBP"}
-# formats PIL writes under these suffixes and the port does not: AVIF
-# (read, not written: PIL writes it with libaom's encoder), and formats PIL
-# refuses for L, RGB and RGBA too
-# (BLP, MSP, XBM, PALM) or has no writer for here (BUFR, GRIB, HDF5, WMF)
-_UNWRITTEN = {".avif": "AVIF", ".avifs": "AVIF",
-              ".blp": "BLP", ".msp": "MSP", ".xbm": "XBM", ".palm": "PALM",
+                ".webp": "WEBP", ".avif": "AVIF", ".avifs": "AVIF"}
+# formats PIL refuses for L, RGB and RGBA (BLP, MSP, XBM, PALM) or has no
+# writer for here (BUFR, GRIB, HDF5, WMF)
+_UNWRITTEN = {".blp": "BLP", ".msp": "MSP", ".xbm": "XBM", ".palm": "PALM",
               ".bufr": "BUFR", ".grib": "GRIB", ".h5": "HDF5",
               ".hdf": "HDF5", ".wmf": "WMF", ".emf": "WMF"}
 
@@ -259,7 +259,7 @@ def save_image(path: str | Path, image: np.ndarray) -> None:
               "PDF": lambda a: pdf.encode_pdf(a, path.stem),
               "JPEG2000": (j2k_encode.encode_j2k if path.name.endswith(".j2k")
                            else jp2.encode_jp2),
-              "WEBP": webp_encode.encode_webp}
+              "WEBP": webp_encode.encode_webp, "AVIF": avif_write.encode}
     path.write_bytes(encode[SAVE_FORMATS[suffix]](img))
 
 

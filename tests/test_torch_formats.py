@@ -1157,7 +1157,7 @@ def test_save_image_writes_what_the_suffix_names(tmp_path, suffix):
                                       _pil(ours.read_bytes()))
 
 
-@pytest.mark.parametrize("suffix", [".avifs", ".avif", ".blp", ".msp",
+@pytest.mark.parametrize("suffix", [".bufr", ".wmf", ".blp", ".msp",
                                     ".exr", ""])
 def test_save_image_refuses_other_suffixes(tmp_path, suffix):
     path = tmp_path / f"a{suffix}"

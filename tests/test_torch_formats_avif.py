@@ -535,12 +535,20 @@ def test_bit_flips_match_jax(tmp_path, seed):
 
 
 def test_save_image_still_refuses_avif(tmp_path):
-    """AVIF is read, not written: .avif and .avifs stay refused."""
+    """AVIF is written now (tests/test_torch_formats_avif_write.py): .avif
+    and .avifs give the same file, which PIL and the port read back alike;
+    only what PIL refuses (a picture of zero size) is still refused."""
+    a = np.zeros((4, 4, 3), np.uint8)
+    a[1:3, 1:3] = (200, 40, 90)
     for suffix in (".avif", ".avifs"):
-        with pytest.raises(ValueError, match="AVIF"):
-            tio.save_image(tmp_path / f"a{suffix}",
-                           np.zeros((4, 4, 3), np.uint8))
-        assert not (tmp_path / f"a{suffix}").exists()
+        tio.save_image(tmp_path / f"a{suffix}", a)
+        assert _same(tmp_path, (tmp_path / f"a{suffix}").read_bytes(),
+                     f"b{suffix}") is not None
+    assert (tmp_path / "a.avif").read_bytes() == \
+        (tmp_path / "a.avifs").read_bytes()
+    with pytest.raises(ValueError, match="AVIF"):
+        tio.save_image(tmp_path / "z.avif", np.zeros((0, 4, 3), np.uint8))
+    assert not (tmp_path / "z.avif").exists()
 
 
 # ------------------------------ fixtures ------------------------------

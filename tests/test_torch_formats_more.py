@@ -758,10 +758,11 @@ def test_other_formats_still_name_themselves(tmp_path):
     is JPEG 2000 (.jp2, .j2k: PIL's decode, bit for bit), which it named
     until slice 20, and AVIF (PIL's decode, bit for bit, through
     assets/avif.py); GIF, ICO, ICNS, EPS / PS, PDF and MPO are written
-    since slice 21 (tests/test_torch_formats_writers.py), and JPEG 2000
-    since slice 22 (tests/test_torch_formats_j2k_write.py); the writers PIL
+    since slice 21 (tests/test_torch_formats_writers.py), JPEG 2000
+    since slice 22 (tests/test_torch_formats_j2k_write.py) and AVIF since
+    slice 26 (tests/test_torch_formats_avif_write.py); the writers PIL
     runs for the suffixes left need codecs the port lacks, refuse L, RGB
-    and RGBA themselves or have no handler here (BUFR, WMF)."""
+    and RGBA themselves or have no handler here (BUFR, GRIB, WMF)."""
     rgb = np.zeros((4, 4, 3), np.uint8)
     for name, fmt in (("a.jp2", None), ("a.j2k", None), ("a.avif", None)):
         Image.fromarray(rgb).save(tmp_path / name)
@@ -773,7 +774,7 @@ def test_other_formats_still_name_themselves(tmp_path):
         with pytest.raises(ValueError, match=fmt):
             tio.load_image(tmp_path / name)
     for suffix, fmt in ((".bufr", "BUFR"),
-                        (".wmf", "WMF"), (".avif", "AVIF"),
+                        (".wmf", "WMF"), (".grib", "GRIB"),
                         (".blp", "BLP"), (".msp", "MSP"), (".xbm", "XBM"),
                         (".palm", "PALM")):
         with pytest.raises(ValueError, match=f"does not write {fmt}"):

@@ -92,6 +92,10 @@ def test_importing_every_module_loads_no_jax():
               "assets.av1_filmgrain", "assets.avif_reformat",
               "assets.avif_scale", "assets.jp2", "assets.j2k_codestream",
               "assets.j2k_t2", "assets.j2k_recon", "assets.j2k_ht",
+              "assets.avif_write", "assets.avif_rgb2yuv", "assets.av1_encode",
+              "assets.av1_intra_search", "assets.av1_block_encode",
+              "assets.av1_msac_encode", "assets.av1_obu_write",
+              "assets.av1_fwd_transform", "assets.av1_quantize",
               "ops.debugviz", "runtime.shell", "runtime.overlay",
               "runtime.app", "parallel.comm", "parallel.sharding"):
         assert "plainrenderer_tpu_torch." + m in loaded, m

@@ -7,7 +7,8 @@ avifImage: width 0, height 4, depth 8, yuvFormat 12, yuvRange 16, planes
 24, row bytes 48, alphaPlane 64, alphaRowBytes 72, alphaPremultiplied 80,
 colorPrimaries 104, transferCharacteristics 106, matrixCoefficients 108.
 avifRGBImage: depth 8, format 12, pixels 48, rowBytes 56. avifEncoder:
-speed 8, quality 32, qualityAlpha 36, min / max quantizer 40 / 44.
+maxThreads 4, speed 8, quality 32, qualityAlpha 36, min / max quantizer
+40 / 44; codec-specific options through avifEncoderSetCodecSpecificOption.
 """
 
 import ctypes
@@ -38,6 +39,8 @@ def lib():
         L.avifImageYUVToRGB.argtypes = [vp, vp]
         L.avifImageRGBToYUV.argtypes = [vp, vp]
         L.avifEncoderCreate.restype = vp
+        L.avifEncoderSetCodecSpecificOption.argtypes = [vp, ctypes.c_char_p,
+                                                        ctypes.c_char_p]
         L.avifEncoderWrite.argtypes = [vp, vp, vp]
         L.avifEncoderDestroy.argtypes = [vp]
         L.avifRWDataFree.argtypes = [vp]
@@ -121,11 +124,8 @@ def scale(plane, dw, dh):
     return out
 
 
-def encode(rgb: np.ndarray, fmt="420", mc=1, full=True, cp=1,
-           quality=-1, lossless=False, speed=6) -> bytes:
-    """An AVIF file libavif writes from RGB8 or RGBA8 pixels: its own RGB
-    to YUV in the given matrix, then avifEncoderWrite (libaom). lossless
-    sets quality and the quantizers to libavif's lossless values."""
+def _rgb_image(rgb, fmt, full, mc, cp):
+    """An avifImage holding avifImageRGBToYUV's planes of RGB8 / RGBA8."""
     L = lib()
     h, w, c = rgb.shape
     img = _image(w, h, fmt, full, mc, cp)
@@ -139,7 +139,45 @@ def encode(rgb: np.ndarray, fmt="420", mc=1, full=True, cp=1,
     _at(ra, 56, ctypes.c_uint32).value = w * c
     r = L.avifImageRGBToYUV(img, rgbi)
     assert r == 0, r
+    return img
+
+
+def rgb_to_yuv(rgb: np.ndarray, fmt="420", mc=6, full=True, cp=1):
+    """avifImageRGBToYUV's [Y, U, V] u8 planes of RGB8 / RGBA8 pixels, and
+    its alpha plane (None for RGB)."""
+    L = lib()
+    h, w, c = rgb.shape
+    img = _rgb_image(rgb, fmt, full, mc, cp)
+    sx, sy = {"444": (0, 0), "422": (1, 0), "420": (1, 1)}[fmt]
+    planes = []
+    for k in range(3):
+        ph, pw = (h, w) if k == 0 else ((h + sy) >> sy, (w + sx) >> sx)
+        planes.append(_get(_at(img, 24 + 8 * k, ctypes.c_void_p).value,
+                           _at(img, 48 + 4 * k, ctypes.c_uint32).value, ph,
+                           pw).copy())
+    alpha = None
+    if c == 4:
+        alpha = _get(_at(img, 64, ctypes.c_void_p).value,
+                     _at(img, 72, ctypes.c_uint32).value, h, w).copy()
+    L.avifImageDestroy(img)
+    return planes, alpha
+
+
+def encode(rgb: np.ndarray, fmt="420", mc=1, full=True, cp=1,
+           quality=-1, lossless=False, speed=6, options=None,
+           max_threads=1) -> bytes:
+    """An AVIF file libavif writes from RGB8 or RGBA8 pixels: its own RGB
+    to YUV in the given matrix, then avifEncoderWrite (libaom) with
+    max_threads and libaom's codec-specific options (a dict, as PIL's
+    advanced=). lossless sets quality and the quantizers to libavif's
+    lossless values."""
+    L = lib()
+    img = _rgb_image(rgb, fmt, full, mc, cp)
     enc = L.avifEncoderCreate()
+    _at(enc, 4, ctypes.c_int).value = max_threads
+    for k, v in (options or {}).items():
+        r = L.avifEncoderSetCodecSpecificOption(enc, k.encode(), v.encode())
+        assert r == 0, (k, r)
     _at(enc, 8, ctypes.c_int).value = speed
     if lossless:
         quality = 100
