@@ -2602,6 +2602,113 @@ COURTYARD_AVIF_YCGCO_SHA256 = {
                "023ec54ceb8f836ca30e035f16c505e1",
     "wood_normal": "83c2d3113396c340902fac87dd5a83eb"
                    "cf07226dad0748da9360aa4d1d1a958d"}
+# tests/test_torch_formats_avif_hbd.py fixture_files: the AVIF fixtures
+# above rewritten to 10 and to 12 bits (tests/torch_avif_depth.py: the
+# sequence header, av1C and pixi), and one courtyard texture at 10 bits;
+# SHA-256 of PIL's RGBA decode of each (libavif 1.3.0 with dav1d 1.5.1),
+# None where PIL refuses the file
+AVIF_HBD_FIXTURES = ROOT / "tests" / "data" / "formats_avif_hbd"
+AVIF_HBD_SHA256 = {
+    "cdef_lr_speed0_10": "68c0ce48ef74614500512824d826b2e1"
+        "a332d3e1c6200803a237068c48769d6d",
+    "cdef_lr_speed0_12": "dedff2e53b764dac5460d40fe5ea1f5d"
+        "6736ab55db9b17a888f43d4fef8d2cfe",
+    "courtyard_wood_albedo_10": "a1f14d7d14e0167f2b3619a1a34aa922"
+        "23b8333f6c0f55ef1f3319108652fd13",
+    "default_rgb_10": "875f2f5e57831bc45fb60a3935eb9e85"
+        "7e30bf7ee1294ad3684112c4190ae21d",
+    "default_rgb_12": "390792a90a008406320b2eb2146c4886"
+        "0ec21aad2124f6cdac8ccc65ce0986a4",
+    "derived_p22_420_10": "f057eead64433efcb9e40eea710df23b"
+        "7a9761cd4a2288ba222f37a1a1e2126d",
+    "derived_p22_420_12": "12dc1b0681403737572f1d04248d8c62"
+        "676049671f00128c6929ac41ac206468",
+    "derived_p9_420_prem_10": "830e19740c1aad5025580e0fcdaa04c1"
+        "a99b8c71372bba2dc5257113123da287",
+    "derived_p9_420_prem_12": "17bad7354a9040ac9a029100a4317f13"
+        "1fd02e66bee0bf544f0939de25bd843d",
+    "fcc_420_limited_10": "5055b05899ef43015812b1b0637790dc"
+        "c910670c6cc28e18af48bbbd83955770",
+    "fcc_420_limited_12": "188dbb66014ef365b0f610f0baa62ceb"
+        "f0753c8d88194d130441f09f3f84082a",
+    "grain_10": "cfa756977cf693caa5e4ac3744165cc5"
+        "e2340d253e0f09b104a1c0c247eff381",
+    "grain_12": "a6f8e8730630512f990ece8d120fe25f"
+        "764abe8b478446026d35c32151611467",
+    "grid_10": "bd328c8e556fd24079c5cb06a6910006"
+        "54888e24f6b887cb4a3299d3a3a60baa",
+    "grid_12": "a7116c68f64624fa47eb40db871a42cb"
+        "d12787ccdce0c852f13470cf1bfc925f",
+    "idat_10": "0fd5105e804197bf1b9e374834bea7ca"
+        "6d5f1e4d9d95af022ab5ea1ed4ebd910",
+    "idat_12": "8f571fd49b5cab733cfb3ae6a7ce2c6c"
+        "1189d9ba942b2aed904aa6d1381700ed",
+    "identity_400_10": "d627de7fe07ba265ba5fec2c41537c88"
+        "325a7ebe10c1b2c83578677df3acbf83",
+    "identity_400_12": "fcc7abbc3c303780d00d71fc7d2965d4"
+        "066420b9d3f813fd04b1acd12a1e44eb",
+    "identity_lossless_texture_10": None,
+    "identity_lossless_texture_12": "59405bb6c3f8bc16105660072b266639"
+        "583c4c9ca0392188154af7abf53c16cd",
+    "ispe_20x16_10": "34dbb46fc4b38744e6b80d12b66a9380"
+        "5ab2171a1f4364d013c80658ceaa2d77",
+    "ispe_20x16_12": "afc832a5fdcea9121b50c6d3cfb479b4"
+        "2c9815f314f8b67a445cbc275c0e3caa",
+    "ispe_30x20_10": "ae23c8ec3c3c7cf4348d11ab03f0eede"
+        "47ae9ca070549069f9f68cd8830f3ab2",
+    "ispe_30x20_12": "fb6cda18632c3c2b7191e05ea88ff9c0"
+        "1f1e4be70eb4a53616d0d9d9068f30d5",
+    "limited_422_10": "e0d76dbf3e1769758784ed47eeaf11ed"
+        "fedffad941981558673c89bcde012ced",
+    "limited_422_12": "6fc1ae77176a71863ff293fb376a3dde"
+        "b2162ea977810cfa206fd4ae4a5f5e07",
+    "lossless_444_10": "59eea4679c2466d73bd86cdf3c3ffc2f"
+        "f3f6ffd0eb65bec8374298d33677a9bb",
+    "lossless_444_12": "caa8fb0ad1900a7b39f7f6e842b7079b"
+        "3f8de8d00a6e434eaf086a27664b61c7",
+    "matrix15_444_10": "5153f5573d6258ffcdfa13a485696e53"
+        "d892de585e970be5298846b1bdeb2f20",
+    "matrix15_444_12": "ad06c917d5304be0a6721fdc1fb7908f"
+        "c98258d5acefcbe4bf2722a25c2425df",
+    "mono_400_10": "f34bafef7d8a9a8475bacd5d0a72f2eb"
+        "a664e4972b5d530520a6bfb516cc10ef",
+    "mono_400_12": "782ff016a4374a96ca68486914ad965f"
+        "5d8631b7cfb9d31e5e59194fae44c807",
+    "qm_10": "4a8cee14ecf158a93385b5e613749579"
+        "ae4c9d6b45c3b59170c340fbb27d6c63",
+    "qm_12": "4fbf6c667d9b02a8d41347e38f8e826e"
+        "6731dfa5c5c451a91b6158feb37e0cf3",
+    "rgba_premultiplied_10": "69c1df98134d00b8070463ded945875c"
+        "a761be9b4f41ac831ba2e0a323a730d5",
+    "rgba_premultiplied_12": "511b79b160d7f8c7e4d3e1a5a724df30"
+        "a735623f5a81c7d8c7bb66a3ce0c6f42",
+    "screen_intrabc_10": "3a03f0ce611409d9bbbac74e935488db"
+        "91eccca70e13a94fb56e04f566f728a5",
+    "screen_intrabc_12": "8d0a53c524a03c64830d735c61bd35c9"
+        "9d1dfd28a674f449dd17d992f0c34d2a",
+    "screen_palette_10": None,
+    "screen_palette_12": None,
+    "sequence_rgba_10": "87a61bb42cca3c1e14d855822584ba67"
+        "18a674d3aedf5ccca54eceedade96e55",
+    "sequence_rgba_12": "0bae45dfca76f038a6f72aad562d49d7"
+        "1d55936ef41bc9a26719231ceff447f6",
+    "smpte240_422_rgba_10": "4791e221402c28fd1fc355999c79e36d"
+        "0ad3a9ac70dc26f559747cd1700ee313",
+    "smpte240_422_rgba_12": "8c62896259ddf9f81dc18f88594a6525"
+        "316d8be13defed0e279fcad915721084",
+    "tiles_10": "57da11b8f7fb01761bcf892388e89fe8"
+        "4d713032443d074a8171748efafd00e8",
+    "tiles_12": "56ada08cbd9b2ee699608a9b13d121a4"
+        "80f3a7bfa593c62f1a4f740594c02b67",
+    "ycgco_420_rgba_10": "fb7ddb0ee0570b1d778b016918ee2b0a"
+        "834262bbc42bb0e55ff0639b4ffe43b8",
+    "ycgco_420_rgba_12": "5a1acbedbae62f87e47c16657933e1d2"
+        "0470b5791f5be629e2d678023a8adfa7",
+    "ycgco_422_10": "c93894c981a9c9ac24b5a929878f7061"
+        "c31de690343e4e254dabe1c084d607d4",
+    "ycgco_422_12": "842c60f46d279797e86b69b464d1c80b"
+        "f250d1a6a1777163230ff5ae76e5bad1",
+}
 # tests/test_torch_formats_htj2k.py fixture_files: HTJ2K (Part 15)
 # code-blocks from the test-side writer, each beside PIL's decode
 # (OpenJPEG 2.5.4) as PNG; courtyard/ the 12 courtyard textures as
@@ -2885,6 +2992,34 @@ def format_fixtures() -> dict:
     return found
 
 
+def avif_hbd_fixtures() -> dict:
+    """The 10 and 12-bit AVIF fixtures through load_image: each decoded to
+    PIL's RGBA (its SHA-256 in AVIF_HBD_SHA256), or refused with
+    ValueError where PIL refuses the file; prints this part's seconds."""
+    t0 = time.perf_counter()
+    names = sorted(p.stem for p in AVIF_HBD_FIXTURES.glob("*.avif"))
+    check(names == sorted(AVIF_HBD_SHA256),
+          f"the 10 / 12-bit AVIF fixtures: {names}")
+    found = {}
+    for name in names:
+        t = time.perf_counter()
+        try:
+            img = image_io.load_image(AVIF_HBD_FIXTURES / f"{name}.avif")
+            got = hashlib.sha256(np.ascontiguousarray(img).tobytes()
+                                 ).hexdigest()
+        except ValueError:
+            got = None
+        found[name] = dict(load_ms=(time.perf_counter() - t) * 1e3,
+                           refused=got is None)
+        check(got == AVIF_HBD_SHA256[name],
+              f"avif_hbd/{name}.avif decodes to PIL's RGBA (SHA-256 "
+              f"{AVIF_HBD_SHA256[name]}, the port's {got})")
+    seconds = time.perf_counter() - t0
+    print(f"10 / 12-bit AVIF fixtures ({len(names)}) equal to PIL's digests "
+          f"in {seconds:.1f} s: " + json.dumps(found), flush=True)
+    return dict(seconds=seconds, files=found)
+
+
 def writer_image(suffix: str, mode: str) -> np.ndarray:
     """A seeded gradient-and-noise picture at WRITER_SIZES[suffix] in mode
     L, RGB or RGBA (a tenth of the RGBA pixels transparent)."""
@@ -3161,11 +3296,13 @@ def formats_phase(ctx) -> dict:
     byte for byte PIL's saves (their digests), and with all 12 as the
     committed AVIF files, as HTJ2K 9/7 codestreams and as YCgCo 4:2:0
     AVIF, each decoded to PIL's RGBA (their digests), each loaded with all
-    12 slots and rendered to frames that are neither black nor white."""
+    12 slots and rendered to frames that are neither black nor white; and
+    the AVIF fixtures rewritten to 10 and 12 bits decoded to PIL's RGBA
+    (their digests)."""
     import tempfile
 
     t_phase = time.perf_counter()
-    found = dict(fixtures=format_fixtures())
+    found = dict(fixtures=format_fixtures(), avif_hbd=avif_hbd_fixtures())
     with tempfile.TemporaryDirectory() as tmp:
         found["writers"] = format_writers(Path(tmp))
         found["avif_written"] = avif_written(Path(tmp))

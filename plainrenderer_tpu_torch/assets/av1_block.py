@@ -8,8 +8,8 @@ reconstruction of each transform block in decoding order.
 
 Per-4x4 state (modes, sizes, skips, segment ids, transform sizes) lives in
 frame-wide numpy arrays the post filters read afterwards, each in the
-narrowest dtype that holds it (the 8-bit planes as uint8, vectors as
-int32), so a 16384 x 16384 frame fits; arithmetic on samples is int64.
+narrowest dtype that holds it (8-bit planes as uint8, 10 and 12-bit ones
+as uint16, vectors as int32), so a 16384 x 16384 frame fits; arithmetic on samples is int64.
 
 ``RecordingDecoder`` is a symbol decoder that also lists every syntax
 element the tile decoder reads from it: (CDF name, context, value) for a
@@ -244,9 +244,10 @@ class FrameState:
         self.tx_type = np.zeros(shape, np.int8)
         self.mvs = np.zeros(shape + (2,), np.int32)
         self.decoded_mi = np.zeros(shape, bool)
+        dtype = np.uint8 if seq.bit_depth == 8 else np.uint16
         for p in range(seq.num_planes):
             ph, pw = plane_shape(seq, hdr, p)
-            self.planes.append(np.zeros((ph, pw), np.uint8))
+            self.planes.append(np.zeros((ph, pw), dtype))
             self.lf_tx.append(np.zeros((ph // 4 + 1, pw // 4 + 1), np.int8))
         self.lr = {}
         self.tools = set()   # the coding tools this frame used
@@ -484,7 +485,8 @@ class TileDecoder:
         if self.use_intrabc:
             self.is_inter_ = 1
             self.y_mode_ = self.uv_mode_ = DC_PRED
-            self.dv = av1_intrabc.read_dv(self)
+            self.dv = av1_intrabc.clip_dv(self, av1_intrabc.read_dv(self),
+                                          bsize)
         else:
             self.is_inter_ = 0
             am = fs.y_mode[r - 1, c] if self.avail_u else DC_PRED
@@ -1287,8 +1289,10 @@ class TileDecoder:
         if plane == 0:
             return int(self.fs.tx_type[y4, x4])
         if self.is_inter_:
+            # the luma type under the chroma sample, inside this block
             seq = self.seq
-            tt = int(self.fs.tx_type[y4 << seq.ssy, x4 << seq.ssx])
+            tt = int(self.fs.tx_type[max(self.mi_row, y4 << seq.ssy),
+                                     max(self.mi_col, x4 << seq.ssx)])
             return tt if tt in TX_SETS[self._tx_set(t)] else 0
         tt = MODE_TO_TXFM[self.uv_mode_]
         return tt if tt in TX_SETS[self._tx_set(t)] else 0
@@ -1300,15 +1304,16 @@ class TileDecoder:
         dq_denom = 2 if pels > 1024 else (1 if pels > 256 else 0)
         aw, ah = TX_DIMS[ADJUSTED[t]]
         q = qindex(h, self.segment_id, self.current_q, False)
+        dc_q, ac_q = DC_Q[(self.bd - 8) >> 1], AC_Q[(self.bd - 8) >> 1]
         if plane == 0:
-            dcq = DC_Q[max(0, min(255, q + h.dq_y_dc))]
-            acq = AC_Q[max(0, min(255, q))]
+            dcq = dc_q[max(0, min(255, q + h.dq_y_dc))]
+            acq = ac_q[max(0, min(255, q))]
         elif plane == 1:
-            dcq = DC_Q[max(0, min(255, q + h.dq_u_dc))]
-            acq = AC_Q[max(0, min(255, q + h.dq_u_ac))]
+            dcq = dc_q[max(0, min(255, q + h.dq_u_dc))]
+            acq = ac_q[max(0, min(255, q + h.dq_u_ac))]
         else:
-            dcq = DC_Q[max(0, min(255, q + h.dq_v_dc))]
-            acq = AC_Q[max(0, min(255, q + h.dq_v_ac))]
+            dcq = dc_q[max(0, min(255, q + h.dq_v_dc))]
+            acq = ac_q[max(0, min(255, q + h.dq_v_ac))]
         qml = h.seg_qm_level[self.segment_id][plane]
         use_qm = (h.using_qmatrix and not self.lossless and qml < 15
                   and self.plane_tx_type < 9)   # 2D transforms only

@@ -2,7 +2,9 @@
 specification, section 7.15): per 8x8 luma block that is not all skip, in
 64x64 areas with a CDEF index, the direction search on the deblocked luma,
 the variance-adjusted primary strength and the primary / secondary taps
-with constrain(), samples outside the frame left out. Every 8x8 block of a
+with constrain(), samples outside the frame left out; above 8 bits the
+search reads the samples shifted down to 8 bits and the strengths and
+damping grow by BitDepth - 8. Every 8x8 block of a
 plane is filtered at once in numpy; all reads are of the deblocked frame,
 so the order of blocks does not matter.
 """
@@ -35,9 +37,10 @@ def _partial_maps():
 _MAPS = _partial_maps()
 
 
-def directions(blocks: np.ndarray):
-    """cdef_direction for (n, 8, 8) luma blocks: (dir, var) arrays."""
-    x = blocks.reshape(-1, 64).astype(np.int64) - 128
+def directions(blocks: np.ndarray, bd: int = 8):
+    """cdef_direction for (n, 8, 8) luma blocks of the bit depth: (dir,
+    var) arrays."""
+    x = (blocks.reshape(-1, 64).astype(np.int64) >> (bd - 8)) - 128
     part = np.einsum("nk,dkp->ndp", x, _MAPS)
     sq = part * part
     cost = np.zeros((x.shape[0], 8), np.int64)
@@ -94,25 +97,27 @@ def apply(fs):
     luma = fs.planes[0]
     ys = (R * 4)[:, None, None] + np.arange(8)[None, :, None]
     xs = (C * 4)[:, None, None] + np.arange(8)[None, None, :]
-    ydir, var = directions(luma[ys, xs])
+    # strengths and damping grow with the bit depth (coeffShift)
+    cs = seq.bit_depth - 8
+    ydir, var = directions(luma[ys, xs], seq.bit_depth)
     src = [p.copy() for p in fs.planes]
-    y_pri = np.array(h.cdef_y_pri, np.int64)[idx]
-    y_sec = np.array(h.cdef_y_sec, np.int64)[idx]
+    y_pri = np.array(h.cdef_y_pri, np.int64)[idx] << cs
+    y_sec = np.array(h.cdef_y_sec, np.int64)[idx] << cs
     dir_y = np.where(y_pri == 0, 0, ydir)
     vs = np.where((var >> 6) > 0, np.minimum(_floor_log2(var >> 6), 12), 0)
     pri = np.where(var > 0, (y_pri * (4 + vs) + 8) >> 4, 0)
-    _filter(fs, src, 0, R, C, pri, y_sec, h.cdef_damping, dir_y)
+    _filter(fs, src, 0, R, C, pri, y_sec, h.cdef_damping + cs, dir_y, cs)
     if seq.num_planes > 1:
-        uv_pri = np.array(h.cdef_uv_pri, np.int64)[idx]
-        uv_sec = np.array(h.cdef_uv_sec, np.int64)[idx]
+        uv_pri = np.array(h.cdef_uv_pri, np.int64)[idx] << cs
+        uv_sec = np.array(h.cdef_uv_sec, np.int64)[idx] << cs
         uvd = np.array(UV_DIR[(seq.ssx, seq.ssy)], np.int64)
         dir_uv = np.where(uv_pri == 0, 0, uvd[ydir])
         for p in (1, 2):
-            _filter(fs, src, p, R, C, uv_pri, uv_sec, h.cdef_damping - 1,
-                    dir_uv)
+            _filter(fs, src, p, R, C, uv_pri, uv_sec,
+                    h.cdef_damping - 1 + cs, dir_uv, cs)
 
 
-def _filter(fs, src, plane, R, C, pri, sec, damping, dirs):
+def _filter(fs, src, plane, R, C, pri, sec, damping, dirs, cs):
     h, seq = fs.hdr, fs.seq
     sx = seq.ssx if plane else 0
     sy = seq.ssy if plane else 0
@@ -129,8 +134,8 @@ def _filter(fs, src, plane, R, C, pri, sec, damping, dirs):
     x = frame[yy, xx].astype(np.int64)
     pri_b = pri[:, None, None]
     sec_b = sec[:, None, None]
-    ptap = np.array(PRI_TAPS, np.int64)[pri & 1]      # (n, 2)
-    stap = np.array(SEC_TAPS, np.int64)[pri & 1]
+    ptap = np.array(PRI_TAPS, np.int64)[(pri >> cs) & 1]      # (n, 2)
+    stap = np.array(SEC_TAPS, np.int64)[(pri >> cs) & 1]
     dirs_a = np.array(DIRECTIONS, np.int64)           # (8, 2, 2)
     total = np.zeros_like(x)
     mx = x.copy()

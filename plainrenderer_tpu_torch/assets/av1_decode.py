@@ -5,21 +5,20 @@ tiles through assets/av1_block.py, then the post filters in the
 specification's order (deblocking, CDEF, loop restoration) and film grain
 as dav1d applies it, and the frame's planes cropped to its size.
 
-Refused by name: 10 and 12-bit streams, superres, and a sample holding
-more than one frame (spatial layers). They stay refused because nothing
-on this box can write such a file to hold the port against PIL, not
-because PIL cannot read one: the wheel's libaom 3.12.1 has no high bit
-depth (avifEncoderWrite returns 7, "Encoding of color planes failed",
-for a 10 or 12-bit image and writes nothing), PIL refuses libaom's superres
-options ("Invalid codec-specific option"), and a layered image needs AV1
-inter prediction, which this intra decoder does not carry. Other encoders
-do write 10-bit AVIF; whether this wheel's dav1d 1.5.1 decodes it is
-unverified. Frames above libavif's 16384 x 16384 samples are refused, as
-libavif refuses them (its decoder's default imageSizeLimit; dav1d's frame
-size limit is set to it). The planes are uint8 and the per-4x4 arrays
-int8 (vectors int32): the frame state of a 16384 x 16384 4:2:0 frame
-holds 394 MiB of planes (with their margins) and 398 MiB of per-4x4
-arrays. tests/torch_avif_peak_memory.py measures a whole read's peak.
+8, 10 and 12-bit streams are decoded (the dequantisation tables, the
+post filters' thresholds and rounding and film grain's ranges follow the
+bit depth). Refused by name: superres and a sample holding more than one
+frame (spatial layers). PIL's wheel cannot write either to hold the port
+against: PIL refuses libaom's superres options ("Invalid codec-specific
+option"), and a layered image needs AV1 inter prediction, which this
+intra decoder does not carry. Frames above libavif's 16384 x 16384
+samples are refused, as libavif refuses them (its decoder's default
+imageSizeLimit; dav1d's frame size limit is set to it). The planes are
+uint8 at 8 bits and uint16 above, the per-4x4 arrays int8 (vectors
+int32): the frame state of a 16384 x 16384 4:2:0 frame holds 394 MiB of
+planes (with their margins) at 8 bits, 788 MiB at 10 or 12, and 398 MiB
+of per-4x4 arrays. tests/torch_avif_peak_memory.py measures a whole
+read's peak.
 """
 
 from __future__ import annotations
@@ -37,8 +36,8 @@ MAX_PIXELS = 16384 * 16384
 
 def decode(data: bytes, check_trailing: bool = False,
            record: list | None = None) -> SimpleNamespace:
-    """The frame in one temporal unit: planes (Y[, U, V]) as uint8 arrays
-    of the frame's size, the sequence and frame headers, and the set of
+    """The frame in one temporal unit: planes (Y[, U, V]) as uint8 (8-bit)
+    or uint16 (10, 12-bit) arrays of the frame's size, the sequence and frame headers, and the set of
     coding tools the frame used; check_trailing also fails a tile that
     does not end on its padding (a parse that lost step). Operating point
     0, as libavif selects it. A list passed as record gets one list per
@@ -65,9 +64,6 @@ def decode(data: bytes, check_trailing: bool = False,
                     raise AV1Error("AV1 frame header before the last tile")
                 raise AV1Error("AV1 sample with more than one frame "
                                "(spatial layers) is not decoded by the port")
-            if seq.bit_depth != 8:
-                raise AV1Error(f"AV1 {seq.bit_depth}-bit stream is not "
-                               "decoded by the port")
             hdr, pos = av1_obu.frame_header(data, s, e, seq, tid, sid)
             if hdr.use_superres:
                 raise AV1Error("AV1 superres is not decoded by the port")

@@ -81,7 +81,7 @@ def tile_log2s(w: int, h: int) -> tuple:
 
 
 def lf_level(qindex: int) -> int:
-    q = int(AC_Q[qindex])
+    q = int(AC_Q[0, qindex])
     return max(0, min(63, (q * 17563 - 421574 + (1 << 17)) >> 18))
 
 

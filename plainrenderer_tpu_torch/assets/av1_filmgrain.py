@@ -2,7 +2,9 @@
 dav1d applies to the output as libavif asks it to: the 16-bit LFSR, the
 luma and chroma grain templates with their autoregressive filters, the
 piecewise-linear scaling functions, the 32x32 noise blocks with their
-random offsets and overlap blending, and the noise added to each plane.
+random offsets and overlap blending, and the noise added to each plane;
+the grain range, its rounding, the scaling function's interpolation and
+the clipping ranges follow the bit depth.
 The random draws and the autoregressive filter are serial; the blocks and
 the blending are numpy.
 """
@@ -43,24 +45,34 @@ def _template(rng, h, w, shift, active):
     return out
 
 
-def _scaling(points):
+def _scaling(points, bd):
+    """The scaling function over every sample value of the bit depth: the
+    256-entry piecewise-linear lookup, and above 8 bits scale_lut's
+    interpolation between its entries."""
     lut = np.zeros(256, np.int64)
-    if not points:
+    if points:
+        lut[:points[0][0]] = points[0][1]
+        for i in range(len(points) - 1):
+            dy = points[i + 1][1] - points[i][1]
+            dx = points[i + 1][0] - points[i][0]
+            delta = dy * ((65536 + (dx >> 1)) // dx)
+            for x in range(dx):
+                lut[points[i][0] + x] = (points[i][1]
+                                         + ((x * delta + 32768) >> 16))
+        lut[points[-1][0]:] = points[-1][1]
+    s = bd - 8
+    if not s:
         return lut
-    lut[:points[0][0]] = points[0][1]
-    for i in range(len(points) - 1):
-        dy = points[i + 1][1] - points[i][1]
-        dx = points[i + 1][0] - points[i][0]
-        delta = dy * ((65536 + (dx >> 1)) // dx)
-        for x in range(dx):
-            lut[points[i][0] + x] = points[i][1] + ((x * delta + 32768) >> 16)
-    lut[points[-1][0]:] = points[-1][1]
-    return lut
+    v = np.arange(1 << bd)
+    x = v >> s
+    nxt = lut[np.minimum(x + 1, 255)]
+    return lut[x] + (((nxt - lut[x]) * (v - (x << s)) + (1 << (s - 1))) >> s)
 
 
 def apply(planes, seq, g):
-    bd = 8
-    gmin, gmax = -128, 127
+    bd = seq.bit_depth
+    up = bd - 8     # the 8-bit ranges scaled to the depth
+    gmin, gmax = -(128 << up), (128 << up) - 1
     mono = seq.num_planes == 1
     sx, sy = seq.ssx, seq.ssy
     shift = 12 - bd + g.grain_scale_shift
@@ -116,18 +128,21 @@ def apply(planes, seq, g):
                     cr[y][x] = max(gmin, min(gmax, cr[y][x] + _round2(s1, ar_shift)))
         grains += [cb, cr]
     grains = [np.array(t, np.int64) for t in grains]
-    luts = [_scaling(g.y_points)]
+    luts = [_scaling(g.y_points, bd)]
     if not mono:
-        luts.append(_scaling(g.y_points if g.chroma_from_luma else g.cb_points))
-        luts.append(_scaling(g.y_points if g.chroma_from_luma else g.cr_points))
+        luts.append(_scaling(g.y_points if g.chroma_from_luma else g.cb_points,
+                             bd))
+        luts.append(_scaling(g.y_points if g.chroma_from_luma else g.cr_points,
+                             bd))
     H, W = planes[0].shape
     noise = _noise(grains, g, H, W, sx, sy, len(planes), gmin, gmax)
     out = [p.astype(np.int64) for p in planes]
     if g.clip_restricted:
-        lo, max_y = 16, 235
-        max_c = max_y if seq.mc == 0 else 240
+        lo, max_y = 16 << up, 235 << up
+        max_c = max_y if seq.mc == 0 else 240 << up
     else:
-        lo, max_y, max_c = 0, 255, 255
+        lo, max_y = 0, (256 << up) - 1
+        max_c = max_y
     ss = g.scaling_shift
     Y = out[0]
     if not mono:
@@ -149,7 +164,8 @@ def apply(planes, seq, g):
                 merged = avg
             else:
                 comb = avg * (lmult - 128) + orig * (mult - 128)
-                merged = np.clip((comb >> 6) + (off - 256), 0, 255)
+                merged = np.clip((comb >> 6) + ((off - 256) << up), 0,
+                                 (256 << up) - 1)
             n = _round2(luts[k][merged] * noise[k], ss)
             out[k] = np.clip(orig + n, lo, max_c)
     if g.y_points:

@@ -79,7 +79,7 @@ H4 = np.array([[1, 1, 1, 1], [1, -1, 1, -1], [1, 1, -1, -1], [1, -1, -1, 1]],
 def rdmult(qindex: int) -> int:
     """libaom's key-frame RDMULT: q^2 (3.3 + 0.0015 q) at the DC step q,
     in integers (q^2 (33000 + 15 q) / 10000)."""
-    q = int(DC_Q[qindex])
+    q = int(DC_Q[0, qindex])
     return q * q * (33000 + 15 * q) // 10000
 
 
@@ -242,8 +242,8 @@ class Search(Plan):
         tw, th = TX_DIMS[t]
         co = av1_fwd_transform.forward_2d(res, tt)
         ls = av1_quantize.log_scale(tw, th)
-        step = np.full(co.shape, int(av1_quantize.AC_Q[self.q]), np.int64)
-        step[0, 0] = int(DC_Q[self.q])
+        step = np.full(co.shape, int(av1_quantize.AC_Q[0, self.q]), np.int64)
+        step[0, 0] = int(DC_Q[0, self.q])
         a = np.abs(co)
         up = ((a << ls) + (step >> 1)) // step
         if not up.any():
@@ -431,8 +431,8 @@ class Search(Plan):
         co = av1_fwd_transform.forward_2d(res, tt)
         ls = av1_quantize.log_scale(tw, th)
         lv = av1_quantize.quantize_b(co, self.q, ls)
-        step = np.full(lv.shape, int(av1_quantize.AC_Q[self.q]), np.int64)
-        step[0, 0] = int(DC_Q[self.q])
+        step = np.full(lv.shape, int(av1_quantize.AC_Q[0, self.q]), np.int64)
+        step[0, 0] = int(DC_Q[0, self.q])
         dq = (np.abs(lv) * step) >> ls
         e = np.abs(co) - dq
         return lv, int((e * e).sum()) >> (6 - 2 * ls), self.coef_rate(lv, t, tt, plane)

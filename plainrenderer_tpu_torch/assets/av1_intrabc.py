@@ -4,8 +4,9 @@ stack from the neighbouring intrabc blocks (rows and columns 1, 3 and 5
 away, the top-right and top-left points, weights, the stable bubble sort,
 the global zero fill and the clamp), the default vector when the first two
 are zero, the vector read (joint, sign, class, class0 bit, bits; integer
-precision), and the prediction: a bilinear 2D filter over the current
-frame before any post filter, which for an integer luma vector is a copy.
+precision) with dav1d's repair of a vector outside the decoded area, and
+the prediction: a bilinear 2D filter over the current frame before any
+post filter, which for an integer luma vector is a copy.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import copy
 
 import numpy as np
+
+from .av1_obu import AV1Error
 
 REF_CAT_LEVEL = 640
 MAX_STACK = 8
@@ -172,6 +175,44 @@ def read_dv(td):
     return (pred[0] + diff[0], pred[1] + diff[1])
 
 
+def clip_dv(td, dv, bsize):
+    """dav1d's repair of a vector that reaches outside the decoded part of
+    the tile (decode.c, after read_mv_residual): the source block moved
+    inside the tile's left, right and top edges, then out of the current
+    superblock (up into the row above where it fits, else left) and up
+    into the current superblock row; a vector that still overlaps the
+    current superblock fails the frame, as dav1d fails it."""
+    bw4, bh4 = (d >> 2 for d in td.block_dims[bsize])
+    left, top = td.c0 * 4, td.r0 * 4
+    if td.has_chroma:
+        left += 4 if bw4 < 2 and td.seq.ssx else 0
+        top += 4 if bh4 < 2 and td.seq.ssy else 0
+    x0 = td.mi_col * 4 + (dv[1] >> 3)
+    y0 = td.mi_row * 4 + (dv[0] >> 3)
+    x1, y1 = x0 + bw4 * 4, y0 + bh4 * 4
+    right = ((td.c1 + bw4 - 1) & ~(bw4 - 1)) * 4
+    if x0 < left:
+        x1, x0 = x1 + left - x0, left
+    elif x1 > right:
+        x0, x1 = x0 - (x1 - right), right
+    if y0 < top:
+        y1, y0 = y1 + top - y0, top
+    lg = 4 + td.seq.use_128
+    sbx = (td.mi_col >> lg) << (lg + 2)
+    sby = (td.mi_row >> lg) << (lg + 2)
+    if y1 > sby and x1 > sbx:
+        if y0 - top >= y1 - sby:
+            y0, y1 = y0 - (y1 - sby), sby
+        elif x0 - left >= x1 - sbx:
+            x0, x1 = x0 - (x1 - sbx), sbx
+    if y1 > sby + (4 << lg):
+        y0, y1 = y0 - (y1 - sby - (4 << lg)), sby + (4 << lg)
+    if y1 > sby and x1 > sbx:
+        raise AV1Error("AV1 intra block copy vector overlaps the current "
+                       "superblock")
+    return ((y0 - td.mi_row * 4) * 8, (x0 - td.mi_col * 4) * 8)
+
+
 def _component(sd, c):
     sign = sd.symbol(c["sign"])
     cls = sd.symbol(c["class"])
@@ -204,8 +245,10 @@ def predict(td, plane):
     y0 = (td.mi_row >> sy) * 4
     mvr, mvc = td.dv
     ref = fs.planes[plane]
-    last_x = ((h.upscaled_width + sx) >> sx) - 1
-    last_y = ((h.height + sy) >> sy) - 1
+    # dav1d clamps an intra block copy's reads to the decoded area, the
+    # frame rounded up to 8 samples, not to the visible frame
+    last_x = ((h.mi_cols * 4) >> sx) - 1
+    last_y = ((h.mi_rows * 4) >> sy) - 1
     start_x = (((x0 << 4) + ((2 * mvc) >> sx)) << 6) + 32
     start_y = (((y0 << 4) + ((2 * mvr) >> sy)) << 6) + 32
     # BILINEAR taps: [.., 128 - 8f, 8f, ..] at the 3rd and 4th of 8
@@ -216,9 +259,14 @@ def predict(td, plane):
     c0 = np.clip((xs >> 10), 0, last_x)
     c1 = np.clip((xs >> 10) + 1, 0, last_x)
     block = ref[rows].astype(np.int64)
-    inter = ((128 - 8 * fx) * block[:, c0] + 8 * fx * block[:, c1] + 4) >> 3
+    # InterRound0 / InterRound1 of a single prediction: 3 / 11, at 12 bits
+    # 5 / 9
+    r0_, r1_ = (5, 9) if seq.bit_depth == 12 else (3, 11)
+    inter = (((128 - 8 * fx) * block[:, c0] + 8 * fx * block[:, c1]
+              + (1 << (r0_ - 1))) >> r0_)
     ys = (start_y & 1023) + 1024 * np.arange(ph)
     fy = ((ys >> 6) & 15)[:, None]
     r0 = (ys >> 10) + 3
-    pred = ((128 - 8 * fy) * inter[r0] + 8 * fy * inter[r0 + 1] + 1024) >> 11
+    pred = (((128 - 8 * fy) * inter[r0] + 8 * fy * inter[r0 + 1]
+             + (1 << (r1_ - 1))) >> r1_)
     ref[y0:y0 + ph, x0:x0 + pw] = np.clip(pred, 0, (1 << seq.bit_depth) - 1)

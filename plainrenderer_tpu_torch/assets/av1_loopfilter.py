@@ -1,7 +1,8 @@
 """AV1 deblocking (the AV1 specification, section 7.14): per plane, every
 vertical edge, then every horizontal edge, each 4-sample edge segment with
 its transform and block edge rules, filter size, level (segment feature,
-delta lf, reference delta), limits and the 4 / 6 / 8 / 14-tap filters.
+delta lf, reference delta), limits (shifted by BitDepth - 8) and the 4 /
+6 / 8 / 14-tap filters.
 
 Within one pass the filters of different edges read and write disjoint
 samples (an edge's filter length is bounded by the transform sizes on both
@@ -109,6 +110,8 @@ def _pass(fs, plane, pass_):
         limit = np.maximum(1, lv >> shift)
     blimit = 2 * (lv + 2) + limit
     thresh = lv >> 4
+    bd = seq.bit_depth
+    shift = bd - 8
     # four sample lines per edge segment
     k = np.arange(4)
     for a in range(0, ei.size, _EDGES):
@@ -120,11 +123,14 @@ def _pass(fs, plane, pass_):
             ys = np.repeat(ei[e] * 4, 4)
             xs = (ej[e, None] * 4 + k[None, :]).ravel()
         rep = lambda v: np.repeat(v[e], 4)
-        _filter(fs.planes[plane], ys, xs, pass_, rep(sz), rep(limit),
-                rep(blimit), rep(thresh), plane)
+        _filter(fs.planes[plane], ys, xs, pass_, rep(sz),
+                rep(limit) << shift, rep(blimit) << shift,
+                rep(thresh) << shift, plane, bd)
 
 
-def _filter(frame, ys, xs, pass_, size, limit, blimit, thresh, plane):
+def _filter(frame, ys, xs, pass_, size, limit, blimit, thresh, plane, bd):
+    """The edge segments' filters; limit, blimit and thresh are already
+    shifted to the bit depth."""
     H, W = frame.shape
     off = np.arange(-7, 7)
     if pass_ == 0:
@@ -145,29 +151,31 @@ def _filter(frame, ys, xs, pass_, size, limit, blimit, thresh, plane):
     m6 = (ad(p[2], p[1]) <= limit) & (ad(q[2], q[1]) <= limit)
     m8 = m6 & (ad(p[3], p[2]) <= limit) & (ad(q[3], q[2]) <= limit)
     mask = mask & np.where(is6, m6, True) & np.where(is8, m8, True)
-    flat6 = ((ad(p[1], p[0]) <= 1) & (ad(q[1], q[0]) <= 1)
-             & (ad(p[2], p[0]) <= 1) & (ad(q[2], q[0]) <= 1))
-    flat8 = flat6 & (ad(p[3], p[0]) <= 1) & (ad(q[3], q[0]) <= 1)
+    one = 1 << (bd - 8)
+    flat6 = ((ad(p[1], p[0]) <= one) & (ad(q[1], q[0]) <= one)
+             & (ad(p[2], p[0]) <= one) & (ad(q[2], q[0]) <= one))
+    flat8 = flat6 & (ad(p[3], p[0]) <= one) & (ad(q[3], q[0]) <= one)
     flat = np.where(plane > 0, flat6, flat8) & (size >= 8)
-    flat2 = ((size >= 16) & (ad(p[6], p[0]) <= 1) & (ad(q[6], q[0]) <= 1)
-             & (ad(p[5], p[0]) <= 1) & (ad(q[5], q[0]) <= 1)
-             & (ad(p[4], p[0]) <= 1) & (ad(q[4], q[0]) <= 1))
+    flat2 = ((size >= 16) & (ad(p[6], p[0]) <= one) & (ad(q[6], q[0]) <= one)
+             & (ad(p[5], p[0]) <= one) & (ad(q[5], q[0]) <= one)
+             & (ad(p[4], p[0]) <= one) & (ad(q[4], q[0]) <= one))
     narrow = mask & ((size == 4) | ~flat)
     wide8 = mask & ~narrow & ((size == 8) | ~flat2)
     wide16 = mask & ~narrow & ~wide8
     out = s.copy()
     if narrow.any():
-        c = lambda v: np.clip(v, -128, 127)
-        ps1, ps0, qs0, qs1 = p[1] - 128, p[0] - 128, q[0] - 128, q[1] - 128
+        half = 1 << (bd - 1)    # 0x80 << (bd - 8), and filter4_clamp's
+        c = lambda v: np.clip(v, -half, half - 1)
+        ps1, ps0, qs0, qs1 = p[1] - half, p[0] - half, q[0] - half, q[1] - half
         f = np.where(hev, c(ps1 - qs1), 0)
         f = c(f + 3 * (qs0 - ps0))
         f1 = c(f + 4) >> 3
         f2 = c(f + 3) >> 3
-        oq0 = c(qs0 - f1) + 128
-        op0 = c(ps0 + f2) + 128
+        oq0 = c(qs0 - f1) + half
+        op0 = c(ps0 + f2) + half
         f = (f1 + 1) >> 1
-        oq1 = np.where(hev, q[1], c(qs1 - f) + 128)
-        op1 = np.where(hev, p[1], c(ps1 + f) + 128)
+        oq1 = np.where(hev, q[1], c(qs1 - f) + half)
+        op1 = np.where(hev, p[1], c(ps1 + f) + half)
         for col, v in ((5, op1), (6, op0), (7, oq0), (8, oq1)):
             out[:, col] = np.where(narrow, v, out[:, col])
     for sel, log2 in ((wide8, 3), (wide16, 4)):

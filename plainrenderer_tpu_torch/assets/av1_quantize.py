@@ -28,7 +28,7 @@ def _invert(d: int) -> tuple:
 def params(qindex: int) -> dict:
     """(DC, AC) steps, quant, quant_shift, zbin and round at qindex."""
     q = max(0, min(255, qindex))
-    steps = (int(DC_Q[q]), int(AC_Q[q]))
+    steps = (int(DC_Q[0, q]), int(AC_Q[0, q]))
     zf = 64 if q == 0 else (84 if steps[0] < 148 else 80)
     rf = 64 if q == 0 else 48
     out = {"step": steps, "quant": [], "shift": [], "zbin": [], "round": []}

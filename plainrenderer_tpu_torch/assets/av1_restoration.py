@@ -142,6 +142,7 @@ def apply(fs, deblocked):
     """Loop restoration of fs.planes (the CDEF output) in place, reading
     the deblocked planes above and below each stripe."""
     h, seq = fs.hdr, fs.seq
+    bd = seq.bit_depth
     cdef = [p.copy() for p in fs.planes]
     for plane in range(seq.num_planes):
         if h.lr_type[plane] == RESTORE_NONE:
@@ -171,12 +172,13 @@ def apply(fs, deblocked):
                     continue
                 kind, params = fs.lr.get((plane, ur, uc), (RESTORE_NONE, None))
                 if kind == RESTORE_WIENER:
-                    out = _wiener(src, y0, y1, x0, x1, params)
+                    out = _wiener(src, y0, y1, x0, x1, params, bd)
                 elif kind == RESTORE_SGRPROJ:
-                    out = _sgr(src, cdef[plane], y0, y1, x0, x1, params)
+                    out = _sgr(src, cdef[plane], y0, y1, x0, x1, params, bd)
                 else:
                     continue
-                fs.planes[plane][y0:y1, x0:x1] = np.clip(out, 0, 255)
+                fs.planes[plane][y0:y1, x0:x1] = np.clip(out, 0,
+                                                         (1 << bd) - 1)
             n += 1
 
 
@@ -200,7 +202,7 @@ def _stripe_source(cdef, deb, start, end, pw, ph, y0, y1):
     return out, y0 - _PAD, -_PAD
 
 
-def _wiener(src, y0, y1, x0, x1, coef):
+def _wiener(src, y0, y1, x0, x1, coef, bd):
     s, oy, ox = src
     v = _taps(coef[0])
     hf = _taps(coef[1])
@@ -208,14 +210,16 @@ def _wiener(src, y0, y1, x0, x1, coef):
     acc = 0
     for t in range(7):
         acc = acc + hf[t] * s[rows, x0 + t - 3 - ox:x1 + t - 3 - ox]
-    offset = 1 << (8 + 7 - 3 - 1)
-    limit = (1 << (8 + 1 + 7 - 3)) - 1
-    inter = np.clip((acc + 4) >> 3, -offset, limit - offset)
+    # InterRound0 / InterRound1 of a single prediction (12 bits: 5 / 9)
+    r0, r1 = (5, 9) if bd == 12 else (3, 11)
+    offset = 1 << (bd + 7 - r0 - 1)
+    limit = (1 << (bd + 1 + 7 - r0)) - 1
+    inter = np.clip((acc + (1 << (r0 - 1))) >> r0, -offset, limit - offset)
     hh = y1 - y0
     acc = 0
     for t in range(7):
         acc = acc + v[t] * inter[t:t + hh]
-    return (acc + (1 << 10)) >> 11
+    return (acc + (1 << (r1 - 1))) >> r1
 
 
 def _taps(c):
@@ -244,7 +248,7 @@ def _box(s, r, ya, yb, xa, xb):
     return win(c1), win(c2)
 
 
-def _sgr(src, cdef, y0, y1, x0, x1, params):
+def _sgr(src, cdef, y0, y1, x0, x1, params, bd):
     s, oy, ox = src
     sgr_set, xqd = params
     r0, e0, r1, e1 = SGR_PARAMS[sgr_set]
@@ -258,7 +262,10 @@ def _sgr(src, cdef, y0, y1, x0, x1, params):
         xa, xb = x0 - 1 - ox, x1 + 1 - ox
         b, a = _box(s, r, ya, yb, xa, xb)
         n = (2 * r + 1) ** 2
-        p = np.maximum(0, a * n - b * b)
+        sh = bd - 8    # the sums taken back to 8-bit scale
+        d = (b + ((1 << sh) >> 1)) >> sh
+        a = (a + ((1 << (2 * sh)) >> 1)) >> (2 * sh)
+        p = np.maximum(0, a * n - d * d)
         z = (p * scale + (1 << 19)) >> 20
         a2 = X_BY_XPLUS1[np.minimum(z, 255)]
         one_over_n = ((1 << 12) + n // 2) // n

@@ -1,9 +1,12 @@
 """AV1 reconstruction (the AV1 specification, section 7.13): dequantization
-with the Dc / Ac lookup tables and the quantizer matrices, and the inverse
-DCT (4-64), ADST (4, 8, 16) with flipped ADST, the identity transforms
-(4-32) and the Walsh-Hadamard transform of lossless blocks, with the
-specification's rounding between passes. A 1D transform runs on all
-columns of a numpy array at once (axis 0 is the transform axis).
+with the Dc / Ac lookup tables of the bit depth and the quantizer
+matrices, and the inverse DCT (4-64), ADST (4, 8, 16) with flipped ADST,
+the identity transforms (4-32) and the Walsh-Hadamard transform of
+lossless blocks, with the specification's rounding between passes and,
+as dav1d (itx_1d.c), every butterfly sum clipped to its pass's range,
+which only a stream outside the specification's ranges reaches. A 1D
+transform runs on all columns of a numpy array at once (axis 0 is the
+transform axis).
 """
 
 from __future__ import annotations
@@ -12,10 +15,13 @@ import math
 
 import numpy as np
 
-from .av1_cdf import TABLES
+from .av1_cdf import DQ_HIGH, TABLES
 
-DC_Q = TABLES["dc_q"].astype(np.int64)
-AC_Q = TABLES["ac_q"].astype(np.int64)
+# Dc_Qlookup and Ac_Qlookup: [(BitDepth - 8) >> 1][q index]
+DC_Q = np.stack([TABLES["dc_q"], DQ_HIGH[0, :, 0], DQ_HIGH[1, :, 0]]
+                ).astype(np.int64)
+AC_Q = np.stack([TABLES["ac_q"], DQ_HIGH[0, :, 1], DQ_HIGH[1, :, 1]]
+                ).astype(np.int64)
 _COS = [round(4096 * math.cos(math.pi * i / 128)) for i in range(65)]
 SINPI = (0, 1321, 2482, 3344, 3803)
 
@@ -66,6 +72,17 @@ def _H(T, a, b, flip):
         a, b = b, a
     x, y = T[a], T[b]
     T[a], T[b] = x + y, x - y
+
+
+def _clipped_H(lo: int, hi: int):
+    """_H with its sums clipped to [lo, hi], as dav1d's itx_1d.c clips
+    every butterfly's sum and difference (a conformant stream never
+    reaches the bounds)."""
+    def H(T, a, b, flip):
+        _H(T, a, b, flip)
+        for k in (a, b):
+            T[k] = np.clip(T[k], lo, hi)
+    return H
 
 
 def idct(T: list, n: int, _B=_B, _H=_H) -> list:
@@ -203,7 +220,11 @@ def _hb(w0, a, w1, b):
     return (w0 * a + w1 * b + 2048) >> 12
 
 
-def iadst8(x: list) -> list:
+def _no_clip(v):
+    return v
+
+
+def iadst8(x: list, clip=_no_clip) -> list:
     c = cos128
     b = [x[7], x[0], x[5], x[2], x[3], x[4], x[1], x[6]]
     s = [None] * 8
@@ -211,17 +232,18 @@ def iadst8(x: list) -> list:
         p, q = b[2 * k], b[2 * k + 1]
         s[2 * k] = _hb(c(a), p, c(64 - a), q)
         s[2 * k + 1] = _hb(c(64 - a), p, -c(a), q)
-    b = [s[i] + s[i + 4] for i in range(4)] + [s[i] - s[i + 4] for i in range(4)]
+    b = [clip(v) for v in [s[i] + s[i + 4] for i in range(4)]
+         + [s[i] - s[i + 4] for i in range(4)]]
     s = b[:4] + [_hb(c(16), b[4], c(48), b[5]), _hb(c(48), b[4], -c(16), b[5]),
                  _hb(-c(48), b[6], c(16), b[7]), _hb(c(16), b[6], c(48), b[7])]
-    b = [s[0] + s[2], s[1] + s[3], s[0] - s[2], s[1] - s[3],
-         s[4] + s[6], s[5] + s[7], s[4] - s[6], s[5] - s[7]]
+    b = [clip(v) for v in (s[0] + s[2], s[1] + s[3], s[0] - s[2], s[1] - s[3],
+                           s[4] + s[6], s[5] + s[7], s[4] - s[6], s[5] - s[7])]
     b[2], b[3] = _hb(c(32), b[2], c(32), b[3]), _hb(c(32), b[2], -c(32), b[3])
     b[6], b[7] = _hb(c(32), b[6], c(32), b[7]), _hb(c(32), b[6], -c(32), b[7])
     return [b[0], -b[4], b[6], -b[2], b[3], -b[7], b[5], -b[1]]
 
 
-def iadst16(x: list) -> list:
+def iadst16(x: list, clip=_no_clip) -> list:
     c = cos128
     order = (15, 0, 13, 2, 11, 4, 9, 6, 7, 8, 5, 10, 3, 12, 1, 14)
     b = [x[i] for i in order]
@@ -231,7 +253,8 @@ def iadst16(x: list) -> list:
         p, q = b[2 * k], b[2 * k + 1]
         s[2 * k] = _hb(c(a), p, c(64 - a), q)
         s[2 * k + 1] = _hb(c(64 - a), p, -c(a), q)
-    b = [s[i] + s[i + 8] for i in range(8)] + [s[i] - s[i + 8] for i in range(8)]
+    b = [clip(v) for v in [s[i] + s[i + 8] for i in range(8)]
+         + [s[i] - s[i + 8] for i in range(8)]]
     s = b[:8] + [_hb(c(8), b[8], c(56), b[9]), _hb(c(56), b[8], -c(8), b[9]),
                  _hb(c(40), b[10], c(24), b[11]),
                  _hb(c(24), b[10], -c(40), b[11]),
@@ -241,7 +264,8 @@ def iadst16(x: list) -> list:
     b = list(s)
     for g in (0, 8):
         for i in range(4):
-            b[g + i], b[g + i + 4] = s[g + i] + s[g + i + 4], s[g + i] - s[g + i + 4]
+            b[g + i], b[g + i + 4] = (clip(s[g + i] + s[g + i + 4]),
+                                      clip(s[g + i] - s[g + i + 4]))
     s = list(b)
     for g in (4, 12):
         s[g] = _hb(c(16), b[g], c(48), b[g + 1])
@@ -251,7 +275,8 @@ def iadst16(x: list) -> list:
     b = list(s)
     for g in (0, 4, 8, 12):
         for i in range(2):
-            b[g + i], b[g + i + 2] = s[g + i] + s[g + i + 2], s[g + i] - s[g + i + 2]
+            b[g + i], b[g + i + 2] = (clip(s[g + i] + s[g + i + 2]),
+                                      clip(s[g + i] - s[g + i + 2]))
     for g in (2, 6, 10, 14):
         b[g], b[g + 1] = (_hb(c(32), b[g], c(32), b[g + 1]),
                           _hb(c(32), b[g], -c(32), b[g + 1]))
@@ -281,16 +306,17 @@ def _wht(T: list, shift: int) -> list:
     return [a, b, c, d]
 
 
-def _t1d(T: list, kind: int, n: int) -> list:
+def _t1d(T: list, kind: int, n: int, lo: int, hi: int) -> list:
+    """One pass's 1D transforms, their butterfly sums clipped to [lo, hi]
+    as dav1d clips them (the identity and 4-point ADST have none)."""
     if kind == DCT:
-        return idct(T, n)
+        return idct(T, n, _H=_clipped_H(lo, hi))
     if kind == IDT:
         return _identity(T, n)
     if n == 2:
         return iadst4(T)
-    if n == 3:
-        return iadst8(T)
-    return iadst16(T)
+    clip = lambda v: np.clip(v, lo, hi)
+    return (iadst8 if n == 3 else iadst16)(T, clip)
 
 
 ROW_SHIFT = {(2, 2): 0, (3, 3): 1, (4, 4): 2, (5, 5): 2, (6, 6): 2,
@@ -317,15 +343,14 @@ def inverse_2d(coef: np.ndarray, log2w: int, log2h: int, tx_type: int,
     rs = ROW_SHIFT[(log2w, log2h)]
     if tx_type == DCT_DCT and not coef.flat[1:].any():
         # DC only: every butterfly after the first sees zeros, so each pass
-        # gives one value everywhere
+        # gives one value everywhere; dav1d's DC-only path clamps nothing
+        # between the passes
         d = int(coef[0, 0])
         if abs(log2w - log2h) == 1:
             d = (d * 2896 + 2048) >> 12
-        d = max(-lim, min(lim - 1, d))
         v = (d * 2896 + 2048) >> 12
         if rs:
             v = (v + (1 << (rs - 1))) >> rs
-        v = max(-clim, min(clim - 1, v))
         return np.full((h, w), (((v * 2896 + 2048) >> 12) + 8) >> 4, np.int64)
     nz = np.flatnonzero(np.any(coef != 0, axis=1))
     nrows = int(nz[-1]) + 1 if nz.size else 0
@@ -335,7 +360,7 @@ def inverse_2d(coef: np.ndarray, log2w: int, log2h: int, tx_type: int,
         inp = (inp * 2896 + 2048) >> 12
     inp = np.clip(inp, -lim, lim - 1)
     T = [inp[:, j] for j in range(w)]
-    T = _t1d(T, ADST if row_kind == FLIP else row_kind, log2w)
+    T = _t1d(T, ADST if row_kind == FLIP else row_kind, log2w, -lim, lim - 1)
     mid = np.zeros((h, w), np.int64)
     body = np.stack(T, 1)
     if rs:
@@ -343,7 +368,8 @@ def inverse_2d(coef: np.ndarray, log2w: int, log2h: int, tx_type: int,
     mid[:body.shape[0]] = body
     mid = np.clip(mid, -clim, clim - 1)
     C = [mid[i] for i in range(h)]
-    C = _t1d(C, ADST if col_kind == FLIP else col_kind, log2h)
+    C = _t1d(C, ADST if col_kind == FLIP else col_kind, log2h, -clim,
+             clim - 1)
     out = (np.stack(C, 0) + 8) >> 4
     if col_kind == FLIP:
         out = out[::-1]

@@ -1,12 +1,13 @@
 """libavif 1.3.0's own YUV to RGB8 (reformat.c), which PIL's wheel takes
-for the matrix coefficients libyuv has no table for: 8-bit planes in
-float32 arithmetic, as the C code evaluates it (x86-64 SSE2, no fused
-multiply-adds).
+for the matrix coefficients libyuv has no table for: 8, 10 or 12-bit
+planes in float32 arithmetic, as the C code evaluates it (x86-64 SSE2, no
+fused multiply-adds).
 
   - The planes go through per-value tables: Y' = (y - biasY) / rangeY and
-    C' = (c - 128) / rangeUV, with bias 0, range 255 at full range and
-    bias 16, range 219 (224 for chroma) at limited range; the identity
-    mode reads its chroma through the luma table.
+    C' = (c - 128 << s) / rangeUV (s = depth - 8), with bias 0, range 2^depth
+    - 1 at full range and bias 16 << s, range 219 << s (224 << s for
+    chroma) at limited range; the identity mode reads its chroma through
+    the luma table.
   - Matrix 0 (identity, 4:4:4 and 4:0:0 only): G = Y', B = U', R = V'.
   - Matrix 8 (YCgCo, full range only): t = Y' - U', G = Y' + U',
     B = t - V', R = t + V'.
@@ -83,12 +84,15 @@ def coefficients(matrix: int, primaries: int) -> tuple:
     return kr, F(1) - kr - kb, kb
 
 
-def _tables(full: bool, identity: bool):
-    cp = np.arange(256, dtype=F)
-    ty = (cp - F(0 if full else 16)) / F(255 if full else 219)
+def _tables(full: bool, identity: bool, depth: int = 8):
+    """avifCreateYUVToRGBLookUpTables: every code value's float."""
+    s = depth - 8
+    cp = np.arange(1 << depth, dtype=F)
+    ty = (cp - F(0 if full else 16 << s)) / F((1 << depth) - 1 if full
+                                              else 219 << s)
     if identity:
         return ty, ty
-    return ty, (cp - F(128)) / F(255 if full else 224)
+    return ty, (cp - F(128 << s)) / F((1 << depth) - 1 if full else 224 << s)
 
 
 def _chroma(c, ty_uv, h, w, ssx, ssy):
@@ -123,25 +127,27 @@ def _store(v):
     return (F(0.5) + v * F(255)).astype(np.int64)
 
 
-def slow_path(matrix: int, ss: bool, mono: bool, full: bool) -> bool:
+def slow_path(matrix: int, ss: bool, mono: bool, full: bool,
+              depth: int = 8) -> bool:
     """Whether libavif takes reformat.c's per-pixel path, which undoes a
     premultiplied alpha itself in float; its fast paths (4:4:4 or 4:0:0 in
-    the coefficient modes, and the full-range 4:4:4 identity) leave that
-    to libyuv's ARGBUnattenuate."""
+    the coefficient modes, and the full-range 8-bit 4:4:4 identity) leave
+    that to libyuv's ARGBUnattenuate."""
     if matrix == 0:
-        return not full or mono
+        return not full or mono or depth > 8
     return matrix == 8 or (ss and not mono)
 
 
 def yuv_to_rgb(planes: list, ssx: int, ssy: int, full: bool, matrix: int,
-               primaries: int, alpha=None) -> tuple:
-    """(R, G, B) int64 planes from 8-bit Y[, U, V] planes; alpha, when
-    given, is a premultiplied alpha plane that the per-pixel path divides
-    out (Ac = a / 255; 0 where Ac is 0, min(c / Ac, 1) where Ac < 1)."""
+               primaries: int, alpha=None, depth: int = 8) -> tuple:
+    """(R, G, B) int64 planes from Y[, U, V] planes of the depth; alpha,
+    when given, is a premultiplied alpha plane of that depth that the
+    per-pixel path divides out (Ac = a / (2^depth - 1); 0 where Ac is 0,
+    min(c / Ac, 1) where Ac < 1)."""
     y = np.asarray(planes[0]).astype(np.int64)
     h, w = y.shape
     ident = matrix == 0
-    ty, tuv = _tables(full, ident)
+    ty, tuv = _tables(full, ident, depth)
     yv = ty[y]
     if len(planes) == 1:
         r = g = b = yv
@@ -149,7 +155,8 @@ def yuv_to_rgb(planes: list, ssx: int, ssy: int, full: bool, matrix: int,
         r, g, b = _color(planes, yv, tuv, h, w, ssx, ssy, matrix, primaries)
     r, g, b = _clamp(r), _clamp(g), _clamp(b)
     if alpha is not None:
-        ac = _clamp(np.asarray(alpha).astype(np.int64).astype(F) / F(255))
+        ac = _clamp(np.asarray(alpha).astype(np.int64).astype(F)
+                    / F((1 << depth) - 1))
         with np.errstate(all="ignore"):
             r, g, b = (np.where(ac == F(0), F(0), np.where(
                 ac < F(1), np.minimum(c / ac, F(1)), c)) for c in (r, g, b))

@@ -1,8 +1,9 @@
-"""libavif 1.3.0's avifImageScale at 8 bits: what it does to an item whose
-AV1 frame is not the size its 'ispe' property states. libavif scales each
-decoded plane to the ispe's size (chroma to the subsampled size, rounded
-up) with libyuv's ScalePlane(..., kFilterBox), and PIL's image has the
-ispe's size.
+"""libavif 1.3.0's avifImageScale: what it does to an item whose AV1 frame
+is not the size its 'ispe' property states. libavif scales each decoded
+plane to the ispe's size (chroma to the subsampled size, rounded up) with
+libyuv's ScalePlane(..., kFilterBox) at 8 bits and ScalePlane_12 (whose
+paths are ScalePlane_16's) at 10 and 12, and PIL's image has the ispe's
+size.
 
 ScalePlane first reduces the filter (ScaleFilterReduce: box becomes
 bilinear where either axis keeps half or more of its samples, bilinear
@@ -14,7 +15,7 @@ reductions of both axes, the box average, 2x linear or bilinear
 upsampling, bilinear up or down, or point sampling. Each path is libyuv's
 C row function (row_common.cc, scale_common.cc), to which its x86 SIMD
 versions are equal: 16.16 fixed-point positions, ScaleFilterCols' 7-bit
-blend, InterpolateRow's 8-bit blend.
+blend (ScaleFilterCols_16's 16-bit one), InterpolateRow's 8-bit blend.
 """
 
 from __future__ import annotations
@@ -87,12 +88,15 @@ def _slope(sw, sh, dw, dh, f):
     return x, y, dx, dy
 
 
-def _filter_cols(row, n, x, dx):
-    """ScaleFilterCols_C: a + ((f >> 9) * (b - a) + 64) >> 7."""
+def _filter_cols(row, n, x, dx, wide=False):
+    """ScaleFilterCols_C: a + ((f >> 9) * (b - a) + 64) >> 7; the 16-bit
+    ScaleFilterCols_16_C blends with all 16 bits of f."""
     xs = x + dx * np.arange(n, dtype=np.int64)
     xi = xs >> 16
     a = row[xi]
     b = row[np.minimum(xi + 1, len(row) - 1)]
+    if wide:
+        return a + (((xs & 0xFFFF) * (b - a) + 0x8000) >> 16)
     f = (xs & 0xFFFF) >> 9
     return a + ((f * (b - a) + 0x40) >> 7)
 
@@ -107,7 +111,7 @@ def _interp(r0, r1, f):
     return (r0 * (256 - f) + r1 * f + 128) >> 8
 
 
-def _bilinear_down(s, dw, dh, f):
+def _bilinear_down(s, dw, dh, f, wide):
     sh, sw = s.shape
     x, y, dx, dy = _slope(sw, sh, dw, dh, f)
     max_y = (sh - 1) << 16
@@ -120,16 +124,17 @@ def _bilinear_down(s, dw, dh, f):
         else:
             yf = (y >> 8) & 255
             row = s[yi] if yf == 0 else _interp(s[yi], s[yi + 1], yf)
-        out[j] = _filter_cols(row, dw, x, dx)
+        out[j] = _filter_cols(row, dw, x, dx, wide)
         y = min(y + dy, max_y)
     return out
 
 
-def _bilinear_up(s, dw, dh, f):
+def _bilinear_up(s, dw, dh, f, wide):
     sh, sw = s.shape
     x, y, dx, dy = _slope(sw, sh, dw, dh, f)
     max_y = (sh - 1) << 16
-    cols = _filter_cols if f != NONE else _cols
+    cols = ((lambda r, n, x, dx: _filter_cols(r, n, x, dx, wide))
+            if f != NONE else _cols)
     y = min(y, max_y)
     yi = y >> 16
     src = yi
@@ -195,11 +200,12 @@ def _avg(a, b):
     return (a + b + 1) >> 1
 
 
-def _down34(s, dw, dh, f):
+def _down34(s, dw, dh, f, wide):
     """ScalePlaneDown34. The C rows blend each row's 4 -> 3 then the rows;
-    the SSSE3 rows, which take the first dw - dw % 24 outputs of each row,
-    blend the rows first with pavgb (3 : 1 as avg(a, avg(a, b)))."""
-    n = dw - dw % 24
+    the 8-bit SSSE3 rows, which take the first dw - dw % 24 outputs of
+    each row, blend the rows first with pavgb (3 : 1 as avg(a, avg(a,
+    b))). 16-bit rows are C's throughout."""
+    n = 0 if wide else dw - dw % 24
 
     def row0(a, b):    # ScaleRowDown34_0_Box: rows 3 : 1
         c = (_h34(a, dw) * 3 + _h34(b, dw) + 2) >> 2
@@ -228,11 +234,12 @@ def _down34(s, dw, dh, f):
     return out
 
 
-def _down38(s, dw, dh, f):
-    """ScalePlaneDown38 (3 x 3 and 3 x 2 boxes). The SSSE3 two-row box,
-    which takes the first dw - dw % 6 outputs, averages the rows with
-    pavgb and scales the sums of 3 and 2 by 65536 / 3 and / 2."""
-    n = dw - dw % 6
+def _down38(s, dw, dh, f, wide):
+    """ScalePlaneDown38 (3 x 3 and 3 x 2 boxes). The 8-bit SSSE3 two-row
+    box, which takes the first dw - dw % 6 outputs, averages the rows with
+    pavgb and scales the sums of 3 and 2 by 65536 / 3 and / 2; 16-bit
+    rows are C's throughout."""
+    n = 0 if wide else dw - dw % 6
 
     def sums(t):
         t = t[:dw // 3 * 8].reshape(-1, 8)
@@ -320,8 +327,11 @@ def _simple(s, dw, dh):
     return s[ys][:, xs]
 
 
-def scale_plane(src: np.ndarray, dw: int, dh: int) -> np.ndarray:
-    """libyuv ScalePlane(src, dw, dh, kFilterBox) on an 8-bit plane."""
+def scale_plane(src: np.ndarray, dw: int, dh: int,
+                depth: int = 8) -> np.ndarray:
+    """libyuv ScalePlane(src, dw, dh, kFilterBox) on an 8-bit plane, or
+    ScalePlane_12 (ScalePlane_16's paths) on a 10 or 12-bit one."""
+    wide = depth > 8
     s = np.asarray(src).astype(np.int64)
     sh, sw = s.shape
     f = _reduce(sw, sh, dw, dh, BOX)
@@ -331,7 +341,7 @@ def scale_plane(src: np.ndarray, dw: int, dh: int) -> np.ndarray:
         return _vertical(s, dh, f)
     if dw <= sw and dh <= sh:
         if 4 * dw == 3 * sw and 4 * dh == 3 * sh:
-            return _down34(s, dw, dh, f)
+            return _down34(s, dw, dh, f, wide)
         if 2 * dw == sw and 2 * dh == sh:
             if f == NONE:
                 return s[1::2, 1::2][:dh, :dw].copy()
@@ -342,7 +352,7 @@ def scale_plane(src: np.ndarray, dw: int, dh: int) -> np.ndarray:
                     + s[1::2, 0::2][:dh, :dw] + s[1::2, 1::2][:dh, :dw]
                     + 2) >> 2
         if 8 * dw == 3 * sw and 8 * dh == 3 * sh:
-            return _down38(s, dw, dh, f)
+            return _down38(s, dw, dh, f, wide)
         if 4 * dw == sw and 4 * dh == sh and f in (BOX, NONE):
             if f == NONE:
                 return s[2::4, 2::4][:dh, :dw].copy()
@@ -355,17 +365,19 @@ def scale_plane(src: np.ndarray, dw: int, dh: int) -> np.ndarray:
     if (dh + 1) // 2 == sh and (dw + 1) // 2 == sw and f in (BILINEAR, BOX):
         return _up_bilinear(s, dh, dw)
     if f != NONE and dh > sh:
-        return _bilinear_up(s, dw, dh, f)
+        return _bilinear_up(s, dw, dh, f, wide)
     if f != NONE:
-        return _bilinear_down(s, dw, dh, f)
+        return _bilinear_down(s, dw, dh, f, wide)
     return _simple(s, dw, dh)
 
 
-def scale_frame(planes: list, ssx: int, ssy: int, w: int, h: int) -> list:
+def scale_frame(planes: list, ssx: int, ssy: int, w: int, h: int,
+                depth: int = 8) -> list:
     """avifImageScale's planes: Y (or alpha) to w x h, chroma to
     ((w + ssx) >> ssx) x ((h + ssy) >> ssy)."""
     out = []
     for p, plane in enumerate(planes):
         sx, sy = (ssx, ssy) if p else (0, 0)
-        out.append(scale_plane(plane, (w + sx) >> sx, (h + sy) >> sy))
+        out.append(scale_plane(plane, (w + sx) >> sx, (h + sy) >> sy,
+                               depth))
     return out

@@ -79,6 +79,7 @@ def read_blp(buf: bytes, where: str = "<blp>") -> np.ndarray:
         head = 20
     if w == 0 or h == 0:
         raise modes.NotThisFormat("BLP size 0")
+    modes.check_size(w, h)
     bands = 4 if alpha else 3
     offsets = struct.unpack("<16I", _safe_read(buf, head, 64, where))
     lengths = struct.unpack("<16I", _safe_read(buf, head + 64, 64, where))
@@ -135,6 +136,7 @@ def read_ftex(buf: bytes, where: str = "<ftex>") -> np.ndarray:
                          f"{where}")
     if w <= 0 or h <= 0:
         raise modes.NotThisFormat(f"FTEX size {w}x{h}")
+    modes.check_size(w, h)
     if fmt == 0:
         return modes.to_rgba("RGBA", bcn.decode_bcn(data, 1, w, h, where))
     return modes.to_rgba("RGB", modes.raw(data, 0, "RGB", w, h, where=where))

@@ -212,6 +212,7 @@ def bitmap(buf: bytes, at: int, offset: int, where: str,
     if bits not in _BIT2MODE:
         raise ValueError(f"BMP pixel depth {bits} is not supported: {where}")
     mode, rawmode = _BIT2MODE[bits]
+    declared = (width, height)    # an ICO's DIB: pixels and mask
     if halve:
         height //= 2
     rle = False
@@ -247,6 +248,7 @@ def bitmap(buf: bytes, at: int, offset: int, where: str,
             palette = entries[:, 2::-1]  # BGR(X) -> RGB
     if width == 0 or height == 0:
         raise ValueError(f"BMP of size {width}x{height}: {where}")
+    modes.check_size(*declared)
     start = offset or pos
     if rle:
         if mode not in ("P", "L"):

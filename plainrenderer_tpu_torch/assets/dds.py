@@ -219,6 +219,7 @@ def read_dds_image(buf: bytes, where: str = "<dds>") -> np.ndarray:
     pfflags, fourcc, bits = struct.unpack_from("<I4sI", buf, 80)
     if h == 0 or w == 0:
         raise ValueError(f"DDS size {w}x{h}: {where}")
+    modes.check_size(w, h)
     pos = 128
     if pfflags & _PF_RGB:
         n = 4 if pfflags & _PF_ALPHAPIXELS else 3

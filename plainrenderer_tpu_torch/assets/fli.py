@@ -219,6 +219,7 @@ def read_fli(buf: bytes, where: str = "<fli>") -> np.ndarray:
     w, h, palette, framesize = _header(buf)
     if w == 0 or h == 0:
         raise modes.NotThisFormat("FLI size 0")
+    modes.check_size(w, h)
     frame = buf[128:128 + framesize]
     n = len(frame)
     if n < 4 or n + n % 2 < framesize:

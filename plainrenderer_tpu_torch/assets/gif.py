@@ -106,7 +106,11 @@ def read_gif(buf: bytes, where: str = "<gif>") -> np.ndarray:
         else:
             continue  # PIL skips other bytes between blocks
     interlace = bool(fflags & 0x40)
-    w, h = max(w, x0 + fw), max(h, y0 + fh)
+    modes.check_size(w, h)
+    if x0 + fw > w or y0 + fh > h:
+        # PIL grows the image to the frame, and checks the new size
+        w, h = max(w, x0 + fw), max(h, y0 + fh)
+        modes.check_size(w, h)
     if pos >= len(buf):
         raise ValueError(f"GIF image data truncated: {where}")
     min_size = buf[pos]

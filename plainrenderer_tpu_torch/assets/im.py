@@ -151,6 +151,7 @@ def read_im(buf: bytes, where: str = "<im>") -> np.ndarray:
     w, h = size
     if not mode or w <= 0 or h <= 0:
         raise modes.NotThisFormat(f"IM size {w}x{h}")
+    modes.check_size(w, h)
     palette = None
     if LUT in info:
         if len(buf) - pos < 768:

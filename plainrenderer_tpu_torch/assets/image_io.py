@@ -42,6 +42,12 @@ and PIL's header check), and every reader returns what
     4) f32 holding 0-255 with alpha 1;
   - DDS (.dds, by suffix) rgba8 textures through assets/dds.py.
 
+Every reader but .dds and .hdr (which the JAX package reads without PIL)
+applies PIL's decompression-bomb guard (``modes.check_size``) to the size
+its header declares, before decoding anything: above 2 * 89,478,485
+pixels ``modes.DecompressionBombError`` (a ValueError), above 89,478,485
+a ``modes.DecompressionBombWarning``, with PIL's messages.
+
 The readers are tried in the order of PIL's format list (``Image.ID``),
 each where its magic bytes match; the formats without magic bytes (IM,
 IM Tools, IPTC, PhotoCD, SPIDER) at their places in that order, each
@@ -124,7 +130,8 @@ def load_image(path: str | Path) -> np.ndarray:
     """Load an image as (H, W, 4): u8 for every LDR format, f32 for .hdr
     (image_io.py:16-41; 8-bit values, as the JAX package gets them here).
     Raises ValueError for a format or feature the port does not read, or
-    for a malformed file."""
+    for a malformed file, and modes.DecompressionBombError (a ValueError)
+    where PIL's Image.open refuses the declared size."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix == ".dds":
@@ -390,6 +397,7 @@ def decode_png(data: bytes, where: str = "<bytes>",
                          f"depth {depth}, interlace {interlace}): {where}")
     if ctype == 3 and palette is None:
         raise ValueError(f"palette PNG without PLTE: {where}")
+    modes.check_size(w, h)
     ch = _PNG_CHANNELS[ctype]
     bits_pp = ch * depth
     bpp = max(1, bits_pp // 8)

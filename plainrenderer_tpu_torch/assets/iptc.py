@@ -95,6 +95,7 @@ def read_iptc(buf: bytes, where: str = "<iptc>",
         raise modes.NotThisFormat("IPTC compression field empty") from None
     if not mode or w <= 0 or h <= 0:
         raise modes.NotThisFormat("IPTC image without a mode PIL opens")
+    modes.check_size(w, h)
     if tag != (8, 10):
         raise ValueError(f"IPTC record without image data (PIL: cannot load "
                          f"this image): {where}")

@@ -129,15 +129,37 @@ class Track:
     refs: dict = field(default_factory=dict)
     chunk_offsets: list = field(default_factory=list)
     sample_sizes: list = field(default_factory=list)
+    sample_size: int = 0      # stsz's one size for every sample, or 0
     stsc: list = field(default_factory=list)
     props: list = field(default_factory=list)
     width: int = 0
     height: int = 0
+    timescale: int = 0        # mdhd's; 0 where there is none
 
-    def first_sample(self) -> tuple[int, int]:
-        if not self.chunk_offsets or not self.sample_sizes or not self.stsc:
+    def first_sample(self, file_size: int) -> tuple[int, int]:
+        """The first sample's (offset, size), once every sample is placed
+        as libavif's avifCodecDecodeInputFillFromSampleTable places them:
+        a chunk of no samples (by stsc: the last entry starting at or
+        before it), a sample stsz does not size, or one past the file's
+        end fails."""
+        if not self.chunk_offsets or not self.stsc or not (
+                self.sample_size or self.sample_sizes):
             raise BoxError("track has no samples")
-        return self.chunk_offsets[0], self.sample_sizes[0]
+        k = 0
+        for c, off in enumerate(self.chunk_offsets, 1):
+            n = next((n for first, n, _ in reversed(self.stsc)
+                      if first <= c), 0)
+            if not n:
+                raise BoxError(f"track chunk {c} has no samples")
+            for _ in range(n):
+                if not self.sample_size and k >= len(self.sample_sizes):
+                    raise BoxError("track sample table truncated")
+                size = self.sample_size or self.sample_sizes[k]
+                if off > file_size or size > file_size - off:
+                    raise BoxError("track sample runs past the file")
+                off += size
+                k += 1
+        return self.chunk_offsets[0], self.sample_size or self.sample_sizes[0]
 
 
 @dataclass
@@ -255,14 +277,27 @@ def _iinf(data, s, e, items):
 
 
 def _iref(data, s, e, items):
+    """libavif reads iref's child boxes as one stream: each header's size
+    must fit what is left, but the next child starts where the references
+    end, not where the size says. It ignores an iref of another version
+    than 0 or 1."""
     r = Reader(data, s, e)
-    version, _ = r.full((0, 1))
+    version, _ = r.full()
+    if version > 1:
+        return
     w = 2 if version == 0 else 4
-    for typ, bs, be in boxes(data, r.pos, e):
-        q = Reader(data, bs, be)
-        src = q.u(w)
-        for _ in range(q.u16()):
-            items.setdefault(src, Item(src)).refs.setdefault(typ, []).append(q.u(w))
+    while r.left():
+        size, typ = r.u32(), r.fourcc()
+        if size == 1:
+            size = r.u(8) - 8
+        if size != 0 and (size < 8 or size - 8 > r.left()):
+            raise BoxError(f"iref child box {typ!r} too large")
+        src = r.u(w)
+        for _ in range(r.u16()):
+            dst = r.u(w)
+            if not src or not dst:
+                raise BoxError("iref names item 0")
+            items.setdefault(src, Item(src)).refs.setdefault(typ, []).append(dst)
 
 
 def _iprp(data, s, e, items):
@@ -287,10 +322,30 @@ def _iprp(data, s, e, items):
                 big = 15 if flags & 1 else 7
                 essential, index = v >> big, v & ((1 << big) - 1)
                 if index == 0:
+                    if essential:
+                        raise BoxError("ipma marks property 0 essential")
                     continue
                 if index > len(props):
                     raise BoxError("ipma names a missing property")
-                item.props.append((props[index - 1], bool(essential)))
+                prop = props[index - 1]
+                if prop.kind == b"a1lx" and essential or (
+                        prop.kind in (b"a1op", b"lsel") and not essential):
+                    raise BoxError(f"ipma marks {prop.kind!r} "
+                                   f"{'' if essential else 'not '}essential")
+                item.props.append((prop, bool(essential)))
+
+
+def _hdlr(data, s, e) -> bytes:
+    """A hdlr box (the meta's or a track's), checked as libavif checks it:
+    version 0, pre_defined 0, a NUL-terminated name. Its handler type."""
+    q = Reader(data, s, e)
+    q.full((0,))
+    if q.u32() != 0:
+        raise BoxError("hdlr pre_defined is not 0")
+    kind = q.fourcc()
+    q.take(12)
+    q.cstring()
+    return kind
 
 
 def _meta(data, s, e, f: File):
@@ -303,14 +358,8 @@ def _meta(data, s, e, f: File):
             raise BoxError(f"duplicate {typ!r} box")
         seen.add(typ)
         if typ == b"hdlr":
-            q = Reader(data, bs, be)
-            q.full((0,))
-            if q.u32() != 0:
-                raise BoxError("hdlr pre_defined is not 0")
-            if q.fourcc() != b"pict":
+            if _hdlr(data, bs, be) != b"pict":
                 raise BoxError("meta handler is not 'pict'")
-            q.take(12)
-            q.cstring()
         elif typ == b"pitm":
             q = Reader(data, bs, be)
             v, _ = q.full((0, 1))
@@ -332,35 +381,40 @@ def _meta(data, s, e, f: File):
 def _stbl(data, s, e, t: Track):
     for typ, bs, be in boxes(data, s, e):
         r = Reader(data, bs, be)
+        if typ in (b"stsd", b"stsc", b"stsz", b"stco", b"co64", b"stss",
+                   b"stts"):
+            r.full((0,))    # libavif enforces version 0
         if typ == b"stsd":
-            r.full()
-            for _ in range(r.u32()):
-                for etyp, es, ee in boxes(data, r.pos, be):
-                    if not t.sample_entry:
-                        t.sample_entry = etyp
-                        # VisualSampleEntry: 78 bytes before child boxes
-                        for ctyp, cs, ce in boxes(data, es + 78, ee):
-                            t.props.append((_property(ctyp, data, cs, ce),
-                                            False))
-                break
+            # libavif reads every entry the count names; the first is used
+            count = r.u32()
+            entries = boxes(data, r.pos, be)
+            for k in range(count):
+                etyp, es, ee = next(entries, (None, 0, 0))
+                if etyp is None:
+                    raise BoxError("stsd names more entries than it holds")
+                if k == 0:
+                    t.sample_entry = etyp
+                    # VisualSampleEntry: 78 bytes before child boxes
+                    for ctyp, cs, ce in boxes(data, es + 78, ee):
+                        t.props.append((_property(ctyp, data, cs, ce),
+                                        False))
         elif typ == b"stsc":
-            r.full()
             t.stsc = [(r.u32(), r.u32(), r.u32()) for _ in range(r.u32())]
         elif typ == b"stsz":
-            r.full()
             size, count = r.u32(), r.u32()
-            t.sample_sizes = ([size] * min(count, 1) if size
-                              else [r.u32() for _ in range(count)])
+            t.sample_size = size
+            t.sample_sizes = [] if size else [r.u32() for _ in range(count)]
+        elif typ == b"stss":
+            r.take(4 * r.u32())     # libavif reads every sync sample
         elif typ == b"stco":
-            r.full()
             t.chunk_offsets = [r.u32() for _ in range(r.u32())]
         elif typ == b"co64":
-            r.full()
             t.chunk_offsets = [r.u(8) for _ in range(r.u32())]
 
 
 def _trak(data, s, e) -> Track:
     t = Track()
+    has_tkhd = any(typ == b"tkhd" for typ, _, _ in boxes(data, s, e))
     stack = [(s, e)]
     while stack:
         ps, pe = stack.pop()
@@ -376,12 +430,30 @@ def _trak(data, s, e) -> Track:
                 # volume, reserved, matrix; then 16.16 width and height
                 r.take((12 if v == 1 else 8) + 52)
                 t.width, t.height = r.u32() >> 16, r.u32() >> 16
+            elif typ == b"edts":
+                elst = [(es, ee) for etyp, es, ee in boxes(data, bs, be)
+                        if etyp == b"elst"]
+                if not elst:
+                    raise BoxError("edts without elst")
+                q = Reader(data, *elst[0])
+                q.full()
+                if q.u32() != 1:
+                    raise BoxError("elst entry count is not 1")
+            elif typ == b"hdlr":
+                _hdlr(data, bs, be)
+            elif typ == b"mdhd":
+                r = Reader(data, bs, be)
+                v, _ = r.full()
+                r.take(16 if v == 1 else 8)     # creation, modification
+                t.timescale = r.u32()
             elif typ == b"stbl":
                 _stbl(data, bs, be, t)
             elif typ == b"tref":
                 for rtyp, rs, re_ in boxes(data, bs, be):
                     r = Reader(data, rs, re_)
                     t.refs[rtyp] = [r.u32() for _ in range(r.left() // 4)]
+    if not has_tkhd:
+        raise BoxError("trak without tkhd")
     return t
 
 
@@ -417,6 +489,12 @@ def parse(data: bytes) -> File:
             break   # libavif stops reading once it has what it needs
     if b"ftyp" not in seen:
         raise BoxError("no ftyp")
+    brands = [f.major] + f.brands
+    if ((b"avif" in brands and b"meta" not in seen)
+            or (b"avis" in brands and b"moov" not in seen)):
+        # libavif's needsMeta / needsMoov: the file is truncated
+        raise BoxError("no meta box for an 'avif' brand, or no moov box for "
+                       "an 'avis' one")
     return f
 
 

@@ -366,6 +366,7 @@ def read_jpeg2000(data: bytes, where: str = "<jpeg2000>") -> np.ndarray:
         ihdr = ihdr[:2]
     else:
         raise modes.NotThisFormat("not a JPEG 2000 file")
+    modes.check_size(*size)
     try:
         return _decode(data[start:], ihdr, colour, size, mode, palette)
     except J2kError as e:

@@ -266,6 +266,7 @@ def _parse_sof(fr, body, marker):
         raise ValueError("JPEG: empty image (or a DNL marker height)")
     if n not in (1, 3, 4):
         raise ValueError(f"JPEG: {n} components are not supported")
+    modes.check_size(fr.width, fr.height)
     for i in range(n):
         cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
         if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4):

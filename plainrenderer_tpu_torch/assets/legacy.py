@@ -62,9 +62,11 @@ XV_PALETTE = np.array([(r * 255 // 7, g * 255 // 7, b * 255 // 3)
 
 
 def _positive(w: int, h: int):
-    """ImageFile's check after _open: a size of 0 is not this format."""
+    """ImageFile's check after _open: a size of 0 is not this format;
+    then Image.open's decompression-bomb check."""
     if w <= 0 or h <= 0:
         raise modes.NotThisFormat(f"size {w}x{h}")
+    modes.check_size(w, h)
 
 
 # -------------------------------- XBM --------------------------------
@@ -308,6 +310,8 @@ def read_gbr(buf: bytes, where: str = "<gbr>") -> np.ndarray:
         raise modes.NotThisFormat("not a GIMP brush PIL reads")
     if version == 2 and buf[20:24] != b"GIMP":
         raise modes.NotThisFormat("not a GIMP brush, bad magic number")
+    for _ in range(2):      # GbrImageFile._open checks, then Image.open
+        modes.check_size(w, h)
     n = w * h * depth
     data = buf[hsize:hsize + n]
     if len(data) < n:

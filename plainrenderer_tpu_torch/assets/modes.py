@@ -47,14 +47,44 @@ here too, so the readers share them.
 from __future__ import annotations
 
 import functools
+import warnings
 
 import numpy as np
+
+# PIL.Image.MAX_IMAGE_PIXELS, which the JAX package leaves at its default
+MAX_IMAGE_PIXELS = int(1024 * 1024 * 1024 // 4 // 3)
 
 
 class NotThisFormat(ValueError):
     """A reader's finding that a file its magic bytes claimed is not its
     format after all (PIL's plugins raise SyntaxError, TypeError or
     IndexError from _open, and Image.open tries the next format)."""
+
+
+class DecompressionBombError(ValueError):
+    """An image above twice MAX_IMAGE_PIXELS, refused from its header
+    (PIL.Image.DecompressionBombError)."""
+
+
+class DecompressionBombWarning(RuntimeWarning):
+    """An image above MAX_IMAGE_PIXELS (PIL.Image.DecompressionBombWarning)."""
+
+
+def check_size(w: int, h: int) -> None:
+    """PIL's _decompression_bomb_check on the size a reader's header
+    declares, before anything is decoded: above twice MAX_IMAGE_PIXELS
+    raise DecompressionBombError, above it warn, with PIL's messages."""
+    pixels = max(1, w) * max(1, h)
+    if pixels > 2 * MAX_IMAGE_PIXELS:
+        raise DecompressionBombError(
+            f"Image size ({pixels} pixels) exceeds limit of "
+            f"{2 * MAX_IMAGE_PIXELS} pixels, could be decompression bomb "
+            "DOS attack.")
+    if pixels > MAX_IMAGE_PIXELS:
+        warnings.warn(
+            f"Image size ({pixels} pixels) exceeds limit of "
+            f"{MAX_IMAGE_PIXELS} pixels, could be decompression bomb DOS "
+            "attack.", DecompressionBombWarning, stacklevel=2)
 
 
 def _u8(x) -> np.ndarray:

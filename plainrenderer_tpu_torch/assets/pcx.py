@@ -101,6 +101,7 @@ def _page(buf: bytes, at: int, where: str) -> np.ndarray:
         raise ValueError(f"PCX layout version {version}, {bits} bits in "
                          f"{planes} planes is not one PIL reads (unknown PCX "
                          f"mode): {where}")
+    modes.check_size(w, h)
     stride = (w * bits + 7) // 8
     if given != stride:
         stride += stride % 2

@@ -106,6 +106,7 @@ def read_pnm(buf: bytes, where: str = "<pnm>") -> np.ndarray:
         raise ValueError(f"PNM size is not a number ({e}): {where}") from None
     if w <= 0 or h <= 0:
         raise ValueError(f"PNM size {w}x{h}: {where}")
+    modes.check_size(w, h)
     plain = magic in (b"P1", b"P2", b"P3")
     bands = _BANDS.get(mode, 1)
     if mode == "1":

@@ -103,6 +103,7 @@ def read_psd(buf: bytes, where: str = "<psd>") -> np.ndarray:
         pos += 4 + data_len + (data_len & 1)
     size = _u32(buf, pos)
     pos += 4 + size
+    modes.check_size(w, h)
     compression = _u16(buf, pos)
     pos += 2
     if compression not in (0, 1):

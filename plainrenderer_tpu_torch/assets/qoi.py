@@ -21,6 +21,8 @@ import struct
 
 import numpy as np
 
+from . import modes
+
 MAGIC = b"qoif"
 _END = bytes((0, 0, 0, 0, 0, 0, 0, 1))
 
@@ -31,7 +33,12 @@ def read_qoi(buf: bytes, where: str = "<qoi>") -> np.ndarray:
     if not buf.startswith(MAGIC) or len(buf) < 14:
         raise ValueError(f"not a QOI file: {where}")
     w, h, channels = struct.unpack_from(">IIB", buf, 4)
+    modes.check_size(w, h)
     n = w * h
+    if 62 * (len(buf) - 14) < n:
+        # a byte gives at most 62 pixels (a run): PIL's decoder runs out
+        # of data before the image is filled
+        raise ValueError(f"QOI image data truncated: {where}")
     out = bytearray(4 * n)
     index = [None] * 64
     r, g, b, a = 0, 0, 0, 255

@@ -22,6 +22,8 @@ import struct
 
 import numpy as np
 
+from . import modes
+
 MAGIC = 474
 EXTENSIONS = (".bw", ".rgb", ".rgba", ".sgi")
 _MODES = {(1, 1, 1): "L", (1, 2, 1): "L", (2, 1, 1): "L", (2, 2, 1): "L",
@@ -82,6 +84,7 @@ def read_sgi(buf: bytes, where: str = "<sgi>") -> np.ndarray:
     if storage not in (0, 1):
         raise ValueError(f"SGI storage {storage} is neither verbatim nor "
                          f"run-length (PIL: cannot load this image): {where}")
+    modes.check_size(xsize, ysize)
     bands = len(mode)
     px = np.zeros((ysize, xsize, bands), np.uint8)
     if storage == 0:

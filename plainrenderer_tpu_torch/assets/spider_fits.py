@@ -85,6 +85,7 @@ def read_spider(buf: bytes, where: str = "<spider>") -> np.ndarray:
         raise modes.NotThisFormat("inconsistent SPIDER stack header")
     if w <= 0 or ht <= 0:
         raise modes.NotThisFormat(f"SPIDER size {w}x{ht}")
+    modes.check_size(w, ht)
     px = modes.raw(buf, offset, "F;32BF" if order == ">" else "F;32F", w, ht,
                    where=where)
     return modes.to_rgba("F", px)
@@ -158,6 +159,7 @@ def read_fits(buf: bytes, where: str = "<fits>") -> np.ndarray:
         raise modes.NotThisFormat(f"FITS BITPIX {bitpix}")
     if w <= 0 or h <= 0:
         raise modes.NotThisFormat(f"FITS size {w}x{h}")
+    modes.check_size(w, h)
     mode, rawmode = _FITS_MODES[bitpix]
     offset += pos - 80
     if not gz:

@@ -125,6 +125,7 @@ def read_tga(buf: bytes, where: str = "<tga>") -> np.ndarray:
     if rawmode is None or (rawmode == "P" and mode != "P"):
         raise ValueError(f"TGA type {itype} at {depth} bits is not "
                          f"supported: {where}")
+    modes.check_size(w, h)
     row_bytes = (w * depth + 7) // 8
     if itype & 8 and depth == 1:
         raise ValueError(f"TGA run-length 1-bit image (PIL's decoder takes "

@@ -294,6 +294,7 @@ def read_tiff(buf: bytes, where: str = "<tiff>") -> np.ndarray:
         raise ValueError(f"TIFF unknown data organization ({spp} samples, "
                          f"BitsPerSample {bps}): {where}")
     mode, how = _mode(bo, photo, fmt, fill, bps, extra, where)
+    modes.check_size(w, h)
     bits = bps[0]
     if len(set(bps)) != 1:
         raise ValueError(f"TIFF samples of mixed sizes {bps}: {where}")

@@ -23,7 +23,7 @@ import struct
 
 import numpy as np
 
-from . import vp8, vp8l
+from . import modes, vp8, vp8l
 
 
 def _chunks(buf: bytes, pos: int, end: int, where: str):
@@ -121,10 +121,14 @@ def read_webp(buf: bytes, where: str = "<webp>") -> np.ndarray:
         raise ValueError(f"WebP without chunks: {where}")
     tag0, body0 = chunks[0]
     if tag0 == b"VP8L":
-        has_alpha = vp8l.read_header(body0)[2]
+        w, h, has_alpha = vp8l.read_header(body0)
+        modes.check_size(w, h)
         img = _frame(chunks[:1], where)
     elif tag0 == b"VP8 ":
         has_alpha = False
+        if len(body0) >= 10:
+            modes.check_size(*(int.from_bytes(body0[k:k + 2], "little")
+                               & 0x3FFF for k in (6, 8)))
         img = _frame(chunks[:1], where)
     elif tag0 == b"VP8X":
         if len(body0) < 10:
@@ -133,6 +137,7 @@ def read_webp(buf: bytes, where: str = "<webp>") -> np.ndarray:
         has_alpha = bool(flags & 0x10)
         cw = int.from_bytes(body0[4:7], "little") + 1
         ch = int.from_bytes(body0[7:10], "little") + 1
+        modes.check_size(cw, ch)
         if flags & 0x02:  # animation: the first ANMF frame
             anmf = next((b for t, b in chunks if t == b"ANMF"), None)
             if anmf is None or len(anmf) < 16:

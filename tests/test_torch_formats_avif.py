@@ -55,6 +55,7 @@ from plainrenderer_tpu.render import scenebuild as jsb
 from plainrenderer_tpu_torch.assets import av1_decode, av1_obu, isobmff
 from plainrenderer_tpu_torch.assets import image_io as tio
 from plainrenderer_tpu_torch.render import scenebuild as tsb
+import torch_avif_depth
 from test_torch_formats import _picture, _pil, _save
 
 torch.set_num_threads(1)
@@ -270,11 +271,11 @@ def _obu(typ: int, payload: bytes) -> bytes:
     return bytes([(typ << 3) | 2]) + out + payload
 
 
-def test_refused_tools_are_named():
-    """A stream the port does not decode raises ValueError naming what:
-    a 10-bit sequence header (PIL's encoder writes 8 bits only) and a
-    superres frame (PIL refuses the encoder's superres options), built by
-    setting the bits in PIL's 8-bit stream."""
+def test_refused_tools_are_named(tmp_path):
+    """A superres frame (PIL refuses the encoder's superres options), built
+    by setting the bits in PIL's 8-bit stream, raises ValueError naming
+    it; the same stream with high_bitdepth set is a 10-bit one, which the
+    port decodes as PIL does."""
     pl = _payload(_case_file("q75_7x5"))
     obus = {t: (s, e) for t, _, _, s, e in av1_obu.obus(pl)}
     s0, e0 = obus[av1_obu.OBU_SEQUENCE_HEADER]
@@ -294,8 +295,12 @@ def test_refused_tools_are_named():
                 + _obu(av1_obu.OBU_FRAME, pack(fb)))
 
     high = sbits[:at] + "1" + sbits[at + 1:]
-    with pytest.raises(ValueError, match="10-bit"):
-        av1_decode.decode(stream(high, fbits))
+    ten = torch_avif_depth.to_depth(_case_file("q75_7x5"), 10)
+    frame = av1_decode.decode(stream(high, fbits))
+    assert frame.seq.bit_depth == 10
+    for got, want in zip(frame.planes, av1_decode.decode(_payload(ten)).planes):
+        np.testing.assert_array_equal(got, want)
+    _same(tmp_path, ten)
     # enable_superres on, and the frame's use_superres = 1, coded_denom 0
     # after disable_cdf_update and allow_screen_content_tools
     sup = sbits[:at - 3] + "1" + sbits[at - 2:]

@@ -1,21 +1,23 @@
 """Peak host memory of the port's AVIF read of a flat frame at and below
-libavif's 16384 x 16384 limit.
+libavif's 16384 x 16384 limit, at 8 and 10 bits.
 
 Write the files (needs PIL; PIL's default AVIF save of a flat RGB picture,
-and PIL's decode of it as the expected colour in a .json beside it; the
-JAX package's load_image, through PIL's Image.open, refuses a 16384^2
-file as a decompression bomb):
+the same file rewritten to 10 bits by tests/torch_avif_depth.py, and PIL's
+decode of each as the expected colour in a .json beside it):
 
     PYTHONPATH=. python tests/torch_avif_peak_memory.py --write DIR 8200 16384
 
 Read one (the port only, on the CPU; one file per process, so that each
 peak is its own):
 
-    PYTHONPATH=. python tests/torch_avif_peak_memory.py DIR/flat_16384.avif
+    PYTHONPATH=. python tests/torch_avif_peak_memory.py DIR/flat_16384_10.avif
 
-prints one JSON line: the side, seconds of load_image, the resident set
-after the imports and the process's peak resident set (ru_maxrss), and
-whether every pixel is PIL's colour.
+prints one JSON line: the side, the bit depth, seconds of the read, the
+resident set after the imports and the process's peak resident set
+(ru_maxrss), and whether every pixel is PIL's colour. The read is
+assets/avif.read_avif without its decompression-bomb check: load_image,
+like the JAX package's through PIL's Image.open, refuses a 16384^2 file
+as a decompression bomb.
 """
 
 import json
@@ -38,6 +40,7 @@ def _rss_kib() -> int:
 
 def write(folder: Path, sides: list) -> None:
     from PIL import Image
+    from torch_avif_depth import to_depth
     # Image.open refuses more than 2 * 89,478,485 pixels (PIL's
     # decompression bomb check, 16384^2 among them); lifted to read the
     # expected colour
@@ -49,28 +52,34 @@ def write(folder: Path, sides: list) -> None:
         path = folder / f"flat_{n}.avif"
         Image.fromarray(a).save(path)
         del a
-        with Image.open(path) as im:
-            rgba = np.asarray(im.convert("RGBA"))
-        color = rgba[0, 0].tolist()
-        assert (rgba == rgba[0, 0]).all(), "PIL's decode is not flat"
-        (folder / f"flat_{n}.json").write_text(
-            json.dumps({"side": n, "rgba": color}))
-        print(path, path.stat().st_size, "bytes, PIL decodes", color,
-              flush=True)
+        (folder / f"flat_{n}_10.avif").write_bytes(
+            to_depth(path.read_bytes(), 10))
+        for name, depth in ((f"flat_{n}", 8), (f"flat_{n}_10", 10)):
+            p = folder / f"{name}.avif"
+            with Image.open(p) as im:
+                rgba = np.asarray(im.convert("RGBA"))
+            color = rgba[0, 0].tolist()
+            assert (rgba == rgba[0, 0]).all(), "PIL's decode is not flat"
+            del rgba
+            (folder / f"{name}.json").write_text(
+                json.dumps({"side": n, "depth": depth, "rgba": color}))
+            print(p, p.stat().st_size, "bytes, PIL decodes", color,
+                  flush=True)
 
 
 def read(path: Path) -> dict:
-    from plainrenderer_tpu_torch.assets import image_io
+    from plainrenderer_tpu_torch.assets import avif
     want = json.loads(path.with_suffix(".json").read_text())
     base = _rss_kib()
     t = time.perf_counter()
-    img = image_io.load_image(path)
+    img = avif.read_avif(path.read_bytes(), str(path), check=None)
     seconds = time.perf_counter() - t
     peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     n = want["side"]
     ok = img.shape == (n, n, 4) and bool(
         (img.reshape(-1, 4) == np.array(want["rgba"], np.uint8)).all())
-    return {"side": n, "load_s": round(seconds, 1),
+    return {"side": n, "depth": want.get("depth", 8),
+            "load_s": round(seconds, 1),
             "rss_after_imports_mib": round(base / 1024),
             "peak_rss_mib": round(peak / 1024), "equals_pil": ok}
 

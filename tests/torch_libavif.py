@@ -52,11 +52,12 @@ def _at(addr, off, t):
     return t.from_address(addr + off)
 
 
-def _put(ptr, rb, arr):
-    arr = np.ascontiguousarray(arr, np.uint8)
+def _put(ptr, rb, arr, depth=8):
+    """Rows of an 8-bit plane (or pixels), or of a 10 / 12-bit plane as
+    libavif's uint16 samples."""
+    arr = np.ascontiguousarray(arr, np.uint8 if depth == 8 else np.uint16)
     for j in range(arr.shape[0]):
-        ctypes.memmove(ptr + j * rb, arr[j].tobytes(), arr.shape[1] * (
-            arr.shape[2] if arr.ndim == 3 else 1))
+        ctypes.memmove(ptr + j * rb, arr[j].tobytes(), arr[j].nbytes)
 
 
 def _get(ptr, rb, h, nbytes):
@@ -64,9 +65,9 @@ def _get(ptr, rb, h, nbytes):
     return np.frombuffer(bytes(buf), np.uint8).reshape(h, rb)[:, :nbytes]
 
 
-def _image(w, h, fmt, full=True, mc=1, cp=1, tc=13):
+def _image(w, h, fmt, full=True, mc=1, cp=1, tc=13, depth=8):
     L = lib()
-    img = L.avifImageCreate(w, h, 8, FORMATS[fmt])
+    img = L.avifImageCreate(w, h, depth, FORMATS[fmt])
     _at(img, 16, ctypes.c_int).value = 1 if full else 0
     _at(img, 104, ctypes.c_uint16).value = cp
     _at(img, 106, ctypes.c_uint16).value = tc
@@ -75,19 +76,20 @@ def _image(w, h, fmt, full=True, mc=1, cp=1, tc=13):
 
 
 def convert(planes, fmt="444", full=True, mc=1, cp=1, alpha=None,
-            premultiplied=False):
-    """avifImageYUVToRGB of 8-bit planes into RGB8 (RGBA8 with an alpha
-    plane): (result code, (H, W, 3 or 4) u8 or None)."""
+            premultiplied=False, depth=8):
+    """avifImageYUVToRGB of 8, 10 or 12-bit planes (alpha of the same
+    depth) into RGB8 (RGBA8 with an alpha plane): (result code, (H, W, 3
+    or 4) u8 or None)."""
     L = lib()
     h, w = planes[0].shape
-    img = _image(w, h, fmt, full, mc, cp)
+    img = _image(w, h, fmt, full, mc, cp, depth=depth)
     L.avifImageAllocatePlanes(img, 3 if alpha is not None else 1)
     for k, p in enumerate(planes):
         _put(_at(img, 24 + 8 * k, ctypes.c_void_p).value,
-             _at(img, 48 + 4 * k, ctypes.c_uint32).value, p)
+             _at(img, 48 + 4 * k, ctypes.c_uint32).value, p, depth)
     if alpha is not None:
         _put(_at(img, 64, ctypes.c_void_p).value,
-             _at(img, 72, ctypes.c_uint32).value, alpha)
+             _at(img, 72, ctypes.c_uint32).value, alpha, depth)
         _at(img, 80, ctypes.c_int).value = int(premultiplied)
     rgb = ctypes.create_string_buffer(128)
     ra = ctypes.addressof(rgb)
@@ -107,19 +109,22 @@ def convert(planes, fmt="444", full=True, mc=1, cp=1, alpha=None,
     return r, out
 
 
-def scale(plane, dw, dh):
-    """avifImageScale of one 8-bit plane (a 4:0:0 image)."""
+def scale(plane, dw, dh, depth=8):
+    """avifImageScale of one 8, 10 or 12-bit plane (a 4:0:0 image)."""
     L = lib()
     h, w = plane.shape
-    img = _image(w, h, "400")
+    img = _image(w, h, "400", depth=depth)
     L.avifImageAllocatePlanes(img, 1)
     _put(_at(img, 24, ctypes.c_void_p).value,
-         _at(img, 48, ctypes.c_uint32).value, plane)
+         _at(img, 48, ctypes.c_uint32).value, plane, depth)
     diag = ctypes.create_string_buffer(512)
     r = L.avifImageScale(img, dw, dh, diag)
     assert r == 0, (r, diag.value)
+    n = 1 if depth == 8 else 2
     out = _get(_at(img, 24, ctypes.c_void_p).value,
-               _at(img, 48, ctypes.c_uint32).value, dh, dw).copy()
+               _at(img, 48, ctypes.c_uint32).value, dh, dw * n).copy()
+    if n == 2:
+        out = out.view(np.uint16)
     L.avifImageDestroy(img)
     return out
 
