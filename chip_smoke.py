@@ -2709,6 +2709,54 @@ AVIF_HBD_SHA256 = {
     "ycgco_422_12": "842c60f46d279797e86b69b464d1c80b"
         "f250d1a6a1777163230ff5ae76e5bad1",
 }
+# tests/torch_avif_superres.py fixture_files: superres AVIF (AV1 key
+# frames coded at the reduced width, denominators 9-16, which PIL's save
+# cannot write), courtyard_d16 the wood albedo's 200 x 128 coded at 100
+# columns by the port's intra search; SHA-256 of PIL's RGBA decode of
+# each (libavif 1.3.0 with dav1d 1.5.1)
+AVIF_SUPERRES_FIXTURES = ROOT / "tests" / "data" / "formats_avif_superres"
+AVIF_SUPERRES_SHA256 = {
+    "courtyard_d16": "69350ec65cf76ce27c031ccde01012f7"
+        "9720937ceb8d6ac95fbd39320ec00d06",
+    "courtyard_d16_10": "b7906d2dfe8f0f3bc356a2f2c18ecdd9"
+        "e20151cb0cc3861c40038953309b1215",
+    "d10_420_sb128_lr256": "b0a65246703ae416fdb9c0eb3bd7f5bf"
+        "d595259d89879b4c280192f0f0eb61a4",
+    "d10_444_lr64": "891dab8eb60c5817a3b5d8664e8cfa06"
+        "10530501f81b5174b97059cce48f1bdd",
+    "d10_444_lr64_10": "4cd22a5e63ec78ad01baddd7270ca0a6"
+        "295c770f0c15e520794297bc18083dfa",
+    "d11_400_odd": "c1d84f9c2b198699859faf3714395733"
+        "971fabc206f3fdda090bdc461d5f1474",
+    "d11_400_odd_12": "258080c0467db1ac45fa4b2fcf42a1b4"
+        "7032a64d115e704116d3a94e164276b5",
+    "d12_420_alpha": "137c023a81f485b4fcd05136112e9820"
+        "5252e4c4c7379b0c32241f42f7299230",
+    "d12_420_alpha_10": "57344c6d11f323a54af228ce4dd85ab1"
+        "94dee77614fc54e48233a59e3d386954",
+    "d12_420_lossless": "8f71e8729578ea3fa54a087078112884"
+        "9e0c284bcab118ea41d33b76621a70fb",
+    "d13_422_lr128": "c3320035b554057fbe779b6f7edb2b35"
+        "01c430a89fee4af7b25f3e10cc85a286",
+    "d13_422_lr128_12": "392d865200e5e22128fb5d06548aa089"
+        "332229edfcfdf565d2375b0e3e4f73ca",
+    "d14_420_grain": "54a022d2aeaa74c135aea4feebb865d6"
+        "4ccc6d998e6e50aa8a190aed6a02c5d1",
+    "d14_420_grain_10": "149243750523eddbf93dea549ac58402"
+        "40d5b28286af790b06cc66822889ff2d",
+    "d15_420_tiles": "0575b481d8b834611f82dfe84121f36c"
+        "6c8390de0a06a83cfcc3db40284249de",
+    "d16_floor_12_screen_lossless": "518354e8a9b05029ee0c1328b9277788"
+        "9bddbb8c99abaa00af23dc92fd012635",
+    "d16_floor_20": "30d9ae28dc1a6f9445d22755b47e2110"
+        "002020e060b0b7ee9c5ff689b12256ce",
+    "d9_420_sb128_tiles": "8d158c174294501e9d3f7a878d59f365"
+        "cdb1d7266d91a50d988ffa9294095643",
+    "d9_420_sb128_tiles_12": "d14f5649e43d314cbf03747e3936e188"
+        "19101fdeb85da7b8ac0f9739f2d14d6b",
+    "d9_sequence": "9cc0f460b2a661bde660cf670a9eb65d"
+        "3811945e7a87836285428bc55e14b6fd",
+}
 # tests/test_torch_formats_htj2k.py fixture_files: HTJ2K (Part 15)
 # code-blocks from the test-side writer, each beside PIL's decode
 # (OpenJPEG 2.5.4) as PNG; courtyard/ the 12 courtyard textures as
@@ -3020,6 +3068,33 @@ def avif_hbd_fixtures() -> dict:
     return dict(seconds=seconds, files=found)
 
 
+def avif_superres_fixtures() -> dict:
+    """The superres AVIF fixtures through load_image, each decoded to PIL's
+    RGBA (its SHA-256 in AVIF_SUPERRES_SHA256); prints each read's host
+    ms, the courtyard texture's on a line of its own."""
+    t0 = time.perf_counter()
+    names = sorted(p.stem for p in AVIF_SUPERRES_FIXTURES.glob("*.avif"))
+    check(names == sorted(AVIF_SUPERRES_SHA256),
+          f"the superres AVIF fixtures: {names}")
+    found = {}
+    for name in names:
+        t = time.perf_counter()
+        img = image_io.load_image(AVIF_SUPERRES_FIXTURES / f"{name}.avif")
+        ms = (time.perf_counter() - t) * 1e3
+        got = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        check(got == AVIF_SUPERRES_SHA256[name],
+              f"avif_superres/{name}.avif decodes to PIL's RGBA (SHA-256 "
+              f"{AVIF_SUPERRES_SHA256[name]}, the port's {got})")
+        found[name] = dict(shape=list(img.shape), load_ms=ms)
+    seconds = time.perf_counter() - t0
+    print("courtyard texture saved as superres (wood albedo 200 x 128, "
+          "coded 100 wide), read: " + json.dumps(found["courtyard_d16"]),
+          flush=True)
+    print(f"superres AVIF fixtures ({len(names)}) equal to PIL's digests in "
+          f"{seconds:.1f} s (host ms each): " + json.dumps(found), flush=True)
+    return dict(seconds=seconds, files=found)
+
+
 def writer_image(suffix: str, mode: str) -> np.ndarray:
     """A seeded gradient-and-noise picture at WRITER_SIZES[suffix] in mode
     L, RGB or RGBA (a tenth of the RGBA pixels transparent)."""
@@ -3297,12 +3372,13 @@ def formats_phase(ctx) -> dict:
     committed AVIF files, as HTJ2K 9/7 codestreams and as YCgCo 4:2:0
     AVIF, each decoded to PIL's RGBA (their digests), each loaded with all
     12 slots and rendered to frames that are neither black nor white; and
-    the AVIF fixtures rewritten to 10 and 12 bits decoded to PIL's RGBA
-    (their digests)."""
+    the AVIF fixtures rewritten to 10 and 12 bits and the superres AVIF
+    fixtures decoded to PIL's RGBA (their digests)."""
     import tempfile
 
     t_phase = time.perf_counter()
-    found = dict(fixtures=format_fixtures(), avif_hbd=avif_hbd_fixtures())
+    found = dict(fixtures=format_fixtures(), avif_hbd=avif_hbd_fixtures(),
+                 avif_superres=avif_superres_fixtures())
     with tempfile.TemporaryDirectory() as tmp:
         found["writers"] = format_writers(Path(tmp))
         found["avif_written"] = avif_written(Path(tmp))

@@ -2,17 +2,17 @@
 sample (the AV1 specification, sections 7.3-7.20 for a key frame): the
 OBUs of the selected operating point, the frame header, each tile group's
 tiles through assets/av1_block.py, then the post filters in the
-specification's order (deblocking, CDEF, loop restoration) and film grain
-as dav1d applies it, and the frame's planes cropped to its size.
+specification's order (deblocking, CDEF, superres upscaling through
+assets/av1_superres.py, loop restoration) and film grain as dav1d applies
+it, and the frame's planes cropped to its size.
 
 8, 10 and 12-bit streams are decoded (the dequantisation tables, the
 post filters' thresholds and rounding and film grain's ranges follow the
-bit depth). Refused by name: superres and a sample holding more than one
-frame (spatial layers). PIL's wheel cannot write either to hold the port
-against: PIL refuses libaom's superres options ("Invalid codec-specific
-option"), and a layered image needs AV1 inter prediction, which this
-intra decoder does not carry. Frames above libavif's 16384 x 16384
-samples are refused, as libavif refuses them (its decoder's default
+bit depth). Refused by name: a sample holding more than one frame
+(spatial layers): a layered image needs AV1 inter prediction, which this
+intra decoder does not carry, and PIL's wheel writes none to hold the
+port against. Frames above libavif's 16384 x 16384 samples (upscaled)
+are refused, as libavif refuses them (its decoder's default
 imageSizeLimit; dav1d's frame size limit is set to it). The planes are
 uint8 at 8 bits and uint16 above, the per-4x4 arrays int8 (vectors
 int32): the frame state of a 16384 x 16384 4:2:0 frame holds 394 MiB of
@@ -27,7 +27,7 @@ import copy
 from types import SimpleNamespace
 
 from . import (av1_block, av1_cdef, av1_filmgrain, av1_loopfilter, av1_msac,
-               av1_obu, av1_restoration)
+               av1_obu, av1_restoration, av1_superres)
 from .av1_obu import AV1Error
 
 # libavif 1.3.0's AVIF_DEFAULT_IMAGE_SIZE_LIMIT, in samples
@@ -65,8 +65,6 @@ def decode(data: bytes, check_trailing: bool = False,
                 raise AV1Error("AV1 sample with more than one frame "
                                "(spatial layers) is not decoded by the port")
             hdr, pos = av1_obu.frame_header(data, s, e, seq, tid, sid)
-            if hdr.use_superres:
-                raise AV1Error("AV1 superres is not decoded by the port")
             if hdr.upscaled_width * hdr.height > MAX_PIXELS:
                 raise AV1Error("AV1 frame above 16384 x 16384 samples "
                                "(libavif's image size limit)")
@@ -143,6 +141,10 @@ def _finish(fs):
     pre_cdef = [p.copy() for p in fs.planes] if h.uses_lr else None
     if h.cdef_on:
         av1_cdef.apply(fs)
+    if h.width != h.upscaled_width:
+        fs.planes = av1_superres.apply(seq, h, fs.planes)
+        if pre_cdef is not None:
+            pre_cdef = av1_superres.apply(seq, h, pre_cdef)
     if h.uses_lr:
         av1_restoration.apply(fs, pre_cdef)
     planes = []

@@ -6,7 +6,8 @@ planes into the temporal unit libavif stores as an item, with libaom
     size needs (the first level of the AV1 specification's table A.3
     whose MaxPicSize, MaxHSize and MaxVSize hold it), 128 x 128
     superblocks where both sides exceed 480 samples, filter intra and
-    the intra edge filter on, CDEF, loop restoration and superres off,
+    the intra edge filter on, CDEF, loop restoration and superres off
+    (PIL's save refuses libaom's superres options, so writes none),
     no colour description, full range;
   - the tiles: libavif's automatic tiling (a tile per 512 x 512 of area,
     rounded up to a power of two and split towards the longer side) and

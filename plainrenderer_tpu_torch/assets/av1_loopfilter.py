@@ -62,7 +62,7 @@ def _pass(fs, plane, pass_):
         return
     i = np.arange(rows4)[:, None]
     j = np.arange(cols4)[None, :]
-    on = ((j << sx) * 4 < h.upscaled_width) & ((i << sy) * 4 < h.height)
+    on = ((j << sx) * 4 < h.width) & ((i << sy) * 4 < h.height)
     if pass_ == 0:
         on = on & (j > 0)
     else:

@@ -4,8 +4,8 @@ intra frame with its tile info (the AV1 specification, sections 5.3-5.11
 and 6.2-6.10, the syntax and the derived values decoding uses).
 
 What an AVIF reader meets and this module refuses by name: inter frames
-(an AVIF image or a sequence's first sample is a key frame), 10 and 12-bit
-streams, and a shown frame that is not in the selected operating point.
+(an AVIF image or a sequence's first sample is a key frame) and
+show_existing_frame as the first frame.
 """
 
 from __future__ import annotations
@@ -303,6 +303,9 @@ def frame_header(data: bytes, pos: int, end: int, seq, tid: int = 0,
     h.superres_denom = r.f(3) + 9 if h.use_superres else 8
     h.upscaled_width = h.width
     h.width = (h.upscaled_width * 8 + h.superres_denom // 2) // h.superres_denom
+    if h.use_superres:
+        # dav1d's (and libaom's) floor: at least 16 samples, or the width
+        h.width = max(h.width, min(16, h.upscaled_width))
     h.mi_cols = 2 * ((h.width + 7) >> 3)
     h.mi_rows = 2 * ((h.height + 7) >> 3)
     h.render_size_different = r.f(1)
@@ -310,7 +313,10 @@ def frame_header(data: bytes, pos: int, end: int, seq, tid: int = 0,
         r.f(16)
         r.f(16)
     h.allow_intrabc = 0
-    if h.allow_screen_content_tools and h.upscaled_width == h.width:
+    # dav1d tests use_superres where the specification compares the
+    # widths: they differ only below the floor's 16 samples, where
+    # superres keeps the width
+    if h.allow_screen_content_tools and not h.use_superres:
         h.allow_intrabc = r.f(1)
     h.disable_frame_end_update_cdf = (1 if seq.reduced or h.disable_cdf_update
                                       else r.f(1))
@@ -383,7 +389,7 @@ def frame_header(data: bytes, pos: int, end: int, seq, tid: int = 0,
             h.seg_qm_level.append((h.qm_y, h.qm_u, h.qm_v))
         else:
             h.seg_qm_level.append((15, 15, 15))
-    h.all_lossless = h.coded_lossless and h.width == h.upscaled_width
+    h.all_lossless = h.coded_lossless and not h.use_superres   # as dav1d
     # loop_filter_params
     h.lf_level = [0, 0, 0, 0]
     h.lf_sharpness = 0

@@ -141,9 +141,9 @@ def frame_header(w: BitWriter, seq, h):
     if seq.enable_superres:
         w.f(1, h.use_superres)
         if h.use_superres:
-            raise ValueError("superres is not written")
+            w.f(3, h.superres_denom - 9)
     w.f(1, 0)                        # render_and_frame_size_different
-    if h.allow_screen_content_tools:
+    if h.allow_screen_content_tools and not h.use_superres:
         w.f(1, h.allow_intrabc)
     _tile_info(w, seq, h)
     w.f(8, h.base_q_idx)

@@ -23,11 +23,13 @@ scaled to that size as libavif's avifImageScale does it (libyuv's box
 filter, assets/avif_scale.py), each tile of a grid and the alpha frame
 alike; PIL's image has the container's size.
 
-8, 10 and 12-bit streams are read; above 8 bits the planes are uint16
-and libavif's conversion takes them to RGBA8 (assets/avif_yuv.py).
+8, 10 and 12-bit streams are read, superres frames among them (upscaled
+to the frame's full width before loop restoration, as dav1d does); above
+8 bits the planes are uint16 and libavif's conversion takes them to
+RGBA8 (assets/avif_yuv.py).
 
-What the port does not decode raises ValueError naming it: superres,
-several frames in one sample (assets/av1_decode.py), the matrix
+What the port does not decode raises ValueError naming it: several
+frames in one sample (spatial layers, assets/av1_decode.py), the matrix
 coefficients libavif refuses too (assets/avif_yuv.py), and images above
 libavif's 16384 x 16384 samples, as libavif refuses them. Before anything
 is decoded, the size PIL's open reports goes through PIL's

@@ -52,7 +52,8 @@ from PIL import Image, ImageCms
 
 from plainrenderer_tpu.assets import image_io as jio
 from plainrenderer_tpu.render import scenebuild as jsb
-from plainrenderer_tpu_torch.assets import av1_decode, av1_obu, isobmff
+from plainrenderer_tpu_torch.assets import (av1_decode, av1_obu, avif_write,
+                                            isobmff)
 from plainrenderer_tpu_torch.assets import image_io as tio
 from plainrenderer_tpu_torch.render import scenebuild as tsb
 import torch_avif_depth
@@ -272,10 +273,12 @@ def _obu(typ: int, payload: bytes) -> bytes:
 
 
 def test_refused_tools_are_named(tmp_path):
-    """A superres frame (PIL refuses the encoder's superres options), built
-    by setting the bits in PIL's 8-bit stream, raises ValueError naming
-    it; the same stream with high_bitdepth set is a 10-bit one, which the
-    port decodes as PIL does."""
+    """A sample holding a second frame (spatial layers) raises ValueError
+    naming it. A superres frame (PIL refuses the encoder's superres
+    options), built by setting the bits in PIL's 8-bit stream, is kept at
+    its 7 samples by the floor of 16 and decodes as the plain stream and
+    as PIL; the same stream with high_bitdepth set is a 10-bit one, which
+    the port decodes as PIL does."""
     pl = _payload(_case_file("q75_7x5"))
     obus = {t: (s, e) for t, _, _, s, e in av1_obu.obus(pl)}
     s0, e0 = obus[av1_obu.OBU_SEQUENCE_HEADER]
@@ -302,12 +305,31 @@ def test_refused_tools_are_named(tmp_path):
         np.testing.assert_array_equal(got, want)
     _same(tmp_path, ten)
     # enable_superres on, and the frame's use_superres = 1, coded_denom 0
-    # after disable_cdf_update and allow_screen_content_tools
+    # after disable_cdf_update and allow_screen_content_tools, the header
+    # padded to its byte again before the tile data
+    ends = []
+
+    class Reader(av1_obu.BitReader):
+        def byte_align(self):
+            ends.append(self.bit - 8 * fs_)
+            super().byte_align()
+
+    plain, av1_obu.BitReader = av1_obu.BitReader, Reader
+    try:
+        av1_obu.frame_header(pl, fs_, fe, seq)
+    finally:
+        av1_obu.BitReader = plain
     sup = sbits[:at - 3] + "1" + sbits[at - 2:]
-    frame = fbits[:2] + "1000" + fbits[2:]
+    head = fbits[:2] + "1000" + fbits[2:ends[0]]
+    frame = head + "0" * (-len(head) % 8) + fbits[-(-ends[0] // 8) * 8:]
     assert not av1_obu.frame_header(pl, fs_, fe, seq)[0].allow_screen_content_tools
-    with pytest.raises(ValueError, match="superres"):
-        av1_decode.decode(stream(sup, frame))
+    got = av1_decode.decode(stream(sup, frame))
+    assert got.hdr.use_superres and got.width == got.hdr.width == 7
+    for a, b in zip(got.planes, av1_decode.decode(pl).planes):
+        np.testing.assert_array_equal(a, b)
+    _same(tmp_path, avif_write.write(7, 5, stream(sup, frame), got.seq))
+    with pytest.raises(ValueError, match="spatial layers"):
+        av1_decode.decode(pl + _obu(av1_obu.OBU_FRAME, pl[fs_:fe]))
 
 
 # ---------------------- containers built here ------------------------

@@ -13,7 +13,8 @@ dav1d 1.5.1), which the JAX package's load_image uses:
     chip_smoke.AVIF_HBD_SHA256 holds the port to on the card's machine;
   - a seeded sweep of single bit flips over rewritten files, and each box
     type altered in three of them: the same image as PIL's, or both
-    raise;
+    raise; and the flip whose out-of-range coefficients dav1d's assembly
+    clips otherwise than its C functions: equal to PIL's C path;
   - avif_yuv.yuv_to_rgba (libyuv's and libavif's own paths) on seeded 10
     and 12-bit planes in every matrix, range and subsampling, with
     straight and premultiplied alpha, and avif_scale.scale_plane on 10
@@ -25,8 +26,9 @@ dav1d 1.5.1), which the JAX package's load_image uses:
 ``PYTHONPATH=. python tests/test_torch_formats_avif_hbd.py
 --write-fixtures`` regenerates tests/data/formats_avif_hbd and prints
 chip_smoke's AVIF_HBD_SHA256; ``--sweep N SEED`` runs N seeded flips in
-each rewritten fixture against PIL and prints what differs. One thread,
-no card."""
+each rewritten fixture against PIL and prints what differs, and with
+``--both-masks`` also what differs from PIL with dav1d kept to its C
+functions (dav1d_set_cpu_flags_mask(0)). One thread, no card."""
 
 import glob
 import hashlib
@@ -160,6 +162,28 @@ def test_altered_box_types_match_jax(tmp_path, name):
         _same(tmp_path, bytes(buf), f"box{k}.avif")
 
 
+def test_flipped_coefficients_follow_dav1ds_c_path():
+    """matrix15_444_10.avif with bit 2308 flipped codes a 16 x 8 CfL
+    block's DCT_DCT coefficients of +-131072, out of every conformant
+    stream's range: dav1d's x86 assembly clips them otherwise than its C
+    itx_1d.c, so PIL's decode depends on the host's CPU (33 of the 17 x 33
+    pixels differ between the two paths). The port follows the C path:
+    equal to PIL's decode under dav1d_set_cpu_flags_mask(0) on every
+    pixel; the default mask is restored for the decodes that follow."""
+    buf = bytearray((FIXTURES / "matrix15_444_10.avif").read_bytes())
+    buf[2308 >> 3] ^= 0x80 >> (2308 & 7)
+    data = bytes(buf)
+    la.dav1d_cpu_mask(0)
+    try:
+        with Image.open(io.BytesIO(data)) as im:
+            want = np.asarray(im.convert("RGBA"))
+    finally:
+        la.dav1d_cpu_mask(0xFFFFFFFF)
+    got = tio.decode_image(data, "flip.avif", ".avif")
+    assert want.shape == (17, 33, 4)
+    np.testing.assert_array_equal(got, want)
+
+
 # ------------------------ conversion and scaling ------------------------
 
 MATRICES = [(1, 1), (2, 1), (6, 1), (9, 1), (0, 1), (8, 1), (4, 1), (7, 1),
@@ -267,29 +291,49 @@ def write_fixtures():
     print("}")
 
 
-def sweep_flips(n: int, seed: int) -> dict:
+def _pil_or_error(data: bytes):
+    try:
+        with Image.open(io.BytesIO(data)) as im:
+            return np.asarray(im.convert("RGBA"))
+    except Exception as e:  # noqa: BLE001
+        return e
+
+
+def _differ(want, got) -> bool:
+    return isinstance(want, Exception) != isinstance(got, Exception) or (
+        not isinstance(want, Exception) and not np.array_equal(want, got))
+
+
+def sweep_flips(n: int, seed: int, both_masks: bool = False) -> dict:
+    """n seeded flips in each fixture: the port against PIL ("differ");
+    with both_masks also against PIL with dav1d kept to its C functions
+    (dav1d_set_cpu_flags_mask(0): "differ_c")."""
     rng = np.random.default_rng(seed)
     out = {"differ": [], "cases": 0}
+    if both_masks:
+        out["differ_c"] = []
     for p in sorted(FIXTURES.glob("*.avif")):
         data = p.read_bytes()
         for _ in range(n):
             buf = bytearray(data)
             bit = int(rng.integers(0, len(data) * 8))
             buf[bit >> 3] ^= 0x80 >> (bit & 7)
-            try:
-                with Image.open(io.BytesIO(bytes(buf))) as im:
-                    want = np.asarray(im.convert("RGBA"))
-            except Exception as e:  # noqa: BLE001
-                want = e
+            want = _pil_or_error(bytes(buf))
             try:
                 got = tio.decode_image(bytes(buf), p.name, ".avif")
             except ValueError as e:
                 got = e
             out["cases"] += 1
-            if isinstance(want, Exception) != isinstance(got, Exception) or (
-                    not isinstance(want, Exception)
-                    and not np.array_equal(want, got)):
+            if _differ(want, got):
                 out["differ"].append((p.name, bit))
+            if both_masks:
+                la.dav1d_cpu_mask(0)
+                try:
+                    want = _pil_or_error(bytes(buf))
+                finally:
+                    la.dav1d_cpu_mask(0xFFFFFFFF)
+                if _differ(want, got):
+                    out["differ_c"].append((p.name, bit))
     return out
 
 
@@ -298,4 +342,5 @@ if __name__ == "__main__":
         write_fixtures()
     elif "--sweep" in sys.argv:
         i = sys.argv.index("--sweep")
-        print(sweep_flips(int(sys.argv[i + 1]), int(sys.argv[i + 2])))
+        print(sweep_flips(int(sys.argv[i + 1]), int(sys.argv[i + 2]),
+                          "--both-masks" in sys.argv))

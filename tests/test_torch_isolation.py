@@ -96,6 +96,7 @@ def test_importing_every_module_loads_no_jax():
               "assets.av1_intra_search", "assets.av1_block_encode",
               "assets.av1_msac_encode", "assets.av1_obu_write",
               "assets.av1_fwd_transform", "assets.av1_quantize",
+              "assets.av1_superres",
               "ops.debugviz", "runtime.shell", "runtime.overlay",
               "runtime.app", "parallel.comm", "parallel.sharding"):
         assert "plainrenderer_tpu_torch." + m in loaded, m

@@ -260,11 +260,17 @@ def to_depth(data: bytes, depth: int) -> bytes:
                 buf[j] = depth
     data = bytes(buf)
     for start, end, chunk, s, e in reversed(_sequence_obus(data, f)):
-        new = _obu(av1_obu.OBU_SEQUENCE_HEADER,
-                   sequence_header(chunk, s, e, depth))
-        buf = bytearray(data)
-        delta = len(new) - (end - start)
-        if delta:
-            _grow(buf, start, delta)
-        data = bytes(buf[:start]) + new + bytes(buf[end:])
+        data = splice(data, start, end, _obu(
+            av1_obu.OBU_SEQUENCE_HEADER, sequence_header(chunk, s, e, depth)))
     return data
+
+
+def splice(data: bytes, start: int, end: int, new: bytes) -> bytes:
+    """The file with data[start:end] (inside one item extent or sample,
+    or a whole one) replaced by new, the boxes, iloc extents and sample
+    tables around it moved with it."""
+    buf = bytearray(data)
+    delta = len(new) - (end - start)
+    if delta:
+        _grow(buf, start, delta)
+    return bytes(buf[:start]) + new + bytes(buf[end:])

@@ -1,7 +1,8 @@
 """ctypes bindings to the libavif 1.3.0 that PIL's wheel bundles
 (pillow.libs/libavif-*.so), for the AVIF tests (a helper, not collected):
-its YUV to RGB conversion, its plane scaler and its encoder (AV1 through
-the wheel's libaom), with the struct offsets of libavif 1.3.0 on x86-64.
+its YUV to RGB conversion, its plane scaler, its encoder (AV1 through
+the wheel's libaom) and dav1d's CPU flags mask, with the struct offsets
+of libavif 1.3.0 on x86-64.
 
 avifImage: width 0, height 4, depth 8, yuvFormat 12, yuvRange 16, planes
 24, row bytes 48, alphaPlane 64, alphaRowBytes 72, alphaPremultiplied 80,
@@ -44,8 +45,17 @@ def lib():
         L.avifEncoderWrite.argtypes = [vp, vp, vp]
         L.avifEncoderDestroy.argtypes = [vp]
         L.avifRWDataFree.argtypes = [vp]
+        L.dav1d_set_cpu_flags_mask.argtypes = [ctypes.c_uint]
         _lib = L
     return _lib
+
+
+def dav1d_cpu_mask(mask: int) -> None:
+    """dav1d_set_cpu_flags_mask of the dav1d 1.5.1 linked into the
+    libavif: 0 keeps dav1d to its C functions, 0xffffffff (its default)
+    lets it take the host's SIMD ones; it holds for the dav1d contexts
+    opened after the call, so for PIL's decodes that follow."""
+    lib().dav1d_set_cpu_flags_mask(mask)
 
 
 def _at(addr, off, t):
